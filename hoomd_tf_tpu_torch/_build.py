@@ -1,0 +1,66 @@
+"""Build the package's CUDA kernels from ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
+with a plain C interface (loaded with ``ctypes``) under ``build/`` in the
+package directory. The file name carries a hash of the source and the
+flags, so an edited source rebuilds and a stale library is never loaded.
+A missing ``nvcc`` or a compile error raises; there is no fallback.
+"""
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["build_shared_library", "BUILD_LOG"]
+
+_PKG = Path(__file__).resolve().parent
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: name -> (seconds, compiler output) of the builds made in this process
+BUILD_LOG = {}
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        cand = Path(home) / "bin" / "nvcc"
+        path = str(cand) if cand.exists() else None
+    if path is None:
+        raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME): "
+                           "the CUDA kernels are built from source")
+    return path
+
+
+def build_shared_library(name):
+    """Path of the compiled ``csrc/<name>.cu`` library, building it if
+    no library for this exact source and flag set exists yet."""
+    src = _PKG / "csrc" / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() +
+                            " ".join(_FLAGS).encode()).hexdigest()[:16]
+    out_dir = _PKG / "build"
+    lib = out_dir / f"lib{name}-{digest}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {src.name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    BUILD_LOG[name] = (time.perf_counter() - t0,
+                       proc.stdout + proc.stderr)
+    return lib
