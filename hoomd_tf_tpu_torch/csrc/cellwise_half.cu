@@ -16,17 +16,29 @@
 //
 // Masks: d2 <= rc2; the in-cell self pair is excluded by column index in
 // block 0 (never by a small-d2 threshold); an optional per-type-pair
-// rc2 table; r2 = max(d2, min_r2). The pair function is the LJ-family
-// form U = 4 eps (sr6^2 - sr6) + shift, sr6 = (sigma^2 / r2)^3, cut at the
-// form's own rc2 with <= (or < when `strict`, for WCA), read from a
-// per-type-pair table of float4 (eps, sigma^2, shift, rc2_form).
+// rc2 table; r2 = max(d2, min_r2). The pair function is a functor the
+// kernel is templated on:
+//   LJForm   -- U = 4 eps (sr6^2 - sr6) + shift, sr6 = (sigma^2 / r2)^3,
+//               cut at the form's own rc2 with <= (or < when `strict`, for
+//               WCA), from a per-type-pair table of float4
+//               (eps, sigma^2, shift, rc2_form);
+//   ChebForm -- the Chebyshev proxy of a trained pair potential
+//               (ops/chebyshev.py): u = 1/r2, w = clip((u - mid) * inv_half,
+//               -1, 1), two Clenshaw recurrences over a [P][2][K] table of
+//               coefficients (c, cd) staged in shared memory, and past u_hi
+//               the C^1 linear continuation U_hi + s_hi (u - u_hi) with
+//               U_hi = sum c, s_hi = sum cd. It returns (U, -su u^2). A typed
+//               lane reads the row of its unordered type pair; types outside
+//               the table contribute nothing (the JAX mask blend gives zero
+//               coefficients there).
 // Rows at or above the cell's occupancy are skipped (the analog of the
 // Pallas kernel's 8-row-group predicate): real particles occupy a prefix
 // of each cell's slots.
 //
 // What bounds it on an H100: the pair lanes. Each step evaluates about
 // n_cells * occ * 14*cap pairs (~5.5e7 at the 64k fluid), each a handful
-// of f32 FLOPs, a reciprocal and one warp-shuffle reduction per channel;
+// of f32 FLOPs (about 6K more inside the cut for the proxy form's two
+// Clenshaw series), a reciprocal and one warp-shuffle reduction per channel;
 // the [n_cells, 14*cap] f32 planes are read once per cell (a few MB, far
 // below the memory roof). The design keeps all of it on chip: one block
 // per cell, a thread per candidate lane (striding over lanes in chunks
@@ -46,21 +58,105 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// LJ family: read straight from the float4 table in global memory.
+struct LJForm {
+  const float4* tab;
+  int t;
+  int strict;
+
+  __device__ __forceinline__ void stage(float*, int) const {}
+
+  __device__ __forceinline__ bool operator()(float r2, int ti, int tj,
+                                             float& U, float& s) const {
+    const float4 f = tab[t == 1 ? 0 : ti * t + tj];
+    const bool inside = strict ? (r2 < f.w) : (r2 <= f.w);
+    if (!inside) return false;
+    const float inv = 1.0f / r2;
+    const float x = f.y * inv;
+    const float sr6 = x * x * x;
+    s = -12.0f * f.x * (2.0f * sr6 - 1.0f) * sr6 * inv;
+    U = 4.0f * f.x * (sr6 * sr6 - sr6) + f.z;
+    return true;
+  }
+};
+
+// Sequential sum c[0] + c[1] + ... (the order of the plain version).
+__device__ __forceinline__ float seq_sum(const float* c, int K) {
+  float v = c[0];
+  for (int k = 1; k < K; ++k) v = v + c[k];
+  return v;
+}
+
+__device__ __forceinline__ float clenshaw(const float* c, int K, float w) {
+  float b1 = 0.f, b2 = 0.f;
+  const float two_w = 2.0f * w;
+  for (int k = K - 1; k > 0; --k) {
+    const float b = c[k] + two_w * b1 - b2;
+    b2 = b1;
+    b1 = b;
+  }
+  return c[0] + w * b1 - b2;
+}
+
+// Chebyshev proxy: the [P][2][K] coefficient table and the per-pair edge
+// values (U_hi, s_hi) live in shared memory, staged once per block.
+struct ChebForm {
+  const float* coef;  // global [P][2][K]
+  int T;              // types of the table (1 = untyped)
+  int K;
+  float mid, inv_half, u_hi;
+  float* sm;          // shared [P][2][K] then [P][2] edge values
+
+  __device__ __forceinline__ int pairs() const { return T * (T + 1) / 2; }
+
+  __device__ __forceinline__ void stage(float* smem, int tid) {
+    sm = smem;
+    const int P = pairs();
+    for (int i = tid; i < P * 2 * K; i += kThreads) sm[i] = coef[i];
+    for (int i = tid; i < P * 2; i += kThreads)
+      sm[P * 2 * K + i] = seq_sum(coef + i * K, K);
+  }
+
+  __device__ __forceinline__ bool operator()(float r2, int ti, int tj,
+                                             float& U, float& s) const {
+    int p = 0;
+    if (T > 1) {
+      if (ti < 0 || ti >= T || tj < 0 || tj >= T) return false;
+      const int a = min(ti, tj), b = max(ti, tj);
+      p = a * T - a * (a - 1) / 2 + (b - a);
+    }
+    const float* c = sm + p * 2 * K;
+    const float* hi = sm + pairs() * 2 * K + p * 2;
+    const float u = 1.0f / r2;
+    const float over = fmaxf(u - u_hi, 0.f);
+    float su;
+    if (over <= 0.f) {
+      const float w = fminf(fmaxf((u - mid) * inv_half, -1.0f), 1.0f);
+      U = clenshaw(c, K, w);
+      su = clenshaw(c + K, K, w);
+    } else {
+      U = hi[0] + hi[1] * over;
+      su = hi[1];
+    }
+    s = -su * u * u;
+    return true;
+  }
+};
+
 template <bool ENERGY, bool VIRIAL>
 struct Channels {
   static constexpr int kForce = ENERGY ? 1 : 0;
   static constexpr int kCount = 3 + (ENERGY ? 1 : 0) + (VIRIAL ? 6 : 0);
 };
 
-template <bool ENERGY, bool VIRIAL>
+template <bool ENERGY, bool VIRIAL, class Form>
 __global__ void __launch_bounds__(kThreads)
 half_stencil_kernel(const int* __restrict__ occ,
                     const float* __restrict__ gx,
                     const float* __restrict__ gy,
                     const float* __restrict__ gz,
-                    const int* __restrict__ gt,
-                    const float4* __restrict__ form, int form_t,
-                    int strict, const float* __restrict__ rcm, int rcm_t,
+                    const int* __restrict__ gt, Form form,
+                    const float* __restrict__ rcm, int rcm_t,
                     int n_cells, int cap, float rc2, float min_r2,
                     float* __restrict__ out) {
   using Ch = Channels<ENERGY, VIRIAL>;
@@ -77,6 +173,7 @@ half_stencil_kernel(const int* __restrict__ occ,
   float* qz = qy + cap;
   int* qt = reinterpret_cast<int*>(qz + cap);
   float* red = reinterpret_cast<float*>(qt + cap);  // [kWarps][cap][NCH]
+  form.stage(red + kWarps * cap * NCH, tid);  // the form's own table
 
   const size_t base = static_cast<size_t>(c) * C;
   const size_t plane = static_cast<size_t>(n_cells) * C;
@@ -131,28 +228,20 @@ half_stencil_kernel(const int* __restrict__ occ,
           const float prc2 = known ? rcm[ti * rcm_t + tj] : 0.f;
           ok = ok && d2 <= prc2;
         }
-        if (ok) {
-          const float4 f = form[form_t == 1 ? 0 : ti * form_t + tj];
-          const float r2 = fmaxf(d2, min_r2);
-          const bool inside = strict ? (r2 < f.w) : (r2 <= f.w);
-          if (inside) {
-            const float inv = 1.0f / r2;
-            const float x = f.y * inv;
-            const float sr6 = x * x * x;
-            const float s = -12.0f * f.x * (2.0f * sr6 - 1.0f) * sr6 * inv;
-            if (ENERGY) p[0] = 4.0f * f.x * (sr6 * sr6 - sr6) + f.z;
-            const float sdx = s * dx, sdy = s * dy, sdz = s * dz;
-            p[OF] = sdx;
-            p[OF + 1] = sdy;
-            p[OF + 2] = sdz;
-            if (VIRIAL) {
-              p[OF + 3] = sdx * dx;
-              p[OF + 4] = sdy * dy;
-              p[OF + 5] = sdz * dz;
-              p[OF + 6] = sdx * dy;
-              p[OF + 7] = sdx * dz;
-              p[OF + 8] = sdy * dz;
-            }
+        float U, s;
+        if (ok && form(fmaxf(d2, min_r2), ti, tj, U, s)) {
+          if (ENERGY) p[0] = U;
+          const float sdx = s * dx, sdy = s * dy, sdz = s * dz;
+          p[OF] = sdx;
+          p[OF + 1] = sdy;
+          p[OF + 2] = sdz;
+          if (VIRIAL) {
+            p[OF + 3] = sdx * dx;
+            p[OF + 4] = sdy * dy;
+            p[OF + 5] = sdz * dz;
+            p[OF + 6] = sdx * dy;
+            p[OF + 7] = sdx * dz;
+            p[OF + 8] = sdy * dz;
           }
         }
       }
@@ -183,15 +272,16 @@ half_stencil_kernel(const int* __restrict__ occ,
   }
 }
 
-template <bool ENERGY, bool VIRIAL>
+template <bool ENERGY, bool VIRIAL, class Form>
 int launch(const int* occ, const float* gx, const float* gy, const float* gz,
-           const int* gt, const float* form, int form_t, int strict,
-           const float* rcm, int rcm_t, int n_cells, int cap, float rc2,
-           float min_r2, float* out, cudaStream_t stream) {
+           const int* gt, Form form, int form_floats, const float* rcm,
+           int rcm_t, int n_cells, int cap, float rc2, float min_r2,
+           float* out, cudaStream_t stream) {
   constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
   const size_t smem = sizeof(float) * 4 * cap +
-                      sizeof(float) * kWarps * cap * NCH;
-  auto kernel = half_stencil_kernel<ENERGY, VIRIAL>;
+                      sizeof(float) * kWarps * cap * NCH +
+                      sizeof(float) * form_floats;
+  auto kernel = half_stencil_kernel<ENERGY, VIRIAL, Form>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -199,40 +289,68 @@ int launch(const int* occ, const float* gx, const float* gy, const float* gz,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<n_cells, kThreads, smem, stream>>>(
-      occ, gx, gy, gz, gt, reinterpret_cast<const float4*>(form), form_t,
-      strict, rcm, rcm_t, n_cells, cap, rc2, min_r2, out);
+      occ, gx, gy, gz, gt, form, rcm, rcm_t, n_cells, cap, rc2, min_r2, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Form>
+int dispatch(const int* occ, const float* gx, const float* gy,
+             const float* gz, const int* gt, Form form, int form_floats,
+             const float* rcm, int rcm_t, int n_cells, int cap, float rc2,
+             float min_r2, int needs_energy, int needs_virial, float* out,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (needs_energy && needs_virial)
+    return launch<true, true>(occ, gx, gy, gz, gt, form, form_floats, rcm,
+                              rcm_t, n_cells, cap, rc2, min_r2, out, s);
+  if (needs_energy)
+    return launch<true, false>(occ, gx, gy, gz, gt, form, form_floats, rcm,
+                               rcm_t, n_cells, cap, rc2, min_r2, out, s);
+  if (needs_virial)
+    return launch<false, true>(occ, gx, gy, gz, gt, form, form_floats, rcm,
+                               rcm_t, n_cells, cap, rc2, min_r2, out, s);
+  return launch<false, false>(occ, gx, gy, gz, gt, form, form_floats, rcm,
+                              rcm_t, n_cells, cap, rc2, min_r2, out, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes one block needs (the wrapper checks the limit).
-long htf_half_stencil_smem(int cap, int n_channels) {
-  return static_cast<long>(sizeof(float)) * (4L * cap +
-                                             1L * kWarps * cap * n_channels);
+// Shared-memory bytes one block needs (the wrapper checks the limit);
+// `form_floats` is the pair form's own table (0 for the LJ form).
+long htf_half_stencil_smem(int cap, int n_channels, int form_floats) {
+  return static_cast<long>(sizeof(float)) *
+         (4L * cap + 1L * kWarps * cap * n_channels + form_floats);
 }
 
-// Launch on `stream`; returns cudaGetLastError() of the launch (0 = ok).
+// LJ-family form. Launch on `stream`; returns cudaGetLastError() of the
+// launch (0 = ok).
 int htf_half_stencil(const int* occ, const float* gx, const float* gy,
                      const float* gz, const int* gt, const float* form,
                      int form_t, int strict, const float* rcm, int rcm_t,
                      int n_cells, int cap, float rc2, float min_r2,
                      int needs_energy, int needs_virial, float* out,
                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (needs_energy && needs_virial)
-    return launch<true, true>(occ, gx, gy, gz, gt, form, form_t, strict, rcm,
-                              rcm_t, n_cells, cap, rc2, min_r2, out, s);
-  if (needs_energy)
-    return launch<true, false>(occ, gx, gy, gz, gt, form, form_t, strict, rcm,
-                               rcm_t, n_cells, cap, rc2, min_r2, out, s);
-  if (needs_virial)
-    return launch<false, true>(occ, gx, gy, gz, gt, form, form_t, strict,
-                               rcm, rcm_t, n_cells, cap, rc2, min_r2, out, s);
-  return launch<false, false>(occ, gx, gy, gz, gt, form, form_t, strict, rcm,
-                              rcm_t, n_cells, cap, rc2, min_r2, out, s);
+  LJForm f{reinterpret_cast<const float4*>(form), form_t, strict};
+  return dispatch(occ, gx, gy, gz, gt, f, 0, rcm, rcm_t, n_cells, cap, rc2,
+                  min_r2, needs_energy, needs_virial, out, stream);
+}
+
+// Chebyshev-proxy form: `coef` is the [P][2][K] float32 table of a
+// `ntypes`-type proxy (P = ntypes (ntypes + 1) / 2).
+int htf_half_stencil_cheb(const int* occ, const float* gx, const float* gy,
+                          const float* gz, const int* gt, const float* coef,
+                          int ntypes, int K, float mid, float inv_half,
+                          float u_hi, const float* rcm, int rcm_t,
+                          int n_cells, int cap, float rc2, float min_r2,
+                          int needs_energy, int needs_virial, float* out,
+                          void* stream) {
+  ChebForm f{coef, ntypes, K, mid, inv_half, u_hi, nullptr};
+  const int P = ntypes * (ntypes + 1) / 2;
+  return dispatch(occ, gx, gy, gz, gt, f, P * 2 * K + P * 2, rcm, rcm_t,
+                  n_cells, cap, rc2, min_r2, needs_energy, needs_virial, out,
+                  stream);
 }
 
 const char* htf_error_string(int code) {

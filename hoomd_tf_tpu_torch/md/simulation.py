@@ -1,20 +1,30 @@
 """Simulation: the MD engine (PyTorch port of the main-path subset of
 ``hoomd_tf_tpu/md/simulation.py``).
 
-The ported path is the pair fast route of the cellwise mode: a
-:class:`..models.pair.PairModel` attached with ``nlist='cellwise'``. The
-state lives in cell-slot order during ``run()``; the slot assignment is
-rebuilt unconditionally every K steps (the static repack schedule), the
-Verlet criterion still runs every step as a staleness bit, and the pair
-forces come from :func:`..ops.cellwise.analytic_pair_forces` -- kernel K1
-on a CUDA device, the full-stencil tensor form on the CPU (as the JAX
-package runs the XLA form off the TPU).
+The ported path is the pair fast route of the cellwise mode. Pair forces
+come from :func:`..ops.cellwise.analytic_pair_forces` -- kernel K1 on a
+CUDA device, the full-stencil tensor form on the CPU (as the JAX package
+runs the XLA form off the TPU) -- for the built-in forces
+(``add_force``: ``md.LennardJones``, ``md.WCA``) and for an attached
+:class:`..models.pair.PairModel`. The state lives in cell-slot order
+during ``run()``; the slot assignment is rebuilt unconditionally every K
+steps (the static repack schedule), and the Verlet criterion still runs
+every step as a staleness bit.
+
+Online training (``tfcompute.attach(train=True)``): one built-in
+evaluation per step serves as both the labels and the driving forces
+(the trained model does not drive the dynamics); the model's Chebyshev
+proxy is fitted at its nodes, its forces come from
+:func:`..ops.pair_train.pair_train_forces` (K1's proxy form forward,
+kernel K2 backward on CUDA) and the optimizer steps in place. A run that
+is rolled back (capacity overflow, staleness) rolls the model's weights
+and the optimizer's state back with it.
 
 Host syncs: ``run()`` reads the device back exactly once, after the
 step loop, in one packed copy (:meth:`Simulation._fetch_run_scalars`):
-the overflow and staleness bits, the running max cell occupancy and the
-running max speed stay device tensors until then. With
-``check_syncs = True`` the step loop runs under
+the overflow and staleness bits, the running max cell occupancy, the
+running max speed and the per-step training losses stay device tensors
+until then. With ``check_syncs = True`` the step loop runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any hidden sync raises.
 
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
@@ -23,6 +33,7 @@ remote TPU) has no counterpart here.
 """
 
 import contextlib
+import copy
 import dataclasses
 import warnings
 
@@ -33,6 +44,7 @@ from . import integrators as _integrators
 from . import thermo as _thermo
 from .slots import SlotLayout
 from .state import init_state, lattice_positions
+from .._device import resolve_device
 from ..ops import cellwise as _cw
 from ..ops.box import check_orthorhombic
 
@@ -62,7 +74,8 @@ class Simulation:
     :param seed: seed of the simulation's ``torch.Generator``
         (velocities).
     :param device: the device every tensor lives on (default: the
-        current CUDA device when there is one, else the CPU).
+        current CUDA device; with no card this raises -- pass
+        ``device="cpu"`` to run on the CPU).
     :param auto_replan: re-plan the cellwise geometry at ``run()``
         boundaries (tighter capacity, overflow self-heal).
     """
@@ -77,10 +90,7 @@ class Simulation:
         self.dt = float(dt)
         self._integrator = integrator or _integrators.NVE()
         self.seed = seed
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        # resolved ("cuda" -> "cuda:0") so device checks compare exactly
-        self.device = torch.empty(0, device=device).device
+        self.device = resolve_device(device, "Simulation()")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         self.auto_replan = bool(auto_replan)
@@ -89,10 +99,15 @@ class Simulation:
         self.stencil = "auto"
         #: run the step loop under set_sync_debug_mode("error")
         self.check_syncs = False
-        #: pair-force evaluations made so far (loop steps and refreshes)
+        #: pair-force evaluations made so far (built-in and model forces,
+        #: loop steps and refreshes): on CUDA, each one launches K1
         self.force_evals = 0
+        #: training updates made so far: on CUDA, each one launches K2
+        self.train_steps = 0
         self.state = None
         self.tfc = None
+        #: built-in force computes (``add_force``)
+        self.forces = []
         self._layout = None
         self._packed = None
         self._form = None
@@ -161,6 +176,16 @@ class Simulation:
         self._vmax_cache = None
         return self.state
 
+    def add_force(self, force):
+        """Register a built-in pair force (``md.LennardJones``,
+        ``md.WCA``). Built-in forces drive the dynamics alone, add to an
+        attached model's forces, or serve as the labels of online
+        training."""
+        self.forces.append(force)
+        self._layout = None
+        self._packed = None
+        return force
+
     def thermo(self):
         """Current thermodynamic quantities (dict of host floats)."""
         return {k: float(v) for k, v in _thermo.thermo(self.state).items()}
@@ -178,16 +203,53 @@ class Simulation:
     # ------------------------------------------------------------------
     # planning
     # ------------------------------------------------------------------
-    def _model_form(self):
-        return self.tfc.model.pair_kernel_form()
+    def _nlist_params(self):
+        """``(r_cut, rc_matrix, method)`` of the neighbor build: from the
+        attached driver, or with none from the built-in forces' own
+        cutoffs (the cellwise mode, when the box holds 3 cells per axis);
+        ``None`` when nothing needs neighbors."""
+        tfc = self.tfc
+        if tfc is not None:
+            return tfc.r_cut, tfc.r_cut_matrix, tfc.nlist_method
+        r = max((float(getattr(f, "r_cut", 0.0) or 0.0)
+                 for f in self.forces), default=0.0)
+        if r <= 0.0:
+            return None
+        if not np.all(np.asarray(self._lengths) // r >= 3):
+            raise NotImplementedError(
+                f"built-in forces alone in a box {self._lengths} of fewer "
+                f"than 3 cells of r_cut={r} per axis need the dense "
+                "neighbor list, which is not ported yet")
+        return r, None, "cellwise"
+
+    def _model_has_form(self):
+        model = self.tfc.model
+        return bool(model.proxy_degree) or \
+            model.pair_kernel_form() is not None
 
     def _kernel_eligible(self):
         """Will kernel K1 be the hot loop? (The planner then costs the
-        14-block candidate width, like ``_pallas_eligible`` on a TPU.)"""
+        14-block candidate width, like ``_pallas_eligible`` on a TPU; on
+        the card every lane pass of a train step is a 14-wide kernel
+        too.)"""
         if self.stencil == "kernel":
             return True
-        return (self.stencil == "auto" and self.device.type == "cuda" and
-                self._model_form() is not None)
+        if self.stencil != "auto" or self.device.type != "cuda":
+            return False
+        return self.tfc is None or self.tfc.train or self._model_has_form()
+
+    def _model_lane_cost_scale(self):
+        """Relative per-lane cost of the model's pair evaluation against
+        the LJ form the planner's lane cost stands for. For a proxy this
+        is an operation count, not a measurement: two Clenshaw series of
+        ~3 operations per term against LJ's ~10 inside the cut, times 3
+        in training (the labels, the proxy primal and K2's moment pass),
+        the shape of the JAX package's ``_model_lane_cost_scale``."""
+        tfc = self.tfc
+        if tfc is None or not tfc.model.proxy_degree:
+            return 1.0
+        scale = max(1.0, (6.0 * tfc.model.proxy_degree + 10.0) / 10.0)
+        return scale * 3.0 if tfc.train else scale
 
     def _vmax_now(self):
         """Max particle speed (one readback, cached per state object)."""
@@ -204,8 +266,7 @@ class Simulation:
         return self.dt * vmax / 0.8 if vmax > 0 else None
 
     def _plan_from_current(self):
-        tfc = self.tfc
-        method = tfc.nlist_method
+        r_cut, _, method = self._nlist_params()
         config = method if isinstance(method, _cw.Cellwise) else None
         occ_observed = None
         hist = getattr(self, "_occ_hist", [])
@@ -216,12 +277,13 @@ class Simulation:
                     sum(h[2] for h in hist) >= 300:
                 occ_observed = (okey[0], max(h[1] for h in hist))
         plan = _cw.plan_cellwise(
-            self.state.n_particles, self._lengths, tfc.r_cut, config=config,
+            self.state.n_particles, self._lengths, r_cut, config=config,
             positions=(None if occ_observed is not None else
                        self.state.positions.detach().cpu().numpy()),
             lo=self._lo, drift_per_step=self._drift_estimate(),
             width_blocks=14 if self._kernel_eligible() else 27,
-            occ_observed=occ_observed)
+            occ_observed=occ_observed,
+            lane_cost_scale=self._model_lane_cost_scale())
         floor = getattr(self, "_capacity_floor", 0)
         if plan is not None and plan.capacity < floor:
             plan = dataclasses.replace(plan, capacity=floor)
@@ -230,23 +292,31 @@ class Simulation:
     def _ensure_layout(self):
         if self._layout is not None:
             return self._layout
+        r_cut, rc_matrix, _ = self._nlist_params()
         plan = self._plan_from_current()
         if plan is None:
             raise ValueError(
                 f"Box {self._lengths} too small for the cellwise mode at "
-                f"r_cut={self.tfc.r_cut} (needs >= 3 cells per axis)")
+                f"r_cut={r_cut} (needs >= 3 cells per axis)")
         layout = SlotLayout(plan, self.state.n_particles, self._lo,
-                            rc_matrix=self.tfc.r_cut_matrix,
+                            rc_matrix=rc_matrix,
                             dtype=self.state.positions.dtype,
                             device=self.device)
         # every device constant the step loop reads is made here, so the
         # loop never copies from the host
         layout.geometry.offsets(_cw._HALF_OFFS)
         layout.geometry.offsets(_cw._OFFS)
-        form = self._model_form()
-        if form is not None:
-            form = form.kernel_form()
+        self._builtin_forms = []
+        for f in self.forces:
+            form = f.kernel_form()
             form.tensor(self.device)
+            self._builtin_forms.append(form)
+        form = None
+        if self.tfc is not None and not self.tfc.model.proxy_degree:
+            form = self.tfc.model.pair_kernel_form()
+            if form is not None:
+                form = form.kernel_form()
+                form.tensor(self.device)
         self._form = form
         self._layout = layout
         return layout
@@ -331,60 +401,145 @@ class Simulation:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _fast_eval(self, st, aux, layout, needs_energy, want_virial):
-        """Analytic pair forces of the attached PairModel on slot state
-        (counted in :attr:`force_evals`)."""
-        model = self.tfc.model
+    def _pair_eval(self, st, aux, layout, pair_fn, form, needs_energy,
+                   want_virial, with_types, min_r2):
+        """One analytic pair-force evaluation on slot state (counted in
+        :attr:`force_evals`)."""
         self.force_evals += 1
         return _cw.analytic_pair_forces(
             st.positions, st.types, aux["valid"], layout.plan, layout.lo,
-            model.pair_energy_and_slope,
-            needs_virial=bool(want_virial and model.virial),
-            min_r2=model.min_r2, with_types=model.pair_with_types,
-            rcut_matrix=layout.rc2_tab, stencil=self.stencil,
-            needs_energy=needs_energy, form=self._form,
+            pair_fn, needs_virial=want_virial, min_r2=min_r2,
+            with_types=with_types, rcut_matrix=layout.rc2_tab,
+            stencil=self.stencil, needs_energy=needs_energy, form=form,
             geometry=layout.geometry)
 
-    def _step(self, st, aux, flags, layout, virial_in_loop):
-        """One MD step on slot state (slim: no energy column)."""
+    def _builtins(self, st, aux, layout, needs_energy, want_virial,
+                  subset=None):
+        """Sum of the built-in forces (or of ``subset``): ``(forces4,
+        virial)``, ``(None, None)`` when there are none."""
+        f = w = None
+        for force, form in zip(self.forces, self._builtin_forms):
+            if subset is not None and not any(force is g for g in subset):
+                continue
+            fi, wi = self._pair_eval(st, aux, layout,
+                                     force.pair_energy_and_slope, form,
+                                     needs_energy, want_virial, True, 1e-4)
+            f = fi if f is None else f + fi
+            if wi is not None:
+                w = wi if w is None else w + wi
+        return f, w
+
+    def _forces(self, st, aux, layout, route, needs_energy, want_virial):
+        """The forces that drive the dynamics: the built-ins plus, outside
+        training, the attached model."""
+        f, w = self._builtins(st, aux, layout, needs_energy, want_virial)
+        if route.model_fn is not None:
+            m = self.tfc.model
+            fm, wm = self._pair_eval(
+                st, aux, layout, route.model_fn, route.model_form,
+                needs_energy, bool(want_virial and m.virial),
+                m.pair_with_types, m.min_r2)
+            f = fm if f is None else f + fm
+            if wm is not None:
+                w = wm if w is None else w + wm
+        return f, w
+
+    def _route(self, layout):
+        """What one run() evaluates: the model's pair function and kernel
+        form (a proxy is fitted once per run: its weights do not change
+        outside training), or the trainer; and the virial flags."""
+        tfc = self.tfc
+        model = tfc.model if tfc is not None else None
+        r = _Route()
+        r.virial_in_loop = bool((model is not None and model.virial) or
+                                getattr(self.integrator, "needs_virial",
+                                        False))
+        r.needs_virial = r.virial_in_loop or bool(self.forces)
+        if model is None:
+            return r
+        if tfc.train:
+            if not self.forces:
+                raise ValueError(
+                    "online training needs label forces: add a built-in "
+                    "force first (sim.add_force(md.LennardJones(...)))")
+            r.trainer = _Trainer(self, layout)
+            subset = tfc.reference_forces
+            if subset and len(subset) != len(self.forces):
+                r.label_subset = list(subset)
+        elif model.proxy_degree:
+            fit, evaluate = model.proxy_parts(layout.plan.r_cut,
+                                              self.device)
+            with torch.no_grad():
+                coeffs = fit(model.pair_energy)
+            if model.pair_with_types:
+                r.model_fn = lambda r2, ti, tj: evaluate(coeffs, r2, ti, tj)
+            else:
+                r.model_fn = lambda r2: evaluate(coeffs, r2)
+            r.model_form = evaluate.kernel_form(coeffs)
+        else:
+            r.model_fn, r.model_form = model.pair_energy_and_slope, \
+                self._form
+        return r
+
+    def _step(self, st, aux, flags, layout, route, i):
+        """One MD step on slot state (slim: no energy column, and no
+        virial unless something in the loop reads it)."""
         integ, dt = self.integrator, self.dt
         st = integ.pre_force(st, dt)
         # ghost pins stay unconditional, as in the JAX engine
         st = layout.ghost_pin(st, aux)
         stale = layout.needs_rebuild(st, aux)
-        f4, w = self._fast_eval(st, aux, layout, False, virial_in_loop)
+        tr = route.trainer
+        if tr is not None:
+            # one built-in evaluation: the labels and the driving forces
+            f4, w = self._builtins(st, aux, layout, tr.energy,
+                                   route.virial_in_loop)
+            labels = f4
+            if route.label_subset is not None:
+                labels, _ = self._builtins(st, aux, layout, tr.energy,
+                                           False, route.label_subset)
+            tr.step(st, aux, layout, labels, i)
+        else:
+            f4, w = self._forces(st, aux, layout, route, False,
+                                 route.virial_in_loop)
         st.forces = f4
-        if virial_in_loop and w is not None:
+        if route.virial_in_loop and w is not None:
             st.virial = w
         st = integ.post_force(st, dt)
         st = layout.ghost_pin(st, aux)
         st.step += 1
         return st, flags | (stale.to(torch.int32) << 1)
 
-    def _fetch_run_scalars(self, flags, aux):
+    def _fetch_run_scalars(self, flags, aux, losses=None):
         """The one packed device->host readback of a run(): flags, running
-        max occupancy and running max speed (bitcast into the int lane)."""
-        packed = torch.stack([
-            flags.to(torch.int32), aux["occ_max"].to(torch.int32),
-            aux["vmax"].to(torch.float32).reshape(1).view(torch.int32)[0]
-        ]).cpu().numpy()
+        max occupancy, running max speed and the per-step training losses
+        (the floats bitcast into the int lanes)."""
+        parts = [flags.to(torch.int32).reshape(1),
+                 aux["occ_max"].to(torch.int32).reshape(1),
+                 aux["vmax"].to(torch.float32).reshape(1).view(torch.int32)]
+        if losses is not None:
+            parts.append(losses.to(torch.float32).view(torch.int32))
+        packed = torch.cat(parts).cpu().numpy()
         return (int(packed[0]), int(packed[1]),
-                float(packed[2:3].view(np.float32)[0]))
+                float(packed[2:3].view(np.float32)[0]),
+                packed[3:].view(np.float32))
 
     # ------------------------------------------------------------------
     def run(self, n):
         """Advance the simulation ``n`` steps.
 
         Self-healing: a capacity overflow rolls the segment back (nothing
-        of the attempt is committed) and replans with a raised capacity
-        floor; a staleness bit (a particle outran skin/2 between two
-        scheduled repacks) rolls back and shortens the repack interval.
+        of the attempt is committed: state, model weights and optimizer
+        state) and replans with a raised capacity floor; a staleness bit
+        (a particle outran skin/2 between two scheduled repacks) rolls
+        back and shortens the repack interval.
         """
         if self.state is None:
             raise RuntimeError("Initialize the simulation state first "
                                "(init_lattice / init_state)")
-        if self.tfc is None:
-            raise RuntimeError("Attach a model first (tfcompute.attach)")
+        if self.tfc is None and not self.forces:
+            raise RuntimeError("Attach a model first (tfcompute.attach) or "
+                               "add a built-in force (add_force)")
         n = int(n)
         if n <= 0:
             return
@@ -400,9 +555,15 @@ class Simulation:
             self._vmax_hist = []
             self._static_K_integ = id(self.integrator)
         K = self._choose_repack_interval(layout)
-        model = self.tfc.model
-        needs_virial = bool(model.virial or
-                            getattr(self.integrator, "needs_virial", False))
+        route = self._route(layout)
+        tr = route.trainer
+        snap = None
+        if tr is not None:
+            # the optimizer updates the weights in place: keep what a
+            # rollback restores, and a device buffer for the losses
+            snap = tr.snapshot()
+            tr.losses = torch.zeros((n,), dtype=torch.float32,
+                                    device=self.device)
 
         packed = self._packed
         if packed is not None and packed[0] is self.state and \
@@ -421,19 +582,24 @@ class Simulation:
             while done < n:
                 st, aux = layout.rebuild(st, aux)
                 for _ in range(min(K, n - done)):
-                    st, flags = self._step(st, aux, flags, layout,
-                                           needs_virial)
-                done += min(K, n - done)
+                    st, flags = self._step(st, aux, flags, layout, route,
+                                           done)
+                    done += 1
             flags = flags | aux["overflow"].to(torch.int32)
             # one full evaluation at the final positions: the slim loop
             # skipped the energy column (and the virial when unused)
-            f4, w = self._fast_eval(st, aux, layout, True, needs_virial)
+            f4, w = self._forces(st, aux, layout, route, True,
+                                 route.needs_virial)
             st.forces = f4
-            if needs_virial and w is not None:
+            if route.needs_virial and w is not None:
                 st.virial = w
-        flags_now, occ_now, vmax_now = self._fetch_run_scalars(flags, aux)
+        flags_now, occ_now, vmax_now, losses = self._fetch_run_scalars(
+            flags, aux, None if tr is None else tr.losses)
         overflow, stale = bool(flags_now & 1), bool(flags_now & 2)
-
+        if (overflow or stale) and tr is not None:
+            # a failed attempt commits no training, retried or not (the
+            # JAX package commits model values only after a clean run)
+            tr.restore(snap)
         if overflow and allow_retry and self.auto_replan:
             floor = max(int(np.ceil(layout.plan.capacity * 1.3)) + 1,
                         int(np.ceil(self._max_occupancy_now(layout) * 1.15))
@@ -486,6 +652,9 @@ class Simulation:
         self.state.step = start_step + n
         self._vmax_cache = (self.state, vmax_now)
         self._packed = (self.state, layout, (st, aux))
+        if tr is not None and not overflow and not stale:
+            # a failed attempt's losses belong to training it rolled back
+            self.tfc.loss_history.extend(losses.tolist())
         if overflow:
             raise ValueError(
                 "Cell capacity exceeded during the run (a cell held more "
@@ -495,4 +664,89 @@ class Simulation:
                 f"A particle moved more than skin/2 between two scheduled "
                 f"neighbor rebuilds even at repack interval {K} -- the "
                 f"integration is likely diverging (dt={self.dt}).")
+        return True
+
+
+class _Route:
+    """What the step loop of one run() evaluates (see
+    :meth:`Simulation._route`)."""
+    model_fn = None
+    model_form = None
+    trainer = None
+    label_subset = None
+    virial_in_loop = False
+    needs_virial = False
+
+
+class _Trainer:
+    """Online training of a Chebyshev-proxy PairModel (the proxy branch
+    of the JAX ``train_fast_update``): per MD step, one fit at the nodes,
+    the proxy forces through :func:`..ops.pair_train.pair_train_forces`
+    (K1's proxy form forward, K2 backward on CUDA), the loss against the
+    labels and one optimizer step, all on the device."""
+
+    def __init__(self, sim, layout):
+        tfc = sim.tfc
+        model = tfc.model
+        self.sim, self.model = sim, model
+        self.fit, self.evaluate = model.proxy_parts(layout.plan.r_cut,
+                                                    sim.device)
+        self.opt = tfc.ensure_opt_state()
+        self.params = [model.variables[i] for i in tfc.trainable_idx]
+        self.energy = tfc.train_energy()
+        self.losses = None
+
+    def snapshot(self):
+        """Device copies of the weights and the optimizer's state."""
+        return ([p.detach().clone() for p in self.params],
+                copy.deepcopy(self.opt.state_dict()))
+
+    def restore(self, snap):
+        with torch.no_grad():
+            for p, v in zip(self.params, snap[0]):
+                p.copy_(v)
+        self.opt.load_state_dict(copy.deepcopy(snap[1]))
+
+    def step(self, st, aux, layout, labels, i):
+        from ..ops.pair_train import pair_train_forces
+        model, sim = self.model, self.sim
+        with torch.enable_grad():
+            coeffs = self.fit(model.pair_energy)
+            f4 = pair_train_forces(
+                coeffs, self.evaluate, st.positions, st.types, aux["valid"],
+                layout.plan, layout.lo, min_r2=model.min_r2,
+                with_types=model.pair_with_types,
+                rcut_matrix=layout.rc2_tab, needs_energy=self.energy,
+                fwd_stencil=sim.stencil, geometry=layout.geometry)
+            loss = model.compute_loss([f4], labels)
+        sim.force_evals += 1
+        sim.train_steps += 1
+        self.opt.zero_grad()
+        loss.backward()
+        self.opt.step()
+        self.losses[i] = loss.detach()
+
+
+def _loss_consumes_energy(model):
+    """Does ``model.compute_loss`` read prediction column 3 (the
+    per-particle energy)? Probed by the loss gradient with respect to the
+    prediction at two random points on tiny arrays: the force-matching
+    losses slice ``[:, :3]`` and probe identically zero, and training
+    then drops the energy lanes in K1 and K2. Any probe failure keeps the
+    energy on."""
+    try:
+        for seed in (0, 1):
+            rng = np.random.RandomState(seed)
+            y = torch.tensor(rng.randn(8, 4).astype(np.float32),
+                             dtype=model.dtype, requires_grad=True)
+            lab = torch.tensor(rng.randn(8, 4).astype(np.float32),
+                               dtype=model.dtype)
+            with torch.enable_grad():
+                g, = torch.autograd.grad(
+                    torch.as_tensor(model.compute_loss([y], lab)).sum(), y,
+                    allow_unused=True)
+            if g is not None and bool((g[:, 3] != 0).any()):
+                return True
+        return False
+    except Exception:
         return True

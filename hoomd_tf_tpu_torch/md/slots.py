@@ -20,6 +20,7 @@ import dataclasses
 
 import torch
 
+from .._device import resolve_device
 from ..ops import cellwise as cw
 
 __all__ = ["SlotLayout"]
@@ -33,10 +34,13 @@ class SlotLayout:
     :param n_real: number of real particles.
     :param lo: box lower corner (host ``[3]``).
     :param rc_matrix: per-type-pair cutoffs (numpy) or ``None``.
+    :param device: where its constants live (default: the CUDA card;
+        pass ``device="cpu"`` for the CPU).
     """
 
     def __init__(self, plan, n_real, lo, rc_matrix=None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device, "SlotLayout")
         self.plan = plan
         self.n = int(n_real)
         self.lo = tuple(float(v) for v in lo)

@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..ops.box import box_from_lengths, check_orthorhombic
 
 __all__ = ["SimState", "lattice_positions", "init_state"]
@@ -85,8 +86,9 @@ def lattice_positions(n, density=None, a=None, kind="sc"):
 
 def init_state(positions, box, types=None, velocities=None, masses=None,
                kT_init=None, generator=None, dtype=torch.float32,
-               device="cpu"):
-    """Build a :class:`SimState` on ``device``.
+               device=None):
+    """Build a :class:`SimState` on ``device`` (default: the CUDA card;
+    pass ``device="cpu"`` for the CPU).
 
     :param positions: ``[N, 3]`` or ``[N, 4]`` (type in column 4).
     :param box: ``[3, 3]`` box or ``[Lx, Ly, Lz]`` lengths (centered).
@@ -94,6 +96,7 @@ def init_state(positions, box, types=None, velocities=None, masses=None,
         velocities at this temperature with zero net momentum, from
         ``generator`` (a ``torch.Generator`` on ``device``).
     """
+    device = resolve_device(device, "init_state")
     kw = dict(dtype=dtype, device=device)
     positions = torch.as_tensor(np.asarray(positions), **kw)
     if positions.shape[-1] == 4:

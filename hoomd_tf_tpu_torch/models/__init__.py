@@ -2,5 +2,6 @@
 
 from .simmodel import SimModel
 from .pair import PairModel
+from .layers import Dense
 
-__all__ = ["SimModel", "PairModel"]
+__all__ = ["SimModel", "PairModel", "Dense"]

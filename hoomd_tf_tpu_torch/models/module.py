@@ -5,8 +5,10 @@ A :class:`Layer` is an ``nn.Module`` whose weights are created with
 :meth:`Layer.add_weight`, as in the JAX package: trainable weights become
 ``nn.Parameter`` s, the others buffers. :attr:`Layer.variables` lists them
 in the JAX package's order (own weights in creation order, then child
-layers), so a JAX model's ``get_weights()`` list maps onto a port model
-one to one (:func:`..interop.load_jax_variables`).
+layers in the order they were assigned), so a JAX model's
+``get_weights()`` list maps onto a port model one to one
+(:func:`..interop.load_jax_variables`) once both have built their lazy
+layers.
 """
 
 import numpy as np
@@ -65,8 +67,18 @@ class Layer(nn.Module):
                 out.extend(child.variables)
         return out
 
+    @property
+    def losses(self):
+        """Regularization losses (Keras ``layer.losses``) that
+        ``SimModel.compute_loss`` adds to the loss; the port's weights
+        carry no regularizers yet, so the list is empty."""
+        return []
+
     def get_weights(self):
-        return [v.detach().cpu().numpy() for v in self.variables]
+        """Copies of :attr:`variables` as numpy arrays (copies: a CPU
+        tensor's ``numpy()`` shares its memory, and training updates the
+        weights in place)."""
+        return [v.detach().cpu().numpy().copy() for v in self.variables]
 
     def set_weights(self, weights):
         """Copy a list of arrays into :attr:`variables` (shapes checked)."""

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from .cell_list import CellList
 
 __all__ = ["Cellwise", "CellwisePlan", "plan_cellwise",
@@ -202,10 +203,10 @@ class SlotGeometry:
     offsets. Built once per layout, so the hot loop never copies a host
     constant to the device (each such copy is a host sync)."""
 
-    def __init__(self, plan, lo, dtype=torch.float32, device="cpu"):
+    def __init__(self, plan, lo, dtype=torch.float32, device=None):
         self.plan = plan
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "SlotGeometry")
         kw = dict(dtype=dtype, device=self.device)
         self.lo = torch.as_tensor(np.asarray(lo, np.float64), **kw)
         self.lengths = torch.as_tensor(plan.lengths, **kw)
@@ -249,11 +250,12 @@ def _slot_cell_centers(plan, lo_t, dtype):
                         lo_t[2] + (cz + 0.5) * ez], dim=-1)
 
 
-def slot_cell_centers(plan, lo, dtype=torch.float32, device="cpu"):
+def slot_cell_centers(plan, lo, dtype=torch.float32, device=None):
     """``[n_slots, 3]`` cell-center coordinates -- the parking spot for
     ghost slots."""
     lo_t = torch.as_tensor(np.asarray(lo, np.float64), dtype=dtype,
-                           device=device)
+                           device=resolve_device(device,
+                                                 "slot_cell_centers"))
     return _slot_cell_centers(plan, lo_t, dtype)
 
 
@@ -313,12 +315,12 @@ def _relative_coords(positions, valid, plan, lo, offs_list, geometry=None):
     return qx, qy, qz, gx, gy, gz
 
 
-def rc2_table(rcut_matrix, dtype=torch.float32, device="cpu"):
+def rc2_table(rcut_matrix, dtype=torch.float32, device=None):
     """``[T, T]`` squared per-pair cutoffs from an ``[ntypes, ntypes]``
     cutoff matrix; a negative entry (never neighbors) maps to ``-1``."""
     m = np.asarray(rcut_matrix, dtype=np.float64)
     return torch.as_tensor(np.where(m < 0, -1.0, m * m), dtype=dtype,
-                           device=device)
+                           device=resolve_device(device, "rc2_table"))
 
 
 def pair_rc2(ti, tj, table):
@@ -463,8 +465,9 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
         ``'kernel'`` (the K1 wrapper: the kernel on CUDA, its plain
         version on CPU), ``'half'`` (Newton half stencil in tensor ops)
         or ``'full'`` (27 blocks, both sides evaluated independently).
-    :param form: the LJ-family :class:`.cellwise_cuda.LJForm` the kernel
-        evaluates in place of ``pair_fn``; required by ``'kernel'``.
+    :param form: the pair form the kernel evaluates in place of
+        ``pair_fn`` (:class:`.cellwise_cuda.LJForm` or ``ChebForm``);
+        required by ``'kernel'``.
     :param geometry: precomputed :class:`SlotGeometry` of the plan.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``
         with the per-particle energy in force column 4 (zero when
@@ -475,10 +478,11 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
             if form is None:
                 raise ValueError(
                     "on a CUDA tensor the cellwise pair forces run in the "
-                    "hand-written half-stencil kernel, which needs an "
-                    "LJ-family pair form (PairModel.pair_kernel_form()); "
-                    "this pair function declares none. Pass "
-                    "stencil='half' or 'full' to use the tensor forms.")
+                    "hand-written half-stencil kernel, which needs a pair "
+                    "form: an LJ-family form (PairModel.pair_kernel_form()) "
+                    "or a Chebyshev proxy (PairModel(proxy_degree=...)); "
+                    "this pair function has none. Pass stencil='half' or "
+                    "'full' to use the tensor forms.")
             stencil = "kernel"
         else:
             stencil = "full"
@@ -487,7 +491,8 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
                                 positions.device)
     if stencil == "kernel":
         if form is None:
-            raise ValueError("stencil='kernel' needs an LJ-family form")
+            raise ValueError("stencil='kernel' needs a kernel form (LJ-family "
+                             "or Chebyshev proxy)")
         from .cellwise_cuda import half_stencil_pair_forces
         return half_stencil_pair_forces(
             positions, types, valid, plan, lo, form,

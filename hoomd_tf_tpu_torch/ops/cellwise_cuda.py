@@ -9,12 +9,20 @@ per channel, and the tensor code applies the 13 inverse rolls
 (``assemble_half``).
 
 The Pallas kernel inlines any traced pair function. A CUDA kernel cannot
-take an arbitrary torch function, so the port's kernel evaluates one
-fixed family, the LJ form ``U = 4 eps (sr6^2 - sr6) + shift`` with
-``sr6 = (sigma^2 / r2)^3``, from a per-type-pair table (:class:`LJForm`).
-It covers a plain LJ, ``md.LennardJones`` with or without shift, and
-``md.WCA``; a :class:`..models.pair.PairModel` opts in by declaring its
-form (``pair_kernel_form()``).
+take an arbitrary torch function, so the port's kernel is templated on
+one of two pair forms, each read from a table:
+
+- :class:`LJForm`, ``U = 4 eps (sr6^2 - sr6) + shift`` with
+  ``sr6 = (sigma^2 / r2)^3`` per type pair: a plain LJ,
+  ``md.LennardJones`` with or without shift, and ``md.WCA``;
+- :class:`ChebForm`, the Chebyshev proxy of :mod:`.chebyshev` (the form
+  the JAX package inlines as its pair function for a
+  ``PairModel(proxy_degree=...)``, ``cellwise_pallas.py:542-589``): a
+  ``[P, 2, K]`` device table of the coefficients ``c`` and ``cd``, which
+  training rewrites every step with no host copy.
+
+A :class:`..models.pair.PairModel` opts in by returning its form from
+``pair_kernel_form()``; a proxy model does so by itself.
 
 The wrapper :func:`half_stencil_planes` launches the kernel for CUDA
 tensors and uses the plain PyTorch version, :func:`half_stencil_reference`,
@@ -30,9 +38,10 @@ import torch
 from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
                        _relative_coords, _roll_offs, assemble_half,
                        finish_forces, lane_sums)
+from .chebyshev import proxy_lanes
 
-__all__ = ["LJForm", "half_stencil_planes", "half_stencil_reference",
-           "half_stencil_pair_forces"]
+__all__ = ["LJForm", "ChebForm", "half_stencil_planes",
+           "half_stencil_reference", "half_stencil_pair_forces"]
 
 
 class LJForm:
@@ -85,6 +94,74 @@ class LJForm:
         zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
         return torch.where(inside, u, zero), torch.where(inside, du, zero)
 
+    #: floats of shared memory the kernel stages for this form
+    smem_floats = 0
+
+
+class _PairRows:
+    """``rows[k]`` is the lane tensor of term ``k`` of each lane's type
+    pair (gathered on demand, so the plain version holds one lane tensor
+    per term at a time)."""
+
+    def __init__(self, col, p):
+        self.col, self.p = col, p
+
+    def __len__(self):
+        return self.col.shape[1]
+
+    def __getitem__(self, k):
+        return self.col[:, k][self.p]
+
+
+class ChebForm:
+    """The Chebyshev-proxy pair form kernel K1 takes: the coefficients of
+    a :func:`.chebyshev.make_pair_proxy` (or typed) evaluator as one
+    ``[P, 2, K]`` float32 device table (``P = 1`` untyped, else one row
+    per unordered type pair in :func:`.chebyshev.type_pairs` order).
+
+    :param basis: the evaluator's ``.basis`` dict.
+    :param coeffs: ``{"c", "cd"}`` tensors, ``[K]`` or ``[P, K]``; taken
+        detached, on their own device.
+    """
+
+    def __init__(self, basis, coeffs):
+        self.K = int(basis["K"])
+        self.mid = float(basis["mid"])
+        self.inv_half = float(basis["inv_half"])
+        self.u_hi = float(basis["u_hi"])
+        pairs = basis["pairs"]
+        self.ntypes = 1 if pairs is None else max(b for _, b in pairs) + 1
+        tab = torch.stack([coeffs["c"], coeffs["cd"]], dim=-2).detach()
+        if pairs is None:
+            tab = tab[None]
+        self.table = tab.to(torch.float32).contiguous()      # [P, 2, K]
+        P = self.table.shape[0]
+        self.smem_floats = P * 2 * self.K + P * 2
+
+    def tensor(self, device):
+        if self.table.device != torch.device(device):
+            raise ValueError(f"the coefficient table is on "
+                             f"{self.table.device}, not {device}")
+        return self.table
+
+    def evaluate(self, r2, ti=None, tj=None):
+        """``(U, dU/dr2)`` per lane, in the kernel's order of operations
+        (the plain version of its pair function)."""
+        tab = self.table.to(r2.device, r2.dtype)
+        if self.ntypes == 1:
+            c, cd = tab[0, 0], tab[0, 1]
+        else:
+            T = self.ntypes
+            ti, tj = ti.long(), tj.long()
+            known = (ti >= 0) & (ti < T) & (tj >= 0) & (tj < T)
+            a, b = torch.minimum(ti, tj), torch.maximum(ti, tj)
+            p = a * T - a * (a - 1) // 2 + (b - a)
+            p = torch.where(known, p, torch.full_like(p, tab.shape[0]))
+            # an extra zero row: types outside the table add nothing
+            ext = torch.cat([tab, torch.zeros_like(tab[:1])])
+            c, cd = _PairRows(ext[:, 0], p), _PairRows(ext[:, 1], p)
+        return proxy_lanes(c, cd, r2, self.mid, self.inv_half, self.u_hi)
+
 
 def half_stencil_reference(occ, gx, gy, gz, gt, form, cap, rc2, min_r2,
                            needs_energy=True, needs_virial=False,
@@ -110,13 +187,14 @@ def half_stencil_planes(occ, gx, gy, gz, gt, form, cap, rc2, min_r2,
                         needs_energy=True, needs_virial=False,
                         rc2_tab=None):
     """Kernel K1. Launches the CUDA kernel on CUDA tensors (and counts the
-    launch in ``half_stencil_planes.launches``); CPU tensors take
+    launch in ``half_stencil_planes.launches``, a proxy-form launch also
+    in ``half_stencil_planes.proxy_launches``); CPU tensors take
     :func:`half_stencil_reference`. Anything else raises.
 
     :param occ: ``[n_cells]`` int32 occupancy.
     :param gx, gy, gz: ``[n_cells, 14*cap]`` float32 candidate planes.
     :param gt: ``[n_cells, 14*cap]`` int32 type plane, or ``None``.
-    :param form: the :class:`LJForm`.
+    :param form: the :class:`LJForm` or :class:`ChebForm`.
     :param rc2_tab: ``[T, T]`` float32 squared cutoffs, or ``None``.
     :returns: ``[n_ch, n_cells, 14*cap]`` float32 planes.
     """
@@ -141,28 +219,37 @@ def half_stencil_planes(occ, gx, gy, gz, gt, form, cap, rc2, min_r2,
         _check(rc2_tab, (T, T), torch.float32, gx.device, "rc2_tab")
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
     lib = _library()
-    smem = lib.htf_half_stencil_smem(cap, n_ch)
+    smem = lib.htf_half_stencil_smem(cap, n_ch, form.smem_floats)
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {cap} needs {smem} bytes of shared "
                          f"memory per block, above {_MAX_SMEM}")
     out = torch.empty((n_ch, n_cells, C), dtype=torch.float32,
                       device=gx.device)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-    err = lib.htf_half_stencil(
-        ptr(occ), ptr(gx), ptr(gy), ptr(gz), ptr(gt), ptr(tab),
-        form.ntypes, int(form.strict), ptr(rc2_tab),
-        0 if rc2_tab is None else rc2_tab.shape[0], n_cells, cap,
-        float(rc2), float(min_r2), int(needs_energy), int(needs_virial),
-        ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(gx.device).cuda_stream))
+    rest = (ptr(rc2_tab), 0 if rc2_tab is None else rc2_tab.shape[0],
+            n_cells, cap, float(rc2), float(min_r2), int(needs_energy),
+            int(needs_virial), ptr(out),
+            ctypes.c_void_p(torch.cuda.current_stream(gx.device).cuda_stream))
+    if isinstance(form, ChebForm):
+        err = lib.htf_half_stencil_cheb(
+            ptr(occ), ptr(gx), ptr(gy), ptr(gz), ptr(gt), ptr(tab),
+            form.ntypes, form.K, form.mid, form.inv_half, form.u_hi, *rest)
+    else:
+        err = lib.htf_half_stencil(
+            ptr(occ), ptr(gx), ptr(gy), ptr(gz), ptr(gt), ptr(tab),
+            form.ntypes, int(form.strict), *rest)
     if err != 0:
         raise RuntimeError("half-stencil kernel launch failed: " +
                            lib.htf_error_string(err).decode())
     half_stencil_planes.launches += 1
+    if isinstance(form, ChebForm):
+        half_stencil_planes.proxy_launches += 1
     return out
 
 
+#: launches of the kernel, all forms; and of its Chebyshev-proxy form alone
 half_stencil_planes.launches = 0
+half_stencil_planes.proxy_launches = 0
 
 # dynamic shared memory one H100 block may use (227 KB)
 _MAX_SMEM = 232448
@@ -192,7 +279,13 @@ def _library():
             [ctypes.c_int] * 3 + [ctypes.c_float] * 2 +
             [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p])
         lib.htf_half_stencil.restype = ctypes.c_int
-        lib.htf_half_stencil_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.htf_half_stencil_cheb.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 +
+            [ctypes.c_float] * 3 + [ctypes.c_void_p] +
+            [ctypes.c_int] * 3 + [ctypes.c_float] * 2 +
+            [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p])
+        lib.htf_half_stencil_cheb.restype = ctypes.c_int
+        lib.htf_half_stencil_smem.argtypes = [ctypes.c_int] * 3
         lib.htf_half_stencil_smem.restype = ctypes.c_long
         lib.htf_error_string.argtypes = [ctypes.c_int]
         lib.htf_error_string.restype = ctypes.c_char_p

@@ -17,36 +17,15 @@ import torch
 import jax.numpy as jnp
 
 import hoomd_tf_tpu as htf
-from hoomd_tf_tpu.md.slots import SlotLayout as JLayout
 from hoomd_tf_tpu.ops import cellwise as jcw
 import hoomd_tf_tpu_torch as htt
-from hoomd_tf_tpu_torch.md.slots import SlotLayout as TLayout
 from hoomd_tf_tpu_torch.ops import cellwise as tcw
 from hoomd_tf_tpu_torch.ops import cellwise_cuda as tcc
 
-from torch_helpers import (fluid_arrays, jax_state, lj_slope_jax,
-                           lj_slope_torch, np_, torch_state)
+from torch_helpers import lj_slope_jax, lj_slope_torch, np_, packed_pair
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 RCM = np.array([[2.5, 1.8], [1.8, 2.2]], dtype=np.float32)
-
-
-def packed_pair(n, density, seed, r_cut, typed=False, rc_matrix=None,
-                jitter=0.2):
-    """The same fluid packed into slots by both packages."""
-    pos, vel, lengths = fluid_arrays(n, density, seed, jitter=jitter)
-    types = (np.arange(n) % 2) if typed else None
-    js = jax_state(pos, vel, lengths, types=types)
-    ts = torch_state(pos, vel, lengths, types=types)
-    lo = np.asarray(js.box[0])
-    jplan = jcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo)
-    tplan = tcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo)
-    assert (tplan.grid, tplan.capacity) == (jplan.grid, jplan.capacity)
-    jl, tl = JLayout(jplan, n, lo), TLayout(tplan, n, lo,
-                                            rc_matrix=rc_matrix)
-    jss, jaux, _ = jl.pack(js)
-    tss, taux = tl.pack(ts)
-    return (jl, jss, jaux), (tl, tss, taux)
 
 
 class TestPlan:
@@ -120,7 +99,7 @@ class TestIntegerOps:
         plan_t = tcw.CellwisePlan((3, 4, 5), 3, (9.0, 12.0, 15.0), 2.5)
         lo = np.array([-4.5, -6.0, -7.5], np.float32)
         np.testing.assert_allclose(
-            np_(tcw.slot_cell_centers(plan_t, lo)),
+            np_(tcw.slot_cell_centers(plan_t, lo, device="cpu")),
             np_(jcw.slot_cell_centers(plan_j, lo)), rtol=0, atol=1e-6)
 
     @pytest.mark.parametrize("case", ["pack", "rebuild", "overflow"])

@@ -1,5 +1,7 @@
-"""Card-only checks of the port: kernel K1 against its plain version, and
-the step loop free of host syncs. Every test here needs a CUDA device and
+"""Card-only checks of the port: kernel K1 (LJ and Chebyshev-proxy forms)
+and kernel K2 against their plain versions, the step loop free of host
+syncs, and online training on the card against the CPU. Every test here
+needs a CUDA device and
 skips without one. This file imports no JAX, so it runs on the machine
 with the card, where JAX is not installed:
 
@@ -116,3 +118,153 @@ def test_run_has_no_host_sync(cuda_device):
     assert tcc.half_stencil_planes.launches - before == sim.force_evals
     assert np.isfinite(tfc.get_forces_array()).all()
     assert 0.8 < sim.thermo()["temperature"] < 2.5
+
+
+# ---------------------------------------------------------------------------
+# Online training: K1's Chebyshev-proxy form and kernel K2
+# ---------------------------------------------------------------------------
+
+def proxy_parts(typed, K=16, n_types=2, r_cut=2.5):
+    """A fitted Chebyshev proxy of an LJ-like pair energy: ``(evaluate,
+    coeffs)`` on the CPU (typed: ``n_types`` types, epsilon by pair)."""
+    from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
+                                                  make_typed_pair_proxy)
+    r2_lo, r2_hi = (0.25 * r_cut) ** 2, r_cut ** 2
+
+    def lj(r2, eps=1.0):
+        u = 1.0 / r2
+        sr6 = u * u * u
+        return 4.0 * eps * (sr6 * sr6 - sr6)
+
+    if typed:
+        fit, ev = make_typed_pair_proxy(K, r2_lo, r2_hi, n_types,
+                                        device="cpu")
+        coeffs = fit(lambda r2, ti, tj: lj(r2, 1.0 / (1.0 + ti + tj)))
+    else:
+        fit, ev = make_pair_proxy(K, r2_lo, r2_hi, device="cpu")
+        coeffs = fit(lj)
+    return ev, coeffs
+
+
+def on(coeffs, device):
+    return {k: v.to(device) for k, v in coeffs.items()}
+
+
+def packed_types(device, n_types, n=500, rcm=None):
+    pos, vel, lengths = fluid_arrays(n, 0.35, 7)
+    st = torch_state(pos, vel, lengths, types=np.arange(n) % n_types,
+                     device=device)
+    lo = -lengths / 2
+    plan = tcw.plan_cellwise(n, lengths, 2.5, positions=pos, lo=lo,
+                             width_blocks=14)
+    layout = SlotLayout(plan, n, lo, rc_matrix=rcm, device=device)
+    slot, aux = layout.pack(st)
+    return layout, slot, aux
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("flags", [(True, True), (False, False)])
+def test_proxy_form_matches_plain(cuda_device, typed, flags):
+    """K1's Chebyshev-proxy form on the card against its plain version
+    (``ChebForm.evaluate`` through the tensor reference) on the CPU."""
+    energy, virial = flags
+    ev, coeffs = proxy_parts(typed)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, typed)
+        form = ev.kernel_form(on(coeffs, dev))
+        before = tcc.half_stencil_planes.launches
+        f, w = tcc.half_stencil_pair_forces(
+            slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, form, needs_virial=virial, needs_energy=energy,
+            rc2_tab=layout.rc2_tab, geometry=layout.geometry)
+        assert tcc.half_stencil_planes.launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        outs.append((np_(f), None if w is None else np_(w)))
+    np.testing.assert_allclose(outs[0][0], outs[1][0], **TOL)
+    if virial:
+        np.testing.assert_allclose(outs[0][1], outs[1][1], **TOL)
+
+
+@pytest.mark.parametrize("case", ["untyped", "forces_only", "typed_rcut",
+                                  "three_types"])
+def test_proxy_backward_matches_plain(cuda_device, case):
+    """Kernel K2 on the card against ``proxy_bwd_reference`` on the CPU
+    (the JAX bar: rtol 2e-4, atol 2e-5 max|g|). Three types at K = 16 give
+    2*K*P = 192 moments, above the Pallas kernel's 128-lane cap."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    n_types = {"untyped": 1, "forces_only": 1, "typed_rcut": 2,
+               "three_types": 3}[case]
+    rcm = RCM if case == "typed_rcut" else None
+    ev, _ = proxy_parts(n_types > 1, n_types=n_types)
+    energy = case != "forces_only"
+    ct = np.random.RandomState(1).randn(4096, 4).astype(np.float32)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed_types(dev, n_types, rcm=rcm)
+        ctt = torch.as_tensor(ct[:layout.plan.n_slots], device=dev)
+        before = ptc.proxy_bwd_planes.launches
+        g_c, g_cd = ptc.proxy_bwd_moments(
+            slot.positions, slot.types, aux["valid"], ctt, layout.plan,
+            layout.lo, ev.basis, rc2_tab=layout.rc2_tab,
+            needs_energy=energy, geometry=layout.geometry)
+        assert ptc.proxy_bwd_planes.launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        outs.append(np.concatenate([np_(g_c).ravel(), np_(g_cd).ravel()]))
+    assert outs[0].size == 2 * 16 * n_types * (n_types + 1) // 2
+    if not energy:
+        assert not outs[0][:16].any()
+    scale = np.abs(outs[1]).max()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=2e-4,
+                               atol=2e-5 * scale)
+
+
+def test_training_on_the_card(cuda_device):
+    """Online training of the proxy NN on the card: no host sync in the
+    step loop, K2 launched once per train step, K1 once per force
+    evaluation, and the loss trajectory of 20 SGD steps equal to the CPU
+    run's from the same state and weights (rtol 1e-3)."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    from torch_helpers import quenched_state, train_sim
+    state = quenched_state(512)
+    runs = {}
+    weights = None
+    for dev in (cuda_device, torch.device("cpu")):
+        sim, tfc, model = train_sim(state, dev, optimizer="sgd", lr=1e-3,
+                                    weights=weights)
+        weights = model.get_weights()
+        if dev.type == "cuda":
+            sim.check_syncs = True
+        k1, k2 = tcc.half_stencil_planes.launches, \
+            ptc.proxy_bwd_planes.launches
+        evals, steps = sim.force_evals, sim.train_steps
+        sim.run(20)
+        if dev.type == "cuda":
+            assert ptc.proxy_bwd_planes.launches - k2 == \
+                sim.train_steps - steps == 20
+            assert tcc.half_stencil_planes.launches - k1 == \
+                sim.force_evals - evals
+        runs[dev.type] = np.asarray(tfc.loss_history)
+        assert np.isfinite(tfc.get_forces_array()).all()
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-3)
+
+
+def test_backward_without_basis_raises(cuda_device):
+    """On the card the training backward is kernel K2: a pair function
+    that is no Chebyshev proxy has no kernel there, and raises rather
+    than taking the plain lane contraction."""
+    from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
+    layout, slot, aux = packed(cuda_device, False)
+    eps = torch.tensor(1.0, device=cuda_device, requires_grad=True)
+
+    def lj(p, r2):
+        u = 1.0 / r2
+        sr6 = u * u * u
+        return (4.0 * p["eps"] * (sr6 * sr6 - sr6),
+                -12.0 * p["eps"] * (2.0 * sr6 - 1.0) * sr6 * u)
+
+    f4 = pair_train_forces({"eps": eps}, lj, slot.positions, slot.types,
+                           aux["valid"], layout.plan, layout.lo,
+                           fwd_stencil="half", geometry=layout.geometry)
+    with pytest.raises(ValueError, match="Chebyshev"):
+        f4.sum().backward()

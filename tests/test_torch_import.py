@@ -12,8 +12,18 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hoomd_tf_tpu_torch"
 
 
+# every module of the port, the online-training slice's included
+MODULES = ("hoomd_tf_tpu_torch", "hoomd_tf_tpu_torch.interop",
+           "hoomd_tf_tpu_torch.ops.chebyshev",
+           "hoomd_tf_tpu_torch.ops.pair_train",
+           "hoomd_tf_tpu_torch.ops.pair_train_cuda",
+           "hoomd_tf_tpu_torch.models.layers",
+           "hoomd_tf_tpu_torch.md.simulation")
+
+
 def test_import_without_jax():
-    code = ("import sys, hoomd_tf_tpu_torch; "
+    code = ("import sys, importlib; "
+            f"[importlib.import_module(m) for m in {MODULES!r}]; "
             "bad = [m for m in ('jax', 'optax', 'hoomd_tf_tpu') "
             "if m in sys.modules]; "
             "assert not bad, bad; print('ok')")

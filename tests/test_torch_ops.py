@@ -83,11 +83,12 @@ class TestState:
         for _ in range(2):
             g = torch.Generator().manual_seed(5)
             draws.append(tstate.init_state(pos, lengths, kT_init=1.2,
-                                           generator=g).velocities)
+                                           generator=g,
+                                           device="cpu").velocities)
         torch.testing.assert_close(draws[0], draws[1], rtol=0, atol=0)
         assert float(draws[0].mean(0).abs().max()) < 1e-6
         t = float(tthermo.temperature(tstate.init_state(
-            pos, lengths, velocities=draws[0])))
+            pos, lengths, velocities=draws[0], device="cpu")))
         assert 1.0 < t < 1.4
 
 

@@ -18,10 +18,12 @@ import jax.numpy as jnp
 
 import hoomd_tf_tpu as htf
 import hoomd_tf_tpu_torch as htt
-from hoomd_tf_tpu_torch.interop import load_jax_variables, state_from_numpy
+from hoomd_tf_tpu_torch.interop import (build_model, load_jax_variables,
+                                        state_from_numpy)
 from hoomd_tf_tpu_torch.ops import cellwise_cuda as tcc
 
-from torch_helpers import fluid_arrays, jax_state, jax_state_numpy, np_
+from torch_helpers import (fluid_arrays, jax_state, jax_state_numpy,
+                           nn_pair_class, np_)
 
 
 class JLJ(htf.PairModel):
@@ -61,7 +63,7 @@ def pair_sims(n=256, density=0.25, seed=0, kT=1.0, jax_nlist="cellwise",
     jsim.set_state(js)
     tsim = htt.Simulation(dt=0.005, integrator=htt.md.NVE(), seed=seed,
                           device="cpu")
-    tsim.set_state(state_from_numpy(jax_state_numpy(js)))
+    tsim.set_state(state_from_numpy(jax_state_numpy(js), device="cpu"))
     jcfg = htf.Cellwise(skin=skin) if skin and \
         jax_nlist == "cellwise" else jax_nlist
     tcfg = htt.Cellwise(skin=skin) if skin else "cellwise"
@@ -190,6 +192,9 @@ def test_kernel_stencil_through_the_engine():
 
 @pytest.mark.parametrize("case", ["nlist", "train", "simmodel", "proxy"])
 def test_attach_rejects_unported(case):
+    """What slice C brings: other neighbor modes, training a PairModel
+    without the Chebyshev proxy (the non-proxy NN row), the generic
+    SimModel route, and the period / batch knobs of proxy training."""
     sim, _ = bench_like(n=256)
     with pytest.raises(NotImplementedError):
         if case == "nlist":
@@ -201,13 +206,72 @@ def test_attach_rejects_unported(case):
             htt.tfcompute(htt.SimModel(16)).attach(sim, r_cut=3.0,
                                                    nlist="cellwise")
         else:
-            TLJ(64, proxy_degree=8)
+            model = TLJ(64, proxy_degree=8)
+            model.compile(loss="mse")
+            htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
+                                        train=True, period=2)
+
+
+def _nn():
+    return nn_pair_class()(16, proxy_degree=8)
+
+
+def _typed_proxy(**kw):
+    from hoomd_tf_tpu_torch.ops.chebyshev import make_typed_pair_proxy
+    fit, _ = make_typed_pair_proxy(8, 0.4, 6.25, 2, **kw)
+    return fit(lambda r2, ti, tj: 1.0 / (r2 * (1.0 + ti + tj)))["c"]
+
+
+def _slot_layout(**kw):
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout
+    from hoomd_tf_tpu_torch.ops import cellwise as tcw
+    plan = tcw.CellwisePlan((3, 3, 3), 4, (9.0, 9.0, 9.0), 2.5)
+    return SlotLayout(plan, 64, (-4.5, -4.5, -4.5), rc_matrix=[[2.5]],
+                      **kw).rc2_tab
+
+
+def _state_arrays():
+    pos, vel, lengths = fluid_arrays(64, 0.3, seed=4)
+    return dict(positions=pos, velocities=vel, types=np.zeros(64, np.int32),
+                masses=np.ones(64, np.float32),
+                box=np.stack([-lengths / 2, lengths / 2, np.zeros(3)]))
+
+
+# every public entry point that makes tensors, each returning one of them
+DEVICE_ENTRIES = {
+    "Simulation": lambda **kw: htt.Simulation(**kw).generator,
+    "init_state": lambda **kw: htt.md.state.init_state(
+        *fluid_arrays(64, 0.3)[::2], **kw).positions,
+    "state_from_numpy": lambda **kw: state_from_numpy(
+        _state_arrays(), **kw).positions,
+    "SlotLayout": _slot_layout,
+    "make_typed_pair_proxy": _typed_proxy,
+    "build_model": lambda **kw: build_model(
+        _nn(), 2.5, **kw).variables[-1],
+    "proxy_pair_fn": lambda **kw: _nn().proxy_pair_fn(2.5, **kw)(
+        torch.ones(3, device=kw.get("device")))[0],
+    "pair_kernel_form": lambda **kw: _nn().pair_kernel_form(
+        2.5, **kw).table,
+}
+
+
+@pytest.mark.parametrize("entry", sorted(DEVICE_ENTRIES))
+def test_default_device_is_the_card(entry):
+    """Every entry point runs on the CUDA card unless the caller asks for
+    the CPU; with no card it raises instead of falling back."""
+    make = DEVICE_ENTRIES[entry]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device.type == "cpu"
 
 
 def test_state_from_numpy_roundtrip():
     pos, vel, lengths = fluid_arrays(64, 0.3, seed=4)
     js = jax_state(pos, vel, lengths, types=np.arange(64) % 2)
-    ts = state_from_numpy(jax_state_numpy(js))
+    ts = state_from_numpy(jax_state_numpy(js), device="cpu")
     for f in ("positions", "velocities", "types", "masses", "box",
               "forces", "virial"):
         np.testing.assert_array_equal(np_(getattr(ts, f)),

@@ -28,7 +28,7 @@ def layouts(n=200, density=0.3, seed=5, r_cut=2.5):
     lo = np.asarray(js.box[0])
     jplan = jcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo)
     tplan = tcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo)
-    return (JLayout(jplan, n, lo), js), (TLayout(tplan, n, lo), ts)
+    return (JLayout(jplan, n, lo), js), (TLayout(tplan, n, lo, device="cpu"), ts)
 
 
 def test_pack_matches_jax():

@@ -40,6 +40,31 @@ def torch_state(pos, vel, lengths, types=None, device="cpu"):
                       device=device)
 
 
+def packed_pair(n, density, seed, r_cut, typed=False, rc_matrix=None,
+                jitter=0.2):
+    """The same fluid packed into slots by both packages:
+    ``(jax_layout, jax_slot_state, jax_aux), (port_layout, port_slot_state,
+    port_aux)`` on identical plans."""
+    from hoomd_tf_tpu.md.slots import SlotLayout as JLayout
+    from hoomd_tf_tpu.ops import cellwise as jcw
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout as TLayout
+    from hoomd_tf_tpu_torch.ops import cellwise as tcw
+    pos, vel, lengths = fluid_arrays(n, density, seed, jitter=jitter)
+    types = (np.arange(n) % 2) if typed else None
+    js = jax_state(pos, vel, lengths, types=types)
+    ts = torch_state(pos, vel, lengths, types=types)
+    lo = np.asarray(js.box[0])
+    jplan = jcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo)
+    tplan = tcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo)
+    assert (tplan.grid, tplan.capacity) == (jplan.grid, jplan.capacity)
+    jl, tl = JLayout(jplan, n, lo), TLayout(tplan, n, lo,
+                                            rc_matrix=rc_matrix,
+                                            device="cpu")
+    jss, jaux, _ = jl.pack(js)
+    tss, taux = tl.pack(ts)
+    return (jl, jss, jaux), (tl, tss, taux)
+
+
 def jax_state_numpy(state):
     """A JAX SimState's arrays as numpy (the input of
     ``interop.state_from_numpy``)."""
@@ -85,3 +110,96 @@ def lj_slope_torch(r2, ti=None, tj=None):
     eps = torch.where((ti == 0) & (tj == 0), 1.0, 0.5)
     return (4.0 * eps * (sr6 * sr6 - sr6),
             -12.0 * eps * (2.0 * sr6 - 1.0) * sr6 * u)
+
+
+def force_loss(yt, yp):
+    """Force matching on ``forces[:, :3]`` (the north-star protocol's
+    loss; the energy column is not trained)."""
+    return torch.mean((yt[:, :3] - yp[:, :3]) ** 2)
+
+
+def nn_pair_class():
+    """The north-star protocol's NN pair potential in the port: an MLP on
+    ``1/r`` with widths 16 -> 1 (``benchmarks/north_star.py``)."""
+    import hoomd_tf_tpu_torch as htt
+
+    class NNPair(htt.PairModel):
+        def setup(self):
+            self.dense1 = htt.Dense(16)
+            self.last = htt.Dense(1)
+
+        def pair_energy(self, r2):
+            x = torch.tanh(self.dense1(torch.rsqrt(r2)[..., None]))
+            return 2.0 * self.last(x)[..., 0]
+
+    return NNPair
+
+
+def seed_jax_weights(jm, seed=0):
+    """Set a built JAX NN model's layer weights to a draw from ``seed``
+    (Glorot-uniform kernels, zero biases); SimModel's two bookkeeping
+    variables stay. The JAX package's lazy layers draw from one key
+    stream per process, so their own draw depends on how many layers the
+    process built before: under xdist, on which test files ran first."""
+    rng = np.random.RandomState(seed)
+    weights = jm.get_weights()
+    out = list(weights[:2])
+    for w in weights[2:]:
+        w = np.asarray(w)
+        if w.ndim == 2:
+            lim = np.sqrt(6.0 / sum(w.shape))
+            out.append(rng.uniform(-lim, lim, w.shape).astype(w.dtype))
+        else:
+            out.append(np.zeros_like(w))
+    jm.set_weights(out)
+    return jm
+
+
+def quenched_state(n=512, seed=0, r_cut=2.5, equil=0):
+    """A port ``SimState`` on the CPU: a jittered lattice at density 0.4
+    quenched under a built-in LJ, thermalized at kT 1.5, then ``equil``
+    NVT steps."""
+    import hoomd_tf_tpu_torch as htt
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.Minimize(0.05),
+                         seed=seed, device="cpu")
+    sim.init_lattice(n, density=0.4, kT_init=1.5)
+    rng = np.random.RandomState(seed)
+    sim.state.positions = sim.state.positions + torch.as_tensor(
+        0.3 * rng.randn(n, 3).astype(np.float32))
+    sim.add_force(htt.md.LennardJones(r_cut=r_cut))
+    sim.run(30)
+    sim.thermalize_velocities(1.5)
+    if equil:
+        sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+        sim.run(equil)
+    return sim.state
+
+
+def on_device(state, device):
+    """A copy of a port ``SimState`` with its tensors on ``device``."""
+    moved = {f.name: getattr(state, f.name).to(device)
+             for f in dataclasses.fields(state)
+             if torch.is_tensor(getattr(state, f.name))}
+    return dataclasses.replace(state, thermostat={}, **moved)
+
+
+def train_sim(state, device="cpu", optimizer="adam", lr=1e-2, degree=16,
+              r_cut=2.5, weights=None, nlist="cellwise"):
+    """NVT at kT 1.5 from ``state`` with a built-in LJ (the labels and the
+    driving forces) and the proxy NN attached with ``train=True``; the
+    NN's weights are built at the proxy's nodes and set to ``weights``
+    when given: ``(sim, tfc, model)``."""
+    import hoomd_tf_tpu_torch as htt
+    from hoomd_tf_tpu_torch.interop import build_model
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device=device)
+    sim.set_state(on_device(state, device))
+    sim.add_force(htt.md.LennardJones(r_cut=r_cut))
+    model = nn_pair_class()(64, output_forces=False, proxy_degree=degree)
+    model.compile(optimizer=optimizer, loss=force_loss, learning_rate=lr)
+    build_model(model, r_cut, device)
+    if weights is not None:
+        model.set_weights(weights)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=r_cut, nlist=nlist, train=True)
+    return sim, tfc, model
