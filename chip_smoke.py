@@ -11,8 +11,10 @@ exits non-zero:
 1. device   -- a CUDA card must be present; prints its name and power
                limit as nvidia-smi reports them;
 2. build    -- compiles kernel K1 (csrc/cellwise_half.cu, LJ and
-               Chebyshev-proxy forms) and kernel K2 (csrc/proxy_bwd.cu)
-               with nvcc, printing ptxas registers and spills;
+               Chebyshev-proxy forms), kernel K2 (csrc/proxy_bwd.cu) and
+               kernel K3 (csrc/nlist_select.cu) with nvcc, one process per
+               source started together, printing ptxas registers and
+               spills;
 3. kernels  -- K1's LJ form against its plain PyTorch version and the
                full-stencil tensor form at the 64k fluid's shapes (one-
                and two-type potentials, a per-type cutoff matrix, and a
@@ -28,7 +30,15 @@ exits non-zero:
                with Adam at lr 1e-2 against built-in LJ labels during
                live NVT; then K1's proxy form and K2 against their plain
                versions at the train plan's shapes, and a small-N SGD
-               trajectory on the card against the CPU.
+               trajectory on the card against the CPU;
+6. packed   -- the JAX package's typical use through the public API: a
+               generic SimModel (LJ from nlist_rinv, NN = 64) attached
+               with attach(sim, r_cut=3.0), which on the card resolves
+               to the cell list with kernel K3; the 64k fluid's protocol
+               (quench, thermalize, NVT, warm runs, a timed run with host
+               syncs forbidden); K3 against its plain version and the
+               topk yardstick at the path's shapes; a small-N step on the
+               card against the CPU; a 20-step torch.profiler window.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -54,6 +64,10 @@ RTOL = ATOL = 1e-4
 # K2 against its plain version: rtol 2e-4, atol 2e-5 * max|g|, the JAX
 # package's bar for its Pallas proxy backward (tests/test_pair_train.py).
 K2_RTOL, K2_ATOL_REL = 2e-4, 2e-5
+# K3 against its plain version: the same order, displacements at 1e-6 (the
+# arithmetic is the same IEEE operations, so the expected error is 0).
+# Steps of the timed packed run.
+PACKED_STEPS = 500
 # Published peaks of one H100 SXM at 700 W: HBM 3.35 TB/s, float32 outside
 # the tensor cores 67 TFLOP/s (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
@@ -224,6 +238,198 @@ def slot_planes(layout, state):
     gt = cw._roll_offs(slot.types, p, cw._HALF_OFFS)
     occ = aux["valid"].reshape(p.n_cells, p.capacity).sum(1).to(torch.int32)
     return slot, aux, occ, gx, gy, gz, gt
+
+
+def make_simmodel(nn=64):
+    """The JAX package's typical use (hoomd_tf_tpu/__init__.py), jnp.sum
+    -> torch.sum: LJ (epsilon = sigma = 1) from nlist_rinv, forces by
+    autodiff."""
+    class LJModel(htt.SimModel):
+        def compute(self, nlist, positions, box):
+            rinv = htt.nlist_rinv(nlist)
+            inv_r6 = rinv ** 6
+            energy = torch.sum(4.0 / 2.0 * (inv_r6 * inv_r6 - inv_r6),
+                               dim=1)
+            return htt.compute_nlist_forces(nlist, energy)
+    return LJModel(nn)
+
+
+def k3_cost(slots4, counts, grid, cap, nn, n, valid_per_row):
+    """Bytes and operations of one K3 call on these inputs: the slot rows,
+    counts and particle ids read once, the [n, nn, 4] list written once;
+    per real candidate pair (each query slot against the occupied slots
+    of its 27 cells) ~24 float operations (3 subtractions, 3 divisions,
+    3 roundings, 3 multiply-subtracts, d2's 5, the cut tests and the
+    key), and per query ``valid^2`` key comparisons of the ranking."""
+    from hoomd_tf_tpu_torch.ops.cell_stencil import neighbor_cells
+    neigh = neighbor_cells(grid, counts.device)
+    cand = counts.long()[neigh].sum(1)
+    pairs = int((counts.long() * cand).sum())
+    nbytes = slots4.numel() * 4 + counts.numel() * 4 + \
+        slots4.shape[0] * 4 + n * nn * 16
+    v = valid_per_row.double()
+    return nbytes, 24 * pairs + float((v * v).sum()), pairs
+
+
+def phase_packed():
+    """The packed path through the public API at the 64k fluid."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops import cell_stencil as cs
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    from hoomd_tf_tpu_torch.ops.box import box_size
+
+    k3 = nc.nlist_select
+    NN = 64
+    sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda")
+    sim.check_syncs = True
+    htt.tfcompute(make_simmodel(NN)).attach(sim, r_cut=R_CUT)
+    build = sim._packed_build()
+    check(build.method == "pallas",
+          f"'auto' resolved to {build.method!r} on the card, not K3")
+    grid, cap = build.plan
+    print(f"  'auto' on the card -> cell list + K3; plan grid {grid} "
+          f"({int(np.prod(grid))} cells), capacity {cap}, candidates "
+          f"27*cap = {27 * cap} per query, NN {NN}")
+    k3.launches = 0
+    builds0 = sim.nlist_builds
+    t0 = time.perf_counter()
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(200)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    steps = PACKED_STEPS
+    b_before, l_before = sim.nlist_builds, k3.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = k3.launches
+    builds = sim.nlist_builds - builds0
+    timed_builds = sim.nlist_builds - b_before
+    timed_launches = launches - l_before
+    th = sim.thermo()
+    pos, f = sim.state.positions, sim.state.forces
+    check(bool(torch.isfinite(pos).all()), "non-finite positions")
+    check(bool(torch.isfinite(f).all()), "non-finite forces")
+    check(tuple(f.shape) == (N, 4), f"forces shape {tuple(f.shape)}")
+    check(1.1 < th["temperature"] < 1.9, f"not a healthy kT=1.5 fluid: {th}")
+    check(launches > 0 and launches == builds,
+          f"K3 launches {launches} != nlist builds {builds}")
+    check(timed_launches == timed_builds == steps,
+          f"timed run: K3 launches {timed_launches}, builds {timed_builds}")
+    grid, cap = sim._packed_build().plan
+    print(f"  NVT plan grid {grid} cap {cap}; warm runs {warm_s:.1f} s; "
+          f"T={th['temperature']:.4f} PE/N={th['potential_energy'] / N:.4f}")
+    print(f"  K3 launches {launches} == nlist builds {builds} (timed run: "
+          f"{timed_launches}); no host sync in the step loops "
+          f"(set_sync_debug_mode('error'))")
+    print(f"  steps/s {steps / dt:.2f} (timed run({steps}), N={N}, NN={NN}) "
+          f"on {smi_line()} -- info, not a claim")
+
+    # K3 against its plain version at the path's shapes
+    st = sim.state
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
+                                               lengths)
+    check(not bool(ovf), "the state overflows its own plan")
+    args = (slots4, counts, pid, grid, cap, NN, R_CUT, host_L, N)
+    got = k3(*args)
+    want = nc.nlist_select_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    same_order = bool(torch.equal(got[..., 3], want[..., 3])) and \
+        bool(torch.equal(got != 0, want != 0))
+    n_nb = (got[..., :3] != 0).any(-1).sum(1)
+    print(f"  K3 vs plain: max_abs_err={err:.3e}, order identical: "
+          f"{same_order}; neighbors per particle mean "
+          f"{float(n_nb.float().mean()):.2f} max {int(n_nb.max())}")
+    check(same_order and err <= 1e-6, "K3 disagrees with its plain version")
+    t_k = cuda_ms(lambda: k3(*args))
+    t_p = cuda_ms(lambda: nc.nlist_select_reference(*args), reps=5)
+    # the yardstick: torch.topk's selection over the plain version's keys
+    neigh = cs.neighbor_cells(grid, slots4.device)
+    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(slots4, neigh, cap, lengths,
+                                             0, int(np.prod(grid)))
+    C = 27 * cap
+    key, _ = nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
+                               ddz.reshape(-1, C), R_CUT, nc.slot_bits(C))
+    del ddx, ddy, ddz
+    occupied = (pid >= 0)
+    valid = ((key != nc.FAR_KEY).sum(1))[occupied]
+    t_lib = cuda_ms(lambda: torch.topk(key, NN, dim=1, largest=False,
+                                       sorted=True), reps=5)
+    nbytes, ops, pairs = k3_cost(slots4, counts, grid, cap, NN, N, valid)
+    del key
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  K3 time (median of CUDA events): kernel {t_k:.4f} ms, plain "
+          f"{t_p:.4f} ms, topk yardstick (selection only, keys given) "
+          f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} "
+          f"MB, {ops / 1e9:.3f} G operations over {pairs} candidate pairs)")
+    rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+               library_ms=t_lib, max_abs_err=err, launches=launches)
+
+    # small N: one step on the card against the port on the CPU
+    q = jittered_sim(4096, htt.md.Minimize(max_disp=0.05), "cpu", seed=3)
+    htt.tfcompute(make_simmodel(NN)).attach(q, r_cut=R_CUT, nlist="pallas")
+    q.run(30)
+    q.thermalize_velocities(1.5)
+    res = {}
+    for dev, mode in (("cuda", None), ("cpu", "pallas")):
+        s = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                           seed=0, device=dev)
+        fields = {k.name: getattr(q.state, k.name).to(dev)
+                  for k in dataclasses.fields(q.state)
+                  if torch.is_tensor(getattr(q.state, k.name))}
+        s.set_state(dataclasses.replace(q.state, thermostat={}, **fields))
+        htt.tfcompute(make_simmodel(NN)).attach(s, r_cut=R_CUT, nlist=mode)
+        s.run(1)
+        res[dev] = (s.state.positions.cpu(), s.state.forces.cpu(),
+                    s._packed_build().method)
+    check(res["cuda"][2] == "pallas", "small-N card run did not take K3")
+    perr = float((res["cuda"][0] - res["cpu"][0]).abs().max())
+    ferr = float((res["cuda"][1] - res["cpu"][1]).abs().max())
+    fmax = float(res["cpu"][1][:, :3].abs().max())
+    print(f"  N=4096, one NVT step, card (K3) vs CPU (plain K3): max "
+          f"position diff {perr:.3e} (limit 1e-6), max force diff "
+          f"{ferr:.3e} (limit 1e-4; max|F| {fmax:.2f})")
+    check(perr <= 1e-6, "small-N positions disagree with the CPU")
+    check(ferr <= 1e-4, "small-N forces disagree with the CPU")
+
+    # a short profiler window: kernels per step, busy share, K3's share
+    from torch.profiler import ProfilerActivity, profile
+    sim.check_syncs = False
+    sim.run(5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(20)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if getattr(e, "device_type", None) is not None and
+            e.device_type.name == "CUDA"]
+    if kern:
+        busy = sum(e.time_range.elapsed_us() for e in kern)
+        k3_us = sum(e.time_range.elapsed_us() for e in kern
+                    if "nlist_select" in e.name)
+        top = {}
+        for e in kern:
+            top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
+        print(f"  profiler, 20 NVT steps: {len(kern) / 20:.1f} kernels per "
+              f"step, device busy {busy / wall_us:.3f} of {wall_us / 20:.1f} "
+              f"us per step, K3 {k3_us / busy:.3f} of device time")
+        for name, us in sorted(top.items(), key=lambda x: -x[1])[:6]:
+            print(f"    {us / 20:9.1f} us/step  {name[:90]}")
+    else:
+        print("  profiler: no device events recorded (timing above is by "
+              "CUDA events)")
+    return rec
 
 
 def phase_kernels():
@@ -645,14 +851,16 @@ def main():
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    sources = ["cellwise_half", "proxy_bwd", "nlist_select"]
     # one nvcc per source, started together
-    with ThreadPoolExecutor(2) as ex:
-        list(ex.map(_build.build_shared_library,
-                    ["cellwise_half", "proxy_bwd"]))
+    with ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(_build.build_shared_library, sources))
     cc._library()
     pc._library()
+    nc._library()
     print(f"[2 build] built in {time.perf_counter() - t0:.2f} s")
-    for name in ("cellwise_half", "proxy_bwd"):
+    for name in sources:
         secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
         lines = log.splitlines()
         for i, ln in enumerate(lines):
@@ -677,6 +885,9 @@ def main():
     k1_px, k2 = phase_train_kernels(sim, model)
     k1_px["launches"], k2["launches"] = launches["proxy"], launches["k2"]
     phase_train_small()
+
+    print("[6 packed] 64k generic SimModel on the packed path (K3)")
+    k3 = phase_packed()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -690,6 +901,10 @@ def main():
         dict(name="K2 Chebyshev-proxy backward moments (proxy_bwd_planes)",
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
              replaces="hoomd_tf_tpu/ops/pair_train_pallas.py:80", **k2),
+        dict(name="K3 cell-list neighbor selection (nlist_select); "
+                  "library_ms: torch.topk, selection only",
+             source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
+             replaces="hoomd_tf_tpu/ops/nlist_pallas.py:43", **k3),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -697,8 +912,9 @@ def main():
     kernels = []
     for r in rows:
         r.setdefault("replaces", "hoomd_tf_tpu/ops/cellwise_pallas.py:43")
-        # no single PyTorch call computes either function
-        r.update(route="cuda", library_ms=None)
+        # no single PyTorch call computes K1's or K2's function
+        r.setdefault("library_ms", None)
+        r["route"] = "cuda"
         kernels.append({k: r[k] for k in keys})
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,25 @@
 """hoomd_tf_tpu_torch: the PyTorch / CUDA port of ``hoomd_tf_tpu``.
 
 The package mirrors the JAX package's module paths and public names and
-imports ``torch`` and numpy only, never JAX. This slice carries the
-main path: a :class:`PairModel` attached with ``nlist='cellwise'`` to a
-:class:`Simulation` running NVE, NVT or a Minimize quench, with the pair
-forces from the hand-written Hopper kernel K1 on a CUDA device; and
-online training of a Chebyshev-proxy NN pair potential during live MD
-(``attach(train=True)``), whose gradient runs in kernel K2.
+imports ``torch`` and numpy only, never JAX. It carries three paths:
+
+- the JAX package's typical use: a generic :class:`SimModel` whose
+  ``compute(nlist, positions, box)`` builds an energy from
+  :func:`nlist_rinv` and returns :func:`compute_nlist_forces`, attached
+  with ``tfcompute(model).attach(sim, r_cut=...)`` on a packed
+  ``[N, NN, 4]`` neighbor list (cell list with the selection kernel K3
+  on a CUDA device, the sort method or the dense build otherwise);
+- a :class:`PairModel` attached with ``nlist='cellwise'`` to a
+  :class:`Simulation` running NVE, NVT or a Minimize quench, with the
+  pair forces from the hand-written Hopper kernel K1 on a CUDA device;
+- online training of a Chebyshev-proxy NN pair potential during live MD
+  (``attach(train=True)``), whose gradient runs in kernel K2.
 """
 
-from .ops import Cellwise, box_size, wrap_vector
+from .ops import (Cellwise, CellList, box_size, wrap_vector, nlist_rinv,
+                  safe_norm, masked_nlist, divide_no_nan, multiply_no_nan,
+                  compute_nlist_forces, compute_positions_forces,
+                  compute_nlist, nlist_from_positions, cell_list_nlist)
 from .models import SimModel, PairModel, Dense
 from . import ops
 from . import models
@@ -18,4 +28,8 @@ from .md.simulation import Simulation
 from .driver import tfcompute
 
 __all__ = ["Simulation", "tfcompute", "PairModel", "SimModel", "Dense",
-           "md", "ops", "models", "Cellwise", "box_size", "wrap_vector"]
+           "md", "ops", "models", "Cellwise", "CellList", "box_size",
+           "wrap_vector", "nlist_rinv", "safe_norm", "masked_nlist",
+           "divide_no_nan", "multiply_no_nan", "compute_nlist_forces",
+           "compute_positions_forces", "compute_nlist",
+           "nlist_from_positions", "cell_list_nlist"]

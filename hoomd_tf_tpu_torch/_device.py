@@ -17,3 +17,12 @@ def resolve_device(device, what):
         device = "cuda"
     # resolved ("cuda" -> "cuda:0") so device checks compare exactly
     return torch.empty(0, device=device).device
+
+
+def device_for(x, device, what):
+    """The device of an entry point's input ``x``: a tensor keeps its own
+    unless ``device`` names one; host data goes to ``device``, by default
+    the CUDA card (:func:`resolve_device`)."""
+    if device is None and torch.is_tensor(x):
+        return x.device
+    return resolve_device(device, what)

@@ -1,18 +1,25 @@
-"""tfcompute: the attach-style driver (PyTorch port of the
-``nlist='cellwise'`` part of ``hoomd_tf_tpu/driver.py``, online training
-included)."""
+"""tfcompute, which attaches a model to a simulation (PyTorch port of
+the JAX package's ``tfcompute``): a generic SimModel on a packed neighbor list
+(``nlist=None``/``'auto'``, ``'n2'``, ``'cell'``, ``'pallas'`` or a
+``CellList``), and a PairModel on ``nlist='cellwise'``, online training
+included."""
 
 import numpy as np
 import torch
 
 from .models.pair import PairModel
+from .ops.cell_list import CellList
 from .ops.cellwise import Cellwise
+
+# what each refusal names: the part of the port that brings it
+_LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1)"
 
 __all__ = ["tfcompute"]
 
 
 class tfcompute:
-    """Applies a :class:`.models.pair.PairModel` to a :class:`.Simulation`.
+    """Applies a :class:`.models.simmodel.SimModel` to a
+    :class:`.Simulation`.
 
     :param model: the model.
     """
@@ -33,33 +40,49 @@ class tfcompute:
                train=False, save_output_period=None):
         """Attach the model to a simulation.
 
-        :param nlist: ``'cellwise'`` or a :class:`.ops.cellwise.Cellwise`
-            config; the other neighbor modes are still to port.
+        :param nlist: the neighbor mode: ``None`` / ``'auto'`` (the cell
+            list for 512 particles or more in a box of 3 cells per axis,
+            selecting with kernel K3 on a CUDA device; the dense build
+            otherwise), ``'n2'`` (dense O(N^2)), ``'cell'`` or a
+            :class:`.ops.cell_list.CellList` (the sort method),
+            ``'pallas'`` (kernel K3; its plain version on the CPU), or
+            ``'cellwise'`` / a :class:`.ops.cellwise.Cellwise` (a
+            PairModel on the slot-resident analytic route).
         :param r_cut: cutoff radius, or an ``[ntypes, ntypes]`` matrix
             (negative = never neighbors).
         :param train: train the model online each step against the
             simulation's built-in forces as labels (the reference's
-            hoomd2tf mode); needs ``model.compile`` first.
+            hoomd2tf mode; cellwise proxy PairModels only); needs
+            ``model.compile`` first.
         """
         if sim is None or sim.state is None:
             raise RuntimeError("Must initialize the simulation first")
-        if not (nlist == "cellwise" or isinstance(nlist, Cellwise)):
+        cellwise = nlist == "cellwise" or isinstance(nlist, Cellwise)
+        packed = nlist in (None, "auto", "n2", "cell", "pallas") or \
+            (isinstance(nlist, CellList) and not cellwise)
+        if not (cellwise or packed):
             raise NotImplementedError(
-                f"nlist={nlist!r}: only the cellwise mode is ported so far "
-                "(the packed and dense neighbor lists arrive with slice C)")
+                f"nlist={nlist!r} is not ported; it arrives with {_LATER}")
         if batch_size or period != 1 or save_output_period:
             raise NotImplementedError(
-                "batch_size, period and save_output_period are not ported")
-        if not isinstance(self.model, PairModel):
-            raise NotImplementedError(
-                "only PairModel runs on the port so far (the generic "
-                "SimModel route arrives with slice C)")
+                "batch_size, period and save_output_period are not ported; "
+                f"they arrive with {_LATER}")
         if getattr(self.model, "_map_nlist", False):
-            raise NotImplementedError("mapped neighbor lists are not ported")
+            raise NotImplementedError(
+                f"mapped neighbor lists arrive with {_LATER}")
+        if cellwise and not isinstance(self.model, PairModel):
+            raise NotImplementedError(
+                "nlist='cellwise' runs a PairModel (the analytic route); a "
+                "generic SimModel runs on a packed neighbor list "
+                "(nlist=None, 'n2', 'cell' or 'pallas')")
+        if train and not cellwise:
+            raise NotImplementedError(
+                "online training on a packed neighbor list arrives with "
+                f"{_LATER}; train a proxy PairModel on nlist='cellwise'")
         if train and not self.model.proxy_degree:
             raise NotImplementedError(
                 "online training of a PairModel without proxy_degree (the "
-                "non-proxy NN row) arrives with slice C of the port")
+                f"non-proxy NN row) arrives with {_LATER}")
         r_arr = np.asarray(r_cut, dtype=np.float64)
         if r_arr.ndim == 0:
             self.r_cut = float(r_arr)
@@ -72,8 +95,10 @@ class tfcompute:
             raise ValueError(
                 f"r_cut must be a scalar or square [ntypes, ntypes] "
                 f"matrix, got shape {r_arr.shape}")
-        if self.r_cut <= 0:
-            raise ValueError("Must provide a positive r_cut")
+        if self.r_cut <= 0 and (cellwise or
+                                self.model.nneighbor_cutoff > 0):
+            raise ValueError("Must provide an r_cut if you have "
+                             "nneighbor_cutoff > 0")
         # output offset bookkeeping (reference tensorflowcompute.py:81-96)
         self.output_offset = 0
         if self.model.output_forces:
@@ -143,8 +168,25 @@ class tfcompute:
             self._train_energy = _loss_consumes_energy(self.model)
         return self._train_energy
 
+    def check_overflow(self, full=None):
+        """Raise (and clear the flag) when the model's ``check_nlist``
+        saw a full neighbor list; ``full`` is the flag as the run's
+        readback gave it (read from the device when ``None``)."""
+        if not self.model.check_nlist:
+            return
+        flag = self.model.nlist_overflow
+        if full is None:
+            full = bool(flag)
+        if full:
+            flag.zero_()
+            raise ValueError("Neighbor list is full!")
+
     def get_positions_array(self):
         return self.sim.state.positions4.detach().cpu().numpy()
+
+    def get_nlist_array(self):
+        """The packed ``[N, NN, 4]`` neighbor list of the current state."""
+        return self.sim._build_nlist(self.sim.state).detach().cpu().numpy()
 
     def get_forces_array(self):
         """The net forces ``[N, 4]`` (energy in column 4)."""

@@ -8,8 +8,9 @@ imports JAX.
 
 Both packages build ``Dense`` layers lazily, at the first call, so a
 model's weight list is complete only after one call: build the port's
-model with :func:`build_model` (one call at the proxy's nodes) and the
-JAX model likewise before copying.
+model with :func:`build_model` (one call at a proxy's nodes, or on a zero
+``[1, NN, 4]`` neighbor list) and the JAX model likewise
+(``ensure_built``) before copying.
 """
 
 import numpy as np
@@ -57,11 +58,18 @@ def load_jax_variables(model, arrays):
 
 
 def build_model(model, r_cut, device=None):
-    """Build a proxy ``PairModel``'s lazy layers on ``device`` (default:
-    the CUDA card; pass ``device="cpu"`` for the CPU) by one call at its
-    Chebyshev proxy's nodes. Returns the model."""
+    """Build a model's lazy layers on ``device`` (default: the CUDA card;
+    pass ``device="cpu"`` for the CPU) by one call: a proxy
+    ``PairModel`` at its Chebyshev proxy's nodes, any other model on a
+    zero ``[1, NN, 4]`` neighbor list. Returns the model."""
     device = resolve_device(device, "build_model")
     model.to(device)
-    with torch.no_grad():
-        model.proxy_coeffs(r_cut, device)
+    if getattr(model, "proxy_degree", None):
+        with torch.no_grad():
+            model.proxy_coeffs(r_cut, device)
+        return model
+    kw = dict(dtype=model.dtype, device=device)
+    nn = max(1, model.nneighbor_cutoff)
+    model([torch.zeros((1, nn, 4), **kw), torch.zeros((1, 4), **kw),
+           torch.zeros((3, 3), **kw)], training=False)
     return model

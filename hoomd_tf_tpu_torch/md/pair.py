@@ -1,22 +1,60 @@
-"""Built-in LJ-family pair potentials (PyTorch port of the analytic parts
-of ``hoomd_tf_tpu/md/pair.py``): ``pair_energy`` and
-``pair_energy_and_slope`` per lane from ``r2``, plus ``kernel_form()``,
-the per-type-pair table kernel K1 evaluates (:class:`..ops.cellwise_cuda.
-LJForm`). The neighbor-list force-compute form (``__call__``) comes with
-the generic routes in a later slice."""
+"""Built-in LJ-family pair potentials (PyTorch port of
+``hoomd_tf_tpu/md/pair.py``).
+
+Each is a force compute on a packed neighbor list, ``force(state,
+nlist) -> (forces [N, 4], virial [N, 3, 3])`` with the per-particle
+energy in column 4 (the particle-order route), and gives the cellwise
+route ``pair_energy`` / ``pair_energy_and_slope`` per lane from ``r2``
+plus ``kernel_form()``, the per-type-pair table kernel K1 evaluates
+(:class:`..ops.cellwise_cuda.LJForm`)."""
 
 import numpy as np
 import torch
 
 from ..ops.cellwise_cuda import LJForm
+from ..ops.forces import compute_nlist_forces
+from ..ops.numerics import nlist_rinv
 
-__all__ = ["LennardJones", "WCA"]
+__all__ = ["LennardJones", "WCA", "pair_force_from_energy_fn"]
 
 _R_MIN = 2.0 ** (1 / 6)
 
 
 def _param(v, like):
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _cached(obj, like):
+    """``(epsilon, sigma)`` of ``obj`` as tensors on ``like``'s device and
+    type, copied once (a host-to-device copy in the step loop would be a
+    host sync)."""
+    key = (str(like.device), like.dtype)
+    cache = obj.__dict__.setdefault("_on", {})
+    if key not in cache:
+        cache[key] = (_param(obj.epsilon, like), _param(obj.sigma, like))
+    return cache[key]
+
+
+def pair_force_from_energy_fn(pair_energy_fn):
+    """Lift a per-pair energy ``u(1/r, type_i, type_j)`` (already
+    half-counted) into a force compute over a packed neighbor list,
+    through the callable form of :func:`..ops.forces.
+    compute_nlist_forces`. Padded slots (``r == 0``) must give exactly
+    zero energy and slope: use :func:`..ops.numerics.nlist_rinv`-style
+    guards inside."""
+
+    def force(state, nlist):
+        types_i = state.types
+
+        def total_energy(nl):
+            rinv = nlist_rinv(nl)
+            tj = nl[:, :, 3].to(torch.int32)
+            return torch.sum(pair_energy_fn(rinv, types_i[:, None], tj),
+                             dim=1)
+
+        return compute_nlist_forces(nlist, total_energy, virial=True)
+
+    return force
 
 
 def _per_pair(eps, sig, type_i, type_j, like):
@@ -48,6 +86,28 @@ class LennardJones:
     def _shift(self, e, s):
         sc6 = (s / self.r_cut) ** 6
         return 4.0 * e * (sc6 * sc6 - sc6)
+
+    def prepare(self, like):
+        """Copy the parameters to ``like``'s device before a step loop
+        (the loop then makes no host-to-device copy)."""
+        _cached(self, like)
+
+    def __call__(self, state, nlist):
+        eps, sig = _cached(self, nlist)
+
+        def energy(rinv, ti, tj):
+            if eps.ndim == 2:
+                e, s = eps[ti.long(), tj.long()], sig[ti.long(), tj.long()]
+            else:
+                e, s = eps, sig
+            sr6 = (s * rinv) ** 6
+            u = 4.0 * e * (sr6 * sr6 - sr6)
+            if self.shift:
+                u = u - self._shift(e, s) * (rinv > 0)
+            inside = rinv > (1.0 / self.r_cut)
+            return torch.where(inside, u, torch.zeros_like(u)) / 2.0
+
+        return pair_force_from_energy_fn(energy)(state, nlist)
 
     def pair_energy(self, r2, type_i=None, type_j=None):
         return self.pair_energy_and_slope(r2, type_i, type_j)[0]
@@ -81,6 +141,19 @@ class WCA:
     def __init__(self, epsilon=1.0, sigma=1.0):
         self.epsilon = np.asarray(epsilon, dtype=np.float32)
         self.sigma = np.asarray(sigma, dtype=np.float32)
+
+    prepare = LennardJones.prepare
+
+    def __call__(self, state, nlist):
+        eps, sig = _cached(self, nlist)
+
+        def energy(rinv, ti, tj):
+            sr6 = (sig * rinv) ** 6
+            u = 4.0 * eps * (sr6 * sr6 - sr6) + eps * (rinv > 0)
+            inside = (sig * rinv) > (1.0 / _R_MIN)
+            return torch.where(inside, u, torch.zeros_like(u)) / 2.0
+
+        return pair_force_from_energy_fn(energy)(state, nlist)
 
     def pair_energy(self, r2, type_i=None, type_j=None):
         return self.pair_energy_and_slope(r2, type_i, type_j)[0]

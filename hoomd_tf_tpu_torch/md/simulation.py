@@ -1,7 +1,19 @@
 """Simulation: the MD engine (PyTorch port of the main-path subset of
 ``hoomd_tf_tpu/md/simulation.py``).
 
-The ported path is the pair fast route of the cellwise mode. Pair forces
+Two routes are ported. The particle-order route (the JAX package's
+``layout is None`` branches) runs any :class:`..models.simmodel.
+SimModel` on a packed ``[N, NN, 4]`` neighbor list rebuilt every step:
+the cell list (kernel K3 on a CUDA device when ``nlist`` is ``None`` /
+``'auto'`` or ``'pallas'``, the sort method otherwise) or the dense
+O(N^2) build (``'n2'``, and ``'auto'`` below 512 particles or 3 cells
+per axis); the model's forces come from autodiff
+(:func:`..ops.forces.compute_nlist_forces`), the built-in forces from
+their ``__call__`` on the same list. A cell capacity overflow rolls the
+run back and re-plans with a larger capacity floor; a model's
+``check_nlist`` flag is read in the run's one readback.
+
+The other route is the pair fast route of the cellwise mode. Pair forces
 come from :func:`..ops.cellwise.analytic_pair_forces` -- kernel K1 on a
 CUDA device, the full-stencil tensor form on the CPU (as the JAX package
 runs the XLA form off the TPU) -- for the built-in forces
@@ -45,10 +57,15 @@ from . import thermo as _thermo
 from .slots import SlotLayout
 from .state import init_state, lattice_positions
 from .._device import resolve_device
+from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
-from ..ops.box import check_orthorhombic
+from ..ops.box import box_size, check_orthorhombic
+from ..ops.nlist import DenseNlist
 
 __all__ = ["Simulation"]
+
+# the neighbor build is not made yet (``None`` is a made "no build")
+_UNBUILT = object()
 
 
 @contextlib.contextmanager
@@ -104,6 +121,10 @@ class Simulation:
         self.force_evals = 0
         #: training updates made so far: on CUDA, each one launches K2
         self.train_steps = 0
+        #: packed neighbor-list builds made so far (particle-order route;
+        #: with the cell list's 'pallas' method on CUDA each launches K3)
+        self.nlist_builds = 0
+        self._nlist_build = _UNBUILT
         self.state = None
         self.tfc = None
         #: built-in force computes (``add_force``)
@@ -145,6 +166,7 @@ class Simulation:
         self._layout = None
         self._packed = None
         self._vmax_cache = None
+        self._nlist_build = _UNBUILT
         return state
 
     @property
@@ -156,6 +178,9 @@ class Simulation:
         """Swap integrators (e.g. a Minimize quench before NVT): keys both
         thermostats share carry over, the others are initialized."""
         self._integrator = integ
+        # a new integrator gets a freshly sized cell list, as the JAX
+        # package's recompiled step does
+        self._nlist_build = _UNBUILT
         if self.state is not None:
             fresh = integ.init(self.state)
             current = dict(self.state.thermostat or {})
@@ -184,6 +209,7 @@ class Simulation:
         self.forces.append(force)
         self._layout = None
         self._packed = None
+        self._nlist_build = _UNBUILT
         return force
 
     def thermo(self):
@@ -195,6 +221,7 @@ class Simulation:
         ``run()`` (capacity and grid from measured occupancy)."""
         self._layout = None
         self._packed = None
+        self._nlist_build = _UNBUILT
         self._static_K_cap = None
         self._static_K_last = None
         self._replan_check_step = (self.state.step if self.state is not None
@@ -204,23 +231,34 @@ class Simulation:
     # planning
     # ------------------------------------------------------------------
     def _nlist_params(self):
-        """``(r_cut, rc_matrix, method)`` of the neighbor build: from the
-        attached driver, or with none from the built-in forces' own
-        cutoffs (the cellwise mode, when the box holds 3 cells per axis);
+        """``(r_cut, rc_matrix, method, NN)`` of the neighbor build: from
+        the attached tfcompute, or with none from the built-in forces' own
+        cutoffs (the cellwise mode when the box holds 3 cells of the
+        cutoff per axis, else ``'auto'`` with NN from the mean density);
         ``None`` when nothing needs neighbors."""
         tfc = self.tfc
         if tfc is not None:
-            return tfc.r_cut, tfc.r_cut_matrix, tfc.nlist_method
+            NN = tfc.model.nneighbor_cutoff
+            if _is_cellwise(tfc.nlist_method):
+                return tfc.r_cut, tfc.r_cut_matrix, tfc.nlist_method, NN
+            if NN <= 0:
+                return None
+            return (tfc.r_cut, tfc.r_cut_matrix, tfc.nlist_method or "auto",
+                    max(1, NN))
         r = max((float(getattr(f, "r_cut", 0.0) or 0.0)
                  for f in self.forces), default=0.0)
         if r <= 0.0:
             return None
-        if not np.all(np.asarray(self._lengths) // r >= 3):
-            raise NotImplementedError(
-                f"built-in forces alone in a box {self._lengths} of fewer "
-                f"than 3 cells of r_cut={r} per axis need the dense "
-                "neighbor list, which is not ported yet")
-        return r, None, "cellwise"
+        if np.all(np.asarray(self._lengths) // r >= 3):
+            return r, None, "cellwise", None
+        n = self.state.n_particles
+        mean_nbrs = 4.19 * r ** 3 * (n / float(np.prod(self._lengths)))
+        NN = int(min(n - 1, max(8, np.ceil(2.0 * mean_nbrs))))
+        return r, None, "auto", NN
+
+    def _use_cellwise(self):
+        p = self._nlist_params()
+        return p is not None and _is_cellwise(p[2])
 
     def _model_has_form(self):
         model = self.tfc.model
@@ -266,7 +304,7 @@ class Simulation:
         return self.dt * vmax / 0.8 if vmax > 0 else None
 
     def _plan_from_current(self):
-        r_cut, _, method = self._nlist_params()
+        r_cut, _, method, _ = self._nlist_params()
         config = method if isinstance(method, _cw.Cellwise) else None
         occ_observed = None
         hist = getattr(self, "_occ_hist", [])
@@ -292,7 +330,7 @@ class Simulation:
     def _ensure_layout(self):
         if self._layout is not None:
             return self._layout
-        r_cut, rc_matrix, _ = self._nlist_params()
+        r_cut, rc_matrix, _, _ = self._nlist_params()
         plan = self._plan_from_current()
         if plan is None:
             raise ValueError(
@@ -543,8 +581,10 @@ class Simulation:
         n = int(n)
         if n <= 0:
             return
+        run_once = self._run_once if self._use_cellwise() \
+            else self._run_packed
         for attempt in range(5):
-            if self._run_once(n, allow_retry=attempt < 4):
+            if run_once(n, allow_retry=attempt < 4):
                 return
 
     def _run_once(self, n, allow_retry):
@@ -665,6 +705,181 @@ class Simulation:
                 f"neighbor rebuilds even at repack interval {K} -- the "
                 f"integration is likely diverging (dt={self.dt}).")
         return True
+
+
+    # ------------------------------------------------------------------
+    # the particle-order route (packed neighbor list)
+    # ------------------------------------------------------------------
+    def _packed_build(self):
+        """The neighbor build of the particle-order route, made once per
+        plan (:meth:`_make_nlist_build`), or ``None`` when nothing needs
+        neighbors. A cell list sizes its capacity from the measured
+        occupancy too (one readback of the positions, here and not in the
+        step loop)."""
+        if self._nlist_build is _UNBUILT:
+            params = self._nlist_params()
+            self._nlist_build = (None if params is None else
+                                 self._make_nlist_build(*params))
+        return self._nlist_build
+
+    def _make_nlist_build(self, r_cut, rc_matrix, method, NN):
+        """A :class:`..ops.cell_list.CellNlist` or a
+        :class:`..ops.nlist.DenseNlist`, picked as the JAX package's
+        ``_make_nlist_builder`` picks: ``build(pos4, box_lengths) ->
+        (nlist [N, NN, 4], overflow or None)``, with ``plan`` and
+        ``method``."""
+        lengths = np.asarray(self._lengths, dtype=np.float64)
+        n = self.state.n_particles
+        config = method if isinstance(method, _cl.CellList) else \
+            _cl.CellList()
+        want_cell = isinstance(method, _cl.CellList) or \
+            method in ("cell", "pallas")
+        sel = "pallas" if method == "pallas" else "sort"
+        if method == "auto":
+            want_cell = n >= 512 and config.usable(lengths, r_cut)
+            # on the card the cell list selects with kernel K3, as the
+            # JAX package picks its Pallas kernel on a TPU
+            if want_cell and self.device.type == "cuda":
+                sel = "pallas"
+        if sel == "pallas" and rc_matrix is not None:
+            sel = "sort"  # typed cutoffs are not in kernel K3
+        if want_cell:
+            grid, capacity = _cl.plan(n, lengths, r_cut, config)
+            if grid is None:
+                raise ValueError(f"Box {lengths} too small for a cell list "
+                                 f"at r_cut={r_cut}")
+            if config.capacity is None:
+                # statistical headroom can lose to structured starts (an
+                # aligned lattice packs one cell); size from measured
+                # occupancy too
+                occ = _cl.max_occupancy(self.state.positions, lengths, grid)
+                capacity = max(capacity, int(np.ceil(occ * 1.3)) + 1)
+            # the overflow self-heal floor beats even an explicit capacity
+            capacity = max(capacity, getattr(self, "_cl_capacity_floor", 0))
+            return _cl.CellNlist(grid, capacity, lengths, r_cut, NN, sel,
+                                 self.device, rc_matrix)
+        return DenseNlist(r_cut, NN, self.device, rc_matrix)
+
+    def _build_nlist(self, state):
+        """One neighbor build on ``state`` (the host accessors')."""
+        if self._use_cellwise():
+            raise NotImplementedError(
+                "the cellwise mode keeps no packed neighbor list")
+        build = self._packed_build()
+        if build is None:
+            return torch.zeros((state.n_particles, 1, 4),
+                               dtype=state.positions.dtype,
+                               device=self.device)
+        with torch.no_grad():
+            return build(state.positions4, box_size(state.box))[0]
+
+    def _eval_model(self, st, nlist):
+        """One model evaluation (the JAX ``eval_model``, unbatched):
+        ``(forces4, virial)``, padded to every particle."""
+        model = self.tfc.model
+        n = st.n_particles
+        dtype = st.positions.dtype
+        out = model([nlist, st.positions4, st.box], training=False)
+        forces4 = torch.zeros((n, 4), dtype=dtype, device=self.device)
+        virial = torch.zeros((n, 3, 3), dtype=dtype, device=self.device)
+        if model.output_forces:
+            f = out[0].detach()
+            if f.shape[-1] == 3:
+                f = torch.cat([f, torch.zeros_like(f[:, :1])], dim=-1)
+            forces4 = torch.nn.functional.pad(f, (0, 0, 0, n - f.shape[0]))
+            if model.virial and len(out) > 1:
+                w = out[1].detach()
+                virial = torch.nn.functional.pad(
+                    w, (0, 0, 0, 0, 0, n - w.shape[0]))
+        return forces4, virial
+
+    def _packed_step(self, st, flags, build, needs_virial):
+        integ, dt = self.integrator, self.dt
+        st = integ.pre_force(st, dt)
+        n = st.n_particles
+        if build is not None:
+            nlist, cell_overflow = build(st.positions4, box_size(st.box))
+            self.nlist_builds += 1
+        else:
+            nlist = torch.zeros((n, 1, 4), dtype=st.positions.dtype,
+                                device=self.device)
+            cell_overflow = None
+        if self.tfc is not None:
+            f, w = self._eval_model(st, nlist)
+        else:
+            f = torch.zeros((n, 4), dtype=st.positions.dtype,
+                            device=self.device)
+            w = torch.zeros((n, 3, 3), dtype=st.positions.dtype,
+                            device=self.device)
+        for force in self.forces:
+            fi, wi = force(st, nlist)
+            f, w = f + fi, w + wi
+        st.forces = f
+        if needs_virial:
+            st.virial = w
+        st = integ.post_force(st, dt)
+        st.step += 1
+        if cell_overflow is not None:
+            flags = flags | cell_overflow.to(torch.int32)
+        return st, flags
+
+    def _run_packed(self, n, allow_retry):
+        """One attempt at :meth:`run` on the particle-order route; returns
+        False to ask for a retry after a capacity-overflow rollback.
+        Flags: bit 0 cell overflow, bit 2 the model's full-list flag."""
+        tfc = self.tfc
+        model = tfc.model if tfc is not None else None
+        build = self._packed_build()
+        needs_virial = bool(self.forces or
+                            getattr(self.integrator, "needs_virial", False) or
+                            (model is not None and model.virial))
+        check = model is not None and model.check_nlist
+        full0 = model.nlist_overflow.clone() if check else None
+        for force in self.forces:
+            force.prepare(self.state.positions)
+        st = dataclasses.replace(self.state)
+        start_step = st.step
+        flags = torch.zeros((), dtype=torch.int32, device=self.device)
+        with _sync_guard(self.check_syncs), torch.no_grad():
+            for _ in range(n):
+                st, flags = self._packed_step(st, flags, build, needs_virial)
+            if check:
+                flags = flags | (model.nlist_overflow.to(torch.int32) << 2)
+        flags_now = int(flags.cpu())
+        overflow = bool(flags_now & 1)
+        if overflow and allow_retry and self.auto_replan and \
+                build is not None and build.plan is not None:
+            # roll back (self.state still holds the attempt's start) and
+            # re-plan with a larger capacity floor, as HOOMD's cell list
+            # resizes itself
+            if check:
+                model.nlist_overflow.copy_(full0)
+            cap = build.plan[1]
+            self._cl_capacity_floor = max(
+                getattr(self, "_cl_capacity_floor", 0),
+                int(np.ceil(cap * 1.3)) + 1)
+            self._nlist_build = _UNBUILT
+            warnings.warn(
+                f"cell capacity {cap} exceeded; rebuilding the neighbor "
+                f"plan with capacity >= {self._cl_capacity_floor} and "
+                f"re-running these {n} steps from their start")
+            return False
+        st.step = start_step + n
+        self.state = st
+        self._packed = None
+        self._vmax_cache = None
+        if overflow:
+            raise ValueError(
+                "Cell capacity exceeded during the run (a cell held more "
+                "particles than planned). Increase CellList(capacity=) or "
+                "attach with nlist='n2'.")
+        if flags_now & 4:
+            tfc.check_overflow(full=True)
+        return True
+
+
+def _is_cellwise(method):
+    return method == "cellwise" or isinstance(method, _cw.Cellwise)
 
 
 class _Route:

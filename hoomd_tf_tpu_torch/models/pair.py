@@ -3,7 +3,8 @@
 
 A subclass implements ``pair_energy(r2)`` or ``pair_energy(r2, type_i,
 type_j)`` returning the full pair energy per lane; the engine evaluates
-it on the analytic forward-only route of the cellwise mode. On a CUDA
+it on the analytic forward-only route of the cellwise mode, and through
+the generic ``compute`` (autodiff forces) on a packed neighbor list. On a CUDA
 device that route is kernel K1, which evaluates a pair form from a table
 instead of Python code. A model gets one in either of two ways:
 
@@ -153,6 +154,20 @@ class PairModel(SimModel):
             return evaluate.kernel_form(self.proxy_coeffs(r_cut, device))
 
     def compute(self, nlist, positions, box):
-        raise NotImplementedError(
-            "PairModel runs on the cellwise analytic route only in this "
-            "slice of the port (attach with nlist='cellwise')")
+        """The generic route on a packed ``[N, NN, 4]`` neighbor list:
+        the same physics as the analytic route, its forces by autodiff
+        (the neighbor modes other than ``'cellwise'`` take it)."""
+        from ..ops.forces import compute_nlist_forces
+        n3 = nlist[..., :3]
+        r2 = torch.sum(n3 * n3, dim=-1)
+        tj = nlist[..., 3] if nlist.shape[-1] > 3 else None
+        pad = r2 > 0
+        r2s = torch.where(pad, torch.clamp_min(r2, self.min_r2),
+                          torch.ones_like(r2))
+        if self.pair_with_types:
+            U = self.pair_energy(r2s, positions[:, 3][:, None], tj)
+        else:
+            U = self.pair_energy(r2s)
+        energy = 0.5 * torch.sum(torch.where(pad, U, torch.zeros_like(U)),
+                                 dim=1)
+        return compute_nlist_forces(nlist, energy, virial=self.virial)

@@ -1,11 +1,23 @@
-"""SimModel base (PyTorch port of the parts of
-``hoomd_tf_tpu/models/simmodel.py`` that the pair fast route and online
-training read: the model attributes and the training surface,
-``compile`` / ``loss`` / ``compute_loss``).
+"""SimModel: the user-facing model API (PyTorch port of
+``hoomd_tf_tpu/models/simmodel.py``).
 
-The generic ``compute(nlist, positions, box)`` route with autodiff
-forces and ``MolSimModel`` are still to port (ROADMAP.md Queue 1,
-slice C).
+A subclass implements ``compute(nlist, positions, box, training)``,
+taking 1-3 of the tensor arguments and optionally a trailing
+``training`` flag, and returns one or more outputs: the first is the
+forces when ``output_forces``, the second the virial when
+``virial=True``. Tensor conventions are the reference's:
+
+- ``nlist``: ``[N, NN, 4]``, the minimum-image displacement to each
+  neighbor and the neighbor's type; all-zero rows pad short lists;
+- ``positions``: ``[N, 4]``, xyz and type;
+- ``box``: ``[3, 3]``, rows low, high and tilt.
+
+:meth:`SimModel.__call__` runs ``compute`` under grad mode on a detached
+nlist and positions that require grad, so
+:func:`..ops.forces.compute_nlist_forces` differentiates the energy with
+``torch.autograd`` (the JAX package's capture-and-replay has no
+counterpart here). ``MolSimModel`` and mapped neighbor lists are not
+ported.
 """
 
 import functools
@@ -13,8 +25,30 @@ import functools
 import torch
 
 from .module import Layer
+from ..ops.forces import model_call
 
 __all__ = ["SimModel"]
+
+
+def _sniff_compute(fn, max_args, name):
+    """How many of the positional tensor arguments does ``compute`` take,
+    and does it end with a ``training`` flag? (the reference's arity
+    sniffing, ``simmodel.py:51-68``)"""
+    try:
+        code = fn.__code__
+    except AttributeError:
+        raise AttributeError(
+            f"{name} child class must implement {fn} method")
+    arg_count = code.co_argcount - 1  # drop self
+    pass_training = (arg_count >= 1 and
+                     code.co_varnames[arg_count] == "training")
+    if pass_training:
+        arg_count -= 1
+    if arg_count > max_args:
+        raise ValueError(
+            f"compute takes at most {max_args} tensor arguments, got "
+            f"{arg_count}")
+    return arg_count, pass_training
 
 
 class SimModel(Layer):
@@ -37,12 +71,20 @@ class SimModel(Layer):
         self.output_forces = output_forces
         self.virial = virial
         self.check_nlist = check_nlist
+        if SimModel.compute is type(self).compute:
+            raise AttributeError(
+                "You must implement compute method in subclass")
+        self._arg_count, self._pass_training = _sniff_compute(
+            self.compute, 3, "SimModel")
         # the JAX SimModel's two bookkeeping variables, kept so weight
-        # lists line up with a JAX model's one to one
-        self.nlist_overflow = self.add_weight(
-            (), trainable=False, dtype=torch.bool, name="nlist-overflow")
-        self.batch_steps = self.add_weight(
-            (), trainable=False, dtype=torch.int32, name="htf-batch-steps")
+        # lists line up with a JAX model's one to one; the first is the
+        # device flag _check_nlist ORs into (a buffer: read it through
+        # the nlist_overflow property, which follows .to(device))
+        self.add_weight((), trainable=False, dtype=torch.bool,
+                        name="nlist-overflow")
+        self._overflow_attr = self._weight_names[-1]
+        self.add_weight((), trainable=False, dtype=torch.int32,
+                        name="htf-batch-steps")
         self._optimizer = None
         self._loss = None
         self._setup_kwargs = dict(kwargs)
@@ -50,6 +92,69 @@ class SimModel(Layer):
 
     def setup(self, **kwargs):
         """Optional hook run at construction with leftover kwargs."""
+
+    @property
+    def nlist_overflow(self):
+        """Device bool flag: some call saw a full neighbor list (set by
+        ``check_nlist``; tfcompute raises on it after the run)."""
+        return getattr(self, self._overflow_attr)
+
+    # ------------------------------------------------------------------
+    # the generic route
+    # ------------------------------------------------------------------
+    def compute(self, nlist, positions, box, training=True):
+        """The model's computation; implemented by the subclass. It may
+        take fewer arguments (``(nlist, positions)``, say) and a trailing
+        ``training`` flag. Derive forces from an energy with
+        :func:`..ops.forces.compute_nlist_forces` or
+        :func:`..ops.forces.compute_positions_forces`."""
+        raise AttributeError("You must implement compute in your subclass")
+
+    def _check_nlist(self, nlist):
+        """The reference's overflow check (``simmodel.py:216-224``), in
+        the JAX package's traced form: ORs a device flag and never reads
+        it back (tfcompute raises after the run's one readback)."""
+        x = nlist[:, :, 0]
+        count = torch.amax(torch.sum((x > 0).to(torch.int32), dim=1))
+        with torch.no_grad():
+            self.nlist_overflow.logical_or_(count >= self.nneighbor_cutoff)
+
+    def _prepare_args(self, inputs, training):
+        inputs = list(inputs)
+        args = [torch.as_tensor(a).to(self.dtype)
+                for a in inputs[: self._arg_count]]
+        if self._arg_count >= 1 and args[0].ndim == 2:
+            # flat [N*NN, 4] nlist -> [N, NN, 4]
+            args[0] = args[0].reshape(-1, max(1, self.nneighbor_cutoff), 4)
+        # the tensors compute differentiates against: detached leaves
+        # that require grad (the tape then ends at them)
+        for i in range(min(2, self._arg_count)):
+            args[i] = args[i].detach().requires_grad_()
+        if self._arg_count >= 3 and not args[2].is_cuda:
+            # the reference's box-skew guard (simmodel.py:195); on a card
+            # it would wait on the device, and the Simulation's box is
+            # checked orthorhombic when it is set
+            if float(torch.sum(torch.abs(args[2][2]))) >= 1e-4:
+                raise ValueError("box is skewed")
+        if self.check_nlist and self._arg_count >= 1:
+            self._check_nlist(args[0])
+        if self._pass_training:
+            args.append(training)
+        return args
+
+    def __call__(self, inputs, training=False):
+        """Run the model on ``inputs = [nlist, positions, box, ...]``;
+        returns a tuple of its outputs. ``compute`` runs under grad mode
+        whatever the caller's mode; the force gradients keep their graph
+        only when ``training``."""
+        if torch.is_tensor(inputs):
+            inputs = [inputs]
+        args = self._prepare_args(inputs, training)
+        with torch.enable_grad(), model_call(training):
+            out = self.compute(*args)
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        return tuple(out)
 
     def get_config(self):
         config = {
@@ -143,12 +248,6 @@ class SimModel(Layer):
         for reg in self.losses:
             total = total + reg
         return total
-
-    def compute(self, nlist, positions, box):
-        raise NotImplementedError(
-            "the generic SimModel compute route (autodiff forces over "
-            "neighbor lists) is not ported yet: it arrives with slice C "
-            "of the PyTorch port. Declare the model as a PairModel.")
 
 
 def _make_optimizer(name, lr, params):

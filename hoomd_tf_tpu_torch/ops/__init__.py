@@ -1,11 +1,22 @@
-"""Tensor operations of the PyTorch port: box math, the cellwise
-neighbor machinery (``cellwise``) with its CUDA kernel K1
-(``cellwise_cuda``), the Chebyshev pair proxy (``chebyshev``) and the
+"""Tensor operations of the PyTorch port: box math; the NaN-safe
+numerics and autodiff forces of the generic model route (``numerics``,
+``forces``); the dense and cell-list neighbor builds (``nlist``,
+``cell_list``) with the selection kernel K3 (``nlist_cuda``); the
+cellwise neighbor machinery (``cellwise``) with its CUDA kernel K1
+(``cellwise_cuda``); the Chebyshev pair proxy (``chebyshev``) and the
 online-training pair forces (``pair_train``) with their backward kernel
 K2 (``pair_train_cuda``)."""
 
 from .box import box_size, wrap_vector, make_box, box_from_lengths
 from .cellwise import Cellwise
+from .cell_list import CellList, cell_list_nlist
+from .forces import compute_nlist_forces, compute_positions_forces
+from .nlist import compute_nlist, nlist_from_positions
+from .numerics import (divide_no_nan, masked_nlist, multiply_no_nan,
+                       nlist_rinv, safe_norm)
 
 __all__ = ["box_size", "wrap_vector", "make_box", "box_from_lengths",
-           "Cellwise"]
+           "Cellwise", "CellList", "cell_list_nlist",
+           "compute_nlist_forces", "compute_positions_forces",
+           "compute_nlist", "nlist_from_positions", "divide_no_nan",
+           "masked_nlist", "multiply_no_nan", "nlist_rinv", "safe_norm"]

@@ -10,6 +10,8 @@ port, ROADMAP.md Queue 1 item 19).
 import numpy as np
 import torch
 
+from .._device import device_for
+
 __all__ = ["make_box", "box_from_lengths", "box_size", "wrap_vector",
            "check_orthorhombic"]
 
@@ -28,19 +30,25 @@ def check_orthorhombic(tilt):
 
 
 def make_box(low, high, tilt=None, dtype=torch.float32, device=None):
-    """Assemble a ``[3, 3]`` box tensor from low/high corners."""
+    """Assemble a ``[3, 3]`` box tensor from low/high corners (on
+    ``device``: by default the CUDA card for host data, the input's own
+    device for a tensor; pass ``device="cpu"`` for the CPU)."""
+    if tilt is not None:
+        check_orthorhombic(tilt)
+    device = device_for(low, device, "make_box")
     low = torch.as_tensor(low, dtype=dtype, device=device)
     high = torch.as_tensor(high, dtype=dtype, device=device)
     if tilt is None:
         tilt = torch.zeros(3, dtype=dtype, device=low.device)
     else:
-        check_orthorhombic(tilt)
         tilt = torch.as_tensor(tilt, dtype=dtype, device=low.device)
     return torch.stack([low, high, tilt])
 
 
 def box_from_lengths(lengths, dtype=torch.float32, device=None):
-    """Centered orthorhombic box (``-L/2 .. L/2``) from ``[Lx, Ly, Lz]``."""
+    """Centered orthorhombic box (``-L/2 .. L/2``) from ``[Lx, Ly, Lz]``
+    (device as :func:`make_box`)."""
+    device = device_for(lengths, device, "box_from_lengths")
     lengths = torch.as_tensor(lengths, dtype=dtype, device=device)
     if lengths.ndim == 0:
         lengths = lengths.expand(3)

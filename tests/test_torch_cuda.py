@@ -1,6 +1,7 @@
-"""Card-only checks of the port: kernel K1 (LJ and Chebyshev-proxy forms)
-and kernel K2 against their plain versions, the step loop free of host
-syncs, and online training on the card against the CPU. Every test here
+"""Card-only checks of the port: kernel K1 (LJ and Chebyshev-proxy forms),
+kernel K2 and kernel K3 against their plain versions, the step loops of
+the cellwise and the packed paths free of host syncs, and online training
+on the card against the CPU. Every test here
 needs a CUDA device and
 skips without one. This file imports no JAX, so it runs on the machine
 with the card, where JAX is not installed:
@@ -268,3 +269,92 @@ def test_backward_without_basis_raises(cuda_device):
                            fwd_stencil="half", geometry=layout.geometry)
     with pytest.raises(ValueError, match="Chebyshev"):
         f4.sum().backward()
+
+
+# ---------------------------------------------------------------------------
+# The packed neighbor-list path: kernel K3
+# ---------------------------------------------------------------------------
+
+class SimLJ(htt.SimModel):
+    """The JAX package's typical use (LJ from nlist_rinv, autodiff)."""
+
+    def compute(self, nlist, positions, box):
+        rinv = htt.nlist_rinv(nlist)
+        inv_r6 = rinv ** 6
+        energy = torch.sum(4.0 / 2.0 * (inv_r6 * inv_r6 - inv_r6), dim=1)
+        return htt.compute_nlist_forces(nlist, energy)
+
+
+def k3_args(device, n=3000, cap=None, NN=64, density=0.4):
+    """K3's inputs from a jittered fluid: ``(slots4, counts, pid, grid,
+    cap, NN, r_cut, lengths, n)``."""
+    from hoomd_tf_tpu_torch.ops import cell_list as tcl
+    pos, _, lengths = fluid_arrays(n, density, 11, jitter=0.4)
+    pos4 = torch.as_tensor(np.concatenate(
+        [pos, (np.arange(n) % 3)[:, None]], axis=1).astype(np.float32),
+        device=device)
+    grid, c = tcl.plan(n, lengths, 3.0)
+    c = cap or max(c, int(np.ceil(tcl.max_occupancy(pos, lengths, grid) *
+                                  1.3)) + 1)
+    L = torch.as_tensor(lengths, device=device)
+    slots4, counts, pid, _ = tcl.build_planes(pos4, grid, c, L)
+    return (slots4, counts, pid, grid, c, NN, 3.0,
+            tuple(float(v) for v in lengths), n)
+
+
+@pytest.mark.parametrize("NN,cap", [(64, None), (16, None), (64, 80)])
+def test_k3_matches_plain(cuda_device, NN, cap):
+    """K3 on the card against its plain version on the CPU: the same
+    order, displacements at 1e-6 (NN = 16: more valid candidates than
+    NN; capacity 80: 112 KB of shared memory per block, past the 48 KB
+    that needs the opt-in attribute)."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    args = k3_args(cuda_device, cap=cap, NN=NN)
+    before = tnc.nlist_select.launches
+    got = np_(tnc.nlist_select(*args))
+    torch.cuda.synchronize()
+    assert tnc.nlist_select.launches - before == 1
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    want = np_(tnc.nlist_select(*cpu))
+    np.testing.assert_array_equal(got[..., 3], want[..., 3])
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert (got[..., :3] != 0).any(-1).sum(1).max() == NN or NN == 64
+
+
+def test_k3_wrapper_checks_inputs(cuda_device):
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    args = list(k3_args(cuda_device))
+    bad = list(args)
+    bad[0] = args[0].double()
+    with pytest.raises(ValueError, match="float32"):
+        tnc.nlist_select(*bad)
+    bad = list(args)
+    bad[1] = args[1][:-1]
+    with pytest.raises(ValueError, match="shape"):
+        tnc.nlist_select(*bad)
+
+
+def test_auto_selects_k3_without_host_sync(cuda_device):
+    """'auto' on the card resolves to the cell list with K3; every nlist
+    build of the run launched it, and the step loop made no host sync."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.Minimize(0.05),
+                         device=cuda_device)
+    sim.init_lattice(4096, density=0.4, kT_init=1.5)
+    sim.state.positions = sim.state.positions + torch.as_tensor(
+        0.3 * np.random.RandomState(0).randn(4096, 3).astype(np.float32),
+        device=cuda_device)
+    tfc = htt.tfcompute(SimLJ(64))
+    tfc.attach(sim, r_cut=3.0)
+    sim.add_force(htt.md.LennardJones(epsilon=0.5, r_cut=3.0))
+    sim.check_syncs = True
+    before = tnc.nlist_select.launches
+    sim.run(30)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(100)
+    assert sim._packed_build().method == "pallas"
+    assert tnc.nlist_select.launches - before == sim.nlist_builds == 130
+    assert np.isfinite(tfc.get_forces_array()).all()
+    assert 0.8 < sim.thermo()["temperature"] < 2.5

@@ -12,13 +12,21 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hoomd_tf_tpu_torch"
 
 
-# every module of the port, the online-training slice's included
+# every module of the port, the online-training and packed slices' included
 MODULES = ("hoomd_tf_tpu_torch", "hoomd_tf_tpu_torch.interop",
            "hoomd_tf_tpu_torch.ops.chebyshev",
            "hoomd_tf_tpu_torch.ops.pair_train",
            "hoomd_tf_tpu_torch.ops.pair_train_cuda",
+           "hoomd_tf_tpu_torch.ops.numerics",
+           "hoomd_tf_tpu_torch.ops.forces",
+           "hoomd_tf_tpu_torch.ops.nlist",
+           "hoomd_tf_tpu_torch.ops.cell_list",
+           "hoomd_tf_tpu_torch.ops.cell_stencil",
+           "hoomd_tf_tpu_torch.ops.nlist_cuda",
            "hoomd_tf_tpu_torch.models.layers",
-           "hoomd_tf_tpu_torch.md.simulation")
+           "hoomd_tf_tpu_torch.md.pair",
+           "hoomd_tf_tpu_torch.md.simulation",
+           "hoomd_tf_tpu_torch.driver")
 
 
 def test_import_without_jax():

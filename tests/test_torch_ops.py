@@ -28,12 +28,12 @@ class TestBox:
     def test_make_box_and_lengths(self):
         lengths = np.array([4.0, 5.5, 7.25], np.float32)
         np.testing.assert_array_equal(
-            np_(tbox.box_from_lengths(lengths)),
+            np_(tbox.box_from_lengths(lengths, device="cpu")),
             np_(htf.ops.box_from_lengths(lengths)))
         np.testing.assert_array_equal(
-            np_(tbox.make_box([-1, -2, -3], [1, 2, 3])),
+            np_(tbox.make_box([-1, -2, -3], [1, 2, 3], device="cpu")),
             np_(htf.ops.make_box([-1, -2, -3], [1, 2, 3])))
-        b = tbox.box_from_lengths(lengths)
+        b = tbox.box_from_lengths(lengths, device="cpu")
         np.testing.assert_array_equal(np_(htt.box_size(b)), lengths)
 
     def test_wrap_vector(self):
@@ -41,7 +41,7 @@ class TestBox:
         r = rng.uniform(-20, 20, (50, 3)).astype(np.float32)
         lengths = np.array([4.0, 5.5, 7.25], np.float32)
         got = htt.wrap_vector(torch.as_tensor(r),
-                              tbox.box_from_lengths(lengths))
+                              tbox.box_from_lengths(lengths, device="cpu"))
         want = htf.wrap_vector(jnp.asarray(r),
                                htf.ops.box_from_lengths(lengths))
         np.testing.assert_allclose(np_(got), np_(want), rtol=0, atol=1e-5)

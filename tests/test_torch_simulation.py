@@ -190,21 +190,28 @@ def test_kernel_stencil_through_the_engine():
                          runs[0]._lengths, atol=2e-3)
 
 
+class _TGeneric(htt.SimModel):
+    def compute(self, nlist):
+        return htt.compute_nlist_forces(
+            nlist, torch.sum(htt.nlist_rinv(nlist), dim=1))
+
+
 @pytest.mark.parametrize("case", ["nlist", "train", "simmodel", "proxy"])
 def test_attach_rejects_unported(case):
-    """What slice C brings: other neighbor modes, training a PairModel
-    without the Chebyshev proxy (the non-proxy NN row), the generic
-    SimModel route, and the period / batch knobs of proxy training."""
+    """What later slices bring: the wide-direct neighbor mode, training a
+    PairModel without the Chebyshev proxy (the non-proxy NN row), a
+    generic SimModel on the cellwise route, and the period / batch knobs
+    of proxy training."""
     sim, _ = bench_like(n=256)
     with pytest.raises(NotImplementedError):
         if case == "nlist":
-            htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="n2")
+            htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="direct")
         elif case == "train":
             htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="cellwise",
                                           train=True)
         elif case == "simmodel":
-            htt.tfcompute(htt.SimModel(16)).attach(sim, r_cut=3.0,
-                                                   nlist="cellwise")
+            htt.tfcompute(_TGeneric(16)).attach(sim, r_cut=3.0,
+                                                nlist="cellwise")
         else:
             model = TLJ(64, proxy_degree=8)
             model.compile(loss="mse")
@@ -245,6 +252,10 @@ DEVICE_ENTRIES = {
     "state_from_numpy": lambda **kw: state_from_numpy(
         _state_arrays(), **kw).positions,
     "SlotLayout": _slot_layout,
+    "make_box": lambda **kw: htt.ops.make_box([-1, -2, -3], [1, 2, 3],
+                                              **kw),
+    "box_from_lengths": lambda **kw: htt.ops.box_from_lengths(
+        [4.0, 5.0, 6.0], **kw),
     "make_typed_pair_proxy": _typed_proxy,
     "build_model": lambda **kw: build_model(
         _nn(), 2.5, **kw).variables[-1],
@@ -252,6 +263,15 @@ DEVICE_ENTRIES = {
         torch.ones(3, device=kw.get("device")))[0],
     "pair_kernel_form": lambda **kw: _nn().pair_kernel_form(
         2.5, **kw).table,
+    "compute_nlist": lambda **kw: htt.compute_nlist(
+        fluid_arrays(64, 0.3)[0], 3.0, 8, [6.0] * 3, **kw),
+    "cell_list_nlist": lambda **kw: htt.cell_list_nlist(
+        np.concatenate([fluid_arrays(64, 0.3)[0], np.zeros((64, 1))], 1),
+        3.0, 8, [9.5] * 3, **kw),
+    "divide_no_nan": lambda **kw: htt.divide_no_nan([1.0, 2.0], [0.0, 4.0],
+                                                    **kw),
+    "multiply_no_nan": lambda **kw: htt.multiply_no_nan(1.0, [0.0, 4.0],
+                                                        **kw),
 }
 
 

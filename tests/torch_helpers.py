@@ -203,3 +203,16 @@ def train_sim(state, device="cpu", optimizer="adam", lr=1e-2, degree=16,
     tfc = htt.tfcompute(model)
     tfc.attach(sim, r_cut=r_cut, nlist=nlist, train=True)
     return sim, tfc, model
+
+
+def nlist_with_padding(n=40, nn=12, seed=0):
+    """A random ``[n, nn, 4]`` nlist whose rows are zero-padded at random
+    lengths, some rows wholly empty."""
+    rng = np.random.RandomState(seed)
+    nl = rng.uniform(-3, 3, (n, nn, 4)).astype(np.float32)
+    nl[..., 3] = rng.randint(0, 3, (n, nn))
+    fill = rng.randint(0, nn + 1, n)
+    fill[:3] = 0
+    for i in range(n):
+        nl[i, fill[i]:] = 0.0
+    return nl
