@@ -11,14 +11,16 @@ exits non-zero:
 1. device   -- a CUDA card must be present; prints its name and power
                limit as nvidia-smi reports them;
 2. build    -- compiles kernel K1 (csrc/cellwise_half.cu, LJ and
-               Chebyshev-proxy forms), kernel K2 (csrc/proxy_bwd.cu) and
+               Chebyshev-proxy forms), kernel K2 (csrc/proxy_bwd.cu), both
+               on the shared staging of csrc/half_stencil_stage.cuh, and
                kernel K3 (csrc/nlist_select.cu) with nvcc, one process per
                source started together, printing ptxas registers and
                spills;
 3. kernels  -- K1's LJ form against its plain PyTorch version and the
                full-stencil tensor form at the 64k fluid's shapes (one-
-               and two-type potentials, a per-type cutoff matrix, and a
-               capacity whose 14*cap exceeds 1024 lanes), plus both times;
+               and two-type potentials, a per-type cutoff matrix, and
+               capacities 80 and 200, whose 14 staged cells span many
+               chunks of the thread block), plus both times;
 4. main     -- the eval protocol through the public API: a 64k LJ fluid
                at density 0.4, r_cut 3, PairModel + cellwise, Minimize
                quench, thermalize, NVT at kT 1.5, warm runs, a timed
@@ -126,53 +128,58 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lane_counts(occ, gx, gy, gz, cap, rc2, gt=None, rc2_tab=None):
-    """``(evaluated, inside)``: the pair lanes a half-stencil pass walks on
-    these inputs (every candidate lane of each occupied row) and those
-    inside the cut (the pair function runs there), counted on the card."""
-    from hoomd_tf_tpu_torch.ops.cellwise import pair_rc2
-    n_cells, C = gx.shape
-    row = torch.arange(cap, device=gx.device)[:, None]
-    col = torch.arange(C, device=gx.device)[None, :]
-    inside = 0
-    step = max(1, (1 << 24) // (cap * C))
-    for a in range(0, n_cells, step):
-        s = slice(a, a + step)
-        d2 = sum((g[s, None, :] - g[s, :cap, None]) ** 2
-                 for g in (gx, gy, gz))
-        ok = (d2 <= rc2) & (col != row)[None] & \
-            (row[None] < occ[s, None, None])
-        if rc2_tab is not None:
-            ok = ok & (d2 <= pair_rc2(gt[s, :cap, None], gt[s, None, :],
-                                      rc2_tab))
-        inside += int(ok.sum())
-    return int(occ.sum()) * C, inside
+def pair_counts(positions, valid, plan):
+    """``(tested, inside)``: the occupied x occupied pairs of the half
+    stencil on this state, each unordered pair once (a cell's own pairs,
+    and its slots against each directed neighbour cell's), and those
+    within the cut, counted by brute force over the occupied slots with the
+    minimum image (every pair within the cut lies in the half stencil
+    once)."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops.cellwise import _HALF_OFFS
+    nx, ny, nz = plan.grid
+    occ = valid.reshape(nz, ny, nx, plan.capacity).sum(-1).double()
+    occ = occ.cpu().numpy()
+    tested = float((occ * (occ - 1) / 2).sum())
+    for ox, oy, oz in _HALF_OFFS[1:]:
+        tested += float((occ * np.roll(occ, (-oz, -oy, -ox),
+                                       axis=(0, 1, 2))).sum())
+    real = positions[valid > 0]
+    L = torch.as_tensor(plan.lengths, dtype=real.dtype, device=real.device)
+    hits = 0
+    for a in range(0, real.shape[0], 1024):
+        d = real[None, :, :] - real[a:a + 1024, None, :]
+        d = d - torch.round(d / L) * L
+        hits += int(((d * d).sum(-1) <= plan.r_cut ** 2).sum())
+    return tested, (hits - real.shape[0]) / 2
 
 
-def k1_cost(occ, gx, gy, gz, gt, cap, rc2, rc2_tab, n_ch, form):
-    """Bytes and float32 operations of one K1 call on these inputs. Per
-    walked lane: the displacement, d2 and the cut test (9 operations);
-    per lane inside the cut: the pair form (LJ 14, the proxy's two
-    Clenshaw series 8K + 10) and, per channel, the product and its two
-    sums (3)."""
+def k1_cost(positions, valid, plan, n_ch, form):
+    """Bytes and float32 operations of the function K1 computes on this
+    state, forces only or with energy (``n_ch`` 3 or 4), untyped: the slot
+    positions and ``valid`` read once, ``forces4`` written once, the form's
+    table; per tested pair the displacement, d2 and the cut test (9
+    operations), per pair inside the cut the pair form (LJ 14, the
+    proxy's two Clenshaw series 8K + 10) and, per channel, the product and
+    its two sums (3)."""
     from hoomd_tf_tpu_torch.ops.cellwise_cuda import ChebForm
-    walked, inside = lane_counts(occ, gx, gy, gz, cap, rc2, gt, rc2_tab)
-    planes = 3 + (gt is not None)
-    nbytes = 4 * (planes * gx.numel() + occ.numel() + n_ch * gx.numel()) \
-        + form.tensor(gx.device).numel() * 4
+    tested, inside = pair_counts(positions, valid, plan)
+    nbytes = plan.n_slots * 4 * (3 + 1 + 4) + \
+        form.tensor(positions.device).numel() * 4
     per = 8 * form.K + 10 if isinstance(form, ChebForm) else 14
-    return nbytes, 9 * walked + inside * (per + 3 * n_ch)
+    return nbytes, 9 * tested + inside * (per + 3 * n_ch)
 
 
-def k2_cost(occ, gx, gy, gz, gt, cap, rc2, rc2_tab, K, energy, M):
-    """Bytes and float32 operations of one K2 call on these inputs. Per
-    walked lane 9 operations; per lane inside the cut 27 (weights, u, w)
-    plus, per term, the recurrence (2) and each moment's multiply-add (2
-    per moment set)."""
-    walked, inside = lane_counts(occ, gx, gy, gz, cap, rc2, gt, rc2_tab)
-    planes = 6 + energy + (gt is not None)
-    nbytes = 4 * (planes * gx.numel() + occ.numel() + M)
-    return nbytes, 9 * walked + inside * (27 + K * (2 + 2 * (1 + energy)))
+def k2_cost(positions, valid, plan, K, energy, M):
+    """Bytes and float32 operations of the function K2 computes on this
+    state, untyped: the slot positions, ``valid`` and the ``[n_slots, 4]``
+    cotangent read once, the ``M`` moments written once; per tested pair 9
+    operations, per pair inside the cut 27 (weights, u, w) plus, per term,
+    the recurrence (2) and each moment's multiply-add (2 per moment
+    set)."""
+    tested, inside = pair_counts(positions, valid, plan)
+    nbytes = 4 * (plan.n_slots * (3 + 1 + 4) + M)
+    return nbytes, 9 * tested + inside * (27 + K * (2 + 2 * (1 + energy)))
 
 
 def make_model():
@@ -225,19 +232,11 @@ def jittered_sim(n, integrator, device, seed=0):
     return sim
 
 
-def slot_planes(layout, state):
-    """Pack ``state`` into ``layout`` and build K1's / K2's input planes:
-    ``(slot, aux, occ, gx, gy, gz, gt)``."""
-    from hoomd_tf_tpu_torch.ops import cellwise as cw
-    p = layout.plan
+def slot_state(layout, state):
+    """Pack ``state`` into ``layout``: ``(slot_state, aux)``."""
     slot, aux = layout.pack(state)
     check(not bool(aux["overflow"]), "pack overflowed")
-    _, _, _, gx, gy, gz = cw._relative_coords(
-        slot.positions, aux["valid"], p, layout.lo, cw._HALF_OFFS,
-        layout.geometry)
-    gt = cw._roll_offs(slot.types, p, cw._HALF_OFFS)
-    occ = aux["valid"].reshape(p.n_cells, p.capacity).sum(1).to(torch.int32)
-    return slot, aux, occ, gx, gy, gz, gt
+    return slot, aux
 
 
 def make_simmodel(nn=64):
@@ -453,51 +452,56 @@ def phase_kernels():
     lj2 = htt.md.LennardJones(eps, 1.0, r_cut=R_CUT)
     rcm = [[3.0, 2.2], [2.2, 2.6]]
     types2 = (torch.arange(N, device=dev) % 2).to(torch.int32)
-    # the same grid with room for 80 per cell (a self-heal capacity floor
-    # can do this): 14*cap = 1120 lanes, more than one pass of the block
-    big = dataclasses.replace(plan, capacity=80)
+    # the same grid with room for 80 and 200 per cell (a self-heal
+    # capacity floor can do this): 14*cap = 1120 and 2800 slots staged per
+    # cell, 5 and 11 chunks of the thread block, past 48 KB of shared
+    # memory at 200
     cases = [("one type", plan, state.types, lj1, None),
-             ("two types + rcut_matrix", plan, types2, lj2, rcm),
-             ("capacity 80 (14*cap = 1120 lanes)", big, state.types, lj1,
-              None)]
+             ("two types + rcut_matrix", plan, types2, lj2, rcm)]
+    for cap in (max(80, plan.capacity + 1), 200):
+        cases.append((f"capacity {cap} (14*cap = {14 * cap} slots)",
+                      dataclasses.replace(plan, capacity=cap), state.types,
+                      lj1, None))
     max_err = 0.0
     rec = None
     for label, p, types, pot, rc in cases:
         st = dataclasses.replace(state, types=types)
         layout = SlotLayout(p, N, sim._lo, rc_matrix=rc, device=dev)
-        slot, aux, occ, gx, gy, gz, gt = slot_planes(layout, st)
+        slot, aux = slot_state(layout, st)
         form = pot.kernel_form()
-        args = (occ, gx, gy, gz, gt, form, p.capacity, R_CUT ** 2, 1e-4)
+        common = (slot.positions, slot.types, aux["valid"], p, layout.lo)
         kw = dict(needs_energy=True, needs_virial=True,
-                  rc2_tab=layout.rc2_tab)
+                  rc2_tab=layout.rc2_tab, geometry=layout.geometry)
         print(f" case {label}: grid {p.grid} cap {p.capacity}")
-        got = cc.half_stencil_planes(*args, **kw)
-        want = cc.half_stencil_reference(*args, **kw)
+        f_k, w_k = cc.half_stencil_pair_forces(*common, form, **kw)
+        f_p, w_p = cc.half_stencil_plain(*common, form, **kw)
         torch.cuda.synchronize()
-        max_err = max(max_err, compare("planes (kernel vs plain)", got,
-                                       want))
-        common = (slot.positions, slot.types, aux["valid"], p, layout.lo,
-                  pot.pair_energy_and_slope)
-        fkw = dict(needs_virial=True, with_types=True,
-                   rcut_matrix=layout.rc2_tab, form=form, geometry=layout.geometry)
-        f_k, w_k = cw.analytic_pair_forces(*common, stencil="kernel", **fkw)
-        f_f, w_f = cw.analytic_pair_forces(*common, stencil="full", **fkw)
-        max_err = max(max_err, compare("forces+energy (kernel vs full)",
-                                       f_k, f_f))
-        max_err = max(max_err, compare("virial (kernel vs full)", w_k, w_f))
+        max_err = max(max_err,
+                      compare("forces+energy (kernel vs plain)", f_k, f_p),
+                      compare("virial (kernel vs plain)", w_k, w_p))
+        f_f, w_f = cw.analytic_pair_forces(
+            *common, pot.pair_energy_and_slope, needs_virial=True,
+            with_types=True, rcut_matrix=layout.rc2_tab, form=form,
+            geometry=layout.geometry, stencil="full")
+        max_err = max(max_err,
+                      compare("forces+energy (kernel vs full)", f_k, f_f),
+                      compare("virial (kernel vs full)", w_k, w_f))
         if rec is None:
             # the main path's configuration: forces only
-            a1 = args[:4] + (None, form) + args[6:]
-            t_k = cuda_ms(lambda: cc.half_stencil_planes(
-                *a1, needs_energy=False, needs_virial=False))
-            t_p = cuda_ms(lambda: cc.half_stencil_reference(
-                *a1, needs_energy=False, needs_virial=False), reps=21)
-            b_ms, b_by = bound(*k1_cost(occ, gx, gy, gz, None, p.capacity,
-                                        R_CUT ** 2, None, 3, form))
+            t_k = cuda_ms(lambda: cc.half_stencil_pair_forces(
+                *common, form, needs_energy=False,
+                geometry=layout.geometry))
+            t_p = cuda_ms(lambda: cc.half_stencil_plain(
+                *common, form, needs_energy=False,
+                geometry=layout.geometry), reps=21)
+            nbytes, ops = k1_cost(slot.positions, aux["valid"], p, 3, form)
+            b_ms, b_by = bound(nbytes, ops)
             rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
-            print(f"  time at the main path's shapes (forces only, median "
-                  f"of CUDA events): kernel {t_k:.4f} ms, plain "
-                  f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            print(f"  time of the whole call at the main path's shapes "
+                  f"(forces only, median of CUDA events): kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+                  f"operations)")
     rec["max_abs_err"] = max_err
     return rec
 
@@ -506,7 +510,7 @@ def phase_main():
     """The eval protocol through the port's public API."""
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
 
-    k1 = cc.half_stencil_planes
+    k1 = cc.half_stencil_pair_forces
     sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda")
     sim.check_syncs = True
     tfc = htt.tfcompute(make_model())
@@ -622,7 +626,7 @@ def phase_train():
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
 
-    k1, k2 = cc.half_stencil_planes, pc.proxy_bwd_planes
+    k1, k2 = cc.half_stencil_pair_forces, pc.proxy_bwd_moments
     sim, model = train_sim_attached()
     tfc = sim.tfc
     sim.check_syncs = True
@@ -640,11 +644,14 @@ def phase_train():
     launches = dict(lj=k1.launches - k1.proxy_launches,
                     proxy=k1.proxy_launches, k2=k2.launches)
     evals = sim.force_evals - evals0
+    # train steps attempted: a run rolled back by the engine's self-heal
+    # (a cell over capacity) re-runs its steps, and its losses are dropped
     steps = sim.train_steps - steps0
     hist = tfc.loss_history
     loss1 = float(np.mean(hist[-50:]))
     th = sim.thermo()
-    check(len(hist) == steps == 1400, f"{len(hist)} losses, {steps} steps")
+    check(len(hist) == 1400 <= steps,
+          f"{len(hist)} losses of committed steps, {steps} steps attempted")
     check(bool(np.isfinite(hist).all()), "non-finite training loss")
     check(bool(torch.isfinite(sim.state.positions).all()),
           "non-finite positions")
@@ -660,6 +667,8 @@ def phase_train():
     plan = sim._layout.plan
     best = min(times)
     print(f"  plan grid {plan.grid} cap {plan.capacity}; T={th['temperature']:.4f}")
+    print(f"  train steps: 1400 committed, {steps} attempted ({steps - 1400} "
+          f"re-run after a self-heal rollback)")
     print(f"  launches: K2 {launches['k2']} == train steps {steps}; K1 "
           f"{k1.launches} == evaluations {evals} (LJ labels "
           f"{launches['lj']}, proxy forward {launches['proxy']}); no host "
@@ -715,27 +724,32 @@ def phase_train_kernels(sim, model):
         st = state if types is None else dataclasses.replace(state,
                                                              types=types)
         lay = SlotLayout(p, N, sim._lo, rc_matrix=rc, device=dev)
-        _, _, occ, gx, gy, gz, gt = slot_planes(lay, st)
-        gt = gt if (form.ntypes > 1 or rc is not None) else None
-        args = (occ, gx, gy, gz, gt, form, p.capacity, rc2, model.min_r2)
-        kw = dict(needs_energy=True, needs_virial=True, rc2_tab=lay.rc2_tab)
-        got = cc.half_stencil_planes(*args, **kw)
-        want = cc.half_stencil_reference(*args, **kw)
+        slot, aux = slot_state(lay, st)
+        common = (slot.positions, slot.types, aux["valid"], p, lay.lo, form)
+        kw = dict(min_r2=model.min_r2, rc2_tab=lay.rc2_tab,
+                  geometry=lay.geometry)
+        f_k, w_k = cc.half_stencil_pair_forces(*common, needs_virial=True,
+                                               **kw)
+        f_p, w_p = cc.half_stencil_plain(*common, needs_virial=True, **kw)
         torch.cuda.synchronize()
-        k1_err = max(k1_err, compare(f"K1 proxy {label} (kernel vs plain)",
-                                     got, want))
+        k1_err = max(k1_err,
+                     compare(f"K1 proxy {label}, forces+energy (kernel vs "
+                             f"plain)", f_k, f_p),
+                     compare(f"K1 proxy {label}, virial (kernel vs plain)",
+                             w_k, w_p))
         if k1_rec is None:
             # the train path's forward: forces only
-            t_k = cuda_ms(lambda: cc.half_stencil_planes(
-                *args, needs_energy=False, needs_virial=False))
-            t_p = cuda_ms(lambda: cc.half_stencil_reference(
-                *args, needs_energy=False, needs_virial=False), reps=5)
-            b_ms, b_by = bound(*k1_cost(occ, gx, gy, gz, None, p.capacity,
-                                        rc2, None, 3, form))
+            t_k = cuda_ms(lambda: cc.half_stencil_pair_forces(
+                *common, needs_energy=False, **kw))
+            t_p = cuda_ms(lambda: cc.half_stencil_plain(
+                *common, needs_energy=False, **kw), reps=5)
+            nbytes, ops = k1_cost(slot.positions, aux["valid"], p, 3, form)
+            b_ms, b_by = bound(nbytes, ops)
             k1_rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
-            print(f"  K1 proxy time (forces only, the train forward): "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+            print(f"  K1 proxy time of the whole call (forces only, the "
+                  f"train forward): kernel {t_k:.4f} ms, plain {t_p:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
+                  f"MB, {ops / 1e9:.3f} G operations)")
     k1_rec["max_abs_err"] = k1_err
 
     # K2
@@ -754,18 +768,15 @@ def phase_train_kernels(sim, model):
         st = state if types is None else dataclasses.replace(state,
                                                              types=types)
         lay = SlotLayout(p, N, sim._lo, rc_matrix=rc, device=dev)
-        slot, aux, occ, gx, gy, gz, gt = slot_planes(lay, st)
-        typed = basis["pairs"] is not None or rc is not None
-        gt = gt if typed else None
-        ctv = ct * aux["valid"][:, None]
-        from hoomd_tf_tpu_torch.ops.cellwise import _roll_offs, _HALF_OFFS
-        cg = [_roll_offs(ctv[:, k].contiguous(), p, _HALF_OFFS)
-              for k in range(4)]
-        args = (occ, gx, gy, gz, gt, cg[0], cg[1], cg[2],
-                cg[3] if energy else None, basis, p.capacity, rc2,
-                model.min_r2, lay.rc2_tab)
-        got = pc.proxy_bwd_planes(*args)
-        want = pc.proxy_bwd_reference(*args)
+        slot, aux = slot_state(lay, st)
+        args = (slot.positions, slot.types, aux["valid"], ct, p, lay.lo,
+                basis)
+        kw = dict(min_r2=model.min_r2, rc2_tab=lay.rc2_tab,
+                  needs_energy=energy, geometry=lay.geometry)
+        got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
+            *args, **kw)])
+        want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
+            *args, **kw)])
         torch.cuda.synchronize()
         M = got.numel()
         scale = float(want.abs().max())
@@ -773,14 +784,16 @@ def phase_train_kernels(sim, model):
                                      f"plain)", got, want, rtol=K2_RTOL,
                                      atol=K2_ATOL_REL * scale))
         if k2_rec is None:
-            t_k = cuda_ms(lambda: pc.proxy_bwd_planes(*args))
-            t_p = cuda_ms(lambda: pc.proxy_bwd_reference(*args), reps=5)
-            b_ms, b_by = bound(*k2_cost(occ, gx, gy, gz, gt, p.capacity, rc2,
-                                        None, K_PROXY, energy, M))
+            t_k = cuda_ms(lambda: pc.proxy_bwd_moments(*args, **kw))
+            t_p = cuda_ms(lambda: pc.proxy_bwd_plain(*args, **kw), reps=5)
+            nbytes, ops = k2_cost(slot.positions, aux["valid"], p, K_PROXY,
+                                  energy, M)
+            b_ms, b_by = bound(nbytes, ops)
             k2_rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
-            print(f"  K2 time (forces-only cotangent, the train path): "
-                  f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+            print(f"  K2 time of the whole call (forces-only cotangent, "
+                  f"the train path): kernel {t_k:.4f} ms, plain {t_p:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
+                  f"MB, {ops / 1e9:.3f} G operations)")
     k2_rec["max_abs_err"] = k2_err
     return k1_rec, k2_rec
 
@@ -893,12 +906,13 @@ def main():
 
     rows = [
         dict(name="K1 half-stencil pair forces, LJ form "
-                  "(half_stencil_planes)",
+                  "(half_stencil_pair_forces)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu", **k1_lj),
         dict(name="K1 half-stencil pair forces, Chebyshev-proxy form "
-                  "(half_stencil_planes)",
+                  "(half_stencil_pair_forces)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu", **k1_px),
-        dict(name="K2 Chebyshev-proxy backward moments (proxy_bwd_planes)",
+        dict(name="K2 Chebyshev-proxy backward moments "
+                  "(proxy_bwd_moments)",
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
              replaces="hoomd_tf_tpu/ops/pair_train_pallas.py:80", **k2),
         dict(name="K3 cell-list neighbor selection (nlist_select); "

@@ -2,20 +2,23 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library
 with a plain C interface (loaded with ``ctypes``) under ``build/`` in the
-package directory. The file name carries a hash of the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
+package directory. The file name carries a hash of the source, of every
+``csrc`` header it includes (``#include "..."``, followed through the
+headers), and of the flags, so an edited source or shared header rebuilds
+and a stale library is never loaded.
 A missing ``nvcc`` or a compile error raises; there is no fallback.
 """
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["build_shared_library", "BUILD_LOG"]
+__all__ = ["build_shared_library", "source_digest", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parent
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,12 +40,33 @@ def _nvcc():
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src, flags=_FLAGS):
+    """Hash of the source ``src``, of the local headers it includes
+    (quoted includes resolved beside the including file, each once, in the
+    order first reached) and of ``flags``."""
+    h = hashlib.sha256()
+    seen, todo = set(), [Path(src)]
+    while todo:
+        f = todo.pop(0).resolve()
+        if f in seen:
+            continue
+        seen.add(f)
+        text = f.read_bytes()
+        h.update(f.name.encode() + b"\0" + text + b"\0")
+        todo += [f.parent / m.decode() for m in _INCLUDE.findall(text)]
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build_shared_library(name):
     """Path of the compiled ``csrc/<name>.cu`` library, building it if
-    no library for this exact source and flag set exists yet."""
+    no library for this exact source, header set and flag set exists
+    yet."""
     src = _PKG / "csrc" / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     out_dir = _PKG / "build"
     lib = out_dir / f"lib{name}-{digest}.so"
     if lib.exists():

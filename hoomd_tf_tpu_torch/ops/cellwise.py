@@ -4,8 +4,10 @@
 The state lives in cell-slot layout: ``n_slots = n_cells * capacity``
 rows, row ``cell * capacity + k`` holds the k-th particle of that cell,
 surplus rows are ghosts (``valid == 0``) parked at their cell center.
-Candidate planes come from static ``torch.roll`` calls on the
-``[nz, ny, nx, cap]`` view; a sort-based repack re-bins the state every
+The tensor forms build candidate planes from static ``torch.roll`` calls
+on the ``[nz, ny, nx, cap]`` view (the kernels of
+:mod:`.cellwise_cuda` gather the same cells themselves); a sort-based
+repack re-bins the state every
 K steps (:func:`repack_src`). See the JAX module for the full design
 rationale; this port keeps its layouts and numerics so the two can be
 compared element for element.
@@ -347,7 +349,7 @@ def _channel_coefs(needs_energy, needs_virial):
 
 def lane_sums(qx, qy, qz, gx, gy, gz, ti, tj, pair_fn, cap, rc2, min_r2,
               self_col0, needs_energy, needs_virial, rc2_tab=None,
-              occ=None, want_cols=True, typed_fn=True,
+              want_cols=True, typed_fn=True,
               chunk_elems=1 << 24):
     """Pair lanes of every cell's ``cap`` rows against its ``C``-wide
     candidate plane, reduced both ways.
@@ -366,8 +368,6 @@ def lane_sums(qx, qy, qz, gx, gy, gz, ti, tj, pair_fn, cap, rc2, min_r2,
         ``pair_fn(r2)``.
     :param self_col0: candidate column of row 0's own slot (0 for the
         half stencil's block 0, ``13 * cap`` for the full stencil).
-    :param occ: optional ``[n_cells]`` occupancy: rows at or above it
-        contribute nothing (the kernel's contract).
     :returns: ``(rows [nch, n_cells, cap], cols [nch, n_cells, C] or
         None)`` -- the unweighted row-side and candidate-side sums.
     """
@@ -390,8 +390,6 @@ def lane_sums(qx, qy, qz, gx, gy, gz, ti, tj, pair_fn, cap, rc2, min_r2,
             tia, tja = ti[a:b, :, None], tj[a:b, None, :]
         if rc2_tab is not None:
             ok = ok & (d2 <= pair_rc2(tia, tja, rc2_tab))
-        if occ is not None:
-            ok = ok & (row[None] < occ[a:b, None, None])
         r2 = torch.clamp_min(d2, min_r2)
         U, dU = pair_fn(r2, tia, tja) if typed_fn else pair_fn(r2)
         zero = torch.zeros((), dtype=d2.dtype, device=dev)
@@ -413,7 +411,7 @@ def lane_sums(qx, qy, qz, gx, gy, gz, ti, tj, pair_fn, cap, rc2, min_r2,
 
 
 def assemble_half(planes, plan):
-    """``[nch, n_cells, 14 * cap]`` kernel-layout planes (block 0 = row
+    """``[nch, n_cells, 14 * cap]`` half-stencil planes (block 0 = row
     side, blocks 1..13 = weighted candidate side) -> ``[nch, n_slots]``:
     the 13 inverse rolls (by ``+off``) push each candidate block onto its
     home cell."""

@@ -2,11 +2,12 @@
 hand-written in CUDA C++ for Hopper (``csrc/cellwise_half.cu``).
 
 PyTorch counterpart of ``hoomd_tf_tpu/ops/cellwise_pallas.py``, with the
-same contract as its ``half_stencil_pair_forces``: the tensor code builds
-the 14-block candidate planes (``_relative_coords``), the kernel does the
-pair lanes and the dual reductions into one ``[n_cells, 14*cap]`` plane
-per channel, and the tensor code applies the 13 inverse rolls
-(``assemble_half``).
+same contract as its ``half_stencil_pair_forces``: slot-ordered state in,
+``forces4 [n_slots, 4]`` (energy in column 4) and the virial out. The
+kernel gathers the occupied slots of each cell's 14 half-stencil cells
+itself (``csrc/half_stencil_stage.cuh``) and a second launch adds the
+Newton back sums home, so no candidate plane and no roll exists on the
+card.
 
 The Pallas kernel inlines any traced pair function. A CUDA kernel cannot
 take an arbitrary torch function, so the port's kernel is templated on
@@ -24,24 +25,24 @@ one of two pair forms, each read from a table:
 A :class:`..models.pair.PairModel` opts in by returning its form from
 ``pair_kernel_form()``; a proxy model does so by itself.
 
-The wrapper :func:`half_stencil_planes` launches the kernel for CUDA
-tensors and uses the plain PyTorch version, :func:`half_stencil_reference`,
-only for CPU tensors. The kernel is built with ``nvcc`` from the package's
-own source at first use (``_build.py``).
+The wrapper :func:`half_stencil_pair_forces` launches the kernel for CUDA
+tensors and takes the plain PyTorch version, :func:`half_stencil_plain`,
+only for CPU tensors. The kernel is built with ``nvcc`` from the
+package's own source at first use (``_build.py``).
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
-                       _relative_coords, _roll_offs, assemble_half,
-                       finish_forces, lane_sums)
+                       analytic_pair_forces)
 from .chebyshev import proxy_lanes
 
-__all__ = ["LJForm", "ChebForm", "half_stencil_planes",
-           "half_stencil_reference", "half_stencil_pair_forces"]
+__all__ = ["LJForm", "ChebForm", "half_stencil_plain",
+           "half_stencil_pair_forces"]
 
 
 class LJForm:
@@ -163,96 +164,60 @@ class ChebForm:
         return proxy_lanes(c, cd, r2, self.mid, self.inv_half, self.u_hi)
 
 
-def half_stencil_reference(occ, gx, gy, gz, gt, form, cap, rc2, min_r2,
-                           needs_energy=True, needs_virial=False,
-                           rc2_tab=None):
-    """Plain PyTorch version of the kernel, with the same outputs:
-    ``[n_ch, n_cells, 14*cap]`` planes, block 0 the row-side sums (zero
-    for rows at or above ``occ``), blocks 1..13 the weighted
-    candidate-side sums."""
-    n_cells = gx.shape[0]
-    ti = None if gt is None else gt[:, :cap]
-    rows, cols = lane_sums(
-        gx[:, :cap], gy[:, :cap], gz[:, :cap], gx, gy, gz, ti, gt,
-        form.evaluate, cap, rc2, min_r2, 0, needs_energy, needs_virial,
-        rc2_tab=rc2_tab, occ=occ, typed_fn=gt is not None)
-    coefs = _channel_coefs(needs_energy, needs_virial)
-    out = torch.stack([torch.cat([rows[k] * fwd, cols[k][:, cap:] * back],
-                                 dim=1)
-                       for k, (fwd, back) in enumerate(coefs)])
-    return out.reshape(len(coefs), n_cells, 14 * cap)
+def half_stencil_plain(positions, types, valid, plan, lo, form,
+                       needs_virial=False, min_r2=1e-4, rc2_tab=None,
+                       needs_energy=True, geometry=None):
+    """Plain PyTorch version of kernel K1, with the wrapper's contract: the
+    Newton half-stencil tensor form (``_relative_coords``, ``lane_sums``,
+    ``assemble_half``, ``finish_forces``) with ``form.evaluate`` as the
+    pair function. Any ``valid`` pattern works: the tensor form pushes
+    empty slots out of every cut by rank, as the kernel never stages
+    them."""
+    return analytic_pair_forces(
+        positions, types, valid, plan, lo, form.evaluate,
+        needs_virial=needs_virial, min_r2=min_r2,
+        with_types=form.ntypes > 1, rcut_matrix=rc2_tab, stencil="half",
+        needs_energy=needs_energy, geometry=geometry)
 
 
-def half_stencil_planes(occ, gx, gy, gz, gt, form, cap, rc2, min_r2,
-                        needs_energy=True, needs_virial=False,
-                        rc2_tab=None):
-    """Kernel K1. Launches the CUDA kernel on CUDA tensors (and counts the
-    launch in ``half_stencil_planes.launches``, a proxy-form launch also
-    in ``half_stencil_planes.proxy_launches``); CPU tensors take
-    :func:`half_stencil_reference`. Anything else raises.
-
-    :param occ: ``[n_cells]`` int32 occupancy.
-    :param gx, gy, gz: ``[n_cells, 14*cap]`` float32 candidate planes.
-    :param gt: ``[n_cells, 14*cap]`` int32 type plane, or ``None``.
-    :param form: the :class:`LJForm` or :class:`ChebForm`.
-    :param rc2_tab: ``[T, T]`` float32 squared cutoffs, or ``None``.
-    :returns: ``[n_ch, n_cells, 14*cap]`` float32 planes.
-    """
-    typed = form.ntypes > 1 or rc2_tab is not None
-    if typed and gt is None:
-        raise ValueError("a typed form or rc2 table needs the type plane")
-    if not gx.is_cuda:
-        return half_stencil_reference(occ, gx, gy, gz, gt, form, cap, rc2,
-                                      min_r2, needs_energy, needs_virial,
-                                      rc2_tab)
-    n_cells, C = gx.shape
-    if C != 14 * cap:
-        raise ValueError(f"planes are {C} wide, expected 14*cap={14 * cap}")
-    _check(occ, (n_cells,), torch.int32, gx.device, "occ")
-    for name, t in (("gx", gx), ("gy", gy), ("gz", gz)):
-        _check(t, (n_cells, C), torch.float32, gx.device, name)
-    if gt is not None:
-        _check(gt, (n_cells, C), torch.int32, gx.device, "gt")
-    tab = form.tensor(gx.device)
-    if rc2_tab is not None:
-        T = rc2_tab.shape[0]
-        _check(rc2_tab, (T, T), torch.float32, gx.device, "rc2_tab")
-    n_ch = len(_channel_coefs(needs_energy, needs_virial))
-    lib = _library()
-    smem = lib.htf_half_stencil_smem(cap, n_ch, form.smem_floats)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"capacity {cap} needs {smem} bytes of shared "
-                         f"memory per block, above {_MAX_SMEM}")
-    out = torch.empty((n_ch, n_cells, C), dtype=torch.float32,
-                      device=gx.device)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-    rest = (ptr(rc2_tab), 0 if rc2_tab is None else rc2_tab.shape[0],
-            n_cells, cap, float(rc2), float(min_r2), int(needs_energy),
-            int(needs_virial), ptr(out),
-            ctypes.c_void_p(torch.cuda.current_stream(gx.device).cuda_stream))
-    if isinstance(form, ChebForm):
-        err = lib.htf_half_stencil_cheb(
-            ptr(occ), ptr(gx), ptr(gy), ptr(gz), ptr(gt), ptr(tab),
-            form.ntypes, form.K, form.mid, form.inv_half, form.u_hi, *rest)
-    else:
-        err = lib.htf_half_stencil(
-            ptr(occ), ptr(gx), ptr(gy), ptr(gz), ptr(gt), ptr(tab),
-            form.ntypes, int(form.strict), *rest)
-    if err != 0:
-        raise RuntimeError("half-stencil kernel launch failed: " +
-                           lib.htf_error_string(err).decode())
-    half_stencil_planes.launches += 1
-    if isinstance(form, ChebForm):
-        half_stencil_planes.proxy_launches += 1
-    return out
+class _HalfGeom(ctypes.Structure):
+    """``HalfGeom`` of ``csrc/half_stencil_stage.cuh``: the grid, the
+    capacity, the float32 box lengths and, per half-stencil block, its
+    integer cell offset and its float32 Cartesian offset."""
+    _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
+                ("nz", ctypes.c_int), ("cap", ctypes.c_int),
+                ("lx", ctypes.c_float), ("ly", ctypes.c_float),
+                ("lz", ctypes.c_float),
+                ("off", (ctypes.c_int * 3) * len(_HALF_OFFS)),
+                ("offf", (ctypes.c_float * 3) * len(_HALF_OFFS))]
 
 
-#: launches of the kernel, all forms; and of its Chebyshev-proxy form alone
-half_stencil_planes.launches = 0
-half_stencil_planes.proxy_launches = 0
+@functools.lru_cache(maxsize=None)
+def half_geom(plan):
+    """The kernels' :class:`_HalfGeom` of ``plan``: the same constants,
+    rounded to float32 the same way, as :class:`.cellwise.SlotGeometry`
+    holds (``lengths``, ``offsets(_HALF_OFFS)``)."""
+    ex, ey, ez = plan.edges
+    offf = np.array([(ox * ex, oy * ey, oz * ez)
+                     for (ox, oy, oz) in _HALF_OFFS]).astype(np.float32)
+    g = _HalfGeom(*plan.grid, plan.capacity,
+                  *np.asarray(plan.lengths, np.float32).tolist())
+    for t, (o, f) in enumerate(zip(_HALF_OFFS, offf)):
+        g.off[t][:] = o
+        g.offf[t][:] = f.tolist()
+    return g
 
-# dynamic shared memory one H100 block may use (227 KB)
-_MAX_SMEM = 232448
+
+def check_slot_inputs(positions, types, valid, plan):
+    """Raise unless ``positions [n_slots, 3]``, ``types [n_slots]`` and
+    ``valid [n_slots]`` fit ``plan`` and lie on one device."""
+    n = plan.n_slots
+    for name, t, shape in (("positions", positions, (n, 3)),
+                           ("types", types, (n,)), ("valid", valid, (n,))):
+        if tuple(t.shape) != shape or t.device != positions.device:
+            raise ValueError(
+                f"{name}: expected shape {shape} (n_slots = {n}) on "
+                f"{positions.device}, got {tuple(t.shape)} on {t.device}")
 
 
 def _check(t, shape, dtype, device, name):
@@ -264,6 +229,99 @@ def _check(t, shape, dtype, device, name):
             f"(contiguous={t.is_contiguous()})")
 
 
+def cuda_slot_args(positions, types, valid, plan, geometry, typed):
+    """Check the slot state a half-stencil kernel reads on the card and
+    return its pointers: ``(positions, types or null, valid, centers)``."""
+    dev = positions.device
+    n = plan.n_slots
+    _check(positions, (n, 3), torch.float32, dev, "positions")
+    _check(valid, (n,), torch.float32, dev, "valid")
+    _check(geometry.centers, (n, 3), torch.float32, dev, "geometry.centers")
+    if typed:
+        _check(types, (n,), torch.int32, dev, "types")
+    return (_ptr(positions), _ptr(types if typed else None), _ptr(valid),
+            _ptr(geometry.centers))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
+                             needs_virial=False, min_r2=1e-4, rc2_tab=None,
+                             needs_energy=True, geometry=None):
+    """Kernel K1: :func:`.cellwise.analytic_pair_forces` of the pair form
+    ``form`` on slot-resident state. Launches the kernel on CUDA tensors
+    (counting each call in ``half_stencil_pair_forces.launches``, a
+    proxy-form call also in ``.proxy_launches``); CPU tensors take
+    :func:`half_stencil_plain`. Anything else raises.
+
+    :param positions: ``[n_slots, 3]`` float32 slot positions.
+    :param types: ``[n_slots]`` int32 types (read when the form is typed
+        or ``rc2_tab`` is given).
+    :param valid: ``[n_slots]`` float32, nonzero on occupied slots (any
+        pattern within a cell).
+    :param form: the :class:`LJForm` or :class:`ChebForm`.
+    :param rc2_tab: ``[T, T]`` float32 squared cutoffs, or ``None``.
+    :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``,
+        the energy in column 4 (zero when ``needs_energy`` is False);
+        ghost rows all zero.
+    """
+    check_slot_inputs(positions, types, valid, plan)
+    if not positions.is_cuda:
+        return half_stencil_plain(positions, types, valid, plan, lo, form,
+                                  needs_virial, min_r2, rc2_tab,
+                                  needs_energy, geometry)
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    dev = positions.device
+    typed = form.ntypes > 1 or rc2_tab is not None
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    tab = form.tensor(dev)
+    rc_t = 0
+    if rc2_tab is not None:
+        rc_t = rc2_tab.shape[0]
+        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    lib = _library()
+    smem = lib.htf_half_stencil_smem(plan.capacity, n_ch, form.smem_floats)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    n = plan.n_slots
+    sums = torch.empty((n_ch, len(_HALF_OFFS), n), dtype=torch.float32,
+                       device=dev)
+    forces4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    virial = (torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+              if needs_virial else None)
+    geom = ctypes.byref(half_geom(plan))
+    rest = (_ptr(rc2_tab), rc_t, float(plan.r_cut ** 2), float(min_r2),
+            int(needs_energy), int(needs_virial), _ptr(sums), _ptr(forces4),
+            _ptr(virial),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if isinstance(form, ChebForm):
+        err = lib.htf_half_stencil_cheb(
+            *state, geom, plan.n_cells, _ptr(tab), form.ntypes, form.K,
+            form.mid, form.inv_half, form.u_hi, *rest)
+    else:
+        err = lib.htf_half_stencil(*state, geom, plan.n_cells, _ptr(tab),
+                                   form.ntypes, int(form.strict), *rest)
+    if err != 0:
+        raise RuntimeError("half-stencil kernel launch failed: " +
+                           lib.htf_error_string(err).decode())
+    half_stencil_pair_forces.launches += 1
+    if isinstance(form, ChebForm):
+        half_stencil_pair_forces.proxy_launches += 1
+    return forces4, virial
+
+
+#: calls that launched the kernel (two launches each), all forms; and those
+#: of its Chebyshev-proxy form alone
+half_stencil_pair_forces.launches = 0
+half_stencil_pair_forces.proxy_launches = 0
+
+# dynamic shared memory one H100 block may use (227 KB)
+_MAX_SMEM = 232448
+
 _LIB = None
 
 
@@ -273,17 +331,15 @@ def _library():
     if _LIB is None:
         from .._build import build_shared_library
         lib = ctypes.CDLL(str(build_shared_library("cellwise_half")))
+        state = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        rest = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 2 +
+                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
         lib.htf_half_stencil.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p] +
-            [ctypes.c_int] * 3 + [ctypes.c_float] * 2 +
-            [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p])
+            state + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + rest)
         lib.htf_half_stencil.restype = ctypes.c_int
         lib.htf_half_stencil_cheb.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 +
-            [ctypes.c_float] * 3 + [ctypes.c_void_p] +
-            [ctypes.c_int] * 3 + [ctypes.c_float] * 2 +
-            [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p])
+            state + [ctypes.c_void_p] + [ctypes.c_int] * 2 +
+            [ctypes.c_float] * 3 + rest)
         lib.htf_half_stencil_cheb.restype = ctypes.c_int
         lib.htf_half_stencil_smem.argtypes = [ctypes.c_int] * 3
         lib.htf_half_stencil_smem.restype = ctypes.c_long
@@ -291,24 +347,3 @@ def _library():
         lib.htf_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
-                             needs_virial=False, min_r2=1e-4, rc2_tab=None,
-                             needs_energy=True, geometry=None):
-    """Drop-in for :func:`.cellwise.analytic_pair_forces` computed by
-    kernel K1 (same returns: ``forces4 [n_slots, 4]`` with the energy in
-    column 4, and the ``[n_slots, 3, 3]`` virial or ``None``)."""
-    geometry = _as_geometry(plan, lo, positions, geometry)
-    n_cells, cap = plan.n_cells, plan.capacity
-    _, _, _, gx, gy, gz = _relative_coords(positions, valid, plan, lo,
-                                           _HALF_OFFS, geometry)
-    gt = None
-    if form.ntypes > 1 or rc2_tab is not None:
-        gt = _roll_offs(types.to(torch.int32), plan, _HALF_OFFS)
-    occ = valid.reshape(n_cells, cap).sum(dim=1).to(torch.int32)
-    planes = half_stencil_planes(occ, gx, gy, gz, gt, form, cap,
-                                 plan.r_cut ** 2, min_r2, needs_energy,
-                                 needs_virial, rc2_tab)
-    return finish_forces(assemble_half(planes, plan), valid, needs_energy,
-                         needs_virial)

@@ -11,15 +11,15 @@ basis over the half-stencil lanes:
     d/dcd_k <ct, F4> = sum_lanes (wE * over - wF * u^2) * T_k(w)
 
 with the Newton-combined cotangent weights ``wF``/``wE`` of
-:func:`.pair_train.pair_train_forces`. The tensor code builds the
-candidate and cotangent planes (the same rolls as kernel K1); the kernel
-walks the lanes and sums the moments, over cells too, with no float
-atomics.
+:func:`.pair_train.pair_train_forces`. The kernel gathers the occupied
+slots of each cell's 14 half-stencil cells and their cotangents itself
+(``csrc/half_stencil_stage.cuh``, shared with kernel K1), walks the lanes
+and sums the moments, over cells too, with no float atomics.
 
-The wrapper :func:`proxy_bwd_planes` launches the kernel for CUDA tensors
-and takes the plain PyTorch version, :func:`proxy_bwd_reference`, only
-for CPU tensors. The kernel is built from the package's source at first
-use, by the same ``_build.py`` as K1.
+The wrapper :func:`proxy_bwd_moments` launches the kernel for CUDA tensors
+and takes the plain PyTorch version, :func:`proxy_bwd_plain`, only for CPU
+tensors. The kernel is built from the package's source at first use, by
+the same ``_build.py`` as K1.
 """
 
 import ctypes
@@ -28,9 +28,10 @@ import torch
 
 from .cellwise import (_HALF_OFFS, _as_geometry, _relative_coords,
                        _roll_offs, pair_rc2)
-from .cellwise_cuda import _MAX_SMEM, _check
+from .cellwise_cuda import (_MAX_SMEM, _check, _ptr, check_slot_inputs,
+                            cuda_slot_args, half_geom)
 
-__all__ = ["proxy_bwd_moments", "proxy_bwd_planes", "proxy_bwd_reference"]
+__all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference"]
 
 
 def _n_types(basis):
@@ -38,13 +39,24 @@ def _n_types(basis):
     return 1 if pairs is None else max(b for _, b in pairs) + 1
 
 
-def proxy_bwd_reference(occ, gx, gy, gz, gt, cgx, cgy, cgz, cge, basis,
-                        cap, rc2, min_r2, rc2_tab=None,
-                        chunk_elems=1 << 22):
-    """Plain PyTorch version of the kernel, with the same output: the
-    ``[P * 2K]`` moment sums (pair ``p``: the ``c`` moments at
+def _split(out, basis):
+    """``[P * 2K]`` moments -> ``(g_c, g_cd)``: ``[K]`` each untyped,
+    ``[P, K]`` typed."""
+    out = out.reshape(-1, 2, int(basis["K"]))
+    if basis["pairs"] is None:
+        return out[0, 0], out[0, 1]
+    return out[:, 0], out[:, 1]
+
+
+def proxy_bwd_reference(gx, gy, gz, gt, cgx, cgy, cgz, cge, basis, cap, rc2,
+                        min_r2, rc2_tab=None, chunk_elems=1 << 22):
+    """The kernel's lane math on ``[n_cells, 14*cap]`` candidate planes
+    (``_relative_coords``; the cotangent planes with ``valid`` folded in):
+    the ``[P * 2K]`` moment sums (pair ``p``: the ``c`` moments at
     ``p * 2K + k``, the ``cd`` moments at ``p * 2K + K + k``; the ``c``
-    moments are zero when ``cge`` is ``None``)."""
+    moments are zero when ``cge`` is ``None``). Empty slots add nothing:
+    their rows are pushed out of every cut and their cotangents are
+    zero."""
     K = int(basis["K"])
     mid, inv_half = float(basis["mid"]), float(basis["inv_half"])
     u_hi = float(basis["u_hi"])
@@ -67,7 +79,7 @@ def proxy_bwd_reference(occ, gx, gy, gz, gt, cgx, cgy, cgz, cge, basis,
         dx, dy, dz = (gj[:, None, :] - qj[:, :, None]
                       for gj, qj in zip(g, q))
         d2 = dx * dx + dy * dy + dz * dz
-        ok = (d2 <= rc2) & not_self & (row[None] < occ[sl, None, None])
+        ok = (d2 <= rc2) & not_self
         ti = tj = None
         if gt is not None:
             ti, tj = gt[sl, :cap][:, :, None], gt[sl][:, None, :]
@@ -115,69 +127,91 @@ def proxy_bwd_reference(occ, gx, gy, gz, gt, cgx, cgy, cgz, cge, basis,
     return torch.stack(acc)
 
 
-def proxy_bwd_planes(occ, gx, gy, gz, gt, cgx, cgy, cgz, cge, basis, cap,
-                     rc2, min_r2, rc2_tab=None):
-    """Kernel K2. Launches the CUDA kernel on CUDA tensors (and counts the
-    launch in ``proxy_bwd_planes.launches``); CPU tensors take
-    :func:`proxy_bwd_reference`. Anything else raises.
+def proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis, *,
+                    min_r2=1e-4, rc2_tab=None, needs_energy=True,
+                    geometry=None):
+    """Plain PyTorch version of kernel K2, with the wrapper's contract: the
+    candidate and cotangent planes of the half stencil
+    (``_relative_coords``, ``_roll_offs``) through
+    :func:`proxy_bwd_reference`'s lane math."""
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    _, _, _, gx, gy, gz = _relative_coords(positions, valid, plan, lo,
+                                           _HALF_OFFS, geometry)
+    ctv = ct * valid[:, None]
+    gt = None
+    if basis["pairs"] is not None or rc2_tab is not None:
+        gt = _roll_offs(types.to(torch.int32), plan, _HALF_OFFS)
+    cg = [_roll_offs(ctv[:, k].contiguous(), plan, _HALF_OFFS)
+          for k in range(4 if needs_energy else 3)]
+    out = proxy_bwd_reference(gx, gy, gz, gt, cg[0], cg[1], cg[2],
+                              cg[3] if needs_energy else None, basis,
+                              plan.capacity, plan.r_cut ** 2, min_r2,
+                              rc2_tab)
+    return _split(out, basis)
 
-    :param occ: ``[n_cells]`` int32 occupancy.
-    :param gx, gy, gz: ``[n_cells, 14*cap]`` float32 candidate planes.
-    :param gt: ``[n_cells, 14*cap]`` int32 type plane, or ``None``
-        (needed by a typed basis or a cutoff table).
-    :param cgx, cgy, cgz, cge: the cotangent planes (``* valid`` folded
-        in); ``cge`` is ``None`` when the energy column is not trained.
-    :param basis: the proxy evaluator's ``.basis`` dict.
-    :returns: ``[P * 2K]`` float32 moment sums.
+
+def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
+                      min_r2=1e-4, rc2_tab=None, needs_energy=True,
+                      geometry=None):
+    """Kernel K2: the proxy backward's moment sums over the half-stencil
+    lanes (the counterpart of the JAX ``proxy_bwd_moments``). Launches the
+    kernel on CUDA tensors (counting each call in
+    ``proxy_bwd_moments.launches``); CPU tensors take
+    :func:`proxy_bwd_plain`. Anything else raises.
+
+    :param positions, types, valid: the slot state (``[n_slots, 3]``
+        float32, ``[n_slots]`` int32, ``[n_slots]`` float32 nonzero on
+        occupied slots, any pattern within a cell).
+    :param ct: ``[n_slots, 4]`` cotangent of the forces (this function
+        folds ``valid`` in).
+    :param rc2_tab: ``[T, T]`` squared-cutoff table (``cellwise.rc2_table``)
+        or ``None``.
+    :returns: ``(g_c, g_cd)``: ``[K]`` tensors (untyped) or ``[P, K]``
+        (typed, :func:`.chebyshev.type_pairs` order).
     """
+    check_slot_inputs(positions, types, valid, plan)
+    if not positions.is_cuda:
+        return proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis,
+                               min_r2=min_r2, rc2_tab=rc2_tab,
+                               needs_energy=needs_energy, geometry=geometry)
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    dev = positions.device
     T = _n_types(basis)
-    if (T > 1 or rc2_tab is not None) and gt is None:
-        raise ValueError("a typed basis or rc2 table needs the type plane")
-    if not gx.is_cuda:
-        return proxy_bwd_reference(occ, gx, gy, gz, gt, cgx, cgy, cgz, cge,
-                                   basis, cap, rc2, min_r2, rc2_tab)
-    n_cells, C = gx.shape
-    if C != 14 * cap:
-        raise ValueError(f"planes are {C} wide, expected 14*cap={14 * cap}")
-    dev = gx.device
-    _check(occ, (n_cells,), torch.int32, dev, "occ")
-    planes = [("gx", gx), ("gy", gy), ("gz", gz), ("cgx", cgx),
-              ("cgy", cgy), ("cgz", cgz)]
-    if cge is not None:
-        planes.append(("cge", cge))
-    for name, t in planes:
-        _check(t, (n_cells, C), torch.float32, dev, name)
-    if gt is not None:
-        _check(gt, (n_cells, C), torch.int32, dev, "gt")
-    if rc2_tab is not None:
-        Tr = rc2_tab.shape[0]
-        _check(rc2_tab, (Tr, Tr), torch.float32, dev, "rc2_tab")
     K = int(basis["K"])
+    typed = T > 1 or rc2_tab is not None
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    ct = ct.contiguous()
+    if ct.data_ptr() % 16:
+        ct = ct.clone()  # the kernel reads a row as one float4
+    _check(ct, (plan.n_slots, 4), torch.float32, dev, "ct")
+    rc_t = 0
+    if rc2_tab is not None:
+        rc_t = rc2_tab.shape[0]
+        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
     lib = _library()
-    smem = lib.htf_proxy_bwd_smem(cap, K, T)
+    smem = lib.htf_proxy_bwd_smem(plan.capacity, K, T)
     if smem > _MAX_SMEM:
-        raise ValueError(f"capacity {cap}, K={K} and {T} types need {smem} "
-                         f"bytes of shared memory per block, above "
-                         f"{_MAX_SMEM}")
+        raise ValueError(f"capacity {plan.capacity}, K={K} and {T} types "
+                         f"need {smem} bytes of shared memory per block, "
+                         f"above {_MAX_SMEM}")
     M = T * (T + 1) // 2 * 2 * K
-    partial = torch.empty((n_cells, M), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan.n_cells, M), dtype=torch.float32, device=dev)
     out = torch.empty((M,), dtype=torch.float32, device=dev)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
     err = lib.htf_proxy_bwd(
-        ptr(occ), ptr(gx), ptr(gy), ptr(gz), ptr(gt), ptr(cgx), ptr(cgy),
-        ptr(cgz), ptr(cge), ptr(rc2_tab),
-        0 if rc2_tab is None else rc2_tab.shape[0], n_cells, cap, K, T,
-        float(rc2), float(min_r2), float(basis["mid"]),
-        float(basis["inv_half"]), float(basis["u_hi"]), ptr(partial),
-        ptr(out), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        *state, _ptr(ct), ctypes.byref(half_geom(plan)), plan.n_cells,
+        _ptr(rc2_tab), rc_t, K, T, float(plan.r_cut ** 2), float(min_r2),
+        float(basis["mid"]), float(basis["inv_half"]),
+        float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError("proxy backward kernel launch failed: " +
                            lib.htf_proxy_error_string(err).decode())
-    proxy_bwd_planes.launches += 1
-    return out
+    proxy_bwd_moments.launches += 1
+    return _split(out, basis)
 
 
-proxy_bwd_planes.launches = 0
+#: calls that launched the kernel (the moment pass and the cross-cell sum)
+proxy_bwd_moments.launches = 0
 
 _LIB = None
 
@@ -189,8 +223,9 @@ def _library():
         from .._build import build_shared_library
         lib = ctypes.CDLL(str(build_shared_library("proxy_bwd")))
         lib.htf_proxy_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 +
-            [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3)
+            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] +
+            [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_int] +
+            [ctypes.c_void_p] * 3)
         lib.htf_proxy_bwd.restype = ctypes.c_int
         lib.htf_proxy_bwd_smem.argtypes = [ctypes.c_int] * 3
         lib.htf_proxy_bwd_smem.restype = ctypes.c_long
@@ -198,37 +233,3 @@ def _library():
         lib.htf_proxy_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
-
-
-def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
-                      min_r2=1e-4, rc2_tab=None, needs_energy=True,
-                      geometry=None):
-    """The proxy backward's moment sums over the half-stencil lanes (the
-    counterpart of the JAX ``proxy_bwd_moments``).
-
-    :param ct: ``[n_slots, 4]`` cotangent of the forces (this function
-        folds ``valid`` in).
-    :param rc2_tab: ``[T, T]`` squared-cutoff table (``cellwise.rc2_table``)
-        or ``None``.
-    :returns: ``(g_c, g_cd)``: ``[K]`` tensors (untyped) or ``[P, K]``
-        (typed, :func:`.chebyshev.type_pairs` order).
-    """
-    geometry = _as_geometry(plan, lo, positions, geometry)
-    n_cells, cap = plan.n_cells, plan.capacity
-    K = int(basis["K"])
-    _, _, _, gx, gy, gz = _relative_coords(positions, valid, plan, lo,
-                                           _HALF_OFFS, geometry)
-    ctv = ct * valid[:, None]
-    gt = None
-    if basis["pairs"] is not None or rc2_tab is not None:
-        gt = _roll_offs(types.to(torch.int32), plan, _HALF_OFFS)
-    cg = [_roll_offs(ctv[:, k].contiguous(), plan, _HALF_OFFS)
-          for k in range(4 if needs_energy else 3)]
-    occ = valid.reshape(n_cells, cap).sum(dim=1).to(torch.int32)
-    out = proxy_bwd_planes(occ, gx, gy, gz, gt, cg[0], cg[1], cg[2],
-                           cg[3] if needs_energy else None, basis, cap,
-                           plan.r_cut ** 2, min_r2, rc2_tab)
-    out = out.reshape(-1, 2, K)
-    if basis["pairs"] is None:
-        return out[0, 0], out[0, 1]
-    return out[:, 0], out[:, 1]

@@ -202,36 +202,46 @@ class TestPairForces:
 
     @pytest.mark.parametrize("flags", [(True, True), (False, False)])
     def test_planes_contract(self, flags):
-        """The wrapper's output layout: rows at or above the occupancy are
-        zero, and on a CPU tensor it is the plain version (no launch)."""
+        """The wrapper's output contract: ``forces4 [n_slots, 4]`` and the
+        ``[n_slots, 3, 3]`` virial (or None), ghost rows and an untrained
+        energy column zero, and on a CPU tensor it is the plain version
+        (no launch)."""
         energy, virial = flags
         _, (tl, tss, taux) = packed_pair(256, 0.35, 7, 2.5)
         plan = tl.plan
-        _, _, _, gx, gy, gz = tcw._relative_coords(
-            tss.positions, taux["valid"], plan, tl.lo, tcw._HALF_OFFS)
-        occ = taux["valid"].reshape(plan.n_cells, -1).sum(1).int()
         form = htt.md.LennardJones(r_cut=2.5).kernel_form()
-        before = tcc.half_stencil_planes.launches
-        out = tcc.half_stencil_planes(occ, gx, gy, gz, None, form,
-                                      plan.capacity, 2.5 ** 2, 1e-4,
-                                      energy, virial)
-        assert tcc.half_stencil_planes.launches == before
-        assert out.shape == (1 * energy + 3 + 6 * virial, plan.n_cells,
-                             14 * plan.capacity)
-        rows = np.arange(plan.capacity)[None, :] >= np_(occ)[:, None]
-        assert np.all(np_(out)[:, :, :plan.capacity][:, rows] == 0)
-        ref = tcc.half_stencil_reference(occ, gx, gy, gz, None, form,
-                                         plan.capacity, 2.5 ** 2, 1e-4,
-                                         energy, virial)
-        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+        args = (tss.positions, tss.types, taux["valid"], plan, tl.lo, form)
+        kw = dict(needs_energy=energy, needs_virial=virial,
+                  geometry=tl.geometry)
+        before = tcc.half_stencil_pair_forces.launches
+        f, w = tcc.half_stencil_pair_forces(*args, **kw)
+        assert tcc.half_stencil_pair_forces.launches == before
+        assert f.shape == (plan.n_slots, 4) and f.dtype == torch.float32
+        assert (w is None) == (not virial)
+        if virial:
+            assert w.shape == (plan.n_slots, 3, 3)
+            torch.testing.assert_close(w, w.transpose(1, 2), rtol=0, atol=0)
+        ghost = np_(taux["valid"]) == 0
+        assert np.all(np_(f)[ghost] == 0)
+        assert np.any(np_(f)[:, 3] != 0) == energy
+        f_p, w_p = tcc.half_stencil_plain(*args, **kw)
+        torch.testing.assert_close(f, f_p, rtol=0, atol=0)
+        if virial:
+            torch.testing.assert_close(w, w_p, rtol=0, atol=0)
 
     def test_wrapper_rejects_bad_inputs(self):
         form = htt.md.LennardJones().kernel_form()
         typed = htt.md.LennardJones([[1, 1], [1, 1]], 1.0).kernel_form()
-        z = torch.zeros(8, 14 * 2)
-        with pytest.raises(ValueError, match="type plane"):
-            tcc.half_stencil_planes(torch.zeros(8, dtype=torch.int32), z, z,
-                                    z, None, typed, 2, 9.0, 1e-4)
+        plan = tcw.CellwisePlan((3, 3, 3), 2, (9.,) * 3, 2.5)
+        n = plan.n_slots
+        types, valid = torch.zeros(n, dtype=torch.int32), torch.ones(n)
+        for bad in (torch.zeros(n - 1, 3), torch.zeros(n, 4)):
+            with pytest.raises(ValueError, match="n_slots"):
+                tcc.half_stencil_pair_forces(bad, types, valid, plan,
+                                             (-4.5,) * 3, typed)
+        with pytest.raises(ValueError, match="valid: expected shape"):
+            tcc.half_stencil_pair_forces(torch.zeros(n, 3), types,
+                                         valid[:-1], plan, (-4.5,) * 3, form)
         with pytest.raises(ValueError, match="kernel form|LJ-family"):
             tcw.analytic_pair_forces(
                 torch.zeros(8, 3), torch.zeros(8, dtype=torch.int32),
@@ -272,6 +282,92 @@ class TestPairForces:
                 jss.positions, jss.types, jaux["valid"], jl.plan, jl.lo,
                 steep_j, stencil="full", min_r2=1e-8, needs_virial=True)
             np.testing.assert_allclose(np_(f), np_(f_j), **TOL)
+
+
+def _smooth_energy(r2):
+    u = 1.0 / r2
+    return (u * u - 2.0 * u) / (1.0 + u * u)
+
+
+class TestPlainVersion:
+    """Kernel K1's plain version (``half_stencil_plain``, what the wrapper
+    runs on a CPU tensor) against the tensor forms and the JAX package."""
+
+    @pytest.mark.parametrize("case", ["lj", "typed_rcut", "proxy"])
+    def test_plain_equals_half_tensor_form(self, case):
+        """Exactly ``analytic_pair_forces(stencil='half')`` with the same
+        pair function: forces, energy and virial."""
+        typed = case == "typed_rcut"
+        _, (tl, tss, taux) = packed_pair(256, 0.35, 7, 2.5, typed=typed,
+                                         rc_matrix=RCM if typed else None)
+        if case == "proxy":
+            from hoomd_tf_tpu_torch.ops.chebyshev import make_pair_proxy
+            fit, ev = make_pair_proxy(8, (0.25 * 2.5) ** 2, 2.5 ** 2,
+                                      device="cpu")
+            coeffs = fit(_smooth_energy)
+            form = ev.kernel_form(coeffs)
+            pair_fn = lambda r2: ev(coeffs, r2)   # noqa: E731
+        else:
+            form = TYPED_FORM if typed else \
+                htt.md.LennardJones(r_cut=2.5).kernel_form()
+            pair_fn = form.evaluate
+        common = (tss.positions, tss.types, taux["valid"], tl.plan, tl.lo)
+        f_p, w_p = tcc.half_stencil_plain(
+            *common, form, needs_virial=True, rc2_tab=tl.rc2_tab,
+            geometry=tl.geometry)
+        f_h, w_h = tcw.analytic_pair_forces(
+            *common, pair_fn, needs_virial=True, with_types=typed,
+            rcut_matrix=tl.rc2_tab, stencil="half", geometry=tl.geometry)
+        torch.testing.assert_close(f_p, f_h, rtol=0, atol=0)
+        torch.testing.assert_close(w_p, w_h, rtol=0, atol=0)
+        assert np_(f_p)[:, 3].any()
+
+    def test_plain_matches_jax_pallas(self):
+        """Untyped, with energy and virial, against the JAX Pallas kernel
+        run in interpret mode."""
+        from hoomd_tf_tpu.ops.cellwise_pallas import half_stencil_pair_forces
+        (jl, jss, jaux), (tl, tss, taux) = packed_pair(125, 0.2, 5, 2.5)
+
+        def lj_jax(r2):
+            u = 1.0 / r2
+            sr6 = u * u * u
+            inside = r2 <= 2.5 ** 2
+            return (jnp.where(inside, 4.0 * (sr6 * sr6 - sr6), 0.0),
+                    jnp.where(inside, -12.0 * (2.0 * sr6 - 1.0) * sr6 * u,
+                              0.0))
+        f_j, w_j = half_stencil_pair_forces(
+            jss.positions, jss.types, jaux["valid"], jl.plan, jl.lo, lj_jax,
+            needs_virial=True, interpret=True)
+        f_t, w_t = tcc.half_stencil_plain(
+            tss.positions, tss.types, taux["valid"], tl.plan, tl.lo,
+            htt.md.LennardJones(r_cut=2.5).kernel_form(), needs_virial=True,
+            geometry=tl.geometry)
+        np.testing.assert_allclose(np_(f_t), np_(f_j), **TOL)
+        np.testing.assert_allclose(np_(w_t), np_(w_j), **TOL)
+
+    def test_valid_not_a_prefix(self):
+        """Occupied slots need not be a prefix of their cell: moving each
+        cell's first particle into its first empty slot moves its forces,
+        energy and virial with it and changes nothing else."""
+        from torch_helpers import hole_permutation
+        _, (tl, tss, taux) = packed_pair(256, 0.35, 7, 2.5, typed=True,
+                                         rc_matrix=RCM)
+        plan = tl.plan
+        perm = hole_permutation(taux["valid"], plan.capacity)
+        valid = taux["valid"][perm]
+        v = np_(valid).reshape(plan.n_cells, -1)
+        assert (v[:, 0] == 0).any() and v.sum() == 256
+        kw = dict(needs_virial=True, rc2_tab=tl.rc2_tab,
+                  geometry=tl.geometry)
+        f0, w0 = tcc.half_stencil_pair_forces(
+            tss.positions, tss.types, taux["valid"], plan, tl.lo,
+            TYPED_FORM, **kw)
+        f1, w1 = tcc.half_stencil_pair_forces(
+            tss.positions[perm], tss.types[perm], valid, plan, tl.lo,
+            TYPED_FORM, **kw)
+        np.testing.assert_allclose(np_(f1), np_(f0[perm]), **TOL)
+        np.testing.assert_allclose(np_(w1), np_(w0[perm]), **TOL)
+        assert np.all(np_(f1)[np_(valid) == 0] == 0)
 
 
 def _bench_lj():

@@ -1,7 +1,7 @@
 """Port vs JAX package: the online-training pair forces
 (``ops/pair_train.py``), kernel K2's plain version
-(``ops/pair_train_cuda.py::proxy_bwd_reference``) and K1's Chebyshev-proxy
-form's plain version, on the same numpy inputs, at the size of the JAX
+(``ops/pair_train_cuda.py::proxy_bwd_plain`` and its lane math
+``proxy_bwd_reference``) and K1's Chebyshev-proxy form's plain version, on the same numpy inputs, at the size of the JAX
 package's own ``_slot_setup`` (tests/test_pair_train.py: 256 particles at
 density 0.35, r_cut 2.5).
 
@@ -108,7 +108,7 @@ def test_proxy_backward_plain_matches_jax(case):
         tss.positions, tss.types, taux["valid"], torch.as_tensor(ct),
         tl.plan, tl.lo, tev.basis, rc2_tab=tl.rc2_tab,
         needs_energy=energy_on, geometry=tl.geometry)
-    assert tptc.proxy_bwd_planes.launches == 0
+    assert tptc.proxy_bwd_moments.launches == 0
     got = port_arrays(g_c, g_cd)
     if not energy_on:
         assert not np_(g_c).any()
@@ -133,10 +133,68 @@ def test_proxy_backward_plain_matches_jax(case):
     assert_grads(got, xla)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_proxy_bwd_plain_matches_reference_and_jax(case):
+    """K2's plain version, called directly: exactly
+    ``proxy_bwd_reference``'s moments on planes built here from the same
+    state, and the JAX Pallas backward (interpreted) at the JAX bar."""
+    typed, energy_on, rc, (jl, jss, jaux), (tl, tss, taux), ct = \
+        setup(case)
+    jev, _, tev, _ = proxies(typed)
+    plan = tl.plan
+    g_c, g_cd = tptc.proxy_bwd_plain(
+        tss.positions, tss.types, taux["valid"], torch.as_tensor(ct), plan,
+        tl.lo, tev.basis, rc2_tab=tl.rc2_tab, needs_energy=energy_on,
+        geometry=tl.geometry)
+    _, _, _, gx, gy, gz = tcw._relative_coords(
+        tss.positions, taux["valid"], plan, tl.lo, tcw._HALF_OFFS,
+        tl.geometry)
+    ctv = torch.as_tensor(ct) * taux["valid"][:, None]
+    cg = [tcw._roll_offs(ctv[:, k].contiguous(), plan, tcw._HALF_OFFS)
+          for k in range(4)]
+    gt = tcw._roll_offs(tss.types, plan, tcw._HALF_OFFS) \
+        if typed or rc is not None else None
+    ref = tptc.proxy_bwd_reference(
+        gx, gy, gz, gt, cg[0], cg[1], cg[2], cg[3] if energy_on else None,
+        tev.basis, plan.capacity, R_CUT ** 2, 1e-4, tl.rc2_tab)
+    got = port_arrays(g_c, g_cd)
+    np.testing.assert_array_equal(got, port_arrays(*ref.reshape(-1, 2, K)
+                                                   .unbind(1)))
+    jp_c, jp_cd = j_bwd(jss.positions, jss.types, jaux["valid"],
+                        jnp.asarray(ct), jl.plan, jl.lo, jev.basis,
+                        rcut_matrix=rc, needs_energy=energy_on,
+                        interpret=True)
+    want = (grad_arrays({"c": jp_c, "cd": jp_cd}, jev.basis)
+            if not typed else grad_arrays(
+                {p: {"c": jp_c[p], "cd": jp_cd[p]}
+                 for p in jev.basis["pairs"]}, jev.basis))
+    assert_grads(got, want)
+
+
+def test_proxy_bwd_valid_not_a_prefix():
+    """Occupied slots need not be a prefix of their cell: the same
+    particles (and cotangents) in other slots give the same moments."""
+    from torch_helpers import hole_permutation
+    typed, energy_on, rc, _, (tl, tss, taux), ct = setup("typed_rcut")
+    _, _, tev, _ = proxies(typed)
+    perm = hole_permutation(taux["valid"], tl.plan.capacity)
+    assert (np_(taux["valid"][perm]).reshape(tl.plan.n_cells, -1)[:, 0]
+            == 0).any()
+    ct = torch.as_tensor(ct)
+    outs = []
+    for p in (torch.arange(tl.plan.n_slots), perm):
+        g = tptc.proxy_bwd_moments(
+            tss.positions[p], tss.types[p], taux["valid"][p], ct[p],
+            tl.plan, tl.lo, tev.basis, rc2_tab=tl.rc2_tab,
+            geometry=tl.geometry)
+        outs.append(port_arrays(*g))
+    assert_grads(outs[1], outs[0])
+
+
 @pytest.mark.parametrize("case", ["untyped", "typed_rcut"])
 def test_proxy_form_plain_matches_jax(case):
     """K1's Chebyshev-proxy form, plain version (``ChebForm.evaluate``
-    through ``half_stencil_reference``: the K1 wrapper on a CPU tensor),
+    through ``half_stencil_plain``: the K1 wrapper on a CPU tensor),
     against the JAX package's analytic pair forces with the proxy as its
     pair function: forces, energy and virial."""
     typed, _, rc, (jl, jss, jaux), (tl, tss, taux), _ = setup(case)

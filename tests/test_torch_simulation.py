@@ -184,7 +184,7 @@ def test_kernel_stencil_through_the_engine():
         sim.stencil = stencil
         sim.run(10)
         runs.append(sim)
-    assert tcc.half_stencil_planes.launches == 0
+    assert tcc.half_stencil_pair_forces.launches == 0
     assert runs[0]._layout.plan.capacity >= 1
     assert_wrapped_close(runs[0].state.positions, runs[1].state.positions,
                          runs[0]._lengths, atol=2e-3)

@@ -111,7 +111,7 @@ def test_one_train_step_matches_jax():
     for a, b in zip(g_t, g_j):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5 * scale)
     assert tsim.train_steps == 1
-    assert tptc.proxy_bwd_planes.launches == 0      # plain version on CPU
+    assert tptc.proxy_bwd_moments.launches == 0      # plain version on CPU
 
 
 def test_sgd_trajectory_matches_jax():

@@ -65,6 +65,20 @@ def packed_pair(n, density, seed, r_cut, typed=False, rc_matrix=None,
     return (jl, jss, jaux), (tl, tss, taux)
 
 
+def hole_permutation(valid, capacity):
+    """A slot permutation that moves the first particle of every cell with
+    room into the cell's first empty slot, so that the occupied slots of
+    those cells are no longer a prefix: ``new[i] = old[perm[i]]`` (a
+    packed, prefix-occupied ``valid`` in)."""
+    v = valid.detach().cpu().numpy().reshape(-1, capacity) > 0
+    perm = np.arange(v.size).reshape(-1, capacity)
+    for c, row in enumerate(v):
+        o = int(row.sum())
+        if 0 < o < capacity:
+            perm[c, [0, o]] = perm[c, [o, 0]]
+    return torch.as_tensor(perm.ravel(), device=valid.device)
+
+
 def jax_state_numpy(state):
     """A JAX SimState's arrays as numpy (the input of
     ``interop.state_from_numpy``)."""
