@@ -38,9 +38,12 @@ exits non-zero:
                with attach(sim, r_cut=3.0), which on the card resolves
                to the cell list with kernel K3; the 64k fluid's protocol
                (quench, thermalize, NVT, warm runs, a timed run with host
-               syncs forbidden); K3 against its plain version and the
-               topk yardstick at the path's shapes; a small-N step on the
-               card against the CPU; a 20-step torch.profiler window.
+               syncs forbidden); K3 against its plain version at the
+               path's shapes, at a 3x3x3 grid and at the path's state
+               unwrapped by whole boxes; K3's whole call, its kernel
+               alone and its kernels per call (one) by the profiler, and
+               the topk yardstick; a small-N step on the card against
+               the CPU; a 20-step torch.profiler window.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -259,7 +262,9 @@ def k3_cost(slots4, counts, grid, cap, nn, n, valid_per_row):
     per real candidate pair (each query slot against the occupied slots
     of its 27 cells) ~24 float operations (3 subtractions, 3 divisions,
     3 roundings, 3 multiply-subtracts, d2's 5, the cut tests and the
-    key), and per query ``valid^2`` key comparisons of the ranking."""
+    key), and per query ``valid^2`` key comparisons of the ranking. An
+    IEEE division counts as one operation (on the card it is a sequence
+    of several), as the function's work and not any kernel's."""
     from hoomd_tf_tpu_torch.ops.cell_stencil import neighbor_cells
     neigh = neighbor_cells(grid, counts.device)
     cand = counts.long()[neigh].sum(1)
@@ -270,11 +275,120 @@ def k3_cost(slots4, counts, grid, cap, nn, n, valid_per_row):
     return nbytes, 24 * pairs + float((v * v).sum()), pairs
 
 
+def k3_keys(slots4, grid, cap, lengths):
+    """K3's selection keys of every query slot over its 27 cells, in the
+    plain version's arithmetic: ``[n_cells * cap, 27 cap]`` int32,
+    ``FAR_KEY`` where invalid."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cell_stencil as cs
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    neigh = cs.neighbor_cells(grid, slots4.device)
+    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(slots4, neigh, cap, lengths,
+                                             0, int(np.prod(grid)))
+    C = 27 * cap
+    key, _ = nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
+                               ddz.reshape(-1, C), R_CUT, nc.slot_bits(C))
+    return key
+
+
+#: back-to-back calls in a profiled window, and windows tried at most
+PROFILED_CALLS = 10
+PROFILED_TRIES = 3
+
+
+def profiled_calls(fn):
+    """Names of the CUDA kernels of ``PROFILED_CALLS`` back-to-back calls
+    of ``fn`` and their summed device time in ms, and the windows that
+    were dropped before one was whole. torch.profiler can leave the
+    first kernels after it starts unrecorded, so each window opens with
+    three marker kernels (``torch.cuda._sleep``) and a synchronize, ends
+    with one more, and only the kernels between the last opening marker
+    and the closing one count. A window without an opening and a closing
+    marker, or whose count is no multiple of the calls, is run again, up
+    to ``PROFILED_TRIES`` windows; then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for tries in range(PROFILED_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(PROFILED_CALLS):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        marks = [k for k, e in enumerate(ev) if "spin_kernel" in e[2]]
+        if len(marks) >= 2:
+            inside = ev[marks[-2] + 1:marks[-1]]
+            if inside and len(inside) % PROFILED_CALLS == 0:
+                return ([e[2] for e in inside],
+                        sum(b - a for a, b, _ in inside) / 1e3, tries)
+    raise RuntimeError(f"torch.profiler lost kernels in {PROFILED_TRIES} "
+                       f"windows of {PROFILED_CALLS} calls (last: {len(ev)} "
+                       f"kernels, markers at {marks})")
+
+
+def k3_against_plain(label, args):
+    """K3 against its plain version on the card: the same type column and
+    nonzero pattern (the same order), displacements within 1e-6."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    got = nc.nlist_select(*args)
+    want = nc.nlist_select_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    same_order = bool(torch.equal(got[..., 3], want[..., 3])) and \
+        bool(torch.equal(got != 0, want != 0))
+    n_nb = (got[..., :3] != 0).any(-1).sum(1)
+    print(f"  K3 vs plain, {label}: max_abs_err={err:.3e}, order "
+          f"identical: {same_order}; neighbors per particle mean "
+          f"{float(n_nb.float().mean()):.2f} max {int(n_nb.max())}")
+    check(same_order and err <= 1e-6,
+          f"K3 disagrees with its plain version ({label})")
+    return err
+
+
+def k3_cases(st, grid, cap, NN):
+    """K3's harder inputs against its plain version: a 3 x 3 x 3 grid
+    (many |d| near L / 2, where the thresholds leave the shift to the
+    division) and the path's state with a third of its particles moved by
+    -2..2 boxes per axis (unwrapped positions, |d| past 1.49 L)."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    rng = np.random.RandomState(7)
+    L = 10.0
+    pos4 = np.concatenate([rng.rand(300, 3) * L - L / 2,
+                           rng.randint(0, 3, (300, 1))], 1)
+    pos4 = torch.as_tensor(pos4.astype(np.float32), device="cuda")
+    g3, c3 = cl.plan(300, [L] * 3, R_CUT)
+    c3 = max(c3, cl.max_occupancy(pos4[:, :3], [L] * 3, g3))
+    lt = torch.tensor([L] * 3, device="cuda")
+    s4, cnt, pid, ovf = cl.build_planes(pos4, g3, c3, lt)
+    check(g3 == (3, 3, 3) and not bool(ovf), "3x3x3 case")
+    err = k3_against_plain("3x3x3 grid (300 particles, L 10)",
+                           (s4, cnt, pid, g3, c3, NN, R_CUT, (L,) * 3, 300))
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    shift = torch.as_tensor(rng.randint(-2, 3, (N, 3)) *
+                            (rng.rand(N, 1) < 0.34), device="cuda")
+    pos4 = st.positions4.clone()
+    pos4[:, :3] += shift.to(pos4.dtype) * lengths
+    s4, cnt, pid, ovf = cl.build_planes(pos4, grid, cap, lengths)
+    check(not bool(ovf), "unwrapped case overflowed")
+    return max(err, k3_against_plain(
+        "the path's state, a third unwrapped by -2..2 boxes",
+        (s4, cnt, pid, grid, cap, NN, R_CUT, host_L, N)))
+
+
 def phase_packed():
     """The packed path through the public API at the 64k fluid."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cell_list as cl
-    from hoomd_tf_tpu_torch.ops import cell_stencil as cs
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
     from hoomd_tf_tpu_torch.ops.box import box_size
 
@@ -337,35 +451,27 @@ def phase_packed():
                                                lengths)
     check(not bool(ovf), "the state overflows its own plan")
     args = (slots4, counts, pid, grid, cap, NN, R_CUT, host_L, N)
-    got = k3(*args)
-    want = nc.nlist_select_reference(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    same_order = bool(torch.equal(got[..., 3], want[..., 3])) and \
-        bool(torch.equal(got != 0, want != 0))
-    n_nb = (got[..., :3] != 0).any(-1).sum(1)
-    print(f"  K3 vs plain: max_abs_err={err:.3e}, order identical: "
-          f"{same_order}; neighbors per particle mean "
-          f"{float(n_nb.float().mean()):.2f} max {int(n_nb.max())}")
-    check(same_order and err <= 1e-6, "K3 disagrees with its plain version")
+    err = max(k3_against_plain("the path's state", args),
+              k3_cases(st, grid, cap, NN))
     t_k = cuda_ms(lambda: k3(*args))
+    names, dev_ms, dropped = profiled_calls(lambda: k3(*args))
+    per_call = len(names) / PROFILED_CALLS
+    k3_per_call = sum("nlist_select" in n for n in names) / PROFILED_CALLS
+    check(per_call == 1 and k3_per_call == 1,
+          f"a K3 call launched {per_call} kernels ({sorted(set(names))})")
     t_p = cuda_ms(lambda: nc.nlist_select_reference(*args), reps=5)
     # the yardstick: torch.topk's selection over the plain version's keys
-    neigh = cs.neighbor_cells(grid, slots4.device)
-    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(slots4, neigh, cap, lengths,
-                                             0, int(np.prod(grid)))
-    C = 27 * cap
-    key, _ = nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
-                               ddz.reshape(-1, C), R_CUT, nc.slot_bits(C))
-    del ddx, ddy, ddz
-    occupied = (pid >= 0)
-    valid = ((key != nc.FAR_KEY).sum(1))[occupied]
+    key = k3_keys(slots4, grid, cap, lengths)
+    valid = (key != nc.FAR_KEY).sum(1)[pid >= 0]
     t_lib = cuda_ms(lambda: torch.topk(key, NN, dim=1, largest=False,
                                        sorted=True), reps=5)
     nbytes, ops, pairs = k3_cost(slots4, counts, grid, cap, NN, N, valid)
     del key
     b_ms, b_by = bound(nbytes, ops)
-    print(f"  K3 time (median of CUDA events): kernel {t_k:.4f} ms, plain "
+    print(f"  K3 time: whole call {t_k:.4f} ms (median of CUDA events), "
+          f"kernel alone {dev_ms / PROFILED_CALLS:.4f} ms (profiler, "
+          f"{PROFILED_CALLS} calls, {dropped} windows dropped), "
+          f"{per_call:g} kernel per call; plain "
           f"{t_p:.4f} ms, topk yardstick (selection only, keys given) "
           f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} "
           f"MB, {ops / 1e9:.3f} G operations over {pairs} candidate pairs)")

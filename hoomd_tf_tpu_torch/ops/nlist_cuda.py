@@ -16,16 +16,21 @@ first; columns past the row's valid count are zero.
 
 The TPU kernel takes ``[n_cells, 27 cap]`` candidate matrices that XLA
 gathers beforehand, and lifts rows with one-hot matmuls. The CUDA kernel
-gathers the 27 cells itself from the ``[n_cells cap, 4]`` slot rows, so
-the candidate matrix never reaches device memory, and writes straight
-into the particle-order ``[N, NN, 4]`` list through the slot's particle
-id (the TPU path's four row gathers and stack fused away).
+stages each strip of cells' neighbourhood once from the ``[n_cells cap,
+4]`` slot rows, so the candidate matrix never reaches device memory, and
+writes each particle-order row of the ``[N, NN, 4]`` list once, padding
+included (the TPU path's four row gathers and stack fused away; the
+wrapper allocates the list with ``torch.empty``). Its minimum image
+decides the shift by float32 thresholds (:func:`image_thresholds`,
+:func:`threshold_min_image`) and divides only where they cannot decide.
 
 :func:`nlist_select` launches the kernel for CUDA tensors and uses the
 plain version, :func:`nlist_select_reference`, only for CPU tensors.
+The launch constants of a plan are made once (:func:`launch_params`).
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -35,7 +40,8 @@ from .cell_stencil import (cell_chunks, chunk_pairs, neighbor_cells,
 from .nlist import f32
 
 __all__ = ["nlist_select", "nlist_select_reference", "selection_keys",
-           "slot_bits"]
+           "slot_bits", "image_thresholds", "threshold_min_image",
+           "launch_shape", "launch_params", "launch"]
 
 #: key of an invalid candidate (bit pattern of a huge positive float)
 FAR_KEY = 0x7F000000
@@ -96,6 +102,133 @@ def nlist_select_reference(slots4, counts, pid, grid, capacity, NN, r_cut,
     return to_particle_order(torch.cat(rows), pid, n)
 
 
+def image_thresholds(length):
+    """``(t0, t1, t2)``: float32 thresholds on ``|d|`` that decide the
+    minimum-image shift ``s = rint(fl(d / L))`` for the float32 length
+    ``L``: ``|d| <= t0`` gives ``s = 0`` and ``t1 <= |d| <= t2`` gives ``s =
+    sign(d)``. Rounded inward from ``0.49 L``, ``0.51 L`` and ``1.49 L``,
+    so that float32 division, monotone in ``d``, lands on the same side of
+    ``0.5`` and ``1.5`` as the thresholds do."""
+    L = float(np.float32(length))
+
+    def down(x):
+        v = np.float32(x)
+        return v if float(v) <= x else np.nextafter(v, np.float32(-np.inf))
+
+    def up(x):
+        v = np.float32(x)
+        return v if float(v) >= x else np.nextafter(v, np.float32(np.inf))
+    return down(0.49 * L), up(0.51 * L), down(1.49 * L)
+
+
+def threshold_min_image(d, L, thresholds):
+    """Plain version of K3's minimum-image rule: the shift decided by
+    :func:`image_thresholds`, the IEEE ``round(d / L)`` only where they
+    cannot decide (``|d|`` near ``L / 2`` or past ``1.49 L``), then ``d - s
+    L``. Equal bit for bit to ``d - torch.round(d / L) * L``.
+
+    :param d: float32 tensor of displacements along one axis.
+    :param L: float32 0-d tensor, the box length.
+    :param thresholds: ``image_thresholds(L)``.
+    """
+    t0, t1, t2 = (float(t) for t in thresholds)
+    a = d.abs()
+    near = a <= t0
+    one = (a >= t1) & (a <= t2)
+    s = torch.copysign(torch.where(near, 0.0, 1.0).to(d.dtype), d)
+    s = torch.where(near | one, s, torch.round(d / L))
+    return d - s * L
+
+
+#: shared memory of one H100 SM, and the most one block may take
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+#: the runtime's own shared memory per block, and the kernel's static array
+_SMEM_RESERVED = 1024 + 32
+#: the most warps a block runs, and the cells of a strip the launch aims
+#: at (the fastest of strips of 1 to 18 cells at the packed path's plan,
+#: measured on an H100: profile_step.py --mode calls)
+MAX_WARPS = 8
+STRIP = 2
+
+
+def smem_bytes(cap, nn, strip, warps):
+    """Dynamic shared memory of one K3 block (csrc/nlist_select.cu's
+    ``smem_bytes``, which checks it at launch): the window's ``(strip + 2)
+    x 9`` cells of ``cap`` float4 slots, per warp a key buffer of ``27
+    cap`` (whole uint4s) and ``nn`` winners, the window's prefix and cell
+    ids and the strip's query prefix."""
+    nw = (strip + 2) * 9
+    return (16 * nw * cap + 4 * warps * ((27 * cap + 3) // 4 * 4) +
+            4 * warps * nn + 4 * (nw + 1) + 4 * nw + 4 * (strip + 1))
+
+
+def launch_shape(nx, cap, nn, strip=None, warps=None):
+    """``(strip, warps, smem)`` of a K3 launch: the warps per block (up to
+    8) and blocks per SM (two, else one) that run the most warps on an SM
+    when the strip is one cell, preferring two blocks; then the longest
+    strip up to :data:`STRIP` cells that keeps that, evened out over
+    ``nx``: ``ceil(nx / strip)`` strips of ``ceil(nx / n_strips)`` cells,
+    the last one ragged where ``nx`` does not divide. ``strip`` and
+    ``warps`` force a shape (to measure one); ``ValueError`` when no block
+    fits."""
+    budgets = {2: SMEM_PER_SM // 2 - _SMEM_RESERVED,
+               1: SMEM_PER_BLOCK - _SMEM_RESERVED}
+    if strip is not None or warps is not None:
+        s = min(int(strip or STRIP), nx)
+        w = int(warps or MAX_WARPS)
+        if not (1 <= s and 1 <= w <= MAX_WARPS and
+                smem_bytes(cap, nn, s, w) <= budgets[1]):
+            raise ValueError(f"K3 launch shape strip {s}, warps {w} does "
+                             f"not fit capacity {cap}, NN {nn}")
+        return s, w, smem_bytes(cap, nn, s, w)
+    shapes = [(w * blocks, blocks, w) for blocks in (2, 1)
+              for w in range(MAX_WARPS, 0, -1)
+              if smem_bytes(cap, nn, 1, w) <= budgets[blocks]]
+    if not shapes:
+        raise ValueError(f"capacity {cap}, NN {nn}: one K3 block needs "
+                         "more shared memory than an H100 block has")
+    _, blocks, w = max(shapes)
+    longest = max(s for s in range(1, min(STRIP, nx) + 1)
+                  if smem_bytes(cap, nn, s, w) <= budgets[blocks])
+    s = -(-nx // -(-nx // longest))
+    return s, w, smem_bytes(cap, nn, s, w)
+
+
+class K3Params(ctypes.Structure):
+    """The kernel's launch constants (``K3Params`` of
+    csrc/nlist_select.cu, field for field)."""
+    _fields_ = ([(f, ctypes.c_int) for f in
+                 ("nx", "ny", "nz", "cap", "nn", "strip", "warps",
+                  "n_strips", "smem")] +
+                [("slot_mask", ctypes.c_uint), ("rc2", ctypes.c_float),
+                 ("lo2", ctypes.c_float)] +
+                [(f, ctypes.c_float * 3) for f in ("L", "t0", "t1", "t2")])
+
+
+@functools.lru_cache(maxsize=16)
+def launch_params(grid, capacity, NN, r_cut, lengths, strip=None,
+                  warps=None):
+    """The launch constants of one plan, made once (cached): the launch
+    shape, the slot mask, the float32 cuts, lengths and minimum-image
+    thresholds. ``strip`` and ``warps`` force a shape
+    (:func:`launch_shape`)."""
+    nx, ny, nz = (int(g) for g in grid)
+    if min(nx, ny, nz) < 3:
+        raise ValueError(f"grid {grid}: the 27-cell stencil needs >= 3 "
+                         "cells per axis")
+    cap, nn = int(capacity), int(NN)
+    s, w, smem = launch_shape(nx, cap, nn, strip, warps)
+    L = [f32(v) for v in lengths]
+    th = [image_thresholds(v) for v in L]
+    return K3Params(
+        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem,
+        (1 << slot_bits(27 * cap)) - 1, f32(r_cut * r_cut), f32(25e-8),
+        (ctypes.c_float * 3)(*L),
+        *((ctypes.c_float * 3)(*(float(t[a]) for t in th))
+          for a in range(3)))
+
+
 def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
                  n):
     """Kernel K3. Launches the CUDA kernel on CUDA tensors (and counts the
@@ -116,29 +249,27 @@ def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
     if not slots4.is_cuda:
         return nlist_select_reference(slots4, counts, pid, grid, capacity,
                                       NN, r_cut, lengths, n)
-    cap = int(capacity)
-    nx, ny, nz = (int(g) for g in grid)
-    n_cells = nx * ny * nz
-    if min(nx, ny, nz) < 3:
-        raise ValueError(f"grid {grid}: the 27-cell stencil needs >= 3 "
-                         "cells per axis")
+    return launch(launch_params(tuple(grid), capacity, NN, r_cut,
+                                tuple(lengths)), slots4, counts, pid, n)
+
+
+def launch(params, slots4, counts, pid, n):
+    """One launch of K3 with the constants ``params``
+    (:func:`launch_params`) on CUDA tensors: the ``[n, NN, 4]`` list."""
+    p = params
+    n_cells = p.nx * p.ny * p.nz
     dev = slots4.device
-    _check(slots4, (n_cells * cap, 4), torch.float32, dev, "slots4")
+    if dev.type != "cuda":
+        raise ValueError(f"K3 launches on CUDA tensors, not {dev}")
+    _check(slots4, (n_cells * p.cap, 4), torch.float32, dev, "slots4")
     _check(counts, (n_cells,), torch.int32, dev, "counts")
-    _check(pid, (n_cells * cap,), torch.int32, dev, "pid")
+    _check(pid, (n_cells * p.cap,), torch.int32, dev, "pid")
     lib = _library()
-    warps = lib.htf_nlist_select_warps(cap)
-    if warps <= 0:
-        raise ValueError(f"capacity {cap} needs more shared memory per "
-                         "block than one H100 block has")
-    out = torch.zeros((n, NN, 4), dtype=torch.float32, device=dev)
-    lx, ly, lz = (f32(v) for v in lengths)
+    out = torch.empty((n, p.nn, 4), dtype=torch.float32, device=dev)
     err = lib.htf_nlist_select(
-        ctypes.c_void_p(slots4.data_ptr()), ctypes.c_void_p(counts.data_ptr()),
-        ctypes.c_void_p(pid.data_ptr()), nx, ny, nz, cap, int(NN),
-        f32(r_cut * r_cut), f32(25e-8), lx, ly, lz,
-        slot_bits(27 * cap), warps, ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        ctypes.addressof(p), slots4.data_ptr(), counts.data_ptr(),
+        pid.data_ptr(), int(n), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("neighbor selection kernel launch failed: " +
                            lib.htf_nlist_error_string(err).decode())
@@ -169,12 +300,9 @@ def _library():
         from .._build import build_shared_library
         lib = ctypes.CDLL(str(build_shared_library("nlist_select")))
         lib.htf_nlist_select.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 +
-            [ctypes.c_float] * 5 + [ctypes.c_int] * 2 +
-            [ctypes.c_void_p, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] +
+            [ctypes.c_void_p] * 2)
         lib.htf_nlist_select.restype = ctypes.c_int
-        lib.htf_nlist_select_warps.argtypes = [ctypes.c_int]
-        lib.htf_nlist_select_warps.restype = ctypes.c_int
         lib.htf_nlist_error_string.argtypes = [ctypes.c_int]
         lib.htf_nlist_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -2,18 +2,19 @@
 """Where a step's time goes on the card: the 64k online-training step
 (``--mode train``, north_star.py's flagship row) or the 64k eval step
 (``--mode eval``, the bench protocol), through the port's public API; or
-(``--mode calls``) the whole calls of kernels K1 and K2 alone.
+(``--mode calls``) the whole calls of kernels K1, K2 and K3 alone; or
+(``--mode k3parts``) where K3's time goes.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 profile_step.py [--mode train|eval|calls] [--steps 50]
+    python3 profile_step.py [--mode train|eval|calls|k3parts] [--steps 50]
     python3 profile_step.py --mode calls --tree DIR
 
 ``--tree DIR`` imports the port's package from another checkout (an
 older commit, say) while this file and ``chip_smoke.py`` stay this
-checkout's: the public signatures of ``half_stencil_pair_forces`` and
-``proxy_bwd_moments`` are the same in both, so one script times both
-trees at the same shapes.
+checkout's: the public signatures of ``half_stencil_pair_forces``,
+``proxy_bwd_moments`` and ``nlist_select`` are the same in both, so one
+script times both trees at the same shapes.
 
 It prepares the state as chip_smoke.py does (for training through
 chip_smoke.py's own set-up: quench, NVT, the proxy NN attached with
@@ -29,10 +30,25 @@ train=True and trained 600 steps around a replan), profiles ``run(steps)`` with 
 
 ``--mode calls`` quenches the 64k fluid (60 steps, as chip_smoke.py
 phase 3) and times, by CUDA events, the whole call of K1's LJ form at the
-eval plan, and of K1's proxy form and K2 (K = 16, forces only) at the
-train plan's grid (15^3, capacity 36); for each it counts the CUDA
-kernels (``torch.roll``'s among them) one call launches, by
-torch.profiler, and gives chip_smoke.py's bound for the call.
+eval plan, of K1's proxy form and K2 (K = 16, forces only) at the train
+plan's grid (15^3, capacity 36), and of K3 (NN 64) at the packed path's
+plan (18^3, capacity 29 on this state). For each it profiles R = 10
+back-to-back calls between marker kernels (``chip_smoke.profiled_calls``:
+the profiler can leave the first kernels of a window unrecorded) and
+reports the CUDA kernels per call (total / R; ``torch.roll``'s among
+them; it raises when no window gives a total that is a multiple of R)
+and their device time per call, and gives chip_smoke.py's bound for the
+call. Where the package has K3's
+``launch_params`` it also times K3 at forced launch shapes (strip
+length, warps per block).
+
+``--mode k3parts`` times K3 (kernel alone, profiler) at the packed
+path's plan as it is and with one part of its work taken out, each a
+text edit of ``csrc/nlist_select.cu`` built with the package's flags:
+without the ranking, without the candidate loop, without the queries
+(staging only), and without the minimum image of the chunks that the
+|d| <= t0 vote sends to it. The variants' lists are wrong by design;
+the differences say where the kernel's time goes.
 
 The profiler adds host overhead, so the wall time and busy share under it
 are of a profiled run; the per-part times are not.
@@ -194,16 +210,15 @@ def train_parts(sim, model, cs):
 
 
 def whole_calls(cs):
-    """K1 and K2 whole calls alone: CUDA-event medians, the kernels one
-    call launches, and chip_smoke.py's bound, at the eval and train
-    shapes."""
+    """K1, K2 and K3 whole calls alone: CUDA-event medians, the kernels
+    one call launches and their device time, and chip_smoke.py's bound,
+    at the eval, train and packed shapes."""
     torch, htt = cs.torch, cs.htt
     from hoomd_tf_tpu_torch.md.slots import SlotLayout
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
     from hoomd_tf_tpu_torch.ops.cellwise import _measured_occupancy
     from hoomd_tf_tpu_torch.ops.chebyshev import make_pair_proxy
-    from torch.profiler import ProfilerActivity, profile
 
     sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
     htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
@@ -250,26 +265,138 @@ def whole_calls(cs):
              geometry=tr_lay.geometry),
          lambda: cs.k2_cost(tr_st[0], tr_st[2], train_plan, cs.K_PROXY,
                             False, 2 * cs.K_PROXY)))
+    k3 = k3_call(cs, sim)
+    calls = calls + (k3[:5],)
+    calls_n = cs.PROFILED_CALLS
     out = []
     for name, plan, _, fn, cost in calls:
         ms = cs.cuda_ms(fn, reps=25)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [n for n, _, _ in kernel_events(prof)]
-        b_ms, b_by = cs.bound(*cost())
+        names, dev_ms, dropped = cs.profiled_calls(fn)
+        b_ms, b_by = cs.bound(*cost()[:2])
         out.append({"call": name, "plan": [list(plan.grid), plan.capacity],
-                    "ms": ms, "kernels_per_call": len(names),
-                    "roll_kernels_per_call": sum(map(is_roll, names)),
+                    "ms": ms, "kernels_per_call": len(names) / calls_n,
+                    "roll_kernels_per_call": sum(map(is_roll, names)) /
+                    calls_n,
+                    "kernel_ms_per_call": dev_ms / calls_n,
+                    "profiler_windows_dropped": dropped,
+                    "kernels": sorted(set(n[:60] for n in names)),
                     "bound_ms": b_ms, "bound_by": b_by})
+    if k3[5] is not None:
+        out.append({"call": "K3 at forced launch shapes", "shapes": k3[5]})
     return out
+
+
+def k3_call(cs, sim, shapes=True):
+    """K3's whole call at the packed path's plan on the quenched state:
+    ``(name, plan, inputs, fn, cost, shapes)``, ``shapes`` the times at
+    forced launch shapes where the package has ``launch_params`` (and
+    ``shapes`` is asked for)."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    htt, torch = cs.htt, cs.torch
+    psim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    htt.tfcompute(cs.make_simmodel(64)).attach(psim, r_cut=cs.R_CUT)
+    grid, cap = psim._packed_build().plan
+    st = sim.state
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
+                                               lengths)
+    cs.check(not bool(ovf), "the quenched state overflows the packed plan")
+    args = (slots4, counts, pid, grid, cap, 64, cs.R_CUT, host_L, cs.N)
+
+    def cost():
+        key = cs.k3_keys(slots4, grid, cap, lengths)
+        valid = (key != nc.FAR_KEY).sum(1)[pid >= 0]
+        return cs.k3_cost(slots4, counts, grid, cap, 64, cs.N, valid)
+    plan = dataclasses.make_dataclass("Plan", ["grid", "capacity"])(
+        grid, cap)
+    if not (shapes and hasattr(nc, "launch_params")):
+        shapes = None
+    else:
+        shapes = []
+        for strip, warps in ((1, 8), (2, 8), (3, 8), (6, 8), (9, 8),
+                             (18, 8), (3, 4), (6, 4)):
+            p = nc.launch_params(tuple(grid), cap, 64, cs.R_CUT, host_L,
+                                 strip=strip, warps=warps)
+            ms = cs.cuda_ms(lambda: nc.launch(p, *args[:3], cs.N), reps=25)
+            _, dev_ms, _ = cs.profiled_calls(
+                lambda: nc.launch(p, *args[:3], cs.N))
+            shapes.append({"strip": p.strip, "warps": p.warps,
+                           "smem": p.smem, "ms": ms,
+                           "kernel_ms": dev_ms / cs.PROFILED_CALLS})
+    return ("K3, NN 64", plan, args, lambda: nc.nlist_select(*args), cost,
+            shapes)
+
+
+#: part of K3 -> (anchor, replacement) edits of csrc/nlist_select.cu
+K3_PARTS = {
+    "as built": (),
+    "without the ranking": (
+        ("int r0 = 0, r1 = 0;", "int r0 = h, r1 = h + 32;"),
+        ("for (int m = 0; m < nv4 / 4; ++m) {",
+         "for (int m = 0; m < 0; ++m) {")),
+    "without the candidate loop": (
+        ("const int total = start[9 * i + 27] - lo;",
+         "const int total = 0 * (start[9 * i + 27] - lo);"),),
+    "without the queries (staging only)": (
+        ("for (int t = warp; t < Q; t += p.warps) {",
+         "for (int t = warp; t < Q * 0; t += p.warps) {"),),
+    "without the voted minimum image": (
+        ("if (__any_sync(kFull, far)) {", "if (far && lane > 99) {"),),
+}
+
+
+def k3_parts(cs):
+    """K3's kernel alone at the packed plan, as built and without each
+    part of its work (K3_PARTS): ``{part: ms}``."""
+    import ctypes
+    import subprocess
+    import tempfile
+    from hoomd_tf_tpu_torch import _build
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    torch = cs.torch
+    sim = cs.jittered_sim(cs.N, cs.htt.md.Minimize(max_disp=0.05), "cuda")
+    cs.htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
+                                             nlist="cellwise")
+    sim.run(60)
+    name, plan, args, _, _, _ = k3_call(cs, sim, shapes=False)
+    src = (_build._PKG / "csrc" / "nlist_select.cu").read_text()
+    p = nc.launch_params(plan.grid, plan.capacity, 64, cs.R_CUT, args[7])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for part, edits in K3_PARTS.items():
+            text = src
+            for old, new in edits:
+                cs.check(old in text, f"K3_PARTS: {old!r} not in the source")
+                text = text.replace(old, new)
+            cu, so = f"{tmp}/k3.cu", f"{tmp}/k3_{len(out)}.so"
+            with open(cu, "w") as f:
+                f.write(text)
+            subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", so, cu],
+                           check=True, capture_output=True)
+            lib = ctypes.CDLL(so)
+            lib.htf_nlist_select.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] +
+                [ctypes.c_void_p] * 2)
+            lib.htf_nlist_select.restype = ctypes.c_int
+            lib.htf_nlist_error_string.argtypes = [ctypes.c_int]
+            lib.htf_nlist_error_string.restype = ctypes.c_char_p
+            nc._LIB = lib
+            _, dev_ms, _ = cs.profiled_calls(
+                lambda: nc.launch(p, *args[:3], cs.N))
+            out[part] = dev_ms / cs.PROFILED_CALLS
+    nc._LIB = None
+    torch.cuda.synchronize()
+    return {"call": name, "plan": [list(plan.grid), plan.capacity],
+            "strip": p.strip, "warps": p.warps, "kernel_ms": out}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("train", "eval", "calls"),
+    ap.add_argument("--mode", choices=("train", "eval", "calls", "k3parts"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--tree", default=HERE,
@@ -288,6 +415,11 @@ def main():
     spec.loader.exec_module(cs)
     cs.torch, cs.htt = torch, htt
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.mode == "k3parts":
+        print(json.dumps({"mode": "k3parts", "device":
+                          torch.cuda.get_device_name(0),
+                          "smi": cs.smi_line(), **k3_parts(cs)}, indent=1))
+        return 0
     if args.mode == "calls":
         print(json.dumps({"mode": "calls", "tree": os.path.abspath(
             args.tree), "package": os.path.dirname(htt.__file__),

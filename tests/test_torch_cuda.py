@@ -449,6 +449,151 @@ def test_k3_matches_plain(cuda_device, NN, cap):
     assert (got[..., :3] != 0).any(-1).sum(1).max() == NN or NN == 64
 
 
+def k3_agrees(got, want):
+    """K3's bar: the same type column and nonzero pattern (the same
+    neighbor order), displacements within 1e-6 (the expected error is
+    0)."""
+    np.testing.assert_array_equal(got[..., 3], want[..., 3])
+    np.testing.assert_array_equal(got != 0, want != 0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+K3_CASES = {
+    # a 3 x 3 x 3 grid: the window holds a column twice, and many |d|
+    # fall in the band around L / 2 that the thresholds leave to the
+    # division
+    "3x3x3 grid": dict(n=300, L=10.0),
+    # positions shifted by +-1 and +-2 boxes (the binning wraps them)
+    "unwrapped": dict(n=3000, L=19.5, unwrap=True),
+    "empty and half-full cells": dict(n=900, L=19.5, sparse=0.5,
+                                      unwrap=True),
+    # ~217 KB of shared memory per block (past 48 KB: the opt-in
+    # attribute), one block to an SM
+    "capacity 200": dict(n=3000, L=19.5, cap=200),
+    # nx = 7 in strips of 2, 2, 2 and 1
+    "ragged strips": dict(n=1500, L=21.5),
+    # tied distances everywhere: the candidate slot alone orders a row
+    "lattice ties": dict(n=1728, L=18.0, lattice=True, unwrap=True),
+    # cells past capacity: particles that hold no slot get zero rows
+    "overflow": dict(n=1500, L=19.5, cap=8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_cases_match_plain(cuda_device, case):
+    """K3 on the card against its plain version on the CPU, at the cases
+    that exercise the redesign (K3_CASES)."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    from torch_helpers import k3_inputs
+    kw = dict(K3_CASES[case])
+    (slots4, counts, pid, grid, cap, L), pos4 = k3_inputs(
+        kw.pop("n"), kw.pop("L"), seed=5, **kw)
+    n = pos4.shape[0]
+    if case == "ragged strips":
+        assert grid[0] == 7 and 7 % tnc.launch_shape(7, cap, 64)[0]
+    if case == "capacity 200":
+        assert tnc.launch_shape(grid[0], cap, 64)[2] > 200 * 1024
+    if case == "overflow":
+        assert int(counts.sum()) < n
+    args = (grid, cap, 64, 3.0, L, n)
+    cuda = [t.to(cuda_device) for t in (slots4, counts, pid)]
+    before = tnc.nlist_select.launches
+    got = np_(tnc.nlist_select(*cuda, *args))
+    torch.cuda.synchronize()
+    assert tnc.nlist_select.launches - before == 1
+    want = np_(tnc.nlist_select_reference(slots4, counts, pid, *args))
+    k3_agrees(got, want)
+    assert (want[..., :3] != 0).any()
+
+
+@pytest.mark.parametrize("strip", [1, 4, 6])
+def test_k3_forced_strips_match_plain(cuda_device, strip):
+    """Every strip length gives the plain version's list on a 6-cell x
+    axis: strips of one cell, a ragged 4 + 2, and the whole row."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    args = k3_args(torch.device("cpu"))
+    slots4, counts, pid, grid, cap, NN, r_cut, L, n = args
+    assert grid[0] == 6
+    params = tnc.launch_params(grid, cap, NN, r_cut, L, strip=strip)
+    assert (params.strip, params.n_strips) == (strip, -(-6 // strip))
+    got = np_(tnc.launch(params, *(t.to(cuda_device) for t in
+                                   (slots4, counts, pid)), n))
+    want = np_(tnc.nlist_select_reference(*args))
+    k3_agrees(got, want)
+
+
+def test_k3_writes_its_padding(cuda_device):
+    """The kernel writes every row whole: the list comes from
+    torch.empty, so first a NaN-filled tensor of its size is made and
+    freed (the caching allocator then hands that memory back); every
+    column past a row's valid count must be exactly 0, and no NaN is
+    left anywhere, the rows of particles that hold no slot included."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    from torch_helpers import k3_inputs
+    (slots4, counts, pid, grid, cap, L), pos4 = k3_inputs(
+        1500, 19.5, seed=6, cap=8)
+    n = pos4.shape[0]
+    cuda = [t.to(cuda_device) for t in (slots4, counts, pid)]
+    torch.cuda.synchronize()
+    dirty = torch.full((n, 64, 4), float("nan"), device=cuda_device)
+    ptr = dirty.data_ptr()
+    del dirty
+    out = tnc.nlist_select(*cuda, grid, cap, 64, 3.0, L, n)
+    assert out.data_ptr() == ptr
+    got = np_(out)
+    assert not np.isnan(got).any()
+    want = np_(tnc.nlist_select_reference(slots4, counts, pid, grid, cap,
+                                          64, 3.0, L, n))
+    k3_agrees(got, want)
+    valid = (want[..., :3] != 0).any(-1).sum(1)
+    assert int(counts.sum()) < n and (valid == 0).any()
+    past = np.arange(64)[None, :] >= valid[:, None]
+    assert (got[past] == 0).all() and past.any()
+
+
+def counted_kernels(run, calls, tries=3):
+    """Names of the CUDA kernels of ``calls`` back-to-back ``run()``s, by
+    torch.profiler. The profiler can leave the first kernels after it
+    starts unrecorded, so the window opens with three marker kernels
+    (``torch.cuda._sleep``) and a synchronize, ends with one more, and
+    only the kernels between the last opening marker and the closing one
+    count; a window without both, or whose count is no multiple of the
+    calls, is run again, up to ``tries`` windows."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                run()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [k for k, e in enumerate(ev) if "spin_kernel" in e[1]]
+        if len(marks) >= 2:
+            names = [e[1] for e in ev[marks[-2] + 1:marks[-1]]]
+            if names and len(names) % calls == 0:
+                return names
+    raise AssertionError(f"the profiler lost kernels in {tries} windows; "
+                         f"the last saw markers at {marks} in "
+                         f"{[e[1][:40] for e in ev]}")
+
+
+def test_k3_one_kernel_per_call(cuda_device):
+    """One K3 call is one CUDA kernel (no fill before it), over 10
+    calls under the profiler."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    args = k3_args(cuda_device)
+    tnc.nlist_select(*args)
+    names = counted_kernels(lambda: tnc.nlist_select(*args), 10)
+    assert len(names) == 10
+    assert all("nlist_select" in n for n in names)
+
+
 def test_k3_wrapper_checks_inputs(cuda_device):
     from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
     args = list(k3_args(cuda_device))

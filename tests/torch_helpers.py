@@ -230,3 +230,34 @@ def nlist_with_padding(n=40, nn=12, seed=0):
     for i in range(n):
         nl[i, fill[i]:] = 0.0
     return nl
+
+
+def k3_inputs(n, L, seed=0, cap=None, unwrap=False, sparse=0.0,
+              lattice=False):
+    """Cell slots of a random system in a cubic box ``L`` at r_cut 3:
+    ``(slots4, counts, pid, grid, cap, lengths), pos4``. ``unwrap`` shifts
+    a third of the particles by +-1 and +-2 boxes (positions the binning
+    wraps, stored unwrapped); ``sparse`` leaves that share of the box
+    empty (empty and half-full cells); ``lattice`` puts them on an exact
+    cubic lattice (``n`` a cube), where most distances tie and only the
+    candidate slot orders the row."""
+    from hoomd_tf_tpu_torch.ops import cell_list
+    rng = np.random.RandomState(seed)
+    pos = rng.rand(n, 3) * L - L / 2
+    if lattice:
+        m = round(n ** (1 / 3))
+        pos = (np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                        -1).reshape(-1, 3) + 0.25) * (L / m) - L / 2
+    if sparse:
+        pos[:, 0] = -L / 2 + (pos[:, 0] + L / 2) * (1 - sparse)
+    if unwrap:
+        k = rng.randint(-2, 3, (n, 3)) * (rng.rand(n, 1) < 0.34)
+        pos = pos + k * L
+    pos4 = np.concatenate([pos, rng.randint(0, 3, (n, 1))], 1)
+    pos4 = torch.as_tensor(pos4.astype(np.float32))
+    grid, c = cell_list.plan(n, [L] * 3, 3.0)
+    cap = cap or max(c, cell_list.max_occupancy(np_(pos4), [L] * 3,
+                                                grid))
+    slots4, counts, pid, _ = cell_list.build_planes(pos4, grid, cap,
+                                                    torch.tensor([L] * 3))
+    return (slots4, counts, pid, grid, cap, (L, L, L)), pos4
