@@ -11,8 +11,9 @@ exits non-zero:
 1. device   -- a CUDA card must be present; prints its name and power
                limit as nvidia-smi reports them;
 2. build    -- compiles kernel K1 (csrc/cellwise_half.cu, LJ and
-               Chebyshev-proxy forms), kernel K2 (csrc/proxy_bwd.cu), both
-               on the shared staging of csrc/half_stencil_stage.cuh, and
+               Chebyshev-proxy forms; csrc/cellwise_generic.cu, the
+               generic form), kernel K2 (csrc/proxy_bwd.cu), all on the
+               shared staging of csrc/half_stencil_stage.cuh, and
                kernel K3 (csrc/nlist_select.cu) with nvcc, one process per
                source started together, printing ptxas registers and
                spills;
@@ -43,7 +44,25 @@ exits non-zero:
                unwrapped by whole boxes; K3's whole call, its kernel
                alone and its kernels per call (one) by the profiler, and
                the topk yardstick; a small-N step on the card against
-               the CPU; a 20-step torch.profiler window.
+               the CPU; a 20-step torch.profiler window;
+7. generic  -- a generic SimModel, LJPotential(64), on 'cellwise' at the
+               64k fluid through the public API: the lane-separability
+               probe validates it, its synthesized pair function runs in
+               K1's generic form (csrc/cellwise_generic.cu: a list kernel,
+               the pair function in PyTorch, a reduction kernel, the
+               finish) at every force evaluation; the eval protocol with a
+               timed run(1000), host syncs forbidden; at one state the
+               generic form against its plain version and against K1's LJ
+               form, its whole call, its kernels by the profiler, the
+               bound;
+8. nn       -- NeuralPairPotential() at the JAX package's widths, weights
+               from a seed, on 'cellwise' from phase 7's fluid: validated
+               by the probe, 100 NVT steps with finite positions and
+               forces; the generic form against its plain version and the
+               planes route (autograd, in row chunks) at one state;
+9. direct   -- LJPotential(64) with nlist='direct' from phase 7's fluid:
+               its forces against the packed K3 route (NN 128) at one
+               state, then a timed run(500), host syncs forbidden.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -185,7 +204,7 @@ def k2_cost(positions, valid, plan, K, energy, M):
     return nbytes, 9 * tested + inside * (27 + K * (2 + 2 * (1 + energy)))
 
 
-def make_model():
+def make_model(nn=64):
     class LJ(htt.PairModel):
         """The benchmark's LJ (epsilon = sigma = 1), declaring its form."""
 
@@ -200,7 +219,7 @@ def make_model():
 
         def pair_kernel_form(self):
             return htt.md.LennardJones(1.0, 1.0, r_cut=R_CUT)
-    return LJ(64)
+    return LJ(nn)
 
 
 def make_nn(seed=0, proxy_degree=K_PROXY):
@@ -298,10 +317,12 @@ PROFILED_TRIES = 3
 
 def profiled_calls(fn):
     """Names of the CUDA kernels of ``PROFILED_CALLS`` back-to-back calls
-    of ``fn`` and their summed device time in ms, and the windows that
-    were dropped before one was whole. torch.profiler can leave the
-    first kernels after it starts unrecorded, so each window opens with
-    three marker kernels (``torch.cuda._sleep``) and a synchronize, ends
+    of ``fn`` and their summed device time in ms, the windows that were
+    dropped before one was whole, and each kernel's time in ms. torch.profiler can leave the
+    first kernels after it starts unrecorded (a window of 84-kernel calls
+    lost its three opening markers), so each window opens with one
+    uncounted call of ``fn``, then three marker kernels
+    (``torch.cuda._sleep``) and a synchronize, ends
     with one more, and only the kernels between the last opening marker
     and the closing one count. A window without an opening and a closing
     marker, or whose count is no multiple of the calls, is run again, up
@@ -312,6 +333,9 @@ def profiled_calls(fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a call the profiler may leave half unrecorded, then markers
+            fn()
+            torch.cuda.synchronize()
             for _ in range(3):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
@@ -327,7 +351,8 @@ def profiled_calls(fn):
             inside = ev[marks[-2] + 1:marks[-1]]
             if inside and len(inside) % PROFILED_CALLS == 0:
                 return ([e[2] for e in inside],
-                        sum(b - a for a, b, _ in inside) / 1e3, tries)
+                        sum(b - a for a, b, _ in inside) / 1e3, tries,
+                        [(b - a) / 1e3 for a, b, _ in inside])
     raise RuntimeError(f"torch.profiler lost kernels in {PROFILED_TRIES} "
                        f"windows of {PROFILED_CALLS} calls (last: {len(ev)} "
                        f"kernels, markers at {marks})")
@@ -454,7 +479,7 @@ def phase_packed():
     err = max(k3_against_plain("the path's state", args),
               k3_cases(st, grid, cap, NN))
     t_k = cuda_ms(lambda: k3(*args))
-    names, dev_ms, dropped = profiled_calls(lambda: k3(*args))
+    names, dev_ms, dropped, _ = profiled_calls(lambda: k3(*args))
     per_call = len(names) / PROFILED_CALLS
     k3_per_call = sum("nlist_select" in n for n in names) / PROFILED_CALLS
     check(per_call == 1 and k3_per_call == 1,
@@ -535,6 +560,314 @@ def phase_packed():
         print("  profiler: no device events recorded (timing above is by "
               "CUDA events)")
     return rec
+
+
+def k1_generic_cost(positions, valid, plan, n_ch, needed):
+    """Bytes and float32 operations of K1's own work in its generic form,
+    the user's pair function left out: the slot positions and ``valid``
+    read once, ``forces4`` written once, the list's ``needed`` lanes
+    written (r2, ti, tj) and their (U, s) read once; per tested pair the
+    displacement, d2 and the cut test (9, as ``k1_cost``), per listed lane
+    the products and their sums (3 per channel)."""
+    tested, _ = pair_counts(positions, valid, plan)
+    nbytes = plan.n_slots * 4 * (3 + 1 + 4) + needed * 4 * (3 + 2)
+    return nbytes, 9 * tested + needed * 3 * n_ch
+
+
+def seeded_weights(model, seed):
+    """Set a built model's layer weights to a draw from ``seed``
+    (Glorot-uniform kernels, zero biases), as the JAX package's Dense
+    draws them; the two bookkeeping variables stay."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    weights = model.get_weights()
+    out = list(weights[:2])
+    for w in weights[2:]:
+        if w.ndim == 2:
+            lim = np.sqrt(6.0 / sum(w.shape))
+            out.append(rng.uniform(-lim, lim, w.shape).astype(w.dtype))
+        else:
+            out.append(np.zeros_like(w))
+    model.set_weights(out)
+    return model
+
+
+def generic_calls(label, layout, slot, aux, model, lanes):
+    """K1's generic form at one state of a path, with the synthesized pair
+    function of ``model``: against its plain version (rtol = atol = 1e-4);
+    its whole call by CUDA events, the kernels of a call by the profiler;
+    the plain version's time and the bound. Returns the row's numbers and
+    the kernel's forces."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops.lane_fast import synthesize_pair_fn
+    fn = synthesize_pair_fn(model, slot.box)
+    args = (slot.positions, slot.types, aux["valid"], layout.plan, layout.lo,
+            fn)
+    kw = dict(min_r2=1e-4, geometry=layout.geometry, needs_energy=False)
+    lanes.reset()
+    f_k, _ = cc.generic_pair_forces(*args, lanes=lanes, **kw)
+    needed = int(lanes.needed)
+    check(not bool(lanes.overflow()), f"{label}: the list overflowed")
+    f_p, _ = cc.generic_plain(*args, lanes=None, **kw)
+    torch.cuda.synchronize()
+    err = compare(f"K1 generic, {label}, forces (kernel vs plain)", f_k, f_p)
+    t_k = cuda_ms(lambda: cc.generic_pair_forces(*args, lanes=lanes, **kw),
+                  reps=11)
+    names, dev_ms, dropped, each = profiled_calls(
+        lambda: cc.generic_pair_forces(*args, lanes=lanes, **kw))
+    parts = {k: 0.0 for k in ("generic_list", "generic_reduce",
+                              "half_stencil_home")}
+    for name, ms in zip(names, each):
+        for k in parts:
+            if k in name:
+                parts[k] += ms / PROFILED_CALLS
+    ours = sum(any(k in n for k in parts) for n in names)
+    check(ours == 3 * PROFILED_CALLS,
+          f"{label}: {ours / PROFILED_CALLS} generic-form kernels per call, "
+          "not 3")
+    t_p = cuda_ms(lambda: cc.generic_plain(*args, lanes=None, **kw), reps=3)
+    nbytes, ops = k1_generic_cost(slot.positions, aux["valid"],
+                                  layout.plan, 3, needed)
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  K1 generic, {label}: {needed} lanes of a {lanes.budget}-lane "
+          f"list; whole call {t_k:.4f} ms (median of CUDA events, the pair "
+          f"function included), {len(names) / PROFILED_CALLS:g} kernels per "
+          f"call, 3 of them the form's, all kernels "
+          f"{dev_ms / PROFILED_CALLS:.4f} ms per call (profiler, {dropped} "
+          f"windows dropped); plain {t_p:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    print("  the form's kernels alone per call (profiler): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in parts.items()) +
+        f"; together {sum(parts.values()):.4f} ms")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err), f_k
+
+
+def phase_generic():
+    """A generic SimModel, LJPotential(64), on 'cellwise' at the 64k
+    fluid: the probe validates it and its synthesized pair function runs
+    in K1's generic form; the eval protocol with a timed run(1000)."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout
+
+    gen, k1 = cc.generic_pair_forces, cc.half_stencil_pair_forces
+    sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda")
+    sim.check_syncs = True
+    model = htt.LJPotential(64)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    gen.launches = k1.launches = 0
+    evals0 = sim.force_evals
+    sim.run(60)
+    check(tfc._lane_fast_ok is True, "the probe did not validate "
+          f"LJPotential: {tfc._lane_fast_report}")
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    t0 = time.perf_counter()
+    sim.run(1000)
+    for _ in range(4):
+        plan = sim._layout.plan
+        sim.run(1000)
+        if sim._layout.plan == plan:
+            break
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ev_before, l_before = sim.force_evals, gen.launches
+    t0 = time.perf_counter()
+    sim.run(1000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = gen.launches
+    evals = sim.force_evals - evals0
+    th = sim.thermo()
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(bool(torch.isfinite(sim.state.forces).all()), "non-finite forces")
+    check(1.1 < th["temperature"] < 1.9, f"not a healthy kT=1.5 fluid: {th}")
+    check(launches > 0 and launches == evals,
+          f"generic-form launches {launches} != force evaluations {evals}")
+    timed = gen.launches - l_before
+    check(sim.force_evals - ev_before == timed >= 1001,
+          f"timed run: generic-form launches {timed} != evaluations")
+    check(k1.launches == 0, "the generic path launched a pair form")
+    plan = sim._layout.plan
+    print(f"  probe: validated (tfc._lane_fast_ok True); plan grid "
+          f"{plan.grid} cap {plan.capacity}; list budget "
+          f"{sim._lanes.budget} lanes; warm runs {warm_s:.1f} s; "
+          f"T={th['temperature']:.4f} PE/N={th['potential_energy'] / N:.4f}")
+    print(f"  generic-form launches {launches} == force evaluations {evals} "
+          f"(timed run: {timed}); K1 pair-form launches 0; no host sync in the "
+          f"step loops (set_sync_debug_mode('error'))")
+    print(f"  steps/s {1000 / dt:.2f} (timed run(1000), N={N}) on "
+          f"{smi_line()} -- info, not a claim")
+
+    # one state: the kernel against its plain version and K1's LJ form
+    layout = SlotLayout(plan, N, sim._lo, device="cuda")
+    slot, aux = slot_state(layout, sim.state)
+    lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    rec, f_g = generic_calls("LJPotential", layout, slot, aux, model, lanes)
+    # the two forms compute one function: the generic form with the LJ
+    # pair function against K1's LJ form
+    lj = htt.md.LennardJones(1.0, 1.0, r_cut=float("inf"))
+    common = (slot.positions, slot.types, aux["valid"], plan, layout.lo)
+    f_l, _ = k1(*common, lj.kernel_form(), needs_energy=False,
+                geometry=layout.geometry)
+    f_e, _ = cc.generic_pair_forces(*common, lj.pair_energy_and_slope,
+                                    needs_energy=False,
+                                    geometry=layout.geometry, lanes=lanes)
+    torch.cuda.synchronize()
+    rec["max_abs_err"] = max(rec["max_abs_err"], compare(
+        "K1 generic (the LJ pair function) vs K1 LJ form, forces", f_e, f_l))
+    # LJPotential is LJ of nlist_rinv, whose offsets (1e-7 per component,
+    # the reference's deltas) move each pair force by ~1e-6 of itself:
+    # held to the LJ form at the probe's own rule
+    err = (f_g - f_l).abs().amax(0)[:3]
+    lim = 2e-4 + 2e-3 * f_l.abs().amax(0)[:3]
+    worst = float(((f_g - f_l).abs() / (1e-4 + 1e-4 * f_l.abs())).max())
+    print(f"  K1 generic (LJPotential, synthesized) vs K1 LJ form: max err "
+          f"per axis {[round(float(e), 6) for e in err]} (probe's limits "
+          f"{[round(float(v), 5) for v in lim]}); against rtol = atol = "
+          f"1e-4 worst/bound {worst:.3f}")
+    check(bool((err <= lim).all()), "LJPotential disagrees with the LJ form")
+    rec["launches"] = launches
+    return sim, rec
+
+
+def phase_nn(state):
+    """NeuralPairPotential at the JAX package's widths (RBF 32, two
+    hidden layers of 64) on 'cellwise' at the 64k fluid, weights from a
+    seed: validated by the probe, K1's generic form against the planes
+    route (autograd, in row chunks) and its plain version at one state,
+    then 100 NVT steps with finite positions and forces (an untrained NN
+    is no fluid: no temperature gate)."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops.lane_fast import (near_cut_rows,
+                                                  planes_forces, route_errors)
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout
+
+    gen = cc.generic_pair_forces
+    model = htt.interop.build_model(htt.NeuralPairPotential(64), R_CUT,
+                                    "cuda")
+    seeded_weights(model, seed=0)
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    sim.set_state(state)
+    sim.check_syncs = True
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    gen.launches = 0
+    evals0 = sim.force_evals
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  device memory before: {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated")
+    t0 = time.perf_counter()
+    try:
+        sim.run(100)
+    except Exception as e:
+        raise RuntimeError(
+            f"the NN run failed ({e!r}); probe verdict "
+            f"{tfc._lane_fast_ok}: {tfc._lane_fast_report}") from e
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"  peak device memory of the run: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches = gen.launches
+    check(tfc._lane_fast_ok is True, "the probe did not validate "
+          f"NeuralPairPotential: {tfc._lane_fast_report}")
+    check(launches == sim.force_evals - evals0 and launches > 0,
+          f"NN generic-form launches {launches} != evaluations")
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(bool(torch.isfinite(sim.state.forces).all()), "non-finite forces")
+    th = sim.thermo()
+    plan = sim._layout.plan
+    print(f"  probe: validated; plan grid {plan.grid} cap {plan.capacity}; "
+          f"100 NVT steps in {dt:.2f} s (probe and its validation "
+          f"included), T={th['temperature']:.4f} (no gate: untrained); "
+          f"launches {launches} == evaluations")
+
+    layout = SlotLayout(plan, N, sim._lo, device="cuda")
+    slot, aux = slot_state(layout, sim.state)
+    lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    rec, f_g = generic_calls("NeuralPairPotential", layout, slot, aux,
+                             model, lanes)
+    ref = planes_forces(model, slot, aux, layout, lane_chunk=1 << 22)
+    near = near_cut_rows(slot, aux, layout, lane_chunk=1 << 22)
+    # forces only: the row's timed call left the energy column out
+    ok, why = route_errors(ref[:, :3], f_g[:, :3], near)
+    print(f"  K1 generic vs the planes route (autograd), forces, "
+          f"the probe's rule: max err per column "
+          f"{[round(float(e), 6) for e in why.get('err', [])]}, limits "
+          f"{[round(float(v), 6) for v in why.get('limit', [])]}, "
+          f"{why.get('rows_at_the_cut')} rows with a lane at the cut left "
+          f"out")
+    check(ok, f"NN: generic form disagrees with the planes route: {why}")
+    rec["launches"] = launches
+    return rec
+
+
+def phase_direct(state):
+    """LJPotential(64) with nlist='direct' at the 64k fluid: its forces
+    against the packed K3 route on the same state, then a timed
+    run(500)."""
+    from hoomd_tf_tpu_torch.ops.box import box_size
+
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    sim.set_state(state)
+    sim.check_syncs = True
+    htt.tfcompute(htt.LJPotential(64)).attach(sim, r_cut=R_CUT,
+                                              nlist="direct")
+    build = sim._packed_build()
+    check(build.method == "direct", f"'direct' resolved to {build.method}")
+    grid, cap = build.plan
+    st = sim.state
+    planes, ovf = build(st.positions4, box_size(st.box))
+    check(not bool(ovf), "direct planes overflowed")
+    ref = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    ref.set_state(state)
+    htt.tfcompute(htt.LJPotential(128)).attach(ref, r_cut=R_CUT)
+    rb = ref._packed_build()
+    check(rb.method == "pallas", "the reference did not take K3")
+    nl, ovf = rb(st.positions4, box_size(st.box))
+    n_nb = int((nl[..., :3] != 0).any(-1).sum(1).max())
+    check(not bool(ovf) and n_nb < 128, f"K3 list full ({n_nb})")
+    f_d, _ = sim._eval_model(st, planes)
+    f_k, _ = ref._eval_model(st, nl)
+    # one function on both routes: a PairModel's r2-based compute
+    inputs = [st.positions4, st.box]
+    g_d = make_model(64)([planes] + inputs)[0]
+    g_k = make_model(128)([nl] + inputs)[0]
+    torch.cuda.synchronize()
+    err = compare("direct planes vs packed K3 list (NN 128), the LJ "
+                  "PairModel, forces+energy", g_d, g_k)
+    # LJPotential: nlist_rinv adds the reference's 3e-6 to r on a packed
+    # list and takes an rsqrt of the offset components on planes (as the
+    # JAX package does), ~4e-5 of each pair force apart: the probe's rule
+    e = (f_d - f_k).abs().amax(0)
+    lim = 2e-4 + 2e-3 * f_k.abs().amax(0)
+    print(f"  direct vs K3, LJPotential: max err per column "
+          f"{[round(float(v), 6) for v in e]} (limits "
+          f"{[round(float(v), 5) for v in lim]})")
+    check(bool((e <= lim).all()), "LJPotential: direct disagrees with K3")
+    del planes, nl
+    sim.run(50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(500)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    th = sim.thermo()
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(1.1 < th["temperature"] < 1.9, f"not a healthy kT=1.5 fluid: {th}")
+    print(f"  plan grid {grid} cap {cap}: planes [{N}, {27 * cap}]; max "
+          f"neighbors {n_nb}; T={th['temperature']:.4f}; no host sync in "
+          f"the step loop")
+    print(f"  steps/s {500 / dt:.2f} (timed run(500), N={N}) on "
+          f"{smi_line()} -- info, not a claim")
+    return err
 
 
 def phase_kernels():
@@ -971,11 +1304,13 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
-    sources = ["cellwise_half", "proxy_bwd", "nlist_select"]
+    sources = ["cellwise_half", "cellwise_generic", "proxy_bwd",
+               "nlist_select"]
     # one nvcc per source, started together
     with ThreadPoolExecutor(len(sources)) as ex:
         list(ex.map(_build.build_shared_library, sources))
     cc._library()
+    cc._generic_library()
     pc._library()
     nc._library()
     print(f"[2 build] built in {time.perf_counter() - t0:.2f} s")
@@ -1007,6 +1342,15 @@ def main():
 
     print("[6 packed] 64k generic SimModel on the packed path (K3)")
     k3 = phase_packed()
+
+    print("[7 generic] 64k LJPotential on 'cellwise': the probe and K1's "
+          "generic form")
+    gsim, k1_gen = phase_generic()
+    torch.cuda.empty_cache()
+    print("[8 nn] 64k NeuralPairPotential (RBF 32, 2 x 64) on 'cellwise'")
+    k1_nn = phase_nn(gsim.state)
+    print("[9 direct] 64k LJPotential on nlist='direct'")
+    phase_direct(gsim.state)
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -1017,6 +1361,15 @@ def main():
         dict(name="K1 half-stencil pair forces, Chebyshev-proxy form "
                   "(half_stencil_pair_forces)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu", **k1_px),
+        dict(name="K1 half-stencil pair forces, generic form, LJPotential's "
+                  "synthesized pair function (generic_pair_forces; ms: the "
+                  "whole call with the pair function)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu", **k1_gen),
+        dict(name="K1 half-stencil pair forces, generic form, "
+                  "NeuralPairPotential's synthesized pair function "
+                  "(generic_pair_forces; ms: the whole call with the pair "
+                  "function)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu", **k1_nn),
         dict(name="K2 Chebyshev-proxy backward moments "
                   "(proxy_bwd_moments)",
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",

@@ -13,14 +13,21 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   :class:`Simulation` running NVE, NVT or a Minimize quench, with the
   pair forces from the hand-written Hopper kernel K1 on a CUDA device;
 - online training of a Chebyshev-proxy NN pair potential during live MD
-  (``attach(train=True)``), whose gradient runs in kernel K2.
+  (``attach(train=True)``), whose gradient runs in kernel K2;
+- a generic SimModel on ``nlist='cellwise'`` (the ready-made
+  :class:`LJPotential`, :class:`TrainableLJ`, :class:`NeuralPairPotential`
+  among them): validated lane-separable, its pair function runs in K1's
+  generic form, else on the masked candidate planes; and the wide-direct
+  mode ``nlist='direct'`` (:class:`NlistPlanes`, no selection).
 """
 
 from .ops import (Cellwise, CellList, box_size, wrap_vector, nlist_rinv,
                   safe_norm, masked_nlist, divide_no_nan, multiply_no_nan,
                   compute_nlist_forces, compute_positions_forces,
-                  compute_nlist, nlist_from_positions, cell_list_nlist)
-from .models import SimModel, PairModel, Dense
+                  compute_nlist, nlist_from_positions, cell_list_nlist,
+                  NlistPlanes, direct_cell_planes, compute_rdf)
+from .models import (SimModel, PairModel, Dense, RBFExpansion, LJPotential,
+                     TrainableLJ, NeuralPairPotential)
 from . import ops
 from . import models
 from . import md
@@ -32,4 +39,6 @@ __all__ = ["Simulation", "tfcompute", "PairModel", "SimModel", "Dense",
            "wrap_vector", "nlist_rinv", "safe_norm", "masked_nlist",
            "divide_no_nan", "multiply_no_nan", "compute_nlist_forces",
            "compute_positions_forces", "compute_nlist",
-           "nlist_from_positions", "cell_list_nlist"]
+           "nlist_from_positions", "cell_list_nlist", "NlistPlanes",
+           "direct_cell_planes", "compute_rdf", "RBFExpansion",
+           "LJPotential", "TrainableLJ", "NeuralPairPotential"]

@@ -72,6 +72,7 @@
 
 #include <cuda_runtime.h>
 
+#include "half_stencil_home.cuh"
 #include "half_stencil_stage.cuh"
 
 namespace {
@@ -80,6 +81,8 @@ using htf::HalfGeom;
 using htf::kHalf;
 using htf::kStageInts;
 using htf::kThreads;
+using htf::Channels;
+using htf::half_stencil_home;
 
 // LJ family: read straight from the float4 table in global memory.
 struct LJForm {
@@ -164,12 +167,6 @@ struct ChebForm {
     s = -su * u * u;
     return true;
   }
-};
-
-template <bool ENERGY, bool VIRIAL>
-struct Channels {
-  static constexpr int kForce = ENERGY ? 1 : 0;
-  static constexpr int kCount = 3 + (ENERGY ? 1 : 0) + (VIRIAL ? 6 : 0);
 };
 
 // The channel products of the lane (row q, candidate g); false (and `p`
@@ -293,60 +290,6 @@ half_stencil_forces(const float* __restrict__ pos,
     const size_t out = static_cast<size_t>(t) * n_slots + home + (tag - t * cap);
 #pragma unroll
     for (int k = 0; k < NCH; ++k) sums[k * kHalf * n_slots + out] = acc[k];
-  }
-}
-
-// One thread per slot: the Newton push-back and the finish.
-template <bool ENERGY, bool VIRIAL>
-__global__ void __launch_bounds__(kThreads)
-half_stencil_home(const float* __restrict__ sums,
-                  const float* __restrict__ valid, HalfGeom g, int n_slots,
-                  float4* __restrict__ forces4, float* __restrict__ virial) {
-  using Ch = Channels<ENERGY, VIRIAL>;
-  constexpr int NCH = Ch::kCount;
-  constexpr int OF = Ch::kForce;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_slots) return;
-  const float v = valid[i];
-  float acc[NCH];
-#pragma unroll
-  for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-  if (v != 0.f) {
-    const size_t plane = static_cast<size_t>(n_slots);
-    const int c = i / g.cap, r = i - c * g.cap;
-#pragma unroll
-    for (int k = 0; k < NCH; ++k) {
-      const bool energy = ENERGY && k == 0;
-      const float cf = energy ? 0.5f : (k < OF + 3 ? 2.0f : -1.0f);
-      acc[k] = cf * sums[k * kHalf * plane + i];
-    }
-    for (int t = 1; t < kHalf; ++t) {
-      const size_t src = static_cast<size_t>(htf::shifted_cell(g, c, t, -1)) *
-                             g.cap + r;
-#pragma unroll
-      for (int k = 0; k < NCH; ++k) {
-        const bool energy = ENERGY && k == 0;
-        const float cb = energy ? 0.5f : (k < OF + 3 ? -2.0f : -1.0f);
-        acc[k] = acc[k] + cb * sums[(k * kHalf + t) * plane + src];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NCH; ++k) acc[k] = acc[k] * v;
-  }
-  forces4[i] = make_float4(acc[OF], acc[OF + 1], acc[OF + 2],
-                           ENERGY ? acc[0] : 0.f);
-  if (VIRIAL) {
-    // channels xx, yy, zz, xy, xz, yz -> the symmetric 3x3, row major
-    float* w = virial + static_cast<size_t>(i) * 9;
-    w[0] = acc[OF + 3];
-    w[1] = acc[OF + 6];
-    w[2] = acc[OF + 7];
-    w[3] = acc[OF + 6];
-    w[4] = acc[OF + 4];
-    w[5] = acc[OF + 8];
-    w[6] = acc[OF + 7];
-    w[7] = acc[OF + 8];
-    w[8] = acc[OF + 5];
   }
 }
 

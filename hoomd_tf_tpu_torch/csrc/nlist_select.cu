@@ -326,7 +326,10 @@ nlist_select_kernel(const K3Params p, const float4* __restrict__ slots,
   }
 }
 
-int g_smem_attr = 48 * 1024;  // the kernel's dynamic shared memory cap
+// the kernel's dynamic shared memory cap: 48 KB less its static array,
+// since a launch whose static and dynamic bytes together pass 48 KB needs
+// the opt-in attribute
+int g_smem_attr = 48 * 1024 - static_cast<int>(sizeof(int)) * kMaxWarps;
 
 }  // namespace
 

@@ -1,8 +1,9 @@
 """tfcompute, which attaches a model to a simulation (PyTorch port of
-the JAX package's ``tfcompute``): a generic SimModel on a packed neighbor list
+the JAX package's ``tfcompute``): any SimModel on a packed neighbor list
 (``nlist=None``/``'auto'``, ``'n2'``, ``'cell'``, ``'pallas'`` or a
-``CellList``), and a PairModel on ``nlist='cellwise'``, online training
-included."""
+``CellList``), on the wide-direct planes (``'direct'``) or on the
+slot-resident cellwise mode (``'cellwise'``), and online training of a
+Chebyshev-proxy PairModel on ``'cellwise'``."""
 
 import numpy as np
 import torch
@@ -10,9 +11,12 @@ import torch
 from .models.pair import PairModel
 from .ops.cell_list import CellList
 from .ops.cellwise import Cellwise
+from .ops.direct import NlistPlanes
 
 # what each refusal names: the part of the port that brings it
 _LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1)"
+_TRAINING = ("the rest of online training, a later slice of the PyTorch "
+             "port (ROADMAP.md Queue 1 item 4)")
 
 __all__ = ["tfcompute"]
 
@@ -35,6 +39,12 @@ class tfcompute:
         self.opt_state = None
         self.trainable_idx = None
         self._train_energy = None
+        #: the lane-separability probe's verdict on a generic SimModel on
+        #: 'cellwise' (set by the first run(); False for a PairModel)
+        self._lane_fast_ok = False
+        #: why: the validation's per-column errors and limits, or the
+        #: model's exception
+        self._lane_fast_report = {}
 
     def attach(self, sim, nlist=None, r_cut=0, period=1, batch_size=None,
                train=False, save_output_period=None):
@@ -45,20 +55,28 @@ class tfcompute:
             selecting with kernel K3 on a CUDA device; the dense build
             otherwise), ``'n2'`` (dense O(N^2)), ``'cell'`` or a
             :class:`.ops.cell_list.CellList` (the sort method),
-            ``'pallas'`` (kernel K3; its plain version on the CPU), or
-            ``'cellwise'`` / a :class:`.ops.cellwise.Cellwise` (a
-            PairModel on the slot-resident analytic route).
+            ``'pallas'`` (kernel K3; its plain version on the CPU),
+            ``'direct'`` (the model takes the masked 27-cell candidate
+            planes, :class:`.ops.direct.NlistPlanes`, with no
+            selection), or ``'cellwise'`` / a
+            :class:`.ops.cellwise.Cellwise` (slot-resident: a PairModel,
+            or a generic SimModel the lane-separability probe validates,
+            on kernel K1; any other SimModel on the planes route).
         :param r_cut: cutoff radius, or an ``[ntypes, ntypes]`` matrix
             (negative = never neighbors).
         :param train: train the model online each step against the
             simulation's built-in forces as labels (the reference's
             hoomd2tf mode; cellwise proxy PairModels only); needs
             ``model.compile`` first.
+
+        The probe's verdict on a generic SimModel is ``_lane_fast_ok``
+        after the first ``run()``.
         """
         if sim is None or sim.state is None:
             raise RuntimeError("Must initialize the simulation first")
         cellwise = nlist == "cellwise" or isinstance(nlist, Cellwise)
-        packed = nlist in (None, "auto", "n2", "cell", "pallas") or \
+        packed = nlist in (None, "auto", "n2", "cell", "pallas",
+                           "direct") or \
             (isinstance(nlist, CellList) and not cellwise)
         if not (cellwise or packed):
             raise NotImplementedError(
@@ -70,19 +88,18 @@ class tfcompute:
         if getattr(self.model, "_map_nlist", False):
             raise NotImplementedError(
                 f"mapped neighbor lists arrive with {_LATER}")
-        if cellwise and not isinstance(self.model, PairModel):
-            raise NotImplementedError(
-                "nlist='cellwise' runs a PairModel (the analytic route); a "
-                "generic SimModel runs on a packed neighbor list "
-                "(nlist=None, 'n2', 'cell' or 'pallas')")
         if train and not cellwise:
             raise NotImplementedError(
                 "online training on a packed neighbor list arrives with "
-                f"{_LATER}; train a proxy PairModel on nlist='cellwise'")
+                f"{_TRAINING}; train a proxy PairModel on nlist='cellwise'")
+        if train and not isinstance(self.model, PairModel):
+            raise NotImplementedError(
+                "online training of a generic SimModel (the lane-fast and "
+                f"planes training routes) arrives with {_TRAINING}")
         if train and not self.model.proxy_degree:
             raise NotImplementedError(
                 "online training of a PairModel without proxy_degree (the "
-                f"non-proxy NN row) arrives with {_LATER}")
+                f"non-proxy NN row) arrives with {_TRAINING}")
         r_arr = np.asarray(r_cut, dtype=np.float64)
         if r_arr.ndim == 0:
             self.r_cut = float(r_arr)
@@ -120,6 +137,13 @@ class tfcompute:
         sim.tfc = self
         sim.replan()
         return self
+
+    def config_key(self):
+        """What the lane-separability probe's cached verdict depends on
+        besides the plan and the model's trace version."""
+        rcm = (None if self.r_cut_matrix is None else
+               self.r_cut_matrix.tobytes())
+        return (id(self.model), self.r_cut, rcm, self.train)
 
     @property
     def optimizer(self):
@@ -185,8 +209,12 @@ class tfcompute:
         return self.sim.state.positions4.detach().cpu().numpy()
 
     def get_nlist_array(self):
-        """The packed ``[N, NN, 4]`` neighbor list of the current state."""
-        return self.sim._build_nlist(self.sim.state).detach().cpu().numpy()
+        """The packed ``[N, NN, 4]`` neighbor list of the current state
+        (``'direct'``: the planes, stacked ``[N, 27 cap, 4]``)."""
+        nlist = self.sim._build_nlist(self.sim.state)
+        if isinstance(nlist, NlistPlanes):
+            nlist = nlist.stack()  # 'direct': the planes as [N, C, 4]
+        return nlist.detach().cpu().numpy()
 
     def get_forces_array(self):
         """The net forces ``[N, 4]`` (energy in column 4)."""

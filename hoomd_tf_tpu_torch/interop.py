@@ -6,6 +6,11 @@ Both directions of a comparison start from the same numbers: a JAX
 ``get_weights()`` list is copied into the port's module. Nothing here
 imports JAX.
 
+The ready-made potentials carry across the same way: ``TrainableLJ``'s
+``epsilon`` and ``sigma``, and ``NeuralPairPotential``'s hidden kernels
+and biases then its output kernel, each after the two bookkeeping
+variables, in the JAX package's order.
+
 Both packages build ``Dense`` layers lazily, at the first call, so a
 model's weight list is complete only after one call: build the port's
 model with :func:`build_model` (one call at a proxy's nodes, or on a zero

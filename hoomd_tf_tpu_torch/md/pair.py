@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops.cellwise_cuda import LJForm
+from ..ops.direct import NlistPlanes
 from ..ops.forces import compute_nlist_forces
 from ..ops.numerics import nlist_rinv
 
@@ -26,8 +27,10 @@ def _param(v, like):
 
 def _cached(obj, like):
     """``(epsilon, sigma)`` of ``obj`` as tensors on ``like``'s device and
-    type, copied once (a host-to-device copy in the step loop would be a
-    host sync)."""
+    type (``like`` a tensor or planes), copied once (a host-to-device copy
+    in the step loop would be a host sync)."""
+    if isinstance(like, NlistPlanes):
+        like = like.dx
     key = (str(like.device), like.dtype)
     cache = obj.__dict__.setdefault("_on", {})
     if key not in cache:
@@ -37,7 +40,8 @@ def _cached(obj, like):
 
 def pair_force_from_energy_fn(pair_energy_fn):
     """Lift a per-pair energy ``u(1/r, type_i, type_j)`` (already
-    half-counted) into a force compute over a packed neighbor list,
+    half-counted) into a force compute over a packed neighbor list or
+    planes,
     through the callable form of :func:`..ops.forces.
     compute_nlist_forces`. Padded slots (``r == 0``) must give exactly
     zero energy and slope: use :func:`..ops.numerics.nlist_rinv`-style
@@ -48,7 +52,8 @@ def pair_force_from_energy_fn(pair_energy_fn):
 
         def total_energy(nl):
             rinv = nlist_rinv(nl)
-            tj = nl[:, :, 3].to(torch.int32)
+            tj = (nl.type if isinstance(nl, NlistPlanes)
+                  else nl[:, :, 3]).to(torch.int32)
             return torch.sum(pair_energy_fn(rinv, types_i[:, None], tj),
                              dim=1)
 

@@ -13,12 +13,19 @@ their ``__call__`` on the same list. A cell capacity overflow rolls the
 run back and re-plans with a larger capacity floor; a model's
 ``check_nlist`` flag is read in the run's one readback.
 
-The other route is the pair fast route of the cellwise mode. Pair forces
-come from :func:`..ops.cellwise.analytic_pair_forces` -- kernel K1 on a
-CUDA device, the full-stencil tensor form on the CPU (as the JAX package
-runs the XLA form off the TPU) -- for the built-in forces
-(``add_force``: ``md.LennardJones``, ``md.WCA``) and for an attached
-:class:`..models.pair.PairModel`. The state lives in cell-slot order
+The particle-order route also takes ``nlist='direct'``: the model gets
+the masked 27-cell candidate planes (:mod:`..ops.direct`), no selection.
+
+The other route is the cellwise mode. Pair forces come from
+:func:`..ops.cellwise.analytic_pair_forces` -- kernel K1 on a CUDA device
+(a pair form, or the generic form for any other pair function), the
+full-stencil tensor form on the CPU (as the JAX package runs the XLA form
+off the TPU) -- for the built-in forces (``add_force``:
+``md.LennardJones``, ``md.WCA``), for an attached
+:class:`..models.pair.PairModel`, and for a generic SimModel that the
+lane-separability probe (:mod:`..ops.lane_fast`) validated, through its
+synthesized pair function; a generic SimModel the probe rejects runs on
+the masked planes (``SlotLayout.planes``), forces by autograd. The state lives in cell-slot order
 during ``run()``; the slot assignment is rebuilt unconditionally every K
 steps (the static repack schedule), and the Verlet criterion still runs
 every step as a staleness bit.
@@ -60,12 +67,20 @@ from .._device import resolve_device
 from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
 from ..ops.box import box_size, check_orthorhombic
+from ..ops.cellwise_cuda import LaneBudget, lane_budget
+from ..ops.direct import DirectPlanes
 from ..ops.nlist import DenseNlist
+from ..models.pair import PairModel
 
 __all__ = ["Simulation"]
 
 # the neighbor build is not made yet (``None`` is a made "no build")
 _UNBUILT = object()
+
+# planes lanes per model call of the probe's validation on the card: the
+# whole 27-block planes of the 64k fluid are 2.4e8 lanes, ~1 GB per
+# float32 plane, and an NN potential holds hundreds of floats per lane
+_PROBE_LANES = 1 << 22
 
 
 @contextlib.contextmanager
@@ -117,7 +132,8 @@ class Simulation:
         #: run the step loop under set_sync_debug_mode("error")
         self.check_syncs = False
         #: pair-force evaluations made so far (built-in and model forces,
-        #: loop steps and refreshes): on CUDA, each one launches K1
+        #: loop steps, refreshes and the lane-separability probe's
+        #: validation): on CUDA, each one launches K1
         self.force_evals = 0
         #: training updates made so far: on CUDA, each one launches K2
         self.train_steps = 0
@@ -260,31 +276,34 @@ class Simulation:
         p = self._nlist_params()
         return p is not None and _is_cellwise(p[2])
 
-    def _model_has_form(self):
-        model = self.tfc.model
-        return bool(model.proxy_degree) or \
-            model.pair_kernel_form() is not None
-
     def _kernel_eligible(self):
         """Will kernel K1 be the hot loop? (The planner then costs the
         14-block candidate width, like ``_pallas_eligible`` on a TPU; on
         the card every lane pass of a train step is a 14-wide kernel
-        too.)"""
+        too.) A PairModel runs K1 in a pair form or the generic form; a
+        generic SimModel once the lane-separability probe validated it
+        (the planes route is 27 blocks wide)."""
         if self.stencil == "kernel":
             return True
         if self.stencil != "auto" or self.device.type != "cuda":
             return False
-        return self.tfc is None or self.tfc.train or self._model_has_form()
+        tfc = self.tfc
+        if tfc is None or tfc.train or isinstance(tfc.model, PairModel):
+            return True
+        return bool(getattr(tfc, "_lane_fast_ok", False))
 
     def _model_lane_cost_scale(self):
         """Relative per-lane cost of the model's pair evaluation against
-        the LJ form the planner's lane cost stands for. For a proxy this
+        the LJ form the planner's lane cost stands for: 1, also for a
+        synthesized pair function (no measurement on the card prices it
+        yet; the JAX package counts its jaxpr's primitives, which the port
+        does not have). For a proxy this
         is an operation count, not a measurement: two Clenshaw series of
         ~3 operations per term against LJ's ~10 inside the cut, times 3
         in training (the labels, the proxy primal and K2's moment pass),
         the shape of the JAX package's ``_model_lane_cost_scale``."""
         tfc = self.tfc
-        if tfc is None or not tfc.model.proxy_degree:
+        if tfc is None or not getattr(tfc.model, "proxy_degree", None):
             return 1.0
         scale = max(1.0, (6.0 * tfc.model.proxy_degree + 10.0) / 10.0)
         return scale * 3.0 if tfc.train else scale
@@ -350,12 +369,18 @@ class Simulation:
             form.tensor(self.device)
             self._builtin_forms.append(form)
         form = None
-        if self.tfc is not None and not self.tfc.model.proxy_degree:
-            form = self.tfc.model.pair_kernel_form()
+        model = self.tfc.model if self.tfc is not None else None
+        if isinstance(model, PairModel) and not model.proxy_degree:
+            form = model.pair_kernel_form()
             if form is not None:
                 form = form.kernel_form()
                 form.tensor(self.device)
         self._form = form
+        # the list of K1's generic form (a PairModel without a form, a
+        # probed SimModel); an overflow self-heal raises its floor
+        self._lanes = LaneBudget(
+            max(lane_budget(plan, self.state.n_particles),
+                getattr(self, "_lane_floor", 0)), self.device)
         self._layout = layout
         return layout
 
@@ -449,7 +474,26 @@ class Simulation:
             pair_fn, needs_virial=want_virial, min_r2=min_r2,
             with_types=with_types, rcut_matrix=layout.rc2_tab,
             stencil=self.stencil, needs_energy=needs_energy, form=form,
-            geometry=layout.geometry)
+            geometry=layout.geometry, lanes=self._lanes)
+
+    def _count_eval(self):
+        self.force_evals += 1
+
+    def _planes_eval(self, st, aux, layout, want_virial):
+        """The model on the cellwise planes route: its outputs on the
+        masked 27-block planes, forces by autograd (a generic SimModel
+        the lane-separability probe did not validate)."""
+        model = self.tfc.model
+        out = model([layout.planes(st, aux), st.positions4, st.box],
+                    training=False)
+        valid = aux["valid"][:, None]
+        f = out[0].detach()
+        if f.shape[-1] == 3:
+            f = torch.cat([f, torch.zeros_like(f[:, :1])], dim=-1)
+        w = None
+        if want_virial and model.virial and len(out) > 1:
+            w = out[1].detach() * valid[:, :, None]
+        return f * valid, w
 
     def _builtins(self, st, aux, layout, needs_energy, want_virial,
                   subset=None):
@@ -471,21 +515,27 @@ class Simulation:
         """The forces that drive the dynamics: the built-ins plus, outside
         training, the attached model."""
         f, w = self._builtins(st, aux, layout, needs_energy, want_virial)
+        fm = wm = None
         if route.model_fn is not None:
             m = self.tfc.model
             fm, wm = self._pair_eval(
                 st, aux, layout, route.model_fn, route.model_form,
                 needs_energy, bool(want_virial and m.virial),
-                m.pair_with_types, m.min_r2)
+                route.with_types, route.min_r2)
+        elif route.planes:
+            fm, wm = self._planes_eval(st, aux, layout, want_virial)
+        if fm is not None:
             f = fm if f is None else f + fm
             if wm is not None:
                 w = wm if w is None else w + wm
         return f, w
 
-    def _route(self, layout):
+    def _route(self, layout, st, aux):
         """What one run() evaluates: the model's pair function and kernel
         form (a proxy is fitted once per run: its weights do not change
-        outside training), or the trainer; and the virial flags."""
+        outside training; a generic SimModel's is synthesized once the
+        probe validated it, else the planes route), or the trainer; and
+        the virial flags."""
         tfc = self.tfc
         model = tfc.model if tfc is not None else None
         r = _Route()
@@ -504,6 +554,15 @@ class Simulation:
             subset = tfc.reference_forces
             if subset and len(subset) != len(self.forces):
                 r.label_subset = list(subset)
+        elif not isinstance(model, PairModel):
+            if not model.output_forces:
+                return r
+            if self._probe_lane_fast(layout, st, aux):
+                from ..ops.lane_fast import synthesize_pair_fn
+                r.model_fn = synthesize_pair_fn(model, st.box)
+                r.with_types, r.min_r2 = True, 1e-4
+            else:
+                r.planes = True
         elif model.proxy_degree:
             fit, evaluate = model.proxy_parts(layout.plan.r_cut,
                                               self.device)
@@ -517,8 +576,50 @@ class Simulation:
         else:
             r.model_fn, r.model_form = model.pair_energy_and_slope, \
                 self._form
+        if isinstance(model, PairModel):
+            r.with_types, r.min_r2 = model.pair_with_types, model.min_r2
         return r
 
+    def _probe_lane_fast(self, layout, st, aux):
+        """Is the attached generic SimModel lane-separable on this state
+        (:mod:`..ops.lane_fast`)? The verdict is kept on the driver
+        (``tfc._lane_fast_ok``, why in ``tfc._lane_fast_report``) and
+        cached per attach configuration, plan
+        and ``model._trace_version``; ``HTF_LANE_FAST=0`` turns the probe
+        off (the planes route). On the card the validation compares
+        against K1's generic form, the route the model then runs, and
+        runs the model's planes in row chunks."""
+        import os
+        from ..ops.lane_fast import synthesize_pair_fn, validate_pair_fn
+        tfc = self.tfc
+        model = tfc.model
+        if os.environ.get("HTF_LANE_FAST", "1") == "0":
+            tfc._lane_fast_ok = False
+            return False
+        key = (tfc.config_key(), layout.plan, model._trace_version,
+               self.stencil, str(self.device))
+        cache = getattr(tfc, "_lane_fast_cache", None)
+        if cache is not None and cache[0] == key:
+            tfc._lane_fast_ok = cache[1]
+            return cache[1]
+        stencil = self.stencil
+        if stencil == "auto":
+            stencil = "kernel" if self.device.type == "cuda" else "full"
+        report = {}
+        ok = validate_pair_fn(
+            model, synthesize_pair_fn(model, st.box), st, aux, layout,
+            stencil, lanes=self._lanes,
+            lane_chunk=_PROBE_LANES if self.device.type == "cuda" else None,
+            on_eval=self._count_eval, report=report)
+        tfc._lane_fast_ok = ok
+        tfc._lane_fast_report = report
+        tfc._lane_fast_cache = (key, ok)
+        if ok:
+            # the plan was costed for the planes route's 27-block width;
+            # K1's is 14: re-judge it at the next run() boundary
+            self._replan_check_step = -1
+            layout._replan_throttle = 500
+        return ok
     def _step(self, st, aux, flags, layout, route, i):
         """One MD step on slot state (slim: no energy column, and no
         virial unless something in the loop reads it)."""
@@ -595,16 +696,6 @@ class Simulation:
             self._vmax_hist = []
             self._static_K_integ = id(self.integrator)
         K = self._choose_repack_interval(layout)
-        route = self._route(layout)
-        tr = route.trainer
-        snap = None
-        if tr is not None:
-            # the optimizer updates the weights in place: keep what a
-            # rollback restores, and a device buffer for the losses
-            snap = tr.snapshot()
-            tr.losses = torch.zeros((n,), dtype=torch.float32,
-                                    device=self.device)
-
         packed = self._packed
         if packed is not None and packed[0] is self.state and \
                 packed[1] is layout:
@@ -615,6 +706,16 @@ class Simulation:
             aux = {**aux, "vmax": layout._vmax(st.velocities)}
         else:
             st, aux = layout.pack(self.state)
+        route = self._route(layout, st, aux)
+        tr = route.trainer
+        snap = None
+        if tr is not None:
+            # the optimizer updates the weights in place: keep what a
+            # rollback restores, and a device buffer for the losses
+            snap = tr.snapshot()
+            tr.losses = torch.zeros((n,), dtype=torch.float32,
+                                    device=self.device)
+        self._lanes.reset()
         start_step = self.state.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
         with _sync_guard(self.check_syncs):
@@ -633,9 +734,27 @@ class Simulation:
             st.forces = f4
             if route.needs_virial and w is not None:
                 st.virial = w
+            # bit 3: K1's generic-form list was too short in some call
+            flags = flags | (self._lanes.overflow().to(torch.int32) << 3)
         flags_now, occ_now, vmax_now, losses = self._fetch_run_scalars(
             flags, aux, None if tr is None else tr.losses)
         overflow, stale = bool(flags_now & 1), bool(flags_now & 2)
+        short = bool(flags_now & 8)
+        if short and tr is not None:
+            tr.restore(snap)
+        if short:
+            # forces of the cells that did not fit were left out: roll
+            # back and re-run with a list sized from what was needed
+            self._lanes.grow()
+            self._lane_floor = self._lanes.budget
+            if allow_retry:
+                warnings.warn(
+                    f"the pair list of K1's generic form was too short; "
+                    f"re-running these {n} steps with "
+                    f"{self._lanes.budget} lanes")
+                return False
+            raise RuntimeError("the pair list of K1's generic form stayed "
+                               "too short over the run's retries")
         if (overflow or stale) and tr is not None:
             # a failed attempt commits no training, retried or not (the
             # JAX package commits model values only after a clean run)
@@ -723,15 +842,29 @@ class Simulation:
         return self._nlist_build
 
     def _make_nlist_build(self, r_cut, rc_matrix, method, NN):
-        """A :class:`..ops.cell_list.CellNlist` or a
-        :class:`..ops.nlist.DenseNlist`, picked as the JAX package's
+        """A :class:`..ops.cell_list.CellNlist`, a
+        :class:`..ops.nlist.DenseNlist` or (``'direct'``) a
+        :class:`..ops.direct.DirectPlanes`, picked as the JAX package's
         ``_make_nlist_builder`` picks: ``build(pos4, box_lengths) ->
-        (nlist [N, NN, 4], overflow or None)``, with ``plan`` and
-        ``method``."""
+        (nlist [N, NN, 4] or planes, overflow or None)``, with ``plan``
+        and ``method``."""
         lengths = np.asarray(self._lengths, dtype=np.float64)
         n = self.state.n_particles
         config = method if isinstance(method, _cl.CellList) else \
             _cl.CellList()
+        if method == "direct":
+            # the wide-direct mode: the model takes the masked 27-cell
+            # candidate planes (ops/direct.py), with no selection
+            grid, capacity = _cl.plan(n, lengths, r_cut, config)
+            if grid is None:
+                raise ValueError(f"Box {lengths} too small for the direct "
+                                 f"mode at r_cut={r_cut}")
+            if config.capacity is None:
+                occ = _cl.max_occupancy(self.state.positions, lengths, grid)
+                capacity = max(capacity, int(np.ceil(occ * 1.3)) + 1)
+            capacity = max(capacity, getattr(self, "_cl_capacity_floor", 0))
+            return DirectPlanes(grid, capacity, r_cut, self.device,
+                                rc_matrix)
         want_cell = isinstance(method, _cl.CellList) or \
             method in ("cell", "pallas")
         sel = "pallas" if method == "pallas" else "sort"
@@ -887,6 +1020,9 @@ class _Route:
     :meth:`Simulation._route`)."""
     model_fn = None
     model_form = None
+    with_types = False
+    min_r2 = 1e-4
+    planes = False
     trainer = None
     label_subset = None
     virial_in_loop = False

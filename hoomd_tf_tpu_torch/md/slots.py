@@ -4,6 +4,8 @@ neighbor mode (PyTorch port of ``hoomd_tf_tpu/md/slots.py``, static box).
 - ``pack`` / ``unpack`` convert at ``run()`` boundaries;
 - ``needs_rebuild`` (the Verlet criterion) and ``rebuild`` (the repack)
   run in the step loop every K steps;
+- ``planes`` gives the masked 27-block candidate planes (the cellwise
+  planes route of a generic SimModel);
 - ``ghost_pin`` keeps ghost slots parked at their cell centers with zero
   velocity; ``mask_rows`` zeroes ghost force/energy/virial rows.
 
@@ -157,6 +159,16 @@ class SlotLayout:
                    "occ_max": torch.maximum(aux["occ_max"], occ),
                    "vmax": torch.maximum(aux["vmax"], vm)}
         return new_state, new_aux
+
+    # ------------------------------------------------------------------
+    def planes(self, slot_state, aux, cells=None):
+        """Masked :class:`..ops.direct.NlistPlanes` of the current slot
+        positions (:func:`..ops.cellwise.cellwise_planes`), of the rows
+        of ``cells = (c0, c1)`` only when given."""
+        return cw.cellwise_planes(slot_state.positions, slot_state.types,
+                                  aux["valid"], self.plan,
+                                  rcut_matrix=self.rc2_tab, cells=cells,
+                                  lengths=self.geometry.lengths)
 
     # ------------------------------------------------------------------
     def ghost_pin(self, slot_state, aux):

@@ -2,6 +2,8 @@
 
 from .simmodel import SimModel
 from .pair import PairModel
-from .layers import Dense
+from .layers import Dense, RBFExpansion
+from .potentials import LJPotential, TrainableLJ, NeuralPairPotential
 
-__all__ = ["SimModel", "PairModel", "Dense"]
+__all__ = ["SimModel", "PairModel", "Dense", "RBFExpansion",
+           "LJPotential", "TrainableLJ", "NeuralPairPotential"]

@@ -1,12 +1,13 @@
-"""Layers of the PyTorch port (``Dense`` from
-``hoomd_tf_tpu/models/layers.py``; the others arrive with slice C)."""
+"""Layers of the PyTorch port (``Dense`` and ``RBFExpansion`` from
+``hoomd_tf_tpu/models/layers.py``; ``WCARepulsion`` and ``EDSLayer``
+arrive with the rest of online training, ROADMAP.md Queue 1)."""
 
 import numpy as np
 import torch
 
 from .module import Layer
 
-__all__ = ["Dense"]
+__all__ = ["Dense", "RBFExpansion"]
 
 # deterministic per-process init stream for layers given no generator
 _INIT_GENERATOR = torch.Generator().manual_seed(0)
@@ -69,3 +70,33 @@ class Dense(Layer):
         if self.activation is not None:
             y = self.activation(y)
         return y
+
+
+class RBFExpansion(Layer):
+    r"""SchNet-style Gaussian radial basis expansion (reference
+    ``layers.py:7-49``): rank-K distances in, rank K+1 out with a trailing
+    ``count`` axis, :math:`\exp(-(d - \mu)^2 / \gamma)` with the
+    centers :math:`\mu` evenly spaced on ``[low, high]`` and
+    :math:`\gamma` their spacing. Fixed centers, no weights."""
+
+    def __init__(self, low, high, count, name="rbf-layer"):
+        super().__init__(name=name)
+        self.low = low
+        self.high = high
+        self.count = int(count)
+        # jnp.linspace's float32 arithmetic: low (1 - f) + high f
+        f = torch.arange(self.count - 1, dtype=torch.float32) / \
+            (self.count - 1)
+        lo = torch.tensor(float(low), dtype=torch.float32)
+        hi = torch.tensor(float(high), dtype=torch.float32)
+        centers = torch.cat([lo * (1.0 - f) + hi * f, hi[None]])
+        self.register_buffer("centers", centers, persistent=False)
+        self.register_buffer("gap", centers[1] - centers[0],
+                             persistent=False)
+
+    def get_config(self):
+        return {"low": self.low, "high": self.high, "count": self.count}
+
+    def forward(self, inputs):
+        return torch.exp(-(inputs[..., None] - self.centers) ** 2 /
+                         self.gap)

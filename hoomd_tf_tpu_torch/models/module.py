@@ -30,17 +30,22 @@ class Layer(nn.Module):
         self.name = name or type(self).__name__.lower()
         self._layer_dtype = dtype
         self._weight_names = []
+        #: weight attribute -> constraint (see :meth:`add_weight`)
+        self.constraints = {}
 
     @property
     def dtype(self):
         return self._layer_dtype
 
     def add_weight(self, shape=(), initializer=None, trainable=True,
-                   dtype=None, name=None):
+                   dtype=None, name=None, constraint=None):
         """Create a weight tensor of ``shape``; ``initializer`` is a
         constant, an array, a callable ``shape -> array`` or ``None``
-        (zeros). ``name`` is accepted for JAX API parity. Returns the
-        registered parameter or buffer."""
+        (zeros). ``name`` is accepted for JAX API parity. ``constraint``
+        (a function of the weight's value), as in the JAX package, is
+        what training applies after an optimizer step; it is kept in
+        :attr:`constraints` (evaluation reads the weight as it is).
+        Returns the registered parameter or buffer."""
         dtype = dtype or self.dtype
         if initializer is None:
             value = torch.zeros(shape, dtype=dtype)
@@ -55,6 +60,8 @@ class Layer(nn.Module):
         else:
             self.register_buffer(attr, value)
         self._weight_names.append(attr)
+        if constraint is not None:
+            self.constraints[attr] = constraint
         return getattr(self, attr)
 
     @property

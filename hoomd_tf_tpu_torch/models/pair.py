@@ -154,13 +154,17 @@ class PairModel(SimModel):
             return evaluate.kernel_form(self.proxy_coeffs(r_cut, device))
 
     def compute(self, nlist, positions, box):
-        """The generic route on a packed ``[N, NN, 4]`` neighbor list:
-        the same physics as the analytic route, its forces by autodiff
-        (the neighbor modes other than ``'cellwise'`` take it)."""
+        """The generic route on a packed ``[N, NN, 4]`` neighbor list or
+        on planes: the same physics as the analytic route, its forces by
+        autodiff (the neighbor modes other than ``'cellwise'`` take it)."""
+        from ..ops.direct import NlistPlanes
         from ..ops.forces import compute_nlist_forces
-        n3 = nlist[..., :3]
-        r2 = torch.sum(n3 * n3, dim=-1)
-        tj = nlist[..., 3] if nlist.shape[-1] > 3 else None
+        if isinstance(nlist, NlistPlanes):
+            r2, tj = nlist.r2(), nlist.type
+        else:
+            n3 = nlist[..., :3]
+            r2 = torch.sum(n3 * n3, dim=-1)
+            tj = nlist[..., 3] if nlist.shape[-1] > 3 else None
         pad = r2 > 0
         r2s = torch.where(pad, torch.clamp_min(r2, self.min_r2),
                           torch.ones_like(r2))

@@ -8,7 +8,9 @@ forces when ``output_forces``, the second the virial when
 ``virial=True``. Tensor conventions are the reference's:
 
 - ``nlist``: ``[N, NN, 4]``, the minimum-image displacement to each
-  neighbor and the neighbor's type; all-zero rows pad short lists;
+  neighbor and the neighbor's type; all-zero rows pad short lists (or,
+  in the ``'direct'`` mode and the cellwise planes route,
+  :class:`..ops.direct.NlistPlanes`);
 - ``positions``: ``[N, 4]``, xyz and type;
 - ``box``: ``[3, 3]``, rows low, high and tilt.
 
@@ -87,6 +89,9 @@ class SimModel(Layer):
                         name="htf-batch-steps")
         self._optimizer = None
         self._loss = None
+        # bumped by retrace_compute: the engine's cached verdicts about
+        # compute (the lane-separability probe) are keyed on it
+        self._trace_version = 0
         self._setup_kwargs = dict(kwargs)
         self.setup(**kwargs)
 
@@ -110,26 +115,44 @@ class SimModel(Layer):
         :func:`..ops.forces.compute_positions_forces`."""
         raise AttributeError("You must implement compute in your subclass")
 
+    def retrace_compute(self):
+        """Invalidate what the engine derived from ``compute`` (the
+        lane-separability probe's verdict); call after mutating plain
+        Python state that ``compute`` reads (the JAX package's
+        ``retrace_compute``)."""
+        self._trace_version += 1
+
     def _check_nlist(self, nlist):
         """The reference's overflow check (``simmodel.py:216-224``), in
         the JAX package's traced form: ORs a device flag and never reads
         it back (tfcompute raises after the run's one readback)."""
-        x = nlist[:, :, 0]
+        from ..ops.direct import NlistPlanes
+        x = nlist.dx if isinstance(nlist, NlistPlanes) else nlist[:, :, 0]
         count = torch.amax(torch.sum((x > 0).to(torch.int32), dim=1))
         with torch.no_grad():
             self.nlist_overflow.logical_or_(count >= self.nneighbor_cutoff)
 
     def _prepare_args(self, inputs, training):
+        from ..ops.direct import NlistPlanes
         inputs = list(inputs)
-        args = [torch.as_tensor(a).to(self.dtype)
+        args = [a.map(lambda c: c.to(self.dtype))
+                if isinstance(a, NlistPlanes) else
+                torch.as_tensor(a).to(self.dtype)
                 for a in inputs[: self._arg_count]]
-        if self._arg_count >= 1 and args[0].ndim == 2:
+        planes = self._arg_count >= 1 and isinstance(args[0], NlistPlanes)
+        if self._arg_count >= 1 and not planes and args[0].ndim == 2:
             # flat [N*NN, 4] nlist -> [N, NN, 4]
             args[0] = args[0].reshape(-1, max(1, self.nneighbor_cutoff), 4)
         # the tensors compute differentiates against: detached leaves
-        # that require grad (the tape then ends at them)
+        # that require grad (the tape then ends at them); of planes, the
+        # three displacement components
         for i in range(min(2, self._arg_count)):
-            args[i] = args[i].detach().requires_grad_()
+            if i == 0 and planes:
+                p = args[0]
+                args[0] = NlistPlanes(*(c.detach().requires_grad_()
+                                        for c in p[:3]), p.type.detach())
+            else:
+                args[i] = args[i].detach().requires_grad_()
         if self._arg_count >= 3 and not args[2].is_cuda:
             # the reference's box-skew guard (simmodel.py:195); on a card
             # it would wait on the device, and the Simulation's box is
@@ -147,7 +170,8 @@ class SimModel(Layer):
         returns a tuple of its outputs. ``compute`` runs under grad mode
         whatever the caller's mode; the force gradients keep their graph
         only when ``training``."""
-        if torch.is_tensor(inputs):
+        from ..ops.direct import NlistPlanes
+        if torch.is_tensor(inputs) or isinstance(inputs, NlistPlanes):
             inputs = [inputs]
         args = self._prepare_args(inputs, training)
         with torch.enable_grad(), model_call(training):

@@ -3,20 +3,25 @@ numerics and autodiff forces of the generic model route (``numerics``,
 ``forces``); the dense and cell-list neighbor builds (``nlist``,
 ``cell_list``) with the selection kernel K3 (``nlist_cuda``); the
 cellwise neighbor machinery (``cellwise``) with its CUDA kernel K1
-(``cellwise_cuda``); the Chebyshev pair proxy (``chebyshev``) and the
+(``cellwise_cuda``: pair forms and the generic form); the wide-direct
+planes (``direct``), the lane-separability probe of generic models
+(``lane_fast``) and the radial distribution function (``rdf``); the Chebyshev pair proxy (``chebyshev``) and the
 online-training pair forces (``pair_train``) with their backward kernel
 K2 (``pair_train_cuda``)."""
 
 from .box import box_size, wrap_vector, make_box, box_from_lengths
 from .cellwise import Cellwise
 from .cell_list import CellList, cell_list_nlist
+from .direct import NlistPlanes, direct_cell_planes
 from .forces import compute_nlist_forces, compute_positions_forces
 from .nlist import compute_nlist, nlist_from_positions
 from .numerics import (divide_no_nan, masked_nlist, multiply_no_nan,
                        nlist_rinv, safe_norm)
+from .rdf import compute_rdf
 
 __all__ = ["box_size", "wrap_vector", "make_box", "box_from_lengths",
            "Cellwise", "CellList", "cell_list_nlist",
            "compute_nlist_forces", "compute_positions_forces",
            "compute_nlist", "nlist_from_positions", "divide_no_nan",
-           "masked_nlist", "multiply_no_nan", "nlist_rinv", "safe_norm"]
+           "masked_nlist", "multiply_no_nan", "nlist_rinv", "safe_norm",
+           "NlistPlanes", "direct_cell_planes", "compute_rdf"]

@@ -25,7 +25,7 @@ from .._device import resolve_device
 from .cell_list import CellList
 
 __all__ = ["Cellwise", "CellwisePlan", "plan_cellwise",
-           "analytic_pair_forces", "repack_order", "repack_src",
+           "analytic_pair_forces", "cellwise_planes", "repack_order", "repack_src",
            "slot_cell_centers", "bin_cells", "SlotGeometry"]
 
 
@@ -296,6 +296,56 @@ def _roll_back(block, plan, off):
         plan.n_cells, plan.capacity)
 
 
+def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
+                    cells=None, lengths=None):
+    """Masked 27-block candidate planes of slot-resident state (the
+    JAX ``cellwise_planes``): the planes route a generic SimModel takes
+    on ``'cellwise'`` when the lane-separability probe rejects it.
+
+    :param positions: ``[n_slots, 3]`` slot positions (ghosts at centers).
+    :param types: ``[n_slots]`` integer types (ghosts 0).
+    :param valid: ``[n_slots]`` 1.0 for real rows, 0.0 for ghosts.
+    :param rcut_matrix: ``[T, T]`` squared per-type cutoffs
+        (:func:`rc2_table`), or ``None``.
+    :param cells: ``(c0, c1)``: the planes of the rows of cells
+        ``c0 .. c1 - 1`` only (all cells by default).
+    :param lengths: ``[3]`` box lengths tensor on the positions' device
+        (default: the plan's, copied from the host).
+    :returns: :class:`.direct.NlistPlanes` of ``[rows, 27 * cap]``
+        components; ghost rows and ghost candidates are exactly zero.
+    """
+    from .direct import NlistPlanes
+    dtype = positions.dtype
+    cap, C = plan.capacity, plan.width
+    c0, c1 = cells if cells is not None else (0, plan.n_cells)
+    m = c1 - c0
+    rc2 = plan.r_cut * plan.r_cut
+    tt = types.to(dtype)
+    rows = slice(c0 * cap, c1 * cap)
+    if lengths is None:
+        lengths = torch.as_tensor(plan.lengths, dtype=dtype,
+                                  device=positions.device)
+
+    def cand(plane):
+        return _roll_offs(plane, plan, _OFFS)[c0:c1].reshape(m, 1, C)
+
+    dd = []
+    for a in range(3):
+        p = positions[:, a]
+        d = cand(p) - p[rows].reshape(m, cap, 1)
+        dd.append(d - torch.round(d / lengths[a]) * lengths[a])
+    d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
+    ok = ((d2 <= rc2) & (d2 >= 25e-8) & (cand(valid) > 0) &
+          (valid[rows].reshape(m, cap, 1) > 0))
+    gt = cand(tt)
+    if rcut_matrix is not None:
+        ok = ok & (d2 <= pair_rc2(tt[rows].reshape(m, cap, 1), gt,
+                                  rcut_matrix))
+    zero = torch.zeros((), dtype=dtype, device=positions.device)
+    return NlistPlanes(*(torch.where(ok, v, zero).reshape(m * cap, C)
+                         for v in (dd[0], dd[1], dd[2], gt)))
+
+
 def _relative_coords(positions, valid, plan, lo, offs_list, geometry=None):
     """Cell-relative coordinates (ghosts pushed FAR along x, a distinct
     distance per in-cell rank) and the per-direction candidate planes
@@ -449,7 +499,8 @@ def finish_forces(chans, valid, needs_energy, needs_virial):
 def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
                          needs_virial=False, min_r2=1e-4, with_types=False,
                          rcut_matrix=None, stencil="auto",
-                         needs_energy=True, form=None, geometry=None):
+                         needs_energy=True, form=None, geometry=None,
+                         lanes=None):
     """Forces/energy (and optionally virial) of a pair potential on
     slot-resident state -- the fast path behind
     :class:`..models.pair.PairModel`. Same contract as the JAX function.
@@ -460,37 +511,36 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
         or a precomputed :func:`rc2_table` tensor).
     :param stencil: ``'auto'`` (the hand-written half-stencil kernel K1
         on a CUDA tensor, the ``'full'`` tensor form on a CPU tensor),
-        ``'kernel'`` (the K1 wrapper: the kernel on CUDA, its plain
+        ``'kernel'`` (the K1 wrappers: the kernel on CUDA, its plain
         version on CPU), ``'half'`` (Newton half stencil in tensor ops)
         or ``'full'`` (27 blocks, both sides evaluated independently).
     :param form: the pair form the kernel evaluates in place of
         ``pair_fn`` (:class:`.cellwise_cuda.LJForm` or ``ChebForm``);
-        required by ``'kernel'``.
+        without one, ``'kernel'`` runs K1's generic form on ``pair_fn``
+        (:func:`.cellwise_cuda.generic_pair_forces`).
     :param geometry: precomputed :class:`SlotGeometry` of the plan.
+    :param lanes: the generic form's :class:`.cellwise_cuda.LaneBudget`.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``
         with the per-particle energy in force column 4 (zero when
         ``needs_energy`` is False); ghost rows all zero.
     """
     if stencil == "auto":
-        if positions.is_cuda:
-            if form is None:
-                raise ValueError(
-                    "on a CUDA tensor the cellwise pair forces run in the "
-                    "hand-written half-stencil kernel, which needs a pair "
-                    "form: an LJ-family form (PairModel.pair_kernel_form()) "
-                    "or a Chebyshev proxy (PairModel(proxy_degree=...)); "
-                    "this pair function has none. Pass stencil='half' or "
-                    "'full' to use the tensor forms.")
-            stencil = "kernel"
-        else:
-            stencil = "full"
+        stencil = "kernel" if positions.is_cuda else "full"
     if rcut_matrix is not None and not torch.is_tensor(rcut_matrix):
         rcut_matrix = rc2_table(rcut_matrix, positions.dtype,
                                 positions.device)
     if stencil == "kernel":
         if form is None:
-            raise ValueError("stencil='kernel' needs a kernel form (LJ-family "
-                             "or Chebyshev proxy)")
+            if pair_fn is None:
+                raise ValueError("stencil='kernel' needs a kernel form "
+                                 "(LJ-family or Chebyshev proxy) or a pair "
+                                 "function (K1's generic form)")
+            from .cellwise_cuda import generic_pair_forces
+            return generic_pair_forces(
+                positions, types, valid, plan, lo, pair_fn,
+                typed_fn=with_types, needs_virial=needs_virial,
+                min_r2=min_r2, rc2_tab=rcut_matrix,
+                needs_energy=needs_energy, geometry=geometry, lanes=lanes)
         from .cellwise_cuda import half_stencil_pair_forces
         return half_stencil_pair_forces(
             positions, types, valid, plan, lo, form,

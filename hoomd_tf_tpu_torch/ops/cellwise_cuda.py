@@ -25,6 +25,15 @@ one of two pair forms, each read from a table:
 A :class:`..models.pair.PairModel` opts in by returning its form from
 ``pair_kernel_form()``; a proxy model does so by itself.
 
+Any other pair function takes K1's generic form,
+:func:`generic_pair_forces` (``csrc/cellwise_generic.cu``): a list kernel
+writes the in-cut lanes ``(r2, ti, tj)``, PyTorch evaluates the pair
+function on the list (the counterpart of the jaxpr the Pallas kernel
+inlines), and a reduction kernel makes K1's dual reduction from each
+lane's ``(U, dU/dr2)``. The list is sized by a :class:`LaneBudget`; a
+call that needs more lanes than it holds is seen in ``lanes.needed``
+with no host sync, and the engine re-runs it with a larger budget.
+
 The wrapper :func:`half_stencil_pair_forces` launches the kernel for CUDA
 tensors and takes the plain PyTorch version, :func:`half_stencil_plain`,
 only for CPU tensors. The kernel is built with ``nvcc`` from the
@@ -38,11 +47,13 @@ import numpy as np
 import torch
 
 from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
-                       analytic_pair_forces)
+                       _relative_coords, _roll_offs, analytic_pair_forces,
+                       assemble_half, finish_forces, pair_rc2)
 from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
-           "half_stencil_pair_forces"]
+           "half_stencil_pair_forces", "LaneBudget", "lane_budget",
+           "generic_list_plain", "generic_plain", "generic_pair_forces"]
 
 
 class LJForm:
@@ -347,3 +358,320 @@ def _library():
         lib.htf_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+# ----------------------------------------------------------------------
+# K1's generic form: a pair function the kernel cannot compile
+# ----------------------------------------------------------------------
+# the generic form's list: its headroom over the lanes expected or needed,
+# the plain version's mask work per chunk (elements of [cells, cap, 14 cap])
+# and its pair function's lanes per call
+_HEADROOM = 1.25
+_LIST_CHUNK = 1 << 24
+_PAIR_CHUNK = 1 << 20
+
+
+def lane_budget(plan, n_real):
+    """Lanes of K1's generic-form list for ``n_real`` particles on
+    ``plan``, with 25% headroom: per particle half its neighbors within
+    the cut (``2 pi / 3 r_cut^3 rho``) plus its cell's mean occupancy
+    (block 0 lists a cell's pairs in both orders, an upper bound on those
+    inside the cut)."""
+    rho = n_real / float(np.prod(plan.lengths))
+    per = 2.0 * np.pi / 3.0 * plan.r_cut ** 3 * rho + n_real / plan.n_cells
+    return int(np.ceil(_HEADROOM * n_real * per)) + 1024
+
+
+class LaneBudget:
+    """The size of K1's generic-form list and, on the device, the most
+    lanes a call has needed since :meth:`reset` (a running max; no host
+    sync). ``budget`` lanes are evaluated by the pair function per call,
+    padding included."""
+
+    def __init__(self, budget, device):
+        self.budget = int(budget)
+        self.needed = torch.zeros((), dtype=torch.int32, device=device)
+
+    def reset(self):
+        self.needed = torch.zeros_like(self.needed)
+
+    def record(self, needed):
+        self.needed = torch.maximum(self.needed, needed.to(torch.int32))
+
+    def overflow(self):
+        """0-d bool device tensor: some call needed more than the budget."""
+        return self.needed > self.budget
+
+    def grow(self):
+        """Raise the budget to 1.25 times the most lanes needed (one
+        readback) and reset the count."""
+        need = int(self.needed)
+        self.budget = max(self.budget, int(np.ceil(need * _HEADROOM)) + 1024)
+        self.reset()
+
+
+def _lane_state(positions, types, valid, plan, lo, geometry, typed):
+    """The half-stencil tensor form's coordinates for listing lanes:
+    ``(qx, qy, qz, gx, gy, gz)`` (:func:`.cellwise._relative_coords`),
+    the row and candidate ``valid`` and float types (zero when untyped,
+    as the kernel stages them)."""
+    n_cells, cap = plan.n_cells, plan.capacity
+    qx, qy, qz, gx, gy, gz = _relative_coords(positions, valid, plan, lo,
+                                              _HALF_OFFS, geometry)
+    tt = (types.to(positions.dtype) if typed else
+          torch.zeros_like(valid))
+    return (qx.reshape(n_cells, cap), qy.reshape(n_cells, cap),
+            qz.reshape(n_cells, cap), gx, gy, gz,
+            valid.reshape(n_cells, cap) > 0,
+            _roll_offs(valid, plan, _HALF_OFFS) > 0,
+            tt.reshape(n_cells, cap), _roll_offs(tt, plan, _HALF_OFFS))
+
+
+def generic_list_plain(positions, types, valid, plan, lo, min_r2=1e-4,
+                       rc2_tab=None, geometry=None, budget=None,
+                       typed=True):
+    """Plain PyTorch version of the generic form's list kernel: the
+    in-cut lanes of the half stencil, cell by cell, each cell's lanes
+    row-major (rows and candidates in slot order, occupied slots only) as
+    the kernel lists them, the self pair left out in block 0, ``r2 =
+    max(d2, min_r2)``. Cells are placed in cell order; a cell whose lanes
+    would pass ``budget`` is left out whole.
+
+    :returns: a dict of per-lane tensors ``r2``, ``ti``, ``tj`` (float
+        types), ``dx``, ``dy``, ``dz``, ``cell``, ``row`` and ``col``
+        (the candidate's column in the ``14 * cap`` half-stencil plane),
+        and ``needed``, the lanes of every cell (a Python int).
+    """
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    n_cells, cap = plan.n_cells, plan.capacity
+    C = len(_HALF_OFFS) * cap
+    qx, qy, qz, gx, gy, gz, vr, vc, ti, tj = _lane_state(
+        positions, types, valid, plan, lo, geometry,
+        typed or rc2_tab is not None)
+    dev = positions.device
+    not_self = (torch.arange(C, device=dev)[None, :] !=
+                torch.arange(cap, device=dev)[:, None])[None]
+    step = max(1, _LIST_CHUNK // (cap * C))
+    parts = []
+    for a in range(0, n_cells, step):
+        b = min(n_cells, a + step)
+        dx = gx[a:b, None, :] - qx[a:b, :, None]
+        dy = gy[a:b, None, :] - qy[a:b, :, None]
+        dz = gz[a:b, None, :] - qz[a:b, :, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        ok = ((d2 <= plan.r_cut ** 2) & not_self & vr[a:b, :, None] &
+              vc[a:b, None, :])
+        if rc2_tab is not None:
+            ok = ok & (d2 <= pair_rc2(ti[a:b, :, None], tj[a:b, None, :],
+                                      rc2_tab))
+        c, r, j = ok.nonzero(as_tuple=True)
+        parts.append(dict(
+            r2=torch.clamp_min(d2[c, r, j], min_r2), dx=dx[c, r, j],
+            dy=dy[c, r, j], dz=dz[c, r, j], ti=ti[a + c, r],
+            tj=tj[a + c, j], cell=c + a, row=r, col=j))
+    lst = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    needed = int(lst["r2"].shape[0])
+    if budget is not None and needed > budget:
+        counts = torch.bincount(lst["cell"], minlength=n_cells)
+        fits = torch.cumsum(counts, 0) <= budget
+        keep = fits[lst["cell"]]
+        lst = {k: v[keep] for k, v in lst.items()}
+    lst["needed"] = needed
+    return lst
+
+
+def _eval_pair_fn(pair_fn, typed_fn, r2, ti, tj):
+    """``(U, dU/dr2)`` of the pair function on the list, as float32
+    tensors of the list's length."""
+    with torch.no_grad():
+        U, dU = pair_fn(r2, ti, tj) if typed_fn else pair_fn(r2)
+    return (torch.broadcast_to(U, r2.shape).to(torch.float32),
+            torch.broadcast_to(dU, r2.shape).to(torch.float32))
+
+
+def generic_plain(positions, types, valid, plan, lo, pair_fn,
+                  typed_fn=True, needs_virial=False, min_r2=1e-4,
+                  rc2_tab=None, needs_energy=True, geometry=None, lanes=None):
+    """Plain PyTorch version of K1's generic form, list and reduction:
+    :func:`generic_list_plain`, the pair function on the list (in chunks
+    of ``_PAIR_CHUNK`` lanes), each lane's channel products added to its
+    row and, for blocks 1..13, to its candidate, pushed home as
+    :func:`.cellwise.assemble_half` does. Records the lanes needed in
+    ``lanes`` when given (a cell that does not fit its budget adds
+    nothing, as in the kernel)."""
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    n_cells, cap = plan.n_cells, plan.capacity
+    C = len(_HALF_OFFS) * cap
+    lst = generic_list_plain(
+        positions, types, valid, plan, lo, min_r2, rc2_tab, geometry,
+        None if lanes is None else lanes.budget, typed_fn)
+    if lanes is not None:
+        lanes.record(torch.tensor(lst["needed"], device=positions.device))
+    n = lst["r2"].shape[0]
+    Us, Ss = [], []
+    for a in range(0, n, _PAIR_CHUNK):
+        sl = slice(a, a + _PAIR_CHUNK)
+        u, s = _eval_pair_fn(pair_fn, typed_fn, lst["r2"][sl],
+                             lst["ti"][sl], lst["tj"][sl])
+        Us.append(u)
+        Ss.append(s)
+    dtype = positions.dtype
+    U = torch.cat(Us).to(dtype) if Us else lst["r2"]
+    S = torch.cat(Ss).to(dtype) if Ss else lst["r2"]
+    dx, dy, dz = lst["dx"], lst["dy"], lst["dz"]
+    sdx, sdy, sdz = S * dx, S * dy, S * dz
+    prods = ([U] if needs_energy else []) + [sdx, sdy, sdz]
+    if needs_virial:
+        prods += [sdx * dx, sdy * dy, sdz * dz, sdx * dy, sdx * dz,
+                  sdy * dz]
+    prods = torch.stack(prods)
+    coefs = _channel_coefs(needs_energy, needs_virial)
+    nch = len(coefs)
+    rows = torch.zeros((nch, plan.n_slots), dtype=dtype,
+                       device=positions.device)
+    rows.index_add_(1, lst["cell"] * cap + lst["row"], prods)
+    back = lst["col"] >= cap
+    cols = torch.zeros((nch, n_cells * C), dtype=dtype,
+                       device=positions.device)
+    cols.index_add_(1, (lst["cell"] * C + lst["col"])[back], prods[:, back])
+    fwd = torch.tensor([c[0] for c in coefs], dtype=dtype,
+                       device=positions.device)[:, None]
+    bwd = torch.tensor([c[1] for c in coefs], dtype=dtype,
+                       device=positions.device)[:, None]
+    out = (rows * fwd).reshape(nch, n_cells, cap)
+    cols = (cols * bwd).reshape(nch, n_cells, C)
+    out = assemble_half(torch.cat([out, cols[:, :, cap:]], dim=2), plan)
+    return finish_forces(out, valid, needs_energy, needs_virial)
+
+
+def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
+                        typed_fn=True, needs_virial=False, min_r2=1e-4,
+                        rc2_tab=None, needs_energy=True, geometry=None,
+                        lanes=None):
+    """Kernel K1's generic form: :func:`.cellwise.analytic_pair_forces`
+    of any pair function ``pair_fn(r2[, ti, tj]) -> (U, dU/dr2)``. On
+    CUDA tensors it launches the list kernel, evaluates ``pair_fn`` on
+    the list's ``lanes.budget`` lanes (the tail past the needed lanes
+    holds earlier, finite ``r2``), then launches the reduction and the
+    finish (counted in ``generic_pair_forces.launches``); CPU tensors
+    take :func:`generic_plain`. A failed build or launch raises.
+
+    :param typed_fn: call ``pair_fn(r2, ti, tj)`` (float types) rather
+        than ``pair_fn(r2)``.
+    :param rc2_tab: ``[T, T]`` float32 squared cutoffs, or ``None``.
+    :param lanes: the :class:`LaneBudget` to size the list by and record
+        the lanes needed in (default: :func:`lane_budget` of this call's
+        occupied slots, counted with one host sync).
+    :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``.
+    """
+    check_slot_inputs(positions, types, valid, plan)
+    if lanes is None:
+        lanes = LaneBudget(lane_budget(plan, int((valid > 0).sum())),
+                           positions.device)
+    if not positions.is_cuda:
+        return generic_plain(positions, types, valid, plan, lo, pair_fn,
+                             typed_fn, needs_virial, min_r2, rc2_tab,
+                             needs_energy, geometry, lanes)
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    dev = positions.device
+    typed = typed_fn or rc2_tab is not None
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    rc_t = 0
+    if rc2_tab is not None:
+        rc_t = rc2_tab.shape[0]
+        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
+    lib = _generic_library()
+    smem = lib.htf_generic_smem(plan.capacity)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    budget = lanes.budget
+    counter, lst = _generic_buffers(dev, budget, plan.r_cut ** 2)
+    r2, ti, tj = lst[0], lst[1], lst[2]
+    n = plan.n_slots
+    cell_base = torch.empty(plan.n_cells, dtype=torch.int32, device=dev)
+    needed = torch.empty((), dtype=torch.int32, device=dev)
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    sums = torch.empty((n_ch, len(_HALF_OFFS), n), dtype=torch.float32,
+                       device=dev)
+    forces4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    virial = (torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+              if needs_virial else None)
+    geom = ctypes.byref(half_geom(plan))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    rc2, rcm = float(plan.r_cut ** 2), _ptr(rc2_tab)
+    err = lib.htf_generic_list(*state, geom, plan.n_cells, rcm, rc_t, rc2,
+                               float(min_r2), budget, _ptr(counter),
+                               _ptr(cell_base), _ptr(r2), _ptr(ti), _ptr(tj),
+                               stream)
+    if err != 0:
+        counter.zero_()
+        raise RuntimeError("generic list kernel launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    try:
+        U, S = _eval_pair_fn(pair_fn, typed_fn, r2, ti, tj)
+    except BaseException:
+        counter.zero_()  # the reduction, which zeroes it, will not run
+        raise
+    U, S = U.contiguous(), S.contiguous()
+    err = lib.htf_generic_reduce(*state, geom, plan.n_cells, rcm, rc_t, rc2,
+                                 _ptr(cell_base), _ptr(U), _ptr(S),
+                                 int(needs_energy), int(needs_virial),
+                                 _ptr(sums), _ptr(forces4), _ptr(virial),
+                                 _ptr(counter), _ptr(needed), stream)
+    if err != 0:
+        counter.zero_()
+        raise RuntimeError("generic reduction kernel launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    lanes.record(needed)
+    generic_pair_forces.launches += 1
+    return forces4, virial
+
+
+#: calls that launched the generic form (three launches each)
+generic_pair_forces.launches = 0
+
+# per device: the lane counter (zero between calls) and the list buffer
+# (budget, [3, budget] float32 r2, ti, tj), first filled with harmless
+# in-cut values; later calls leave earlier lanes' finite values in its tail
+_GENERIC = {}
+
+
+def _generic_buffers(device, budget, rc2):
+    key = str(device)
+    counter, lst = _GENERIC.get(key, (None, None))
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+    if lst is None or lst.shape[1] != budget:
+        lst = torch.zeros((3, budget), dtype=torch.float32, device=device)
+        lst[0] = rc2
+    _GENERIC[key] = (counter, lst)
+    return counter, lst
+
+
+_GLIB = None
+
+
+def _generic_library():
+    """The compiled generic-form library (built from ``csrc/`` at first
+    use)."""
+    global _GLIB
+    if _GLIB is None:
+        from .._build import build_shared_library
+        lib = ctypes.CDLL(str(build_shared_library("cellwise_generic")))
+        state = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        geo = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+        lib.htf_generic_list.argtypes = (
+            state + geo + [ctypes.c_float, ctypes.c_int] +
+            [ctypes.c_void_p] * 6)
+        lib.htf_generic_list.restype = ctypes.c_int
+        lib.htf_generic_reduce.argtypes = (
+            state + geo + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 +
+            [ctypes.c_void_p] * 6)
+        lib.htf_generic_reduce.restype = ctypes.c_int
+        lib.htf_generic_smem.argtypes = [ctypes.c_int]
+        lib.htf_generic_smem.restype = ctypes.c_long
+        lib.htf_generic_error_string.argtypes = [ctypes.c_int]
+        lib.htf_generic_error_string.restype = ctypes.c_char_p
+        _GLIB = lib
+    return _GLIB

@@ -89,50 +89,72 @@ def _sanitize(grad):
 
 
 def _energy_grad(kind, value, energy):
-    """``(energy value, d sum(energy) / d value, create_graph)``;
-    ``energy`` is a value computed from ``value`` or a callable
+    """``(energy value, [d sum(energy) / d x for x in wrt], create_graph)``
+    with ``wrt`` the value itself, or the ``dx, dy, dz`` components of
+    planes; ``energy`` is a value computed from ``value`` or a callable
     ``f(value) -> energy``."""
+    from .direct import NlistPlanes
     create_graph = _create_graph()
+    planes = isinstance(value, NlistPlanes)
     with torch.enable_grad():
         if callable(energy):
-            if not value.requires_grad:
+            if planes:
+                value = NlistPlanes(*(c if c.requires_grad else
+                                      c.detach().requires_grad_()
+                                      for c in value[:3]), value.type)
+            elif not value.requires_grad:
                 value = value.detach().requires_grad_()
             energy = energy(value)
+        wrt = list(value[:3]) if planes else [value]
         energy = torch.as_tensor(energy)
         if not energy.requires_grad:
             # an energy that does not depend on any tensor with a
             # gradient (a constant): zero forces, as JAX's vjp gives
-            return energy, torch.zeros_like(value), False
-        if not value.requires_grad:
+            return energy, [torch.zeros_like(w) for w in wrt], False
+        if not all(w.requires_grad for w in wrt):
             raise ValueError(
                 f"the {kind} passed to compute_{kind}_forces does not "
                 "require grad, so the energy cannot be differentiated "
                 f"with respect to it: pass the model's {kind} input (or a "
                 "tensor derived from it), or a callable energy function")
-        grad, = torch.autograd.grad(
-            energy, value, torch.ones_like(energy), retain_graph=True,
+        grads = torch.autograd.grad(
+            energy, wrt, torch.ones_like(energy), retain_graph=True,
             create_graph=create_graph, allow_unused=True)
-    if grad is None:
-        grad = torch.zeros_like(value)
+    grads = [_sanitize(torch.zeros_like(w) if g is None else g)
+             for g, w in zip(grads, wrt)]
     if not create_graph:
         energy = energy.detach()
-    return energy, _sanitize(grad), create_graph
+    return energy, grads, create_graph
 
 
 def compute_nlist_forces(nlist, energy, virial=False):
     """Pairwise forces (and optionally the virial) from a neighbor-list
     energy.
 
-    :param nlist: ``[N, NN, 4]`` (or ``[N, NN, 3]``) neighbor list: the
-        model's nlist input or a tensor derived from it.
+    :param nlist: ``[N, NN, 4]`` (or ``[N, NN, 3]``) neighbor list, or the
+        wide-direct :class:`.direct.NlistPlanes`: the model's nlist input
+        or a tensor derived from it.
     :param energy: the potential energy (size ``1``, ``N`` or ``N x L``)
         computed from ``nlist``, or a callable ``f(nlist) -> energy``.
     :param virial: also return the ``[N, 3, 3]`` pairwise virial.
     :return: ``[N, 4]`` forces with the per-particle energy in column 4,
         or ``(forces, virial)``.
     """
-    e_val, grad, create_graph = _energy_grad("nlist", nlist, energy)
-    nlist_forces = 2.0 * grad
+    from .direct import NlistPlanes
+    e_val, grads, create_graph = _energy_grad("nlist", nlist, energy)
+    if isinstance(nlist, NlistPlanes):
+        # f_ij components = 2 dE/d(dx_ij), and likewise for y and z
+        f = [2.0 * g for g in grads]
+        forces = _add_energy(torch.stack([g.sum(dim=1) for g in f], -1),
+                             e_val)
+        if not virial:
+            return forces
+        r = [c if create_graph else c.detach() for c in nlist[:3]]
+        w = torch.stack([torch.stack(
+            [-0.25 * torch.sum(f[a] * r[b] + f[b] * r[a], dim=1)
+             for b in range(3)], dim=-1) for a in range(3)], dim=-2)
+        return forces, w
+    nlist_forces = 2.0 * grads[0]
     forces = _add_energy(torch.sum(nlist_forces, dim=1), e_val)
     if virial:
         if not create_graph:
@@ -150,5 +172,5 @@ def compute_positions_forces(positions, energy):
         a callable ``f(positions) -> energy``.
     :return: ``[N, 4]`` forces with the per-particle energy in column 4.
     """
-    e_val, grad, _ = _energy_grad("positions", positions, energy)
-    return _add_energy(-grad, e_val)
+    e_val, grads, _ = _energy_grad("positions", positions, energy)
+    return _add_energy(-grads[0], e_val)

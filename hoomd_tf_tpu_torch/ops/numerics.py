@@ -6,8 +6,8 @@ force and zero gradient. As in the JAX package, that takes double-
 ``where`` guards: the gradient of ``where`` still carries NaN from the
 branch not taken, so the unsafe operand is replaced before the operation.
 
-The packed ``[N, NN, 4]`` form only: the wide-direct planes of the JAX
-package are not ported.
+Each helper takes the packed ``[N, NN, 4]`` list or the wide-direct
+:class:`.direct.NlistPlanes`.
 """
 
 import torch
@@ -67,14 +67,22 @@ def safe_norm(tensor, delta=1e-7, dim=None, **kwargs):
 
 
 def nlist_rinv(nlist):
-    """``1/r`` per neighbor of an ``[N, NN, 4]`` list: exactly zero for
-    padded rows, differentiable. The deltas are the reference's, kept
-    verbatim (they keep the parameter gradient of ``1/r`` free of NaN).
+    """``1/r`` per neighbor of an ``[N, NN, 4]`` list or of planes:
+    exactly zero for padded rows, differentiable. The deltas are the
+    reference's, kept verbatim (they keep the parameter gradient of
+    ``1/r`` free of NaN). On planes, as in the JAX package, a fused
+    ``rsqrt`` of the offset components replaces the norm and the divide.
 
-    :return: ``[N, NN]``.
+    :return: ``[N, NN]`` (or ``[N, C]``).
     """
+    from .direct import NlistPlanes
     delta = 3e-6
     d = delta / 3 / 10
+    if isinstance(nlist, NlistPlanes):
+        r2 = (nlist.dx + d) ** 2 + (nlist.dy + d) ** 2 + (nlist.dz + d) ** 2
+        good = r2 > delta * delta
+        safe_r2 = torch.where(good, r2, torch.ones_like(r2))
+        return torch.where(good, torch.rsqrt(safe_r2), torch.zeros_like(r2))
     r = safe_norm(nlist[..., :3], dim=-1, delta=d)
     # double-where so the gradient of the untaken branch is cut
     safe_r = torch.where(r > delta, r, torch.ones_like(r))
@@ -87,11 +95,20 @@ def masked_nlist(nlist, type_tensor, type_i=None, type_j=None):
     ``type_i`` zeroes the rows of other center types instead of removing
     them (a static shape; a zero row contributes nothing downstream).
 
-    :param nlist: ``[N, NN, 4]`` neighbor list.
+    :param nlist: ``[N, NN, 4]`` neighbor list, or planes.
     :param type_tensor: ``[N]`` particle types (e.g. ``positions[:, 3]``).
     :param type_i: center-particle type filter.
     :param type_j: neighbor type filter.
+    :return: the masked list, in the form it came.
     """
+    from .direct import NlistPlanes
+    if isinstance(nlist, NlistPlanes):
+        mask = torch.ones_like(nlist.dx)
+        if type_i is not None:
+            mask = mask * (type_tensor == type_i).to(nlist.dx.dtype)[:, None]
+        if type_j is not None:
+            mask = mask * (nlist.type == type_j).to(nlist.dx.dtype)
+        return nlist.map(lambda c: c * mask)
     if type_i is not None:
         mask = (type_tensor == type_i).to(nlist.dtype)
         nlist = nlist * mask[:, None, None]

@@ -271,7 +271,7 @@ def whole_calls(cs):
     out = []
     for name, plan, _, fn, cost in calls:
         ms = cs.cuda_ms(fn, reps=25)
-        names, dev_ms, dropped = cs.profiled_calls(fn)
+        names, dev_ms, dropped, _ = cs.profiled_calls(fn)
         b_ms, b_by = cs.bound(*cost()[:2])
         out.append({"call": name, "plan": [list(plan.grid), plan.capacity],
                     "ms": ms, "kernels_per_call": len(names) / calls_n,
@@ -322,7 +322,7 @@ def k3_call(cs, sim, shapes=True):
             p = nc.launch_params(tuple(grid), cap, 64, cs.R_CUT, host_L,
                                  strip=strip, warps=warps)
             ms = cs.cuda_ms(lambda: nc.launch(p, *args[:3], cs.N), reps=25)
-            _, dev_ms, _ = cs.profiled_calls(
+            _, dev_ms, _, _ = cs.profiled_calls(
                 lambda: nc.launch(p, *args[:3], cs.N))
             shapes.append({"strip": p.strip, "warps": p.warps,
                            "smem": p.smem, "ms": ms,
@@ -385,7 +385,7 @@ def k3_parts(cs):
             lib.htf_nlist_error_string.argtypes = [ctypes.c_int]
             lib.htf_nlist_error_string.restype = ctypes.c_char_p
             nc._LIB = lib
-            _, dev_ms, _ = cs.profiled_calls(
+            _, dev_ms, _, _ = cs.profiled_calls(
                 lambda: nc.launch(p, *args[:3], cs.N))
             out[part] = dev_ms / cs.PROFILED_CALLS
     nc._LIB = None

@@ -630,3 +630,160 @@ def test_auto_selects_k3_without_host_sync(cuda_device):
     assert tnc.nlist_select.launches - before == sim.nlist_builds == 130
     assert np.isfinite(tfc.get_forces_array()).all()
     assert 0.8 < sim.thermo()["temperature"] < 2.5
+
+
+# ---------------------------------------------------------------------------
+# K1's generic form: the list kernel, the pair function, the reduction
+# ---------------------------------------------------------------------------
+
+def morse_yukawa(r2, ti, tj):
+    """A typed pair function no kernel form covers (as in
+    tests/test_torch_generic.py)."""
+    r = torch.sqrt(r2)
+    e = torch.exp(-1.5 * (r - 1.1))
+    um, dm = e * e - 2.0 * e, (-3.0 * e * e + 3.0 * e) / (2.0 * r)
+    y = torch.exp(-0.8 * r) / r
+    uy, dy = 0.7 * y, 0.7 * y * (-0.8 - 1.0 / r) / (2.0 * r)
+    like = ti == tj
+    return torch.where(like, um, uy), torch.where(like, dm, dy)
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("capacity", [None, 80, 200])
+@pytest.mark.parametrize("flags", [(True, True), (False, False)])
+def test_generic_form_matches_plain(cuda_device, typed, capacity, flags):
+    """The generic form's list and reduction kernels on the card against
+    their plain version on the CPU, on the same inputs; the lanes needed
+    agree exactly (bit-equal masks), one launch counted per call."""
+    energy, virial = flags
+    outs, needed = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, typed, capacity)
+        lanes = tcc.LaneBudget(tcc.lane_budget(layout.plan, 500), dev)
+        before = tcc.generic_pair_forces.launches
+        f, w = tcc.generic_pair_forces(
+            slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, morse_yukawa, typed_fn=True, needs_virial=virial,
+            needs_energy=energy, rc2_tab=layout.rc2_tab,
+            geometry=layout.geometry, lanes=lanes)
+        assert tcc.generic_pair_forces.launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        assert not bool(lanes.overflow())
+        needed.append(int(lanes.needed))
+        outs.append((np_(f), None if w is None else np_(w)))
+    assert needed[0] == needed[1] > 0
+    np.testing.assert_allclose(outs[0][0], outs[1][0], **TOL)
+    if virial:
+        np.testing.assert_allclose(outs[0][1], outs[1][1], **TOL)
+
+
+def test_generic_form_is_deterministic_and_flags_a_short_list(cuda_device):
+    """Two calls give the same bits (the list's placement varies, the
+    sums' order does not); a budget of half the lanes needed reports the
+    count, and the next call with room is right again (the counter was
+    reset)."""
+    layout, slot, aux = packed(cuda_device, True)
+    args = (slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, morse_yukawa)
+    kw = dict(needs_virial=True, rc2_tab=layout.rc2_tab,
+              geometry=layout.geometry)
+    big = tcc.LaneBudget(tcc.lane_budget(layout.plan, 500), cuda_device)
+    f1, w1 = tcc.generic_pair_forces(*args, lanes=big, **kw)
+    f2, w2 = tcc.generic_pair_forces(*args, lanes=big, **kw)
+    torch.testing.assert_close(f1, f2, rtol=0, atol=0)
+    torch.testing.assert_close(w1, w2, rtol=0, atol=0)
+    need = int(big.needed)
+    short = tcc.LaneBudget(need // 2, cuda_device)
+    tcc.generic_pair_forces(*args, lanes=short, **kw)
+    assert bool(short.overflow()) and int(short.needed) == need
+    f3, _ = tcc.generic_pair_forces(*args, lanes=big, **kw)
+    torch.testing.assert_close(f3, f1, rtol=0, atol=0)
+
+
+def test_generic_form_against_lj_form(cuda_device):
+    """The generic form with the LJ pair function against K1's LJ form on
+    the same state: one function, two routes."""
+    layout, slot, aux = packed(cuda_device, False)
+    lj = htt.md.LennardJones(r_cut=2.5)
+    args = (slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo)
+    kw = dict(needs_virial=True, geometry=layout.geometry)
+    f_g, w_g = tcc.generic_pair_forces(*args, lj.pair_energy_and_slope, **kw)
+    f_l, w_l = tcc.half_stencil_pair_forces(*args, lj.kernel_form(), **kw)
+    np.testing.assert_allclose(np_(f_g), np_(f_l), **TOL)
+    np.testing.assert_allclose(np_(w_g), np_(w_l), **TOL)
+
+
+def test_generic_simmodel_runs_on_card_without_host_sync(cuda_device):
+    """LJPotential on 'cellwise': the probe validates it, every force
+    evaluation launches the generic form, and the step loop makes no host
+    sync; 'direct' runs too."""
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.Minimize(0.05),
+                         device=cuda_device)
+    sim.init_lattice(4096, density=0.4, kT_init=1.5)
+    sim.state.positions = sim.state.positions + torch.as_tensor(
+        0.3 * np.random.RandomState(0).randn(4096, 3).astype(np.float32),
+        device=cuda_device)
+    tfc = htt.tfcompute(htt.LJPotential(64))
+    tfc.attach(sim, r_cut=3.0, nlist="cellwise")
+    sim.run(1)  # the probe (it reads the device back) runs here
+    assert tfc._lane_fast_ok is True
+    sim.check_syncs = True
+    before, ev0 = tcc.generic_pair_forces.launches, sim.force_evals
+    sim.run(30)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(100)
+    assert tcc.generic_pair_forces.launches - before == \
+        sim.force_evals - ev0
+    assert np.isfinite(tfc.get_forces_array()).all()
+    d = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                       device=cuda_device)
+    d.set_state(sim.state)
+    htt.tfcompute(htt.LJPotential(64)).attach(d, r_cut=3.0, nlist="direct")
+    d.check_syncs = True
+    d.run(20)
+    assert np.isfinite(d.state.forces.cpu().numpy()).all()
+
+
+def test_planes_route_runs_on_card_without_host_sync(cuda_device):
+    """A generic SimModel the probe rejects runs on the masked planes with
+    no host sync in the step loop, and matches the CPU's first step."""
+
+    class CrossLane(htt.SimModel):
+        def compute(self, nlist, positions, box):
+            s = torch.sum(htt.nlist_rinv(nlist) ** 6, dim=1)
+            return htt.compute_nlist_forces(nlist, 0.01 * s * s)
+
+    forces = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sim = htt.Simulation(dt=0.005, integrator=htt.md.NVE(), seed=3,
+                             device=dev)
+        # at rest: the two devices' generators draw different velocities
+        sim.init_lattice(512, density=0.3)
+        tfc = htt.tfcompute(CrossLane(48))
+        tfc.attach(sim, r_cut=2.5, nlist="cellwise")
+        sim.run(1)
+        assert tfc._lane_fast_ok is False
+        forces.append(np_(sim.state.forces))
+        if dev.type == "cuda":
+            sim.check_syncs = True
+            sim.run(10)
+    np.testing.assert_allclose(forces[0], forces[1], rtol=1e-4, atol=1e-4)
+
+
+def test_k3_dynamic_smem_just_under_48kb(cuda_device):
+    """K3 at a launch whose dynamic shared memory is just under 48 KB
+    (capacity 31, NN 128: 49136 bytes) but whose static array takes the
+    block past it: the launch sets the opt-in attribute and matches its
+    plain version."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    args = k3_args(cuda_device, cap=31, NN=128)
+    p = tnc.launch_params(args[3], 31, 128, 3.0, args[7])
+    assert 48 * 1024 - 32 < p.smem <= 48 * 1024
+    got = np_(tnc.nlist_select(*args))
+    torch.cuda.synchronize()
+    want = np_(tnc.nlist_select(*[a.cpu() if torch.is_tensor(a) else a
+                                  for a in args]))
+    np.testing.assert_array_equal(got[..., 3], want[..., 3])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -12,8 +12,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hoomd_tf_tpu_torch"
 
 
-# every module of the port, the online-training and packed slices' included
+# every module of the port, the online-training, packed and generic-model
+# slices' included
 MODULES = ("hoomd_tf_tpu_torch", "hoomd_tf_tpu_torch.interop",
+           "hoomd_tf_tpu_torch.ops.direct",
+           "hoomd_tf_tpu_torch.ops.rdf",
+           "hoomd_tf_tpu_torch.ops.lane_fast",
+           "hoomd_tf_tpu_torch.ops.cellwise_cuda",
+           "hoomd_tf_tpu_torch.models.potentials",
            "hoomd_tf_tpu_torch.ops.chebyshev",
            "hoomd_tf_tpu_torch.ops.pair_train",
            "hoomd_tf_tpu_torch.ops.pair_train_cuda",

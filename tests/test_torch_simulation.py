@@ -198,20 +198,25 @@ class _TGeneric(htt.SimModel):
 
 @pytest.mark.parametrize("case", ["nlist", "train", "simmodel", "proxy"])
 def test_attach_rejects_unported(case):
-    """What later slices bring: the wide-direct neighbor mode, training a
-    PairModel without the Chebyshev proxy (the non-proxy NN row), a
-    generic SimModel on the cellwise route, and the period / batch knobs
-    of proxy training."""
+    """What later slices bring: mapped neighbor lists, training a
+    PairModel without the Chebyshev proxy (the non-proxy NN row), training
+    a generic SimModel on the cellwise route, and the period / batch knobs
+    of proxy training. (The wide-direct mode and a generic SimModel on
+    the cellwise route are ported: tests/test_torch_slice_c2.py.)"""
     sim, _ = bench_like(n=256)
     with pytest.raises(NotImplementedError):
         if case == "nlist":
-            htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="direct")
+            model = TLJ(64)
+            model._map_nlist = True
+            htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise")
         elif case == "train":
             htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="cellwise",
                                           train=True)
         elif case == "simmodel":
-            htt.tfcompute(_TGeneric(16)).attach(sim, r_cut=3.0,
-                                                nlist="cellwise")
+            model = _TGeneric(16)
+            model.compile(loss="mse")
+            htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
+                                        train=True)
         else:
             model = TLJ(64, proxy_degree=8)
             model.compile(loss="mse")
