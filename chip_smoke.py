@@ -48,18 +48,23 @@ exits non-zero:
 7. generic  -- a generic SimModel, LJPotential(64), on 'cellwise' at the
                64k fluid through the public API: the lane-separability
                probe validates it, its synthesized pair function runs in
-               K1's generic form (csrc/cellwise_generic.cu: a list kernel,
-               the pair function in PyTorch, a reduction kernel, the
-               finish) at every force evaluation; the eval protocol with a
-               timed run(1000), host syncs forbidden; at one state the
-               generic form against its plain version and against K1's LJ
-               form, its whole call, its kernels by the profiler, the
-               bound;
+               K1's generic form (csrc/cellwise_generic.cu: a list
+               kernel, the pair function in PyTorch, a reduction kernel
+               from the list kernel's records, the finish) at every force
+               evaluation;
+               the eval protocol with a timed run(1000), host syncs
+               forbidden; after each run the list's budget against the
+               lanes the run needed; the timed run re-runs nothing and its
+               list is at most 1.15x its need; at one state the generic
+               form against its plain version and against K1's LJ form,
+               its whole call, its kernels by the profiler and the pair
+               function's share, the bound;
 8. nn       -- NeuralPairPotential() at the JAX package's widths, weights
                from a seed, on 'cellwise' from phase 7's fluid: validated
                by the probe, 100 NVT steps with finite positions and
-               forces; the generic form against its plain version and the
-               planes route (autograd, in row chunks) at one state;
+               forces, the list against its need; the generic form
+               against its plain version and the planes route (autograd,
+               in row chunks) at one state;
 9. direct   -- LJPotential(64) with nlist='direct' from phase 7's fluid:
                its forces against the packed K3 route (NN 128) at one
                state, then a timed run(500), host syncs forbidden.
@@ -636,11 +641,31 @@ def generic_calls(label, layout, slot, aux, model, lanes):
           f"{dev_ms / PROFILED_CALLS:.4f} ms per call (profiler, {dropped} "
           f"windows dropped); plain {t_p:.4f} ms; bound {b_ms:.4f} ms "
           f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    form_ms = sum(parts.values())
     print("  the form's kernels alone per call (profiler): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in parts.items()) +
-        f"; together {sum(parts.values()):.4f} ms")
+        f"; together {form_ms:.4f} ms; the pair function and the rest "
+        f"{dev_ms / PROFILED_CALLS - form_ms:.4f} ms, "
+        f"{1 - form_ms * PROFILED_CALLS / dev_ms:.3f} of the call's device "
+        f"time; list {lanes.budget / needed:.4f}x the lanes needed")
     return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err), f_k
+
+
+def lane_line(sim, label):
+    """Print the generic-form list's budget against the lanes the last
+    committed run needed, the need's rise over the run before, and the
+    list re-runs so far."""
+    lanes = sim._lanes
+    need = lanes.committed
+    prev = getattr(sim, "_smoke_last_need", None)
+    rise = (f"{need / prev:.4f}x the run before" if prev and need
+            else "the first")
+    sim._smoke_last_need = need
+    ratio = f"{lanes.budget / need:.4f}x" if need else "-"
+    print(f"  list after {label}: need {need} lanes ({rise}), budget "
+          f"{lanes.budget} for the next run ({ratio} the need), re-runs "
+          f"{sim.lane_reruns}")
 
 
 def phase_generic():
@@ -663,20 +688,35 @@ def phase_generic():
           f"LJPotential: {tfc._lane_fast_report}")
     sim.thermalize_velocities(1.5)
     sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    lane_line(sim, "quench run(60)")
     t0 = time.perf_counter()
     sim.run(1000)
+    lane_line(sim, "warm run(1000)")
     for _ in range(4):
         plan = sim._layout.plan
         sim.run(1000)
+        lane_line(sim, "warm run(1000)")
         if sim._layout.plan == plan:
             break
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     ev_before, l_before = sim.force_evals, gen.launches
+    reruns, lanes_timed = sim.lane_reruns, sim._lanes.budget
     t0 = time.perf_counter()
     sim.run(1000)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    lane_line(sim, "timed run(1000)")
+    check(sim.lane_reruns == reruns,
+          f"the timed run(1000) re-ran {sim.lane_reruns - reruns} times "
+          "for a short list")
+    check(lanes_timed <= 1.15 * sim._lanes.committed,
+          f"the timed run's list ({lanes_timed} lanes) is more than 1.15x "
+          f"the lanes it needed ({sim._lanes.committed})")
+    print(f"  the timed run's list: {lanes_timed} lanes, "
+          f"{lanes_timed / sim._lanes.committed:.4f}x its need: a margin of "
+          f"{lanes_timed - sim._lanes.committed} lanes "
+          f"({lanes_timed / sim._lanes.committed - 1:.2%}) left unused")
     launches = gen.launches
     evals = sim.force_evals - evals0
     th = sim.thermo()
@@ -697,7 +737,8 @@ def phase_generic():
           f"T={th['temperature']:.4f} PE/N={th['potential_energy'] / N:.4f}")
     print(f"  generic-form launches {launches} == force evaluations {evals} "
           f"(timed run: {timed}); K1 pair-form launches 0; no host sync in the "
-          f"step loops (set_sync_debug_mode('error'))")
+          f"step loops (set_sync_debug_mode('error')); list re-runs "
+          f"{sim.lane_reruns} in all, 0 in the timed run")
     print(f"  steps/s {1000 / dt:.2f} (timed run(1000), N={N}) on "
           f"{smi_line()} -- info, not a claim")
 
@@ -771,6 +812,7 @@ def phase_nn(state):
     dt = time.perf_counter() - t0
     print(f"  peak device memory of the run: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    lane_line(sim, "run(100)")
     launches = gen.launches
     check(tfc._lane_fast_ok is True, "the probe did not validate "
           f"NeuralPairPotential: {tfc._lane_fast_report}")

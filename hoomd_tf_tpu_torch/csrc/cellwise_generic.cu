@@ -8,7 +8,8 @@
 //
 //   generic_list, one block per home cell: it stages the cell's half
 //     stencil (half_stencil_stage.cuh, as K1 does), marks the lanes inside
-//     the cut, and writes them into a compact list (r2, ti, tj):
+//     the cut, and writes them into a compact list
+//     (r2, ti, tj):
 //       lane (i, j), i a staged home row, j a staged candidate of the 14
 //       blocks, kept when d2 <= rc2 (and d2 <= rc2_tab[ti][tj] when a
 //       per-type table is given), j != i (the self pair, by staged index),
@@ -18,16 +19,19 @@
 //     segment is placed by one atomicAdd on a device counter; a cell whose
 //     segment would pass the list's budget writes nothing and its base is
 //     -1. The counter ends at the lanes the call needed, budget or not.
-//   the pair function, evaluated by PyTorch on the whole list:
+//     It also writes the cell's record (its staged entries, tags, row
+//     offsets and lane masks) for the reduction, and the zero back sums
+//     of the slots the box test left out.
+//   the pair function, evaluated by PyTorch on the list:
 //     U, s = pair_fn(r2, ti, tj), s = dU/dr2 (user code: the counterpart
 //     of the jaxpr Pallas inlines).
-//   generic_reduce, one block per home cell: it stages the same cells and
-//     marks the same lanes (the same float32 operations, so the same bits),
+//   generic_reduce, one block per home cell: it reads the cell's record,
 //     reads each lane's (U, s) by its list index, with no atomics, and
-//     makes K1's row sweep (a warp per row, lanes summed by a fixed
-//     shuffle tree) and candidate sweep (a thread per candidate of blocks
-//     1..13, rows in order), writing the raw sums of K1's channels. Block 0
-//     copies the counter out and zeroes it for the next call.
+//     makes K1's row sweep (a warp per row, its lanes read densely and
+//     summed by a fixed shuffle tree) and candidate sweep (a thread per
+//     candidate of blocks 1..13, rows in order), writing the raw sums of
+//     K1's channels. Its first block copies the counter out and zeroes it
+//     for the next call.
 //   half_stencil_home (half_stencil_home.cuh): the Newton push-back and the
 //     finish, as in K1.
 // The list's placement varies from call to call; the values do not: each
@@ -36,14 +40,25 @@
 // caller sees the overflow in the needed count and re-runs with a larger
 // budget.
 //
-// What bounds it on an H100: the same operations as K1 (9 per tested pair,
-// the products per in-cut lane), now done twice (each kernel marks every
-// lane), plus the list: 12 bytes written and 8 read per in-cut lane (about
-// 2.7e6 lanes, ~54 MB at the 64k fluid's shapes) against ~4 MB of slot
-// state. Each lane's mask is kept as a bit in shared memory (a 32-bit word
-// per row and warp-wide chunk of candidates, with the row's running count
-// before it), so the candidate sweep finds a lane's list index with one
-// population count.
+// What bounds it on an H100: not bytes (the slot state and 20 bytes per
+// listed lane, ~43 MB at the 64k fluid's shapes, 0.013 ms) nor operations
+// (9 per tested pair, a few per listed lane), but each cell's chain of
+// dependent phases (staging, marking, scans, the writes or sweeps)
+// separated by barriers (profile_step.py --mode genparts). So:
+//   - the marking gives each warp 32 candidates, held in registers while
+//     the rows stream past (a broadcast read per ballot); the row scans
+//     are warp scans;
+//   - the list's writes and the row sweep are dense (lane e of a row at
+//     list index row + e, its candidate the e-th set bit of the row's
+//     masks), and the candidate sweep issues the (U, s) loads of 8 rows
+//     together;
+//   - the reduction does not stage or mark again: the list kernel hands
+//     it each cell's record through device memory (~6 KB a cell at the
+//     64k fluid's shapes, written and read once).
+// Each lane's mask is a bit in shared memory (a 32-bit word per row and
+// warp-wide chunk of candidates, with the row's running count before it),
+// so the candidate sweep finds a lane's list index with one population
+// count.
 //
 // Built with -fmad=false, and the staging uses _rn intrinsics, so the
 // masks and r2 are bit-equal to the PyTorch plain version's.
@@ -64,6 +79,10 @@ using htf::kStageInts;
 using htf::kThreads;
 using htf::kWarps;
 
+constexpr unsigned kFull = 0xffffffffu;
+// blocks of 256 threads an SM both kernels are built for (40 registers)
+constexpr int kMinBlocks = 6;
+
 // d2 of the lane (row q, candidate g) and whether it is inside the cut.
 __device__ __forceinline__ bool in_cut(float4 q, float4 g,
                                        const float* __restrict__ rcm,
@@ -83,8 +102,12 @@ __device__ __forceinline__ bool in_cut(float4 q, float4 g,
   return true;
 }
 
-// The block's shared memory after the staged arrays.
-struct LaneSmem {
+// The list kernel's shared memory: the staged arrays, the staging's
+// scratch, then the lane masks.
+struct Smem {
+  float4* spos;    // [C] staged entries
+  int* stag;       // [C] their tags
+  int* sints;      // [kStageInts] the staging's scratch
   int* rowoff;     // [cap + 1] each row's first lane in the cell's segment
   int* scratch;    // [2]
   uint32_t* mask;  // [cap][W] in-cut bits, candidate j = 32 w + bit
@@ -92,108 +115,236 @@ struct LaneSmem {
   int W;
 };
 
-__device__ __forceinline__ LaneSmem lane_smem(int* after_stage, int cap) {
-  LaneSmem s;
-  s.W = (kHalf * cap + 31) / 32;
-  s.rowoff = after_stage;
-  s.scratch = s.rowoff + cap + 1;
-  s.mask = reinterpret_cast<uint32_t*>(s.scratch + 2);
-  s.pre = reinterpret_cast<uint16_t*>(s.mask + cap * s.W);
-  return s;
+__host__ __device__ inline long list_layout(int cap, char* base, Smem* s) {
+  const long C = static_cast<long>(kHalf) * cap;
+  s->W = static_cast<int>((C + 31) / 32);
+  long off = 0;
+  auto take = [&](long bytes) {
+    const long at = off;
+    off += (bytes + 15) & ~15L;
+    return base ? base + at : nullptr;
+  };
+  s->spos = reinterpret_cast<float4*>(take(16 * C));
+  s->stag = reinterpret_cast<int*>(take(4 * C));
+  s->sints = reinterpret_cast<int*>(take(4L * kStageInts));
+  s->rowoff = reinterpret_cast<int*>(take(4L * (cap + 1)));
+  s->scratch = reinterpret_cast<int*>(take(4L * 2));
+  s->mask = reinterpret_cast<uint32_t*>(take(4L * cap * s->W));
+  s->pre = reinterpret_cast<uint16_t*>(take(2L * cap * s->W));
+  return off;
 }
 
 long smem_bytes(int cap) {
-  const long C = static_cast<long>(kHalf) * cap;
-  const long W = (C + 31) / 32;
-  return C * (sizeof(float4) + sizeof(int)) + sizeof(int) * kStageInts +
-         sizeof(int) * (cap + 1 + 2) + (sizeof(uint32_t) + sizeof(uint16_t)) *
-         cap * W;
+  Smem s;
+  return list_layout(cap, nullptr, &s);
+}
+
+// Rows of the candidate sweep whose list loads are in flight together.
+constexpr int kBatch = 8;
+
+// The position of the n-th (from 0) set bit of m (m has more than n).
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    const int c = __popc(m & ((1u << sh) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= sh;
+      pos += sh;
+    }
+  }
+  return pos;
+}
+
+// The staged candidate of a row's lane e (e < the row's lanes): the e-th
+// set bit of the row's `nw` mask words, found from their running counts.
+__device__ __forceinline__ int lane_candidate(const uint32_t* mask,
+                                              const uint16_t* pre, int nw,
+                                              int e) {
+  int w = 0;
+  for (int v = 1; v < nw; ++v) w = pre[v] <= e ? v : w;
+  return w * 32 + nth_bit(mask[w], e - pre[w]);
 }
 
 // Mark the in-cut lanes of the n0 staged rows against the `total` staged
-// candidates, a warp per row; fills mask, pre and rowoff (an exclusive
-// scan over rows). Returns the cell's lane count. Every thread calls it.
-__device__ int mark_lanes(const float4* spos, int n0, int total,
-                          const float* __restrict__ rcm, int rcm_t,
-                          float rc2, const LaneSmem& s) {
+// candidates into s.mask: a warp per 32-candidate word, each lane holding
+// its candidate while the rows stream past (one broadcast read of a row
+// per ballot). Then a warp per row scans its words' counts into s.pre and
+// its count into s.rowoff[i + 1], and warp 0 scans the rows' counts
+// (s.rowoff exclusive, rowoff[n0] the cell's lanes). Every thread calls
+// it; it ends with a barrier.
+__device__ void mark_lanes(int n0, int total, const float* __restrict__ rcm,
+                           int rcm_t, float rc2, const Smem& s) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = (total + 31) / 32;
-  for (int i = warp; i < n0; i += kWarps) {
-    const float4 q = spos[i];
-    int run = 0;
-    for (int w = 0; w < nw; ++w) {
-      const int j = w * 32 + lane;
+  for (int w = warp; w < nw; w += kWarps) {
+    const int j = w * 32 + lane;
+    const float4 g = s.spos[j < total ? j : total - 1];
+    for (int i = 0; i < n0; ++i) {
+      const float4 q = s.spos[i];
       bool ok = false;
       if (j < total && j != i) {
         float dx, dy, dz, d2;
-        ok = in_cut(q, spos[j], rcm, rcm_t, rc2, dx, dy, dz, d2);
+        ok = in_cut(q, g, rcm, rcm_t, rc2, dx, dy, dz, d2);
       }
-      const unsigned b = __ballot_sync(0xffffffffu, ok);
-      if (lane == 0) {
-        s.mask[i * s.W + w] = b;
-        s.pre[i * s.W + w] = static_cast<uint16_t>(run);
-      }
-      run += __popc(b);
+      const unsigned b = __ballot_sync(kFull, ok);
+      if (lane == 0) s.mask[i * s.W + w] = b;
     }
-    if (lane == 0) s.rowoff[i + 1] = run;
   }
   __syncthreads();
-  if (tid == 0) {
-    s.rowoff[0] = 0;
-    for (int i = 1; i <= n0; ++i) s.rowoff[i] += s.rowoff[i - 1];
+  for (int i = warp; i < n0; i += kWarps) {
+    int carry = 0;
+    for (int w0 = 0; w0 < nw; w0 += 32) {
+      const int w = w0 + lane;
+      const int v = w < nw ? __popc(s.mask[i * s.W + w]) : 0;
+      int x = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (w < nw) s.pre[i * s.W + w] = static_cast<uint16_t>(carry + x - v);
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) s.rowoff[i + 1] = carry;
   }
   __syncthreads();
-  return s.rowoff[n0];
+  if (warp == 0) {
+    int carry = 0;
+    for (int i0 = 0; i0 < n0; i0 += 32) {
+      const int i = i0 + lane;
+      const int v = i < n0 ? s.rowoff[i + 1] : 0;
+      int x = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (i < n0) s.rowoff[i + 1] = carry + x;
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) s.rowoff[0] = 0;
+  }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The displacement of the lane (row q, candidate g), in_cut's arithmetic.
+__device__ __forceinline__ void lane_d(float4 q, float4 g, float& dx,
+                                       float& dy, float& dz) {
+  dx = g.x - q.x;
+  dy = g.y - q.y;
+  dz = g.z - q.z;
+}
+
+__host__ __device__ __forceinline__ long pad4(long n) {
+  return (n + 3) & ~3L;
+}
+
+// The list kernel's record of a cell, handed to the reduction through
+// device memory: 4-byte words from the cell's start, rec_words(cap)
+// apart. Words 0-2 hold n0, total and nw (the candidates' mask words);
+// then the staged entries (4 words each, from word 4), their tags (a word
+// each), rowoff [n0 + 1], the masks [n0][nw] and the rows' running counts
+// [n0][nw] (16-bit halves).
+struct Rec {
+  long tag, rowoff, mask, pre;
+};
+
+__host__ __device__ __forceinline__ Rec rec_offsets(int n0, int total,
+                                                    int nw) {
+  Rec r;
+  r.tag = 4 + 4L * total;
+  r.rowoff = r.tag + total;
+  r.mask = r.rowoff + n0 + 1;
+  r.pre = r.mask + static_cast<long>(n0) * nw;
+  return r;
+}
+
+long rec_words(int cap) {
+  const int C = kHalf * cap, W = (C + 31) / 32;
+  const Rec r = rec_offsets(cap, C, W);
+  return pad4(r.pre + (static_cast<long>(cap) * W + 1) / 2);
+}
+
+// Write the staged cell (s) into its record (every thread; no barrier).
+__device__ void write_record(const Smem& s, int n0, int total,
+                             int* __restrict__ rec) {
+  const int tid = threadIdx.x;
+  const int nw = (total + 31) / 32;
+  const Rec o = rec_offsets(n0, total, nw);
+  if (tid == 0) {
+    rec[0] = n0;
+    rec[1] = total;
+    rec[2] = nw;
+  }
+  float4* spos = reinterpret_cast<float4*>(rec + 4);
+  for (int e = tid; e < total; e += kThreads) {
+    spos[e] = s.spos[e];
+    rec[o.tag + e] = s.stag[e];
+  }
+  for (int i = tid; i <= n0; i += kThreads) rec[o.rowoff + i] = s.rowoff[i];
+  uint16_t* pre = reinterpret_cast<uint16_t*>(rec + o.pre);
+  for (int u = tid; u < n0 * nw; u += kThreads) {
+    const int i = u / nw, w = u - i * nw;
+    rec[o.mask + u] = static_cast<int>(s.mask[i * s.W + w]);
+    pre[u] = s.pre[i * s.W + w];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 generic_list(const float* __restrict__ pos, const int* __restrict__ types,
              const float* __restrict__ valid,
              const float* __restrict__ centers, HalfGeom g,
              const float* __restrict__ rcm, int rcm_t, float rc2,
              float min_r2, int budget, int* __restrict__ counter,
              int* __restrict__ cell_base, float* __restrict__ r2_out,
-             float* __restrict__ ti_out, float* __restrict__ tj_out) {
+             float* __restrict__ ti_out, float* __restrict__ tj_out,
+             int* __restrict__ rec, long rec_stride, float* __restrict__ sums,
+             int nch) {
   extern __shared__ float4 smem4[];
-  const int cap = g.cap;
-  const int C = kHalf * cap;
+  Smem s;
+  list_layout(g.cap, reinterpret_cast<char*>(smem4), &s);
   const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float4* spos = smem4;
-  int* stag = reinterpret_cast<int*>(spos + C);
-  int* sints = stag + C;
-  const LaneSmem s = lane_smem(sints + kStageInts, cap);
-
+  const size_t n_slots = static_cast<size_t>(gridDim.x) * g.cap;
+  const size_t home = static_cast<size_t>(c) * g.cap;
   int n0;
   const int total = htf::stage_half_stencil(
-      g, c, rc2, pos, types, valid, centers, spos, stag, sints, n0,
-      htf::NoExtra(), htf::NoSkip());
-  const int n_lanes = mark_lanes(spos, n0, total, rcm, rcm_t, rc2, s);
+      g, c, rc2, pos, types, valid, centers, s.spos, s.stag, s.sints, n0,
+      htf::NoExtra(), [&](int t, int r) {
+        // a slot out of every row's reach: its back sums are zero
+        for (int k = 0; k < nch; ++k)
+          sums[(k * kHalf + t) * n_slots + home + r] = 0.f;
+      });
+  mark_lanes(n0, total, rcm, rcm_t, rc2, s);
   if (tid == 0) {
-    int b = atomicAdd(counter, n_lanes);
-    if (b > budget - n_lanes) b = -1;  // the segment does not fit
-    cell_base[c] = b;
-    s.scratch[0] = b;
+    const int n_lanes = s.rowoff[n0];
+    int base = atomicAdd(counter, n_lanes);
+    if (base > budget - n_lanes) base = -1;  // the segment does not fit
+    cell_base[c] = base;
+    s.scratch[0] = base;
   }
+  write_record(s, n0, total, rec + c * rec_stride);
   __syncthreads();
   const int base = s.scratch[0];
   if (base < 0) return;
-  const unsigned below = (1u << lane) - 1u;
+  // a warp per row writes the row's lanes densely: lane e of the row at
+  // list index row + e
+  const int nw = (total + 31) / 32;
   for (int i = warp; i < n0; i += kWarps) {
-    const float4 q = spos[i];
+    const float4 q = s.spos[i];
     const int row = base + s.rowoff[i];
-    const int nw = (total + 31) / 32;
-    for (int w = 0; w < nw; ++w) {
-      const unsigned b = s.mask[i * s.W + w];
-      if ((b >> lane) & 1u) {
-        const float4 gj = spos[w * 32 + lane];
-        float dx, dy, dz, d2;
-        in_cut(q, gj, rcm, rcm_t, rc2, dx, dy, dz, d2);
-        const int k = row + s.pre[i * s.W + w] + __popc(b & below);
-        r2_out[k] = fmaxf(d2, min_r2);
-        ti_out[k] = static_cast<float>(__float_as_int(q.w));
-        tj_out[k] = static_cast<float>(__float_as_int(gj.w));
-      }
+    const int cnt = s.rowoff[i + 1] - s.rowoff[i];
+    for (int e = lane; e < cnt; e += 32) {
+      const float4 gj =
+          s.spos[lane_candidate(s.mask + i * s.W, s.pre + i * s.W, nw, e)];
+      float dx, dy, dz;
+      lane_d(q, gj, dx, dy, dz);
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      r2_out[row + e] = fmaxf(d2, min_r2);
+      ti_out[row + e] = static_cast<float>(__float_as_int(q.w));
+      tj_out[row + e] = static_cast<float>(__float_as_int(gj.w));
     }
   }
 }
@@ -219,99 +370,142 @@ __device__ __forceinline__ void add_products(
   }
 }
 
+// The reduction's shared memory: a cell's record, unpacked.
+struct RSmem {
+  float4* spos;     // [C]
+  uint16_t* stag;   // [C]
+  int* rowoff;      // [cap + 1]
+  uint32_t* mask;   // [cap * W], row stride nw of the cell
+  uint16_t* pre;    // [cap * W]
+};
+
+__host__ __device__ inline long reduce_layout(int cap, char* base,
+                                              RSmem* s) {
+  const long C = static_cast<long>(kHalf) * cap, W = (C + 31) / 32;
+  long off = 0;
+  auto take = [&](long bytes) {
+    const long at = off;
+    off += (bytes + 15) & ~15L;
+    return base ? base + at : nullptr;
+  };
+  s->spos = reinterpret_cast<float4*>(take(16 * C));
+  s->stag = reinterpret_cast<uint16_t*>(take(2 * C));
+  s->rowoff = reinterpret_cast<int*>(take(4L * (cap + 1)));
+  s->mask = reinterpret_cast<uint32_t*>(take(4 * cap * W));
+  s->pre = reinterpret_cast<uint16_t*>(take(2 * cap * W));
+  return off;
+}
+
 template <bool ENERGY, bool VIRIAL>
-__global__ void __launch_bounds__(kThreads)
-generic_reduce(const float* __restrict__ pos, const int* __restrict__ types,
-               const float* __restrict__ valid,
-               const float* __restrict__ centers, HalfGeom g,
-               const float* __restrict__ rcm, int rcm_t, float rc2,
-               const int* __restrict__ cell_base,
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+generic_reduce(HalfGeom g, const int* __restrict__ rec,
+               long rec_stride, const int* __restrict__ cell_base,
                const float* __restrict__ U, const float* __restrict__ S,
                float* __restrict__ sums, int* __restrict__ counter,
                int* __restrict__ needed) {
   constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
   extern __shared__ float4 smem4[];
+  RSmem s;
+  reduce_layout(g.cap, reinterpret_cast<char*>(smem4), &s);
   const int cap = g.cap;
-  const int C = kHalf * cap;
-  const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t n_slots = static_cast<size_t>(gridDim.x) * cap;
-  float4* spos = smem4;
-  int* stag = reinterpret_cast<int*>(spos + C);
-  int* sints = stag + C;
-  const LaneSmem s = lane_smem(sints + kStageInts, cap);
-  if (c == 0 && tid == 0) {
+  if (blockIdx.x == 0 && tid == 0) {
     // every block of generic_list has finished: hand the count out and
     // zero the counter for the next call
     *needed = *counter;
     *counter = 0;
   }
-
-  const size_t home = static_cast<size_t>(c) * cap;
-  int n0;
-  const int total = htf::stage_half_stencil(
-      g, c, rc2, pos, types, valid, centers, spos, stag, sints, n0,
-      htf::NoExtra(), [&](int t, int r) {
-        // a slot out of every row's reach: its back sums are zero
-#pragma unroll
-        for (int k = 0; k < NCH; ++k)
-          sums[(k * kHalf + t) * n_slots + home + r] = 0.f;
-      });
-  mark_lanes(spos, n0, total, rcm, rcm_t, rc2, s);
+  const int c = blockIdx.x;
+  const int* r = rec + c * rec_stride;
+  const int n0 = r[0], total = r[1], nw = r[2];
   const int base = cell_base[c];  // -1: the cell's lanes are not listed
-  const unsigned below = (1u << lane) - 1u;
+  const Rec o = rec_offsets(n0, total, nw);
+  const float4* rspos = reinterpret_cast<const float4*>(r + 4);
+  for (int e = tid; e < total; e += kThreads) {
+    s.spos[e] = rspos[e];
+    s.stag[e] = static_cast<uint16_t>(r[o.tag + e]);
+  }
+  for (int i = tid; i <= n0; i += kThreads) s.rowoff[i] = r[o.rowoff + i];
+  const uint16_t* rpre = reinterpret_cast<const uint16_t*>(r + o.pre);
+  for (int u = tid; u < n0 * nw; u += kThreads) {
+    s.mask[u] = static_cast<uint32_t>(r[o.mask + u]);
+    s.pre[u] = rpre[u];
+  }
+  __syncthreads();
+  const size_t home = static_cast<size_t>(c) * cap;
 
-  // row sweep: a warp per home row, over all 14 blocks
+  // row sweep: a warp per home row, its lanes read densely (lane e of
+  // the row at list index row + e), each warp lane summing the row's
+  // lanes e = lane, lane + 32, ... in order, then a fixed shuffle tree
   for (int i = warp; i < n0; i += kWarps) {
     float acc[NCH];
 #pragma unroll
     for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-    const float4 q = spos[i];
+    const float4 q = s.spos[i];
     const int row = base + s.rowoff[i];
-    const int nw = (total + 31) / 32;
-    for (int w = 0; base >= 0 && w < nw; ++w) {
-      const unsigned b = s.mask[i * s.W + w];
-      if ((b >> lane) & 1u) {
-        float dx, dy, dz, d2;
-        in_cut(q, spos[w * 32 + lane], rcm, rcm_t, rc2, dx, dy, dz, d2);
-        const int k = row + s.pre[i * s.W + w] + __popc(b & below);
-        add_products<ENERGY, VIRIAL>(dx, dy, dz, U[k], S[k], acc);
-      }
+    const int cnt = base >= 0 ? s.rowoff[i + 1] - s.rowoff[i] : 0;
+    for (int e = lane; e < cnt; e += 32) {
+      float dx, dy, dz;
+      lane_d(q, s.spos[lane_candidate(s.mask + i * nw, s.pre + i * nw, nw,
+                                      e)],
+             dx, dy, dz);
+      add_products<ENERGY, VIRIAL>(dx, dy, dz, U[row + e], S[row + e],
+                                   acc);
     }
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
+      for (int o2 = 16; o2 > 0; o2 >>= 1)
+        acc[k] += __shfl_xor_sync(kFull, acc[k], o2);
     }
     if (lane == 0) {
-      const size_t out = home + stag[i];  // block 0: tag = rank
+      const size_t out = home + s.stag[i];  // block 0: tag = rank
 #pragma unroll
-      for (int k = 0; k < NCH; ++k) sums[k * kHalf * n_slots + out] = acc[k];
+      for (int k = 0; k < NCH; ++k)
+        sums[k * kHalf * n_slots + out] = acc[k];
     }
   }
 
-  // candidate sweep: the back sums of the directed blocks' slots
+  // candidate sweep: the back sums of the directed blocks' slots, rows
+  // in order, kBatch at a time: the batch's (U, s) loads are issued
+  // together, then its lanes are summed in row order
   for (int j = n0 + tid; j < total; j += kThreads) {
     float acc[NCH];
 #pragma unroll
     for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-    const float4 gj = spos[j];
+    const float4 gj = s.spos[j];
     const int w = j >> 5;
     const unsigned bit = 1u << (j & 31);
-    for (int i = 0; base >= 0 && i < n0; ++i) {
-      const unsigned m = s.mask[i * s.W + w];
-      if (m & bit) {
-        float dx, dy, dz, d2;
-        in_cut(spos[i], gj, rcm, rcm_t, rc2, dx, dy, dz, d2);
-        const int k = base + s.rowoff[i] + s.pre[i * s.W + w] +
-                      __popc(m & (bit - 1u));
-        add_products<ENERGY, VIRIAL>(dx, dy, dz, U[k], S[k], acc);
+    for (int i0 = 0; base >= 0 && i0 < n0; i0 += kBatch) {
+      float u[kBatch], sl[kBatch];
+      unsigned in = 0u;
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+        const int i = i0 + t;
+        const unsigned m = i < n0 ? s.mask[i * nw + w] : 0u;
+        u[t] = sl[t] = 0.f;
+        if (m & bit) {
+          const int k = base + s.rowoff[i] + s.pre[i * nw + w] +
+                        __popc(m & (bit - 1u));
+          u[t] = U[k];
+          sl[t] = S[k];
+          in |= 1u << t;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kBatch; ++t) {
+        if ((in >> t) & 1u) {
+          float dx, dy, dz;
+          lane_d(s.spos[i0 + t], gj, dx, dy, dz);
+          add_products<ENERGY, VIRIAL>(dx, dy, dz, u[t], sl[t], acc);
+        }
       }
     }
-    const int tag = stag[j];
+    const int tag = s.stag[j];
     const int t = tag / cap;
-    const size_t out = static_cast<size_t>(t) * n_slots + home + (tag - t * cap);
+    const size_t out =
+        static_cast<size_t>(t) * n_slots + home + (tag - t * cap);
 #pragma unroll
     for (int k = 0; k < NCH; ++k) sums[k * kHalf * n_slots + out] = acc[k];
   }
@@ -324,20 +518,24 @@ int allow_smem(const void* kernel, long smem) {
       static_cast<int>(smem)));
 }
 
+long reduce_smem_bytes(int cap) {
+  RSmem s;
+  return reduce_layout(cap, nullptr, &s);
+}
+
 template <bool ENERGY, bool VIRIAL>
-int launch_reduce(const float* pos, const int* types, const float* valid,
-                  const float* centers, const HalfGeom& g, int n_cells,
-                  const float* rcm, int rcm_t, float rc2, const int* cell_base,
-                  const float* U, const float* S, float* sums, float* forces4,
+int launch_reduce(const HalfGeom& g, int n_cells, const int* rec,
+                  const int* cell_base, const float* U, const float* S,
+                  float* sums, const float* valid, float* forces4,
                   float* virial, int* counter, int* needed,
                   cudaStream_t stream) {
-  const long smem = smem_bytes(g.cap);
+  const long smem = reduce_smem_bytes(g.cap);
   auto kernel = generic_reduce<ENERGY, VIRIAL>;
   int e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != 0) return e;
-  kernel<<<n_cells, kThreads, smem, stream>>>(pos, types, valid, centers, g,
-                                              rcm, rcm_t, rc2, cell_base, U, S,
-                                              sums, counter, needed);
+  kernel<<<n_cells, kThreads, smem, stream>>>(g, rec, rec_words(g.cap),
+                                              cell_base, U, S, sums, counter,
+                                              needed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_slots = n_cells * g.cap;
@@ -352,59 +550,67 @@ int launch_reduce(const float* pos, const int* types, const float* valid,
 
 extern "C" {
 
-// Shared-memory bytes one block of either kernel needs (the wrapper checks
-// the limit).
+// Shared-memory bytes one block of the list kernel and of the reduction
+// needs at capacity `cap` (the wrapper checks the limit); the 4-byte words
+// of a cell's record (the wrapper allocates n_cells of them).
 long htf_generic_smem(int cap) { return smem_bytes(cap); }
+long htf_generic_reduce_smem(int cap) { return reduce_smem_bytes(cap); }
+long htf_generic_record_words(int cap) { return rec_words(cap); }
 
 // The lane list: `pos` [n_slots][3], `types` [n_slots] int32 (or null when
 // untyped), `valid` [n_slots], `centers` [n_slots][3], `geom` a host
 // HalfGeom, `rcm` the [rcm_t][rcm_t] squared cutoffs (or null), `counter`
 // a zeroed device int, `cell_base` [n_cells] int32, `r2`, `ti`, `tj`
-// [budget] float32. Returns cudaGetLastError() after the launch (0 = ok).
+// [budget] float32, `rec` the cells' records (n_cells *
+// htf_generic_record_words int32), `sums` the reduction's
+// [nch][14][n_slots] scratch (the list kernel writes the zero back sums of
+// the slots the box test left out). Returns cudaGetLastError() after the
+// launch (0 = ok).
 int htf_generic_list(const float* pos, const int* types, const float* valid,
                      const float* centers, const HalfGeom* geom, int n_cells,
                      const float* rcm, int rcm_t, float rc2, float min_r2,
                      int budget, int* counter, int* cell_base, float* r2,
-                     float* ti, float* tj, void* stream) {
+                     float* ti, float* tj, int* rec, float* sums, int nch,
+                     void* stream) {
   const HalfGeom g = *geom;
   const long smem = smem_bytes(g.cap);
   int e = allow_smem(reinterpret_cast<const void*>(generic_list), smem);
   if (e != 0) return e;
-  generic_list<<<n_cells, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  generic_list<<<n_cells, kThreads, smem, st>>>(
       pos, types, valid, centers, g, rcm, rcm_t, rc2, min_r2, budget, counter,
-      cell_base, r2, ti, tj);
+      cell_base, r2, ti, tj, rec, rec_words(g.cap), sums, nch);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The reduction and the finish: `U`, `S` [budget] float32 the pair
-// function's values on the list, `sums` the [n_ch][14][n_slots] scratch,
-// `forces4` [n_slots][4], `virial` [n_slots][9] (or null), `needed` a
-// device int that receives the lanes the list needed. Launches
-// generic_reduce and half_stencil_home on `stream`.
-int htf_generic_reduce(const float* pos, const int* types, const float* valid,
-                       const float* centers, const HalfGeom* geom,
-                       int n_cells, const float* rcm, int rcm_t, float rc2,
+// The reduction and the finish: `rec` the list kernel's records, `U`, `S`
+// [budget] float32 the pair function's values on the list, `valid`
+// [n_slots], `sums` the [n_ch][14][n_slots] scratch, `forces4`
+// [n_slots][4], `virial` [n_slots][9] (or null), `needed` a device int
+// that receives the lanes the list needed. Launches generic_reduce and
+// half_stencil_home on `stream`.
+int htf_generic_reduce(const HalfGeom* geom, int n_cells, const int* rec,
                        const int* cell_base, const float* U, const float* S,
-                       int needs_energy, int needs_virial, float* sums,
-                       float* forces4, float* virial, int* counter,
-                       int* needed, void* stream) {
+                       int needs_energy, int needs_virial, const float* valid,
+                       float* sums, float* forces4, float* virial,
+                       int* counter, int* needed, void* stream) {
   const HalfGeom g = *geom;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (needs_energy && needs_virial)
-    return launch_reduce<true, true>(pos, types, valid, centers, g, n_cells,
-                                     rcm, rcm_t, rc2, cell_base, U, S, sums,
-                                     forces4, virial, counter, needed, s);
+    return launch_reduce<true, true>(g, n_cells, rec, cell_base, U, S, sums,
+                                     valid, forces4, virial, counter, needed,
+                                     st);
   if (needs_energy)
-    return launch_reduce<true, false>(pos, types, valid, centers, g, n_cells,
-                                      rcm, rcm_t, rc2, cell_base, U, S, sums,
-                                      forces4, virial, counter, needed, s);
+    return launch_reduce<true, false>(g, n_cells, rec, cell_base, U, S, sums,
+                                      valid, forces4, virial, counter, needed,
+                                      st);
   if (needs_virial)
-    return launch_reduce<false, true>(pos, types, valid, centers, g, n_cells,
-                                      rcm, rcm_t, rc2, cell_base, U, S, sums,
-                                      forces4, virial, counter, needed, s);
-  return launch_reduce<false, false>(pos, types, valid, centers, g, n_cells,
-                                     rcm, rcm_t, rc2, cell_base, U, S, sums,
-                                     forces4, virial, counter, needed, s);
+    return launch_reduce<false, true>(g, n_cells, rec, cell_base, U, S, sums,
+                                      valid, forces4, virial, counter, needed,
+                                      st);
+  return launch_reduce<false, false>(g, n_cells, rec, cell_base, U, S, sums,
+                                     valid, forces4, virial, counter, needed,
+                                     st);
 }
 
 const char* htf_generic_error_string(int code) {

@@ -42,8 +42,9 @@ and the optimizer's state back with it.
 Host syncs: ``run()`` reads the device back exactly once, after the
 step loop, in one packed copy (:meth:`Simulation._fetch_run_scalars`):
 the overflow and staleness bits, the running max cell occupancy, the
-running max speed and the per-step training losses stay device tensors
-until then. With ``check_syncs = True`` the step loop runs under
+running max speed, the most lanes K1's generic-form list needed (which
+sizes the next run's list) and the per-step training losses stay device
+tensors until then. With ``check_syncs = True`` the step loop runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any hidden sync raises.
 
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
@@ -140,6 +141,9 @@ class Simulation:
         #: packed neighbor-list builds made so far (particle-order route;
         #: with the cell list's 'pallas' method on CUDA each launches K3)
         self.nlist_builds = 0
+        #: runs rolled back and re-run because K1's generic-form list was
+        #: too short
+        self.lane_reruns = 0
         self._nlist_build = _UNBUILT
         self.state = None
         self.tfc = None
@@ -377,10 +381,14 @@ class Simulation:
                 form.tensor(self.device)
         self._form = form
         # the list of K1's generic form (a PairModel without a form, a
-        # probed SimModel); an overflow self-heal raises its floor
-        self._lanes = LaneBudget(
-            max(lane_budget(plan, self.state.n_particles),
-                getattr(self, "_lane_floor", 0)), self.device)
+        # probed SimModel): first estimated for the plan, then sized by
+        # each committed run's need, which depends on the cells and not
+        # on their capacity: a plan of the same cells keeps the list
+        key = (plan.grid, plan.lengths, plan.r_cut, self.state.n_particles)
+        if getattr(self, "_lanes_key", None) != key:
+            self._lanes = LaneBudget(
+                lane_budget(plan, self.state.n_particles), self.device)
+            self._lanes_key = key
         self._layout = layout
         return layout
 
@@ -651,17 +659,19 @@ class Simulation:
 
     def _fetch_run_scalars(self, flags, aux, losses=None):
         """The one packed device->host readback of a run(): flags, running
-        max occupancy, running max speed and the per-step training losses
-        (the floats bitcast into the int lanes)."""
+        max occupancy, running max speed, the most lanes K1's generic-form
+        list needed and the per-step training losses (the floats bitcast
+        into the int lanes)."""
         parts = [flags.to(torch.int32).reshape(1),
                  aux["occ_max"].to(torch.int32).reshape(1),
-                 aux["vmax"].to(torch.float32).reshape(1).view(torch.int32)]
+                 aux["vmax"].to(torch.float32).reshape(1).view(torch.int32),
+                 self._lanes.needed.to(torch.int32).reshape(1)]
         if losses is not None:
             parts.append(losses.to(torch.float32).view(torch.int32))
         packed = torch.cat(parts).cpu().numpy()
         return (int(packed[0]), int(packed[1]),
-                float(packed[2:3].view(np.float32)[0]),
-                packed[3:].view(np.float32))
+                float(packed[2:3].view(np.float32)[0]), int(packed[3]),
+                packed[4:].view(np.float32))
 
     # ------------------------------------------------------------------
     def run(self, n):
@@ -736,8 +746,9 @@ class Simulation:
                 st.virial = w
             # bit 3: K1's generic-form list was too short in some call
             flags = flags | (self._lanes.overflow().to(torch.int32) << 3)
-        flags_now, occ_now, vmax_now, losses = self._fetch_run_scalars(
-            flags, aux, None if tr is None else tr.losses)
+        flags_now, occ_now, vmax_now, lanes_now, losses = \
+            self._fetch_run_scalars(flags, aux,
+                                    None if tr is None else tr.losses)
         overflow, stale = bool(flags_now & 1), bool(flags_now & 2)
         short = bool(flags_now & 8)
         if short and tr is not None:
@@ -746,7 +757,7 @@ class Simulation:
             # forces of the cells that did not fit were left out: roll
             # back and re-run with a list sized from what was needed
             self._lanes.grow()
-            self._lane_floor = self._lanes.budget
+            self.lane_reruns += 1
             if allow_retry:
                 warnings.warn(
                     f"the pair list of K1's generic form was too short; "
@@ -791,6 +802,8 @@ class Simulation:
                     default=self._static_K_cap)
                 self._static_K_clean = 0
         if not overflow and not stale:
+            # the next run's generic-form list, from this run's need
+            self._lanes.fit(lanes_now)
             # running max occupancy and speed of committed runs, windowed
             # so transients age out; they calibrate replan() and K
             okey = (layout.plan.grid, layout.plan.lengths,

@@ -53,6 +53,7 @@ from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
            "half_stencil_pair_forces", "LaneBudget", "lane_budget",
+           "same_cell_share",
            "generic_list_plain", "generic_plain", "generic_pair_forces"]
 
 
@@ -363,34 +364,76 @@ def _library():
 # ----------------------------------------------------------------------
 # K1's generic form: a pair function the kernel cannot compile
 # ----------------------------------------------------------------------
-# the generic form's list: its headroom over the lanes expected or needed,
-# the plain version's mask work per chunk (elements of [cells, cap, 14 cap])
-# and its pair function's lanes per call
+# the generic form's list: the first estimate's headroom over the lanes
+# expected (also an overflow's over the lanes needed), the plain version's
+# mask work per chunk (elements of [cells, cap, 14 cap]) and its pair
+# function's lanes per call
 _HEADROOM = 1.25
 _LIST_CHUNK = 1 << 24
 _PAIR_CHUNK = 1 << 20
 
 
+@functools.lru_cache(maxsize=None)
+def same_cell_share(edges, r_cut, n=48):
+    """The probability that two points drawn uniformly in one cell of
+    edges ``edges`` lie within ``r_cut``: each axis' difference has the
+    density ``2 (e - x) / e^2`` on ``[0, e]``; a midpoint rule of ``n``
+    points per axis."""
+    axes, weights = [], []
+    for e in edges:
+        x = (np.arange(n) + 0.5) / n * e
+        axes.append(x)
+        weights.append(2.0 * (e - x) / e ** 2 * (e / n))
+    x, y, z = np.meshgrid(*axes, indexing="ij")
+    w = (weights[0][:, None, None] * weights[1][None, :, None] *
+         weights[2][None, None, :])
+    return float((w * (x * x + y * y + z * z <= r_cut ** 2)).sum())
+
+
 def lane_budget(plan, n_real):
-    """Lanes of K1's generic-form list for ``n_real`` particles on
-    ``plan``, with 25% headroom: per particle half its neighbors within
-    the cut (``2 pi / 3 r_cut^3 rho``) plus its cell's mean occupancy
-    (block 0 lists a cell's pairs in both orders, an upper bound on those
-    inside the cut)."""
+    """The first estimate of K1's generic-form list for ``n_real``
+    particles on ``plan``, before any run has counted its need: per
+    particle, half its neighbors within the cut (``2 pi / 3 r_cut^3
+    rho``, each pair once) plus half its cell's mean occupancy times the
+    share of a cell's pairs within the cut (:func:`same_cell_share`;
+    block 0 lists those in both orders), with 25% headroom."""
     rho = n_real / float(np.prod(plan.lengths))
-    per = 2.0 * np.pi / 3.0 * plan.r_cut ** 3 * rho + n_real / plan.n_cells
+    share = same_cell_share(tuple(float(e) for e in plan.edges),
+                            float(plan.r_cut))
+    per = (2.0 * np.pi / 3.0 * plan.r_cut ** 3 * rho +
+           0.5 * n_real / plan.n_cells * share)
     return int(np.ceil(_HEADROOM * n_real * per)) + 1024
+
+
+def _round_lanes(n):
+    """``n`` rounded up to a multiple of 1/64 of the power of two at or
+    below it (at most 1.6% more)."""
+    n = max(int(np.ceil(n)), 64)
+    step = 1 << (n.bit_length() - 7)
+    return -(-n // step) * step
 
 
 class LaneBudget:
     """The size of K1's generic-form list and, on the device, the most
     lanes a call has needed since :meth:`reset` (a running max; no host
     sync). ``budget`` lanes are evaluated by the pair function per call,
-    padding included."""
+    padding included.
+
+    The engine sizes it from what the runs need: :meth:`fit` after each
+    committed run (the need read in the run's one readback), and
+    :meth:`grow` after an overflow, which rolls the run back."""
+
+    #: a fitted budget over the need it was fitted to: the least margin
+    #: :meth:`fit` leaves for the next run's need to rise (phase 7 of
+    #: chip_smoke.py prints the rises), and the most budget / need at
+    #: which it keeps a larger list
+    headroom, shrink_above = 1.05, 1.12
 
     def __init__(self, budget, device):
         self.budget = int(budget)
         self.needed = torch.zeros((), dtype=torch.int32, device=device)
+        #: the most lanes the last committed run needed (a host int)
+        self.committed = None
 
     def reset(self):
         self.needed = torch.zeros_like(self.needed)
@@ -401,6 +444,22 @@ class LaneBudget:
     def overflow(self):
         """0-d bool device tensor: some call needed more than the budget."""
         return self.needed > self.budget
+
+    def fit(self, need):
+        """Size the list for the next run from ``need``, the most lanes a
+        committed run needed: ``headroom`` times it, rounded up by
+        :func:`_round_lanes`, unless the budget already lies within
+        ``[headroom, shrink_above]`` times it (so the list and the pair
+        function's buffers are not remade every run). Returns whether the
+        budget changed."""
+        need = int(need)
+        if need <= 0:
+            return False
+        self.committed = need
+        if self.headroom * need <= self.budget <= self.shrink_above * need:
+            return False
+        self.budget = _round_lanes(self.headroom * need)
+        return True
 
     def grow(self):
         """Raise the budget to 1.25 times the most lanes needed (one
@@ -581,12 +640,15 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
         rc_t = rc2_tab.shape[0]
         _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
     lib = _generic_library()
-    smem = lib.htf_generic_smem(plan.capacity)
+    smem = max(lib.htf_generic_smem(plan.capacity),
+               lib.htf_generic_reduce_smem(plan.capacity))
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
     budget = lanes.budget
-    counter, lst = _generic_buffers(dev, budget, plan.r_cut ** 2)
+    counter, lst, rec = _generic_buffers(
+        dev, budget, plan.r_cut ** 2,
+        plan.n_cells * lib.htf_generic_record_words(plan.capacity))
     r2, ti, tj = lst[0], lst[1], lst[2]
     n = plan.n_slots
     cell_base = torch.empty(plan.n_cells, dtype=torch.int32, device=dev)
@@ -603,7 +665,7 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     err = lib.htf_generic_list(*state, geom, plan.n_cells, rcm, rc_t, rc2,
                                float(min_r2), budget, _ptr(counter),
                                _ptr(cell_base), _ptr(r2), _ptr(ti), _ptr(tj),
-                               stream)
+                               _ptr(rec), _ptr(sums), n_ch, stream)
     if err != 0:
         counter.zero_()
         raise RuntimeError("generic list kernel launch failed: " +
@@ -614,11 +676,12 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
         counter.zero_()  # the reduction, which zeroes it, will not run
         raise
     U, S = U.contiguous(), S.contiguous()
-    err = lib.htf_generic_reduce(*state, geom, plan.n_cells, rcm, rc_t, rc2,
+    err = lib.htf_generic_reduce(geom, plan.n_cells, _ptr(rec),
                                  _ptr(cell_base), _ptr(U), _ptr(S),
                                  int(needs_energy), int(needs_virial),
-                                 _ptr(sums), _ptr(forces4), _ptr(virial),
-                                 _ptr(counter), _ptr(needed), stream)
+                                 _ptr(valid), _ptr(sums), _ptr(forces4),
+                                 _ptr(virial), _ptr(counter), _ptr(needed),
+                                 stream)
     if err != 0:
         counter.zero_()
         raise RuntimeError("generic reduction kernel launch failed: " +
@@ -631,22 +694,25 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
 #: calls that launched the generic form (three launches each)
 generic_pair_forces.launches = 0
 
-# per device: the lane counter (zero between calls) and the list buffer
+# per device: the lane counter (zero between calls), the list buffer
 # (budget, [3, budget] float32 r2, ti, tj), first filled with harmless
-# in-cut values; later calls leave earlier lanes' finite values in its tail
+# in-cut values, so that later calls leave earlier lanes' finite values in
+# its tail, and the cells' records the list kernel hands the reduction
 _GENERIC = {}
 
 
-def _generic_buffers(device, budget, rc2):
+def _generic_buffers(device, budget, rc2, rec_words):
     key = str(device)
-    counter, lst = _GENERIC.get(key, (None, None))
+    counter, lst, rec = _GENERIC.get(key, (None, None, None))
     if counter is None:
         counter = torch.zeros(1, dtype=torch.int32, device=device)
     if lst is None or lst.shape[1] != budget:
         lst = torch.zeros((3, budget), dtype=torch.float32, device=device)
         lst[0] = rc2
-    _GENERIC[key] = (counter, lst)
-    return counter, lst
+    if rec is None or rec.numel() != rec_words:
+        rec = torch.zeros(rec_words, dtype=torch.int32, device=device)
+    _GENERIC[key] = (counter, lst, rec)
+    return counter, lst, rec
 
 
 _GLIB = None
@@ -663,14 +729,19 @@ def _generic_library():
         geo = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
         lib.htf_generic_list.argtypes = (
             state + geo + [ctypes.c_float, ctypes.c_int] +
-            [ctypes.c_void_p] * 6)
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
         lib.htf_generic_list.restype = ctypes.c_int
         lib.htf_generic_reduce.argtypes = (
-            state + geo + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 +
-            [ctypes.c_void_p] * 6)
+            [ctypes.c_void_p, ctypes.c_int] +
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 +
+            [ctypes.c_void_p] * 7)
         lib.htf_generic_reduce.restype = ctypes.c_int
         lib.htf_generic_smem.argtypes = [ctypes.c_int]
         lib.htf_generic_smem.restype = ctypes.c_long
+        lib.htf_generic_reduce_smem.argtypes = [ctypes.c_int]
+        lib.htf_generic_reduce_smem.restype = ctypes.c_long
+        lib.htf_generic_record_words.argtypes = [ctypes.c_int]
+        lib.htf_generic_record_words.restype = ctypes.c_long
         lib.htf_generic_error_string.argtypes = [ctypes.c_int]
         lib.htf_generic_error_string.restype = ctypes.c_char_p
         _GLIB = lib

@@ -3,11 +3,13 @@
 (``--mode train``, north_star.py's flagship row) or the 64k eval step
 (``--mode eval``, the bench protocol), through the port's public API; or
 (``--mode calls``) the whole calls of kernels K1, K2 and K3 alone; or
-(``--mode k3parts``) where K3's time goes.
+(``--mode k3parts``, ``--mode genparts``) where the time of K3, or of K1's
+generic form, goes.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 profile_step.py [--mode train|eval|calls|k3parts] [--steps 50]
+    python3 profile_step.py [--mode train|eval|calls|k3parts|genparts]
+                            [--steps 50]
     python3 profile_step.py --mode calls --tree DIR
 
 ``--tree DIR`` imports the port's package from another checkout (an
@@ -49,6 +51,16 @@ without the ranking, without the candidate loop, without the queries
 (staging only), and without the minimum image of the chunks that the
 |d| <= t0 vote sends to it. The variants' lists are wrong by design;
 the differences say where the kernel's time goes.
+
+``--mode genparts`` times K1's generic form (``generic_list``,
+``generic_reduce`` and the finish, each alone by the profiler) at phase
+7's plan, as built and with one part of its work taken out by a text
+edit of ``csrc/cellwise_generic.cu`` (``GEN_PARTS``), compiled in a
+temporary directory: the staging only; without the marking (the cut
+test replaced by an index rule); without the list writes and the
+reduction's sweeps. With ``--tree DIR`` it edits and times that
+checkout's source. It also gives the whole call at the list
+the engine sized, and the pair function's share of its device time.
 
 The profiler adds host overhead, so the wall time and busy share under it
 are of a profiled run; the per-part times are not.
@@ -394,9 +406,152 @@ def k3_parts(cs):
             "strip": p.strip, "warps": p.warps, "kernel_ms": out}
 
 
+#: part of K1's generic form -> its edits of csrc/cellwise_generic.cu, one
+#: set of (anchor, replacement) pairs for each design of the source: PR
+#: 7's (both kernels stage and mark) and the list kernel that hands each
+#: cell's record to the reduction. A part applies the first set whose
+#: anchors are all in the source, and a source none of whose sets applies
+#: whole is refused.
+GEN_PARTS = {
+    "as built": ((),),
+    "staging only": (
+        # both kernels stage and mark: return after the staging
+        (("  const int n_lanes = mark_lanes(spos, n0, total, rcm, rcm_t, "
+          "rc2, s);",
+          "  if (total >= 0) return;\n  const int n_lanes = mark_lanes("
+          "spos, n0, total, rcm, rcm_t, rc2, s);"),
+         ("  mark_lanes(spos, n0, total, rcm, rcm_t, rc2, s);\n"
+          "  const int base = cell_base[c];",
+          "  if (total >= 0) return;\n  const int base = cell_base[c];")),
+        # the record: the list returns after the staging, the reduction
+        # after reading the record into shared memory
+        (("  mark_lanes(n0, total, rcm, rcm_t, rc2, s);\n  if (tid == 0) {",
+          "  if (total >= 0) return;\n"
+          "  mark_lanes(n0, total, rcm, rcm_t, rc2, s);\n  if (tid == 0) {"),
+         ("  __syncthreads();\n  const size_t home = static_cast<size_t>(c) "
+          "* cap;",
+          "  __syncthreads();\n  if (n0 >= 0) return;\n"
+          "  const size_t home = static_cast<size_t>(c) * cap;")),
+    ),
+    "without the marking": (
+        # the cut test's arithmetic replaced by an index rule that keeps
+        # a similar share of the lanes (1 in 8)
+        (("        ok = in_cut(q, spos[j], rcm, rcm_t, rc2, dx, dy, dz, "
+          "d2);",
+          "        ok = (j & 7) == (i & 7);"),),
+        (("        ok = in_cut(q, g, rcm, rcm_t, rc2, dx, dy, dz, d2);",
+          "        ok = (j & 7) == (i & 7);"),),
+    ),
+    "without the list writes and sweeps": (
+        (("  if (base < 0) return;", "  if (base >= -1) return;"),
+         ("  const int base = cell_base[c];  // -1: the cell's lanes are "
+          "not listed",
+          "  const int base = -1;")),
+    ),
+}
+
+
+def gen_part_source(src, part):
+    """``src`` with GEN_PARTS[part] applied: the first of the part's edit
+    sets whose anchors are all in ``src``."""
+    for edits in GEN_PARTS[part]:
+        if all(old in src for old, _ in edits):
+            for old, new in edits:
+                src = src.replace(old, new)
+            return src
+    raise RuntimeError(f"GEN_PARTS: no design of {part!r} has all its "
+                       "anchors in csrc/cellwise_generic.cu")
+
+
+def gen_parts(cs):
+    """K1's generic form at phase 7's plan (LJPotential(64) on
+    'cellwise', quenched, then phase 7's warm NVT runs), each of its
+    kernels alone by the profiler: as built and without one part of its
+    work (GEN_PARTS), each a text edit of ``csrc/cellwise_generic.cu``
+    built with the package's flags. The list is given three times the
+    lanes needed, so no variant overflows it. Also the whole call by CUDA
+    events and the pair function's share of its device time."""
+    import subprocess
+    import tempfile
+    from hoomd_tf_tpu_torch import _build
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops.lane_fast import synthesize_pair_fn
+    torch, htt = cs.torch, cs.htt
+    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    model = htt.LJPotential(64)
+    htt.tfcompute(model).attach(sim, r_cut=cs.R_CUT, nlist="cellwise")
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    for _ in range(4):  # phase 7's warm runs: until the plan settles
+        plan = sim._layout.plan
+        sim.run(1000)
+        if sim._layout.plan == plan:
+            break
+    plan = sim._layout.plan
+    layout = SlotLayout(plan, cs.N, sim._lo, device="cuda")
+    slot, aux = cs.slot_state(layout, sim.state)
+    fn = synthesize_pair_fn(model, slot.box)
+    args = (slot.positions, slot.types, aux["valid"], plan, layout.lo, fn)
+    kw = dict(min_r2=1e-4, geometry=layout.geometry, needs_energy=False)
+    probe = cc.LaneBudget(cc.lane_budget(plan, cs.N), "cuda")
+    cc.generic_pair_forces(*args, lanes=probe, **kw)
+    needed = int(probe.needed)
+    lanes = cc.LaneBudget(3 * needed, "cuda")
+    engine = cc.LaneBudget(sim._lanes.budget, "cuda")
+    src = (_build._PKG / "csrc" / "cellwise_generic.cu").read_text()
+    names = ("generic_list", "generic_reduce", "half_stencil_home")
+    out, whole = {}, {}
+    real_build = _build.build_shared_library
+    csrc = str(_build._PKG / "csrc")
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in GEN_PARTS:
+            # the edited source compiles in the temporary directory, its
+            # headers from the package's csrc/
+            cu, so = f"{tmp}/generic.cu", f"{tmp}/gen_{len(out)}.so"
+            with open(cu, "w") as f:
+                f.write(gen_part_source(src, part))
+            subprocess.run([_build._nvcc(), *_build._FLAGS, "-I", csrc,
+                            "-o", so, cu], check=True, capture_output=True)
+            _build.build_shared_library = lambda name, so=so: so
+            cc._GLIB = None
+            try:
+                cc._generic_library()
+            finally:
+                _build.build_shared_library = real_build
+            call = (lambda: cc.generic_pair_forces(*args, lanes=lanes, **kw))
+            got, dev_ms, _, each = cs.profiled_calls(call)
+            per = {k: 0.0 for k in names}
+            for name, ms in zip(got, each):
+                for k in names:
+                    if k in name:
+                        per[k] += ms / cs.PROFILED_CALLS
+            per["all kernels of a call"] = dev_ms / cs.PROFILED_CALLS
+            out[part] = per
+            if part == "as built":
+                # the whole call with the list the engine sized
+                call = (lambda: cc.generic_pair_forces(
+                    *args, lanes=engine, **kw))
+                got, dev_ms, _, _ = cs.profiled_calls(call)
+                whole = {"ms": cs.cuda_ms(call, reps=11),
+                         "list_budget": engine.budget,
+                         "all_kernels_ms": dev_ms / cs.PROFILED_CALLS,
+                         "kernels_per_call": len(got) / cs.PROFILED_CALLS,
+                         "pair_function_share": 1.0 - sum(
+                             per[k] for k in names) / dev_ms *
+                         cs.PROFILED_CALLS}
+    cc._GLIB = None
+    torch.cuda.synchronize()
+    return {"plan": [list(plan.grid), plan.capacity], "lanes_needed": needed,
+            "whole_call": whole, "kernel_ms": out}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("train", "eval", "calls", "k3parts"),
+    ap.add_argument("--mode", choices=("train", "eval", "calls", "k3parts",
+                                       "genparts"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--tree", default=HERE,
@@ -419,6 +574,11 @@ def main():
         print(json.dumps({"mode": "k3parts", "device":
                           torch.cuda.get_device_name(0),
                           "smi": cs.smi_line(), **k3_parts(cs)}, indent=1))
+        return 0
+    if args.mode == "genparts":
+        print(json.dumps({"mode": "genparts", "tree": os.path.abspath(
+            args.tree), "device": torch.cuda.get_device_name(0),
+            "smi": cs.smi_line(), **gen_parts(cs)}, indent=1))
         return 0
     if args.mode == "calls":
         print(json.dumps({"mode": "calls", "tree": os.path.abspath(

@@ -787,3 +787,97 @@ def test_k3_dynamic_smem_just_under_48kb(cuda_device):
                                   for a in args]))
     np.testing.assert_array_equal(got[..., 3], want[..., 3])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("capacity", [64, 52, 29])
+def test_generic_kernels_match_plain_at_capacities(cuda_device, typed,
+                                                   capacity):
+    """The list and reduction kernels, handing each cell's record through
+    device memory, against the plain version on the CPU at capacity 64
+    and 52 (the 64k fluid's plans) and 29 (rows of no multiple of 16
+    bytes), typed with a cutoff table and untyped; the lanes needed agree
+    exactly."""
+    outs, needed = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, typed, capacity)
+        lanes = tcc.LaneBudget(tcc.lane_budget(layout.plan, 500), dev)
+        f, w = tcc.generic_pair_forces(
+            slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, morse_yukawa, needs_virial=True,
+            rc2_tab=layout.rc2_tab, geometry=layout.geometry, lanes=lanes)
+        assert not bool(lanes.overflow())
+        needed.append(int(lanes.needed))
+        outs.append((np_(f), np_(w)))
+    assert needed[0] == needed[1] > 0
+    np.testing.assert_allclose(outs[0][0], outs[1][0], **TOL)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], **TOL)
+
+
+def test_generic_records_across_capacities_bit_equal(cuda_device):
+    """Calls at the default capacity, at 200 (a larger record per cell,
+    the records' buffer remade) and at the default again give the same
+    bits as the first call, call after call."""
+    runs = {}
+    for capacity in (None, 200, None, 200):
+        layout, slot, aux = packed(cuda_device, True, capacity)
+        lanes = tcc.LaneBudget(tcc.lane_budget(layout.plan, 500),
+                               cuda_device)
+        for _ in range(2):
+            f, w = tcc.generic_pair_forces(
+                slot.positions, slot.types, aux["valid"], layout.plan,
+                layout.lo, morse_yukawa, needs_virial=True,
+                rc2_tab=layout.rc2_tab, geometry=layout.geometry,
+                lanes=lanes)
+            assert not bool(lanes.overflow())
+            if capacity not in runs:
+                runs[capacity] = (f, w)
+            torch.testing.assert_close(f, runs[capacity][0], rtol=0, atol=0)
+            torch.testing.assert_close(w, runs[capacity][1], rtol=0, atol=0)
+
+
+def test_generic_short_list_sets_flag_bit_3(cuda_device):
+    """A list forced short in the engine's step loop sets bit 3 of the
+    run's flags, the run rolls back and re-runs once with a list sized
+    from the need, and ends as a run with a generous list does; the next
+    runs fit the list to their need and re-run nothing."""
+    states = []
+    for short in (False, True):
+        sim = htt.Simulation(dt=0.005, integrator=htt.md.Minimize(0.05),
+                             seed=3, device=cuda_device)
+        sim.init_lattice(4096, density=0.4, kT_init=1.5)
+        sim.state.positions = sim.state.positions + torch.as_tensor(
+            0.3 * np.random.RandomState(0).randn(4096, 3).astype(np.float32),
+            device=cuda_device)
+        tfc = htt.tfcompute(htt.LJPotential(64))
+        tfc.attach(sim, r_cut=3.0, nlist="cellwise")
+        sim.run(30)
+        assert tfc._lane_fast_ok is True
+        sim.thermalize_velocities(1.5)
+        sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+        sim.run(200)
+        sim.lane_reruns = 0
+        seen = []
+        fetch = sim._fetch_run_scalars
+
+        def spy(*a, **k):
+            out = fetch(*a, **k)
+            seen.append(out[0])
+            return out
+        sim._fetch_run_scalars = spy
+        sim.check_syncs = True
+        if short:
+            sim._lanes.budget = 10
+            with pytest.warns(UserWarning, match="too short"):
+                sim.run(20)
+            assert seen[0] & 8 and not seen[1] & 8
+            assert sim.lane_reruns == 1
+        else:
+            sim._lanes.budget = 10 ** 7
+            sim.run(20)
+        states.append(sim.state.positions.clone())
+        for _ in range(3):
+            sim.run(20)
+            assert sim._lanes.budget <= 1.12 * sim._lanes.committed
+        assert sim.lane_reruns == int(short)
+    torch.testing.assert_close(states[1], states[0], rtol=0, atol=1e-6)
