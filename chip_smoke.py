@@ -67,7 +67,23 @@ exits non-zero:
                in row chunks) at one state;
 9. direct   -- LJPotential(64) with nlist='direct' from phase 7's fluid:
                its forces against the packed K3 route (NN 128) at one
-               state, then a timed run(500), host syncs forbidden.
+               state, then a timed run(500), host syncs forbidden;
+10. train-pair -- north_star.py's non-proxy PairModel row through the
+               public API at N = 65536: TrainableNNPair(64) (MLP on 1/r,
+               16 -> 1) trained with Adam at lr 1e-2 against the built-in
+               LJ with phase 5's protocol (1400 committed steps, host
+               syncs forbidden): K1's generic form forward and the
+               backward kernel generic_reduce_bwd at every train step, K1's
+               LJ form for the labels; the loss must fall below 0.3x; the
+               parts of one step by CUDA events and the peak memory; then
+               generic_reduce_bwd against its plain version lane by lane
+               and the weights' gradient against the lane contraction, and
+               the training forward against its plain version;
+11. train-generic -- north_star.py's generic SimModel row (TrainableNN(64),
+               reference example 08's form): the probe must validate it,
+               then as phase 10 through its synthesized pair function;
+12. train-packed -- reference example 08's NNPotential trained on the
+               packed path (K3) at N = 4096 with period 2, 200 steps.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -241,6 +257,50 @@ def make_nn(seed=0, proxy_degree=K_PROXY):
             x = torch.tanh(self.dense1(torch.rsqrt(r2)[..., None]))
             return 2.0 * self.last(x)[..., 0]
     return NNPair(64, output_forces=False, proxy_degree=proxy_degree)
+
+
+def make_nn_generic(seed=0):
+    """north_star.py's TrainableNN, reference example 08's form: a
+    generic SimModel, the same MLP on 1/r (widths 16 -> 1) summed over a
+    particle's neighbors, forces by autograd, its output forces[:, :3];
+    random weights from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    class TrainableNN(htt.SimModel):
+        def setup(self):
+            self.dense1 = htt.Dense(16, generator=gen)
+            self.last = htt.Dense(1, generator=gen)
+
+        def compute(self, nlist, positions, box):
+            rinv = htt.nlist_rinv(nlist)
+            x = torch.tanh(self.dense1(rinv[..., None]))
+            e = torch.sum(self.last(x)[..., 0], dim=1)
+            return htt.compute_nlist_forces(nlist, e)[:, :3]
+    return TrainableNN(64, output_forces=False)
+
+
+def make_nn_potential(nn=64, seed=0):
+    """Reference example 08's NNPotential (examples/08): an RBF expansion
+    (16) of the 16 nearest neighbors' distances, Dense(16) with tanh,
+    Dense(1) without bias, forces by autograd; weights from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    class NNPotential(htt.SimModel):
+        def setup(self, dim=16, top_neighs=16):
+            self.rbf = htt.RBFExpansion(0.5, 3.0, dim)
+            self.dense1 = htt.Dense(dim, generator=gen)
+            self.last = htt.Dense(1, use_bias=False, generator=gen)
+            self.top_neighs = top_neighs
+
+        def compute(self, nlist, positions, box, training=False):
+            rinv = htt.nlist_rinv(nlist)
+            top = torch.sort(rinv, dim=1, descending=True)[0][
+                :, :self.top_neighs]
+            x = self.rbf(htt.divide_no_nan(torch.ones_like(top), top))
+            x = torch.tanh(self.dense1(x))
+            energy = torch.sum(self.last(x), dim=(1, 2))
+            return htt.compute_nlist_forces(nlist, energy)
+    return NNPotential(nn, output_forces=False)
 
 
 def force_loss(yt, yp):
@@ -1068,11 +1128,12 @@ def phase_main():
     return launches
 
 
-def train_sim_attached():
-    """north_star.py's flagship set-up on the port: the 64k fluid quenched
-    and equilibrated (NVT, 400 steps) under a built-in LJ, which stays as
-    the labels and the driving forces, then the proxy NN compiled (Adam,
-    lr 1e-2) and attached with train=True: ``(sim, model)``."""
+def train_sim_attached(model=None, loss=None):
+    """north_star.py's set-up on the port: the 64k fluid quenched and
+    equilibrated (NVT, 400 steps) under a built-in LJ, which stays as the
+    labels and the driving forces, then the model (default: the flagship
+    row's proxy NN, force-matching loss) compiled (Adam, lr 1e-2) and
+    attached with train=True: ``(sim, model)``."""
     sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda")
     sim.add_force(htt.md.LennardJones(r_cut=R_CUT))
     sim.run(60)
@@ -1083,8 +1144,9 @@ def train_sim_attached():
     print(f"  equilibrated: T={th['temperature']:.4f}")
     check(1.1 < th["temperature"] < 1.9,
           f"training system is not a healthy kT=1.5 fluid: {th}")
-    model = make_nn()
-    model.compile(optimizer="adam", loss=force_loss, learning_rate=1e-2)
+    model = make_nn() if model is None else model
+    model.compile(optimizer="adam", loss=loss or force_loss,
+                  learning_rate=1e-2)
     htt.tfcompute(model).attach(sim, r_cut=R_CUT, nlist="cellwise",
                                 train=True)
     return sim, model
@@ -1317,6 +1379,347 @@ def phase_train_small():
     check(worst < 1e-3, "small-N training disagrees with the CPU run")
 
 
+def generic_train_parts(sim):
+    """Each part of a train step of the list route alone at the run's
+    state, CUDA-event medians in ms: the labels (K1, LJ form), the forward
+    (the list kernel, the pair function with grad, the reduction), the
+    backward kernel, the pair function's backward, Adam, and the whole
+    update; plus the trainer and the forward's list for the kernel
+    checks."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    layout = sim._layout
+    st, aux = slot_state(layout, sim.state)
+    tr = sim._route(layout, st, aux).trainer
+    model = sim.tfc.model
+    lj, lj_form = sim.forces[0], sim._builtin_forms[0]
+    common = (st.positions, st.types, aux["valid"], layout.plan, layout.lo)
+
+    def labels():
+        return cw.analytic_pair_forces(
+            *common, lj.pair_energy_and_slope, needs_virial=False,
+            with_types=True, needs_energy=False, form=lj_form,
+            stencil="kernel", geometry=layout.geometry)[0]
+
+    def forward():
+        gl = cc.generic_list(*common, typed_fn=tr.typed, min_r2=tr.min_r2,
+                             rc2_tab=layout.rc2_tab,
+                             geometry=layout.geometry, lanes=sim._lanes,
+                             needs_energy=tr.energy)
+        U, S = gl.evaluate(tr.pair_fn, grad=True)
+        f4 = cc.GenericReduce.apply(U if tr.energy else U.detach(), S, gl,
+                                    tr.energy)
+        return gl, U, S, f4
+
+    out = {"labels: K1 LJ form, whole call": cuda_ms(labels, reps=15),
+           "forward: list kernel + pair function (grad) + reduction":
+           cuda_ms(forward, reps=15)}
+    gl, U, S, f4 = forward()
+    ct = torch.randn((layout.plan.n_slots, 4), device="cuda")
+    ct[:, 3] = 0.0
+    gU, gS = cc.generic_reduce_bwd(gl, ct, tr.energy)
+    out["backward kernel: generic_reduce_bwd"] = cuda_ms(
+        lambda: cc.generic_reduce_bwd(gl, ct, tr.energy), reps=25)
+    outs, grads = [S], [gS]
+    if tr.energy:
+        outs, grads = [U, S], [gU, gS]
+    out["pair function's backward (autograd, double backward of the "
+        "slope)"] = cuda_ms(lambda: torch.autograd.grad(
+            outs, tr.params, grads, retain_graph=True, allow_unused=True),
+        reps=15)
+
+    def whole():
+        with torch.enable_grad():
+            pred = tr.forces(st, aux, layout)[:, :tr.cols]
+            loss = model.compute_loss([pred], labels())
+        tr.opt.zero_grad()
+        loss.backward()
+        tr.opt.step()
+    out["train update: labels + forward + loss + backward + Adam (no MD)"] = \
+        cuda_ms(whole, reps=15)
+    out["Adam step"] = cuda_ms(tr.opt.step, reps=25)
+    return out, tr, st, aux
+
+
+def phase_train_generic(label, model, loss):
+    """Phases 10 and 11: north_star.py's non-proxy rows on the port at
+    N = 65536, with phase 5's protocol (the set-up of
+    :func:`train_sim_attached`, :func:`warm_train`, four timed run(200),
+    1400 committed steps), under check_syncs: K1's generic form forward
+    and the backward kernel at every train step, K1's LJ form for the
+    labels."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    gen, bwd = cc.generic_pair_forces, cc.generic_reduce_bwd
+    k1 = cc.half_stencil_pair_forces
+    sim, model = train_sim_attached(model, loss)
+    tfc = sim.tfc
+    sim.check_syncs = True
+    gen.launches = bwd.launches = k1.launches = k1.proxy_launches = 0
+    evals0, steps0, probe0 = sim.force_evals, sim.train_steps, \
+        sim.probe_evals
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm_train(sim)
+    warm_s = time.perf_counter() - t0
+    hist = tfc.loss_history
+    loss0 = float(np.mean(hist[:50]))
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(200)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(gen=gen.launches, bwd=bwd.launches, lj=k1.launches)
+    steps = sim.train_steps - steps0
+    evals = sim.force_evals - evals0
+    probes = sim.probe_evals - probe0
+    loss1 = float(np.mean(hist[-50:]))
+    th = sim.thermo()
+    report = tfc._lane_fast_report
+    print(f"  probe verdict {tfc._lane_fast_ok}: " + (
+        report.get("error") or
+        f"max err per column {report.get('err')}, limits "
+        f"{report.get('limit')}, {report.get('rows_at_the_cut')} rows at "
+        "the cut left out" if report else "(a PairModel: no probe)"))
+    check(len(hist) == 1400 <= steps,
+          f"{len(hist)} losses of committed steps, {steps} steps attempted")
+    check(bool(np.isfinite(hist).all()), "non-finite training loss")
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(bool(torch.isfinite(sim.state.forces).all()), "non-finite forces")
+    check(1.1 < th["temperature"] < 1.9, f"unhealthy fluid after: {th}")
+    check(launches["bwd"] == steps,
+          f"backward-kernel launches {launches['bwd']} != train steps "
+          f"{steps}")
+    check(launches["gen"] == steps + probes,
+          f"generic-form launches {launches['gen']} != train steps {steps} "
+          f"+ probe validations {probes}")
+    check(k1.proxy_launches == 0, "a proxy form launched")
+    check(launches["lj"] == evals - launches["gen"],
+          f"K1 LJ launches {launches['lj']} != label evaluations "
+          f"{evals - launches['gen']}")
+    check(loss1 < 0.3 * loss0, f"loss did not fall: {loss0} -> {loss1}")
+    plan = sim._layout.plan
+    best = min(times)
+    need = sim._lanes.committed
+    print(f"  plan grid {plan.grid} cap {plan.capacity}; list budget "
+          f"{sim._lanes.budget} lanes for a need of {need}, list re-runs "
+          f"{sim.lane_reruns}; T={th['temperature']:.4f}; warm training "
+          f"{warm_s:.1f} s")
+    print(f"  train steps: 1400 committed, {steps} attempted; launches: "
+          f"generic forward {launches['gen']} == train steps + {probes} probe "
+          f"validations, generic_reduce_bwd {launches['bwd']} == train "
+          f"steps, K1 LJ {launches['lj']} == label evaluations; no host "
+          f"sync in the step loops")
+    print(f"  loss (50-step windows) {loss0:.4f} -> {loss1:.4f} (ratio "
+          f"{loss1 / loss0:.4f}, limit 0.3)")
+    print(f"  train steps/s {200 / best:.2f} (best of 4 timed run(200), "
+          f"rounds {[round(t, 3) for t in times]} s, N={N}); peak device "
+          f"memory {peak / 1e9:.2f} GB; on {smi_line()} -- info, not a claim")
+    parts, tr, st, aux = generic_train_parts(sim)
+    print(f"  trainer branch {tr.kind!r}; one train step's parts alone "
+          "(CUDA events, median ms): " +
+          "; ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    return sim, tr, st, aux, launches, parts
+
+
+def bwd_cost(gl, needed, energy):
+    """Bytes and float32 operations of the function generic_reduce_bwd
+    computes on this list: each listed cell's record (the words its
+    header says it uses) read once, the cell bases, ``ct`` [n_slots, 4]
+    and ``valid`` read once, the budget's lanes of gS (and gU) written
+    once; per listed lane the displacement (3), the row and candidate
+    weights (8 + 4) and the dot product (5)."""
+    plan = gl.plan
+    hdr = gl.rec.view(plan.n_cells, -1)[:, :3].long()
+    n0, total, nw = hdr[:, 0], hdr[:, 1], hdr[:, 2]
+    words = 4 + 5 * total + n0 + 1 + n0 * nw + (n0 * nw + 1) // 2
+    nbytes = (4 * int(words.sum()) + 4 * plan.n_cells +
+              plan.n_slots * 4 * (4 + 1) + gl.budget * 4 * (1 + energy))
+    return nbytes, 20 * needed
+
+
+def phase_bwd_kernel(sim, tr, st, aux):
+    """generic_reduce_bwd at phase 10's state against its plain version,
+    lane by lane (rtol = atol = 1e-4), the tail zero; its time, the plain
+    version's and the bound; the weights' gradient of the list route
+    against the lane contraction (the CPU's oracle, run here on the card:
+    rtol 2e-4, atol 2e-5 max|g|)."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    layout = sim._layout
+    plan = layout.plan
+    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+    lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    ct = torch.as_tensor(__import__("numpy").random.RandomState(0).randn(
+        plan.n_slots, 4).astype("float32"), device="cuda")
+    lst = cc.generic_list_plain(*common, min_r2=tr.min_r2,
+                                rc2_tab=layout.rc2_tab,
+                                geometry=layout.geometry, typed=tr.typed)
+    err = 0.0
+    rec = None
+    for energy in (False, True):
+        lanes.reset()
+        gl = cc.generic_list(*common, typed_fn=tr.typed, min_r2=tr.min_r2,
+                             rc2_tab=layout.rc2_tab,
+                             geometry=layout.geometry, lanes=lanes,
+                             needs_energy=energy)
+        U, S = gl.evaluate(tr.pair_fn)
+        cc.generic_reduce(gl, U, S, energy)
+        gU, gS = cc.generic_reduce_bwd(gl, ct, energy)
+        pU, pS = cc.generic_reduce_bwd_plain(lst, ct, aux["valid"], plan,
+                                             energy)
+        need = int(lanes.needed)
+        check(not bool(lanes.overflow()), "the list overflowed")
+        idx = cc.kernel_lane_index(lst, gl.cell_base, plan)
+        check(need == lst["needed"] and bool(torch.equal(
+            torch.sort(idx).values, torch.arange(need, device="cuda"))),
+            "the kernel's list and the plain list differ")
+        torch.cuda.synchronize()
+        label = "with energy" if energy else "forces only (the train path)"
+        err = max(err, compare(f"generic_reduce_bwd gS, {label} (kernel vs "
+                               "plain, lane by lane)", gS[idx], pS))
+        check(int(torch.count_nonzero(gS[need:])) == 0,
+              "the list's tail carries a gradient")
+        if energy:
+            err = max(err, compare("generic_reduce_bwd gU (kernel vs plain)",
+                                   gU[idx], pU))
+            check(int(torch.count_nonzero(gU[need:])) == 0,
+                  "the list's tail carries a gradient")
+            continue
+        t_k = cuda_ms(lambda: cc.generic_reduce_bwd(gl, ct, False))
+        t_p = cuda_ms(lambda: cc.generic_reduce_bwd_plain(
+            lst, ct, aux["valid"], plan, False), reps=5)
+        nbytes, ops = bwd_cost(gl, need, False)
+        b_ms, b_by = bound(nbytes, ops)
+        rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+        print(f"  generic_reduce_bwd (forces only): kernel {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.4f} G operations); "
+              f"{need} lanes of a {gl.budget}-lane list")
+    rec["max_abs_err"] = err
+    list_vs_contract(sim, tr, st, aux, ct, lanes)
+    return rec
+
+
+def list_vs_contract(sim, tr, st, aux, ct, lanes):
+    """The weights' gradient of <ct, forces> (forces only) by the list
+    route against the lane contraction, the CPU's oracle, run here on the
+    card in chunks: rtol 2e-4, atol 2e-5 max|g|."""
+    from hoomd_tf_tpu_torch.md.simulation import _module_pair_apply
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train as pt
+    layout = sim._layout
+    plan = layout.plan
+    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+    ct = ct.clone()
+    ct[:, 3] = 0.0
+    params = tr.params
+    f4 = cc.generic_train_forces(*common, tr.pair_fn, typed_fn=tr.typed,
+                                 min_r2=tr.min_r2, rc2_tab=layout.rc2_tab,
+                                 needs_energy=tr.energy,
+                                 geometry=layout.geometry, lanes=lanes)
+    g_list = torch.autograd.grad(torch.sum(f4 * ct), params,
+                                 allow_unused=True)
+    named = {k: v for k, v in tr.model.named_parameters() if v.requires_grad}
+    run = pt._Run(list(named), _module_pair_apply(tr.model, tr.pair_fn),
+                  st.positions, st.types, aux["valid"], plan, layout.lo,
+                  tr.min_r2, tr.typed, layout.rc2_tab, tr.energy, "auto",
+                  "generic", layout.geometry)
+    g_con = dict(zip(named, run._contract(list(named.values()), ct,
+                                          chunk_lanes=1 << 22)))
+    by_id = {id(v): g_con[k] for k, v in named.items()}
+    scale = max(float(by_id[id(p)].abs().max()) for p in params)
+    for i, (p, g) in enumerate(zip(params, g_list)):
+        g = torch.zeros_like(p) if g is None else g
+        compare(f"weights' gradient {i}, list route vs lane contraction",
+                g, by_id[id(p)], rtol=K2_RTOL, atol=K2_ATOL_REL * scale)
+
+
+def generic_forward_row(sim, tr, st, aux):
+    """The training forward of phase 10 as a kernel row: its whole call
+    (list kernel, the pair function with grad, reduction) by CUDA events
+    against the plain version (the same function, no grad) and K1's
+    generic-form bound at this list's need."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    layout = sim._layout
+    common = (st.positions, st.types, aux["valid"], layout.plan, layout.lo)
+    lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    kw = dict(min_r2=tr.min_r2, rc2_tab=layout.rc2_tab,
+              needs_energy=tr.energy, geometry=layout.geometry)
+    f_k = cc.generic_train_forces(*common, tr.pair_fn, typed_fn=tr.typed,
+                                  lanes=lanes, **kw)
+    f_p, _ = cc.generic_plain(*common, tr.pair_fn, typed_fn=tr.typed,
+                              lanes=None, **kw)
+    torch.cuda.synchronize()
+    err = compare("K1 generic training forward (kernel vs plain), forces",
+                  f_k.detach(), f_p)
+    need = int(lanes.needed)
+    t_k = cuda_ms(lambda: cc.generic_train_forces(
+        *common, tr.pair_fn, typed_fn=tr.typed, lanes=lanes, **kw), reps=11)
+    t_p = cuda_ms(lambda: cc.generic_plain(
+        *common, tr.pair_fn, typed_fn=tr.typed, lanes=None, **kw), reps=3)
+    nbytes, ops = k1_generic_cost(st.positions, aux["valid"], layout.plan,
+                                  3, need)
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  K1 generic training forward: whole call {t_k:.4f} ms (the "
+          f"pair function with grad included), plain {t_p:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def phase_train_packed():
+    """Reference example 08's set-up on the packed path at N = 4096:
+    NNPotential trained online with Adam (lr 1e-3) every second step
+    (period=2) against the built-in LJ's forces (set_reference_forces),
+    200 steps, the cell list selecting with K3 at every step, no host
+    sync."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    k3 = nc.nlist_select
+    sim = htt.Simulation(dt=0.002, integrator=htt.md.Minimize(0.05),
+                         seed=0, device="cuda")
+    sim.init_lattice(4096, density=0.3, kT_init=1.0)
+    lj = sim.add_force(htt.md.LennardJones(r_cut=3.0))
+    sim.run(30)
+    sim.integrator = htt.md.NVT(kT=1.0, tau=0.5)
+    model = htt.interop.build_model(make_nn_potential(64), 3.0, "cuda")
+    model.compile(optimizer="adam", loss="mse", learning_rate=1e-3)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=3.0, train=True, period=2)
+    tfc.set_reference_forces(lj)
+    sim.check_syncs = True
+    k3.launches = 0
+    builds0, steps0 = sim.nlist_builds, sim.train_steps
+    w0 = model.get_weights()
+    t0 = time.perf_counter()
+    sim.run(200)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    build = sim._packed_build()
+    hist = np.asarray(tfc.loss_history)
+    moved = max(float(np.abs(a - b).max())
+                for a, b in zip(w0[2:], model.get_weights()[2:]))
+    check(build.method == "pallas", f"the packed path took {build.method}")
+    check(len(hist) == 100 and sim.train_steps - steps0 == 100,
+          f"{len(hist)} losses, {sim.train_steps - steps0} train steps")
+    check(bool(np.isfinite(hist).all()), "non-finite training loss")
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(moved > 0, "the weights did not move")
+    check(k3.launches == sim.nlist_builds - builds0 == 200,
+          f"K3 launches {k3.launches} != neighbor builds")
+    print(f"  N=4096, 200 steps, period 2: 100 train steps, K3 launches "
+          f"{k3.launches} == neighbor builds; loss (20-step windows) "
+          f"{hist[:20].mean():.5f} -> {hist[-20:].mean():.5f}; weights "
+          f"moved up to {moved:.3e}; {200 / dt:.2f} steps/s (info); no host "
+          f"sync in the step loop")
+    return k3.launches
+
+
 def main():
     global torch, htt
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -1393,6 +1796,35 @@ def main():
     k1_nn = phase_nn(gsim.state)
     print("[9 direct] 64k LJPotential on nlist='direct'")
     phase_direct(gsim.state)
+    del gsim
+    torch.cuda.empty_cache()
+
+    print("[10 train-pair] 64k online training, north_star.py's non-proxy "
+          "PairModel row (TrainableNNPair(64))")
+    psim, ptr, pst, paux, pl, _ = phase_train_generic(
+        "pair", make_nn(seed=0, proxy_degree=None), force_loss)
+    k1_lj["launches"] += pl["lj"]
+    print("  [kernel] generic_reduce_bwd at phase 10's state")
+    bwd = phase_bwd_kernel(psim, ptr, pst, paux)
+    bwd["launches"] = pl["bwd"]
+    fwd = generic_forward_row(psim, ptr, pst, paux)
+    fwd["launches"] = pl["gen"]
+    del psim, ptr, pst, paux
+    torch.cuda.empty_cache()
+    print("[11 train-generic] 64k online training, north_star.py's generic "
+          "SimModel row (TrainableNN(64), reference example 08)")
+    gsim2, gtr, _, _, gl_, _ = phase_train_generic(
+        "generic", make_nn_generic(seed=0), "mse")
+    check(gtr.kind == "lane", f"TrainableNN trained on the {gtr.kind!r} "
+          "route: the probe did not accept it")
+    k1_lj["launches"] += gl_["lj"]
+    bwd["launches"] += gl_["bwd"]
+    fwd["launches"] += gl_["gen"]
+    del gsim2, gtr
+    torch.cuda.empty_cache()
+    print("[12 train-packed] reference example 08's NNPotential on the "
+          "packed path (K3), period 2")
+    k3["launches"] += phase_train_packed()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -1412,6 +1844,17 @@ def main():
                   "(generic_pair_forces; ms: the whole call with the pair "
                   "function)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu", **k1_nn),
+        dict(name="K1 half-stencil pair forces, generic form, training "
+                  "forward of phases 10-11 (generic_train_forces: list, "
+                  "the pair function with grad, reduction; ms: phase 10's "
+                  "whole forward; launches: the train steps of phases "
+                  "10-11 and phase 11's probe validation)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu", **fwd),
+        dict(name="generic_reduce_bwd, the backward of K1's generic-form "
+                  "reduction (training, phases 10-11)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
+                      "contraction; no Pallas kernel)", **bwd),
         dict(name="K2 Chebyshev-proxy backward moments "
                   "(proxy_bwd_moments)",
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",

@@ -26,7 +26,7 @@ from .ops import (Cellwise, CellList, box_size, wrap_vector, nlist_rinv,
                   compute_nlist_forces, compute_positions_forces,
                   compute_nlist, nlist_from_positions, cell_list_nlist,
                   NlistPlanes, direct_cell_planes, compute_rdf)
-from .models import (SimModel, PairModel, Dense, RBFExpansion, LJPotential,
+from .models import (Variable, SimModel, PairModel, Dense, RBFExpansion, LJPotential,
                      TrainableLJ, NeuralPairPotential)
 from . import ops
 from . import models
@@ -41,4 +41,5 @@ __all__ = ["Simulation", "tfcompute", "PairModel", "SimModel", "Dense",
            "compute_positions_forces", "compute_nlist",
            "nlist_from_positions", "cell_list_nlist", "NlistPlanes",
            "direct_cell_planes", "compute_rdf", "RBFExpansion",
-           "LJPotential", "TrainableLJ", "NeuralPairPotential"]
+           "LJPotential", "TrainableLJ", "NeuralPairPotential",
+           "Variable"]

@@ -18,7 +18,8 @@
 //     so their order is fixed by the home cell and its sweep. The cell's
 //     segment is placed by one atomicAdd on a device counter; a cell whose
 //     segment would pass the list's budget writes nothing and its base is
-//     -1. The counter ends at the lanes the call needed, budget or not.
+//     negative (-1 - the base it drew). The counter ends at the lanes the
+//     call needed, budget or not.
 //     It also writes the cell's record (its staged entries, tags, row
 //     offsets and lane masks) for the reduction, and the zero back sums
 //     of the slots the box test left out.
@@ -34,11 +35,28 @@
 //     for the next call.
 //   half_stencil_home (half_stencil_home.cuh): the Newton push-back and the
 //     finish, as in K1.
+//   generic_reduce_bwd, the backward of generic_reduce for training (no
+//     Pallas counterpart: the JAX package differentiates its pair function
+//     through the lane contraction of hoomd_tf_tpu/ops/pair_train.py:
+//     161-233 in XLA). The reduction is linear in each listed lane's
+//     (U, s), so its vector-Jacobian product with respect to them is a
+//     pair of per-lane weights of the forces' cotangent ct (folded with
+//     `valid`, which the finish multiplies by), the JAX package's wE, wF:
+//       gU = 0.5 ct_e[i] + [block >= 1] 0.5 ct_e[j]
+//       gS = sum_k d_k (2 ct_k[i] - [block >= 1] 2 ct_k[j])
+//     with i the lane's home slot and j the candidate's own slot, where
+//     half_stencil_home pushes its back sums (block 0 lists both orders,
+//     so it takes the row term only). One block per home cell reads the
+//     cell's record as the reduction does and writes each lane's pair at
+//     its list index; further blocks write zeros past the lanes needed,
+//     and a cell that did not fit zeroes its share of the list, so every
+//     lane of the budget is written and lanes that hold no listed pair
+//     (whose r2 is left from an earlier call) carry no gradient.
 // The list's placement varies from call to call; the values do not: each
 // lane's (U, s) is a function of the lane, and every sum runs in a fixed
-// order. A cell that did not fit (base -1) contributes zero sums; the
-// caller sees the overflow in the needed count and re-runs with a larger
-// budget.
+// order. A cell that did not fit (negative base) contributes zero sums;
+// the caller sees the overflow in the needed count and re-runs with a
+// larger budget.
 //
 // What bounds it on an H100: not bytes (the slot state and 20 bytes per
 // listed lane, ~43 MB at the 64k fluid's shapes, 0.013 ms) nor operations
@@ -59,6 +77,11 @@
 // warp-wide chunk of candidates, with the row's running count before it),
 // so the candidate sweep finds a lane's list index with one population
 // count.
+//
+// The backward is bound by bytes: each cell's record read once (~6 KB a
+// cell at the 64k fluid's shapes), ct read for the rows and candidates,
+// and 8 bytes written per lane of the budget; a warp per row writes its
+// lanes densely, as the row sweep reads them.
 //
 // Built with -fmad=false, and the staging uses _rn intrinsics, so the
 // masks and r2 are bit-equal to the PyTorch plain version's.
@@ -321,7 +344,9 @@ generic_list(const float* __restrict__ pos, const int* __restrict__ types,
   if (tid == 0) {
     const int n_lanes = s.rowoff[n0];
     int base = atomicAdd(counter, n_lanes);
-    if (base > budget - n_lanes) base = -1;  // the segment does not fit
+    // a segment that does not fit: its base, b, is kept as -1 - b (the
+    // backward zeroes the part of [b, b + n_lanes) inside the list)
+    if (base > budget - n_lanes) base = -1 - base;
     cell_base[c] = base;
     s.scratch[0] = base;
   }
@@ -511,6 +536,108 @@ generic_reduce(HalfGeom g, const int* __restrict__ rec,
   }
 }
 
+// Blocks of generic_reduce_bwd past the cells: they zero the list's tail.
+constexpr int kTailBlocks = 132;
+
+// The record of cell c read into shared memory (every thread; the caller
+// places the barrier): the staged entries, their tags, row offsets, masks
+// and running counts.
+__device__ __forceinline__ void read_record(const int* __restrict__ r,
+                                            int n0, int total, int nw,
+                                            const RSmem& s) {
+  const int tid = threadIdx.x;
+  const Rec o = rec_offsets(n0, total, nw);
+  const float4* rspos = reinterpret_cast<const float4*>(r + 4);
+  for (int e = tid; e < total; e += kThreads) {
+    s.spos[e] = rspos[e];
+    s.stag[e] = static_cast<uint16_t>(r[o.tag + e]);
+  }
+  for (int i = tid; i <= n0; i += kThreads) s.rowoff[i] = r[o.rowoff + i];
+  const uint16_t* rpre = reinterpret_cast<const uint16_t*>(r + o.pre);
+  for (int u = tid; u < n0 * nw; u += kThreads) {
+    s.mask[u] = static_cast<uint32_t>(r[o.mask + u]);
+    s.pre[u] = rpre[u];
+  }
+}
+
+template <bool ENERGY>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+generic_reduce_bwd(HalfGeom g, int n_cells, const int* __restrict__ rec,
+                   long rec_stride, const int* __restrict__ cell_base,
+                   const float4* __restrict__ ct,
+                   const float* __restrict__ valid,
+                   const int* __restrict__ needed, int budget,
+                   float* __restrict__ gU, float* __restrict__ gS) {
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (static_cast<int>(blockIdx.x) >= n_cells) {
+    // the tail past the lanes the list needed holds no pair
+    const int lo = *needed < budget ? *needed : budget;
+    const int blk = static_cast<int>(blockIdx.x) - n_cells;
+    const int stride = (static_cast<int>(gridDim.x) - n_cells) * kThreads;
+    for (int k = lo + blk * kThreads + tid; k < budget; k += stride) {
+      gS[k] = 0.f;
+      if (ENERGY) gU[k] = 0.f;
+    }
+    return;
+  }
+  const int c = blockIdx.x;
+  const int cap = g.cap;
+  const int* r = rec + c * rec_stride;
+  const int n0 = r[0], total = r[1], nw = r[2];
+  const int drawn = cell_base[c];
+  if (drawn < 0) {
+    // a cell that did not fit: zero the part of its segment in the list
+    const long b = -1L - drawn;
+    const long end = b + r[rec_offsets(n0, total, nw).rowoff + n0];
+    const long hi = end < budget ? end : static_cast<long>(budget);
+    for (long k = b + tid; k < hi; k += kThreads) {
+      gS[k] = 0.f;
+      if (ENERGY) gU[k] = 0.f;
+    }
+    return;
+  }
+  RSmem s;
+  reduce_layout(cap, reinterpret_cast<char*>(smem4), &s);
+  read_record(r, n0, total, nw, s);
+  __syncthreads();
+  const size_t cell0 = static_cast<size_t>(c) * cap;
+  // a warp per home row, its lanes written densely (lane e of the row at
+  // list index row + e)
+  for (int i = warp; i < n0; i += kWarps) {
+    const float4 q = s.spos[i];
+    const size_t si = cell0 + s.stag[i];  // block 0: tag = rank
+    const float vi = valid[si];
+    const float4 ci = ct[si];
+    const float rx = 2.f * (ci.x * vi), ry = 2.f * (ci.y * vi),
+                rz = 2.f * (ci.z * vi), re = 0.5f * (ci.w * vi);
+    const int row = drawn + s.rowoff[i];
+    const int cnt = s.rowoff[i + 1] - s.rowoff[i];
+    for (int e = lane; e < cnt; e += 32) {
+      const int j = lane_candidate(s.mask + i * nw, s.pre + i * nw, nw, e);
+      float dx, dy, dz;
+      lane_d(q, s.spos[j], dx, dy, dz);
+      float wx = rx, wy = ry, wz = rz, we = re;
+      if (j >= n0) {
+        // a directed block's candidate: its back sum goes to its own slot
+        const int tag = s.stag[j];
+        const int t = tag / cap;
+        const size_t sj =
+            static_cast<size_t>(htf::shifted_cell(g, c, t, 1)) * cap +
+            (tag - t * cap);
+        const float vj = valid[sj];
+        const float4 cj = ct[sj];
+        wx = wx - 2.f * (cj.x * vj);
+        wy = wy - 2.f * (cj.y * vj);
+        wz = wz - 2.f * (cj.z * vj);
+        we = we + 0.5f * (cj.w * vj);
+      }
+      gS[row + e] = dx * wx + dy * wy + dz * wz;
+      if (ENERGY) gU[row + e] = we;
+    }
+  }
+}
+
 int allow_smem(const void* kernel, long smem) {
   if (smem <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
@@ -611,6 +738,30 @@ int htf_generic_reduce(const HalfGeom* geom, int n_cells, const int* rec,
   return launch_reduce<false, false>(g, n_cells, rec, cell_base, U, S, sums,
                                      valid, forces4, virial, counter, needed,
                                      st);
+}
+
+// The reduction's backward: `rec`, `cell_base` and `needed` those of the
+// forward call (the list kernel's records and cell bases, the lanes it
+// needed), `ct` [n_slots][4] float32 the cotangent of forces4, `valid`
+// [n_slots], `gU` (or null when !needs_energy) and `gS` [budget] float32
+// the cotangents of the pair function's U and s on the list, every lane
+// written. Returns cudaGetLastError() after the launch (0 = ok).
+int htf_generic_reduce_bwd(const HalfGeom* geom, int n_cells, const int* rec,
+                           const int* cell_base, const float* ct,
+                           const float* valid, int needs_energy,
+                           const int* needed, int budget, float* gU,
+                           float* gS, void* stream) {
+  const HalfGeom g = *geom;
+  const long smem = reduce_smem_bytes(g.cap);
+  auto kernel = needs_energy ? generic_reduce_bwd<true>
+                             : generic_reduce_bwd<false>;
+  int e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != 0) return e;
+  kernel<<<n_cells + kTailBlocks, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      g, n_cells, rec, rec_words(g.cap), cell_base,
+      reinterpret_cast<const float4*>(ct), valid, needed, budget, gU, gS);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* htf_generic_error_string(int code) {

@@ -2,21 +2,22 @@
 the JAX package's ``tfcompute``): any SimModel on a packed neighbor list
 (``nlist=None``/``'auto'``, ``'n2'``, ``'cell'``, ``'pallas'`` or a
 ``CellList``), on the wide-direct planes (``'direct'``) or on the
-slot-resident cellwise mode (``'cellwise'``), and online training of a
-Chebyshev-proxy PairModel on ``'cellwise'``."""
+slot-resident cellwise mode (``'cellwise'``), evaluated or trained online
+(``train=True``), with the ``period``, ``batch_size`` and
+``save_output_period`` knobs and the ``outputs`` capture of the
+reference."""
 
 import numpy as np
 import torch
 
-from .models.pair import PairModel
 from .ops.cell_list import CellList
 from .ops.cellwise import Cellwise
 from .ops.direct import NlistPlanes
 
 # what each refusal names: the part of the port that brings it
 _LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1)"
-_TRAINING = ("the rest of online training, a later slice of the PyTorch "
-             "port (ROADMAP.md Queue 1 item 4)")
+_ENGINE = ("the engine's remaining features, a later slice of the "
+           "PyTorch port (ROADMAP.md Queue 1 item 5)")
 
 __all__ = ["tfcompute"]
 
@@ -45,6 +46,18 @@ class tfcompute:
         #: why: the validation's per-column errors and limits, or the
         #: model's exception
         self._lane_fast_report = {}
+        #: the captured outputs (``save_output_period``): one numpy array
+        #: per model output past ``output_offset``, captures stacked on
+        #: axis 0
+        self.outputs = None
+        self.period = 1
+        self.batch_size = 0
+        self.save_output_period = None
+        self._calls = 0
+        # captures of the run in flight and its call count (a model call
+        # outside a run, a test's say, is counted nowhere)
+        self._pending = ([], 0)
+        self._model_forces = None
 
     def attach(self, sim, nlist=None, r_cut=0, period=1, batch_size=None,
                train=False, save_output_period=None):
@@ -64,10 +77,18 @@ class tfcompute:
             on kernel K1; any other SimModel on the planes route).
         :param r_cut: cutoff radius, or an ``[ntypes, ntypes]`` matrix
             (negative = never neighbors).
-        :param train: train the model online each step against the
-            simulation's built-in forces as labels (the reference's
-            hoomd2tf mode; cellwise proxy PairModels only); needs
-            ``model.compile`` first.
+        :param period: run (or train) the model every ``period`` MD
+            steps; between, its last forces stand. On ``'cellwise'`` it
+            gates training only.
+        :param batch_size: run (and train) the model on particle chunks
+            of this size, one optimizer step each (not with ``'direct'``
+            or ``'cellwise'``, whose planes are the model's rows).
+        :param train: train the model online against the simulation's
+            built-in forces as labels (the reference's hoomd2tf mode);
+            needs ``model.compile`` first.
+        :param save_output_period: capture the model's outputs past its
+            forces (or the trained prediction) every this many model
+            calls into :attr:`outputs`.
 
         The probe's verdict on a generic SimModel is ``_lane_fast_ok``
         after the first ``run()``.
@@ -81,25 +102,23 @@ class tfcompute:
         if not (cellwise or packed):
             raise NotImplementedError(
                 f"nlist={nlist!r} is not ported; it arrives with {_LATER}")
-        if batch_size or period != 1 or save_output_period:
-            raise NotImplementedError(
-                "batch_size, period and save_output_period are not ported; "
-                f"they arrive with {_LATER}")
         if getattr(self.model, "_map_nlist", False):
             raise NotImplementedError(
-                f"mapped neighbor lists arrive with {_LATER}")
-        if train and not cellwise:
+                f"mapped neighbor lists arrive with {_ENGINE}")
+        if batch_size and (cellwise or nlist == "direct"):
+            raise ValueError(
+                f"nlist={nlist!r} is incompatible with particle batching "
+                "(it changes the nlist form the model sees)")
+        if cellwise and not train and int(period) != 1:
             raise NotImplementedError(
-                "online training on a packed neighbor list arrives with "
-                f"{_TRAINING}; train a proxy PairModel on nlist='cellwise'")
-        if train and not isinstance(self.model, PairModel):
+                "period > 1 for a model evaluated on nlist='cellwise' (its "
+                "carried forces would follow the repacks) arrives with "
+                f"{_LATER}; it gates training there, and evaluation on the "
+                "packed routes")
+        if train and sim.device.type == "cuda" and \
+                sim.state.positions.dtype != torch.float32:
             raise NotImplementedError(
-                "online training of a generic SimModel (the lane-fast and "
-                f"planes training routes) arrives with {_TRAINING}")
-        if train and not self.model.proxy_degree:
-            raise NotImplementedError(
-                "online training of a PairModel without proxy_degree (the "
-                f"non-proxy NN row) arrives with {_TRAINING}")
+                f"float64 training on the card arrives with {_ENGINE}")
         r_arr = np.asarray(r_cut, dtype=np.float64)
         if r_arr.ndim == 0:
             self.r_cut = float(r_arr)
@@ -129,6 +148,15 @@ class tfcompute:
                     break
             self.output_offset = i
         self.train = bool(train)
+        self.period = int(period)
+        if self.period < 1:
+            raise ValueError(f"period must be >= 1, got {period}")
+        self.batch_size = 0 if batch_size is None else int(batch_size)
+        self.save_output_period = save_output_period
+        self.outputs = None
+        self._calls = 0
+        self._pending = ([], 0)
+        self._model_forces = None
         self.nlist_method = nlist
         self.sim = sim
         self.model.to(sim.device)
@@ -169,13 +197,17 @@ class tfcompute:
 
     def ensure_opt_state(self):
         """The torch optimizer over the model's trainable weights, made
-        once (after one call at the proxy's nodes builds the lazy layers
-        on the simulation's device)."""
+        once, after the lazy layers are built on the simulation's device
+        (:func:`..interop.build_model`: one call at a proxy's nodes or on
+        a zero neighbor list)."""
         if self.opt_state is None:
+            from .interop import build_model
+            from .models.layers import Dense
             model = self.model
-            if model.proxy_degree:
-                with torch.no_grad():
-                    model.proxy_coeffs(self.r_cut, self.sim.device)
+            if getattr(model, "proxy_degree", None) or any(
+                    isinstance(m, Dense) and m.kernel is None
+                    for m in model.modules()):
+                build_model(model, self.r_cut, self.sim.device)
             variables = model.variables
             self.trainable_idx = [i for i, v in enumerate(variables)
                                   if isinstance(v, torch.nn.Parameter) and
@@ -191,6 +223,61 @@ class tfcompute:
             from .md.simulation import _loss_consumes_energy
             self._train_energy = _loss_consumes_energy(self.model)
         return self._train_energy
+
+    # ------------------------------------------------------------------
+    # hooks of Simulation.run
+    # ------------------------------------------------------------------
+    def begin_outputs(self):
+        """Start an attempt at a run: captures and the model-call count
+        stay pending until :meth:`commit_outputs` (a rolled-back attempt
+        commits none)."""
+        self._pending = ([], self._calls)
+
+    def capture(self, *chunks):
+        """One model call: count it, and at every ``save_output_period``-th
+        call keep its outputs past ``output_offset`` (one tuple per
+        particle chunk; each chunk a capture of its own, as the reference
+        appends per batch). Device tensors are kept (detached) until the
+        run's end: no host sync."""
+        kept, calls = self._pending
+        calls += 1
+        self._pending = (kept, calls)
+        sop = self.save_output_period
+        if sop and calls % sop == 0:
+            for extras in chunks:
+                if extras:
+                    kept.append([torch.as_tensor(e).detach().clone()
+                                 for e in extras])
+
+    def commit_outputs(self):
+        """The attempt's run committed: its captures join :attr:`outputs`
+        (one readback, after the step loop)."""
+        kept, calls = self._pending
+        self._calls = calls
+        self._pending = ([], calls)
+        if not kept:
+            return
+        captured = [np.stack([c[j].cpu().numpy() for c in kept])
+                    for j in range(len(kept[0]))]
+        if self.outputs is None:
+            self.outputs = captured
+        else:
+            self.outputs = [np.concatenate([o, c], axis=0)
+                            for o, c in zip(self.outputs, captured)]
+
+    def model_forces(self, state):
+        """The model's forces and virial carried over from the last run
+        (zeros at first): with ``period`` > 1 they stand until the model
+        runs again, as the reference's force buffer does."""
+        n = state.n_particles
+        kw = dict(dtype=state.positions.dtype, device=state.positions.device)
+        mf = self._model_forces
+        if mf is not None and mf[0].shape[0] == n:
+            return mf
+        return torch.zeros((n, 4), **kw), torch.zeros((n, 3, 3), **kw)
+
+    def keep_model_forces(self, forces4, virial):
+        self._model_forces = (forces4, virial)
 
     def check_overflow(self, full=None):
         """Raise (and clear the flag) when the model's ``check_nlist``

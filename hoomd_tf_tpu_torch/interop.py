@@ -9,7 +9,10 @@ imports JAX.
 The ready-made potentials carry across the same way: ``TrainableLJ``'s
 ``epsilon`` and ``sigma``, and ``NeuralPairPotential``'s hidden kernels
 and biases then its output kernel, each after the two bookkeeping
-variables, in the JAX package's order.
+variables, in the JAX package's order; so do a model's
+:class:`.models.module.Variable` s (after its own weights, before its
+layers') and north_star.py's two NN models (``TrainableNNPair``,
+``TrainableNN``: the first layer's kernel and bias, then the last's).
 
 Both packages build ``Dense`` layers lazily, at the first call, so a
 model's weight list is complete only after one call: build the port's

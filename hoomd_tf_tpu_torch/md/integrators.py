@@ -12,7 +12,7 @@ import torch
 
 from ..ops.box import box_size
 
-__all__ = ["NVE", "NVT", "Minimize"]
+__all__ = ["NVE", "NVT", "Minimize", "NPT", "Langevin", "Brownian"]
 
 
 def _wrap_positions(positions, box):
@@ -130,3 +130,29 @@ class Minimize:
                                           state.box)
         state.velocities = torch.zeros_like(state.velocities)
         return state
+
+
+class _NotPorted:
+    """An integrator of the JAX package that the port does not have yet:
+    making one raises, naming the part of the port that brings it."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"md.{type(self).__name__} (with the dynamic-box slot mode "
+            "for NPT) arrives with the engine's remaining features, a later "
+            "slice of the PyTorch port (ROADMAP.md Queue 1 item 5)")
+
+
+class NPT(_NotPorted):
+    """The JAX package's MTK barostat (``hoomd_tf_tpu/md/integrators.py:
+    149``); not ported."""
+
+
+class Langevin(_NotPorted):
+    """The JAX package's Langevin thermostat (``integrators.py:203``);
+    not ported."""
+
+
+class Brownian(_NotPorted):
+    """The JAX package's Brownian dynamics (``integrators.py:295``); not
+    ported."""

@@ -31,13 +31,24 @@ steps (the static repack schedule), and the Verlet criterion still runs
 every step as a staleness bit.
 
 Online training (``tfcompute.attach(train=True)``): one built-in
-evaluation per step serves as both the labels and the driving forces
-(the trained model does not drive the dynamics); the model's Chebyshev
-proxy is fitted at its nodes, its forces come from
-:func:`..ops.pair_train.pair_train_forces` (K1's proxy form forward,
-kernel K2 backward on CUDA) and the optimizer steps in place. A run that
-is rolled back (capacity overflow, staleness) rolls the model's weights
-and the optimizer's state back with it.
+evaluation per training step serves as both the labels and the driving
+forces (the trained model does not drive the dynamics), and the optimizer
+steps in place every ``period`` steps, then the weights' constraints. On
+the cellwise mode the model's forces come from one of the JAX package's
+three analytic branches (``train_fast_update``) or its autodiff one
+(``train_update``), picked by :class:`_Trainer`: a Chebyshev-proxy
+PairModel fitted at its nodes (K1's proxy form forward, kernel K2
+backward on CUDA); a PairModel without a proxy, or a generic SimModel
+the lane-separability probe validated, through
+:func:`..ops.pair_train.pair_train_forces` (on CUDA K1's generic form
+forward and the kernel ``generic_reduce_bwd`` backward, the pair function
+evaluated once on the list with grad; on the CPU the lane contraction);
+any other SimModel by autograd through the model on the masked planes.
+On the particle-order route the model trains by autograd on the packed
+list, in ``batch_size`` particle chunks with one optimizer step each
+when asked. A run that is rolled back (capacity overflow, staleness, a
+too-short generic-form list) rolls the model's weights and the
+optimizer's state back with it.
 
 Host syncs: ``run()`` reads the device back exactly once, after the
 step loop, in one packed copy (:meth:`Simulation._fetch_run_scalars`):
@@ -144,6 +155,8 @@ class Simulation:
         #: runs rolled back and re-run because K1's generic-form list was
         #: too short
         self.lane_reruns = 0
+        #: of force_evals, the lane-separability probe's validations
+        self.probe_evals = 0
         self._nlist_build = _UNBUILT
         self.state = None
         self.tfc = None
@@ -486,14 +499,17 @@ class Simulation:
 
     def _count_eval(self):
         self.force_evals += 1
+        self.probe_evals += 1
 
-    def _planes_eval(self, st, aux, layout, want_virial):
+    def _planes_eval(self, st, aux, layout, want_virial, capture=True):
         """The model on the cellwise planes route: its outputs on the
         masked 27-block planes, forces by autograd (a generic SimModel
         the lane-separability probe did not validate)."""
         model = self.tfc.model
         out = model([layout.planes(st, aux), st.positions4, st.box],
                     training=False)
+        if capture:
+            self.tfc.capture(out[self.tfc.output_offset:])
         valid = aux["valid"][:, None]
         f = out[0].detach()
         if f.shape[-1] == 3:
@@ -519,9 +535,12 @@ class Simulation:
                 w = wi if w is None else w + wi
         return f, w
 
-    def _forces(self, st, aux, layout, route, needs_energy, want_virial):
+    def _forces(self, st, aux, layout, route, needs_energy, want_virial,
+                capture=True):
         """The forces that drive the dynamics: the built-ins plus, outside
-        training, the attached model."""
+        training, the attached model (whose outputs go to the driver's
+        capture, unless ``capture`` is False: the run's closing
+        evaluation is no model call of the JAX package's)."""
         f, w = self._builtins(st, aux, layout, needs_energy, want_virial)
         fm = wm = None
         if route.model_fn is not None:
@@ -531,7 +550,8 @@ class Simulation:
                 needs_energy, bool(want_virial and m.virial),
                 route.with_types, route.min_r2)
         elif route.planes:
-            fm, wm = self._planes_eval(st, aux, layout, want_virial)
+            fm, wm = self._planes_eval(st, aux, layout, want_virial,
+                                       capture)
         if fm is not None:
             f = fm if f is None else f + fm
             if wm is not None:
@@ -558,7 +578,7 @@ class Simulation:
                 raise ValueError(
                     "online training needs label forces: add a built-in "
                     "force first (sim.add_force(md.LennardJones(...)))")
-            r.trainer = _Trainer(self, layout)
+            r.trainer = _Trainer(self, layout, st, aux)
             subset = tfc.reference_forces
             if subset and len(subset) != len(self.forces):
                 r.label_subset = list(subset)
@@ -638,14 +658,16 @@ class Simulation:
         stale = layout.needs_rebuild(st, aux)
         tr = route.trainer
         if tr is not None:
-            # one built-in evaluation: the labels and the driving forces
+            # one built-in evaluation: the labels and the driving forces;
+            # the model trains every `period` steps (st.step is a host int)
             f4, w = self._builtins(st, aux, layout, tr.energy,
                                    route.virial_in_loop)
-            labels = f4
-            if route.label_subset is not None:
-                labels, _ = self._builtins(st, aux, layout, tr.energy,
-                                           False, route.label_subset)
-            tr.step(st, aux, layout, labels, i)
+            if st.step % self.tfc.period == 0:
+                labels = f4
+                if route.label_subset is not None:
+                    labels, _ = self._builtins(st, aux, layout, tr.energy,
+                                               False, route.label_subset)
+                tr.step(st, aux, layout, labels, i)
         else:
             f4, w = self._forces(st, aux, layout, route, False,
                                  route.virial_in_loop)
@@ -723,8 +745,9 @@ class Simulation:
             # the optimizer updates the weights in place: keep what a
             # rollback restores, and a device buffer for the losses
             snap = tr.snapshot()
-            tr.losses = torch.zeros((n,), dtype=torch.float32,
-                                    device=self.device)
+            tr.begin(n)
+        if self.tfc is not None:
+            self.tfc.begin_outputs()
         self._lanes.reset()
         start_step = self.state.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -740,7 +763,7 @@ class Simulation:
             # one full evaluation at the final positions: the slim loop
             # skipped the energy column (and the virial when unused)
             f4, w = self._forces(st, aux, layout, route, True,
-                                 route.needs_virial)
+                                 route.needs_virial, capture=False)
             st.forces = f4
             if route.needs_virial and w is not None:
                 st.virial = w
@@ -749,6 +772,8 @@ class Simulation:
         flags_now, occ_now, vmax_now, lanes_now, losses = \
             self._fetch_run_scalars(flags, aux,
                                     None if tr is None else tr.losses)
+        if tr is not None:
+            losses = losses[tr.trained]
         overflow, stale = bool(flags_now & 1), bool(flags_now & 2)
         short = bool(flags_now & 8)
         if short and tr is not None:
@@ -827,6 +852,8 @@ class Simulation:
         if tr is not None and not overflow and not stale:
             # a failed attempt's losses belong to training it rolled back
             self.tfc.loss_history.extend(losses.tolist())
+        if self.tfc is not None and not overflow and not stale:
+            self.tfc.commit_outputs()
         if overflow:
             raise ValueError(
                 "Cell capacity exceeded during the run (a cell held more "
@@ -919,27 +946,79 @@ class Simulation:
         with torch.no_grad():
             return build(state.positions4, box_size(state.box))[0]
 
+    def _model_chunks(self, st, nlist, labels=None):
+        """The model's inputs ``[nlist, positions4, box]`` (and labels),
+        whole or, with ``batch_size``, as zero-padded particle chunks (the
+        JAX package's ``_chunk_inputs``, the reference's
+        ``TensorflowCompute.cc:141-212`` batching)."""
+        k = self.tfc.batch_size
+        pos4 = st.positions4
+        if not k:
+            return [(nlist, pos4, labels)]
+        n = st.n_particles
+        pad = -(-n // k) * k - n
+        nl = torch.nn.functional.pad(nlist, (0, 0, 0, 0, 0, pad))
+        pos4 = torch.nn.functional.pad(pos4, (0, 0, 0, pad))
+        lab = (None if labels is None else
+               torch.nn.functional.pad(labels, (0, 0, 0, pad)))
+        return [(nl[a:a + k], pos4[a:a + k],
+                 None if lab is None else lab[a:a + k])
+                for a in range(0, n + pad, k)]
+
     def _eval_model(self, st, nlist):
-        """One model evaluation (the JAX ``eval_model``, unbatched):
-        ``(forces4, virial)``, padded to every particle."""
-        model = self.tfc.model
+        """One model evaluation (the JAX ``eval_model``, chunked with
+        ``batch_size``): ``(forces4, virial)``, padded to every particle;
+        its outputs past ``output_offset`` go to the driver's capture."""
+        tfc = self.tfc
+        model = tfc.model
         n = st.n_particles
         dtype = st.positions.dtype
-        out = model([nlist, st.positions4, st.box], training=False)
-        forces4 = torch.zeros((n, 4), dtype=dtype, device=self.device)
-        virial = torch.zeros((n, 3, 3), dtype=dtype, device=self.device)
-        if model.output_forces:
-            f = out[0].detach()
-            if f.shape[-1] == 3:
-                f = torch.cat([f, torch.zeros_like(f[:, :1])], dim=-1)
-            forces4 = torch.nn.functional.pad(f, (0, 0, 0, n - f.shape[0]))
-            if model.virial and len(out) > 1:
-                w = out[1].detach()
-                virial = torch.nn.functional.pad(
-                    w, (0, 0, 0, 0, 0, n - w.shape[0]))
-        return forces4, virial
+        fs, ws, extras = [], [], []
+        for nl, pos4, _ in self._model_chunks(st, nlist):
+            out = model([nl, pos4, st.box], training=False)
+            extras.append(out[tfc.output_offset:])
+            rows = pos4.shape[0]
+            f = torch.zeros((rows, 4), dtype=dtype, device=self.device)
+            w = torch.zeros((rows, 3, 3), dtype=dtype, device=self.device)
+            if model.output_forces:
+                f = out[0].detach()
+                if f.shape[-1] == 3:
+                    f = torch.cat([f, torch.zeros_like(f[:, :1])], dim=-1)
+                f = torch.nn.functional.pad(f, (0, 0, 0, rows - f.shape[0]))
+                if model.virial and len(out) > 1:
+                    w = out[1].detach()
+                    w = torch.nn.functional.pad(
+                        w, (0, 0, 0, 0, 0, rows - w.shape[0]))
+            fs.append(f)
+            ws.append(w)
+        tfc.capture(*extras)
+        return torch.cat(fs)[:n], torch.cat(ws)[:n]
 
-    def _packed_step(self, st, flags, build, needs_virial):
+    def _packed_train(self, st, nlist, labels, i, tr):
+        """One online training step on the packed list (the JAX
+        ``train_update``, per particle chunk with ``batch_size``): per
+        chunk the model with ``training=True``, the loss against the
+        labels, one optimizer step and the constraints; the step's loss
+        is the chunks' mean."""
+        tfc = self.tfc
+        model = tfc.model
+        losses, extras = [], []
+        for nl, pos4, lab in self._model_chunks(st, nlist, labels):
+            with torch.enable_grad():
+                out = model([nl, pos4, st.box], training=True)
+                loss = model.compute_loss(out, lab)
+            tr.opt.zero_grad()
+            loss.backward()
+            tr.opt.step()
+            model.apply_constraints(tr.params)
+            losses.append(loss.detach())
+            extras.append(out[tfc.output_offset:])
+        self.train_steps += 1
+        tr.losses[i] = torch.stack(losses).mean()
+        tr.trained.append(i)
+        tfc.capture(*extras)
+
+    def _packed_step(self, st, flags, build, needs_virial, i, carry, tr):
         integ, dt = self.integrator, self.dt
         st = integ.pre_force(st, dt)
         n = st.n_particles
@@ -950,8 +1029,14 @@ class Simulation:
             nlist = torch.zeros((n, 1, 4), dtype=st.positions.dtype,
                                 device=self.device)
             cell_overflow = None
-        if self.tfc is not None:
-            f, w = self._eval_model(st, nlist)
+        tfc = self.tfc
+        # the model runs every `period` steps (st.step is a host int);
+        # between, its last forces stand, as in the JAX package
+        model_now = tfc is not None and st.step % tfc.period == 0
+        if tfc is not None and not tfc.train:
+            if model_now:
+                carry[:] = self._eval_model(st, nlist)
+            f, w = carry
         else:
             f = torch.zeros((n, 4), dtype=st.positions.dtype,
                             device=self.device)
@@ -960,6 +1045,12 @@ class Simulation:
         for force in self.forces:
             fi, wi = force(st, nlist)
             f, w = f + fi, w + wi
+        if tr is not None and model_now:
+            labels = f
+            subset = tfc.reference_forces
+            if subset and len(subset) != len(self.forces):
+                labels = sum(g(st, nlist)[0] for g in subset)
+            self._packed_train(st, nlist, labels, i, tr)
         st.forces = f
         if needs_virial:
             st.virial = w
@@ -971,7 +1062,8 @@ class Simulation:
 
     def _run_packed(self, n, allow_retry):
         """One attempt at :meth:`run` on the particle-order route; returns
-        False to ask for a retry after a capacity-overflow rollback.
+        False to ask for a retry after a capacity-overflow rollback (which
+        also rolls back training: weights and optimizer state).
         Flags: bit 0 cell overflow, bit 2 the model's full-list flag."""
         tfc = self.tfc
         model = tfc.model if tfc is not None else None
@@ -983,16 +1075,37 @@ class Simulation:
         full0 = model.nlist_overflow.clone() if check else None
         for force in self.forces:
             force.prepare(self.state.positions)
+        tr = snap = None
+        if tfc is not None:
+            if tfc.train:
+                if not self.forces:
+                    raise ValueError(
+                        "online training needs label forces: add a "
+                        "built-in force first (sim.add_force(md."
+                        "LennardJones(...)))")
+                tr = _TrainState(self)
+                snap = tr.snapshot()
+                tr.begin(n)
+            tfc.begin_outputs()
+        carry = list(tfc.model_forces(self.state)) if tfc is not None \
+            else None
         st = dataclasses.replace(self.state)
         start_step = st.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
         with _sync_guard(self.check_syncs), torch.no_grad():
-            for _ in range(n):
-                st, flags = self._packed_step(st, flags, build, needs_virial)
+            for i in range(n):
+                st, flags = self._packed_step(st, flags, build, needs_virial,
+                                              i, carry, tr)
             if check:
                 flags = flags | (model.nlist_overflow.to(torch.int32) << 2)
-        flags_now = int(flags.cpu())
+        parts = [flags.to(torch.int32).reshape(1)]
+        if tr is not None:
+            parts.append(tr.losses.to(torch.float32).view(torch.int32))
+        packed = torch.cat(parts).cpu().numpy()
+        flags_now = int(packed[0])
         overflow = bool(flags_now & 1)
+        if overflow and tr is not None:
+            tr.restore(snap)
         if overflow and allow_retry and self.auto_replan and \
                 build is not None and build.plan is not None:
             # roll back (self.state still holds the attempt's start) and
@@ -1019,6 +1132,13 @@ class Simulation:
                 "Cell capacity exceeded during the run (a cell held more "
                 "particles than planned). Increase CellList(capacity=) or "
                 "attach with nlist='n2'.")
+        if tfc is not None:
+            if not tfc.train:
+                tfc.keep_model_forces(*carry)
+            if tr is not None:
+                losses = packed[1:].view(np.float32)[tr.trained]
+                tfc.loss_history.extend(losses.tolist())
+            tfc.commit_outputs()
         if flags_now & 4:
             tfc.check_overflow(full=True)
         return True
@@ -1042,53 +1162,166 @@ class _Route:
     needs_virial = False
 
 
-class _Trainer:
-    """Online training of a Chebyshev-proxy PairModel (the proxy branch
-    of the JAX ``train_fast_update``): per MD step, one fit at the nodes,
-    the proxy forces through :func:`..ops.pair_train.pair_train_forces`
-    (K1's proxy form forward, K2 backward on CUDA), the loss against the
-    labels and one optimizer step, all on the device."""
+class _Bound(torch.nn.Module):
+    """``fn`` (a function reading ``model``'s weights) as a module whose
+    ``model`` is its child, so that ``torch.func.functional_call`` can
+    run it under given weights."""
 
-    def __init__(self, sim, layout):
+    def __init__(self, model, fn):
+        super().__init__()
+        self.m = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _module_pair_apply(model, fn):
+    """``pair_apply(p, r2[, ti, tj])``: the pair function ``fn`` of
+    ``model`` with its weights named in ``p`` replaced by ``p``'s tensors
+    (the explicit-parameter form :func:`..ops.pair_train.pair_train_forces`
+    differentiates)."""
+    holder = _Bound(model, fn)
+
+    def pair_apply(p, *args):
+        return torch.func.functional_call(
+            holder, {"m." + k: v for k, v in p.items()}, args)
+
+    return pair_apply
+
+
+class _TrainState:
+    """What every training route keeps: the model's optimizer and
+    trainable weights, the run's loss buffer, and the device snapshot a
+    rolled-back run restores. The particle-order route trains with it
+    alone (its steps are :meth:`Simulation._packed_train`)."""
+
+    def __init__(self, sim):
         tfc = sim.tfc
-        model = tfc.model
-        self.sim, self.model = sim, model
-        self.fit, self.evaluate = model.proxy_parts(layout.plan.r_cut,
-                                                    sim.device)
+        self.sim, self.model, self.tfc = sim, tfc.model, tfc
         self.opt = tfc.ensure_opt_state()
-        self.params = [model.variables[i] for i in tfc.trainable_idx]
-        self.energy = tfc.train_energy()
+        self.params = [tfc.model.variables[i] for i in tfc.trainable_idx]
         self.losses = None
 
+    def begin(self, n):
+        """A device buffer for the run's ``n`` losses and the list of the
+        steps that trained."""
+        self.losses = torch.zeros((n,), dtype=torch.float32,
+                                  device=self.sim.device)
+        self.trained = []
+
     def snapshot(self):
-        """Device copies of the weights and the optimizer's state."""
-        return ([p.detach().clone() for p in self.params],
+        """Device copies of the model's weights (all of them: a model may
+        update its buffers too) and the optimizer's state."""
+        return ([v.detach().clone() for v in self.model.variables],
                 copy.deepcopy(self.opt.state_dict()))
 
     def restore(self, snap):
         with torch.no_grad():
-            for p, v in zip(self.params, snap[0]):
-                p.copy_(v)
+            for v, w in zip(self.model.variables, snap[0]):
+                v.copy_(w)
         self.opt.load_state_dict(copy.deepcopy(snap[1]))
 
-    def step(self, st, aux, layout, labels, i):
+
+class _Trainer(_TrainState):
+    """Online training on the cellwise mode (the JAX ``train_fast_update``
+    and ``train_update``), one branch per model kind:
+
+    - ``'proxy'``: a Chebyshev-proxy PairModel, fitted at its nodes per
+      step, forces through :func:`..ops.pair_train.pair_train_forces`
+      (K1's proxy form forward, K2 backward on CUDA);
+    - ``'pair'``: a PairModel without a proxy, its
+      ``pair_energy_and_slope`` under the current weights;
+    - ``'lane'``: a generic SimModel the lane-separability probe
+      validated (one output), its synthesized pair function, kept
+      differentiable in the weights;
+    - ``'planes'``: any other SimModel, by autograd through the model on
+      the masked planes.
+
+    ``'pair'`` and ``'lane'`` train through
+    :func:`..ops.pair_train.pair_train_forces`, which runs K1's generic
+    form with the backward kernel ``generic_reduce_bwd`` on CUDA; on the
+    CPU it takes the lane contraction, the oracle, or with
+    ``stencil='kernel'`` the list route's plain versions. Per training
+    step: the loss against the labels, one optimizer step, the weights'
+    constraints, all on the device."""
+
+    def __init__(self, sim, layout, st, aux):
+        super().__init__(sim)
+        tfc, model = self.tfc, self.model
+        self.cols = 4
+        self.typed, self.min_r2 = True, 1e-4
+        if isinstance(model, PairModel):
+            self.kind = "proxy" if model.proxy_degree else "pair"
+            self.typed, self.min_r2 = model.pair_with_types, model.min_r2
+        elif sim._probe_lane_fast(layout, st, aux) and \
+                tfc._lane_fast_report.get("n_outputs") == 1:
+            self.kind = "lane"
+            self.cols = min(int(tfc._lane_fast_report["cols"]), 4)
+        else:
+            self.kind = "planes"
+        # the energy channel: when the loss reads the prediction's column
+        # 3, or a saved output is the prediction itself
+        self.energy = self.cols == 4 and (
+            tfc.train_energy() or bool(tfc.save_output_period and
+                                       tfc.output_offset == 0))
+        if self.kind == "proxy":
+            self.fit, self.evaluate = model.proxy_parts(layout.plan.r_cut,
+                                                        sim.device)
+        elif self.kind != "planes":
+            from ..ops.lane_fast import synthesize_pair_fn
+            self.pair_fn = (model.pair_energy_and_slope
+                            if self.kind == "pair" else
+                            synthesize_pair_fn(model, st.box,
+                                               differentiable=True))
+            self.named = {k: v for k, v in model.named_parameters()
+                          if v.requires_grad}
+            self.pair_apply = _module_pair_apply(model, self.pair_fn)
+            # the list route's plain versions on the CPU with
+            # stencil='kernel'; else pair_train_forces' own choice
+            self.bwd_impl = ("list" if sim.device.type == "cpu" and
+                             sim.stencil == "kernel" else "auto")
+
+    def forces(self, st, aux, layout):
+        """The analytic branches' ``forces4``, differentiable in the
+        weights."""
         from ..ops.pair_train import pair_train_forces
         model, sim = self.model, self.sim
+        kw = dict(min_r2=self.min_r2, rcut_matrix=layout.rc2_tab,
+                  needs_energy=self.energy, geometry=layout.geometry)
+        args = (st.positions, st.types, aux["valid"], layout.plan,
+                layout.lo)
+        if self.kind == "proxy":
+            return pair_train_forces(
+                self.fit(model.pair_energy), self.evaluate, *args,
+                with_types=self.typed, fwd_stencil=sim.stencil, **kw)
+        return pair_train_forces(self.named, self.pair_apply, *args,
+                                 with_types=self.typed,
+                                 fwd_stencil=sim.stencil,
+                                 bwd_impl=self.bwd_impl, lanes=sim._lanes,
+                                 **kw)
+
+    def step(self, st, aux, layout, labels, i):
+        model, sim, tfc = self.model, self.sim, self.tfc
         with torch.enable_grad():
-            coeffs = self.fit(model.pair_energy)
-            f4 = pair_train_forces(
-                coeffs, self.evaluate, st.positions, st.types, aux["valid"],
-                layout.plan, layout.lo, min_r2=model.min_r2,
-                with_types=model.pair_with_types,
-                rcut_matrix=layout.rc2_tab, needs_energy=self.energy,
-                fwd_stencil=sim.stencil, geometry=layout.geometry)
-            loss = model.compute_loss([f4], labels)
-        sim.force_evals += 1
+            if self.kind == "planes":
+                out = model([layout.planes(st, aux), st.positions4, st.box],
+                            training=True)
+                loss = model.compute_loss(out, labels)
+                extras = out[tfc.output_offset:]
+            else:
+                pred = self.forces(st, aux, layout)[:, :self.cols]
+                loss = model.compute_loss([pred], labels)
+                extras = (pred,) if tfc.output_offset == 0 else ()
+                sim.force_evals += 1
         sim.train_steps += 1
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
+        model.apply_constraints(self.params)
         self.losses[i] = loss.detach()
+        self.trained.append(i)
+        tfc.capture(extras)
 
 
 def _loss_consumes_energy(model):

@@ -1,6 +1,6 @@
 """Layers of the PyTorch port (``Dense`` and ``RBFExpansion`` from
-``hoomd_tf_tpu/models/layers.py``; ``WCARepulsion`` and ``EDSLayer``
-arrive with the rest of online training, ROADMAP.md Queue 1)."""
+``hoomd_tf_tpu/models/layers.py``; ``WCARepulsion`` and ``EDSLayer`` are
+still to be ported, ROADMAP.md Queue 1 item 4)."""
 
 import numpy as np
 import torch

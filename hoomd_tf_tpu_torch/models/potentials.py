@@ -5,8 +5,9 @@ trainable one and a SchNet-style neural pair potential, each a generic
 or planes. Each is a sum of independent per-lane terms, so on
 ``nlist='cellwise'`` the engine's lane-separability probe
 (:mod:`..ops.lane_fast`) validates it and its pair function runs in
-kernel K1's generic form. They are evaluated, not trained, in the port so
-far (online training of generic models is ROADMAP.md Queue 1 item 4).
+kernel K1's generic form. Each also trains online
+(``attach(train=True)``): ``TrainableLJ``'s ``nonneg`` constraints are
+applied after every optimizer step.
 """
 
 import torch

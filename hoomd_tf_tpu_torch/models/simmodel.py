@@ -165,16 +165,18 @@ class SimModel(Layer):
             args.append(training)
         return args
 
-    def __call__(self, inputs, training=False):
+    def __call__(self, inputs, training=False, keep_graph=None):
         """Run the model on ``inputs = [nlist, positions, box, ...]``;
         returns a tuple of its outputs. ``compute`` runs under grad mode
         whatever the caller's mode; the force gradients keep their graph
-        only when ``training``."""
+        only when ``keep_graph``, by default ``training`` (the lane-fast
+        training route keeps it with ``training=False``, as the JAX
+        package calls the model there)."""
         from ..ops.direct import NlistPlanes
         if torch.is_tensor(inputs) or isinstance(inputs, NlistPlanes):
             inputs = [inputs]
         args = self._prepare_args(inputs, training)
-        with torch.enable_grad(), model_call(training):
+        with torch.enable_grad(), model_call(training, keep_graph):
             out = self.compute(*args)
         if not isinstance(out, (tuple, list)):
             out = (out,)
@@ -272,6 +274,38 @@ class SimModel(Layer):
         for reg in self.losses:
             total = total + reg
         return total
+
+    def trainable_weights(self):
+        """The weights an optimizer steps: the ``nn.Parameter`` s of
+        :attr:`variables` that require grad, in that order."""
+        return [v for v in self.variables
+                if isinstance(v, torch.nn.Parameter) and v.requires_grad]
+
+    def train_on_batch(self, x, y, reset_metrics=False):
+        """One optimizer step on one batch (Keras' ``train_on_batch``, the
+        JAX package's ``simmodel.py:340-390``): the model on ``x`` with
+        ``training=True``, :meth:`compute_loss` against ``y``, one step of
+        the compiled optimizer (made at the first call, once the lazy
+        layers have built), then the weights' constraints.
+
+        :param x: model inputs ``[nlist, positions, box, ...]``.
+        :param y: labels (typically reference forces ``[N, 3 or 4]``).
+        :returns: the loss, a 0-d tensor (detached).
+        """
+        if self._optimizer is None:
+            raise ValueError("SimModel has not been compiled")
+        out = self(x, training=True)
+        loss = self.compute_loss(out, torch.as_tensor(y))
+        params = self.trainable_weights()
+        opt = getattr(self, "_batch_opt", None)
+        if opt is None or [id(p) for g in opt.param_groups
+                           for p in g["params"]] != [id(p) for p in params]:
+            opt = self._batch_opt = self._optimizer(params)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        self.apply_constraints(params)
+        return loss.detach()
 
 
 def _make_optimizer(name, lr, params):

@@ -34,6 +34,14 @@ lane's ``(U, dU/dr2)``. The list is sized by a :class:`LaneBudget`; a
 call that needs more lanes than it holds is seen in ``lanes.needed``
 with no host sync, and the engine re-runs it with a larger budget.
 
+For online training, :func:`generic_train_forces` evaluates the pair
+function on the list with grad and hands ``(U, dU/dr2)`` to
+:class:`GenericReduce`, whose backward is the kernel
+``generic_reduce_bwd``: the reduction is linear in each lane's ``(U, s)``,
+so its vector-Jacobian product is a pair of per-lane weights of the
+forces' cotangent, and autograd carries them through the pair function
+into the weights.
+
 The wrapper :func:`half_stencil_pair_forces` launches the kernel for CUDA
 tensors and takes the plain PyTorch version, :func:`half_stencil_plain`,
 only for CPU tensors. The kernel is built with ``nvcc`` from the
@@ -53,8 +61,11 @@ from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
            "half_stencil_pair_forces", "LaneBudget", "lane_budget",
-           "same_cell_share",
-           "generic_list_plain", "generic_plain", "generic_pair_forces"]
+           "same_cell_share", "generic_list_plain", "generic_plain",
+           "generic_pair_forces", "GenericList", "generic_list",
+           "generic_reduce", "generic_reduce_plain", "GenericReduce",
+           "generic_reduce_bwd", "generic_reduce_bwd_plain",
+           "generic_train_forces", "kernel_lane_index"]
 
 
 class LJForm:
@@ -539,13 +550,14 @@ def generic_list_plain(positions, types, valid, plan, lo, min_r2=1e-4,
     return lst
 
 
-def _eval_pair_fn(pair_fn, typed_fn, r2, ti, tj):
+def _eval_pair_fn(pair_fn, typed_fn, r2, ti, tj, grad=False):
     """``(U, dU/dr2)`` of the pair function on the list, as float32
-    tensors of the list's length."""
-    with torch.no_grad():
+    tensors of the list's length; with ``grad``, differentiable in the
+    pair function's weights (training), else under ``no_grad``."""
+    with torch.set_grad_enabled(grad):
         U, dU = pair_fn(r2, ti, tj) if typed_fn else pair_fn(r2)
-    return (torch.broadcast_to(U, r2.shape).to(torch.float32),
-            torch.broadcast_to(dU, r2.shape).to(torch.float32))
+        return (torch.broadcast_to(U, r2.shape).to(torch.float32),
+                torch.broadcast_to(dU, r2.shape).to(torch.float32))
 
 
 def generic_plain(positions, types, valid, plan, lo, pair_fn,
@@ -574,9 +586,30 @@ def generic_plain(positions, types, valid, plan, lo, pair_fn,
                              lst["ti"][sl], lst["tj"][sl])
         Us.append(u)
         Ss.append(s)
-    dtype = positions.dtype
-    U = torch.cat(Us).to(dtype) if Us else lst["r2"]
-    S = torch.cat(Ss).to(dtype) if Ss else lst["r2"]
+    U = torch.cat(Us) if Us else lst["r2"]
+    S = torch.cat(Ss) if Ss else lst["r2"]
+    return generic_reduce_plain(lst, U, S, valid, plan, needs_energy,
+                                needs_virial)
+
+
+def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
+                         needs_virial=False):
+    """Plain PyTorch version of the generic form's reduction and finish:
+    each listed lane's channel products (its first ``len(lst["r2"])``
+    values of ``U`` and ``S``; later lanes are ignored) added to its row
+    and, for blocks 1..13, to its candidate, pushed home as
+    :func:`.cellwise.assemble_half` does. Differentiable in ``U`` and
+    ``S`` (``index_add_``), so autograd through it is the oracle of
+    :func:`generic_reduce_bwd_plain`.
+
+    :param lst: :func:`generic_list_plain`'s lanes.
+    :returns: ``(forces4, virial or None)``.
+    """
+    n_cells, cap = plan.n_cells, plan.capacity
+    C = len(_HALF_OFFS) * cap
+    dtype = valid.dtype
+    n = lst["r2"].shape[0]
+    U, S = U[:n].to(dtype), S[:n].to(dtype)
     dx, dy, dz = lst["dx"], lst["dy"], lst["dz"]
     sdx, sdy, sdz = S * dx, S * dy, S * dz
     prods = ([U] if needs_energy else []) + [sdx, sdy, sdz]
@@ -586,21 +619,165 @@ def generic_plain(positions, types, valid, plan, lo, pair_fn,
     prods = torch.stack(prods)
     coefs = _channel_coefs(needs_energy, needs_virial)
     nch = len(coefs)
-    rows = torch.zeros((nch, plan.n_slots), dtype=dtype,
-                       device=positions.device)
-    rows.index_add_(1, lst["cell"] * cap + lst["row"], prods)
+    dev = valid.device
+    rows = torch.zeros((nch, plan.n_slots), dtype=dtype, device=dev)
+    rows = rows.index_add(1, lst["cell"] * cap + lst["row"], prods)
     back = lst["col"] >= cap
-    cols = torch.zeros((nch, n_cells * C), dtype=dtype,
-                       device=positions.device)
-    cols.index_add_(1, (lst["cell"] * C + lst["col"])[back], prods[:, back])
+    cols = torch.zeros((nch, n_cells * C), dtype=dtype, device=dev)
+    cols = cols.index_add(1, (lst["cell"] * C + lst["col"])[back],
+                          prods[:, back])
     fwd = torch.tensor([c[0] for c in coefs], dtype=dtype,
-                       device=positions.device)[:, None]
+                       device=dev)[:, None]
     bwd = torch.tensor([c[1] for c in coefs], dtype=dtype,
-                       device=positions.device)[:, None]
+                       device=dev)[:, None]
     out = (rows * fwd).reshape(nch, n_cells, cap)
     cols = (cols * bwd).reshape(nch, n_cells, C)
     out = assemble_half(torch.cat([out, cols[:, :, cap:]], dim=2), plan)
     return finish_forces(out, valid, needs_energy, needs_virial)
+
+
+class GenericList:
+    """The generic form's list of one call (:func:`generic_list`): the
+    lanes ``r2``, ``ti``, ``tj`` the pair function is evaluated on and
+    what the reduction and its backward read. On a CUDA device the list
+    kernel's output: the ``budget``-lane list (the tail past the lanes
+    needed holds earlier, finite ``r2``), the cells' bases and records in
+    the per-device buffers, and the ``generation`` of those buffers; on
+    the CPU the plain version's lanes (``lst``, the listed lanes only)."""
+
+    def __init__(self, plan, valid, typed_fn, r2, ti, tj, lst=None, *,
+                 lanes=None, counter=None, rec=None, cell_base=None,
+                 sums=None, stream=None, generation=None):
+        self.plan, self.valid, self.typed_fn = plan, valid, typed_fn
+        self.r2, self.ti, self.tj = r2, ti, tj
+        self.lst = lst
+        # CUDA only: the LaneBudget, the device's lane counter and records,
+        # the cells' bases, the reduction's [n_ch][14][n_slots] scratch, the
+        # stream and the generation of the shared buffers at the launch
+        self.lanes, self.counter, self.rec = lanes, counter, rec
+        self.cell_base, self.sums, self.stream = cell_base, sums, stream
+        self.generation = generation
+        if lst is None:
+            self.budget, self.sums_ch = r2.shape[0], sums.shape[0]
+            self.geom = ctypes.byref(half_geom(plan))
+        #: the lanes the call needed, a device int32 (CUDA: set by the
+        #: reduction)
+        self.needed = None
+
+    def evaluate(self, pair_fn, grad=False):
+        """``(U, dU/dr2)`` of ``pair_fn`` on the list (float32); with
+        ``grad``, differentiable in its weights. On a CUDA device a
+        failure of the pair function zeroes the lane counter the
+        reduction would have zeroed."""
+        try:
+            return _eval_pair_fn(pair_fn, self.typed_fn, self.r2, self.ti,
+                                 self.tj, grad)
+        except BaseException:
+            if self.lst is None:
+                # the reduction, which zeroes it, will not run
+                self.counter.zero_()
+            raise
+
+
+def generic_list(positions, types, valid, plan, lo, typed_fn=True,
+                 min_r2=1e-4, rc2_tab=None, geometry=None, lanes=None,
+                 needs_energy=True, needs_virial=False):
+    """The generic form's list kernel on CUDA tensors (its plain version,
+    :func:`generic_list_plain`, on CPU tensors, which records the lanes
+    needed in ``lanes`` itself): a :class:`GenericList` for a reduction
+    of at most the channels ``needs_energy`` and ``needs_virial`` ask
+    for. A failed build or launch raises. Each launch rewrites the
+    device's shared list and records and counts a new generation."""
+    check_slot_inputs(positions, types, valid, plan)
+    if lanes is None:
+        lanes = LaneBudget(lane_budget(plan, int((valid > 0).sum())),
+                           positions.device)
+    if not positions.is_cuda:
+        lst = generic_list_plain(positions, types, valid, plan, lo, min_r2,
+                                 rc2_tab, geometry, lanes.budget, typed_fn)
+        lanes.record(torch.tensor(lst["needed"], device=positions.device))
+        return GenericList(plan, valid, typed_fn, lst["r2"], lst["ti"],
+                           lst["tj"], lst)
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    dev = positions.device
+    typed = typed_fn or rc2_tab is not None
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    rc_t = 0
+    if rc2_tab is not None:
+        rc_t = rc2_tab.shape[0]
+        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
+    lib = _generic_library()
+    smem = max(lib.htf_generic_smem(plan.capacity),
+               lib.htf_generic_reduce_smem(plan.capacity))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    budget = lanes.budget
+    counter, lst, rec = _generic_buffers(
+        dev, budget, plan.r_cut ** 2,
+        plan.n_cells * lib.htf_generic_record_words(plan.capacity))
+    _GENERATION[str(dev)] = generation = _GENERATION.get(str(dev), 0) + 1
+    # the list kernel writes the zero back sums of the slots the box test
+    # left out into the reduction's scratch
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    gl = GenericList(
+        plan, valid, typed_fn, lst[0], lst[1], lst[2], lanes=lanes,
+        counter=counter, rec=rec,
+        cell_base=torch.empty(plan.n_cells, dtype=torch.int32, device=dev),
+        sums=torch.empty((n_ch, len(_HALF_OFFS), plan.n_slots),
+                         dtype=torch.float32, device=dev),
+        stream=ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        generation=generation)
+    err = lib.htf_generic_list(*state, gl.geom, plan.n_cells,
+                               _ptr(rc2_tab), rc_t, float(plan.r_cut ** 2),
+                               float(min_r2), budget, _ptr(counter),
+                               _ptr(gl.cell_base), _ptr(gl.r2), _ptr(gl.ti),
+                               _ptr(gl.tj), _ptr(rec), _ptr(gl.sums),
+                               gl.sums_ch, gl.stream)
+    if err != 0:
+        counter.zero_()
+        raise RuntimeError("generic list kernel launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    return gl
+
+
+def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
+    """The generic form's reduction kernel and finish on the list ``gl``
+    and the pair function's ``(U, S)`` on it (CUDA); the plain version,
+    :func:`generic_reduce_plain`, for a CPU list. Records the lanes the
+    list needed in ``gl.lanes``; a CUDA launch counts in
+    ``generic_pair_forces.launches``. Returns ``(forces4, virial or
+    None)``."""
+    if gl.lst is not None:
+        return generic_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
+                                    needs_energy, needs_virial)
+    plan, dev = gl.plan, gl.r2.device
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    if n_ch > gl.sums_ch:
+        raise ValueError(f"a reduction of {n_ch} channels on a list made "
+                         f"for {gl.sums_ch}")
+    n = plan.n_slots
+    U, S = U.contiguous(), S.contiguous()
+    _check(U, (gl.budget,), torch.float32, dev, "U")
+    _check(S, (gl.budget,), torch.float32, dev, "S")
+    forces4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    virial = (torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+              if needs_virial else None)
+    gl.needed = torch.empty((), dtype=torch.int32, device=dev)
+    lib = _generic_library()
+    err = lib.htf_generic_reduce(gl.geom, plan.n_cells, _ptr(gl.rec),
+                                 _ptr(gl.cell_base), _ptr(U), _ptr(S),
+                                 int(needs_energy), int(needs_virial),
+                                 _ptr(gl.valid), _ptr(gl.sums), _ptr(forces4),
+                                 _ptr(virial), _ptr(gl.counter),
+                                 _ptr(gl.needed), gl.stream)
+    if err != 0:
+        gl.counter.zero_()
+        raise RuntimeError("generic reduction kernel launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    generic_pair_forces.launches += 1
+    gl.lanes.record(gl.needed)
+    return forces4, virial
 
 
 def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
@@ -631,68 +808,161 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
         return generic_plain(positions, types, valid, plan, lo, pair_fn,
                              typed_fn, needs_virial, min_r2, rc2_tab,
                              needs_energy, geometry, lanes)
-    geometry = _as_geometry(plan, lo, positions, geometry)
-    dev = positions.device
-    typed = typed_fn or rc2_tab is not None
-    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
-    rc_t = 0
-    if rc2_tab is not None:
-        rc_t = rc2_tab.shape[0]
-        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
-    lib = _generic_library()
-    smem = max(lib.htf_generic_smem(plan.capacity),
-               lib.htf_generic_reduce_smem(plan.capacity))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
-                         f"shared memory per block, above {_MAX_SMEM}")
-    budget = lanes.budget
-    counter, lst, rec = _generic_buffers(
-        dev, budget, plan.r_cut ** 2,
-        plan.n_cells * lib.htf_generic_record_words(plan.capacity))
-    r2, ti, tj = lst[0], lst[1], lst[2]
-    n = plan.n_slots
-    cell_base = torch.empty(plan.n_cells, dtype=torch.int32, device=dev)
-    needed = torch.empty((), dtype=torch.int32, device=dev)
-    n_ch = len(_channel_coefs(needs_energy, needs_virial))
-    sums = torch.empty((n_ch, len(_HALF_OFFS), n), dtype=torch.float32,
-                       device=dev)
-    forces4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    virial = (torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
-              if needs_virial else None)
-    geom = ctypes.byref(half_geom(plan))
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rc2, rcm = float(plan.r_cut ** 2), _ptr(rc2_tab)
-    err = lib.htf_generic_list(*state, geom, plan.n_cells, rcm, rc_t, rc2,
-                               float(min_r2), budget, _ptr(counter),
-                               _ptr(cell_base), _ptr(r2), _ptr(ti), _ptr(tj),
-                               _ptr(rec), _ptr(sums), n_ch, stream)
-    if err != 0:
-        counter.zero_()
-        raise RuntimeError("generic list kernel launch failed: " +
-                           lib.htf_generic_error_string(err).decode())
-    try:
-        U, S = _eval_pair_fn(pair_fn, typed_fn, r2, ti, tj)
-    except BaseException:
-        counter.zero_()  # the reduction, which zeroes it, will not run
-        raise
-    U, S = U.contiguous(), S.contiguous()
-    err = lib.htf_generic_reduce(geom, plan.n_cells, _ptr(rec),
-                                 _ptr(cell_base), _ptr(U), _ptr(S),
-                                 int(needs_energy), int(needs_virial),
-                                 _ptr(valid), _ptr(sums), _ptr(forces4),
-                                 _ptr(virial), _ptr(counter), _ptr(needed),
-                                 stream)
-    if err != 0:
-        counter.zero_()
-        raise RuntimeError("generic reduction kernel launch failed: " +
-                           lib.htf_generic_error_string(err).decode())
-    lanes.record(needed)
-    generic_pair_forces.launches += 1
-    return forces4, virial
+    gl = generic_list(positions, types, valid, plan, lo, typed_fn, min_r2,
+                      rc2_tab, geometry, lanes, needs_energy, needs_virial)
+    U, S = gl.evaluate(pair_fn)
+    return generic_reduce(gl, U, S, needs_energy, needs_virial)
 
 
-#: calls that launched the generic form (three launches each)
+#: calls that launched the generic form's reduction (generic_reduce, after
+#: its list kernel: three launches each), training's forward included
 generic_pair_forces.launches = 0
+
+
+def _shifted_cells(cell, t, plan):
+    """The cell ``cell + _HALF_OFFS[t]`` on the periodic grid (x-minor,
+    z-major ids), elementwise."""
+    nx, ny, nz = plan.grid
+    offs = torch.tensor(_HALF_OFFS, dtype=cell.dtype, device=cell.device)
+    o = offs[t]
+    x = (cell % nx + o[:, 0]) % nx
+    y = (cell // nx % ny + o[:, 1]) % ny
+    z = (cell // (nx * ny) + o[:, 2]) % nz
+    return x + nx * (y + ny * z)
+
+
+def generic_reduce_bwd_plain(lst, ct, valid, plan, needs_energy=True,
+                             n_lanes=None):
+    """Plain PyTorch version of ``generic_reduce_bwd``: the transpose of
+    :func:`generic_reduce_plain` in ``(U, S)``. Per listed lane, with the
+    cotangent folded with ``valid`` (the finish multiplies by it), ``gU =
+    0.5 ct_e[i] + [block >= 1] 0.5 ct_e[j]`` and ``gS = sum_k d_k (2
+    ct_k[i] - [block >= 1] 2 ct_k[j])``, ``i`` the lane's row slot and
+    ``j`` its candidate's own slot (block 0 lists both orders: the row
+    term only).
+
+    :param n_lanes: the length of the returned cotangents (default the
+        listed lanes); lanes past the listed ones get exactly zero.
+    :returns: ``(gU or None when not needs_energy, gS)``.
+    """
+    cap = plan.capacity
+    n = lst["r2"].shape[0]
+    n_lanes = n if n_lanes is None else int(n_lanes)
+    ctv = ct.to(valid.dtype) * valid[:, None]
+    row = lst["cell"] * cap + lst["row"]
+    t = lst["col"] // cap
+    back = t >= 1
+    cand = _shifted_cells(lst["cell"], t, plan) * cap + lst["col"] % cap
+    ci, cj = ctv[row], ctv[cand] * back[:, None].to(ctv.dtype)
+    gS = (lst["dx"] * (2.0 * ci[:, 0] - 2.0 * cj[:, 0]) +
+          lst["dy"] * (2.0 * ci[:, 1] - 2.0 * cj[:, 1]) +
+          lst["dz"] * (2.0 * ci[:, 2] - 2.0 * cj[:, 2]))
+    gU = 0.5 * ci[:, 3] + 0.5 * cj[:, 3] if needs_energy else None
+    pad = n_lanes - n
+    if pad > 0:
+        gS = torch.nn.functional.pad(gS, (0, pad))
+        gU = None if gU is None else torch.nn.functional.pad(gU, (0, pad))
+    return gU, gS
+
+
+def generic_reduce_bwd(gl, ct, needs_energy=True):
+    """Kernel ``generic_reduce_bwd``, the backward of the generic form's
+    reduction: the cotangents ``(gU or None, gS)`` of the pair function's
+    ``(U, S)`` on the list ``gl``, given the cotangent ``ct`` of the
+    forces ``[n_slots, 4]``. On a CUDA list it launches the kernel
+    (counted in ``generic_reduce_bwd.launches``), which reads the list
+    kernel's records of ``gl`` and writes every lane of the budget (zero
+    where no pair is listed); it raises when a later list call has
+    rewritten those records. On a CPU list it takes
+    :func:`generic_reduce_bwd_plain`."""
+    plan = gl.plan
+    if gl.lst is not None:
+        return generic_reduce_bwd_plain(gl.lst, ct, gl.valid, plan,
+                                        needs_energy, gl.r2.shape[0])
+    dev = gl.r2.device
+    if _GENERATION.get(str(dev)) != gl.generation:
+        raise RuntimeError(
+            "the generic form's list and records were rewritten by a later "
+            "generic-form call before this call's backward ran")
+    if gl.needed is None:
+        raise RuntimeError("the backward of a generic-form list whose "
+                           "reduction did not run")
+    ct = ct.contiguous()
+    _check(ct, (plan.n_slots, 4), torch.float32, dev, "ct")
+    gS = torch.empty(gl.budget, dtype=torch.float32, device=dev)
+    gU = torch.empty_like(gS) if needs_energy else None
+    lib = _generic_library()
+    err = lib.htf_generic_reduce_bwd(
+        gl.geom, plan.n_cells, _ptr(gl.rec), _ptr(gl.cell_base), _ptr(ct),
+        _ptr(gl.valid), int(needs_energy), _ptr(gl.needed), gl.budget,
+        _ptr(gU), _ptr(gS),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError("generic reduction backward launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    generic_reduce_bwd.launches += 1
+    return gU, gS
+
+
+#: calls that launched generic_reduce_bwd
+generic_reduce_bwd.launches = 0
+
+
+class GenericReduce(torch.autograd.Function):
+    """The generic form's reduction and finish as a differentiable
+    function of the pair function's ``(U, S)`` on a :class:`GenericList`:
+    forward :func:`generic_reduce` (forces only, no virial), backward
+    :func:`generic_reduce_bwd`. ``apply(U, S, gl, needs_energy) ->
+    forces4``; without the energy, ``U`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, U, S, gl, needs_energy):
+        ctx.gl, ctx.needs_energy = gl, needs_energy
+        f4, _ = generic_reduce(gl, U.detach(), S.detach(), needs_energy)
+        return f4
+
+    @staticmethod
+    def backward(ctx, ct):
+        gU, gS = generic_reduce_bwd(ctx.gl, ct, ctx.needs_energy)
+        return gU, gS, None, None
+
+
+def generic_train_forces(positions, types, valid, plan, lo, pair_fn,
+                         typed_fn=True, min_r2=1e-4, rc2_tab=None,
+                         needs_energy=True, geometry=None, lanes=None):
+    """K1's generic form for training: ``forces4 [n_slots, 4]``
+    differentiable in the weights ``pair_fn`` reads. The list kernel (its
+    plain version on CPU tensors), the pair function on the list with
+    grad, then :class:`GenericReduce`, whose backward is the kernel
+    ``generic_reduce_bwd`` (its plain version on the CPU). A CUDA call
+    counts in ``generic_pair_forces.launches`` (at its reduction).
+    Arguments as
+    :func:`generic_pair_forces`; no virial."""
+    gl = generic_list(positions, types, valid, plan, lo, typed_fn, min_r2,
+                      rc2_tab, geometry, lanes, needs_energy)
+    U, S = gl.evaluate(pair_fn, grad=True)
+    if not needs_energy:
+        U = U.detach()
+    return GenericReduce.apply(U, S, gl, needs_energy).to(positions.dtype)
+
+
+def kernel_lane_index(lst, cell_base, plan):
+    """Where each lane of the plain list ``lst`` (:func:`generic_list_plain`,
+    cells in order) lies in the kernel's list of the same state: its
+    cell's base plus its index within the cell (both lists order a cell's
+    lanes alike). Cells the kernel did not list (negative base) give -1.
+    For comparing per-lane outputs of the two."""
+    counts = torch.bincount(lst["cell"], minlength=plan.n_cells)
+    first = torch.cumsum(counts, 0) - counts
+    k = torch.arange(lst["cell"].shape[0], device=lst["cell"].device)
+    base = cell_base.to(lst["cell"].device).long()[lst["cell"]]
+    return torch.where(base >= 0, base + k - first[lst["cell"]],
+                       torch.full_like(base, -1))
+
+
+# per device: the generation of the shared list and records below (one
+# more at each list launch; a backward checks its call's)
+_GENERATION = {}
 
 # per device: the lane counter (zero between calls), the list buffer
 # (budget, [3, budget] float32 r2, ti, tj), first filled with harmless
@@ -736,6 +1006,11 @@ def _generic_library():
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 +
             [ctypes.c_void_p] * 7)
         lib.htf_generic_reduce.restype = ctypes.c_int
+        lib.htf_generic_reduce_bwd.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 +
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
+            [ctypes.c_void_p] * 3)
+        lib.htf_generic_reduce_bwd.restype = ctypes.c_int
         lib.htf_generic_smem.argtypes = [ctypes.c_int]
         lib.htf_generic_smem.restype = ctypes.c_long
         lib.htf_generic_reduce_smem.argtypes = [ctypes.c_int]

@@ -22,8 +22,10 @@ here. The callable form ``energy = f(nlist)`` works too, inside a model
 or outside.
 
 The gradient keeps its graph (``create_graph``) when the model is called
-with ``training=True``, so a loss on the forces trains the weights;
-outside a model it keeps it whenever grad mode is on.
+with ``training=True`` (or with ``keep_graph=True``, which the lane-fast
+training route uses to call a model with ``training=False``), so a loss
+on the forces trains the weights; outside a model it keeps it whenever
+grad mode is on.
 """
 
 import contextlib
@@ -33,15 +35,17 @@ import torch
 
 __all__ = ["compute_nlist_forces", "compute_positions_forces"]
 
-# the training flag of the SimModel call in flight (None outside a model)
+# whether the SimModel call in flight keeps its force gradients' graph
+# (None outside a model)
 _TRAINING = contextvars.ContextVar("htf_training", default=None)
 
 
 @contextlib.contextmanager
-def model_call(training):
+def model_call(training, keep_graph=None):
     """Mark a model call in flight: the force gradients keep their graph
-    exactly when ``training``."""
-    token = _TRAINING.set(bool(training))
+    exactly when ``keep_graph``, by default ``training``."""
+    keep = training if keep_graph is None else keep_graph
+    token = _TRAINING.set(bool(keep))
     try:
         yield
     finally:

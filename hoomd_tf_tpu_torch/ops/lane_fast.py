@@ -44,11 +44,15 @@ __all__ = ["synthesize_pair_fn", "validate_pair_fn", "planes_forces",
            "near_cut_rows", "route_errors"]
 
 
-def synthesize_pair_fn(model, box):
+def synthesize_pair_fn(model, box, differentiable=False):
     """An ``analytic_pair_forces`` pair function from a generic model's
     ``compute`` (see the module docstring).
 
     :param box: the ``[3, 3]`` box the model is handed.
+    :param differentiable: keep ``(U, dU/dr2)`` differentiable in the
+        model's weights (training: the model's force gradient keeps its
+        graph), while the model still sees ``training=False``, as in the
+        JAX package.
     :returns: ``pair_fn(r2, ti, tj) -> (U, dU/dr2)``, ``U`` the full
         per-pair energy.
     """
@@ -64,7 +68,10 @@ def synthesize_pair_fn(model, box):
         planes = NlistPlanes(dx=r[:, None], dy=z, dz=z, type=tjf[:, None])
         pos4 = torch.cat([torch.zeros((m, 3), dtype=dtype,
                                       device=r2.device), tif[:, None]], 1)
-        f4 = model([planes, pos4, box], training=False)[0].detach()
+        f4 = model([planes, pos4, box], training=False,
+                   keep_graph=differentiable)[0]
+        if not differentiable:
+            f4 = f4.detach()
         if f4.shape[1] >= 4:
             U = (2.0 * f4[:, 3]).to(dtype)
         else:
@@ -128,20 +135,25 @@ def route_errors(ref, fast, near, rtol=2e-3, atol=2e-4):
     return bool((err <= limit).all()), report
 
 
-def planes_forces(model, slot_state, aux, layout, lane_chunk=None):
+def planes_forces(model, slot_state, aux, layout, lane_chunk=None,
+                  info=None):
     """The model's forces on the cellwise planes route: its first output
     on :meth:`..md.slots.SlotLayout.planes`, ghost rows zeroed. With
     ``lane_chunk``, the model runs on the rows of as many cells at a time
     as keep the planes near ``lane_chunk`` lanes (a model coupling rows
-    then sees only its chunk, which a validation counts against it)."""
+    then sees only its chunk, which a validation counts against it).
+    ``info``, a dict, receives the model's number of outputs
+    (``"n_outputs"``) and the first one's columns (``"cols"``)."""
     plan = layout.plan
     pos4 = slot_state.positions4
     outs = []
     for c0, c1 in _cell_chunks(plan, lane_chunk):
         rows = slice(c0 * plan.capacity, c1 * plan.capacity)
         planes = layout.planes(slot_state, aux, cells=(c0, c1))
-        outs.append(model([planes, pos4[rows], slot_state.box],
-                          training=False)[0].detach())
+        out = model([planes, pos4[rows], slot_state.box], training=False)
+        outs.append(out[0].detach())
+        if info is not None:
+            info["n_outputs"], info["cols"] = len(out), out[0].shape[-1]
     f = torch.cat(outs)
     return f * aux["valid"][:, None].to(f.dtype)
 
@@ -168,7 +180,8 @@ def validate_pair_fn(model, pair_fn, slot_state, aux, layout, stencil,
         counts them: on the card each one launches K1's generic form).
     :param report: a dict that receives why: ``"error"`` (the model's
         exception) or the per-column ``"err"`` and ``"limit"`` and the
-        rows left out.
+        rows left out; and the model's ``"n_outputs"`` and ``"cols"``
+        (:func:`planes_forces`).
     :returns: a Python bool (one readback). A failure of the model itself
         disqualifies; a failure of a kernel raises.
     """
@@ -176,7 +189,8 @@ def validate_pair_fn(model, pair_fn, slot_state, aux, layout, stencil,
 
     report = {} if report is None else report
     try:
-        ref = planes_forces(model, slot_state, aux, layout, lane_chunk)
+        ref = planes_forces(model, slot_state, aux, layout, lane_chunk,
+                            info=report)
     except Exception as e:
         report["error"] = f"planes route: {e!r}"
         return False

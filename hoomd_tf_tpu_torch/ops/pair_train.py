@@ -15,10 +15,15 @@ a CUDA tensor, the tensor stencil on a CPU one.
 
 The backward takes kernel K2 (:mod:`.pair_train_cuda`) when the pair
 function is a Chebyshev proxy whose coefficients are the parameters
-(its evaluator carries a ``basis``); otherwise the generic lane
-contraction, ``torch.autograd.grad`` of the weighted sum, which is the
-CPU oracle. On a CUDA tensor a pair function with no basis raises: it
-has no kernel in this slice of the port.
+(its evaluator carries a ``basis``). Any other pair function takes the
+list route on a CUDA tensor: K1's generic form lists the lanes, the pair
+function runs once on the list with grad, and the reduction's backward
+is the kernel ``generic_reduce_bwd``, whose per-lane cotangents are
+exactly the weights above (:func:`.cellwise_cuda.generic_train_forces`);
+autograd carries them through the pair function into the weights. On
+the CPU the generic lane contraction, ``torch.autograd.grad`` of the
+weighted sum, is the oracle; ``bwd_impl='list'`` takes the list route's
+plain version there.
 
 Geometry inputs (positions, types, validity) get no gradient: neighbor
 membership is piecewise constant and training never differentiates the
@@ -101,96 +106,105 @@ class _Run:
 
     def backward(self, tensors, ct):
         params = self.unflatten(tensors)
-        basis = getattr(self.pair_apply, "basis", None)
-        cuda = self.positions.is_cuda
-        if cuda and self.positions.dtype != torch.float32:
-            raise NotImplementedError(
-                "float64 training on the card is not ported yet (kernel "
-                "K2 is float32; float64 arrives with slice C)")
-        if self.bwd_impl == "auto" and basis is not None and \
-                _params_match_basis(params, basis) and \
-                self.positions.dtype == torch.float32:
+        if self.uses_k2(params):
             from .pair_train_cuda import proxy_bwd_moments
             g_c, g_cd = proxy_bwd_moments(
                 self.positions, self.types, self.valid, ct, self.plan,
-                self.lo, basis, min_r2=self.min_r2,
+                self.lo, self.pair_apply.basis, min_r2=self.min_r2,
                 rc2_tab=self.rcut_matrix, needs_energy=self.needs_energy,
                 geometry=self.geometry)
             grads = {"c": g_c, "cd": g_cd}
             return [grads[k].to(params[k].dtype) for k in params]
-        if cuda:
-            raise ValueError(
-                "on a CUDA tensor the training backward runs in kernel K2, "
-                "which needs a Chebyshev-proxy pair function "
-                "(PairModel(proxy_degree=...)); this pair function has "
-                "none. The generic lane contraction is the CPU oracle.")
         return self._contract(tensors, ct)
 
-    def _contract(self, tensors, ct):
+    def uses_k2(self, params):
+        """Does the backward run in kernel K2 (a Chebyshev proxy whose
+        coefficients are the parameters, float32)?"""
+        basis = getattr(self.pair_apply, "basis", None)
+        return (self.bwd_impl == "auto" and basis is not None and
+                _params_match_basis(params, basis) and
+                self.positions.dtype == torch.float32)
+
+    def _contract(self, tensors, ct, chunk_lanes=None):
         """The generic lane contraction over the half lane set
-        (``pair_train.py:161-233``)."""
+        (``pair_train.py:161-233``), in chunks of cells of about
+        ``chunk_lanes`` lanes (default ``_CONTRACT_LANES``), the weights'
+        gradients summed."""
         plan, positions = self.plan, self.positions
-        dtype = positions.dtype
+        dtype, dev = positions.dtype, positions.device
         n_cells, cap = plan.n_cells, plan.capacity
         offs_list = _HALF_OFFS
         C = len(offs_list) * cap
         geometry = _cw._as_geometry(plan, self.lo, positions, self.geometry)
         qx, qy, qz, gx, gy, gz = _relative_coords(
             positions, self.valid, plan, self.lo, offs_list, geometry)
-        dx = gx[:, None, :] - qx.reshape(n_cells, cap)[:, :, None]
-        dy = gy[:, None, :] - qy.reshape(n_cells, cap)[:, :, None]
-        dz = gz[:, None, :] - qz.reshape(n_cells, cap)[:, :, None]
-        d2 = dx * dx + dy * dy + dz * dz
-        row = torch.arange(cap)[:, None]
-        col = torch.arange(C)[None, :]
-        not_self = ~((col < cap) & (col == row))[None]
-        ok = (d2 <= plan.r_cut * plan.r_cut) & not_self
-        ti = tj = None
+        qx, qy, qz = (q.reshape(n_cells, cap) for q in (qx, qy, qz))
+        col = torch.arange(C, device=dev)[None, :]
+        not_self = ~((col < cap) &
+                     (col == torch.arange(cap, device=dev)[:, None]))[None]
+        directed = (col >= cap).to(dtype)[None]
+        ti_all = tj_all = None
         if self.with_types or self.rcut_matrix is not None:
             tt = self.types.to(dtype)
-            ti = tt.reshape(n_cells, cap)[:, :, None]
-            tj = _roll_offs(tt, plan, offs_list)[:, None, :]
-        if self.rcut_matrix is not None:
-            ok = ok & (d2 <= _cw.pair_rc2(ti, tj, self.rcut_matrix))
-        r2 = torch.clamp_min(d2, self.min_r2)
+            ti_all = tt.reshape(n_cells, cap)[:, :, None]
+            tj_all = _roll_offs(tt, plan, offs_list)[:, None, :]
         # the primal ends with `* valid`; fold it into the cotangent
         ctv = ct * self.valid[:, None]
         ctf = ctv[:, :3].reshape(n_cells, cap, 3)
-        zero = torch.zeros((), dtype=dtype)
-        wF = ctf[:, :, 0:1] * dx + ctf[:, :, 1:2] * dy + \
-            ctf[:, :, 2:3] * dz
-        wE = ctv[:, 3].reshape(n_cells, cap, 1) if self.needs_energy \
-            else None
+        cte = ctv[:, 3].reshape(n_cells, cap, 1)
         # a directed block's lane carries both ordered pairs; the self
         # block (0) is evaluated from both rows already
         cg = [_roll_offs(ctv[:, k].contiguous(), plan,
                          offs_list)[:, None, :] for k in range(4)]
-        directed = (torch.arange(C) >= cap).to(dtype)[None, None, :]
-        wF = wF - directed * (cg[0] * dx + cg[1] * dy + cg[2] * dz)
-        if wE is not None:
-            wE = wE + directed * cg[3]
-        wF = torch.where(ok, 2.0 * wF, zero)
-        if wE is not None:
-            wE = torch.where(ok, 0.5 * wE, zero)
+        zero = torch.zeros((), dtype=dtype, device=dev)
         leaves = [t.detach().requires_grad_() for t in tensors]
-        with torch.enable_grad():
-            p = self.unflatten(leaves)
-            if self.with_types:
-                U, dU = self.pair_apply(p, r2, ti, tj)
-            else:
-                U, dU = self.pair_apply(p, r2)
-            tot = torch.sum(wF * dU)
-            if wE is not None:
-                tot = tot + torch.sum(wE * U)
-            grads = torch.autograd.grad(tot, leaves, allow_unused=True)
-        return [torch.zeros_like(t) if g is None else g
-                for t, g in zip(tensors, grads)]
+        grads = [torch.zeros_like(t) for t in tensors]
+        chunk_lanes = chunk_lanes or _CONTRACT_LANES
+        step = max(1, chunk_lanes // (cap * C))
+        for a in range(0, n_cells, step):
+            c = slice(a, min(n_cells, a + step))
+            dx = gx[c, None, :] - qx[c, :, None]
+            dy = gy[c, None, :] - qy[c, :, None]
+            dz = gz[c, None, :] - qz[c, :, None]
+            d2 = dx * dx + dy * dy + dz * dz
+            ok = (d2 <= plan.r_cut * plan.r_cut) & not_self
+            ti = None if ti_all is None else ti_all[c]
+            tj = None if tj_all is None else tj_all[c]
+            if self.rcut_matrix is not None:
+                ok = ok & (d2 <= _cw.pair_rc2(ti, tj, self.rcut_matrix))
+            r2 = torch.clamp_min(d2, self.min_r2)
+            wF = (ctf[c, :, 0:1] * dx + ctf[c, :, 1:2] * dy +
+                  ctf[c, :, 2:3] * dz)
+            wF = wF - directed * (cg[0][c] * dx + cg[1][c] * dy +
+                                  cg[2][c] * dz)
+            wF = torch.where(ok, 2.0 * wF, zero)
+            wE = None
+            if self.needs_energy:
+                wE = torch.where(ok, 0.5 * (cte[c] + directed * cg[3][c]),
+                                 zero)
+            with torch.enable_grad():
+                p = self.unflatten(leaves)
+                if self.with_types:
+                    U, dU = self.pair_apply(p, r2, ti, tj)
+                else:
+                    U, dU = self.pair_apply(p, r2)
+                tot = torch.sum(wF * dU)
+                if wE is not None:
+                    tot = tot + torch.sum(wE * U)
+                part = torch.autograd.grad(tot, leaves, allow_unused=True)
+            grads = [g if q is None else g + q for g, q in zip(grads, part)]
+        return grads
+
+
+# lanes of one chunk of the lane contraction ([cells, cap, 14 cap])
+_CONTRACT_LANES = 1 << 24
 
 
 def pair_train_forces(params, pair_apply, positions, types, valid, plan,
                       lo, *, min_r2=1e-4, with_types=False,
                       rcut_matrix=None, needs_energy=True,
-                      fwd_stencil="auto", bwd_impl="auto", geometry=None):
+                      fwd_stencil="auto", bwd_impl="auto", geometry=None,
+                      lanes=None):
     """Analytic pair forces, differentiable in ``params`` only.
 
     :param params: a dict of tensors, the only differentiable input (for
@@ -206,9 +220,12 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
     :param fwd_stencil: the primal's stencil (see
         :func:`.cellwise.analytic_pair_forces`; ``'auto'`` is K1 on CUDA,
         with the evaluator's ``kernel_form(params)``).
-    :param bwd_impl: ``'auto'`` (K2 for a proxy evaluator, else the
-        generic contraction) or ``'generic'`` (the contraction; CPU
-        only).
+    :param bwd_impl: ``'auto'`` (K2 for a proxy evaluator; else the list
+        route on a CUDA tensor and the generic contraction on a CPU one),
+        ``'generic'`` (the contraction; CPU only) or ``'list'`` (the list
+        route; its plain version on the CPU).
+    :param lanes: the list route's :class:`.cellwise_cuda.LaneBudget`
+        (default: sized from this call's occupied slots, one host sync).
     :returns: ``forces4 [n_slots, 4]`` with the energy in column 4.
     """
     keys = list(params)
@@ -218,4 +235,20 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
     run = _Run(keys, pair_apply, positions, types, valid, plan, lo, min_r2,
                with_types, rcut_matrix, needs_energy, fwd_stencil, bwd_impl,
                geometry)
+    cuda = positions.is_cuda
+    if cuda and positions.dtype != torch.float32:
+        raise NotImplementedError(
+            "float64 training on the card is not ported yet (kernels K2 and "
+            "generic_reduce_bwd are float32; ROADMAP.md Queue 1 item 5)")
+    if bwd_impl == "list" or (cuda and bwd_impl == "auto" and
+                              not run.uses_k2(params)):
+        from .cellwise_cuda import generic_train_forces
+        return generic_train_forces(
+            positions, types, valid, plan, lo, run.bind(params),
+            typed_fn=with_types, min_r2=min_r2, rc2_tab=rcut_matrix,
+            needs_energy=needs_energy, geometry=geometry, lanes=lanes)
+    if cuda and bwd_impl == "generic":
+        raise ValueError("the generic lane contraction is the CPU oracle; "
+                         "on a CUDA tensor training takes K2 or the list "
+                         "route")
     return _PairTrain.apply(run, *(params[k] for k in keys))

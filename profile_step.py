@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Where a step's time goes on the card: the 64k online-training step
-(``--mode train``, north_star.py's flagship row) or the 64k eval step
+(``--mode train``, one of north_star.py's rows: ``--row proxy``, the
+flagship proxy PairModel, ``--row pair``, the non-proxy PairModel, or
+``--row generic``, the generic SimModel of reference example 08) or the
+64k eval step
 (``--mode eval``, the bench protocol), through the port's public API; or
 (``--mode calls``) the whole calls of kernels K1, K2 and K3 alone; or
 (``--mode k3parts``, ``--mode genparts``) where the time of K3, or of K1's
@@ -9,7 +12,7 @@ generic form, goes.
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 profile_step.py [--mode train|eval|calls|k3parts|genparts]
-                            [--steps 50]
+                            [--row proxy|pair|generic] [--steps 50]
     python3 profile_step.py --mode calls --tree DIR
 
 ``--tree DIR`` imports the port's package from another checkout (an
@@ -28,7 +31,11 @@ train=True and trained 600 steps around a replan), profiles ``run(steps)`` with 
   and proxy forms, K2, torch.roll, the optimizer, the rest);
 - for training, each part of a step timed alone by CUDA events at the
   run's shapes: the labels (K1, LJ form), the proxy forward (K1, proxy
-  form), the backward (K2), the node fit with its backward, and Adam.
+  form), the backward (K2), the node fit with its backward, and Adam;
+  for the non-proxy rows (chip_smoke.py phases 10 and 11) the labels, the
+  forward (K1's generic form's list, the pair function with grad, the
+  reduction), the backward kernel ``generic_reduce_bwd``, the pair
+  function's backward, and Adam (``chip_smoke.generic_train_parts``).
 
 ``--mode calls`` quenches the 64k fluid (60 steps, as chip_smoke.py
 phase 3) and times, by CUDA events, the whole call of K1's LJ form at the
@@ -81,6 +88,9 @@ GROUPS = (("K1 LJ form", ("half_stencil_forces", "LJForm")),
           ("K1 proxy form", ("half_stencil_forces", "ChebForm")),
           ("K1 push-back", ("half_stencil_home",)),
           ("K2", ("proxy_bwd_kernel",)),
+          ("K1 generic list", ("generic_list",)),
+          ("generic_reduce_bwd", ("generic_reduce_bwd",)),
+          ("K1 generic reduction", ("generic_reduce",)),
           ("K2 cross-cell sum", ("reduce_partials",)),
           ("optimizer", ("adam",)))
 
@@ -125,11 +135,15 @@ def union_us(intervals):
     return total
 
 
-def prepare(mode, cs):
+def prepare(mode, cs, row="proxy"):
     """The 64k system, ready for the profiled window: for training,
-    chip_smoke.py's own set-up and warm training."""
+    chip_smoke.py's own set-up of the ``row`` and its warm training."""
     if mode == "train":
-        sim, model = cs.train_sim_attached()
+        model, loss = {
+            "proxy": (None, None),
+            "pair": (cs.make_nn(seed=0, proxy_degree=None), cs.force_loss),
+            "generic": (cs.make_nn_generic(seed=0), "mse")}[row]
+        sim, model = cs.train_sim_attached(model, loss)
         cs.warm_train(sim)
         return sim, model
     htt = cs.htt
@@ -554,6 +568,8 @@ def main():
                                        "genparts"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--row", choices=("proxy", "pair", "generic"),
+                    default="proxy")
     ap.add_argument("--tree", default=HERE,
                     help="checkout whose hoomd_tf_tpu_torch is imported")
     args = ap.parse_args()
@@ -587,7 +603,7 @@ def main():
             "calls": whole_calls(cs)}, indent=1))
         return 0
 
-    sim, model = prepare(args.mode, cs)
+    sim, model = prepare(args.mode, cs, args.row)
     n = args.steps
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
@@ -617,7 +633,10 @@ def main():
                               for k, v in sorted(groups.items())},
     }
     if args.mode == "train":
-        rec["parts_ms"] = train_parts(sim, model, cs)
+        rec["row"] = args.row
+        rec["parts_ms"] = (train_parts(sim, model, cs) if args.row == "proxy"
+                           else cs.generic_train_parts(sim)[0])
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps(rec, indent=1))
     return 0
 

@@ -1,5 +1,6 @@
 """Card-only checks of the port: kernel K1 (LJ and Chebyshev-proxy forms),
-kernel K2 and kernel K3 against their plain versions, the step loops of
+kernel K2, kernel K3 and the generic form's backward
+(``generic_reduce_bwd``) against their plain versions, the step loops of
 the cellwise and the packed paths free of host syncs, and online training
 on the card against the CPU. Every test here
 needs a CUDA device and
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 import hoomd_tf_tpu_torch as htt
+import hoomd_tf_tpu_torch.interop  # noqa: F401
 from hoomd_tf_tpu_torch.md.slots import SlotLayout
 from hoomd_tf_tpu_torch.ops import cellwise as tcw
 from hoomd_tf_tpu_torch.ops import cellwise_cuda as tcc
@@ -378,9 +380,10 @@ def test_steps_launch_no_roll_kernel(cuda_device):
 
 
 def test_backward_without_basis_raises(cuda_device):
-    """On the card the training backward is kernel K2: a pair function
-    that is no Chebyshev proxy has no kernel there, and raises rather
-    than taking the plain lane contraction."""
+    """On the card the training backward is a kernel: K2 for a Chebyshev
+    proxy, ``generic_reduce_bwd`` (the list route) for any other pair
+    function. Asking for the plain lane contraction there raises rather
+    than running the CPU oracle on the card."""
     from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
     layout, slot, aux = packed(cuda_device, False)
     eps = torch.tensor(1.0, device=cuda_device, requires_grad=True)
@@ -391,11 +394,197 @@ def test_backward_without_basis_raises(cuda_device):
         return (4.0 * p["eps"] * (sr6 * sr6 - sr6),
                 -12.0 * p["eps"] * (2.0 * sr6 - 1.0) * sr6 * u)
 
+    with pytest.raises(ValueError, match="oracle"):
+        pair_train_forces({"eps": eps}, lj, slot.positions, slot.types,
+                          aux["valid"], layout.plan, layout.lo,
+                          bwd_impl="generic", geometry=layout.geometry)
+    before = tcc.generic_reduce_bwd.launches
     f4 = pair_train_forces({"eps": eps}, lj, slot.positions, slot.types,
                            aux["valid"], layout.plan, layout.lo,
-                           fwd_stencil="half", geometry=layout.geometry)
-    with pytest.raises(ValueError, match="Chebyshev"):
-        f4.sum().backward()
+                           geometry=layout.geometry)
+    f4.sum().backward()
+    assert tcc.generic_reduce_bwd.launches - before == 1
+    assert eps.grad is not None and bool(torch.isfinite(eps.grad))
+
+
+def bwd_case(dev, typed, capacity, energy, budget=None):
+    """K1's generic form's list and reduction on ``dev`` (the plain
+    version on the CPU) with a cotangent from a seed: ``(gl, ct)``. The
+    reduction counts one launch of the form on the card, none on the
+    CPU."""
+    layout, slot, aux = packed(dev, typed, capacity)
+    lanes = tcc.LaneBudget(budget or tcc.lane_budget(layout.plan, 500), dev)
+    before = tcc.generic_pair_forces.launches
+    gl = tcc.generic_list(slot.positions, slot.types, aux["valid"],
+                          layout.plan, layout.lo, rc2_tab=layout.rc2_tab,
+                          geometry=layout.geometry, lanes=lanes,
+                          needs_energy=energy)
+    U, S = gl.evaluate(morse_yukawa)
+    tcc.generic_reduce(gl, U, S, energy)
+    assert tcc.generic_pair_forces.launches - before == \
+        (1 if dev.type == "cuda" else 0)
+    ct = torch.as_tensor(np.random.RandomState(4).randn(
+        layout.plan.n_slots, 4).astype(np.float32), device=dev)
+    return gl, ct, lanes
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("capacity", [None, 80, 200])
+@pytest.mark.parametrize("energy", [True, False])
+def test_generic_reduce_bwd_matches_plain(cuda_device, typed, capacity,
+                                          energy):
+    """The backward kernel on the card against its plain version on the
+    CPU, lane by lane (the kernel's list holds each cell's lanes at its
+    base in the plain list's order), rtol = atol = 1e-4; every lane of the
+    budget past the lanes needed is exactly zero; one launch counted."""
+    gl, ct, lanes = bwd_case(cuda_device, typed, capacity, energy)
+    before = tcc.generic_reduce_bwd.launches
+    gU, gS = tcc.generic_reduce_bwd(gl, ct, energy)
+    assert tcc.generic_reduce_bwd.launches - before == 1
+    need = int(lanes.needed)
+    assert need < lanes.budget
+    cpu = torch.device("cpu")
+    pl, pct, _ = bwd_case(cpu, typed, capacity, energy)
+    pU, pS = tcc.generic_reduce_bwd(pl, pct, energy)
+    idx = tcc.kernel_lane_index(pl.lst, gl.cell_base, gl.plan)
+    assert sorted(idx.tolist()) == list(range(need))
+    np.testing.assert_allclose(np_(gS)[np_(idx)], np_(pS), **TOL)
+    assert not np_(gS)[need:].any()
+    if energy:
+        np.testing.assert_allclose(np_(gU)[np_(idx)], np_(pU), **TOL)
+        assert not np_(gU)[need:].any()
+    else:
+        assert gU is None and pU is None
+
+
+def test_generic_reduce_bwd_short_list_zeroes_unlisted(cuda_device):
+    """A budget of half the lanes needed: the cells that did not fit carry
+    exactly zero over their share of the list, the listed cells' lanes
+    equal the plain version's."""
+    gl, ct, lanes = bwd_case(cuda_device, True, None, True)
+    need = int(lanes.needed)
+    gl, ct, lanes = bwd_case(cuda_device, True, None, True,
+                             budget=need // 2)
+    assert bool(lanes.overflow())
+    gU, gS = tcc.generic_reduce_bwd(gl, ct)
+    pl, pct, _ = bwd_case(torch.device("cpu"), True, None, True)
+    pU, pS = tcc.generic_reduce_bwd(pl, pct)
+    idx = np_(tcc.kernel_lane_index(pl.lst, gl.cell_base, gl.plan))
+    listed = idx >= 0
+    assert listed.any() and not listed.all()
+    np.testing.assert_allclose(np_(gS)[idx[listed]], np_(pS)[listed], **TOL)
+    rest = np.ones(lanes.budget, bool)
+    rest[idx[listed]] = False
+    assert not np_(gS)[rest].any() and not np_(gU)[rest].any()
+
+
+def test_generic_reduce_bwd_refuses_rewritten_records(cuda_device):
+    """The backward reads its forward call's records; a later list call
+    rewrites them, and the backward then raises."""
+    gl, ct, _ = bwd_case(cuda_device, False, None, True)
+    bwd_case(cuda_device, False, None, True)
+    with pytest.raises(RuntimeError, match="rewritten"):
+        tcc.generic_reduce_bwd(gl, ct)
+
+
+@pytest.mark.parametrize("kind", ["pair", "synthesized"])
+def test_generic_train_forces_gradients_match_cpu(cuda_device, kind):
+    """The weights' gradient of <ct, forces4> through K1's generic form
+    and ``generic_reduce_bwd`` on the card against the CPU's lane
+    contraction on the same state and weights (rtol 2e-4, atol 2e-5
+    max|g|, the JAX bar for its Pallas backward)."""
+    from hoomd_tf_tpu_torch.interop import build_model
+    from hoomd_tf_tpu_torch.md.simulation import _module_pair_apply
+    from hoomd_tf_tpu_torch.ops.lane_fast import synthesize_pair_fn
+    from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
+    from torch_helpers import nn_pair_class
+    grads, weights = [], None
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, False)
+        model = (nn_pair_class()(16) if kind == "pair" else
+                 htt.NeuralPairPotential(16, count=8, hidden=8, layers=1))
+        build_model(model, 2.5, dev)
+        if weights is None:
+            weights = model.get_weights()
+        model.set_weights(weights)
+        fn = (model.pair_energy_and_slope if kind == "pair" else
+              synthesize_pair_fn(model, slot.box, differentiable=True))
+        named = {k: v for k, v in model.named_parameters()}
+        f4 = pair_train_forces(named, _module_pair_apply(model, fn),
+                               slot.positions, slot.types, aux["valid"],
+                               layout.plan, layout.lo,
+                               with_types=kind != "pair",
+                               geometry=layout.geometry)
+        ct = torch.as_tensor(np.random.RandomState(4).randn(
+            layout.plan.n_slots, 4).astype(np.float32), device=dev)
+        grads.append([np_(g) for g in torch.autograd.grad(
+            torch.sum(f4 * ct), list(named.values()))])
+    scale = max(np.abs(g).max() for g in grads[1])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("kind", ["pair", "lane"])
+def test_generic_training_on_the_card(cuda_device, kind):
+    """Online training of a non-proxy NN PairModel and of a lane-fast
+    generic SimModel on the card: no host sync in the step loop, the
+    generic form's forward and ``generic_reduce_bwd`` launched once per
+    train step, K1's LJ form once per label evaluation, and 20 SGD steps'
+    losses equal to the CPU run's (the lane contraction) at rtol 1e-3."""
+    from torch_helpers import force_loss, nn_pair_class, on_device
+    from torch_helpers import quenched_state
+    state = quenched_state(512)
+    runs, weights = {}, None
+    for dev in (cuda_device, torch.device("cpu")):
+        sim = htt.Simulation(dt=0.005,
+                             integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                             seed=0, device=dev)
+        sim.set_state(on_device(state, dev))
+        sim.add_force(htt.md.LennardJones(r_cut=2.5))
+        model = (nn_pair_class()(64, output_forces=False) if kind == "pair"
+                 else htt.NeuralPairPotential(64, output_forces=False,
+                                              count=8, hidden=8, layers=1))
+        htt.interop.build_model(model, 2.5, dev)
+        if weights is None:
+            weights = model.get_weights()
+        model.set_weights(weights)
+        model.compile(optimizer="sgd", loss=force_loss, learning_rate=1e-3)
+        tfc = htt.tfcompute(model)
+        tfc.attach(sim, r_cut=2.5, nlist="cellwise", train=True)
+        sim.check_syncs = dev.type == "cuda"
+        gen, bwd = tcc.generic_pair_forces.launches, \
+            tcc.generic_reduce_bwd.launches
+        k1, evals = tcc.half_stencil_pair_forces.launches, sim.force_evals
+        steps = sim.train_steps
+        sim.run(20)
+        if dev.type == "cuda":
+            n = sim.train_steps - steps
+            assert n == 20 and tcc.generic_reduce_bwd.launches - bwd == n
+            # the probe's validation launches the generic form too; every
+            # other evaluation is a label evaluation in K1's LJ form
+            g = tcc.generic_pair_forces.launches - gen
+            assert g >= n
+            assert tcc.half_stencil_pair_forces.launches - k1 == \
+                sim.force_evals - evals - g
+        runs[dev.type] = np.asarray(tfc.loss_history)
+        assert np.isfinite(tfc.get_forces_array()).all()
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-3)
+
+
+def test_float64_training_on_the_card_refused(cuda_device):
+    """float64 training on the card has no kernel yet: attach refuses it,
+    naming the later item."""
+    from torch_helpers import nn_pair_class
+    sim = htt.Simulation(device=cuda_device)
+    sim.init_lattice(512, density=0.4)
+    sim.set_state(dataclasses.replace(
+        sim.state, positions=sim.state.positions.double()))
+    sim.add_force(htt.md.LennardJones(r_cut=2.5))
+    model = nn_pair_class()(64, output_forces=False, dtype=torch.float64)
+    model.compile(loss="mse")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        htt.tfcompute(model).attach(sim, r_cut=2.5, nlist="cellwise",
+                                    train=True)
 
 
 # ---------------------------------------------------------------------------

@@ -198,30 +198,32 @@ class _TGeneric(htt.SimModel):
 
 @pytest.mark.parametrize("case", ["nlist", "train", "simmodel", "proxy"])
 def test_attach_rejects_unported(case):
-    """What later slices bring: mapped neighbor lists, training a
-    PairModel without the Chebyshev proxy (the non-proxy NN row), training
-    a generic SimModel on the cellwise route, and the period / batch knobs
-    of proxy training. (The wide-direct mode and a generic SimModel on
-    the cellwise route are ported: tests/test_torch_slice_c2.py.)"""
+    """What stays refused, each naming the part of the port that brings it
+    (or, for particle batching on the planes modes, refused as the JAX
+    package refuses it): mapped neighbor lists, for evaluation and for
+    training; ``batch_size`` with 'cellwise'; and ``period`` > 1 for a
+    model evaluated on 'cellwise'. (Training every model kind, with
+    ``period`` and ``batch_size`` on the packed routes, is ported:
+    tests/test_torch_train_{pair,generic,packed}.py.)"""
     sim, _ = bench_like(n=256)
-    with pytest.raises(NotImplementedError):
-        if case == "nlist":
-            model = TLJ(64)
-            model._map_nlist = True
-            htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise")
-        elif case == "train":
-            htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="cellwise",
-                                          train=True)
-        elif case == "simmodel":
-            model = _TGeneric(16)
-            model.compile(loss="mse")
+    if case in ("nlist", "train"):
+        model = TLJ(64)
+        model._map_nlist = True
+        model.compile(loss="mse")
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
-                                        train=True)
-        else:
-            model = TLJ(64, proxy_degree=8)
-            model.compile(loss="mse")
+                                        train=case == "train")
+    elif case == "simmodel":
+        model = _TGeneric(16)
+        model.compile(loss="mse")
+        with pytest.raises(ValueError, match="batching"):
             htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
-                                        train=True, period=2)
+                                        train=True, batch_size=64)
+    else:
+        model = TLJ(64, proxy_degree=8)
+        with pytest.raises(NotImplementedError, match="period"):
+            htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
+                                        period=2)
 
 
 def _nn():

@@ -240,8 +240,21 @@ def test_retried_run_commits_like_a_clean_one():
 
 
 def test_train_knobs_and_rejections():
+    """The training knobs as attach keeps them and what stays refused:
+    particle batching on 'cellwise' (as the JAX package refuses it), an
+    uncompiled model, and training without label forces."""
     sim, tfc, model = train_sim(quenched_state(256))
     assert tfc.train and tfc.output_offset == 0
+    assert (tfc.period, tfc.batch_size, tfc.save_output_period) == \
+        (1, 0, None)
+    with pytest.raises(ValueError, match="batching"):
+        htt.tfcompute(model).attach(sim, r_cut=R_CUT, nlist="cellwise",
+                                    train=True, batch_size=32)
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise", train=True, period=3,
+               save_output_period=2)
+    assert (tfc.period, tfc.batch_size, tfc.save_output_period) == \
+        (3, 0, 2)
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise", train=True)
     assert model.loss == [force_loss]
     assert isinstance(tfc.ensure_opt_state(), torch.optim.Adam)
     assert tfc.ensure_opt_state() is tfc.opt_state
