@@ -83,7 +83,27 @@ exits non-zero:
                reference example 08's form): the probe must validate it,
                then as phase 10 through its synthesized pair function;
 12. train-packed -- reference example 08's NNPotential trained on the
-               packed path (K3) at N = 4096 with period 2, 200 steps.
+               packed path (K3) at N = 4096 with period 2, 200 steps;
+13. langevin -- phase 4's 64k fluid and model: a quench, then
+               Langevin(kT=1.5, gamma=1.0) with a timed run(1000), host
+               syncs forbidden, 1.1 < T < 1.9; 50 steps run twice from one
+               state and one seed, the second forced through a capacity-
+               overflow rollback, positions equal to 1e-5; Brownian(kT=1.5)
+               for 200 steps (dt 2e-4), finite and moved;
+14. npt      -- phase 4's NVT fluid, the model with its virial: NPT(kT=1.5,
+               tau=0.5, P=1.2 x the fluid's measured pressure, tauP=0.5)
+               through the dynamic-box slot layout, a timed run(1000) with
+               host syncs forbidden: the volume falls by 1% or more,
+               repacks ran, no geometry flag; at the final box K1 (LJ form
+               with its virial, proxy form, generic form) and K2 against
+               their plain versions;
+15. triclinic -- a 64k fluid at density 0.4 in a box tilted by (0.3, -0.2,
+               0.25): a quench, NVT at kT 1.5, a timed run(1000) with host
+               syncs forbidden; at one state K1 (every form) and K2
+               against their plain versions and the generic form's listed
+               lanes bit-equal to the plain list's (the staged candidate
+               masks); a step at N = 512 against the 27-image numpy
+               oracle.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -225,7 +245,7 @@ def k2_cost(positions, valid, plan, K, energy, M):
     return nbytes, 9 * tested + inside * (27 + K * (2 + 2 * (1 + energy)))
 
 
-def make_model(nn=64):
+def make_model(nn=64, virial=False):
     class LJ(htt.PairModel):
         """The benchmark's LJ (epsilon = sigma = 1), declaring its form."""
 
@@ -240,7 +260,7 @@ def make_model(nn=64):
 
         def pair_kernel_form(self):
             return htt.md.LennardJones(1.0, 1.0, r_cut=R_CUT)
-    return LJ(nn)
+    return LJ(nn, virial=virial)
 
 
 def make_nn(seed=0, proxy_degree=K_PROXY):
@@ -1125,7 +1145,7 @@ def phase_main():
           f"{ferr:.3f}")
     check(err < 2e-3, "small-N trajectory disagrees with the CPU form")
     check(ferr <= 1.0, "small-N forces disagree with the CPU form")
-    return launches
+    return launches, sim
 
 
 def train_sim_attached(model=None, loss=None):
@@ -1720,6 +1740,359 @@ def phase_train_packed():
     return k3.launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-15: the remaining ensembles and box shapes
+# ---------------------------------------------------------------------------
+
+TILT = (0.3, -0.2, 0.25)
+
+
+def timed_run(sim, steps):
+    """``sim.run(steps)`` under the sync-debug mode 'error', timed on the
+    host clock around work that ends in a synchronize: ``(seconds, K1
+    launches, force evaluations)``."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    sim.check_syncs = True
+    l0, e0 = cc.half_stencil_pair_forces.launches, sim.force_evals
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = cc.half_stencil_pair_forces.launches - l0
+    evals = sim.force_evals - e0
+    check(launches == evals,
+          f"timed run: K1 launches {launches} != force evaluations {evals}")
+    return dt, launches, evals
+
+
+def healthy(sim, label, kT=1.5):
+    th = sim.thermo()
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          f"{label}: non-finite positions")
+    check(bool(torch.isfinite(sim.state.forces).all()),
+          f"{label}: non-finite forces")
+    check(tuple(sim.state.forces.shape) == (N, 4),
+          f"{label}: forces shape {tuple(sim.state.forces.shape)}")
+    check(1.1 < th["temperature"] < 1.9,
+          f"{label}: not a healthy kT={kT} fluid: {th}")
+    return th
+
+
+def smooth_energy(r2):
+    """A smooth, bounded pair energy for the proxy checks (the port's
+    proxy tests' own)."""
+    u = 1.0 / r2
+    return (u * u - 2.0 * u) / (1.0 + u * u)
+
+
+def box_kernels(label, layout, slot, aux, lj_virial):
+    """At one state of phases 14-15, with the layout's geometry of that
+    state's box: K1's LJ form (energy and virial), its proxy form (a
+    Chebyshev proxy of ``smooth_energy``, K = 16) and its generic form (the
+    LJ slope as a PyTorch pair function) against their plain versions at
+    rtol = atol = 1e-4; K2 at the JAX bar; the generic form's listed lanes
+    against the plain list's: the same lanes, r2 bit for bit (the staging's
+    geometry rounds as the tensor form does). Returns ``(errors, LJ whole
+    call ms)``."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.ops.chebyshev import make_pair_proxy
+    dev = slot.positions.device
+    plan = layout.plan
+    g = layout.geom(slot)
+    common = (slot.positions, slot.types, aux["valid"], plan, layout.lo)
+    errs = {}
+    lj = htt.md.LennardJones(1.0, 1.0, r_cut=R_CUT).kernel_form()
+    kw = dict(needs_energy=True, needs_virial=True, geometry=g)
+    f_k, w_k = cc.half_stencil_pair_forces(*common, lj, **kw)
+    f_p, w_p = cc.half_stencil_plain(*common, lj, **kw)
+    torch.cuda.synchronize()
+    errs["lj"] = max(compare(f"{label}: K1 LJ forces+energy", f_k, f_p),
+                     compare(f"{label}: K1 LJ virial", w_k, w_p))
+    fit, ev = make_pair_proxy(K_PROXY, (0.25 * R_CUT) ** 2, R_CUT ** 2,
+                              device=dev)
+    with torch.no_grad():
+        coeffs = fit(smooth_energy)
+    form = ev.kernel_form(coeffs)
+    f_k, w_k = cc.half_stencil_pair_forces(*common, form, **kw)
+    f_p, w_p = cc.half_stencil_plain(*common, form, **kw)
+    torch.cuda.synchronize()
+    errs["proxy"] = max(
+        compare(f"{label}: K1 proxy forces+energy", f_k, f_p),
+        compare(f"{label}: K1 proxy virial", w_k, w_p))
+
+    def slope(r2):
+        u = 1.0 / r2
+        sr6 = u * u * u
+        return (4.0 * (sr6 * sr6 - sr6),
+                -12.0 * (2.0 * sr6 - 1.0) * sr6 * u)
+    lanes = cc.LaneBudget(cc.lane_budget(plan, N), dev)
+    gl = cc.generic_list(*common, typed_fn=False, geometry=g, lanes=lanes)
+    U, S = gl.evaluate(slope)
+    f_k, _ = cc.generic_reduce(gl, U, S, True, False)
+    need = int(lanes.needed)
+    check(not bool(lanes.overflow()), f"{label}: the list overflowed")
+    lst = cc.generic_list_plain(*common, geometry=g, typed=False)
+    f_p, _ = cc.generic_reduce_plain(lst, *slope(lst["r2"]), aux["valid"],
+                                     plan, True, False)
+    torch.cuda.synchronize()
+    errs["generic"] = compare(f"{label}: K1 generic forces+energy", f_k,
+                              f_p)
+    check(need == lst["needed"],
+          f"{label}: the kernel lists {need} lanes, the plain list "
+          f"{lst['needed']}")
+    idx = cc.kernel_lane_index(lst, gl.cell_base, plan)
+    check(bool((torch.sort(idx).values == torch.arange(
+        need, device=dev)).all()),
+          f"{label}: the kernel's lanes are not the plain list's")
+    same = bool((gl.r2[idx] == lst["r2"]).all())
+    check(same, f"{label}: listed r2 differ from the plain list's bits")
+    print(f"  {label}: the generic form lists the plain list's {need} "
+          f"lanes, r2 equal bit for bit: the staged candidate masks equal "
+          f"the tensor form's")
+    ct = torch.randn((plan.n_slots, 4), device=dev,
+                     generator=torch.Generator(dev).manual_seed(5))
+    args = (slot.positions, slot.types, aux["valid"], ct, plan, layout.lo,
+            ev.basis)
+    got = torch.cat([x.reshape(-1) for x in pc.proxy_bwd_moments(
+        *args, geometry=g)])
+    want = torch.cat([x.reshape(-1) for x in pc.proxy_bwd_plain(
+        *args, geometry=g)])
+    torch.cuda.synchronize()
+    errs["k2"] = compare(f"{label}: K2 moments", got, want, rtol=K2_RTOL,
+                         atol=K2_ATOL_REL * float(want.abs().max()))
+    t = cuda_ms(lambda: cc.half_stencil_pair_forces(
+        *common, lj, needs_energy=False, needs_virial=lj_virial,
+        geometry=g))
+    print(f"  {label}: K1 LJ whole call (forces"
+          f"{' and virial' if lj_virial else ''}, box read on the card) "
+          f"{t:.4f} ms")
+    return errs, t
+
+
+def phase_langevin():
+    """Phase 13: Langevin and Brownian dynamics on phase 4's path."""
+    import warnings
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda")
+    tfc = htt.tfcompute(make_model())
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    k1.launches = 0
+    evals0 = sim.force_evals
+    sim.run(60)
+    sim.integrator = htt.md.Langevin(kT=1.5, gamma=1.0)
+    sim.run(1000)
+    dt, tl, te = timed_run(sim, 1000)
+    th = healthy(sim, "langevin")
+    print(f"  Langevin: steps/s {1000 / dt:.2f} (timed run(1000), N={N}, "
+          f"plan {sim._layout.plan.grid} cap {sim._layout.plan.capacity}, "
+          f"K {sim._static_K_last}); K1 launches {tl} in the timed run; "
+          f"T={th['temperature']:.4f} -- info, not a claim")
+    # one state, one seed, 50 steps twice: the first forced through a
+    # capacity-overflow rollback (capacity 4, which the fluid overflows at
+    # once; state and generator rolled back, then re-run on the replanned
+    # floor), the second on the plan that run ended with, no rollback
+    start = sim.state
+    sim.check_syncs = False
+    tfc.nlist_method = htt.Cellwise(capacity=4)
+    # the speeds the repack interval is sized from, as both runs start
+    hist = list(sim._vmax_hist)
+    outs = []
+    for forced in (True, False):
+        sim.set_state(start)
+        sim._vmax_hist = list(hist)
+        sim.generator.manual_seed(1234)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            sim.run(50)
+        rolled = [x for x in w if "exceeded" in str(x.message)]
+        check(len(rolled) == int(forced),
+              f"forced={forced}: {len(rolled)} rollbacks")
+        outs.append((sim.state.positions.clone(), sim._layout.plan,
+                     sim._static_K_last))
+    check(outs[0][1:] == outs[1][1:],
+          f"the two runs took different plans or intervals: "
+          f"{outs[0][1:]} {outs[1][1:]}")
+    err = float((outs[0][0] - outs[1][0]).abs().max())
+    print(f"  50 steps twice from one state and seed, the first through "
+          f"one capacity-overflow rollback (capacity 4 -> "
+          f"{outs[0][1].capacity}, grid {outs[0][1].grid}): max position "
+          f"difference {err:.3e} (limit 1e-5)")
+    check(err <= 1e-5, "a rolled-back run drew other noise")
+    tfc.nlist_method = "cellwise"
+    # Brownian dynamics
+    sim.replan()
+    sim.integrator = htt.md.Brownian(kT=1.5, gamma=1.0)
+    dt0 = sim.dt
+    sim.dt = 2e-4
+    p0 = sim.state.positions.clone()
+    r0 = sim.repacks
+    sim.check_syncs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(200)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    p1 = sim.state.positions
+    L = torch.as_tensor(sim._lengths, dtype=p1.dtype, device=p1.device)
+    d = p1 - p0
+    d = d - torch.round(d / L) * L
+    msd = float((d * d).mean())
+    check(bool(torch.isfinite(p1).all()), "Brownian: non-finite positions")
+    check(0.02 < msd < 0.5, f"Brownian: mean squared displacement {msd}")
+    print(f"  Brownian(kT=1.5), dt 2e-4: 200 steps, {200 / t_b:.2f} "
+          f"steps/s, {sim.repacks - r0} repacks (one a step), mean "
+          f"squared displacement per axis {msd:.4f} (free diffusion "
+          f"0.12)")
+    sim.dt = dt0
+    launches = k1.launches
+    evals = sim.force_evals - evals0
+    check(launches > 0 and launches == evals,
+          f"K1 launches {launches} != force evaluations {evals}")
+    print(f"  K1 launches {launches} == force evaluations {evals}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_npt(sim):
+    """Phase 14: NPT from phase 4's NVT fluid."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    tfc = htt.tfcompute(make_model(virial=True))
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    sim.check_syncs = False
+    k1.launches = 0
+    evals0 = sim.force_evals
+    sim.run(50)
+    p0 = sim.thermo()["pressure"]
+    check(p0 > 0, f"the NVT fluid's pressure {p0} is not positive")
+    target = 1.2 * p0
+    sim.integrator = htt.md.NPT(kT=1.5, tau=0.5, P=target, tauP=0.5)
+    vol0 = float(torch.prod(sim.state.box[1] - sim.state.box[0]))
+    sim.run(100)
+    r0 = sim.repacks
+    dt, tl, te = timed_run(sim, 1000)
+    layout = sim._layout
+    check(layout.dynamic_box, "NPT did not take the dynamic-box layout")
+    th = healthy(sim, "npt")
+    vol1 = float(torch.prod(sim.state.box[1] - sim.state.box[0]))
+    repacks = sim.repacks - r0
+    print(f"  NPT(P = 1.2 x {p0:.4f} = {target:.4f}): steps/s "
+          f"{1000 / dt:.2f} (timed run(1000)), K {sim._static_K_last}, "
+          f"{repacks} repacks; volume {vol0:.1f} -> {vol1:.1f} "
+          f"({vol1 / vol0 - 1:+.4f}), P={th['pressure']:.4f}, "
+          f"T={th['temperature']:.4f} -- info, not a claim")
+    check(vol1 <= 0.99 * vol0, f"the volume fell by less than 1%: "
+          f"{vol0} -> {vol1}")
+    check(repacks > 0, "no repack ran")
+    slot, aux = slot_state(layout, sim.state)
+    check(not bool(layout.geometry_bad(slot)), "the geometry flag is set")
+    launches = k1.launches
+    evals = sim.force_evals - evals0
+    check(launches > 0 and launches == evals,
+          f"K1 launches {launches} != force evaluations {evals}")
+    errs, t = box_kernels("npt final box", layout, slot, aux, True)
+    print(f"  K1 launches {launches} == force evaluations {evals}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def tri_lattice(n, L, tilt, seed=0, jitter=0.15):
+    """``n`` positions on a jittered simple-cubic lattice in fractional
+    space of a cubic box of edge ``L`` tilted by ``tilt`` (as the JAX
+    tests' tri_positions)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    xy, xz, yz = tilt
+    h = np.array([[L, xy * L, xz * L], [0, L, yz * L], [0, 0, L]])
+    m = int(np.ceil(n ** (1 / 3)))
+    g = (np.arange(m) + 0.5) / m
+    frac = np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                    -1).reshape(-1, 3)[:n]
+    frac = frac + rng.uniform(-jitter, jitter, frac.shape) / m
+    return (frac @ h.T - L / 2).astype(np.float32)
+
+
+def oracle_27(pos, L, tilt, r_cut):
+    """LJ forces by the exact 27-image minimum image (float64)."""
+    import numpy as np
+    xy, xz, yz = tilt
+    h = np.array([[L, xy * L, xz * L], [0, L, yz * L], [0, 0, L]])
+    combos = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                       for k in (-1, 0, 1)])
+    d = pos[None].astype(np.float64) - pos[:, None]
+    cand = d[..., None, :] + combos @ h.T
+    idx = np.argmin((cand * cand).sum(-1), -1)
+    d = np.take_along_axis(cand, idx[..., None, None], -2)[..., 0, :]
+    r = np.linalg.norm(d, axis=-1)
+    np.fill_diagonal(r, np.inf)
+    m = r <= r_cut
+    rs = np.where(m, r, np.inf)
+    fmag = 24 * (2 * rs ** -13 - rs ** -7)
+    return -((fmag / np.where(m, r, 1.0))[..., None] * d).sum(1)
+
+
+def phase_triclinic():
+    """Phase 15: a 64k fluid in a tilted box."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    L = (N / DENSITY) ** (1 / 3)
+    box = np.stack([[-L / 2] * 3, [L / 2] * 3, TILT])
+    sim = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                         integrator=htt.md.Minimize(max_disp=0.05))
+    sim.init_state(tri_lattice(N, L, TILT), box, kT_init=1.5)
+    tfc = htt.tfcompute(make_model())
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    k1.launches = 0
+    evals0 = sim.force_evals
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    dt, tl, te = timed_run(sim, 1000)
+    th = healthy(sim, "triclinic")
+    plan = sim._layout.plan
+    check(plan.tilted, "the plan is not tilted")
+    print(f"  tilt {TILT}: plan {plan.grid} cap {plan.capacity} (by the "
+          f"perpendicular widths); steps/s {1000 / dt:.2f} (timed "
+          f"run(1000)); T={th['temperature']:.4f} -- info, not a claim")
+    launches = k1.launches
+    evals = sim.force_evals - evals0
+    check(launches > 0 and launches == evals,
+          f"K1 launches {launches} != force evaluations {evals}")
+    slot, aux = slot_state(sim._layout, sim.state)
+    box_kernels("tilted box", sim._layout, slot, aux, False)
+    # N = 512 on the card against the 27-image oracle
+    n = 512
+    L5 = (n / DENSITY) ** (1 / 3)
+    small = htt.Simulation(dt=0.005, seed=1, device="cuda")
+    small.init_state(tri_lattice(n, L5, TILT, seed=1),
+                     np.stack([[-L5 / 2] * 3, [L5 / 2] * 3, TILT]),
+                     kT_init=1.0)
+    small.add_force(htt.md.LennardJones(r_cut=2.5))
+    l0 = k1.launches
+    small.run(1)
+    check(k1.launches > l0 and small._layout.plan.tilted,
+          "the N = 512 tilted step did not run K1")
+    got = small.state.forces[:, :3].double().cpu().numpy()
+    want = oracle_27(small.state.positions.cpu().numpy(), L5, TILT, 2.5)
+    ratio = float((np.abs(got - want) / (2e-3 + 2e-4 * np.abs(want)))
+                  .max())
+    print(f"  N=512 tilted step on the card vs the 27-image oracle: max "
+          f"|diff| {np.abs(got - want).max():.3e}, worst/bound {ratio:.3f} "
+          f"(rtol 2e-4, atol 2e-3, the JAX test's)")
+    check(ratio <= 1.0, "the tilted step disagrees with the oracle")
+    print(f"  K1 launches {launches} == force evaluations {evals} (the "
+          f"64k run); phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     global torch, htt
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -1776,7 +2149,7 @@ def main():
     k1_lj = phase_kernels()
 
     print("[4 main] 64k LJ fluid, the eval protocol on the port")
-    k1_lj["launches"] = phase_main()
+    k1_lj["launches"], main_sim = phase_main()
 
     print("[5 train] 64k online training, north_star.py's flagship row")
     sim, model, launches = phase_train()
@@ -1825,6 +2198,15 @@ def main():
     print("[12 train-packed] reference example 08's NNPotential on the "
           "packed path (K3), period 2")
     k3["launches"] += phase_train_packed()
+    torch.cuda.empty_cache()
+    print("[13 langevin] 64k LJ fluid, Langevin and Brownian dynamics")
+    k1_lj["launches"] += phase_langevin()
+    print("[14 npt] 64k LJ fluid, NPT through the dynamic-box layout")
+    k1_lj["launches"] += phase_npt(main_sim)
+    del main_sim
+    torch.cuda.empty_cache()
+    print("[15 triclinic] 64k LJ fluid in a tilted box")
+    k1_lj["launches"] += phase_triclinic()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 

@@ -10,8 +10,9 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   ``[N, NN, 4]`` neighbor list (cell list with the selection kernel K3
   on a CUDA device, the sort method or the dense build otherwise);
 - a :class:`PairModel` attached with ``nlist='cellwise'`` to a
-  :class:`Simulation` running NVE, NVT or a Minimize quench, with the
-  pair forces from the hand-written Hopper kernel K1 on a CUDA device;
+  :class:`Simulation` running NVE, NVT, NPT, Langevin, Brownian or a
+  Minimize quench, in an orthorhombic or tilted box, with the pair
+  forces from the hand-written Hopper kernel K1 on a CUDA device;
 - online training of a Chebyshev-proxy NN pair potential during live MD
   (``attach(train=True)``), whose gradient runs in kernel K2;
 - a generic SimModel on ``nlist='cellwise'`` (the ready-made

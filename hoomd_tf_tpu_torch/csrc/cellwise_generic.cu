@@ -318,7 +318,7 @@ __device__ void write_record(const Smem& s, int n0, int total,
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 generic_list(const float* __restrict__ pos, const int* __restrict__ types,
              const float* __restrict__ valid,
-             const float* __restrict__ centers, HalfGeom g,
+             const float* __restrict__ box, HalfGeom g,
              const float* __restrict__ rcm, int rcm_t, float rc2,
              float min_r2, int budget, int* __restrict__ counter,
              int* __restrict__ cell_base, float* __restrict__ r2_out,
@@ -334,7 +334,7 @@ generic_list(const float* __restrict__ pos, const int* __restrict__ types,
   const size_t home = static_cast<size_t>(c) * g.cap;
   int n0;
   const int total = htf::stage_half_stencil(
-      g, c, rc2, pos, types, valid, centers, s.spos, s.stag, s.sints, n0,
+      g, c, rc2, pos, types, valid, box, s.spos, s.stag, s.sints, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
         for (int k = 0; k < nch; ++k)
@@ -685,7 +685,8 @@ long htf_generic_reduce_smem(int cap) { return reduce_smem_bytes(cap); }
 long htf_generic_record_words(int cap) { return rec_words(cap); }
 
 // The lane list: `pos` [n_slots][3], `types` [n_slots] int32 (or null when
-// untyped), `valid` [n_slots], `centers` [n_slots][3], `geom` a host
+// untyped), `valid` [n_slots], `box` the [3][3] box (rows low, high,
+// tilt) on the card, `geom` a host
 // HalfGeom, `rcm` the [rcm_t][rcm_t] squared cutoffs (or null), `counter`
 // a zeroed device int, `cell_base` [n_cells] int32, `r2`, `ti`, `tj`
 // [budget] float32, `rec` the cells' records (n_cells *
@@ -694,7 +695,7 @@ long htf_generic_record_words(int cap) { return rec_words(cap); }
 // the slots the box test left out). Returns cudaGetLastError() after the
 // launch (0 = ok).
 int htf_generic_list(const float* pos, const int* types, const float* valid,
-                     const float* centers, const HalfGeom* geom, int n_cells,
+                     const float* box, const HalfGeom* geom, int n_cells,
                      const float* rcm, int rcm_t, float rc2, float min_r2,
                      int budget, int* counter, int* cell_base, float* r2,
                      float* ti, float* tj, int* rec, float* sums, int nch,
@@ -705,7 +706,7 @@ int htf_generic_list(const float* pos, const int* types, const float* valid,
   if (e != 0) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   generic_list<<<n_cells, kThreads, smem, st>>>(
-      pos, types, valid, centers, g, rcm, rcm_t, rc2, min_r2, budget, counter,
+      pos, types, valid, box, g, rcm, rcm_t, rc2, min_r2, budget, counter,
       cell_base, r2, ti, tj, rec, rec_words(g.cap), sums, nch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -211,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
 half_stencil_forces(const float* __restrict__ pos,
                     const int* __restrict__ types,
                     const float* __restrict__ valid,
-                    const float* __restrict__ centers, HalfGeom g, Form form,
+                    const float* __restrict__ box, HalfGeom g, Form form,
                     const float* __restrict__ rcm, int rcm_t, float rc2,
                     float min_r2, float* __restrict__ sums) {
   constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
@@ -230,7 +230,7 @@ half_stencil_forces(const float* __restrict__ pos,
   const size_t home = static_cast<size_t>(c) * cap;
   int n0;
   const int total = htf::stage_half_stencil(
-      g, c, rc2, pos, types, valid, centers, spos, stag, sints, n0,
+      g, c, rc2, pos, types, valid, box, spos, stag, sints, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
 #pragma unroll
@@ -301,7 +301,7 @@ long smem_bytes(int cap, int n_ch, int form_floats) {
 
 template <bool ENERGY, bool VIRIAL, class Form>
 int launch(const float* pos, const int* types, const float* valid,
-           const float* centers, const HalfGeom& g, int n_cells, Form form,
+           const float* box, const HalfGeom& g, int n_cells, Form form,
            int form_floats, const float* rcm, int rcm_t, float rc2,
            float min_r2, float* sums, float* forces4, float* virial,
            cudaStream_t stream) {
@@ -314,7 +314,7 @@ int launch(const float* pos, const int* types, const float* valid,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<n_cells, kThreads, smem, stream>>>(pos, types, valid, centers, g,
+  kernel<<<n_cells, kThreads, smem, stream>>>(pos, types, valid, box, g,
                                               form, rcm, rcm_t, rc2, min_r2,
                                               sums);
   cudaError_t e = cudaGetLastError();
@@ -329,25 +329,25 @@ int launch(const float* pos, const int* types, const float* valid,
 
 template <class Form>
 int dispatch(const float* pos, const int* types, const float* valid,
-             const float* centers, const HalfGeom* geom, int n_cells,
+             const float* box, const HalfGeom* geom, int n_cells,
              Form form, int form_floats, const float* rcm, int rcm_t,
              float rc2, float min_r2, int needs_energy, int needs_virial,
              float* sums, float* forces4, float* virial, void* stream) {
   const HalfGeom g = *geom;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (needs_energy && needs_virial)
-    return launch<true, true>(pos, types, valid, centers, g, n_cells, form,
+    return launch<true, true>(pos, types, valid, box, g, n_cells, form,
                               form_floats, rcm, rcm_t, rc2, min_r2, sums,
                               forces4, virial, s);
   if (needs_energy)
-    return launch<true, false>(pos, types, valid, centers, g, n_cells, form,
+    return launch<true, false>(pos, types, valid, box, g, n_cells, form,
                                form_floats, rcm, rcm_t, rc2, min_r2, sums,
                                forces4, virial, s);
   if (needs_virial)
-    return launch<false, true>(pos, types, valid, centers, g, n_cells, form,
+    return launch<false, true>(pos, types, valid, box, g, n_cells, form,
                                form_floats, rcm, rcm_t, rc2, min_r2, sums,
                                forces4, virial, s);
-  return launch<false, false>(pos, types, valid, centers, g, n_cells, form,
+  return launch<false, false>(pos, types, valid, box, g, n_cells, form,
                               form_floats, rcm, rcm_t, rc2, min_r2, sums,
                               forces4, virial, s);
 }
@@ -364,18 +364,19 @@ long htf_half_stencil_smem(int cap, int n_channels, int form_floats) {
 }
 
 // LJ-family form. `pos` [n_slots][3], `types` [n_slots] int32 (or null when
-// untyped), `valid` [n_slots], `centers` [n_slots][3], `geom` a host
+// untyped), `valid` [n_slots], `box` the [3][3] box (rows low, high,
+// tilt) on the card, `geom` a host
 // HalfGeom, `sums` the [n_ch][14][n_slots] scratch, `forces4`
 // [n_slots][4], `virial` [n_slots][9] (or null). Launches both kernels on
 // `stream`; returns cudaGetLastError() after them (0 = ok).
 int htf_half_stencil(const float* pos, const int* types, const float* valid,
-                     const float* centers, const HalfGeom* geom, int n_cells,
+                     const float* box, const HalfGeom* geom, int n_cells,
                      const float* form, int form_t, int strict,
                      const float* rcm, int rcm_t, float rc2, float min_r2,
                      int needs_energy, int needs_virial, float* sums,
                      float* forces4, float* virial, void* stream) {
   LJForm f{reinterpret_cast<const float4*>(form), form_t, strict};
-  return dispatch(pos, types, valid, centers, geom, n_cells, f, 0, rcm, rcm_t,
+  return dispatch(pos, types, valid, box, geom, n_cells, f, 0, rcm, rcm_t,
                   rc2, min_r2, needs_energy, needs_virial, sums, forces4,
                   virial, stream);
 }
@@ -383,7 +384,7 @@ int htf_half_stencil(const float* pos, const int* types, const float* valid,
 // Chebyshev-proxy form: `coef` is the [P][2][K] float32 table of a
 // `ntypes`-type proxy (P = ntypes (ntypes + 1) / 2).
 int htf_half_stencil_cheb(const float* pos, const int* types,
-                          const float* valid, const float* centers,
+                          const float* valid, const float* box,
                           const HalfGeom* geom, int n_cells, const float* coef,
                           int ntypes, int K, float mid, float inv_half,
                           float u_hi, const float* rcm, int rcm_t, float rc2,
@@ -392,7 +393,7 @@ int htf_half_stencil_cheb(const float* pos, const int* types,
                           void* stream) {
   ChebForm f{coef, ntypes, K, mid, inv_half, u_hi, nullptr};
   const int P = ntypes * (ntypes + 1) / 2;
-  return dispatch(pos, types, valid, centers, geom, n_cells, f,
+  return dispatch(pos, types, valid, box, geom, n_cells, f,
                   P * 2 * K + P * 2, rcm, rcm_t, rc2, min_r2, needs_energy,
                   needs_virial, sums, forces4, virial, stream);
 }

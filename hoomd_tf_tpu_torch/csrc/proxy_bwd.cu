@@ -70,7 +70,7 @@ template <bool ENERGY, int KR>
 __global__ void __launch_bounds__(kThreads)
 proxy_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ types,
                  const float* __restrict__ valid,
-                 const float* __restrict__ centers,
+                 const float* __restrict__ box,
                  const float4* __restrict__ ct, HalfGeom g,
                  const float* __restrict__ rcm, int rcm_t, int K, int T,
                  float rc2, float min_r2, float mid, float inv_half,
@@ -97,7 +97,7 @@ proxy_bwd_kernel(const float* __restrict__ pos, const int* __restrict__ types,
   for (int i = tid; i < M; i += kThreads) acc[i] = 0.f;
   int n0;
   const int total = htf::stage_half_stencil(
-      g, c, rc2, pos, types, valid, centers, spos, stag, sints, n0,
+      g, c, rc2, pos, types, valid, box, spos, stag, sints, n0,
       [&](int k, size_t slot) {
         const float4 v = ct[slot];
         const float w = valid[slot];
@@ -275,7 +275,7 @@ long smem_bytes(int cap, int K, int T) {
 
 template <bool ENERGY, int KR>
 int launch_moments(const float* pos, const int* types, const float* valid,
-                   const float* centers, const float* ct, const HalfGeom& g,
+                   const float* box, const float* ct, const HalfGeom& g,
                    int n_cells, const float* rcm, int rcm_t, int K, int T,
                    float rc2, float min_r2, float mid, float inv_half,
                    float u_hi, float* partial, cudaStream_t s) {
@@ -288,29 +288,29 @@ int launch_moments(const float* pos, const int* types, const float* valid,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<n_cells, kThreads, smem, s>>>(
-      pos, types, valid, centers, reinterpret_cast<const float4*>(ct), g, rcm,
+      pos, types, valid, box, reinterpret_cast<const float4*>(ct), g, rcm,
       rcm_t, K, T, rc2, min_r2, mid, inv_half, u_hi, partial);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool ENERGY>
 int dispatch_degree(const float* pos, const int* types, const float* valid,
-                    const float* centers, const float* ct, const HalfGeom& g,
+                    const float* box, const float* ct, const HalfGeom& g,
                     int n_cells, const float* rcm, int rcm_t, int K, int T,
                     float rc2, float min_r2, float mid, float inv_half,
                     float u_hi, float* partial, cudaStream_t s) {
   switch (register_degree(K, T)) {
     case 16:
-      return launch_moments<ENERGY, 16>(pos, types, valid, centers, ct, g,
+      return launch_moments<ENERGY, 16>(pos, types, valid, box, ct, g,
                                         n_cells, rcm, rcm_t, K, T, rc2,
                                         min_r2, mid, inv_half, u_hi, partial,
                                         s);
     case 8:
-      return launch_moments<ENERGY, 8>(pos, types, valid, centers, ct, g,
+      return launch_moments<ENERGY, 8>(pos, types, valid, box, ct, g,
                                        n_cells, rcm, rcm_t, K, T, rc2, min_r2,
                                        mid, inv_half, u_hi, partial, s);
     default:
-      return launch_moments<ENERGY, 0>(pos, types, valid, centers, ct, g,
+      return launch_moments<ENERGY, 0>(pos, types, valid, box, ct, g,
                                        n_cells, rcm, rcm_t, K, T, rc2, min_r2,
                                        mid, inv_half, u_hi, partial, s);
   }
@@ -329,11 +329,12 @@ long htf_proxy_bwd_smem(int cap, int K, int ntypes) {
 // ([n_cells][P * 2K] scratch), then their sum into `out` ([P * 2K], per
 // pair p: c-moments at p * 2K + k, cd-moments at p * 2K + K + k). `pos`
 // [n_slots][3], `types` [n_slots] int32 (or null when untyped), `valid`
-// [n_slots], `centers` [n_slots][3], `ct` the [n_slots][4] cotangent,
+// [n_slots], `box` the [3][3] box (rows low, high, tilt) on the card,
+// `ct` the [n_slots][4] cotangent,
 // `geom` a host HalfGeom. Returns cudaGetLastError() after the launches
 // (0 = ok).
 int htf_proxy_bwd(const float* pos, const int* types, const float* valid,
-                  const float* centers, const float* ct, const HalfGeom* geom,
+                  const float* box, const float* ct, const HalfGeom* geom,
                   int n_cells, const float* rcm, int rcm_t, int K, int ntypes,
                   float rc2, float min_r2, float mid, float inv_half,
                   float u_hi, int needs_energy, float* partial, float* out,
@@ -343,10 +344,10 @@ int htf_proxy_bwd(const float* pos, const int* types, const float* valid,
   const int M = ntypes * (ntypes + 1) / 2 * 2 * K;
   const int e =
       needs_energy
-          ? dispatch_degree<true>(pos, types, valid, centers, ct, g, n_cells,
+          ? dispatch_degree<true>(pos, types, valid, box, ct, g, n_cells,
                                   rcm, rcm_t, K, ntypes, rc2, min_r2, mid,
                                   inv_half, u_hi, partial, s)
-          : dispatch_degree<false>(pos, types, valid, centers, ct, g, n_cells,
+          : dispatch_degree<false>(pos, types, valid, box, ct, g, n_cells,
                                    rcm, rcm_t, K, ntypes, rc2, min_r2, mid,
                                    inv_half, u_hi, partial, s);
   if (e != 0) return e;

@@ -10,11 +10,13 @@ reference."""
 import numpy as np
 import torch
 
+from .ops.box import check_tilt
 from .ops.cell_list import CellList
 from .ops.cellwise import Cellwise
 from .ops.direct import NlistPlanes
 
-# what each refusal names: the part of the port that brings it
+# what each refusal names: the part of the port that brings it (item 5
+# keeps float64 on the card and the mapped coarse-grained models)
 _LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1)"
 _ENGINE = ("the engine's remaining features, a later slice of the "
            "PyTorch port (ROADMAP.md Queue 1 item 5)")
@@ -95,6 +97,10 @@ class tfcompute:
         """
         if sim is None or sim.state is None:
             raise RuntimeError("Must initialize the simulation first")
+        # the reference rejects any skew (simmodel.py:195 'box is
+        # skewed'); tilted boxes run up to HOOMD's |tilt| <= 0.5, where
+        # the sequential minimum image is exact
+        check_tilt(sim.state.box[2])
         cellwise = nlist == "cellwise" or isinstance(nlist, Cellwise)
         packed = nlist in (None, "auto", "n2", "cell", "pallas",
                            "direct") or \

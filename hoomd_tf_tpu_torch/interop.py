@@ -37,9 +37,12 @@ def state_from_numpy(arrays, device=None, dtype=torch.float32):
     """Build the port's ``SimState`` from a mapping of numpy arrays named
     like the JAX ``SimState`` fields (``positions``, ``velocities``,
     ``types``, ``masses``, ``box``, optional ``forces``, ``virial``,
-    ``step`` and ``thermostat``; a JAX ``rng`` entry is ignored: the
-    port draws from its ``Simulation``'s ``torch.Generator``). ``device``
-    defaults to the CUDA card; pass ``device="cpu"`` for the CPU."""
+    ``step`` and ``thermostat``). The box keeps its tilt row (``tilted``
+    is set from it). A JAX ``rng`` entry (a PRNG key) is not carried:
+    the port's stochastic integrators draw from their ``Simulation``'s
+    ``torch.Generator``, whose numbers differ from JAX's for any seed.
+    ``device`` defaults to the CUDA card; pass ``device="cpu"`` for the
+    CPU."""
     device = resolve_device(device, "state_from_numpy")
     a = dict(arrays)
     n = np.asarray(a["positions"]).shape[0]
@@ -54,7 +57,7 @@ def state_from_numpy(arrays, device=None, dtype=torch.float32):
         types=torch.as_tensor(np.array(a["types"]), dtype=torch.int32,
                               device=device),
         step=int(np.asarray(a.get("step", 0))), thermostat=thermostat,
-        **kw)
+        tilted=bool(np.any(np.asarray(a["box"])[2] != 0)), **kw)
 
 
 def load_jax_variables(model, arrays):

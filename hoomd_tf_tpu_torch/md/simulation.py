@@ -78,7 +78,7 @@ from .state import init_state, lattice_positions
 from .._device import resolve_device
 from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
-from ..ops.box import box_size, check_orthorhombic
+from ..ops.box import box_size
 from ..ops.cellwise_cuda import LaneBudget, lane_budget
 from ..ops.direct import DirectPlanes
 from ..ops.nlist import DenseNlist
@@ -157,6 +157,8 @@ class Simulation:
         self.lane_reruns = 0
         #: of force_evals, the lane-separability probe's validations
         self.probe_evals = 0
+        #: slot-layout repacks made so far (cellwise mode; a host count)
+        self.repacks = 0
         self._nlist_build = _UNBUILT
         self.state = None
         self.tfc = None
@@ -189,9 +191,8 @@ class Simulation:
         if state.positions.device != self.device:
             raise ValueError(f"state is on {state.positions.device}, the "
                              f"simulation on {self.device}")
-        box = state.box.detach().cpu().numpy().astype(np.float64)
-        check_orthorhombic(box[2])
-        self._lengths, self._lo = box[1] - box[0], box[0]
+        self._box_host = None
+        self._adopt(state)
         fresh = self.integrator.init(state)
         if set(state.thermostat or {}) != set(fresh):
             state.thermostat = fresh
@@ -201,6 +202,25 @@ class Simulation:
         self._vmax_cache = None
         self._nlist_build = _UNBUILT
         return state
+
+    def _adopt(self, state):
+        """Bind ``state`` to this simulation (its ``rng`` is the
+        simulation's generator) and know its box on the host: ``_lengths``,
+        ``_lo``, ``_tilt``. The box is read back only when it is a tensor
+        not seen before (a user's new state, or a box a barostat changed
+        that the run's readback did not bring)."""
+        state.rng = self.generator
+        cached = getattr(self, "_box_host", None)
+        if cached is None or cached[0] is not state.box:
+            box = state.box.detach().cpu().numpy().astype(np.float64)
+            self._note_box(state.box, box)
+        state.tilted = any(self._tilt)
+
+    def _note_box(self, box_t, box):
+        """Record the host values ``box`` of the box tensor ``box_t``."""
+        self._box_host = (box_t, box)
+        self._lengths, self._lo = box[1] - box[0], box[0]
+        self._tilt = tuple(float(t) for t in box[2])
 
     @property
     def integrator(self):
@@ -282,7 +302,10 @@ class Simulation:
                  for f in self.forces), default=0.0)
         if r <= 0.0:
             return None
-        if np.all(np.asarray(self._lengths) // r >= 3):
+        # a tilted box hosts the grid by its perpendicular layer widths
+        widths = (_cw._perp_widths(self._lengths, self._tilt)
+                  if any(self._tilt) else self._lengths)
+        if np.all(np.asarray(widths) // r >= 3):
             return r, None, "cellwise", None
         n = self.state.n_particles
         mean_nbrs = 4.19 * r ** 3 * (n / float(np.prod(self._lengths)))
@@ -342,9 +365,20 @@ class Simulation:
     def _plan_from_current(self):
         r_cut, _, method, _ = self._nlist_params()
         config = method if isinstance(method, _cw.Cellwise) else None
+        dynamic = self._changes_box()
+        if dynamic:
+            if any(self._tilt):
+                raise NotImplementedError(
+                    "tilted (triclinic) boxes do not support "
+                    "box-changing integrators (NPT) yet")
+            # barostat headroom: a minimum skin that keeps a positive
+            # Verlet margin through ~10% compression
+            base = config or _cw.Cellwise()
+            config = _cw.Cellwise(capacity=base.capacity,
+                                  skin=max(base.skin, 0.15 * r_cut))
         occ_observed = None
         hist = getattr(self, "_occ_hist", [])
-        if hist:
+        if hist and not dynamic:
             okey = hist[-1][0]
             if okey[1] == tuple(float(v) for v in self._lengths) and \
                     okey[2] == self.state.n_particles and \
@@ -357,15 +391,39 @@ class Simulation:
             lo=self._lo, drift_per_step=self._drift_estimate(),
             width_blocks=14 if self._kernel_eligible() else 27,
             occ_observed=occ_observed,
-            lane_cost_scale=self._model_lane_cost_scale())
+            lane_cost_scale=self._model_lane_cost_scale(), tilt=self._tilt)
         floor = getattr(self, "_capacity_floor", 0)
         if plan is not None and plan.capacity < floor:
             plan = dataclasses.replace(plan, capacity=floor)
+        if plan is not None and dynamic and \
+                (config is None or config.capacity is None):
+            # compression densifies the cells: 15% more slots before the
+            # repack's overflow fires
+            plan = dataclasses.replace(
+                plan, capacity=int(np.ceil(plan.capacity * 1.15)))
         return plan
 
+    def _changes_box(self):
+        return bool(getattr(self.integrator, "changes_box", False))
+
+    def _layout_fits(self, layout):
+        """Does ``layout`` serve the current box and integrator? A static
+        plan is made for one box, a dynamic one for any box of a
+        box-changing integrator."""
+        if layout.dynamic_box != self._changes_box():
+            return False
+        return layout.dynamic_box or (
+            layout.plan.lengths == tuple(float(v) for v in self._lengths)
+            and layout.lo == tuple(float(v) for v in self._lo)
+            and layout.plan.tilt == self._tilt)
+
     def _ensure_layout(self):
-        if self._layout is not None:
-            return self._layout
+        layout = self._layout
+        if layout is not None and not self._layout_fits(layout):
+            self.replan()
+            layout = None
+        if layout is not None:
+            return layout
         r_cut, rc_matrix, _, _ = self._nlist_params()
         plan = self._plan_from_current()
         if plan is None:
@@ -375,7 +433,8 @@ class Simulation:
         layout = SlotLayout(plan, self.state.n_particles, self._lo,
                             rc_matrix=rc_matrix,
                             dtype=self.state.positions.dtype,
-                            device=self.device)
+                            device=self.device, box=self.state.box,
+                            dynamic_box=self._changes_box())
         # every device constant the step loop reads is made here, so the
         # loop never copies from the host
         layout.geometry.offsets(_cw._HALF_OFFS)
@@ -407,7 +466,7 @@ class Simulation:
 
     def _max_occupancy_now(self, layout):
         cell = _cw.bin_cells(self.state.positions, layout.lo, layout.plan,
-                             layout.geometry)
+                             layout.geom(self.state))
         return int(torch.bincount(cell.long(),
                                   minlength=layout.plan.n_cells).max())
 
@@ -460,8 +519,28 @@ class Simulation:
     def _choose_repack_interval(self, layout):
         """Static rebuild interval K: the Verlet bound (half skin over the
         fastest particle's per-step displacement) with a 0.8 safety
-        factor, on the ``_K_GRID``; staleness self-heals by lowering K."""
+        factor, on the ``_K_GRID``; staleness self-heals by lowering K.
+
+        A dynamic-box (NPT) layout takes its skin from the live box at
+        the run() boundary, with half the margin (the barostat erodes it
+        during the run); where that leaves K = 1 it returns ``None``: the
+        step loop then repacks every step after the drift, right before
+        the forces (the JAX package's per-step conditional rebuild, with
+        no host sync), and no step can go stale."""
+        if isinstance(self.integrator, _integrators.Brownian):
+            # overdamped noise moves a particle ~sqrt(2 kT dt / gamma) a
+            # step, bounded by no speed: repack every step (the moves come
+            # after the step's forces, so every force evaluation sees a
+            # fresh assignment)
+            return 1
         skin = float(layout.plan.skin)
+        if layout.dynamic_box:
+            edges = np.asarray(self._lengths, float) / \
+                np.asarray(layout.plan.grid, float)
+            skin = (float(np.min(edges)) - float(layout.plan.r_cut)) * 0.5
+            if skin <= 0:
+                self._static_K_last = None
+                return None
         if skin <= 0:
             return 1
         half = 0.98 * skin / 2.0
@@ -472,6 +551,9 @@ class Simulation:
             per = self.dt * vmax if vmax > 0 else half / 16.0
         K_est = max(int(half / float(per) * 0.8), 1)
         K = max(g for g in self._K_GRID if g <= K_est)
+        if layout.dynamic_box and K == 1:
+            self._static_K_last = None
+            return None
         last = getattr(self, "_static_K_last", None)
         if last is not None and last <= K and \
                 last >= max(g for g in self._K_GRID if g <= max(K - 1, 1)):
@@ -495,7 +577,7 @@ class Simulation:
             pair_fn, needs_virial=want_virial, min_r2=min_r2,
             with_types=with_types, rcut_matrix=layout.rc2_tab,
             stencil=self.stencil, needs_energy=needs_energy, form=form,
-            geometry=layout.geometry, lanes=self._lanes)
+            geometry=layout.geom(st), lanes=self._lanes)
 
     def _count_eval(self):
         self.force_evals += 1
@@ -650,12 +732,20 @@ class Simulation:
         return ok
     def _step(self, st, aux, flags, layout, route, i):
         """One MD step on slot state (slim: no energy column, and no
-        virial unless something in the loop reads it)."""
+        virial unless something in the loop reads it). Returns the state,
+        the layout's ``aux`` and the flags."""
         integ, dt = self.integrator, self.dt
         st = integ.pre_force(st, dt)
         # ghost pins stay unconditional, as in the JAX engine
         st = layout.ghost_pin(st, aux)
+        if route.repack_each_step:
+            st, aux = layout.rebuild(st, aux)
+            self.repacks += 1
         stale = layout.needs_rebuild(st, aux)
+        if layout.dynamic_box:
+            # the box the forces see: too small a box (or a non-finite
+            # one) is an overflow, which no repack can heal
+            flags = flags | layout.geometry_bad(st).to(torch.int32)
         tr = route.trainer
         if tr is not None:
             # one built-in evaluation: the labels and the driving forces;
@@ -677,23 +767,31 @@ class Simulation:
         st = integ.post_force(st, dt)
         st = layout.ghost_pin(st, aux)
         st.step += 1
-        return st, flags | (stale.to(torch.int32) << 1)
+        return st, aux, flags | (stale.to(torch.int32) << 1)
 
-    def _fetch_run_scalars(self, flags, aux, losses=None):
+    def _fetch_run_scalars(self, flags, aux, losses=None, box=None):
         """The one packed device->host readback of a run(): flags, running
         max occupancy, running max speed, the most lanes K1's generic-form
-        list needed and the per-step training losses (the floats bitcast
-        into the int lanes)."""
+        list needed, the final box when a barostat changed it, and the
+        per-step training losses (the floats bitcast into the int
+        lanes). Returns ``(flags, occ, vmax, lanes, box or None,
+        losses)``."""
         parts = [flags.to(torch.int32).reshape(1),
                  aux["occ_max"].to(torch.int32).reshape(1),
                  aux["vmax"].to(torch.float32).reshape(1).view(torch.int32),
                  self._lanes.needed.to(torch.int32).reshape(1)]
+        nb = 0
+        if box is not None:
+            parts.append(box.to(torch.float32).reshape(9).view(torch.int32))
+            nb = 9
         if losses is not None:
             parts.append(losses.to(torch.float32).view(torch.int32))
         packed = torch.cat(parts).cpu().numpy()
+        box_now = (packed[4:4 + nb].view(np.float32).astype(np.float64)
+                   .reshape(3, 3) if nb else None)
         return (int(packed[0]), int(packed[1]),
                 float(packed[2:3].view(np.float32)[0]), int(packed[3]),
-                packed[4:].view(np.float32))
+                box_now, packed[4 + nb:].view(np.float32))
 
     # ------------------------------------------------------------------
     def run(self, n):
@@ -714,11 +812,17 @@ class Simulation:
         n = int(n)
         if n <= 0:
             return
+        self._adopt(self.state)
         run_once = self._run_once if self._use_cellwise() \
             else self._run_packed
-        for attempt in range(5):
-            if run_once(n, allow_retry=attempt < 4):
-                return
+        model = self.tfc.model if self.tfc is not None else None
+        with _engine_calls(model):
+            for attempt in range(5):
+                # a rolled-back attempt is re-run with the same noise
+                rng = self.generator.get_state()
+                if run_once(n, allow_retry=attempt < 4):
+                    return
+                self.generator.set_state(rng)
 
     def _run_once(self, n, allow_retry):
         layout = self._maybe_auto_replan(self._ensure_layout())
@@ -739,6 +843,7 @@ class Simulation:
         else:
             st, aux = layout.pack(self.state)
         route = self._route(layout, st, aux)
+        route.repack_each_step = K is None
         tr = route.trainer
         snap = None
         if tr is not None:
@@ -755,11 +860,14 @@ class Simulation:
             done = 0
             while done < n:
                 st, aux = layout.rebuild(st, aux)
-                for _ in range(min(K, n - done)):
-                    st, flags = self._step(st, aux, flags, layout, route,
-                                           done)
+                self.repacks += 1
+                for _ in range(n - done if K is None else min(K, n - done)):
+                    st, aux, flags = self._step(st, aux, flags, layout,
+                                                route, done)
                     done += 1
             flags = flags | aux["overflow"].to(torch.int32)
+            if layout.dynamic_box:
+                flags = flags | layout.geometry_bad(st).to(torch.int32)
             # one full evaluation at the final positions: the slim loop
             # skipped the energy column (and the virial when unused)
             f4, w = self._forces(st, aux, layout, route, True,
@@ -769,9 +877,10 @@ class Simulation:
                 st.virial = w
             # bit 3: K1's generic-form list was too short in some call
             flags = flags | (self._lanes.overflow().to(torch.int32) << 3)
-        flags_now, occ_now, vmax_now, lanes_now, losses = \
-            self._fetch_run_scalars(flags, aux,
-                                    None if tr is None else tr.losses)
+        flags_now, occ_now, vmax_now, lanes_now, box_now, losses = \
+            self._fetch_run_scalars(
+                flags, aux, None if tr is None else tr.losses,
+                st.box if layout.dynamic_box else None)
         if tr is not None:
             losses = losses[tr.trained]
         overflow, stale = bool(flags_now & 1), bool(flags_now & 2)
@@ -795,6 +904,14 @@ class Simulation:
             # a failed attempt commits no training, retried or not (the
             # JAX package commits model values only after a clean run)
             tr.restore(snap)
+        if overflow and layout.dynamic_box:
+            # under a barostat the grid cannot grow with the box: the run
+            # is rolled back (self.state still holds its start) and raises
+            raise ValueError(
+                "Cell capacity exceeded during the run (a cell held more "
+                "particles than planned, or -- under a barostat -- the box "
+                "shrank until min(edge) < r_cut or went non-finite). "
+                "Increase Cellwise(capacity=) or attach with nlist='n2'.")
         if overflow and allow_retry and self.auto_replan:
             floor = max(int(np.ceil(layout.plan.capacity * 1.3)) + 1,
                         int(np.ceil(self._max_occupancy_now(layout) * 1.15))
@@ -847,6 +964,8 @@ class Simulation:
 
         self.state = layout.unpack(st, aux)
         self.state.step = start_step + n
+        if box_now is not None:
+            self._note_box(self.state.box, box_now)
         self._vmax_cache = (self.state, vmax_now)
         self._packed = (self.state, layout, (st, aux))
         if tr is not None and not overflow and not stale:
@@ -890,6 +1009,20 @@ class Simulation:
         and ``method``."""
         lengths = np.asarray(self._lengths, dtype=np.float64)
         n = self.state.n_particles
+        tilted = any(self._tilt)
+        if tilted and (method in ("cell", "pallas", "direct") or
+                       isinstance(method, _cl.CellList)):
+            raise NotImplementedError(
+                "tilted (triclinic) boxes support nlist='cellwise' "
+                "(slot-resident, the fast path) and 'n2'; the packed "
+                f"cell-list tier ({method!r}) is orthorhombic-only")
+        if self._changes_box() and method != "n2":
+            if method != "auto":
+                raise ValueError(
+                    "Static-geometry neighbor modes (cell/direct) plan "
+                    "their grid from the initial box; box-changing "
+                    "integrators (NPT) need attach(nlist='n2')")
+            method = "n2"  # auto: the dense build reads the live box
         config = method if isinstance(method, _cl.CellList) else \
             _cl.CellList()
         if method == "direct":
@@ -909,7 +1042,8 @@ class Simulation:
             method in ("cell", "pallas")
         sel = "pallas" if method == "pallas" else "sort"
         if method == "auto":
-            want_cell = n >= 512 and config.usable(lengths, r_cut)
+            want_cell = (n >= 512 and not tilted and
+                         config.usable(lengths, r_cut))
             # on the card the cell list selects with kernel K3, as the
             # JAX package picks its Pallas kernel on a TPU
             if want_cell and self.device.type == "cuda":
@@ -944,7 +1078,13 @@ class Simulation:
                                dtype=state.positions.dtype,
                                device=self.device)
         with torch.no_grad():
-            return build(state.positions4, box_size(state.box))[0]
+            return build(state.positions4, self._build_box(state))[0]
+
+    def _build_box(self, state):
+        """What a packed neighbor build reads of the box: its lengths, or
+        the full box when tilted (the dense build's triclinic minimum
+        image)."""
+        return state.box if state.tilted else box_size(state.box)
 
     def _model_chunks(self, st, nlist, labels=None):
         """The model's inputs ``[nlist, positions4, box]`` (and labels),
@@ -1023,7 +1163,7 @@ class Simulation:
         st = integ.pre_force(st, dt)
         n = st.n_particles
         if build is not None:
-            nlist, cell_overflow = build(st.positions4, box_size(st.box))
+            nlist, cell_overflow = build(st.positions4, self._build_box(st))
             self.nlist_builds += 1
         else:
             nlist = torch.zeros((n, 1, 4), dtype=st.positions.dtype,
@@ -1099,9 +1239,16 @@ class Simulation:
             if check:
                 flags = flags | (model.nlist_overflow.to(torch.int32) << 2)
         parts = [flags.to(torch.int32).reshape(1)]
+        nb = 9 if self._changes_box() else 0
+        if nb:
+            # the barostat's final box, known on the host for the next run
+            parts.append(st.box.to(torch.float32).reshape(9)
+                         .view(torch.int32))
         if tr is not None:
             parts.append(tr.losses.to(torch.float32).view(torch.int32))
         packed = torch.cat(parts).cpu().numpy()
+        box_now = packed[1:1 + nb].view(np.float32).astype(np.float64)
+        packed = np.concatenate([packed[:1], packed[1 + nb:]])
         flags_now = int(packed[0])
         overflow = bool(flags_now & 1)
         if overflow and tr is not None:
@@ -1125,6 +1272,8 @@ class Simulation:
             return False
         st.step = start_step + n
         self.state = st
+        if nb:
+            self._note_box(st.box, box_now.reshape(3, 3))
         self._packed = None
         self._vmax_cache = None
         if overflow:
@@ -1148,9 +1297,25 @@ def _is_cellwise(method):
     return method == "cellwise" or isinstance(method, _cw.Cellwise)
 
 
+@contextlib.contextmanager
+def _engine_calls(model):
+    """The engine's model calls (the JAX package's traced calls): the
+    eager-only "box is skewed" guard of a SimModel is off."""
+    if model is None:
+        yield
+        return
+    prev = model.__dict__.get("_in_engine", False)
+    model._in_engine = True
+    try:
+        yield
+    finally:
+        model._in_engine = prev
+
+
 class _Route:
     """What the step loop of one run() evaluates (see
     :meth:`Simulation._route`)."""
+    repack_each_step = False
     model_fn = None
     model_form = None
     with_types = False
@@ -1288,7 +1453,7 @@ class _Trainer(_TrainState):
         from ..ops.pair_train import pair_train_forces
         model, sim = self.model, self.sim
         kw = dict(min_r2=self.min_r2, rcut_matrix=layout.rc2_tab,
-                  needs_energy=self.energy, geometry=layout.geometry)
+                  needs_energy=self.energy, geometry=layout.geom(st))
         args = (st.positions, st.types, aux["valid"], layout.plan,
                 layout.lo)
         if self.kind == "proxy":

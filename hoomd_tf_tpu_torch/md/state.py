@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.box import box_from_lengths, check_orthorhombic
+from ..ops.box import box_from_lengths, host_tilt
 
 __all__ = ["SimState", "lattice_positions", "init_state"]
 
@@ -33,6 +33,17 @@ class SimState:
         reading it never waits for the device).
     :param thermostat: integrator auxiliary state (dict of tensors or
         host numbers).
+    :param tilted: whether the box has a nonzero tilt row (a host bool:
+        the integrators' wrap takes the triclinic form then; a barostat
+        keeps the tilt row, so it never changes during a run).
+    :param rng: the ``torch.Generator`` (on the state's device) stochastic
+        integrators draw their noise from: the ``Simulation``'s own. The
+        JAX package carries a PRNG key here.
+    :param noise_rows: in slot order, ``(rows, n)``: the particle index of
+        each row (``n`` on a ghost row) and the number of particles. The
+        noise is drawn per particle and gathered into the rows, so a
+        particle's noise does not depend on the cell layout, its capacity
+        or the repack schedule (``None`` in particle order).
     """
     positions: torch.Tensor
     velocities: torch.Tensor
@@ -43,6 +54,9 @@ class SimState:
     virial: torch.Tensor
     step: int = 0
     thermostat: dict = dataclasses.field(default_factory=dict)
+    tilted: bool = False
+    rng: object = None
+    noise_rows: object = None
 
     @property
     def n_particles(self):
@@ -91,10 +105,12 @@ def init_state(positions, box, types=None, velocities=None, masses=None,
     pass ``device="cpu"`` for the CPU).
 
     :param positions: ``[N, 3]`` or ``[N, 4]`` (type in column 4).
-    :param box: ``[3, 3]`` box or ``[Lx, Ly, Lz]`` lengths (centered).
+    :param box: ``[3, 3]`` box (rows low, high, tilt) or ``[Lx, Ly,
+        Lz]`` lengths (centered).
     :param kT_init: if given (and no velocities), draw Maxwell-Boltzmann
         velocities at this temperature with zero net momentum, from
-        ``generator`` (a ``torch.Generator`` on ``device``).
+        ``generator`` (a ``torch.Generator`` on ``device``), which also
+        becomes the state's ``rng``.
     """
     device = resolve_device(device, "init_state")
     kw = dict(dtype=dtype, device=device)
@@ -114,7 +130,7 @@ def init_state(positions, box, types=None, velocities=None, masses=None,
     box = torch.as_tensor(np.asarray(box), **kw)
     if box.ndim == 1:
         box = box_from_lengths(box, dtype=dtype, device=device)
-    check_orthorhombic(box[2])
+    tilted = any(host_tilt(box[2]))
     if velocities is not None:
         velocities = torch.as_tensor(np.asarray(velocities), **kw)
     elif kT_init is not None:
@@ -126,4 +142,5 @@ def init_state(positions, box, types=None, velocities=None, masses=None,
     return SimState(positions=positions, velocities=velocities,
                     types=types, masses=masses, box=box,
                     forces=torch.zeros((n, 4), **kw),
-                    virial=torch.zeros((n, 3, 3), **kw))
+                    virial=torch.zeros((n, 3, 3), **kw), tilted=tilted,
+                    rng=generator)

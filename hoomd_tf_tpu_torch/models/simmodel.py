@@ -153,10 +153,12 @@ class SimModel(Layer):
                                         for c in p[:3]), p.type.detach())
             else:
                 args[i] = args[i].detach().requires_grad_()
-        if self._arg_count >= 3 and not args[2].is_cuda:
-            # the reference's box-skew guard (simmodel.py:195); on a card
-            # it would wait on the device, and the Simulation's box is
-            # checked orthorhombic when it is set
+        if self._arg_count >= 3 and not args[2].is_cuda and \
+                not self.__dict__.get("_in_engine", False):
+            # the reference's box-skew guard (simmodel.py:195), on eager
+            # calls only, as the JAX package's (its engine's calls are
+            # traced; the port's engine marks its own, and a card's box
+            # would wait on the device)
             if float(torch.sum(torch.abs(args[2][2]))) >= 1e-4:
                 raise ValueError("box is skewed")
         if self.check_nlist and self._arg_count >= 1:

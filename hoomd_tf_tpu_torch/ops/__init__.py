@@ -9,7 +9,8 @@ planes (``direct``), the lane-separability probe of generic models
 online-training pair forces (``pair_train``) with their backward kernel
 K2 (``pair_train_cuda``)."""
 
-from .box import box_size, wrap_vector, make_box, box_from_lengths
+from .box import (box_size, wrap_vector, make_box, box_from_lengths,
+                  box_matrix)
 from .cellwise import Cellwise
 from .cell_list import CellList, cell_list_nlist
 from .direct import NlistPlanes, direct_cell_planes
@@ -20,6 +21,7 @@ from .numerics import (divide_no_nan, masked_nlist, multiply_no_nan,
 from .rdf import compute_rdf
 
 __all__ = ["box_size", "wrap_vector", "make_box", "box_from_lengths",
+           "box_matrix",
            "Cellwise", "CellList", "cell_list_nlist",
            "compute_nlist_forces", "compute_positions_forces",
            "compute_nlist", "nlist_from_positions", "divide_no_nan",

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .._device import device_for
-from .box import box_size as _box_size, check_orthorhombic
+from .box import box_size as _box_size, host_tilt
 from .cell_stencil import (cell_chunks, chunk_pairs, neighbor_cells,
                            to_particle_order)
 from .nlist import f32
@@ -268,7 +268,11 @@ def cell_list_nlist(pos4, r_cut, NN, box, config=None, return_overflow=False,
         device=device_for(pos4, device, "cell_list_nlist"))
     box = torch.as_tensor(box, dtype=pos4.dtype, device=pos4.device)
     if box.ndim == 2:
-        check_orthorhombic(box[2])
+        if any(host_tilt(box[2])):
+            raise NotImplementedError(
+                "the packed cell-list tier is orthorhombic-only; tilted "
+                "(triclinic) boxes take compute_nlist (O(N^2)) or "
+                "nlist='cellwise'")
         lengths = _box_size(box)
     else:
         lengths = box

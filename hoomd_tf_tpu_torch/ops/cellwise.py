@@ -12,7 +12,15 @@ K steps (:func:`repack_src`). See the JAX module for the full design
 rationale; this port keeps its layouts and numerics so the two can be
 compared element for element.
 
-Orthorhombic boxes only in this slice of the port.
+Triclinic (tilted) boxes: cells are a regular grid in fractional space,
+binning solves the upper-triangular cell matrix, centers and stencil
+offsets go through the box matrix, and the minimum image is the
+sequential z, y, x wrap (:func:`_wrap_tri`); the grid is sized by the
+perpendicular layer widths (:func:`_perp_widths`). Every geometric
+quantity the tensor forms and the kernels use -- lengths, cell edges,
+centers, offsets -- is derived in float32 from a ``[3, 3]`` box tensor on
+the device (:class:`SlotGeometry`), so a barostat's box (the dynamic-box
+layout, :class:`..md.slots.SlotLayout`) needs no new plan.
 """
 
 import dataclasses
@@ -50,19 +58,61 @@ _HALF_OFFS = [(0, 0, 0)] + [o for o in _OFFS
                             if (o[2], o[1], o[0]) > (0, 0, 0)]
 
 
+def _perp_widths(lengths, tilt):
+    """Perpendicular widths of a triclinic box: per axis the distance
+    between the two faces spanned by the other two lattice vectors (``V /
+    |b x c|`` etc.). These, not the edge lengths, are what a layer of
+    cells must cover for the 27-stencil to see every pair within
+    ``r_cut``; with zero tilt they are the edge lengths."""
+    Lx, Ly, Lz = (float(v) for v in lengths)
+    xy, xz, yz = (float(v) for v in tilt)
+    a = np.array([Lx, 0.0, 0.0])
+    b = np.array([xy * Ly, Ly, 0.0])
+    c = np.array([xz * Lz, yz * Lz, Lz])
+    V = Lx * Ly * Lz
+    return (V / float(np.linalg.norm(np.cross(b, c))),
+            V / float(np.linalg.norm(np.cross(a, c))),
+            V / float(np.linalg.norm(np.cross(a, b))))
+
+
+def _wrap_tri(r, lengths, tilt):
+    """Sequential (z, then y, then x) triclinic minimum image of
+    ``[..., 3]`` displacements, the convention of :func:`.box.wrap_vector`
+    (exact for ``|tilt| <= 0.5``). ``lengths`` and ``tilt`` are ``[3]``
+    tensors (or host sequences), in the JAX form's order of operations."""
+    dtype = r.dtype
+    Lx, Ly, Lz = (torch.as_tensor(v, dtype=dtype, device=r.device)
+                  for v in lengths)
+    xy, xz, yz = (torch.as_tensor(t, dtype=dtype, device=r.device)
+                  for t in tilt)
+    rx, ry, rz = r[..., 0], r[..., 1], r[..., 2]
+    iz = torch.round(rz / Lz)
+    rx = rx - iz * xz * Lz
+    ry = ry - iz * yz * Lz
+    rz = rz - iz * Lz
+    iy = torch.round(ry / Ly)
+    rx = rx - iy * xy * Ly
+    ry = ry - iy * Ly
+    rx = rx - torch.round(rx / Lx) * Lx
+    return torch.stack([rx, ry, rz], dim=-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class CellwisePlan:
     """Static geometry of the slot-resident layout.
 
     :param grid: cells per axis ``(nx, ny, nz)``.
     :param capacity: slots per cell.
-    :param lengths: box lengths ``(Lx, Ly, Lz)``.
+    :param lengths: box lengths ``(Lx, Ly, Lz)`` at planning time.
     :param r_cut: cutoff radius the planes are exact for.
+    :param tilt: tilt factors ``(xy, xz, yz)`` (all zero: orthorhombic);
+        cells are a regular grid in fractional space.
     """
     grid: tuple
     capacity: int
     lengths: tuple
     r_cut: float
+    tilt: tuple = (0.0, 0.0, 0.0)
 
     @property
     def n_cells(self):
@@ -83,17 +133,40 @@ class CellwisePlan:
         return tuple(L / d for L, d in zip(self.lengths, self.grid))
 
     @property
+    def tilted(self):
+        return any(self.tilt)
+
+    @property
+    def perp_cell_widths(self):
+        """Per-axis perpendicular width of one cell layer, the quantity
+        the stencil criterion bounds (``edges`` with zero tilt)."""
+        if not self.tilted:
+            return self.edges
+        return tuple(w / d for w, d in
+                     zip(_perp_widths(self.lengths, self.tilt), self.grid))
+
+    @property
     def skin(self):
         """Verlet margin: the slot assignment stays valid while the
         largest displacement since the last repack is below skin / 2."""
-        return min(self.edges) - self.r_cut
+        return min(self.perp_cell_widths) - self.r_cut
 
 
-def _measured_occupancy(positions, lo, lengths, dims):
-    """Max, mean and std of particles-per-cell for host positions."""
+def _measured_occupancy(positions, lo, lengths, dims, tilt=(0., 0., 0.)):
+    """Max, mean and std of particles-per-cell for host positions
+    (a tilted box bins by the upper-triangular cell-matrix solve)."""
     pos = np.asarray(positions)[:, :3].astype(np.float64)
     lengths = np.asarray(lengths, dtype=np.float64)
-    frac = (pos - np.asarray(lo)) / lengths
+    r = pos - np.asarray(lo)
+    if any(tilt):
+        xy, xz, yz = (float(v) for v in tilt)
+        fz = r[:, 2] / lengths[2]
+        fy = (r[:, 1] - yz * lengths[2] * fz) / lengths[1]
+        fx = (r[:, 0] - xy * lengths[1] * fy - xz * lengths[2] * fz) \
+            / lengths[0]
+        frac = np.stack([fx, fy, fz], axis=-1)
+    else:
+        frac = r / lengths
     frac = frac - np.floor(frac)
     dims = np.asarray(dims)
     xyz = np.minimum((frac * dims).astype(np.int64), dims - 1)
@@ -130,10 +203,12 @@ def _snap_free_capacity(cap, width_blocks):
 
 def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
                   lo=None, drift_per_step=None, width_blocks=27,
-                  occ_observed=None, lane_cost_scale=1.0):
+                  occ_observed=None, lane_cost_scale=1.0,
+                  tilt=(0.0, 0.0, 0.0)):
     """Choose ``(grid, capacity)`` minimizing the modelled per-step cost
     (pair lanes plus amortized repack). Same algorithm and arguments as
-    the JAX ``plan_cellwise`` (minus tilt and the mesh divisor).
+    the JAX ``plan_cellwise`` (minus the mesh divisor); a tilted box is
+    gridded by its perpendicular widths.
 
     :param width_blocks: 14 when the half-stencil kernel is the hot
         loop, 27 for the full-stencil tensor form.
@@ -142,16 +217,19 @@ def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
     """
     config = config if isinstance(config, CellList) else CellList()
     lengths = np.asarray(box_lengths, dtype=np.float64)
+    tilt = tuple(float(t) for t in tilt)
     if lo is None:
         lo = -lengths / 2.0
     min_edge = r_cut + max(config.skin, 0.0)
+    widths = (np.asarray(_perp_widths(lengths, tilt)) if any(tilt)
+              else lengths)
     best = None
     for scale in np.linspace(1.0, 1.8, 9):
         dims = tuple(int(math.floor(W / (min_edge * scale)))
-                     for W in lengths)
+                     for W in widths)
         if any(d < 3 for d in dims):
             continue
-        edges = [W / d for W, d in zip(lengths, dims)]
+        edges = [W / d for W, d in zip(widths, dims)]
         if min(edges) < min_edge:
             continue
         n_cells_d = float(np.prod(dims))
@@ -171,7 +249,7 @@ def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
             cap = int(config.capacity)
         elif positions is not None:
             occ_max, _, _ = _measured_occupancy(positions, lo, lengths,
-                                                dims)
+                                                dims, tilt=tilt)
             cap = (max(occ_max + 1, est) if occ_observed is not None
                    else max(occ_max, est) + 3)
             cap = _snap_free_capacity(cap, width_blocks)
@@ -195,42 +273,124 @@ def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
             best = (key, CellwisePlan(
                 grid=dims, capacity=cap,
                 lengths=tuple(float(L) for L in lengths),
-                r_cut=float(r_cut)))
+                r_cut=float(r_cut), tilt=tilt))
     return best[1] if best else None
 
 
-class SlotGeometry:
-    """Device-resident constants of one plan: box corner and lengths,
-    ghost parking spots, in-cell slot ranks and the per-lane stencil
-    offsets. Built once per layout, so the hot loop never copies a host
-    constant to the device (each such copy is a host sync)."""
+def _box_terms(box, dims):
+    """``(lo, L, e, tilt)``: the ``[3]`` float32 terms every geometric
+    quantity derives from, ``L = high - low`` and the cell edge ``e = L /
+    grid`` (the order the kernels' staging repeats)."""
+    L = box[1] - box[0]
+    return box[0], L, L / dims, box[2]
 
-    def __init__(self, plan, lo, dtype=torch.float32, device=None):
+
+def _cell_centers(cells, lo, e, tilt, tilted):
+    """Cartesian centers of the cells at integer coordinates ``cells``
+    (float ``[..., 3]``): the fractional center ``(c + 0.5) * e`` through
+    the box matrix, left to right."""
+    f = (cells + 0.5) * e
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    if tilted:
+        xy, xz, yz = tilt[0], tilt[1], tilt[2]
+        return torch.stack([lo[0] + fx + xy * fy + xz * fz,
+                            lo[1] + fy + yz * fz, lo[2] + fz], dim=-1)
+    return torch.stack([lo[0] + fx, lo[1] + fy, lo[2] + fz], dim=-1)
+
+
+def _stencil_offsets(ioffs, e, tilt, tilted):
+    """``[n_offs, 3]`` Cartesian offsets of integer cell offsets ``ioffs``
+    (float): ``o = ioffs * e`` through the box matrix."""
+    o = ioffs * e
+    if tilted:
+        xy, xz, yz = tilt[0], tilt[1], tilt[2]
+        return torch.stack([o[:, 0] + xy * o[:, 1] + xz * o[:, 2],
+                            o[:, 1] + yz * o[:, 2], o[:, 2]], dim=-1)
+    return o
+
+
+class SlotGeometry:
+    """Device-resident geometry of one plan at one box: the box tensor
+    ``[3, 3]`` the kernels read, and what the tensor forms derive from it
+    in float32 -- corner, lengths, cell edges, tilt, the ghost parking
+    spots (``centers``) and the per-lane stencil offsets -- plus the
+    box-free in-cell slot ranks. Built once per static layout, so the hot
+    loop never copies a host constant to the device (each such copy is a
+    host sync); a dynamic-box layout makes one per box with :meth:`at`.
+
+    :param box: the ``[3, 3]`` box (default: the plan's, rows ``lo``,
+        ``lo + lengths`` and the plan's tilt; ``lo`` centers it by
+        default).
+    """
+
+    def __init__(self, plan, lo=None, dtype=torch.float32, device=None,
+                 box=None, base=None):
         self.plan = plan
         self.dtype = dtype
-        self.device = resolve_device(device, "SlotGeometry")
-        kw = dict(dtype=dtype, device=self.device)
-        self.lo = torch.as_tensor(np.asarray(lo, np.float64), **kw)
-        self.lengths = torch.as_tensor(plan.lengths, **kw)
-        self.dims = torch.as_tensor(plan.grid, **kw)
-        self.dims_i = torch.as_tensor(plan.grid, dtype=torch.int32,
-                                      device=self.device)
-        self.centers = _slot_cell_centers(plan, self.lo, dtype)
-        self.rank = (torch.arange(plan.n_slots, device=self.device) %
-                     plan.capacity).to(dtype)
+        if base is not None:
+            self.device = base.device
+            self.dims, self.dims_i = base.dims, base.dims_i
+            self.rank, self._cells = base.rank, base._cells
+            self._ioffs = base._ioffs
+        else:
+            self.device = resolve_device(device, "SlotGeometry")
+            kw = dict(dtype=dtype, device=self.device)
+            self.dims = torch.as_tensor(plan.grid, **kw)
+            self.dims_i = torch.as_tensor(plan.grid, dtype=torch.int32,
+                                          device=self.device)
+            nx, ny, _ = plan.grid
+            cell = (torch.arange(plan.n_slots, device=self.device) //
+                    plan.capacity)
+            self._cells = torch.stack([cell % nx, (cell // nx) % ny,
+                                       cell // (nx * ny)], dim=-1).to(dtype)
+            self.rank = (torch.arange(plan.n_slots, device=self.device) %
+                         plan.capacity).to(dtype)
+            # integer stencil offsets on the device, shared by the
+            # geometries of every box (made at the first offsets() call)
+            self._ioffs = {}
+        if box is None:
+            L = np.asarray(plan.lengths, np.float64)
+            lo = -L / 2.0 if lo is None else np.asarray(lo, np.float64)
+            box = torch.as_tensor(
+                np.stack([lo, lo + L, np.asarray(plan.tilt, np.float64)]),
+                dtype=dtype, device=self.device)
+        self.box = box.to(dtype).contiguous()
+        self.tilted = plan.tilted
+        self.lo, self.lengths, self.edges, self.tilt = _box_terms(
+            self.box, self.dims)
+        self._centers = None
         self._offs = {}
+
+    def at(self, box):
+        """This plan's geometry at another box (same grid and capacity)."""
+        return SlotGeometry(self.plan, dtype=self.dtype, box=box, base=self)
+
+    @property
+    def centers(self):
+        """``[n_slots, 3]`` cell centers, the ghost parking spots."""
+        if self._centers is None:
+            self._centers = _cell_centers(self._cells, self.lo, self.edges,
+                                          self.tilt, self.tilted)
+        return self._centers
+
+    def wrap(self, d):
+        """Minimum image of ``[..., 3]`` displacements in this box."""
+        if self.tilted:
+            return _wrap_tri(d, self.lengths, self.tilt)
+        return d - torch.round(d / self.lengths) * self.lengths
 
     def offsets(self, offs_list):
         """``[3, n_offs * cap]`` per-lane Cartesian stencil offsets."""
         key = tuple(offs_list)
         if key not in self._offs:
-            ex, ey, ez = self.plan.edges
-            noffs = np.array([(ox * ex, oy * ey, oz * ez)
-                              for (ox, oy, oz) in offs_list])
-            rep = np.repeat(noffs, self.plan.capacity, axis=0).T
-            self._offs[key] = torch.as_tensor(
-                np.ascontiguousarray(rep), dtype=self.dtype,
-                device=self.device)
+            if key not in self._ioffs:
+                self._ioffs[key] = torch.as_tensor(
+                    np.asarray(offs_list, np.float64), dtype=self.dtype,
+                    device=self.device)
+            o = _stencil_offsets(self._ioffs[key], self.edges, self.tilt,
+                                 self.tilted)
+            self._offs[key] = torch.repeat_interleave(
+                o.T.contiguous(), self.plan.capacity, dim=1)
         return self._offs[key]
 
 
@@ -240,32 +400,33 @@ def _as_geometry(plan, lo, like, geometry):
     return SlotGeometry(plan, lo, like.dtype, like.device)
 
 
-def _slot_cell_centers(plan, lo_t, dtype):
-    nx, ny, nz = plan.grid
-    ex, ey, ez = plan.edges
-    cell = torch.arange(plan.n_slots, device=lo_t.device) // plan.capacity
-    cx = (cell % nx).to(dtype)
-    cy = ((cell // nx) % ny).to(dtype)
-    cz = (cell // (nx * ny)).to(dtype)
-    return torch.stack([lo_t[0] + (cx + 0.5) * ex,
-                        lo_t[1] + (cy + 0.5) * ey,
-                        lo_t[2] + (cz + 0.5) * ez], dim=-1)
-
-
 def slot_cell_centers(plan, lo, dtype=torch.float32, device=None):
     """``[n_slots, 3]`` cell-center coordinates -- the parking spot for
     ghost slots."""
-    lo_t = torch.as_tensor(np.asarray(lo, np.float64), dtype=dtype,
-                           device=resolve_device(device,
-                                                 "slot_cell_centers"))
-    return _slot_cell_centers(plan, lo_t, dtype)
+    return SlotGeometry(plan, lo, dtype,
+                        resolve_device(device, "slot_cell_centers")).centers
+
+
+def _fractional(pos3, g):
+    """Fractional coordinates of ``pos3`` in ``g``'s box, not yet reduced
+    ``mod 1`` (the upper-triangular solve when tilted, in the JAX form's
+    order)."""
+    r = pos3 - g.lo
+    L = g.lengths
+    if not g.tilted:
+        return r / L
+    xy, xz, yz = g.tilt[0], g.tilt[1], g.tilt[2]
+    fz = r[:, 2] / L[2]
+    fy = (r[:, 1] - yz * L[2] * fz) / L[1]
+    fx = (r[:, 0] - xy * L[1] * fy - xz * L[2] * fz) / L[0]
+    return torch.stack([fx, fy, fz], dim=-1)
 
 
 def bin_cells(pos3, lo, plan, geometry=None):
     """Flat int32 cell id per row (x-minor / z-major, matching the
     ``[nz, ny, nx, cap]`` slot view)."""
     g = _as_geometry(plan, lo, pos3, geometry)
-    frac = (pos3 - g.lo) / g.lengths
+    frac = _fractional(pos3, g)
     frac = frac - torch.floor(frac)
     xyz = torch.minimum((frac * g.dims).to(torch.int32), g.dims_i - 1)
     nx, ny, _ = plan.grid
@@ -297,7 +458,7 @@ def _roll_back(block, plan, off):
 
 
 def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
-                    cells=None, lengths=None):
+                    cells=None, box=None):
     """Masked 27-block candidate planes of slot-resident state (the
     JAX ``cellwise_planes``): the planes route a generic SimModel takes
     on ``'cellwise'`` when the lane-separability probe rejects it.
@@ -309,8 +470,8 @@ def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
         (:func:`rc2_table`), or ``None``.
     :param cells: ``(c0, c1)``: the planes of the rows of cells
         ``c0 .. c1 - 1`` only (all cells by default).
-    :param lengths: ``[3]`` box lengths tensor on the positions' device
-        (default: the plan's, copied from the host).
+    :param box: the ``[3, 3]`` box tensor on the positions' device
+        (default: the plan's lengths and tilt, copied from the host).
     :returns: :class:`.direct.NlistPlanes` of ``[rows, 27 * cap]``
         components; ghost rows and ghost candidates are exactly zero.
     """
@@ -322,18 +483,23 @@ def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
     rc2 = plan.r_cut * plan.r_cut
     tt = types.to(dtype)
     rows = slice(c0 * cap, c1 * cap)
-    if lengths is None:
+    if box is not None:
+        lengths, tilt = box[1] - box[0], box[2]
+    else:
         lengths = torch.as_tensor(plan.lengths, dtype=dtype,
                                   device=positions.device)
+        tilt = plan.tilt
 
     def cand(plane):
         return _roll_offs(plane, plan, _OFFS)[c0:c1].reshape(m, 1, C)
 
-    dd = []
-    for a in range(3):
-        p = positions[:, a]
-        d = cand(p) - p[rows].reshape(m, cap, 1)
-        dd.append(d - torch.round(d / lengths[a]) * lengths[a])
+    dd = [cand(positions[:, a]) - positions[rows, a].reshape(m, cap, 1)
+          for a in range(3)]
+    if plan.tilted:
+        dd = _wrap_tri(torch.stack(dd, dim=-1), lengths, tilt).unbind(-1)
+    else:
+        dd = [d - torch.round(d / lengths[a]) * lengths[a]
+              for a, d in enumerate(dd)]
     d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
     ok = ((d2 <= rc2) & (d2 >= 25e-8) & (cand(valid) > 0) &
           (valid[rows].reshape(m, cap, 1) > 0))
@@ -349,12 +515,13 @@ def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
 def _relative_coords(positions, valid, plan, lo, offs_list, geometry=None):
     """Cell-relative coordinates (ghosts pushed FAR along x, a distinct
     distance per in-cell rank) and the per-direction candidate planes
-    with the static stencil offsets pre-added, so displacements need no
-    min-image rounding."""
+    with the stencil offsets pre-added, so displacements need no
+    min-image rounding. Everything geometric comes from ``geometry``'s
+    box (the kernels' staging repeats these float32 operations in this
+    order: ``q = wrap(p - center) + offset``)."""
     g = _as_geometry(plan, lo, positions, geometry)
     FAR = 4.0 * float(max(plan.lengths))
-    q = positions - g.centers
-    q = q - torch.round(q / g.lengths) * g.lengths
+    q = g.wrap(positions - g.centers)
     # rank-scaled FAR: a uniform push would put co-resident ghosts at
     # d2 = 0, where a steep pair function overflows to inf and inf * 0
     # poisons ghost rows with NaN

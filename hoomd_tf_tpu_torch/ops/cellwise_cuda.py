@@ -204,30 +204,23 @@ def half_stencil_plain(positions, types, valid, plan, lo, form,
 
 
 class _HalfGeom(ctypes.Structure):
-    """``HalfGeom`` of ``csrc/half_stencil_stage.cuh``: the grid, the
-    capacity, the float32 box lengths and, per half-stencil block, its
-    integer cell offset and its float32 Cartesian offset."""
+    """``HalfGeom`` of ``csrc/half_stencil_stage.cuh``: the plan's
+    integers -- the grid, the capacity, whether the box is tilted, and
+    per half-stencil block its integer cell offset. The kernels read
+    everything else from the box on the card."""
     _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
                 ("nz", ctypes.c_int), ("cap", ctypes.c_int),
-                ("lx", ctypes.c_float), ("ly", ctypes.c_float),
-                ("lz", ctypes.c_float),
-                ("off", (ctypes.c_int * 3) * len(_HALF_OFFS)),
-                ("offf", (ctypes.c_float * 3) * len(_HALF_OFFS))]
+                ("tilted", ctypes.c_int),
+                ("off", (ctypes.c_int * 3) * len(_HALF_OFFS))]
 
 
 @functools.lru_cache(maxsize=None)
 def half_geom(plan):
-    """The kernels' :class:`_HalfGeom` of ``plan``: the same constants,
-    rounded to float32 the same way, as :class:`.cellwise.SlotGeometry`
-    holds (``lengths``, ``offsets(_HALF_OFFS)``)."""
-    ex, ey, ez = plan.edges
-    offf = np.array([(ox * ex, oy * ey, oz * ez)
-                     for (ox, oy, oz) in _HALF_OFFS]).astype(np.float32)
-    g = _HalfGeom(*plan.grid, plan.capacity,
-                  *np.asarray(plan.lengths, np.float32).tolist())
-    for t, (o, f) in enumerate(zip(_HALF_OFFS, offf)):
+    """The kernels' :class:`_HalfGeom` of ``plan`` (made once per plan:
+    it holds no box value, so a rescaled box needs no new one)."""
+    g = _HalfGeom(*plan.grid, plan.capacity, int(plan.tilted))
+    for t, o in enumerate(_HALF_OFFS):
         g.off[t][:] = o
-        g.offf[t][:] = f.tolist()
     return g
 
 
@@ -254,16 +247,18 @@ def _check(t, shape, dtype, device, name):
 
 def cuda_slot_args(positions, types, valid, plan, geometry, typed):
     """Check the slot state a half-stencil kernel reads on the card and
-    return its pointers: ``(positions, types or null, valid, centers)``."""
+    return its pointers: ``(positions, types or null, valid, box)``, the
+    box the ``[3, 3]`` tensor of ``geometry`` (the kernels derive the
+    lengths, centers and offsets from it at each launch)."""
     dev = positions.device
     n = plan.n_slots
     _check(positions, (n, 3), torch.float32, dev, "positions")
     _check(valid, (n,), torch.float32, dev, "valid")
-    _check(geometry.centers, (n, 3), torch.float32, dev, "geometry.centers")
+    _check(geometry.box, (3, 3), torch.float32, dev, "geometry.box")
     if typed:
         _check(types, (n,), torch.int32, dev, "types")
     return (_ptr(positions), _ptr(types if typed else None), _ptr(valid),
-            _ptr(geometry.centers))
+            _ptr(geometry.box))
 
 
 def _ptr(t):

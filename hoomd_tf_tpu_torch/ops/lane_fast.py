@@ -105,7 +105,7 @@ def near_cut_rows(slot_state, aux, layout, lane_chunk=None):
     for c0, c1 in _cell_chunks(plan, lane_chunk):
         p = cw.cellwise_planes(slot_state.positions, slot_state.types,
                                aux["valid"], wide, cells=(c0, c1),
-                               lengths=layout.geometry.lengths)
+                               box=layout.geom(slot_state).box)
         r2 = p.r2()
         near = (r2 - rc2).abs() <= 2.0 * rel * rc2
         if layout.rc2_tab is not None:
@@ -207,7 +207,7 @@ def validate_pair_fn(model, pair_fn, slot_state, aux, layout, stencil,
                 slot_state.positions, slot_state.types, aux["valid"],
                 layout.plan, layout.lo, guarded, with_types=True,
                 rcut_matrix=layout.rc2_tab, stencil=stencil,
-                geometry=layout.geometry, lanes=lanes)
+                geometry=layout.geom(slot_state), lanes=lanes)
         except _ModelFailed as e:
             report["error"] = f"synthesized pair function: {e.__cause__!r}"
             return False

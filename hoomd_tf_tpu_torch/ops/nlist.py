@@ -8,15 +8,15 @@ the reference convention: ``[N, NN, 4]``, the minimum-image displacement
 ``(dx, dy, dz)`` from particle i to its neighbor, then the neighbor's
 type (in a simulation) or index; padded slots are all zero.
 
-Orthorhombic boxes only (a nonzero tilt raises, as everywhere in the
-port).
+A full ``[3, 3]`` box with nonzero tilt factors gets the triclinic
+minimum image (:func:`.box.wrap_vector`), as in the JAX package.
 """
 
 import numpy as np
 import torch
 
 from .._device import device_for
-from .box import box_size as _box_size, check_orthorhombic
+from .box import box_size as _box_size, wrap_vector
 
 __all__ = ["compute_nlist", "nlist_from_positions", "pair_rc2", "DenseNlist"]
 
@@ -51,7 +51,8 @@ def compute_nlist(positions, r_cut, NN, box_size, sorted=False,
     :param positions: ``[N, 4]`` or ``[N, 3]`` positions.
     :param r_cut: cutoff radius.
     :param NN: maximum number of neighbors per particle.
-    :param box_size: ``[Lx, Ly, Lz]`` edge lengths, or a ``[3, 3]`` box.
+    :param box_size: ``[Lx, Ly, Lz]`` edge lengths, or a full ``[3, 3]``
+        box (rows low, high, tilt): the triclinic minimum image then.
     :param sorted: sort each particle's neighbors ascending by distance.
     :param return_types: last channel is the neighbor's type (needs
         ``[N, 4]`` positions) instead of its index.
@@ -86,15 +87,14 @@ def _compute_nlist(positions, r_cut, NN, box_size, sorted=False,
         raise ValueError('per-type r_cut needs N x 4 positions (types)')
     box_size = torch.as_tensor(box_size, dtype=positions.dtype,
                                device=positions.device)
-    if box_size.ndim == 2:
-        check_orthorhombic(box_size[2])
-        box_size = _box_size(box_size)
-
     pos3 = positions[:, :3]
     # displacement from i (row) to j (column): r_ij = x_j - x_i
     dist_mat = pos3[None, :, :] - pos3[:, None, :]
-    box = box_size.reshape(1, 1, 3)
-    dist_mat = dist_mat - torch.round(dist_mat / box) * box
+    if box_size.ndim == 2:
+        dist_mat = wrap_vector(dist_mat, box_size)
+    else:
+        box = box_size.reshape(1, 1, 3)
+        dist_mat = dist_mat - torch.round(dist_mat / box) * box
     dist = torch.linalg.norm(dist_mat, dim=2)
     mask = (dist <= f32(r_cut)) & (dist >= f32(5e-4))
     if rc2_tab is not None:
@@ -166,7 +166,8 @@ class DenseNlist:
 
     def __call__(self, pos4, box_lengths):
         """``(nlist [N, NN, 4], None)`` for ``pos4`` in a box of
-        ``box_lengths`` (a ``[3]`` tensor on the positions' device)."""
+        ``box_lengths`` (a ``[3]`` tensor on the positions' device, or
+        the full ``[3, 3]`` box of a tilted one)."""
         return _compute_nlist(pos4, self.r_cut, self.NN, box_lengths,
                               sorted=True, return_types=True,
                               rc2_tab=self.rc2_tab), None

@@ -13,6 +13,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 profile_step.py [--mode train|eval|calls|k3parts|genparts]
                             [--row proxy|pair|generic] [--steps 50]
+                            [--box ortho|tilted|npt]
     python3 profile_step.py --mode calls --tree DIR
 
 ``--tree DIR`` imports the port's package from another checkout (an
@@ -20,6 +21,12 @@ older commit, say) while this file and ``chip_smoke.py`` stay this
 checkout's: the public signatures of ``half_stencil_pair_forces``,
 ``proxy_bwd_moments`` and ``nlist_select`` are the same in both, so one
 script times both trees at the same shapes.
+
+``--box`` picks the eval step's box and ensemble: ``ortho`` (the bench
+protocol, NVT), ``tilted`` (chip_smoke.py phase 15: NVT in the box
+tilted by (0.3, -0.2, 0.25)) or ``npt`` (phase 14: the model with its
+virial, NPT at 1.2 times the fluid's pressure through the dynamic-box
+layout, 400 warm steps).
 
 It prepares the state as chip_smoke.py does (for training through
 chip_smoke.py's own set-up: quench, NVT, the proxy NN attached with
@@ -135,9 +142,10 @@ def union_us(intervals):
     return total
 
 
-def prepare(mode, cs, row="proxy"):
+def prepare(mode, cs, row="proxy", box="ortho"):
     """The 64k system, ready for the profiled window: for training,
-    chip_smoke.py's own set-up of the ``row`` and its warm training."""
+    chip_smoke.py's own set-up of the ``row`` and its warm training; for
+    eval, the bench protocol in the ``box`` of ``--box``."""
     if mode == "train":
         model, loss = {
             "proxy": (None, None),
@@ -147,7 +155,16 @@ def prepare(mode, cs, row="proxy"):
         cs.warm_train(sim)
         return sim, model
     htt = cs.htt
-    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    if box == "tilted":
+        import numpy as np
+        L = (cs.N / cs.DENSITY) ** (1 / 3)
+        sim = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                             integrator=htt.md.Minimize(max_disp=0.05))
+        sim.init_state(cs.tri_lattice(cs.N, L, cs.TILT),
+                       np.stack([[-L / 2] * 3, [L / 2] * 3, cs.TILT]),
+                       kT_init=1.5)
+    else:
+        sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
     htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
                                           nlist="cellwise")
     sim.run(60)
@@ -157,6 +174,13 @@ def prepare(mode, cs, row="proxy"):
     sim.run(400)
     sim.replan()
     sim.run(200)
+    if box == "npt":
+        htt.tfcompute(cs.make_model(virial=True)).attach(
+            sim, r_cut=cs.R_CUT, nlist="cellwise")
+        sim.run(50)
+        p0 = sim.thermo()["pressure"]
+        sim.integrator = htt.md.NPT(kT=1.5, tau=0.5, P=1.2 * p0, tauP=0.5)
+        sim.run(400)
     sim.auto_replan = False
     return sim, None
 
@@ -570,6 +594,8 @@ def main():
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--row", choices=("proxy", "pair", "generic"),
                     default="proxy")
+    ap.add_argument("--box", choices=("ortho", "tilted", "npt"),
+                    default="ortho")
     ap.add_argument("--tree", default=HERE,
                     help="checkout whose hoomd_tf_tpu_torch is imported")
     args = ap.parse_args()
@@ -603,7 +629,7 @@ def main():
             "calls": whole_calls(cs)}, indent=1))
         return 0
 
-    sim, model = prepare(args.mode, cs, args.row)
+    sim, model = prepare(args.mode, cs, args.row, args.box)
     n = args.steps
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
@@ -622,7 +648,7 @@ def main():
         g[1] += (b - a) / 1e3
     plan = sim._layout.plan
     rec = {
-        "mode": args.mode, "n": cs.N, "steps": n,
+        "mode": args.mode, "box": args.box, "n": cs.N, "steps": n,
         "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
         "plan": [list(plan.grid), plan.capacity],
         "wall_ms_per_step": wall_ms / n,

@@ -1,6 +1,8 @@
 """Card-only checks of the port: kernel K1 (LJ and Chebyshev-proxy forms),
 kernel K2, kernel K3 and the generic form's backward
-(``generic_reduce_bwd``) against their plain versions, the step loops of
+(``generic_reduce_bwd``) against their plain versions (also at a tilted
+and at a rescaled box, which the kernels read from the card), the step
+loops of
 the cellwise and the packed paths free of host syncs, and online training
 on the card against the CPU. Every test here
 needs a CUDA device and
@@ -25,7 +27,8 @@ from hoomd_tf_tpu_torch.md.slots import SlotLayout
 from hoomd_tf_tpu_torch.ops import cellwise as tcw
 from hoomd_tf_tpu_torch.ops import cellwise_cuda as tcc
 
-from torch_helpers import cuda_device, fluid_arrays, np_, torch_state  # noqa
+from torch_helpers import (cuda_device, fluid_arrays, geometry_case, np_,  # noqa
+                           torch_state)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1070,3 +1073,128 @@ def test_generic_short_list_sets_flag_bit_3(cuda_device):
             assert sim._lanes.budget <= 1.12 * sim._lanes.committed
         assert sim.lane_reruns == int(short)
     torch.testing.assert_close(states[1], states[0], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Tilted and rescaled boxes: the kernels read the box from the card
+# ---------------------------------------------------------------------------
+
+GEOM_RCM = np.array([[2.5, 2.0], [2.0, 2.2]], dtype=np.float32)
+
+
+@pytest.mark.parametrize("kind", ["tilted", "scaled"])
+def test_kernels_match_plain_at_new_geometry(cuda_device, kind):
+    """At a tilted box (the JAX tests' TILT) and at a box rescaled by 0.97
+    under a dynamic-box layout: K1's LJ form (energy and virial, typed,
+    per-type cutoffs), its proxy form, its generic form, the generic
+    form's backward and K2, each on the card against its plain version on
+    the CPU (K1 at rtol = atol = 1e-4, K2 at the JAX bar); the generic
+    form lists exactly the plain version's lanes, with bit-equal r2 (the
+    staged geometry rounds as the tensor form does)."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    lj = htt.md.LennardJones([[1.0, 0.5], [0.5, 0.5]], 1.0, r_cut=2.5)
+    ev, coeffs = proxy_parts(True)
+    ct = np.random.RandomState(3).randn(200000, 4).astype(np.float32)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = geometry_case(kind, dev, typed=True,
+                                          rc_matrix=GEOM_RCM)
+        g = layout.geom(slot)
+        args = (slot.positions, slot.types, aux["valid"], layout.plan,
+                layout.lo)
+        out = {}
+        out["lj"] = tcc.half_stencil_pair_forces(
+            *args, lj.kernel_form(), needs_virial=True,
+            rc2_tab=layout.rc2_tab, geometry=g)
+        out["proxy"] = tcc.half_stencil_pair_forces(
+            *args, ev.kernel_form(on(coeffs, dev)), needs_virial=True,
+            rc2_tab=layout.rc2_tab, geometry=g)
+        lanes = tcc.LaneBudget(tcc.lane_budget(layout.plan, 3000), dev)
+        gl = tcc.generic_list(*args, rc2_tab=layout.rc2_tab, geometry=g,
+                              lanes=lanes)
+        U, S = gl.evaluate(morse_yukawa)
+        out["generic"] = tcc.generic_reduce(gl, U, S, True, False)
+        ctt = torch.as_tensor(ct[:layout.plan.n_slots], device=dev)
+        out["bwd"] = tcc.generic_reduce_bwd(gl, ctt, True)
+        out["k2"] = ptc.proxy_bwd_moments(
+            slot.positions, slot.types, aux["valid"], ctt, layout.plan,
+            layout.lo, ev.basis, rc2_tab=layout.rc2_tab, geometry=g)
+        res[dev.type] = (out, gl, int(lanes.needed))
+    (card, gl, need), (cpu, pl, pneed) = res["cuda"], res["cpu"]
+    assert need == pneed > 0
+    for k in ("lj", "proxy"):
+        np.testing.assert_allclose(np_(card[k][0]), np_(cpu[k][0]), **TOL)
+        np.testing.assert_allclose(np_(card[k][1]), np_(cpu[k][1]), **TOL)
+    np.testing.assert_allclose(np_(card["generic"][0]),
+                               np_(cpu["generic"][0]), **TOL)
+    idx = np_(tcc.kernel_lane_index(pl.lst, gl.cell_base, gl.plan))
+    assert sorted(idx.tolist()) == list(range(need))
+    np.testing.assert_array_equal(np_(gl.r2)[idx], np_(pl.lst["r2"]))
+    for a, b in zip(card["bwd"], cpu["bwd"]):
+        np.testing.assert_allclose(np_(a)[idx], np_(b), **TOL)
+    got = np.concatenate([np_(x).ravel() for x in card["k2"]])
+    want = np.concatenate([np_(x).ravel() for x in cpu["k2"]])
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_box_changed_in_place_is_followed(cuda_device):
+    """The kernels read the box at every launch: rescaling the layout's
+    box tensor (and the positions) in place between two calls of K1 needs
+    no new plan or HalfGeom, and the second call equals the plain version
+    at the new box, not the first call."""
+    lj = htt.md.LennardJones(r_cut=2.5).kernel_form()
+    layout, slot, aux = geometry_case("scaled", cuda_device)
+    g = layout.geom(slot)
+    args = (slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo)
+    geoms = tcc.half_geom.cache_info().currsize
+    f1, _ = tcc.half_stencil_pair_forces(*args, lj, geometry=g)
+    with torch.no_grad():
+        g.box.mul_(0.99)
+        slot.positions.mul_(0.99)
+    f2, w2 = tcc.half_stencil_pair_forces(*args, lj, needs_virial=True,
+                                          geometry=g)
+    assert tcc.half_geom.cache_info().currsize == geoms
+    cpu = torch.device("cpu")
+    box = g.box.cpu()
+    ref = tcw.SlotGeometry(layout.plan, box=box, device=cpu)
+    pf, pw = tcc.half_stencil_pair_forces(
+        slot.positions.cpu(), slot.types.cpu(), aux["valid"].cpu(),
+        layout.plan, layout.lo, lj, needs_virial=True, geometry=ref)
+    np.testing.assert_allclose(np_(f2), np_(pf), **TOL)
+    np.testing.assert_allclose(np_(w2), np_(pw), **TOL)
+    assert np.abs(np_(f2) - np_(f1)).max() > 1e-3
+
+
+def test_npt_and_tilted_runs_have_no_host_sync(cuda_device):
+    """NPT on 'cellwise' (the dynamic-box layout, the virial every step)
+    and NVT in a tilted box, each a short run with the step loop under
+    set_sync_debug_mode('error'): finite positions, the box changed under
+    NPT and not under NVT, K1 launched at every step."""
+    from torch_helpers import TILT, tri_positions
+    n = 4000
+    for kind in ("npt", "tilted"):
+        integ = (htt.md.NPT(kT=1.2, tau=0.5, P=0.3, tauP=0.5)
+                 if kind == "npt" else htt.md.NVT(kT=1.2, tau=0.5))
+        sim = htt.Simulation(dt=0.002, integrator=integ,
+                             device=cuda_device)
+        if kind == "npt":
+            sim.init_lattice(n, density=0.4, kT_init=1.2)
+        else:
+            L = (n / 0.4) ** (1 / 3)
+            lengths = np.array([L, L, L])
+            box = np.stack([-lengths / 2, lengths / 2, TILT])
+            sim.init_state(tri_positions(n, lengths, TILT), box,
+                           kT_init=1.2)
+        sim.add_force(htt.md.LennardJones(r_cut=2.5))
+        sim.run(10)
+        box0 = np_(sim.state.box).copy()
+        sim.check_syncs = True
+        before = tcc.half_stencil_pair_forces.launches
+        sim.run(20)
+        assert tcc.half_stencil_pair_forces.launches - before >= 20
+        assert np.isfinite(np_(sim.state.positions)).all()
+        moved = not np.array_equal(np_(sim.state.box), box0)
+        assert moved == (kind == "npt")
+        assert sim._layout.dynamic_box == (kind == "npt")

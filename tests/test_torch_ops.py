@@ -48,12 +48,25 @@ class TestBox:
 
     @pytest.mark.parametrize("call", ["make_box", "wrap_vector"])
     def test_tilt_not_ported(self, call):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            if call == "make_box":
-                tbox.make_box([0, 0, 0], [1, 1, 1], tilt=[0.1, 0, 0])
-            else:
-                box = torch.tensor([[0., 0, 0], [1, 1, 1], [0, 0.2, 0]])
-                htt.wrap_vector(torch.zeros(2, 3), box)
+        """Tilted boxes were refused before the port's slice E; now
+        ``make_box`` keeps the tilt row and ``wrap_vector`` applies the
+        triclinic minimum image, both equal to the JAX package's (exact
+        for the box, 1e-5 absolute for the wrap: float32 rounding)."""
+        tilt = [0.1, -0.3, 0.2]
+        if call == "make_box":
+            np.testing.assert_array_equal(
+                np_(tbox.make_box([0, 0, 0], [1, 1, 1], tilt=tilt,
+                                  device="cpu")),
+                np_(htf.ops.make_box([0, 0, 0], [1, 1, 1], tilt=tilt)))
+        else:
+            rng = np.random.RandomState(1)
+            r = rng.uniform(-3, 3, (64, 3)).astype(np.float32)
+            box = np.array([[0., 0, 0], [1, 1.5, 2], tilt], np.float32)
+            np.testing.assert_allclose(
+                np_(htt.wrap_vector(torch.as_tensor(r),
+                                    torch.as_tensor(box))),
+                np_(htf.wrap_vector(jnp.asarray(r), jnp.asarray(box))),
+                rtol=0, atol=1e-5)
 
 
 class TestState:

@@ -276,8 +276,11 @@ def test_probe_verdicts_of_both_packages():
 
 @pytest.mark.parametrize("name", ["NPT", "Langevin", "Brownian"])
 def test_remaining_integrators_name_their_item(name):
-    """The JAX package's other integrators are not ported yet: making one
-    raises, naming the queue item that brings it."""
-    assert hasattr(htf.md, name)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        getattr(htt.md, name)(kT=1.0)
+    """The JAX package's other integrators, refused before the port's
+    slice E, now construct with the JAX package's flags (the engine reads
+    ``stochastic``, ``changes_box`` and ``needs_virial``); their dynamics
+    are held against JAX in tests/test_torch_{stochastic,npt}.py."""
+    kw = dict(kT=1.0, tau=0.5, P=1.0) if name == "NPT" else dict(kT=1.0)
+    j, t = getattr(htf.md, name)(**kw), getattr(htt.md, name)(**kw)
+    for flag in ("stochastic", "changes_box", "needs_virial"):
+        assert getattr(t, flag, False) == getattr(j, flag, False), flag

@@ -261,3 +261,103 @@ def k3_inputs(n, L, seed=0, cap=None, unwrap=False, sparse=0.0,
     slots4, counts, pid, _ = cell_list.build_planes(pos4, grid, cap,
                                                     torch.tensor([L] * 3))
     return (slots4, counts, pid, grid, cap, (L, L, L)), pos4
+
+
+# ---------------------------------------------------------------------------
+# tilted and rescaled boxes (the JAX tests' tests/test_triclinic.py helpers)
+# ---------------------------------------------------------------------------
+
+#: the JAX tests' tilt factors (tests/test_triclinic.py:20)
+TILT = (0.3, -0.2, 0.25)
+
+
+def cell_matrix(lengths, tilt):
+    Lx, Ly, Lz = lengths
+    xy, xz, yz = tilt
+    return np.array([[Lx, xy * Ly, xz * Lz],
+                     [0., Ly, yz * Lz],
+                     [0., 0., Lz]])
+
+
+def tri_positions(n, lengths, tilt, seed=0, lo=None, jitter=0.15):
+    """A jittered simple-cubic lattice in fractional space mapped through
+    the cell matrix (as tests/test_triclinic.py:28-43)."""
+    rng = np.random.RandomState(seed)
+    h = cell_matrix(lengths, tilt)
+    m = int(np.ceil(n ** (1 / 3)))
+    g = (np.arange(m) + 0.5) / m
+    frac = np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                    axis=-1).reshape(-1, 3)[:n]
+    frac = frac + rng.uniform(-jitter, jitter, size=frac.shape) / m
+    lo = (-np.asarray(lengths) / 2.0) if lo is None else np.asarray(lo)
+    return (frac @ h.T + lo).astype(np.float32)
+
+
+def min_image_27(r, h):
+    """The exact minimum image by brute force over the 27 lattice
+    translations (valid for |tilt| <= 0.5)."""
+    combos = np.array([(i, j, k) for i in (-1, 0, 1)
+                       for j in (-1, 0, 1) for k in (-1, 0, 1)])
+    shifts = combos @ h.T
+    cand = r[..., None, :] + shifts
+    idx = np.argmin(np.sum(cand * cand, axis=-1), axis=-1)
+    return np.take_along_axis(cand, idx[..., None, None],
+                              axis=-2)[..., 0, :]
+
+
+def numpy_lj_tri(pos, lengths, tilt, r_cut, sigma=1.0):
+    """LJ forces ``[n, 3]`` and per-particle energies ``[n]`` (half of
+    each pair's) through the 27-image oracle, in float64."""
+    pos = np.asarray(pos, np.float64)
+    h = cell_matrix(lengths, tilt)
+    d = min_image_27(pos[None, :, :] - pos[:, None, :], h)
+    rd = np.linalg.norm(d, axis=-1)
+    np.fill_diagonal(rd, np.inf)
+    mask = rd <= r_cut
+    rs = np.where(mask, rd, np.inf)
+    s6 = sigma ** 6
+    inv6 = s6 * rs ** -6.0
+    energy = (0.5 * 4 * (inv6 ** 2 - inv6)).sum(axis=1)
+    fmag = 24 * s6 * (2 * s6 * rs ** -13 - rs ** -7)
+    forces = -(fmag / np.where(mask, rd, 1.0))[:, :, None] * d
+    return np.where(mask[:, :, None], forces, 0.0).sum(axis=1), energy
+
+
+def geometry_case(kind, device, n=3000, density=0.35, r_cut=2.5,
+                  typed=False, rc_matrix=None, seed=7):
+    """A fluid packed into a slot layout on ``device`` at one of the
+    geometries slice E brings: ``'tilted'`` (the box tilted by
+    :data:`TILT`, planned by its perpendicular widths) or ``'scaled'``
+    (a dynamic-box layout planned at the fluid's box, as NPT plans it,
+    with a 0.15 r_cut minimum skin, then the box and the positions
+    rescaled by 0.97 about the center). Returns ``(layout, slot_state,
+    aux)``."""
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout
+    from hoomd_tf_tpu_torch.md.state import init_state
+    from hoomd_tf_tpu_torch.ops import box as tbox
+    from hoomd_tf_tpu_torch.ops import cellwise as tcw
+    types = (np.arange(n) % 2) if typed else None
+    if kind == "tilted":
+        L = (n / density) ** (1 / 3)
+        lengths = np.array([L, L, L])
+        pos = tri_positions(n, lengths, TILT, seed=seed)
+        lo = -lengths / 2
+        box = np.stack([lo, -lo, TILT]).astype(np.float32)
+        st = init_state(pos, box, types=types, device=device)
+        plan = tcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo,
+                                 width_blocks=14, tilt=TILT)
+        layout = SlotLayout(plan, n, lo, rc_matrix=rc_matrix,
+                            device=device, box=st.box)
+    else:
+        pos, _, lengths = fluid_arrays(n, density, seed)
+        lo = -lengths / 2
+        plan = tcw.plan_cellwise(n, lengths, r_cut, positions=pos, lo=lo,
+                                 width_blocks=14,
+                                 config=tcw.Cellwise(skin=0.15 * r_cut))
+        mu = np.float32(0.97)
+        box = np.stack([lo * mu, -lo * mu, np.zeros(3)]).astype(np.float32)
+        st = init_state(pos * mu, box, types=types, device=device)
+        layout = SlotLayout(plan, n, lo, rc_matrix=rc_matrix,
+                            device=device, box=st.box, dynamic_box=True)
+    slot, aux = layout.pack(st)
+    return layout, slot, aux
