@@ -103,7 +103,32 @@ exits non-zero:
                against their plain versions and the generic form's listed
                lanes bit-equal to the plain list's (the staged candidate
                masks); a step at N = 512 against the 27-image numpy
-               oracle.
+               oracle;
+16. logged   -- phase 4's NVT fluid, the LJ PairModel with its virial on
+               'cellwise': a timed run(1000), then a timed run(1000,
+               log_period=10), both with host syncs forbidden, and
+               run(500, log_period=10): 150 finite records 10 steps apart,
+               mean T within 1.1-1.9; the timed pair once more (steps/s
+               of both pairs printed); K1's <energy, virial> variant (the
+               one a logged step launches) against its plain version at
+               that state, its whole call and its bound; then the model
+               with period=5 (at dt 0.001) and a timed run(1000): K1
+               launches equal to the model's 200 evaluations, T healthy;
+17. stateful -- reference example 04's model (WCARepulsion(0.9) energy,
+               compute_rdf over [0.5, 3.0] into a MeanTensor, NN 48,
+               r_cut 3) at N = 65536, density 0.5, Langevin(kT=0.8,
+               gamma=1.0), dt 0.002, seed 7, on the packed route (the cell
+               list with K3): run(100), a timed run(1000) with host syncs
+               forbidden; the MeanTensor count equal to the committed
+               model calls, a non-empty RDF, |T - 0.8| < 0.5; K3 against
+               its plain version at this state; then a CellList smaller
+               than the fullest cell: a rollback, after which the count
+               still equals the committed calls;
+18. eds      -- reference example 03 as it stands (9 particles, r_cut 0,
+               EDSLayer(4.0, period=5, learning_rate=0.2) and Mean,
+               save_output_period=10, run(1000), host syncs forbidden):
+               (<cv> - 4)^2 < 0.8, 100 finite captures, device memory
+               flat over the run.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -1122,6 +1147,7 @@ def phase_main():
           f"in the step loops (set_sync_debug_mode('error'))")
     print(f"  steps/s {1000 / dt:.2f} (timed run(1000), N={N}) on "
           f"{smi_line()} -- info, not a claim")
+    sps = 1000 / dt
 
     # small-N trajectory: the CUDA main path against the CPU tensor form
     def small(device):
@@ -1145,7 +1171,7 @@ def phase_main():
           f"{ferr:.3f}")
     check(err < 2e-3, "small-N trajectory disagrees with the CPU form")
     check(ferr <= 1.0, "small-N forces disagree with the CPU form")
-    return launches, sim
+    return launches, sim, sps
 
 
 def train_sim_attached(model=None, loss=None):
@@ -1747,16 +1773,16 @@ def phase_train_packed():
 TILT = (0.3, -0.2, 0.25)
 
 
-def timed_run(sim, steps):
-    """``sim.run(steps)`` under the sync-debug mode 'error', timed on the
-    host clock around work that ends in a synchronize: ``(seconds, K1
-    launches, force evaluations)``."""
+def timed_run(sim, steps, **run_kw):
+    """``sim.run(steps, **run_kw)`` under the sync-debug mode 'error',
+    timed on the host clock around work that ends in a synchronize:
+    ``(seconds, K1 launches, force evaluations)``."""
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     sim.check_syncs = True
     l0, e0 = cc.half_stencil_pair_forces.launches, sim.force_evals
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run(steps)
+    sim.run(steps, **run_kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = cc.half_stencil_pair_forces.launches - l0
@@ -2093,14 +2119,271 @@ def phase_triclinic():
     return launches
 
 
+def phase_logged(state, main_sps):
+    """Phase 16: ``run(log_period=)`` and ``period`` > 1 on phase 4's
+    fluid (its NVT state), the LJ PairModel with its virial on
+    'cellwise'."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    sim.set_state(state)
+    tfc = htt.tfcompute(make_model(virial=True))
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    k1.launches = 0
+    evals0 = sim.force_evals
+    sim.run(200)
+    for _ in range(3):
+        plan = sim._layout.plan
+        sim.run(500)
+        if sim._layout.plan == plan:
+            break
+    dt_plain, _, _ = timed_run(sim, 1000)
+    check(sim.log is None, "an unlogged run made records")
+    dt_log, _, _ = timed_run(sim, 1000, log_period=10)
+    sim.run(500, log_period=10)
+    log = sim.log
+    steps = log["step"]
+    check(len(steps) == 150 and bool((np.diff(steps) == 10).all()) and
+          steps[0] % 10 == 0, f"records at steps {steps[:3]}... "
+          f"({len(steps)} of them)")
+    for k, v in log.items():
+        check(bool(np.isfinite(v).all()), f"non-finite logged {k}")
+    t_mean = float(log["temperature"].mean())
+    check(1.1 < t_mean < 1.9, f"logged mean T {t_mean}")
+    healthy(sim, "logged")
+    print(f"  log: {len(steps)} records, steps {steps[0]}..{steps[-1]} by "
+          f"10; mean T {t_mean:.4f}, mean PE/N "
+          f"{float(log['potential_energy'].mean()) / N:.4f}, mean P "
+          f"{float(log['pressure'].mean()):.4f}")
+    # a second pair in the same order: the host's share of the card
+    # varies from run to run
+    dt_plain2, _, _ = timed_run(sim, 1000)
+    dt_log2, _, _ = timed_run(sim, 1000, log_period=10)
+    check(len(sim.log["step"]) == 250, "the second logged run's records")
+    print(f"  steps/s: run(1000) {1000 / dt_plain:.2f}, run(1000, "
+          f"log_period=10) {1000 / dt_log:.2f} (ratio "
+          f"{dt_plain / dt_log:.3f}); again {1000 / dt_plain2:.2f}, "
+          f"{1000 / dt_log2:.2f} (ratio {dt_plain2 / dt_log2:.3f}); phase "
+          f"4 {main_sps:.2f}; on {smi_line()} -- info, not a claim")
+    launches = k1.launches
+    evals = sim.force_evals - evals0
+    check(launches == evals, f"K1 launches {launches} != force "
+          f"evaluations {evals}")
+    # K1's <energy, virial> variant at this state, as a logged step
+    # launches it, against its plain version (launches that compare
+    # count nowhere)
+    layout = sim._layout
+    slot, aux = slot_state(layout, sim.state)
+    plan = layout.plan
+    form = htt.md.LennardJones(1.0, 1.0, r_cut=R_CUT).kernel_form()
+    common = (slot.positions, slot.types, aux["valid"], plan, layout.lo)
+    kw = dict(needs_energy=True, needs_virial=True,
+              geometry=layout.geometry)
+    f_k, w_k = k1(*common, form, **kw)
+    f_p, w_p = cc.half_stencil_plain(*common, form, **kw)
+    torch.cuda.synchronize()
+    err = max(compare("K1 <energy, virial> forces+energy (kernel vs "
+                      "plain)", f_k, f_p),
+              compare("K1 <energy, virial> virial (kernel vs plain)", w_k,
+                      w_p))
+    t_ev = cuda_ms(lambda: k1(*common, form, **kw))
+    # the function's bytes: k1_cost's with the [n_slots, 3, 3] virial
+    # written too; its operations with 10 channels (3 forces, the
+    # energy, 6 virial components)
+    nbytes, ops = k1_cost(slot.positions, aux["valid"], plan, 10, form)
+    nbytes += plan.n_slots * 9 * 4
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  K1 <energy, virial> whole call {t_ev:.4f} ms (plan "
+          f"{plan.grid} cap {plan.capacity}), bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    k1.launches = launches
+    # the same model evaluated every 5 steps: its forces and virial stand
+    # between, following their particles through each repack. At dt 0.001,
+    # so that the forces are new every 0.005 time units, as on the main
+    # path: held for 5 steps of 0.005, they let the LJ fluid blow up (in
+    # the JAX package too)
+    sim.dt = 0.001
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise", period=5)
+    sim.run(100)
+    s0 = sim.state.step
+    dt_p, tl, te = timed_run(sim, 1000)
+    want = sum(1 for s in range(s0, s0 + 1000) if s % 5 == 0)
+    check(tl == te == want, f"period 5: K1 launches {tl}, evaluations "
+          f"{te}, model evaluations {want}")
+    th = healthy(sim, "period 5")
+    print(f"  period 5: steps/s {1000 / dt_p:.2f} (timed run(1000); phase "
+          f"4 {main_sps:.2f}); K1 launches {tl} == model evaluations "
+          f"{want}; T={th['temperature']:.4f} -- info, not a claim")
+    launches = k1.launches
+    evals = sim.force_evals - evals0
+    check(launches == evals, f"K1 launches {launches} != force "
+          f"evaluations {evals}")
+    print(f"  K1 launches {launches} == force evaluations {evals}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def make_wca_rdf(nn):
+    """Reference example 04's model (examples/04): a WCARepulsion(0.9)
+    energy through compute_nlist_forces, the RDF over [0.5, 3.0] into a
+    MeanTensor."""
+    class WCARDF(htt.SimModel):
+        def setup(self):
+            self.wca = htt.WCARepulsion(0.9)
+            self.avg_rdf = htt.MeanTensor()
+
+        def compute(self, nlist, positions, box):
+            p_energy = self.wca(nlist)
+            forces = htt.compute_nlist_forces(nlist, p_energy)
+            rdf, rs = htt.compute_rdf(nlist, [0.5, 3.0], positions[:, 3])
+            self.avg_rdf.update_state(rdf)
+            return forces
+    return WCARDF(nn)
+
+
+def phase_stateful():
+    """Phase 17: reference example 04's model at 65,536 particles on the
+    packed route (the cell list with K3), Langevin at kT 0.8; then a run
+    forced through a capacity-overflow rollback."""
+    import warnings
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    k3 = nc.nlist_select
+    t_phase = time.perf_counter()
+    NN = 48
+    model = make_wca_rdf(NN)
+    sim = htt.Simulation(dt=0.002, integrator=htt.md.Langevin(kT=0.8,
+                                                              gamma=1.0),
+                         seed=7, device="cuda")
+    sim.init_lattice(N, density=0.5, kT_init=0.8)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=3.0)
+    build = sim._packed_build()
+    check(build.method == "pallas", f"'auto' took {build.method!r}")
+    k3.launches = 0
+    b0 = sim.nlist_builds
+    sim.run(100)
+    sim.check_syncs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(1000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sim.check_syncs = False
+    launches = k3.launches
+    check(launches == sim.nlist_builds - b0 == 1100,
+          f"K3 launches {launches} != neighbor builds")
+    count = model.avg_rdf.count.value
+    check(bool((count == tfc._calls).all()) and tfc._calls == 1100,
+          f"MeanTensor count {float(count[0])} != committed calls "
+          f"{tfc._calls}")
+    rdf = model.avg_rdf.result()
+    check(float(rdf.sum()) > 0, "the RDF is empty")
+    th = sim.thermo()
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(abs(th["temperature"] - 0.8) < 0.5, f"T {th['temperature']}")
+    grid, cap = sim._packed_build().plan
+    print(f"  WCARDF(48), Langevin(0.8), N={N}: plan {grid} cap {cap}; "
+          f"steps/s {1000 / dt:.2f} (timed run(1000), host syncs "
+          f"forbidden) on {smi_line()} -- info, not a claim; "
+          f"T={th['temperature']:.4f}, sigma "
+          f"{float(model.wca.sigma.value.detach()):.3f}, RDF peak at "
+          f"bin {int(rdf.argmax())}; MeanTensor count {float(count[0]):g} "
+          f"== committed calls {tfc._calls}; K3 launches {launches}")
+    # K3 at this path's shapes against its plain version
+    st = sim.state
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
+                                               lengths)
+    check(not bool(ovf), "the state overflows its own plan")
+    err = k3_against_plain("phase 17's state (NN 48)",
+                           (slots4, counts, pid, grid, cap, NN, 3.0,
+                            host_L, N))
+    # rollbacks: a cell list half as deep as the fluid's fullest cell
+    # (each retry grows it 1.3x)
+    occ = cl.max_occupancy(st.positions, host_L, grid)
+    small = max(2, occ // 2)
+    before = float(model.avg_rdf.count.value[0])
+    tfc.attach(sim, r_cut=3.0, nlist=htt.CellList(capacity=small))
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        sim.run(20)
+    rolled = [x for x in w if "exceeded" in str(x.message)]
+    after = float(model.avg_rdf.count.value[0])
+    check(len(rolled) >= 1, "the small cell list did not overflow")
+    check(after - before == tfc._calls == 20,
+          f"after a rollback the count rose by {after - before}, the "
+          f"committed calls {tfc._calls}")
+    print(f"  capacity {small} < the fullest cell's {occ}: "
+          f"{len(rolled)} rollback(s), then 20 committed steps; the count "
+          f"rose by {after - before:g} == committed calls {tfc._calls}")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+def phase_eds():
+    """Phase 18: reference example 03 as it stands (9 particles, r_cut 0,
+    EDSLayer and Mean), on the card, host syncs forbidden."""
+    t_phase = time.perf_counter()
+
+    class EDSModel(htt.SimModel):
+        def setup(self, set_point):
+            self.cv_avg = htt.Mean()
+            self.eds_bias = htt.EDSLayer(set_point, period=5,
+                                         learning_rate=0.2)
+
+        def compute(self, nlist, positions, box):
+            rvec = htt.wrap_vector(positions[0, :3], box)
+            cv = torch.linalg.norm(rvec)
+            self.cv_avg.update_state(cv)
+            alpha = self.eds_bias(cv)
+            energy = (cv - 5.0) ** 2 + cv * alpha
+            forces = htt.compute_positions_forces(positions, energy)
+            return forces, alpha
+
+    model = EDSModel(0, set_point=4.0)
+    sim = htt.Simulation(dt=0.05, seed=2, device="cuda")
+    sim.init_lattice(n=9, a=4.0, kT_init=0.2)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=0, save_output_period=10)
+    sim.check_syncs = True
+    sim.run(100)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim.run(900)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_allocated()
+    cv = float(model.cv_avg.result())
+    alpha = float(model.eds_bias.alpha.value.detach())
+    out = tfc.outputs[0]
+    check((cv - 4.0) ** 2 < 0.8, f"<cv> {cv}")
+    check(out.shape[0] == 100 and bool(np.isfinite(out).all()),
+          f"{out.shape[0]} captures")
+    check(float(model.cv_avg.count.value) == 1000, "Mean count")
+    check(mem1 <= mem0 + 65536, f"device memory grew {mem0} -> {mem1}")
+    print(f"  target cv 4.0, <cv> {cv:.4f} ((cv - 4)^2 = "
+          f"{(cv - 4) ** 2:.4f} < 0.8), alpha {alpha:.4f}, 100 finite "
+          f"captures; device memory {mem0} -> {mem1} bytes over 900 steps; "
+          f"{900 / dt:.2f} steps/s (no kernel of the port runs here); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
-    global torch, htt
+    global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
                                        "__init__.py")):
         print("chip_smoke.py must run from a checkout of the repository",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one card", file=sys.stderr)
@@ -2149,7 +2432,8 @@ def main():
     k1_lj = phase_kernels()
 
     print("[4 main] 64k LJ fluid, the eval protocol on the port")
-    k1_lj["launches"], main_sim = phase_main()
+    k1_lj["launches"], main_sim, main_sps = phase_main()
+    main_state = main_sim.state
 
     print("[5 train] 64k online training, north_star.py's flagship row")
     sim, model, launches = phase_train()
@@ -2207,6 +2491,20 @@ def main():
     torch.cuda.empty_cache()
     print("[15 triclinic] 64k LJ fluid in a tilted box")
     k1_lj["launches"] += phase_triclinic()
+    torch.cuda.empty_cache()
+    print("[16 logged] 64k LJ fluid: run(log_period=10) and period 5 on "
+          "'cellwise'")
+    k1_lj["launches"] += phase_logged(main_state, main_sps)
+    del main_state
+    torch.cuda.empty_cache()
+    print("[17 stateful] reference example 04's model (WCARepulsion, "
+          "MeanTensor of the RDF) at 64k on the packed route (K3)")
+    launches, k3_err = phase_stateful()
+    k3["launches"] += launches
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
+    torch.cuda.empty_cache()
+    print("[18 eds] reference example 03 (EDSLayer, Mean), 9 particles")
+    phase_eds()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 

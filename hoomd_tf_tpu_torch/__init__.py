@@ -19,28 +19,42 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   :class:`LJPotential`, :class:`TrainableLJ`, :class:`NeuralPairPotential`
   among them): validated lane-separable, its pair function runs in K1's
   generic form, else on the masked candidate planes; and the wide-direct
-  mode ``nlist='direct'`` (:class:`NlistPlanes`, no selection).
+  mode ``nlist='direct'`` (:class:`NlistPlanes`, no selection);
+- stateful models: the running metrics :class:`Mean` and
+  :class:`MeanTensor`, the EDS bias :class:`EDSLayer` and the trainable
+  :class:`WCARepulsion`, whose state a rolled-back run restores; and
+  ``Simulation.run(n, log_period=k)``, which records the thermodynamic
+  quantities into ``sim.log``.
 """
 
-from .ops import (Cellwise, CellList, box_size, wrap_vector, nlist_rinv,
-                  safe_norm, masked_nlist, divide_no_nan, multiply_no_nan,
-                  compute_nlist_forces, compute_positions_forces,
-                  compute_nlist, nlist_from_positions, cell_list_nlist,
-                  NlistPlanes, direct_cell_planes, compute_rdf)
-from .models import (Variable, SimModel, PairModel, Dense, RBFExpansion, LJPotential,
-                     TrainableLJ, NeuralPairPotential)
+from .ops import (box_size, wrap_vector, make_box, box_from_lengths,
+                  safe_norm, nlist_rinv, masked_nlist, divide_no_nan,
+                  multiply_no_nan, compute_nlist_forces,
+                  compute_positions_forces, compute_nlist,
+                  nlist_from_positions, CellList, cell_list_nlist,
+                  NlistPlanes, direct_cell_planes, Cellwise, compute_rdf)
+from .models import (Variable, Layer, Mean, MeanTensor, SimModel, PairModel,
+                     RBFExpansion, WCARepulsion, EDSLayer, Dense,
+                     LJPotential, TrainableLJ, NeuralPairPotential)
 from . import ops
 from . import models
 from . import md
 from .md.simulation import Simulation
 from .driver import tfcompute
 
-__all__ = ["Simulation", "tfcompute", "PairModel", "SimModel", "Dense",
-           "md", "ops", "models", "Cellwise", "CellList", "box_size",
-           "wrap_vector", "nlist_rinv", "safe_norm", "masked_nlist",
-           "divide_no_nan", "multiply_no_nan", "compute_nlist_forces",
-           "compute_positions_forces", "compute_nlist",
-           "nlist_from_positions", "cell_list_nlist", "NlistPlanes",
-           "direct_cell_planes", "compute_rdf", "RBFExpansion",
-           "LJPotential", "TrainableLJ", "NeuralPairPotential",
-           "Variable"]
+# the JAX package's names, less those of the parts still to be ported
+# (ROADMAP.md Queue 1: MolSimModel and the utils.cg, graph and
+# mol_features names, item 5; trajectory, GSD, serialize and utils, item
+# 6; parallel, item 7)
+__all__ = [
+    "box_size", "wrap_vector", "make_box", "box_from_lengths",
+    "safe_norm", "nlist_rinv", "masked_nlist", "divide_no_nan",
+    "multiply_no_nan", "compute_nlist_forces", "compute_positions_forces",
+    "compute_nlist", "nlist_from_positions", "CellList", "cell_list_nlist",
+    "NlistPlanes", "direct_cell_planes", "Cellwise", "compute_rdf",
+    "Variable", "Layer", "Mean", "MeanTensor", "SimModel", "PairModel",
+    "RBFExpansion", "WCARepulsion", "EDSLayer", "Dense",
+    "LJPotential", "TrainableLJ", "NeuralPairPotential",
+    "Simulation", "tfcompute",
+    "md", "ops", "models",
+]

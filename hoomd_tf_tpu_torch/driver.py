@@ -80,8 +80,9 @@ class tfcompute:
         :param r_cut: cutoff radius, or an ``[ntypes, ntypes]`` matrix
             (negative = never neighbors).
         :param period: run (or train) the model every ``period`` MD
-            steps; between, its last forces stand. On ``'cellwise'`` it
-            gates training only.
+            steps; between, its last forces and virial stand (on
+            ``'cellwise'`` they follow their particles through each
+            repack), also across ``run()`` calls.
         :param batch_size: run (and train) the model on particle chunks
             of this size, one optimizer step each (not with ``'direct'``
             or ``'cellwise'``, whose planes are the model's rows).
@@ -115,12 +116,6 @@ class tfcompute:
             raise ValueError(
                 f"nlist={nlist!r} is incompatible with particle batching "
                 "(it changes the nlist form the model sees)")
-        if cellwise and not train and int(period) != 1:
-            raise NotImplementedError(
-                "period > 1 for a model evaluated on nlist='cellwise' (its "
-                "carried forces would follow the repacks) arrives with "
-                f"{_LATER}; it gates training there, and evaluation on the "
-                "packed routes")
         if train and sim.device.type == "cuda" and \
                 sim.state.positions.dtype != torch.float32:
             raise NotImplementedError(
@@ -310,5 +305,15 @@ class tfcompute:
         return nlist.detach().cpu().numpy()
 
     def get_forces_array(self):
-        """The net forces ``[N, 4]`` (energy in column 4)."""
+        """The net forces ``[N, 4]`` (energy in column 4); in training
+        mode with reference forces selected, the staged label forces of
+        those built-ins at the current state, as the reference's forces
+        buffer holds (``TensorflowCompute.cc:177-187``)."""
+        if self.train and self.reference_forces:
+            f = self.sim._label_forces(self.reference_forces)
+            return f.detach().cpu().numpy()
         return self.sim.state.forces.detach().cpu().numpy()
+
+    def get_virial_array(self):
+        """The per-particle virial as ``[N, 9]``."""
+        return self.sim.state.virial.detach().cpu().numpy().reshape(-1, 9)

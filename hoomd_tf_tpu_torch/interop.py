@@ -26,6 +26,7 @@ import torch
 
 from ._device import resolve_device
 from .md.state import SimState
+from .models.module import StateSnapshot
 
 __all__ = ["state_from_numpy", "load_jax_variables", "build_model"]
 
@@ -63,7 +64,10 @@ def state_from_numpy(arrays, device=None, dtype=torch.float32):
 def load_jax_variables(model, arrays):
     """Copy a JAX model's variables (its ``get_weights()`` list of numpy
     arrays, in the JAX package's variable order) into the port's
-    :class:`.models.module.Layer` ``model``; shapes must match."""
+    :class:`.models.module.Layer` ``model``; shapes must match. Every
+    variable is carried: trainable or not, float, int32 or bool, and
+    the state of the running metrics and the EDS layer, whose lazily
+    built variables need :func:`build_model` first."""
     model.set_weights([np.asarray(a) for a in arrays])
     return model
 
@@ -72,7 +76,10 @@ def build_model(model, r_cut, device=None):
     """Build a model's lazy layers on ``device`` (default: the CUDA card;
     pass ``device="cpu"`` for the CPU) by one call: a proxy
     ``PairModel`` at its Chebyshev proxy's nodes, any other model on a
-    zero ``[1, NN, 4]`` neighbor list. Returns the model."""
+    zero ``[1, NN, 4]`` neighbor list. The call leaves no trace in the
+    model's state: a metric counts nothing, and a variable it built
+    (a ``MeanTensor``'s, an ``EDSLayer``'s) holds its initial value, as
+    the JAX package's abstract build leaves them. Returns the model."""
     device = resolve_device(device, "build_model")
     model.to(device)
     if getattr(model, "proxy_degree", None):
@@ -81,6 +88,8 @@ def build_model(model, r_cut, device=None):
         return model
     kw = dict(dtype=model.dtype, device=device)
     nn = max(1, model.nneighbor_cutoff)
+    snap = StateSnapshot(model)
     model([torch.zeros((1, nn, 4), **kw), torch.zeros((1, 4), **kw),
            torch.zeros((3, 3), **kw)], training=False)
+    snap.restore()
     return model

@@ -64,7 +64,6 @@ remote TPU) has no counterpart here.
 """
 
 import contextlib
-import copy
 import dataclasses
 import warnings
 
@@ -82,6 +81,7 @@ from ..ops.box import box_size
 from ..ops.cellwise_cuda import LaneBudget, lane_budget
 from ..ops.direct import DirectPlanes
 from ..ops.nlist import DenseNlist
+from ..models.module import StateSnapshot
 from ..models.pair import PairModel
 
 __all__ = ["Simulation"]
@@ -169,6 +169,10 @@ class Simulation:
         self._form = None
         self._vmax_cache = None
         self._replan_check_step = -1
+        #: the thermodynamic records of ``run(n, log_period=k)``: a dict
+        #: of numpy arrays (``LOG_KEYS`` and ``step``), accumulated across
+        #: runs; ``None`` until a run logged
+        self.log = None
 
     # ------------------------------------------------------------------
     # state
@@ -268,6 +272,26 @@ class Simulation:
     def thermo(self):
         """Current thermodynamic quantities (dict of host floats)."""
         return {k: float(v) for k, v in _thermo.thermo(self.state).items()}
+
+    def _label_forces(self, subset=None):
+        """The sum of the built-in forces (or of ``subset``) at the current
+        state: ``[N, 4]`` in particle order, energy in column 4 (the
+        staged label forces ``tfcompute.get_forces_array`` returns in
+        training mode)."""
+        forces = list(self.forces if subset is None else subset)
+        state = self.state
+        f = torch.zeros_like(state.forces)
+        if self._use_cellwise():
+            layout = self._ensure_layout()
+            st, aux = layout.pack(state)
+            with torch.no_grad():
+                fs, _ = self._builtins(st, aux, layout, True, False, forces)
+            return f if fs is None else layout.to_particles(fs, aux)
+        nlist = self._build_nlist(state)
+        with torch.no_grad():
+            for force in forces:
+                f = f + force(state, nlist)[0]
+        return f
 
     def replan(self):
         """Re-derive the cellwise plan from the current state at the next
@@ -617,23 +641,43 @@ class Simulation:
                 w = wi if w is None else w + wi
         return f, w
 
+    def _model_eval(self, st, aux, layout, route, needs_energy,
+                    want_virial, capture=True):
+        """The attached model's forces and virial on slot state (outside
+        training; ``(None, None)`` for a model that gives no forces). Its
+        outputs go to the driver's capture, unless ``capture`` is False:
+        the run's closing evaluation is no model call of the JAX
+        package's."""
+        if route.model_fn is not None:
+            return self._pair_eval(
+                st, aux, layout, route.model_fn, route.model_form,
+                needs_energy, bool(want_virial and self.tfc.model.virial),
+                route.with_types, route.min_r2)
+        if route.planes:
+            return self._planes_eval(st, aux, layout, want_virial, capture)
+        return None, None
+
+    def _carry_model(self, st, aux, layout, route):
+        """An evaluation step of a ``period`` > 1 run: the model's forces
+        (with their energy, as the JAX package's gated step computes
+        them) and, when the run reads one, its virial go into ``aux``
+        (``'mf'``, ``'mw'``), where they stand until the next evaluation
+        and follow their particles through each repack."""
+        fm, wm = self._model_eval(st, aux, layout, route, True,
+                                  route.carry_virial)
+        return {**aux, "mf": fm, "mw": wm if route.carry_virial else None}
+
     def _forces(self, st, aux, layout, route, needs_energy, want_virial,
                 capture=True):
         """The forces that drive the dynamics: the built-ins plus, outside
-        training, the attached model (whose outputs go to the driver's
-        capture, unless ``capture`` is False: the run's closing
-        evaluation is no model call of the JAX package's)."""
+        training, the attached model's (with ``period`` > 1 the carried
+        ones)."""
         f, w = self._builtins(st, aux, layout, needs_energy, want_virial)
-        fm = wm = None
-        if route.model_fn is not None:
-            m = self.tfc.model
-            fm, wm = self._pair_eval(
-                st, aux, layout, route.model_fn, route.model_form,
-                needs_energy, bool(want_virial and m.virial),
-                route.with_types, route.min_r2)
-        elif route.planes:
-            fm, wm = self._planes_eval(st, aux, layout, want_virial,
-                                       capture)
+        if route.model_period > 1:
+            fm, wm = aux["mf"], aux.get("mw")
+        else:
+            fm, wm = self._model_eval(st, aux, layout, route, needs_energy,
+                                      want_virial, capture)
         if fm is not None:
             f = fm if f is None else f + fm
             if wm is not None:
@@ -649,10 +693,14 @@ class Simulation:
         tfc = self.tfc
         model = tfc.model if tfc is not None else None
         r = _Route()
-        r.virial_in_loop = bool((model is not None and model.virial) or
-                                getattr(self.integrator, "needs_virial",
+        # the step loop reads the virial only for a barostat (and on a
+        # logged step); the run's closing evaluation computes it whenever
+        # the state's virial has a source: a model that declares one, or a
+        # built-in force
+        r.virial_in_loop = bool(getattr(self.integrator, "needs_virial",
                                         False))
-        r.needs_virial = r.virial_in_loop or bool(self.forces)
+        r.needs_virial = bool(r.virial_in_loop or self.forces or
+                              (model is not None and model.virial))
         if model is None:
             return r
         if tfc.train:
@@ -688,6 +736,8 @@ class Simulation:
                 self._form
         if isinstance(model, PairModel):
             r.with_types, r.min_r2 = model.pair_with_types, model.min_r2
+        if r.model_fn is not None or r.planes:
+            r.model_period = tfc.period
         return r
 
     def _probe_lane_fast(self, layout, st, aux):
@@ -716,11 +766,18 @@ class Simulation:
         if stencil == "auto":
             stencil = "kernel" if self.device.type == "cuda" else "full"
         report = {}
-        ok = validate_pair_fn(
-            model, synthesize_pair_fn(model, st.box), st, aux, layout,
-            stencil, lanes=self._lanes,
-            lane_chunk=_PROBE_LANES if self.device.type == "cuda" else None,
-            on_eval=self._count_eval, report=report)
+        # the validation's model calls are no model calls of a run: what
+        # they update (a metric's count) is restored
+        snap = StateSnapshot(model)
+        try:
+            ok = validate_pair_fn(
+                model, synthesize_pair_fn(model, st.box), st, aux, layout,
+                stencil, lanes=self._lanes,
+                lane_chunk=(_PROBE_LANES if self.device.type == "cuda"
+                            else None),
+                on_eval=self._count_eval, report=report)
+        finally:
+            snap.restore()
         tfc._lane_fast_ok = ok
         tfc._lane_fast_report = report
         tfc._lane_fast_cache = (key, ok)
@@ -730,11 +787,15 @@ class Simulation:
             self._replan_check_step = -1
             layout._replan_throttle = 500
         return ok
-    def _step(self, st, aux, flags, layout, route, i):
+    def _step(self, st, aux, flags, layout, route, i, log=None):
         """One MD step on slot state (slim: no energy column, and no
-        virial unless something in the loop reads it). Returns the state,
-        the layout's ``aux`` and the flags."""
+        virial unless something in the loop reads it; a step ``log``
+        records takes both, K1's ``<energy, virial>`` variant, chosen on
+        the host). Returns the state, the layout's ``aux`` and the
+        flags."""
         integ, dt = self.integrator, self.dt
+        log_now = log is not None and log.due(st.step)
+        want_w = route.virial_in_loop or log_now
         st = integ.pre_force(st, dt)
         # ghost pins stay unconditional, as in the JAX engine
         st = layout.ghost_pin(st, aux)
@@ -750,8 +811,8 @@ class Simulation:
         if tr is not None:
             # one built-in evaluation: the labels and the driving forces;
             # the model trains every `period` steps (st.step is a host int)
-            f4, w = self._builtins(st, aux, layout, tr.energy,
-                                   route.virial_in_loop)
+            f4, w = self._builtins(st, aux, layout, tr.energy or log_now,
+                                   want_w)
             if st.step % self.tfc.period == 0:
                 labels = f4
                 if route.label_subset is not None:
@@ -759,49 +820,58 @@ class Simulation:
                                                False, route.label_subset)
                 tr.step(st, aux, layout, labels, i)
         else:
-            f4, w = self._forces(st, aux, layout, route, False,
-                                 route.virial_in_loop)
+            if route.model_period > 1 and st.step % route.model_period == 0:
+                aux = self._carry_model(st, aux, layout, route)
+            f4, w = self._forces(st, aux, layout, route, log_now, want_w)
         st.forces = f4
-        if route.virial_in_loop and w is not None:
-            st.virial = w
+        if want_w:
+            st.virial = torch.zeros_like(st.virial) if w is None else w
         st = integ.post_force(st, dt)
         st = layout.ghost_pin(st, aux)
+        if log_now:
+            log.record(st, aux["valid"])
         st.step += 1
         return st, aux, flags | (stale.to(torch.int32) << 1)
 
-    def _fetch_run_scalars(self, flags, aux, losses=None, box=None):
+    def _fetch_run_scalars(self, flags, aux, losses=None, box=None,
+                           log=None):
         """The one packed device->host readback of a run(): flags, running
         max occupancy, running max speed, the most lanes K1's generic-form
-        list needed, the final box when a barostat changed it, and the
-        per-step training losses (the floats bitcast into the int
-        lanes). Returns ``(flags, occ, vmax, lanes, box or None,
-        losses)``."""
-        parts = [flags.to(torch.int32).reshape(1),
-                 aux["occ_max"].to(torch.int32).reshape(1),
-                 aux["vmax"].to(torch.float32).reshape(1).view(torch.int32),
-                 self._lanes.needed.to(torch.int32).reshape(1)]
-        nb = 0
-        if box is not None:
-            parts.append(box.to(torch.float32).reshape(9).view(torch.int32))
-            nb = 9
-        if losses is not None:
-            parts.append(losses.to(torch.float32).view(torch.int32))
-        packed = torch.cat(parts).cpu().numpy()
-        box_now = (packed[4:4 + nb].view(np.float32).astype(np.float64)
-                   .reshape(3, 3) if nb else None)
-        return (int(packed[0]), int(packed[1]),
-                float(packed[2:3].view(np.float32)[0]), int(packed[3]),
-                box_now, packed[4 + nb:].view(np.float32))
+        list needed, the final box when a barostat changed it, the
+        per-step training losses and the thermodynamic records (the
+        floats bitcast into the int lanes). Returns ``(flags, occ, vmax,
+        lanes, box or None, losses, log records [rows, 4])``."""
+        ints = [flags.to(torch.int32).reshape(1),
+                aux["occ_max"].to(torch.int32).reshape(1),
+                aux["vmax"].to(torch.float32).reshape(1).view(torch.int32),
+                self._lanes.needed.to(torch.int32).reshape(1)]
+        head, box_f, losses_f, log_f = _readback(
+            ints, box, losses, None if log is None else log.buf)
+        box_now = (None if box_f is None else
+                   box_f.astype(np.float64).reshape(3, 3))
+        return (int(head[0]), int(head[1]),
+                float(head[2:3].view(np.float32)[0]), int(head[3]),
+                box_now, losses_f, log_f)
 
     # ------------------------------------------------------------------
-    def run(self, n):
+    def run(self, n, log_period=None):
         """Advance the simulation ``n`` steps.
 
         Self-healing: a capacity overflow rolls the segment back (nothing
-        of the attempt is committed: state, model weights and optimizer
-        state) and replans with a raised capacity floor; a staleness bit
-        (a particle outran skin/2 between two scheduled repacks) rolls
-        back and shortens the repack interval.
+        of the attempt is committed: state, every model variable,
+        optimizer state, outputs and log records) and replans with a
+        raised capacity floor; a staleness bit (a particle outran skin/2
+        between two scheduled repacks) rolls back and shortens the
+        repack interval.
+
+        :param log_period: if set, record the kinetic and potential
+            energy, temperature and pressure at each step whose number is
+            a multiple of it (taken after the step's forces and second
+            half-kick, before the step count rises) into :attr:`log`, a
+            dict of numpy arrays with the step numbers under ``'step'``;
+            the records accumulate across runs (the analog of the
+            reference's hoomd ``analyze.log``). They ride the run's one
+            readback.
         """
         if self.state is None:
             raise RuntimeError("Initialize the simulation state first "
@@ -812,6 +882,8 @@ class Simulation:
         n = int(n)
         if n <= 0:
             return
+        if log_period is not None and int(log_period) < 1:
+            raise ValueError(f"log_period must be >= 1, got {log_period}")
         self._adopt(self.state)
         run_once = self._run_once if self._use_cellwise() \
             else self._run_packed
@@ -820,11 +892,12 @@ class Simulation:
             for attempt in range(5):
                 # a rolled-back attempt is re-run with the same noise
                 rng = self.generator.get_state()
-                if run_once(n, allow_retry=attempt < 4):
+                if run_once(n, allow_retry=attempt < 4,
+                            log_period=log_period):
                     return
                 self.generator.set_state(rng)
 
-    def _run_once(self, n, allow_retry):
+    def _run_once(self, n, allow_retry, log_period=None):
         layout = self._maybe_auto_replan(self._ensure_layout())
         if getattr(self, "_static_K_integ", None) != id(self.integrator):
             # a new integrator's regime must not inherit the old interval
@@ -844,15 +917,27 @@ class Simulation:
             st, aux = layout.pack(self.state)
         route = self._route(layout, st, aux)
         route.repack_each_step = K is None
+        log = (None if log_period is None else
+               _Log(log_period, self.state.step, n, self.device))
+        needs_virial = route.needs_virial or log is not None
+        tfc = self.tfc
+        if route.model_period > 1:
+            # the model's forces and virial of its last evaluation, carried
+            # from the last committed run (zeros at first), in slot order
+            route.carry_virial = bool(tfc.model.virial and needs_virial)
+            mf, mw = tfc.model_forces(self.state)
+            aux = {**aux, "mf": layout.to_slots(mf, aux),
+                   "mw": (layout.to_slots(mw, aux) if route.carry_virial
+                          else None)}
         tr = route.trainer
-        snap = None
+        # what a rollback restores: every model variable (weights, metrics,
+        # EDS state) and, under training, the optimizer's state
+        snap = (None if tfc is None else
+                StateSnapshot(tfc.model, None if tr is None else tr.opt))
         if tr is not None:
-            # the optimizer updates the weights in place: keep what a
-            # rollback restores, and a device buffer for the losses
-            snap = tr.snapshot()
             tr.begin(n)
-        if self.tfc is not None:
-            self.tfc.begin_outputs()
+        if tfc is not None:
+            tfc.begin_outputs()
         self._lanes.reset()
         start_step = self.state.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -863,30 +948,41 @@ class Simulation:
                 self.repacks += 1
                 for _ in range(n - done if K is None else min(K, n - done)):
                     st, aux, flags = self._step(st, aux, flags, layout,
-                                                route, done)
+                                                route, done, log)
                     done += 1
             flags = flags | aux["overflow"].to(torch.int32)
             if layout.dynamic_box:
                 flags = flags | layout.geometry_bad(st).to(torch.int32)
             # one full evaluation at the final positions: the slim loop
-            # skipped the energy column (and the virial when unused)
+            # skipped the energy column (and the virial when unused); a
+            # period > 1 run adds the model's carried forces. It is no
+            # model call of the JAX package's: what the model updates in
+            # it (a metric) is restored
+            final = (StateSnapshot(tfc.model) if route.model_period == 1
+                     and (route.model_fn is not None or route.planes)
+                     else None)
             f4, w = self._forces(st, aux, layout, route, True,
-                                 route.needs_virial, capture=False)
+                                 needs_virial, capture=False)
+            if final is not None:
+                final.restore()
             st.forces = f4
-            if route.needs_virial and w is not None:
-                st.virial = w
+            if needs_virial:
+                st.virial = torch.zeros_like(st.virial) if w is None else w
             # bit 3: K1's generic-form list was too short in some call
             flags = flags | (self._lanes.overflow().to(torch.int32) << 3)
-        flags_now, occ_now, vmax_now, lanes_now, box_now, losses = \
+        flags_now, occ_now, vmax_now, lanes_now, box_now, losses, log_vals = \
             self._fetch_run_scalars(
                 flags, aux, None if tr is None else tr.losses,
-                st.box if layout.dynamic_box else None)
+                st.box if layout.dynamic_box else None, log)
         if tr is not None:
             losses = losses[tr.trained]
         overflow, stale = bool(flags_now & 1), bool(flags_now & 2)
         short = bool(flags_now & 8)
-        if short and tr is not None:
-            tr.restore(snap)
+        if (short or overflow or stale) and snap is not None:
+            # a failed attempt commits nothing of the model, retried or
+            # not (the JAX package commits model values only after a
+            # clean run)
+            snap.restore()
         if short:
             # forces of the cells that did not fit were left out: roll
             # back and re-run with a list sized from what was needed
@@ -900,10 +996,6 @@ class Simulation:
                 return False
             raise RuntimeError("the pair list of K1's generic form stayed "
                                "too short over the run's retries")
-        if (overflow or stale) and tr is not None:
-            # a failed attempt commits no training, retried or not (the
-            # JAX package commits model values only after a clean run)
-            tr.restore(snap)
         if overflow and layout.dynamic_box:
             # under a barostat the grid cannot grow with the box: the run
             # is rolled back (self.state still holds its start) and raises
@@ -935,15 +1027,15 @@ class Simulation:
                 f"(interval {K}); re-running these {n} steps with "
                 f"interval {self._static_K_cap}")
             return False
-        if not overflow and not stale and \
-                getattr(self, "_static_K_cap", None):
+        clean = not (overflow or stale)
+        if clean and getattr(self, "_static_K_cap", None):
             self._static_K_clean = getattr(self, "_static_K_clean", 0) + 1
             if self._static_K_clean >= 2 and n >= 200:
                 self._static_K_cap = min(
                     [g for g in self._K_GRID if g > self._static_K_cap],
                     default=self._static_K_cap)
                 self._static_K_clean = 0
-        if not overflow and not stale:
+        if clean:
             # the next run's generic-form list, from this run's need
             self._lanes.fit(lanes_now)
             # running max occupancy and speed of committed runs, windowed
@@ -968,11 +1060,6 @@ class Simulation:
             self._note_box(self.state.box, box_now)
         self._vmax_cache = (self.state, vmax_now)
         self._packed = (self.state, layout, (st, aux))
-        if tr is not None and not overflow and not stale:
-            # a failed attempt's losses belong to training it rolled back
-            self.tfc.loss_history.extend(losses.tolist())
-        if self.tfc is not None and not overflow and not stale:
-            self.tfc.commit_outputs()
         if overflow:
             raise ValueError(
                 "Cell capacity exceeded during the run (a cell held more "
@@ -982,8 +1069,30 @@ class Simulation:
                 f"A particle moved more than skin/2 between two scheduled "
                 f"neighbor rebuilds even at repack interval {K} -- the "
                 f"integration is likely diverging (dt={self.dt}).")
+        if route.model_period > 1:
+            mw = aux.get("mw")
+            tfc.keep_model_forces(
+                layout.to_particles(aux["mf"], aux),
+                torch.zeros_like(self.state.virial) if mw is None else
+                layout.to_particles(mw, aux))
+        if tr is not None:
+            # a failed attempt's losses belong to training it rolled back
+            tfc.loss_history.extend(losses.tolist())
+        if tfc is not None:
+            tfc.commit_outputs()
+        self._commit_log(log, log_vals)
         return True
 
+    def _commit_log(self, log, values):
+        """A committed run's thermodynamic records join :attr:`log`."""
+        if log is None or not len(log.steps):
+            return
+        values = values.reshape(len(log.steps), len(_thermo.LOG_KEYS))
+        entry = {k: values[:, j].copy()
+                 for j, k in enumerate(_thermo.LOG_KEYS)}
+        entry["step"] = log.steps
+        self.log = entry if self.log is None else {
+            k: np.concatenate([self.log[k], entry[k]]) for k in entry}
 
     # ------------------------------------------------------------------
     # the particle-order route (packed neighbor list)
@@ -1158,7 +1267,8 @@ class Simulation:
         tr.trained.append(i)
         tfc.capture(*extras)
 
-    def _packed_step(self, st, flags, build, needs_virial, i, carry, tr):
+    def _packed_step(self, st, flags, build, needs_virial, i, carry, tr,
+                     log=None):
         integ, dt = self.integrator, self.dt
         st = integ.pre_force(st, dt)
         n = st.n_particles
@@ -1195,24 +1305,28 @@ class Simulation:
         if needs_virial:
             st.virial = w
         st = integ.post_force(st, dt)
+        if log is not None and log.due(st.step):
+            log.record(st)
         st.step += 1
         if cell_overflow is not None:
             flags = flags | cell_overflow.to(torch.int32)
         return st, flags
 
-    def _run_packed(self, n, allow_retry):
+    def _run_packed(self, n, allow_retry, log_period=None):
         """One attempt at :meth:`run` on the particle-order route; returns
         False to ask for a retry after a capacity-overflow rollback (which
-        also rolls back training: weights and optimizer state).
-        Flags: bit 0 cell overflow, bit 2 the model's full-list flag."""
+        also rolls back every model variable and, under training, the
+        optimizer's state). Flags: bit 0 cell overflow, bit 2 the model's
+        full-list flag."""
         tfc = self.tfc
         model = tfc.model if tfc is not None else None
         build = self._packed_build()
-        needs_virial = bool(self.forces or
+        log = (None if log_period is None else
+               _Log(log_period, self.state.step, n, self.device))
+        needs_virial = bool(self.forces or log is not None or
                             getattr(self.integrator, "needs_virial", False) or
                             (model is not None and model.virial))
         check = model is not None and model.check_nlist
-        full0 = model.nlist_overflow.clone() if check else None
         for force in self.forces:
             force.prepare(self.state.positions)
         tr = snap = None
@@ -1224,8 +1338,10 @@ class Simulation:
                         "built-in force first (sim.add_force(md."
                         "LennardJones(...)))")
                 tr = _TrainState(self)
-                snap = tr.snapshot()
                 tr.begin(n)
+            # what a rollback restores: every model variable and, under
+            # training, the optimizer's state
+            snap = StateSnapshot(model, None if tr is None else tr.opt)
             tfc.begin_outputs()
         carry = list(tfc.model_forces(self.state)) if tfc is not None \
             else None
@@ -1235,31 +1351,25 @@ class Simulation:
         with _sync_guard(self.check_syncs), torch.no_grad():
             for i in range(n):
                 st, flags = self._packed_step(st, flags, build, needs_virial,
-                                              i, carry, tr)
+                                              i, carry, tr, log)
             if check:
                 flags = flags | (model.nlist_overflow.to(torch.int32) << 2)
-        parts = [flags.to(torch.int32).reshape(1)]
-        nb = 9 if self._changes_box() else 0
-        if nb:
-            # the barostat's final box, known on the host for the next run
-            parts.append(st.box.to(torch.float32).reshape(9)
-                         .view(torch.int32))
-        if tr is not None:
-            parts.append(tr.losses.to(torch.float32).view(torch.int32))
-        packed = torch.cat(parts).cpu().numpy()
-        box_now = packed[1:1 + nb].view(np.float32).astype(np.float64)
-        packed = np.concatenate([packed[:1], packed[1 + nb:]])
-        flags_now = int(packed[0])
+        # the one readback: flags, the barostat's final box (known on the
+        # host for the next run), the losses and the log records
+        head, box_now, losses, log_vals = _readback(
+            [flags.to(torch.int32).reshape(1)],
+            st.box if self._changes_box() else None,
+            None if tr is None else tr.losses,
+            None if log is None else log.buf)
+        flags_now = int(head[0])
         overflow = bool(flags_now & 1)
-        if overflow and tr is not None:
-            tr.restore(snap)
+        if overflow and snap is not None:
+            snap.restore()
         if overflow and allow_retry and self.auto_replan and \
                 build is not None and build.plan is not None:
             # roll back (self.state still holds the attempt's start) and
             # re-plan with a larger capacity floor, as HOOMD's cell list
             # resizes itself
-            if check:
-                model.nlist_overflow.copy_(full0)
             cap = build.plan[1]
             self._cl_capacity_floor = max(
                 getattr(self, "_cl_capacity_floor", 0),
@@ -1272,8 +1382,8 @@ class Simulation:
             return False
         st.step = start_step + n
         self.state = st
-        if nb:
-            self._note_box(st.box, box_now.reshape(3, 3))
+        if box_now is not None:
+            self._note_box(st.box, box_now.astype(np.float64).reshape(3, 3))
         self._packed = None
         self._vmax_cache = None
         if overflow:
@@ -1285,9 +1395,9 @@ class Simulation:
             if not tfc.train:
                 tfc.keep_model_forces(*carry)
             if tr is not None:
-                losses = packed[1:].view(np.float32)[tr.trained]
-                tfc.loss_history.extend(losses.tolist())
+                tfc.loss_history.extend(losses[tr.trained].tolist())
             tfc.commit_outputs()
+        self._commit_log(log, log_vals)
         if flags_now & 4:
             tfc.check_overflow(full=True)
         return True
@@ -1295,6 +1405,51 @@ class Simulation:
 
 def _is_cellwise(method):
     return method == "cellwise" or isinstance(method, _cw.Cellwise)
+
+
+def _readback(ints, *floats):
+    """One device->host copy of the int32 scalars ``ints`` and the float
+    tensors ``floats`` (bitcast into int32 lanes; ``None`` entries skipped).
+    Returns the ints as a numpy int32 array, then each float tensor as a
+    flat numpy float32 array (``None`` where it was ``None``)."""
+    parts = list(ints)
+    for t in floats:
+        if t is not None:
+            parts.append(t.to(torch.float32).reshape(-1).view(torch.int32))
+    packed = torch.cat(parts).cpu().numpy()
+    k = sum(int(t.numel()) for t in ints)
+    out = [packed[:k]]
+    for t in floats:
+        if t is None:
+            out.append(None)
+            continue
+        m = int(t.numel())
+        out.append(packed[k:k + m].view(np.float32))
+        k += m
+    return out
+
+
+class _Log:
+    """The thermodynamic records of one run attempt (``run(n,
+    log_period=)``): a ``[rows, 4]`` float32 device buffer, one row per
+    step whose number is a multiple of ``period``, written in the step
+    loop (the row and the step are host ints) and read back with the
+    run's one readback."""
+
+    def __init__(self, period, start, n, device):
+        self.period = int(period)
+        steps = np.arange(start, start + n)
+        self.steps = steps[steps % self.period == 0]
+        self.buf = torch.zeros((len(self.steps), len(_thermo.LOG_KEYS)),
+                               dtype=torch.float32, device=device)
+        self.row = 0
+
+    def due(self, step):
+        return step % self.period == 0
+
+    def record(self, st, valid=None):
+        self.buf[self.row] = _thermo.log_row(st, valid)
+        self.row += 1
 
 
 @contextlib.contextmanager
@@ -1321,6 +1476,10 @@ class _Route:
     with_types = False
     min_r2 = 1e-4
     planes = False
+    #: the model's evaluation period outside training (1: every step)
+    model_period = 1
+    #: a period > 1 run carries the model's virial too
+    carry_virial = False
     trainer = None
     label_subset = None
     virial_in_loop = False
@@ -1357,9 +1516,11 @@ def _module_pair_apply(model, fn):
 
 class _TrainState:
     """What every training route keeps: the model's optimizer and
-    trainable weights, the run's loss buffer, and the device snapshot a
-    rolled-back run restores. The particle-order route trains with it
-    alone (its steps are :meth:`Simulation._packed_train`)."""
+    trainable weights and the run's loss buffer (a rolled-back run
+    restores the optimizer with the model's variables,
+    :class:`..models.module.StateSnapshot`). The particle-order route
+    trains with it alone (its steps are
+    :meth:`Simulation._packed_train`)."""
 
     def __init__(self, sim):
         tfc = sim.tfc
@@ -1374,18 +1535,6 @@ class _TrainState:
         self.losses = torch.zeros((n,), dtype=torch.float32,
                                   device=self.sim.device)
         self.trained = []
-
-    def snapshot(self):
-        """Device copies of the model's weights (all of them: a model may
-        update its buffers too) and the optimizer's state."""
-        return ([v.detach().clone() for v in self.model.variables],
-                copy.deepcopy(self.opt.state_dict()))
-
-    def restore(self, snap):
-        with torch.no_grad():
-            for v, w in zip(self.model.variables, snap[0]):
-                v.copy_(w)
-        self.opt.load_state_dict(copy.deepcopy(snap[1]))
 
 
 class _Trainer(_TrainState):

@@ -131,17 +131,26 @@ class SlotLayout:
                "vmax": self._vmax(velocities)}
         return slot_state, aux
 
+    def to_particles(self, vals, aux):
+        """Rows of slot order -> particle order. Ghost rows scatter into
+        one dump row past the end, which is sliced off."""
+        out = torch.zeros((self.n + 1,) + tuple(vals.shape[1:]),
+                          dtype=vals.dtype, device=vals.device)
+        out.index_copy_(0, aux["orig"].long(), vals)
+        return out[:self.n]
+
+    def to_slots(self, vals, aux):
+        """Rows of particle order -> slot order, zero on ghost rows."""
+        orig = aux["orig"].long()
+        got = vals[torch.clamp_max(orig, self.n - 1)]
+        has = (orig < self.n).reshape((-1,) + (1,) * (vals.ndim - 1))
+        return torch.where(has, got, torch.zeros_like(got))
+
     def unpack(self, slot_state, aux):
         """Slot-order state -> particle-order ``SimState`` (original
-        indexing restored, the layout's ``dof`` key removed). Ghost rows
-        scatter into one dump row past the end, which is sliced off."""
-        orig = aux["orig"].long()
-
+        indexing restored, the layout's ``dof`` key removed)."""
         def back(vals):
-            out = torch.zeros((self.n + 1,) + tuple(vals.shape[1:]),
-                              dtype=vals.dtype, device=vals.device)
-            out.index_copy_(0, orig, vals)
-            return out[:self.n]
+            return self.to_particles(vals, aux)
 
         thermostat = dict(slot_state.thermostat or {})
         thermostat.pop("dof", None)
@@ -189,16 +198,20 @@ class SlotLayout:
         column; int32 columns ride bitcast as float32 (exact). Unlike the
         JAX package, the forces and virial move with their particles: the
         first half-kick after a repack reads them (see ROADMAP.md Queue
-        3 on the reference's unpermuted forces)."""
+        3 on the reference's unpermuted forces). So do the model forces
+        and virial a ``period`` > 1 run carries between evaluations
+        (``aux['mf']``, ``aux['mw']``, when present)."""
         n_slots = self.plan.n_slots
         st = slot_state
         src, overflow, occ = self._repack(st, aux["valid"])
         has = src < n_slots
+        carried = [k for k in ("mf", "mw") if aux.get(k) is not None]
         blk = torch.cat([
             st.positions, st.velocities,
             aux["orig"].view(torch.float32)[:, None], st.masses[:, None],
             st.types.view(torch.float32)[:, None],
-            st.forces, st.virial.reshape(-1, 9)], dim=1)
+            st.forces, st.virial.reshape(-1, 9)] +
+            [aux[k].reshape(n_slots, -1) for k in carried], dim=1)
         g = blk[torch.clamp(src, 0, n_slots - 1).long()]
         h = has[:, None]
         positions = torch.where(h, g[:, 0:3], self.centers(st))
@@ -219,6 +232,12 @@ class SlotLayout:
                    "overflow": aux["overflow"] | overflow,
                    "occ_max": torch.maximum(aux["occ_max"], occ),
                    "vmax": torch.maximum(aux["vmax"], vm)}
+        col = 22
+        for k in carried:
+            w = aux[k][0].numel()
+            new_aux[k] = torch.where(h, g[:, col:col + w], 0.0).reshape(
+                aux[k].shape)
+            col += w
         return new_state, new_aux
 
     # ------------------------------------------------------------------

@@ -8,6 +8,10 @@ from ..ops.box import box_size
 __all__ = ["kinetic_energy", "temperature", "potential_energy", "pressure",
            "thermo"]
 
+#: the quantities ``Simulation.run(log_period=)`` records, in the order of
+#: :func:`log_row`
+LOG_KEYS = ("kinetic_energy", "potential_energy", "temperature", "pressure")
+
 
 def kinetic_energy(state):
     return 0.5 * torch.sum(state.masses[:, None] * state.velocities ** 2)
@@ -43,3 +47,21 @@ def thermo(state):
         "temperature": temperature(state),
         "pressure": pressure(state),
     }
+
+
+def log_row(state, valid=None):
+    """The :data:`LOG_KEYS` quantities of ``state`` as one float32 ``[4]``
+    device tensor (nothing is read back); ``valid`` (``[n_slots]``, slot
+    order) leaves the ghost rows out of every sum."""
+    v, f, w = state.velocities, state.forces, state.virial
+    if valid is not None:
+        v, f = v * valid[:, None], f * valid[:, None]
+        w = w * valid[:, None, None]
+    ke = 0.5 * torch.sum(state.masses[:, None] * v ** 2)
+    dof = (state.thermostat or {}).get("dof")
+    if dof is None:
+        dof = 3 * state.n_particles - 3
+    vol = torch.prod(box_size(state.box))
+    w = torch.sum(torch.diagonal(w, dim1=-2, dim2=-1))
+    return torch.stack([ke, torch.sum(f[:, 3]), 2.0 * ke / dof,
+                        (2.0 * ke + w) / (3.0 * vol)]).to(torch.float32)

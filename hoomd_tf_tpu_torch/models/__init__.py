@@ -1,10 +1,16 @@
 """Models of the PyTorch port."""
 
-from .module import Variable
+from .module import (Variable, Layer, Mean, MeanTensor, get_state, set_state,
+                     functional_call)
 from .simmodel import SimModel
 from .pair import PairModel
-from .layers import Dense, RBFExpansion
+from .layers import RBFExpansion, WCARepulsion, EDSLayer, Dense
 from .potentials import LJPotential, TrainableLJ, NeuralPairPotential
 
-__all__ = ["Variable", "SimModel", "PairModel", "Dense", "RBFExpansion",
-           "LJPotential", "TrainableLJ", "NeuralPairPotential"]
+__all__ = [
+    "Variable", "Layer", "Mean", "MeanTensor", "get_state", "set_state",
+    "functional_call",
+    "SimModel", "PairModel",
+    "RBFExpansion", "WCARepulsion", "EDSLayer", "Dense",
+    "LJPotential", "TrainableLJ", "NeuralPairPotential",
+]

@@ -1,13 +1,16 @@
-"""Layers of the PyTorch port (``Dense`` and ``RBFExpansion`` from
-``hoomd_tf_tpu/models/layers.py``; ``WCARepulsion`` and ``EDSLayer`` are
-still to be ported, ROADMAP.md Queue 1 item 4)."""
+"""Layers of the PyTorch port (PyTorch port of
+``hoomd_tf_tpu/models/layers.py``): ``Dense``, ``RBFExpansion``, the
+trainable ``WCARepulsion`` and the experiment-directed-simulation
+``EDSLayer``."""
 
 import numpy as np
 import torch
 
-from .module import Layer
+from .module import Layer, Variable
+from ..ops.direct import NlistPlanes
+from ..ops.numerics import divide_no_nan, nlist_rinv
 
-__all__ = ["Dense", "RBFExpansion"]
+__all__ = ["Dense", "RBFExpansion", "WCARepulsion", "EDSLayer"]
 
 # deterministic per-process init stream for layers given no generator
 _INIT_GENERATOR = torch.Generator().manual_seed(0)
@@ -100,3 +103,138 @@ class RBFExpansion(Layer):
     def forward(self, inputs):
         return torch.exp(-(inputs[..., None] - self.centers) ** 2 /
                          self.gap)
+
+
+class WCARepulsion(Layer):
+    r"""Trainable Weeks-Chandler-Anderson repulsion (reference
+    ``layers.py:52-98``): the per-pair energy ``[N, NN]``
+
+    .. math::
+        U(r) = (\sigma/r)^6 \;\; \text{for } r < 2^{1/3}\sigma,\;
+        \text{else } 0,
+
+    clipped to ``[0, 10]``, with a trainable :math:`\sigma`
+    (``self.sigma``, a :class:`.module.Variable`) whose regularizer
+    ``-regularization_strength * sigma`` pushes it toward larger
+    distances. The cut is :math:`2^{1/3}\sigma`, the JAX package's and
+    the reference's, not the physical :math:`2^{1/6}\sigma` of the
+    built-in ``md.WCA``.
+    """
+
+    def __init__(self, sigma, regularization_strength=1e-3,
+                 name="wca-repulsion"):
+        super().__init__(name=name)
+        self.sigma = Variable(float(sigma), name="sigma",
+                              regularizer=lambda x: -regularization_strength
+                              * x)
+
+    def get_config(self):
+        return {"sigma": float(self.sigma.value)}
+
+    def forward(self, nlist):
+        rinv = nlist_rinv(nlist)
+        true_sig = self.sigma.value
+        rp = (true_sig * rinv) ** 6
+        if isinstance(nlist, NlistPlanes):
+            r = torch.sqrt(nlist.r2())
+        else:
+            r = torch.linalg.norm(nlist[..., :3], dim=-1)
+        r_pair_energy = (r < true_sig * 2 ** (1 / 3)).to(rp.dtype) * rp
+        return torch.clamp(r_pair_energy, 0.0, 10.0)
+
+
+class EDSLayer(Layer):
+    r"""Experiment-directed-simulation coupling constant (reference
+    ``layers.py:101-195``).
+
+    Called on a collective variable at each model call: keeps Welford
+    running statistics of the CV and, every ``period`` calls, takes a
+    v1-Adam step on the coupling :math:`\alpha` so that the biased
+    simulation's mean CV moves to ``set_point``. Returns :math:`\alpha`
+    (``self.alpha.value``).
+
+    The state (``mean``, ``ssd``, the int32 call counter ``n``,
+    ``alpha``, ``adam_m``, ``adam_v``, the int32 ``adam_t``) is built on
+    the first call, with the CV's shape and device, as
+    :class:`.module.Variable` s. Every update is a mask applied on the
+    device (a select, as the JAX package's compiled step makes of its
+    masks), never a branch, so the step loop reads nothing back.
+    """
+
+    def __init__(self, set_point, period, learning_rate=1e-2, cv_scale=1.0,
+                 name="eds-layer", beta1=0.9, beta2=0.999, epsilon=1e-8,
+                 dtype=torch.float32):
+        sp = set_point.detach() if torch.is_tensor(set_point) else \
+            torch.as_tensor(np.asarray(set_point))
+        if not sp.is_floating_point():
+            raise ValueError("EDS only works with floats, not dtype " +
+                             str(sp.dtype).replace("torch.", ""))
+        if not torch.is_tensor(set_point):
+            # the JAX package's default float width
+            sp = sp.to(torch.float32)
+        super().__init__(name=name, dtype=sp.dtype)
+        self.register_buffer("set_point", sp.clone(), persistent=False)
+        self.period = int(period)
+        self.cv_scale = cv_scale
+        self.learning_rate = learning_rate
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self._stats_built = False
+
+    def get_config(self):
+        return {"set_point": self.set_point.cpu().numpy().tolist(),
+                "period": self.period, "cv_scale": self.cv_scale,
+                "learning_rate": self.learning_rate, "name": self.name}
+
+    def _build(self, shape, device):
+        def var(name, dtype=self.dtype, trainable=False, shape=shape):
+            return Variable(torch.zeros(shape, dtype=dtype, device=device),
+                            trainable=trainable, dtype=dtype, name=name)
+        self.mean = var("mean")
+        self.ssd = var("ssd")
+        self.n = var("n", torch.int32)
+        self.alpha = var("alpha", trainable=True)
+        # internal Adam state (tf.compat.v1 AdamOptimizer semantics)
+        self.adam_m = var("adam_m")
+        self.adam_v = var("adam_v")
+        self.adam_t = var("adam_t", torch.int32, shape=())
+        self._stats_built = True
+
+    def _adam_step(self, grad, apply_mask):
+        """Masked v1-Adam update on alpha: the state advances only where
+        ``apply_mask`` (the every-``period``-calls condition) holds."""
+        b1, b2, eps = self.beta1, self.beta2, self.epsilon
+        t = self.adam_t.value + torch.any(apply_mask).to(torch.int32)
+        m = b1 * self.adam_m.value + (1 - b1) * grad
+        v = b2 * self.adam_v.value + (1 - b2) * grad ** 2
+        tf_ = t.to(self.dtype)
+        lr_t = self.learning_rate * torch.sqrt(1 - b2 ** tf_) / \
+            (1 - b1 ** tf_)
+        new_alpha = self.alpha.value - lr_t * m / (torch.sqrt(v) + eps)
+        self.adam_t.assign(t)
+        self.adam_m.assign(torch.where(apply_mask, m, self.adam_m.value))
+        self.adam_v.assign(torch.where(apply_mask, v, self.adam_v.value))
+        self.alpha.assign(torch.where(apply_mask, new_alpha,
+                                      self.alpha.value))
+
+    def forward(self, cv):
+        cv = torch.as_tensor(cv).to(self.dtype)
+        if not self._stats_built:
+            self._build(cv.shape, cv.device)
+        half = self.period // 2
+        n = self.n.value
+        zero = torch.zeros((), dtype=self.dtype, device=cv.device)
+        reset = n != 0
+        self.mean.assign(torch.where(reset, self.mean.value, zero))
+        self.ssd.assign(torch.where(reset, self.ssd.value, zero))
+
+        delta = torch.where(n > half, cv - self.mean.value, zero)
+        self.mean.assign_add(divide_no_nan(delta, (n - half).to(self.dtype)))
+        self.ssd.assign_add(delta * (cv - self.mean.value))
+
+        apply_mask = n == self.period - 1
+        gradient = torch.where(
+            apply_mask, -2.0 * (self.mean.value - self.set_point) *
+            self.ssd.value / self.period / 2 / self.cv_scale, zero)
+        self._adam_step(gradient, apply_mask)
+        self.n.assign((n + 1) % self.period)
+        return self.alpha.value

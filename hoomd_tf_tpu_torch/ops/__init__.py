@@ -11,7 +11,7 @@ K2 (``pair_train_cuda``)."""
 
 from .box import (box_size, wrap_vector, make_box, box_from_lengths,
                   box_matrix)
-from .cellwise import Cellwise
+from .cellwise import Cellwise, CellwisePlan, plan_cellwise, cellwise_planes
 from .cell_list import CellList, cell_list_nlist
 from .direct import NlistPlanes, direct_cell_planes
 from .forces import compute_nlist_forces, compute_positions_forces
@@ -20,10 +20,16 @@ from .numerics import (divide_no_nan, masked_nlist, multiply_no_nan,
                        nlist_rinv, safe_norm)
 from .rdf import compute_rdf
 
-__all__ = ["box_size", "wrap_vector", "make_box", "box_from_lengths",
-           "box_matrix",
-           "Cellwise", "CellList", "cell_list_nlist",
-           "compute_nlist_forces", "compute_positions_forces",
-           "compute_nlist", "nlist_from_positions", "divide_no_nan",
-           "masked_nlist", "multiply_no_nan", "nlist_rinv", "safe_norm",
-           "NlistPlanes", "direct_cell_planes", "compute_rdf"]
+# the JAX package's names (box_matrix, the port's own, is importable but
+# not listed)
+__all__ = [
+    "box_size", "wrap_vector", "make_box", "box_from_lengths",
+    "safe_norm", "nlist_rinv", "masked_nlist", "divide_no_nan",
+    "multiply_no_nan",
+    "compute_nlist_forces", "compute_positions_forces",
+    "compute_nlist", "nlist_from_positions",
+    "CellList", "cell_list_nlist",
+    "NlistPlanes", "direct_cell_planes",
+    "Cellwise", "CellwisePlan", "plan_cellwise", "cellwise_planes",
+    "compute_rdf",
+]

@@ -1,6 +1,7 @@
 """Radial distribution function from a neighbor list (PyTorch port of
 ``hoomd_tf_tpu/ops/rdf.py``)."""
 
+import numpy as np
 import torch
 
 from .numerics import masked_nlist
@@ -31,9 +32,14 @@ def compute_rdf(nlist, r_range, type_tensor=None, nbins=100, type_i=None,
         r = torch.sqrt(nlist.r2())
     else:
         r = torch.linalg.norm(nlist[:, :, :3], dim=2)
-    r_range = torch.as_tensor(r_range, dtype=torch.float32, device=r.device)
-    lo, hi = r_range[0], r_range[1]
-    width = (hi - lo) / nbins
+    if torch.is_tensor(r_range):
+        r_range = r_range.to(dtype=torch.float32, device=r.device)
+        lo, hi = r_range[0], r_range[1]
+    else:
+        # float32 host scalars, so no copy to the device waits in a step
+        # loop; the arithmetic stays float32, as the JAX package's
+        lo, hi = (np.float32(v) for v in r_range)
+    width = (hi - lo) / np.float32(nbins)
     valid = (r > 0) & (r >= lo) & (r < hi)
     bin_idx = torch.clamp(((r - lo) / width).to(torch.int32), 0, nbins - 1)
     # invalid slots add 0.0, so their (clipped) bin index is harmless
@@ -42,7 +48,8 @@ def compute_rdf(nlist, r_range, type_tensor=None, nbins=100, type_i=None,
                     valid.reshape(-1).to(torch.float32))
     # jnp.linspace's arithmetic: lo (1 - f) + hi f, f = i / nbins
     f = torch.arange(nbins, dtype=torch.float32, device=r.device) / nbins
-    shell_rs = torch.cat([lo * (1.0 - f) + hi * f, hi[None]])
+    shell_rs = torch.cat([lo * (1.0 - f) + hi * f,
+                          torch.ones_like(f[:1]) * hi])
     vis_rs = (shell_rs[1:] + shell_rs[:-1]) * 0.5
     vols = shell_rs[1:] ** 3 - shell_rs[:-1] ** 3
     return hist / vols, vis_rs

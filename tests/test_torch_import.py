@@ -80,3 +80,46 @@ def test_chip_smoke_refuses_without_card_or_checkout(where, tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# The JAX package's public names the port does not export yet, each with
+# the ROADMAP.md Queue 1 item that brings it.
+_ITEM5 = ("MolSimModel",                                  # mapped CG models
+          "find_molecules", "find_molecules_from_topology",  # utils.cg
+          "matrix_mapping", "sparse_mapping", "center_of_mass",
+          "gen_mapped_exclusion_list", "gen_bonds_group",
+          "compute_ohe_bead_type_interactions",
+          "compute_adj_mat", "compute_cg_graph", "find_cgnode_id",  # graph
+          "mol_features_multiple",
+          "mol_bond_distance", "mol_angle", "mol_dihedral")  # mol_features
+_ITEM6 = ("iter_from_trajectory", "compute_pairwise", "create_frame",
+          "GSDFile", "GSDUniverse", "write_gsd_frames",
+          "save_model", "load_model", "custom_objects", "utils")
+_ITEM7 = ("parallel",)
+PENDING = {
+    "": {**{k: 5 for k in _ITEM5}, **{k: 6 for k in _ITEM6},
+         **{k: 7 for k in _ITEM7}},
+    "md": {},
+    "ops": {},
+    "models": {"MolSimModel": 5},
+}
+
+
+@pytest.mark.parametrize("space", ["", "md", "ops", "models"])
+def test_namespaces_match_jax(space):
+    """Each namespace's ``__all__`` is the JAX package's less the names
+    still to come (``PENDING``, by Queue 1 item), and every listed name
+    is there; no pending name is exported yet (the list stays true)."""
+    import importlib
+    jax_ns = importlib.import_module(
+        "hoomd_tf_tpu" + (f".{space}" if space else ""))
+    port_ns = importlib.import_module(
+        "hoomd_tf_tpu_torch" + (f".{space}" if space else ""))
+    pending = PENDING[space]
+    assert set(pending) <= set(jax_ns.__all__)
+    assert set(port_ns.__all__) == set(jax_ns.__all__) - set(pending)
+    assert len(port_ns.__all__) == len(set(port_ns.__all__))
+    for name in port_ns.__all__:
+        assert hasattr(port_ns, name), name
+    for name in pending:
+        assert not hasattr(port_ns, name), (name, pending[name])

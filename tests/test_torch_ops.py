@@ -15,13 +15,13 @@ import jax.numpy as jnp
 import hoomd_tf_tpu as htf
 import hoomd_tf_tpu_torch as htt
 from hoomd_tf_tpu_torch.md import state as tstate
-from hoomd_tf_tpu_torch.md import thermo as tthermo
 from hoomd_tf_tpu_torch.ops import box as tbox
 
 from torch_helpers import fluid_arrays, jax_state, np_, torch_state
 
-# the JAX md namespace exports a `thermo` function under the module's name
+# both md namespaces export a `thermo` function under the module's name
 jthermo = importlib.import_module("hoomd_tf_tpu.md.thermo")
+tthermo = importlib.import_module("hoomd_tf_tpu_torch.md.thermo")
 
 
 class TestBox:

@@ -199,12 +199,13 @@ class _TGeneric(htt.SimModel):
 @pytest.mark.parametrize("case", ["nlist", "train", "simmodel", "proxy"])
 def test_attach_rejects_unported(case):
     """What stays refused, each naming the part of the port that brings it
-    (or, for particle batching on the planes modes, refused as the JAX
-    package refuses it): mapped neighbor lists, for evaluation and for
-    training; ``batch_size`` with 'cellwise'; and ``period`` > 1 for a
-    model evaluated on 'cellwise'. (Training every model kind, with
-    ``period`` and ``batch_size`` on the packed routes, is ported:
-    tests/test_torch_train_{pair,generic,packed}.py.)"""
+    (or, for particle batching on the planes modes and a ``period`` below
+    1, refused as the JAX package refuses it): mapped neighbor lists, for
+    evaluation and for training; ``batch_size`` with 'cellwise'; and
+    ``period=0``. (Training every model kind, with ``period`` and
+    ``batch_size`` on the packed routes, is ported:
+    tests/test_torch_train_{pair,generic,packed}.py; so is ``period`` > 1
+    for a model evaluated on 'cellwise', tests/test_torch_period.py.)"""
     sim, _ = bench_like(n=256)
     if case in ("nlist", "train"):
         model = TLJ(64)
@@ -221,9 +222,11 @@ def test_attach_rejects_unported(case):
                                         train=True, batch_size=64)
     else:
         model = TLJ(64, proxy_degree=8)
-        with pytest.raises(NotImplementedError, match="period"):
+        with pytest.raises(ValueError, match="period"):
             htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
-                                        period=2)
+                                        period=0)
+        htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
+                                    period=2)
 
 
 def _nn():
