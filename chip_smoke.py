@@ -128,7 +128,34 @@ exits non-zero:
                EDSLayer(4.0, period=5, learning_rate=0.2) and Mean,
                save_output_period=10, run(1000), host syncs forbidden):
                (<cv> - 4)^2 < 0.8, 100 finite captures, device memory
-               flat over the run.
+               flat over the run;
+19. mapped   -- phase 4's fluid thermalized at kT 1.5, then
+               enable_mapped_nlist with center_of_mass through a
+               sparse_mapping operator over groups of 4 atoms (16,384
+               beads, 81,920 rows); reference example 02's model with LJ
+               (forces from the atoms' list, the beads' RDF into a
+               MeanTensor), NN 64, NVT(1.5, 0.5): on 'cell' (the sort
+               method) a timed run(200) logged every 10th step, host
+               syncs forbidden; beads at the mapping of the atoms
+               (1e-4), no force or velocity on them, no row lists the
+               other group, the engine T's mean over the mapped
+               trajectory's log in (1.1, 1.9), a non-empty RDF; then
+               'cellwise' (the planes route) from that state: its forces
+               after one step against 'cell' (rtol = atol = 5e-4),
+               run(99) logged every 10th step, the same gates, peak
+               memory;
+20. molsim   -- a MolSimModel of 16,384 four-atom molecules (tests/zoo.py's
+               LJMolModel) at 64k on the default build (cell list + K3):
+               its forces at the first state against the plain LJ
+               model's on the same list (1e-4), a timed run(200) with host
+               syncs forbidden, K3 launches equal to the model
+               evaluations, T in (1.1, 1.9), K3 against its plain
+               version at the final state;
+21. cg-tools -- reference examples 07 (peg2.pdb and its DSGPM map) and 09
+               (8 five-atom molecules) on the card with their own
+               assertions; iter_from_trajectory over 20 frames of a
+               4,096-atom LJ run, each frame's model forces against the
+               engine's 'n2' forces at those positions (1e-4).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -2375,6 +2402,462 @@ def phase_eds():
           f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phases 19-21: the coarse-grained workflow
+# ---------------------------------------------------------------------------
+
+GROUP = 4
+
+
+def com_mapping(n, device="cuda"):
+    """A mapping of groups of ``GROUP`` consecutive atoms to one bead of
+    type 0 each: ``center_of_mass`` through the ``sparse_mapping``
+    operator (made once on the card); returns ``(mapping, operator)``."""
+    import numpy as np
+    groups = [list(range(GROUP * i, GROUP * i + GROUP))
+              for i in range(n // GROUP)]
+    op = htt.sparse_mapping([np.ones((1, GROUP)) / GROUP] * len(groups),
+                            groups, device=device)
+
+    def mapping(pos4, box):
+        com = htt.center_of_mass(pos4, op, box)
+        return torch.cat([com, torch.zeros_like(com[:, :1])], dim=1)
+    return mapping, op
+
+
+def make_mapped_lj(nn=64):
+    """Reference example 02's structure (examples/02_mapped_cg_simulation.
+    py:19-40) with LJ (epsilon = sigma = 1) in place of its 1/r
+    repulsion: forces from the atom rows' list, the bead rows' RDF over
+    [0.5, 3.0] into a MeanTensor."""
+    class MappedLJ(htt.SimModel):
+        def setup(self):
+            self.avg_cg_rdf = htt.MeanTensor()
+
+        def compute(self, nlist, positions, box):
+            aa_nlist, cg_nlist = self.mapped_nlist(nlist)
+            aa_pos, cg_pos = self.mapped_positions(positions)
+            rdf, rs = htt.compute_rdf(cg_nlist, [0.5, 3.0], nbins=20)
+            self.avg_cg_rdf.update_state(rdf)
+            inv_r6 = htt.nlist_rinv(aa_nlist) ** 6
+            energy = torch.sum(4.0 / 2.0 * (inv_r6 * inv_r6 - inv_r6),
+                               dim=1)
+            return htt.compute_nlist_forces(aa_nlist, energy)
+    return MappedLJ(nn)
+
+
+def mapped_sim(state, nlist, seed=0, nn=64):
+    """A new simulation from ``state`` (atoms only), the beads appended by
+    enable_mapped_nlist, the mapped LJ attached on ``nlist``."""
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=seed, device="cuda")
+    sim.set_state(state)
+    tfc = htt.tfcompute(make_mapped_lj(nn))
+    mapping, op = com_mapping(N)
+    tfc.enable_mapped_nlist(sim, mapping)
+    tfc.attach(sim, r_cut=R_CUT, nlist=nlist)
+    return sim, tfc, op
+
+
+def mapped_gates(sim, tfc, op, label, log_t):
+    """Phase 19's gates on a mapped state: bead rows at the mapping of
+    the atom rows (1e-4 by minimum image), no force and no velocity on
+    them, the groups apart in the list's type channel, everything
+    finite, the engine's T averaged over ``log_t``, the logged T of the
+    mapped trajectory so far, in (1.1, 1.9), a non-empty RDF. The last
+    T is printed, not gated: the beads start at rest, so the thermostat
+    swings the engine's T (dof 3 (N + M) - 3) from 0.8 kT up past kT
+    and back over some 500 steps, and step 210 lies near that swing's
+    top (1.8149 and 1.8720 on 'cell' in PERF.md 6). Returns the
+    engine's last T and the atoms-only T."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    st = sim.state
+    L = box_size(st.box)
+    com = htt.center_of_mass(st.positions[:N], op, L)
+    d = st.positions[N:] - com
+    d = d - torch.round(d / L) * L
+    err = float(d.abs().max())
+    check(err <= 1e-4, f"{label}: bead rows are {err:.3e} from the "
+          "mapping of the atoms")
+    check(float(st.forces[N:].abs().max()) == 0.0,
+          f"{label}: force on a bead row")
+    check(float(st.velocities[N:].abs().max()) == 0.0,
+          f"{label}: velocity on a bead row")
+    for name in ("positions", "velocities", "forces"):
+        check(bool(torch.isfinite(getattr(st, name)).all()),
+              f"{label}: non-finite {name}")
+    with torch.no_grad():
+        nl = sim._build_nlist(st)
+        if isinstance(nl, htt.NlistPlanes):
+            listed, ty = nl.r2() > 0, nl.type
+        else:
+            listed, ty = (nl[..., :3] != 0).any(-1), nl[..., 3]
+    check(not bool((listed[:N] & (ty[:N] != 0)).any()),
+          f"{label}: an atom row lists a bead")
+    check(not bool((listed[N:] & (ty[N:] != 1)).any()),
+          f"{label}: a bead row lists an atom")
+    check(bool(listed[N:].any()), f"{label}: no bead row lists a bead")
+    full = "" if isinstance(nl, htt.NlistPlanes) else (
+        f", {int((listed.sum(1) == nl.shape[1]).sum())} rows with a full "
+        f"list (NN {nl.shape[1]})")
+    th = sim.thermo()
+    t_mean = float(log_t.mean())
+    check(bool(np.isfinite(log_t).all()) and 1.1 < t_mean < 1.9,
+          f"{label}: engine T over the trajectory's log {log_t}")
+    v = st.velocities[:N]
+    t_atoms = float((st.masses[:N, None] * v * v).sum()) / (3 * N - 3)
+    rdf = float(tfc.model.avg_cg_rdf.result().sum())
+    check(rdf > 0, f"{label}: the beads' RDF is empty")
+    print(f"  {label}: beads at the mapping of the atoms (max "
+          f"{err:.2e}, limit 1e-4), zero bead forces and velocities, no "
+          f"row lists the other group, finite; engine T (dof 3 (N + M) "
+          f"- 3) over the trajectory's {len(log_t)} logged steps mean "
+          f"{t_mean:.4f} (limits "
+          f"1.1-1.9), min {float(log_t.min()):.4f}, max "
+          f"{float(log_t.max()):.4f}, last {th['temperature']:.4f}; "
+          f"atoms-only T {t_atoms:.4f}; CG RDF sum {rdf:.4g}{full}")
+    return th["temperature"], t_atoms
+
+
+def phase_mapped(state):
+    """Phase 19: example 02's mapped CG model at 65,536 atoms + 16,384
+    beads, on 'cell' (the sort method: the synthesized matrix is a typed
+    cut) with a timed run(200), then on 'cellwise' (the planes route)
+    with run(100) and its forces against 'cell' after one step."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    base = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                          seed=19, device="cuda")
+    base.set_state(dataclasses.replace(state))
+    # thermalized before the mapping, so the beads start at rest
+    base.thermalize_velocities(1.5)
+    start = base.state
+    sim, tfc, op = mapped_sim(start, "cell")
+    check(sim.state.n_particles == N + N // GROUP,
+          f"{sim.state.n_particles} rows after enable_mapped_nlist")
+    rcm = tfc.r_cut_matrix
+    check(rcm is not None and rcm[0, 1] < 0 and rcm[1, 1] == R_CUT,
+          f"the synthesized matrix {rcm}")
+    check(sim._packed_build().method == "sort",
+          f"mapped 'cell' took {sim._packed_build().method!r}")
+    sim.check_syncs = True
+    sim.run(10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.run(200, log_period=10)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grid, cap = sim._packed_build().plan
+    t_cell = sim.log["temperature"]
+    mapped_gates(sim, tfc, op, "'cell'", t_cell)
+    print(f"  'cell' (sort method, plan {grid} cap {cap}): steps/s "
+          f"{200 / dt:.2f} (timed run(200), logged every 10th step, "
+          f"{N} atoms + {N // GROUP} "
+          f"beads, host syncs forbidden), peak memory {peak:.2f} GiB on "
+          f"{smi_line()} -- info, not a claim")
+
+    # 'cellwise' from the same state: one step against 'cell', then 99
+    mid = sim.state
+    atoms = dataclasses.replace(
+        mid, positions=mid.positions[:N], velocities=mid.velocities[:N],
+        types=mid.types[:N], masses=mid.masses[:N], forces=mid.forces[:N],
+        virial=mid.virial[:N], thermostat=dict(mid.thermostat))
+    # the beads' rows are rebuilt by enable_mapped_nlist (at rest, as
+    # here); the reference list holds every neighbor (NN 64 drops the
+    # farthest of the fullest rows, the planes none)
+    ref, _, _ = mapped_sim(atoms, "cell", nn=128)
+    ref.run(1)
+    cw, cwtfc, _ = mapped_sim(atoms, "cellwise", nn=128)
+    cw.check_syncs = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cw.run(1)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    fa, fb = ref.state.forces, cw.state.forces
+    ferr = float(((fb - fa).abs() / (5e-4 + 5e-4 * fa.abs())).max())
+    print(f"  'cellwise' (planes route) vs 'cell' (NN 128) after one step: "
+          f"force "
+          f"err/bound {ferr:.3f} (rtol = atol = 5e-4), max|F| "
+          f"{float(fa[:, :3].abs().max()):.2f}")
+    check(ferr <= 1.0, "mapped 'cellwise' forces disagree with 'cell'")
+    check(cwtfc._lane_fast_ok is False, "a mapped model took the probe")
+    t0 = time.perf_counter()
+    cw.run(99, log_period=10)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plan = cw._layout.plan
+    check(peak < 60.0, f"'cellwise' peak memory {peak:.1f} GiB")
+    # 'cellwise' goes on from the 'cell' run's last state: the swing's
+    # top, so the mean takes the trajectory from its start
+    mapped_gates(cw, cwtfc, op, "'cellwise'",
+                 np.concatenate([t_cell, cw.log["temperature"]]))
+    print(f"  'cellwise' planes route (plan {plan.grid} cap "
+          f"{plan.capacity}, {plan.n_slots} slots x 27 cap = "
+          f"{plan.n_slots * 27 * plan.capacity / 1e6:.1f} M lanes): first "
+          f"step {t_first:.2f} s, steps/s {99 / dt:.2f} (run(99), logged "
+          f"every 10th step, host syncs forbidden), peak memory "
+          f"{peak:.2f} GiB on {smi_line()} -- info, not a claim; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def make_lj_mol(mol_indices, nn=64):
+    """tests/zoo.py's LJMolModel (tests/zoo.py:142-151) in torch: LJ
+    through mol_nlist, forces from nlist."""
+    class LJMolModel(htt.MolSimModel):
+        def mol_compute(self, nlist, positions, mol_nlist, mol_positions,
+                        box):
+            rinv = htt.nlist_rinv(mol_nlist)
+            total_e = torch.sum(4.0 / 2.0 * (rinv ** 12 - rinv ** 6))
+            return htt.compute_nlist_forces(nlist, total_e)
+    return LJMolModel(GROUP, mol_indices, nn)
+
+
+def phase_molsim(state):
+    """Phase 20: a MolSimModel of 16,384 four-atom molecules at 65,536
+    atoms on the card's default neighbor build (the cell list with K3):
+    its forces at the first state against the plain LJ model's on the
+    same list, a timed run(200) with host syncs forbidden, K3's launches
+    against the evaluations and K3 against its plain version."""
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    k3 = nc.nlist_select
+    t_phase = time.perf_counter()
+    NN = 64
+    mols = [list(range(GROUP * i, GROUP * i + GROUP))
+            for i in range(N // GROUP)]
+    model = make_lj_mol(mols, NN)
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=20, device="cuda")
+    sim.set_state(dataclasses.replace(state))
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=R_CUT)
+    check(sim._packed_build().method == "pallas",
+          f"'auto' took {sim._packed_build().method!r}, not K3")
+    # the first state: the molecules' energy is the plain model's (every
+    # atom in one molecule), so are the forces on the same list
+    st = sim.state
+    with torch.no_grad():
+        nl = sim._build_nlist(st)
+    inputs = [nl, st.positions4, st.box]
+    f_mol = model(inputs)[0].detach()
+    f_lj = make_simmodel(NN).to("cuda")(inputs)[0].detach()
+    ferr = float((f_mol[:, :3] - f_lj[:, :3]).abs().max())
+    print(f"  first state: MolSimModel vs the plain LJ model on the same "
+          f"list: max force diff {ferr:.3e} (limit 1e-4), max|F| "
+          f"{float(f_lj[:, :3].abs().max()):.2f}")
+    check(ferr <= 1e-4, "MolSimModel forces disagree with the LJ model's")
+    del nl, inputs, f_mol, f_lj
+    sim.check_syncs = True
+    k3.launches = 0
+    b0, c0 = sim.nlist_builds, tfc._calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.run(200)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = k3.launches
+    evals = tfc._calls - c0
+    builds = sim.nlist_builds - b0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == evals == builds == 200,
+          f"K3 launches {launches}, model evaluations {evals}, builds "
+          f"{builds}")
+    th = healthy(sim, "molsim")
+    grid, cap = sim._packed_build().plan
+    print(f"  MolSimModel (MN {GROUP}, {len(mols)} molecules, NN {NN}), "
+          f"cell list + K3 (plan {grid} cap {cap}): steps/s {200 / dt:.2f} "
+          f"(timed run(200), host syncs forbidden), peak memory "
+          f"{peak:.2f} GiB on {smi_line()} -- info, not a claim; "
+          f"T={th['temperature']:.4f}; K3 launches {launches} == model "
+          f"evaluations {evals}")
+    st = sim.state
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
+                                               lengths)
+    check(not bool(ovf), "the state overflows its own plan")
+    err = k3_against_plain("phase 20's state",
+                           (slots4, counts, pid, grid, cap, NN, R_CUT,
+                            host_L, N))
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+class FrameUniverse:
+    """The universe protocol of utils.trajectory over frames held in
+    memory: one atom type, a cubic box."""
+
+    class _Group:
+        def __init__(self, n):
+            self.atoms = self
+            self.types = np.array(["A"] * n)
+            self.positions = None
+
+        def __len__(self):
+            return len(self.types)
+
+    class _Step:
+        def __init__(self, frame):
+            self.frame = frame
+
+    def __init__(self, frames, L):
+        self._frames = frames
+        self._group = self._Group(frames[0].shape[0])
+        self.dimensions = np.array([L, L, L, 90.0, 90.0, 90.0])
+        self.atoms = self._group
+
+    def select_atoms(self, selection):
+        return self._group
+
+    @property
+    def trajectory(self):
+        for i, f in enumerate(self._frames):
+            self._group.positions = f
+            yield self._Step(i)
+
+
+def example_07():
+    """Reference example 07 (examples/07_cg_mapping_from_files.py) on the
+    card: peg2.pdb's 24 atoms and its DSGPM map."""
+    from hoomd_tf_tpu_torch.utils.pdb_io import PDBUniverse
+    fixtures = os.path.join(HERE, "tests", "fixtures")
+    u = PDBUniverse(os.path.join(fixtures, "peg2.pdb"))
+    chain = ["C1", "C2", "O1", "C3", "C4", "O2",
+             "C5", "C6", "O3", "C7", "C8", "O4"]
+    mols = htt.find_molecules_from_topology(u, [chain])
+    check(len(mols) == 2 and len(mols[0]) == 12, f"molecules {mols}")
+
+    class FirstMolecule:
+        names = list(u.atoms.names[:12])
+        masses = list(u.atoms.masses[:12])
+        n_atoms = 12
+
+        def __len__(self):
+            return 12
+
+    names = FirstMolecule.names
+    beads = [names[0:3], names[3:6], names[6:9], names[9:12]]
+    mol_map = htt.matrix_mapping(FirstMolecule(), beads)
+    sparse = htt.sparse_mapping([mol_map] * len(mols), mols, device="cuda")
+    check(tuple(sparse.shape) == (8, 24), f"operator {tuple(sparse.shape)}")
+    bonds, angles, dihedrals = htt.compute_cg_graph(
+        DSGPM=True, infile=os.path.join(fixtures, "peg2_cgmap.json"))
+    check((len(bonds), len(angles), len(dihedrals)) == (3, 2, 1),
+          "CG graph of the DSGPM map")
+    b_ids, a_ids, d_ids = htt.mol_features_multiple(
+        bnd_indices=bonds, ang_indices=angles, dih_indices=dihedrals,
+        molecules=len(mols), beads=len(beads))
+    box = htt.box_from_lengths(u.dimensions[:3], device="cuda")
+    M = sparse.to_dense()
+    means = []
+    for _ in u.trajectory:
+        cg_pos = M @ torch.as_tensor(u.atoms.positions, device="cuda")
+        rs = htt.mol_bond_distance(CG=True, cg_positions=cg_pos,
+                                   b1=b_ids[:, 0], b2=b_ids[:, 1], box=box)
+        angs = htt.mol_angle(CG=True, cg_positions=cg_pos, b1=a_ids[:, 0],
+                             b2=a_ids[:, 1], b3=a_ids[:, 2], box=box)
+        dihs = htt.mol_dihedral(CG=True, cg_positions=cg_pos,
+                                b1=d_ids[:, 0], b2=d_ids[:, 1],
+                                b3=d_ids[:, 2], b4=d_ids[:, 3], box=box)
+        check(rs.is_cuda and 2.0 < float(rs.mean()) < 6.0,
+              f"example 07: mean CG bond {float(rs.mean())}")
+        check(bool(torch.isfinite(angs).all() & torch.isfinite(dihs).all()),
+              "example 07: non-finite features")
+        means.append(float(rs.mean()))
+    print(f"  example 07: 24 atoms, 2 molecules, operator (8, 24) on the "
+          f"card, CG graph 3/2/1, {len(means)} frames, mean CG bond "
+          f"{', '.join(f'{m:.3f}' for m in means)}")
+
+
+def example_09():
+    """Reference example 09 (examples/09_cg_properties.py) on the card:
+    8 five-atom molecules."""
+    class Mol:
+        def __init__(self, names, masses):
+            self.names, self.masses = names, masses
+            self.n_atoms = len(names)
+
+        def __len__(self):
+            return self.n_atoms
+
+    mol = Mol(["O", "H1", "H2", "C1", "C2"], [16.0, 1.0, 1.0, 12.0, 12.0])
+    mol_map = htt.matrix_mapping(mol, [["O", "H1", "H2"], ["C1", "C2"]])
+    n_mol = 8
+    sim = htt.Simulation(seed=0, device="cuda")
+    sim.init_lattice(n_mol * 5, a=2.0)
+    sim.bonds = [[5 * i + a, 5 * i + b] for i in range(n_mol)
+                 for a, b in [(0, 1), (0, 2), (0, 3), (3, 4)]]
+    mol_indices = htt.find_molecules(sim)
+    check(len(mol_indices) == n_mol, f"{len(mol_indices)} molecules")
+    mapping = htt.sparse_mapping([mol_map] * n_mol, mol_indices, system=sim)
+    check(mapping.is_cuda, "example 09: the operator is not on the card")
+    box_l = htt.box_size(sim.state.box)
+    cg_pos = htt.center_of_mass(sim.state.positions, mapping, box_l)
+    adj = np.zeros((2, 2))
+    adj[0, 1] = adj[1, 0] = 1
+    bonds, angles, dihedrals = htt.compute_cg_graph(
+        DSGPM=False, adj_mat=adj, cg_beads=2)
+    b, a, d = htt.mol_features_multiple(bnd_indices=bonds, molecules=n_mol,
+                                        beads=2)
+    r = htt.mol_bond_distance(CG=True, cg_positions=cg_pos, b1=b[:, 0],
+                              b2=b[:, 1], box=sim.state.box)
+    check(r.is_cuda and bool(torch.isfinite(r).all()) and
+          bool((r > 0).all()), f"example 09: CG bond lengths {r}")
+    print(f"  example 09: {n_mol} molecules of 5 atoms, operator "
+          f"{tuple(mapping.shape)} on the card, CG positions "
+          f"{tuple(cg_pos.shape)}, CG bonds "
+          f"{[round(float(x), 3) for x in r[:4]]}")
+
+
+def phase_cg_tools():
+    """Phase 21: examples 07 and 09 on the card, then iter_from_trajectory
+    over 20 frames of a 4,096-atom LJ run against the engine's 'n2'
+    forces at the same positions."""
+    t_phase = time.perf_counter()
+    example_07()
+    example_09()
+    n, NN = 4096, 128
+    sim = jittered_sim(n, htt.md.Minimize(max_disp=0.05), "cuda", seed=21)
+    htt.tfcompute(make_simmodel(NN)).attach(sim, r_cut=R_CUT, nlist="n2")
+    sim.run(30)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    frames, engine = [], []
+    for _ in range(20):
+        sim.run(5)
+        frames.append(sim.state.positions.cpu().numpy())
+        engine.append(sim.state.forces)
+    L = float(sim._lengths[0])
+    u = FrameUniverse(frames, L)
+    model = make_simmodel(NN).to("cuda")
+    worst = 0.0
+    count = 0
+    for (inputs, ts), want in zip(htt.iter_from_trajectory(
+            NN, u, r_cut=R_CUT, device="cuda"), engine):
+        check(all(x.is_cuda for x in inputs),
+              "iter_from_trajectory's tensors are not on the card")
+        nb = (inputs[0][..., :3] != 0).any(-1).sum(1)
+        check(int(nb.max()) < NN, f"frame {ts.frame}: a full list")
+        got = model(inputs)[0].detach()
+        worst = max(worst, float((got[:, :3] - want[:, :3]).abs().max()))
+        count += 1
+    check(count == 20, f"{count} frames")
+    check(worst <= 1e-4, f"trajectory forces differ from the engine's by "
+          f"{worst:.3e}")
+    print(f"  iter_from_trajectory: 20 frames of a {n}-atom LJ run (NN "
+          f"{NN}, r_cut {R_CUT}), the model's forces vs the engine's 'n2' "
+          f"forces at those positions: max diff {worst:.3e} (limit 1e-4); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -2495,7 +2978,6 @@ def main():
     print("[16 logged] 64k LJ fluid: run(log_period=10) and period 5 on "
           "'cellwise'")
     k1_lj["launches"] += phase_logged(main_state, main_sps)
-    del main_state
     torch.cuda.empty_cache()
     print("[17 stateful] reference example 04's model (WCARepulsion, "
           "MeanTensor of the RDF) at 64k on the packed route (K3)")
@@ -2505,6 +2987,20 @@ def main():
     torch.cuda.empty_cache()
     print("[18 eds] reference example 03 (EDSLayer, Mean), 9 particles")
     phase_eds()
+    print("[19 mapped] reference example 02's mapped CG model (LJ) at 64k "
+          "atoms + 16k beads, on 'cell' and on 'cellwise'")
+    phase_mapped(main_state)
+    torch.cuda.empty_cache()
+    print("[20 molsim] a MolSimModel of 16k four-atom molecules at 64k on "
+          "the packed route (K3)")
+    launches, k3_err = phase_molsim(main_state)
+    k3["launches"] += launches
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
+    del main_state
+    torch.cuda.empty_cache()
+    print("[21 cg-tools] reference examples 07 and 09, and "
+          "iter_from_trajectory, on the card")
+    phase_cg_tools()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 

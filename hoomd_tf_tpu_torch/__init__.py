@@ -24,7 +24,13 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   :class:`MeanTensor`, the EDS bias :class:`EDSLayer` and the trainable
   :class:`WCARepulsion`, whose state a rolled-back run restores; and
   ``Simulation.run(n, log_period=k)``, which records the thermodynamic
-  quantities into ``sim.log``.
+  quantities into ``sim.log``;
+- coarse-grained models: mapped neighbor lists
+  (``tfcompute.enable_mapped_nlist``, CG beads beside the atoms on the
+  packed routes and on ``'cellwise'``), the molecule-batched
+  :class:`MolSimModel`, and the CG utilities of :mod:`.utils` (mapping
+  operators, centers of mass, CG graphs and features, the PDB reader,
+  trajectory iteration).
 """
 
 from .ops import (box_size, wrap_vector, make_box, box_from_lengths,
@@ -33,28 +39,44 @@ from .ops import (box_size, wrap_vector, make_box, box_from_lengths,
                   compute_positions_forces, compute_nlist,
                   nlist_from_positions, CellList, cell_list_nlist,
                   NlistPlanes, direct_cell_planes, Cellwise, compute_rdf)
-from .models import (Variable, Layer, Mean, MeanTensor, SimModel, PairModel,
-                     RBFExpansion, WCARepulsion, EDSLayer, Dense,
-                     LJPotential, TrainableLJ, NeuralPairPotential)
+from .models import (Variable, Layer, Mean, MeanTensor, SimModel,
+                     MolSimModel, PairModel, RBFExpansion, WCARepulsion,
+                     EDSLayer, Dense, LJPotential, TrainableLJ,
+                     NeuralPairPotential)
 from . import ops
 from . import models
 from . import md
 from .md.simulation import Simulation
 from .driver import tfcompute
+from . import utils
+from .utils.cg import (find_molecules, find_molecules_from_topology,
+                       matrix_mapping, sparse_mapping, center_of_mass,
+                       gen_mapped_exclusion_list, gen_bonds_group,
+                       compute_ohe_bead_type_interactions)
+from .utils.graph import (compute_adj_mat, compute_cg_graph, find_cgnode_id,
+                          mol_features_multiple)
+from .utils.mol_features import mol_bond_distance, mol_angle, mol_dihedral
+from .utils.trajectory import iter_from_trajectory, compute_pairwise, \
+    create_frame
 
 # the JAX package's names, less those of the parts still to be ported
-# (ROADMAP.md Queue 1: MolSimModel and the utils.cg, graph and
-# mol_features names, item 5; trajectory, GSD, serialize and utils, item
-# 6; parallel, item 7)
+# (ROADMAP.md Queue 1: GSD I/O and serialize, item 6; parallel, item 7)
 __all__ = [
     "box_size", "wrap_vector", "make_box", "box_from_lengths",
     "safe_norm", "nlist_rinv", "masked_nlist", "divide_no_nan",
     "multiply_no_nan", "compute_nlist_forces", "compute_positions_forces",
     "compute_nlist", "nlist_from_positions", "CellList", "cell_list_nlist",
     "NlistPlanes", "direct_cell_planes", "Cellwise", "compute_rdf",
-    "Variable", "Layer", "Mean", "MeanTensor", "SimModel", "PairModel",
+    "Variable", "Layer", "Mean", "MeanTensor", "SimModel", "MolSimModel",
+    "PairModel",
     "RBFExpansion", "WCARepulsion", "EDSLayer", "Dense",
     "LJPotential", "TrainableLJ", "NeuralPairPotential",
     "Simulation", "tfcompute",
-    "md", "ops", "models",
+    "find_molecules", "find_molecules_from_topology", "matrix_mapping",
+    "sparse_mapping", "center_of_mass", "gen_mapped_exclusion_list",
+    "gen_bonds_group", "compute_ohe_bead_type_interactions",
+    "compute_adj_mat", "compute_cg_graph", "find_cgnode_id",
+    "mol_features_multiple", "mol_bond_distance", "mol_angle", "mol_dihedral",
+    "iter_from_trajectory", "compute_pairwise", "create_frame",
+    "md", "ops", "models", "utils",
 ]

@@ -5,21 +5,25 @@ the JAX package's ``tfcompute``): any SimModel on a packed neighbor list
 slot-resident cellwise mode (``'cellwise'``), evaluated or trained online
 (``train=True``), with the ``period``, ``batch_size`` and
 ``save_output_period`` knobs and the ``outputs`` capture of the
-reference."""
+reference; and the mapped coarse-grained neighbor lists of
+:meth:`tfcompute.enable_mapped_nlist`."""
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from .ops.box import check_tilt
+from .models.simmodel import MolSimModel
+from .ops.box import box_size, check_tilt
 from .ops.cell_list import CellList
 from .ops.cellwise import Cellwise
 from .ops.direct import NlistPlanes
 
 # what each refusal names: the part of the port that brings it (item 5
-# keeps float64 on the card and the mapped coarse-grained models)
+# keeps float64 on the card)
 _LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1)"
-_ENGINE = ("the engine's remaining features, a later slice of the "
-           "PyTorch port (ROADMAP.md Queue 1 item 5)")
+_ENGINE = ("a later slice of the PyTorch port (ROADMAP.md Queue 1 item 5, "
+           "float64 on the card)")
 
 __all__ = ["tfcompute"]
 
@@ -60,6 +64,12 @@ class tfcompute:
         # outside a run, a test's say, is counted nowhere)
         self._pending = ([], 0)
         self._model_forces = None
+
+    @property
+    def map_enabled(self):
+        """CG beads follow the atoms: the model's mapping
+        (``_map_nlist``, set by :meth:`enable_mapped_nlist`) is on."""
+        return bool(getattr(self.model, "_map_nlist", False))
 
     def attach(self, sim, nlist=None, r_cut=0, period=1, batch_size=None,
                train=False, save_output_period=None):
@@ -109,13 +119,15 @@ class tfcompute:
         if not (cellwise or packed):
             raise NotImplementedError(
                 f"nlist={nlist!r} is not ported; it arrives with {_LATER}")
-        if getattr(self.model, "_map_nlist", False):
-            raise NotImplementedError(
-                f"mapped neighbor lists arrive with {_ENGINE}")
-        if batch_size and (cellwise or nlist == "direct"):
+        molsim = isinstance(self.model, MolSimModel)
+        if molsim and batch_size:
+            raise ValueError("Cannot batch by molecule and by batch_number")
+        if (batch_size or molsim) and (cellwise or nlist == "direct"):
             raise ValueError(
                 f"nlist={nlist!r} is incompatible with particle batching "
-                "(it changes the nlist form the model sees)")
+                "and molecule batching (it changes the nlist form the "
+                "model sees). Mapped neighbor lists ARE supported: the "
+                "model receives particle-order NlistPlanes")
         if train and sim.device.type == "cuda" and \
                 sim.state.positions.dtype != torch.float32:
             raise NotImplementedError(
@@ -136,6 +148,19 @@ class tfcompute:
                                 self.model.nneighbor_cutoff > 0):
             raise ValueError("Must provide an r_cut if you have "
                              "nneighbor_cutoff > 0")
+        if self.map_enabled and self.r_cut_matrix is None and \
+                self.model.nneighbor_cutoff > 0:
+            # mapped: atoms and CG beads never neighbor each other -- the
+            # reference's rcut() matrix (tensorflowcompute.py:284-305),
+            # negative across the two groups, which every build applies
+            types = sim.state.types
+            ntypes = int(types.max()) + 1
+            # the beads' types start past the atoms'
+            k = int(types[:self.model._map_i].max()) + 1
+            m = np.full((ntypes, ntypes), self.r_cut, dtype=np.float32)
+            m[:k, k:] = -1.0
+            m[k:, :k] = -1.0
+            self.r_cut_matrix = m
         # output offset bookkeeping (reference tensorflowcompute.py:81-96)
         self.output_offset = 0
         if self.model.output_forces:
@@ -172,7 +197,8 @@ class tfcompute:
         besides the plan and the model's trace version."""
         rcm = (None if self.r_cut_matrix is None else
                self.r_cut_matrix.tobytes())
-        return (id(self.model), self.r_cut, rcm, self.train)
+        return (id(self.model), self.r_cut, rcm, self.train,
+                self.map_enabled)
 
     @property
     def optimizer(self):
@@ -196,11 +222,69 @@ class tfcompute:
                                  "sim.add_force first)")
         self.reference_forces = list(forces)
 
+    def enable_mapped_nlist(self, sim, mapping_fxn):
+        """Append CG beads to the simulation, so the engine builds the
+        bead-bead neighbor lists too (the reference's
+        ``tensorflowcompute.py:198-263``); call before :meth:`attach`.
+
+        :param mapping_fxn: ``f(positions4, box_lengths) -> [M, 4]``, the
+            bead positions and bead types of the ``[N, 4]`` atom rows. It
+            gets a list of three host floats here and the ``[3]`` box
+            lengths tensor in :meth:`apply_mapping`, as in the JAX
+            package. The beads' types are offset by ``max(type) + 1``;
+            they start at rest with unit masses.
+        :returns: ``(aa_group, map_group)``, numpy row indices of the
+            atoms and of the beads.
+        """
+        state = sim.state
+        if state is None:
+            raise RuntimeError("Must initialize the simulation first")
+        bs = box_size(state.box).detach().cpu().numpy()
+        cg = torch.as_tensor(mapping_fxn(
+            state.positions4, [float(bs[0]), float(bs[1]), float(bs[2])]))
+        cg = cg.to(device=state.positions.device)
+        m = cg.shape[0]
+        aan = state.n_particles
+        start = int(state.types.max()) + 1
+        dtype = state.positions.dtype
+        kw = dict(dtype=dtype, device=state.positions.device)
+        n = aan + m
+        sim.set_state(dataclasses.replace(
+            state,
+            positions=torch.cat([state.positions, cg[:, :3].to(dtype)]),
+            types=torch.cat([state.types,
+                             cg[:, 3].to(torch.int32) + start]),
+            velocities=torch.cat([state.velocities,
+                                  torch.zeros((m, 3), **kw)]),
+            masses=torch.cat([state.masses, torch.ones(m, **kw)]),
+            forces=torch.zeros((n, 4), **kw),
+            virial=torch.zeros((n, 3, 3), **kw)))
+        self.model._map_nlist = True
+        self.model._map_fxn = mapping_fxn
+        self.model._map_i = aan
+        return np.arange(aan), np.arange(aan, n)
+
+    def apply_mapping(self, state):
+        """The per-step write-back of the bead positions from the current
+        atom positions (the reference's precompute, ``simmodel.py:
+        289-339``), in particle order; the types stay."""
+        aan = self.model._map_i
+        cg3 = self.bead_positions(state.positions4[:aan], state.box)
+        return dataclasses.replace(
+            state, positions=torch.cat([state.positions[:aan], cg3]))
+
+    def bead_positions(self, atoms4, box):
+        """``[M, 3]``: the mapping of the ``[N, 4]`` atom rows ``atoms4``
+        in the ``[3, 3]`` ``box`` (its lengths go to the mapping as a
+        device tensor), in the positions' dtype."""
+        cg = self.model._map_fxn(atoms4, box_size(box))
+        return torch.as_tensor(cg)[:, :3].to(atoms4.dtype)
+
     def ensure_opt_state(self):
         """The torch optimizer over the model's trainable weights, made
         once, after the lazy layers are built on the simulation's device
         (:func:`..interop.build_model`: one call at a proxy's nodes or on
-        a zero neighbor list)."""
+        a zero neighbor list of the simulation's rows, beads included)."""
         if self.opt_state is None:
             from .interop import build_model
             from .models.layers import Dense
@@ -208,7 +292,8 @@ class tfcompute:
             if getattr(model, "proxy_degree", None) or any(
                     isinstance(m, Dense) and m.kernel is None
                     for m in model.modules()):
-                build_model(model, self.r_cut, self.sim.device)
+                build_model(model, self.r_cut, self.sim.device,
+                            rows=self.sim.state.n_particles)
             variables = model.variables
             self.trainable_idx = [i for i, v in enumerate(variables)
                                   if isinstance(v, torch.nn.Parameter) and

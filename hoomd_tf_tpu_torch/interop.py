@@ -17,8 +17,15 @@ layers') and north_star.py's two NN models (``TrainableNNPair``,
 Both packages build ``Dense`` layers lazily, at the first call, so a
 model's weight list is complete only after one call: build the port's
 model with :func:`build_model` (one call at a proxy's nodes, or on a zero
-``[1, NN, 4]`` neighbor list) and the JAX model likewise
+``[rows, NN, 4]`` neighbor list) and the JAX model likewise
 (``ensure_built``) before copying.
+
+A mapped state carries across as any other: the ``n + m`` rows that the
+JAX package's ``enable_mapped_nlist`` leaves (atoms, then CG beads with
+their offset types) become the port's rows one to one. A mapped model or
+a ``MolSimModel`` is built at that row count (``build_model(rows=)``). No JAX ``BCOO`` is read:
+the port's :func:`.utils.cg.sparse_mapping` is built from the same numpy
+inputs.
 """
 
 import numpy as np
@@ -72,11 +79,14 @@ def load_jax_variables(model, arrays):
     return model
 
 
-def build_model(model, r_cut, device=None):
+def build_model(model, r_cut, device=None, rows=1):
     """Build a model's lazy layers on ``device`` (default: the CUDA card;
     pass ``device="cpu"`` for the CPU) by one call: a proxy
     ``PairModel`` at its Chebyshev proxy's nodes, any other model on a
-    zero ``[1, NN, 4]`` neighbor list. The call leaves no trace in the
+    zero ``[rows, NN, 4]`` neighbor list. A mapped model or a
+    ``MolSimModel`` needs its simulation's row count (atoms and beads;
+    at least the atoms its molecules index), as does a model whose
+    lazily built state is sized by rows. The call leaves no trace in the
     model's state: a metric counts nothing, and a variable it built
     (a ``MeanTensor``'s, an ``EDSLayer``'s) holds its initial value, as
     the JAX package's abstract build leaves them. Returns the model."""
@@ -89,7 +99,7 @@ def build_model(model, r_cut, device=None):
     kw = dict(dtype=model.dtype, device=device)
     nn = max(1, model.nneighbor_cutoff)
     snap = StateSnapshot(model)
-    model([torch.zeros((1, nn, 4), **kw), torch.zeros((1, 4), **kw),
+    model([torch.zeros((rows, nn, 4), **kw), torch.zeros((rows, 4), **kw),
            torch.zeros((3, 3), **kw)], training=False)
     snap.restore()
     return model

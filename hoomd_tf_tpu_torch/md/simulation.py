@@ -58,6 +58,13 @@ sizes the next run's list) and the per-step training losses stay device
 tensors until then. With ``check_syncs = True`` the step loop runs under
 ``torch.cuda.set_sync_debug_mode("error")``, so any hidden sync raises.
 
+Mapped coarse-grained lists (``tfcompute.enable_mapped_nlist``): the CG
+beads are rows past the atoms. Each step the mapping writes their
+positions from the atoms' before the neighbor build (on ``'cellwise'``
+in particle order, scattered into the beads' slot rows), their rows get
+no net force, and the model sees particle-order rows; a mapped model
+never takes K1's fast routes or the probe (the JAX package's rule).
+
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
 wire, ``scan_block``, compile-cache keys, the readback caches for a
 remote TPU) has no counterpart here.
@@ -352,6 +359,8 @@ class Simulation:
         if self.stencil != "auto" or self.device.type != "cuda":
             return False
         tfc = self.tfc
+        if tfc is not None and tfc.map_enabled:
+            return False  # the planes route (JAX: _pallas_eligible)
         if tfc is None or tfc.train or isinstance(tfc.model, PairModel):
             return True
         return bool(getattr(tfc, "_lane_fast_ok", False))
@@ -612,8 +621,15 @@ class Simulation:
         masked 27-block planes, forces by autograd (a generic SimModel
         the lane-separability probe did not validate)."""
         model = self.tfc.model
-        out = model([layout.planes(st, aux), st.positions4, st.box],
-                    training=False)
+        planes, pos4 = layout.planes(st, aux), st.positions4
+        mapped = self.tfc.map_enabled
+        if mapped:
+            # the model's rows are particle order (mapped_nlist slices by
+            # row index): gather them, and scatter its outputs back
+            inv = _inv_slots(layout, aux)
+            planes = planes.map(lambda c: c.detach()[inv])
+            pos4 = pos4[inv]
+        out = model([planes, pos4, st.box], training=False)
         if capture:
             self.tfc.capture(out[self.tfc.output_offset:])
         valid = aux["valid"][:, None]
@@ -622,7 +638,14 @@ class Simulation:
             f = torch.cat([f, torch.zeros_like(f[:, :1])], dim=-1)
         w = None
         if want_virial and model.virial and len(out) > 1:
-            w = out[1].detach() * valid[:, :, None]
+            w = out[1].detach()
+        if mapped:
+            # a mapped model may give the atom rows only: the beads' are 0
+            f = layout.to_slots(_pad_rows(f, layout.n), aux)
+            if w is not None:
+                w = layout.to_slots(_pad_rows(w, layout.n), aux)
+        if w is not None:
+            w = w * valid[:, :, None]
         return f * valid, w
 
     def _builtins(self, st, aux, layout, needs_energy, want_virial,
@@ -703,7 +726,14 @@ class Simulation:
                               (model is not None and model.virial))
         if model is None:
             return r
+        if tfc.map_enabled:
+            r.map_i = model._map_i
         if tfc.train:
+            if tfc.map_enabled:
+                raise ValueError(
+                    "train=True with a mapped neighbor list is not "
+                    "supported in the cellwise mode; use nlist='cell' or "
+                    "'n2'")
             if not self.forces:
                 raise ValueError(
                     "online training needs label forces: add a built-in "
@@ -712,6 +742,12 @@ class Simulation:
             subset = tfc.reference_forces
             if subset and len(subset) != len(self.forces):
                 r.label_subset = list(subset)
+        elif tfc.map_enabled:
+            # mapped attachments never take K1's fast routes or the probe
+            tfc._lane_fast_ok = False
+            if not model.output_forces:
+                return r
+            r.planes = True
         elif not isinstance(model, PairModel):
             if not model.output_forces:
                 return r
@@ -799,6 +835,10 @@ class Simulation:
         st = integ.pre_force(st, dt)
         # ghost pins stay unconditional, as in the JAX engine
         st = layout.ghost_pin(st, aux)
+        if route.map_i is not None:
+            # the beads follow the atoms before the rebuild check, so a
+            # bead's move counts toward a repack
+            st = self._map_slots(st, aux, layout, route)
         if route.repack_each_step:
             st, aux = layout.rebuild(st, aux)
             self.repacks += 1
@@ -823,7 +863,7 @@ class Simulation:
             if route.model_period > 1 and st.step % route.model_period == 0:
                 aux = self._carry_model(st, aux, layout, route)
             f4, w = self._forces(st, aux, layout, route, log_now, want_w)
-        st.forces = f4
+        st.forces = _mask_beads(f4, aux["orig"], route.map_i)
         if want_w:
             st.virial = torch.zeros_like(st.virial) if w is None else w
         st = integ.post_force(st, dt)
@@ -832,6 +872,17 @@ class Simulation:
             log.record(st, aux["valid"])
         st.step += 1
         return st, aux, flags | (stale.to(torch.int32) << 1)
+
+    def _map_slots(self, st, aux, layout, route):
+        """The mapping write-back in slot order: the atom rows gathered
+        into particle order, the mapping run on them, the bead positions
+        scattered into the beads' slot rows (the JAX package's
+        ``mapped_apply_slots``)."""
+        inv = _inv_slots(layout, aux)
+        aan = route.map_i
+        cg3 = self.tfc.bead_positions(st.positions4[inv[:aan]], st.box)
+        return dataclasses.replace(
+            st, positions=st.positions.index_copy(0, inv[aan:], cg3))
 
     def _fetch_run_scalars(self, flags, aux, losses=None, box=None,
                            log=None):
@@ -965,7 +1016,7 @@ class Simulation:
                                  needs_virial, capture=False)
             if final is not None:
                 final.restore()
-            st.forces = f4
+            st.forces = _mask_beads(f4, aux["orig"], route.map_i)
             if needs_virial:
                 st.virial = torch.zeros_like(st.virial) if w is None else w
             # bit 3: K1's generic-form list was too short in some call
@@ -1179,8 +1230,16 @@ class Simulation:
     def _build_nlist(self, state):
         """One neighbor build on ``state`` (the host accessors')."""
         if self._use_cellwise():
-            raise NotImplementedError(
-                "the cellwise mode keeps no packed neighbor list")
+            # the masked planes, in slot order; a mapped model's in
+            # particle order, as it sees them
+            layout = self._ensure_layout()
+            st, aux = layout.pack(state)
+            with torch.no_grad():
+                planes = layout.planes(st, aux)
+            if self.tfc is not None and self.tfc.map_enabled:
+                inv = _inv_slots(layout, aux)
+                planes = planes.map(lambda c: c[inv])
+            return planes
         build = self._packed_build()
         if build is None:
             return torch.zeros((state.n_particles, 1, 4),
@@ -1268,10 +1327,15 @@ class Simulation:
         tfc.capture(*extras)
 
     def _packed_step(self, st, flags, build, needs_virial, i, carry, tr,
-                     log=None):
+                     log=None, rows=None):
         integ, dt = self.integrator, self.dt
         st = integ.pre_force(st, dt)
         n = st.n_particles
+        tfc = self.tfc
+        map_i = None if rows is None else tfc.model._map_i
+        if map_i is not None:
+            # the CG beads follow the atoms before the neighbor build
+            st = tfc.apply_mapping(st)
         if build is not None:
             nlist, cell_overflow = build(st.positions4, self._build_box(st))
             self.nlist_builds += 1
@@ -1279,7 +1343,6 @@ class Simulation:
             nlist = torch.zeros((n, 1, 4), dtype=st.positions.dtype,
                                 device=self.device)
             cell_overflow = None
-        tfc = self.tfc
         # the model runs every `period` steps (st.step is a host int);
         # between, its last forces stand, as in the JAX package
         model_now = tfc is not None and st.step % tfc.period == 0
@@ -1301,7 +1364,9 @@ class Simulation:
             if subset and len(subset) != len(self.forces):
                 labels = sum(g(st, nlist)[0] for g in subset)
             self._packed_train(st, nlist, labels, i, tr)
-        st.forces = f
+        # the beads are virtual: no net force (the reference integrates
+        # the atom group only)
+        st.forces = _mask_beads(f, rows, map_i)
         if needs_virial:
             st.virial = w
         st = integ.post_force(st, dt)
@@ -1345,13 +1410,16 @@ class Simulation:
             tfc.begin_outputs()
         carry = list(tfc.model_forces(self.state)) if tfc is not None \
             else None
+        # a mapped run's particle index of each row, for the bead mask
+        rows = (torch.arange(self.state.n_particles, device=self.device)
+                if tfc is not None and tfc.map_enabled else None)
         st = dataclasses.replace(self.state)
         start_step = st.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
         with _sync_guard(self.check_syncs), torch.no_grad():
             for i in range(n):
                 st, flags = self._packed_step(st, flags, build, needs_virial,
-                                              i, carry, tr, log)
+                                              i, carry, tr, log, rows)
             if check:
                 flags = flags | (model.nlist_overflow.to(torch.int32) << 2)
         # the one readback: flags, the barostat's final box (known on the
@@ -1405,6 +1473,34 @@ class Simulation:
 
 def _is_cellwise(method):
     return method == "cellwise" or isinstance(method, _cw.Cellwise)
+
+
+def _inv_slots(layout, aux):
+    """``[n]``: the slot row of each particle, the inverse of
+    ``aux['orig']``. Kept in ``aux['inv']`` once made, so a step makes it
+    once; a repack permutes the slots and its new ``aux`` has none."""
+    inv = aux.get("inv")
+    if inv is None:
+        slots = torch.arange(layout.plan.n_slots, dtype=torch.long,
+                             device=aux["orig"].device)
+        inv = aux["inv"] = layout.to_particles(slots, aux)
+    return inv
+
+
+def _pad_rows(t, n):
+    """``t`` zero-padded along its rows to ``n``."""
+    pad = [0, 0] * (t.ndim - 1) + [0, n - t.shape[0]]
+    return torch.nn.functional.pad(t, pad)
+
+
+def _mask_beads(forces4, orig, map_i):
+    """``forces4`` with the rows whose particle index ``orig`` is a CG
+    bead's (``>= map_i``) zeroed (``orig``: ``aux['orig']`` in slot
+    order, an ``arange`` on the packed routes); ``forces4`` itself when
+    nothing is mapped (``map_i`` None)."""
+    if map_i is None or forces4 is None:
+        return forces4
+    return forces4 * (orig < map_i).to(forces4.dtype)[:, None]
 
 
 def _readback(ints, *floats):
@@ -1482,6 +1578,8 @@ class _Route:
     carry_virial = False
     trainer = None
     label_subset = None
+    #: the atom rows of a mapped attachment (None: nothing is mapped)
+    map_i = None
     virial_in_loop = False
     needs_virial = False
 

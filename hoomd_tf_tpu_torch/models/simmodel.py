@@ -18,8 +18,13 @@ forces when ``output_forces``, the second the virial when
 nlist and positions that require grad, so
 :func:`..ops.forces.compute_nlist_forces` differentiates the energy with
 ``torch.autograd`` (the JAX package's capture-and-replay has no
-counterpart here). ``MolSimModel`` and mapped neighbor lists are not
-ported.
+counterpart here), so a row slice of the nlist (the all-atom part of a
+mapped list, :meth:`SimModel.mapped_nlist`) differentiates as any other
+tensor derived from it.
+
+:class:`MolSimModel` batches the rows by molecule: its ``mol_compute``
+also gets ``mol_positions [M, MN, 4]`` and ``mol_nlist [M, MN, NN, 4]``,
+gathered through a dummy row 0 that absorbs the padding.
 """
 
 import functools
@@ -29,7 +34,7 @@ import torch
 from .module import Layer
 from ..ops.forces import model_call
 
-__all__ = ["SimModel"]
+__all__ = ["SimModel", "MolSimModel"]
 
 
 def _sniff_compute(fn, max_args, name):
@@ -73,6 +78,11 @@ class SimModel(Layer):
         self.output_forces = output_forces
         self.virial = virial
         self.check_nlist = check_nlist
+        # the mapped split (tfcompute.enable_mapped_nlist sets them): the
+        # all-atom rows are the first _map_i
+        self._map_nlist = False
+        self._map_fxn = None
+        self._map_i = None
         if SimModel.compute is type(self).compute:
             raise AttributeError(
                 "You must implement compute method in subclass")
@@ -204,6 +214,34 @@ class SimModel(Layer):
         return cls(**config)
 
     # ------------------------------------------------------------------
+    # the mapped split (the reference's simmodel.py:257-287)
+    # ------------------------------------------------------------------
+    def mapped_nlist(self, nlist):
+        """Split ``nlist`` into its all-atom and mapped (CG bead) rows
+        after ``tfcompute.enable_mapped_nlist``: a packed ``[N, NN, 4]``
+        list or :class:`..ops.direct.NlistPlanes` (each component sliced
+        by rows). Forces derived from either part differentiate through
+        the slice."""
+        from ..ops.direct import NlistPlanes
+        self._check_mapped()
+        k = self._map_i
+        if isinstance(nlist, NlistPlanes):
+            return nlist.map(lambda c: c[:k]), nlist.map(lambda c: c[k:])
+        return nlist[:k], nlist[k:]
+
+    def mapped_positions(self, positions):
+        """Split ``positions`` into its all-atom and mapped rows after
+        ``tfcompute.enable_mapped_nlist``."""
+        self._check_mapped()
+        return positions[:self._map_i], positions[self._map_i:]
+
+    def _check_mapped(self):
+        if not self._map_nlist:
+            raise ValueError(
+                "You must call tfcompute.enable_mapped_nlist before using "
+                "mapped_nlist")
+
+    # ------------------------------------------------------------------
     # Training surface
     # ------------------------------------------------------------------
     def compile(self, optimizer="adam", loss="mse", learning_rate=1e-3):
@@ -316,3 +354,111 @@ def _make_optimizer(name, lr, params):
         return torch.optim.SGD(params, lr=lr)
     cuda = bool(params) and params[0].is_cuda
     return torch.optim.Adam(params, lr=lr, capturable=cuda)
+
+
+def _make_reverse_indices(mol_indices):
+    """Atom index -> ``[molecule, position]`` (the reference's
+    ``simmodel.py:714-733``), from 1-indexed, zero-padded
+    ``mol_indices``; an atom in no molecule gets ``[-1, -1]`` (with one
+    printed warning)."""
+    num_atoms = 0
+    for m in mol_indices:
+        num_atoms = max(num_atoms, max(m))
+    rmi = [[] for _ in range(num_atoms)]
+    for i in range(len(mol_indices)):
+        for j in range(len(mol_indices[i])):
+            index = mol_indices[i][j]
+            if index > 0:
+                rmi[index - 1] = [i, j]
+    warned = False
+    for r in rmi:
+        if len(r) != 2 and not warned:
+            warned = True
+            print("Not all of your atoms are in a molecule\n")
+            r.extend([-1, -1])
+    return rmi
+
+
+class MolSimModel(SimModel):
+    """A :class:`SimModel` batched by molecule (the reference's
+    ``simmodel.py:342-489``).
+
+    A subclass implements ``mol_compute(nlist, positions, mol_nlist,
+    mol_positions, box, training)``, taking at least the first three
+    tensor arguments. The per-particle rows are gathered into
+    ``mol_positions [M, MN, 4]`` and ``mol_nlist [M, MN, NN, 4]`` through
+    ``mol_indices`` made 1-indexed and zero-padded to ``MN``, with a
+    dummy zero row 0 that the padding reads. Forces still come from
+    ``nlist`` (the gradient flows back through the gather).
+
+    :param MN: the most atoms of a molecule.
+    :param mol_indices: per molecule, its atoms' (0-based) indices.
+    """
+
+    def __init__(self, MN, mol_indices, nneighbor_cutoff, output_forces=True,
+                 virial=False, check_nlist=False, dtype=torch.float32,
+                 name="htf-mol-model", **kwargs):
+        if MolSimModel.mol_compute is type(self).mol_compute:
+            raise AttributeError(
+                "You must implement mol_compute method in subclass of "
+                "MolSimModel")
+        self.MN = int(MN)
+        # 1-indexed and zero-padded (the reference's simmodel.py:386-397)
+        raw = [list(m) for m in mol_indices]
+        for mi in raw:
+            for i in range(len(mi)):
+                mi[i] += 1
+            if len(mi) > MN:
+                raise ValueError("One of your molecule indices"
+                                 " has more than MN indices."
+                                 "Increase MN in your graph.")
+            while len(mi) < MN:
+                mi.append(0)
+        self.mol_indices = raw
+        self.rev_mol_indices = _make_reverse_indices(raw)
+        self._mol_arg_count, self._mol_pass_training = _sniff_compute(
+            self.mol_compute, 5, "MolSimModel")
+        if self._mol_arg_count < 3:
+            raise AttributeError(
+                "You are creating a molecular batched model, but are only "
+                "using per atom nlist/positions. Either use only SimModel or "
+                "increase your argument count to mol_compute")
+        super().__init__(nneighbor_cutoff, output_forces=output_forces,
+                         virial=virial, check_nlist=check_nlist, dtype=dtype,
+                         name=name, **kwargs)
+        # the gather index, made once; a buffer, so it follows the model
+        # to the simulation's device (no variable: no weight of the JAX
+        # model's)
+        self.register_buffer(
+            "_mol_flat_idx",
+            torch.as_tensor(raw, dtype=torch.long).reshape(-1),
+            persistent=False)
+
+    def get_config(self):
+        config = super().get_config()
+        config.update({"MN": self.MN, "mol_indices": self.mol_indices})
+        return config
+
+    def mol_compute(self, nlist, positions, mol_nlist, mol_positions, box,
+                    training=True):
+        """The molecule-batched computation; implemented by the subclass
+        (tensor conventions of :meth:`SimModel.compute`, plus
+        ``mol_nlist [M, MN, NN, 4]`` and ``mol_positions [M, MN, 4]``).
+        Derive forces from ``nlist``."""
+        raise AttributeError("You must implement mol_compute method")
+
+    def compute(self, nlist, positions, box, training=True):
+        idx = self._mol_flat_idx
+        if idx.device != positions.device:
+            idx = idx.to(positions.device)
+        nn = max(1, self.nneighbor_cutoff)
+        # dummy row 0 absorbs the padded (zero) indices
+        ap = torch.cat([positions.new_zeros((1, 4)), positions])
+        an = torch.cat([nlist.new_zeros((1, nn, 4)), nlist])
+        mol_positions = ap[idx].reshape(-1, self.MN, 4)
+        mol_nlist = an[idx].reshape(-1, self.MN, nn, 4)
+        args = [nlist, positions, mol_nlist, mol_positions,
+                box][:self._mol_arg_count]
+        if self._mol_pass_training:
+            args.append(training)
+        return self.mol_compute(*args)

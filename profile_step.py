@@ -7,13 +7,16 @@ flagship proxy PairModel, ``--row pair``, the non-proxy PairModel, or
 (``--mode eval``, the bench protocol), through the port's public API; or
 (``--mode calls``) the whole calls of kernels K1, K2 and K3 alone; or
 (``--mode k3parts``, ``--mode genparts``) where the time of K3, or of K1's
-generic form, goes.
+generic form, goes; or (``--mode mapped``) the coarse-grained steps of
+chip_smoke.py phases 19-20.
 
 Run from the root of a checkout on a machine with one CUDA card:
 
-    python3 profile_step.py [--mode train|eval|calls|k3parts|genparts]
+    python3 profile_step.py [--mode train|eval|calls|k3parts|genparts|
+                                    mapped]
                             [--row proxy|pair|generic] [--steps 50]
                             [--box ortho|tilted|npt]
+                            [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls --tree DIR
 
 ``--tree DIR`` imports the port's package from another checkout (an
@@ -76,6 +79,12 @@ reduction's sweeps. With ``--tree DIR`` it edits and times that
 checkout's source. It also gives the whole call at the list
 the engine sized, and the pair function's share of its device time.
 
+``--mode mapped`` profiles phase 19's mapped model (65,536 atoms, 16,384
+beads; ``--route cell``, the sort method, or ``--route cellwise``, the
+planes route) or phase 20's MolSimModel (``--route molsim``, the cell
+list with K3) after 20 warm steps from the eval protocol's fluid, and
+adds the ten kernels that take the most time and the peak memory.
+
 The profiler adds host overhead, so the wall time and busy share under it
 are of a profiled run; the per-part times are not.
 """
@@ -99,7 +108,9 @@ GROUPS = (("K1 LJ form", ("half_stencil_forces", "LJForm")),
           ("generic_reduce_bwd", ("generic_reduce_bwd",)),
           ("K1 generic reduction", ("generic_reduce",)),
           ("K2 cross-cell sum", ("reduce_partials",)),
-          ("optimizer", ("adam",)))
+          ("optimizer", ("adam",)),
+          ("K3", ("nlist_select",)),
+          ("sort", ("sort",)))
 
 
 def is_roll(name):
@@ -183,6 +194,27 @@ def prepare(mode, cs, row="proxy", box="ortho"):
         sim.run(400)
     sim.auto_replan = False
     return sim, None
+
+
+def prepare_mapped(cs, route):
+    """Phase 19's mapped simulation on ``route`` ('cell' or 'cellwise'),
+    or phase 20's MolSimModel ('molsim'), from the eval protocol's fluid
+    thermalized at kT 1.5, after 20 warm steps."""
+    htt = cs.htt
+    fluid, _ = prepare("eval", cs)
+    fluid.thermalize_velocities(1.5)
+    if route == "molsim":
+        sim = htt.Simulation(dt=0.005, device="cuda",
+                             integrator=htt.md.NVT(kT=1.5, tau=0.5))
+        sim.set_state(fluid.state)
+        mols = [list(range(cs.GROUP * i, cs.GROUP * (i + 1)))
+                for i in range(cs.N // cs.GROUP)]
+        htt.tfcompute(cs.make_lj_mol(mols)).attach(sim, r_cut=cs.R_CUT)
+    else:
+        sim, _, _ = cs.mapped_sim(fluid.state, route)
+    sim.run(20)
+    cs.torch.cuda.reset_peak_memory_stats()
+    return sim
 
 
 def train_parts(sim, model, cs):
@@ -589,13 +621,15 @@ def gen_parts(cs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("train", "eval", "calls", "k3parts",
-                                       "genparts"),
+                                       "genparts", "mapped"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--row", choices=("proxy", "pair", "generic"),
                     default="proxy")
     ap.add_argument("--box", choices=("ortho", "tilted", "npt"),
                     default="ortho")
+    ap.add_argument("--route", choices=("cell", "cellwise", "molsim"),
+                    default="cell")
     ap.add_argument("--tree", default=HERE,
                     help="checkout whose hoomd_tf_tpu_torch is imported")
     args = ap.parse_args()
@@ -610,7 +644,8 @@ def main():
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    cs.torch, cs.htt = torch, htt
+    import numpy as np
+    cs.torch, cs.htt, cs.np = torch, htt, np
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.mode == "k3parts":
         print(json.dumps({"mode": "k3parts", "device":
@@ -629,7 +664,10 @@ def main():
             "calls": whole_calls(cs)}, indent=1))
         return 0
 
-    sim, model = prepare(args.mode, cs, args.row, args.box)
+    if args.mode == "mapped":
+        sim, model = prepare_mapped(cs, args.route), None
+    else:
+        sim, model = prepare(args.mode, cs, args.row, args.box)
     n = args.steps
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
@@ -646,11 +684,16 @@ def main():
         g = groups.setdefault(group_of(name), [0, 0.0])
         g[0] += 1
         g[1] += (b - a) / 1e3
-    plan = sim._layout.plan
+    if sim._layout is not None:
+        plan = [list(sim._layout.plan.grid), sim._layout.plan.capacity]
+    else:
+        grid, cap = sim._packed_build().plan
+        plan = [list(grid), cap]
     rec = {
         "mode": args.mode, "box": args.box, "n": cs.N, "steps": n,
+        "rows": sim.state.n_particles,
         "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
-        "plan": [list(plan.grid), plan.capacity],
+        "plan": plan,
         "wall_ms_per_step": wall_ms / n,
         "kernel_ms_per_step": sum(g[1] for g in groups.values()) / n,
         "busy_share": busy / wall_ms,
@@ -662,6 +705,15 @@ def main():
         rec["row"] = args.row
         rec["parts_ms"] = (train_parts(sim, model, cs) if args.row == "proxy"
                            else cs.generic_train_parts(sim)[0])
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if args.mode == "mapped":
+        rec["route"] = args.route
+        top = {}
+        for name, a, b in ev:
+            top[name] = top.get(name, 0.0) + (b - a) / 1e3
+        rec["top_kernels_ms_per_step"] = {
+            k[:100]: v / n for k, v in sorted(top.items(),
+                                              key=lambda x: -x[1])[:10]}
         rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps(rec, indent=1))
     return 0

@@ -1198,3 +1198,140 @@ def test_npt_and_tilted_runs_have_no_host_sync(cuda_device):
         moved = not np.array_equal(np_(sim.state.box), box0)
         assert moved == (kind == "npt")
         assert sim._layout.dynamic_box == (kind == "npt")
+
+
+# ---------------------------------------------------------------------------
+# slice G: mapped coarse-grained lists, MolSimModel, the CG operator
+# ---------------------------------------------------------------------------
+
+class MappedLJ(htt.SimModel):
+    """Reference example 02's structure with LJ (chip_smoke.py phase
+    19's): forces from the atoms' list, the beads' RDF into a
+    MeanTensor."""
+
+    def setup(self):
+        self.rdf = htt.MeanTensor()
+
+    def compute(self, nlist, positions, box):
+        aa, cg = self.mapped_nlist(nlist)
+        rdf, _ = htt.compute_rdf(cg, [0.5, 3.0], nbins=20)
+        self.rdf.update_state(rdf)
+        inv_r6 = htt.nlist_rinv(aa) ** 6
+        e = torch.sum(2.0 * (inv_r6 * inv_r6 - inv_r6), dim=1)
+        return htt.compute_nlist_forces(aa, e)
+
+
+def group_operator(n, device, k=4):
+    groups = [list(range(k * i, k * i + k)) for i in range(n // k)]
+    return htt.sparse_mapping([np.ones((1, k)) / k] * len(groups), groups,
+                              device=device)
+
+
+def mapped_fluid(device, nlist, n=4096, seed=0):
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=seed, device=device)
+    pos, vel, lengths = fluid_arrays(n, 0.4, seed=seed, kT=1.5)
+    sim.set_state(torch_state(pos, vel, lengths, device=device))
+    op = group_operator(n, device)
+
+    def mapping(pos4, box):
+        com = htt.center_of_mass(pos4, op, box)
+        return torch.cat([com, torch.zeros_like(com[:, :1])], dim=1)
+    tfc = htt.tfcompute(MappedLJ(96))
+    tfc.enable_mapped_nlist(sim, mapping)
+    tfc.attach(sim, r_cut=3.0, nlist=nlist)
+    return sim, tfc, op
+
+
+def test_center_of_mass_on_card_has_no_host_sync(cuda_device):
+    """sparse_mapping's CSR operator lives on the card and its product in
+    center_of_mass waits on nothing (set_sync_debug_mode('error')); the
+    result equals the CPU's at 1e-5. The groups are compact, as a
+    molecule's atoms are (within 1 of their center, which lies anywhere
+    in the box, across its boundary too): for atoms spread over the box
+    the circular mean is ill-conditioned, and the card's and the CPU's
+    cos and sin, a few ulp apart, then differ by more."""
+    n = 4096
+    rng = np.random.RandomState(0)
+    centers = np.repeat(rng.rand(n // 4, 3) * 20 - 10, 4, axis=0)
+    pos = centers + rng.uniform(-1, 1, (n, 3))
+    pos = torch.as_tensor((pos - np.round(pos / 20) * 20).astype(np.float32))
+    box = torch.tensor([20.0, 20.0, 20.0])
+    op = group_operator(n, cuda_device)
+    assert op.is_cuda and op.layout == torch.sparse_csr
+    pc, bc = pos.to(cuda_device), box.to(cuda_device)
+    htt.center_of_mass(pc, op, bc)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = htt.center_of_mass(pc, op, bc)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    want = htt.center_of_mass(pos, group_operator(n, "cpu"), box)
+    d = np_(got) - np_(want)
+    np.testing.assert_allclose(d - np.round(d / 20.0) * 20.0, 0.0,
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("nlist", ["cell", "cellwise"])
+def test_mapped_runs_have_no_host_sync(cuda_device, nlist):
+    """A mapped model (4096 atoms, 1024 beads) on 'cell' (the sort
+    method) and on 'cellwise' (the planes route) with the step loop
+    under set_sync_debug_mode('error'): the beads at the mapping of the
+    atoms (1e-4), zero bead forces, finite; one step's forces equal the
+    CPU's (5e-4, the 'cellwise' bar)."""
+    sim, tfc, op = mapped_fluid(cuda_device, nlist)
+    cpu, _, _ = mapped_fluid(torch.device("cpu"), nlist)
+    sim.run(1)
+    cpu.run(1)
+    np.testing.assert_allclose(np_(sim.state.forces), np_(cpu.state.forces),
+                               rtol=5e-4, atol=5e-4)
+    sim.check_syncs = True
+    sim.run(20)
+    st = sim.state
+    n = 4096
+    L = htt.box_size(st.box)
+    d = st.positions[n:] - htt.center_of_mass(st.positions[:n], op, L)
+    d = d - torch.round(d / L) * L
+    assert float(d.abs().max()) <= 1e-4
+    assert float(st.forces[n:].abs().max()) == 0.0
+    assert np.isfinite(np_(st.positions)).all()
+    assert float(tfc.model.rdf.result().sum()) > 0
+
+
+def test_molsim_run_has_no_host_sync(cuda_device):
+    """A MolSimModel of four-atom molecules on the card's default build
+    (the cell list with K3), the step loop under set_sync_debug_mode(
+    'error'): K3 at every build, forces equal the plain LJ model's on
+    the same list (every atom in one molecule)."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+
+    class LJMol(htt.MolSimModel):
+        def mol_compute(self, nlist, positions, mol_nlist, mol_positions,
+                        box):
+            rinv = htt.nlist_rinv(mol_nlist)
+            return htt.compute_nlist_forces(
+                nlist, torch.sum(2.0 * (rinv ** 12 - rinv ** 6)))
+
+    n = 4096
+    mols = [list(range(4 * i, 4 * i + 4)) for i in range(n // 4)]
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         device=cuda_device)
+    pos, vel, lengths = fluid_arrays(n, 0.4, seed=1, kT=1.5)
+    sim.set_state(torch_state(pos, vel, lengths, device=cuda_device))
+    model = LJMol(4, mols, 64)
+    htt.tfcompute(model).attach(sim, r_cut=3.0)
+    assert sim._packed_build().method == "pallas"
+    nl = sim._build_nlist(sim.state)
+    inputs = [nl, sim.state.positions4, sim.state.box]
+    np.testing.assert_allclose(np_(model(inputs)[0])[:, :3],
+                               np_(SimLJ(64).to(cuda_device)(inputs)[0])
+                               [:, :3], rtol=0, atol=1e-4)
+    sim.check_syncs = True
+    before, builds = tnc.nlist_select.launches, sim.nlist_builds
+    sim.run(30)
+    assert tnc.nlist_select.launches - before == \
+        sim.nlist_builds - builds == 30
+    assert np.isfinite(np_(sim.state.forces)).all()
+    assert 0.8 < sim.thermo()["temperature"] < 2.5

@@ -12,9 +12,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "hoomd_tf_tpu_torch"
 
 
-# every module of the port, the online-training, packed and generic-model
-# slices' included
+# every module of the port, the online-training, packed, generic-model and
+# coarse-grained slices' included
 MODULES = ("hoomd_tf_tpu_torch", "hoomd_tf_tpu_torch.interop",
+           "hoomd_tf_tpu_torch.utils", "hoomd_tf_tpu_torch.utils.cg",
+           "hoomd_tf_tpu_torch.utils.graph",
+           "hoomd_tf_tpu_torch.utils.mol_features",
+           "hoomd_tf_tpu_torch.utils.pdb_io",
+           "hoomd_tf_tpu_torch.utils.trajectory",
            "hoomd_tf_tpu_torch.ops.direct",
            "hoomd_tf_tpu_torch.ops.rdf",
            "hoomd_tf_tpu_torch.ops.lane_fast",
@@ -49,9 +54,12 @@ def test_import_without_jax():
 
 def test_no_jax_import_statement():
     """No module of the port names JAX or the JAX package in an import
-    (checked on the source, so lazy imports inside functions count too)."""
+    (checked on the source, so lazy imports inside functions count too),
+    its subpackages included."""
     banned = ("jax", "optax", "hoomd_tf_tpu")
-    for path in sorted(PKG.rglob("*.py")):
+    paths = sorted(PKG.rglob("*.py"))
+    assert PKG / "utils" / "cg.py" in paths
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -83,29 +91,22 @@ def test_chip_smoke_refuses_without_card_or_checkout(where, tmp_path):
 
 
 # The JAX package's public names the port does not export yet, each with
-# the ROADMAP.md Queue 1 item that brings it.
-_ITEM5 = ("MolSimModel",                                  # mapped CG models
-          "find_molecules", "find_molecules_from_topology",  # utils.cg
-          "matrix_mapping", "sparse_mapping", "center_of_mass",
-          "gen_mapped_exclusion_list", "gen_bonds_group",
-          "compute_ohe_bead_type_interactions",
-          "compute_adj_mat", "compute_cg_graph", "find_cgnode_id",  # graph
-          "mol_features_multiple",
-          "mol_bond_distance", "mol_angle", "mol_dihedral")  # mol_features
-_ITEM6 = ("iter_from_trajectory", "compute_pairwise", "create_frame",
-          "GSDFile", "GSDUniverse", "write_gsd_frames",
-          "save_model", "load_model", "custom_objects", "utils")
+# the ROADMAP.md Queue 1 item that brings it: GSD I/O, serialize and the
+# profiling helpers (item 6), parallel (item 7).
+_GSD = ("GSDFile", "GSDUniverse", "write_gsd_frames")
+_ITEM6 = _GSD + ("save_model", "load_model", "custom_objects")
 _ITEM7 = ("parallel",)
 PENDING = {
-    "": {**{k: 5 for k in _ITEM5}, **{k: 6 for k in _ITEM6},
-         **{k: 7 for k in _ITEM7}},
+    "": {**{k: 6 for k in _ITEM6}, **{k: 7 for k in _ITEM7}},
     "md": {},
     "ops": {},
-    "models": {"MolSimModel": 5},
+    "models": {},
+    "utils": {k: 6 for k in _GSD + ("trace", "time_steps",
+                                     "benchmark_simulation")},
 }
 
 
-@pytest.mark.parametrize("space", ["", "md", "ops", "models"])
+@pytest.mark.parametrize("space", ["", "md", "ops", "models", "utils"])
 def test_namespaces_match_jax(space):
     """Each namespace's ``__all__`` is the JAX package's less the names
     still to come (``PENDING``, by Queue 1 item), and every listed name

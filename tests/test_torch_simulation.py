@@ -199,21 +199,27 @@ class _TGeneric(htt.SimModel):
 @pytest.mark.parametrize("case", ["nlist", "train", "simmodel", "proxy"])
 def test_attach_rejects_unported(case):
     """What stays refused, each naming the part of the port that brings it
-    (or, for particle batching on the planes modes and a ``period`` below
-    1, refused as the JAX package refuses it): mapped neighbor lists, for
-    evaluation and for training; ``batch_size`` with 'cellwise'; and
-    ``period=0``. (Training every model kind, with ``period`` and
-    ``batch_size`` on the packed routes, is ported:
-    tests/test_torch_train_{pair,generic,packed}.py; so is ``period`` > 1
-    for a model evaluated on 'cellwise', tests/test_torch_period.py.)"""
+    (or, where the JAX package refuses it too, as it refuses it): an
+    unknown neighbor mode; training with a mapped neighbor list on
+    'cellwise' (at run(), naming the mapping); ``batch_size`` with
+    'cellwise'; and ``period=0``. (Mapped lists are ported on every
+    route, tests/test_torch_mapped.py; training every model kind, with
+    ``period`` and ``batch_size`` on the packed routes,
+    tests/test_torch_train_{pair,generic,packed}.py; ``period`` > 1 for
+    a model evaluated on 'cellwise', tests/test_torch_period.py.)"""
     sim, _ = bench_like(n=256)
-    if case in ("nlist", "train"):
+    if case == "nlist":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+            htt.tfcompute(TLJ(64)).attach(sim, r_cut=3.0, nlist="mesh")
+    elif case == "train":
         model = TLJ(64)
-        model._map_nlist = True
         model.compile(loss="mse")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            htt.tfcompute(model).attach(sim, r_cut=3.0, nlist="cellwise",
-                                        train=case == "train")
+        tfc = htt.tfcompute(model)
+        tfc.enable_mapped_nlist(sim, lambda pos4, box: torch.cat(
+            [pos4[:2, :3], torch.zeros_like(pos4[:2, :1])], dim=1))
+        tfc.attach(sim, r_cut=3.0, nlist="cellwise", train=True)
+        with pytest.raises(ValueError, match="mapped"):
+            sim.run(1)
     elif case == "simmodel":
         model = _TGeneric(16)
         model.compile(loss="mse")
@@ -278,6 +284,15 @@ DEVICE_ENTRIES = {
     "cell_list_nlist": lambda **kw: htt.cell_list_nlist(
         np.concatenate([fluid_arrays(64, 0.3)[0], np.zeros((64, 1))], 1),
         3.0, 8, [9.5] * 3, **kw),
+    "sparse_mapping": lambda **kw: htt.sparse_mapping(
+        [np.ones((1, 2)) / 2] * 2, [[0, 1], [2, 3]], **kw),
+    # host positions and a host dense operator, as matrix_mapping gives
+    "center_of_mass": lambda **kw: htt.center_of_mass(
+        np.eye(4, 3, dtype=np.float32),
+        np.kron(np.eye(2), [[0.5, 0.5]]), [6.0] * 3, **kw),
+    "compute_ohe_bead_type_interactions": lambda **kw:
+        htt.compute_ohe_bead_type_interactions([0, 1], [[1, 0], [1, 1]], 2,
+                                               **kw),
     "divide_no_nan": lambda **kw: htt.divide_no_nan([1.0, 2.0], [0.0, 4.0],
                                                     **kw),
     "multiply_no_nan": lambda **kw: htt.multiply_no_nan(1.0, [0.0, 4.0],
