@@ -155,7 +155,27 @@ exits non-zero:
                (8 five-atom molecules) on the card with their own
                assertions; iter_from_trajectory over 20 frames of a
                4,096-atom LJ run, each frame's model forces against the
-               engine's 'n2' forces at those positions (1e-4).
+               engine's 'n2' forces at those positions (1e-4);
+22. fp64-eval -- phase 4's protocol with init_lattice(dtype=torch.float64)
+               and a float64 model: a timed run(1000), host syncs
+               forbidden, 1.1 < T < 1.9, every state tensor float64, every
+               K1 launch the double instantiation, as many as the force
+               evaluations; the forces of 256 rows against the float64
+               27-image oracle (1e-10 max|F|); K1 double against its plain
+               version (1e-11 max|F|), its whole call and its bound at
+               float64's 34 TFLOP/s;
+23. fp64-train -- phases 5 and 10's rows (the proxy NN, TrainableNNPair)
+               in float64 from one float64 fluid, phase 5's protocol and
+               loss gate, every launch double: K1's proxy form and K2
+               (rtol 1e-10), generic_reduce_bwd lane by lane and K1's
+               generic form (1e-11) against their plain versions, times
+               and bounds;
+24. fp64-packed -- phase 6's packed path (LJModel(64), the cell list with
+               K3) in float64: a timed run(500), K3 double equal to its
+               plain version element for element, its times; then
+               save_checkpoint, run(20), load_checkpoint: the restored
+               positions bit-equal, the resumed run(20) within 1e-9 of the
+               uninterrupted one (bit-equal reported).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -186,9 +206,18 @@ K2_RTOL, K2_ATOL_REL = 2e-4, 2e-5
 # Steps of the timed packed run.
 PACKED_STEPS = 500
 # Published peaks of one H100 SXM at 700 W: HBM 3.35 TB/s, float32 outside
-# the tensor cores 67 TFLOP/s (NVIDIA's data sheet).
+# the tensor cores 67 TFLOP/s, float64 outside the tensor cores 34 TFLOP/s
+# (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12
+# float64 (phases 22-24): each double kernel against its plain version,
+# relative to the reference's max |value|: K1 (every form) 1e-11, K2 rtol
+# 1e-10, generic_reduce_bwd 1e-11 lane by lane, K3 element for element;
+# the forces against the float64 27-image oracle 1e-10 (tests/test_fp64.py's
+# bar); the resumed run within 1e-9 of the uninterrupted one.
+F64_K1_TOL, F64_K2_RTOL, F64_BWD_TOL = 1e-11, 1e-10, 1e-11
+F64_ORACLE_TOL, F64_RESUME_TOL = 1e-10, 1e-9
 
 
 def check(cond, msg):
@@ -235,11 +264,12 @@ def cuda_ms(fn, reps=25):
     return times[len(times) // 2]
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak_ops=PEAK_F32_PER_S):
     """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the float32 operations over their peak."""
+    over the memory rate and the operations over their peak (float32's,
+    or ``PEAK_F64_PER_S`` for a float64 function)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -270,34 +300,35 @@ def pair_counts(positions, valid, plan):
 
 
 def k1_cost(positions, valid, plan, n_ch, form):
-    """Bytes and float32 operations of the function K1 computes on this
-    state, forces only or with energy (``n_ch`` 3 or 4), untyped: the slot
+    """Bytes and operations of the function K1 computes on this state,
+    forces only or with energy (``n_ch`` 3 or 4), untyped: the slot
     positions and ``valid`` read once, ``forces4`` written once, the form's
-    table; per tested pair the displacement, d2 and the cut test (9
-    operations), per pair inside the cut the pair form (LJ 14, the
-    proxy's two Clenshaw series 8K + 10) and, per channel, the product and
-    its two sums (3)."""
+    table, each value of the positions' size (4 bytes, 8 in float64); per
+    tested pair the displacement, d2 and the cut test (9 operations), per
+    pair inside the cut the pair form (LJ 14, the proxy's two Clenshaw
+    series 8K + 10) and, per channel, the product and its two sums (3)."""
     from hoomd_tf_tpu_torch.ops.cellwise_cuda import ChebForm
     tested, inside = pair_counts(positions, valid, plan)
-    nbytes = plan.n_slots * 4 * (3 + 1 + 4) + \
-        form.tensor(positions.device).numel() * 4
+    esize = positions.element_size()
+    nbytes = plan.n_slots * esize * (3 + 1 + 4) + \
+        form.tensor(positions.device).numel() * esize
     per = 8 * form.K + 10 if isinstance(form, ChebForm) else 14
     return nbytes, 9 * tested + inside * (per + 3 * n_ch)
 
 
 def k2_cost(positions, valid, plan, K, energy, M):
-    """Bytes and float32 operations of the function K2 computes on this
-    state, untyped: the slot positions, ``valid`` and the ``[n_slots, 4]``
-    cotangent read once, the ``M`` moments written once; per tested pair 9
-    operations, per pair inside the cut 27 (weights, u, w) plus, per term,
-    the recurrence (2) and each moment's multiply-add (2 per moment
-    set)."""
+    """Bytes and operations of the function K2 computes on this state,
+    untyped: the slot positions, ``valid`` and the ``[n_slots, 4]``
+    cotangent read once, the ``M`` moments written once (values of the
+    positions' size); per tested pair 9 operations, per pair inside the
+    cut 27 (weights, u, w) plus, per term, the recurrence (2) and each
+    moment's multiply-add (2 per moment set)."""
     tested, inside = pair_counts(positions, valid, plan)
-    nbytes = 4 * (plan.n_slots * (3 + 1 + 4) + M)
+    nbytes = positions.element_size() * (plan.n_slots * (3 + 1 + 4) + M)
     return nbytes, 9 * tested + inside * (27 + K * (2 + 2 * (1 + energy)))
 
 
-def make_model(nn=64, virial=False):
+def make_model(nn=64, virial=False, dtype=None):
     class LJ(htt.PairModel):
         """The benchmark's LJ (epsilon = sigma = 1), declaring its form."""
 
@@ -312,23 +343,26 @@ def make_model(nn=64, virial=False):
 
         def pair_kernel_form(self):
             return htt.md.LennardJones(1.0, 1.0, r_cut=R_CUT)
-    return LJ(nn, virial=virial)
+    return LJ(nn, virial=virial, dtype=dtype or torch.float32)
 
 
-def make_nn(seed=0, proxy_degree=K_PROXY):
+def make_nn(seed=0, proxy_degree=K_PROXY, dtype=None):
     """north_star.py's TrainableNNPair: a per-lane MLP on 1/r (widths
-    16 -> 1), random weights from ``seed``."""
+    16 -> 1), random weights from ``seed``, in ``dtype`` (float32 by
+    default)."""
     gen = torch.Generator().manual_seed(seed)
+    dtype = dtype or torch.float32
 
     class NNPair(htt.PairModel):
         def setup(self):
-            self.dense1 = htt.Dense(16, generator=gen)
-            self.last = htt.Dense(1, generator=gen)
+            self.dense1 = htt.Dense(16, generator=gen, dtype=dtype)
+            self.last = htt.Dense(1, generator=gen, dtype=dtype)
 
         def pair_energy(self, r2):
             x = torch.tanh(self.dense1(torch.rsqrt(r2)[..., None]))
             return 2.0 * self.last(x)[..., 0]
-    return NNPair(64, output_forces=False, proxy_degree=proxy_degree)
+    return NNPair(64, output_forces=False, proxy_degree=proxy_degree,
+                  dtype=dtype)
 
 
 def make_nn_generic(seed=0):
@@ -380,14 +414,15 @@ def force_loss(yt, yp):
     return torch.mean((yt[:, :3] - yp[:, :3]) ** 2)
 
 
-def jittered_sim(n, integrator, device, seed=0):
+def jittered_sim(n, integrator, device, seed=0, dtype=None):
     import numpy as np
+    dtype = dtype or torch.float32
     sim = htt.Simulation(dt=0.005, integrator=integrator, seed=seed,
                          device=device)
-    sim.init_lattice(n, density=DENSITY, kT_init=1.5)
+    sim.init_lattice(n, density=DENSITY, kT_init=1.5, dtype=dtype)
     rng = np.random.RandomState(seed)
     sim.state.positions = sim.state.positions + torch.as_tensor(
-        0.3 * rng.randn(n, 3).astype(np.float32), device=device)
+        0.3 * rng.randn(n, 3).astype(np.float32), device=device).to(dtype)
     return sim
 
 
@@ -398,7 +433,7 @@ def slot_state(layout, state):
     return slot, aux
 
 
-def make_simmodel(nn=64):
+def make_simmodel(nn=64, dtype=None):
     """The JAX package's typical use (hoomd_tf_tpu/__init__.py), jnp.sum
     -> torch.sum: LJ (epsilon = sigma = 1) from nlist_rinv, forces by
     autodiff."""
@@ -409,7 +444,7 @@ def make_simmodel(nn=64):
             energy = torch.sum(4.0 / 2.0 * (inv_r6 * inv_r6 - inv_r6),
                                dim=1)
             return htt.compute_nlist_forces(nlist, energy)
-    return LJModel(nn)
+    return LJModel(nn, dtype=dtype or torch.float32)
 
 
 def k3_cost(slots4, counts, grid, cap, nn, n, valid_per_row):
@@ -425,8 +460,9 @@ def k3_cost(slots4, counts, grid, cap, nn, n, valid_per_row):
     neigh = neighbor_cells(grid, counts.device)
     cand = counts.long()[neigh].sum(1)
     pairs = int((counts.long() * cand).sum())
-    nbytes = slots4.numel() * 4 + counts.numel() * 4 + \
-        slots4.shape[0] * 4 + n * nn * 16
+    esize = slots4.element_size()
+    nbytes = slots4.numel() * esize + counts.numel() * 4 + \
+        slots4.shape[0] * 4 + n * nn * 4 * esize
     v = valid_per_row.double()
     return nbytes, 24 * pairs + float((v * v).sum()), pairs
 
@@ -638,7 +674,8 @@ def phase_packed():
           f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} "
           f"MB, {ops / 1e9:.3f} G operations over {pairs} candidate pairs)")
     rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-               library_ms=t_lib, max_abs_err=err, launches=launches)
+               library_ms=t_lib, max_abs_err=err, launches=launches,
+               sps=steps / dt)
 
     # small N: one step on the card against the port on the CPU
     q = jittered_sim(4096, htt.md.Minimize(max_disp=0.05), "cpu", seed=3)
@@ -700,14 +737,16 @@ def phase_packed():
 
 
 def k1_generic_cost(positions, valid, plan, n_ch, needed):
-    """Bytes and float32 operations of K1's own work in its generic form,
-    the user's pair function left out: the slot positions and ``valid``
-    read once, ``forces4`` written once, the list's ``needed`` lanes
-    written (r2, ti, tj) and their (U, s) read once; per tested pair the
-    displacement, d2 and the cut test (9, as ``k1_cost``), per listed lane
-    the products and their sums (3 per channel)."""
+    """Bytes and operations of K1's own work in its generic form, the
+    user's pair function left out: the slot positions and ``valid`` read
+    once, ``forces4`` written once, the list's ``needed`` lanes written
+    (r2, ti, tj) and their (U, s) read once, values of the positions' size
+    (20 bytes a lane, 40 in float64); per tested pair the displacement, d2
+    and the cut test (9, as ``k1_cost``), per listed lane the products and
+    their sums (3 per channel)."""
     tested, _ = pair_counts(positions, valid, plan)
-    nbytes = plan.n_slots * 4 * (3 + 1 + 4) + needed * 4 * (3 + 2)
+    esize = positions.element_size()
+    nbytes = plan.n_slots * esize * (3 + 1 + 4) + needed * esize * (3 + 2)
     return nbytes, 9 * tested + needed * 3 * n_ch
 
 
@@ -1258,7 +1297,8 @@ def phase_train():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(lj=k1.launches - k1.proxy_launches,
-                    proxy=k1.proxy_launches, k2=k2.launches)
+                    proxy=k1.proxy_launches, k2=k2.launches,
+                    sps=200 / min(times))
     evals = sim.force_evals - evals0
     # train steps attempted: a run rolled back by the engine's self-heal
     # (a cell over capacity) re-runs its steps, and its losses are dropped
@@ -1545,7 +1585,8 @@ def phase_train_generic(label, model, loss):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(gen=gen.launches, bwd=bwd.launches, lj=k1.launches)
+    launches = dict(gen=gen.launches, bwd=bwd.launches, lj=k1.launches,
+                    sps=200 / min(times))
     steps = sim.train_steps - steps0
     evals = sim.force_evals - evals0
     probes = sim.probe_evals - probe0
@@ -1600,18 +1641,22 @@ def phase_train_generic(label, model, loss):
 
 
 def bwd_cost(gl, needed, energy):
-    """Bytes and float32 operations of the function generic_reduce_bwd
-    computes on this list: each listed cell's record (the words its
-    header says it uses) read once, the cell bases, ``ct`` [n_slots, 4]
-    and ``valid`` read once, the budget's lanes of gS (and gU) written
-    once; per listed lane the displacement (3), the row and candidate
-    weights (8 + 4) and the dot product (5)."""
+    """Bytes and operations of the function generic_reduce_bwd computes
+    on this list: each listed cell's record (the words its header says it
+    uses: a staged entry is 4 words, 8 in float64) read once, the cell
+    bases, ``ct`` [n_slots, 4] and ``valid`` read once, the budget's lanes
+    of gS (and gU) written once, values of the list's size; per listed
+    lane the displacement (3), the row and candidate weights (8 + 4) and
+    the dot product (5)."""
     plan = gl.plan
+    esize = gl.r2.element_size()
     hdr = gl.rec.view(plan.n_cells, -1)[:, :3].long()
     n0, total, nw = hdr[:, 0], hdr[:, 1], hdr[:, 2]
-    words = 4 + 5 * total + n0 + 1 + n0 * nw + (n0 * nw + 1) // 2
+    words = (4 + (esize + 1) * total + n0 + 1 + n0 * nw +
+             (n0 * nw + 1) // 2)
     nbytes = (4 * int(words.sum()) + 4 * plan.n_cells +
-              plan.n_slots * 4 * (4 + 1) + gl.budget * 4 * (1 + energy))
+              plan.n_slots * esize * (4 + 1) +
+              gl.budget * esize * (1 + energy))
     return nbytes, 20 * needed
 
 
@@ -2858,6 +2903,493 @@ def phase_cg_tools():
           f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
+F64 = None  # torch.float64, set in main()
+
+
+def f64_compare(name, got, want, tol):
+    """``max |got - want| <= tol * max |want|`` for float64 tensors (both
+    float64, finite); returns the max abs error."""
+    check(got.dtype == F64 and want.dtype == F64,
+          f"{name}: not float64 ({got.dtype}, {want.dtype})")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  {name}: max_abs_err={err:.3e} max|ref|={scale:.3e} "
+          f"err/(max|ref|)={err / scale:.3e} (limit {tol:g})")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(err <= tol * scale, f"{name}: disagrees beyond {tol:g} max|ref|")
+    return err
+
+
+def check_f64_state(sim, label):
+    st = sim.state
+    for name in ("positions", "velocities", "masses", "box", "forces",
+                 "virial"):
+        check(getattr(st, name).dtype == F64,
+              f"{label}: state.{name} is {getattr(st, name).dtype}")
+
+
+def oracle_rows(pos, L, rows, r_cut):
+    """LJ forces on ``rows`` by the exact 27-image minimum image, float64,
+    on the card (``oracle_27``'s arithmetic, orthorhombic, in row chunks)."""
+    import itertools
+    shifts = torch.tensor(list(itertools.product((-1, 0, 1), repeat=3)),
+                          dtype=F64, device=pos.device) * L
+    out = []
+    for a in range(0, rows.numel(), 16):
+        r = rows[a:a + 16]
+        d = pos[None] - pos[r, None]
+        cand = d[:, :, None, :] + shifts
+        k = (cand * cand).sum(-1).argmin(-1)
+        d = torch.gather(cand, 2, k[..., None, None].expand(
+            -1, -1, 1, 3))[:, :, 0]
+        rr = torch.linalg.norm(d, dim=-1)
+        rr[torch.arange(r.numel()), r] = float("inf")
+        m = rr <= r_cut
+        rs = torch.where(m, rr, torch.full_like(rr, float("inf")))
+        fmag = 24 * (2 * rs ** -13 - rs ** -7)
+        out.append(-((fmag / torch.where(m, rr, torch.ones_like(rr)))
+                     [..., None] * d).sum(1))
+    return torch.cat(out)
+
+
+def phase_fp64_eval(main_sps):
+    """Phase 22: phase 4's eval protocol with a float64 state and model:
+    every launch K1's double instantiation, the state float64 throughout,
+    the forces against the float64 27-image oracle on rows of the final
+    state, K1 double against its plain version."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda", dtype=F64)
+    sim.check_syncs = True
+    tfc = htt.tfcompute(make_model(dtype=F64))
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise")
+    k1.launches = k1.proxy_launches = k1.f64_launches = 0
+    evals0 = sim.force_evals
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    dt, tl, te = timed_run(sim, 1000)
+    th = healthy(sim, "float64 eval")
+    check_f64_state(sim, "float64 eval")
+    launches, evals = k1.launches, sim.force_evals - evals0
+    check(launches > 0 and launches == evals,
+          f"K1 launches {launches} != force evaluations {evals}")
+    check(k1.f64_launches == launches and k1.proxy_launches == 0,
+          f"{launches - k1.f64_launches} K1 launches were not double")
+    plan = sim._layout.plan
+    sps = 1000 / dt
+    print(f"  plan grid {plan.grid} cap {plan.capacity}; T="
+          f"{th['temperature']:.4f} PE/N={th['potential_energy'] / N:.6f}; "
+          f"K1 launches {launches} == force evaluations {evals}, all double "
+          f"(timed run {tl} for {te}); no host sync in the step loops")
+    print(f"  float64 steps/s {sps:.2f} (timed run(1000)) against phase 4's "
+          f"float32 {main_sps:.2f} ({sps / main_sps:.3f}x) on {smi_line()} "
+          "-- info, not a claim")
+    # the forces against the 27-image oracle on 256 rows spread over the box
+    pos = sim.state.positions
+    L = float(sim._lengths[0])
+    rows = torch.arange(0, N, N // 256, device="cuda")
+    want = oracle_rows(pos, L, rows, R_CUT)
+    oracle_err = f64_compare("forces on 256 rows vs the float64 27-image "
+                             "oracle", sim.state.forces[rows, :3], want,
+                             F64_ORACLE_TOL)
+    # K1 double against its plain version at the final state
+    layout = sim._layout
+    slot, aux = slot_state(layout, sim.state)
+    form = htt.md.LennardJones(1.0, 1.0, r_cut=R_CUT).kernel_form()
+    common = (slot.positions, slot.types, aux["valid"], layout.plan,
+              layout.lo, form)
+    kw = dict(needs_virial=True, geometry=layout.geometry)
+    f_k, w_k = k1(*common, **kw)
+    f_p, w_p = cc.half_stencil_plain(*common, **kw)
+    torch.cuda.synchronize()
+    err = max(f64_compare("K1 double, forces+energy (kernel vs plain)", f_k,
+                          f_p, F64_K1_TOL),
+              f64_compare("K1 double, virial (kernel vs plain)", w_k, w_p,
+                          F64_K1_TOL))
+    t_k = cuda_ms(lambda: k1(*common, needs_energy=False,
+                             geometry=layout.geometry))
+    t_p = cuda_ms(lambda: cc.half_stencil_plain(
+        *common, needs_energy=False, geometry=layout.geometry), reps=11)
+    nbytes, ops = k1_cost(slot.positions, aux["valid"], layout.plan, 3, form)
+    b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+    print(f"  K1 double, the whole call (forces only, the eval step's): "
+          f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G float64 "
+          f"operations at 34 TFLOP/s); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err, launches=launches), oracle_err
+
+
+def fp64_train_base():
+    """The float64 set-up shared by phase 23's rows: the 64k fluid in
+    float64, quenched and equilibrated (NVT, 400 steps) under a built-in
+    LJ, as :func:`train_sim_attached` makes it."""
+    sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda", dtype=F64)
+    sim.add_force(htt.md.LennardJones(r_cut=R_CUT))
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(400)
+    th = sim.thermo()
+    check_f64_state(sim, "float64 training set-up")
+    check(1.1 < th["temperature"] < 1.9,
+          f"float64 training system is not a healthy fluid: {th}")
+    print(f"  float64 fluid equilibrated: T={th['temperature']:.4f}")
+    return sim.state
+
+
+def fp64_train_row(base, row):
+    """One of phase 23's rows from ``base``: the model (``row`` 'proxy':
+    phase 5's proxy NN; 'pair': phase 10's TrainableNNPair) in float64,
+    trained with phase 5's protocol (Adam lr 1e-2, warm training, four
+    timed run(200), 1400 committed steps) under check_syncs, every launch
+    of its kernels double; the loss must fall below 0.3x."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    k1, k2 = cc.half_stencil_pair_forces, pc.proxy_bwd_moments
+    gen, bwd = cc.generic_pair_forces, cc.generic_reduce_bwd
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    sim.set_state(dataclasses.replace(base, thermostat={}))
+    sim.add_force(htt.md.LennardJones(r_cut=R_CUT))
+    model = make_nn(seed=0, proxy_degree=K_PROXY if row == "proxy" else None,
+                    dtype=F64)
+    model.compile(optimizer="adam", loss=force_loss, learning_rate=1e-2)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise", train=True)
+    sim.check_syncs = True
+    for f in (k1, k2, gen, bwd):
+        f.launches = f.f64_launches = 0
+    k1.proxy_launches = 0
+    evals0, steps0 = sim.force_evals, sim.train_steps
+    warm_train(sim)
+    hist = tfc.loss_history
+    loss0 = float(np.mean(hist[:50]))
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(200)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steps = sim.train_steps - steps0
+    evals = sim.force_evals - evals0
+    loss1 = float(np.mean(hist[-50:]))
+    th = healthy(sim, f"float64 {row} row")
+    check_f64_state(sim, f"float64 {row} row")
+    check(len(hist) == 1400 <= steps,
+          f"{len(hist)} losses of committed steps, {steps} steps attempted")
+    check(bool(np.isfinite(hist).all()), "non-finite training loss")
+    check(loss1 < 0.3 * loss0, f"loss did not fall: {loss0} -> {loss1}")
+    for f in (k1, k2, gen, bwd):
+        check(f.f64_launches == f.launches,
+              f"{f.__name__}: {f.launches - f.f64_launches} launches not "
+              "double")
+    if row == "proxy":
+        check(k2.launches == steps == k1.proxy_launches,
+              f"K2 {k2.launches}, K1 proxy {k1.proxy_launches} launches "
+              f"for {steps} train steps")
+        check(k1.launches == evals, f"K1 launches {k1.launches} != "
+              f"evaluations {evals}")
+    else:
+        check(bwd.launches == steps == gen.launches,
+              f"generic_reduce_bwd {bwd.launches}, generic form "
+              f"{gen.launches} launches for {steps} train steps")
+        check(k1.proxy_launches == 0, "a proxy form launched")
+        check(k1.launches == evals - gen.launches,
+              f"K1 LJ launches {k1.launches} != label evaluations "
+              f"{evals - gen.launches}")
+    best = min(times)
+    print(f"  float64 {row} row: 1400 committed, {steps} attempted; loss "
+          f"(50-step windows) {loss0:.6f} -> {loss1:.6f} (ratio "
+          f"{loss1 / loss0:.4f}, limit 0.3); T={th['temperature']:.4f}; all "
+          f"launches double (K1 {k1.launches}, proxy {k1.proxy_launches}, "
+          f"K2 {k2.launches}, generic {gen.launches}, generic_reduce_bwd "
+          f"{bwd.launches}); no host sync")
+    print(f"  float64 train steps/s {200 / best:.2f} (best of 4 timed "
+          f"run(200), rounds {[round(t, 3) for t in times]} s) on "
+          f"{smi_line()} -- info, not a claim")
+    launches = dict(lj=k1.launches - k1.proxy_launches,
+                    proxy=k1.proxy_launches, k2=k2.launches,
+                    gen=gen.launches, bwd=bwd.launches)
+    return sim, model, launches, 200 / best
+
+
+def fp64_proxy_kernels(sim, model):
+    """K1's proxy form and K2 in double at the proxy row's state against
+    their plain versions (1e-11 max|F|, rtol 1e-10), their whole calls,
+    the plain versions' and the bounds."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    layout = sim._layout
+    p = layout.plan
+    slot, aux = slot_state(layout, sim.state)
+    with torch.no_grad():
+        form = model.pair_kernel_form(R_CUT, "cuda")
+    check(form.table.dtype == F64, "the proxy's table is not float64")
+    basis = model.proxy_parts(R_CUT, "cuda")[1].basis
+    common = (slot.positions, slot.types, aux["valid"], p, layout.lo)
+    kw = dict(min_r2=model.min_r2, geometry=layout.geometry)
+    f_k, w_k = cc.half_stencil_pair_forces(*common, form, needs_virial=True,
+                                           **kw)
+    f_p, w_p = cc.half_stencil_plain(*common, form, needs_virial=True, **kw)
+    torch.cuda.synchronize()
+    k1_err = max(f64_compare("K1 double proxy, forces+energy (kernel vs "
+                             "plain)", f_k, f_p, F64_K1_TOL),
+                 f64_compare("K1 double proxy, virial (kernel vs plain)",
+                             w_k, w_p, F64_K1_TOL))
+    t_k = cuda_ms(lambda: cc.half_stencil_pair_forces(
+        *common, form, needs_energy=False, **kw))
+    t_p = cuda_ms(lambda: cc.half_stencil_plain(
+        *common, form, needs_energy=False, **kw), reps=5)
+    nbytes, ops = k1_cost(slot.positions, aux["valid"], p, 3, form)
+    b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+    k1_rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                  max_abs_err=k1_err)
+    print(f"  K1 double proxy, the whole call (forces only, the train "
+          f"forward): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+          f"float64 operations)")
+    ct = torch.as_tensor(np.random.RandomState(0).randn(p.n_slots, 4),
+                         device="cuda")
+    k2_err, k2_rec = 0.0, None
+    for energy in (False, True):
+        args = (slot.positions, slot.types, aux["valid"], ct, p, layout.lo,
+                basis)
+        kw2 = dict(min_r2=model.min_r2, needs_energy=energy,
+                   geometry=layout.geometry)
+        got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
+            *args, **kw2)])
+        want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
+            *args, **kw2)])
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, compare(
+            f"K2 double, {'with energy' if energy else 'forces only'} "
+            f"({got.numel()} moments, kernel vs plain)", got, want,
+            rtol=F64_K2_RTOL, atol=F64_K2_RTOL * float(want.abs().max())))
+        check(got.dtype == F64, "K2's moments are not float64")
+        if k2_rec is None:
+            t_k = cuda_ms(lambda: pc.proxy_bwd_moments(*args, **kw2))
+            t_p = cuda_ms(lambda: pc.proxy_bwd_plain(*args, **kw2), reps=5)
+            nbytes, ops = k2_cost(slot.positions, aux["valid"], p, K_PROXY,
+                                  energy, got.numel())
+            b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+            k2_rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+            print(f"  K2 double, the whole call (forces only): kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+                  "float64 operations)")
+    k2_rec["max_abs_err"] = k2_err
+    return k1_rec, k2_rec
+
+
+def fp64_pair_kernels(sim):
+    """``generic_reduce_bwd`` and K1's generic form (the training forward)
+    in double at the pair row's state against their plain versions, lane
+    by lane at 1e-11 max|g| and at 1e-11 max|F|; times and bounds."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    layout = sim._layout
+    plan = layout.plan
+    st, aux = slot_state(layout, sim.state)
+    tr = sim._route(layout, st, aux).trainer
+    check(tr.kind == "pair", f"the pair row trained on {tr.kind!r}")
+    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+    lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    ct = torch.as_tensor(np.random.RandomState(0).randn(plan.n_slots, 4),
+                         device="cuda")
+    lst = cc.generic_list_plain(*common, min_r2=tr.min_r2,
+                                geometry=layout.geometry, typed=tr.typed)
+    check(lst["r2"].dtype == F64, "the plain list is not float64")
+    err, rec = 0.0, None
+    for energy in (False, True):
+        lanes.reset()
+        gl = cc.generic_list(*common, typed_fn=tr.typed, min_r2=tr.min_r2,
+                             geometry=layout.geometry, lanes=lanes,
+                             needs_energy=energy)
+        check(gl.r2.dtype == F64, "the list is not float64")
+        U, S = gl.evaluate(tr.pair_fn)
+        cc.generic_reduce(gl, U, S, energy)
+        gU, gS = cc.generic_reduce_bwd(gl, ct, energy)
+        pU, pS = cc.generic_reduce_bwd_plain(lst, ct, aux["valid"], plan,
+                                             energy)
+        need = int(lanes.needed)
+        check(not bool(lanes.overflow()), "the list overflowed")
+        idx = cc.kernel_lane_index(lst, gl.cell_base, plan)
+        check(need == lst["needed"] and bool(torch.equal(
+            torch.sort(idx).values, torch.arange(need, device="cuda"))),
+            "the kernel's list and the plain list differ")
+        torch.cuda.synchronize()
+        label = "with energy" if energy else "forces only"
+        err = max(err, f64_compare(
+            f"generic_reduce_bwd double gS, {label} (kernel vs plain, lane "
+            "by lane)", gS[idx], pS, F64_BWD_TOL))
+        check(int(torch.count_nonzero(gS[need:])) == 0,
+              "the list's tail carries a gradient")
+        if energy:
+            err = max(err, f64_compare("generic_reduce_bwd double gU",
+                                       gU[idx], pU, F64_BWD_TOL))
+            continue
+        t_k = cuda_ms(lambda: cc.generic_reduce_bwd(gl, ct, False))
+        t_p = cuda_ms(lambda: cc.generic_reduce_bwd_plain(
+            lst, ct, aux["valid"], plan, False), reps=5)
+        nbytes, ops = bwd_cost(gl, need, False)
+        b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+        rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+        print(f"  generic_reduce_bwd double (forces only): kernel {t_k:.4f} "
+              f"ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.2f} MB); {need} lanes of a {gl.budget}-lane "
+              "list")
+    rec["max_abs_err"] = err
+    # the training forward (the generic form in double) against its plain
+    # version, with the energy channel and the virial
+    kw = dict(min_r2=tr.min_r2, geometry=layout.geometry)
+    lanes.reset()
+    f_k, w_k = cc.generic_pair_forces(*common, tr.pair_fn, typed_fn=tr.typed,
+                                      needs_virial=True, lanes=lanes, **kw)
+    f_p, w_p = cc.generic_plain(*common, tr.pair_fn, typed_fn=tr.typed,
+                                needs_virial=True, lanes=None, **kw)
+    torch.cuda.synchronize()
+    gerr = max(f64_compare("K1 double generic, forces+energy (kernel vs "
+                           "plain)", f_k, f_p, F64_K1_TOL),
+               f64_compare("K1 double generic, virial (kernel vs plain)",
+                           w_k, w_p, F64_K1_TOL))
+    need = int(lanes.needed)
+    fw = dict(needs_energy=tr.energy, **kw)
+    t_k = cuda_ms(lambda: cc.generic_train_forces(
+        *common, tr.pair_fn, typed_fn=tr.typed, lanes=lanes, **fw), reps=11)
+    t_p = cuda_ms(lambda: cc.generic_plain(
+        *common, tr.pair_fn, typed_fn=tr.typed, lanes=None, **fw), reps=3)
+    nbytes, ops = k1_generic_cost(st.positions, aux["valid"], plan, 3, need)
+    b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+    print(f"  K1 double generic, the training forward's whole call (the "
+          f"pair function with grad): {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB)")
+    gen = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=gerr)
+    return rec, gen
+
+
+def phase_fp64_packed(packed_sps):
+    """Phase 24: phase 6's packed path in float64 (LJModel(64), the cell
+    list selecting with K3's double instantiation), a timed run; K3 double
+    against its plain version element for element; then a checkpoint:
+    save, run(20), load, run(20)."""
+    import tempfile
+    from hoomd_tf_tpu_torch import serialize
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    k3 = nc.nlist_select
+    NN = 64
+    t_phase = time.perf_counter()
+    sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda", dtype=F64)
+    sim.check_syncs = True
+    model = make_simmodel(NN, dtype=F64)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=R_CUT)
+    build = sim._packed_build()
+    check(build.method == "pallas",
+          f"'auto' resolved to {build.method!r} on the card, not K3")
+    k3.launches = k3.f64_launches = 0
+    builds0 = sim.nlist_builds
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(200)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(PACKED_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    th = healthy(sim, "float64 packed")
+    check_f64_state(sim, "float64 packed")
+    builds = sim.nlist_builds - builds0
+    launches = k3.launches
+    check(launches > 0 and launches == builds == k3.f64_launches,
+          f"K3 launches {launches} (double {k3.f64_launches}) != nlist "
+          f"builds {builds}")
+    sps = PACKED_STEPS / dt
+    grid, cap = sim._packed_build().plan
+    print(f"  plan grid {grid} cap {cap}; T={th['temperature']:.4f}; K3 "
+          f"launches {launches} == nlist builds {builds}, all double; no "
+          f"host sync")
+    print(f"  float64 packed steps/s {sps:.2f} (timed run({PACKED_STEPS})) "
+          f"against phase 6's float32 {packed_sps:.2f} "
+          f"({sps / packed_sps:.3f}x) on {smi_line()} -- info, not a claim")
+    st = sim.state
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
+                                               lengths)
+    check(not bool(ovf) and slots4.dtype == F64, "the double planes")
+    args = (slots4, counts, pid, grid, cap, NN, R_CUT, host_L, N)
+    got = k3(*args)
+    want = nc.nlist_select_reference(*args)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    print(f"  K3 double vs plain at the path's state: equal element for "
+          f"element: {same}")
+    check(same and got.dtype == F64,
+          "K3 double disagrees with its plain version")
+    t_k = cuda_ms(lambda: k3(*args))
+    t_p = cuda_ms(lambda: nc.nlist_select_reference(*args), reps=5)
+    # the yardstick: torch.topk over the plain version's int64 keys
+    from hoomd_tf_tpu_torch.ops import cell_stencil as cs
+    neigh = cs.neighbor_cells(grid, slots4.device)
+    C = 27 * cap
+    key = None
+    keys = []
+    for c0, c1 in cs.cell_chunks(int(grid[0] * grid[1] * grid[2]), cap):
+        ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(slots4, neigh, cap,
+                                                lengths, c0, c1)
+        keys.append(nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
+                                      ddz.reshape(-1, C), R_CUT,
+                                      nc.slot_bits(C))[0])
+    key = torch.cat(keys)
+    del keys
+    valid = (key != nc.FAR_KEY64).sum(1)[pid >= 0]
+    t_lib = cuda_ms(lambda: torch.topk(key, NN, dim=1, largest=False,
+                                       sorted=True), reps=5)
+    nbytes, ops, pairs = k3_cost(slots4, counts, grid, cap, NN, N, valid)
+    del key
+    b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+    print(f"  K3 double, the whole call: {t_k:.4f} ms, plain {t_p:.4f} ms, "
+          f"topk yardstick (int64 keys given) {t_lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G "
+          "float64 operations)")
+    rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+               library_ms=t_lib, max_abs_err=float((got - want).abs().max()),
+               launches=launches)
+    # a checkpoint: the restored state exact, the resumed run against the
+    # uninterrupted one
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.pkl")
+        serialize.save_checkpoint(path, model=model, sim=sim, tfc=tfc)
+        saved = sim.state.positions.clone()
+        sim.run(20)
+        first = sim.state.positions.clone()
+        serialize.load_checkpoint(path, model=model, sim=sim, tfc=tfc)
+    check(bool(torch.equal(sim.state.positions, saved)),
+          "the restored positions are not the saved ones")
+    check_f64_state(sim, "restored")
+    sim.run(20)
+    resume_err = float((sim.state.positions - first).abs().max())
+    bit_equal = bool(torch.equal(sim.state.positions, first))
+    print(f"  checkpoint: restored positions bit-equal; the resumed run(20) "
+          f"against the uninterrupted one: max |diff| {resume_err:.3e} "
+          f"(limit {F64_RESUME_TOL:g}), bit-equal: {bit_equal}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(resume_err <= F64_RESUME_TOL, "the resumed run drifted")
+    return rec
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -2920,6 +3452,7 @@ def main():
 
     print("[5 train] 64k online training, north_star.py's flagship row")
     sim, model, launches = phase_train()
+    train_sps = launches["sps"]
     k1_lj["launches"] += launches["lj"]
     k1_px, k2 = phase_train_kernels(sim, model)
     k1_px["launches"], k2["launches"] = launches["proxy"], launches["k2"]
@@ -3001,6 +3534,35 @@ def main():
     print("[21 cg-tools] reference examples 07 and 09, and "
           "iter_from_trajectory, on the card")
     phase_cg_tools()
+    global F64
+    F64 = torch.float64
+    print("[22 fp64 eval] phase 4's eval protocol in float64: K1's double "
+          "instantiation")
+    k1_lj64, _ = phase_fp64_eval(main_sps)
+    torch.cuda.empty_cache()
+    print("[23 fp64 train] phases 5 and 10's rows in float64: K1 (proxy, "
+          "generic), K2 and generic_reduce_bwd in double")
+    base64 = fp64_train_base()
+    sim64, model64, l64, sps64 = fp64_train_row(base64, "proxy")
+    print(f"  float64 proxy row {sps64:.2f} train steps/s against phase 5's "
+          f"float32 {train_sps:.2f} ({sps64 / train_sps:.3f}x)")
+    k1_px64, k2_64 = fp64_proxy_kernels(sim64, model64)
+    k1_px64["launches"], k2_64["launches"] = l64["proxy"], l64["k2"]
+    k1_lj64["launches"] += l64["lj"]
+    del sim64, model64
+    torch.cuda.empty_cache()
+    sim64, _, l64, sps64 = fp64_train_row(base64, "pair")
+    print(f"  float64 pair row {sps64:.2f} train steps/s against phase 10's "
+          f"float32 {pl['sps']:.2f} ({sps64 / pl['sps']:.3f}x)")
+    bwd64, gen64 = fp64_pair_kernels(sim64)
+    bwd64["launches"], gen64["launches"] = l64["bwd"], l64["gen"]
+    k1_lj64["launches"] += l64["lj"]
+    del sim64, base64
+    torch.cuda.empty_cache()
+    print("[24 fp64 packed] phase 6's packed path in float64 (K3's double "
+          "instantiation), and a checkpoint resumed")
+    k3_64 = phase_fp64_packed(k3["sps"])
+    torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -3039,6 +3601,27 @@ def main():
                   "library_ms: torch.topk, selection only",
              source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
              replaces="hoomd_tf_tpu/ops/nlist_pallas.py:43", **k3),
+        dict(name="K1 half-stencil pair forces, LJ form, float64 (the "
+                  "double instantiation; launches: phases 22-23)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu", **k1_lj64),
+        dict(name="K1 half-stencil pair forces, Chebyshev-proxy form, "
+                  "float64 (phase 23)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu", **k1_px64),
+        dict(name="K1 half-stencil pair forces, generic form, float64, "
+                  "training forward of phase 23's pair row (ms: the whole "
+                  "forward with the pair function)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu", **gen64),
+        dict(name="generic_reduce_bwd, float64 (phase 23's pair row)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
+                      "contraction; no Pallas kernel)", **bwd64),
+        dict(name="K2 Chebyshev-proxy backward moments, float64 (phase 23)",
+             source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train_pallas.py:80", **k2_64),
+        dict(name="K3 cell-list neighbor selection, float64 (phase 24); "
+                  "library_ms: torch.topk over int64 keys, selection only",
+             source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
+             replaces="hoomd_tf_tpu/ops/nlist_pallas.py:43", **k3_64),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -30,7 +30,11 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   packed routes and on ``'cellwise'``), the molecule-batched
   :class:`MolSimModel`, and the CG utilities of :mod:`.utils` (mapping
   operators, centers of mass, CG graphs and features, the PDB reader,
-  trajectory iteration).
+  trajectory iteration);
+- double precision end to end: ``init_lattice(..., dtype=torch.float64)``
+  runs the engine in float64, every kernel in its double instantiation
+  on the card; and :mod:`.serialize`: models saved as ``(class, config,
+  weights)`` and checkpoints that resume a run exactly.
 """
 
 from .ops import (box_size, wrap_vector, make_box, box_from_lengths,
@@ -58,9 +62,10 @@ from .utils.graph import (compute_adj_mat, compute_cg_graph, find_cgnode_id,
 from .utils.mol_features import mol_bond_distance, mol_angle, mol_dihedral
 from .utils.trajectory import iter_from_trajectory, compute_pairwise, \
     create_frame
+from .serialize import save_model, load_model, custom_objects
 
 # the JAX package's names, less those of the parts still to be ported
-# (ROADMAP.md Queue 1: GSD I/O and serialize, item 6; parallel, item 7)
+# (ROADMAP.md Queue 1: GSD I/O and profiling, item 6; parallel, item 7)
 __all__ = [
     "box_size", "wrap_vector", "make_box", "box_from_lengths",
     "safe_norm", "nlist_rinv", "masked_nlist", "divide_no_nan",
@@ -78,5 +83,6 @@ __all__ = [
     "compute_adj_mat", "compute_cg_graph", "find_cgnode_id",
     "mol_features_multiple", "mol_bond_distance", "mol_angle", "mol_dihedral",
     "iter_from_trajectory", "compute_pairwise", "create_frame",
+    "save_model", "load_model", "custom_objects",
     "md", "ops", "models", "utils",
 ]

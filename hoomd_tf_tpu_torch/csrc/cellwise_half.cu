@@ -69,55 +69,70 @@
 // and the pair products round exactly as the PyTorch plain version's
 // separate multiplies and adds do: the cutoff masks then agree bit for bit
 // and only summation order differs.
+//
+// Every kernel is a template on the scalar type T (scalar.cuh), built for
+// float and for double: a float64 state runs the double instantiation,
+// positions, staged entries, tables, products and sums all in double (the
+// reference's own precision). In double the staging's shared memory and
+// the partial sums double, and the operations run at the card's float64
+// rate (34 TFLOP/s on an H100 SXM, against 67 in float32): still bound by
+// operations, ~0.01 ms at the 64k eval shapes.
 
 #include <cuda_runtime.h>
 
 #include "half_stencil_home.cuh"
 #include "half_stencil_stage.cuh"
+#include "scalar.cuh"
 
 namespace {
 
 using htf::HalfGeom;
 using htf::kHalf;
-using htf::kStageInts;
 using htf::kThreads;
 using htf::Channels;
 using htf::half_stencil_home;
+using htf::Vec4;
+using htf::fmax_;
+using htf::fmin_;
 
-// LJ family: read straight from the float4 table in global memory.
+// LJ family: read straight from the [T][T] table of (eps, sigma^2, shift,
+// rc2_form) in global memory.
+template <class T>
 struct LJForm {
-  const float4* tab;
+  const Vec4<T>* tab;
   int t;
   int strict;
 
-  __device__ __forceinline__ void stage(float*, int) {}
+  __device__ __forceinline__ void stage(T*, int) {}
 
-  __device__ __forceinline__ bool operator()(float r2, int ti, int tj,
-                                             float& U, float& s) const {
-    const float4 f = tab[t == 1 ? 0 : ti * t + tj];
+  __device__ __forceinline__ bool operator()(T r2, int ti, int tj, T& U,
+                                             T& s) const {
+    const Vec4<T> f = tab[t == 1 ? 0 : ti * t + tj];
     const bool inside = strict ? (r2 < f.w) : (r2 <= f.w);
     if (!inside) return false;
-    const float inv = 1.0f / r2;
-    const float x = f.y * inv;
-    const float sr6 = x * x * x;
-    s = -12.0f * f.x * (2.0f * sr6 - 1.0f) * sr6 * inv;
-    U = 4.0f * f.x * (sr6 * sr6 - sr6) + f.z;
+    const T inv = T(1) / r2;
+    const T x = f.y * inv;
+    const T sr6 = x * x * x;
+    s = T(-12) * f.x * (T(2) * sr6 - T(1)) * sr6 * inv;
+    U = T(4) * f.x * (sr6 * sr6 - sr6) + f.z;
     return true;
   }
 };
 
 // Sequential sum c[0] + c[1] + ... (the order of the plain version).
-__device__ __forceinline__ float seq_sum(const float* c, int K) {
-  float v = c[0];
+template <class T>
+__device__ __forceinline__ T seq_sum(const T* c, int K) {
+  T v = c[0];
   for (int k = 1; k < K; ++k) v = v + c[k];
   return v;
 }
 
-__device__ __forceinline__ float clenshaw(const float* c, int K, float w) {
-  float b1 = 0.f, b2 = 0.f;
-  const float two_w = 2.0f * w;
+template <class T>
+__device__ __forceinline__ T clenshaw(const T* c, int K, T w) {
+  T b1 = T(0), b2 = T(0);
+  const T two_w = T(2) * w;
   for (int k = K - 1; k > 0; --k) {
-    const float b = c[k] + two_w * b1 - b2;
+    const T b = c[k] + two_w * b1 - b2;
     b2 = b1;
     b1 = b;
   }
@@ -126,16 +141,17 @@ __device__ __forceinline__ float clenshaw(const float* c, int K, float w) {
 
 // Chebyshev proxy: the [P][2][K] coefficient table and the per-pair edge
 // values (U_hi, s_hi) live in shared memory, staged once per block.
+template <class T>
 struct ChebForm {
-  const float* coef;  // global [P][2][K]
-  int T;              // types of the table (1 = untyped)
+  const T* coef;  // global [P][2][K]
+  int NT;         // types of the table (1 = untyped)
   int K;
-  float mid, inv_half, u_hi;
-  float* sm;          // shared [P][2][K] then [P][2] edge values
+  T mid, inv_half, u_hi;
+  T* sm;          // shared [P][2][K] then [P][2] edge values
 
-  __device__ __forceinline__ int pairs() const { return T * (T + 1) / 2; }
+  __device__ __forceinline__ int pairs() const { return NT * (NT + 1) / 2; }
 
-  __device__ __forceinline__ void stage(float* smem, int tid) {
+  __device__ __forceinline__ void stage(T* smem, int tid) {
     sm = smem;
     const int P = pairs();
     for (int i = tid; i < P * 2 * K; i += kThreads) sm[i] = coef[i];
@@ -143,21 +159,21 @@ struct ChebForm {
       sm[P * 2 * K + i] = seq_sum(coef + i * K, K);
   }
 
-  __device__ __forceinline__ bool operator()(float r2, int ti, int tj,
-                                             float& U, float& s) const {
+  __device__ __forceinline__ bool operator()(T r2, int ti, int tj, T& U,
+                                             T& s) const {
     int p = 0;
-    if (T > 1) {
-      if (ti < 0 || ti >= T || tj < 0 || tj >= T) return false;
+    if (NT > 1) {
+      if (ti < 0 || ti >= NT || tj < 0 || tj >= NT) return false;
       const int a = min(ti, tj), b = max(ti, tj);
-      p = a * T - a * (a - 1) / 2 + (b - a);
+      p = a * NT - a * (a - 1) / 2 + (b - a);
     }
-    const float* c = sm + p * 2 * K;
-    const float* hi = sm + pairs() * 2 * K + p * 2;
-    const float u = 1.0f / r2;
-    const float over = fmaxf(u - u_hi, 0.f);
-    float su;
-    if (over <= 0.f) {
-      const float w = fminf(fmaxf((u - mid) * inv_half, -1.0f), 1.0f);
+    const T* c = sm + p * 2 * K;
+    const T* hi = sm + pairs() * 2 * K + p * 2;
+    const T u = T(1) / r2;
+    const T over = fmax_(u - u_hi, T(0));
+    T su;
+    if (over <= T(0)) {
+      const T w = fmin_(fmax_((u - mid) * inv_half, T(-1)), T(1));
       U = clenshaw(c, K, w);
       su = clenshaw(c + K, K, w);
     } else {
@@ -171,27 +187,26 @@ struct ChebForm {
 
 // The channel products of the lane (row q, candidate g); false (and `p`
 // untouched) outside the cut.
-template <bool ENERGY, bool VIRIAL, class Form>
+template <bool ENERGY, bool VIRIAL, class T, class Form>
 __device__ __forceinline__ bool lane_products(
-    float4 q, float4 g, const Form& form, const float* __restrict__ rcm,
-    int rcm_t, float rc2, float min_r2,
-    float (&p)[Channels<ENERGY, VIRIAL>::kCount]) {
+    Vec4<T> q, Vec4<T> g, const Form& form, const T* __restrict__ rcm,
+    int rcm_t, T rc2, T min_r2, T (&p)[Channels<ENERGY, VIRIAL>::kCount]) {
   constexpr int OF = Channels<ENERGY, VIRIAL>::kForce;
-  const float dx = g.x - q.x;
-  const float dy = g.y - q.y;
-  const float dz = g.z - q.z;
-  const float d2 = dx * dx + dy * dy + dz * dz;
+  const T dx = g.x - q.x;
+  const T dy = g.y - q.y;
+  const T dz = g.z - q.z;
+  const T d2 = dx * dx + dy * dy + dz * dz;
   if (!(d2 <= rc2)) return false;
-  const int ti = __float_as_int(q.w), tj = __float_as_int(g.w);
+  const int ti = htf::unpack_type(q.w), tj = htf::unpack_type(g.w);
   if (rcm != nullptr) {
     const bool known = ti >= 0 && ti < rcm_t && tj >= 0 && tj < rcm_t;
-    const float prc2 = known ? rcm[ti * rcm_t + tj] : 0.f;
+    const T prc2 = known ? rcm[ti * rcm_t + tj] : T(0);
     if (!(d2 <= prc2)) return false;
   }
-  float U, s;
-  if (!form(fmaxf(d2, min_r2), ti, tj, U, s)) return false;
+  T U, s;
+  if (!form(fmax_(d2, min_r2), ti, tj, U, s)) return false;
   if (ENERGY) p[0] = U;
-  const float sdx = s * dx, sdy = s * dy, sdz = s * dz;
+  const T sdx = s * dx, sdy = s * dy, sdz = s * dz;
   p[OF] = sdx;
   p[OF + 1] = sdy;
   p[OF + 2] = sdz;
@@ -206,49 +221,47 @@ __device__ __forceinline__ bool lane_products(
   return true;
 }
 
-template <bool ENERGY, bool VIRIAL, class Form>
+template <class T, bool ENERGY, bool VIRIAL, class Form>
 __global__ void __launch_bounds__(kThreads)
-half_stencil_forces(const float* __restrict__ pos,
-                    const int* __restrict__ types,
-                    const float* __restrict__ valid,
-                    const float* __restrict__ box, HalfGeom g, Form form,
-                    const float* __restrict__ rcm, int rcm_t, float rc2,
-                    float min_r2, float* __restrict__ sums) {
+half_stencil_forces(const T* __restrict__ pos, const int* __restrict__ types,
+                    const T* __restrict__ valid, const T* __restrict__ box,
+                    HalfGeom g, Form form, const T* __restrict__ rcm,
+                    int rcm_t, T rc2, T min_r2, T* __restrict__ sums) {
   constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
-  extern __shared__ float4 smem4[];
   const int cap = g.cap;
   const int C = kHalf * cap;
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t n_slots = static_cast<size_t>(gridDim.x) * cap;
-  float4* spos = smem4;                                   // [C]
-  int* stag = reinterpret_cast<int*>(spos + C);           // [C]
-  int* sints = stag + C;                                  // [kStageInts]
-  float* part = reinterpret_cast<float*>(sints + kStageInts);  // [kThreads][NCH]
+  Vec4<T>* spos = htf::dynamic_smem<Vec4<T>>();            // [C]
+  int* stag = reinterpret_cast<int*>(spos + C);            // [C]
+  unsigned char* scratch = reinterpret_cast<unsigned char*>(stag + C);
+  T* part = reinterpret_cast<T*>(scratch + htf::stage_bytes<T>());
+  //                                                   [kThreads][NCH]
   form.stage(part + kThreads * NCH, tid);  // the form's own table
 
   const size_t home = static_cast<size_t>(c) * cap;
   int n0;
-  const int total = htf::stage_half_stencil(
-      g, c, rc2, pos, types, valid, box, spos, stag, sints, n0,
+  const int total = htf::stage_half_stencil<T>(
+      g, c, rc2, pos, types, valid, box, spos, stag, scratch, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
 #pragma unroll
         for (int k = 0; k < NCH; ++k)
-          sums[(k * kHalf + t) * n_slots + home + r] = 0.f;
+          sums[(k * kHalf + t) * n_slots + home + r] = T(0);
       });
 
   // row sweep: the row sums of the home slots over all 14 blocks
   for (int r0 = 0; r0 < n0; r0 += kThreads) {
     const htf::RowSplit sp(r0, n0);
     if (sp.active) {
-      float acc[NCH];
+      T acc[NCH];
 #pragma unroll
-      for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-      const float4 q = spos[sp.row];
+      for (int k = 0; k < NCH; ++k) acc[k] = T(0);
+      const Vec4<T> q = spos[sp.row];
       for (int j = sp.seg; j < total; j += sp.nseg) {
         if (j == sp.row) continue;  // the self pair (block 0)
-        float p[NCH];
+        T p[NCH];
         if (lane_products<ENERGY, VIRIAL>(q, spos[j], form, rcm, rcm_t, rc2,
                                           min_r2, p)) {
 #pragma unroll
@@ -263,7 +276,7 @@ half_stencil_forces(const float* __restrict__ pos,
       const size_t out = home + stag[r0 + tid];  // block 0: tag = rank
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
-        float v = 0.f;
+        T v = T(0);
         for (int s = 0; s < sp.nseg; ++s) v += part[(tid * sp.nseg + s) * NCH + k];
         sums[k * kHalf * n_slots + out] = v;
       }
@@ -273,12 +286,12 @@ half_stencil_forces(const float* __restrict__ pos,
 
   // candidate sweep: the back sums of the directed blocks' slots
   for (int j = n0 + tid; j < total; j += kThreads) {
-    float acc[NCH];
+    T acc[NCH];
 #pragma unroll
-    for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-    const float4 gj = spos[j];
+    for (int k = 0; k < NCH; ++k) acc[k] = T(0);
+    const Vec4<T> gj = spos[j];
     for (int i = 0; i < n0; ++i) {
-      float p[NCH];
+      T p[NCH];
       if (lane_products<ENERGY, VIRIAL>(spos[i], gj, form, rcm, rcm_t, rc2,
                                         min_r2, p)) {
 #pragma unroll
@@ -293,21 +306,21 @@ half_stencil_forces(const float* __restrict__ pos,
   }
 }
 
-long smem_bytes(int cap, int n_ch, int form_floats) {
-  return static_cast<long>(kHalf) * cap * (sizeof(float4) + sizeof(int)) +
-         static_cast<long>(sizeof(int)) * kStageInts +
-         static_cast<long>(sizeof(float)) * (kThreads * n_ch + form_floats);
+template <class T>
+long smem_bytes(int cap, int n_ch, int form_words) {
+  return static_cast<long>(kHalf) * cap * (sizeof(Vec4<T>) + sizeof(int)) +
+         htf::stage_bytes<T>() +
+         static_cast<long>(sizeof(T)) * (kThreads * n_ch + form_words);
 }
 
-template <bool ENERGY, bool VIRIAL, class Form>
-int launch(const float* pos, const int* types, const float* valid,
-           const float* box, const HalfGeom& g, int n_cells, Form form,
-           int form_floats, const float* rcm, int rcm_t, float rc2,
-           float min_r2, float* sums, float* forces4, float* virial,
-           cudaStream_t stream) {
+template <class T, bool ENERGY, bool VIRIAL, class Form>
+int launch(const T* pos, const int* types, const T* valid, const T* box,
+           const HalfGeom& g, int n_cells, Form form, int form_words,
+           const T* rcm, int rcm_t, T rc2, T min_r2, T* sums, T* forces4,
+           T* virial, cudaStream_t stream) {
   constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
-  const long smem = smem_bytes(g.cap, NCH, form_floats);
-  auto kernel = half_stencil_forces<ENERGY, VIRIAL, Form>;
+  const long smem = smem_bytes<T>(g.cap, NCH, form_words);
+  auto kernel = half_stencil_forces<T, ENERGY, VIRIAL, Form>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -320,36 +333,68 @@ int launch(const float* pos, const int* types, const float* valid,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_slots = n_cells * g.cap;
-  half_stencil_home<ENERGY, VIRIAL>
+  half_stencil_home<T, ENERGY, VIRIAL>
       <<<(n_slots + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-          sums, valid, g, n_slots, reinterpret_cast<float4*>(forces4),
+          sums, valid, g, n_slots, reinterpret_cast<Vec4<T>*>(forces4),
           virial);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Form>
-int dispatch(const float* pos, const int* types, const float* valid,
-             const float* box, const HalfGeom* geom, int n_cells,
-             Form form, int form_floats, const float* rcm, int rcm_t,
-             float rc2, float min_r2, int needs_energy, int needs_virial,
-             float* sums, float* forces4, float* virial, void* stream) {
+// The call's pointers, typed: the wrapper hands them over as void *.
+template <class T>
+struct Args {
+  const T *pos, *valid, *box, *rcm;
+  const int* types;
+  int rcm_t;
+  T rc2, min_r2;
+  T *sums, *forces4, *virial;
+
+  Args(const void* p, const int* ty, const void* v, const void* b,
+       const void* rm, int rt, double r2, double mr2, void* s, void* f,
+       void* w)
+      : pos(static_cast<const T*>(p)), valid(static_cast<const T*>(v)),
+        box(static_cast<const T*>(b)), rcm(static_cast<const T*>(rm)),
+        types(ty), rcm_t(rt), rc2(static_cast<T>(r2)),
+        min_r2(static_cast<T>(mr2)), sums(static_cast<T*>(s)),
+        forces4(static_cast<T*>(f)), virial(static_cast<T*>(w)) {}
+};
+
+template <class T, class Form>
+int dispatch(const Args<T>& a, const HalfGeom* geom, int n_cells, Form form,
+             int form_words, int needs_energy, int needs_virial,
+             void* stream) {
   const HalfGeom g = *geom;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (needs_energy && needs_virial)
-    return launch<true, true>(pos, types, valid, box, g, n_cells, form,
-                              form_floats, rcm, rcm_t, rc2, min_r2, sums,
-                              forces4, virial, s);
-  if (needs_energy)
-    return launch<true, false>(pos, types, valid, box, g, n_cells, form,
-                               form_floats, rcm, rcm_t, rc2, min_r2, sums,
-                               forces4, virial, s);
-  if (needs_virial)
-    return launch<false, true>(pos, types, valid, box, g, n_cells, form,
-                               form_floats, rcm, rcm_t, rc2, min_r2, sums,
-                               forces4, virial, s);
-  return launch<false, false>(pos, types, valid, box, g, n_cells, form,
-                              form_floats, rcm, rcm_t, rc2, min_r2, sums,
-                              forces4, virial, s);
+#define HTF_LAUNCH(E, V)                                                    \
+  launch<T, E, V>(a.pos, a.types, a.valid, a.box, g, n_cells, form,        \
+                  form_words, a.rcm, a.rcm_t, a.rc2, a.min_r2, a.sums,     \
+                  a.forces4, a.virial, s)
+  if (needs_energy && needs_virial) return HTF_LAUNCH(true, true);
+  if (needs_energy) return HTF_LAUNCH(true, false);
+  if (needs_virial) return HTF_LAUNCH(false, true);
+  return HTF_LAUNCH(false, false);
+#undef HTF_LAUNCH
+}
+
+template <class T>
+int lj(const Args<T>& a, const HalfGeom* geom, int n_cells, const void* form,
+       int form_t, int strict, int needs_energy, int needs_virial,
+       void* stream) {
+  LJForm<T> f{static_cast<const Vec4<T>*>(form), form_t, strict};
+  return dispatch(a, geom, n_cells, f, 0, needs_energy, needs_virial,
+                  stream);
+}
+
+template <class T>
+int cheb(const Args<T>& a, const HalfGeom* geom, int n_cells,
+         const void* coef, int ntypes, int K, double mid, double inv_half,
+         double u_hi, int needs_energy, int needs_virial, void* stream) {
+  ChebForm<T> f{static_cast<const T*>(coef), ntypes, K,
+                static_cast<T>(mid), static_cast<T>(inv_half),
+                static_cast<T>(u_hi), nullptr};
+  const int P = ntypes * (ntypes + 1) / 2;
+  return dispatch(a, geom, n_cells, f, P * 2 * K + P * 2, needs_energy,
+                  needs_virial, stream);
 }
 
 }  // namespace
@@ -357,45 +402,60 @@ int dispatch(const float* pos, const int* types, const float* valid,
 extern "C" {
 
 // Shared-memory bytes one block of half_stencil_forces needs (the wrapper
-// checks the limit); `form_floats` is the pair form's own table (0 for the
-// LJ form).
-long htf_half_stencil_smem(int cap, int n_channels, int form_floats) {
-  return smem_bytes(cap, n_channels, form_floats);
+// checks the limit); `form_words` is the pair form's own table in scalars
+// (0 for the LJ form); `f64` picks the double instantiation.
+long htf_half_stencil_smem(int f64, int cap, int n_channels,
+                           int form_words) {
+  return f64 ? smem_bytes<double>(cap, n_channels, form_words)
+             : smem_bytes<float>(cap, n_channels, form_words);
 }
 
-// LJ-family form. `pos` [n_slots][3], `types` [n_slots] int32 (or null when
-// untyped), `valid` [n_slots], `box` the [3][3] box (rows low, high,
-// tilt) on the card, `geom` a host
-// HalfGeom, `sums` the [n_ch][14][n_slots] scratch, `forces4`
-// [n_slots][4], `virial` [n_slots][9] (or null). Launches both kernels on
-// `stream`; returns cudaGetLastError() after them (0 = ok).
-int htf_half_stencil(const float* pos, const int* types, const float* valid,
-                     const float* box, const HalfGeom* geom, int n_cells,
-                     const float* form, int form_t, int strict,
-                     const float* rcm, int rcm_t, float rc2, float min_r2,
-                     int needs_energy, int needs_virial, float* sums,
-                     float* forces4, float* virial, void* stream) {
-  LJForm f{reinterpret_cast<const float4*>(form), form_t, strict};
-  return dispatch(pos, types, valid, box, geom, n_cells, f, 0, rcm, rcm_t,
-                  rc2, min_r2, needs_energy, needs_virial, sums, forces4,
-                  virial, stream);
+// LJ-family form. `f64` picks the scalar type of every floating array:
+// float32 (0) or float64 (1). `pos` [n_slots][3], `types` [n_slots] int32
+// (or null when untyped), `valid` [n_slots], `box` the [3][3] box (rows
+// low, high, tilt) on the card, `geom` a host HalfGeom, `form` the
+// [form_t][form_t][4] table, `rcm` the [rcm_t][rcm_t] squared cutoffs (or
+// null), `sums` the [n_ch][14][n_slots] scratch, `forces4` [n_slots][4],
+// `virial` [n_slots][9] (or null); rc2 and min_r2 are rounded to the
+// scalar type. Launches both kernels on `stream`; returns
+// cudaGetLastError() after them (0 = ok).
+int htf_half_stencil(int f64, const void* pos, const int* types,
+                     const void* valid, const void* box,
+                     const HalfGeom* geom, int n_cells, const void* form,
+                     int form_t, int strict, const void* rcm, int rcm_t,
+                     double rc2, double min_r2, int needs_energy,
+                     int needs_virial, void* sums, void* forces4,
+                     void* virial, void* stream) {
+  if (f64)
+    return lj(Args<double>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
+                           sums, forces4, virial),
+              geom, n_cells, form, form_t, strict, needs_energy,
+              needs_virial, stream);
+  return lj(Args<float>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
+                        sums, forces4, virial),
+            geom, n_cells, form, form_t, strict, needs_energy, needs_virial,
+            stream);
 }
 
-// Chebyshev-proxy form: `coef` is the [P][2][K] float32 table of a
-// `ntypes`-type proxy (P = ntypes (ntypes + 1) / 2).
-int htf_half_stencil_cheb(const float* pos, const int* types,
-                          const float* valid, const float* box,
-                          const HalfGeom* geom, int n_cells, const float* coef,
-                          int ntypes, int K, float mid, float inv_half,
-                          float u_hi, const float* rcm, int rcm_t, float rc2,
-                          float min_r2, int needs_energy, int needs_virial,
-                          float* sums, float* forces4, float* virial,
+// Chebyshev-proxy form: `coef` is the [P][2][K] table of a `ntypes`-type
+// proxy (P = ntypes (ntypes + 1) / 2), of the scalar type `f64` picks.
+int htf_half_stencil_cheb(int f64, const void* pos, const int* types,
+                          const void* valid, const void* box,
+                          const HalfGeom* geom, int n_cells, const void* coef,
+                          int ntypes, int K, double mid, double inv_half,
+                          double u_hi, const void* rcm, int rcm_t, double rc2,
+                          double min_r2, int needs_energy, int needs_virial,
+                          void* sums, void* forces4, void* virial,
                           void* stream) {
-  ChebForm f{coef, ntypes, K, mid, inv_half, u_hi, nullptr};
-  const int P = ntypes * (ntypes + 1) / 2;
-  return dispatch(pos, types, valid, box, geom, n_cells, f,
-                  P * 2 * K + P * 2, rcm, rcm_t, rc2, min_r2, needs_energy,
-                  needs_virial, sums, forces4, virial, stream);
+  if (f64)
+    return cheb(Args<double>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
+                             sums, forces4, virial),
+                geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi,
+                needs_energy, needs_virial, stream);
+  return cheb(Args<float>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
+                          sums, forces4, virial),
+              geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi,
+              needs_energy, needs_virial, stream);
 }
 
 const char* htf_error_string(int code) {

@@ -23,28 +23,28 @@ struct Channels {
   static constexpr int kCount = 3 + (ENERGY ? 1 : 0) + (VIRIAL ? 6 : 0);
 };
 
-// One thread per slot: the Newton push-back and the finish.
-template <bool ENERGY, bool VIRIAL>
+// One thread per slot: the Newton push-back and the finish, in T.
+template <class T, bool ENERGY, bool VIRIAL>
 __global__ void __launch_bounds__(kThreads)
-half_stencil_home(const float* __restrict__ sums,
-                  const float* __restrict__ valid, HalfGeom g, int n_slots,
-                  float4* __restrict__ forces4, float* __restrict__ virial) {
+half_stencil_home(const T* __restrict__ sums, const T* __restrict__ valid,
+                  HalfGeom g, int n_slots, Vec4<T>* __restrict__ forces4,
+                  T* __restrict__ virial) {
   using Ch = Channels<ENERGY, VIRIAL>;
   constexpr int NCH = Ch::kCount;
   constexpr int OF = Ch::kForce;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_slots) return;
-  const float v = valid[i];
-  float acc[NCH];
+  const T v = valid[i];
+  T acc[NCH];
 #pragma unroll
-  for (int k = 0; k < NCH; ++k) acc[k] = 0.f;
-  if (v != 0.f) {
+  for (int k = 0; k < NCH; ++k) acc[k] = T(0);
+  if (v != T(0)) {
     const size_t plane = static_cast<size_t>(n_slots);
     const int c = i / g.cap, r = i - c * g.cap;
 #pragma unroll
     for (int k = 0; k < NCH; ++k) {
       const bool energy = ENERGY && k == 0;
-      const float cf = energy ? 0.5f : (k < OF + 3 ? 2.0f : -1.0f);
+      const T cf = energy ? T(0.5) : (k < OF + 3 ? T(2) : T(-1));
       acc[k] = cf * sums[k * kHalf * plane + i];
     }
     for (int t = 1; t < kHalf; ++t) {
@@ -53,18 +53,18 @@ half_stencil_home(const float* __restrict__ sums,
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
         const bool energy = ENERGY && k == 0;
-        const float cb = energy ? 0.5f : (k < OF + 3 ? -2.0f : -1.0f);
+        const T cb = energy ? T(0.5) : (k < OF + 3 ? T(-2) : T(-1));
         acc[k] = acc[k] + cb * sums[(k * kHalf + t) * plane + src];
       }
     }
 #pragma unroll
     for (int k = 0; k < NCH; ++k) acc[k] = acc[k] * v;
   }
-  forces4[i] = make_float4(acc[OF], acc[OF + 1], acc[OF + 2],
-                           ENERGY ? acc[0] : 0.f);
+  forces4[i] = vec4(acc[OF], acc[OF + 1], acc[OF + 2],
+                    ENERGY ? acc[0] : T(0));
   if (VIRIAL) {
     // channels xx, yy, zz, xy, xz, yz -> the symmetric 3x3, row major
-    float* w = virial + static_cast<size_t>(i) * 9;
+    T* w = virial + static_cast<size_t>(i) * 9;
     w[0] = acc[OF + 3];
     w[1] = acc[OF + 6];
     w[2] = acc[OF + 7];

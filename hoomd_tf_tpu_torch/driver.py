@@ -19,11 +19,8 @@ from .ops.cell_list import CellList
 from .ops.cellwise import Cellwise
 from .ops.direct import NlistPlanes
 
-# what each refusal names: the part of the port that brings it (item 5
-# keeps float64 on the card)
+# what a refusal names: the part of the port that brings it
 _LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1)"
-_ENGINE = ("a later slice of the PyTorch port (ROADMAP.md Queue 1 item 5, "
-           "float64 on the card)")
 
 __all__ = ["tfcompute"]
 
@@ -128,10 +125,6 @@ class tfcompute:
                 "and molecule batching (it changes the nlist form the "
                 "model sees). Mapped neighbor lists ARE supported: the "
                 "model receives particle-order NlistPlanes")
-        if train and sim.device.type == "cuda" and \
-                sim.state.positions.dtype != torch.float32:
-            raise NotImplementedError(
-                f"float64 training on the card arrives with {_ENGINE}")
         r_arr = np.asarray(r_cut, dtype=np.float64)
         if r_arr.ndim == 0:
             self.r_cut = float(r_arr)

@@ -41,7 +41,7 @@ _FLOAT_FIELDS = ("positions", "velocities", "masses", "box", "forces",
                  "virial")
 
 
-def state_from_numpy(arrays, device=None, dtype=torch.float32):
+def state_from_numpy(arrays, device=None, dtype=None):
     """Build the port's ``SimState`` from a mapping of numpy arrays named
     like the JAX ``SimState`` fields (``positions``, ``velocities``,
     ``types``, ``masses``, ``box``, optional ``forces``, ``virial``,
@@ -50,10 +50,14 @@ def state_from_numpy(arrays, device=None, dtype=torch.float32):
     the port's stochastic integrators draw from their ``Simulation``'s
     ``torch.Generator``, whose numbers differ from JAX's for any seed.
     ``device`` defaults to the CUDA card; pass ``device="cpu"`` for the
-    CPU."""
+    CPU. ``dtype`` defaults to the positions' own: float64 arrays (a JAX
+    x64 state) stay float64, anything else becomes float32."""
     device = resolve_device(device, "state_from_numpy")
     a = dict(arrays)
     n = np.asarray(a["positions"]).shape[0]
+    if dtype is None:
+        dtype = (torch.float64 if np.asarray(a["positions"]).dtype ==
+                 np.float64 else torch.float32)
     a.setdefault("forces", np.zeros((n, 4), np.float32))
     a.setdefault("virial", np.zeros((n, 3, 3), np.float32))
     kw = {k: torch.as_tensor(np.array(a[k]), dtype=dtype, device=device)
@@ -74,7 +78,9 @@ def load_jax_variables(model, arrays):
     :class:`.models.module.Layer` ``model``; shapes must match. Every
     variable is carried: trainable or not, float, int32 or bool, and
     the state of the running metrics and the EDS layer, whose lazily
-    built variables need :func:`build_model` first."""
+    built variables need :func:`build_model` first. Each value takes its
+    variable's dtype: a JAX x64 model's float64 weights enter a float64
+    port model without rounding."""
     model.set_weights([np.asarray(a) for a in arrays])
     return model
 

@@ -71,6 +71,7 @@ remote TPU) has no counterpart here.
 """
 
 import contextlib
+import copy
 import dataclasses
 import warnings
 
@@ -185,14 +186,24 @@ class Simulation:
     # state
     # ------------------------------------------------------------------
     def init_lattice(self, n, density=None, a=None, kind="sc", types=None,
-                     kT_init=None, masses=None):
-        """Place ``n`` particles on a lattice in a centered cubic box."""
+                     kT_init=None, masses=None, dtype=torch.float32):
+        """Place ``n`` particles on a lattice in a centered cubic box.
+
+        :param dtype: the state's dtype: ``torch.float64`` runs the whole
+            engine in double precision (every kernel's double
+            instantiation on the card), the analog of attaching to a
+            double-precision HOOMD build, as the JAX package's
+            ``init_lattice(dtype=jnp.float64)``.
+        """
         pos, lengths = lattice_positions(n, density=density, a=a, kind=kind)
         return self.set_state(init_state(
             pos, lengths, types=types, masses=masses, kT_init=kT_init,
-            generator=self.generator, device=self.device))
+            generator=self.generator, dtype=dtype, device=self.device))
 
     def init_state(self, positions, box, **kwargs):
+        """Adopt :func:`.state.init_state` of ``positions`` and ``box``
+        on this simulation's device and generator; ``dtype=`` (default
+        float32) sets the state's precision as in :meth:`init_lattice`."""
         kwargs.setdefault("generator", self.generator)
         return self.set_state(init_state(positions, box, device=self.device,
                                          **kwargs))
@@ -450,7 +461,9 @@ class Simulation:
             and layout.lo == tuple(float(v) for v in self._lo)
             and layout.plan.tilt == self._tilt)
 
-    def _ensure_layout(self):
+    def _ensure_layout(self, plan=None):
+        """The slot layout of the current plan, made when there is none
+        (from ``plan`` when given: a checkpoint's)."""
         layout = self._layout
         if layout is not None and not self._layout_fits(layout):
             self.replan()
@@ -458,7 +471,8 @@ class Simulation:
         if layout is not None:
             return layout
         r_cut, rc_matrix, _, _ = self._nlist_params()
-        plan = self._plan_from_current()
+        if plan is None:
+            plan = self._plan_from_current()
         if plan is None:
             raise ValueError(
                 f"Box {self._lengths} too small for the cellwise mode at "
@@ -473,9 +487,10 @@ class Simulation:
         layout.geometry.offsets(_cw._HALF_OFFS)
         layout.geometry.offsets(_cw._OFFS)
         self._builtin_forms = []
+        dtype = self.state.positions.dtype
         for f in self.forces:
             form = f.kernel_form()
-            form.tensor(self.device)
+            form.tensor(self.device, dtype)
             self._builtin_forms.append(form)
         form = None
         model = self.tfc.model if self.tfc is not None else None
@@ -483,7 +498,7 @@ class Simulation:
             form = model.pair_kernel_form()
             if form is not None:
                 form = form.kernel_form()
-                form.tensor(self.device)
+                form.tensor(self.device, dtype)
         self._form = form
         # the list of K1's generic form (a PairModel without a form, a
         # probed SimModel): first estimated for the plan, then sized by
@@ -496,6 +511,66 @@ class Simulation:
             self._lanes_key = key
         self._layout = layout
         return layout
+
+    # the host-side schedule of the engine: what a run's choices (plan,
+    # repack interval, list size) are made from besides the state
+    _SCHEDULE = ("_static_K_last", "_static_K_cap", "_static_K_clean",
+                 "_vmax_hist", "_occ_hist", "_capacity_floor",
+                 "_cl_capacity_floor", "_replan_check_step")
+
+    def _engine_record(self):
+        """What :func:`..serialize.save_checkpoint` keeps for an exact
+        resume besides the state: the schedule, the cellwise plan and the
+        slot order the next ``run()`` would start from, and the generic
+        form's list size; plain Python values and numpy arrays."""
+        rec = {k: copy.deepcopy(getattr(self, k)) for k in self._SCHEDULE
+               if hasattr(self, k)}
+        rec["same_integrator"] = (getattr(self, "_static_K_integ", None) ==
+                                  id(self.integrator))
+        layout = self._layout
+        if layout is not None:
+            rec["plan"] = dataclasses.asdict(layout.plan)
+            rec["replan_throttle"] = getattr(layout, "_replan_throttle",
+                                             None)
+            packed = self._packed
+            if packed is not None and packed[0] is self.state and \
+                    packed[1] is layout:
+                aux = packed[2][1]
+                rec["orig"] = aux["orig"].cpu().numpy().copy()
+                rec["occ_max"] = int(aux["occ_max"])
+        lanes = getattr(self, "_lanes", None)
+        if lanes is not None:
+            rec["lanes"] = (lanes.budget, lanes.committed,
+                            copy.deepcopy(self._lanes_key))
+        return rec
+
+    def _restore_engine(self, rec):
+        """Restore :meth:`_engine_record`'s record after the state it was
+        taken with was set: the next ``run()`` then makes the choices and
+        starts from the slot order the recorded simulation's would."""
+        for k in self._SCHEDULE:
+            if k in rec:
+                setattr(self, k, copy.deepcopy(rec[k]))
+        if rec.get("same_integrator"):
+            self._static_K_integ = id(self.integrator)
+        if "plan" in rec and self._use_cellwise():
+            plan = _cw.CellwisePlan(**{k: tuple(v) if isinstance(v, list)
+                                       else v for k, v in rec["plan"].items()})
+            layout = self._ensure_layout(plan)
+            if rec.get("replan_throttle") is not None:
+                layout._replan_throttle = rec["replan_throttle"]
+            if "orig" in rec:
+                orig = torch.as_tensor(rec["orig"], device=self.device)
+                st, aux = layout.pack(self.state, src=orig)
+                aux["occ_max"] = torch.tensor(
+                    rec["occ_max"], dtype=torch.int32, device=self.device)
+                self._packed = (self.state, layout, (st, aux))
+        if "lanes" in rec:
+            # after the layout, which makes a first estimate of its own
+            budget, committed, key = rec["lanes"]
+            self._lanes = LaneBudget(budget, self.device)
+            self._lanes.committed = committed
+            self._lanes_key = key
 
     def _max_occupancy_now(self, layout):
         cell = _cw.bin_cells(self.state.positions, layout.lo, layout.plan,
@@ -969,7 +1044,7 @@ class Simulation:
         route = self._route(layout, st, aux)
         route.repack_each_step = K is None
         log = (None if log_period is None else
-               _Log(log_period, self.state.step, n, self.device))
+               _Log(log_period, self.state.step, n, self.state.positions))
         needs_virial = route.needs_virial or log is not None
         tfc = self.tfc
         if route.model_period > 1:
@@ -1197,7 +1272,7 @@ class Simulation:
                 capacity = max(capacity, int(np.ceil(occ * 1.3)) + 1)
             capacity = max(capacity, getattr(self, "_cl_capacity_floor", 0))
             return DirectPlanes(grid, capacity, r_cut, self.device,
-                                rc_matrix)
+                                rc_matrix, self.state.positions.dtype)
         want_cell = isinstance(method, _cl.CellList) or \
             method in ("cell", "pallas")
         sel = "pallas" if method == "pallas" else "sort"
@@ -1224,8 +1299,10 @@ class Simulation:
             # the overflow self-heal floor beats even an explicit capacity
             capacity = max(capacity, getattr(self, "_cl_capacity_floor", 0))
             return _cl.CellNlist(grid, capacity, lengths, r_cut, NN, sel,
-                                 self.device, rc_matrix)
-        return DenseNlist(r_cut, NN, self.device, rc_matrix)
+                                 self.device, rc_matrix,
+                                 self.state.positions.dtype)
+        return DenseNlist(r_cut, NN, self.device, rc_matrix,
+                          self.state.positions.dtype)
 
     def _build_nlist(self, state):
         """One neighbor build on ``state`` (the host accessors')."""
@@ -1387,7 +1464,7 @@ class Simulation:
         model = tfc.model if tfc is not None else None
         build = self._packed_build()
         log = (None if log_period is None else
-               _Log(log_period, self.state.step, n, self.device))
+               _Log(log_period, self.state.step, n, self.state.positions))
         needs_virial = bool(self.forces or log is not None or
                             getattr(self.integrator, "needs_virial", False) or
                             (model is not None and model.virial))
@@ -1505,13 +1582,15 @@ def _mask_beads(forces4, orig, map_i):
 
 def _readback(ints, *floats):
     """One device->host copy of the int32 scalars ``ints`` and the float
-    tensors ``floats`` (bitcast into int32 lanes; ``None`` entries skipped).
-    Returns the ints as a numpy int32 array, then each float tensor as a
-    flat numpy float32 array (``None`` where it was ``None``)."""
+    tensors ``floats`` (bitcast into int32 lanes: one per float32 value,
+    two per float64 value; ``None`` entries skipped). Returns the ints as
+    a numpy int32 array, then each float tensor as a flat numpy array of
+    its own dtype, float32 or float64, bit for bit (``None`` where it was
+    ``None``)."""
     parts = list(ints)
     for t in floats:
         if t is not None:
-            parts.append(t.to(torch.float32).reshape(-1).view(torch.int32))
+            parts.append(t.contiguous().reshape(-1).view(torch.int32))
     packed = torch.cat(parts).cpu().numpy()
     k = sum(int(t.numel()) for t in ints)
     out = [packed[:k]]
@@ -1519,25 +1598,27 @@ def _readback(ints, *floats):
         if t is None:
             out.append(None)
             continue
-        m = int(t.numel())
-        out.append(packed[k:k + m].view(np.float32))
+        wide = t.dtype == torch.float64
+        m = int(t.numel()) * (2 if wide else 1)
+        out.append(packed[k:k + m].view(np.float64 if wide else np.float32))
         k += m
     return out
 
 
 class _Log:
     """The thermodynamic records of one run attempt (``run(n,
-    log_period=)``): a ``[rows, 4]`` float32 device buffer, one row per
-    step whose number is a multiple of ``period``, written in the step
-    loop (the row and the step are host ints) and read back with the
-    run's one readback."""
+    log_period=)``): a ``[rows, 4]`` device buffer of the state's dtype
+    (``like``'s: float32, or float64 as the JAX package's log of a float64
+    state), one row per step whose number is a multiple of ``period``,
+    written in the step loop (the row and the step are host ints) and read
+    back with the run's one readback."""
 
-    def __init__(self, period, start, n, device):
+    def __init__(self, period, start, n, like):
         self.period = int(period)
         steps = np.arange(start, start + n)
         self.steps = steps[steps % self.period == 0]
         self.buf = torch.zeros((len(self.steps), len(_thermo.LOG_KEYS)),
-                               dtype=torch.float32, device=device)
+                               dtype=like.dtype, device=like.device)
         self.row = 0
 
     def due(self, step):
@@ -1628,9 +1709,10 @@ class _TrainState:
         self.losses = None
 
     def begin(self, n):
-        """A device buffer for the run's ``n`` losses and the list of the
-        steps that trained."""
-        self.losses = torch.zeros((n,), dtype=torch.float32,
+        """A device buffer for the run's ``n`` losses, of the state's
+        dtype (the JAX package keeps the losses at their own dtype), and
+        the list of the steps that trained."""
+        self.losses = torch.zeros((n,), dtype=self.sim.state.positions.dtype,
                                   device=self.sim.device)
         self.trained = []
 

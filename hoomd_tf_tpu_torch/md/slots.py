@@ -102,12 +102,22 @@ class SlotLayout:
                                               dim=-1)))
 
     # ------------------------------------------------------------------
-    def pack(self, state):
-        """Particle-order ``SimState`` -> ``(slot-order state, aux)``."""
+    def pack(self, state, src=None):
+        """Particle-order ``SimState`` -> ``(slot-order state, aux)``.
+
+        :param src: the particle of each slot (``n`` on a ghost slot), the
+            ``aux['orig']`` of an earlier pack or rebuild to restore that
+            slot order (a checkpoint's); default: binned from the
+            positions."""
         dtype = state.positions.dtype
-        valid_n = torch.ones(self.n, dtype=dtype,
-                             device=state.positions.device)
-        src, overflow, occ = self._repack(state, valid_n)
+        if src is None:
+            valid_n = torch.ones(self.n, dtype=dtype,
+                                 device=state.positions.device)
+            src, overflow, occ = self._repack(state, valid_n)
+        else:
+            src = src.to(torch.int32)
+            overflow = torch.zeros((), dtype=torch.bool, device=src.device)
+            occ = torch.zeros((), dtype=torch.int32, device=src.device)
         has = src < self.n
         idx = torch.clamp_max(src, self.n - 1).long()
 
@@ -194,34 +204,35 @@ class SlotLayout:
     def rebuild(self, slot_state, aux):
         """Repack the slot assignment from the current positions.
 
-        One gather of a ``[n_slots, 22]`` block moves every per-row
-        column; int32 columns ride bitcast as float32 (exact). Unlike the
-        JAX package, the forces and virial move with their particles: the
-        first half-kick after a repack reads them (see ROADMAP.md Queue
-        3 on the reference's unpermuted forces). So do the model forces
-        and virial a ``period`` > 1 run carries between evaluations
-        (``aux['mf']``, ``aux['mw']``, when present)."""
+        One gather of a ``[n_slots, 20]`` block of the state's dtype moves
+        every floating column, and one of a ``[n_slots, 2]`` int32 block
+        the particle index and the type: exact in float32 and in float64
+        (no column is bitcast into another type). Unlike the JAX package,
+        the forces and virial move with their particles: the first
+        half-kick after a repack reads them (see ROADMAP.md Queue 3 on the
+        reference's unpermuted forces). So do the model forces and virial
+        a ``period`` > 1 run carries between evaluations (``aux['mf']``,
+        ``aux['mw']``, when present)."""
         n_slots = self.plan.n_slots
         st = slot_state
         src, overflow, occ = self._repack(st, aux["valid"])
         has = src < n_slots
         carried = [k for k in ("mf", "mw") if aux.get(k) is not None]
         blk = torch.cat([
-            st.positions, st.velocities,
-            aux["orig"].view(torch.float32)[:, None], st.masses[:, None],
-            st.types.view(torch.float32)[:, None],
+            st.positions, st.velocities, st.masses[:, None],
             st.forces, st.virial.reshape(-1, 9)] +
             [aux[k].reshape(n_slots, -1) for k in carried], dim=1)
-        g = blk[torch.clamp(src, 0, n_slots - 1).long()]
+        ints = torch.stack([aux["orig"], st.types], dim=1)
+        at = torch.clamp(src, 0, n_slots - 1).long()
+        g, gi = blk[at], ints[at]
         h = has[:, None]
         positions = torch.where(h, g[:, 0:3], self.centers(st))
         velocities = torch.where(h, g[:, 3:6], 0.0)
-        orig = torch.where(has, g[:, 6].contiguous().view(torch.int32),
-                           self.n)
-        masses = torch.where(has, g[:, 7], 1.0)
-        types = torch.where(has, g[:, 8].contiguous().view(torch.int32), 0)
-        forces = torch.where(h, g[:, 9:13], 0.0)
-        virial = torch.where(h, g[:, 13:22], 0.0).reshape(-1, 3, 3)
+        masses = torch.where(has, g[:, 6], 1.0)
+        forces = torch.where(h, g[:, 7:11], 0.0)
+        virial = torch.where(h, g[:, 11:20], 0.0).reshape(-1, 3, 3)
+        orig = torch.where(has, gi[:, 0], self.n)
+        types = torch.where(has, gi[:, 1], 0)
         new_state = dataclasses.replace(
             st, positions=positions, velocities=velocities, types=types,
             masses=masses, forces=forces, virial=virial,
@@ -232,7 +243,7 @@ class SlotLayout:
                    "overflow": aux["overflow"] | overflow,
                    "occ_max": torch.maximum(aux["occ_max"], occ),
                    "vmax": torch.maximum(aux["vmax"], vm)}
-        col = 22
+        col = 20
         for k in carried:
             w = aux[k][0].numel()
             new_aux[k] = torch.where(h, g[:, col:col + w], 0.0).reshape(

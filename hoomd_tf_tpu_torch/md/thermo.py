@@ -50,9 +50,9 @@ def thermo(state):
 
 
 def log_row(state, valid=None):
-    """The :data:`LOG_KEYS` quantities of ``state`` as one float32 ``[4]``
-    device tensor (nothing is read back); ``valid`` (``[n_slots]``, slot
-    order) leaves the ghost rows out of every sum."""
+    """The :data:`LOG_KEYS` quantities of ``state`` as one ``[4]`` device
+    tensor of the state's dtype (nothing is read back); ``valid``
+    (``[n_slots]``, slot order) leaves the ghost rows out of every sum."""
     v, f, w = state.velocities, state.forces, state.virial
     if valid is not None:
         v, f = v * valid[:, None], f * valid[:, None]
@@ -64,4 +64,5 @@ def log_row(state, valid=None):
     vol = torch.prod(box_size(state.box))
     w = torch.sum(torch.diagonal(w, dim1=-2, dim2=-1))
     return torch.stack([ke, torch.sum(f[:, 3]), 2.0 * ke / dof,
-                        (2.0 * ke + w) / (3.0 * vol)]).to(torch.float32)
+                        (2.0 * ke + w) / (3.0 * vol)]).to(
+                            state.positions.dtype)

@@ -32,8 +32,8 @@ from .._device import device_for
 from .box import box_size as _box_size, host_tilt
 from .cell_stencil import (cell_chunks, chunk_pairs, neighbor_cells,
                            to_particle_order)
-from .nlist import f32
-from .nlist_cuda import nlist_select
+from .nlist_cuda import cut_values, host_length, nlist_select
+
 
 __all__ = ["CellList", "CellNlist", "cell_list_nlist", "plan",
            "max_occupancy", "build_planes"]
@@ -165,7 +165,10 @@ def sort_nlist(slots4, pid, n, grid, cap, NN, r_cut, lengths, rc2_tab=None,
         neigh = neighbor_cells(grid, slots4.device)
     C = 27 * cap
     k = min(NN, C)
-    rc2, lo2 = f32(r_cut * r_cut), f32(25e-8)
+    rc2, lo2 = cut_values(r_cut, slots4.dtype)
+    # the key: d2's bits as an integer of d2's width (d2 >= 0, so integer
+    # order is value order), the integer's max where invalid
+    itype = torch.int64 if slots4.dtype == torch.float64 else torch.int32
     out = torch.zeros((n_cells * cap, NN, 4), dtype=slots4.dtype,
                       device=slots4.device)
     for c0, c1 in cell_chunks(n_cells, cap):
@@ -175,8 +178,8 @@ def sort_nlist(slots4, pid, n, grid, cap, NN, r_cut, lengths, rc2_tab=None,
         if rc2_tab is not None:
             valid = valid & (d2 <= pair_rc2(qt, gt, rc2_tab))
         rows = (c1 - c0) * cap
-        key = torch.where(valid, d2.view(torch.int32),
-                          torch.iinfo(torch.int32).max).reshape(rows, C)
+        key = torch.where(valid, d2.view(itype),
+                          torch.iinfo(itype).max).reshape(rows, C)
         idx = torch.sort(key, dim=1, stable=True).indices[:, :k]
         gt_b = gt.expand_as(d2).reshape(rows, C)
         pay = torch.stack([torch.gather(p.reshape(rows, C), 1, idx) for p in
@@ -192,14 +195,17 @@ class CellNlist:
     in the step loop copies nothing from the host.
 
     :param grid, capacity: the plan (:func:`plan`).
-    :param lengths: host box lengths (their float32 values are the ones
-        kernel K3 takes, as the JAX package's ``static_lengths``).
+    :param lengths: host box lengths (their values in ``dtype``'s
+        precision are the ones kernel K3 takes, as the JAX package's
+        ``static_lengths``).
     :param method: ``'sort'`` or ``'pallas'`` (kernel K3).
     :param rcut_matrix: per-type-pair cutoffs (``'sort'`` only).
+    :param dtype: the positions' dtype (float32 or float64): the precision
+        of K3's lengths and of the cutoff table.
     """
 
     def __init__(self, grid, capacity, lengths, r_cut, NN, method, device,
-                 rcut_matrix=None):
+                 rcut_matrix=None, dtype=torch.float32):
         from .cellwise import rc2_table
         if rcut_matrix is not None and method == "pallas":
             raise ValueError("per-type r_cut is not supported by the "
@@ -207,13 +213,13 @@ class CellNlist:
         if method not in ("sort", "pallas"):
             raise ValueError(f"unknown cell-list method {method!r}")
         self.grid, self.capacity = tuple(int(g) for g in grid), int(capacity)
-        self.lengths = tuple(float(np.float32(v)) for v in lengths)
+        self.lengths = tuple(host_length(v, dtype) for v in lengths)
         self.r_cut, self.NN, self.method = float(r_cut), int(NN), method
         # K3 gathers the stencil itself
         self.neigh = (neighbor_cells(self.grid, device) if method == "sort"
                       else None)
         self.rc2_tab = (None if rcut_matrix is None else
-                        rc2_table(rcut_matrix, device=device))
+                        rc2_table(rcut_matrix, dtype, device))
 
     @property
     def plan(self):
@@ -260,8 +266,8 @@ def cell_list_nlist(pos4, r_cut, NN, box, config=None, return_overflow=False,
         supported by ``method='pallas'``.
     :param device: where the list is built: by default a tensor's own
         device, and the CUDA card for host data (``device="cpu"`` for the
-        CPU). Host data becomes float32, the dtype the selection keys
-        are made from.
+        CPU). Host data becomes float32; a float64 tensor keeps float64
+        (the selection keys are made from d2 in the positions' dtype).
     """
     pos4 = torch.as_tensor(
         pos4, dtype=None if torch.is_tensor(pos4) else torch.float32,
@@ -284,7 +290,7 @@ def cell_list_nlist(pos4, r_cut, NN, box, config=None, return_overflow=False,
                 f"Box {np_lengths} too small for a cell list at "
                 f"r_cut={r_cut}; use compute_nlist (O(N^2)) instead")
     build = CellNlist(grid, capacity, static_lengths or np_lengths, r_cut,
-                      NN, method, pos4.device, rcut_matrix)
+                      NN, method, pos4.device, rcut_matrix, pos4.dtype)
     nlist, overflow = build(pos4, lengths)
     if return_overflow:
         return nlist, overflow

@@ -18,9 +18,10 @@ offsets go through the box matrix, and the minimum image is the
 sequential z, y, x wrap (:func:`_wrap_tri`); the grid is sized by the
 perpendicular layer widths (:func:`_perp_widths`). Every geometric
 quantity the tensor forms and the kernels use -- lengths, cell edges,
-centers, offsets -- is derived in float32 from a ``[3, 3]`` box tensor on
-the device (:class:`SlotGeometry`), so a barostat's box (the dynamic-box
-layout, :class:`..md.slots.SlotLayout`) needs no new plan.
+centers, offsets -- is derived in the state's dtype (float32, or float64
+for a float64 state) from a ``[3, 3]`` box tensor on the device
+(:class:`SlotGeometry`), so a barostat's box (the dynamic-box layout,
+:class:`..md.slots.SlotLayout`) needs no new plan.
 """
 
 import dataclasses
@@ -278,9 +279,10 @@ def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
 
 
 def _box_terms(box, dims):
-    """``(lo, L, e, tilt)``: the ``[3]`` float32 terms every geometric
-    quantity derives from, ``L = high - low`` and the cell edge ``e = L /
-    grid`` (the order the kernels' staging repeats)."""
+    """``(lo, L, e, tilt)``: the ``[3]`` terms every geometric quantity
+    derives from, in the box's dtype, ``L = high - low`` and the cell edge
+    ``e = L / grid`` (the order the kernels' staging repeats, with the
+    ``_rn`` intrinsics of that type)."""
     L = box[1] - box[0]
     return box[0], L, L / dims, box[2]
 
@@ -312,20 +314,25 @@ def _stencil_offsets(ioffs, e, tilt, tilted):
 class SlotGeometry:
     """Device-resident geometry of one plan at one box: the box tensor
     ``[3, 3]`` the kernels read, and what the tensor forms derive from it
-    in float32 -- corner, lengths, cell edges, tilt, the ghost parking
-    spots (``centers``) and the per-lane stencil offsets -- plus the
-    box-free in-cell slot ranks. Built once per static layout, so the hot
-    loop never copies a host constant to the device (each such copy is a
-    host sync); a dynamic-box layout makes one per box with :meth:`at`.
+    in ``dtype`` (the state's) -- corner, lengths, cell edges, tilt, the
+    ghost parking spots (``centers``) and the per-lane stencil offsets --
+    plus the box-free in-cell slot ranks. Built once per static layout, so
+    the hot loop never copies a host constant to the device (each such
+    copy is a host sync); a dynamic-box layout makes one per box with
+    :meth:`at`.
 
+    :param dtype: float32 or float64 (default: the box tensor's when one
+        is given, else float32).
     :param box: the ``[3, 3]`` box (default: the plan's, rows ``lo``,
         ``lo + lengths`` and the plan's tilt; ``lo`` centers it by
         default).
     """
 
-    def __init__(self, plan, lo=None, dtype=torch.float32, device=None,
+    def __init__(self, plan, lo=None, dtype=None, device=None,
                  box=None, base=None):
         self.plan = plan
+        if dtype is None:
+            dtype = torch.float32 if box is None else box.dtype
         self.dtype = dtype
         if base is not None:
             self.device = base.device
@@ -517,8 +524,8 @@ def _relative_coords(positions, valid, plan, lo, offs_list, geometry=None):
     distance per in-cell rank) and the per-direction candidate planes
     with the stencil offsets pre-added, so displacements need no
     min-image rounding. Everything geometric comes from ``geometry``'s
-    box (the kernels' staging repeats these float32 operations in this
-    order: ``q = wrap(p - center) + offset``)."""
+    box (the kernels' staging repeats these operations, float32 or
+    float64, in this order: ``q = wrap(p - center) + offset``)."""
     g = _as_geometry(plan, lo, positions, geometry)
     FAR = 4.0 * float(max(plan.lengths))
     q = g.wrap(positions - g.centers)

@@ -84,26 +84,29 @@ class LJForm:
                                                 rc2)))
         T = 1 if parts[0].ndim == 0 else parts[0].shape[0]
         self.ntypes = T
+        # [T, T, 4] in float64; each scalar type takes its own rounding
         self.table = np.stack([p.reshape(T, T) if p.ndim else
-                               p.reshape(1, 1) for p in parts],
-                              axis=-1).astype(np.float32)  # [T, T, 4]
+                               p.reshape(1, 1) for p in parts], axis=-1)
         self.strict = bool(strict)
         self._on = {}
 
-    def tensor(self, device):
-        """The ``[T*T, 4]`` table on ``device`` (copied once, then
-        cached: a host-to-device copy in the step loop is a host sync)."""
+    def tensor(self, device, dtype=torch.float32):
+        """The ``[T*T, 4]`` table on ``device`` in ``dtype`` (the state's:
+        float32 or float64), copied once, then cached: a host-to-device
+        copy in the step loop is a host sync."""
         device = torch.device(device)
-        key = str(device)
+        key = (str(device), dtype)
         if key not in self._on:
             self._on[key] = torch.as_tensor(
-                self.table.reshape(-1, 4), device=device).contiguous()
+                self.table.reshape(-1, 4), dtype=dtype,
+                device=device).contiguous()
         return self._on[key]
 
     def evaluate(self, r2, ti=None, tj=None):
         """``(U, dU/dr2)`` per lane, in the same operation order as the
-        kernel (the plain version of its pair function)."""
-        tab = self.tensor(r2.device)
+        kernel (the plain version of its pair function), in ``r2``'s
+        dtype."""
+        tab = self.tensor(r2.device, r2.dtype)
         if self.ntypes == 1:
             eps, sig2, shift, rc2 = tab[0]
         else:
@@ -118,7 +121,7 @@ class LJForm:
         zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
         return torch.where(inside, u, zero), torch.where(inside, du, zero)
 
-    #: floats of shared memory the kernel stages for this form
+    #: scalars of shared memory the kernel stages for this form
     smem_floats = 0
 
 
@@ -140,8 +143,9 @@ class _PairRows:
 class ChebForm:
     """The Chebyshev-proxy pair form kernel K1 takes: the coefficients of
     a :func:`.chebyshev.make_pair_proxy` (or typed) evaluator as one
-    ``[P, 2, K]`` float32 device table (``P = 1`` untyped, else one row
-    per unordered type pair in :func:`.chebyshev.type_pairs` order).
+    ``[P, 2, K]`` device table (``P = 1`` untyped, else one row per
+    unordered type pair in :func:`.chebyshev.type_pairs` order), float64
+    when the coefficients are, else float32.
 
     :param basis: the evaluator's ``.basis`` dict.
     :param coeffs: ``{"c", "cd"}`` tensors, ``[K]`` or ``[P, K]``; taken
@@ -158,15 +162,20 @@ class ChebForm:
         tab = torch.stack([coeffs["c"], coeffs["cd"]], dim=-2).detach()
         if pairs is None:
             tab = tab[None]
-        self.table = tab.to(torch.float32).contiguous()      # [P, 2, K]
+        dtype = (torch.float64 if tab.dtype == torch.float64 else
+                 torch.float32)
+        self.table = tab.to(dtype).contiguous()              # [P, 2, K]
         P = self.table.shape[0]
         self.smem_floats = P * 2 * self.K + P * 2
 
-    def tensor(self, device):
+    def tensor(self, device, dtype=None):
+        """The table, on its own device, in ``dtype`` (a device-side
+        cast when it differs: no host copy)."""
         if self.table.device != torch.device(device):
             raise ValueError(f"the coefficient table is on "
                              f"{self.table.device}, not {device}")
-        return self.table
+        return self.table if dtype is None else \
+            self.table.to(dtype).contiguous()
 
     def evaluate(self, r2, ti=None, tj=None):
         """``(U, dU/dr2)`` per lane, in the kernel's order of operations
@@ -245,16 +254,29 @@ def _check(t, shape, dtype, device, name):
             f"(contiguous={t.is_contiguous()})")
 
 
+def kernel_dtype(t):
+    """``(dtype, f64)``: the scalar type of a kernel call, from its
+    positions (float32, or float64 for the double instantiation), and the
+    flag the C entry points take. Any other dtype raises: nothing is cast
+    on the way."""
+    if t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernels take float32 or float64 tensors, "
+                         f"not {t.dtype}")
+    return t.dtype, int(t.dtype == torch.float64)
+
+
 def cuda_slot_args(positions, types, valid, plan, geometry, typed):
     """Check the slot state a half-stencil kernel reads on the card and
     return its pointers: ``(positions, types or null, valid, box)``, the
     box the ``[3, 3]`` tensor of ``geometry`` (the kernels derive the
-    lengths, centers and offsets from it at each launch)."""
+    lengths, centers and offsets from it at each launch). Every floating
+    input has the positions' dtype."""
     dev = positions.device
     n = plan.n_slots
-    _check(positions, (n, 3), torch.float32, dev, "positions")
-    _check(valid, (n,), torch.float32, dev, "valid")
-    _check(geometry.box, (3, 3), torch.float32, dev, "geometry.box")
+    dtype, _ = kernel_dtype(positions)
+    _check(positions, (n, 3), dtype, dev, "positions")
+    _check(valid, (n,), dtype, dev, "valid")
+    _check(geometry.box, (3, 3), dtype, dev, "geometry.box")
     if typed:
         _check(types, (n,), torch.int32, dev, "types")
     return (_ptr(positions), _ptr(types if typed else None), _ptr(valid),
@@ -274,13 +296,15 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     proxy-form call also in ``.proxy_launches``); CPU tensors take
     :func:`half_stencil_plain`. Anything else raises.
 
-    :param positions: ``[n_slots, 3]`` float32 slot positions.
+    :param positions: ``[n_slots, 3]`` slot positions, float32 or float64
+        (the kernel's double instantiation); every floating input and
+        output has their dtype.
     :param types: ``[n_slots]`` int32 types (read when the form is typed
         or ``rc2_tab`` is given).
-    :param valid: ``[n_slots]`` float32, nonzero on occupied slots (any
-        pattern within a cell).
+    :param valid: ``[n_slots]``, nonzero on occupied slots (any pattern
+        within a cell).
     :param form: the :class:`LJForm` or :class:`ChebForm`.
-    :param rc2_tab: ``[T, T]`` float32 squared cutoffs, or ``None``.
+    :param rc2_tab: ``[T, T]`` squared cutoffs, or ``None``.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``,
         the energy in column 4 (zero when ``needs_energy`` is False);
         ghost rows all zero.
@@ -292,24 +316,25 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
                                   needs_energy, geometry)
     geometry = _as_geometry(plan, lo, positions, geometry)
     dev = positions.device
+    dtype, f64 = kernel_dtype(positions)
     typed = form.ntypes > 1 or rc2_tab is not None
     state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
-    tab = form.tensor(dev)
+    tab = form.tensor(dev, dtype)
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
-        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
+        _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
     lib = _library()
-    smem = lib.htf_half_stencil_smem(plan.capacity, n_ch, form.smem_floats)
+    smem = lib.htf_half_stencil_smem(f64, plan.capacity, n_ch,
+                                     form.smem_floats)
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
     n = plan.n_slots
-    sums = torch.empty((n_ch, len(_HALF_OFFS), n), dtype=torch.float32,
-                       device=dev)
-    forces4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    virial = (torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+    sums = torch.empty((n_ch, len(_HALF_OFFS), n), dtype=dtype, device=dev)
+    forces4 = torch.empty((n, 4), dtype=dtype, device=dev)
+    virial = (torch.empty((n, 3, 3), dtype=dtype, device=dev)
               if needs_virial else None)
     geom = ctypes.byref(half_geom(plan))
     rest = (_ptr(rc2_tab), rc_t, float(plan.r_cut ** 2), float(min_r2),
@@ -318,24 +343,28 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if isinstance(form, ChebForm):
         err = lib.htf_half_stencil_cheb(
-            *state, geom, plan.n_cells, _ptr(tab), form.ntypes, form.K,
+            f64, *state, geom, plan.n_cells, _ptr(tab), form.ntypes, form.K,
             form.mid, form.inv_half, form.u_hi, *rest)
     else:
-        err = lib.htf_half_stencil(*state, geom, plan.n_cells, _ptr(tab),
-                                   form.ntypes, int(form.strict), *rest)
+        err = lib.htf_half_stencil(f64, *state, geom, plan.n_cells,
+                                   _ptr(tab), form.ntypes, int(form.strict),
+                                   *rest)
     if err != 0:
         raise RuntimeError("half-stencil kernel launch failed: " +
                            lib.htf_error_string(err).decode())
     half_stencil_pair_forces.launches += 1
     if isinstance(form, ChebForm):
         half_stencil_pair_forces.proxy_launches += 1
+    half_stencil_pair_forces.f64_launches += f64
     return forces4, virial
 
 
-#: calls that launched the kernel (two launches each), all forms; and those
-#: of its Chebyshev-proxy form alone
+#: calls that launched the kernel (two launches each), all forms and both
+#: scalar types; those of its Chebyshev-proxy form alone; and those of the
+#: double instantiation alone (any form)
 half_stencil_pair_forces.launches = 0
 half_stencil_pair_forces.proxy_launches = 0
+half_stencil_pair_forces.f64_launches = 0
 
 # dynamic shared memory one H100 block may use (227 KB)
 _MAX_SMEM = 232448
@@ -349,17 +378,17 @@ def _library():
     if _LIB is None:
         from .._build import build_shared_library
         lib = ctypes.CDLL(str(build_shared_library("cellwise_half")))
-        state = [ctypes.c_void_p] * 5 + [ctypes.c_int]
-        rest = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_float] * 2 +
+        state = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        rest = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_double] * 2 +
                 [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
         lib.htf_half_stencil.argtypes = (
             state + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + rest)
         lib.htf_half_stencil.restype = ctypes.c_int
         lib.htf_half_stencil_cheb.argtypes = (
             state + [ctypes.c_void_p] + [ctypes.c_int] * 2 +
-            [ctypes.c_float] * 3 + rest)
+            [ctypes.c_double] * 3 + rest)
         lib.htf_half_stencil_cheb.restype = ctypes.c_int
-        lib.htf_half_stencil_smem.argtypes = [ctypes.c_int] * 3
+        lib.htf_half_stencil_smem.argtypes = [ctypes.c_int] * 4
         lib.htf_half_stencil_smem.restype = ctypes.c_long
         lib.htf_error_string.argtypes = [ctypes.c_int]
         lib.htf_error_string.restype = ctypes.c_char_p
@@ -546,13 +575,14 @@ def generic_list_plain(positions, types, valid, plan, lo, min_r2=1e-4,
 
 
 def _eval_pair_fn(pair_fn, typed_fn, r2, ti, tj, grad=False):
-    """``(U, dU/dr2)`` of the pair function on the list, as float32
-    tensors of the list's length; with ``grad``, differentiable in the
-    pair function's weights (training), else under ``no_grad``."""
+    """``(U, dU/dr2)`` of the pair function on the list, as tensors of
+    the list's length and dtype (float32, or float64 for a float64
+    state); with ``grad``, differentiable in the pair function's weights
+    (training), else under ``no_grad``."""
     with torch.set_grad_enabled(grad):
         U, dU = pair_fn(r2, ti, tj) if typed_fn else pair_fn(r2)
-        return (torch.broadcast_to(U, r2.shape).to(torch.float32),
-                torch.broadcast_to(dU, r2.shape).to(torch.float32))
+        return (torch.broadcast_to(U, r2.shape).to(r2.dtype),
+                torch.broadcast_to(dU, r2.shape).to(r2.dtype))
 
 
 def generic_plain(positions, types, valid, plan, lo, pair_fn,
@@ -660,7 +690,7 @@ class GenericList:
         self.needed = None
 
     def evaluate(self, pair_fn, grad=False):
-        """``(U, dU/dr2)`` of ``pair_fn`` on the list (float32); with
+        """``(U, dU/dr2)`` of ``pair_fn`` on the list (its dtype); with
         ``grad``, differentiable in its weights. On a CUDA device a
         failure of the pair function zeroes the lane counter the
         reduction would have zeroed."""
@@ -695,22 +725,23 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
                            lst["tj"], lst)
     geometry = _as_geometry(plan, lo, positions, geometry)
     dev = positions.device
+    dtype, f64 = kernel_dtype(positions)
     typed = typed_fn or rc2_tab is not None
     state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
-        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
+        _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     lib = _generic_library()
-    smem = max(lib.htf_generic_smem(plan.capacity),
-               lib.htf_generic_reduce_smem(plan.capacity))
+    smem = max(lib.htf_generic_smem(f64, plan.capacity),
+               lib.htf_generic_reduce_smem(f64, plan.capacity))
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
     budget = lanes.budget
     counter, lst, rec = _generic_buffers(
-        dev, budget, plan.r_cut ** 2,
-        plan.n_cells * lib.htf_generic_record_words(plan.capacity))
+        dev, dtype, budget, plan.r_cut ** 2,
+        plan.n_cells * lib.htf_generic_record_words(f64, plan.capacity))
     _GENERATION[str(dev)] = generation = _GENERATION.get(str(dev), 0) + 1
     # the list kernel writes the zero back sums of the slots the box test
     # left out into the reduction's scratch
@@ -720,10 +751,10 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
         counter=counter, rec=rec,
         cell_base=torch.empty(plan.n_cells, dtype=torch.int32, device=dev),
         sums=torch.empty((n_ch, len(_HALF_OFFS), plan.n_slots),
-                         dtype=torch.float32, device=dev),
+                         dtype=dtype, device=dev),
         stream=ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         generation=generation)
-    err = lib.htf_generic_list(*state, gl.geom, plan.n_cells,
+    err = lib.htf_generic_list(f64, *state, gl.geom, plan.n_cells,
                                _ptr(rc2_tab), rc_t, float(plan.r_cut ** 2),
                                float(min_r2), budget, _ptr(counter),
                                _ptr(gl.cell_base), _ptr(gl.r2), _ptr(gl.ti),
@@ -747,20 +778,21 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
         return generic_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
                                     needs_energy, needs_virial)
     plan, dev = gl.plan, gl.r2.device
+    dtype, f64 = kernel_dtype(gl.r2)
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
     if n_ch > gl.sums_ch:
         raise ValueError(f"a reduction of {n_ch} channels on a list made "
                          f"for {gl.sums_ch}")
     n = plan.n_slots
     U, S = U.contiguous(), S.contiguous()
-    _check(U, (gl.budget,), torch.float32, dev, "U")
-    _check(S, (gl.budget,), torch.float32, dev, "S")
-    forces4 = torch.empty((n, 4), dtype=torch.float32, device=dev)
-    virial = (torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+    _check(U, (gl.budget,), dtype, dev, "U")
+    _check(S, (gl.budget,), dtype, dev, "S")
+    forces4 = torch.empty((n, 4), dtype=dtype, device=dev)
+    virial = (torch.empty((n, 3, 3), dtype=dtype, device=dev)
               if needs_virial else None)
     gl.needed = torch.empty((), dtype=torch.int32, device=dev)
     lib = _generic_library()
-    err = lib.htf_generic_reduce(gl.geom, plan.n_cells, _ptr(gl.rec),
+    err = lib.htf_generic_reduce(f64, gl.geom, plan.n_cells, _ptr(gl.rec),
                                  _ptr(gl.cell_base), _ptr(U), _ptr(S),
                                  int(needs_energy), int(needs_virial),
                                  _ptr(gl.valid), _ptr(gl.sums), _ptr(forces4),
@@ -771,6 +803,7 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
         raise RuntimeError("generic reduction kernel launch failed: " +
                            lib.htf_generic_error_string(err).decode())
     generic_pair_forces.launches += 1
+    generic_pair_forces.f64_launches += f64
     gl.lanes.record(gl.needed)
     return forces4, virial
 
@@ -789,7 +822,8 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
 
     :param typed_fn: call ``pair_fn(r2, ti, tj)`` (float types) rather
         than ``pair_fn(r2)``.
-    :param rc2_tab: ``[T, T]`` float32 squared cutoffs, or ``None``.
+    :param rc2_tab: ``[T, T]`` squared cutoffs (the positions' dtype), or
+        ``None``.
     :param lanes: the :class:`LaneBudget` to size the list by and record
         the lanes needed in (default: :func:`lane_budget` of this call's
         occupied slots, counted with one host sync).
@@ -810,8 +844,10 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
 
 
 #: calls that launched the generic form's reduction (generic_reduce, after
-#: its list kernel: three launches each), training's forward included
+#: its list kernel: three launches each), training's forward included; and
+#: those of the double instantiation alone
 generic_pair_forces.launches = 0
+generic_pair_forces.f64_launches = 0
 
 
 def _shifted_cells(cell, t, plan):
@@ -882,13 +918,14 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
     if gl.needed is None:
         raise RuntimeError("the backward of a generic-form list whose "
                            "reduction did not run")
+    dtype, f64 = kernel_dtype(gl.r2)
     ct = ct.contiguous()
-    _check(ct, (plan.n_slots, 4), torch.float32, dev, "ct")
-    gS = torch.empty(gl.budget, dtype=torch.float32, device=dev)
+    _check(ct, (plan.n_slots, 4), dtype, dev, "ct")
+    gS = torch.empty(gl.budget, dtype=dtype, device=dev)
     gU = torch.empty_like(gS) if needs_energy else None
     lib = _generic_library()
     err = lib.htf_generic_reduce_bwd(
-        gl.geom, plan.n_cells, _ptr(gl.rec), _ptr(gl.cell_base), _ptr(ct),
+        f64, gl.geom, plan.n_cells, _ptr(gl.rec), _ptr(gl.cell_base), _ptr(ct),
         _ptr(gl.valid), int(needs_energy), _ptr(gl.needed), gl.budget,
         _ptr(gU), _ptr(gS),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -896,11 +933,14 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
         raise RuntimeError("generic reduction backward launch failed: " +
                            lib.htf_generic_error_string(err).decode())
     generic_reduce_bwd.launches += 1
+    generic_reduce_bwd.f64_launches += f64
     return gU, gS
 
 
-#: calls that launched generic_reduce_bwd
+#: calls that launched generic_reduce_bwd; those of its double
+#: instantiation alone
 generic_reduce_bwd.launches = 0
+generic_reduce_bwd.f64_launches = 0
 
 
 class GenericReduce(torch.autograd.Function):
@@ -959,20 +999,21 @@ def kernel_lane_index(lst, cell_base, plan):
 # more at each list launch; a backward checks its call's)
 _GENERATION = {}
 
-# per device: the lane counter (zero between calls), the list buffer
-# (budget, [3, budget] float32 r2, ti, tj), first filled with harmless
-# in-cut values, so that later calls leave earlier lanes' finite values in
-# its tail, and the cells' records the list kernel hands the reduction
+# per device and scalar type: the lane counter (zero between calls), the
+# list buffer ([3, budget] r2, ti, tj in the state's dtype), first filled
+# with harmless in-cut values, so that later calls leave earlier lanes'
+# finite values in its tail, and the cells' records the list kernel hands
+# the reduction
 _GENERIC = {}
 
 
-def _generic_buffers(device, budget, rc2, rec_words):
-    key = str(device)
+def _generic_buffers(device, dtype, budget, rc2, rec_words):
+    key = (str(device), dtype)
     counter, lst, rec = _GENERIC.get(key, (None, None, None))
     if counter is None:
         counter = torch.zeros(1, dtype=torch.int32, device=device)
     if lst is None or lst.shape[1] != budget:
-        lst = torch.zeros((3, budget), dtype=torch.float32, device=device)
+        lst = torch.zeros((3, budget), dtype=dtype, device=device)
         lst[0] = rc2
     if rec is None or rec.numel() != rec_words:
         rec = torch.zeros(rec_words, dtype=torch.int32, device=device)
@@ -990,27 +1031,28 @@ def _generic_library():
     if _GLIB is None:
         from .._build import build_shared_library
         lib = ctypes.CDLL(str(build_shared_library("cellwise_generic")))
-        state = [ctypes.c_void_p] * 5 + [ctypes.c_int]
-        geo = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+        state = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        geo = [ctypes.c_void_p, ctypes.c_int, ctypes.c_double]
         lib.htf_generic_list.argtypes = (
-            state + geo + [ctypes.c_float, ctypes.c_int] +
+            state + geo + [ctypes.c_double, ctypes.c_int] +
             [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
         lib.htf_generic_list.restype = ctypes.c_int
         lib.htf_generic_reduce.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] +
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 +
             [ctypes.c_void_p] * 7)
         lib.htf_generic_reduce.restype = ctypes.c_int
         lib.htf_generic_reduce_bwd.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 +
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
+            [ctypes.c_void_p] * 4 +
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
             [ctypes.c_void_p] * 3)
         lib.htf_generic_reduce_bwd.restype = ctypes.c_int
-        lib.htf_generic_smem.argtypes = [ctypes.c_int]
+        lib.htf_generic_smem.argtypes = [ctypes.c_int] * 2
         lib.htf_generic_smem.restype = ctypes.c_long
-        lib.htf_generic_reduce_smem.argtypes = [ctypes.c_int]
+        lib.htf_generic_reduce_smem.argtypes = [ctypes.c_int] * 2
         lib.htf_generic_reduce_smem.restype = ctypes.c_long
-        lib.htf_generic_record_words.argtypes = [ctypes.c_int]
+        lib.htf_generic_record_words.argtypes = [ctypes.c_int] * 2
         lib.htf_generic_record_words.restype = ctypes.c_long
         lib.htf_generic_error_string.argtypes = [ctypes.c_int]
         lib.htf_generic_error_string.restype = ctypes.c_char_p

@@ -100,17 +100,19 @@ class DirectPlanes:
     overflow)``.
 
     :param rcut_matrix: per-type-pair cutoffs (numpy), or ``None``.
+    :param dtype: the positions' dtype (the cutoff table's).
     """
 
     method = "direct"
 
-    def __init__(self, grid, capacity, r_cut, device, rcut_matrix=None):
+    def __init__(self, grid, capacity, r_cut, device, rcut_matrix=None,
+                 dtype=torch.float32):
         from .cellwise import rc2_table
         self.grid, self.capacity = tuple(int(g) for g in grid), int(capacity)
         self.r_cut = float(r_cut)
         self.neigh = neighbor_cells(self.grid, device)
         self.rc2_tab = (None if rcut_matrix is None else
-                        rc2_table(rcut_matrix, device=device))
+                        rc2_table(rcut_matrix, dtype, device))
 
     @property
     def plan(self):

@@ -69,7 +69,7 @@ def compute_nlist(positions, r_cut, NN, box_size, sorted=False,
     rc2_tab = None
     if r_cut_matrix is not None:
         from .cellwise import rc2_table
-        rc2_tab = rc2_table(r_cut_matrix, device=positions.device)
+        rc2_tab = rc2_table(r_cut_matrix, positions.dtype, positions.device)
     return _compute_nlist(positions, r_cut, NN, box_size, sorted,
                           return_types, exclusion_matrix, rc2_tab)
 
@@ -153,16 +153,18 @@ class DenseNlist:
     plan and never overflows.
 
     :param rcut_matrix: per-type-pair cutoffs, or ``None``.
+    :param dtype: the positions' dtype (the cutoff table's).
     """
 
     method = "n2"
     plan = None
 
-    def __init__(self, r_cut, NN, device, rcut_matrix=None):
+    def __init__(self, r_cut, NN, device, rcut_matrix=None,
+                 dtype=torch.float32):
         from .cellwise import rc2_table
         self.r_cut, self.NN = float(r_cut), int(NN)
         self.rc2_tab = (None if rcut_matrix is None else
-                        rc2_table(rcut_matrix, device=device))
+                        rc2_table(rcut_matrix, dtype, device))
 
     def __call__(self, pos4, box_lengths):
         """``(nlist [N, NN, 4], None)`` for ``pos4`` in a box of

@@ -8,7 +8,9 @@ minimum-image displacement ``d`` to each candidate of the 27 neighbouring
 cells, valid when ``2.5e-7 <= d2 <= r_cut^2``; the NN smallest by an
 int32 key, the float32 bits of ``d2`` with the low ``slot_bits`` cleared
 and OR-ed with the candidate slot ``j = k cap + r`` (offset ``k`` of the
-stencil, rank ``r`` in the cell). ``slot_bits`` is the bit length of
+stencil, rank ``r`` in the cell); for float64 slots an int64 key, the
+float64 bits of ``d2`` with the same low bits cleared (the kernel's double
+instantiation). ``slot_bits`` is the bit length of
 ``cpad - 1`` with ``cpad`` the JAX package's lane-padded width
 ``ceil(27 cap / 128) 128``: kept though nothing here is padded, so the
 port's neighbor order equals the JAX package's. Columns fill nearest
@@ -21,8 +23,9 @@ stages each strip of cells' neighbourhood once from the ``[n_cells cap,
 writes each particle-order row of the ``[N, NN, 4]`` list once, padding
 included (the TPU path's four row gathers and stack fused away; the
 wrapper allocates the list with ``torch.empty``). Its minimum image
-decides the shift by float32 thresholds (:func:`image_thresholds`,
-:func:`threshold_min_image`) and divides only where they cannot decide.
+decides the shift by thresholds of the slots' dtype
+(:func:`image_thresholds`, :func:`threshold_min_image`) and divides only
+where they cannot decide.
 
 :func:`nlist_select` launches the kernel for CUDA tensors and uses the
 plain version, :func:`nlist_select_reference`, only for CPU tensors.
@@ -43,8 +46,26 @@ __all__ = ["nlist_select", "nlist_select_reference", "selection_keys",
            "slot_bits", "image_thresholds", "threshold_min_image",
            "launch_shape", "launch_params", "launch"]
 
-#: key of an invalid candidate (bit pattern of a huge positive float)
+#: key of an invalid candidate (bit pattern of a huge positive float), and
+#: its float64 counterpart (of a huge positive double)
 FAR_KEY = 0x7F000000
+FAR_KEY64 = 0x7FE0000000000000
+
+
+def cut_values(r_cut, dtype):
+    """``(rc2, lo2)``: the selection's squared cuts in ``dtype``'s
+    precision, as Python floats: float32-rounded for float32 (the JAX
+    package's values), exact for float64."""
+    rc2, lo2 = float(r_cut) * float(r_cut), 25e-8
+    if dtype == torch.float64:
+        return rc2, lo2
+    return f32(rc2), f32(lo2)
+
+
+def host_length(v, dtype):
+    """A box length as the kernel takes it: float32-rounded for float32
+    slots, as given for float64."""
+    return float(v) if dtype == torch.float64 else f32(v)
 
 
 def slot_bits(width):
@@ -57,13 +78,17 @@ def slot_bits(width):
 def selection_keys(ddx, ddy, ddz, r_cut, bits):
     """``(key, d2)`` of candidate lanes from their displacements, in the
     kernel's arithmetic (``d2 = dx dx + dy dy + dz dz``, left to right,
-    no fused multiply-add): slot-tagged int32 keys along the last axis,
-    :data:`FAR_KEY` where invalid."""
+    no fused multiply-add): slot-tagged keys along the last axis, int32
+    from float32 ``d2`` (:data:`FAR_KEY` where invalid), int64 from
+    float64 ``d2`` (:data:`FAR_KEY64`)."""
     d2 = ddx * ddx + ddy * ddy + ddz * ddz
-    valid = (d2 <= f32(r_cut * r_cut)) & (d2 >= f32(25e-8))
-    slot = torch.arange(d2.shape[-1], dtype=torch.int32, device=d2.device)
-    key = (d2.view(torch.int32) & ~((1 << bits) - 1)) | slot
-    return torch.where(valid, key, FAR_KEY), d2
+    rc2, lo2 = cut_values(r_cut, d2.dtype)
+    valid = (d2 <= rc2) & (d2 >= lo2)
+    itype, far = ((torch.int64, FAR_KEY64) if d2.dtype == torch.float64
+                  else (torch.int32, FAR_KEY))
+    slot = torch.arange(d2.shape[-1], dtype=itype, device=d2.device)
+    key = (d2.view(itype) & ~((1 << bits) - 1)) | slot
+    return torch.where(valid, key, far), d2
 
 
 def _select(ddx, ddy, ddz, gt, r_cut, NN, bits):
@@ -73,7 +98,8 @@ def _select(ddx, ddy, ddz, gt, r_cut, NN, bits):
     key, _ = selection_keys(ddx, ddy, ddz, r_cut, bits)
     k = min(NN, C)
     sel, idx = torch.topk(key, k, dim=1, largest=False, sorted=True)
-    keep = (sel != FAR_KEY).to(ddx.dtype)
+    far = FAR_KEY64 if key.dtype == torch.int64 else FAR_KEY
+    keep = (sel != far).to(ddx.dtype)
     out = torch.zeros((rows, NN, 4), dtype=ddx.dtype, device=ddx.device)
     for a, p in enumerate((ddx, ddy, ddz, gt)):
         out[:, :k, a] = torch.gather(p, 1, idx) * keep
@@ -88,8 +114,8 @@ def nlist_select_reference(slots4, counts, pid, grid, capacity, NN, r_cut,
     n_cells = int(np.prod(grid))
     dev = slots4.device
     neigh = neighbor_cells(tuple(grid), dev)
-    L = torch.tensor([f32(v) for v in lengths], dtype=slots4.dtype,
-                     device=dev)
+    L = torch.tensor([host_length(v, slots4.dtype) for v in lengths],
+                     dtype=slots4.dtype, device=dev)
     bits = slot_bits(27 * cap)
     rows = []
     for c0, c1 in cell_chunks(n_cells, cap):
@@ -102,22 +128,24 @@ def nlist_select_reference(slots4, counts, pid, grid, capacity, NN, r_cut,
     return to_particle_order(torch.cat(rows), pid, n)
 
 
-def image_thresholds(length):
-    """``(t0, t1, t2)``: float32 thresholds on ``|d|`` that decide the
-    minimum-image shift ``s = rint(fl(d / L))`` for the float32 length
-    ``L``: ``|d| <= t0`` gives ``s = 0`` and ``t1 <= |d| <= t2`` gives ``s =
-    sign(d)``. Rounded inward from ``0.49 L``, ``0.51 L`` and ``1.49 L``,
-    so that float32 division, monotone in ``d``, lands on the same side of
-    ``0.5`` and ``1.5`` as the thresholds do."""
-    L = float(np.float32(length))
+def image_thresholds(length, dtype=torch.float32):
+    """``(t0, t1, t2)``: thresholds on ``|d|`` that decide the
+    minimum-image shift ``s = rint(fl(d / L))`` for the length ``L`` in
+    ``dtype`` (float32, or float64 for the double kernel): ``|d| <= t0``
+    gives ``s = 0`` and ``t1 <= |d| <= t2`` gives ``s = sign(d)``. Values
+    of ``dtype``, rounded inward from ``0.49 L``, ``0.51 L`` and ``1.49
+    L``, so that the division in ``dtype``, monotone in ``d``, lands on the
+    same side of ``0.5`` and ``1.5`` as the thresholds do."""
+    ntype = np.float64 if dtype == torch.float64 else np.float32
+    L = float(ntype(length))
 
     def down(x):
-        v = np.float32(x)
-        return v if float(v) <= x else np.nextafter(v, np.float32(-np.inf))
+        v = ntype(x)
+        return v if float(v) <= x else np.nextafter(v, ntype(-np.inf))
 
     def up(x):
-        v = np.float32(x)
-        return v if float(v) >= x else np.nextafter(v, np.float32(np.inf))
+        v = ntype(x)
+        return v if float(v) >= x else np.nextafter(v, ntype(np.inf))
     return down(0.49 * L), up(0.51 * L), down(1.49 * L)
 
 
@@ -127,9 +155,9 @@ def threshold_min_image(d, L, thresholds):
     cannot decide (``|d|`` near ``L / 2`` or past ``1.49 L``), then ``d - s
     L``. Equal bit for bit to ``d - torch.round(d / L) * L``.
 
-    :param d: float32 tensor of displacements along one axis.
-    :param L: float32 0-d tensor, the box length.
-    :param thresholds: ``image_thresholds(L)``.
+    :param d: float32 (or float64) tensor of displacements along one axis.
+    :param L: 0-d tensor of ``d``'s dtype, the box length.
+    :param thresholds: ``image_thresholds(L, d.dtype)``.
     """
     t0, t1, t2 = (float(t) for t in thresholds)
     a = d.abs()
@@ -152,18 +180,20 @@ MAX_WARPS = 8
 STRIP = 2
 
 
-def smem_bytes(cap, nn, strip, warps):
+def smem_bytes(cap, nn, strip, warps, f64=False):
     """Dynamic shared memory of one K3 block (csrc/nlist_select.cu's
     ``smem_bytes``, which checks it at launch): the window's ``(strip + 2)
-    x 9`` cells of ``cap`` float4 slots, per warp a key buffer of ``27
-    cap`` (whole uint4s) and ``nn`` winners, the window's prefix and cell
+    x 9`` cells of ``cap`` slots (16 bytes each, 32 in float64), per warp
+    a key buffer of ``27 cap`` keys (4 bytes each, 8 in float64; a
+    multiple of 4 keys) and ``nn`` winners, the window's prefix and cell
     ids and the strip's query prefix."""
     nw = (strip + 2) * 9
-    return (16 * nw * cap + 4 * warps * ((27 * cap + 3) // 4 * 4) +
+    slot, key = (32, 8) if f64 else (16, 4)
+    return (slot * nw * cap + key * warps * ((27 * cap + 3) // 4 * 4) +
             4 * warps * nn + 4 * (nw + 1) + 4 * nw + 4 * (strip + 1))
 
 
-def launch_shape(nx, cap, nn, strip=None, warps=None):
+def launch_shape(nx, cap, nn, strip=None, warps=None, f64=False):
     """``(strip, warps, smem)`` of a K3 launch: the warps per block (up to
     8) and blocks per SM (two, else one) that run the most warps on an SM
     when the strip is one cell, preferring two blocks; then the longest
@@ -171,61 +201,64 @@ def launch_shape(nx, cap, nn, strip=None, warps=None):
     ``nx``: ``ceil(nx / strip)`` strips of ``ceil(nx / n_strips)`` cells,
     the last one ragged where ``nx`` does not divide. ``strip`` and
     ``warps`` force a shape (to measure one); ``ValueError`` when no block
-    fits."""
+    fits. ``f64``: the double instantiation's shared memory."""
     budgets = {2: SMEM_PER_SM // 2 - _SMEM_RESERVED,
                1: SMEM_PER_BLOCK - _SMEM_RESERVED}
     if strip is not None or warps is not None:
         s = min(int(strip or STRIP), nx)
         w = int(warps or MAX_WARPS)
         if not (1 <= s and 1 <= w <= MAX_WARPS and
-                smem_bytes(cap, nn, s, w) <= budgets[1]):
+                smem_bytes(cap, nn, s, w, f64) <= budgets[1]):
             raise ValueError(f"K3 launch shape strip {s}, warps {w} does "
                              f"not fit capacity {cap}, NN {nn}")
-        return s, w, smem_bytes(cap, nn, s, w)
+        return s, w, smem_bytes(cap, nn, s, w, f64)
     shapes = [(w * blocks, blocks, w) for blocks in (2, 1)
               for w in range(MAX_WARPS, 0, -1)
-              if smem_bytes(cap, nn, 1, w) <= budgets[blocks]]
+              if smem_bytes(cap, nn, 1, w, f64) <= budgets[blocks]]
     if not shapes:
         raise ValueError(f"capacity {cap}, NN {nn}: one K3 block needs "
                          "more shared memory than an H100 block has")
     _, blocks, w = max(shapes)
     longest = max(s for s in range(1, min(STRIP, nx) + 1)
-                  if smem_bytes(cap, nn, s, w) <= budgets[blocks])
+                  if smem_bytes(cap, nn, s, w, f64) <= budgets[blocks])
     s = -(-nx // -(-nx // longest))
-    return s, w, smem_bytes(cap, nn, s, w)
+    return s, w, smem_bytes(cap, nn, s, w, f64)
 
 
 class K3Params(ctypes.Structure):
     """The kernel's launch constants (``K3Params`` of
-    csrc/nlist_select.cu, field for field)."""
+    csrc/nlist_select.cu, field for field): the lengths, cuts and
+    thresholds as doubles (exact for a float32 plan), ``f64`` the scalar
+    type of the slots and the list."""
     _fields_ = ([(f, ctypes.c_int) for f in
                  ("nx", "ny", "nz", "cap", "nn", "strip", "warps",
-                  "n_strips", "smem")] +
-                [("slot_mask", ctypes.c_uint), ("rc2", ctypes.c_float),
-                 ("lo2", ctypes.c_float)] +
-                [(f, ctypes.c_float * 3) for f in ("L", "t0", "t1", "t2")])
+                  "n_strips", "smem", "f64")] +
+                [("slot_mask", ctypes.c_uint), ("rc2", ctypes.c_double),
+                 ("lo2", ctypes.c_double)] +
+                [(f, ctypes.c_double * 3) for f in ("L", "t0", "t1", "t2")])
 
 
 @functools.lru_cache(maxsize=16)
 def launch_params(grid, capacity, NN, r_cut, lengths, strip=None,
-                  warps=None):
+                  warps=None, dtype=torch.float32):
     """The launch constants of one plan, made once (cached): the launch
-    shape, the slot mask, the float32 cuts, lengths and minimum-image
-    thresholds. ``strip`` and ``warps`` force a shape
-    (:func:`launch_shape`)."""
+    shape, the slot mask, the cuts, lengths and minimum-image thresholds
+    in ``dtype`` (float32, or float64 for the double kernel). ``strip`` and
+    ``warps`` force a shape (:func:`launch_shape`)."""
     nx, ny, nz = (int(g) for g in grid)
     if min(nx, ny, nz) < 3:
         raise ValueError(f"grid {grid}: the 27-cell stencil needs >= 3 "
                          "cells per axis")
     cap, nn = int(capacity), int(NN)
-    s, w, smem = launch_shape(nx, cap, nn, strip, warps)
-    L = [f32(v) for v in lengths]
-    th = [image_thresholds(v) for v in L]
+    f64 = dtype == torch.float64
+    s, w, smem = launch_shape(nx, cap, nn, strip, warps, f64)
+    L = [host_length(v, dtype) for v in lengths]
+    th = [image_thresholds(v, dtype) for v in L]
     return K3Params(
-        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem,
-        (1 << slot_bits(27 * cap)) - 1, f32(r_cut * r_cut), f32(25e-8),
-        (ctypes.c_float * 3)(*L),
-        *((ctypes.c_float * 3)(*(float(t[a]) for t in th))
+        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem, int(f64),
+        (1 << slot_bits(27 * cap)) - 1, *cut_values(r_cut, dtype),
+        (ctypes.c_double * 3)(*L),
+        *((ctypes.c_double * 3)(*(float(t[a]) for t in th))
           for a in range(3)))
 
 
@@ -235,22 +268,25 @@ def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
     launch in ``nlist_select.launches``); CPU tensors take
     :func:`nlist_select_reference`. Anything else raises.
 
-    :param slots4: ``[n_cells * cap, 4]`` float32 cell slots ``(x, y, z,
-        type)``; empty slots hold a far sentinel.
+    :param slots4: ``[n_cells * cap, 4]`` cell slots ``(x, y, z, type)``,
+        float32 or float64 (the double kernel); empty slots hold a far
+        sentinel.
     :param counts: ``[n_cells]`` int32 occupied slots per cell (a prefix
         of each cell's slots).
     :param pid: ``[n_cells * cap]`` int32 particle of each slot, ``-1``
         when empty.
     :param grid: ``(nx, ny, nz)``; cell ``x + nx (y + ny z)``.
-    :param lengths: host box lengths (taken as float32).
+    :param lengths: host box lengths (taken in the slots' precision).
     :param n: number of particles.
-    :returns: ``[n, NN, 4]`` float32 neighbor list, particle order.
+    :returns: ``[n, NN, 4]`` neighbor list of the slots' dtype, particle
+        order.
     """
     if not slots4.is_cuda:
         return nlist_select_reference(slots4, counts, pid, grid, capacity,
                                       NN, r_cut, lengths, n)
     return launch(launch_params(tuple(grid), capacity, NN, r_cut,
-                                tuple(lengths)), slots4, counts, pid, n)
+                                tuple(lengths), dtype=slots4.dtype),
+                  slots4, counts, pid, n)
 
 
 def launch(params, slots4, counts, pid, n):
@@ -261,11 +297,12 @@ def launch(params, slots4, counts, pid, n):
     dev = slots4.device
     if dev.type != "cuda":
         raise ValueError(f"K3 launches on CUDA tensors, not {dev}")
-    _check(slots4, (n_cells * p.cap, 4), torch.float32, dev, "slots4")
+    dtype = torch.float64 if p.f64 else torch.float32
+    _check(slots4, (n_cells * p.cap, 4), dtype, dev, "slots4")
     _check(counts, (n_cells,), torch.int32, dev, "counts")
     _check(pid, (n_cells * p.cap,), torch.int32, dev, "pid")
     lib = _library()
-    out = torch.empty((n, p.nn, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((n, p.nn, 4), dtype=dtype, device=dev)
     err = lib.htf_nlist_select(
         ctypes.addressof(p), slots4.data_ptr(), counts.data_ptr(),
         pid.data_ptr(), int(n), out.data_ptr(),
@@ -274,11 +311,13 @@ def launch(params, slots4, counts, pid, n):
         raise RuntimeError("neighbor selection kernel launch failed: " +
                            lib.htf_nlist_error_string(err).decode())
     nlist_select.launches += 1
+    nlist_select.f64_launches += int(p.f64)
     return out
 
 
-#: launches of the kernel
+#: launches of the kernel; those of its double instantiation alone
 nlist_select.launches = 0
+nlist_select.f64_launches = 0
 
 
 def _check(t, shape, dtype, device, name):

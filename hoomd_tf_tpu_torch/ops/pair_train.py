@@ -119,11 +119,12 @@ class _Run:
 
     def uses_k2(self, params):
         """Does the backward run in kernel K2 (a Chebyshev proxy whose
-        coefficients are the parameters, float32)?"""
+        coefficients are the parameters; float32, or float64 in its double
+        instantiation)?"""
         basis = getattr(self.pair_apply, "basis", None)
         return (self.bwd_impl == "auto" and basis is not None and
                 _params_match_basis(params, basis) and
-                self.positions.dtype == torch.float32)
+                self.positions.dtype in (torch.float32, torch.float64))
 
     def _contract(self, tensors, ct, chunk_lanes=None):
         """The generic lane contraction over the half lane set
@@ -236,10 +237,6 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
                with_types, rcut_matrix, needs_energy, fwd_stencil, bwd_impl,
                geometry)
     cuda = positions.is_cuda
-    if cuda and positions.dtype != torch.float32:
-        raise NotImplementedError(
-            "float64 training on the card is not ported yet (kernels K2 and "
-            "generic_reduce_bwd are float32; ROADMAP.md Queue 1 item 5)")
     if bwd_impl == "list" or (cuda and bwd_impl == "auto" and
                               not run.uses_k2(params)):
         from .cellwise_cuda import generic_train_forces

@@ -29,7 +29,7 @@ import torch
 from .cellwise import (_HALF_OFFS, _as_geometry, _relative_coords,
                        _roll_offs, pair_rc2)
 from .cellwise_cuda import (_MAX_SMEM, _check, _ptr, check_slot_inputs,
-                            cuda_slot_args, half_geom)
+                            cuda_slot_args, half_geom, kernel_dtype)
 
 __all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference"]
 
@@ -160,10 +160,11 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
     :func:`proxy_bwd_plain`. Anything else raises.
 
     :param positions, types, valid: the slot state (``[n_slots, 3]``
-        float32, ``[n_slots]`` int32, ``[n_slots]`` float32 nonzero on
-        occupied slots, any pattern within a cell).
-    :param ct: ``[n_slots, 4]`` cotangent of the forces (this function
-        folds ``valid`` in).
+        float32 or float64 -- the kernel's double instantiation --,
+        ``[n_slots]`` int32, ``[n_slots]`` of the positions' dtype, nonzero
+        on occupied slots, any pattern within a cell).
+    :param ct: ``[n_slots, 4]`` cotangent of the forces, the positions'
+        dtype (this function folds ``valid`` in).
     :param rc2_tab: ``[T, T]`` squared-cutoff table (``cellwise.rc2_table``)
         or ``None``.
     :returns: ``(g_c, g_cd)``: ``[K]`` tensors (untyped) or ``[P, K]``
@@ -176,6 +177,7 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
                                needs_energy=needs_energy, geometry=geometry)
     geometry = _as_geometry(plan, lo, positions, geometry)
     dev = positions.device
+    dtype, f64 = kernel_dtype(positions)
     T = _n_types(basis)
     K = int(basis["K"])
     typed = T > 1 or rc2_tab is not None
@@ -183,22 +185,22 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
     ct = ct.contiguous()
     if ct.data_ptr() % 16:
         ct = ct.clone()  # the kernel reads a row as one float4
-    _check(ct, (plan.n_slots, 4), torch.float32, dev, "ct")
+    _check(ct, (plan.n_slots, 4), dtype, dev, "ct")
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
-        _check(rc2_tab, (rc_t, rc_t), torch.float32, dev, "rc2_tab")
+        _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     lib = _library()
-    smem = lib.htf_proxy_bwd_smem(plan.capacity, K, T)
+    smem = lib.htf_proxy_bwd_smem(f64, plan.capacity, K, T)
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity}, K={K} and {T} types "
                          f"need {smem} bytes of shared memory per block, "
                          f"above {_MAX_SMEM}")
     M = T * (T + 1) // 2 * 2 * K
-    partial = torch.empty((plan.n_cells, M), dtype=torch.float32, device=dev)
-    out = torch.empty((M,), dtype=torch.float32, device=dev)
+    partial = torch.empty((plan.n_cells, M), dtype=dtype, device=dev)
+    out = torch.empty((M,), dtype=dtype, device=dev)
     err = lib.htf_proxy_bwd(
-        *state, _ptr(ct), ctypes.byref(half_geom(plan)), plan.n_cells,
+        f64, *state, _ptr(ct), ctypes.byref(half_geom(plan)), plan.n_cells,
         _ptr(rc2_tab), rc_t, K, T, float(plan.r_cut ** 2), float(min_r2),
         float(basis["mid"]), float(basis["inv_half"]),
         float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
@@ -207,11 +209,14 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
         raise RuntimeError("proxy backward kernel launch failed: " +
                            lib.htf_proxy_error_string(err).decode())
     proxy_bwd_moments.launches += 1
+    proxy_bwd_moments.f64_launches += f64
     return _split(out, basis)
 
 
-#: calls that launched the kernel (the moment pass and the cross-cell sum)
+#: calls that launched the kernel (the moment pass and the cross-cell sum);
+#: those of its double instantiation alone
 proxy_bwd_moments.launches = 0
+proxy_bwd_moments.f64_launches = 0
 
 _LIB = None
 
@@ -223,11 +228,12 @@ def _library():
         from .._build import build_shared_library
         lib = ctypes.CDLL(str(build_shared_library("proxy_bwd")))
         lib.htf_proxy_bwd.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] +
-            [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_int] +
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 +
+            [ctypes.c_int, ctypes.c_void_p] +
+            [ctypes.c_int] * 3 + [ctypes.c_double] * 5 + [ctypes.c_int] +
             [ctypes.c_void_p] * 3)
         lib.htf_proxy_bwd.restype = ctypes.c_int
-        lib.htf_proxy_bwd_smem.argtypes = [ctypes.c_int] * 3
+        lib.htf_proxy_bwd_smem.argtypes = [ctypes.c_int] * 4
         lib.htf_proxy_bwd_smem.restype = ctypes.c_long
         lib.htf_proxy_error_string.argtypes = [ctypes.c_int]
         lib.htf_proxy_error_string.restype = ctypes.c_char_p

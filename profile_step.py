@@ -5,7 +5,9 @@ flagship proxy PairModel, ``--row pair``, the non-proxy PairModel, or
 ``--row generic``, the generic SimModel of reference example 08) or the
 64k eval step
 (``--mode eval``, the bench protocol), through the port's public API; or
-(``--mode calls``) the whole calls of kernels K1, K2 and K3 alone; or
+(``--mode calls``) the whole calls of kernels K1, K2, K3 and
+``generic_reduce_bwd`` alone, in float32 or (``--dtype float64``) in
+their double instantiations; or
 (``--mode k3parts``, ``--mode genparts``) where the time of K3, or of K1's
 generic form, goes; or (``--mode mapped``) the coarse-grained steps of
 chip_smoke.py phases 19-20.
@@ -17,7 +19,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--row proxy|pair|generic] [--steps 50]
                             [--box ortho|tilted|npt]
                             [--route cell|cellwise|molsim]
-    python3 profile_step.py --mode calls --tree DIR
+    python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
 
 ``--tree DIR`` imports the port's package from another checkout (an
 older commit, say) while this file and ``chip_smoke.py`` stay this
@@ -57,9 +59,13 @@ the profiler can leave the first kernels of a window unrecorded) and
 reports the CUDA kernels per call (total / R; ``torch.roll``'s among
 them; it raises when no window gives a total that is a multiple of R)
 and their device time per call, and gives chip_smoke.py's bound for the
-call. Where the package has K3's
-``launch_params`` it also times K3 at forced launch shapes (strip
-length, warps per block).
+call. It also times K1's generic form on the LJ pair function and
+``generic_reduce_bwd`` (forces only) at the eval plan, with the form's
+own three kernels' share of the call. ``--dtype float64`` makes the
+state, the model and the tables float64 and takes the bounds at
+float64's 34 TFLOP/s. Where the package has K3's ``launch_params`` it
+also times K3 at forced launch shapes (strip length, warps per block;
+float32).
 
 ``--mode k3parts`` times K3 (kernel alone, profiler) at the packed
 path's plan as it is and with one part of its work taken out, each a
@@ -291,10 +297,13 @@ def train_parts(sim, model, cs):
     return out
 
 
-def whole_calls(cs):
-    """K1, K2 and K3 whole calls alone: CUDA-event medians, the kernels
-    one call launches and their device time, and chip_smoke.py's bound,
-    at the eval, train and packed shapes."""
+def whole_calls(cs, dtype):
+    """K1 (LJ, proxy and generic forms), K2, ``generic_reduce_bwd`` and K3
+    whole calls alone, on a ``dtype`` state (float32, or float64 for the
+    double instantiations): CUDA-event medians, the kernels one call
+    launches and their device time (for the generic form also its own
+    three kernels' share), and chip_smoke.py's bound (float64 operations
+    at their own peak), at the eval, train and packed shapes."""
     torch, htt = cs.torch, cs.htt
     from hoomd_tf_tpu_torch.md.slots import SlotLayout
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
@@ -302,9 +311,11 @@ def whole_calls(cs):
     from hoomd_tf_tpu_torch.ops.cellwise import _measured_occupancy
     from hoomd_tf_tpu_torch.ops.chebyshev import make_pair_proxy
 
-    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
-    htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
-                                          nlist="cellwise")
+    peak = cs.PEAK_F64_PER_S if dtype == torch.float64 else cs.PEAK_F32_PER_S
+    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda",
+                          dtype=dtype)
+    htt.tfcompute(cs.make_model(dtype=dtype)).attach(sim, r_cut=cs.R_CUT,
+                                                     nlist="cellwise")
     sim.run(60)
     eval_plan = sim._layout.plan
     pos = sim.state.positions
@@ -314,7 +325,7 @@ def whole_calls(cs):
                                      capacity=max(36, occ_max))
 
     def slots(plan):
-        layout = SlotLayout(plan, cs.N, sim._lo, device="cuda")
+        layout = SlotLayout(plan, cs.N, sim._lo, dtype=dtype, device="cuda")
         slot, aux = cs.slot_state(layout, sim.state)
         return layout, (slot.positions, slot.types, aux["valid"], plan,
                         layout.lo)
@@ -323,15 +334,32 @@ def whole_calls(cs):
     tr_lay, tr_st = slots(train_plan)
     lj = htt.md.LennardJones(1.0, 1.0, r_cut=cs.R_CUT).kernel_form()
     fit, proxy = make_pair_proxy(cs.K_PROXY, (0.25 * cs.R_CUT) ** 2,
-                                 cs.R_CUT ** 2, device="cuda")
+                                 cs.R_CUT ** 2, dtype=dtype, device="cuda")
 
     def energy(r2):
         u = 1.0 / r2
         return (u * u - 2.0 * u) / (1.0 + u * u)
     with torch.no_grad():
         cheb = proxy.kernel_form(fit(energy))
-    ct = torch.randn((train_plan.n_slots, 4), device="cuda",
+    ct = torch.randn((train_plan.n_slots, 4), device="cuda", dtype=dtype,
                      generator=torch.Generator("cuda").manual_seed(0))
+    # K1's generic form on the LJ pair function, and the backward of its
+    # reduction, at the eval plan (forces only, the train path's)
+    ljf = htt.md.LennardJones(1.0, 1.0, r_cut=cs.R_CUT)
+    lanes = cc.LaneBudget(cc.lane_budget(eval_plan, cs.N), "cuda")
+    gen_kw = dict(typed_fn=False, needs_energy=False,
+                  geometry=ev_lay.geometry, lanes=lanes)
+
+    def pair_fn(r2):
+        return ljf.pair_energy_and_slope(r2)
+    lanes.reset()
+    cc.generic_pair_forces(*ev_st, pair_fn, **gen_kw)
+    need = int(lanes.needed)
+    gl = cc.generic_list(*ev_st, typed_fn=False, geometry=ev_lay.geometry,
+                         lanes=lanes, needs_energy=False)
+    cc.generic_reduce(gl, *gl.evaluate(pair_fn), False)
+    ct_ev = torch.randn((eval_plan.n_slots, 4), device="cuda", dtype=dtype,
+                        generator=torch.Generator("cuda").manual_seed(1))
     calls = (
         ("K1 LJ form, forces only", eval_plan, ev_st,
          lambda: cc.half_stencil_pair_forces(
@@ -346,40 +374,58 @@ def whole_calls(cs):
              *tr_st[:3], ct, *tr_st[3:], proxy.basis, needs_energy=False,
              geometry=tr_lay.geometry),
          lambda: cs.k2_cost(tr_st[0], tr_st[2], train_plan, cs.K_PROXY,
-                            False, 2 * cs.K_PROXY)))
-    k3 = k3_call(cs, sim)
+                            False, 2 * cs.K_PROXY)),
+        # the backward before any later generic-form call rewrites its
+        # records
+        ("generic_reduce_bwd, forces only", eval_plan, ev_st,
+         lambda: cc.generic_reduce_bwd(gl, ct_ev, False),
+         lambda: cs.bwd_cost(gl, need, False)),
+        ("K1 generic form, LJ pair function, forces only", eval_plan, ev_st,
+         lambda: cc.generic_pair_forces(*ev_st, pair_fn, **gen_kw),
+         lambda: cs.k1_generic_cost(ev_st[0], ev_st[2], eval_plan, 3,
+                                    need)))
+    k3 = k3_call(cs, sim, dtype=dtype)
     calls = calls + (k3[:5],)
     calls_n = cs.PROFILED_CALLS
+    form = ("generic_list", "generic_reduce", "half_stencil_home")
     out = []
     for name, plan, _, fn, cost in calls:
         ms = cs.cuda_ms(fn, reps=25)
-        names, dev_ms, dropped, _ = cs.profiled_calls(fn)
-        b_ms, b_by = cs.bound(*cost()[:2])
-        out.append({"call": name, "plan": [list(plan.grid), plan.capacity],
-                    "ms": ms, "kernels_per_call": len(names) / calls_n,
-                    "roll_kernels_per_call": sum(map(is_roll, names)) /
-                    calls_n,
-                    "kernel_ms_per_call": dev_ms / calls_n,
-                    "profiler_windows_dropped": dropped,
-                    "kernels": sorted(set(n[:60] for n in names)),
-                    "bound_ms": b_ms, "bound_by": b_by})
+        names, dev_ms, dropped, each = cs.profiled_calls(fn)
+        b_ms, b_by = cs.bound(*cost()[:2], peak)
+        rec = {"call": name, "plan": [list(plan.grid), plan.capacity],
+               "ms": ms, "kernels_per_call": len(names) / calls_n,
+               "roll_kernels_per_call": sum(map(is_roll, names)) /
+               calls_n,
+               "kernel_ms_per_call": dev_ms / calls_n,
+               "profiler_windows_dropped": dropped,
+               "kernels": sorted(set(n[:60] for n in names)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if name.startswith("K1 generic"):
+            rec["form_kernels_ms_per_call"] = sum(
+                t for n, t in zip(names, each)
+                if any(k in n for k in form)) / calls_n
+        out.append(rec)
     if k3[5] is not None:
         out.append({"call": "K3 at forced launch shapes", "shapes": k3[5]})
     return out
 
 
-def k3_call(cs, sim, shapes=True):
+def k3_call(cs, sim, shapes=True, dtype=None):
     """K3's whole call at the packed path's plan on the quenched state:
     ``(name, plan, inputs, fn, cost, shapes)``, ``shapes`` the times at
     forced launch shapes where the package has ``launch_params`` (and
-    ``shapes`` is asked for)."""
+    ``shapes`` is asked for; float32 only)."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cell_list as cl
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
     from hoomd_tf_tpu_torch.ops.box import box_size
     htt, torch = cs.htt, cs.torch
-    psim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
-    htt.tfcompute(cs.make_simmodel(64)).attach(psim, r_cut=cs.R_CUT)
+    dtype = dtype or torch.float32
+    psim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda",
+                           dtype=dtype)
+    htt.tfcompute(cs.make_simmodel(64, dtype=dtype)).attach(psim,
+                                                            r_cut=cs.R_CUT)
     grid, cap = psim._packed_build().plan
     st = sim.state
     lengths = box_size(st.box)
@@ -391,11 +437,13 @@ def k3_call(cs, sim, shapes=True):
 
     def cost():
         key = cs.k3_keys(slots4, grid, cap, lengths)
-        valid = (key != nc.FAR_KEY).sum(1)[pid >= 0]
+        far = nc.FAR_KEY64 if key.dtype == torch.int64 else nc.FAR_KEY
+        valid = (key != far).sum(1)[pid >= 0]
         return cs.k3_cost(slots4, counts, grid, cap, 64, cs.N, valid)
     plan = dataclasses.make_dataclass("Plan", ["grid", "capacity"])(
         grid, cap)
-    if not (shapes and hasattr(nc, "launch_params")):
+    if not (shapes and hasattr(nc, "launch_params")) or \
+            dtype != torch.float32:
         shapes = None
     else:
         shapes = []
@@ -632,6 +680,10 @@ def main():
                     default="cell")
     ap.add_argument("--tree", default=HERE,
                     help="checkout whose hoomd_tf_tpu_torch is imported")
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    default="float32",
+                    help="--mode calls: the state's dtype (float64: the "
+                    "kernels' double instantiations)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -661,7 +713,9 @@ def main():
         print(json.dumps({"mode": "calls", "tree": os.path.abspath(
             args.tree), "package": os.path.dirname(htt.__file__),
             "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
-            "calls": whole_calls(cs)}, indent=1))
+            "dtype": args.dtype,
+            "calls": whole_calls(cs, getattr(torch, args.dtype))},
+            indent=1))
         return 0
 
     if args.mode == "mapped":

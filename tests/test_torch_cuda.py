@@ -1,8 +1,8 @@
 """Card-only checks of the port: kernel K1 (LJ and Chebyshev-proxy forms),
 kernel K2, kernel K3 and the generic form's backward
 (``generic_reduce_bwd``) against their plain versions (also at a tilted
-and at a rescaled box, which the kernels read from the card), the step
-loops of
+and at a rescaled box, which the kernels read from the card, and in
+float64, each kernel's double instantiation), the step loops of
 the cellwise and the packed paths free of host syncs, and online training
 on the card against the CPU. Every test here
 needs a CUDA device and
@@ -36,17 +36,18 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 RCM = np.array([[2.5, 1.8], [1.8, 2.2]], dtype=np.float32)
 
 
-def packed(device, typed, capacity=None, n=500):
+def packed(device, typed, capacity=None, n=500, dtype=torch.float32):
     pos, vel, lengths = fluid_arrays(n, 0.35, 7)
     types = (np.arange(n) % 2) if typed else None
-    st = torch_state(pos, vel, lengths, types=types, device=device)
+    st = htt.md.state.init_state(pos, lengths, types=types, velocities=vel,
+                                 dtype=dtype, device=device)
     lo = -lengths / 2
     plan = tcw.plan_cellwise(n, lengths, 2.5, positions=pos, lo=lo,
                              width_blocks=14)
     if capacity:
         plan = dataclasses.replace(plan, capacity=capacity)
     layout = SlotLayout(plan, n, lo, rc_matrix=RCM if typed else None,
-                        device=device)
+                        dtype=dtype, device=device)
     slot, aux = layout.pack(st)
     return layout, slot, aux
 
@@ -574,20 +575,245 @@ def test_generic_training_on_the_card(cuda_device, kind):
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-3)
 
 
-def test_float64_training_on_the_card_refused(cuda_device):
-    """float64 training on the card has no kernel yet: attach refuses it,
-    naming the later item."""
-    from torch_helpers import nn_pair_class
-    sim = htt.Simulation(device=cuda_device)
-    sim.init_lattice(512, density=0.4)
-    sim.set_state(dataclasses.replace(
-        sim.state, positions=sim.state.positions.double()))
-    sim.add_force(htt.md.LennardJones(r_cut=2.5))
-    model = nn_pair_class()(64, output_forces=False, dtype=torch.float64)
-    model.compile(loss="mse")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        htt.tfcompute(model).attach(sim, r_cut=2.5, nlist="cellwise",
-                                    train=True)
+# ---------------------------------------------------------------------------
+# float64 on the card: every kernel's double instantiation
+# ---------------------------------------------------------------------------
+
+F64 = torch.float64
+
+
+def assert_rel(got, want, tol):
+    """``max |got - want| <= tol * max |want|``."""
+    got, want = np_(got), np_(want)
+    assert got.dtype == np.float64 and want.dtype == np.float64
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= tol * scale, \
+        np.abs(got - want).max() / scale
+
+
+@pytest.mark.parametrize("form_kind", ["lj", "proxy"])
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("capacity", [None, 200])
+def test_double_k1_matches_plain(cuda_device, form_kind, typed, capacity):
+    """K1's double instantiation (LJ and proxy forms, a float64 table) on
+    a float64 state against its plain version on the CPU at 1e-11 max|F|
+    (chip_smoke.py phase 22's bar), energy and virial included; the
+    double launch is counted."""
+    if form_kind == "lj":
+        pot = (htt.md.LennardJones([[1.0, 0.5], [0.5, 0.5]], 1.0, r_cut=2.5)
+               if typed else htt.md.LennardJones(r_cut=2.5))
+        forms = {d: pot.kernel_form() for d in ("cuda", "cpu")}
+    else:
+        from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
+                                                      make_typed_pair_proxy)
+        r2_lo = (0.25 * 2.5) ** 2
+
+        def lj(r2, eps=1.0):
+            u = 1.0 / r2
+            sr6 = u * u * u
+            return 4.0 * eps * (sr6 * sr6 - sr6)
+        if typed:
+            fit, ev = make_typed_pair_proxy(16, r2_lo, 6.25, 2, dtype=F64,
+                                            device="cpu")
+            coeffs = fit(lambda r2, ti, tj: lj(r2, 1.0 / (1.0 + ti + tj)))
+        else:
+            fit, ev = make_pair_proxy(16, r2_lo, 6.25, dtype=F64,
+                                      device="cpu")
+            coeffs = fit(lj)
+        forms = {d: ev.kernel_form(on(coeffs, torch.device(
+            cuda_device if d == "cuda" else "cpu"))) for d in ("cuda", "cpu")}
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, typed, capacity, dtype=F64)
+        before = tcc.half_stencil_pair_forces.f64_launches
+        f, w = tcc.half_stencil_pair_forces(
+            slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, forms[dev.type], needs_virial=True,
+            rc2_tab=layout.rc2_tab, geometry=layout.geometry)
+        assert tcc.half_stencil_pair_forces.f64_launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        assert f.dtype == F64 and w.dtype == F64
+        outs.append((f, w))
+    assert_rel(outs[0][0], outs[1][0], 1e-11)
+    assert_rel(outs[0][1], outs[1][1], 1e-11)
+
+
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("capacity", [None, 200])
+def test_double_generic_form_matches_plain(cuda_device, typed, capacity):
+    """K1's generic form in double: the list holds float64 r2, the pair
+    function's float64 (U, s) are reduced in double; forces, energy and
+    virial against the plain version at 1e-11 max|F|."""
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, typed, capacity, dtype=F64)
+        lanes = tcc.LaneBudget(tcc.lane_budget(layout.plan, 500), dev)
+        before = tcc.generic_pair_forces.f64_launches
+        f, w = tcc.generic_pair_forces(
+            slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, morse_yukawa, needs_virial=True,
+            rc2_tab=layout.rc2_tab, geometry=layout.geometry, lanes=lanes)
+        assert tcc.generic_pair_forces.f64_launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        assert not bool(lanes.overflow())
+        outs.append((f, w))
+    assert_rel(outs[0][0], outs[1][0], 1e-11)
+    assert_rel(outs[0][1], outs[1][1], 1e-11)
+
+
+@pytest.mark.parametrize("energy", [True, False])
+def test_double_generic_reduce_bwd_matches_plain(cuda_device, energy):
+    """``generic_reduce_bwd`` in double, lane by lane against its plain
+    version at 1e-11 max|g| (phase 23's bar); lanes past the need zero."""
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slot, aux = packed(dev, True, None, dtype=F64)
+        lanes = tcc.LaneBudget(tcc.lane_budget(layout.plan, 500), dev)
+        gl = tcc.generic_list(slot.positions, slot.types, aux["valid"],
+                              layout.plan, layout.lo,
+                              rc2_tab=layout.rc2_tab,
+                              geometry=layout.geometry, lanes=lanes,
+                              needs_energy=energy)
+        assert gl.r2.dtype == F64
+        U, S = gl.evaluate(morse_yukawa)
+        tcc.generic_reduce(gl, U, S, energy)
+        ct = torch.as_tensor(np.random.RandomState(4).randn(
+            layout.plan.n_slots, 4), device=dev)
+        before = tcc.generic_reduce_bwd.f64_launches
+        gU, gS = tcc.generic_reduce_bwd(gl, ct, energy)
+        assert tcc.generic_reduce_bwd.f64_launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        res.append((gl, lanes, gU, gS))
+    (gl, lanes, gU, gS), (pl, _, pU, pS) = res
+    need = int(lanes.needed)
+    idx = np_(tcc.kernel_lane_index(pl.lst, gl.cell_base, gl.plan))
+    assert sorted(idx.tolist()) == list(range(need))
+    assert_rel(np_(gS)[idx], pS, 1e-11)
+    assert not np_(gS)[need:].any()
+    if energy:
+        assert_rel(np_(gU)[idx], pU, 1e-11)
+
+
+@pytest.mark.parametrize("case", ["untyped", "forces_only", "two_types"])
+def test_double_k2_matches_plain(cuda_device, case):
+    """K2's double instantiation (the register moments untyped, the
+    shared-memory moment sets with two types; three types at K = 16 pass
+    the block's shared memory in double, and the wrapper refuses them)
+    against its plain version at rtol 1e-10 (phase 23's bar)."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
+                                                  make_typed_pair_proxy)
+    n_types = 2 if case == "two_types" else 1
+    r2_lo = (0.25 * 2.5) ** 2
+    if n_types > 1:
+        _, ev = make_typed_pair_proxy(16, r2_lo, 6.25, n_types, dtype=F64,
+                                      device="cpu")
+    else:
+        _, ev = make_pair_proxy(16, r2_lo, 6.25, dtype=F64, device="cpu")
+    energy = case != "forces_only"
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        pos, vel, lengths = fluid_arrays(500, 0.35, 7)
+        st = htt.md.state.init_state(pos, lengths, types=np.arange(500) %
+                                     n_types, velocities=vel, dtype=F64,
+                                     device=dev)
+        lo = -lengths / 2
+        plan = tcw.plan_cellwise(500, lengths, 2.5, positions=pos, lo=lo,
+                                 width_blocks=14)
+        layout = SlotLayout(plan, 500, lo, dtype=F64, device=dev)
+        slot, aux = layout.pack(st)
+        ct = torch.as_tensor(np.random.RandomState(1).randn(
+            plan.n_slots, 4), device=dev)
+        before = ptc.proxy_bwd_moments.f64_launches
+        g_c, g_cd = ptc.proxy_bwd_moments(
+            slot.positions, slot.types, aux["valid"], ct, plan, layout.lo,
+            ev.basis, needs_energy=energy, geometry=layout.geometry)
+        assert ptc.proxy_bwd_moments.f64_launches - before == \
+            (1 if dev.type == "cuda" else 0)
+        outs.append(np.concatenate([np_(g_c).ravel(), np_(g_cd).ravel()]))
+    assert outs[0].dtype == np.float64
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-10,
+                               atol=1e-10 * np.abs(outs[1]).max())
+
+
+@pytest.mark.parametrize("NN,cap", [(64, None), (16, 80)])
+def test_double_k3_matches_plain(cuda_device, NN, cap):
+    """K3's double instantiation (64-bit keys, float64 thresholds) equal to
+    its plain version element for element (phase 24's bar)."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    args = list(k3_args(cuda_device, cap=cap, NN=NN))
+    args[0] = args[0].double()
+    before = tnc.nlist_select.f64_launches
+    got = tnc.nlist_select(*args)
+    assert tnc.nlist_select.f64_launches - before == 1
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    want = tnc.nlist_select_reference(*cpu)
+    assert got.dtype == F64
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("row", ["proxy", "pair"])
+def test_float64_training_on_the_card(cuda_device, row):
+    """float64 online training on the card (once refused): the proxy row
+    launches K1's proxy form and K2 in double, the pair row K1's generic
+    form and ``generic_reduce_bwd`` in double; no host sync; 10 SGD
+    steps' losses equal the CPU run's (the plain versions) at rtol
+    1e-9."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    from torch_helpers import force_loss, quenched_state
+
+    class NNPair64(htt.PairModel):
+        def setup(self):
+            self.dense1 = htt.Dense(16, dtype=F64)
+            self.last = htt.Dense(1, dtype=F64)
+
+        def pair_energy(self, r2):
+            x = torch.tanh(self.dense1(torch.rsqrt(r2)[..., None]))
+            return 2.0 * self.last(x)[..., 0]
+
+    state = quenched_state(512)
+    runs, weights = {}, None
+    for dev in (cuda_device, torch.device("cpu")):
+        sim = htt.Simulation(dt=0.005,
+                             integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                             device=dev)
+        sim.set_state(dataclasses.replace(state, **{
+            f: getattr(state, f).to(dev, F64) for f in (
+                "positions", "velocities", "masses", "box", "forces",
+                "virial")}, types=state.types.to(dev), thermostat={},
+            rng=None))
+        if dev.type == "cpu":
+            sim.stencil = "kernel"
+        sim.add_force(htt.md.LennardJones(r_cut=2.5))
+        model = NNPair64(64, output_forces=False, dtype=F64,
+                         proxy_degree=16 if row == "proxy" else None)
+        model.compile(optimizer="sgd", loss=force_loss, learning_rate=1e-3)
+        htt.interop.build_model(model, 2.5, dev)
+        if weights is not None:
+            model.set_weights(weights)
+        weights = model.get_weights()
+        tfc = htt.tfcompute(model)
+        tfc.attach(sim, r_cut=2.5, nlist="cellwise", train=True)
+        counts = (tcc.half_stencil_pair_forces.f64_launches,
+                  ptc.proxy_bwd_moments.f64_launches,
+                  tcc.generic_pair_forces.f64_launches,
+                  tcc.generic_reduce_bwd.f64_launches)
+        if dev.type == "cuda":
+            sim.check_syncs = True
+        sim.run(10)
+        now = (tcc.half_stencil_pair_forces.f64_launches,
+               ptc.proxy_bwd_moments.f64_launches,
+               tcc.generic_pair_forces.f64_launches,
+               tcc.generic_reduce_bwd.f64_launches)
+        d = [b - a for a, b in zip(counts, now)]
+        if dev.type == "cuda":
+            if row == "proxy":
+                assert d[1] == 10 and d[0] > 0
+            else:
+                assert d[3] == 10 and d[2] >= 10
+        runs[dev.type] = np.asarray(tfc.loss_history)
+        assert np.isfinite(tfc.get_forces_array()).all()
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=1e-9)
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +1016,7 @@ def test_k3_wrapper_checks_inputs(cuda_device):
     from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
     args = list(k3_args(cuda_device))
     bad = list(args)
-    bad[0] = args[0].double()
+    bad[0] = args[0].half()
     with pytest.raises(ValueError, match="float32"):
         tnc.nlist_select(*bad)
     bad = list(args)
