@@ -32,7 +32,8 @@ exits non-zero:
                potential (MLP on 1/r, widths 16 -> 1, K = 16) trained
                with Adam at lr 1e-2 against built-in LJ labels during
                live NVT; then K1's proxy form and K2 against their plain
-               versions at the train plan's shapes, and a small-N SGD
+               versions at the train plan's shapes (K2 also with eight
+               types, which run in type groups), and a small-N SGD
                trajectory on the card against the CPU;
 6. packed   -- the JAX package's typical use through the public API: a
                generic SimModel (LJ from nlist_rinv, NN = 64) attached
@@ -167,7 +168,8 @@ exits non-zero:
 23. fp64-train -- phases 5 and 10's rows (the proxy NN, TrainableNNPair)
                in float64 from one float64 fluid, phase 5's protocol and
                loss gate, every launch double: K1's proxy form and K2
-               (rtol 1e-10), generic_reduce_bwd lane by lane and K1's
+               (rtol 1e-10; K2 also with three and five types, which run
+               in type groups), generic_reduce_bwd lane by lane and K1's
                generic form (1e-11) against their plain versions, times
                and bounds;
 24. fp64-packed -- phase 6's packed path (LJModel(64), the cell list with
@@ -175,7 +177,30 @@ exits non-zero:
                plain version element for element, its times; then
                save_checkpoint, run(20), load_checkpoint: the restored
                positions bit-equal, the resumed run(20) within 1e-9 of the
-               uninterrupted one (bit-equal reported).
+               uninterrupted one (bit-equal reported);
+25. trajectory -- phase 4's 64k fluid runs 1000 NVT steps on 'cellwise'
+               with a frame (positions, velocities, net forces, typeid,
+               step) every 100 steps, written with write_gsd_frames (the
+               package's own g++-built GSD library), read back by GSDFile
+               bit-equal chunk for chunk; GSDUniverse's box; K1 launches
+               equal to the force evaluations; MB and seconds printed;
+26. offline -- reference examples 05 and 06 at 16,384 particles: an LJ
+               fluid at density 0.3, r_cut 3, on 'cellwise' writes 20
+               frames with forces; iter_from_trajectory(48,
+               GSDUniverse(path), r_cut=3.0) feeds example 05's RDF
+               (finite, maximum at 0.8 < r < 2.8, none below 0.85) and
+               example 06's TrainableLJ (eps 0.8, sig 1.1, Adam 2e-2,
+               8 to 18 epochs, ending within 0.2 of eps 1 and 0.1 of
+               sig 1). Both packages build that list densely ([N, N, 3]),
+               which sets the size;
+27. profiling -- time_steps and benchmark_simulation (200 steps, 3 reps)
+               on phase 25's simulation, finite and positive, beside phase
+               4's rate; trace() around a run(50) writes a Chrome trace
+               naming K1's kernel (a window that missed it is run again);
+28. examples -- the eleven scripts of examples/torch run in-process as
+               __main__ on the card, each gated by its own asserts, their
+               seconds printed; PDBUniverse(peg2.pdb, traj=<a GSD of its
+               frames>) iterated on the card.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -1370,6 +1395,8 @@ def phase_train_kernels(sim, model):
     basis1 = model.proxy_parts(R_CUT, dev)[1].basis
     ev2, co2 = typed_proxy(2)
     ev3, co3 = typed_proxy(3)
+    types8 = (torch.arange(N, device=dev) % 8).to(torch.int32)
+    ev8 = make_typed_pair_proxy(K_PROXY, r2_lo, rc2, 8, device=dev)[1]
 
     # K1, proxy form
     k1_err = 0.0
@@ -1420,7 +1447,11 @@ def phase_train_kernels(sim, model):
             ("untyped with energy", None, basis1, None, True),
             ("two types + rcut_matrix", types2, ev2.basis, rcm, True),
             ("three types (2*K*P = 192 > 128)", types3, ev3.basis, None,
-             True)):
+             True),
+            ("eight types (type groups of "
+             f"{pc.type_groups(0, p.capacity, K_PROXY, 8)[0][1]}, "
+             f"{len(pc.type_groups(0, p.capacity, K_PROXY, 8))} groups)",
+             types8, ev8.basis, None, True)):
         st = state if types is None else dataclasses.replace(state,
                                                              types=types)
         lay = SlotLayout(p, N, sim._lo, rc_matrix=rc, device=dev)
@@ -1429,8 +1460,11 @@ def phase_train_kernels(sim, model):
                 basis)
         kw = dict(min_r2=model.min_r2, rc2_tab=lay.rc2_tab,
                   needs_energy=energy, geometry=lay.geometry)
+        grouped = pc.proxy_bwd_moments.grouped_launches
         got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
             *args, **kw)])
+        check(pc.proxy_bwd_moments.grouped_launches - grouped ==
+              (types is types8), f"K2 {label}: type groups not as planned")
         want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
             *args, **kw)])
         torch.cuda.synchronize()
@@ -3185,6 +3219,44 @@ def fp64_proxy_kernels(sim, model):
                   f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
                   "float64 operations)")
+    # three and five types: one group of moment sets would pass the
+    # block's shared memory in double, so K2 runs type groups; two types
+    # (one group, the same shared-memory moment sets) for comparison
+    from hoomd_tf_tpu_torch.ops.chebyshev import make_typed_pair_proxy
+    for T in (2, 3, 5):
+        types = (torch.arange(N, device="cuda") % T).to(torch.int32)
+        slot_t, aux_t = slot_state(layout, dataclasses.replace(
+            sim.state, types=types))
+        basis_t = make_typed_pair_proxy(
+            K_PROXY, (0.25 * R_CUT) ** 2, R_CUT ** 2, T, dtype=F64,
+            device="cuda")[1].basis
+        args = (slot_t.positions, slot_t.types, aux_t["valid"], ct, p,
+                layout.lo, basis_t)
+        groups = pc.type_groups(1, p.capacity, K_PROXY, T)
+        grouped = pc.proxy_bwd_moments.grouped_launches
+        got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
+            *args, **kw2)])
+        check(pc.proxy_bwd_moments.grouped_launches - grouped ==
+              (len(groups) > 1) == (T > 2),
+              f"K2 double, {T} types: type groups not as planned")
+        want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
+            *args, **kw2)])
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, compare(
+            f"K2 double, {T} types in {len(groups)} groups of "
+            f"{groups[0][1]} ({len(groups) * (len(groups) + 1) // 2} grid "
+            f"rows, {got.numel()} moments, kernel vs plain)", got, want,
+            rtol=F64_K2_RTOL, atol=F64_K2_RTOL * float(want.abs().max())))
+        t_k = cuda_ms(lambda: pc.proxy_bwd_moments(*args, **kw2))
+        t_p = cuda_ms(lambda: pc.proxy_bwd_plain(*args, **kw2), reps=1)
+        nbytes, ops = k2_cost(slot_t.positions, aux_t["valid"], p, K_PROXY,
+                              True, got.numel())
+        nbytes += 4 * p.n_slots  # the types
+        b_ms, b_by = bound(nbytes, ops, PEAK_F64_PER_S)
+        print(f"  K2 double, {T} types, the whole call (with energy): "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+              "float64 operations)")
     k2_rec["max_abs_err"] = k2_err
     return k1_rec, k2_rec
 
@@ -3390,6 +3462,294 @@ def phase_fp64_packed(packed_sps):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-28: GSD trajectory I/O, the profiling helpers, the examples
+# ---------------------------------------------------------------------------
+
+GSD_CHUNKS = ("configuration/step", "configuration/box", "particles/N",
+              "particles/position", "particles/typeid",
+              "particles/velocity", "log/particles/force")
+EXAMPLES = ("01_quickstart", "02_mapped_cg_simulation", "03_eds_biasing",
+            "04_particle_simulations", "05_running_from_trajectory",
+            "06_force_matching", "07_cg_mapping_from_files",
+            "08_nbody_neural_force_field", "09_cg_properties",
+            "10_cg_force_matching", "11_external_models")
+
+
+def example(name):
+    """The globals of ``examples/torch/<name>.py`` (its main not run)."""
+    import runpy
+    return runpy.run_path(os.path.join(HERE, "examples", "torch",
+                                       name + ".py"))
+
+
+def gsd_chunks(path):
+    """Every chunk of every frame of ``path``, read by the port:
+    ``({(frame, name): array}, frames)``."""
+    with htt.GSDFile(path) as f:
+        return ({(i, name): f.read_chunk(i, name)
+                 for i in range(f.nframes) for name in GSD_CHUNKS
+                 if f.chunk_exists(i, name)}, f.nframes)
+
+
+def phase_trajectory(state):
+    """Phase 25: phase 4's 64k fluid (its NVT state) runs 1000 NVT steps
+    on 'cellwise' with a frame every 100 steps, written with
+    write_gsd_frames and read back bit-equal by GSDFile."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    sim.set_state(state)
+    htt.tfcompute(make_model()).attach(sim, r_cut=R_CUT, nlist="cellwise")
+    k1.launches = 0
+    evals0 = sim.force_evals
+    frames = []
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sim.run(100)
+        st = sim.state
+        frames.append({"positions": st.positions.clone(),
+                       "velocity": st.velocities.clone(),
+                       "forces": st.forces[:, :3].clone(),
+                       "typeid": st.types.clone(), "step": st.step})
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches, evals = k1.launches, sim.force_evals - evals0
+    check(launches > 0 and launches == evals,
+          f"K1 launches {launches} != force evaluations {evals}")
+    healthy(sim, "trajectory")
+    box = htt.box_size(sim.state.box).cpu().numpy()
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "traj.gsd")
+        t0 = time.perf_counter()
+        htt.write_gsd_frames(path, frames, box=box)
+        t_write = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 1e6
+        host = [{k: v.cpu().numpy() if torch.is_tensor(v) else v
+                 for k, v in fr.items()} for fr in frames]
+        t0 = time.perf_counter()
+        htt.write_gsd_frames(os.path.join(tmp, "host.gsd"), host, box=box)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, nframes = gsd_chunks(path)
+        t_read = time.perf_counter() - t0
+        check(nframes == 10, f"{nframes} frames")
+        for i, fr in enumerate(frames):
+            want = {
+                "configuration/step": np.array([fr["step"]], np.uint64),
+                "particles/N": np.array([N], np.uint32),
+                "particles/position": fr["positions"].cpu().numpy(),
+                "particles/velocity": fr["velocity"].cpu().numpy(),
+                "log/particles/force": fr["forces"].cpu().numpy(),
+                "particles/typeid":
+                    fr["typeid"].cpu().numpy().astype(np.uint32)}
+            for name, w in want.items():
+                g = got[(i, name)]
+                check(g.dtype == w.dtype and g.shape == w.shape and
+                      g.tobytes() == w.tobytes(),
+                      f"frame {i} {name}: not read back bit-equal")
+        u = htt.GSDUniverse(path)
+        check(np.array_equal(u.dimensions[:3], box.astype(np.float32)) and
+              np.allclose(u.dimensions[3:], 90.0),
+              f"GSDUniverse box {u.dimensions} != {box}")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"  1000 NVT steps at N={N} on 'cellwise' in {t_run:.2f} s, 10 "
+          f"frames (positions, velocities, net forces, typeid, step): "
+          f"{mb:.2f} MB written from the card's tensors in {t_write:.3f} "
+          f"s (from host copies {t_host:.3f} s), read back (every chunk) "
+          f"in {t_read:.3f} s, bit-equal; GSDUniverse box "
+          f"{u.dimensions[:3].tolist()}; K1 launches {launches} == force "
+          f"evaluations {evals}; phase {time.perf_counter() - t_phase:.1f} "
+          f"s")
+    return launches, sim
+
+
+def phase_offline(n=16384):
+    """Phase 26: examples 05 and 06 at ``n`` particles from the card's own
+    trajectory: an LJ fluid at density 0.3, r_cut 3, on 'cellwise' (K1)
+    writes 20 frames with forces; iter_from_trajectory(48, GSDUniverse,
+    r_cut=3.0) feeds example 05's MeanTensor RDF and example 06's
+    TrainableLJ (eps 0.8, sig 1.1, Adam 2e-2, 8 to 18 epochs)."""
+    import shutil
+    import tempfile
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    ex05 = example("05_running_from_trajectory")
+    ex06 = example("06_force_matching")
+    sim = htt.Simulation(dt=0.002, integrator=htt.md.NVT(kT=1.0, tau=0.5),
+                         seed=3, device="cuda")
+    sim.init_lattice(n, density=0.3, kT_init=1.0)
+    htt.tfcompute(make_model()).attach(sim, r_cut=R_CUT, nlist="cellwise")
+    k1.launches = 0
+    evals0 = sim.force_evals
+    sim.run(200)
+    frames = []
+    for _ in range(20):
+        sim.run(20)
+        st = sim.state
+        frames.append({"positions": st.positions.clone(),
+                       "velocity": st.velocities.clone(),
+                       "forces": st.forces[:, :3].clone(),
+                       "typeid": st.types.clone(), "step": st.step})
+    torch.cuda.synchronize()
+    launches, evals = k1.launches, sim.force_evals - evals0
+    check(launches > 0 and launches == evals,
+          f"K1 launches {launches} != force evaluations {evals}")
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "lj_fluid.gsd")
+        htt.write_gsd_frames(path, frames, box=htt.box_size(sim.state.box))
+        del frames, sim
+        t0 = time.perf_counter()
+        rdf, rs = ex05["trajectory_rdf"](path, nn=48, r_cut=3.0,
+                                         device="cuda")
+        t_rdf = time.perf_counter() - t0
+        peak = ex05["check_rdf"](rdf, rs)
+        t0 = time.perf_counter()
+        losses = []
+        model = ex06["fit"](path, 48, 3.0, epochs=8, device="cuda",
+                            log=losses.append)
+        epochs = 8
+        while epochs < 18:
+            eps = float(model.eps.value.detach())
+            sig = float(model.sig.value.detach())
+            if abs(eps - 1.0) < 0.2 and abs(sig - 1.0) < 0.1:
+                break
+            ex06["fit"](path, 48, 3.0, epochs=1, device="cuda",
+                        log=losses.append, model=model)
+            epochs += 1
+        t_fit = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    eps = float(model.eps.value.detach())
+    sig = float(model.sig.value.detach())
+    check(abs(eps - 1.0) < 0.2 and abs(sig - 1.0) < 0.1,
+          f"force matching ended at eps {eps}, sig {sig}")
+    print(f"  N={n}, 20 frames from 'cellwise' (K1 launches {launches} == "
+          f"force evaluations {evals}); example 05's RDF over the file "
+          f"{t_rdf:.2f} s, max at r = {rs[peak]:.3f}, no density below "
+          f"0.85; example 06's fit {epochs} epochs in {t_fit:.2f} s, last "
+          f"{losses[-1].split('  ', 1)[1]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_profiling(sim, main_sps):
+    """Phase 27: time_steps and benchmark_simulation on phase 25's 64k
+    simulation, and trace() around a run(50), whose Chrome trace names
+    K1's kernel. torch.profiler can leave the first kernels after it
+    starts unrecorded, so a window that misses K1 is run again, up to
+    PROFILED_TRIES windows."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from torch.autograd import DeviceType
+    k1 = cc.half_stencil_pair_forces
+    t_phase = time.perf_counter()
+    k1.launches = 0
+    evals0 = sim.force_evals
+    ts = htt.utils.time_steps(sim, 200, reps=3)
+    bs = htt.utils.benchmark_simulation(sim, 200, reps=3)
+    for k, v in list(ts.items()) + list(bs.items()):
+        vals = np.atleast_1d(np.asarray(v, dtype=np.float64))
+        check(bool(np.isfinite(vals).all() and (vals > 0).all()),
+              f"{k} = {v}")
+    tmp = tempfile.mkdtemp()
+    try:
+        for tries in range(PROFILED_TRIES):
+            window = os.path.join(tmp, str(tries))
+            with htt.utils.trace(window, device=sim.device) as prof:
+                sim.run(50)
+            k1_events = [e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA and
+                         "half_stencil_forces" in e.name]
+            files = os.listdir(window)
+            check(len(files) == 1, f"trace files {files}")
+            path = os.path.join(window, files[0])
+            with open(path) as f:
+                text = f.read()
+            if k1_events and "half_stencil_forces" in text:
+                break
+        else:
+            raise AssertionError(f"no trace of {PROFILED_TRIES} named K1's "
+                                 "kernel")
+        mb = os.path.getsize(path) / 1e6
+    finally:
+        shutil.rmtree(tmp)
+    launches, evals = k1.launches, sim.force_evals - evals0
+    check(launches == evals, f"K1 launches {launches} != force evaluations "
+          f"{evals}")
+    print(f"  time_steps(200, reps=3): {ts['steps_per_s']:.2f} steps/s "
+          f"({ts['ms_per_step']:.4f} ms/step); benchmark_simulation(200, "
+          f"reps=3): {bs['steps_per_s']:.2f} steps/s (mean "
+          f"{bs['mean_s']:.4f} s, sd {bs['stddev_s']:.4f} s); phase 4's "
+          f"timed run {main_sps:.2f} steps/s; on {smi_line()} -- info, not "
+          f"a claim")
+    print(f"  trace(run(50)): {len(k1_events)} K1 kernels recorded, "
+          f"{mb:.2f} MB Chrome trace naming half_stencil_forces "
+          f"({tries} window(s) dropped); K1 launches {launches} == force "
+          f"evaluations {evals}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_examples():
+    """Phase 28: the eleven port scripts of examples/torch in-process, as
+    ``__main__`` on the card, each gated by its own asserts; then
+    PDBUniverse(peg2.pdb, traj=<a GSD of its frames>)."""
+    import runpy
+    import shutil
+    import tempfile
+    import numpy as np
+    from hoomd_tf_tpu_torch.utils.pdb_io import PDBUniverse
+    t_phase = time.perf_counter()
+    argv = sys.argv
+    times = []
+    for name in EXAMPLES:
+        path = os.path.join(HERE, "examples", "torch", name + ".py")
+        sys.argv = [path]
+        t0 = time.perf_counter()
+        try:
+            runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"  [example {name}] passed in {times[-1]:.2f} s")
+    pdb = os.path.join(HERE, "tests", "fixtures", "peg2.pdb")
+    u0 = PDBUniverse(pdb)
+    frames = []
+    for _ in u0.trajectory:
+        frames.append({"positions": u0.atoms.positions.copy()})
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "peg2.gsd")
+        htt.write_gsd_frames(path, frames, box=u0.dimensions[:3])
+        u = PDBUniverse(pdb, traj=path)
+        check(u.n_frames == len(frames), f"{u.n_frames} GSD frames")
+        seen = 0
+        for (inputs, ts), fr in zip(htt.iter_from_trajectory(
+                8, u, r_cut=3.0, device="cuda"), frames):
+            check(inputs[1].is_cuda and np.array_equal(
+                ts.positions, fr["positions"]), f"GSD frame {seen}")
+            seen += 1
+        check(seen == len(frames), f"{seen} frames iterated")
+    finally:
+        shutil.rmtree(tmp)
+    print(f"  PDBUniverse(peg2.pdb, traj=<GSD of its {seen} frames>): "
+          f"{len(u.atoms)} atoms, frames equal, lists on the card; "
+          f"examples {sum(times):.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -3529,7 +3889,6 @@ def main():
     launches, k3_err = phase_molsim(main_state)
     k3["launches"] += launches
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_err)
-    del main_state
     torch.cuda.empty_cache()
     print("[21 cg-tools] reference examples 07 and 09, and "
           "iter_from_trajectory, on the card")
@@ -3562,6 +3921,30 @@ def main():
     print("[24 fp64 packed] phase 6's packed path in float64 (K3's double "
           "instantiation), and a checkpoint resumed")
     k3_64 = phase_fp64_packed(k3["sps"])
+    torch.cuda.empty_cache()
+    print("[25 trajectory] phase 4's 64k fluid, 1000 NVT steps on "
+          "'cellwise' written to GSD and read back")
+    launches, traj_sim = phase_trajectory(main_state)
+    k1_lj["launches"] += launches
+    del main_state
+    torch.cuda.empty_cache()
+    print("[26 offline] reference examples 05 and 06 at 16k particles "
+          "from the card's own GSD trajectory")
+    k1_lj["launches"] += phase_offline()
+    torch.cuda.empty_cache()
+    print("[27 profiling] time_steps, benchmark_simulation and trace on "
+          "phase 25's 64k simulation")
+    k1_lj["launches"] += phase_profiling(traj_sim, main_sps)
+    del traj_sim
+    torch.cuda.empty_cache()
+    print("[28 examples] the eleven port example scripts on the card, and "
+          "PDBUniverse(traj=)")
+    nc.nlist_select.launches = cc.half_stencil_pair_forces.launches = 0
+    phase_examples()
+    k3["launches"] += nc.nlist_select.launches
+    k1_lj["launches"] += cc.half_stencil_pair_forces.launches
+    print(f"  examples: K3 launches {nc.nlist_select.launches}, K1 "
+          f"launches {cc.half_stencil_pair_forces.launches}")
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")

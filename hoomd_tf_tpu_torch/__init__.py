@@ -30,7 +30,9 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   packed routes and on ``'cellwise'``), the molecule-batched
   :class:`MolSimModel`, and the CG utilities of :mod:`.utils` (mapping
   operators, centers of mass, CG graphs and features, the PDB reader,
-  trajectory iteration);
+  trajectory iteration), GSD trajectory I/O on the package's own native
+  library and the profiling helpers (``utils.trace``, ``time_steps``,
+  ``benchmark_simulation``);
 - double precision end to end: ``init_lattice(..., dtype=torch.float64)``
   runs the engine in float64, every kernel in its double instantiation
   on the card; and :mod:`.serialize`: models saved as ``(class, config,
@@ -62,10 +64,11 @@ from .utils.graph import (compute_adj_mat, compute_cg_graph, find_cgnode_id,
 from .utils.mol_features import mol_bond_distance, mol_angle, mol_dihedral
 from .utils.trajectory import iter_from_trajectory, compute_pairwise, \
     create_frame
+from .utils.gsd_io import GSDFile, GSDUniverse, write_gsd_frames
 from .serialize import save_model, load_model, custom_objects
 
-# the JAX package's names, less those of the parts still to be ported
-# (ROADMAP.md Queue 1: GSD I/O and profiling, item 6; parallel, item 7)
+# the JAX package's names, less that of the part still to be ported
+# (ROADMAP.md Queue 1: parallel, item 7)
 __all__ = [
     "box_size", "wrap_vector", "make_box", "box_from_lengths",
     "safe_norm", "nlist_rinv", "masked_nlist", "divide_no_nan",
@@ -83,6 +86,7 @@ __all__ = [
     "compute_adj_mat", "compute_cg_graph", "find_cgnode_id",
     "mol_features_multiple", "mol_bond_distance", "mol_angle", "mol_dihedral",
     "iter_from_trajectory", "compute_pairwise", "create_frame",
+    "GSDFile", "GSDUniverse", "write_gsd_frames",
     "save_model", "load_model", "custom_objects",
     "md", "ops", "models", "utils",
 ]

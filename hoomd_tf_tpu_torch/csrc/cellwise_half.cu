@@ -29,7 +29,11 @@
 //               the C^1 linear continuation U_hi + s_hi (u - u_hi) with
 //               U_hi = sum c, s_hi = sum cd. It returns (U, -su u^2). A typed
 //               lane reads the row of its unordered type pair; types outside
-//               the table contribute nothing.
+//               the table contribute nothing. A table too large for the
+//               block's shared memory (many types: past ~36 types in double
+//               at K = 16) is read from device memory instead, laid out
+//               there by a small kernel beside the coefficients with the
+//               same edge sums.
 //
 // Two launches, no float atomics, deterministic:
 //   half_stencil_forces, one block per home cell. The block stages the
@@ -140,23 +144,30 @@ __device__ __forceinline__ T clenshaw(const T* c, int K, T w) {
 }
 
 // Chebyshev proxy: the [P][2][K] coefficient table and the per-pair edge
-// values (U_hi, s_hi) live in shared memory, staged once per block.
+// values (U_hi, s_hi) live in shared memory, staged once per block, or,
+// when `dtab` is set, in that device array of the same layout
+// (cheb_device_table).
 template <class T>
 struct ChebForm {
   const T* coef;  // global [P][2][K]
   int NT;         // types of the table (1 = untyped)
   int K;
   T mid, inv_half, u_hi;
-  T* sm;          // shared [P][2][K] then [P][2] edge values
+  const T* dtab;  // null, or device [P][2][K] then [P][2] edge values
+  const T* sm;    // the table read: shared, or dtab
 
   __device__ __forceinline__ int pairs() const { return NT * (NT + 1) / 2; }
 
   __device__ __forceinline__ void stage(T* smem, int tid) {
-    sm = smem;
+    if (dtab != nullptr) {
+      sm = dtab;
+      return;
+    }
     const int P = pairs();
-    for (int i = tid; i < P * 2 * K; i += kThreads) sm[i] = coef[i];
+    for (int i = tid; i < P * 2 * K; i += kThreads) smem[i] = coef[i];
     for (int i = tid; i < P * 2; i += kThreads)
-      sm[P * 2 * K + i] = seq_sum(coef + i * K, K);
+      smem[P * 2 * K + i] = seq_sum(coef + i * K, K);
+    sm = smem;
   }
 
   __device__ __forceinline__ bool operator()(T r2, int ti, int tj, T& U,
@@ -385,15 +396,36 @@ int lj(const Args<T>& a, const HalfGeom* geom, int n_cells, const void* form,
                   stream);
 }
 
+// ChebForm's table in device memory: the coefficients, then the edge sums
+// in ChebForm::stage's order.
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+cheb_device_table(const T* __restrict__ coef, int P, int K,
+                  T* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < P * 2 * K) out[i] = coef[i];
+  if (i < P * 2) out[P * 2 * K + i] = seq_sum(coef + i * K, K);
+}
+
 template <class T>
 int cheb(const Args<T>& a, const HalfGeom* geom, int n_cells,
          const void* coef, int ntypes, int K, double mid, double inv_half,
-         double u_hi, int needs_energy, int needs_virial, void* stream) {
-  ChebForm<T> f{static_cast<const T*>(coef), ntypes, K,
-                static_cast<T>(mid), static_cast<T>(inv_half),
-                static_cast<T>(u_hi), nullptr};
+         double u_hi, void* dtab, int needs_energy, int needs_virial,
+         void* stream) {
+  const T* c = static_cast<const T*>(coef);
   const int P = ntypes * (ntypes + 1) / 2;
-  return dispatch(a, geom, n_cells, f, P * 2 * K + P * 2, needs_energy,
+  if (dtab != nullptr) {
+    cheb_device_table<T>
+        <<<(P * 2 * K + kThreads - 1) / kThreads, kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(c, P, K,
+                                                static_cast<T*>(dtab));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ChebForm<T> f{c, ntypes, K, static_cast<T>(mid), static_cast<T>(inv_half),
+                static_cast<T>(u_hi), static_cast<const T*>(dtab), nullptr};
+  return dispatch(a, geom, n_cells, f,
+                  dtab != nullptr ? 0 : P * 2 * K + P * 2, needs_energy,
                   needs_virial, stream);
 }
 
@@ -439,22 +471,26 @@ int htf_half_stencil(int f64, const void* pos, const int* types,
 
 // Chebyshev-proxy form: `coef` is the [P][2][K] table of a `ntypes`-type
 // proxy (P = ntypes (ntypes + 1) / 2), of the scalar type `f64` picks.
+// `dtab` is null (the table is staged in shared memory, form_words
+// P * 2K + 2P) or [P * 2K + 2P] device scratch of that type the launch
+// fills and the kernel reads (form_words 0).
 int htf_half_stencil_cheb(int f64, const void* pos, const int* types,
                           const void* valid, const void* box,
                           const HalfGeom* geom, int n_cells, const void* coef,
                           int ntypes, int K, double mid, double inv_half,
-                          double u_hi, const void* rcm, int rcm_t, double rc2,
+                          double u_hi, void* dtab, const void* rcm,
+                          int rcm_t, double rc2,
                           double min_r2, int needs_energy, int needs_virial,
                           void* sums, void* forces4, void* virial,
                           void* stream) {
   if (f64)
     return cheb(Args<double>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
                              sums, forces4, virial),
-                geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi,
+                geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi, dtab,
                 needs_energy, needs_virial, stream);
   return cheb(Args<float>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
                           sums, forces4, virial),
-              geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi,
+              geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi, dtab,
               needs_energy, needs_virial, stream);
 }
 

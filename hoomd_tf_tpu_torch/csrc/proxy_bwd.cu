@@ -35,6 +35,19 @@
 // deterministic, and any P * 2K works (the Pallas kernel's one 128-lane
 // output row capped 2K * P at 128).
 //
+// Many types: the per-thread sets take T * 2K * kThreads scalars, past
+// the block's shared memory from three types up in double (K = 16, cap
+// 48). The types are then split into groups of G (the largest G whose
+// block fits, planned by the wrapper: pair_train_cuda.type_groups, which
+// mirrors smem_bytes) and the grid gets one row per pair of groups
+// (A, B), A <= B: a block of that row walks only the lanes whose row type
+// is in one group and candidate type in the other, keeps G sets per
+// thread (indexed by the candidate type within the other group) and
+// writes the columns of the type pairs {a in A, b in B} of `partial`.
+// Every column is written by exactly one row, so the summing pass is the
+// same. With one group (G = T) the grid has one row and the block is
+// today's.
+//
 // What bounds it on an H100: operations. The function needs the slot state
 // (positions, valid, the [n_slots, 4] cotangent; types when typed) read
 // once and P * 2K floats written, ~4 MB at the 64k train shapes, against
@@ -74,6 +87,66 @@ __device__ __forceinline__ S warp_sum(S v) {
   return v;
 }
 
+// Grid row `row` of a launch over T types in groups of G: the row-major
+// index of the pair of groups (A, B), A <= B, with A = [a0, a1) and
+// B = [b0, b1). One group (G >= T): the row pairs all types with all.
+struct GroupPair {
+  int T, G, a0, a1, b0, b1;
+  bool same;
+  __device__ GroupPair(int row, int T_, int G_) : T(T_), G(G_ < T_ ? G_ : T_) {
+    const int nb = (T + G - 1) / G;
+    int i = 0;
+    while (row >= nb - i) {  // group row i pairs with groups i .. nb - 1
+      row -= nb - i;
+      ++i;
+    }
+    const int j = i + row;
+    a0 = i * G;
+    a1 = min(T, a0 + G);
+    b0 = j * G;
+    b1 = min(T, b0 + G);
+    same = i == j;
+  }
+  __device__ int n_pairs() const {
+    const int na = a1 - a0;
+    return same ? na * (na + 1) / 2 : na * (b1 - b0);
+  }
+  // The candidate types [o0, o1) a row of type t pairs with in this grid
+  // row; false when t is in neither group.
+  __device__ bool other(int t, int& o0, int& o1) const {
+    if (t >= a0 && t < a1) {
+      o0 = b0;
+      o1 = b1;
+      return true;
+    }
+    if (t >= b0 && t < b1) {
+      o0 = a0;
+      o1 = a1;
+      return true;
+    }
+    return false;
+  }
+  // The `partial` column of this row's i-th moment (pair-major, 2K terms
+  // a pair, the pairs in the fold's order): the pair's place in
+  // chebyshev.type_pairs order times 2K, plus the term.
+  __device__ int column(int i, int K2) const {
+    int lp = i / K2;
+    const int m = i - lp * K2;
+    int a = a0, b;
+    if (same) {
+      while (lp >= a1 - a) {  // type a pairs with a .. a1 - 1
+        lp -= a1 - a;
+        ++a;
+      }
+      b = a + lp;
+    } else {
+      a = a0 + lp / (b1 - b0);
+      b = b0 + lp % (b1 - b0);
+    }
+    return (a * T - a * (a - 1) / 2 + (b - a)) * K2 + m;
+  }
+};
+
 // KR > 0: untyped with K = KR, moments in registers; KR == 0: per-thread
 // moment sets in shared memory (typed, or another K).
 template <class S, bool ENERGY, int KR>
@@ -82,7 +155,7 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
                  const S* __restrict__ valid, const S* __restrict__ box,
                  const Vec4<S>* __restrict__ ct, HalfGeom g,
                  const S* __restrict__ rcm, int rcm_t, int K, int T,
-                 S rc2, S min_r2, S mid, S inv_half, S u_hi,
+                 int G, S rc2, S min_r2, S mid, S inv_half, S u_hi,
                  S* __restrict__ partial) {
   const int C = kHalf * g.cap;
   const int c = blockIdx.x;
@@ -90,9 +163,11 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int K2 = 2 * K;
-  const int P = T * (T + 1) / 2;
-  const int M = P * K2;
+  const int M_all = T * (T + 1) / 2 * K2;  // a row of `partial`
   const bool typed = T > 1;
+  // this grid row's pair of type groups [a0, a1) <= [b0, b1)
+  const GroupPair gp(blockIdx.y, T, G);
+  const int M = gp.n_pairs() * K2;
 
   Vec4<S>* spos = htf::dynamic_smem<Vec4<S>>();          // [C]
   Vec4<S>* sct = spos + C;                               // [C] ct * valid
@@ -101,7 +176,7 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
   S* wpart = reinterpret_cast<S*>(scratch + htf::stage_bytes<S>());
   //                                                       [kWarps][M]
   S* acc = wpart + kWarps * M;                           // [M]
-  S* slots = acc + M;  // KR == 0: [T][2K][kThreads]
+  S* slots = acc + M;  // KR == 0: [G][2K][kThreads]
 
   for (int i = tid; i < M; i += kThreads) acc[i] = S(0);
   int n0;
@@ -121,15 +196,17 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
   for (int r0 = 0; r0 < n0; r0 += kThreads) {
     const htf::RowSplit sp(r0, n0);
     int ti = 0;
+    int o0 = 0, o1 = 1;  // the candidate types this row pairs with
     bool row_ok = sp.active;
     if (KR == 0)
-      for (int m = 0; m < T * K2; ++m) slots[m * kThreads + tid] = S(0);
+      for (int m = 0; m < gp.G * K2; ++m) slots[m * kThreads + tid] = S(0);
     if (sp.active) {
       const Vec4<S> q = spos[sp.row];
       const Vec4<S> cq = sct[sp.row];
       ti = htf::unpack_type(q.w);
-      // rows of a type outside the table add nothing
-      if (typed && (ti < 0 || ti >= T)) row_ok = false;
+      // rows of a type outside the table, or outside both groups, add
+      // nothing
+      if (typed) row_ok = gp.other(ti, o0, o1);
       for (int j = sp.seg; row_ok && j < total; j += sp.nseg) {
         if (j == sp.row) continue;  // the self pair (block 0)
         const Vec4<S> gj = spos[j];
@@ -144,7 +221,7 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
           const S prc2 = known ? rcm[ti * rcm_t + tj] : S(0);
           if (!(d2 <= prc2)) continue;
         }
-        if (typed && (tj < 0 || tj >= T)) continue;
+        if (typed && (tj < o0 || tj >= o1)) continue;
         const bool directed = j >= n0;
         const S r2 = fmax_(d2, min_r2);
         S wF = cq.x * dx + cq.y * dy + cq.z * dz;
@@ -182,7 +259,7 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
             }
           }
         } else {
-          S* s = slots + (typed ? tj : 0) * K2 * kThreads + tid;
+          S* s = slots + (typed ? tj - o0 : 0) * K2 * kThreads + tid;
           for (int k = 0; k < K; ++k) {
             const S t_k = k == 0 ? t_prev : t_cur;
             if (ENERGY) s[k * kThreads] += A * t_k;
@@ -200,17 +277,17 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
       // fold this pass's sets into the block sums: the thread's share of
       // pair (a, b), term m -> warp tree -> warp partial -> fixed-order sum
       int pidx = 0;
-      for (int a = 0; a < T; ++a) {
-        for (int b = a; b < T; ++b, ++pidx) {
+      for (int a = gp.a0; a < gp.a1; ++a) {
+        for (int b = gp.same ? a : gp.b0; b < gp.b1; ++b, ++pidx) {
           for (int m = 0; m < K2; ++m) {
             S v = S(0);
             if (row_ok) {
               if (!typed) {
                 v = slots[m * kThreads + tid];
               } else {
-                if (ti == a) v = slots[(b * K2 + m) * kThreads + tid];
+                if (ti == a) v = slots[((b - o0) * K2 + m) * kThreads + tid];
                 if (a != b && ti == b)
-                  v = v + slots[(a * K2 + m) * kThreads + tid];
+                  v = v + slots[((a - o0) * K2 + m) * kThreads + tid];
               }
             }
             v = warp_sum(v);
@@ -242,7 +319,7 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
     }
   }
   for (int i = tid; i < M; i += kThreads)
-    partial[static_cast<size_t>(c) * M + i] = acc[i];
+    partial[static_cast<size_t>(c) * M_all + gp.column(i, K2)] = acc[i];
 }
 
 // out[m] = sum over cells of partial[cell][m], in a fixed order: one block
@@ -274,15 +351,25 @@ int register_degree(int K, int T) {
   return (K == 8 || K == 16) ? K : 0;
 }
 
+// A block's bytes for T types in groups of G (G >= T: one group, the sums
+// of all T(T+1)/2 pairs; else at most G * G pairs a grid row and G moment
+// sets a thread). pair_train_cuda.py mirrors this formula.
 template <class S>
-long smem_bytes(int cap, int K, int T) {
+long smem_bytes(int cap, int K, int T, int G) {
   const long K2 = 2L * K;
-  const long M = T * (T + 1) / 2 * K2;
-  const long slots = register_degree(K, T) ? 0 : T * K2 * kThreads;
+  const long Gs = G < T ? G : T;
+  const long M = (Gs == T ? T * (T + 1) / 2 : Gs * Gs) * K2;
+  const long slots = register_degree(K, T) ? 0 : Gs * K2 * kThreads;
   return static_cast<long>(kHalf) * cap *
              (2 * sizeof(Vec4<S>) + sizeof(int)) +
          htf::stage_bytes<S>() +
          static_cast<long>(sizeof(S)) * (kWarps * M + M + slots);
+}
+
+// Grid rows of T types in groups of G: one per pair of groups.
+int group_rows(int T, int G) {
+  const int nb = G >= T ? 1 : (T + G - 1) / G;
+  return nb * (nb + 1) / 2;
 }
 
 // The call's arguments, typed: the wrapper hands the arrays over as
@@ -292,7 +379,7 @@ struct Args {
   const S *pos, *valid, *box, *rcm;
   const int* types;
   const Vec4<S>* ct;
-  int rcm_t, K, T;
+  int rcm_t, K, T, G;
   S rc2, min_r2, mid, inv_half, u_hi;
   S* partial;
 };
@@ -300,7 +387,7 @@ struct Args {
 template <class S, bool ENERGY, int KR>
 int launch_moments(const Args<S>& a, const HalfGeom& g, int n_cells,
                    cudaStream_t s) {
-  const long smem = smem_bytes<S>(g.cap, a.K, a.T);
+  const long smem = smem_bytes<S>(g.cap, a.K, a.T, a.G);
   auto kernel = proxy_bwd_kernel<S, ENERGY, KR>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -308,9 +395,10 @@ int launch_moments(const Args<S>& a, const HalfGeom& g, int n_cells,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<n_cells, kThreads, smem, s>>>(
+  const dim3 grid(n_cells, group_rows(a.T, a.G));
+  kernel<<<grid, kThreads, smem, s>>>(
       a.pos, a.types, a.valid, a.box, a.ct, g, a.rcm, a.rcm_t, a.K, a.T,
-      a.rc2, a.min_r2, a.mid, a.inv_half, a.u_hi, a.partial);
+      a.G, a.rc2, a.min_r2, a.mid, a.inv_half, a.u_hi, a.partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -331,14 +419,14 @@ template <class S>
 int moments(const void* pos, const int* types, const void* valid,
             const void* box, const void* ct, const HalfGeom* geom,
             int n_cells, const void* rcm, int rcm_t, int K, int ntypes,
-            double rc2, double min_r2, double mid, double inv_half,
+            int group, double rc2, double min_r2, double mid, double inv_half,
             double u_hi, int needs_energy, void* partial, void* out,
             cudaStream_t s) {
   const HalfGeom g = *geom;
   const Args<S> a{static_cast<const S*>(pos), static_cast<const S*>(valid),
                   static_cast<const S*>(box), static_cast<const S*>(rcm),
                   types, static_cast<const Vec4<S>*>(ct), rcm_t, K, ntypes,
-                  static_cast<S>(rc2), static_cast<S>(min_r2),
+                  group < 1 ? ntypes : group, static_cast<S>(rc2), static_cast<S>(min_r2),
                   static_cast<S>(mid), static_cast<S>(inv_half),
                   static_cast<S>(u_hi), static_cast<S*>(partial)};
   const int M = ntypes * (ntypes + 1) / 2 * 2 * K;
@@ -355,10 +443,10 @@ int moments(const void* pos, const int* types, const void* valid,
 extern "C" {
 
 // Shared-memory bytes one block of the moment kernel needs (`f64`: the
-// double instantiation).
-long htf_proxy_bwd_smem(int f64, int cap, int K, int ntypes) {
-  return f64 ? smem_bytes<double>(cap, K, ntypes)
-             : smem_bytes<float>(cap, K, ntypes);
+// double instantiation) for `ntypes` types in groups of `group`.
+long htf_proxy_bwd_smem(int f64, int cap, int K, int ntypes, int group) {
+  return f64 ? smem_bytes<double>(cap, K, ntypes, group)
+             : smem_bytes<float>(cap, K, ntypes, group);
 }
 
 // Launch both passes on `stream`: per-cell partial sums into `partial`
@@ -367,22 +455,26 @@ long htf_proxy_bwd_smem(int f64, int cap, int K, int ntypes) {
 // picks the scalar type of every floating array: float32 (0) or float64
 // (1). `pos` [n_slots][3], `types` [n_slots] int32 (or null when untyped),
 // `valid` [n_slots], `box` the [3][3] box (rows low, high, tilt) on the
-// card, `ct` the [n_slots][4] cotangent, `geom` a host HalfGeom; the
-// scalars are rounded to the scalar type. Returns cudaGetLastError() after
-// the launches (0 = ok).
+// card, `ct` the [n_slots][4] cotangent, `geom` a host HalfGeom, `group`
+// the types a group holds (>= ntypes: one group); the scalars are rounded
+// to the scalar type. Returns cudaGetLastError() after the launches
+// (0 = ok).
 int htf_proxy_bwd(int f64, const void* pos, const int* types,
                   const void* valid, const void* box, const void* ct,
                   const HalfGeom* geom, int n_cells, const void* rcm,
-                  int rcm_t, int K, int ntypes, double rc2, double min_r2,
+                  int rcm_t, int K, int ntypes, int group, double rc2,
+                  double min_r2,
                   double mid, double inv_half, double u_hi, int needs_energy,
                   void* partial, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? moments<double>(pos, types, valid, box, ct, geom, n_cells,
-                               rcm, rcm_t, K, ntypes, rc2, min_r2, mid,
-                               inv_half, u_hi, needs_energy, partial, out, s)
+                               rcm, rcm_t, K, ntypes, group, rc2, min_r2,
+                               mid, inv_half, u_hi, needs_energy, partial,
+                               out, s)
              : moments<float>(pos, types, valid, box, ct, geom, n_cells,
-                              rcm, rcm_t, K, ntypes, rc2, min_r2, mid,
-                              inv_half, u_hi, needs_energy, partial, out, s);
+                              rcm, rcm_t, K, ntypes, group, rc2, min_r2,
+                              mid, inv_half, u_hi, needs_energy, partial,
+                              out, s);
 }
 
 const char* htf_proxy_error_string(int code) {

@@ -26,6 +26,13 @@ their offset types) become the port's rows one to one. A mapped model or
 a ``MolSimModel`` is built at that row count (``build_model(rows=)``). No JAX ``BCOO`` is read:
 the port's :func:`.utils.cg.sparse_mapping` is built from the same numpy
 inputs.
+
+An MLP that the JAX package's example 11 holds as a flax.linen module of
+``Dense`` layers carries into the ``torch.nn.Sequential`` of
+``examples/torch/11_external_models.py`` (``Linear`` layers between
+activations) by :func:`sequential_params_from_flax`: each ``Dense_k``'s
+kernel, transposed, and bias become the ``2k``-th module's weight and
+bias.
 """
 
 import numpy as np
@@ -35,7 +42,8 @@ from ._device import resolve_device
 from .md.state import SimState
 from .models.module import StateSnapshot
 
-__all__ = ["state_from_numpy", "load_jax_variables", "build_model"]
+__all__ = ["state_from_numpy", "load_jax_variables", "build_model",
+           "sequential_params_from_flax"]
 
 _FLOAT_FIELDS = ("positions", "velocities", "masses", "box", "forces",
                  "virial")
@@ -109,3 +117,19 @@ def build_model(model, r_cut, device=None, rows=1):
            torch.zeros((3, 3), **kw)], training=False)
     snap.restore()
     return model
+
+
+def sequential_params_from_flax(params):
+    """A flax ``Dense`` stack's parameters (the ``{"params": {"Dense_0":
+    {"kernel", "bias"}, ...}}`` tree or its inner dict, numpy leaves) as
+    the ``named_parameters`` of a ``torch.nn.Sequential`` that alternates
+    ``Linear`` layers and parameter-free activations: ``{"0.weight":
+    kernel_0.T, "0.bias": bias_0, "2.weight": ...}``, numpy float32."""
+    tree = params.get("params", params)
+    out = {}
+    for k in range(len(tree)):
+        dense = tree[f"Dense_{k}"]
+        out[f"{2 * k}.weight"] = np.ascontiguousarray(
+            np.asarray(dense["kernel"], dtype=np.float32).T)
+        out[f"{2 * k}.bias"] = np.asarray(dense["bias"], dtype=np.float32)
+    return out

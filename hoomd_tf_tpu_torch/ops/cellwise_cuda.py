@@ -328,6 +328,12 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     lib = _library()
     smem = lib.htf_half_stencil_smem(f64, plan.capacity, n_ch,
                                      form.smem_floats)
+    dtab = None
+    if smem > _MAX_SMEM and isinstance(form, ChebForm):
+        # a proxy table too large to stage: the kernel reads it from
+        # device memory
+        dtab = torch.empty((form.smem_floats,), dtype=dtype, device=dev)
+        smem = lib.htf_half_stencil_smem(f64, plan.capacity, n_ch, 0)
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
@@ -344,7 +350,7 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     if isinstance(form, ChebForm):
         err = lib.htf_half_stencil_cheb(
             f64, *state, geom, plan.n_cells, _ptr(tab), form.ntypes, form.K,
-            form.mid, form.inv_half, form.u_hi, *rest)
+            form.mid, form.inv_half, form.u_hi, _ptr(dtab), *rest)
     else:
         err = lib.htf_half_stencil(f64, *state, geom, plan.n_cells,
                                    _ptr(tab), form.ntypes, int(form.strict),
@@ -356,15 +362,18 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     if isinstance(form, ChebForm):
         half_stencil_pair_forces.proxy_launches += 1
     half_stencil_pair_forces.f64_launches += f64
+    half_stencil_pair_forces.device_table_launches += dtab is not None
     return forces4, virial
 
 
 #: calls that launched the kernel (two launches each), all forms and both
-#: scalar types; those of its Chebyshev-proxy form alone; and those of the
-#: double instantiation alone (any form)
+#: scalar types; those of its Chebyshev-proxy form alone; those of the
+#: double instantiation alone (any form); and those that read the proxy
+#: table from device memory
 half_stencil_pair_forces.launches = 0
 half_stencil_pair_forces.proxy_launches = 0
 half_stencil_pair_forces.f64_launches = 0
+half_stencil_pair_forces.device_table_launches = 0
 
 # dynamic shared memory one H100 block may use (227 KB)
 _MAX_SMEM = 232448
@@ -386,7 +395,7 @@ def _library():
         lib.htf_half_stencil.restype = ctypes.c_int
         lib.htf_half_stencil_cheb.argtypes = (
             state + [ctypes.c_void_p] + [ctypes.c_int] * 2 +
-            [ctypes.c_double] * 3 + rest)
+            [ctypes.c_double] * 3 + [ctypes.c_void_p] + rest)
         lib.htf_half_stencil_cheb.restype = ctypes.c_int
         lib.htf_half_stencil_smem.argtypes = [ctypes.c_int] * 4
         lib.htf_half_stencil_smem.restype = ctypes.c_long

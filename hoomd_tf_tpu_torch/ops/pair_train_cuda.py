@@ -31,7 +31,52 @@ from .cellwise import (_HALF_OFFS, _as_geometry, _relative_coords,
 from .cellwise_cuda import (_MAX_SMEM, _check, _ptr, check_slot_inputs,
                             cuda_slot_args, half_geom, kernel_dtype)
 
-__all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference"]
+__all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference",
+           "type_groups", "smem_bytes", "max_capacity"]
+
+# csrc/half_stencil_stage.cuh's block constants
+_K_HALF, _K_THREADS, _K_WARPS = 14, 256, 8
+
+
+def _stage_bytes(s):
+    """``htf::stage_bytes<S>()`` for a scalar of ``s`` bytes."""
+    return 4 * (_K_HALF + _K_WARPS) + s * (6 * _K_WARPS + 6 + 6 * _K_HALF)
+
+
+def smem_bytes(f64, cap, K, T, G):
+    """Shared-memory bytes of one K2 block for ``T`` types in groups of
+    ``G``: ``csrc/proxy_bwd.cu::smem_bytes``, which the wrapper checks this
+    against at every launch."""
+    s = 8 if f64 else 4
+    K2 = 2 * K
+    Gs = min(G, T)
+    M = (T * (T + 1) // 2 if Gs == T else Gs * Gs) * K2
+    registers = T == 1 and K in (8, 16)
+    slots = 0 if registers else Gs * K2 * _K_THREADS
+    return (_K_HALF * cap * (2 * 4 * s + 4) + _stage_bytes(s) +
+            s * (_K_WARPS * M + M + slots))
+
+
+def type_groups(f64, cap, K, T):
+    """K2's plan for ``T`` types: consecutive ranges ``[(lo, hi), ...]``
+    that cover every type once, each of the largest size ``G`` whose
+    block (:func:`smem_bytes`) fits the card's shared memory. One range
+    (``G = T``) is the kernel's one-row launch; more make one grid row per
+    pair of ranges. Raises when even a one-type group does not fit
+    (:func:`max_capacity`)."""
+    for G in range(T, 0, -1):
+        if smem_bytes(f64, cap, K, T, G) <= _MAX_SMEM:
+            return [(lo, min(T, lo + G)) for lo in range(0, T, G)]
+    raise ValueError(f"capacity {cap} and K={K} need "
+                     f"{smem_bytes(f64, cap, K, T, 1)} bytes of shared "
+                     f"memory per block for one type, above {_MAX_SMEM}")
+
+
+def max_capacity(f64, K, T):
+    """The largest cell capacity :func:`type_groups` plans for."""
+    s = 8 if f64 else 4
+    fixed = smem_bytes(f64, 0, K, T, 1)
+    return (_MAX_SMEM - fixed) // (_K_HALF * (2 * 4 * s + 4))
 
 
 def _n_types(basis):
@@ -191,17 +236,19 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
         rc_t = rc2_tab.shape[0]
         _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     lib = _library()
-    smem = lib.htf_proxy_bwd_smem(f64, plan.capacity, K, T)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"capacity {plan.capacity}, K={K} and {T} types "
-                         f"need {smem} bytes of shared memory per block, "
-                         f"above {_MAX_SMEM}")
+    groups = type_groups(f64, plan.capacity, K, T)
+    G = groups[0][1]
+    smem = lib.htf_proxy_bwd_smem(f64, plan.capacity, K, T, G)
+    planned = smem_bytes(f64, plan.capacity, K, T, G)
+    if smem != planned:
+        raise RuntimeError(f"K2's shared memory ({smem} bytes) differs from "
+                           f"its plan's ({planned})")
     M = T * (T + 1) // 2 * 2 * K
     partial = torch.empty((plan.n_cells, M), dtype=dtype, device=dev)
     out = torch.empty((M,), dtype=dtype, device=dev)
     err = lib.htf_proxy_bwd(
         f64, *state, _ptr(ct), ctypes.byref(half_geom(plan)), plan.n_cells,
-        _ptr(rc2_tab), rc_t, K, T, float(plan.r_cut ** 2), float(min_r2),
+        _ptr(rc2_tab), rc_t, K, T, G, float(plan.r_cut ** 2), float(min_r2),
         float(basis["mid"]), float(basis["inv_half"]),
         float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -210,13 +257,15 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
                            lib.htf_proxy_error_string(err).decode())
     proxy_bwd_moments.launches += 1
     proxy_bwd_moments.f64_launches += f64
+    proxy_bwd_moments.grouped_launches += len(groups) > 1
     return _split(out, basis)
 
 
 #: calls that launched the kernel (the moment pass and the cross-cell sum);
-#: those of its double instantiation alone
+#: those of its double instantiation alone; those split into type groups
 proxy_bwd_moments.launches = 0
 proxy_bwd_moments.f64_launches = 0
+proxy_bwd_moments.grouped_launches = 0
 
 _LIB = None
 
@@ -230,10 +279,10 @@ def _library():
         lib.htf_proxy_bwd.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 6 +
             [ctypes.c_int, ctypes.c_void_p] +
-            [ctypes.c_int] * 3 + [ctypes.c_double] * 5 + [ctypes.c_int] +
+            [ctypes.c_int] * 4 + [ctypes.c_double] * 5 + [ctypes.c_int] +
             [ctypes.c_void_p] * 3)
         lib.htf_proxy_bwd.restype = ctypes.c_int
-        lib.htf_proxy_bwd_smem.argtypes = [ctypes.c_int] * 4
+        lib.htf_proxy_bwd_smem.argtypes = [ctypes.c_int] * 5
         lib.htf_proxy_bwd_smem.restype = ctypes.c_long
         lib.htf_proxy_error_string.argtypes = [ctypes.c_int]
         lib.htf_proxy_error_string.restype = ctypes.c_char_p

@@ -11,9 +11,8 @@ dependency here, so this module provides a small self-contained
 :func:`.cg.find_molecules_from_topology` and friends consume.
 
 Parsed PDB features: ``ATOM``/``HETATM`` fixed-column records, ``CRYST1``
-box, ``CONECT`` bonds, multi-frame ``MODEL``/``ENDMDL`` trajectories.
-The JAX package's GSD frames (``traj=``) need its GSD reader, which the
-port does not have yet (ROADMAP.md Queue 1 item 6).
+box, ``CONECT`` bonds, multi-frame ``MODEL``/``ENDMDL`` trajectories;
+``traj=`` takes the frames from a GSD file instead (:mod:`.gsd_io`).
 
 The universe's arrays stay numpy, as MDAnalysis' do; they become tensors
 where a consumer makes them so (:func:`.trajectory.iter_from_trajectory`,
@@ -127,14 +126,10 @@ class PDBUniverse:
     """Universe over a PDB file.
 
     :param pdb_path: topology (+ frames, via MODEL/ENDMDL blocks).
-    :param traj: a GSD file of frames: not ported yet (raises).
+    :param traj: optional path to a GSD file supplying the frames.
     """
 
     def __init__(self, pdb_path, traj=None):
-        if traj is not None:
-            raise NotImplementedError(
-                "GSD frames (traj=) arrive with the GSD reader, a later "
-                "slice of the PyTorch port (ROADMAP.md Queue 1 item 6)")
         names, elements, resnames, resids, xyz = [], [], [], [], []
         frames = []
         bonds = set()
@@ -182,6 +177,10 @@ class PDBUniverse:
             [ELEMENT_MASSES.get(e, 12.011) for e in elements])
         self._bonds = sorted(bonds)
         self._frames = frames
+        self._gsd = None
+        if traj is not None:
+            from .gsd_io import GSDFile
+            self._gsd = GSDFile(traj)
         self._positions = self._read_frame(0)
         self.dimensions = box
         self.atoms = _PDBAtomGroup(self, np.arange(len(self._names)))
@@ -189,9 +188,15 @@ class PDBUniverse:
     # -- frames ---------------------------------------------------------
     @property
     def n_frames(self):
+        if self._gsd is not None:
+            return self._gsd.nframes
         return len(self._frames)
 
     def _read_frame(self, i):
+        if self._gsd is not None:
+            return np.asarray(
+                self._gsd.read_chunk(i, "particles/position"),
+                dtype=np.float32)
         return self._frames[i]
 
     @property

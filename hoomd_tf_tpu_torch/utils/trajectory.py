@@ -4,7 +4,8 @@ of ``hoomd_tf_tpu/utils/trajectory.py``, the reference's
 scan a two-particle separation, build gsd snapshots. Any object with the
 small universe protocol (``select_atoms``, ``trajectory``,
 ``dimensions``, atom ``positions`` / ``types``) works: an MDAnalysis
-Universe, a :class:`.pdb_io.PDBUniverse`, or the tests' stand-ins.
+Universe, a :class:`.gsd_io.GSDUniverse`, a :class:`.pdb_io.PDBUniverse`,
+or the tests' stand-ins.
 """
 
 import numpy as np
@@ -180,7 +181,9 @@ def compute_pairwise(model, r, type_i=0, type_j=0, device=None):
 def create_frame(frame_number, N, types, typeids, positions, box):
     """A gsd snapshot (the reference's ``utils.py:204-233``): the ``gsd``
     package's when it is installed, else a lightweight snapshot of the
-    same schema."""
+    same schema, which the native GSD writer
+    (:func:`.gsd_io.write_gsd_frames` / :class:`.gsd_io.GSDFile`)
+    understands, so the workflow needs no optional dependency."""
     try:
         import gsd.hoomd
         s = gsd.hoomd.Snapshot()

@@ -469,12 +469,24 @@ def test_pdb_topology_matches_jax():
         rtol=1e-6)
 
 
-def test_pdb_frames_and_gsd_refused():
+def test_pdb_frames_and_gsd_refused(tmp_path):
+    """The PDB's own frames; ``traj=`` reads GSD frames (once refused):
+    a missing file raises OSError, as in JAX, and a GSD of the PDB's
+    frames gives them back, as the JAX universe does."""
+    from hoomd_tf_tpu_torch.utils.gsd_io import write_gsd_frames
     u = TPDB(PDB)
     frames = [u.atoms.positions.copy() for _ in u.trajectory]
     assert len(frames) == 3 and np.abs(frames[2] - frames[0]).max() > 1e-3
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TPDB(PDB, traj="frames.gsd")
+    with pytest.raises(OSError):
+        TPDB(PDB, traj=str(tmp_path / "frames.gsd"))
+    path = str(tmp_path / "frames.gsd")
+    write_gsd_frames(path, [{"positions": f} for f in frames],
+                     box=u.dimensions[:3])
+    t, j = TPDB(PDB, traj=path), JPDB(PDB, traj=path)
+    assert t.n_frames == j.n_frames == 3
+    for want, _, _ in zip(frames, t.trajectory, j.trajectory):
+        np.testing.assert_array_equal(t.atoms.positions, want)
+        np.testing.assert_array_equal(t.atoms.positions, j.atoms.positions)
 
 
 def test_pdb_parser_robustness(tmp_path):

@@ -694,46 +694,106 @@ def test_double_generic_reduce_bwd_matches_plain(cuda_device, energy):
         assert_rel(np_(gU)[idx], pU, 1e-11)
 
 
-@pytest.mark.parametrize("case", ["untyped", "forces_only", "two_types"])
+@pytest.mark.parametrize("case", ["untyped", "forces_only", "two_types",
+                                  "three_types", "five_types",
+                                  "eight_types_f32"])
 def test_double_k2_matches_plain(cuda_device, case):
     """K2's double instantiation (the register moments untyped, the
-    shared-memory moment sets with two types; three types at K = 16 pass
-    the block's shared memory in double, and the wrapper refuses them)
-    against its plain version at rtol 1e-10 (phase 23's bar)."""
+    shared-memory moment sets with two types; three and five types at
+    K = 16 pass the block's shared memory in double, so the kernel splits
+    them into type groups, one grid row per pair of groups) against its
+    plain version at rtol 1e-10 (phase 23's bar); eight types in float32
+    (groups of five) at rtol 2e-4."""
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
     from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
                                                   make_typed_pair_proxy)
-    n_types = 2 if case == "two_types" else 1
+    n_types = {"two_types": 2, "three_types": 3, "five_types": 5,
+               "eight_types_f32": 8}.get(case, 1)
+    dtype = torch.float32 if case.endswith("f32") else F64
     r2_lo = (0.25 * 2.5) ** 2
     if n_types > 1:
-        _, ev = make_typed_pair_proxy(16, r2_lo, 6.25, n_types, dtype=F64,
+        _, ev = make_typed_pair_proxy(16, r2_lo, 6.25, n_types, dtype=dtype,
                                       device="cpu")
     else:
-        _, ev = make_pair_proxy(16, r2_lo, 6.25, dtype=F64, device="cpu")
+        _, ev = make_pair_proxy(16, r2_lo, 6.25, dtype=dtype, device="cpu")
     energy = case != "forces_only"
+    f64 = dtype == F64
     outs = []
     for dev in (cuda_device, torch.device("cpu")):
         pos, vel, lengths = fluid_arrays(500, 0.35, 7)
         st = htt.md.state.init_state(pos, lengths, types=np.arange(500) %
-                                     n_types, velocities=vel, dtype=F64,
+                                     n_types, velocities=vel, dtype=dtype,
                                      device=dev)
         lo = -lengths / 2
         plan = tcw.plan_cellwise(500, lengths, 2.5, positions=pos, lo=lo,
                                  width_blocks=14)
-        layout = SlotLayout(plan, 500, lo, dtype=F64, device=dev)
+        layout = SlotLayout(plan, 500, lo, dtype=dtype, device=dev)
         slot, aux = layout.pack(st)
         ct = torch.as_tensor(np.random.RandomState(1).randn(
-            plan.n_slots, 4), device=dev)
-        before = ptc.proxy_bwd_moments.f64_launches
+            plan.n_slots, 4), dtype=dtype, device=dev)
+        before = (ptc.proxy_bwd_moments.launches,
+                  ptc.proxy_bwd_moments.f64_launches,
+                  ptc.proxy_bwd_moments.grouped_launches)
         g_c, g_cd = ptc.proxy_bwd_moments(
             slot.positions, slot.types, aux["valid"], ct, plan, layout.lo,
             ev.basis, needs_energy=energy, geometry=layout.geometry)
-        assert ptc.proxy_bwd_moments.f64_launches - before == \
-            (1 if dev.type == "cuda" else 0)
+        card = dev.type == "cuda"
+        groups = ptc.type_groups(f64, plan.capacity, 16, n_types)
+        assert ptc.proxy_bwd_moments.launches - before[0] == card
+        assert ptc.proxy_bwd_moments.f64_launches - before[1] == card * f64
+        assert ptc.proxy_bwd_moments.grouped_launches - before[2] == \
+            card * (len(groups) > 1)
         outs.append(np.concatenate([np_(g_c).ravel(), np_(g_cd).ravel()]))
-    assert outs[0].dtype == np.float64
-    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-10,
-                               atol=1e-10 * np.abs(outs[1]).max())
+    assert outs[0].size == 2 * 16 * n_types * (n_types + 1) // 2
+    assert (len(groups) > 1) == (n_types >= 3)
+    rtol = 1e-10 if f64 else 2e-4
+    assert outs[0].dtype == (np.float64 if f64 else np.float32)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=rtol,
+                               atol=rtol * np.abs(outs[1]).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_k1_proxy_table_in_device_memory(cuda_device, dtype):
+    """A typed proxy table too large for K1's shared memory beside a
+    capacity-200 block's staging (50 types at K = 16: 1275 pairs, 347 KB
+    in double, 173 KB in float32) is read from device memory, and K1's
+    forces, energy and virial match the plain version (rtol 1e-10 in
+    double, the float32 bar otherwise)."""
+    from hoomd_tf_tpu_torch.ops.chebyshev import make_typed_pair_proxy
+    n_types, K = 50, 16
+    fit, ev = make_typed_pair_proxy(K, (0.25 * 2.5) ** 2, 6.25, n_types,
+                                    dtype=dtype, device="cpu")
+
+    def lj(r2, ti, tj):
+        sr6 = (1.0 / r2) ** 3
+        return 4.0 / (1.0 + 0.1 * (ti + tj)) * (sr6 * sr6 - sr6)
+
+    coeffs = fit(lj)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        pos, vel, lengths = fluid_arrays(500, 0.35, 7)
+        st = htt.md.state.init_state(pos, lengths, types=np.arange(500) %
+                                     n_types, velocities=vel, dtype=dtype,
+                                     device=dev)
+        lo = -lengths / 2
+        plan = tcw.plan_cellwise(500, lengths, 2.5, positions=pos, lo=lo,
+                                 width_blocks=14)
+        plan = dataclasses.replace(plan, capacity=200)
+        layout = SlotLayout(plan, 500, lo, dtype=dtype, device=dev)
+        slot, aux = layout.pack(st)
+        form = ev.kernel_form(on(coeffs, dev))
+        before = tcc.half_stencil_pair_forces.device_table_launches
+        f, w = tcc.half_stencil_pair_forces(
+            slot.positions, slot.types, aux["valid"], layout.plan,
+            layout.lo, form, needs_virial=True, needs_energy=True,
+            geometry=layout.geometry)
+        assert tcc.half_stencil_pair_forces.device_table_launches - \
+            before == (dev.type == "cuda")
+        outs.append((np_(f), np_(w)))
+    tol = (dict(rtol=1e-10, atol=1e-10 * np.abs(outs[1][0]).max())
+           if dtype == F64 else TOL)
+    np.testing.assert_allclose(outs[0][0], outs[1][0], **tol)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], **tol)
 
 
 @pytest.mark.parametrize("NN,cap", [(64, None), (16, 80)])
@@ -1561,3 +1621,84 @@ def test_molsim_run_has_no_host_sync(cuda_device):
         sim.nlist_builds - builds == 30
     assert np.isfinite(np_(sim.state.forces)).all()
     assert 0.8 < sim.thermo()["temperature"] < 2.5
+
+
+# ---------------------------------------------------------------------------
+# GSD trajectory I/O and the profiling helpers on the card
+# ---------------------------------------------------------------------------
+
+def lj_cellwise_sim(device, n=4096):
+    from hoomd_tf_tpu_torch.ops.cellwise_cuda import half_stencil_pair_forces
+
+    class LJ(htt.PairModel):
+        def pair_energy(self, r2):
+            sr6 = (1.0 / r2) ** 3
+            return 4.0 * (sr6 * sr6 - sr6)
+
+        def pair_kernel_form(self):
+            return htt.md.LennardJones(1.0, 1.0, r_cut=2.5)
+
+    sim = htt.Simulation(dt=0.002, integrator=htt.md.NVT(kT=1.2, tau=0.5),
+                         seed=1, device=device)
+    sim.init_lattice(n, density=0.4, kT_init=1.2)
+    htt.tfcompute(LJ(32)).attach(sim, r_cut=2.5, nlist="cellwise")
+    return sim, half_stencil_pair_forces
+
+
+def test_gsd_roundtrip_of_a_card_state(cuda_device, tmp_path):
+    """A state on the card (positions, velocities, net forces, types)
+    written with write_gsd_frames straight from its tensors reads back
+    bit-equal to the tensors' host copies."""
+    sim, _ = lj_cellwise_sim(cuda_device)
+    frames = []
+    for _ in range(3):
+        sim.run(20)
+        st = sim.state
+        assert st.positions.is_cuda
+        frames.append({"positions": st.positions.clone(),
+                       "velocity": st.velocities.clone(),
+                       "forces": st.forces[:, :3].clone(),
+                       "typeid": st.types.clone(), "step": st.step})
+    path = str(tmp_path / "card.gsd")
+    htt.write_gsd_frames(path, frames, box=htt.box_size(sim.state.box))
+    with htt.GSDFile(path) as f:
+        assert f.nframes == 3
+        for i, fr in enumerate(frames):
+            for name, key in (("particles/position", "positions"),
+                              ("particles/velocity", "velocity"),
+                              ("log/particles/force", "forces")):
+                got = f.read_chunk(i, name)
+                want = np_(fr[key])
+                assert got.dtype == np.float32
+                assert got.tobytes() == want.tobytes(), (i, name)
+            assert np.array_equal(f.read_chunk(i, "particles/typeid"),
+                                  np_(fr["typeid"]).astype(np.uint32))
+            assert int(f.read_chunk(i, "configuration/step")[0]) == \
+                fr["step"]
+
+
+def test_trace_of_a_card_run_names_k1(cuda_device, tmp_path):
+    """trace() around a run on 'cellwise' records the card's kernels and
+    its Chrome trace names K1's. torch.profiler can leave the first
+    kernels after it starts unrecorded, so a window that misses K1 is run
+    again, up to three windows."""
+    from torch.autograd import DeviceType
+    sim, k1 = lj_cellwise_sim(cuda_device)
+    sim.run(20)
+    for window in range(3):
+        before, evals = k1.launches, sim.force_evals
+        with htt.utils.trace(str(tmp_path / str(window)),
+                             device=sim.device) as prof:
+            sim.run(20)
+        assert k1.launches - before == sim.force_evals - evals > 0
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        trace_file, = (tmp_path / str(window)).glob("trace_*.json")
+        text = trace_file.read_text()
+        if any("half_stencil_forces" in n for n in names) and \
+                "half_stencil_forces" in text:
+            break
+    else:
+        pytest.fail("no trace of three named K1's kernel")
+    r = htt.utils.time_steps(sim, 20, reps=2)
+    assert r["steps_per_s"] > 0 and np.isfinite(r["ms_per_step"])

@@ -20,6 +20,8 @@ MODULES = ("hoomd_tf_tpu_torch", "hoomd_tf_tpu_torch.interop",
            "hoomd_tf_tpu_torch.utils.mol_features",
            "hoomd_tf_tpu_torch.utils.pdb_io",
            "hoomd_tf_tpu_torch.utils.trajectory",
+           "hoomd_tf_tpu_torch.utils.gsd_io",
+           "hoomd_tf_tpu_torch.utils.profiling",
            "hoomd_tf_tpu_torch.ops.direct",
            "hoomd_tf_tpu_torch.ops.rdf",
            "hoomd_tf_tpu_torch.ops.lane_fast",
@@ -51,6 +53,46 @@ def test_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_gsd_io_loads_without_jax(tmp_path):
+    """Loading the port's GSD module, building its native library and
+    writing and reading a file put neither JAX nor the JAX package (whose
+    own GSD library sits under a package that imports JAX) into
+    ``sys.modules``."""
+    path = tmp_path / "t.gsd"
+    code = ("import sys, numpy as np; "
+            "from hoomd_tf_tpu_torch.utils import gsd_io; "
+            f"gsd_io.write_gsd_frames({str(path)!r}, "
+            "[{'positions': np.ones((3, 3))}], box=[2.0, 2.0, 2.0]); "
+            f"f = gsd_io.GSDFile({str(path)!r}); "
+            "assert f.read_chunk(0, 'particles/position').shape == (3, 3); "
+            "f.close(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'hoomd_tf_tpu')]; "
+            "assert not bad, bad; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_scripts_import_no_jax():
+    """Neither the port's example scripts nor chip_smoke.py name JAX or the
+    JAX package in an import."""
+    banned = ("jax", "flax", "optax", "hoomd_tf_tpu")
+    paths = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(paths) == 11
+    for path in paths + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (path, name)
 
 
 def test_no_jax_import_statement():
@@ -92,18 +134,13 @@ def test_chip_smoke_refuses_without_card_or_checkout(where, tmp_path):
 
 
 # The JAX package's public names the port does not export yet, each with
-# the ROADMAP.md Queue 1 item that brings it: GSD I/O and the profiling
-# helpers (item 6), parallel (item 7).
-_GSD = ("GSDFile", "GSDUniverse", "write_gsd_frames")
-_ITEM6 = _GSD
-_ITEM7 = ("parallel",)
+# the ROADMAP.md Queue 1 item that brings it: parallel (item 7).
 PENDING = {
-    "": {**{k: 6 for k in _ITEM6}, **{k: 7 for k in _ITEM7}},
+    "": {"parallel": 7},
     "md": {},
     "ops": {},
     "models": {},
-    "utils": {k: 6 for k in _GSD + ("trace", "time_steps",
-                                     "benchmark_simulation")},
+    "utils": {},
 }
 
 
