@@ -200,7 +200,30 @@ exits non-zero:
 28. examples -- the eleven scripts of examples/torch run in-process as
                __main__ on the card, each gated by its own asserts, their
                seconds printed; PDBUniverse(peg2.pdb, traj=<a GSD of its
-               frames>) iterated on the card.
+               frames>) iterated on the card;
+29. sharded eval -- phase 4's NVT fluid and LJ PairModel through
+               ShardedSimulation on a mesh of min(4, card count) cards,
+               or 4 virtual shards on cuda:0 (printed): the plan's nz
+               divisible by the shards; one sharded evaluation against
+               the unsharded K1 and each shard's slab launch against its
+               slab plain version (rtol = atol = 1e-4); 8 NVT steps with
+               the repack interval pinned to 3 within 5e-4 of the
+               unsharded engine; a timed run(1000) with host syncs
+               forbidden, 1.1 < T < 1.9, slab launches = shards x
+               evaluations; steps/s beside phase 4's;
+30. sharded generic and 'n2' -- LJPotential(64) through ShardedSimulation
+               (the probe accepts it: K1's generic form in slab mode)
+               with Langevin(1.5, 1.0) and run(200, log_period=10), host
+               syncs forbidden: finite records, healthy T, slab launches
+               = shards x evaluations; at one state against the
+               unsharded generic form and each shard against its slab
+               plain version (1e-4); then the small-box fallback to the
+               'n2' rows (128 particles, 50 steps);
+31. parallel helpers -- halo_force_fn at 16,384 particles (x-slabs, the
+               ring exchange) against the model on the whole system
+               (rtol 1e-4, atol 1e-5); sharded_train_step over 8 frames
+               of 4,096 particles: its SGD(1) update against one device's
+               gradient (1e-4), and 30 Adam steps that halve the loss.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -1484,6 +1507,17 @@ def phase_train_kernels(sim, model):
                   f"the train path): kernel {t_k:.4f} ms, plain {t_p:.4f} "
                   f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
                   f"MB, {ops / 1e9:.3f} G operations)")
+        if types is types8:
+            t_k = cuda_ms(lambda: pc.proxy_bwd_moments(*args, **kw))
+            t_p = cuda_ms(lambda: pc.proxy_bwd_plain(*args, **kw), reps=1)
+            nbytes, ops = k2_cost(slot.positions, aux["valid"], p, K_PROXY,
+                                  energy, M)
+            nbytes += 4 * p.n_slots  # the types
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  K2 eight types, the whole call (with energy): kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
+                  "operations)")
     k2_rec["max_abs_err"] = k2_err
     return k1_rec, k2_rec
 
@@ -3750,6 +3784,464 @@ def phase_examples():
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phases 29-31: parallel/ (the mesh, the sharded engine, the helpers)
+# ----------------------------------------------------------------------
+def shard_mesh():
+    """The mesh of phases 29-31: the first min(4, count) cards when the
+    machine has several, else 4 virtual shards on cuda:0 (four slab
+    launches on one card)."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    count = torch.cuda.device_count()
+    if count > 1:
+        mesh = make_mesh(min(4, count))
+        kind = (f"{mesh.size} cards "
+                f"({', '.join(str(d) for d in mesh.devices)})")
+    else:
+        mesh = make_mesh(4, devices=[torch.device("cuda", 0)] * 4)
+        kind = "4 virtual shards on cuda:0 (one card)"
+    return mesh, kind
+
+
+def slab_pair_counts(positions, valid, plan, z0, nzl):
+    """``(tested, inside)`` of one z-slab shard's work: the half-stencil
+    pairs of its home cells (``pair_counts``' count restricted to layers
+    ``z0 .. z0 + nzl - 1``), and the pairs within the cut that its home
+    cells own (a pair of two layers belongs to the lower one's cell, the
+    half stencil reaching ``z + 1`` only)."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops.cellwise import _HALF_OFFS
+    nx, ny, nz = plan.grid
+    home = np.zeros(nz, bool)
+    home[z0:z0 + nzl] = True
+    occ = valid.reshape(nz, ny, nx, plan.capacity).sum(-1).double()
+    occ = occ.cpu().numpy()
+    per = occ * (occ - 1) / 2
+    for ox, oy, oz in _HALF_OFFS[1:]:
+        per = per + occ * np.roll(occ, (-oz, -oy, -ox), axis=(0, 1, 2))
+    tested = float(per[home].sum())
+    dev = positions.device
+    zc = (torch.arange(plan.n_slots, device=dev) // plan.capacity //
+          (nx * ny))[valid > 0]
+    real = positions[valid > 0]
+    mine = (zc >= z0) & (zc < z0 + nzl)
+    L = torch.as_tensor(plan.lengths, dtype=real.dtype, device=dev)
+    hits = 0
+    for a in range(0, real.shape[0], 1024):
+        d = real[None, :, :] - real[a:a + 1024, None, :]
+        d = d - torch.round(d / L) * L
+        inside = (d * d).sum(-1) <= plan.r_cut ** 2
+        zi, zj = zc[a:a + 1024, None], zc[None, :]
+        own = torch.where((zj == zi) | (zj == (zi + 1) % nz), zi, zj)
+        hits += int((inside & (own >= z0) & (own < z0 + nzl)).sum())
+    return tested, (hits - int(mine.sum())) / 2
+
+
+def slab_buffers(layout, st, aux, mesh, s, z0, nzl):
+    """Shard ``s``'s slab buffer (positions, types, valid) on its device
+    and the global geometry there."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    a, b = cw.slab_rows(layout.plan, z0, nzl)
+    dev = mesh.devices[s]
+    buf = [torch.cat([t[a], t[b]]).to(dev) for t in
+           (st.positions, st.types, aux["valid"])]
+    return buf, layout.geometry.on(dev)
+
+
+def phase_sharded(state, main_sps):
+    """Phase 29: phase 4's fluid and LJ PairModel through
+    ShardedSimulation on 'cellwise' (K1's slab mode on every shard)."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    k1 = cc.half_stencil_pair_forces
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    sim = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    sim.set_state(state)
+    tfc = sim.attach(make_model(), r_cut=R_CUT)
+    check(tfc.nlist_method == "cellwise",
+          f"ShardedSimulation attached {tfc.nlist_method!r}, not cellwise")
+    k1.launches = k1.slab_launches = 0
+    evals0 = sim.force_evals
+    sim.run(200)
+    for _ in range(3):
+        plan = sim._layout.plan
+        sim.run(500)
+        if sim._layout.plan == plan:
+            break
+    launches, evals = k1.slab_launches, sim.force_evals - evals0
+    check(k1.launches == launches == S * evals,
+          f"slab launches {launches} (all K1 {k1.launches}) != {S} x "
+          f"{evals} evaluations")
+    layout = sim._ensure_layout()
+    plan = layout.plan
+    nx, ny, nz = plan.grid
+    check(nz % S == 0, f"plan grid {plan.grid}: nz not divisible by {S}")
+    nzl = nz // S
+    layer = nx * ny * plan.capacity
+    esize = state.positions.element_size()
+    print(f"  plan grid {plan.grid} cap {plan.capacity}: {nzl} z-layers "
+          f"({nzl * nx * ny} home cells, {nzl * layer} slab slots) a shard; "
+          f"forward halo {layer} slots ({layer * esize * 5 / 1e6:.3f} MB of "
+          f"positions, types and valid), reverse halo "
+          f"{layer * esize * 4 / 1e6:.3f} MB of forces4")
+
+    # one state: the sharded evaluation against the unsharded K1, each
+    # shard's slab launch against its slab plain version
+    st, aux = slot_state(layout, sim.state)
+    form = sim._form
+    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+    f_s, w_s = cw.analytic_pair_forces(
+        *common, None, needs_virial=True, form=form,
+        geometry=layout.geometry, mesh=mesh)
+    f_u, w_u = k1(*common, form, needs_virial=True, geometry=layout.geometry)
+    torch.cuda.synchronize()
+    err = max(compare("sharded forces+energy vs unsharded K1", f_s, f_u),
+              compare("sharded virial vs unsharded K1", w_s, w_u))
+    shards = cw.slab_layers(plan, S)
+    for s, (z0, n) in enumerate(shards):
+        buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
+        fk, wk = k1(*buf, plan, layout.lo, cc.form_on(form, buf[0].device),
+                    needs_virial=True, geometry=g, slab=(z0, n))
+        fp, wp = cw.half_stencil_slab_plain(
+            *buf, plan, layout.lo, form.evaluate, z0, n, needs_virial=True,
+            with_types=form.ntypes > 1, geometry=g)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"shard {s} (layers {z0}-{z0 + n - 1}) "
+                               "slab launch vs slab plain, forces+energy",
+                               fk, fp),
+                  compare(f"shard {s} slab launch vs slab plain, virial",
+                          wk, wp))
+    # times at the main path's shapes (forces only)
+    t_all = cuda_ms(lambda: cw.analytic_pair_forces(
+        *common, None, needs_energy=False, form=form,
+        geometry=layout.geometry, mesh=mesh))
+    t_one = cuda_ms(lambda: k1(*common, form, needs_energy=False,
+                               geometry=layout.geometry))
+    buf, g = slab_buffers(layout, st, aux, mesh, 0, *shards[0])
+    t_shard = cuda_ms(lambda: k1(*buf, plan, layout.lo, form,
+                                 needs_energy=False, geometry=g,
+                                 slab=shards[0]))
+    t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
+        *buf, plan, layout.lo, form.evaluate, *shards[0],
+        needs_energy=False, geometry=g), reps=5)
+    nbytes, ops = k1_cost(st.positions, aux["valid"], plan, 3, form)
+    b_ms, b_by = bound(nbytes, ops)
+    tested, inside = slab_pair_counts(st.positions, aux["valid"], plan,
+                                      *shards[0])
+    s_bytes = (nzl + 1) * layer * esize * (3 + 1 + 4)
+    s_ms, s_by = bound(s_bytes, 9 * tested + inside * (14 + 9))
+    print(f"  sharded evaluation (forces only, median of CUDA events): "
+          f"{t_all:.4f} ms for {S} slab launches, the gather and the "
+          f"reverse halos; unsharded K1 {t_one:.4f} ms "
+          f"({t_all / t_one:.3f}x); bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    print(f"  shard 0's call: {t_shard:.4f} ms, its bound {s_ms:.4f} ms "
+          f"({s_by}: {s_bytes / 1e6:.2f} MB, {tested:.4g} pairs tested, "
+          f"{inside:.4g} inside the cut); its slab plain version "
+          f"{t_plain:.4f} ms")
+
+    # 8 steps with the repack interval pinned to 3 against the unsharded
+    # engine from the same state
+    ref = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    ref.set_state(sim.state)
+    htt.tfcompute(make_model()).attach(ref, r_cut=R_CUT, nlist="cellwise")
+    ref._plan_from_current = lambda: plan
+    sim._choose_repack_interval = ref._choose_repack_interval = \
+        lambda layout: 3
+    l0, e0 = k1.slab_launches, sim.force_evals
+    sim.run(8)
+    launches += k1.slab_launches - l0
+    evals += sim.force_evals - e0
+    ref.run(8)
+    del sim._choose_repack_interval
+    d = sim.state.positions - ref.state.positions
+    L = torch.as_tensor(sim._lengths, dtype=d.dtype, device=d.device)
+    d = d - torch.round(d / L) * L
+    dmax = float(d.abs().max())
+    print(f"  8 NVT steps (K = 3) against the unsharded engine: max "
+          f"position difference {dmax:.3e} (limit 5e-4)")
+    check(dmax < 5e-4, "the sharded trajectory left the unsharded one")
+
+    # the timed run, host syncs forbidden
+    sim.check_syncs = True
+    l0, e0, a0 = k1.slab_launches, sim.force_evals, k1.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(1000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timed_l, timed_e = k1.slab_launches - l0, sim.force_evals - e0
+    launches += timed_l
+    evals += timed_e
+    check(timed_l == S * timed_e,
+          f"timed run: slab launches {timed_l} != {S} x {timed_e}")
+    check(k1.launches - a0 == timed_l,
+          "the sharded run launched an unsharded K1")
+    th = healthy(sim, "sharded eval")
+    sps = 1000 / dt
+    print(f"  T={th['temperature']:.4f} PE/N={th['potential_energy'] / N:.4f}"
+          f"; slab launches {launches} == {S} x {evals} evaluations (timed "
+          f"run: {timed_l}); no host sync in the step loop")
+    print(f"  steps/s {sps:.2f} sharded against phase 4's {main_sps:.2f} "
+          f"({sps / main_sps:.3f}x), {kind}, on {smi_line()} -- info, not "
+          f"a claim")
+    return dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
+                max_abs_err=err, launches=launches, sharded_ms=t_all)
+
+
+def phase_sharded_generic(state):
+    """Phase 30: LJPotential(64) (a SimModel the probe accepts: K1's
+    generic form in slab mode) through ShardedSimulation with Langevin
+    and run(200, log_period=10); then the small-box 'n2' fallback."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops.lane_fast import synthesize_pair_fn
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    gen = cc.generic_pair_forces
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    sim = ShardedSimulation(dt=0.005, mesh=mesh, seed=1,
+                            integrator=htt.md.Langevin(kT=1.5, gamma=1.0))
+    sim.set_state(state)
+    model = htt.LJPotential(64)
+    tfc = sim.attach(model, r_cut=R_CUT)
+    gen.launches = gen.slab_launches = 0
+    evals0, probe0 = sim.force_evals, sim.probe_evals
+    sim.check_syncs = True
+    t0 = time.perf_counter()
+    sim.run(200, log_period=10)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(tfc._lane_fast_ok is True,
+          f"the probe did not accept LJPotential: {tfc._lane_fast_report}")
+    evals = sim.force_evals - evals0 - (sim.probe_evals - probe0)
+    launches = gen.slab_launches
+    check(launches == S * evals and launches > 0,
+          f"generic slab launches {launches} != {S} x {evals} evaluations")
+    log = sim.log
+    check(len(log["step"]) == 20, f"{len(log['step'])} log records")
+    for k, v in log.items():
+        check(bool(np.isfinite(v).all()), f"non-finite logged {k}")
+    th = healthy(sim, "sharded generic")
+    print(f"  probe accepted; {launches} generic slab launches == {S} x "
+          f"{evals} evaluations; 20 finite records, mean T "
+          f"{float(log['temperature'].mean()):.4f}; T={th['temperature']:.4f}"
+          f"; run(200, log_period=10) {dt:.2f} s ({200 / dt:.2f} steps/s, "
+          f"the probe's validation included); list budget "
+          f"{sim._lanes.budget} a shard, need {sim._lanes.committed}")
+
+    # one state: the sharded generic form against the unsharded one, each
+    # shard's slab launch against its slab plain version
+    layout = sim._ensure_layout()
+    plan = layout.plan
+    st, aux = slot_state(layout, sim.state)
+    fn = synthesize_pair_fn(model, st.box)
+    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+    lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    whole = cc.LaneBudget(cc.lane_budget(plan, N), "cuda")
+    kw = dict(needs_virial=True, geometry=layout.geometry)
+    f_s, w_s = cw.analytic_pair_forces(*common, fn, with_types=True,
+                                       lanes=lanes, mesh=mesh, **kw)
+    f_u, w_u = gen(*common, fn, lanes=whole, **kw)
+    torch.cuda.synchronize()
+    check(not bool(lanes.overflow()) and not bool(whole.overflow()),
+          "a generic-form list overflowed")
+    err = max(compare("sharded generic forces+energy vs unsharded", f_s,
+                      f_u),
+              compare("sharded generic virial vs unsharded", w_s, w_u))
+    shards = cw.slab_layers(plan, S)
+    for s, (z0, n) in enumerate(shards):
+        buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
+        own = cc.LaneBudget(sim._lanes.budget, buf[0].device)
+        fk, wk = gen(*buf, plan, layout.lo, fn, needs_virial=True,
+                     geometry=g, lanes=own, slab=(z0, n))
+        fp, wp = cw.half_stencil_slab_plain(
+            *buf, plan, layout.lo, fn, z0, n, needs_virial=True,
+            with_types=True, geometry=g)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"shard {s} generic slab launch vs slab "
+                               "plain, forces+energy", fk, fp),
+                  compare(f"shard {s} generic slab launch vs slab plain, "
+                          "virial", wk, wp))
+    kw = dict(geometry=layout.geometry, needs_energy=False)
+    t_all = cuda_ms(lambda: cw.analytic_pair_forces(
+        *common, fn, with_types=True, lanes=lanes, mesh=mesh, **kw),
+        reps=11)
+    t_one = cuda_ms(lambda: gen(*common, fn, lanes=whole, **kw), reps=11)
+    buf, g = slab_buffers(layout, st, aux, mesh, 0, *shards[0])
+    own = cc.LaneBudget(sim._lanes.budget, "cuda")
+    t_shard = cuda_ms(lambda: gen(*buf, plan, layout.lo, fn, geometry=g,
+                                  lanes=own, needs_energy=False,
+                                  slab=shards[0]), reps=11)
+    t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
+        *buf, plan, layout.lo, fn, *shards[0], with_types=True,
+        needs_energy=False, geometry=g), reps=3)
+    own.reset()
+    gen(*buf, plan, layout.lo, fn, geometry=g, lanes=own, needs_energy=False,
+        slab=shards[0])
+    s_need = int(own.needed)
+    tested, _ = slab_pair_counts(st.positions, aux["valid"], plan,
+                                 *shards[0])
+    esize = st.positions.element_size()
+    s_bytes = buf[0].shape[0] * esize * (3 + 1 + 4) + s_need * esize * 5
+    s_ms, s_by = bound(s_bytes, 9 * tested + s_need * 3 * 3)
+    whole.reset()
+    gen(*common, fn, lanes=whole, **kw)
+    needed = int(whole.needed)
+    nbytes, ops = k1_generic_cost(st.positions, aux["valid"], plan, 3,
+                                  needed)
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  sharded generic evaluation (forces only, the pair function "
+          f"included): {t_all:.4f} ms for {S} shards; unsharded "
+          f"{t_one:.4f} ms ({t_all / t_one:.3f}x); shard 0's call "
+          f"{t_shard:.4f} ms, its bound {s_ms:.4f} ms ({s_by}: "
+          f"{s_bytes / 1e6:.2f} MB, {s_need} lanes), its slab plain version "
+          f"{t_plain:.4f} ms; bound of the whole {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {needed} lanes)")
+    launches_main = launches
+
+    # ShardedSimulation's small-box fallback: the dense build's rows
+    small = ShardedSimulation(dt=0.002, kT=0.8, tau=0.5, mesh=mesh, seed=5)
+    small.init_lattice(128, a=1.4, kT_init=0.8)
+    stfc = small.attach(make_simmodel(24), r_cut=2.5)
+    check(stfc.nlist_method == "n2", f"small box attached "
+          f"{stfc.nlist_method!r}, not 'n2'")
+    small.check_syncs = True
+    small.run(50)
+    t = small.thermo()
+    check(np.isfinite(t["potential_energy"]) and
+          0.1 < t["temperature"] < 3.0, f"small sharded 'n2' run: {t}")
+    check(small.nlist_builds == 50, f"{small.nlist_builds} row builds")
+    print(f"  small box (128 particles, a = 1.4): 'n2' rows over {S} shards,"
+          f" 50 NVT steps, T={t['temperature']:.4f}, host syncs forbidden")
+    return dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
+                max_abs_err=err, launches=launches_main, sharded_ms=t_all)
+
+
+def phase_parallel_helpers():
+    """Phase 31: halo_force_fn at 16,384 particles against the model on
+    the whole system, and sharded_train_step over 8 frames of 4,096."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.models.module import get_state
+    from hoomd_tf_tpu_torch.parallel import (domain_decompose,
+                                             halo_force_fn,
+                                             sharded_train_step)
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    n, r_cut, NN = 16384, 2.0, 32
+    pos, lengths = htt.md.lattice_positions(n, a=1.1)
+    rng = np.random.RandomState(4)
+    pos = (pos + 0.05 * rng.randn(*pos.shape)).astype(np.float32)
+    pos4 = np.concatenate([pos, np.zeros((n, 1), np.float32)], axis=1)
+    L = float(lengths[0])
+    box = htt.box_from_lengths(lengths, device="cuda")
+    perm, counts = domain_decompose(pos4, box, S, r_cut=r_cut)
+    cmax = int(counts.max())
+    slabs, offs = [], 0
+    for c in counts:
+        slabs.append(np.concatenate([pos4[perm][offs:offs + c], np.full(
+            (cmax - c, 4), np.nan, np.float32)]))
+        offs += c
+    sharded = torch.as_tensor(np.concatenate(slabs), device="cuda")
+    model = make_simmodel(NN)
+    p4 = torch.as_tensor(pos4, device="cuda")
+    nlist = htt.compute_nlist(p4, r_cut, NN, [L, L, L], sorted=True,
+                              return_types=True)
+    want = model([nlist, p4, box])[0][torch.as_tensor(perm, device="cuda")]
+    del nlist
+    cap = 2048
+    fn = halo_force_fn(model, r_cut, mesh, halo_capacity=cap)
+    t0 = time.perf_counter()
+    got, overflow, _ = fn(get_state(model), sharded, box)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(not bool(overflow), "halo buffers overflowed")
+    rows = torch.cat([torch.arange(s * cmax, s * cmax + int(c))
+                      for s, c in enumerate(counts)]).to("cuda")
+    err = compare("halo_force_fn vs the model on the whole system",
+                  got[rows], want, rtol=1e-4, atol=1e-5)
+    print(f"  halo_force_fn: N {n}, {S} x-slabs of up to {cmax} rows, halo "
+          f"capacity {cap}, {dt * 1e3:.1f} ms a call; max_abs_err {err:.3e}")
+
+    # frame data parallelism: 8 frames of 4,096 particles
+    nf, m, NNt = 8, 4096, 16
+    base, lt = htt.md.lattice_positions(m, a=1.3)
+    Lt = float(lt[0])
+    boxt = htt.box_from_lengths(lt, device="cuda")
+    lj = htt.md.LennardJones(r_cut=3.0)
+    lab_sim = htt.Simulation(device="cuda")
+    nls, p4s, labs = [], [], []
+    for _ in range(nf):
+        p = (base + 0.05 * rng.randn(m, 3)).astype(np.float32)
+        q4 = torch.as_tensor(np.concatenate(
+            [p, np.zeros((m, 1), np.float32)], axis=1), device="cuda")
+        nl = htt.compute_nlist(q4, 3.0, NNt, [Lt] * 3, sorted=True,
+                               return_types=True)
+        lab_sim.init_state(p, [Lt] * 3)
+        nls.append(nl)
+        p4s.append(q4)
+        labs.append(lj(lab_sim.state, nl)[0])
+    nlist_b, pos4_b, labels_b = (torch.stack(x) for x in (nls, p4s, labs))
+
+    class LJLayer(htt.Layer):
+        def __init__(self):
+            super().__init__(name="lj")
+            self.w = self.add_weight(
+                (2,), initializer=np.asarray([0.7, 1.2], np.float32),
+                constraint=lambda x: torch.clamp_min(x, 0.0))
+
+        def forward(self, r):
+            r6 = htt.divide_no_nan(self.w[1] ** 6, r ** 6)
+            return self.w[0] * 4.0 * (r6 ** 2 - r6) / 2.0
+
+    class TrainableGraph(htt.SimModel):
+        def setup(self):
+            self.lj = LJLayer()
+
+        def compute(self, nlist, positions, box):
+            r = htt.safe_norm(nlist[:, :, :3], axis=2)
+            return htt.compute_nlist_forces(nlist,
+                                            torch.sum(self.lj(r), dim=1))
+
+    class Seen(torch.optim.SGD):
+        """Keeps the gradients a step hands it and moves nothing."""
+
+        def step(self, closure=None):
+            self.grads = [p.grad.clone() for p in
+                          self.param_groups[0]["params"]]
+
+    tg = TrainableGraph(NNt).to("cuda")
+    tg([nlist_b[0], pos4_b[0], boxt])
+    with torch.enable_grad():
+        loss = torch.stack([
+            torch.mean((tg([a, b, boxt], training=True)[0][:, :3] -
+                        c[:, :3]) ** 2)
+            for a, b, c in zip(nlist_b, pos4_b, labels_b)]).mean()
+        (g1,) = torch.autograd.grad(loss, [tg.lj.w])
+    seen = Seen(tg.trainable_weights(), lr=1.0)
+    sharded_train_step(tg, seen, mesh)(nlist_b, pos4_b, boxt, labels_b)
+    err = max(err, compare("frame-sharded grads vs one device",
+                           seen.grads[0], g1, rtol=1e-4, atol=1e-6))
+    step = sharded_train_step(tg, torch.optim.Adam(tg.trainable_weights(),
+                                                   lr=5e-2), mesh)
+    t0 = time.perf_counter()
+    losses = [float(step(nlist_b, pos4_b, boxt, labels_b))
+              for _ in range(30)]
+    dt = time.perf_counter() - t0
+    check(losses[-1] < 0.5 * losses[0],
+          f"sharded training: loss {losses[0]:.4g} -> {losses[-1]:.4g}")
+    print(f"  sharded_train_step: {nf} frames of {m} over {S} shards, 30 "
+          f"Adam steps in {dt:.2f} s, loss {losses[0]:.4g} -> "
+          f"{losses[-1]:.4g}")
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -3926,6 +4418,8 @@ def main():
           "'cellwise' written to GSD and read back")
     launches, traj_sim = phase_trajectory(main_state)
     k1_lj["launches"] += launches
+    # phase 4's NVT state, for phases 29 and 30
+    shard_state = main_state
     del main_state
     torch.cuda.empty_cache()
     print("[26 offline] reference examples 05 and 06 at 16k particles "
@@ -3945,6 +4439,20 @@ def main():
     k1_lj["launches"] += cc.half_stencil_pair_forces.launches
     print(f"  examples: K3 launches {nc.nlist_select.launches}, K1 "
           f"launches {cc.half_stencil_pair_forces.launches}")
+    torch.cuda.empty_cache()
+    print("[29 sharded eval] phase 4's fluid and LJ PairModel through "
+          "ShardedSimulation on 'cellwise': K1's slab mode")
+    k1_slab = phase_sharded(shard_state, main_sps)
+    torch.cuda.empty_cache()
+    print("[30 sharded generic and 'n2'] LJPotential in K1's generic form "
+          "in slab mode, Langevin, run(200, log_period=10); the small-box "
+          "'n2' fallback")
+    gen_slab = phase_sharded_generic(shard_state)
+    del shard_state
+    torch.cuda.empty_cache()
+    print("[31 parallel helpers] halo_force_fn at 16,384 particles and "
+          "sharded_train_step over 8 frames of 4,096")
+    phase_parallel_helpers()
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -4005,6 +4513,23 @@ def main():
                   "library_ms: torch.topk over int64 keys, selection only",
              source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
              replaces="hoomd_tf_tpu/ops/nlist_pallas.py:43", **k3_64),
+        dict(name="K1 LJ form, slab mode (half_stencil_pair_forces(slab=); "
+                  "ms, plain_ms, bound_ms: shard 0's call, its slab plain "
+                  "version and its own bound; sharded_ms: phase 29's whole "
+                  "sharded evaluation, its slab launches, copies, gather "
+                  "and reverse halos; launches: slab launches of phase "
+                  "29's runs)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
+             replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
+                      "wrapper of the pallas_call at :629)", **k1_slab),
+        dict(name="K1 generic form, slab mode (generic_pair_forces(slab=); "
+                  "ms, plain_ms, bound_ms: shard 0's call with its pair "
+                  "function, its slab plain version and its own bound; "
+                  "sharded_ms: phase 30's whole sharded evaluation; "
+                  "launches: slab launches of phase 30's run)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
+             replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
+                      "wrapper of the pallas_call at :629)", **gen_slab),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4015,7 +4540,7 @@ def main():
         # no single PyTorch call computes K1's or K2's function
         r.setdefault("library_ms", None)
         r["route"] = "cuda"
-        kernels.append({k: r[k] for k in keys})
+        kernels.append({k: r[k] for k in keys + ("sharded_ms",) if k in r})
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

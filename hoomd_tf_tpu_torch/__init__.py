@@ -36,7 +36,11 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
 - double precision end to end: ``init_lattice(..., dtype=torch.float64)``
   runs the engine in float64, every kernel in its double instantiation
   on the card; and :mod:`.serialize`: models saved as ``(class, config,
-  weights)`` and checkpoints that resume a run exactly.
+  weights)`` and checkpoints that resume a run exactly;
+- :mod:`.parallel`: a device mesh (``make_mesh``), ``Simulation(mesh=)``
+  and :class:`~.parallel.ShardedSimulation`, which split the pair work
+  into z-slabs run by K1's slab mode, frame data-parallel training and
+  the explicit ring-halo reference.
 """
 
 from .ops import (box_size, wrap_vector, make_box, box_from_lengths,
@@ -54,6 +58,7 @@ from . import models
 from . import md
 from .md.simulation import Simulation
 from .driver import tfcompute
+from . import parallel
 from . import utils
 from .utils.cg import (find_molecules, find_molecules_from_topology,
                        matrix_mapping, sparse_mapping, center_of_mass,
@@ -67,8 +72,7 @@ from .utils.trajectory import iter_from_trajectory, compute_pairwise, \
 from .utils.gsd_io import GSDFile, GSDUniverse, write_gsd_frames
 from .serialize import save_model, load_model, custom_objects
 
-# the JAX package's names, less that of the part still to be ported
-# (ROADMAP.md Queue 1: parallel, item 7)
+# the JAX package's names
 __all__ = [
     "box_size", "wrap_vector", "make_box", "box_from_lengths",
     "safe_norm", "nlist_rinv", "masked_nlist", "divide_no_nan",
@@ -88,5 +92,5 @@ __all__ = [
     "iter_from_trajectory", "compute_pairwise", "create_frame",
     "GSDFile", "GSDUniverse", "write_gsd_frames",
     "save_model", "load_model", "custom_objects",
-    "md", "ops", "models", "utils",
+    "md", "ops", "models", "utils", "parallel",
 ]

@@ -26,3 +26,11 @@ def device_for(x, device, what):
     if device is None and torch.is_tensor(x):
         return x.device
     return resolve_device(device, what)
+
+
+def to_device(t, device):
+    """``t`` on ``device`` (a mesh shard's copy): a copy to a card is
+    queued without blocking the host, the card orders it before its
+    readers; a copy to the host blocks, since the host reads it next."""
+    device = torch.device(device)
+    return t.to(device, non_blocking=device.type == "cuda")

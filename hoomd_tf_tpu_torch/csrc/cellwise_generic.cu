@@ -52,6 +52,12 @@
 //     and a cell that did not fit zeroes its share of the list, so every
 //     lane of the budget is written and lanes that hold no listed pair
 //     (whose r2 is left from an earlier call) carry no gradient.
+// Slab mode (a z-slab shard, HalfGeom's z0 and nzl; cellwise_half.cu): the
+// list kernel stages the slab's home cells from its buffer by global cell,
+// the records and bases are the home cells', and half_stencil_home also
+// writes the halo layer's reverse partial. generic_reduce_bwd has no slab
+// mode (training under a mesh is not ported).
+//
 // The list's placement varies from call to call; the values do not: each
 // lane's (U, s) is a function of the lane, and every sum runs in a fixed
 // order. A cell that did not fit (negative base) contributes zero sums;
@@ -352,7 +358,8 @@ generic_list(const T* __restrict__ pos, const int* __restrict__ types,
   const size_t home = static_cast<size_t>(c) * g.cap;
   int n0;
   const int total = htf::stage_half_stencil<T>(
-      g, c, rc2, pos, types, valid, box, s.spos, s.stag, s.stage, n0,
+      g, g.z0 * g.nx * g.ny + c, rc2, pos, types, valid, box, s.spos,
+      s.stag, s.stage, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
         for (int k = 0; k < nch; ++k)
@@ -704,7 +711,7 @@ int launch_reduce(const HalfGeom& g, int n_cells, const int* rec,
                                               needed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_slots = n_cells * g.cap;
+  const int n_slots = htf::out_slots(g);
   half_stencil_home<T, ENERGY, VIRIAL>
       <<<(n_slots + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
           sums, valid, g, n_slots, reinterpret_cast<Vec4<T>*>(forces4),

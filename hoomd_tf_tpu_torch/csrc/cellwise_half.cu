@@ -35,6 +35,17 @@
 //               there by a small kernel beside the coefficients with the
 //               same edge sums.
 //
+// Slab mode (a z-slab shard of a mesh, HalfGeom's z0 and nzl: the port of
+// hoomd_tf_tpu/ops/cellwise_pallas.py:640-652, which runs the pallas_call
+// under shard_map on each device's block of z-slab cells, the halo in the
+// XLA rolls around it): the state arrays are the slab's buffer, its home
+// layers then one forward halo layer; block b is the global home cell
+// z0 nx ny + b, staged from the buffer (half_stencil_stage.cuh), and
+// half_stencil_home also writes the back sums pushed into the halo layer,
+// which the caller adds to the next shard's first layer. The masks are the
+// whole state's; only the order in which the boundary layer's back sums
+// are added differs.
+//
 // Two launches, no float atomics, deterministic:
 //   half_stencil_forces, one block per home cell. The block stages the
 //     occupied slots of its 14 cells from the slot-ordered state, those
@@ -254,7 +265,8 @@ half_stencil_forces(const T* __restrict__ pos, const int* __restrict__ types,
   const size_t home = static_cast<size_t>(c) * cap;
   int n0;
   const int total = htf::stage_half_stencil<T>(
-      g, c, rc2, pos, types, valid, box, spos, stag, scratch, n0,
+      g, g.z0 * g.nx * g.ny + c, rc2, pos, types, valid, box, spos, stag,
+      scratch, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
 #pragma unroll
@@ -343,7 +355,7 @@ int launch(const T* pos, const int* types, const T* valid, const T* box,
                                               sums);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_slots = n_cells * g.cap;
+  const int n_slots = htf::out_slots(g);
   half_stencil_home<T, ENERGY, VIRIAL>
       <<<(n_slots + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
           sums, valid, g, n_slots, reinterpret_cast<Vec4<T>*>(forces4),

@@ -8,6 +8,8 @@
 // The first launch writes the raw sums [n_ch][14][n_slots] (block 0 the
 // row side of the home slots, block t the candidate side of the slots of
 // cell c + off_t, at the home cell's index); half_stencil_home adds them.
+// In slab mode (half_stencil_stage.cuh, HalfGeom) n_slots counts the home
+// slots of the slab.
 
 #pragma once
 
@@ -23,7 +25,22 @@ struct Channels {
   static constexpr int kCount = 3 + (ENERGY ? 1 : 0) + (VIRIAL ? 6 : 0);
 };
 
-// One thread per slot: the Newton push-back and the finish, in T.
+// The cell whose back sums of block t land on buffer cell c of a slab:
+// c - off_t, x and y periodic, z within the home layers, else -1 (a cell of
+// another shard, whose sums arrive as its reverse halo).
+__device__ __forceinline__ int slab_source(const HalfGeom& g, int c, int t) {
+  const int x0 = c % g.nx, y0 = (c / g.nx) % g.ny, z0 = c / (g.nx * g.ny);
+  const int z = z0 - g.off[t][2];
+  if (z < 0 || z >= g.nzl) return -1;
+  const int x = (x0 - g.off[t][0] + g.nx) % g.nx;
+  const int y = (y0 - g.off[t][1] + g.ny) % g.ny;
+  return x + g.nx * (y + g.ny * z);
+}
+
+// One thread per slot row of the launch (out_slots): the Newton push-back
+// and the finish, in T. The raw sums are [n_ch][14][home slots]; in slab
+// mode only home cells' sums are added, and the halo layer's rows take no
+// row side (slab_source).
 template <class T, bool ENERGY, bool VIRIAL>
 __global__ void __launch_bounds__(kThreads)
 half_stencil_home(const T* __restrict__ sums, const T* __restrict__ valid,
@@ -39,17 +56,22 @@ half_stencil_home(const T* __restrict__ sums, const T* __restrict__ valid,
 #pragma unroll
   for (int k = 0; k < NCH; ++k) acc[k] = T(0);
   if (v != T(0)) {
-    const size_t plane = static_cast<size_t>(n_slots);
+    const bool slab = is_slab(g);
+    const size_t plane = static_cast<size_t>(g.nzl) * g.nx * g.ny * g.cap;
     const int c = i / g.cap, r = i - c * g.cap;
+    if (static_cast<size_t>(i) < plane) {
 #pragma unroll
-    for (int k = 0; k < NCH; ++k) {
-      const bool energy = ENERGY && k == 0;
-      const T cf = energy ? T(0.5) : (k < OF + 3 ? T(2) : T(-1));
-      acc[k] = cf * sums[k * kHalf * plane + i];
+      for (int k = 0; k < NCH; ++k) {
+        const bool energy = ENERGY && k == 0;
+        const T cf = energy ? T(0.5) : (k < OF + 3 ? T(2) : T(-1));
+        acc[k] = cf * sums[k * kHalf * plane + i];
+      }
     }
     for (int t = 1; t < kHalf; ++t) {
-      const size_t src = static_cast<size_t>(htf::shifted_cell(g, c, t, -1)) *
-                             g.cap + r;
+      const int sc = slab ? slab_source(g, c, t)
+                          : htf::shifted_cell(g, c, t, -1);
+      if (sc < 0) continue;
+      const size_t src = static_cast<size_t>(sc) * g.cap + r;
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
         const bool energy = ENERGY && k == 0;

@@ -72,12 +72,45 @@ __host__ __device__ constexpr int stage_bytes() {
 }
 
 // The plan's integers, passed by value: the grid, the capacity, whether the
-// box is tilted (its tilt row is then read), and per half-stencil block t
-// its integer cell offset (ox, oy, oz). The box itself is a device pointer.
+// box is tilted (its tilt row is then read), per half-stencil block t its
+// integer cell offset (ox, oy, oz), and the slab of a z-slab shard: its
+// first home layer z0 and its nzl home layers (z0 = 0, nzl = nz for a whole
+// state). The box itself is a device pointer.
+//
+// Slab mode (nzl < nz; ops/cellwise.py::half_stencil_slab_plain). The state
+// arrays hold the slab's buffer: its home layers z0 .. z0 + nzl - 1, then
+// the forward halo layer (z0 + nzl) mod nz, each a layer of nx * ny * cap
+// slot rows in z-major order. The half stencil reaches z + 1 only, so the
+// staging of the home cells never reads past that layer. Block b of a
+// launch is the home cell z0 * nx * ny + b of the global grid: its staging
+// computes centers and offsets from global cells, so its masks are those
+// of the whole state, and reads each cell's rows at buffer_cell. The raw
+// sums are indexed by the home slots; half_stencil_home writes the home
+// slots and, for the halo layer, the back sums the last home layer pushed
+// into it (the reverse halo, which the caller adds to the next shard).
 struct HalfGeom {
   int nx, ny, nz, cap, tilted;
   int off[kHalf][3];
+  int z0, nzl;
 };
+
+__host__ __device__ __forceinline__ bool is_slab(const HalfGeom& g) {
+  return g.nzl < g.nz;
+}
+
+// Slot rows a launch writes: the home layers, and in slab mode the halo.
+__host__ __device__ __forceinline__ int out_slots(const HalfGeom& g) {
+  return (g.nzl + (is_slab(g) ? 1 : 0)) * g.nx * g.ny * g.cap;
+}
+
+// The buffer cell holding global cell `cell` (itself for a whole state).
+__device__ __forceinline__ int buffer_cell(const HalfGeom& g, int cell) {
+  const int layer = g.nx * g.ny;
+  const int z = cell / layer;
+  int lz = z - g.z0;
+  if (lz < 0) lz += g.nz;
+  return cell + (lz - z) * layer;
+}
 
 // The cell c + sign * off_t on the periodic grid (x-minor, z-major ids).
 __device__ __forceinline__ int shifted_cell(const HalfGeom& g, int c, int t,
@@ -175,7 +208,8 @@ __device__ __forceinline__ T box_gap(T v, T lo, T hi) {
   return fmax_(fmax_(sub_rn(lo, v), sub_rn(v, hi)), T(0));
 }
 
-// Stage the valid slots of cell c's 14 half-stencil cells into `spos` and
+// Stage the valid slots of (global) cell c's 14 half-stencil cells, read at
+// their buffer cells, into `spos` and
 // `stag` (each sized for 14 * cap entries), the directed blocks' only
 // within rc2 of the home rows' bounding box; `scratch` is stage_bytes<T>()
 // bytes. `extra(k, slot)` stages what else a kernel needs of entry k;
@@ -200,8 +234,10 @@ __device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   if (tid < kHalf) {
-    nb[tid] = shifted_cell(g, c, tid, 1);
-    block_geometry(g, box, nb[tid], tid, geo + 6 * tid, len);
+    // geometry from the global cell; the rows from its buffer cell
+    const int cell = shifted_cell(g, c, tid, 1);
+    block_geometry(g, box, cell, tid, geo + 6 * tid, len);
+    nb[tid] = buffer_cell(g, cell);
   }
   __syncthreads();
 

@@ -65,6 +65,13 @@ in particle order, scattered into the beads' slot rows), their rows get
 no net force, and the model sees particle-order rows; a mapped model
 never takes K1's fast routes or the probe (the JAX package's rule).
 
+Under a device mesh (``Simulation(mesh=)``, :mod:`..parallel`) the state
+stays whole on the mesh's first device and the pair work is split: on
+``'cellwise'`` into z-slabs run by K1's slab mode on each shard's device
+(:func:`..ops.cellwise.analytic_pair_forces` with ``mesh=``), on
+``'n2'`` the dense build into contiguous particle rows, the model then
+called once on the whole list; the routes not yet sharded raise.
+
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
 wire, ``scan_block``, compile-cache keys, the readback caches for a
 remote TPU) has no counterpart here.
@@ -82,7 +89,7 @@ from . import integrators as _integrators
 from . import thermo as _thermo
 from .slots import SlotLayout
 from .state import init_state, lattice_positions
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
 from ..ops.box import box_size
@@ -130,6 +137,23 @@ class Simulation:
         ``device="cpu"`` to run on the CPU).
     :param auto_replan: re-plan the cellwise geometry at ``run()``
         boundaries (tighter capacity, overflow self-heal).
+    :param mesh: a :class:`..parallel.mesh.Mesh` (``parallel.make_mesh``)
+        of ``S`` shards. The state stays whole on ``mesh.devices[0]`` (the
+        simulation's device), in slot order; what is split is the pair
+        work. On ``'cellwise'`` the plan keeps ``nz % S == 0`` and each
+        shard runs K1's slab mode on its device over its z-slab and one
+        forward halo layer (:func:`..ops.cellwise.analytic_pair_forces`),
+        the reverse halos added on the first device; on ``'n2'`` each
+        shard builds the dense list of its contiguous particle rows on its
+        device, and the model runs once a step on the gathered list, so a
+        stateful model (metrics, EDS) means what it means without a mesh.
+        The integrators and the built-in forces act on the whole state
+        unchanged. Online training,
+        the planes route (a mapped model, or one the lane-separability
+        probe rejects), a box-changing integrator, a tilted box and the
+        packed cell-list and direct routes raise ``NotImplementedError``
+        under a mesh (ROADMAP.md Queue 1 item 7b).
+    :param shard_axis: the mesh axis of the shards.
     """
 
     # static repack intervals are quantized so run-to-run velocity jitter
@@ -138,10 +162,23 @@ class Simulation:
                96, 128)
 
     def __init__(self, dt=0.005, integrator=None, seed=0, device=None,
-                 auto_replan=True):
+                 auto_replan=True, mesh=None, shard_axis="d"):
         self.dt = float(dt)
         self._integrator = integrator or _integrators.NVE()
         self.seed = seed
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        if mesh is not None:
+            if shard_axis not in mesh.shape:
+                raise ValueError(f"the mesh has no axis {shard_axis!r} "
+                                 f"(axes {mesh.axis_names})")
+            if device is not None and \
+                    resolve_device(device, "Simulation()") != \
+                    mesh.devices[0]:
+                raise ValueError(
+                    f"device={device!r} disagrees with the mesh's first "
+                    f"device {mesh.devices[0]}, where the state lives")
+            device = mesh.devices[0]
         self.device = resolve_device(device, "Simulation()")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
@@ -358,6 +395,33 @@ class Simulation:
         p = self._nlist_params()
         return p is not None and _is_cellwise(p[2])
 
+    @property
+    def n_shards(self):
+        """Shards of the mesh (1 without one)."""
+        return 1 if self.mesh is None else self.mesh.shape[self.shard_axis]
+
+    def _mesh_refuse(self, what):
+        """Raise for a route this slice does not shard."""
+        raise NotImplementedError(
+            f"{what} does not run under a device mesh yet (ROADMAP.md "
+            f"Queue 1 item 7b); run it with Simulation(mesh=None)")
+
+    def _sharded(self):
+        return self.n_shards > 1
+
+    def _mesh_check(self):
+        """Refuse, before a run under a mesh starts, what this slice does
+        not shard on any route (the planes route of a SimModel the probe
+        rejects, and the packed cell routes, are refused where they are
+        chosen)."""
+        tfc = self.tfc
+        if self._changes_box():
+            self._mesh_refuse("a box-changing integrator (NPT)")
+        if tfc is not None and tfc.train:
+            self._mesh_refuse("online training (train=True)")
+        if tfc is not None and tfc.map_enabled:
+            self._mesh_refuse("a mapped model (the planes route)")
+
     def _kernel_eligible(self):
         """Will kernel K1 be the hot loop? (The planner then costs the
         14-block candidate width, like ``_pallas_eligible`` on a TPU; on
@@ -410,6 +474,10 @@ class Simulation:
         r_cut, _, method, _ = self._nlist_params()
         config = method if isinstance(method, _cw.Cellwise) else None
         dynamic = self._changes_box()
+        if self._sharded() and any(self._tilt):
+            raise NotImplementedError(
+                "tilted (triclinic) boxes are not supported with a "
+                "device mesh yet; run single-device or untilt the box")
         if dynamic:
             if any(self._tilt):
                 raise NotImplementedError(
@@ -433,6 +501,7 @@ class Simulation:
             positions=(None if occ_observed is not None else
                        self.state.positions.detach().cpu().numpy()),
             lo=self._lo, drift_per_step=self._drift_estimate(),
+            z_divisor=self.n_shards,
             width_blocks=14 if self._kernel_eligible() else 27,
             occ_observed=occ_observed,
             lane_cost_scale=self._model_lane_cost_scale(), tilt=self._tilt)
@@ -474,9 +543,12 @@ class Simulation:
         if plan is None:
             plan = self._plan_from_current()
         if plan is None:
+            extra = (f" with nz divisible by the {self.n_shards}-shard mesh"
+                     if self._sharded() else "")
             raise ValueError(
                 f"Box {self._lengths} too small for the cellwise mode at "
-                f"r_cut={r_cut} (needs >= 3 cells per axis)")
+                f"r_cut={r_cut} (needs >= 3 cells per axis{extra}); use "
+                "nlist='n2' instead")
         layout = SlotLayout(plan, self.state.n_particles, self._lo,
                             rc_matrix=rc_matrix,
                             dtype=self.state.positions.dtype,
@@ -504,10 +576,15 @@ class Simulation:
         # probed SimModel): first estimated for the plan, then sized by
         # each committed run's need, which depends on the cells and not
         # on their capacity: a plan of the same cells keeps the list
-        key = (plan.grid, plan.lengths, plan.r_cut, self.state.n_particles)
+        # (under a mesh each shard's list holds the budget: a shard's share
+        # of the whole state's first estimate)
+        key = (plan.grid, plan.lengths, plan.r_cut, self.state.n_particles,
+               self.n_shards)
         if getattr(self, "_lanes_key", None) != key:
+            slab = (_cw.slab_layers(plan, self.n_shards)[0]
+                    if self._sharded() else None)
             self._lanes = LaneBudget(
-                lane_budget(plan, self.state.n_particles), self.device)
+                lane_budget(plan, self.state.n_particles, slab), self.device)
             self._lanes_key = key
         self._layout = layout
         return layout
@@ -685,7 +762,27 @@ class Simulation:
             pair_fn, needs_virial=want_virial, min_r2=min_r2,
             with_types=with_types, rcut_matrix=layout.rc2_tab,
             stencil=self.stencil, needs_energy=needs_energy, form=form,
-            geometry=layout.geom(st), lanes=self._lanes)
+            geometry=layout.geom(st), lanes=self._lanes, mesh=self.mesh,
+            shard_axis=self.shard_axis,
+            shard_fn=None if self.mesh is None else
+            (lambda dev: self._on_device(pair_fn, dev)))
+
+    def _on_device(self, fn, device):
+        """The pair function ``fn`` run on a mesh shard's ``device``:
+        itself on the simulation's device; elsewhere through
+        :func:`..models.module.functional_call` with the attached model's
+        variables copied to ``device`` (what the call updates in them is
+        dropped, as a pair function's lane chunks update nothing)."""
+        device = torch.device(device)
+        model = self.tfc.model if self.tfc is not None else None
+        if device == self.device or model is None:
+            return fn
+        from ..models.module import functional_call, get_state
+
+        def call(*args):
+            return functional_call(model, get_state(model), fn, *args,
+                                   device=device)[0]
+        return call
 
     def _count_eval(self):
         self.force_evals += 1
@@ -831,6 +928,10 @@ class Simulation:
                 r.model_fn = synthesize_pair_fn(model, st.box)
                 r.with_types, r.min_r2 = True, 1e-4
             else:
+                if self._sharded():
+                    self._mesh_refuse(
+                        "a SimModel the lane-separability probe rejects "
+                        "(the planes route)")
                 r.planes = True
         elif model.proxy_degree:
             fit, evaluate = model.proxy_parts(layout.plan.r_cut,
@@ -881,9 +982,11 @@ class Simulation:
         # they update (a metric's count) is restored
         snap = StateSnapshot(model)
         try:
+            # (a mesh's budget is a shard's: the validation's unsharded
+            # call sizes its own list)
             ok = validate_pair_fn(
                 model, synthesize_pair_fn(model, st.box), st, aux, layout,
-                stencil, lanes=self._lanes,
+                stencil, lanes=None if self._sharded() else self._lanes,
                 lane_chunk=(_PROBE_LANES if self.device.type == "cuda"
                             else None),
                 on_eval=self._count_eval, report=report)
@@ -1011,6 +1114,8 @@ class Simulation:
         if log_period is not None and int(log_period) < 1:
             raise ValueError(f"log_period must be >= 1, got {log_period}")
         self._adopt(self.state)
+        if self._sharded():
+            self._mesh_check()
         run_once = self._run_once if self._use_cellwise() \
             else self._run_packed
         model = self.tfc.model if self.tfc is not None else None
@@ -1245,6 +1350,14 @@ class Simulation:
         lengths = np.asarray(self._lengths, dtype=np.float64)
         n = self.state.n_particles
         tilted = any(self._tilt)
+        if self._sharded():
+            # the dense build is the packed route a mesh shards (by rows)
+            if method == "auto" and (n < 512 or tilted or
+                                     not _cl.CellList().usable(lengths,
+                                                               r_cut)):
+                method = "n2"
+            if method != "n2":
+                self._mesh_refuse(f"the packed {method!r} neighbor route")
         if tilted and (method in ("cell", "pallas", "direct") or
                        isinstance(method, _cl.CellList)):
             raise NotImplementedError(
@@ -1350,6 +1463,25 @@ class Simulation:
                  None if lab is None else lab[a:a + k])
                 for a in range(0, n + pad, k)]
 
+    def _shard_rows(self, n):
+        """The contiguous particle rows of each mesh shard: ``slice``s."""
+        S = self.n_shards
+        return [slice(n * s // S, n * (s + 1) // S) for s in range(S)]
+
+    def _shard_build(self, build, st):
+        """The dense list built by rows, each mesh shard's rows on its
+        device against every particle (the JAX package's row partition of
+        the dense build), gathered on the simulation's device: the model
+        then runs once on the whole list, as without a mesh."""
+        box = self._build_box(st)
+        lists = []
+        for s, rows in enumerate(self._shard_rows(st.n_particles)):
+            dev = self.mesh.devices[s]
+            nl = build(to_device(st.positions4, dev), to_device(box, dev),
+                       rows=rows)[0]
+            lists.append(to_device(nl, self.device))
+        return torch.cat(lists)
+
     def _eval_model(self, st, nlist):
         """One model evaluation (the JAX ``eval_model``, chunked with
         ``batch_size``): ``(forces4, virial)``, padded to every particle;
@@ -1413,7 +1545,10 @@ class Simulation:
         if map_i is not None:
             # the CG beads follow the atoms before the neighbor build
             st = tfc.apply_mapping(st)
-        if build is not None:
+        if build is not None and self._sharded():
+            nlist, cell_overflow = self._shard_build(build, st), None
+            self.nlist_builds += 1
+        elif build is not None:
             nlist, cell_overflow = build(st.positions4, self._build_box(st))
             self.nlist_builds += 1
         else:

@@ -287,14 +287,15 @@ class _Call(nn.Module):
         return out, list(self.m.variables)
 
 
-def functional_call(module, values, fn, *args, **kwargs):
+def functional_call(module, values, fn, *args, device=None, **kwargs):
     """Run ``fn(*args, **kwargs)`` with ``module``'s variables set to
     ``values``; return ``(output, new_values)``. The module's own tensors
     are swapped for copies of ``values`` for the call only
     (``torch.func.functional_call``), so gradients flow from the output
     and from ``new_values`` (the copies as the call's in-place updates,
     metrics or EDS state, left them) back to ``values``; the module
-    keeps its state."""
+    keeps its state. With ``device`` the copies are made there (a mesh
+    shard's call on its own device), else on each variable's device."""
     vs = module.variables
     if len(vs) != len(values):
         raise ValueError(f"Expected {len(vs)} values, got {len(values)}")
@@ -302,8 +303,9 @@ def functional_call(module, values, fn, *args, **kwargs):
     for name, t in list(module.named_parameters(remove_duplicate=False)) + \
             list(module.named_buffers(remove_duplicate=False)):
         names.setdefault(id(t), "m." + name)
-    swap = {names[id(v)]: torch.as_tensor(val, dtype=v.dtype,
-                                          device=v.device).clone()
+    swap = {names[id(v)]: torch.as_tensor(
+                val, dtype=v.dtype,
+                device=v.device if device is None else device).clone()
             for v, val in zip(vs, values)}
     return torch.func.functional_call(_Call(module, fn), swap,
                                       (args, kwargs))

@@ -30,12 +30,13 @@ import math
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from .cell_list import CellList
 
 __all__ = ["Cellwise", "CellwisePlan", "plan_cellwise",
            "analytic_pair_forces", "cellwise_planes", "repack_order", "repack_src",
-           "slot_cell_centers", "bin_cells", "SlotGeometry"]
+           "slot_cell_centers", "bin_cells", "SlotGeometry",
+           "half_stencil_slab_plain", "slab_layers", "slab_rows"]
 
 
 class Cellwise(CellList):
@@ -203,14 +204,17 @@ def _snap_free_capacity(cap, width_blocks):
 
 
 def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
-                  lo=None, drift_per_step=None, width_blocks=27,
+                  lo=None, drift_per_step=None, z_divisor=1, width_blocks=27,
                   occ_observed=None, lane_cost_scale=1.0,
                   tilt=(0.0, 0.0, 0.0)):
     """Choose ``(grid, capacity)`` minimizing the modelled per-step cost
     (pair lanes plus amortized repack). Same algorithm and arguments as
-    the JAX ``plan_cellwise`` (minus the mesh divisor); a tilted box is
-    gridded by its perpendicular widths.
+    the JAX ``plan_cellwise``; a tilted box is gridded by its
+    perpendicular widths.
 
+    :param z_divisor: force ``nz`` to a multiple of this: a mesh of that
+        many shards splits the z-major slot order into equal z-slabs
+        (:func:`analytic_pair_forces` with ``mesh=``).
     :param width_blocks: 14 when the half-stencil kernel is the hot
         loop, 27 for the full-stencil tensor form.
     :returns: a :class:`CellwisePlan`, or ``None`` if no grid with >= 3
@@ -226,8 +230,10 @@ def plan_cellwise(n, box_lengths, r_cut, config=None, positions=None,
               else lengths)
     best = None
     for scale in np.linspace(1.0, 1.8, 9):
-        dims = tuple(int(math.floor(W / (min_edge * scale)))
-                     for W in widths)
+        dims = [int(math.floor(W / (min_edge * scale))) for W in widths]
+        if z_divisor > 1:
+            dims[2] = (dims[2] // z_divisor) * z_divisor
+        dims = tuple(dims)
         if any(d < 3 for d in dims):
             continue
         edges = [W / d for W, d in zip(widths, dims)]
@@ -367,10 +373,26 @@ class SlotGeometry:
             self.box, self.dims)
         self._centers = None
         self._offs = {}
+        # copies on a mesh's other devices (on())
+        self._on = {}
 
     def at(self, box):
         """This plan's geometry at another box (same grid and capacity)."""
         return SlotGeometry(self.plan, dtype=self.dtype, box=box, base=self)
+
+    def on(self, device):
+        """This geometry on ``device`` (itself when it is there already):
+        a mesh shard's copy, made once, its box copied device to
+        device."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = SlotGeometry(self.plan, dtype=self.dtype,
+                                         device=device,
+                                         box=self.box.to(device))
+        return self._on[key]
 
     @property
     def centers(self):
@@ -670,14 +692,203 @@ def finish_forces(chans, valid, needs_energy, needs_virial):
     return forces4, virial
 
 
+def slab_layers(plan, n_shards):
+    """``[(z0, nzl), ...]``: the z-layers of each of ``n_shards`` equal
+    z-slabs of ``plan``'s grid (the slot order is z-major, so each slab is
+    a contiguous block of slot rows). Raises unless ``nz`` divides."""
+    nz = plan.grid[2]
+    if nz % n_shards:
+        raise ValueError(
+            f"{nz} z-layers of cells are not divisible by the {n_shards}-"
+            f"shard mesh (plan with z_divisor={n_shards})")
+    nzl = nz // n_shards
+    return [(s * nzl, nzl) for s in range(n_shards)]
+
+
+def slab_rows(plan, z0, nzl):
+    """The slot rows of a slab buffer: the home layers ``z0 .. z0 + nzl -
+    1`` then the forward halo layer ``(z0 + nzl) % nz``, as two
+    ``slice``s of the z-major slot order."""
+    nx, ny, nz = plan.grid
+    layer = nx * ny * plan.capacity
+    z1 = (z0 + nzl) % nz
+    return (slice(z0 * layer, (z0 + nzl) * layer),
+            slice(z1 * layer, (z1 + 1) * layer))
+
+
+def _slab_plan(plan, nzl):
+    """The plan of a slab buffer's ``nzl + 1`` layers (for the rolls of
+    the tensor form; its geometry stays the global plan's)."""
+    nx, ny, _ = plan.grid
+    return dataclasses.replace(plan, grid=(nx, ny, nzl + 1))
+
+
+def half_stencil_slab_plain(positions, types, valid, plan, lo, pair_fn, z0,
+                            nzl, needs_virial=False, min_r2=1e-4,
+                            with_types=False, rcut_matrix=None,
+                            needs_energy=True, geometry=None):
+    """Plain PyTorch version of one z-slab shard of kernel K1: the Newton
+    half-stencil tensor form (``lane_sums``, ``assemble_half``,
+    ``finish_forces``) over the home cells of layers ``z0 .. z0 + nzl - 1``
+    of ``plan``'s grid, ``nzl < nz``.
+
+    The inputs are the slab buffer's ``(nzl + 1) * nx * ny * cap`` rows
+    (:func:`slab_rows`): the home layers, then the forward halo layer
+    ``(z0 + nzl) % nz``, which is enough because the half stencil reaches
+    ``z + 1`` only. Each slot's cell center and stencil offset come from
+    its *global* cell and ``geometry``'s box, so the cut masks are the
+    unsharded form's. The home slots get their row sums and the back sums
+    of the home cells; the halo layer's slots get the back sums the last
+    home layer pushes into it (the ``oz = +1`` blocks), which the caller
+    adds to the next shard's first layer (the reverse halo). The back sums
+    the previous shard pushes into layer ``z0`` are left out here.
+
+    :param pair_fn: ``U(r2[, ti, tj]) -> (U, dU/dr2)`` per lane.
+    :param geometry: the global plan's :class:`SlotGeometry` on the
+        buffer's device.
+    :returns: ``(forces4, virial or None)`` over the buffer's rows: the
+        home slots finished, then the reverse-halo partial of the halo
+        layer's slots (also multiplied by their ``valid``).
+    """
+    nx, ny, nz = plan.grid
+    if not 1 <= nzl < nz:
+        raise ValueError(f"a slab of {nzl} layers in a grid of {nz}")
+    cap = plan.capacity
+    bp = _slab_plan(plan, nzl)
+    n_home = nzl * nx * ny
+    if positions.shape[0] != bp.n_slots:
+        raise ValueError(f"a slab buffer of {nzl} + 1 layers holds "
+                         f"{bp.n_slots} rows, got {positions.shape[0]}")
+    g = _as_geometry(plan, lo, positions, geometry)
+    dtype, dev = positions.dtype, positions.device
+    # the buffer's cells at their global grid coordinates
+    cell = torch.arange(bp.n_cells, device=dev)
+    ijk = torch.stack([cell % nx, (cell // nx) % ny,
+                       (z0 + cell // (nx * ny)) % nz], dim=-1)
+    centers = _cell_centers(torch.repeat_interleave(ijk, cap, dim=0)
+                            .to(dtype), g.lo, g.edges, g.tilt, g.tilted)
+    rank = (torch.arange(bp.n_slots, device=dev) % cap).to(dtype)
+    FAR = 4.0 * float(max(plan.lengths))
+    q = g.wrap(positions - centers)
+    qx = q[:, 0] + (1.0 - valid) * FAR * (1.0 + rank)
+    qy, qz = q[:, 1], q[:, 2]
+    off = g.offsets(_HALF_OFFS)
+    home = slice(0, n_home)
+    gx, gy, gz = (_roll_offs(c, bp, _HALF_OFFS)[home] + off[a]
+                  for a, c in enumerate((qx, qy, qz)))
+    ti = tj = None
+    if with_types or rcut_matrix is not None:
+        tt = types.to(dtype)
+        ti = tt[:n_home * cap].reshape(n_home, cap)
+        tj = _roll_offs(tt, bp, _HALF_OFFS)[home]
+    rows, cols = lane_sums(
+        qx[:n_home * cap].reshape(n_home, cap),
+        qy[:n_home * cap].reshape(n_home, cap),
+        qz[:n_home * cap].reshape(n_home, cap), gx, gy, gz, ti, tj,
+        pair_fn, cap, plan.r_cut ** 2, min_r2, 0, needs_energy,
+        needs_virial, rc2_tab=rcut_matrix, typed_fn=with_types)
+    coefs = _channel_coefs(needs_energy, needs_virial)
+    nch = len(coefs)
+    out = torch.stack([rows[k] * c[0] for k, c in enumerate(coefs)])
+    cols = torch.stack([cols[k] * c[1] for k, c in enumerate(coefs)])
+    planes = torch.cat([out, cols[:, :, cap:]], dim=2)
+    # the halo layer has no home cells: zero planes, so the inverse rolls
+    # push nothing from it (nor, wrapping, into layer 0)
+    planes = torch.cat([planes, planes.new_zeros(
+        (nch, bp.n_cells - n_home, planes.shape[2]))], dim=1)
+    return finish_forces(assemble_half(planes, bp), valid, needs_energy,
+                         needs_virial)
+
+
+def _sharded_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
+                         shard_axis, needs_virial, min_r2, with_types,
+                         rcut_matrix, stencil, needs_energy, form, geometry,
+                         lanes, shard_fn):
+    """:func:`analytic_pair_forces` over the z-slabs of ``mesh``: each
+    shard's slab buffer (home layers and forward halo layer) copied to its
+    device, K1's slab mode there (:func:`.cellwise_cuda.
+    half_stencil_pair_forces` or :func:`.cellwise_cuda.
+    generic_pair_forces` with ``slab=``; their slab plain versions on the
+    CPU), the home forces gathered on the state's device and each shard's
+    reverse halo added to the next shard's first layer."""
+    from . import cellwise_cuda as cc
+    shards = slab_layers(plan, mesh.shape[shard_axis])
+    nx, ny, _ = plan.grid
+    layer = nx * ny * plan.capacity
+    primary = positions.device
+    geometry = _as_geometry(plan, lo, positions, geometry)
+    generic = form is None and stencil in ("auto", "kernel")
+    if generic and pair_fn is None:
+        raise ValueError("stencil='kernel' needs a kernel form or a pair "
+                         "function (K1's generic form)")
+    homes, revs = [], []
+    for s, (z0, nzl) in enumerate(shards):
+        dev = torch.device(mesh.devices[s])
+        a, b = slab_rows(plan, z0, nzl)
+
+        def buf(t):
+            # home and halo layers are adjacent rows but for the last
+            # shard's, whose halo wraps to layer 0
+            t = (t[a.start:b.stop] if a.stop == b.start else
+                 torch.cat([t[a], t[b]]))
+            return to_device(t, dev)
+
+        p, ty, v = buf(positions), buf(types), buf(valid)
+        g = geometry.on(dev)
+        rc = (None if rcut_matrix is None else
+              to_device(rcut_matrix, dev))
+        fn = pair_fn if shard_fn is None else shard_fn(dev)
+        if stencil in ("half", "full"):
+            f4, w = half_stencil_slab_plain(
+                p, ty, v, plan, lo, fn, z0, nzl, needs_virial, min_r2,
+                with_types, rc, needs_energy, g)
+        elif form is not None:
+            f4, w = cc.half_stencil_pair_forces(
+                p, ty, v, plan, lo, cc.form_on(form, dev), needs_virial,
+                min_r2, rc, needs_energy, g, slab=(z0, nzl))
+        elif not p.is_cuda:
+            f4, w = half_stencil_slab_plain(
+                p, ty, v, plan, lo, fn, z0, nzl, needs_virial, min_r2,
+                with_types, rc, needs_energy, g)
+        else:
+            own = None if lanes is None else \
+                cc.LaneBudget(lanes.budget, dev)
+            f4, w = cc.generic_pair_forces(
+                p, ty, v, plan, lo, fn, with_types, needs_virial, min_r2,
+                rc, needs_energy, g, own, slab=(z0, nzl))
+            if lanes is not None:
+                lanes.record(to_device(own.needed, primary))
+        n = nzl * layer
+        homes.append((f4[:n], None if w is None else w[:n]))
+        revs.append((f4[n:], None if w is None else w[n:]))
+    fs, ws = [], []
+    for s in range(len(shards)):
+        (f, w), (rf, rw) = homes[s], revs[s - 1]
+        f, rf = to_device(f, primary), to_device(rf, primary)
+        fs += [f[:layer] + rf, f[layer:]]
+        if w is not None:
+            w, rw = to_device(w, primary), to_device(rw, primary)
+            ws += [w[:layer] + rw, w[layer:]]
+    return torch.cat(fs), (torch.cat(ws) if ws else None)
+
+
 def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
                          needs_virial=False, min_r2=1e-4, with_types=False,
                          rcut_matrix=None, stencil="auto",
                          needs_energy=True, form=None, geometry=None,
-                         lanes=None):
+                         lanes=None, mesh=None, shard_axis=None,
+                         shard_fn=None):
     """Forces/energy (and optionally virial) of a pair potential on
     slot-resident state -- the fast path behind
     :class:`..models.pair.PairModel`. Same contract as the JAX function.
+
+    With a ``mesh`` of ``S > 1`` shards (:func:`..parallel.make_mesh`)
+    the work is split into ``S`` z-slabs of ``nz / S`` layers, which
+    must divide: each shard runs K1's slab mode on its device over its
+    slab and a forward halo layer, and the forces are gathered on the
+    state's device with the reverse halos added
+    (:func:`half_stencil_slab_plain`). A one-shard mesh takes the
+    unsharded call.
 
     :param pair_fn: ``U(r2[, ti, tj]) -> (U, dU/dr2)`` per lane (a torch
         function; used by the tensor forms).
@@ -693,16 +904,31 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
         without one, ``'kernel'`` runs K1's generic form on ``pair_fn``
         (:func:`.cellwise_cuda.generic_pair_forces`).
     :param geometry: precomputed :class:`SlotGeometry` of the plan.
-    :param lanes: the generic form's :class:`.cellwise_cuda.LaneBudget`.
+    :param lanes: the generic form's :class:`.cellwise_cuda.LaneBudget`
+        (under a mesh: each shard's list holds ``lanes.budget`` lanes, and
+        the most any shard needed is recorded in it).
+    :param mesh: a :class:`..parallel.mesh.Mesh` (or ``None``).
+    :param shard_axis: the mesh axis of the shards (default its only one).
+    :param shard_fn: ``device -> pair_fn`` for a shard on another device
+        than the state (default: ``pair_fn`` itself).
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``
         with the per-particle energy in force column 4 (zero when
         ``needs_energy`` is False); ghost rows all zero.
     """
-    if stencil == "auto":
-        stencil = "kernel" if positions.is_cuda else "full"
     if rcut_matrix is not None and not torch.is_tensor(rcut_matrix):
         rcut_matrix = rc2_table(rcut_matrix, positions.dtype,
                                 positions.device)
+    if mesh is not None:
+        axis = shard_axis or mesh.axis_names[0]
+        if mesh.shape[axis] > 1:
+            if stencil not in ("auto", "kernel", "half", "full"):
+                raise ValueError(f"unknown stencil {stencil!r}")
+            return _sharded_pair_forces(
+                positions, types, valid, plan, lo, pair_fn, mesh, axis,
+                needs_virial, min_r2, with_types, rcut_matrix, stencil,
+                needs_energy, form, geometry, lanes, shard_fn)
+    if stencil == "auto":
+        stencil = "kernel" if positions.is_cuda else "full"
     if stencil == "kernel":
         if form is None:
             if pair_fn is None:

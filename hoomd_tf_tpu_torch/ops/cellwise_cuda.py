@@ -48,6 +48,7 @@ only for CPU tensors. The kernel is built with ``nvcc`` from the
 package's own source at first use (``_build.py``).
 """
 
+import copy
 import ctypes
 import functools
 
@@ -56,7 +57,8 @@ import torch
 
 from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
                        _relative_coords, _roll_offs, analytic_pair_forces,
-                       assemble_half, finish_forces, pair_rc2)
+                       assemble_half, finish_forces, half_stencil_slab_plain,
+                       pair_rc2)
 from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
@@ -214,29 +216,62 @@ def half_stencil_plain(positions, types, valid, plan, lo, form,
 
 class _HalfGeom(ctypes.Structure):
     """``HalfGeom`` of ``csrc/half_stencil_stage.cuh``: the plan's
-    integers -- the grid, the capacity, whether the box is tilted, and
-    per half-stencil block its integer cell offset. The kernels read
-    everything else from the box on the card."""
+    integers -- the grid, the capacity, whether the box is tilted, per
+    half-stencil block its integer cell offset, and the slab of a z-slab
+    shard: its first home layer ``z0`` and its home layers ``nzl``
+    (``0`` and ``nz`` unsharded). The kernels read everything else from
+    the box on the card."""
     _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
                 ("nz", ctypes.c_int), ("cap", ctypes.c_int),
                 ("tilted", ctypes.c_int),
-                ("off", (ctypes.c_int * 3) * len(_HALF_OFFS))]
+                ("off", (ctypes.c_int * 3) * len(_HALF_OFFS)),
+                ("z0", ctypes.c_int), ("nzl", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
-def half_geom(plan):
-    """The kernels' :class:`_HalfGeom` of ``plan`` (made once per plan:
-    it holds no box value, so a rescaled box needs no new one)."""
+def half_geom(plan, slab=None):
+    """The kernels' :class:`_HalfGeom` of ``plan``, or of its z-slab
+    ``slab = (z0, nzl)`` (made once per plan and slab: it holds no box
+    value, so a rescaled box needs no new one)."""
+    z0, nzl = (0, plan.grid[2]) if slab is None else slab
     g = _HalfGeom(*plan.grid, plan.capacity, int(plan.tilted))
     for t, o in enumerate(_HALF_OFFS):
         g.off[t][:] = o
+    g.z0, g.nzl = z0, nzl
     return g
 
 
-def check_slot_inputs(positions, types, valid, plan):
-    """Raise unless ``positions [n_slots, 3]``, ``types [n_slots]`` and
-    ``valid [n_slots]`` fit ``plan`` and lie on one device."""
-    n = plan.n_slots
+def slab_shape(plan, slab):
+    """``(home cells, rows)`` of a call: every cell and slot unsharded;
+    for the z-slab ``slab = (z0, nzl)`` (``1 <= nzl < nz``) its
+    ``nzl * nx * ny`` home cells and the ``nzl + 1`` layers of its
+    buffer's rows."""
+    if slab is None:
+        return plan.n_cells, plan.n_slots
+    nx, ny, nz = plan.grid
+    z0, nzl = slab
+    if not (0 <= z0 < nz and 1 <= nzl < nz):
+        raise ValueError(f"slab {slab} of a grid of {nz} layers")
+    return nzl * nx * ny, (nzl + 1) * nx * ny * plan.capacity
+
+
+def form_on(form, device):
+    """``form`` with its table on ``device``: an :class:`LJForm` keeps a
+    copy per device itself; a :class:`ChebForm` on another device is
+    copied (a mesh shard's)."""
+    if isinstance(form, ChebForm) and form.table.device != \
+            torch.device(device):
+        on = copy.copy(form)
+        on.table = form.table.to(device)
+        return on
+    return form
+
+
+def check_slot_inputs(positions, types, valid, plan, n=None):
+    """Raise unless ``positions [n, 3]``, ``types [n]`` and ``valid [n]``
+    (``n`` the plan's slots by default, a slab buffer's rows) fit and lie
+    on one device."""
+    n = plan.n_slots if n is None else n
     for name, t, shape in (("positions", positions, (n, 3)),
                            ("types", types, (n,)), ("valid", valid, (n,))):
         if tuple(t.shape) != shape or t.device != positions.device:
@@ -265,14 +300,15 @@ def kernel_dtype(t):
     return t.dtype, int(t.dtype == torch.float64)
 
 
-def cuda_slot_args(positions, types, valid, plan, geometry, typed):
+def cuda_slot_args(positions, types, valid, plan, geometry, typed, n=None):
     """Check the slot state a half-stencil kernel reads on the card and
     return its pointers: ``(positions, types or null, valid, box)``, the
     box the ``[3, 3]`` tensor of ``geometry`` (the kernels derive the
     lengths, centers and offsets from it at each launch). Every floating
-    input has the positions' dtype."""
+    input has the positions' dtype; ``n`` rows (default the plan's
+    slots)."""
     dev = positions.device
-    n = plan.n_slots
+    n = plan.n_slots if n is None else n
     dtype, _ = kernel_dtype(positions)
     _check(positions, (n, 3), dtype, dev, "positions")
     _check(valid, (n,), dtype, dev, "valid")
@@ -289,7 +325,7 @@ def _ptr(t):
 
 def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
                              needs_virial=False, min_r2=1e-4, rc2_tab=None,
-                             needs_energy=True, geometry=None):
+                             needs_energy=True, geometry=None, slab=None):
     """Kernel K1: :func:`.cellwise.analytic_pair_forces` of the pair form
     ``form`` on slot-resident state. Launches the kernel on CUDA tensors
     (counting each call in ``half_stencil_pair_forces.launches``, a
@@ -305,12 +341,25 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
         within a cell).
     :param form: the :class:`LJForm` or :class:`ChebForm`.
     :param rc2_tab: ``[T, T]`` squared cutoffs, or ``None``.
+    :param slab: ``(z0, nzl)``: the slab mode of a z-slab shard
+        (:func:`.cellwise.half_stencil_slab_plain`'s contract): the inputs
+        are the slab buffer's rows, the home layers then the forward halo
+        layer, and ``geometry`` is the global plan's on their device. The
+        kernel then runs ``nzl * nx * ny`` home cells, staging by global
+        cell from the buffer, and also writes the halo layer's reverse
+        partial; such a call also counts in ``.slab_launches``.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``,
         the energy in column 4 (zero when ``needs_energy`` is False);
-        ghost rows all zero.
+        ghost rows all zero. In slab mode over the buffer's rows.
     """
-    check_slot_inputs(positions, types, valid, plan)
+    n_cells, n = slab_shape(plan, slab)
+    check_slot_inputs(positions, types, valid, plan, n)
     if not positions.is_cuda:
+        if slab is not None:
+            return half_stencil_slab_plain(
+                positions, types, valid, plan, lo, form.evaluate, *slab,
+                needs_virial, min_r2, form.ntypes > 1, rc2_tab,
+                needs_energy, geometry)
         return half_stencil_plain(positions, types, valid, plan, lo, form,
                                   needs_virial, min_r2, rc2_tab,
                                   needs_energy, geometry)
@@ -318,7 +367,7 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     dev = positions.device
     dtype, f64 = kernel_dtype(positions)
     typed = form.ntypes > 1 or rc2_tab is not None
-    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed, n)
     tab = form.tensor(dev, dtype)
     rc_t = 0
     if rc2_tab is not None:
@@ -337,28 +386,28 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
-    n = plan.n_slots
-    sums = torch.empty((n_ch, len(_HALF_OFFS), n), dtype=dtype, device=dev)
+    sums = torch.empty((n_ch, len(_HALF_OFFS), n_cells * plan.capacity),
+                       dtype=dtype, device=dev)
     forces4 = torch.empty((n, 4), dtype=dtype, device=dev)
     virial = (torch.empty((n, 3, 3), dtype=dtype, device=dev)
               if needs_virial else None)
-    geom = ctypes.byref(half_geom(plan))
+    geom = ctypes.byref(half_geom(plan, slab))
     rest = (_ptr(rc2_tab), rc_t, float(plan.r_cut ** 2), float(min_r2),
             int(needs_energy), int(needs_virial), _ptr(sums), _ptr(forces4),
             _ptr(virial),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if isinstance(form, ChebForm):
         err = lib.htf_half_stencil_cheb(
-            f64, *state, geom, plan.n_cells, _ptr(tab), form.ntypes, form.K,
+            f64, *state, geom, n_cells, _ptr(tab), form.ntypes, form.K,
             form.mid, form.inv_half, form.u_hi, _ptr(dtab), *rest)
     else:
-        err = lib.htf_half_stencil(f64, *state, geom, plan.n_cells,
-                                   _ptr(tab), form.ntypes, int(form.strict),
-                                   *rest)
+        err = lib.htf_half_stencil(f64, *state, geom, n_cells, _ptr(tab),
+                                   form.ntypes, int(form.strict), *rest)
     if err != 0:
         raise RuntimeError("half-stencil kernel launch failed: " +
                            lib.htf_error_string(err).decode())
     half_stencil_pair_forces.launches += 1
+    half_stencil_pair_forces.slab_launches += slab is not None
     if isinstance(form, ChebForm):
         half_stencil_pair_forces.proxy_launches += 1
     half_stencil_pair_forces.f64_launches += f64
@@ -368,9 +417,10 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
 
 #: calls that launched the kernel (two launches each), all forms and both
 #: scalar types; those of its Chebyshev-proxy form alone; those of the
-#: double instantiation alone (any form); and those that read the proxy
-#: table from device memory
+#: double instantiation alone (any form); those that read the proxy
+#: table from device memory; and those in slab mode (a z-slab shard's)
 half_stencil_pair_forces.launches = 0
+half_stencil_pair_forces.slab_launches = 0
 half_stencil_pair_forces.proxy_launches = 0
 half_stencil_pair_forces.f64_launches = 0
 half_stencil_pair_forces.device_table_launches = 0
@@ -434,19 +484,34 @@ def same_cell_share(edges, r_cut, n=48):
     return float((w * (x * x + y * y + z * z <= r_cut ** 2)).sum())
 
 
-def lane_budget(plan, n_real):
+def lane_budget(plan, n_real, slab=None):
     """The first estimate of K1's generic-form list for ``n_real``
     particles on ``plan``, before any run has counted its need: per
     particle, half its neighbors within the cut (``2 pi / 3 r_cut^3
     rho``, each pair once) plus half its cell's mean occupancy times the
     share of a cell's pairs within the cut (:func:`same_cell_share`;
-    block 0 lists those in both orders), with 25% headroom."""
+    block 0 lists those in both orders), with 25% headroom. With ``slab``
+    (``(z0, nzl)``, a z-slab shard's) the share of its ``nzl`` home
+    layers, whose cells own its lanes."""
     rho = n_real / float(np.prod(plan.lengths))
     share = same_cell_share(tuple(float(e) for e in plan.edges),
                             float(plan.r_cut))
     per = (2.0 * np.pi / 3.0 * plan.r_cut ** 3 * rho +
            0.5 * n_real / plan.n_cells * share)
-    return int(np.ceil(_HEADROOM * n_real * per)) + 1024
+    whole = int(np.ceil(_HEADROOM * n_real * per)) + 1024
+    if slab is None:
+        return whole
+    return int(whole * slab[1] / plan.grid[2]) + 1024
+
+
+def _default_lanes(plan, valid, slab=None):
+    """A :class:`LaneBudget` of :func:`lane_budget` for the occupied slots
+    of ``valid`` (one host sync); a slab buffer's ``nzl + 1`` layers stand
+    for that share of a whole state as dense."""
+    n_real = int((valid > 0).sum())
+    if slab is not None:
+        n_real = int(n_real * plan.grid[2] / (slab[1] + 1))
+    return LaneBudget(lane_budget(plan, n_real, slab), valid.device)
 
 
 def _round_lanes(n):
@@ -681,10 +746,12 @@ class GenericList:
 
     def __init__(self, plan, valid, typed_fn, r2, ti, tj, lst=None, *,
                  lanes=None, counter=None, rec=None, cell_base=None,
-                 sums=None, stream=None, generation=None):
+                 sums=None, stream=None, generation=None, slab=None):
         self.plan, self.valid, self.typed_fn = plan, valid, typed_fn
         self.r2, self.ti, self.tj = r2, ti, tj
         self.lst = lst
+        #: the z-slab ``(z0, nzl)`` of a slab-mode list (CUDA only)
+        self.slab = slab
         # CUDA only: the LaneBudget, the device's lane counter and records,
         # the cells' bases, the reduction's [n_ch][14][n_slots] scratch, the
         # stream and the generation of the shared buffers at the launch
@@ -693,7 +760,8 @@ class GenericList:
         self.generation = generation
         if lst is None:
             self.budget, self.sums_ch = r2.shape[0], sums.shape[0]
-            self.geom = ctypes.byref(half_geom(plan))
+            self.geom = ctypes.byref(half_geom(plan, slab))
+            self.n_cells, self.rows = slab_shape(plan, slab)
         #: the lanes the call needed, a device int32 (CUDA: set by the
         #: reduction)
         self.needed = None
@@ -715,17 +783,24 @@ class GenericList:
 
 def generic_list(positions, types, valid, plan, lo, typed_fn=True,
                  min_r2=1e-4, rc2_tab=None, geometry=None, lanes=None,
-                 needs_energy=True, needs_virial=False):
+                 needs_energy=True, needs_virial=False, slab=None):
     """The generic form's list kernel on CUDA tensors (its plain version,
     :func:`generic_list_plain`, on CPU tensors, which records the lanes
     needed in ``lanes`` itself): a :class:`GenericList` for a reduction
     of at most the channels ``needs_energy`` and ``needs_virial`` ask
     for. A failed build or launch raises. Each launch rewrites the
-    device's shared list and records and counts a new generation."""
-    check_slot_inputs(positions, types, valid, plan)
+    device's shared list and records and counts a new generation. With
+    ``slab = (z0, nzl)`` it lists the home cells of that z-slab from its
+    buffer's rows (:func:`half_stencil_pair_forces`' slab mode; CUDA
+    only)."""
+    n_cells, n = slab_shape(plan, slab)
+    check_slot_inputs(positions, types, valid, plan, n)
+    if slab is not None and not positions.is_cuda:
+        raise ValueError("the generic form's list has no slab mode on the "
+                         "CPU: its slab plain version is "
+                         "cellwise.half_stencil_slab_plain")
     if lanes is None:
-        lanes = LaneBudget(lane_budget(plan, int((valid > 0).sum())),
-                           positions.device)
+        lanes = _default_lanes(plan, valid, slab)
     if not positions.is_cuda:
         lst = generic_list_plain(positions, types, valid, plan, lo, min_r2,
                                  rc2_tab, geometry, lanes.budget, typed_fn)
@@ -736,7 +811,7 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
     dev = positions.device
     dtype, f64 = kernel_dtype(positions)
     typed = typed_fn or rc2_tab is not None
-    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed, n)
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
@@ -750,7 +825,7 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
     budget = lanes.budget
     counter, lst, rec = _generic_buffers(
         dev, dtype, budget, plan.r_cut ** 2,
-        plan.n_cells * lib.htf_generic_record_words(f64, plan.capacity))
+        n_cells * lib.htf_generic_record_words(f64, plan.capacity))
     _GENERATION[str(dev)] = generation = _GENERATION.get(str(dev), 0) + 1
     # the list kernel writes the zero back sums of the slots the box test
     # left out into the reduction's scratch
@@ -758,12 +833,12 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
     gl = GenericList(
         plan, valid, typed_fn, lst[0], lst[1], lst[2], lanes=lanes,
         counter=counter, rec=rec,
-        cell_base=torch.empty(plan.n_cells, dtype=torch.int32, device=dev),
-        sums=torch.empty((n_ch, len(_HALF_OFFS), plan.n_slots),
+        cell_base=torch.empty(n_cells, dtype=torch.int32, device=dev),
+        sums=torch.empty((n_ch, len(_HALF_OFFS), n_cells * plan.capacity),
                          dtype=dtype, device=dev),
         stream=ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-        generation=generation)
-    err = lib.htf_generic_list(f64, *state, gl.geom, plan.n_cells,
+        generation=generation, slab=slab)
+    err = lib.htf_generic_list(f64, *state, gl.geom, n_cells,
                                _ptr(rc2_tab), rc_t, float(plan.r_cut ** 2),
                                float(min_r2), budget, _ptr(counter),
                                _ptr(gl.cell_base), _ptr(gl.r2), _ptr(gl.ti),
@@ -781,8 +856,9 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
     and the pair function's ``(U, S)`` on it (CUDA); the plain version,
     :func:`generic_reduce_plain`, for a CPU list. Records the lanes the
     list needed in ``gl.lanes``; a CUDA launch counts in
-    ``generic_pair_forces.launches``. Returns ``(forces4, virial or
-    None)``."""
+    ``generic_pair_forces.launches`` (and a slab-mode list's in
+    ``.slab_launches``). Returns ``(forces4, virial or None)``, over a
+    slab buffer's rows for a slab-mode list."""
     if gl.lst is not None:
         return generic_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
                                     needs_energy, needs_virial)
@@ -792,7 +868,7 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
     if n_ch > gl.sums_ch:
         raise ValueError(f"a reduction of {n_ch} channels on a list made "
                          f"for {gl.sums_ch}")
-    n = plan.n_slots
+    n = gl.rows
     U, S = U.contiguous(), S.contiguous()
     _check(U, (gl.budget,), dtype, dev, "U")
     _check(S, (gl.budget,), dtype, dev, "S")
@@ -801,7 +877,7 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
               if needs_virial else None)
     gl.needed = torch.empty((), dtype=torch.int32, device=dev)
     lib = _generic_library()
-    err = lib.htf_generic_reduce(f64, gl.geom, plan.n_cells, _ptr(gl.rec),
+    err = lib.htf_generic_reduce(f64, gl.geom, gl.n_cells, _ptr(gl.rec),
                                  _ptr(gl.cell_base), _ptr(U), _ptr(S),
                                  int(needs_energy), int(needs_virial),
                                  _ptr(gl.valid), _ptr(gl.sums), _ptr(forces4),
@@ -813,6 +889,7 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
                            lib.htf_generic_error_string(err).decode())
     generic_pair_forces.launches += 1
     generic_pair_forces.f64_launches += f64
+    generic_pair_forces.slab_launches += gl.slab is not None
     gl.lanes.record(gl.needed)
     return forces4, virial
 
@@ -820,7 +897,7 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
 def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
                         typed_fn=True, needs_virial=False, min_r2=1e-4,
                         rc2_tab=None, needs_energy=True, geometry=None,
-                        lanes=None):
+                        lanes=None, slab=None):
     """Kernel K1's generic form: :func:`.cellwise.analytic_pair_forces`
     of any pair function ``pair_fn(r2[, ti, tj]) -> (U, dU/dr2)``. On
     CUDA tensors it launches the list kernel, evaluates ``pair_fn`` on
@@ -836,27 +913,36 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     :param lanes: the :class:`LaneBudget` to size the list by and record
         the lanes needed in (default: :func:`lane_budget` of this call's
         occupied slots, counted with one host sync).
+    :param slab: ``(z0, nzl)``: a z-slab shard's call on its buffer's rows
+        (:func:`half_stencil_pair_forces`' slab mode); on CPU tensors the
+        slab plain version, :func:`.cellwise.half_stencil_slab_plain`.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``.
     """
-    check_slot_inputs(positions, types, valid, plan)
+    check_slot_inputs(positions, types, valid, plan,
+                      slab_shape(plan, slab)[1])
+    if slab is not None and not positions.is_cuda:
+        return half_stencil_slab_plain(
+            positions, types, valid, plan, lo, pair_fn, *slab, needs_virial,
+            min_r2, typed_fn, rc2_tab, needs_energy, geometry)
     if lanes is None:
-        lanes = LaneBudget(lane_budget(plan, int((valid > 0).sum())),
-                           positions.device)
+        lanes = _default_lanes(plan, valid, slab)
     if not positions.is_cuda:
         return generic_plain(positions, types, valid, plan, lo, pair_fn,
                              typed_fn, needs_virial, min_r2, rc2_tab,
                              needs_energy, geometry, lanes)
     gl = generic_list(positions, types, valid, plan, lo, typed_fn, min_r2,
-                      rc2_tab, geometry, lanes, needs_energy, needs_virial)
+                      rc2_tab, geometry, lanes, needs_energy, needs_virial,
+                      slab)
     U, S = gl.evaluate(pair_fn)
     return generic_reduce(gl, U, S, needs_energy, needs_virial)
 
 
 #: calls that launched the generic form's reduction (generic_reduce, after
-#: its list kernel: three launches each), training's forward included; and
-#: those of the double instantiation alone
+#: its list kernel: three launches each), training's forward included;
+#: those of the double instantiation alone; and those in slab mode
 generic_pair_forces.launches = 0
 generic_pair_forces.f64_launches = 0
+generic_pair_forces.slab_launches = 0
 
 
 def _shifted_cells(cell, t, plan):
@@ -920,6 +1006,10 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
         return generic_reduce_bwd_plain(gl.lst, ct, gl.valid, plan,
                                         needs_energy, gl.r2.shape[0])
     dev = gl.r2.device
+    if gl.slab is not None:
+        raise NotImplementedError(
+            "generic_reduce_bwd has no slab mode: online training under a "
+            "mesh arrives with ROADMAP.md Queue 1 item 7b")
     if _GENERATION.get(str(dev)) != gl.generation:
         raise RuntimeError(
             "the generic form's list and records were rewritten by a later "

@@ -68,7 +68,8 @@ def synthesize_pair_fn(model, box, differentiable=False):
         planes = NlistPlanes(dx=r[:, None], dy=z, dz=z, type=tjf[:, None])
         pos4 = torch.cat([torch.zeros((m, 3), dtype=dtype,
                                       device=r2.device), tif[:, None]], 1)
-        f4 = model([planes, pos4, box], training=False,
+        # (the box on the lanes' device: a mesh shard's may be another)
+        f4 = model([planes, pos4, box.to(r2.device)], training=False,
                    keep_graph=differentiable)[0]
         if not differentiable:
             f4 = f4.detach()

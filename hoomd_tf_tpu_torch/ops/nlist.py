@@ -75,10 +75,14 @@ def compute_nlist(positions, r_cut, NN, box_size, sorted=False,
 
 
 def _compute_nlist(positions, r_cut, NN, box_size, sorted=False,
-                   return_types=False, exclusion_matrix=None, rc2_tab=None):
+                   return_types=False, exclusion_matrix=None, rc2_tab=None,
+                   rows=None):
     """:func:`compute_nlist` with the typed cutoffs as a ``[T, T]`` device
     table (:func:`.cellwise.rc2_table`), so a caller in the step loop
-    makes no host-to-device copy."""
+    makes no host-to-device copy. With ``rows`` (a ``slice``) only those
+    query rows' lists, each equal to its row of the whole list (a mesh
+    shard's rows)."""
+    rows = slice(None) if rows is None else rows
     if return_types and positions.shape[1] == 3:
         raise ValueError(
             'Cannot return type if positions does not have type. '
@@ -89,7 +93,7 @@ def _compute_nlist(positions, r_cut, NN, box_size, sorted=False,
                                device=positions.device)
     pos3 = positions[:, :3]
     # displacement from i (row) to j (column): r_ij = x_j - x_i
-    dist_mat = pos3[None, :, :] - pos3[:, None, :]
+    dist_mat = pos3[None, :, :] - pos3[rows, None, :]
     if box_size.ndim == 2:
         dist_mat = wrap_vector(dist_mat, box_size)
     else:
@@ -100,12 +104,12 @@ def _compute_nlist(positions, r_cut, NN, box_size, sorted=False,
     if rc2_tab is not None:
         from .cellwise import pair_rc2 as _table_rc2
         types = positions[:, 3]
-        rc2 = _table_rc2(types[:, None], types[None, :], rc2_tab)
+        rc2 = _table_rc2(types[rows, None], types[None, :], rc2_tab)
         mask = mask & (dist * dist <= rc2)
     if exclusion_matrix is not None:
         nem = ~torch.as_tensor(exclusion_matrix, dtype=torch.bool,
                                device=positions.device)
-        mask = mask & nem & nem.T
+        mask = mask & nem[rows] & nem.T[rows]
     mask_cast = mask.to(dist.dtype)
     # systems smaller than NN: take everything and zero-pad the columns
     k = min(NN, dist.shape[1])
@@ -166,10 +170,15 @@ class DenseNlist:
         self.rc2_tab = (None if rcut_matrix is None else
                         rc2_table(rcut_matrix, dtype, device))
 
-    def __call__(self, pos4, box_lengths):
+    def __call__(self, pos4, box_lengths, rows=None):
         """``(nlist [N, NN, 4], None)`` for ``pos4`` in a box of
         ``box_lengths`` (a ``[3]`` tensor on the positions' device, or
-        the full ``[3, 3]`` box of a tilted one)."""
+        the full ``[3, 3]`` box of a tilted one); with ``rows`` (a
+        ``slice``) the lists of those rows only, against every particle.
+        The typed cutoffs' table follows ``pos4`` to its device."""
+        rc2 = self.rc2_tab
+        if rc2 is not None:
+            rc2 = rc2.to(pos4.device, non_blocking=True)
         return _compute_nlist(pos4, self.r_cut, self.NN, box_lengths,
                               sorted=True, return_types=True,
-                              rc2_tab=self.rc2_tab), None
+                              rc2_tab=rc2, rows=rows), None

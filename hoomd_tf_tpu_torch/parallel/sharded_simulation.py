@@ -1,0 +1,88 @@
+"""ShardedSimulation: the multi-device Simulation front end (PyTorch
+port of ``hoomd_tf_tpu/parallel/sharded_simulation.py``).
+
+A thin subclass of :class:`..md.simulation.Simulation`: passing a
+``mesh`` to Simulation splits the pair work of the cellwise mode into
+z-slabs, one per shard, each run by kernel K1's slab mode on its shard's
+device with the halo exchange written out (``ops/cellwise.py::
+analytic_pair_forces``), and the dense ``'n2'`` build into contiguous
+particle rows. The state itself stays whole on the first device, so the
+integrators, built-in forces, ``period`` gating and logging run
+unchanged.
+
+The class only adds convenience, as in the JAX package: a default mesh
+over the visible cards, the ``kT``/``tau`` shorthand for NVT, and an
+``attach`` that falls back to the dense build when the box is too small
+for a z-decomposed cell grid.
+"""
+
+import numpy as np
+
+from ..md import integrators as _integrators
+from ..md.simulation import Simulation
+from .mesh import make_mesh
+
+__all__ = ["ShardedSimulation"]
+
+
+class ShardedSimulation(Simulation):
+    """Multi-device MD over a 1-D mesh.
+
+    :param dt: timestep.
+    :param kT: if given (and no ``integrator``), Nose-Hoover NVT at this
+        temperature; else NVE.
+    :param tau: thermostat coupling time.
+    :param mesh: device mesh (default: :func:`.mesh.make_mesh` over the
+        visible cards).
+    :param integrator: explicit integrator (overrides ``kT``/``tau``).
+    """
+
+    def __init__(self, dt=0.005, kT=None, tau=0.5, mesh=None, seed=0,
+                 axis="d", integrator=None):
+        if integrator is None:
+            integrator = (_integrators.NVT(kT=kT, tau=tau)
+                          if kT is not None else _integrators.NVE())
+        super().__init__(dt=dt, integrator=integrator, seed=seed,
+                         mesh=mesh or make_mesh(axis=axis), shard_axis=axis)
+
+    @property
+    def n_devices(self):
+        return self.mesh.shape[self.shard_axis]
+
+    def _shard_state(self):
+        """Check that the state lies on the mesh's first device, where it
+        stays whole (the JAX package places it row-sharded here; the
+        port's shards copy their slabs from it at each evaluation)."""
+        if self.state is not None and \
+                self.state.positions.device != self.mesh.devices[0]:
+            raise ValueError(
+                f"the state is on {self.state.positions.device}, the mesh's "
+                f"first device is {self.mesh.devices[0]}")
+
+    def cellwise_feasible(self, r_cut):
+        """Can the box hold a cellwise grid with ``nz`` divisible by the
+        mesh?"""
+        from ..ops.cellwise import plan_cellwise
+        lengths = np.asarray(self._lengths, dtype=np.float64)
+        return plan_cellwise(self.state.n_particles, lengths, r_cut,
+                             z_divisor=self.n_devices) is not None
+
+    def attach(self, model, r_cut, nlist=None, **kwargs):
+        """Attach a :class:`..models.simmodel.SimModel` through a
+        :class:`..driver.tfcompute` (returned; also kept on ``self.tfc``).
+
+        :param nlist: neighbor strategy; default the sharded cellwise
+            mode when the box is large enough for the mesh's z
+            decomposition, else the dense build (row-sharded; only small
+            systems land there).
+        :param kwargs: forwarded to :meth:`..driver.tfcompute.attach`
+            (``period``, ``save_output_period``, ...).
+        """
+        from ..driver import tfcompute
+        if self.state is None:
+            raise RuntimeError("Initialize the simulation state first")
+        if nlist is None:
+            nlist = "cellwise" if self.cellwise_feasible(r_cut) else "n2"
+        tfc = tfcompute(model)
+        tfc.attach(self, r_cut=r_cut, nlist=nlist, **kwargs)
+        return tfc

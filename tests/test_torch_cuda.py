@@ -1702,3 +1702,234 @@ def test_trace_of_a_card_run_names_k1(cuda_device, tmp_path):
         pytest.fail("no trace of three named K1's kernel")
     r = htt.utils.time_steps(sim, 20, reps=2)
     assert r["steps_per_s"] > 0 and np.isfinite(r["ms_per_step"])
+
+
+# ----------------------------------------------------------------------
+# K1's slab mode (a z-slab shard of a mesh, the parallel slice)
+# ----------------------------------------------------------------------
+def slab_packed(device, typed=False, dtype=torch.float32, n=1000):
+    """A fluid on a plan whose nz (4) every mesh of 1, 2 or 4 shards
+    divides."""
+    pos, vel, lengths = fluid_arrays(n, 0.35, 7)
+    types = (np.arange(n) % 2) if typed else None
+    st = htt.md.state.init_state(pos, lengths, types=types, velocities=vel,
+                                 dtype=dtype, device=device)
+    lo = -lengths / 2
+    plan = tcw.plan_cellwise(n, lengths, 2.5, positions=pos, lo=lo,
+                             width_blocks=14, z_divisor=4)
+    assert plan.grid[2] % 4 == 0
+    layout = SlotLayout(plan, n, lo, rc_matrix=RCM if typed else None,
+                        dtype=dtype, device=device)
+    slot, aux = layout.pack(st)
+    return layout, slot, aux
+
+
+def slab_forms(kind, dtype):
+    """``{device type: form}`` of K1's LJ or proxy form."""
+    if kind == "lj":
+        form = htt.md.LennardJones([[1.0, 0.5], [0.5, 0.5]], 1.0,
+                                   r_cut=2.5).kernel_form()
+        return {"cuda": form, "cpu": form}
+    from hoomd_tf_tpu_torch.ops.chebyshev import make_pair_proxy
+    fit, ev = make_pair_proxy(16, (0.25 * 2.5) ** 2, 6.25, dtype=dtype,
+                              device="cpu")
+    coeffs = fit(lambda r2: 4.0 * (r2 ** -6 - r2 ** -3))
+    return {d: ev.kernel_form(on(coeffs, torch.device(
+        "cuda" if d == "cuda" else "cpu"))) for d in ("cuda", "cpu")}
+
+
+def slab_compare(got, want, dtype):
+    if dtype == F64:
+        assert_rel(got, want, 1e-11)
+    else:
+        np.testing.assert_allclose(np_(got), np_(want), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["lj", "proxy"])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("flags", [(True, True), (False, False)])
+def test_slab_mode_matches_plain(cuda_device, S, kind, dtype, flags):
+    """K1's slab mode (LJ form, typed with a cut table, and proxy form;
+    float32 and float64) on each of S shards' buffers on the card against
+    the slab plain version on the CPU, counted in slab_launches; the whole
+    sharded call (4 virtual shards on the card) against the unsharded
+    kernel. S = 1: the one-shard mesh takes today's launch, bit for
+    bit."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    energy, virial = flags
+    typed = kind == "lj"
+    forms = slab_forms(kind, dtype)
+    cases = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        cases[dev.type] = slab_packed(dev, typed, dtype)
+    layout, slot, aux = cases["cuda"]
+    plan, form = layout.plan, forms["cuda"]
+    kw = dict(needs_virial=virial, needs_energy=energy,
+              rc2_tab=layout.rc2_tab)
+    common = (slot.positions, slot.types, aux["valid"], plan, layout.lo)
+    f0, w0 = tcc.half_stencil_pair_forces(*common, form,
+                                          geometry=layout.geometry, **kw)
+    mesh = make_mesh(S, devices=[cuda_device] * S)
+    before = (tcc.half_stencil_pair_forces.launches,
+              tcc.half_stencil_pair_forces.slab_launches)
+    f1, w1 = tcw.analytic_pair_forces(
+        *common, form.evaluate, needs_virial=virial, needs_energy=energy,
+        with_types=typed, rcut_matrix=layout.rc2_tab, form=form,
+        geometry=layout.geometry, mesh=mesh)
+    torch.cuda.synchronize()
+    slab = 0 if S == 1 else S
+    assert (tcc.half_stencil_pair_forces.launches - before[0],
+            tcc.half_stencil_pair_forces.slab_launches - before[1]) == \
+        (max(slab, 1), slab)
+    if S == 1:
+        assert torch.equal(f1, f0)
+        assert (w1 is None) or torch.equal(w1, w0)
+        return
+    slab_compare(f1, f0, dtype)
+    if virial:
+        slab_compare(w1, w0, dtype)
+    cl, cs, ca = cases["cpu"]
+    for z0, nzl in tcw.slab_layers(plan, S):
+        a, b = tcw.slab_rows(plan, z0, nzl)
+        outs = []
+        for lay, st, ax, fm in ((layout, slot, aux, form),
+                                (cl, cs, ca, forms["cpu"])):
+            buf = [torch.cat([t[a], t[b]]) for t in
+                   (st.positions, st.types, ax["valid"])]
+            outs.append(tcc.half_stencil_pair_forces(
+                *buf, lay.plan, lay.lo, fm, geometry=lay.geometry,
+                slab=(z0, nzl), needs_virial=virial, needs_energy=energy,
+                rc2_tab=lay.rc2_tab))
+        slab_compare(outs[0][0], outs[1][0], dtype)
+        if virial:
+            slab_compare(outs[0][1], outs[1][1], dtype)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_generic_slab_mode_matches_plain(cuda_device, S, dtype):
+    """K1's generic form in slab mode (list and reduction per shard, each
+    shard's own lane budget) on the card against the slab plain version
+    (the tensor form on the pair function), energy and virial on; the
+    whole sharded call against the unsharded generic form; S = 1 takes
+    today's launch, bit for bit."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    layout, slot, aux = slab_packed(cuda_device, True, dtype)
+    cl, cs, ca = slab_packed(torch.device("cpu"), True, dtype)
+    plan = layout.plan
+    common = (slot.positions, slot.types, aux["valid"], plan, layout.lo)
+    kw = dict(needs_virial=True, rc2_tab=layout.rc2_tab,
+              geometry=layout.geometry)
+    lanes = tcc.LaneBudget(tcc.lane_budget(plan, 1000), cuda_device)
+    f0, w0 = tcc.generic_pair_forces(*common, morse_yukawa, lanes=lanes,
+                                     **kw)
+    lanes_s = tcc.LaneBudget(tcc.lane_budget(plan, 1000), cuda_device)
+    before = tcc.generic_pair_forces.slab_launches
+    f1, w1 = tcw.analytic_pair_forces(
+        *common, morse_yukawa, needs_virial=True, with_types=True,
+        rcut_matrix=layout.rc2_tab, geometry=layout.geometry,
+        lanes=lanes_s, mesh=make_mesh(S, devices=[cuda_device] * S))
+    torch.cuda.synchronize()
+    assert tcc.generic_pair_forces.slab_launches - before == \
+        (0 if S == 1 else S)
+    assert not bool(lanes_s.overflow())
+    if S == 1:
+        assert torch.equal(f1, f0) and torch.equal(w1, w0)
+        return
+    slab_compare(f1, f0, dtype)
+    slab_compare(w1, w0, dtype)
+    for z0, nzl in tcw.slab_layers(plan, S):
+        a, b = tcw.slab_rows(plan, z0, nzl)
+        outs = []
+        for lay, st, ax in ((layout, slot, aux), (cl, cs, ca)):
+            buf = [torch.cat([t[a], t[b]]) for t in
+                   (st.positions, st.types, ax["valid"])]
+            outs.append(tcc.generic_pair_forces(
+                *buf, lay.plan, lay.lo, morse_yukawa, needs_virial=True,
+                rc2_tab=lay.rc2_tab, geometry=lay.geometry,
+                slab=(z0, nzl)))
+        slab_compare(outs[0][0], outs[1][0], dtype)
+        slab_compare(outs[0][1], outs[1][1], dtype)
+
+
+def test_sharded_run_has_no_host_sync(cuda_device):
+    """ShardedSimulation on 4 virtual shards of the card: NVT on
+    'cellwise' with host syncs forbidden, four slab launches per force
+    evaluation, and the state after 8 steps within 5e-4 of the unsharded
+    engine's at the same plan and repack interval."""
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation, make_mesh
+    pos, vel, lengths = fluid_arrays(2000, 0.4, 0, jitter=0.08)
+    shd = ShardedSimulation(dt=0.005, kT=1.0, seed=0,
+                            mesh=make_mesh(4, devices=[cuda_device] * 4))
+    ref = htt.Simulation(dt=0.005, seed=0, device=cuda_device,
+                         integrator=htt.md.NVT(kT=1.0, tau=0.5))
+    for sim in (shd, ref):
+        sim.init_state(pos, lengths, velocities=vel)
+    shd.attach(LJModel(48), r_cut=2.5)
+    htt.tfcompute(LJModel(48)).attach(ref, r_cut=2.5, nlist="cellwise")
+    ref._plan_from_current = lambda: shd._ensure_layout().plan
+    shd._choose_repack_interval = ref._choose_repack_interval = \
+        lambda layout: 3
+    shd.check_syncs = True
+    before = tcc.half_stencil_pair_forces.slab_launches
+    ev = shd.force_evals
+    shd.run(8)
+    ref.run(8)
+    assert tcc.half_stencil_pair_forces.slab_launches - before == \
+        4 * (shd.force_evals - ev) > 0
+    d = np_(shd.state.positions) - np_(ref.state.positions)
+    L = np.asarray(lengths)
+    d -= np.round(d / L) * L
+    assert np.abs(d).max() < 5e-4
+
+
+@pytest.mark.parametrize("case", ["lj", "probe", "n2"])
+def test_mixed_mesh_crosses_devices(cuda_device, case):
+    """A mesh of the card and the CPU in turn (4 shards), so every copy
+    between a shard's device and the state's is made: the CPU shards take
+    the slab plain version, the card's the slab kernels. 3 NVT steps
+    against the unsharded engine at the same plan and repack interval:
+    the forces (rtol 1e-4, atol 1e-4 of the largest) and the positions
+    (5e-4). 'lj': K1's LJ form; 'probe': SimLJ through the probe in K1's
+    generic form, its pair function on the CPU shards through
+    functional_call; 'n2': the dense build by shard rows."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=[cuda_device, "cpu"] * 2)
+    pos, vel, lengths = fluid_arrays(2000, 0.4, 0, jitter=0.08)
+    nlist = "n2" if case == "n2" else "cellwise"
+    sims = []
+    for m in (mesh, None):
+        sim = htt.Simulation(dt=0.005, seed=0, mesh=m,
+                             device=None if m else cuda_device,
+                             integrator=htt.md.NVT(kT=1.0, tau=0.5))
+        sim.init_state(pos, lengths, velocities=vel)
+        model = SimLJ(48) if case == "probe" else LJModel(48)
+        htt.tfcompute(model).attach(sim, r_cut=2.5, nlist=nlist)
+        sim._choose_repack_interval = lambda layout: 3
+        sims.append(sim)
+    shd, ref = sims
+    if nlist == "cellwise":
+        plan = shd._ensure_layout().plan
+        assert plan.grid[2] % 4 == 0
+        ref._plan_from_current = lambda: plan
+    before = (tcc.half_stencil_pair_forces.slab_launches,
+              tcc.generic_pair_forces.slab_launches)
+    evals = shd.force_evals - shd.probe_evals
+    shd.run(3)
+    ref.run(3)
+    slab = (tcc.half_stencil_pair_forces.slab_launches - before[0],
+            tcc.generic_pair_forces.slab_launches - before[1])
+    # two of the four shards are the card's
+    k = 2 * (shd.force_evals - shd.probe_evals - evals)
+    assert slab == {"lj": (k, 0), "probe": (0, k), "n2": (0, 0)}[case]
+    assert k > 0 or case == "n2"
+    if case == "probe":
+        assert shd.tfc._lane_fast_ok
+    f_s, f_r = np_(shd.state.forces), np_(ref.state.forces)
+    np.testing.assert_allclose(f_s, f_r, rtol=1e-4,
+                               atol=1e-4 * np.abs(f_r).max())
+    d = np_(shd.state.positions) - np_(ref.state.positions)
+    L = np.asarray(lengths)
+    d -= np.round(d / L) * L
+    assert np.abs(d).max() < 5e-4

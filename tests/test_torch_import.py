@@ -40,7 +40,12 @@ MODULES = ("hoomd_tf_tpu_torch", "hoomd_tf_tpu_torch.interop",
            "hoomd_tf_tpu_torch.md.pair",
            "hoomd_tf_tpu_torch.md.simulation",
            "hoomd_tf_tpu_torch.driver",
-           "hoomd_tf_tpu_torch.serialize")
+           "hoomd_tf_tpu_torch.serialize",
+           "hoomd_tf_tpu_torch.parallel",
+           "hoomd_tf_tpu_torch.parallel.mesh",
+           "hoomd_tf_tpu_torch.parallel.domain",
+           "hoomd_tf_tpu_torch.parallel.shard",
+           "hoomd_tf_tpu_torch.parallel.sharded_simulation")
 
 
 def test_import_without_jax():
@@ -134,17 +139,19 @@ def test_chip_smoke_refuses_without_card_or_checkout(where, tmp_path):
 
 
 # The JAX package's public names the port does not export yet, each with
-# the ROADMAP.md Queue 1 item that brings it: parallel (item 7).
+# the ROADMAP.md Queue 1 item that brings it: none since parallel (item 7).
 PENDING = {
-    "": {"parallel": 7},
+    "": {},
     "md": {},
     "ops": {},
     "models": {},
     "utils": {},
+    "parallel": {},
 }
 
 
-@pytest.mark.parametrize("space", ["", "md", "ops", "models", "utils"])
+@pytest.mark.parametrize("space", ["", "md", "ops", "models", "utils",
+                                   "parallel"])
 def test_namespaces_match_jax(space):
     """Each namespace's ``__all__`` is the JAX package's less the names
     still to come (``PENDING``, by Queue 1 item), and every listed name
