@@ -223,7 +223,35 @@ exits non-zero:
                ring exchange) against the model on the whole system
                (rtol 1e-4, atol 1e-5); sharded_train_step over 8 frames
                of 4,096 particles: its SGD(1) update against one device's
-               gradient (1e-4), and 30 Adam steps that halve the loss.
+               gradient (1e-4), and 30 Adam steps that halve the loss;
+32. sharded train -- phase 5's row (the proxy NN, Adam lr 1e-2) from phase
+               5's NVT state through ShardedSimulation on phase 29's mesh:
+               K2's slab mode on shard 0 against its slab plain version and
+               the shards' moments summed against the unsharded K2 (the JAX
+               bar), the coefficients' gradient through
+               pair_train_forces(mesh=) against the unsharded one; 8 SGD
+               train steps' losses and weights against the unsharded
+               engine at the same plan (rtol 2e-4), then 400 Adam train
+               steps, host syncs forbidden, the last 20 losses' mean below
+               the first 20's, K2 slab launches = shards x train steps;
+33. sharded train-pair and train-lane -- phases 10-11's rows from phase
+               5's state through ShardedSimulation, 200 train steps each,
+               host syncs forbidden: the weights' first gradient against
+               the unsharded one (2e-4), each shard's generic_reduce_bwd
+               slab launch against its slab plain version lane by lane
+               (1e-4), slab launches = shards x train steps;
+34. sharded npt -- phase 14's barostat (P = 1.2 x the NVT pressure) from
+               phase 4's fluid through ShardedSimulation: 8 steps within
+               5e-4 of the unsharded engine (volume 1e-5), run(1000) with
+               host syncs forbidden, the volume down by 1% or more,
+               repacks, no geometry flag, 1.1 < T < 1.9, slab launches =
+               shards x evaluations;
+35. sharded planes -- a coupled LJ the probe rejects (energy scaled by the
+               coordination over all rows' mean) through ShardedSimulation:
+               the first evaluation's forces against the unsharded planes
+               route (1e-4), run(100) with host syncs forbidden beside the
+               unsharded route's rate, then 50 steps of the planes
+               training branch; peak memory of both.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -1710,20 +1738,20 @@ def phase_train_generic(label, model, loss):
 
 def bwd_cost(gl, needed, energy):
     """Bytes and operations of the function generic_reduce_bwd computes
-    on this list: each listed cell's record (the words its header says it
-    uses: a staged entry is 4 words, 8 in float64) read once, the cell
-    bases, ``ct`` [n_slots, 4] and ``valid`` read once, the budget's lanes
+    on this list (a slab list's: its home cells and buffer rows): each
+    listed cell's record (the words its header says it uses: a staged
+    entry is 4 words, 8 in float64) read once, the cell bases, ``ct``
+    [rows, 4] and ``valid`` read once, the budget's lanes
     of gS (and gU) written once, values of the list's size; per listed
     lane the displacement (3), the row and candidate weights (8 + 4) and
     the dot product (5)."""
-    plan = gl.plan
     esize = gl.r2.element_size()
-    hdr = gl.rec.view(plan.n_cells, -1)[:, :3].long()
+    hdr = gl.rec.view(gl.n_cells, -1)[:, :3].long()
     n0, total, nw = hdr[:, 0], hdr[:, 1], hdr[:, 2]
     words = (4 + (esize + 1) * total + n0 + 1 + n0 * nw +
              (n0 * nw + 1) // 2)
-    nbytes = (4 * int(words.sum()) + 4 * plan.n_cells +
-              plan.n_slots * esize * (4 + 1) +
+    nbytes = (4 * int(words.sum()) + 4 * gl.n_cells +
+              gl.rows * esize * (4 + 1) +
               gl.budget * esize * (1 + energy))
     return nbytes, 20 * needed
 
@@ -3841,9 +3869,8 @@ def slab_buffers(layout, st, aux, mesh, s, z0, nzl):
     """Shard ``s``'s slab buffer (positions, types, valid) on its device
     and the global geometry there."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
-    a, b = cw.slab_rows(layout.plan, z0, nzl)
     dev = mesh.devices[s]
-    buf = [torch.cat([t[a], t[b]]).to(dev) for t in
+    buf = [cw.slab_buffer(t, layout.plan, z0, nzl, dev) for t in
            (st.positions, st.types, aux["valid"])]
     return buf, layout.geometry.on(dev)
 
@@ -4242,6 +4269,534 @@ def phase_parallel_helpers():
           f"{losses[-1]:.4g}")
 
 
+# ----------------------------------------------------------------------
+# phases 32-35: training, NPT and the planes route under a mesh
+# ----------------------------------------------------------------------
+def close_weights(label, got, want, rtol=2e-4, atol=1e-6):
+    """``got`` and ``want`` (two models' weights) within rtol, atol."""
+    import numpy as np
+    worst = 0.0
+    for a, b in zip(got.get_weights(), want.get_weights()):
+        a = np.asarray(torch.as_tensor(a).cpu(), np.float64)
+        b = np.asarray(torch.as_tensor(b).cpu(), np.float64)
+        worst = max(worst, float((np.abs(a - b) /
+                                  (atol + rtol * np.abs(b))).max()))
+    print(f"  {label}: worst/bound={worst:.3f} (rtol {rtol}, atol {atol})")
+    check(worst <= 1.0, f"{label}: the weights differ")
+
+
+def sharded_train_pair(state, mesh, make, loss, sharded_only=False,
+                       optimizer="adam"):
+    """A ShardedSimulation on ``mesh`` and (unless ``sharded_only``) an
+    unsharded Simulation on the card from ``state``, each with the
+    built-in LJ (the labels and the driving forces) and a model from
+    ``make()`` compiled (``optimizer``, lr 1e-2) and attached with
+    train=True; the unsharded one pinned to the sharded plan (the loss
+    averages over slot rows): ``[(sim, tfc, model), ...]``."""
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    out = []
+    for m in ((mesh,) if sharded_only else (mesh, None)):
+        if m is None:
+            sim = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                                 integrator=htt.md.NVT(kT=1.5, tau=0.5))
+        else:
+            sim = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=m,
+                                    seed=0)
+        sim.set_state(state)
+        sim.add_force(htt.md.LennardJones(r_cut=R_CUT))
+        model = make()
+        model.compile(optimizer=optimizer, loss=loss, learning_rate=1e-2)
+        tfc = htt.tfcompute(model)
+        tfc.attach(sim, r_cut=R_CUT, nlist="cellwise", train=True)
+        out.append((sim, tfc, model))
+    plan = out[0][0]._ensure_layout().plan
+    check(plan.grid[2] % mesh.size == 0,
+          f"plan grid {plan.grid}: nz not divisible by {mesh.size}")
+    if not sharded_only:
+        out[1][0]._plan_from_current = lambda: plan
+    return out
+
+
+def sharded_backward_times(f_s, f_u, params, ct):
+    """The whole sharded backward and the unsharded one (CUDA events, the
+    port's backward from one forward's graph)."""
+    t_s = cuda_ms(lambda: torch.autograd.grad(
+        f_s, params, ct, retain_graph=True, allow_unused=True), reps=11)
+    t_u = cuda_ms(lambda: torch.autograd.grad(
+        f_u, params, ct, retain_graph=True, allow_unused=True), reps=11)
+    return t_s, t_u
+
+
+def compare_grads(label, got, want, params):
+    scale = max(float(w.abs().max()) for w in want if w is not None)
+    err = 0.0
+    for i, (g, w, p) in enumerate(zip(got, want, params)):
+        g = torch.zeros_like(p) if g is None else g
+        w = torch.zeros_like(p) if w is None else w
+        err = max(err, compare(f"{label} {i}", g, w, rtol=K2_RTOL,
+                               atol=K2_ATOL_REL * scale))
+    return err
+
+
+def phase_sharded_train(state, train_sps):
+    """Phase 32: phase 5's row (the proxy NN, Adam lr 1e-2) trained
+    through ShardedSimulation from phase 5's NVT state: K1's proxy form
+    and K2 in slab mode."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
+    k2 = pc.proxy_bwd_moments
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    (shd, stfc, sm), (ref, rtfc, rm) = sharded_train_pair(
+        state, mesh, make_nn, force_loss, optimizer="sgd")
+    layout = shd._layout
+    plan = layout.plan
+    st, aux = slot_state(layout, shd.state)
+    fit, ev = sm.proxy_parts(plan.r_cut, "cuda")
+    with torch.no_grad():
+        coeffs = fit(sm.pair_energy)
+    ct = torch.as_tensor(np.random.RandomState(0).randn(
+        plan.n_slots, 4).astype(np.float32), device="cuda")
+    ct[:, 3] = 0.0  # the train path's forces-only cotangent
+    common = (st.positions, st.types, aux["valid"])
+    kw = dict(min_r2=sm.min_r2, needs_energy=False)
+    whole = torch.cat([g.reshape(-1) for g in k2(
+        *common, ct, plan, layout.lo, ev.basis, geometry=layout.geometry,
+        **kw)])
+    shards = cw.slab_layers(plan, S)
+    acc, err, rec = None, 0.0, None
+    for s, (z0, n) in enumerate(shards):
+        buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
+        c = cw.slab_buffer(ct, plan, z0, n, buf[0].device)
+        args = (*buf, c, plan, layout.lo, ev.basis)
+        got = torch.cat([x.reshape(-1) for x in k2(
+            *args, geometry=g, slab=(z0, n), **kw)])
+        if s == 0:
+            want = torch.cat([x.reshape(-1) for x in pc.proxy_bwd_plain(
+                *args, geometry=g, slab=(z0, n), **kw)])
+            torch.cuda.synchronize()
+            err = compare(f"K2 slab shard 0 (layers {z0}-{z0 + n - 1}) vs "
+                          "its slab plain version", got, want, rtol=K2_RTOL,
+                          atol=K2_ATOL_REL * float(want.abs().max()))
+            t_k = cuda_ms(lambda: k2(*args, geometry=g, slab=(z0, n), **kw))
+            t_p = cuda_ms(lambda: pc.proxy_bwd_plain(
+                *args, geometry=g, slab=(z0, n), **kw), reps=5)
+            tested, inside = slab_pair_counts(st.positions, aux["valid"],
+                                              plan, z0, n)
+            esize = st.positions.element_size()
+            nbytes = esize * (buf[0].shape[0] * (3 + 1 + 4) + got.numel())
+            b_ms, b_by = bound(nbytes, 9 * tested +
+                               inside * (27 + K_PROXY * (2 + 2)))
+            rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+            print(f"  K2 slab shard 0 (forces-only cotangent): {t_k:.4f} ms,"
+                  f" its slab plain version {t_p:.4f} ms, its bound "
+                  f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+                  f"{tested:.4g} pairs tested, {inside:.4g} inside)")
+        got = got.to("cuda")
+        acc = got if acc is None else acc + got
+    torch.cuda.synchronize()
+    err = max(err, compare(f"K2 slab moments summed over {S} shards vs the "
+                           "unsharded K2", acc, whole, rtol=K2_RTOL,
+                           atol=K2_ATOL_REL * float(whole.abs().max())))
+    p = {k: v.detach().clone().requires_grad_() for k, v in coeffs.items()}
+    targs = (*common, plan, layout.lo)
+    tkw = dict(min_r2=sm.min_r2, needs_energy=False,
+               geometry=layout.geometry)
+    f_s = pair_train_forces(p, ev, *targs, mesh=mesh, **tkw)
+    f_u = pair_train_forces(p, ev, *targs, **tkw)
+    params = [p["c"], p["cd"]]
+    g_s = torch.autograd.grad(f_s, params, ct, retain_graph=True)
+    g_u = torch.autograd.grad(f_u, params, ct, retain_graph=True)
+    compare_grads("pair_train_forces(mesh=) coefficient gradient vs "
+                  "unsharded", g_s, g_u, params)
+    t_s, t_u = sharded_backward_times(f_s, f_u, params, ct)
+    rec["sharded_ms"] = t_s
+    print(f"  the whole sharded backward (the cotangent's slab buffers, {S}"
+          f" K2 slab calls, the sum): {t_s:.4f} ms; unsharded (one K2) "
+          f"{t_u:.4f} ms ({t_s / t_u:.3f}x)")
+    del f_s, f_u
+
+    # the main path: 8 steps against the unsharded engine (SGD: Adam's
+    # normalized step turns the float32 rounding of a gradient element
+    # near zero into steps of up to lr, tests/test_torch_train.py), then
+    # phase 5's protocol, Adam, for 400 train steps, host syncs forbidden
+    k2.launches = k2.slab_launches = 0
+    steps0, ref0 = shd.train_steps, ref.train_steps
+    shd.check_syncs = True
+    shd._choose_repack_interval = ref._choose_repack_interval = \
+        lambda layout: 3
+    shd.run(8)
+    ref.run(8)
+    a, b = np.asarray(stfc.loss_history), np.asarray(rtfc.loss_history)
+    worst = float((np.abs(a - b) / (2e-4 * np.abs(b))).max())
+    print(f"  8 SGD train steps against the unsharded engine: losses "
+          f"worst/bound={worst:.3f} (rtol 2e-4)")
+    check(len(a) == len(b) == 8 and worst <= 1.0,
+          f"the sharded losses left the unsharded ones: {a} {b}")
+    close_weights("8 SGD train steps' weights against the unsharded "
+                  "engine", sm, rm)
+    sgd_steps = shd.train_steps - steps0
+    ref_steps = ref.train_steps - ref0
+    del shd, stfc, sm, ref, rtfc, rm
+    (shd, stfc, sm), = sharded_train_pair(state, mesh, make_nn, force_loss,
+                                          sharded_only=True)
+    steps0 = shd.train_steps
+    shd.check_syncs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.run(100)
+    torch.cuda.synchronize()
+    dt_first = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.run(300)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = shd.train_steps - steps0 + sgd_steps
+    hist = np.asarray(stfc.loss_history)
+    check(len(hist) == 400 <= steps - sgd_steps,
+          f"{len(hist)} losses of committed steps, {steps - sgd_steps} "
+          "attempted")
+    check(bool(np.isfinite(hist).all()), "non-finite training loss")
+    first, last = float(hist[:20].mean()), float(hist[-20:].mean())
+    check(last < first, f"the loss did not fall: {first} -> {last}")
+    launches = k2.slab_launches
+    check(launches == S * steps,
+          f"K2 slab launches {launches} != {S} x {steps} train steps")
+    check(k2.launches - launches == ref_steps,
+          f"unsharded K2 launches {k2.launches - launches} != the "
+          f"reference's {ref_steps} train steps")
+    th = healthy(shd, "sharded train")
+    sps = 300 / dt
+    print(f"  Adam: 400 train steps ({steps - sgd_steps} attempted, the "
+          f"first 100 in {dt_first:.2f} s); loss (20-step windows) "
+          f"{first:.4f} -> {last:.4f}; K2 slab launches {launches} == {S} x "
+          f"{steps} (with the 8 SGD steps); no host sync in the step loops; "
+          f"T={th['temperature']:.4f}")
+    print(f"  train steps/s {sps:.2f} (run(300)) against phase 5's "
+          f"{train_sps:.2f} ({sps / train_sps:.3f}x), {kind}, on "
+          f"{smi_line()} -- info, not a claim")
+    rec.update(max_abs_err=err, launches=launches)
+    return rec
+
+
+def phase_sharded_train_generic(state, rates):
+    """Phase 33: phases 10-11's non-proxy rows (TrainableNNPair(64),
+    TrainableNN(64)) trained through ShardedSimulation from phase 5's NVT
+    state: K1's generic form and generic_reduce_bwd in slab mode."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
+    bwd = cc.generic_reduce_bwd
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    rec, launches, err = None, 0, 0.0
+    rows = (("pair", lambda: make_nn(seed=0, proxy_degree=None), force_loss,
+             rates[0]),
+            ("lane", lambda: make_nn_generic(seed=0), "mse", rates[1]))
+    for label, make, loss, rate in rows:
+        (shd, tfc, model), = sharded_train_pair(state, mesh, make, loss,
+                                                sharded_only=True)
+        layout = shd._layout
+        plan = layout.plan
+        st, aux = slot_state(layout, shd.state)
+        tr = shd._route(layout, st, aux).trainer
+        check(tr.kind == label, f"{label} row trained on {tr.kind!r}")
+        ct = torch.as_tensor(np.random.RandomState(0).randn(
+            plan.n_slots, 4).astype(np.float32), device="cuda")
+        ct[:, 3] = 0.0
+        common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+        kw = dict(min_r2=tr.min_r2, rcut_matrix=layout.rc2_tab,
+                  needs_energy=False, geometry=layout.geometry,
+                  with_types=tr.typed)
+        # the first step's weight gradient, sharded against unsharded
+        f_s = pair_train_forces(
+            tr.named, tr.pair_apply, *common, mesh=mesh,
+            lanes=cc.LaneBudget(shd._lanes.budget, "cuda"), **kw)
+        f_u = pair_train_forces(
+            tr.named, tr.pair_apply, *common,
+            lanes=cc.LaneBudget(cc.lane_budget(plan, N), "cuda"), **kw)
+        g_s = torch.autograd.grad(f_s, tr.params, ct, retain_graph=True,
+                                  allow_unused=True)
+        g_u = torch.autograd.grad(f_u, tr.params, ct, retain_graph=True,
+                                  allow_unused=True)
+        compare_grads(f"{label} row: weights' gradient, sharded vs "
+                      "unsharded", g_s, g_u, tr.params)
+        t_s, t_u = sharded_backward_times(f_s, f_u, tr.params, ct)
+        print(f"  {label} row: the whole sharded backward ({S} "
+              f"generic_reduce_bwd slab calls, the pair function's "
+              f"backward on each shard's lanes, the gather's) {t_s:.4f} ms;"
+              f" unsharded {t_u:.4f} ms ({t_s / t_u:.3f}x)")
+        del f_s, f_u
+        # each shard's backward kernel against its slab plain version
+        for s, (z0, n) in enumerate(cw.slab_layers(plan, S)):
+            buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
+            dev = buf[0].device
+            c = cw.slab_buffer(ct, plan, z0, n, dev)
+            rc = (None if layout.rc2_tab is None else
+                  layout.rc2_tab.to(dev))
+            own = cc.LaneBudget(shd._lanes.budget, dev)
+            gl = cc.generic_list(*buf, plan, layout.lo, typed_fn=tr.typed,
+                                 min_r2=tr.min_r2, rc2_tab=rc, geometry=g,
+                                 lanes=own, needs_energy=False,
+                                 slab=(z0, n))
+            U, Sv = gl.evaluate(shd._on_device(tr.pair_fn, dev))
+            cc.generic_reduce(gl, U, Sv, False)
+            gU, gS = bwd(gl, c, False)
+            lst = cc.generic_list_plain(*buf, plan, layout.lo, tr.min_r2,
+                                        rc, g, typed=tr.typed, slab=(z0, n))
+            pU, pS = cc.generic_reduce_bwd_plain(lst, c, buf[2], plan,
+                                                 False, slab=(z0, n))
+            need = int(own.needed)
+            check(not bool(own.overflow()), "a slab list overflowed")
+            idx = cc.kernel_lane_index(lst, gl.cell_base, plan)
+            check(need == lst["needed"] and bool(torch.equal(
+                torch.sort(idx).values.cpu(), torch.arange(need))),
+                "the slab kernel's list and the slab plain list differ")
+            torch.cuda.synchronize()
+            err = max(err, compare(
+                f"{label} row: generic_reduce_bwd slab shard {s} gS vs its "
+                "slab plain version, lane by lane", gS[idx], pS))
+            check(int(torch.count_nonzero(gS[need:])) == 0,
+                  "a slab list's tail carries a gradient")
+            if rec is None:
+                t_k = cuda_ms(lambda: bwd(gl, c, False))
+                t_p = cuda_ms(lambda: cc.generic_reduce_bwd_plain(
+                    lst, c, buf[2], plan, False, slab=(z0, n)), reps=5)
+                nbytes, ops = bwd_cost(gl, need, False)
+                b_ms, b_by = bound(nbytes, ops)
+                rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                           bound_by=b_by, sharded_ms=t_s)
+                print(f"  generic_reduce_bwd slab shard 0: {t_k:.4f} ms, its"
+                      f" slab plain version {t_p:.4f} ms, its bound "
+                      f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+                      f"{need} lanes of a {gl.budget}-lane list)")
+        # the main path: 200 train steps, host syncs forbidden
+        bwd.launches = bwd.slab_launches = 0
+        steps0 = shd.train_steps
+        shd.check_syncs = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shd.run(200)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = shd.train_steps - steps0
+        hist = np.asarray(tfc.loss_history)
+        check(len(hist) == 200 <= steps and bool(np.isfinite(hist).all()),
+              f"{len(hist)} finite losses of committed steps, {steps} "
+              "attempted")
+        check(bwd.slab_launches == S * steps == bwd.launches,
+              f"generic_reduce_bwd slab launches {bwd.slab_launches} (all "
+              f"{bwd.launches}) != {S} x {steps} train steps")
+        launches += bwd.slab_launches
+        th = healthy(shd, f"sharded train-{label}")
+        print(f"  {label} row: 200 train steps ({steps} attempted), loss "
+              f"{float(hist[:20].mean()):.4f} -> "
+              f"{float(hist[-20:].mean()):.4f}; slab launches "
+              f"{bwd.slab_launches} == {S} x {steps}; T="
+              f"{th['temperature']:.4f}; train steps/s {200 / dt:.2f} "
+              f"against phase {10 if label == 'pair' else 11}'s {rate:.2f} "
+              f"({200 / dt / rate:.3f}x) -- info, not a claim")
+        del shd, tfc, model, tr, st, aux
+        torch.cuda.empty_cache()
+    rec.update(max_abs_err=err, launches=launches)
+    return rec
+
+
+def phase_sharded_npt(state):
+    """Phase 34: phase 14's barostat through ShardedSimulation from phase
+    4's NVT fluid: the dynamic-box layout planned with the mesh's divisor,
+    K1's slab mode with each step's box and virial."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    k1 = cc.half_stencil_pair_forces
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    ref = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                         integrator=htt.md.NVT(kT=1.5, tau=0.5))
+    for sim in (shd, ref):
+        sim.set_state(state)
+        htt.tfcompute(make_model(virial=True)).attach(sim, r_cut=R_CUT,
+                                                      nlist="cellwise")
+    shd.run(50)
+    p0 = shd.thermo()["pressure"]
+    check(p0 > 0, f"the NVT fluid's pressure {p0} is not positive")
+    ref.set_state(shd.state)
+    target = 1.2 * p0
+    for sim in (shd, ref):
+        sim.integrator = htt.md.NPT(kT=1.5, tau=0.5, P=target, tauP=0.5)
+    layout = shd._ensure_layout()
+    plan = layout.plan
+    check(layout.dynamic_box and plan.grid[2] % S == 0,
+          f"NPT under the mesh: dynamic {layout.dynamic_box}, grid "
+          f"{plan.grid}")
+    ref._plan_from_current = lambda: plan
+    k1.launches = k1.slab_launches = 0
+    evals0 = shd.force_evals
+    shd.check_syncs = True
+    shd.run(8)
+    ref.run(8)
+    box_s = shd.state.box[1] - shd.state.box[0]
+    box_r = ref.state.box[1] - ref.state.box[0]
+    d = shd.state.positions - ref.state.positions
+    d = d - torch.round(d / box_r) * box_r
+    dmax = float(d.abs().max())
+    dvol = float(abs(torch.prod(box_s) / torch.prod(box_r) - 1.0))
+    print(f"  8 NPT steps against the unsharded engine: max position "
+          f"difference {dmax:.3e} (limit 5e-4), volume {dvol:.3e} "
+          f"relative")
+    check(dmax < 5e-4 and dvol < 1e-5,
+          "the sharded NPT trajectory left the unsharded one")
+    vol0 = float(torch.prod(box_s))
+    r0 = shd.repacks
+    l0, e0 = k1.slab_launches, shd.force_evals
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.run(1000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = k1.slab_launches
+    evals = shd.force_evals - evals0
+    check(launches == S * evals and k1.slab_launches - l0 ==
+          S * (shd.force_evals - e0),
+          f"slab launches {launches} != {S} x {evals} evaluations")
+    check(k1.launches - launches == ref.force_evals,
+          "the sharded run launched an unsharded K1")
+    th = healthy(shd, "sharded npt")
+    vol1 = float(torch.prod(shd.state.box[1] - shd.state.box[0]))
+    repacks = shd.repacks - r0
+    slot, aux = slot_state(shd._layout, shd.state)
+    check(not bool(shd._layout.geometry_bad(slot)),
+          "the geometry flag is set")
+    check(vol1 <= 0.99 * vol0, f"the volume fell by less than 1%: {vol0} "
+          f"-> {vol1}")
+    check(repacks > 0, "no repack ran")
+    print(f"  NPT(P = 1.2 x {p0:.4f}): volume {vol0:.1f} -> {vol1:.1f} "
+          f"({vol1 / vol0 - 1:+.4f}), {repacks} repacks, "
+          f"T={th['temperature']:.4f}, P={th['pressure']:.4f}; slab "
+          f"launches {launches} == {S} x {evals}; no host sync; steps/s "
+          f"{1000 / dt:.2f} (run(1000)) -- info, not a claim")
+    return launches, 1000 / dt
+
+
+def make_coupled(trainable, epsilon=1.0, sigma=1.0):
+    """A many-body LJ the lane-separability probe rejects (it takes the
+    planes route): each particle's LJ energy (epsilon, sigma its weights)
+    scaled by its coordination over the mean coordination of all rows,
+    a cross-row reduction; for training without output forces."""
+    import numpy as np
+
+    class CoupledLJ(htt.SimModel):
+        def setup(self):
+            self.w = self.add_weight(
+                (2,), initializer=np.asarray([epsilon, sigma], np.float32),
+                name="lj")
+
+        def compute(self, nlist, positions, box):
+            rinv = htt.nlist_rinv(nlist)
+            sr6 = (self.w[1] * rinv) ** 6
+            pe = self.w[0] * 2.0 * torch.sum(sr6 * sr6 - sr6, dim=1)
+            coord = torch.sum(rinv, dim=1)
+            e = pe * (1.0 + 0.05 * coord / torch.mean(coord))
+            return htt.compute_nlist_forces(nlist, e)
+    return CoupledLJ(64, output_forces=not trainable)
+
+
+def phase_sharded_planes(state):
+    """Phase 35: a SimModel the probe rejects through ShardedSimulation:
+    each shard's planes built on its device, the model run once on all
+    rows; run(100), then 50 steps of the planes training branch."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    ref = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                         integrator=htt.md.NVT(kT=1.5, tau=0.5))
+    tfcs = []
+    for sim in (shd, ref):
+        sim.set_state(state)
+        tfcs.append(htt.tfcompute(make_coupled(False)))
+        tfcs[-1].attach(sim, r_cut=R_CUT, nlist="cellwise")
+    ls = shd._ensure_layout()
+    plan = ls.plan
+    ref._plan_from_current = lambda: plan
+    lr = ref._ensure_layout()
+    st, aux = slot_state(ls, shd.state)
+    r_s, r_r = shd._route(ls, st, aux), ref._route(lr, st, aux)
+    check(r_s.planes and r_r.planes, "the probe accepted the coupled model")
+    f_s, _ = shd._forces(st, aux, ls, r_s, True, False)
+    f_r, _ = ref._forces(st, aux, lr, r_r, True, False)
+    torch.cuda.synchronize()
+    err = compare("the first evaluation's forces+energy, sharded planes vs "
+                  "unsharded", f_s, f_r)
+    del f_s, f_r, r_s, r_r
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shd.check_syncs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.run(100)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    th = healthy(shd, "sharded planes")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref.run(50)
+    torch.cuda.synchronize()
+    dt_r = time.perf_counter() - t0
+    peak_r = torch.cuda.max_memory_allocated()
+    print(f"  run(100) on the sharded planes route: {100 / dt:.2f} steps/s "
+          f"against the unsharded planes route's {50 / dt_r:.2f} "
+          f"(run(50)); peak device memory {peak / 2 ** 30:.2f} GiB against "
+          f"{peak_r / 2 ** 30:.2f} GiB unsharded (both simulations held); "
+          f"T={th['temperature']:.4f}; no host sync -- info, not a claim")
+    del ref
+    torch.cuda.empty_cache()
+
+    # the planes training branch
+    trn = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    trn.set_state(shd.state)
+    del shd
+    trn.add_force(htt.md.LennardJones(r_cut=R_CUT))
+    model = make_coupled(True, epsilon=0.8, sigma=1.05)
+    model.compile(optimizer="adam", loss=force_loss, learning_rate=1e-2)
+    tfc = htt.tfcompute(model)
+    tfc.attach(trn, r_cut=R_CUT, nlist="cellwise", train=True)
+    torch.cuda.reset_peak_memory_stats()
+    trn.check_syncs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trn.run(50)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    layout = trn._layout
+    st, aux = slot_state(layout, trn.state)
+    kind_ = trn._route(layout, st, aux).trainer.kind
+    hist = np.asarray(tfc.loss_history)
+    check(kind_ == "planes", f"the coupled model trained on {kind_!r}")
+    check(len(hist) == 50 and bool(np.isfinite(hist).all()),
+          f"{len(hist)} losses, finite {np.isfinite(hist).all()}")
+    healthy(trn, "sharded planes training")
+    w = model.w.detach().cpu().numpy()
+    print(f"  50 train steps on the sharded planes branch: loss "
+          f"{hist[0]:.4f} -> {hist[-1]:.4f}, weights (0.8, 1.05) -> "
+          f"({w[0]:.4f}, {w[1]:.4f}); {50 / dt:.2f} train steps/s; peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB -- info, not a claim")
+    return err
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -4309,6 +4864,9 @@ def main():
     k1_px, k2 = phase_train_kernels(sim, model)
     k1_px["launches"], k2["launches"] = launches["proxy"], launches["k2"]
     phase_train_small()
+    # phase 5's NVT state, for phases 32 and 33
+    train_state = sim.state
+    del sim, model
 
     print("[6 packed] 64k generic SimModel on the packed path (K3)")
     k3 = phase_packed()
@@ -4448,11 +5006,29 @@ def main():
           "in slab mode, Langevin, run(200, log_period=10); the small-box "
           "'n2' fallback")
     gen_slab = phase_sharded_generic(shard_state)
-    del shard_state
     torch.cuda.empty_cache()
     print("[31 parallel helpers] halo_force_fn at 16,384 particles and "
           "sharded_train_step over 8 frames of 4,096")
     phase_parallel_helpers()
+    torch.cuda.empty_cache()
+    print("[32 sharded train] phase 5's proxy row through ShardedSimulation"
+          ": K1's proxy form and K2 in slab mode")
+    k2_slab = phase_sharded_train(train_state, train_sps)
+    torch.cuda.empty_cache()
+    print("[33 sharded train-pair and train-lane] phases 10-11's rows "
+          "through ShardedSimulation: generic_reduce_bwd in slab mode")
+    bwd_slab = phase_sharded_train_generic(train_state,
+                                           (pl["sps"], gl_["sps"]))
+    del train_state
+    torch.cuda.empty_cache()
+    print("[34 sharded npt] phase 14's barostat through ShardedSimulation")
+    launches, _ = phase_sharded_npt(shard_state)
+    k1_slab["launches"] += launches
+    torch.cuda.empty_cache()
+    print("[35 sharded planes] a SimModel the probe rejects through "
+          "ShardedSimulation: the planes built per shard, run and train")
+    phase_sharded_planes(shard_state)
+    del shard_state
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -4518,7 +5094,7 @@ def main():
                   "version and its own bound; sharded_ms: phase 29's whole "
                   "sharded evaluation, its slab launches, copies, gather "
                   "and reverse halos; launches: slab launches of phase "
-                  "29's runs)",
+                  "29's runs and of phase 34's NPT runs)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **k1_slab),
@@ -4530,6 +5106,28 @@ def main():
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **gen_slab),
+        dict(name="K2 Chebyshev-proxy backward moments, slab mode "
+                  "(proxy_bwd_moments(slab=); ms, plain_ms, bound_ms: "
+                  "shard 0's call with the forces-only cotangent, its slab "
+                  "plain version and its own bound; sharded_ms: phase 32's "
+                  "whole sharded backward, the cotangent's slab buffers, "
+                  "the slab calls and the sum; launches: slab launches of "
+                  "phase 32's training)",
+             source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
+                      "contraction the JAX package takes for a proxy under "
+                      "a mesh, pair_train_pallas.py:68-72; K2's Pallas "
+                      "kernel, pair_train_pallas.py:80, without one)",
+             **k2_slab),
+        dict(name="generic_reduce_bwd, slab mode (generic_reduce_bwd on a "
+                  "slab list; ms, plain_ms, bound_ms: shard 0's call at "
+                  "phase 33's pair row, its slab plain version and its own "
+                  "bound; sharded_ms: the pair row's whole sharded "
+                  "backward with the pair function's; launches: slab "
+                  "launches of phase 33's training, both rows)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
+                      "contraction; no Pallas kernel)", **bwd_slab),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

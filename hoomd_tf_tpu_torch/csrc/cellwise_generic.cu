@@ -55,8 +55,11 @@
 // Slab mode (a z-slab shard, HalfGeom's z0 and nzl; cellwise_half.cu): the
 // list kernel stages the slab's home cells from its buffer by global cell,
 // the records and bases are the home cells', and half_stencil_home also
-// writes the halo layer's reverse partial. generic_reduce_bwd has no slab
-// mode (training under a mesh is not ported).
+// writes the halo layer's reverse partial. generic_reduce_bwd in slab mode
+// reads that list call's records and the slab buffer of the cotangent (a
+// halo row's ct is the next shard's first home layer's, where the reverse
+// halo was added): a lane's candidate slot is its global cell's buffer
+// cell, and the lanes written are the shard's own.
 //
 // The list's placement varies from call to call; the values do not: each
 // lane's (U, s) is a function of the lane, and every sum runs in a fixed
@@ -627,6 +630,9 @@ generic_reduce_bwd(HalfGeom g, int n_cells, const int* __restrict__ rec,
   read_record(r, n0, total, nw, s);
   __syncthreads();
   const size_t cell0 = static_cast<size_t>(c) * cap;
+  // the global cell of block c (slab mode: the slab's home cell z0 nx ny +
+  // c; its rows are the buffer's cell c)
+  const int gc = g.z0 * g.nx * g.ny + c;
   // a warp per home row, its lanes written densely (lane e of the row at
   // list index row + e)
   for (int i = warp; i < n0; i += kWarps) {
@@ -648,7 +654,9 @@ generic_reduce_bwd(HalfGeom g, int n_cells, const int* __restrict__ rec,
         const int tag = s.stag[j];
         const int t = tag / cap;
         const size_t sj =
-            static_cast<size_t>(htf::shifted_cell(g, c, t, 1)) * cap +
+            static_cast<size_t>(
+                htf::buffer_cell(g, htf::shifted_cell(g, gc, t, 1))) *
+                cap +
             (tag - t * cap);
         const T vj = valid[sj];
         const Vec4<T> cj = ct[sj];

@@ -35,6 +35,16 @@
 // deterministic, and any P * 2K works (the Pallas kernel's one 128-lane
 // output row capped 2K * P at 128).
 //
+// Slab mode (a z-slab shard of a mesh, HalfGeom's z0 and nzl; the
+// training backward under a mesh): the state arrays and the cotangent are
+// the slab's buffer, its home layers then the forward halo layer
+// (half_stencil_stage.cuh), and block c is the global home cell
+// z0 nx ny + c, staged from the buffer, its candidates' cotangents read at
+// their buffer slots. The launch covers the slab's home cells only. Each
+// unordered pair belongs to one home cell's half stencil, so the shards'
+// moments, summed, are the whole state's; a halo row's cotangent is the
+// next shard's first home layer's, which the reverse halo was added to.
+//
 // Many types: the per-thread sets take T * 2K * kThreads scalars, past
 // the block's shared memory from three types up in double (K = 16, cap
 // 48). The types are then split into groups of G (the largest G whose
@@ -180,8 +190,11 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
 
   for (int i = tid; i < M; i += kThreads) acc[i] = S(0);
   int n0;
+  // block c is the home cell z0 nx ny + c of the global grid (slab mode;
+  // c itself for a whole state)
   const int total = htf::stage_half_stencil<S>(
-      g, c, rc2, pos, types, valid, box, spos, stag, scratch, n0,
+      g, g.z0 * g.nx * g.ny + c, rc2, pos, types, valid, box, spos, stag,
+      scratch, n0,
       [&](int k, size_t slot) {
         const Vec4<S> v = ct[slot];
         const S w = valid[slot];

@@ -70,7 +70,11 @@ stays whole on the mesh's first device and the pair work is split: on
 ``'cellwise'`` into z-slabs run by K1's slab mode on each shard's device
 (:func:`..ops.cellwise.analytic_pair_forces` with ``mesh=``), on
 ``'n2'`` the dense build into contiguous particle rows, the model then
-called once on the whole list; the routes not yet sharded raise.
+called once on the whole list. Online training runs its backward per
+shard too (:func:`..ops.pair_train.pair_train_forces` with ``mesh=``),
+a SimModel the probe rejects gets its planes built per shard and runs
+once on all rows, and NPT's dynamic-box layout plans with the mesh's
+divisor; the routes not yet sharded raise.
 
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
 wire, ``scan_block``, compile-cache keys, the readback caches for a
@@ -147,12 +151,14 @@ class Simulation:
         shard builds the dense list of its contiguous particle rows on its
         device, and the model runs once a step on the gathered list, so a
         stateful model (metrics, EDS) means what it means without a mesh.
-        The integrators and the built-in forces act on the whole state
-        unchanged. Online training,
-        the planes route (a mapped model, or one the lane-separability
-        probe rejects), a box-changing integrator, a tilted box and the
-        packed cell-list and direct routes raise ``NotImplementedError``
-        under a mesh (ROADMAP.md Queue 1 item 7b).
+        The integrators (NPT too) and the built-in forces act on the
+        whole state unchanged. Online training runs its backward per
+        shard (K2 or ``generic_reduce_bwd`` in slab mode), and the planes
+        route of a SimModel the probe rejects builds each shard's planes
+        on its device and runs the model once on all rows. A mapped
+        model, a tilted box and the packed cell-list and direct routes
+        raise ``NotImplementedError`` under a mesh (ROADMAP.md Queue 1
+        items 7b.4 and 7b.5; a tilted box as in the JAX package).
     :param shard_axis: the mesh axis of the shards.
     """
 
@@ -400,27 +406,23 @@ class Simulation:
         """Shards of the mesh (1 without one)."""
         return 1 if self.mesh is None else self.mesh.shape[self.shard_axis]
 
-    def _mesh_refuse(self, what):
-        """Raise for a route this slice does not shard."""
+    def _mesh_refuse(self, what, item):
+        """Raise for a route the port does not shard yet (ROADMAP.md Queue
+        1 ``item``)."""
         raise NotImplementedError(
             f"{what} does not run under a device mesh yet (ROADMAP.md "
-            f"Queue 1 item 7b); run it with Simulation(mesh=None)")
+            f"Queue 1 item {item}); run it with Simulation(mesh=None)")
 
     def _sharded(self):
         return self.n_shards > 1
 
     def _mesh_check(self):
-        """Refuse, before a run under a mesh starts, what this slice does
-        not shard on any route (the planes route of a SimModel the probe
-        rejects, and the packed cell routes, are refused where they are
-        chosen)."""
+        """Refuse, before a run under a mesh starts, what the port does
+        not shard on any route: a mapped model (ROADMAP.md item 7b.5; the
+        packed cell routes, 7b.4, are refused where they are chosen)."""
         tfc = self.tfc
-        if self._changes_box():
-            self._mesh_refuse("a box-changing integrator (NPT)")
-        if tfc is not None and tfc.train:
-            self._mesh_refuse("online training (train=True)")
         if tfc is not None and tfc.map_enabled:
-            self._mesh_refuse("a mapped model (the planes route)")
+            self._mesh_refuse("a mapped model", "7b.5")
 
     def _kernel_eligible(self):
         """Will kernel K1 be the hot loop? (The planner then costs the
@@ -793,7 +795,7 @@ class Simulation:
         masked 27-block planes, forces by autograd (a generic SimModel
         the lane-separability probe did not validate)."""
         model = self.tfc.model
-        planes, pos4 = layout.planes(st, aux), st.positions4
+        planes, pos4 = self._planes(st, aux, layout), st.positions4
         mapped = self.tfc.map_enabled
         if mapped:
             # the model's rows are particle order (mapped_nlist slices by
@@ -819,6 +821,20 @@ class Simulation:
         if w is not None:
             w = w * valid[:, :, None]
         return f * valid, w
+
+    def _planes(self, st, aux, layout):
+        """The masked 27-block planes of the slot state
+        (:meth:`..md.slots.SlotLayout.planes`); under a mesh each shard
+        builds its home cells' planes on its device, gathered here
+        (:func:`..ops.cellwise.sharded_planes`), and the model then runs
+        once on all rows, so its cross-row reductions keep their
+        meaning."""
+        if not self._sharded():
+            return layout.planes(st, aux)
+        return _cw.sharded_planes(
+            st.positions, st.types, aux["valid"], layout.plan, self.mesh,
+            self.shard_axis, rcut_matrix=layout.rc2_tab,
+            box=layout.geom(st).box)
 
     def _builtins(self, st, aux, layout, needs_energy, want_virial,
                   subset=None):
@@ -928,10 +944,6 @@ class Simulation:
                 r.model_fn = synthesize_pair_fn(model, st.box)
                 r.with_types, r.min_r2 = True, 1e-4
             else:
-                if self._sharded():
-                    self._mesh_refuse(
-                        "a SimModel the lane-separability probe rejects "
-                        "(the planes route)")
                 r.planes = True
         elif model.proxy_degree:
             fit, evaluate = model.proxy_parts(layout.plan.r_cut,
@@ -1357,7 +1369,8 @@ class Simulation:
                                                                r_cut)):
                 method = "n2"
             if method != "n2":
-                self._mesh_refuse(f"the packed {method!r} neighbor route")
+                self._mesh_refuse(f"the packed {method!r} neighbor route",
+                                  "7b.4")
         if tilted and (method in ("cell", "pallas", "direct") or
                        isinstance(method, _cl.CellList)):
             raise NotImplementedError(
@@ -1818,12 +1831,19 @@ def _module_pair_apply(model, fn):
     """``pair_apply(p, r2[, ti, tj])``: the pair function ``fn`` of
     ``model`` with its weights named in ``p`` replaced by ``p``'s tensors
     (the explicit-parameter form :func:`..ops.pair_train.pair_train_forces`
-    differentiates)."""
+    differentiates). On lanes of another device than the model's (a mesh
+    shard's, with ``p`` copied there) its other tensors are copied there
+    too."""
     holder = _Bound(model, fn)
 
     def pair_apply(p, *args):
-        return torch.func.functional_call(
-            holder, {"m." + k: v for k, v in p.items()}, args)
+        swap = {"m." + k: v for k, v in p.items()}
+        dev = args[0].device
+        for name, t in list(model.named_parameters()) + \
+                list(model.named_buffers()):
+            if name not in p and t.device != dev:
+                swap["m." + name] = t.detach().to(dev)
+        return torch.func.functional_call(holder, swap, args)
 
     return pair_apply
 
@@ -1917,7 +1937,8 @@ class _Trainer(_TrainState):
         from ..ops.pair_train import pair_train_forces
         model, sim = self.model, self.sim
         kw = dict(min_r2=self.min_r2, rcut_matrix=layout.rc2_tab,
-                  needs_energy=self.energy, geometry=layout.geom(st))
+                  needs_energy=self.energy, geometry=layout.geom(st),
+                  mesh=sim.mesh, shard_axis=sim.shard_axis)
         args = (st.positions, st.types, aux["valid"], layout.plan,
                 layout.lo)
         if self.kind == "proxy":
@@ -1934,8 +1955,8 @@ class _Trainer(_TrainState):
         model, sim, tfc = self.model, self.sim, self.tfc
         with torch.enable_grad():
             if self.kind == "planes":
-                out = model([layout.planes(st, aux), st.positions4, st.box],
-                            training=True)
+                out = model([sim._planes(st, aux, layout), st.positions4,
+                             st.box], training=True)
                 loss = model.compute_loss(out, labels)
                 extras = out[tfc.output_offset:]
             else:

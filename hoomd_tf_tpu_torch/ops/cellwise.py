@@ -373,6 +373,8 @@ class SlotGeometry:
             self.box, self.dims)
         self._centers = None
         self._offs = {}
+        # the geometry this one was made from by at() (a dynamic box's)
+        self._base = base
         # copies on a mesh's other devices (on())
         self._on = {}
 
@@ -382,16 +384,20 @@ class SlotGeometry:
 
     def on(self, device):
         """This geometry on ``device`` (itself when it is there already):
-        a mesh shard's copy, made once, its box copied device to
-        device."""
+        a mesh shard's copy, made once, its box copied device to device.
+        A dynamic box's geometry (made by :meth:`at`) is its base's copy
+        at the copied box, so a barostat's step copies no host constant
+        to a shard."""
         device = torch.device(device)
         if device == self.device:
             return self
         key = str(device)
         if key not in self._on:
-            self._on[key] = SlotGeometry(self.plan, dtype=self.dtype,
-                                         device=device,
-                                         box=self.box.to(device))
+            box = to_device(self.box, device)
+            self._on[key] = (
+                SlotGeometry(self.plan, dtype=self.dtype, device=device,
+                             box=box) if self._base is None else
+                self._base.on(device).at(box))
         return self._on[key]
 
     @property
@@ -539,6 +545,36 @@ def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
     zero = torch.zeros((), dtype=dtype, device=positions.device)
     return NlistPlanes(*(torch.where(ok, v, zero).reshape(m * cap, C)
                          for v in (dd[0], dd[1], dd[2], gt)))
+
+
+def sharded_planes(positions, types, valid, plan, mesh, shard_axis=None,
+                   rcut_matrix=None, box=None):
+    """:func:`cellwise_planes` of every cell, built per z-slab shard of
+    ``mesh`` on its device and gathered on ``positions``' device (equal to
+    the unsharded planes: the same operations on the same values). The
+    full 27-cell stencil reaches ``z - 1`` and ``z + 1``, so a shard's
+    buffer holds its home layers with one halo layer on each side; its
+    planes are its home cells' rows.
+
+    :param box: the ``[3, 3]`` box tensor (required: a shard's copy is
+        made from it)."""
+    from .direct import NlistPlanes
+    nx, ny, nz = plan.grid
+    layer = nx * ny * plan.capacity
+    primary = positions.device
+    parts = []
+    for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
+        spans = [((z0 - 1) % nz, 1), (z0, nzl), ((z0 + nzl) % nz, 1)]
+        buf = [to_device(torch.cat([t[z * layer:(z + k) * layer]
+                                    for z, k in spans]), dev)
+               for t in (positions, types, valid)]
+        bp = dataclasses.replace(plan, grid=(nx, ny, nzl + 2))
+        rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)
+        pl = cellwise_planes(*buf, bp, rcut_matrix=rc,
+                             cells=(nx * ny, (nzl + 1) * nx * ny),
+                             box=to_device(box, dev))
+        parts.append(pl.map(lambda c: to_device(c, primary)))
+    return NlistPlanes(*(torch.cat(cs) for cs in zip(*parts)))
 
 
 def _relative_coords(positions, valid, plan, lo, offs_list, geometry=None):
@@ -723,6 +759,105 @@ def _slab_plan(plan, nzl):
     return dataclasses.replace(plan, grid=(nx, ny, nzl + 1))
 
 
+def slab_buffer(t, plan, z0, nzl, device=None):
+    """The rows of the slot-ordered ``t`` a z-slab shard reads: its home
+    layers ``z0 .. z0 + nzl - 1``, then the forward halo layer ``(z0 +
+    nzl) % nz`` (:func:`slab_rows`), on ``device`` when given. The state's
+    columns are cut so for the forward; the forces' cotangent ``ct`` is
+    cut so for the backward, where a halo row carries the cotangent of
+    the next shard's first home layer, the rows its reverse halo was added
+    to."""
+    a, b = slab_rows(plan, z0, nzl)
+    # home and halo layers are adjacent rows but for the last shard's,
+    # whose halo wraps to layer 0
+    t = (t[a.start:b.stop] if a.stop == b.start else
+         torch.cat([t[a], t[b]]))
+    return t if device is None else to_device(t, device)
+
+
+def mesh_slabs(plan, mesh, shard_axis=None):
+    """``[(device, z0, nzl), ...]``: each shard of ``mesh``'s axis
+    ``shard_axis`` (default its first) with its z-slab of ``plan``
+    (:func:`slab_layers`)."""
+    axis = shard_axis or mesh.axis_names[0]
+    return [(torch.device(mesh.devices[s]), z0, nzl) for s, (z0, nzl) in
+            enumerate(slab_layers(plan, mesh.shape[axis]))]
+
+
+def gather_slabs(outs, plan, primary):
+    """The whole state's ``(forces4, virial or None)`` on ``primary`` from
+    each shard's output over its slab buffer's rows (in shard order): the
+    home rows, with each shard's reverse halo (its buffer's last layer)
+    added to the next shard's first layer. Differentiable: the gradient
+    of a shard's output is its slab buffer of the cotangent
+    (:func:`slab_buffer`)."""
+    nx, ny, _ = plan.grid
+    layer = nx * ny * plan.capacity
+    fs, ws = [], []
+    for s, (f, w) in enumerate(outs):
+        n = f.shape[0] - layer
+        rf, rw = outs[s - 1]
+        rf, f = to_device(rf[-layer:], primary), to_device(f[:n], primary)
+        fs += [f[:layer] + rf, f[layer:]]
+        if w is not None:
+            rw, w = to_device(rw[-layer:], primary), to_device(w[:n], primary)
+            ws += [w[:layer] + rw, w[layer:]]
+    return torch.cat(fs), (torch.cat(ws) if ws else None)
+
+
+def _slab_relative_coords(positions, valid, plan, lo, z0, nzl,
+                          geometry=None):
+    """:func:`_relative_coords` of a slab buffer's rows (:func:`slab_rows`):
+    ``(bp, qx, qy, qz, gx, gy, gz)``, ``bp`` the plan of the buffer's
+    ``nzl + 1`` layers (:func:`_slab_plan`, for rolls), ``q*`` over every
+    buffer row and the candidate planes ``g*`` of the ``nzl * nx * ny``
+    home cells only. Each slot's cell center and stencil offset come from
+    its *global* cell and ``geometry``'s box, so every value equals the
+    unsharded form's at that slot."""
+    nx, ny, nz = plan.grid
+    if not 1 <= nzl < nz:
+        raise ValueError(f"a slab of {nzl} layers in a grid of {nz}")
+    cap = plan.capacity
+    bp = _slab_plan(plan, nzl)
+    n_home = nzl * nx * ny
+    if positions.shape[0] != bp.n_slots:
+        raise ValueError(f"a slab buffer of {nzl} + 1 layers holds "
+                         f"{bp.n_slots} rows, got {positions.shape[0]}")
+    g = _as_geometry(plan, lo, positions, geometry)
+    dtype, dev = positions.dtype, positions.device
+    # the buffer's cells at their global grid coordinates
+    cell = torch.arange(bp.n_cells, device=dev)
+    ijk = torch.stack([cell % nx, (cell // nx) % ny,
+                       (z0 + cell // (nx * ny)) % nz], dim=-1)
+    centers = _cell_centers(torch.repeat_interleave(ijk, cap, dim=0)
+                            .to(dtype), g.lo, g.edges, g.tilt, g.tilted)
+    rank = (torch.arange(bp.n_slots, device=dev) % cap).to(dtype)
+    FAR = 4.0 * float(max(plan.lengths))
+    q = g.wrap(positions - centers)
+    qx = q[:, 0] + (1.0 - valid) * FAR * (1.0 + rank)
+    qy, qz = q[:, 1], q[:, 2]
+    off = g.offsets(_HALF_OFFS)
+    gx, gy, gz = (_roll_offs(c, bp, _HALF_OFFS)[:n_home] + off[a]
+                  for a, c in enumerate((qx, qy, qz)))
+    return bp, qx, qy, qz, gx, gy, gz
+
+
+def half_frame(positions, valid, plan, lo, geometry=None, slab=None):
+    """The half-stencil frame of a call on the whole state (``slab``
+    ``None``) or on a z-slab shard's buffer (``slab = (z0, nzl)``):
+    ``(roll_plan, n_home, qx, qy, qz, gx, gy, gz)``, ``roll_plan`` the plan
+    whose :func:`_roll_offs` gathers a candidate plane (its first
+    ``n_home`` cells are the call's home cells), ``q*`` over every row,
+    ``g*`` ``[n_home, 14 cap]``."""
+    if slab is None:
+        return (plan, plan.n_cells) + _relative_coords(
+            positions, valid, plan, lo, _HALF_OFFS, geometry)
+    bp, *coords = _slab_relative_coords(positions, valid, plan, lo, *slab,
+                                        geometry)
+    nx, ny, _ = plan.grid
+    return (bp, slab[1] * nx * ny) + tuple(coords)
+
+
 def half_stencil_slab_plain(positions, types, valid, plan, lo, pair_fn, z0,
                             nzl, needs_virial=False, min_r2=1e-4,
                             with_types=False, rcut_matrix=None,
@@ -750,37 +885,17 @@ def half_stencil_slab_plain(positions, types, valid, plan, lo, pair_fn, z0,
         home slots finished, then the reverse-halo partial of the halo
         layer's slots (also multiplied by their ``valid``).
     """
-    nx, ny, nz = plan.grid
-    if not 1 <= nzl < nz:
-        raise ValueError(f"a slab of {nzl} layers in a grid of {nz}")
+    nx, ny, _ = plan.grid
     cap = plan.capacity
-    bp = _slab_plan(plan, nzl)
     n_home = nzl * nx * ny
-    if positions.shape[0] != bp.n_slots:
-        raise ValueError(f"a slab buffer of {nzl} + 1 layers holds "
-                         f"{bp.n_slots} rows, got {positions.shape[0]}")
-    g = _as_geometry(plan, lo, positions, geometry)
-    dtype, dev = positions.dtype, positions.device
-    # the buffer's cells at their global grid coordinates
-    cell = torch.arange(bp.n_cells, device=dev)
-    ijk = torch.stack([cell % nx, (cell // nx) % ny,
-                       (z0 + cell // (nx * ny)) % nz], dim=-1)
-    centers = _cell_centers(torch.repeat_interleave(ijk, cap, dim=0)
-                            .to(dtype), g.lo, g.edges, g.tilt, g.tilted)
-    rank = (torch.arange(bp.n_slots, device=dev) % cap).to(dtype)
-    FAR = 4.0 * float(max(plan.lengths))
-    q = g.wrap(positions - centers)
-    qx = q[:, 0] + (1.0 - valid) * FAR * (1.0 + rank)
-    qy, qz = q[:, 1], q[:, 2]
-    off = g.offsets(_HALF_OFFS)
-    home = slice(0, n_home)
-    gx, gy, gz = (_roll_offs(c, bp, _HALF_OFFS)[home] + off[a]
-                  for a, c in enumerate((qx, qy, qz)))
+    dtype = positions.dtype
+    bp, qx, qy, qz, gx, gy, gz = _slab_relative_coords(
+        positions, valid, plan, lo, z0, nzl, geometry)
     ti = tj = None
     if with_types or rcut_matrix is not None:
         tt = types.to(dtype)
         ti = tt[:n_home * cap].reshape(n_home, cap)
-        tj = _roll_offs(tt, bp, _HALF_OFFS)[home]
+        tj = _roll_offs(tt, bp, _HALF_OFFS)[:n_home]
     rows, cols = lane_sums(
         qx[:n_home * cap].reshape(n_home, cap),
         qy[:n_home * cap].reshape(n_home, cap),
@@ -812,64 +927,38 @@ def _sharded_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
     CPU), the home forces gathered on the state's device and each shard's
     reverse halo added to the next shard's first layer."""
     from . import cellwise_cuda as cc
-    shards = slab_layers(plan, mesh.shape[shard_axis])
-    nx, ny, _ = plan.grid
-    layer = nx * ny * plan.capacity
     primary = positions.device
     geometry = _as_geometry(plan, lo, positions, geometry)
     generic = form is None and stencil in ("auto", "kernel")
     if generic and pair_fn is None:
         raise ValueError("stencil='kernel' needs a kernel form or a pair "
                          "function (K1's generic form)")
-    homes, revs = [], []
-    for s, (z0, nzl) in enumerate(shards):
-        dev = torch.device(mesh.devices[s])
-        a, b = slab_rows(plan, z0, nzl)
-
-        def buf(t):
-            # home and halo layers are adjacent rows but for the last
-            # shard's, whose halo wraps to layer 0
-            t = (t[a.start:b.stop] if a.stop == b.start else
-                 torch.cat([t[a], t[b]]))
-            return to_device(t, dev)
-
-        p, ty, v = buf(positions), buf(types), buf(valid)
+    outs = []
+    for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
+        p, ty, v = (slab_buffer(t, plan, z0, nzl, dev)
+                    for t in (positions, types, valid))
         g = geometry.on(dev)
         rc = (None if rcut_matrix is None else
               to_device(rcut_matrix, dev))
         fn = pair_fn if shard_fn is None else shard_fn(dev)
-        if stencil in ("half", "full"):
-            f4, w = half_stencil_slab_plain(
+        if stencil in ("half", "full") or (form is None and not p.is_cuda):
+            out = half_stencil_slab_plain(
                 p, ty, v, plan, lo, fn, z0, nzl, needs_virial, min_r2,
                 with_types, rc, needs_energy, g)
         elif form is not None:
-            f4, w = cc.half_stencil_pair_forces(
+            out = cc.half_stencil_pair_forces(
                 p, ty, v, plan, lo, cc.form_on(form, dev), needs_virial,
                 min_r2, rc, needs_energy, g, slab=(z0, nzl))
-        elif not p.is_cuda:
-            f4, w = half_stencil_slab_plain(
-                p, ty, v, plan, lo, fn, z0, nzl, needs_virial, min_r2,
-                with_types, rc, needs_energy, g)
         else:
             own = None if lanes is None else \
                 cc.LaneBudget(lanes.budget, dev)
-            f4, w = cc.generic_pair_forces(
+            out = cc.generic_pair_forces(
                 p, ty, v, plan, lo, fn, with_types, needs_virial, min_r2,
                 rc, needs_energy, g, own, slab=(z0, nzl))
             if lanes is not None:
                 lanes.record(to_device(own.needed, primary))
-        n = nzl * layer
-        homes.append((f4[:n], None if w is None else w[:n]))
-        revs.append((f4[n:], None if w is None else w[n:]))
-    fs, ws = [], []
-    for s in range(len(shards)):
-        (f, w), (rf, rw) = homes[s], revs[s - 1]
-        f, rf = to_device(f, primary), to_device(rf, primary)
-        fs += [f[:layer] + rf, f[layer:]]
-        if w is not None:
-            w, rw = to_device(w, primary), to_device(rw, primary)
-            ws += [w[:layer] + rw, w[layer:]]
-    return torch.cat(fs), (torch.cat(ws) if ws else None)
+        outs.append(out)
+    return gather_slabs(outs, plan, primary)
 
 
 def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,

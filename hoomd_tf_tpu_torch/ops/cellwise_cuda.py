@@ -56,9 +56,9 @@ import numpy as np
 import torch
 
 from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
-                       _relative_coords, _roll_offs, analytic_pair_forces,
-                       assemble_half, finish_forces, half_stencil_slab_plain,
-                       pair_rc2)
+                       _roll_offs, _slab_plan, analytic_pair_forces,
+                       assemble_half, finish_forces, half_frame,
+                       half_stencil_slab_plain, pair_rc2)
 from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
@@ -578,32 +578,41 @@ class LaneBudget:
         self.reset()
 
 
-def _lane_state(positions, types, valid, plan, lo, geometry, typed):
-    """The half-stencil tensor form's coordinates for listing lanes:
-    ``(qx, qy, qz, gx, gy, gz)`` (:func:`.cellwise._relative_coords`),
-    the row and candidate ``valid`` and float types (zero when untyped,
-    as the kernel stages them)."""
-    n_cells, cap = plan.n_cells, plan.capacity
-    qx, qy, qz, gx, gy, gz = _relative_coords(positions, valid, plan, lo,
-                                              _HALF_OFFS, geometry)
+def _lane_state(positions, types, valid, plan, lo, geometry, typed,
+                slab=None):
+    """The half-stencil tensor form's coordinates for listing lanes over
+    the call's home cells (:func:`.cellwise.half_frame`; a z-slab shard's
+    with ``slab``): ``(qx, qy, qz, gx, gy, gz)``, the row and candidate
+    ``valid`` and float types (zero when untyped, as the kernel stages
+    them)."""
+    cap = plan.capacity
+    rp, n, qx, qy, qz, gx, gy, gz = half_frame(positions, valid, plan, lo,
+                                               geometry, slab)
     tt = (types.to(positions.dtype) if typed else
           torch.zeros_like(valid))
-    return (qx.reshape(n_cells, cap), qy.reshape(n_cells, cap),
-            qz.reshape(n_cells, cap), gx, gy, gz,
-            valid.reshape(n_cells, cap) > 0,
-            _roll_offs(valid, plan, _HALF_OFFS) > 0,
-            tt.reshape(n_cells, cap), _roll_offs(tt, plan, _HALF_OFFS))
+
+    def rows(t):
+        return t[:n * cap].reshape(n, cap)
+
+    def roll(t):
+        return _roll_offs(t, rp, _HALF_OFFS)[:n]
+
+    return (rows(qx), rows(qy), rows(qz), gx, gy, gz, rows(valid) > 0,
+            roll(valid) > 0, rows(tt), roll(tt))
 
 
 def generic_list_plain(positions, types, valid, plan, lo, min_r2=1e-4,
                        rc2_tab=None, geometry=None, budget=None,
-                       typed=True):
+                       typed=True, slab=None):
     """Plain PyTorch version of the generic form's list kernel: the
     in-cut lanes of the half stencil, cell by cell, each cell's lanes
     row-major (rows and candidates in slot order, occupied slots only) as
     the kernel lists them, the self pair left out in block 0, ``r2 =
     max(d2, min_r2)``. Cells are placed in cell order; a cell whose lanes
-    would pass ``budget`` is left out whole.
+    would pass ``budget`` is left out whole. With ``slab = (z0, nzl)`` the
+    inputs are a z-slab shard's buffer (:func:`.cellwise.slab_buffer`)
+    and the lanes those of its home cells (``cell`` counts them from the
+    slab's first; ``row`` and the candidates are buffer slots).
 
     :returns: a dict of per-lane tensors ``r2``, ``ti``, ``tj`` (float
         types), ``dx``, ``dy``, ``dz``, ``cell``, ``row`` and ``col``
@@ -611,11 +620,12 @@ def generic_list_plain(positions, types, valid, plan, lo, min_r2=1e-4,
         and ``needed``, the lanes of every cell (a Python int).
     """
     geometry = _as_geometry(plan, lo, positions, geometry)
-    n_cells, cap = plan.n_cells, plan.capacity
+    cap = plan.capacity
+    n_cells = slab_shape(plan, slab)[0]
     C = len(_HALF_OFFS) * cap
     qx, qy, qz, gx, gy, gz, vr, vc, ti, tj = _lane_state(
         positions, types, valid, plan, lo, geometry,
-        typed or rc2_tab is not None)
+        typed or rc2_tab is not None, slab)
     dev = positions.device
     not_self = (torch.arange(C, device=dev)[None, :] !=
                 torch.arange(cap, device=dev)[:, None])[None]
@@ -692,7 +702,7 @@ def generic_plain(positions, types, valid, plan, lo, pair_fn,
 
 
 def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
-                         needs_virial=False):
+                         needs_virial=False, slab=None):
     """Plain PyTorch version of the generic form's reduction and finish:
     each listed lane's channel products (its first ``len(lst["r2"])``
     values of ``U`` and ``S``; later lanes are ignored) added to its row
@@ -701,10 +711,15 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
     ``S`` (``index_add_``), so autograd through it is the oracle of
     :func:`generic_reduce_bwd_plain`.
 
-    :param lst: :func:`generic_list_plain`'s lanes.
-    :returns: ``(forces4, virial or None)``.
+    :param lst: :func:`generic_list_plain`'s lanes (of the z-slab ``slab``
+        when given).
+    :returns: ``(forces4, virial or None)``, over a slab buffer's rows
+        with ``slab`` (the halo layer's: the reverse-halo partial, as
+        :func:`.cellwise.half_stencil_slab_plain` gives it).
     """
-    n_cells, cap = plan.n_cells, plan.capacity
+    cap = plan.capacity
+    n_cells = slab_shape(plan, slab)[0]
+    rp = plan if slab is None else _slab_plan(plan, slab[1])
     C = len(_HALF_OFFS) * cap
     dtype = valid.dtype
     n = lst["r2"].shape[0]
@@ -719,7 +734,7 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
     coefs = _channel_coefs(needs_energy, needs_virial)
     nch = len(coefs)
     dev = valid.device
-    rows = torch.zeros((nch, plan.n_slots), dtype=dtype, device=dev)
+    rows = torch.zeros((nch, rp.n_slots), dtype=dtype, device=dev)
     rows = rows.index_add(1, lst["cell"] * cap + lst["row"], prods)
     back = lst["col"] >= cap
     cols = torch.zeros((nch, n_cells * C), dtype=dtype, device=dev)
@@ -729,9 +744,12 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
                        device=dev)[:, None]
     bwd = torch.tensor([c[1] for c in coefs], dtype=dtype,
                        device=dev)[:, None]
-    out = (rows * fwd).reshape(nch, n_cells, cap)
-    cols = (cols * bwd).reshape(nch, n_cells, C)
-    out = assemble_half(torch.cat([out, cols[:, :, cap:]], dim=2), plan)
+    out = (rows * fwd).reshape(nch, rp.n_cells, cap)
+    cols = (cols * bwd).reshape(nch, n_cells, C)[:, :, cap:]
+    # a slab's halo layer has no home cells: it pushes nothing
+    cols = torch.cat([cols, cols.new_zeros(
+        (nch, rp.n_cells - n_cells, cols.shape[2]))], dim=1)
+    out = assemble_half(torch.cat([out, cols], dim=2), rp)
     return finish_forces(out, valid, needs_energy, needs_virial)
 
 
@@ -750,7 +768,7 @@ class GenericList:
         self.plan, self.valid, self.typed_fn = plan, valid, typed_fn
         self.r2, self.ti, self.tj = r2, ti, tj
         self.lst = lst
-        #: the z-slab ``(z0, nzl)`` of a slab-mode list (CUDA only)
+        #: the z-slab ``(z0, nzl)`` of a slab-mode list
         self.slab = slab
         # CUDA only: the LaneBudget, the device's lane counter and records,
         # the cells' bases, the reduction's [n_ch][14][n_slots] scratch, the
@@ -789,24 +807,22 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
     needed in ``lanes`` itself): a :class:`GenericList` for a reduction
     of at most the channels ``needs_energy`` and ``needs_virial`` ask
     for. A failed build or launch raises. Each launch rewrites the
-    device's shared list and records and counts a new generation. With
-    ``slab = (z0, nzl)`` it lists the home cells of that z-slab from its
-    buffer's rows (:func:`half_stencil_pair_forces`' slab mode; CUDA
-    only)."""
+    list and records it shares on its device (one set per slab: a mesh's
+    shards on one card keep their own) and counts a new generation of
+    them. With ``slab = (z0, nzl)`` it lists the home cells of that
+    z-slab from its buffer's rows (:func:`half_stencil_pair_forces`' slab
+    mode; on the CPU :func:`generic_list_plain` with ``slab``)."""
     n_cells, n = slab_shape(plan, slab)
     check_slot_inputs(positions, types, valid, plan, n)
-    if slab is not None and not positions.is_cuda:
-        raise ValueError("the generic form's list has no slab mode on the "
-                         "CPU: its slab plain version is "
-                         "cellwise.half_stencil_slab_plain")
     if lanes is None:
         lanes = _default_lanes(plan, valid, slab)
     if not positions.is_cuda:
         lst = generic_list_plain(positions, types, valid, plan, lo, min_r2,
-                                 rc2_tab, geometry, lanes.budget, typed_fn)
+                                 rc2_tab, geometry, lanes.budget, typed_fn,
+                                 slab)
         lanes.record(torch.tensor(lst["needed"], device=positions.device))
         return GenericList(plan, valid, typed_fn, lst["r2"], lst["ti"],
-                           lst["tj"], lst)
+                           lst["tj"], lst, slab=slab)
     geometry = _as_geometry(plan, lo, positions, geometry)
     dev = positions.device
     dtype, f64 = kernel_dtype(positions)
@@ -825,8 +841,9 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
     budget = lanes.budget
     counter, lst, rec = _generic_buffers(
         dev, dtype, budget, plan.r_cut ** 2,
-        n_cells * lib.htf_generic_record_words(f64, plan.capacity))
-    _GENERATION[str(dev)] = generation = _GENERATION.get(str(dev), 0) + 1
+        n_cells * lib.htf_generic_record_words(f64, plan.capacity), slab)
+    key = (str(dev), slab)
+    _GENERATION[key] = generation = _GENERATION.get(key, 0) + 1
     # the list kernel writes the zero back sums of the slots the box test
     # left out into the reduction's scratch
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
@@ -861,7 +878,7 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
     slab buffer's rows for a slab-mode list."""
     if gl.lst is not None:
         return generic_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
-                                    needs_energy, needs_virial)
+                                    needs_energy, needs_virial, gl.slab)
     plan, dev = gl.plan, gl.r2.device
     dtype, f64 = kernel_dtype(gl.r2)
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
@@ -958,7 +975,7 @@ def _shifted_cells(cell, t, plan):
 
 
 def generic_reduce_bwd_plain(lst, ct, valid, plan, needs_energy=True,
-                             n_lanes=None):
+                             n_lanes=None, slab=None):
     """Plain PyTorch version of ``generic_reduce_bwd``: the transpose of
     :func:`generic_reduce_plain` in ``(U, S)``. Per listed lane, with the
     cotangent folded with ``valid`` (the finish multiplies by it), ``gU =
@@ -969,9 +986,17 @@ def generic_reduce_bwd_plain(lst, ct, valid, plan, needs_energy=True,
 
     :param n_lanes: the length of the returned cotangents (default the
         listed lanes); lanes past the listed ones get exactly zero.
+    :param slab: ``(z0, nzl)``: ``lst`` is a z-slab shard's list and
+        ``ct``, ``valid`` its buffers (:func:`.cellwise.slab_buffer`): a
+        candidate in the halo layer reads the cotangent of the next
+        shard's first home layer there.
     :returns: ``(gU or None when not needs_energy, gS)``.
     """
     cap = plan.capacity
+    if slab is not None:
+        # a home cell's half stencil reaches z + 1 only: its candidates'
+        # cells are the buffer plan's, with no wrap in z
+        plan = _slab_plan(plan, slab[1])
     n = lst["r2"].shape[0]
     n_lanes = n if n_lanes is None else int(n_lanes)
     ctv = ct.to(valid.dtype) * valid[:, None]
@@ -1004,13 +1029,10 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
     plan = gl.plan
     if gl.lst is not None:
         return generic_reduce_bwd_plain(gl.lst, ct, gl.valid, plan,
-                                        needs_energy, gl.r2.shape[0])
+                                        needs_energy, gl.r2.shape[0],
+                                        gl.slab)
     dev = gl.r2.device
-    if gl.slab is not None:
-        raise NotImplementedError(
-            "generic_reduce_bwd has no slab mode: online training under a "
-            "mesh arrives with ROADMAP.md Queue 1 item 7b")
-    if _GENERATION.get(str(dev)) != gl.generation:
+    if _GENERATION.get((str(dev), gl.slab)) != gl.generation:
         raise RuntimeError(
             "the generic form's list and records were rewritten by a later "
             "generic-form call before this call's backward ran")
@@ -1019,12 +1041,12 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
                            "reduction did not run")
     dtype, f64 = kernel_dtype(gl.r2)
     ct = ct.contiguous()
-    _check(ct, (plan.n_slots, 4), dtype, dev, "ct")
+    _check(ct, (gl.rows, 4), dtype, dev, "ct")
     gS = torch.empty(gl.budget, dtype=dtype, device=dev)
     gU = torch.empty_like(gS) if needs_energy else None
     lib = _generic_library()
     err = lib.htf_generic_reduce_bwd(
-        f64, gl.geom, plan.n_cells, _ptr(gl.rec), _ptr(gl.cell_base), _ptr(ct),
+        f64, gl.geom, gl.n_cells, _ptr(gl.rec), _ptr(gl.cell_base), _ptr(ct),
         _ptr(gl.valid), int(needs_energy), _ptr(gl.needed), gl.budget,
         _ptr(gU), _ptr(gS),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -1033,13 +1055,15 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
                            lib.htf_generic_error_string(err).decode())
     generic_reduce_bwd.launches += 1
     generic_reduce_bwd.f64_launches += f64
+    generic_reduce_bwd.slab_launches += gl.slab is not None
     return gU, gS
 
 
 #: calls that launched generic_reduce_bwd; those of its double
-#: instantiation alone
+#: instantiation alone; those in slab mode (a z-slab shard's)
 generic_reduce_bwd.launches = 0
 generic_reduce_bwd.f64_launches = 0
+generic_reduce_bwd.slab_launches = 0
 
 
 class GenericReduce(torch.autograd.Function):
@@ -1063,17 +1087,18 @@ class GenericReduce(torch.autograd.Function):
 
 def generic_train_forces(positions, types, valid, plan, lo, pair_fn,
                          typed_fn=True, min_r2=1e-4, rc2_tab=None,
-                         needs_energy=True, geometry=None, lanes=None):
+                         needs_energy=True, geometry=None, lanes=None,
+                         slab=None):
     """K1's generic form for training: ``forces4 [n_slots, 4]``
     differentiable in the weights ``pair_fn`` reads. The list kernel (its
     plain version on CPU tensors), the pair function on the list with
     grad, then :class:`GenericReduce`, whose backward is the kernel
     ``generic_reduce_bwd`` (its plain version on the CPU). A CUDA call
     counts in ``generic_pair_forces.launches`` (at its reduction).
-    Arguments as
-    :func:`generic_pair_forces`; no virial."""
+    Arguments as :func:`generic_pair_forces` (``slab``: a z-slab shard's
+    call on its buffer, the backward in slab mode too); no virial."""
     gl = generic_list(positions, types, valid, plan, lo, typed_fn, min_r2,
-                      rc2_tab, geometry, lanes, needs_energy)
+                      rc2_tab, geometry, lanes, needs_energy, slab=slab)
     U, S = gl.evaluate(pair_fn, grad=True)
     if not needs_energy:
         U = U.detach()
@@ -1094,20 +1119,23 @@ def kernel_lane_index(lst, cell_base, plan):
                        torch.full_like(base, -1))
 
 
-# per device: the generation of the shared list and records below (one
-# more at each list launch; a backward checks its call's)
+# per device and slab (None: a whole state): the generation of the shared
+# list and records below (one more at each list launch; a backward checks
+# its call's)
 _GENERATION = {}
 
-# per device and scalar type: the lane counter (zero between calls), the
-# list buffer ([3, budget] r2, ti, tj in the state's dtype), first filled
-# with harmless in-cut values, so that later calls leave earlier lanes'
-# finite values in its tail, and the cells' records the list kernel hands
-# the reduction
+# per device, scalar type and slab: the lane counter (zero between calls),
+# the list buffer ([3, budget] r2, ti, tj in the state's dtype), first
+# filled with harmless in-cut values, so that later calls leave earlier
+# lanes' finite values in its tail, and the cells' records the list kernel
+# hands the reduction. A mesh's shards on one device each keep their own:
+# a training step lists every shard before the first backward reads its
+# records, and the pair function's graph holds its list's r2.
 _GENERIC = {}
 
 
-def _generic_buffers(device, dtype, budget, rc2, rec_words):
-    key = (str(device), dtype)
+def _generic_buffers(device, dtype, budget, rc2, rec_words, slab=None):
+    key = (str(device), dtype, slab)
     counter, lst, rec = _GENERIC.get(key, (None, None, None))
     if counter is None:
         counter = torch.zeros(1, dtype=torch.int32, device=device)

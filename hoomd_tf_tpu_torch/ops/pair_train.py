@@ -25,6 +25,18 @@ the CPU the generic lane contraction, ``torch.autograd.grad`` of the
 weighted sum, is the oracle; ``bwd_impl='list'`` takes the list route's
 plain version there.
 
+Under a device mesh (``mesh=``, the JAX signature) the forward is
+:func:`.cellwise.analytic_pair_forces` over the mesh's z-slabs, and the
+backward runs per shard on its device, over the home cells of its slab,
+with the forces' cotangent cut into its slab buffer
+(:func:`.cellwise.slab_buffer`: a halo row carries the cotangent of the
+next shard's first home layer, the rows its reverse halo was added to);
+the shards' gradients are summed on the state's device. Each unordered
+pair belongs to one home cell's half stencil, so the sum is the whole
+state's gradient. A proxy takes K2's slab mode, the list route K1's
+generic form and ``generic_reduce_bwd`` in slab mode, the CPU contraction
+its slab buffers; no route gathers the state for an unsharded backward.
+
 Geometry inputs (positions, types, validity) get no gradient: neighbor
 membership is piecewise constant and training never differentiates the
 state.
@@ -34,8 +46,9 @@ import dataclasses
 
 import torch
 
+from .._device import to_device
 from . import cellwise as _cw
-from .cellwise import _HALF_OFFS, _relative_coords, _roll_offs
+from .cellwise import _HALF_OFFS, _roll_offs, half_frame
 
 __all__ = ["pair_train_forces"]
 
@@ -81,6 +94,10 @@ class _Run:
     fwd_stencil: str
     bwd_impl: str
     geometry: object
+    mesh: object = None
+    shard_axis: object = None
+    #: ``[(device, z0, nzl), ...]`` of a mesh of two shards or more
+    shards: list = None
 
     def unflatten(self, tensors):
         return dict(zip(self.keys, tensors))
@@ -89,6 +106,13 @@ class _Run:
         if self.with_types:
             return lambda r2, ti, tj: self.pair_apply(p, r2, ti, tj)
         return lambda r2: self.pair_apply(p, r2)
+
+    @staticmethod
+    def on_device(p, device):
+        """The parameters ``p`` on a shard's ``device`` (differentiable
+        copies where they lie elsewhere)."""
+        return {k: v if v.device == device else to_device(v, device)
+                for k, v in p.items()}
 
     def forward(self, tensors):
         p = self.unflatten(tensors)
@@ -101,21 +125,55 @@ class _Run:
             self.bind(p), needs_virial=False, min_r2=self.min_r2,
             with_types=self.with_types, rcut_matrix=self.rcut_matrix,
             stencil=self.fwd_stencil, needs_energy=self.needs_energy,
-            form=form, geometry=self.geometry)
+            form=form, geometry=self.geometry, mesh=self.mesh,
+            shard_axis=self.shard_axis,
+            shard_fn=lambda dev: self.bind(self.on_device(p, dev)))
         return f4
 
+    def shard_inputs(self, ct, shard):
+        """``(positions, types, valid, ct, geometry, rcut_matrix, slab)``
+        of the backward on the whole state (``shard`` ``None``) or on a
+        shard ``(device, z0, nzl)``: its slab buffers on its device."""
+        if shard is None:
+            return (self.positions, self.types, self.valid, ct,
+                    self.geometry, self.rcut_matrix, None)
+        dev, z0, nzl = shard
+        bufs = [_cw.slab_buffer(t, self.plan, z0, nzl, dev)
+                for t in (self.positions, self.types, self.valid, ct)]
+        geometry = _cw._as_geometry(self.plan, self.lo, self.positions,
+                                    self.geometry).on(dev)
+        rc = (None if self.rcut_matrix is None else
+              to_device(self.rcut_matrix, dev))
+        return (*bufs, geometry, rc, (z0, nzl))
+
     def backward(self, tensors, ct):
+        if self.shards is None:
+            return self.shard_backward(tensors, ct, None)
+        primary = self.positions.device
+        grads = None
+        for shard in self.shards:
+            part = [to_device(g, primary)
+                    for g in self.shard_backward(tensors, ct, shard)]
+            grads = part if grads is None else [
+                a + b for a, b in zip(grads, part)]
+        return grads
+
+    def shard_backward(self, tensors, ct, shard):
+        """The parameters' gradients of the lanes of the whole state or
+        of a shard's home cells (on the shard's device)."""
         params = self.unflatten(tensors)
         if self.uses_k2(params):
             from .pair_train_cuda import proxy_bwd_moments
+            positions, types, valid, ct_s, geometry, rc, slab = \
+                self.shard_inputs(ct, shard)
             g_c, g_cd = proxy_bwd_moments(
-                self.positions, self.types, self.valid, ct, self.plan,
-                self.lo, self.pair_apply.basis, min_r2=self.min_r2,
-                rc2_tab=self.rcut_matrix, needs_energy=self.needs_energy,
-                geometry=self.geometry)
+                positions, types, valid, ct_s, self.plan, self.lo,
+                self.pair_apply.basis, min_r2=self.min_r2, rc2_tab=rc,
+                needs_energy=self.needs_energy, geometry=geometry,
+                slab=slab)
             grads = {"c": g_c, "cd": g_cd}
             return [grads[k].to(params[k].dtype) for k in params]
-        return self._contract(tensors, ct)
+        return self._contract(tensors, ct, shard=shard)
 
     def uses_k2(self, params):
         """Does the backward run in kernel K2 (a Chebyshev proxy whose
@@ -126,39 +184,47 @@ class _Run:
                 _params_match_basis(params, basis) and
                 self.positions.dtype in (torch.float32, torch.float64))
 
-    def _contract(self, tensors, ct, chunk_lanes=None):
+    def _contract(self, tensors, ct, chunk_lanes=None, shard=None):
         """The generic lane contraction over the half lane set
         (``pair_train.py:161-233``), in chunks of cells of about
         ``chunk_lanes`` lanes (default ``_CONTRACT_LANES``), the weights'
-        gradients summed."""
-        plan, positions = self.plan, self.positions
+        gradients summed; of a shard's home cells, on its device and from
+        its slab buffers, with ``shard = (device, z0, nzl)``."""
+        plan = self.plan
+        positions, types, valid, ct, geometry, rcut_matrix, slab = \
+            self.shard_inputs(ct, shard)
         dtype, dev = positions.dtype, positions.device
-        n_cells, cap = plan.n_cells, plan.capacity
-        offs_list = _HALF_OFFS
-        C = len(offs_list) * cap
-        geometry = _cw._as_geometry(plan, self.lo, positions, self.geometry)
-        qx, qy, qz, gx, gy, gz = _relative_coords(
-            positions, self.valid, plan, self.lo, offs_list, geometry)
-        qx, qy, qz = (q.reshape(n_cells, cap) for q in (qx, qy, qz))
+        cap = plan.capacity
+        C = len(_HALF_OFFS) * cap
+        rp, n_cells, qx, qy, qz, gx, gy, gz = half_frame(
+            positions, valid, plan, self.lo, geometry, slab)
+
+        def rows(t, *shape):
+            return t[:n_cells * cap].reshape(n_cells, cap, *shape)
+
+        def roll(t):
+            return _roll_offs(t.contiguous(), rp, _HALF_OFFS)[:n_cells]
+
+        qx, qy, qz = (rows(q) for q in (qx, qy, qz))
         col = torch.arange(C, device=dev)[None, :]
         not_self = ~((col < cap) &
                      (col == torch.arange(cap, device=dev)[:, None]))[None]
         directed = (col >= cap).to(dtype)[None]
         ti_all = tj_all = None
-        if self.with_types or self.rcut_matrix is not None:
-            tt = self.types.to(dtype)
-            ti_all = tt.reshape(n_cells, cap)[:, :, None]
-            tj_all = _roll_offs(tt, plan, offs_list)[:, None, :]
+        if self.with_types or rcut_matrix is not None:
+            tt = types.to(dtype)
+            ti_all = rows(tt)[:, :, None]
+            tj_all = roll(tt)[:, None, :]
         # the primal ends with `* valid`; fold it into the cotangent
-        ctv = ct * self.valid[:, None]
-        ctf = ctv[:, :3].reshape(n_cells, cap, 3)
-        cte = ctv[:, 3].reshape(n_cells, cap, 1)
+        ctv = ct * valid[:, None]
+        ctf = rows(ctv[:, :3], 3)
+        cte = rows(ctv[:, 3], 1)
         # a directed block's lane carries both ordered pairs; the self
         # block (0) is evaluated from both rows already
-        cg = [_roll_offs(ctv[:, k].contiguous(), plan,
-                         offs_list)[:, None, :] for k in range(4)]
+        cg = [roll(ctv[:, k])[:, None, :] for k in range(4)]
         zero = torch.zeros((), dtype=dtype, device=dev)
-        leaves = [t.detach().requires_grad_() for t in tensors]
+        leaves = [to_device(t.detach(), dev).requires_grad_()
+                  for t in tensors]
         grads = [torch.zeros_like(t) for t in tensors]
         chunk_lanes = chunk_lanes or _CONTRACT_LANES
         step = max(1, chunk_lanes // (cap * C))
@@ -171,8 +237,8 @@ class _Run:
             ok = (d2 <= plan.r_cut * plan.r_cut) & not_self
             ti = None if ti_all is None else ti_all[c]
             tj = None if tj_all is None else tj_all[c]
-            if self.rcut_matrix is not None:
-                ok = ok & (d2 <= _cw.pair_rc2(ti, tj, self.rcut_matrix))
+            if rcut_matrix is not None:
+                ok = ok & (d2 <= _cw.pair_rc2(ti, tj, rcut_matrix))
             r2 = torch.clamp_min(d2, self.min_r2)
             wF = (ctf[c, :, 0:1] * dx + ctf[c, :, 1:2] * dy +
                   ctf[c, :, 2:3] * dz)
@@ -205,7 +271,7 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
                       lo, *, min_r2=1e-4, with_types=False,
                       rcut_matrix=None, needs_energy=True,
                       fwd_stencil="auto", bwd_impl="auto", geometry=None,
-                      lanes=None):
+                      lanes=None, mesh=None, shard_axis=None):
     """Analytic pair forces, differentiable in ``params`` only.
 
     :param params: a dict of tensors, the only differentiable input (for
@@ -226,19 +292,34 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
         ``'generic'`` (the contraction; CPU only) or ``'list'`` (the list
         route; its plain version on the CPU).
     :param lanes: the list route's :class:`.cellwise_cuda.LaneBudget`
-        (default: sized from this call's occupied slots, one host sync).
+        (default: sized from this call's occupied slots, one host sync;
+        under a mesh each shard's list holds ``lanes.budget`` lanes and
+        the most any shard needed is recorded in it).
+    :param mesh: a :class:`..parallel.mesh.Mesh` (or ``None``): with two
+        shards or more the forward and the backward run per z-slab shard
+        on its device (see the module docstring); ``pair_apply`` is then
+        also called with ``params`` copied to a shard's device.
+    :param shard_axis: the mesh axis of the shards (default its only one).
     :returns: ``forces4 [n_slots, 4]`` with the energy in column 4.
     """
     keys = list(params)
     if rcut_matrix is not None and not torch.is_tensor(rcut_matrix):
         rcut_matrix = _cw.rc2_table(rcut_matrix, positions.dtype,
                                     positions.device)
+    shards = None
+    if mesh is not None and \
+            mesh.shape[shard_axis or mesh.axis_names[0]] > 1:
+        shards = _cw.mesh_slabs(plan, mesh, shard_axis)
+    else:
+        mesh = None
     run = _Run(keys, pair_apply, positions, types, valid, plan, lo, min_r2,
                with_types, rcut_matrix, needs_energy, fwd_stencil, bwd_impl,
-               geometry)
+               geometry, mesh, shard_axis, shards)
     cuda = positions.is_cuda
     if bwd_impl == "list" or (cuda and bwd_impl == "auto" and
                               not run.uses_k2(params)):
+        if shards is not None:
+            return _sharded_list_forces(run, params, lanes)
         from .cellwise_cuda import generic_train_forces
         return generic_train_forces(
             positions, types, valid, plan, lo, run.bind(params),
@@ -249,3 +330,31 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
                          "on a CUDA tensor training takes K2 or the list "
                          "route")
     return _PairTrain.apply(run, *(params[k] for k in keys))
+
+
+def _sharded_list_forces(run, params, lanes):
+    """The list route under a mesh: per shard, on its device, K1's generic
+    form in slab mode with grad (:func:`.cellwise_cuda.
+    generic_train_forces` with ``slab=``; the pair function under the
+    parameters copied there), its backward ``generic_reduce_bwd`` in slab
+    mode; the shards' forces gathered with :func:`.cellwise.gather_slabs`,
+    whose gradient hands each shard its slab buffer of the cotangent."""
+    from .cellwise_cuda import LaneBudget, generic_train_forces
+    plan, primary = run.plan, run.positions.device
+    geometry = _cw._as_geometry(plan, run.lo, run.positions, run.geometry)
+    outs = []
+    for dev, z0, nzl in run.shards:
+        p, ty, v = (_cw.slab_buffer(t, plan, z0, nzl, dev)
+                    for t in (run.positions, run.types, run.valid))
+        rc = (None if run.rcut_matrix is None else
+              to_device(run.rcut_matrix, dev))
+        own = None if lanes is None else LaneBudget(lanes.budget, dev)
+        f4 = generic_train_forces(
+            p, ty, v, plan, run.lo, run.bind(run.on_device(params, dev)),
+            typed_fn=run.with_types, min_r2=run.min_r2, rc2_tab=rc,
+            needs_energy=run.needs_energy, geometry=geometry.on(dev),
+            lanes=own, slab=(z0, nzl))
+        if lanes is not None:
+            lanes.record(to_device(own.needed, primary))
+        outs.append((f4, None))
+    return _cw.gather_slabs(outs, plan, primary)[0]

@@ -26,10 +26,11 @@ import ctypes
 
 import torch
 
-from .cellwise import (_HALF_OFFS, _as_geometry, _relative_coords,
-                       _roll_offs, pair_rc2)
+from .cellwise import (_HALF_OFFS, _as_geometry, _roll_offs, half_frame,
+                       pair_rc2)
 from .cellwise_cuda import (_MAX_SMEM, _check, _ptr, check_slot_inputs,
-                            cuda_slot_args, half_geom, kernel_dtype)
+                            cuda_slot_args, half_geom, kernel_dtype,
+                            slab_shape)
 
 __all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference",
            "type_groups", "smem_bytes", "max_capacity"]
@@ -174,19 +175,27 @@ def proxy_bwd_reference(gx, gy, gz, gt, cgx, cgy, cgz, cge, basis, cap, rc2,
 
 def proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis, *,
                     min_r2=1e-4, rc2_tab=None, needs_energy=True,
-                    geometry=None):
+                    geometry=None, slab=None):
     """Plain PyTorch version of kernel K2, with the wrapper's contract: the
     candidate and cotangent planes of the half stencil
-    (``_relative_coords``, ``_roll_offs``) through
-    :func:`proxy_bwd_reference`'s lane math."""
+    (:func:`.cellwise.half_frame`, ``_roll_offs``) through
+    :func:`proxy_bwd_reference`'s lane math. With ``slab = (z0, nzl)`` the
+    inputs and ``ct`` are a z-slab shard's buffer
+    (:func:`.cellwise.slab_buffer`) and the moments those of its home
+    cells' lanes: each unordered pair belongs to one home cell's half
+    stencil, so the shards' moments sum to the whole state's."""
     geometry = _as_geometry(plan, lo, positions, geometry)
-    _, _, _, gx, gy, gz = _relative_coords(positions, valid, plan, lo,
-                                           _HALF_OFFS, geometry)
+    rp, n_home, _, _, _, gx, gy, gz = half_frame(positions, valid, plan, lo,
+                                                 geometry, slab)
+
+    def roll(t):
+        return _roll_offs(t, rp, _HALF_OFFS)[:n_home]
+
     ctv = ct * valid[:, None]
     gt = None
     if basis["pairs"] is not None or rc2_tab is not None:
-        gt = _roll_offs(types.to(torch.int32), plan, _HALF_OFFS)
-    cg = [_roll_offs(ctv[:, k].contiguous(), plan, _HALF_OFFS)
+        gt = roll(types.to(torch.int32))
+    cg = [roll(ctv[:, k].contiguous())
           for k in range(4 if needs_energy else 3)]
     out = proxy_bwd_reference(gx, gy, gz, gt, cg[0], cg[1], cg[2],
                               cg[3] if needs_energy else None, basis,
@@ -197,7 +206,7 @@ def proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis, *,
 
 def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
                       min_r2=1e-4, rc2_tab=None, needs_energy=True,
-                      geometry=None):
+                      geometry=None, slab=None):
     """Kernel K2: the proxy backward's moment sums over the half-stencil
     lanes (the counterpart of the JAX ``proxy_bwd_moments``). Launches the
     kernel on CUDA tensors (counting each call in
@@ -212,25 +221,34 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
         dtype (this function folds ``valid`` in).
     :param rc2_tab: ``[T, T]`` squared-cutoff table (``cellwise.rc2_table``)
         or ``None``.
+    :param slab: ``(z0, nzl)``: the slab mode of a z-slab shard
+        (:func:`.cellwise_cuda.half_stencil_pair_forces`' slab mode): the
+        inputs and ``ct`` are its buffer's rows
+        (:func:`.cellwise.slab_buffer`), the home layers then the forward
+        halo layer, and the moments are those of its home cells' lanes
+        (counted also in ``.slab_launches``); on CPU tensors
+        :func:`proxy_bwd_plain` with ``slab``.
     :returns: ``(g_c, g_cd)``: ``[K]`` tensors (untyped) or ``[P, K]``
         (typed, :func:`.chebyshev.type_pairs` order).
     """
-    check_slot_inputs(positions, types, valid, plan)
+    n_cells, n = slab_shape(plan, slab)
+    check_slot_inputs(positions, types, valid, plan, n)
     if not positions.is_cuda:
         return proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis,
                                min_r2=min_r2, rc2_tab=rc2_tab,
-                               needs_energy=needs_energy, geometry=geometry)
+                               needs_energy=needs_energy, geometry=geometry,
+                               slab=slab)
     geometry = _as_geometry(plan, lo, positions, geometry)
     dev = positions.device
     dtype, f64 = kernel_dtype(positions)
     T = _n_types(basis)
     K = int(basis["K"])
     typed = T > 1 or rc2_tab is not None
-    state = cuda_slot_args(positions, types, valid, plan, geometry, typed)
+    state = cuda_slot_args(positions, types, valid, plan, geometry, typed, n)
     ct = ct.contiguous()
     if ct.data_ptr() % 16:
         ct = ct.clone()  # the kernel reads a row as one float4
-    _check(ct, (plan.n_slots, 4), dtype, dev, "ct")
+    _check(ct, (n, 4), dtype, dev, "ct")
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
@@ -244,10 +262,10 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
         raise RuntimeError(f"K2's shared memory ({smem} bytes) differs from "
                            f"its plan's ({planned})")
     M = T * (T + 1) // 2 * 2 * K
-    partial = torch.empty((plan.n_cells, M), dtype=dtype, device=dev)
+    partial = torch.empty((n_cells, M), dtype=dtype, device=dev)
     out = torch.empty((M,), dtype=dtype, device=dev)
     err = lib.htf_proxy_bwd(
-        f64, *state, _ptr(ct), ctypes.byref(half_geom(plan)), plan.n_cells,
+        f64, *state, _ptr(ct), ctypes.byref(half_geom(plan, slab)), n_cells,
         _ptr(rc2_tab), rc_t, K, T, G, float(plan.r_cut ** 2), float(min_r2),
         float(basis["mid"]), float(basis["inv_half"]),
         float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
@@ -258,14 +276,17 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
     proxy_bwd_moments.launches += 1
     proxy_bwd_moments.f64_launches += f64
     proxy_bwd_moments.grouped_launches += len(groups) > 1
+    proxy_bwd_moments.slab_launches += slab is not None
     return _split(out, basis)
 
 
 #: calls that launched the kernel (the moment pass and the cross-cell sum);
-#: those of its double instantiation alone; those split into type groups
+#: those of its double instantiation alone; those split into type groups;
+#: those in slab mode (a z-slab shard's)
 proxy_bwd_moments.launches = 0
 proxy_bwd_moments.f64_launches = 0
 proxy_bwd_moments.grouped_launches = 0
+proxy_bwd_moments.slab_launches = 0
 
 _LIB = None
 

@@ -55,7 +55,9 @@ def sharded_train_step(model, optimizer, mesh, axis="d"):
     opt_state)`` with an optax transformation): the weights are the
     model's own, updated in place by a ``torch.optim`` optimizer built
     over them (the port's ``compile`` does the same), and the step returns
-    the loss alone.
+    the loss alone. As in the JAX step, the weights' constraints are not
+    applied: the update is the optimizer's, unconstrained (unlike
+    ``train_on_batch``, which constrains).
 
     :param model: a built :class:`..models.simmodel.SimModel`.
     :param optimizer: a ``torch.optim`` optimizer over the model's
@@ -112,7 +114,6 @@ def sharded_train_step(model, optimizer, mesh, axis="d"):
             v.grad = g.to(v.device, dtype=v.dtype)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        model.apply_constraints()
         return torch.stack([l.to(first) for l in losses]).mean()
 
     return step

@@ -51,7 +51,9 @@ train=True and trained 600 steps around a replan), profiles ``run(steps)`` with 
 
 ``--mode calls`` quenches the 64k fluid (60 steps, as chip_smoke.py
 phase 3) and times, by CUDA events, the whole call of K1's LJ form at the
-eval plan, of K1's proxy form and K2 (K = 16, forces only) at the train
+eval plan, shard 0's call of each slab mode (K1's LJ, proxy and generic
+forms, K2, ``generic_reduce_bwd``) of a 4-shard mesh at the plan
+``ShardedSimulation`` takes on this state, of K1's proxy form and K2 (K = 16, forces only) at the train
 plan's grid (15^3, capacity 36), and of K3 (NN 64) at the packed path's
 plan (18^3, capacity 29 on this state). For each it profiles R = 10
 back-to-back calls between marker kernels (``chip_smoke.profiled_calls``:
@@ -384,6 +386,7 @@ def whole_calls(cs, dtype):
          lambda: cc.generic_pair_forces(*ev_st, pair_fn, **gen_kw),
          lambda: cs.k1_generic_cost(ev_st[0], ev_st[2], eval_plan, 3,
                                     need)))
+    calls = calls + slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn)
     k3 = k3_call(cs, sim, dtype=dtype)
     calls = calls + (k3[:5],)
     calls_n = cs.PROFILED_CALLS
@@ -409,6 +412,78 @@ def whole_calls(cs, dtype):
     if k3[5] is not None:
         out.append({"call": "K3 at forced launch shapes", "shapes": k3[5]})
     return out
+
+
+def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
+    """Shard 0's calls of the slab modes (a mesh of ``S`` shards) at the
+    plan ShardedSimulation takes on this state (``nz % S == 0``): K1's LJ
+    and proxy forms, its generic form on the LJ pair function, K2 and
+    ``generic_reduce_bwd`` (forces only), each on shard 0's slab buffers
+    (home layers and forward halo), with its own bound (chip_smoke.py's
+    phases 29, 30, 32 and 33)."""
+    torch = cs.torch
+    from hoomd_tf_tpu_torch.md.slots import SlotLayout
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation, make_mesh
+    # the plan the sharded engine takes on this state
+    shd = ShardedSimulation(mesh=make_mesh(
+        S, devices=[torch.device("cuda", 0)] * S))
+    shd.set_state(sim.state)
+    shd.attach(cs.make_model(dtype=dtype), r_cut=cs.R_CUT)
+    plan = shd._ensure_layout().plan
+    pos = sim.state.positions
+    layout = SlotLayout(plan, cs.N, sim._lo, dtype=dtype, device="cuda")
+    slot, aux = cs.slot_state(layout, sim.state)
+    slab = cw.slab_layers(plan, S)[0]
+    buf = [cw.slab_buffer(t, plan, *slab)
+           for t in (slot.positions, slot.types, aux["valid"])]
+    ct = cw.slab_buffer(torch.randn(
+        (plan.n_slots, 4), device="cuda", dtype=dtype,
+        generator=torch.Generator("cuda").manual_seed(2)), plan, *slab)
+    common = (*buf, plan, layout.lo)
+    g = layout.geometry
+    lanes = cc.LaneBudget(cc.lane_budget(plan, cs.N, slab), "cuda")
+    gl = cc.generic_list(*common, typed_fn=False, geometry=g, lanes=lanes,
+                         needs_energy=False, slab=slab)
+    cc.generic_reduce(gl, *gl.evaluate(pair_fn), False)
+    need = int(lanes.needed)
+    tested, inside = cs.slab_pair_counts(slot.positions, aux["valid"], plan,
+                                         *slab)
+    esize = pos.element_size()
+    rows = buf[0].shape[0]
+    K = cs.K_PROXY
+
+    def k1(per):
+        return (rows * esize * (3 + 1 + 4), 9 * tested + inside * (per + 9))
+    return (
+        ("K1 LJ form, slab mode, shard 0, forces only", plan, common,
+         lambda: cc.half_stencil_pair_forces(
+             *common, lj, needs_energy=False, geometry=g, slab=slab),
+         lambda: k1(14)),
+        ("K1 proxy form, slab mode, shard 0, forces only", plan, common,
+         lambda: cc.half_stencil_pair_forces(
+             *common, cheb, needs_energy=False, geometry=g, slab=slab),
+         lambda: k1(8 * K + 10)),
+        ("K2, slab mode, shard 0, forces-only cotangent", plan, common,
+         lambda: pc.proxy_bwd_moments(
+             *buf, ct, plan, layout.lo, proxy.basis, needs_energy=False,
+             geometry=g, slab=slab),
+         lambda: (esize * (rows * (3 + 1 + 4) + 2 * K),
+                  9 * tested + inside * (27 + K * 4))),
+        # the backward before the generic form's slab call rewrites this
+        # slab's records
+        ("generic_reduce_bwd, slab mode, shard 0, forces only", plan,
+         common, lambda: cc.generic_reduce_bwd(gl, ct, False),
+         lambda: cs.bwd_cost(gl, need, False)),
+        ("K1 generic form, slab mode, shard 0, LJ pair function, forces "
+         "only", plan, common,
+         lambda: cc.generic_pair_forces(
+             *common, pair_fn, typed_fn=False, needs_energy=False,
+             geometry=g, lanes=lanes, slab=slab),
+         lambda: (rows * esize * (3 + 1 + 4) + need * esize * 5,
+                  9 * tested + need * 9)))
 
 
 def k3_call(cs, sim, shapes=True, dtype=None):

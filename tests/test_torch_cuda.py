@@ -1933,3 +1933,249 @@ def test_mixed_mesh_crosses_devices(cuda_device, case):
     L = np.asarray(lengths)
     d -= np.round(d / L) * L
     assert np.abs(d).max() < 5e-4
+
+
+# ----------------------------------------------------------------------
+# the training backward under a mesh: K2's and generic_reduce_bwd's slab
+# modes, and the sharded train step
+# ----------------------------------------------------------------------
+def slab_ct(plan, device, dtype, seed=4):
+    return torch.as_tensor(np.random.RandomState(seed).randn(
+        plan.n_slots, 4), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_k2_slab_mode_matches_plain(cuda_device, S, typed, dtype):
+    """K2's slab mode on each of S shards' buffers (the state and the
+    cotangent cut by ``slab_buffer``) on the card against its slab plain
+    version on the CPU, counted in slab_launches; the shards' moments
+    summed against the unsharded K2. float32 at the JAX bar (rtol 2e-4,
+    atol 2e-5 max|g|), float64 at rtol 1e-10 (phase 23's)."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    ev, _ = proxy_parts(typed)
+    cases = {d.type: slab_packed(d, typed, dtype)
+             for d in (cuda_device, torch.device("cpu"))}
+    layout, slot, aux = cases["cuda"]
+    plan = layout.plan
+    ct = slab_ct(plan, cuda_device, dtype)
+    kw = dict(rc2_tab=layout.rc2_tab)
+    whole = ptc.proxy_bwd_moments(slot.positions, slot.types, aux["valid"],
+                                  ct, plan, layout.lo, ev.basis,
+                                  geometry=layout.geometry, **kw)
+    acc = None
+
+    def close(got, want):
+        got = np.concatenate([np_(g).ravel() for g in got])
+        want = np.concatenate([np_(g).ravel() for g in want])
+        scale = np.abs(want).max()
+        if dtype == F64:
+            np.testing.assert_allclose(got, want, rtol=1e-10,
+                                       atol=1e-12 * scale)
+        else:
+            np.testing.assert_allclose(got, want, rtol=2e-4,
+                                       atol=2e-5 * scale)
+
+    for z0, nzl in tcw.slab_layers(plan, S):
+        outs = []
+        for d in ("cuda", "cpu"):
+            lay, st, ax = cases[d]
+            buf = [tcw.slab_buffer(t, plan, z0, nzl) for t in
+                   (st.positions, st.types, ax["valid"],
+                    ct.to(st.positions.device))]
+            before = ptc.proxy_bwd_moments.slab_launches
+            outs.append(ptc.proxy_bwd_moments(
+                *buf[:3], buf[3], lay.plan, lay.lo, ev.basis,
+                rc2_tab=lay.rc2_tab, geometry=lay.geometry,
+                slab=(z0, nzl)))
+            assert ptc.proxy_bwd_moments.slab_launches - before == \
+                (d == "cuda")
+        close(*outs)
+        acc = outs[0] if acc is None else [a + b
+                                           for a, b in zip(acc, outs[0])]
+    close(acc, whole)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("energy", [True, False])
+def test_reduce_bwd_slab_mode_matches_plain(cuda_device, S, dtype, energy):
+    """``generic_reduce_bwd`` in slab mode on each shard's list on the card
+    against its slab plain version on the CPU, lane by lane (float32 at
+    1e-4, float64 at 1e-11 of the largest), every lane past the need
+    zero; all shards listed before the first backward (their records kept
+    apart on the one card)."""
+    cases = {d.type: slab_packed(d, True, dtype)
+             for d in (cuda_device, torch.device("cpu"))}
+    layout, slot, aux = cases["cuda"]
+    plan = layout.plan
+    ct = slab_ct(plan, cuda_device, dtype)
+    lists = []
+    for z0, nzl in tcw.slab_layers(plan, S):
+        per = []
+        for d in ("cuda", "cpu"):
+            lay, st, ax = cases[d]
+            buf = [tcw.slab_buffer(t, plan, z0, nzl) for t in
+                   (st.positions, st.types, ax["valid"])]
+            lanes = tcc.LaneBudget(tcc.lane_budget(plan, 1000, (z0, nzl)),
+                                   st.positions.device)
+            gl = tcc.generic_list(*buf, lay.plan, lay.lo,
+                                  rc2_tab=lay.rc2_tab, geometry=lay.geometry,
+                                  lanes=lanes, needs_energy=energy,
+                                  slab=(z0, nzl))
+            U, s = gl.evaluate(morse_yukawa)
+            tcc.generic_reduce(gl, U, s, energy)
+            per.append((gl, lanes, tcw.slab_buffer(
+                ct.to(st.positions.device), plan, z0, nzl)))
+        lists.append(per)
+    before = tcc.generic_reduce_bwd.slab_launches
+    for (gl, lanes, c), (pl, _, pc) in lists:
+        assert not bool(lanes.overflow())
+        gU, gS = tcc.generic_reduce_bwd(gl, c, energy)
+        pU, pS = tcc.generic_reduce_bwd(pl, pc, energy)
+        need = int(lanes.needed)
+        idx = np_(tcc.kernel_lane_index(pl.lst, gl.cell_base, plan))
+        assert sorted(idx.tolist()) == list(range(need))
+        pairs = [(gS, pS)] + ([(gU, pU)] if energy else [])
+        for g, p in pairs:
+            if dtype == F64:
+                assert_rel(np_(g)[idx], p, 1e-11)
+            else:
+                np.testing.assert_allclose(np_(g)[idx], np_(p), **TOL)
+            assert not np_(g)[need:].any()
+        if not energy:
+            assert gU is None
+    assert tcc.generic_reduce_bwd.slab_launches - before == S
+
+
+def test_virtual_shards_keep_their_list_records(cuda_device):
+    """Two slabs listed on one card keep their own list and records: the
+    first slab's backward, after the second slab's list call, equals the
+    one made right after its own, lane by lane (a list places its cells
+    in launch order, so lanes are matched through the plain list); a
+    second list call of the same slab still makes its earlier list's
+    backward raise."""
+    layout, slot, aux = slab_packed(cuda_device, True)
+    plan = layout.plan
+    ct = slab_ct(plan, cuda_device, torch.float32)
+    shards = tcw.slab_layers(plan, 2)
+
+    def listed(z0, nzl):
+        buf = [tcw.slab_buffer(t, plan, z0, nzl) for t in
+               (slot.positions, slot.types, aux["valid"])]
+        gl = tcc.generic_list(*buf, plan, layout.lo, rc2_tab=layout.rc2_tab,
+                              geometry=layout.geometry, slab=(z0, nzl))
+        U, s = gl.evaluate(morse_yukawa)
+        tcc.generic_reduce(gl, U, s)
+        return gl, tcw.slab_buffer(ct, plan, z0, nzl), buf
+
+    gl0, c0, buf = listed(*shards[0])
+    plain = tcc.generic_list_plain(*[t.cpu() for t in buf], plan, layout.lo,
+                                   rc2_tab=layout.rc2_tab.cpu(),
+                                   geometry=layout.geometry.on("cpu"),
+                                   slab=shards[0])
+
+    def by_lane(gl, out):
+        idx = tcc.kernel_lane_index(plain, gl.cell_base, plan)
+        return [np_(t)[np_(idx)] for t in out]
+
+    alone = by_lane(gl0, tcc.generic_reduce_bwd(gl0, c0))
+    gl0, c0, _ = listed(*shards[0])
+    listed(*shards[1])
+    after = by_lane(gl0, tcc.generic_reduce_bwd(gl0, c0))
+    for a, b in zip(after, alone):
+        np.testing.assert_array_equal(a, b)
+    listed(*shards[0])
+    with pytest.raises(RuntimeError, match="rewritten"):
+        tcc.generic_reduce_bwd(gl0, c0)
+
+
+@pytest.mark.parametrize("mesh_kind", ["virtual", "mixed"])
+@pytest.mark.parametrize("kind", ["proxy", "pair"])
+def test_sharded_train_step_matches_unsharded(cuda_device, kind, mesh_kind):
+    """Online training through ShardedSimulation on 4 shards (K2 or
+    generic_reduce_bwd in slab mode, a slab launch per card shard and
+    train step) against the unsharded engine at the same plan: 3 SGD
+    steps' losses and weights at rtol 2e-4. 'virtual': 4 shards of the
+    card, host syncs forbidden; 'mixed': the card and the CPU in turn, so
+    the weights, the cotangent's slab buffers and the gradients cross
+    devices (the CPU shards take the slab plain versions)."""
+    from hoomd_tf_tpu_torch.interop import build_model
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation, make_mesh
+    from torch_helpers import force_loss, nn_pair_class
+    pos, vel, lengths = fluid_arrays(2000, 0.4, 1, jitter=0.08, kT=1.5)
+    sims, weights = [], None
+    devices = ([cuda_device] * 4 if mesh_kind == "virtual" else
+               [cuda_device, "cpu"] * 2)
+    for mesh in (make_mesh(4, devices=devices), None):
+        if mesh is None:
+            sim = htt.Simulation(dt=0.005, seed=1, device=cuda_device,
+                                 integrator=htt.md.NVT(kT=1.5, tau=0.5))
+        else:
+            sim = ShardedSimulation(dt=0.005, kT=1.5, seed=1, mesh=mesh)
+        sim.init_state(pos, lengths, velocities=vel)
+        sim.add_force(htt.md.LennardJones(r_cut=2.5))
+        model = nn_pair_class()(64, output_forces=False,
+                                proxy_degree=16 if kind == "proxy" else None)
+        build_model(model, 2.5, cuda_device)
+        if weights is None:
+            weights = model.get_weights()
+        model.set_weights(weights)
+        model.compile(optimizer="sgd", loss=force_loss, learning_rate=1e-3)
+        tfc = htt.tfcompute(model)
+        tfc.attach(sim, r_cut=2.5, nlist="cellwise", train=True)
+        sims.append((sim, tfc, model))
+    (shd, stfc, sm), (ref, rtfc, rm) = sims
+    plan = shd._ensure_layout().plan
+    ref._plan_from_current = lambda: plan
+    shd.check_syncs = mesh_kind == "virtual"
+    counter = (ptc.proxy_bwd_moments if kind == "proxy" else
+               tcc.generic_reduce_bwd)
+    before = counter.slab_launches
+    shd.run(3)
+    ref.run(3)
+    cards = 4 if mesh_kind == "virtual" else 2
+    assert shd.train_steps == 3
+    assert counter.slab_launches - before == cards * shd.train_steps
+    np.testing.assert_allclose(stfc.loss_history, rtfc.loss_history,
+                               rtol=2e-4)
+    for a, b in zip(sm.get_weights(), rm.get_weights()):
+        np.testing.assert_allclose(np_(torch.as_tensor(a)),
+                                   np_(torch.as_tensor(b)), rtol=2e-4,
+                                   atol=1e-6)
+
+
+def test_mixed_mesh_npt_matches_unsharded(cuda_device):
+    """NPT under a mesh of the card and the CPU in turn: each step's box
+    geometry copied to the CPU shards (``SlotGeometry.on`` of a dynamic
+    box); 3 steps against the unsharded engine at the same plan, the
+    positions within 5e-4 and the volume at rtol 1e-5."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=[cuda_device, "cpu"] * 2)
+    pos, vel, lengths = fluid_arrays(2000, 0.4, 2, jitter=0.08, kT=1.2)
+    sims = []
+    for m in (mesh, None):
+        sim = htt.Simulation(dt=0.004, seed=2, mesh=m,
+                             device=None if m else cuda_device,
+                             integrator=htt.md.NPT(kT=1.2, tau=0.5, P=0.3,
+                                                   tauP=0.5))
+        sim.init_state(pos, lengths, velocities=vel)
+        htt.tfcompute(LJModel(48, virial=True)).attach(sim, r_cut=2.5,
+                                                       nlist="cellwise")
+        sims.append(sim)
+    shd, ref = sims
+    layout = shd._ensure_layout()
+    assert layout.dynamic_box and layout.plan.grid[2] % 4 == 0
+    ref._plan_from_current = lambda: layout.plan
+    shd.run(3)
+    ref.run(3)
+    vol = [float(torch.prod(s.state.box[1] - s.state.box[0]))
+           for s in (shd, ref)]
+    np.testing.assert_allclose(vol[0], vol[1], rtol=1e-5)
+    assert abs(vol[1] - float(np.prod(lengths))) > 0
+    d = np_(shd.state.positions) - np_(ref.state.positions)
+    L = np_(ref.state.box[1] - ref.state.box[0])
+    d -= np.round(d / L) * L
+    assert np.abs(d).max() < 5e-4

@@ -72,16 +72,6 @@ class TLJModel(htt.SimModel):
         return htt.compute_nlist_forces(nlist, torch.sum(p_energy, dim=1))
 
 
-class TPlanes(htt.SimModel):
-    """A SimModel the lane-separability probe rejects (a many-body
-    energy): it would take the planes route."""
-
-    def compute(self, nlist, positions, box):
-        r = htt.safe_norm(nlist[:, :, :3], axis=2)
-        e = torch.sum(torch.exp(-r), dim=1) ** 2
-        return htt.compute_nlist_forces(nlist, e)
-
-
 # ----------------------------------------------------------------------
 # the planner
 # ----------------------------------------------------------------------
@@ -531,16 +521,14 @@ def test_batched_model_on_mesh_equals_unsharded():
 # ----------------------------------------------------------------------
 # refusals under a mesh
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("case", ["train", "mapped", "npt", "tilted",
-                                  "cell", "planes"])
+@pytest.mark.parametrize("case", ["mapped", "tilted", "cell"])
 def test_unsharded_routes_refused(case):
-    """Each route this slice does not shard raises NotImplementedError
-    naming ROADMAP item 7b (a tilted box: the JAX package's own
-    refusal), instead of running unsharded."""
-    sim = htt.Simulation(dt=0.002, mesh=cpu_mesh(2), seed=0,
-                         integrator=(htt.md.NPT(kT=1.0, tau=0.5, P=1.0,
-                                                tauP=1.0)
-                                     if case == "npt" else None))
+    """Each route the port does not shard yet raises NotImplementedError
+    naming its ROADMAP item (7b.4, the packed routes; 7b.5, mapped
+    models; a tilted box: the JAX package's own refusal), instead of
+    running unsharded. Training, the planes route and NPT run under a
+    mesh (tests/test_torch_parallel_train.py)."""
+    sim = htt.Simulation(dt=0.002, mesh=cpu_mesh(2), seed=0)
     pos, vel, lengths = fluid_arrays(600, 0.4, 1, jitter=0.05)
     if case == "tilted":
         box = htt.make_box(-np.asarray(lengths) / 2,
@@ -550,12 +538,7 @@ def test_unsharded_routes_refused(case):
     else:
         sim.init_state(pos, lengths, velocities=vel)
     nlist = "cell" if case == "cell" else "cellwise"
-    if case == "train":
-        sim.add_force(htt.md.LennardJones(r_cut=2.5))
-        model = TLJ(48)
-        model.compile(optimizer="adam", loss="mse")
-        htt.tfcompute(model).attach(sim, r_cut=2.5, nlist=nlist, train=True)
-    elif case == "mapped":
+    if case == "mapped":
         tfc = htt.tfcompute(TLJModel(48))
         op = htt.sparse_mapping([np.ones((1, 2)) / 2] * 300,
                                 [[2 * i, 2 * i + 1] for i in range(300)],
@@ -566,8 +549,6 @@ def test_unsharded_routes_refused(case):
             return torch.cat([com, torch.zeros_like(com[:, :1])], dim=1)
         tfc.enable_mapped_nlist(sim, mapping)
         tfc.attach(sim, r_cut=2.5, nlist=nlist)
-    elif case == "planes":
-        htt.tfcompute(TPlanes(48)).attach(sim, r_cut=2.5, nlist=nlist)
     else:
         htt.tfcompute(TLJ(48)).attach(sim, r_cut=2.5, nlist=nlist)
     with pytest.raises(NotImplementedError) as e:
@@ -575,7 +556,7 @@ def test_unsharded_routes_refused(case):
     if case == "tilted":
         assert "mesh" in str(e.value)
     else:
-        assert "7b" in str(e.value)
+        assert {"mapped": "7b.5", "cell": "7b.4"}[case] in str(e.value)
     assert int(sim.state.step) == 0
 
 
