@@ -252,6 +252,29 @@ exits non-zero:
                route (1e-4), run(100) with host syncs forbidden beside the
                unsharded route's rate, then 50 steps of the planes
                training branch; peak memory of both.
+36. sharded packed -- phase 6's configuration (LJModel(64), 'auto' -> the
+               cell list with K3) from phase 4's fluid through
+               Simulation(mesh=) on phase 29's mesh: the packed grid has
+               no divisor, so shard s takes the z-layers nz s // S on;
+               8 steps equal to the unsharded engine's (1e-6; the lists
+               are bit-equal), each shard's K3 slab launch against its
+               slab plain version (bit for bit on the occupied home
+               rows), the gathered list bit-equal to the unsharded K3's,
+               shard 0's call timed beside its slab plain version,
+               torch.topk over its keys and its bound, the whole sharded
+               build beside the unsharded one, then a timed run(200) with
+               host syncs forbidden, slab launches = shards x builds;
+37. sharded direct -- phase 9's model (LJPotential(64) on 'direct'): each
+               shard's particle rows' planes, gathered bit-equal to the
+               whole planes; 8 steps equal to the unsharded engine's, a
+               timed run(50) with host syncs forbidden;
+38. sharded mapped -- phase 19's example 02 (65,536 atoms + 16,384 beads)
+               through Simulation(mesh=) on 'cell' (the sort method per
+               z-slab shard with the synthesized typed cut) and
+               'cellwise' (the planes per shard): one step equal to the
+               unsharded engine's (1e-6), then run(20) and run(10)
+               logged every 2nd step under phase 19's gates, host syncs
+               forbidden.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -4797,6 +4820,294 @@ def phase_sharded_planes(state):
     return err
 
 
+# ----------------------------------------------------------------------
+# phases 36-38: the packed routes and mapped models under a mesh
+# ----------------------------------------------------------------------
+def k3_slab_cost(buf, cnt, grid, cap, nn, nzl, valid_per_row):
+    """Bytes and operations of shard 0's K3 slab call: its slab buffer's
+    slots and counts read once, the rows of its occupied home slots
+    written once, and ``k3_cost``'s operations for its home queries
+    against their 27 cells."""
+    from hoomd_tf_tpu_torch.ops.cell_stencil import neighbor_cells
+    nx, ny, _ = grid
+    neigh = neighbor_cells((nx, ny, nzl + 2), cnt.device)
+    home = slice(nx * ny, (nzl + 1) * nx * ny)
+    c = cnt.long()
+    pairs = int((c[home] * c[neigh[home]].sum(1)).sum())
+    esize = buf.element_size()
+    rows = int(c[home].sum())
+    nbytes = buf.numel() * esize + cnt.numel() * 4 + rows * nn * 4 * esize
+    v = valid_per_row.double()
+    return nbytes, 24 * pairs + float((v * v).sum()), pairs
+
+
+def k3_slab_keys(buf, grid, cap, nzl, lengths):
+    """K3's selection keys of shard 0's home queries over their 27 cells,
+    from its slab buffer, in the plain version's arithmetic."""
+    from hoomd_tf_tpu_torch.ops import cell_stencil as cs
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    nx, ny, _ = grid
+    neigh = cs.neighbor_cells((nx, ny, nzl + 2), buf.device)
+    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(buf, neigh, cap, lengths,
+                                             nx * ny, (nzl + 1) * nx * ny)
+    C = 27 * cap
+    key, _ = nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
+                               ddz.reshape(-1, C), R_CUT, nc.slot_bits(C))
+    return key
+
+
+def sharded_pair(state, mesh, make, nlist, steps=8):
+    """A simulation on ``mesh`` and an unsharded one from ``state`` (NVT
+    at kT 1.5), ``make()`` attached on ``nlist``; ``steps`` steps of each,
+    the largest position difference by minimum image printed and gated at
+    1e-6 (the gathered lists are the unsharded ones bit for bit).
+    Returns ``(sharded, unsharded)``."""
+    sims = []
+    for m in (mesh, None):
+        sim = htt.Simulation(dt=0.005, seed=0, mesh=m,
+                             device=None if m else "cuda",
+                             integrator=htt.md.NVT(kT=1.5, tau=0.5))
+        sim.set_state(state)
+        htt.tfcompute(make()).attach(sim, r_cut=R_CUT, nlist=nlist)
+        sims.append(sim)
+    shd, ref = sims
+    shd.run(steps)
+    ref.run(steps)
+    d = shd.state.positions - ref.state.positions
+    L = torch.as_tensor(shd._lengths, dtype=d.dtype, device=d.device)
+    dmax = float((d - torch.round(d / L) * L).abs().max())
+    fmax = float((shd.state.forces - ref.state.forces).abs().max())
+    print(f"  {steps} NVT steps against the unsharded engine: max position "
+          f"difference {dmax:.3e}, forces {fmax:.3e} (limit 1e-6)")
+    check(dmax <= 1e-6 and fmax <= 1e-6,
+          f"{nlist!r}: the sharded trajectory left the unsharded one")
+    return shd, ref
+
+
+def phase_sharded_packed(state, packed_sps):
+    """Phase 36: phase 6's configuration (LJModel(64), 'auto' -> the cell
+    list with K3) at 65,536 particles through Simulation(mesh=): K3's slab
+    mode on every shard, the gathered list bit-equal to the unsharded
+    K3's, 8 steps against the unsharded engine, a timed run."""
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    from hoomd_tf_tpu_torch.ops import cell_stencil as cst
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    k3 = nc.nlist_select
+    NN = 64
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    print(f"  mesh: {kind}")
+    devices = [mesh.devices[s] for s in range(S)]
+    # the sharded engine's 8 steps run first in sharded_pair, then the
+    # unsharded engine's, which launch no slab call
+    k3.slab_launches = 0
+    shd, ref = sharded_pair(state, mesh, lambda: make_simmodel(NN), None)
+    build = shd._packed_build()
+    check(build.method == "pallas",
+          f"'auto' under the mesh resolved to {build.method!r}, not K3")
+    grid, cap = build.plan
+    check(ref._packed_build().plan == build.plan, "the plans differ")
+    launches = k3.slab_launches
+    check(launches == S * 8, f"slab launches {launches} != {S} x 8 builds")
+    shards = cst.z_slabs(grid[2], S)
+    print(f"  plan grid {grid} cap {cap}; z-layers per shard "
+          f"{[n for _, n in shards]} (nz s // S, no divisor); slab "
+          f"launches {launches} == {S} x 8 builds")
+
+    # one state: each shard's slab launch against its slab plain version,
+    # the gathered list against the unsharded K3
+    st = shd.state
+    lengths = box_size(st.box)
+    host_L = tuple(float(v) for v in lengths.cpu())
+    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
+                                               lengths)
+    check(not bool(ovf), "the state overflows its own plan")
+    nx, ny, nz = grid
+    home = nx * ny * cap
+    err = 0.0
+    for s, (z0, nzl) in enumerate(shards):
+        if not nzl:
+            continue
+        buf = cst.halo_slab(slots4, grid, cap, z0, nzl, devices[s])
+        cnt = cst.halo_slab(counts, grid, 1, z0, nzl, devices[s])
+        got = k3(buf, cnt, None, grid, cap, NN, R_CUT, host_L, None,
+                 slab=(z0, nzl))
+        want = nc.nlist_select_reference(buf, cnt, None, grid, cap, NN,
+                                         R_CUT, host_L, None, slab=(z0, nzl))
+        torch.cuda.synchronize()
+        held = pid[z0 * home:(z0 + nzl) * home] >= 0
+        g, w = got[held.to(got.device)], want[held.to(want.device)]
+        e = float((g - w).abs().max())
+        same = bool(torch.equal(g, w))
+        err = max(err, e)
+        print(f"  shard {s} (layers {z0}-{z0 + nzl - 1}) slab launch vs "
+              f"slab plain version: {int(held.sum())} home rows, "
+              f"max_abs_err={e:.3e}, bit-equal {same}")
+        check(same, f"shard {s}: K3's slab mode disagrees with its slab "
+              "plain version")
+    t_sh = cuda_ms(lambda: build.sharded(st.positions4, lengths, devices))
+    t_un = cuda_ms(lambda: build(st.positions4, lengths))
+    nl_s, ovf_s = build.sharded(st.positions4, lengths, devices)
+    nl_u, _ = build(st.positions4, lengths)
+    torch.cuda.synchronize()
+    check(not bool(ovf_s) and bool(torch.equal(nl_s, nl_u)),
+          "the gathered list differs from the unsharded K3's")
+    del nl_s, nl_u
+    print(f"  gathered list [{N}, {NN}, 4] bit-equal to the unsharded K3's; "
+          f"whole sharded build {t_sh:.4f} ms (binning, {S} slab buffers "
+          f"and calls, gather) against the unsharded build's {t_un:.4f} ms")
+
+    # shard 0's call: its time, its slab plain version's, its bound and
+    # torch.topk over its keys
+    z0, nzl = shards[0]
+    buf = cst.halo_slab(slots4, grid, cap, z0, nzl, devices[0])
+    cnt = cst.halo_slab(counts, grid, 1, z0, nzl, devices[0])
+    args = (buf, cnt, None, grid, cap, NN, R_CUT, host_L, None)
+    t_k = cuda_ms(lambda: k3(*args, slab=(z0, nzl)))
+    t_p = cuda_ms(lambda: nc.nlist_select_reference(*args, slab=(z0, nzl)),
+                  reps=5)
+    key = k3_slab_keys(buf, grid, cap, nzl, lengths)
+    held = pid[z0 * home:(z0 + nzl) * home] >= 0
+    valid = (key != nc.FAR_KEY).sum(1)[held]
+    t_lib = cuda_ms(lambda: torch.topk(key, NN, dim=1, largest=False,
+                                       sorted=True), reps=5)
+    nbytes, ops, pairs = k3_slab_cost(buf, cnt, grid, cap, NN, nzl, valid)
+    del key
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  shard 0's slab call ({nzl} layers, {int(held.sum())} queries):"
+          f" {t_k:.4f} ms; slab plain {t_p:.4f} ms; topk over its keys "
+          f"{t_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations over "
+          f"{pairs} candidate pairs)")
+
+    # the timed run, host syncs forbidden
+    del ref
+    shd.check_syncs = True
+    l0, a0, b0 = k3.slab_launches, k3.launches, shd.nlist_builds
+    steps = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timed_l, timed_b = k3.slab_launches - l0, shd.nlist_builds - b0
+    check(timed_l == S * timed_b == S * steps,
+          f"timed run: slab launches {timed_l}, builds {timed_b}")
+    check(k3.launches - a0 == timed_l,
+          "the sharded run launched an unsharded K3")
+    launches += timed_l
+    th = healthy(shd, "sharded packed")
+    sps = steps / dt
+    print(f"  T={th['temperature']:.4f}; slab launches of the runs "
+          f"{launches} (timed run {timed_l} = {S} x {timed_b} builds); no "
+          f"host sync; steps/s {sps:.2f} against phase 6's {packed_sps:.2f} "
+          f"({sps / packed_sps:.3f}x), {kind}, on {smi_line()} -- info, "
+          f"not a claim")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=t_lib, max_abs_err=err, launches=launches,
+                sharded_ms=t_sh)
+
+
+def phase_sharded_direct(state):
+    """Phase 37: phase 9's model (LJPotential(64) on 'direct') through
+    Simulation(mesh=): each shard's particle rows' planes on its device,
+    gathered bit-equal to the whole planes; 8 steps against the unsharded
+    engine, a timed run."""
+    from hoomd_tf_tpu_torch.ops.box import box_size
+    mesh, kind = shard_mesh()
+    S = mesh.size
+    devices = [mesh.devices[s] for s in range(S)]
+    shd, ref = sharded_pair(state, mesh, lambda: htt.LJPotential(64),
+                            "direct")
+    build = shd._packed_build()
+    check(build.method == "direct", f"'direct' resolved to {build.method}")
+    st = shd.state
+    lengths = box_size(st.box)
+    got, ovf = build.sharded(st.positions4, lengths, devices)
+    want, _ = build(st.positions4, lengths)
+    torch.cuda.synchronize()
+    check(not bool(ovf) and all(bool(torch.equal(a, b))
+                                for a, b in zip(got, want)),
+          "the gathered planes differ from the whole planes")
+    t_sh = cuda_ms(lambda: build.sharded(st.positions4, lengths, devices),
+                   reps=5)
+    t_un = cuda_ms(lambda: build(st.positions4, lengths), reps=5)
+    grid, cap = build.plan
+    print(f"  plan grid {grid} cap {cap}: planes [{N}, {27 * cap}] built "
+          f"by {S} shards' particle rows, bit-equal to the whole planes; "
+          f"the sharded build {t_sh:.4f} ms against {t_un:.4f} ms")
+    del got, want, ref
+    torch.cuda.empty_cache()
+    shd.check_syncs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shd.run(50)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    th = healthy(shd, "sharded direct")
+    print(f"  T={th['temperature']:.4f}; no host sync; steps/s "
+          f"{50 / dt:.2f} (timed run(50)), {kind}, on {smi_line()} -- "
+          f"info, not a claim")
+
+
+def phase_sharded_mapped(state):
+    """Phase 38: phase 19's example 02 (the mapped LJ, 65,536 atoms +
+    16,384 beads) through Simulation(mesh=) on 'cell' (the sort method
+    per z-slab shard with the synthesized typed cut) and on 'cellwise'
+    (the planes per shard): one step equal to the unsharded engine's,
+    then a short logged run under phase 19's gates."""
+    mesh, kind = shard_mesh()
+    base = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                          seed=19, device="cuda")
+    base.set_state(dataclasses.replace(state))
+    base.thermalize_velocities(1.5)
+    start = base.state
+    for nlist, steps in (("cell", 20), ("cellwise", 10)):
+        t_p = time.perf_counter()
+        sims = []
+        for m in (mesh, None):
+            sim = htt.Simulation(dt=0.005, seed=0, mesh=m,
+                                 device=None if m else "cuda",
+                                 integrator=htt.md.NVT(kT=1.5, tau=0.5))
+            sim.set_state(start)
+            tfc = htt.tfcompute(make_mapped_lj(64))
+            mapping, op = com_mapping(N)
+            tfc.enable_mapped_nlist(sim, mapping)
+            tfc.attach(sim, r_cut=R_CUT, nlist=nlist)
+            sims.append((sim, tfc))
+        (shd, tfc), (ref, _) = sims
+        if nlist == "cellwise":
+            plan = shd._ensure_layout().plan
+            ref._plan_from_current = lambda: plan
+            check(plan.grid[2] % mesh.size == 0, f"plan {plan.grid}")
+        else:
+            check(shd._packed_build().method == "sort",
+                  f"mapped 'cell' took {shd._packed_build().method!r}")
+        shd.run(1)
+        ref.run(1)
+        fmax = float((shd.state.forces - ref.state.forces).abs().max())
+        print(f"  {nlist!r}: one step against the unsharded engine, max "
+              f"force difference {fmax:.3e} (limit 1e-6)")
+        check(fmax <= 1e-6, f"mapped {nlist!r}: sharded != unsharded")
+        del ref, sims
+        torch.cuda.empty_cache()
+        shd.check_syncs = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shd.run(steps, log_period=2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        mapped_gates(shd, tfc, op, f"sharded {nlist!r}",
+                     shd.log["temperature"])
+        print(f"  sharded {nlist!r}: steps/s {steps / dt:.2f} (run({steps}),"
+              f" logged every 2nd step, host syncs forbidden), {kind}; "
+              f"phase part {time.perf_counter() - t_p:.1f} s -- info, not "
+              f"a claim")
+        del shd, tfc
+        torch.cuda.empty_cache()
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -5028,6 +5339,20 @@ def main():
     print("[35 sharded planes] a SimModel the probe rejects through "
           "ShardedSimulation: the planes built per shard, run and train")
     phase_sharded_planes(shard_state)
+    torch.cuda.empty_cache()
+    t36 = time.perf_counter()
+    print("[36 sharded packed] phase 6's configuration through "
+          "Simulation(mesh=): K3's slab mode on every shard")
+    k3_slab = phase_sharded_packed(shard_state, k3["sps"])
+    torch.cuda.empty_cache()
+    print("[37 sharded direct] phase 9's model on 'direct': the planes by "
+          "particle rows per shard")
+    phase_sharded_direct(shard_state)
+    torch.cuda.empty_cache()
+    print("[38 sharded mapped] phase 19's example 02 through "
+          "Simulation(mesh=) on 'cell' and 'cellwise'")
+    phase_sharded_mapped(shard_state)
+    print(f"  phases 36-38: {time.perf_counter() - t36:.1f} s")
     del shard_state
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
@@ -5128,6 +5453,18 @@ def main():
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
              replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
                       "contraction; no Pallas kernel)", **bwd_slab),
+        dict(name="K3 cell-list neighbor selection, slab mode "
+                  "(nlist_select(slab=); ms, plain_ms, bound_ms: shard 0's "
+                  "call, its slab plain version and its own bound; "
+                  "sharded_ms: phase 36's whole sharded build, the binning, "
+                  "slab buffers, slab calls and gather; library_ms: "
+                  "torch.topk over shard 0's keys, selection only; "
+                  "launches: slab launches of phase 36's runs)",
+             source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
+             replaces="hoomd_tf_tpu/ops/nlist_pallas.py:163 (the "
+                      "pallas_call of _kernel at :43, on the rows GSPMD "
+                      "gives each device under the JAX package's mesh)",
+             **k3_slab),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

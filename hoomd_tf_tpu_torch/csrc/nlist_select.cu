@@ -61,6 +61,19 @@
 //     when the counts show some (sum of counts < n): it marks the held
 //     particles in shared memory from pid, no atomics.
 //
+// The slab mode (a z-slab shard of a device mesh, params->slab set): the
+// slots and counts are a slab buffer of nz = nzl + 2 layers, the shard's
+// halo layer z0 - 1, its nzl home layers and its halo layer z0 + nzl (the
+// 27-cell window reaches z - 1 and z + 1 only). Blocks take the strips of
+// the home layers (buffer layers 1 .. nzl), the window's z indexes the
+// buffer with no wrap, and a query writes its row at its home slot, (c -
+// nx ny) cap + r for buffer cell c: the output is [nzl nx ny cap, nn, 4]
+// in slot order, and a row of an empty slot is not written. The window's
+// cells, their order and counts are the unsharded window's, so every row
+// equals the unsharded kernel's row of its particle bit for bit; pid is
+// not read, and the zero rows of particles without a slot are the
+// gather's (ops/cell_list.py::CellNlist.sharded).
+//
 // The kernel is a template on the scalar type T (scalar.cuh), built for
 // float and for double. In double the slots, the list and the arithmetic
 // are double (d - rint(d / L) L with __ddiv_rn, __dmul_rn, __dsub_rn), the
@@ -82,7 +95,7 @@
 // namespace: the C entry point takes it and must stay external.
 struct K3Params {
   int nx, ny, nz, cap, nn;
-  int strip, warps, n_strips, smem, f64;
+  int strip, warps, n_strips, smem, f64, slab;
   unsigned slot_mask;
   double rc2, lo2;
   double L[3], t0[3], t1[3], t2[3];
@@ -98,7 +111,7 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory per block
 // The kernel's copy of the parameters, in its scalar type.
 template <class T>
 struct KParams {
-  int nx, ny, nz, cap, nn, strip, warps, n_strips, smem;
+  int nx, ny, nz, cap, nn, strip, warps, n_strips, smem, slab;
   unsigned slot_mask;
   T rc2, lo2;
   T L[3], t0[3], t1[3], t2[3];
@@ -251,7 +264,7 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
   using K = typename KeyOf<T>::type;
   constexpr K kFar = ~K(0);
   unsigned char* smem = htf::dynamic_smem<unsigned char>();
-  if (blockIdx.x == 0) {
+  if (!p.slab && blockIdx.x == 0) {
     zero_unheld_rows(p, counts, pid, n, out, smem);
     return;
   }
@@ -264,10 +277,11 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
   int* cell = start + nwmax + 1;          // [nw]
   int* qstart = cell + nwmax;             // [S + 1]
 
-  const int b = blockIdx.x - 1;
+  // the slab mode has no block 0, and its strips lie in layers 1 .. nz - 2
+  const int b = blockIdx.x - (p.slab ? 0 : 1);
   const int sx = b % p.n_strips;
   const int y0 = (b / p.n_strips) % p.ny;
-  const int z0 = b / (p.n_strips * p.ny);
+  const int z0 = b / (p.n_strips * p.ny) + p.slab;
   const int x0 = sx * p.strip;
   const int S = min(p.strip, p.nx - x0);  // the last strip may be ragged
   const int nw = (S + 2) * 9;
@@ -282,7 +296,8 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
     const int ry = row / 3, rz = row - 3 * ry;
     const int x = (x0 - 1 + xw + p.nx) % p.nx;
     const int y = (y0 - 1 + ry + p.ny) % p.ny;
-    const int z = (z0 - 1 + rz + p.nz) % p.nz;
+    // a slab buffer's window lies inside it: no wrap in z
+    const int z = p.slab ? z0 - 1 + rz : (z0 - 1 + rz + p.nz) % p.nz;
     const int c = x + p.nx * (y + p.ny * z);
     cell[w] = c;
     start[w + 1] = counts[c];
@@ -348,7 +363,11 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
     const int qr = t - qstart[i];
     const int wq = 9 * (i + 1) + 4;
     const Vec4<T> q = cand[start[wq] + qr];
-    const int particle = pid[static_cast<size_t>(cell[wq]) * p.cap + qr];
+    // the row: the query's particle, or in the slab mode its home slot
+    const size_t row_id =
+        p.slab ? static_cast<size_t>(cell[wq] - p.nx * p.ny) * p.cap + qr
+               : static_cast<size_t>(
+                     pid[static_cast<size_t>(cell[wq]) * p.cap + qr]);
     const int lo = start[9 * i];
     const int total = start[9 * i + 27] - lo;
 
@@ -400,7 +419,7 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
 
     // the whole row, coalesced, zeros past the valid count
     const int nout = min(nv, p.nn);
-    Vec4<T>* row = out + static_cast<size_t>(particle) * p.nn;
+    Vec4<T>* row = out + row_id * p.nn;
     for (int c = lane; c < p.nn; c += 32) {
       Vec4<T> o = htf::vec4(T(0), T(0), T(0), T(0));
       if (c < nout) o = displacement(p, cand[lo + win[c]], q);
@@ -421,7 +440,7 @@ int launch(const K3Params& p, const void* slots, const int* counts,
            const int* pid, int n, void* out, cudaStream_t stream) {
   KParams<T> k{p.nx,    p.ny,       p.nz,         p.cap,
                p.nn,    p.strip,    p.warps,      p.n_strips,
-               p.smem,  p.slot_mask, static_cast<T>(p.rc2),
+               p.smem,  p.slab,     p.slot_mask,  static_cast<T>(p.rc2),
                static_cast<T>(p.lo2)};
   for (int a = 0; a < 3; ++a) {
     k.L[a] = static_cast<T>(p.L[a]);
@@ -437,7 +456,8 @@ int launch(const K3Params& p, const void* slots, const int* counts,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = p.smem;
   }
-  const int blocks = 1 + p.n_strips * p.ny * p.nz;
+  const int blocks = p.slab ? p.n_strips * p.ny * (p.nz - 2)
+                           : 1 + p.n_strips * p.ny * p.nz;
   nlist_select_kernel<T><<<blocks, p.warps * 32, p.smem, stream>>>(
       k, static_cast<const Vec4<T>*>(slots), counts, pid, n,
       static_cast<Vec4<T>*>(out));
@@ -450,15 +470,19 @@ extern "C" {
 
 // Launch on `stream`; `slots` the [n_cells * cap][4] slot rows and `out`
 // the [n, nn, 4] list (any contents: every row is written), both float32
-// or, when params->f64 is set, float64. Returns cudaGetLastError() of the
-// launch (0 = ok).
+// or, when params->f64 is set, float64. In the slab mode (params->slab)
+// `slots` and `counts` are the slab buffer's nz = nzl + 2 layers, `pid`
+// is not read and `out` is [n, nn, 4] with n = nzl nx ny cap, the home
+// slots' rows (those of empty slots are not written). Returns
+// cudaGetLastError() of the launch (0 = ok).
 int htf_nlist_select(const K3Params* params, const void* slots,
                      const int* counts, const int* pid, int n, void* out,
                      void* stream) {
   const K3Params& p = *params;
   const int slot_bytes = p.f64 ? 32 : 16, key_bytes = p.f64 ? 8 : 4;
   if (p.warps < 1 || p.warps > kMaxWarps || p.cap < 1 || p.nn < 1 ||
-      p.strip < 1 || p.strip > p.nx ||
+      p.strip < 1 || p.strip > p.nx || (p.slab != 0 && p.slab != 1) ||
+      (p.slab && (p.nz < 3 || n != (p.nz - 2) * p.nx * p.ny * p.cap)) ||
       p.n_strips != (p.nx + p.strip - 1) / p.strip || n < 0 ||
       p.smem != smem_bytes(p.cap, p.nn, p.strip, p.warps, slot_bytes,
                            key_bytes) ||

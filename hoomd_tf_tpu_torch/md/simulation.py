@@ -69,12 +69,14 @@ Under a device mesh (``Simulation(mesh=)``, :mod:`..parallel`) the state
 stays whole on the mesh's first device and the pair work is split: on
 ``'cellwise'`` into z-slabs run by K1's slab mode on each shard's device
 (:func:`..ops.cellwise.analytic_pair_forces` with ``mesh=``), on
-``'n2'`` the dense build into contiguous particle rows, the model then
-called once on the whole list. Online training runs its backward per
-shard too (:func:`..ops.pair_train.pair_train_forces` with ``mesh=``),
-a SimModel the probe rejects gets its planes built per shard and runs
-once on all rows, and NPT's dynamic-box layout plans with the mesh's
-divisor; the routes not yet sharded raise.
+``'n2'`` the dense build into contiguous particle rows, on the cell list
+into z-slabs of cells (kernel K3's slab mode on the card), on ``'direct'``
+the planes into particle rows, the model then called once on the whole
+list. Online training runs its backward per shard too
+(:func:`..ops.pair_train.pair_train_forces` with ``mesh=``), a SimModel
+the probe rejects (or a mapped model) gets its planes built per shard and
+runs once on all rows, and NPT's dynamic-box layout plans with the mesh's
+divisor.
 
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
 wire, ``scan_block``, compile-cache keys, the readback caches for a
@@ -149,16 +151,21 @@ class Simulation:
         forward halo layer (:func:`..ops.cellwise.analytic_pair_forces`),
         the reverse halos added on the first device; on ``'n2'`` each
         shard builds the dense list of its contiguous particle rows on its
-        device, and the model runs once a step on the gathered list, so a
+        device, on ``'cell'`` / ``'pallas'`` each shard selects the rows of
+        its z-slab of cells (K3's slab mode on the card, or the sort
+        method; the packed grid has no divisor, so the slabs are ``nz s //
+        S`` on), on ``'direct'`` each shard builds its particle rows'
+        planes; the model runs once a step on the gathered list, so a
         stateful model (metrics, EDS) means what it means without a mesh.
         The integrators (NPT too) and the built-in forces act on the
         whole state unchanged. Online training runs its backward per
         shard (K2 or ``generic_reduce_bwd`` in slab mode), and the planes
         route of a SimModel the probe rejects builds each shard's planes
         on its device and runs the model once on all rows. A mapped
-        model, a tilted box and the packed cell-list and direct routes
-        raise ``NotImplementedError`` under a mesh (ROADMAP.md Queue 1
-        items 7b.4 and 7b.5; a tilted box as in the JAX package).
+        model's mapping runs on the whole state, its list or planes are
+        built per shard as above. A tilted box raises
+        ``NotImplementedError`` on ``'cellwise'`` under a mesh, as in the
+        JAX package.
     :param shard_axis: the mesh axis of the shards.
     """
 
@@ -406,23 +413,8 @@ class Simulation:
         """Shards of the mesh (1 without one)."""
         return 1 if self.mesh is None else self.mesh.shape[self.shard_axis]
 
-    def _mesh_refuse(self, what, item):
-        """Raise for a route the port does not shard yet (ROADMAP.md Queue
-        1 ``item``)."""
-        raise NotImplementedError(
-            f"{what} does not run under a device mesh yet (ROADMAP.md "
-            f"Queue 1 item {item}); run it with Simulation(mesh=None)")
-
     def _sharded(self):
         return self.n_shards > 1
-
-    def _mesh_check(self):
-        """Refuse, before a run under a mesh starts, what the port does
-        not shard on any route: a mapped model (ROADMAP.md item 7b.5; the
-        packed cell routes, 7b.4, are refused where they are chosen)."""
-        tfc = self.tfc
-        if tfc is not None and tfc.map_enabled:
-            self._mesh_refuse("a mapped model", "7b.5")
 
     def _kernel_eligible(self):
         """Will kernel K1 be the hot loop? (The planner then costs the
@@ -1126,8 +1118,6 @@ class Simulation:
         if log_period is not None and int(log_period) < 1:
             raise ValueError(f"log_period must be >= 1, got {log_period}")
         self._adopt(self.state)
-        if self._sharded():
-            self._mesh_check()
         run_once = self._run_once if self._use_cellwise() \
             else self._run_packed
         model = self.tfc.model if self.tfc is not None else None
@@ -1350,6 +1340,9 @@ class Simulation:
             params = self._nlist_params()
             self._nlist_build = (None if params is None else
                                  self._make_nlist_build(*params))
+            if self._sharded() and hasattr(self._nlist_build, "prepare"):
+                # each shard's device constants, before any step loop
+                self._nlist_build.prepare(self._shard_devices())
         return self._nlist_build
 
     def _make_nlist_build(self, r_cut, rc_matrix, method, NN):
@@ -1362,15 +1355,6 @@ class Simulation:
         lengths = np.asarray(self._lengths, dtype=np.float64)
         n = self.state.n_particles
         tilted = any(self._tilt)
-        if self._sharded():
-            # the dense build is the packed route a mesh shards (by rows)
-            if method == "auto" and (n < 512 or tilted or
-                                     not _cl.CellList().usable(lengths,
-                                                               r_cut)):
-                method = "n2"
-            if method != "n2":
-                self._mesh_refuse(f"the packed {method!r} neighbor route",
-                                  "7b.4")
         if tilted and (method in ("cell", "pallas", "direct") or
                        isinstance(method, _cl.CellList)):
             raise NotImplementedError(
@@ -1476,24 +1460,35 @@ class Simulation:
                  None if lab is None else lab[a:a + k])
                 for a in range(0, n + pad, k)]
 
+    def _shard_devices(self):
+        """The device of each mesh shard, in shard order."""
+        return [self.mesh.devices[s] for s in range(self.n_shards)]
+
     def _shard_rows(self, n):
         """The contiguous particle rows of each mesh shard: ``slice``s."""
         S = self.n_shards
         return [slice(n * s // S, n * (s + 1) // S) for s in range(S)]
 
     def _shard_build(self, build, st):
-        """The dense list built by rows, each mesh shard's rows on its
-        device against every particle (the JAX package's row partition of
-        the dense build), gathered on the simulation's device: the model
-        then runs once on the whole list, as without a mesh."""
+        """The packed build split over the mesh's shards, gathered on the
+        simulation's device, ``(nlist or planes, overflow or None)``: the
+        dense list by rows, each shard's rows on its device against every
+        particle (the JAX package's row partition of the dense build); a
+        cell list by z-slabs of cells, each shard selecting its home
+        cells' rows on its device (K3's slab mode, or the sort method;
+        :meth:`..ops.cell_list.CellNlist.sharded`); the direct planes by
+        particle rows (:meth:`..ops.direct.DirectPlanes.sharded`). The
+        model then runs once on the whole list, as without a mesh."""
+        devices = self._shard_devices()
+        if not isinstance(build, DenseNlist):
+            return build.sharded(st.positions4, box_size(st.box), devices)
         box = self._build_box(st)
         lists = []
-        for s, rows in enumerate(self._shard_rows(st.n_particles)):
-            dev = self.mesh.devices[s]
+        for dev, rows in zip(devices, self._shard_rows(st.n_particles)):
             nl = build(to_device(st.positions4, dev), to_device(box, dev),
                        rows=rows)[0]
             lists.append(to_device(nl, self.device))
-        return torch.cat(lists)
+        return torch.cat(lists), None
 
     def _eval_model(self, st, nlist):
         """One model evaluation (the JAX ``eval_model``, chunked with
@@ -1559,7 +1554,7 @@ class Simulation:
             # the CG beads follow the atoms before the neighbor build
             st = tfc.apply_mapping(st)
         if build is not None and self._sharded():
-            nlist, cell_overflow = self._shard_build(build, st), None
+            nlist, cell_overflow = self._shard_build(build, st)
             self.nlist_builds += 1
         elif build is not None:
             nlist, cell_overflow = build(st.positions4, self._build_box(st))

@@ -28,10 +28,10 @@ import math
 import numpy as np
 import torch
 
-from .._device import device_for
+from .._device import device_for, to_device
 from .box import box_size as _box_size, host_tilt
-from .cell_stencil import (cell_chunks, chunk_pairs, neighbor_cells,
-                           to_particle_order)
+from .cell_stencil import (cell_chunks, chunk_pairs, halo_slab,
+                           neighbor_cells, to_particle_order, z_slabs)
 from .nlist_cuda import cut_values, host_length, nlist_select
 
 
@@ -159,8 +159,19 @@ def sort_nlist(slots4, pid, n, grid, cap, NN, r_cut, lengths, rc2_tab=None,
     :param lengths: ``[3]`` box lengths tensor on the slots' device.
     :param rc2_tab: ``[T, T]`` squared per-type cutoffs, or ``None``.
     """
+    rows = sort_rows(slots4, grid, cap, NN, r_cut, lengths, rc2_tab, neigh)
+    return to_particle_order(rows, pid, n)
+
+
+def sort_rows(slots4, grid, cap, NN, r_cut, lengths, rc2_tab=None,
+              neigh=None, cells=None):
+    """:func:`sort_nlist`'s rows in slot order, ``[(c1 - c0) cap, NN,
+    4]``, of the query slots of cells ``cells = (c0, c1)`` of ``grid``
+    (all by default; a z-slab shard's home cells of its slab buffer's
+    grid, whose 27-cell windows lie inside the buffer). An empty slot's
+    row is zero."""
     from .cellwise import pair_rc2
-    n_cells = int(np.prod(grid))
+    c0, c1 = cells if cells is not None else (0, int(np.prod(grid)))
     if neigh is None:
         neigh = neighbor_cells(grid, slots4.device)
     C = 27 * cap
@@ -169,15 +180,15 @@ def sort_nlist(slots4, pid, n, grid, cap, NN, r_cut, lengths, rc2_tab=None,
     # the key: d2's bits as an integer of d2's width (d2 >= 0, so integer
     # order is value order), the integer's max where invalid
     itype = torch.int64 if slots4.dtype == torch.float64 else torch.int32
-    out = torch.zeros((n_cells * cap, NN, 4), dtype=slots4.dtype,
+    out = torch.zeros(((c1 - c0) * cap, NN, 4), dtype=slots4.dtype,
                       device=slots4.device)
-    for c0, c1 in cell_chunks(n_cells, cap):
+    for a0, a1 in cell_chunks(c1 - c0, cap):
         ddx, ddy, ddz, d2, qt, gt = chunk_pairs(slots4, neigh, cap, lengths,
-                                                c0, c1)
+                                                c0 + a0, c0 + a1)
         valid = (d2 <= rc2) & (d2 >= lo2)
         if rc2_tab is not None:
             valid = valid & (d2 <= pair_rc2(qt, gt, rc2_tab))
-        rows = (c1 - c0) * cap
+        rows = (a1 - a0) * cap
         key = torch.where(valid, d2.view(itype),
                           torch.iinfo(itype).max).reshape(rows, C)
         idx = torch.sort(key, dim=1, stable=True).indices[:, :k]
@@ -185,8 +196,8 @@ def sort_nlist(slots4, pid, n, grid, cap, NN, r_cut, lengths, rc2_tab=None,
         pay = torch.stack([torch.gather(p.reshape(rows, C), 1, idx) for p in
                            (ddx, ddy, ddz, gt_b)], dim=-1)
         keep = torch.gather(valid.reshape(rows, C), 1, idx)
-        out[c0 * cap:c1 * cap, :k] = pay * keep[..., None].to(pay.dtype)
-    return to_particle_order(out, pid, n)
+        out[a0 * cap:a1 * cap, :k] = pay * keep[..., None].to(pay.dtype)
+    return out
 
 
 class CellNlist:
@@ -220,6 +231,8 @@ class CellNlist:
                       else None)
         self.rc2_tab = (None if rcut_matrix is None else
                         rc2_table(rcut_matrix, dtype, device))
+        # each mesh shard's device constants (:meth:`prepare`)
+        self._shard_consts = {}
 
     @property
     def plan(self):
@@ -242,6 +255,67 @@ class CellNlist:
                                self.NN, self.r_cut, lengths, self.rc2_tab,
                                self.neigh)
         return nlist, overflow
+
+    def _consts(self, device, nzl):
+        """The sort method's neighbour ids of a slab buffer of ``nzl + 2``
+        layers and the typed-cutoff table, on ``device`` (made once per
+        shard)."""
+        key = (str(device), nzl)
+        c = self._shard_consts.get(key)
+        if c is None:
+            nx, ny, _ = self.grid
+            neigh = (None if self.method == "pallas" else
+                     neighbor_cells((nx, ny, nzl + 2), device))
+            rc2 = (None if self.rc2_tab is None else
+                   to_device(self.rc2_tab, device))
+            c = self._shard_consts[key] = (neigh, rc2)
+        return c
+
+    def prepare(self, devices):
+        """Make each shard's device constants (:meth:`sharded`'s) now, so
+        a step loop's first sharded call copies nothing from the host."""
+        for dev, (_, nzl) in zip(devices, z_slabs(self.grid[2],
+                                                  len(devices))):
+            if nzl:
+                self._consts(torch.device(dev), nzl)
+
+    def sharded(self, pos4, box_lengths, devices):
+        """The build under a device mesh of the shards on ``devices``:
+        the particles binned once on ``pos4``'s device, then each shard's
+        z-slab of cells (:func:`.cell_stencil.z_slabs`: ``nz s // S`` on,
+        uneven where ``S`` does not divide ``nz``) selected on its device
+        from a slab buffer of its home layers and one halo layer on each
+        side (:func:`.cell_stencil.halo_slab`) -- K3's slab mode, or the
+        sort method over the buffer's home cells -- and the home slots'
+        rows gathered on ``pos4``'s device in particle order (a particle
+        without a slot gets a zero row). Every row equals the unsharded
+        call's bit for bit. The overflow flag is the binning's over every
+        cell: the OR of the shards' home cells' flags.
+
+        :returns: ``(nlist [N, NN, 4], overflow)``, as a call."""
+        lengths = box_lengths.to(pos4.dtype)
+        slots4, counts, pid, overflow = build_planes(pos4, self.grid,
+                                                     self.capacity, lengths)
+        nx, ny, nz = self.grid
+        rows = []
+        for dev, (z0, nzl) in zip(devices, z_slabs(nz, len(devices))):
+            if not nzl:
+                continue
+            dev = torch.device(dev)
+            buf = halo_slab(slots4, self.grid, self.capacity, z0, nzl, dev)
+            neigh, rc2 = self._consts(dev, nzl)
+            if self.method == "pallas":
+                r = nlist_select(
+                    buf, halo_slab(counts, self.grid, 1, z0, nzl, dev),
+                    None, self.grid, self.capacity, self.NN, self.r_cut,
+                    self.lengths, None, slab=(z0, nzl))
+            else:
+                r = sort_rows(buf, (nx, ny, nzl + 2), self.capacity, self.NN,
+                              self.r_cut, to_device(lengths, dev), rc2,
+                              neigh, cells=(nx * ny, (nzl + 1) * nx * ny))
+            rows.append(to_device(r, pos4.device))
+        return to_particle_order(torch.cat(rows), pid, pos4.shape[0]), \
+            overflow
 
 
 def cell_list_nlist(pos4, r_cut, NN, box, config=None, return_overflow=False,

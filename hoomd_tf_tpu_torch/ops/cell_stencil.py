@@ -2,13 +2,18 @@
 method (:mod:`.cell_list`) and kernel K3's plain version
 (:mod:`.nlist_cuda`): neighbour cell ids, minimum-image displacements
 from query slots to their candidates in the JAX package's operation
-order, and the scatter of slot rows to particle order."""
+order, and the scatter of slot rows to particle order; under a device
+mesh each z-slab shard's layers and the buffer of its home layers with
+one halo layer on each side, which the full stencil reaches (K3's slab
+mode, the sort method per shard, the planes per shard)."""
 
 import numpy as np
 import torch
 
+from .._device import to_device
+
 __all__ = ["neighbor_cells", "chunk_pairs", "cell_chunks",
-           "to_particle_order"]
+           "to_particle_order", "z_slabs", "check_slab", "halo_slab"]
 
 
 def neighbor_cells(grid, device):
@@ -70,3 +75,38 @@ def to_particle_order(rows, pid, n):
                       device=rows.device)
     out[dest] = rows
     return out[:n]
+
+
+def z_slabs(nz, n_shards):
+    """``[(z0, nzl), ...]``: each of ``n_shards`` shards' z-layers of a
+    packed cell grid of ``nz`` layers, ``z0 = nz s // S``, uneven when
+    ``S`` does not divide ``nz`` (the packed plan has no divisor, as in
+    the JAX package); ``nzl`` is 0 for a shard with no layer (``nz <
+    S``), which has no work."""
+    S = int(n_shards)
+    return [(nz * s // S, nz * (s + 1) // S - nz * s // S) for s in range(S)]
+
+
+def check_slab(grid, slab):
+    """Raise unless ``slab = (z0, nzl)`` lies inside ``grid``'s layers."""
+    nz = int(grid[2])
+    z0, nzl = (int(v) for v in slab)
+    if not (0 <= z0 and 1 <= nzl and z0 + nzl <= nz):
+        raise ValueError(f"slab {slab} of a grid of {nz} layers")
+
+
+def halo_slab(t, grid, per_cell, z0, nzl, device=None):
+    """The rows a z-slab shard's full 27-cell stencil reads from ``t``, a
+    tensor whose leading axis holds ``per_cell`` rows per cell of
+    ``grid`` in the z-major cell order (slots: ``per_cell = cap``; counts:
+    1): the halo layer ``(z0 - 1) % nz``, the home layers ``z0 .. z0 + nzl
+    - 1`` and the halo layer ``(z0 + nzl) % nz``, on ``device`` when
+    given. A halo layer may repeat a home layer (``nzl + 2 > nz``): the
+    buffer is a list of layers, not a set."""
+    nx, ny, nz = (int(g) for g in grid)
+    check_slab(grid, (z0, nzl))
+    layer = nx * ny * int(per_cell)
+    # a shard's home layers end at z0 + nzl <= nz: only the halos wrap
+    spans = [((z0 - 1) % nz, 1), (z0, nzl), ((z0 + nzl) % nz, 1)]
+    buf = torch.cat([t[z * layer:(z + k) * layer] for z, k in spans])
+    return buf if device is None else to_device(buf, device)

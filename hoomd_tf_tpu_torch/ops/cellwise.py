@@ -32,6 +32,7 @@ import torch
 
 from .._device import resolve_device, to_device
 from .cell_list import CellList
+from .cell_stencil import halo_slab
 
 __all__ = ["Cellwise", "CellwisePlan", "plan_cellwise",
            "analytic_pair_forces", "cellwise_planes", "repack_order", "repack_src",
@@ -559,14 +560,11 @@ def sharded_planes(positions, types, valid, plan, mesh, shard_axis=None,
     :param box: the ``[3, 3]`` box tensor (required: a shard's copy is
         made from it)."""
     from .direct import NlistPlanes
-    nx, ny, nz = plan.grid
-    layer = nx * ny * plan.capacity
+    nx, ny, _ = plan.grid
     primary = positions.device
     parts = []
     for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
-        spans = [((z0 - 1) % nz, 1), (z0, nzl), ((z0 + nzl) % nz, 1)]
-        buf = [to_device(torch.cat([t[z * layer:(z + k) * layer]
-                                    for z, k in spans]), dev)
+        buf = [halo_slab(t, plan.grid, plan.capacity, z0, nzl, dev)
                for t in (positions, types, valid)]
         bp = dataclasses.replace(plan, grid=(nx, ny, nzl + 2))
         rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)

@@ -16,10 +16,12 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import to_device
 from .cell_list import build_planes
 from .cell_stencil import neighbor_cells
 
-__all__ = ["NlistPlanes", "direct_cell_planes", "DirectPlanes"]
+__all__ = ["NlistPlanes", "direct_cell_planes", "direct_rows",
+           "DirectPlanes"]
 
 
 class NlistPlanes(NamedTuple):
@@ -69,29 +71,45 @@ def direct_cell_planes(pos4, r_cut, grid, capacity, box_lengths,
     :param neigh: :func:`.cell_stencil.neighbor_cells` of the grid.
     :return: ``(NlistPlanes [N, 27 * capacity], overflow flag)``.
     """
-    from .cellwise import pair_rc2
-    n = pos4.shape[0]
-    cap = capacity
     lengths = box_lengths.to(pos4.dtype)
     if neigh is None:
         neigh = neighbor_cells(grid, pos4.device)
-    slots4, _, _, overflow = build_planes(pos4, grid, cap, lengths)
+    slots4, _, _, overflow = build_planes(pos4, grid, capacity, lengths)
     cell = _cell_of(pos4[:, :3], grid, lengths)
+    return (direct_rows(pos4, slots4, cell, neigh, capacity, lengths, r_cut,
+                        rcut_matrix), overflow)
+
+
+def direct_rows(pos4, slots4, cell, neigh, cap, lengths, r_cut,
+                rcut_matrix=None, rows=None):
+    """The planes of the particle rows ``rows`` (a ``slice``, all by
+    default) from the binned slots: each row's 27-cell candidates, equal
+    to its row of the whole planes (a mesh shard's rows, as
+    :func:`.nlist._compute_nlist`'s ``rows=``).
+
+    :param slots4: ``[n_cells * cap, 4]`` slot rows of every cell.
+    :param cell: ``[N]`` cell of each particle.
+    :param lengths: ``[3]`` box lengths tensor of ``pos4``'s dtype.
+    """
+    from .cellwise import pair_rc2
+    rows = slice(None) if rows is None else rows
+    q4 = pos4[rows]
     ar = torch.arange(cap, device=pos4.device)
-    gidx = (neigh[cell][:, :, None] * cap + ar).reshape(n, 27 * cap)
-    g = slots4[gidx]                                     # [N, C, 4]
+    gidx = (neigh[cell[rows]][:, :, None] * cap + ar).reshape(
+        q4.shape[0], 27 * cap)
+    g = slots4[gidx]                                     # [rows, C, 4]
     dd = []
     for a in range(3):
-        d = g[:, :, a] - pos4[:, a:a + 1]
+        d = g[:, :, a] - q4[:, a:a + 1]
         dd.append(d - torch.round(d / lengths[a]) * lengths[a])
     d2 = dd[0] * dd[0] + dd[1] * dd[1] + dd[2] * dd[2]
     valid = (d2 <= r_cut * r_cut) & (d2 >= 25e-8)
     gt = g[:, :, 3]
     if rcut_matrix is not None:
-        valid = valid & (d2 <= pair_rc2(pos4[:, 3:4], gt, rcut_matrix))
+        valid = valid & (d2 <= pair_rc2(q4[:, 3:4], gt, rcut_matrix))
     zero = torch.zeros((), dtype=pos4.dtype, device=pos4.device)
-    return (NlistPlanes(*(torch.where(valid, v, zero)
-                          for v in (dd[0], dd[1], dd[2], gt))), overflow)
+    return NlistPlanes(*(torch.where(valid, v, zero)
+                         for v in (dd[0], dd[1], dd[2], gt)))
 
 
 class DirectPlanes:
@@ -113,6 +131,7 @@ class DirectPlanes:
         self.neigh = neighbor_cells(self.grid, device)
         self.rc2_tab = (None if rcut_matrix is None else
                         rc2_table(rcut_matrix, dtype, device))
+        self._shard_consts = {}
 
     @property
     def plan(self):
@@ -122,3 +141,48 @@ class DirectPlanes:
     def __call__(self, pos4, box_lengths):
         return direct_cell_planes(pos4, self.r_cut, self.grid, self.capacity,
                                   box_lengths, self.rc2_tab, self.neigh)
+
+    def sharded(self, pos4, box_lengths, devices):
+        """The build under a device mesh of the shards on ``devices``: the
+        particles binned once on ``pos4``'s device; each shard's contiguous
+        particle rows (``N s // S`` on) get their planes on its device from
+        a copy of the slots (:func:`direct_rows`), gathered on ``pos4``'s
+        device. Equal to a call's planes bit for bit; the overflow flag is
+        the binning's, over every cell.
+
+        :returns: ``(NlistPlanes [N, 27 * capacity], overflow)``."""
+        lengths = box_lengths.to(pos4.dtype)
+        slots4, _, _, overflow = build_planes(pos4, self.grid, self.capacity,
+                                              lengths)
+        cell = _cell_of(pos4[:, :3], self.grid, lengths)
+        n, S = pos4.shape[0], len(devices)
+        parts = []
+        for s, dev in enumerate(devices):
+            rows = slice(n * s // S, n * (s + 1) // S)
+            dev = torch.device(dev)
+            neigh, rc2 = self._consts(dev)
+            pl = direct_rows(to_device(pos4[rows], dev),
+                             to_device(slots4, dev),
+                             to_device(cell[rows], dev), neigh,
+                             self.capacity, to_device(lengths, dev),
+                             self.r_cut, rc2)
+            parts.append(pl.map(lambda c: to_device(c, pos4.device)))
+        return NlistPlanes(*(torch.cat(cs) for cs in zip(*parts))), overflow
+
+    def prepare(self, devices):
+        """Make each shard's device constants now (see
+        :meth:`.cell_list.CellNlist.prepare`)."""
+        for dev in devices:
+            self._consts(torch.device(dev))
+
+    def _consts(self, device):
+        """The neighbour ids and the typed-cutoff table on a shard's
+        ``device`` (made once per device)."""
+        key = str(device)
+        c = self._shard_consts.get(key)
+        if c is None:
+            c = self._shard_consts[key] = (
+                to_device(self.neigh, device),
+                None if self.rc2_tab is None else
+                to_device(self.rc2_tab, device))
+        return c

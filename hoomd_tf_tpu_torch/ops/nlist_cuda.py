@@ -30,6 +30,18 @@ where they cannot decide.
 :func:`nlist_select` launches the kernel for CUDA tensors and uses the
 plain version, :func:`nlist_select_reference`, only for CPU tensors.
 The launch constants of a plan are made once (:func:`launch_params`).
+
+The slab mode (``slab=(z0, nzl)``) is a z-slab shard's call under a
+device mesh: the inputs are a slab buffer (:func:`.cell_stencil.
+halo_slab`) of the
+shard's ``nzl`` home layers of cells with one halo layer on each side
+(the 27-cell window reaches ``z - 1`` and ``z + 1``), and the output is
+the home slots' rows in slot order, ``[nzl nx ny cap, NN, 4]``; the rows
+of occupied slots equal the unsharded call's rows of their particles bit
+for bit, since the window's cells, their order and the arithmetic are
+the same. The gather (:meth:`.cell_list.CellNlist.sharded`) puts the
+shards' rows in particle order and zero-fills the rows of particles
+without a slot.
 """
 
 import ctypes
@@ -38,8 +50,8 @@ import functools
 import numpy as np
 import torch
 
-from .cell_stencil import (cell_chunks, chunk_pairs, neighbor_cells,
-                           to_particle_order)
+from .cell_stencil import (cell_chunks, check_slab, chunk_pairs,
+                           neighbor_cells, to_particle_order)
 from .nlist import f32
 
 __all__ = ["nlist_select", "nlist_select_reference", "selection_keys",
@@ -107,25 +119,36 @@ def _select(ddx, ddy, ddz, gt, r_cut, NN, bits):
 
 
 def nlist_select_reference(slots4, counts, pid, grid, capacity, NN, r_cut,
-                           lengths, n):
+                           lengths, n, slab=None):
     """Plain PyTorch version of K3 with the kernel's interface (see
-    :func:`nlist_select`), chunked over cells to bound its memory."""
+    :func:`nlist_select`), chunked over cells to bound its memory. With
+    ``slab = (z0, nzl)`` the slab mode's: the rows of the home slots of a
+    slab buffer in slot order (zero rows for empty slots), from the
+    buffer's own grid of ``nzl + 2`` layers, whose home cells' 27-cell
+    windows lie inside it."""
     cap = int(capacity)
-    n_cells = int(np.prod(grid))
+    nx, ny, nz = (int(g) for g in grid)
+    cells = (0, nx * ny * nz)
+    if slab is not None:
+        check_slab(grid, slab)
+        nz = slab[1] + 2
+        cells = (nx * ny, (nz - 1) * nx * ny)
     dev = slots4.device
-    neigh = neighbor_cells(tuple(grid), dev)
+    neigh = neighbor_cells((nx, ny, nz), dev)
     L = torch.tensor([host_length(v, slots4.dtype) for v in lengths],
                      dtype=slots4.dtype, device=dev)
     bits = slot_bits(27 * cap)
     rows = []
-    for c0, c1 in cell_chunks(n_cells, cap):
-        ddx, ddy, ddz, _, _, gt = chunk_pairs(slots4, neigh, cap, L, c0, c1)
+    for c0, c1 in cell_chunks(cells[1] - cells[0], cap):
+        ddx, ddy, ddz, _, _, gt = chunk_pairs(slots4, neigh, cap, L,
+                                              cells[0] + c0, cells[0] + c1)
         C = ddx.shape[-1]
         rows.append(_select(ddx.reshape(-1, C), ddy.reshape(-1, C),
                             ddz.reshape(-1, C),
                             gt.expand_as(ddx).reshape(-1, C), r_cut, NN,
                             bits))
-    return to_particle_order(torch.cat(rows), pid, n)
+    rows = torch.cat(rows)
+    return rows if slab is not None else to_particle_order(rows, pid, n)
 
 
 def image_thresholds(length, dtype=torch.float32):
@@ -229,33 +252,41 @@ class K3Params(ctypes.Structure):
     """The kernel's launch constants (``K3Params`` of
     csrc/nlist_select.cu, field for field): the lengths, cuts and
     thresholds as doubles (exact for a float32 plan), ``f64`` the scalar
-    type of the slots and the list."""
+    type of the slots and the list, ``slab`` the slab mode (``nz`` then the
+    slab buffer's layers)."""
     _fields_ = ([(f, ctypes.c_int) for f in
                  ("nx", "ny", "nz", "cap", "nn", "strip", "warps",
-                  "n_strips", "smem", "f64")] +
+                  "n_strips", "smem", "f64", "slab")] +
                 [("slot_mask", ctypes.c_uint), ("rc2", ctypes.c_double),
                  ("lo2", ctypes.c_double)] +
                 [(f, ctypes.c_double * 3) for f in ("L", "t0", "t1", "t2")])
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=32)
 def launch_params(grid, capacity, NN, r_cut, lengths, strip=None,
-                  warps=None, dtype=torch.float32):
+                  warps=None, dtype=torch.float32, nzl=None):
     """The launch constants of one plan, made once (cached): the launch
     shape, the slot mask, the cuts, lengths and minimum-image thresholds
     in ``dtype`` (float32, or float64 for the double kernel). ``strip`` and
-    ``warps`` force a shape (:func:`launch_shape`)."""
+    ``warps`` force a shape (:func:`launch_shape`). ``nzl``: the slab mode
+    of a shard of ``nzl`` home layers (the kernel's grid is then its slab
+    buffer's ``nzl + 2`` layers)."""
     nx, ny, nz = (int(g) for g in grid)
     if min(nx, ny, nz) < 3:
         raise ValueError(f"grid {grid}: the 27-cell stencil needs >= 3 "
                          "cells per axis")
+    slab = nzl is not None
+    if slab:
+        if not 1 <= int(nzl) <= nz:
+            raise ValueError(f"a slab of {nzl} layers in a grid of {nz}")
+        nz = int(nzl) + 2
     cap, nn = int(capacity), int(NN)
     f64 = dtype == torch.float64
     s, w, smem = launch_shape(nx, cap, nn, strip, warps, f64)
     L = [host_length(v, dtype) for v in lengths]
     th = [image_thresholds(v, dtype) for v in L]
     return K3Params(
-        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem, int(f64),
+        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem, int(f64), int(slab),
         (1 << slot_bits(27 * cap)) - 1, *cut_values(r_cut, dtype),
         (ctypes.c_double * 3)(*L),
         *((ctypes.c_double * 3)(*(float(t[a]) for t in th))
@@ -263,9 +294,10 @@ def launch_params(grid, capacity, NN, r_cut, lengths, strip=None,
 
 
 def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
-                 n):
+                 n, slab=None):
     """Kernel K3. Launches the CUDA kernel on CUDA tensors (and counts the
-    launch in ``nlist_select.launches``); CPU tensors take
+    launch in ``nlist_select.launches``, a slab-mode launch also in
+    ``nlist_select.slab_launches``); CPU tensors take
     :func:`nlist_select_reference`. Anything else raises.
 
     :param slots4: ``[n_cells * cap, 4]`` cell slots ``(x, y, z, type)``,
@@ -278,20 +310,36 @@ def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
     :param grid: ``(nx, ny, nz)``; cell ``x + nx (y + ny z)``.
     :param lengths: host box lengths (taken in the slots' precision).
     :param n: number of particles.
+    :param slab: ``(z0, nzl)``: the slab mode of a z-slab shard.
+        ``slots4`` and ``counts`` are then its slab buffer
+        (:func:`.cell_stencil.halo_slab`, ``nzl + 2`` layers of
+        ``grid``'s cells),
+        ``pid`` and ``n`` are not read.
     :returns: ``[n, NN, 4]`` neighbor list of the slots' dtype, particle
-        order.
+        order; in the slab mode ``[nzl nx ny cap, NN, 4]``, the rows of the
+        home slots (empty slots' rows are zero in the plain version and
+        not written by the kernel).
     """
     if not slots4.is_cuda:
         return nlist_select_reference(slots4, counts, pid, grid, capacity,
-                                      NN, r_cut, lengths, n)
+                                      NN, r_cut, lengths, n, slab)
+    if slab is None:
+        return launch(launch_params(tuple(grid), capacity, NN, r_cut,
+                                    tuple(lengths), dtype=slots4.dtype),
+                      slots4, counts, pid, n)
+    check_slab(grid, slab)
+    nx, ny, _ = (int(g) for g in grid)
     return launch(launch_params(tuple(grid), capacity, NN, r_cut,
-                                tuple(lengths), dtype=slots4.dtype),
-                  slots4, counts, pid, n)
+                                tuple(lengths), dtype=slots4.dtype,
+                                nzl=int(slab[1])),
+                  slots4, counts, None, int(slab[1]) * nx * ny *
+                  int(capacity))
 
 
 def launch(params, slots4, counts, pid, n):
     """One launch of K3 with the constants ``params``
-    (:func:`launch_params`) on CUDA tensors: the ``[n, NN, 4]`` list."""
+    (:func:`launch_params`) on CUDA tensors: the ``[n, NN, 4]`` list (in
+    the slab mode ``n`` is the home slots' count and ``pid`` is None)."""
     p = params
     n_cells = p.nx * p.ny * p.nz
     dev = slots4.device
@@ -300,24 +348,28 @@ def launch(params, slots4, counts, pid, n):
     dtype = torch.float64 if p.f64 else torch.float32
     _check(slots4, (n_cells * p.cap, 4), dtype, dev, "slots4")
     _check(counts, (n_cells,), torch.int32, dev, "counts")
-    _check(pid, (n_cells * p.cap,), torch.int32, dev, "pid")
+    if not p.slab:
+        _check(pid, (n_cells * p.cap,), torch.int32, dev, "pid")
     lib = _library()
     out = torch.empty((n, p.nn, 4), dtype=dtype, device=dev)
     err = lib.htf_nlist_select(
         ctypes.addressof(p), slots4.data_ptr(), counts.data_ptr(),
-        pid.data_ptr(), int(n), out.data_ptr(),
+        None if p.slab else pid.data_ptr(), int(n), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("neighbor selection kernel launch failed: " +
                            lib.htf_nlist_error_string(err).decode())
     nlist_select.launches += 1
     nlist_select.f64_launches += int(p.f64)
+    nlist_select.slab_launches += int(p.slab)
     return out
 
 
-#: launches of the kernel; those of its double instantiation alone
+#: launches of the kernel; those of its double instantiation alone; those
+#: in the slab mode (a z-slab shard's)
 nlist_select.launches = 0
 nlist_select.f64_launches = 0
+nlist_select.slab_launches = 0
 
 
 def _check(t, shape, dtype, device, name):

@@ -2179,3 +2179,103 @@ def test_mixed_mesh_npt_matches_unsharded(cuda_device):
     L = np_(ref.state.box[1] - ref.state.box[0])
     d -= np.round(d / L) * L
     assert np.abs(d).max() < 5e-4
+
+
+# ---------------------------------------------------------------------------
+# K3's slab mode (a z-slab shard of a mesh on the packed cell list)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_k3_slab_mode_matches_plain(cuda_device, S, dtype):
+    """K3's slab mode on each shard's slab buffer (``nz s // S`` on, uneven
+    for S = 3 and 4 at nz 6): the occupied home slots' rows equal the slab
+    plain version's on the CPU and the unsharded kernel's rows of their
+    particles bit for bit; one launch counted in ``slab_launches`` a
+    shard; the gathered list (``CellNlist.sharded`` on virtual shards of
+    the card) equals the unsharded kernel's list bit for bit."""
+    from hoomd_tf_tpu_torch.ops import cell_list as tcl
+    from hoomd_tf_tpu_torch.ops import cell_stencil as tcs
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    slots4, counts, pid, grid, cap, NN, rc, L, n = k3_args(cuda_device)
+    slots4 = slots4.to(dtype)
+    whole = tnc.nlist_select(slots4, counts, pid, grid, cap, NN, rc, L, n)
+    nx, ny, nz = grid
+    home = nx * ny * cap
+    s0, l0 = tnc.nlist_select.slab_launches, tnc.nlist_select.launches
+    shards = [sl for sl in tcs.z_slabs(nz, S) if sl[1]]
+    for z0, nzl in shards:
+        buf = tcs.halo_slab(slots4, grid, cap, z0, nzl)
+        cnt = tcs.halo_slab(counts, grid, 1, z0, nzl)
+        got = tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
+                               slab=(z0, nzl))
+        torch.cuda.synchronize()
+        assert got.shape == (nzl * home, NN, 4) and got.dtype == dtype
+        want = tnc.nlist_select(buf.cpu(), cnt.cpu(), None, grid, cap, NN,
+                                rc, L, None, slab=(z0, nzl))
+        p = pid[z0 * home:(z0 + nzl) * home].long()
+        held = p >= 0
+        assert torch.equal(got[held].cpu(), want[held.cpu()])
+        assert torch.equal(got[held], whole[p[held]])
+    assert tnc.nlist_select.slab_launches - s0 == len(shards)
+    assert tnc.nlist_select.launches - l0 == len(shards)
+    build = tcl.CellNlist(grid, cap, L, rc, NN, "pallas", cuda_device,
+                          dtype=dtype)
+    positions = k3_positions(cuda_device, dtype)
+    Lt = torch.as_tensor(L, dtype=dtype, device=cuda_device)
+    want, _ = build(positions, Lt)
+    got, ovf = build.sharded(positions, Lt, [cuda_device] * S)
+    assert not bool(ovf) and torch.equal(got, want)
+
+
+def k3_positions(device, dtype, n=3000, density=0.4):
+    """:func:`k3_args`'s particles as ``[n, 4]`` positions and types."""
+    pos, _, _ = fluid_arrays(n, density, 11, jitter=0.4)
+    return torch.as_tensor(np.concatenate(
+        [pos, (np.arange(n) % 3)[:, None]], axis=1), dtype=dtype,
+        device=device)
+
+
+def test_k3_slab_wrapper_checks_inputs(cuda_device):
+    """A slab launch refuses a slab outside the grid and a buffer of the
+    wrong number of layers."""
+    from hoomd_tf_tpu_torch.ops import cell_stencil as tcs
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    slots4, counts, pid, grid, cap, NN, rc, L, n = k3_args(cuda_device)
+    buf = tcs.halo_slab(slots4, grid, cap, 0, 2)
+    cnt = tcs.halo_slab(counts, grid, 1, 0, 2)
+    with pytest.raises(ValueError):
+        tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
+                         slab=(grid[2] - 1, 2))
+    with pytest.raises(ValueError):
+        tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
+                         slab=(0, 3))
+
+
+def test_sharded_packed_engine_on_the_card(cuda_device):
+    """'auto' (K3) and 'cell' on 4 virtual shards of the card: K3's slab
+    mode launched once a shard and build with no host sync, and 5 steps
+    equal to the unsharded engine's bit for bit."""
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    pos, vel, lengths = fluid_arrays(4096, 0.4, 3, jitter=0.1)
+    for nlist in (None, "cell"):
+        sims = []
+        for m in (mesh, None):
+            sim = htt.Simulation(dt=0.005, seed=3, mesh=m,
+                                 device=None if m else cuda_device,
+                                 integrator=htt.md.NVT(kT=1.5, tau=0.5))
+            sim.init_state(pos, lengths, velocities=vel)
+            htt.tfcompute(SimLJ(64)).attach(sim, r_cut=3.0, nlist=nlist)
+            sims.append(sim)
+        shd, ref = sims
+        shd.check_syncs = True
+        s0 = tnc.nlist_select.slab_launches
+        shd.run(5)
+        ref.run(5)
+        want = "pallas" if nlist is None else "sort"
+        assert shd._packed_build().method == want
+        assert tnc.nlist_select.slab_launches - s0 == \
+            (4 * 5 if nlist is None else 0)
+        assert torch.equal(shd.state.positions, ref.state.positions)
+        assert torch.equal(shd.state.forces, ref.state.forces)

@@ -521,42 +521,22 @@ def test_batched_model_on_mesh_equals_unsharded():
 # ----------------------------------------------------------------------
 # refusals under a mesh
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("case", ["mapped", "tilted", "cell"])
+@pytest.mark.parametrize("case", ["tilted"])
 def test_unsharded_routes_refused(case):
-    """Each route the port does not shard yet raises NotImplementedError
-    naming its ROADMAP item (7b.4, the packed routes; 7b.5, mapped
-    models; a tilted box: the JAX package's own refusal), instead of
-    running unsharded. Training, the planes route and NPT run under a
-    mesh (tests/test_torch_parallel_train.py)."""
+    """A tilted box on 'cellwise' raises NotImplementedError under a mesh,
+    the JAX package's own refusal, instead of running unsharded. Every
+    other route runs under a mesh: training, the planes route and NPT
+    (tests/test_torch_parallel_train.py), the packed routes and mapped
+    models (tests/test_torch_parallel_packed.py)."""
     sim = htt.Simulation(dt=0.002, mesh=cpu_mesh(2), seed=0)
     pos, vel, lengths = fluid_arrays(600, 0.4, 1, jitter=0.05)
-    if case == "tilted":
-        box = htt.make_box(-np.asarray(lengths) / 2,
-                           np.asarray(lengths) / 2, tilt=[0.1, 0.0, 0.0],
-                           device="cpu")
-        sim.init_state(pos, box, velocities=vel)
-    else:
-        sim.init_state(pos, lengths, velocities=vel)
-    nlist = "cell" if case == "cell" else "cellwise"
-    if case == "mapped":
-        tfc = htt.tfcompute(TLJModel(48))
-        op = htt.sparse_mapping([np.ones((1, 2)) / 2] * 300,
-                                [[2 * i, 2 * i + 1] for i in range(300)],
-                                device="cpu")
-
-        def mapping(pos4, box):
-            com = htt.center_of_mass(pos4, op, box)
-            return torch.cat([com, torch.zeros_like(com[:, :1])], dim=1)
-        tfc.enable_mapped_nlist(sim, mapping)
-        tfc.attach(sim, r_cut=2.5, nlist=nlist)
-    else:
-        htt.tfcompute(TLJ(48)).attach(sim, r_cut=2.5, nlist=nlist)
+    box = htt.make_box(-np.asarray(lengths) / 2, np.asarray(lengths) / 2,
+                       tilt=[0.1, 0.0, 0.0], device="cpu")
+    sim.init_state(pos, box, velocities=vel)
+    htt.tfcompute(TLJ(48)).attach(sim, r_cut=2.5, nlist="cellwise")
     with pytest.raises(NotImplementedError) as e:
         sim.run(2)
-    if case == "tilted":
-        assert "mesh" in str(e.value)
-    else:
-        assert {"mapped": "7b.5", "cell": "7b.4"}[case] in str(e.value)
+    assert "mesh" in str(e.value)
     assert int(sim.state.step) == 0
 
 

@@ -15,7 +15,13 @@ products, so in fact equal); weight gradients through
 ``pair_train_forces(mesh=)`` against JAX's at the same bar as K2's; three
 sharded SGD train steps against JAX's unsharded engine on the same plan
 in losses and weights at rtol 2e-4 (atol 1e-6 on the weights: the last
-bias gets a gradient of float32 noise under a force loss); 8 NPT steps
+bias gets a gradient of float32 noise under a force loss); the planes
+kind in float64 (its three float32 steps diverge, the loss 5.9 -> 241 ->
+4.5e5 at 2000 particles, so the last step's huge gradient carries every
+earlier rounding into the weights), at 1000 particles: the losses at
+rtol 1e-10 and the weights at rtol 1e-9 against JAX's float64 engine,
+the weights at rtol 1e-11 against the port's own unsharded engine; 8 NPT
+steps
 against JAX's NPT at atol 5e-4 in positions (tests/test_parallel.py's
 bar), rtol 1e-5 in volume; the sharded planes against the unsharded ones
 exactly, and the forces of a model with a cross-row reduction at 1e-5;
@@ -46,7 +52,9 @@ from hoomd_tf_tpu_torch.parallel import ShardedSimulation
 from test_torch_parallel import (TLJ, TLJLayer, cpu_mesh, min_image_diff,
                                  slab_case)
 from test_torch_train import JNNPair as JProxyNN
-from test_torch_train_generic import KINDS, build_jax, trainable
+from test_torch_train_generic import (KINDS, JCoupled, TCoupled, build_jax,
+                                      trainable)
+from test_torch_train_pair import WIDTH
 from test_torch_train_pair import models as nn_models
 from test_torch_train_pair import j_pair_apply
 from torch_helpers import (fluid_arrays, force_loss, jax_state,
@@ -287,15 +295,42 @@ def test_pair_train_forces_mesh_proxy_matches_jax():
 # ----------------------------------------------------------------------
 # the sharded engine's training against JAX's unsharded engine
 # ----------------------------------------------------------------------
-def train_pair_sharded(kind, S, n=2000, seed=1, lr=1e-3, stencil="auto"):
+class JCoupled64(JCoupled):
+    """test_torch_train_generic.py's coupled SimModel (the probe rejects
+    it) with its layers in the model's dtype."""
+
+    def setup(self):
+        self.dense1 = htf.Dense(WIDTH, dtype=self.dtype)
+        self.last = htf.Dense(1, dtype=self.dtype)
+
+
+class TCoupled64(TCoupled):
+    def setup(self):
+        self.dense1 = htt.Dense(WIDTH, dtype=self.dtype)
+        self.last = htt.Dense(1, dtype=self.dtype)
+
+
+def train_pair_sharded(kind, S, n=2000, seed=1, lr=1e-3, stencil="auto",
+                       f64=False):
     """A JAX simulation (unsharded) and a port simulation on an ``S``-shard
-    CPU mesh from the same state and weights, each training ``kind`` online
-    with SGD against its built-in LJ on the same cellwise plan (the port's,
-    ``nz % S == 0``; the loss averages over slot rows, so both must share
-    it): ``(jsim, jtfc, jm), (tsim, ttfc, tm)``."""
+    CPU mesh (``S`` None: unsharded) from the same state and weights, each
+    training ``kind`` online with SGD against its built-in LJ on the same
+    cellwise plan (the port's, ``nz % S == 0``; the loss averages over slot
+    rows, so both must share it): ``(jsim, jtfc, jm), (tsim, ttfc, tm)``.
+    ``f64``: state and model in float64 (JAX's x64 must be on)."""
     pos, vel, lengths = fluid_arrays(n, 0.4, seed, kT=1.5)
-    js = jax_state(pos, vel, lengths)
-    if kind == "proxy":
+    if f64:
+        from hoomd_tf_tpu.md.state import init_state
+        js = init_state(pos.astype(np.float64), lengths,
+                        velocities=vel.astype(np.float64), dtype=jnp.float64)
+    else:
+        js = jax_state(pos, vel, lengths)
+    if f64:
+        jloss, tloss = "mse", "mse"
+        jm = seed_jax_weights(build_jax(JCoupled64(
+            64, output_forces=False, dtype=jnp.float64)), 0)
+        tm = TCoupled64(64, output_forces=False, dtype=torch.float64)
+    elif kind == "proxy":
         jm = JProxyNN(64, output_forces=False, proxy_degree=16)
         jm.pair_energy(jnp.ones(4))
         seed_jax_weights(jm, 0)
@@ -316,7 +351,8 @@ def train_pair_sharded(kind, S, n=2000, seed=1, lr=1e-3, stencil="auto"):
     jtfc.attach(jsim, r_cut=R_CUT, nlist="cellwise", train=True)
 
     tsim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
-                          seed=seed, mesh=cpu_mesh(S))
+                          seed=seed, mesh=None if S is None else cpu_mesh(S),
+                          device="cpu" if S is None else None)
     tsim.stencil = stencil
     tsim.set_state(state_from_numpy(jax_state_numpy(js), device="cpu"))
     tsim.add_force(htt.md.LennardJones(r_cut=R_CUT))
@@ -326,7 +362,7 @@ def train_pair_sharded(kind, S, n=2000, seed=1, lr=1e-3, stencil="auto"):
     ttfc = htt.tfcompute(tm)
     ttfc.attach(tsim, r_cut=R_CUT, nlist="cellwise", train=True)
     tp = tsim._ensure_layout().plan
-    assert tp.grid[2] % S == 0
+    assert tp.grid[2] % (S or 1) == 0
     jplan = jcw.CellwisePlan(grid=tp.grid, capacity=tp.capacity,
                              lengths=tp.lengths, r_cut=tp.r_cut)
     jsim._plan_from_current = lambda: jplan
@@ -342,7 +378,20 @@ def branch(tsim):
 def test_sharded_train_steps_match_jax(kind):
     """Three SGD train steps of the port's sharded engine (4 shards) against
     JAX's unsharded engine on the same plan: the losses and the weights at
-    rtol 2e-4; each kind on its own branch."""
+    rtol 2e-4; each kind on its own branch. The planes kind runs in
+    float64 (:func:`sharded_planes_train_f64`): its three float32 steps
+    diverge (the loss 5.9 -> 241 -> 4.5e5 at 2000 particles), and the
+    port lands 1.1e-4 (unsharded) and 2.2e-4 (sharded) from JAX in one
+    weight; in float64 the sharded and unsharded ports agree to 4e-15
+    there, so the float32 gap is rounding the last, huge gradient
+    carries, not the mesh."""
+    if kind == "planes":
+        jax.config.update("jax_enable_x64", True)
+        try:
+            sharded_planes_train_f64()
+        finally:
+            jax.config.update("jax_enable_x64", False)
+        return
     (jsim, jtfc, jm), (tsim, ttfc, tm) = train_pair_sharded(kind, 4)
     jsim.run(3)
     tsim.run(3)
@@ -354,6 +403,37 @@ def test_sharded_train_steps_match_jax(kind):
     for a, b in zip(trainable(tm.get_weights()), trainable(jm.get_weights())):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-6)
     assert tsim.train_steps == 3
+
+
+def sharded_planes_train_f64():
+    """Three float64 SGD steps of the planes branch at 1000 particles on 4
+    shards against JAX's float64 engine (losses rtol 1e-10, weights rtol
+    1e-9) and the port's unsharded engine on the same plan (weights rtol
+    1e-11)."""
+    (jsim, jtfc, jm), (tsim, ttfc, tm) = train_pair_sharded(
+        "planes", 4, n=1000, f64=True)
+    _, (usim, utfc, um) = train_pair_sharded("planes", None, n=1000,
+                                             f64=True)
+    plan = tsim._ensure_layout().plan
+    usim._plan_from_current = lambda: plan
+    usim.replan()
+    for sim in (jsim, tsim, usim):
+        sim.run(3)
+    assert branch(tsim) == branch(usim) == "planes"
+    assert usim._layout.plan == plan
+    assert jsim._layout.plan.grid == plan.grid
+    assert tsim.state.positions.dtype == torch.float64
+    assert len(ttfc.loss_history) == len(jtfc.loss_history) == 3
+    np.testing.assert_allclose(ttfc.loss_history, jtfc.loss_history,
+                               rtol=1e-10)
+    np.testing.assert_allclose(utfc.loss_history, ttfc.loss_history,
+                               rtol=1e-12)
+    wj, wt, wu = (trainable(m.get_weights()) for m in (jm, tm, um))
+    assert all(w.dtype == np.float64 for w in wt)
+    for a, b, c in zip(wt, wj, wu):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(a, c, rtol=1e-11, atol=1e-14)
+    assert tsim.train_steps == usim.train_steps == 3
 
 
 @pytest.mark.parametrize("kind", ["pair", "lane"])
