@@ -3898,11 +3898,82 @@ def slab_buffers(layout, st, aux, mesh, s, z0, nzl):
     return buf, layout.geometry.on(dev)
 
 
+def resident_shards(sim):
+    """The slot state a sharded run keeps resident per shard (its last
+    run's, kept between runs): ``(slots, state, aux)``, each shard's
+    buffers checked to hold ``(nzl + 1) * layer`` rows on its device."""
+    from hoomd_tf_tpu_torch.md.state import SlabState
+    slots, (st, aux) = sim._packed[1], sim._packed[2]
+    check(isinstance(st, SlabState), "the sharded run's state is not "
+          "resident per shard")
+    for s, (dev, _, nzl) in enumerate(slots.slabs):
+        p = st.shards[s]
+        for t in (p.positions, p.velocities, p.forces, aux["valid"][s]):
+            check(t.shape[0] == (nzl + 1) * slots.layer and
+                  t.device == torch.device(sim.mesh.devices[s]),
+                  f"shard {s}'s buffer: {tuple(t.shape)} on {t.device}")
+    return slots, st, aux
+
+
+def repack_gate(slots, st, aux):
+    """One repack per shard (the migrating repack) of a run's resident
+    state against ``repack_src`` and ``SlotLayout.rebuild`` of the
+    gathered state: ``orig``, ``valid`` and every column bit for bit,
+    no flag set, particles crossing slabs."""
+    from hoomd_tf_tpu_torch.md.state import SimState
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    layout, plan, n = slots.layout, slots.plan, slots.n
+    w = slots.whole
+    ws = SimState(positions=w(st.positions), velocities=w(st.velocities),
+                  types=w(st.types), masses=w(st.masses), box=st.box,
+                  forces=w(st.forces), virial=w(st.virial))
+    dev = ws.positions.device
+    waux = {"valid": w(aux["valid"]), "orig": w(aux["orig"]),
+            "overflow": torch.zeros((), dtype=torch.bool, device=dev),
+            "occ_max": torch.zeros((), dtype=torch.int32, device=dev),
+            "vmax": torch.zeros((), device=dev)}
+    t0 = time.perf_counter()
+    new, naux = slots.rebuild(st.copy(), aux)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    g = layout.geom(ws)
+    src, ovf = cw.repack_src(ws.positions, waux["valid"], slots.lo, plan,
+                             geometry=g)
+    n_slots = plan.n_slots
+    want = torch.where(src < n_slots, waux["orig"][src.clamp_max(
+        n_slots - 1).long()], n).to(torch.int32)
+    same = (torch.equal(w(naux["orig"]), want) and
+            torch.equal(w(naux["valid"]), (src < n_slots).to(
+                waux["valid"].dtype)))
+    wnew, _ = layout.rebuild(ws, waux)
+    cols = all(torch.equal(w(getattr(new, f)), getattr(wnew, f)) for f in
+               ("positions", "velocities", "types", "masses", "forces",
+                "virial"))
+    # particles whose shard changed
+    bounds = [0]
+    for s in range(len(slots.slabs)):
+        bounds.append(bounds[-1] + slots.home(s))
+    moved = 0
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        s_ = src[a:b]
+        moved += int(((s_ < n_slots) & ((s_ < a) | (s_ >= b))).sum())
+    print(f"  one repack per shard at full width ({dt * 1e3:.1f} ms on the "
+          f"host clock): orig and valid equal repack_src of the gathered "
+          f"state {same}, every column SlotLayout.rebuild's {cols}; "
+          f"{moved} particles changed shard; flag "
+          f"{bool(naux['overflow'])}")
+    check(same and cols and not bool(ovf) and
+          not bool(naux["overflow"]),
+          "the migrating repack differs from repack_src of the gathered "
+          "state")
+
+
 def phase_sharded(state, main_sps):
     """Phase 29: phase 4's fluid and LJ PairModel through
     ShardedSimulation on 'cellwise' (K1's slab mode on every shard)."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.md.state import SlabState
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation
     k1 = cc.half_stencil_pair_forces
     mesh, kind = shard_mesh()
@@ -3938,21 +4009,28 @@ def phase_sharded(state, main_sps):
           f"positions, types and valid), reverse halo "
           f"{layer * esize * 4 / 1e6:.3f} MB of forces4")
 
-    # one state: the sharded evaluation against the unsharded K1, each
-    # shard's slab launch against its slab plain version
-    st, aux = slot_state(layout, sim.state)
+    # one state, the run's resident shards: the sharded evaluation on them
+    # against the unsharded K1 on the gathered state, each shard's slab
+    # launch on its resident buffer against its slab plain version, one
+    # repack per shard against repack_src of the gathered state
+    slots, st, aux = resident_shards(sim)
+    repack_gate(slots, st, aux)
     form = sim._form
-    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
-    f_s, w_s = cw.analytic_pair_forces(
-        *common, None, needs_virial=True, form=form,
-        geometry=layout.geometry, mesh=mesh)
+    whole = [slots.whole(t) for t in (st.positions, st.types, aux["valid"])]
+    common = (*whole, plan, layout.lo)
+    f_s, w_s = slots.pair_forces(st, aux, None, needs_virial=True,
+                                 form=form)
     f_u, w_u = k1(*common, form, needs_virial=True, geometry=layout.geometry)
     torch.cuda.synchronize()
-    err = max(compare("sharded forces+energy vs unsharded K1", f_s, f_u),
-              compare("sharded virial vs unsharded K1", w_s, w_u))
+    err = max(compare("resident sharded forces+energy vs unsharded K1",
+                      slots.whole(f_s), f_u),
+              compare("resident sharded virial vs unsharded K1",
+                      slots.whole(w_s), w_u))
     shards = cw.slab_layers(plan, S)
+    geoms = slots.geoms(st)
     for s, (z0, n) in enumerate(shards):
-        buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
+        buf = (st.shards[s].positions, st.shards[s].types, aux["valid"][s])
+        g = geoms[s]
         fk, wk = k1(*buf, plan, layout.lo, cc.form_on(form, buf[0].device),
                     needs_virial=True, geometry=g, slab=(z0, n))
         fp, wp = cw.half_stencil_slab_plain(
@@ -3964,34 +4042,40 @@ def phase_sharded(state, main_sps):
                                fk, fp),
                   compare(f"shard {s} slab launch vs slab plain, virial",
                           wk, wp))
-    # times at the main path's shapes (forces only)
-    t_all = cuda_ms(lambda: cw.analytic_pair_forces(
+    # times at the main path's shapes (forces only): the resident
+    # evaluation (halo copies, slab launches, reverse-halo adds), the
+    # whole-state form training keeps (slab buffers cut from the whole
+    # state, the gather), the unsharded K1
+    t_all = cuda_ms(lambda: slots.pair_forces(st, aux, None,
+                                              needs_energy=False, form=form))
+    t_whole = cuda_ms(lambda: cw.analytic_pair_forces(
         *common, None, needs_energy=False, form=form,
         geometry=layout.geometry, mesh=mesh))
     t_one = cuda_ms(lambda: k1(*common, form, needs_energy=False,
                                geometry=layout.geometry))
-    buf, g = slab_buffers(layout, st, aux, mesh, 0, *shards[0])
+    buf = (st.shards[0].positions, st.shards[0].types, aux["valid"][0])
     t_shard = cuda_ms(lambda: k1(*buf, plan, layout.lo, form,
-                                 needs_energy=False, geometry=g,
+                                 needs_energy=False, geometry=geoms[0],
                                  slab=shards[0]))
     t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
         *buf, plan, layout.lo, form.evaluate, *shards[0],
-        needs_energy=False, geometry=g), reps=5)
-    nbytes, ops = k1_cost(st.positions, aux["valid"], plan, 3, form)
+        needs_energy=False, geometry=geoms[0]), reps=5)
+    nbytes, ops = k1_cost(whole[0], whole[2], plan, 3, form)
     b_ms, b_by = bound(nbytes, ops)
-    tested, inside = slab_pair_counts(st.positions, aux["valid"], plan,
-                                      *shards[0])
+    tested, inside = slab_pair_counts(whole[0], whole[2], plan, *shards[0])
     s_bytes = (nzl + 1) * layer * esize * (3 + 1 + 4)
     s_ms, s_by = bound(s_bytes, 9 * tested + inside * (14 + 9))
-    print(f"  sharded evaluation (forces only, median of CUDA events): "
-          f"{t_all:.4f} ms for {S} slab launches, the gather and the "
-          f"reverse halos; unsharded K1 {t_one:.4f} ms "
-          f"({t_all / t_one:.3f}x); bound {b_ms:.4f} ms ({b_by}: "
-          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    print(f"  resident sharded evaluation (forces only, median of CUDA "
+          f"events): {t_all:.4f} ms for {S} halo copies, slab launches and "
+          f"reverse-halo adds; the whole-state form (slab buffers cut from "
+          f"the whole state, the gather) {t_whole:.4f} ms; unsharded K1 "
+          f"{t_one:.4f} ms ({t_all / t_one:.3f}x); bound {b_ms:.4f} ms "
+          f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
     print(f"  shard 0's call: {t_shard:.4f} ms, its bound {s_ms:.4f} ms "
           f"({s_by}: {s_bytes / 1e6:.2f} MB, {tested:.4g} pairs tested, "
           f"{inside:.4g} inside the cut); its slab plain version "
           f"{t_plain:.4f} ms")
+    del whole, common, f_s, w_s, f_u, w_u
 
     # 8 steps with the repack interval pinned to 3 against the unsharded
     # engine from the same state
@@ -4016,14 +4100,20 @@ def phase_sharded(state, main_sps):
           f"position difference {dmax:.3e} (limit 5e-4)")
     check(dmax < 5e-4, "the sharded trajectory left the unsharded one")
 
-    # the timed run, host syncs forbidden
+    # the timed run, host syncs forbidden; the peak device memory of its
+    # step loop above what stands before it
     sim.check_syncs = True
     l0, e0, a0 = k1.slab_launches, sim.force_evals, k1.launches
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sim.run(1000)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(isinstance(sim._packed[2][0], SlabState),
+          "the sharded run did not keep its state resident per shard")
     timed_l, timed_e = k1.slab_launches - l0, sim.force_evals - e0
     launches += timed_l
     evals += timed_e
@@ -4039,6 +4129,9 @@ def phase_sharded(state, main_sps):
     print(f"  steps/s {sps:.2f} sharded against phase 4's {main_sps:.2f} "
           f"({sps / main_sps:.3f}x), {kind}, on {smi_line()} -- info, not "
           f"a claim")
+    print(f"  timed run(1000): peak device memory {peak / 2**20:.1f} MiB, "
+          f"{(peak - mem0) / 2**20:.1f} MiB above the {mem0 / 2**20:.1f} "
+          f"MiB before it")
     return dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
                 max_abs_err=err, launches=launches, sharded_ms=t_all)
 
@@ -4086,28 +4179,35 @@ def phase_sharded_generic(state):
           f"the probe's validation included); list budget "
           f"{sim._lanes.budget} a shard, need {sim._lanes.committed}")
 
-    # one state: the sharded generic form against the unsharded one, each
-    # shard's slab launch against its slab plain version
+    # one state, the run's resident shards: the sharded generic form on
+    # them against the unsharded one on the gathered state, each shard's
+    # slab launch on its resident buffer against its slab plain version,
+    # one repack per shard against repack_src
     layout = sim._ensure_layout()
     plan = layout.plan
-    st, aux = slot_state(layout, sim.state)
+    slots, st, aux = resident_shards(sim)
+    repack_gate(slots, st, aux)
     fn = synthesize_pair_fn(model, st.box)
-    common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+    whole = [slots.whole(t) for t in (st.positions, st.types, aux["valid"])]
+    common = (*whole, plan, layout.lo)
     lanes = cc.LaneBudget(sim._lanes.budget, "cuda")
-    whole = cc.LaneBudget(cc.lane_budget(plan, N), "cuda")
+    whole_lanes = cc.LaneBudget(cc.lane_budget(plan, N), "cuda")
     kw = dict(needs_virial=True, geometry=layout.geometry)
-    f_s, w_s = cw.analytic_pair_forces(*common, fn, with_types=True,
-                                       lanes=lanes, mesh=mesh, **kw)
-    f_u, w_u = gen(*common, fn, lanes=whole, **kw)
+    f_s, w_s = slots.pair_forces(st, aux, fn, with_types=True, lanes=lanes,
+                                 needs_virial=True)
+    f_u, w_u = gen(*common, fn, lanes=whole_lanes, **kw)
     torch.cuda.synchronize()
-    check(not bool(lanes.overflow()) and not bool(whole.overflow()),
+    check(not bool(lanes.overflow()) and not bool(whole_lanes.overflow()),
           "a generic-form list overflowed")
-    err = max(compare("sharded generic forces+energy vs unsharded", f_s,
-                      f_u),
-              compare("sharded generic virial vs unsharded", w_s, w_u))
+    err = max(compare("resident sharded generic forces+energy vs "
+                      "unsharded", slots.whole(f_s), f_u),
+              compare("resident sharded generic virial vs unsharded",
+                      slots.whole(w_s), w_u))
     shards = cw.slab_layers(plan, S)
+    geoms = slots.geoms(st)
     for s, (z0, n) in enumerate(shards):
-        buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
+        buf = (st.shards[s].positions, st.shards[s].types, aux["valid"][s])
+        g = geoms[s]
         own = cc.LaneBudget(sim._lanes.budget, buf[0].device)
         fk, wk = gen(*buf, plan, layout.lo, fn, needs_virial=True,
                      geometry=g, lanes=own, slab=(z0, n))
@@ -4120,11 +4220,13 @@ def phase_sharded_generic(state):
                   compare(f"shard {s} generic slab launch vs slab plain, "
                           "virial", wk, wp))
     kw = dict(geometry=layout.geometry, needs_energy=False)
-    t_all = cuda_ms(lambda: cw.analytic_pair_forces(
-        *common, fn, with_types=True, lanes=lanes, mesh=mesh, **kw),
+    t_all = cuda_ms(lambda: slots.pair_forces(
+        st, aux, fn, with_types=True, lanes=lanes, needs_energy=False),
         reps=11)
-    t_one = cuda_ms(lambda: gen(*common, fn, lanes=whole, **kw), reps=11)
-    buf, g = slab_buffers(layout, st, aux, mesh, 0, *shards[0])
+    t_one = cuda_ms(lambda: gen(*common, fn, lanes=whole_lanes, **kw),
+                    reps=11)
+    buf = (st.shards[0].positions, st.shards[0].types, aux["valid"][0])
+    g = geoms[0]
     own = cc.LaneBudget(sim._lanes.budget, "cuda")
     t_shard = cuda_ms(lambda: gen(*buf, plan, layout.lo, fn, geometry=g,
                                   lanes=own, needs_energy=False,
@@ -4136,24 +4238,23 @@ def phase_sharded_generic(state):
     gen(*buf, plan, layout.lo, fn, geometry=g, lanes=own, needs_energy=False,
         slab=shards[0])
     s_need = int(own.needed)
-    tested, _ = slab_pair_counts(st.positions, aux["valid"], plan,
-                                 *shards[0])
-    esize = st.positions.element_size()
+    tested, _ = slab_pair_counts(whole[0], whole[2], plan, *shards[0])
+    esize = whole[0].element_size()
     s_bytes = buf[0].shape[0] * esize * (3 + 1 + 4) + s_need * esize * 5
     s_ms, s_by = bound(s_bytes, 9 * tested + s_need * 3 * 3)
-    whole.reset()
-    gen(*common, fn, lanes=whole, **kw)
-    needed = int(whole.needed)
-    nbytes, ops = k1_generic_cost(st.positions, aux["valid"], plan, 3,
-                                  needed)
+    whole_lanes.reset()
+    gen(*common, fn, lanes=whole_lanes, **kw)
+    needed = int(whole_lanes.needed)
+    nbytes, ops = k1_generic_cost(whole[0], whole[2], plan, 3, needed)
     b_ms, b_by = bound(nbytes, ops)
-    print(f"  sharded generic evaluation (forces only, the pair function "
-          f"included): {t_all:.4f} ms for {S} shards; unsharded "
+    print(f"  resident sharded generic evaluation (forces only, the pair "
+          f"function included): {t_all:.4f} ms for {S} shards; unsharded "
           f"{t_one:.4f} ms ({t_all / t_one:.3f}x); shard 0's call "
           f"{t_shard:.4f} ms, its bound {s_ms:.4f} ms ({s_by}: "
           f"{s_bytes / 1e6:.2f} MB, {s_need} lanes), its slab plain version "
           f"{t_plain:.4f} ms; bound of the whole {b_ms:.4f} ms ({b_by}: "
           f"{nbytes / 1e6:.2f} MB, {needed} lanes)")
+    del whole, common, f_s, w_s, f_u, w_u
     launches_main = launches
 
     # ShardedSimulation's small-box fallback: the dense build's rows
@@ -4695,6 +4796,7 @@ def phase_sharded_npt(state):
     th = healthy(shd, "sharded npt")
     vol1 = float(torch.prod(shd.state.box[1] - shd.state.box[0]))
     repacks = shd.repacks - r0
+    repack_gate(*resident_shards(shd))
     slot, aux = slot_state(shd._layout, shd.state)
     check(not bool(shd._layout.geometry_bad(slot)),
           "the geometry flag is set")

@@ -9,12 +9,19 @@ them reads a tensor back to the host, so the step loop stays free of
 host syncs. The stochastic ones draw their noise with one
 ``torch.randn`` per step from the state's ``rng``, the simulation's
 ``torch.Generator`` (:func:`_normal`).
+
+A :class:`.state.SlabState` (a slot state resident per mesh shard) is
+integrated shard by shard on each shard's device; the sums a thermostat
+or barostat reads are each shard's partial sum, added on the first
+shard's device (:func:`_total`), and what they give (``xi``, the box
+scale) is copied to every shard.
 """
 
 import math
 
 import torch
 
+from .._device import to_device
 from ..ops.box import box_size
 
 __all__ = ["NVE", "NVT", "Minimize", "NPT", "Langevin", "Brownian"]
@@ -41,6 +48,22 @@ def _wrap_positions(positions, box, tilted=False):
                              bs[2] * fz], dim=-1)
 
 
+def _parts(state):
+    """The states holding ``state``'s rows: itself, or the shards of a
+    :class:`.state.SlabState`."""
+    return getattr(state, "shards", (state,))
+
+
+def _total(state, fn):
+    """``fn`` (a 0-dim sum over a part's rows) summed over ``state``'s
+    parts, on the first part's device."""
+    vals = [fn(p) for p in _parts(state)]
+    if len(vals) == 1:
+        return vals[0]
+    dev = vals[0].device
+    return torch.stack([to_device(v, dev) for v in vals]).sum()
+
+
 def _normal(state, shape):
     """Standard normal noise of ``shape`` (``[rows, 3]``) from the state's
     generator, on its device: one draw per step, of one row per particle
@@ -54,6 +77,26 @@ def _normal(state, shape):
     return torch.cat([z, torch.zeros_like(z[:1])])[rows]
 
 
+def _noise(state, field):
+    """:func:`_normal` noise shaped as ``state``'s ``field``, one tensor
+    per part: a :class:`.state.SlabState`'s shards gather their rows
+    (zero on ghost and halo rows) from one draw of one row per particle,
+    so the noise is the unsharded engine's."""
+    parts = getattr(state, "shards", None)
+    if parts is None:
+        return [_normal(state, getattr(state, field).shape)]
+    x = parts[0].positions
+    z = torch.randn((state.n, 3), generator=state.rng, dtype=x.dtype,
+                    device=x.device)
+    z = torch.cat([z, torch.zeros_like(z[:1])])
+    return [to_device(z, p.positions.device)[p.noise_rows[0]]
+            for p in parts]
+
+
+def _ke2(p):
+    return torch.sum(p.masses[:, None] * p.velocities ** 2)
+
+
 def _kick(state, dt_half):
     return state.velocities + dt_half * state.forces[:, :3] / \
         state.masses[:, None]
@@ -64,6 +107,22 @@ def _drift(state, dt):
                            state.box, state.tilted)
 
 
+def _kick_drift(state, dt):
+    """Velocity-Verlet's first half: kick by ``dt / 2``, drift by ``dt``
+    (each part of ``state``)."""
+    for p in _parts(state):
+        p.velocities = _kick(p, dt / 2)
+        p.positions = _drift(p, dt)
+    return state
+
+
+def _kick_half(state, dt):
+    """Velocity-Verlet's second half-kick (each part of ``state``)."""
+    for p in _parts(state):
+        p.velocities = _kick(p, dt / 2)
+    return state
+
+
 class NVE:
     """Velocity-Verlet microcanonical integrator."""
 
@@ -71,13 +130,10 @@ class NVE:
         return {}
 
     def pre_force(self, state, dt):
-        state.velocities = _kick(state, dt / 2)
-        state.positions = _drift(state, dt)
-        return state
+        return _kick_drift(state, dt)
 
     def post_force(self, state, dt):
-        state.velocities = _kick(state, dt / 2)
-        return state
+        return _kick_half(state, dt)
 
 
 class NVT:
@@ -99,7 +155,7 @@ class NVT:
         dof = state.thermostat.get("dof")
         if dof is None:
             dof = 3 * state.n_particles - 3
-        ke2 = torch.sum(state.masses[:, None] * state.velocities ** 2)
+        ke2 = _total(state, _ke2)
         t_inst = ke2 / dof
         # overflow guard: a violent start (~1e29 forces) must not latch
         # xi at inf (the system would freeze at T = 0 for good); a
@@ -112,19 +168,17 @@ class NVT:
         xi = torch.clamp(xi, -50.0 / dt, 50.0 / dt)
         xi = torch.where((t_inst < 10.0 * self.kT) &
                          (torch.abs(xi) > 10.0 / self.tau), xi * 0.8, xi)
-        state.velocities = state.velocities * torch.exp(-xi * dt / 2)
+        for p in _parts(state):
+            p.velocities = p.velocities * torch.exp(
+                -to_device(xi, p.velocities.device) * dt / 2)
         state.thermostat = {**state.thermostat, "xi": xi}
         return state
 
     def pre_force(self, state, dt):
-        state = self._thermo_half(state, dt)
-        state.velocities = _kick(state, dt / 2)
-        state.positions = _drift(state, dt)
-        return state
+        return _kick_drift(self._thermo_half(state, dt), dt)
 
     def post_force(self, state, dt):
-        state.velocities = _kick(state, dt / 2)
-        return self._thermo_half(state, dt)
+        return self._thermo_half(_kick_half(state, dt), dt)
 
 
 class Minimize:
@@ -147,18 +201,19 @@ class Minimize:
         return state
 
     def post_force(self, state, dt):
-        f = state.forces[:, :3]
-        f = torch.where(torch.isfinite(f), f, 0.0)
-        # overflow-proof norm: clamped-overlap forces reach ~1e27, whose
-        # square overflows f32; scale by the max component first
-        m = torch.amax(torch.abs(f), dim=-1, keepdim=True)
-        dirn = f / torch.clamp_min(m, 1e-30)
-        norm = torch.sqrt(torch.sum(dirn * dirn, dim=-1, keepdim=True))
-        unit = dirn / torch.clamp_min(norm, 1e-30)
-        step = torch.clamp_max((self.alpha * m) * norm, self.max_disp)
-        state.positions = _wrap_positions(state.positions + unit * step,
-                                          state.box, state.tilted)
-        state.velocities = torch.zeros_like(state.velocities)
+        for p in _parts(state):
+            f = p.forces[:, :3]
+            f = torch.where(torch.isfinite(f), f, 0.0)
+            # overflow-proof norm: clamped-overlap forces reach ~1e27,
+            # whose square overflows f32; scale by the max component first
+            m = torch.amax(torch.abs(f), dim=-1, keepdim=True)
+            dirn = f / torch.clamp_min(m, 1e-30)
+            norm = torch.sqrt(torch.sum(dirn * dirn, dim=-1, keepdim=True))
+            unit = dirn / torch.clamp_min(norm, 1e-30)
+            step = torch.clamp_max((self.alpha * m) * norm, self.max_disp)
+            p.positions = _wrap_positions(p.positions + unit * step, p.box,
+                                          p.tilted)
+            p.velocities = torch.zeros_like(p.velocities)
         return state
 
 
@@ -195,14 +250,18 @@ class NPT(NVT):
     def post_force(self, state, dt):
         state = super().post_force(state, dt)
         vol = torch.prod(box_size(state.box))
-        ke2 = torch.sum(state.masses[:, None] * state.velocities ** 2)
-        w = torch.sum(torch.diagonal(state.virial, dim1=-2, dim2=-1))
+        ke2 = _total(state, _ke2)
+        w = _total(state, lambda p: torch.sum(
+            torch.diagonal(p.virial, dim1=-2, dim2=-1)))
         p_inst = (ke2 + w) / (3.0 * vol)
         mu3 = 1.0 - self.kappa * dt / self.tauP * (self.P - p_inst)
         mu = torch.clamp(mu3, 0.9, 1.1) ** (1.0 / 3.0)
         box = state.box
         center = 0.5 * (box[0] + box[1])
-        state.positions = center + mu * (state.positions - center)
+        for p in _parts(state):
+            dev = p.positions.device
+            c, m = to_device(center, dev), to_device(mu, dev)
+            p.positions = c + m * (p.positions - c)
         state.box = torch.stack([center + mu * (box[0] - center),
                                  center + mu * (box[1] - center), box[2]])
         return state
@@ -228,18 +287,19 @@ class Langevin:
         return {}
 
     def pre_force(self, state, dt):
-        state.velocities = _kick(state, dt / 2)                  # B
-        state.positions = _drift(state, dt / 2)                  # A
+        parts = _parts(state)
+        for p in parts:
+            p.velocities = _kick(p, dt / 2)                      # B
+            p.positions = _drift(p, dt / 2)                      # A
         c1 = math.exp(-self.gamma * dt)                          # O
-        c2 = torch.sqrt((1 - c1 ** 2) * self.kT / state.masses)[:, None]
-        noise = _normal(state, state.velocities.shape)
-        state.velocities = c1 * state.velocities + c2 * noise
-        state.positions = _drift(state, dt / 2)                  # A
+        for p, noise in zip(parts, _noise(state, "velocities")):
+            c2 = torch.sqrt((1 - c1 ** 2) * self.kT / p.masses)[:, None]
+            p.velocities = c1 * p.velocities + c2 * noise
+            p.positions = _drift(p, dt / 2)                      # A
         return state
 
     def post_force(self, state, dt):
-        state.velocities = _kick(state, dt / 2)                  # B
-        return state
+        return _kick_half(state, dt)                             # B
 
 
 class Brownian:
@@ -263,9 +323,9 @@ class Brownian:
         return state
 
     def post_force(self, state, dt):
-        mob = dt / (self.gamma * state.masses)[:, None]
-        noise = _normal(state, state.positions.shape)
-        x = (state.positions + mob * state.forces[:, :3] +
-             torch.sqrt(2 * self.kT * mob) * noise)
-        state.positions = _wrap_positions(x, state.box, state.tilted)
+        for p, noise in zip(_parts(state), _noise(state, "positions")):
+            mob = dt / (self.gamma * p.masses)[:, None]
+            x = (p.positions + mob * p.forces[:, :3] +
+                 torch.sqrt(2 * self.kT * mob) * noise)
+            p.positions = _wrap_positions(x, p.box, p.tilted)
         return state

@@ -65,17 +65,25 @@ in particle order, scattered into the beads' slot rows), their rows get
 no net force, and the model sees particle-order rows; a mapped model
 never takes K1's fast routes or the probe (the JAX package's rule).
 
-Under a device mesh (``Simulation(mesh=)``, :mod:`..parallel`) the state
-stays whole on the mesh's first device and the pair work is split: on
-``'cellwise'`` into z-slabs run by K1's slab mode on each shard's device
-(:func:`..ops.cellwise.analytic_pair_forces` with ``mesh=``), on
-``'n2'`` the dense build into contiguous particle rows, on the cell list
-into z-slabs of cells (kernel K3's slab mode on the card), on ``'direct'``
-the planes into particle rows, the model then called once on the whole
-list. Online training runs its backward per shard too
-(:func:`..ops.pair_train.pair_train_forces` with ``mesh=``), a SimModel
-the probe rejects (or a mapped model) gets its planes built per shard and
-runs once on all rows, and NPT's dynamic-box layout plans with the mesh's
+Under a device mesh (``Simulation(mesh=)``, :mod:`..parallel`) on
+``'cellwise'`` the slot state of a run lives per z-slab shard, each
+shard's rows on its own device (:class:`.slots.SlabSlots`,
+:class:`.state.SlabState`): K1's slab mode reads each shard's buffer in
+place (:func:`..ops.cellwise.resident_pair_forces`, the halo exchange
+written out), the integrators run per shard with the thermostat's and
+barostat's sums added over the shards, each shard repacks its own rows
+with the particles of its neighbours' boundary layers (the migrating
+repack), and the particle-order state is gathered on the mesh's first
+device at the run's end only. Online training, a mapped model and a
+SimModel the probe rejects keep the whole slot state on the first device
+and split their pair work instead (:func:`..ops.cellwise.
+analytic_pair_forces` with ``mesh=``, the backward per shard through
+:func:`..ops.pair_train.pair_train_forces`, the planes built per shard).
+The packed routes keep the particle-order state whole: on ``'n2'`` the
+dense build is split into contiguous particle rows, on the cell list
+into z-slabs of cells (kernel K3's slab mode on the card), on
+``'direct'`` the planes into particle rows, the model then called once
+on the whole list. NPT's dynamic-box layout plans with the mesh's
 divisor.
 
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
@@ -94,7 +102,7 @@ import torch
 from . import integrators as _integrators
 from . import thermo as _thermo
 from .slots import SlotLayout
-from .state import init_state, lattice_positions
+from .state import SlabState, init_state, lattice_positions, zeros_like
 from .._device import resolve_device, to_device
 from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
@@ -144,28 +152,33 @@ class Simulation:
     :param auto_replan: re-plan the cellwise geometry at ``run()``
         boundaries (tighter capacity, overflow self-heal).
     :param mesh: a :class:`..parallel.mesh.Mesh` (``parallel.make_mesh``)
-        of ``S`` shards. The state stays whole on ``mesh.devices[0]`` (the
-        simulation's device), in slot order; what is split is the pair
-        work. On ``'cellwise'`` the plan keeps ``nz % S == 0`` and each
-        shard runs K1's slab mode on its device over its z-slab and one
-        forward halo layer (:func:`..ops.cellwise.analytic_pair_forces`),
-        the reverse halos added on the first device; on ``'n2'`` each
-        shard builds the dense list of its contiguous particle rows on its
-        device, on ``'cell'`` / ``'pallas'`` each shard selects the rows of
-        its z-slab of cells (K3's slab mode on the card, or the sort
-        method; the packed grid has no divisor, so the slabs are ``nz s //
-        S`` on), on ``'direct'`` each shard builds its particle rows'
-        planes; the model runs once a step on the gathered list, so a
-        stateful model (metrics, EDS) means what it means without a mesh.
-        The integrators (NPT too) and the built-in forces act on the
-        whole state unchanged. Online training runs its backward per
-        shard (K2 or ``generic_reduce_bwd`` in slab mode), and the planes
-        route of a SimModel the probe rejects builds each shard's planes
-        on its device and runs the model once on all rows. A mapped
-        model's mapping runs on the whole state, its list or planes are
-        built per shard as above. A tilted box raises
-        ``NotImplementedError`` on ``'cellwise'`` under a mesh, as in the
-        JAX package.
+        of ``S`` shards. Between runs the particle-order state lies on
+        ``mesh.devices[0]`` (the simulation's device). On ``'cellwise'``
+        the plan keeps ``nz % S == 0`` and, during a run, shard ``s``
+        keeps the slot rows of its z-slab and one forward halo layer on
+        ``mesh.devices[s]`` (:class:`.slots.SlabSlots`): K1's slab mode
+        runs on them in place, the forward halo copied from the next shard
+        before each evaluation and the reverse halo added into it after;
+        the integrators (NPT too), the built-in forces, ``period`` and
+        logging act per shard, the sums of the thermostat, the barostat
+        and the log added on the first device; each shard repacks its own
+        rows (the migrating repack); the shards stay between runs and the
+        particle-order state is gathered at a run's end. Online training,
+        a mapped model and the planes route of a SimModel the probe
+        rejects keep the whole slot state on the first device instead:
+        the slab buffers are copied from it per evaluation, the training
+        backward runs per shard (K2 or ``generic_reduce_bwd`` in slab
+        mode), the planes are built per shard and the model runs once on
+        all rows. On ``'n2'`` each shard builds the dense list of its
+        contiguous particle rows on its device, on ``'cell'`` /
+        ``'pallas'`` each shard selects the rows of its z-slab of cells
+        (K3's slab mode on the card, or the sort method; the packed grid
+        has no divisor, so the slabs are ``nz s // S`` on), on
+        ``'direct'`` each shard builds its particle rows' planes; the
+        model runs once a step on the gathered list, so a stateful model
+        (metrics, EDS) means what it means without a mesh. A tilted box
+        raises ``NotImplementedError`` on ``'cellwise'`` under a mesh, as
+        in the JAX package.
     :param shard_axis: the mesh axis of the shards.
     """
 
@@ -605,9 +618,12 @@ class Simulation:
                                              None)
             packed = self._packed
             if packed is not None and packed[0] is self.state and \
-                    packed[1] is layout:
+                    getattr(packed[1], "layout", packed[1]) is layout:
                 aux = packed[2][1]
-                rec["orig"] = aux["orig"].cpu().numpy().copy()
+                orig = aux["orig"]
+                if packed[1] is not layout:
+                    orig = packed[1].whole(orig)
+                rec["orig"] = orig.cpu().numpy().copy()
                 rec["occ_max"] = int(aux["occ_max"])
         lanes = getattr(self, "_lanes", None)
         if lanes is not None:
@@ -632,10 +648,11 @@ class Simulation:
                 layout._replan_throttle = rec["replan_throttle"]
             if "orig" in rec:
                 orig = torch.as_tensor(rec["orig"], device=self.device)
-                st, aux = layout.pack(self.state, src=orig)
+                slots = self._slots(layout)
+                st, aux = slots.pack(self.state, src=orig)
                 aux["occ_max"] = torch.tensor(
                     rec["occ_max"], dtype=torch.int32, device=self.device)
-                self._packed = (self.state, layout, (st, aux))
+                self._packed = (self.state, slots, (st, aux))
         if "lanes" in rec:
             # after the layout, which makes a first estimate of its own
             budget, committed, key = rec["lanes"]
@@ -743,14 +760,39 @@ class Simulation:
         self._static_K_last = K
         return K
 
+    def _slots(self, layout):
+        """What the step loop keeps the slot state in: under a mesh, on
+        every route but online training, a mapped model and the planes
+        route (a SimModel the probe rejects), the layout's shards
+        (:meth:`.slots.SlotLayout.resident`, each shard's rows resident on
+        its device); else ``layout`` itself (the whole state on the
+        simulation's device)."""
+        if not self._sharded():
+            return layout
+        tfc = self.tfc
+        whole = tfc is not None and (
+            tfc.train or tfc.map_enabled or
+            (not isinstance(tfc.model, PairModel) and
+             tfc.model.output_forces and not self._probe_lane_fast(layout)))
+        return layout if whole else layout.resident(self.mesh,
+                                                    self.shard_axis)
+
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
     def _pair_eval(self, st, aux, layout, pair_fn, form, needs_energy,
                    want_virial, with_types, min_r2):
         """One analytic pair-force evaluation on slot state (counted in
-        :attr:`force_evals`)."""
+        :attr:`force_evals`): on a state resident per shard
+        (:class:`.state.SlabState`) through its layout's
+        :meth:`.slots.SlabSlots.pair_forces`."""
         self.force_evals += 1
+        if isinstance(st, SlabState):
+            return layout.pair_forces(
+                st, aux, pair_fn, needs_virial=want_virial, min_r2=min_r2,
+                with_types=with_types, stencil=self.stencil,
+                needs_energy=needs_energy, form=form, lanes=self._lanes,
+                shard_fn=lambda dev: self._on_device(pair_fn, dev))
         return _cw.analytic_pair_forces(
             st.positions, st.types, aux["valid"], layout.plan, layout.lo,
             pair_fn, needs_virial=want_virial, min_r2=min_r2,
@@ -956,7 +998,7 @@ class Simulation:
             r.model_period = tfc.period
         return r
 
-    def _probe_lane_fast(self, layout, st, aux):
+    def _probe_lane_fast(self, layout, st=None, aux=None):
         """Is the attached generic SimModel lane-separable on this state
         (:mod:`..ops.lane_fast`)? The verdict is kept on the driver
         (``tfc._lane_fast_ok``, why in ``tfc._lane_fast_report``) and
@@ -978,6 +1020,18 @@ class Simulation:
         if cache is not None and cache[0] == key:
             tfc._lane_fast_ok = cache[1]
             return cache[1]
+        check = layout
+        if st is None:
+            # the validation reads a whole slot state (a mesh's route is
+            # chosen by its verdict): packed here, at a run() boundary,
+            # once per configuration and plan, into a layout of its own,
+            # whose per-slot constants of the whole grid go with it
+            check = SlotLayout(layout.plan, layout.n, layout.lo,
+                               rc_matrix=layout.rc_matrix,
+                               dtype=self.state.positions.dtype,
+                               device=self.device, box=self.state.box,
+                               dynamic_box=layout.dynamic_box)
+            st, aux = check.pack(self.state)
         stencil = self.stencil
         if stencil == "auto":
             stencil = "kernel" if self.device.type == "cuda" else "full"
@@ -989,7 +1043,7 @@ class Simulation:
             # (a mesh's budget is a shard's: the validation's unsharded
             # call sizes its own list)
             ok = validate_pair_fn(
-                model, synthesize_pair_fn(model, st.box), st, aux, layout,
+                model, synthesize_pair_fn(model, st.box), st, aux, check,
                 stencil, lanes=None if self._sharded() else self._lanes,
                 lane_chunk=(_PROBE_LANES if self.device.type == "cuda"
                             else None),
@@ -1047,7 +1101,7 @@ class Simulation:
             f4, w = self._forces(st, aux, layout, route, log_now, want_w)
         st.forces = _mask_beads(f4, aux["orig"], route.map_i)
         if want_w:
-            st.virial = torch.zeros_like(st.virial) if w is None else w
+            st.virial = zeros_like(st.virial) if w is None else w
         st = integ.post_force(st, dt)
         st = layout.ghost_pin(st, aux)
         if log_now:
@@ -1138,16 +1192,19 @@ class Simulation:
             self._vmax_hist = []
             self._static_K_integ = id(self.integrator)
         K = self._choose_repack_interval(layout)
+        slots = self._slots(layout)
         packed = self._packed
         if packed is not None and packed[0] is self.state and \
-                packed[1] is layout:
+                packed[1] is slots:
             st, aux = packed[2]
             # shallow copy: fields are rebound, never written in place, so
-            # the cached pack survives a rolled-back attempt
-            st = dataclasses.replace(st)
-            aux = {**aux, "vmax": layout._vmax(st.velocities)}
+            # the cached pack survives a rolled-back attempt (every attempt
+            # repacks before it writes a halo row)
+            st = (st.copy() if isinstance(st, SlabState) else
+                  dataclasses.replace(st))
+            aux = {**aux, "vmax": slots._vmax(st.velocities)}
         else:
-            st, aux = layout.pack(self.state)
+            st, aux = slots.pack(self.state)
         route = self._route(layout, st, aux)
         route.repack_each_step = K is None
         log = (None if log_period is None else
@@ -1159,8 +1216,8 @@ class Simulation:
             # from the last committed run (zeros at first), in slot order
             route.carry_virial = bool(tfc.model.virial and needs_virial)
             mf, mw = tfc.model_forces(self.state)
-            aux = {**aux, "mf": layout.to_slots(mf, aux),
-                   "mw": (layout.to_slots(mw, aux) if route.carry_virial
+            aux = {**aux, "mf": slots.to_slots(mf, aux),
+                   "mw": (slots.to_slots(mw, aux) if route.carry_virial
                           else None)}
         tr = route.trainer
         # what a rollback restores: every model variable (weights, metrics,
@@ -1177,10 +1234,10 @@ class Simulation:
         with _sync_guard(self.check_syncs):
             done = 0
             while done < n:
-                st, aux = layout.rebuild(st, aux)
+                st, aux = slots.rebuild(st, aux)
                 self.repacks += 1
                 for _ in range(n - done if K is None else min(K, n - done)):
-                    st, aux, flags = self._step(st, aux, flags, layout,
+                    st, aux, flags = self._step(st, aux, flags, slots,
                                                 route, done, log)
                     done += 1
             flags = flags | aux["overflow"].to(torch.int32)
@@ -1194,13 +1251,13 @@ class Simulation:
             final = (StateSnapshot(tfc.model) if route.model_period == 1
                      and (route.model_fn is not None or route.planes)
                      else None)
-            f4, w = self._forces(st, aux, layout, route, True,
+            f4, w = self._forces(st, aux, slots, route, True,
                                  needs_virial, capture=False)
             if final is not None:
                 final.restore()
             st.forces = _mask_beads(f4, aux["orig"], route.map_i)
             if needs_virial:
-                st.virial = torch.zeros_like(st.virial) if w is None else w
+                st.virial = zeros_like(st.virial) if w is None else w
             # bit 3: K1's generic-form list was too short in some call
             flags = flags | (self._lanes.overflow().to(torch.int32) << 3)
         flags_now, occ_now, vmax_now, lanes_now, box_now, losses, log_vals = \
@@ -1287,12 +1344,12 @@ class Simulation:
                 vhist.pop(0)
             self._vmax_hist = vhist
 
-        self.state = layout.unpack(st, aux)
+        self.state = slots.unpack(st, aux)
         self.state.step = start_step + n
         if box_now is not None:
             self._note_box(self.state.box, box_now)
         self._vmax_cache = (self.state, vmax_now)
-        self._packed = (self.state, layout, (st, aux))
+        self._packed = (self.state, slots, (st, aux))
         if overflow:
             raise ValueError(
                 "Cell capacity exceeded during the run (a cell held more "
@@ -1305,9 +1362,9 @@ class Simulation:
         if route.model_period > 1:
             mw = aux.get("mw")
             tfc.keep_model_forces(
-                layout.to_particles(aux["mf"], aux),
+                slots.to_particles(aux["mf"], aux),
                 torch.zeros_like(self.state.virial) if mw is None else
-                layout.to_particles(mw, aux))
+                slots.to_particles(mw, aux))
         if tr is not None:
             # a failed attempt's losses belong to training it rolled back
             tfc.loss_history.extend(losses.tolist())

@@ -31,10 +31,11 @@ import dataclasses
 
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..ops import cellwise as cw
+from .state import Shards, SimState, SlabState
 
-__all__ = ["SlotLayout"]
+__all__ = ["SlotLayout", "SlabSlots"]
 
 
 class SlotLayout:
@@ -93,8 +94,7 @@ class SlotLayout:
         or in dynamic-box mode their fractional coordinates."""
         if not self.dynamic_box:
             return st.positions
-        f = cw._fractional(st.positions, self.geom(st))
-        return f - torch.floor(f)
+        return _frac(st.positions, self.geom(st))
 
     @staticmethod
     def _vmax(velocities):
@@ -275,3 +275,396 @@ class SlotLayout:
         valid = aux["valid"]
         return (forces4 * valid[:, None],
                 None if virial is None else virial * valid[:, None, None])
+
+    def resident(self, mesh, shard_axis=None):
+        """This layout's slot state resident per z-slab shard of ``mesh``
+        (:class:`SlabSlots`), made once per mesh."""
+        cache = self.__dict__.setdefault("_resident", {})
+        axis = shard_axis or mesh.axis_names[0]
+        key = (id(mesh), axis)
+        if key not in cache:
+            cache[key] = (mesh, SlabSlots(self, mesh, axis))
+        return cache[key][1]
+
+
+class SlabSlots:
+    """The slot state of a :class:`SlotLayout` resident per z-slab shard
+    of a mesh (the JAX package's row-sharded slot arrays under
+    ``Simulation(mesh=)``): no tensor of all ``n_slots`` rows exists
+    between :meth:`pack` and :meth:`unpack`.
+
+    Shard ``s`` of the mesh, with the z-layers ``z0 .. z0 + nzl - 1``
+    (:func:`..ops.cellwise.slab_layers`), keeps its buffers on
+    ``mesh.devices[s]``: a :class:`.state.SimState` (positions,
+    velocities, masses, types, forces, virial) in a
+    :class:`.state.SlabState`, and ``valid``, ``orig`` and ``ref`` in
+    ``aux`` as :class:`.state.Shards`. Each holds ``(nzl + 1) * layer``
+    rows: the home layers in slot order, then one forward halo layer
+    (:func:`..ops.cellwise.slab_rows`), which K1's slab mode reads in
+    place (:func:`..ops.cellwise.resident_pair_forces` writes its
+    positions before each evaluation; the repack writes its types and
+    ``valid``). The halo rows are otherwise inert: zero velocity, force
+    and virial, unit mass, ``orig = n``, no noise.
+
+    The methods are :class:`SlotLayout`'s, per shard: the integrators run
+    on each shard (:mod:`.integrators`), and what the run reads back --
+    the overflow bit, the running max occupancy and speed, the Verlet
+    test -- is combined on the first shard's device.
+
+    **The migrating repack** (:meth:`rebuild`) is local to each shard: a
+    repack comes before any particle drifted ``skin / 2`` (the Verlet
+    test), so a particle can reach only an adjacent cell, and shard
+    ``s``'s new rows come from its home layers, the last home layer of
+    shard ``s - 1`` and the first of shard ``s + 1``, the two fixed-size
+    migration buffers (no ``nonzero``, no host sync). The window is
+    sorted stably by ``(cell, old global slot row)``, so the in-cell
+    ranks are :func:`..ops.cellwise.repack_order`'s on the whole state,
+    bit for bit. A particle that no shard's window can take sets the
+    overflow bit, and the run rolls back as for a full cell.
+    """
+
+    def __init__(self, layout, mesh, shard_axis=None):
+        self.layout = layout
+        self.mesh = mesh
+        self.plan, self.lo, self.n = layout.plan, layout.lo, layout.n
+        self.rc2_tab, self.dynamic_box = layout.rc2_tab, layout.dynamic_box
+        self.geometry = layout.geometry
+        self.slabs = cw.mesh_slabs(layout.plan, mesh, shard_axis)
+        self.shard_axis = shard_axis
+        self.layer = cw.halo_layer(layout.plan)
+        self.device = layout.geometry.device
+
+    def geom(self, state=None):
+        return self.layout.geom(state)
+
+    def geometry_bad(self, slot_state):
+        return self.layout.geometry_bad(slot_state)
+
+    def geoms(self, state=None):
+        """Each shard's geometry of the global plan at ``state``'s box, on
+        its device (:meth:`..ops.cellwise.SlotGeometry.on`)."""
+        g = self.geom(state)
+        return [g.on(dev) for dev, _, _ in self.slabs]
+
+    def home(self, s):
+        """Shard ``s``'s home rows (its buffer's rows before the halo)."""
+        return self.slabs[s][2] * self.layer
+
+    def _first(self, vals):
+        """Per-shard 0-dim ``vals`` stacked on the first shard's device."""
+        return torch.stack([to_device(v, self.device) for v in vals])
+
+    def _refs(self, st):
+        """Each shard's :meth:`SlotLayout._ref` (the fractional
+        coordinates in dynamic-box mode)."""
+        if not self.dynamic_box:
+            return st.positions
+        return Shards(_frac(p.positions, g)
+                      for p, g in zip(st.shards, self.geoms(st)))
+
+    def _vmax(self, velocities):
+        return torch.sqrt(self._first(
+            [torch.max(torch.sum(v * v, dim=-1)) for v in velocities]).max())
+
+    def _buffer(self, s, g, cols):
+        """Shard ``s``'s buffer from its home rows ``cols`` (a dict of the
+        state's row fields, ``valid`` and ``orig``): the halo layer's rows
+        appended as ghosts parked at their cell centers (its positions,
+        types and ``valid`` are the next shard's once :meth:`_fill_halos`
+        ran)."""
+        _, z0, nzl = self.slabs[s]
+        L = self.layer
+
+        def pad(t, value):
+            return torch.cat([t, torch.full((L,) + tuple(t.shape[1:]),
+                                            value, dtype=t.dtype,
+                                            device=t.device)])
+        out = {k: pad(cols[k], v) for k, v in (
+            ("velocities", 0), ("masses", 1), ("types", 0), ("forces", 0),
+            ("virial", 0), ("valid", 0), ("orig", self.n))}
+        out["positions"] = torch.cat([cols["positions"],
+                                      g.slab_centers(z0, nzl)[-L:]])
+        for k in ("mf", "mw"):
+            if cols.get(k) is not None:
+                out[k] = pad(cols[k], 0)
+        return out
+
+    def _fill_halos(self, bufs):
+        """Each shard's halo layer of positions, types and ``valid``: the
+        next shard's first home layer."""
+        L = self.layer
+        for s, b in enumerate(bufs):
+            nxt = bufs[(s + 1) % len(bufs)]
+            for k in ("positions", "types", "valid"):
+                cw.put_rows(b[k][-L:], nxt[k][:L])
+
+    def _assemble(self, like, bufs, overflow, occ, vmax=None):
+        """``(SlabState, aux)`` from each shard's buffer dict; ``like``
+        gives the run-wide fields (box, step, thermostat, tilted, rng)."""
+        self._fill_halos(bufs)
+        shards = [SimState(
+            positions=b["positions"], velocities=b["velocities"],
+            types=b["types"], masses=b["masses"],
+            box=to_device(like.box, dev), forces=b["forces"],
+            virial=b["virial"], step=like.step, tilted=like.tilted,
+            noise_rows=(b["orig"].long(), self.n))
+            for b, (dev, _, _) in zip(bufs, self.slabs)]
+        st = SlabState(shards, like.box, self.n, like.step, like.thermostat,
+                       like.tilted, like.rng)
+        vm = self._vmax(st.velocities)
+        aux = {"valid": Shards(b["valid"] for b in bufs),
+               "orig": Shards(b["orig"] for b in bufs),
+               "ref": self._refs(st), "overflow": overflow,
+               "occ_max": occ,
+               "vmax": vm if vmax is None else torch.maximum(vmax, vm)}
+        for k in ("mf", "mw"):
+            if k in bufs[0]:
+                aux[k] = Shards(b[k] for b in bufs)
+        return st, aux
+
+    # ------------------------------------------------------------------
+    def pack(self, state, src=None):
+        """Particle-order ``SimState`` -> ``(SlabState, aux)``: the slot
+        assignment of :meth:`SlotLayout.pack` (``src`` as there), each
+        shard's rows gathered on the state's device and copied to its
+        own, where its ghosts are parked."""
+        layout, n, L = self.layout, self.n, self.layer
+        dtype = state.positions.dtype
+        if src is None:
+            valid_n = torch.ones(n, dtype=dtype,
+                                 device=state.positions.device)
+            src, overflow, occ = layout._repack(state, valid_n)
+        else:
+            src = src.to(torch.int32)
+            overflow = torch.zeros((), dtype=torch.bool, device=src.device)
+            occ = torch.zeros((), dtype=torch.int32, device=src.device)
+        g = layout.geom(state)
+        bufs = []
+        for s, (dev, z0, nzl) in enumerate(self.slabs):
+            rows = src[z0 * L:(z0 + nzl) * L]
+            has = rows < n
+            idx = torch.clamp_max(rows, n - 1).long()
+
+            def put(vals, default):
+                sel = has.reshape((-1,) + (1,) * (vals.ndim - 1))
+                return torch.where(sel, vals[idx], default)
+            cols = dict(
+                positions=put(state.positions, 0.0),
+                velocities=put(state.velocities, 0.0),
+                types=put(state.types, 0), masses=put(state.masses, 1.0),
+                forces=put(state.forces, 0.0),
+                virial=put(state.virial, 0.0), valid=has.to(dtype),
+                orig=torch.where(has, rows, n).to(torch.int32))
+            cols = {k: to_device(v, dev) for k, v in cols.items()}
+            gd = g.on(dev)
+            cols["positions"] = torch.where(
+                cols["valid"][:, None] > 0, cols["positions"],
+                gd.slab_centers(z0, nzl)[:nzl * L])
+            bufs.append(self._buffer(s, gd, cols))
+        like = dataclasses.replace(state, thermostat={
+            **(state.thermostat or {}), "dof": float(3 * n - 3)})
+        return self._assemble(like, bufs, overflow, occ)
+
+    def to_particles(self, vals, aux):
+        """Each shard's home rows (:class:`.state.Shards`) -> particle
+        order on the first shard's device."""
+        first = self.device
+        out = torch.zeros((self.n + 1,) + tuple(vals[0].shape[1:]),
+                          dtype=vals[0].dtype, device=first)
+        for s, (v, o) in enumerate(zip(vals, aux["orig"])):
+            H = self.home(s)
+            out.index_copy_(0, to_device(o[:H], first).long(),
+                            to_device(v[:H], first))
+        return out[:self.n]
+
+    def whole(self, vals):
+        """Each shard's home rows joined in global slot order on the first
+        shard's device (a checkpoint's slot order, a test's view)."""
+        return torch.cat([to_device(v[:self.home(s)], self.device)
+                          for s, v in enumerate(vals)])
+
+    def to_slots(self, vals, aux):
+        """Rows of particle order -> each shard's buffer rows, zero on
+        ghost and halo rows."""
+        out = []
+        for orig in aux["orig"]:
+            o = to_device(orig, vals.device).long()
+            got = vals[torch.clamp_max(o, self.n - 1)]
+            has = (o < self.n).reshape((-1,) + (1,) * (vals.ndim - 1))
+            out.append(to_device(torch.where(has, got, torch.zeros_like(got)),
+                                 orig.device))
+        return Shards(out)
+
+    def unpack(self, slot_state, aux):
+        """``SlabState`` -> particle-order ``SimState`` on the first
+        shard's device (the run's one gather of the shards)."""
+        st = slot_state
+
+        def back(vals):
+            return self.to_particles(vals, aux)
+
+        thermostat = dict(st.thermostat or {})
+        thermostat.pop("dof", None)
+        return SimState(
+            positions=back(st.positions), velocities=back(st.velocities),
+            types=back(st.types), masses=back(st.masses), box=st.box,
+            forces=back(st.forces), virial=back(st.virial), step=st.step,
+            thermostat=thermostat, tilted=st.tilted, rng=st.rng)
+
+    # ------------------------------------------------------------------
+    def needs_rebuild(self, slot_state, aux):
+        """:meth:`SlotLayout.needs_rebuild`: each shard's largest drift
+        over its home rows, the max taken on the first device."""
+        st = slot_state
+        d2 = []
+        for s, (p, ref, g) in enumerate(zip(st.shards, aux["ref"],
+                                            self.geoms(st))):
+            H = self.home(s)
+            if self.dynamic_box:
+                d = _frac(p.positions[:H], g) - ref[:H]
+                d = (d - torch.round(d)) * g.lengths
+            else:
+                d = g.wrap(p.positions[:H] - ref[:H])
+            d2.append(torch.max(torch.sum(d * d, dim=-1)))
+        d2 = self._first(d2).max()
+        if self.dynamic_box:
+            half_skin = torch.clamp_min(
+                torch.min(self.geom(st).edges) - self.plan.r_cut, 0.0) / 2.0
+        else:
+            half_skin = max(self.plan.skin, 0.0) / 2.0
+        return d2 >= (half_skin * 0.98) ** 2
+
+    def ghost_pin(self, slot_state, aux):
+        """Re-pin ghosts on every shard: zero velocity, parked at the cell
+        center."""
+        for p, v, g, (_, z0, nzl) in zip(slot_state.shards, aux["valid"],
+                                         self.geoms(slot_state),
+                                         self.slabs):
+            v = v[:, None]
+            p.positions = torch.where(v > 0, p.positions,
+                                      g.slab_centers(z0, nzl))
+            p.velocities = p.velocities * v
+        return slot_state
+
+    def mask_rows(self, forces4, virial, aux):
+        """Zero force/energy/virial rows of ghost slots, per shard."""
+        f = Shards(f * v[:, None] for f, v in zip(forces4, aux["valid"]))
+        return f, (None if virial is None else Shards(
+            w * v[:, None, None] for w, v in zip(virial, aux["valid"])))
+
+    def pair_forces(self, slot_state, aux, pair_fn, **kw):
+        """:func:`..ops.cellwise.resident_pair_forces` on the shards:
+        ``(forces4, virial or None)`` as :class:`.state.Shards`."""
+        st = slot_state
+        f, w = cw.resident_pair_forces(
+            st.positions, st.types, aux["valid"], self.plan, self.lo,
+            pair_fn, self.mesh, self.geoms(st), self.shard_axis,
+            rcut_matrix=self.rc2_tab, **kw)
+        return Shards(f), None if w is None else Shards(w)
+
+    # ------------------------------------------------------------------
+    def rebuild(self, slot_state, aux):
+        """The migrating repack, per shard (see the class): each shard
+        sorts its window -- the previous shard's last home layer, its own
+        home layers and the next shard's first home layer, in global slot
+        order -- by the new cell of each real row and keeps the rows whose
+        cell is one of its own; forces, virial and the carried model
+        forces move with their particles (:meth:`SlotLayout.rebuild`)."""
+        st, plan, n, L = slot_state, self.plan, self.n, self.layer
+        nx, ny, nz = plan.grid
+        cap, S = plan.capacity, len(self.slabs)
+        carried = [k for k in ("mf", "mw") if aux.get(k) is not None]
+        blks, ints = [], []
+        for s, p in enumerate(st.shards):
+            H = self.home(s)
+            blks.append(torch.cat(
+                [p.positions[:H], p.velocities[:H], p.masses[:H, None],
+                 p.forces[:H], p.virial[:H].reshape(H, 9)] +
+                [aux[k][s][:H].reshape(H, -1) for k in carried], dim=1))
+            ints.append(torch.stack([aux["orig"][s][:H], p.types[:H]],
+                                    dim=1))
+        geoms = self.geoms(st)
+        bufs, flags, occs = [], [], []
+        for s, (dev, z0, nzl) in enumerate(self.slabs):
+            H = nzl * L
+            prev = [to_device(t[(s - 1) % S][-L:], dev) for t in (blks, ints)]
+            nxt = [to_device(t[(s + 1) % S][:L], dev) for t in (blks, ints)]
+            home = [blks[s], ints[s]]
+            # the window in global slot-row order: shard 0's previous rows
+            # (the last shard's) come after its own, the last shard's next
+            # rows (shard 0's) before them
+            parts = ([home, nxt, prev] if s == 0 else
+                     [nxt, prev, home] if s == S - 1 else
+                     [prev, home, nxt])
+            at_home = sum(q[0].shape[0] for q in
+                          parts[:[q is home for q in parts].index(True)])
+            wb = torch.cat([q[0] for q in parts])
+            wi = torch.cat([q[1] for q in parts])
+            W = wb.shape[0]
+            has_w = wi[:, 0] < n
+            cell = cw.bin_cells(wb[:, 0:3], self.lo, plan, geoms[s])
+            zc = cell // (nx * ny)
+            mine = has_w & (zc >= z0) & (zc < z0 + nzl)
+            n_cells = nzl * nx * ny
+            key = torch.where(mine, cell - z0 * nx * ny,
+                              torch.full_like(cell, n_cells))
+            # stable: equal cells keep the window's (global) row order
+            sk, order = torch.sort(key, stable=True)
+            idx = torch.arange(W, device=dev)
+            seg = torch.ones(W, dtype=torch.bool, device=dev)
+            seg[1:] = sk[1:] != sk[:-1]
+            rank = idx - torch.cummax(
+                torch.where(seg, idx, torch.zeros_like(idx)), dim=0).values
+            sk = sk.long()
+            real = sk < n_cells
+            kept = real & (rank < cap)
+            new_slot = torch.where(kept, sk * cap + torch.clamp_max(
+                rank, cap - 1), torch.full_like(sk, H))
+            src = torch.full((H + 1,), W, dtype=torch.int32, device=dev)
+            src.scatter_(0, new_slot, order.to(torch.int32))
+            src = src[:H]
+            occs.append((torch.max(torch.where(
+                real, rank, torch.full_like(rank, -1))) + 1).to(torch.int32))
+            # a home row whose new cell no shard's window takes in: not its
+            # own, and not the previous (next) shard's from its first (last)
+            # home layer
+            zn = zc[at_home:at_home + H]
+            layer_of = torch.arange(H, device=dev) // L
+            (_, zp, np_), (_, zq, nq) = (self.slabs[(s - 1) % S],
+                                         self.slabs[(s + 1) % S])
+            taken = (((zn >= z0) & (zn < z0 + nzl)) |
+                     ((layer_of == 0) & (zn >= zp) & (zn < zp + np_)) |
+                     ((layer_of == nzl - 1) & (zn >= zq) & (zn < zq + nq)))
+            lost = has_w[at_home:at_home + H] & ~taken
+            flags.append(torch.any(real & (rank >= cap)) | torch.any(lost))
+            has = src < W
+            h = has[:, None]
+            at = torch.clamp(src, 0, W - 1).long()
+            g, gi = wb[at], wi[at]
+            centers = geoms[s].slab_centers(z0, nzl)[:H]
+            cols = dict(
+                positions=torch.where(h, g[:, 0:3], centers),
+                velocities=torch.where(h, g[:, 3:6], 0.0),
+                masses=torch.where(has, g[:, 6], 1.0),
+                forces=torch.where(h, g[:, 7:11], 0.0),
+                virial=torch.where(h, g[:, 11:20], 0.0).reshape(-1, 3, 3),
+                orig=torch.where(has, gi[:, 0], n),
+                types=torch.where(has, gi[:, 1], 0),
+                valid=has.to(wb.dtype))
+            col = 20
+            for k in carried:
+                w = aux[k][s][0].numel()
+                cols[k] = torch.where(h, g[:, col:col + w], 0.0).reshape(
+                    (H,) + tuple(aux[k][s].shape[1:]))
+                col += w
+            bufs.append(self._buffer(s, geoms[s], cols))
+        overflow = aux["overflow"] | self._first(flags).any()
+        occ = torch.maximum(aux["occ_max"], self._first(occs).max())
+        return self._assemble(st, bufs, overflow, occ, aux["vmax"])
+
+
+def _frac(positions, g):
+    """:meth:`SlotLayout._ref` of ``positions`` in ``g``'s box: fractional
+    coordinates reduced ``mod 1``."""
+    f = cw._fractional(positions, g)
+    return f - torch.floor(f)

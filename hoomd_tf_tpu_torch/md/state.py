@@ -1,6 +1,7 @@
 """Simulation state (PyTorch port of ``hoomd_tf_tpu/md/state.py``).
 
-One dataclass of device tensors. Unlike the JAX package, whose pure
+One dataclass of device tensors (and, under a mesh, :class:`SlabState`,
+one per shard). Unlike the JAX package, whose pure
 functions return replaced copies, the port's integrators and slot layout
 update a ``SimState`` object by rebinding its fields; callers that need
 the old state (``Simulation.run``'s rollback) keep their own reference
@@ -12,10 +13,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..ops.box import box_from_lengths, host_tilt
 
-__all__ = ["SimState", "lattice_positions", "init_state"]
+__all__ = ["SimState", "SlabState", "Shards", "lattice_positions",
+           "init_state"]
 
 
 @dataclasses.dataclass
@@ -68,6 +70,86 @@ class SimState:
         return torch.cat([self.positions,
                           self.types.to(self.positions.dtype)[:, None]],
                          dim=-1)
+
+
+class Shards(tuple):
+    """One tensor per mesh shard of a :class:`SlabState`, in shard order,
+    each on its shard's device; ``+`` adds shard by shard."""
+
+    def __add__(self, other):
+        return Shards(a + b for a, b in zip(self, other))
+
+
+def zeros_like(t):
+    """``torch.zeros_like`` of a tensor or of each tensor of a
+    :class:`Shards`."""
+    if isinstance(t, Shards):
+        return Shards(torch.zeros_like(x) for x in t)
+    return torch.zeros_like(t)
+
+
+def _rows(name):
+    def get(self):
+        return Shards(getattr(p, name) for p in self.shards)
+
+    def put(self, values):
+        for p, v in zip(self.shards, values):
+            setattr(p, name, v)
+    return property(get, put)
+
+
+class SlabState:
+    """A slot state resident per z-slab shard of a mesh.
+
+    ``shards[s]`` is a :class:`SimState` on ``mesh.devices[s]`` over the
+    rows of shard ``s``'s buffer (:class:`.slots.SlabSlots`): its home
+    layers, then one forward halo layer, which holds the next shard's
+    first home layer (positions, types) for the pair kernel and is
+    otherwise inert (zero velocity, force and virial, unit mass, no
+    noise). The run-wide values -- the box, the step, the thermostat,
+    ``tilted``, the generator and the number of particles -- live here,
+    on the first shard's device; setting ``box`` copies it to every
+    shard. The row fields (``positions``, ``velocities``, ``types``,
+    ``masses``, ``forces``, ``virial``) read and write :class:`Shards`.
+    """
+
+    positions = _rows("positions")
+    velocities = _rows("velocities")
+    types = _rows("types")
+    masses = _rows("masses")
+    forces = _rows("forces")
+    virial = _rows("virial")
+
+    def __init__(self, shards, box, n, step=0, thermostat=None,
+                 tilted=False, rng=None):
+        self.shards = list(shards)
+        self.n = int(n)
+        self.step = step
+        self.thermostat = dict(thermostat or {})
+        self.tilted = tilted
+        self.rng = rng
+        self.box = box
+
+    @property
+    def box(self):
+        return self._box
+
+    @box.setter
+    def box(self, box):
+        self._box = box
+        for p in self.shards:
+            p.box = to_device(box, p.positions.device)
+
+    @property
+    def n_particles(self):
+        return self.n
+
+    def copy(self):
+        """A shallow copy whose shards are shallow copies too: fields are
+        rebound, so the copy's steps leave this state as it is."""
+        return SlabState([dataclasses.replace(p) for p in self.shards],
+                         self._box, self.n, self.step, self.thermostat,
+                         self.tilted, self.rng)
 
 
 def lattice_positions(n, density=None, a=None, kind="sc"):

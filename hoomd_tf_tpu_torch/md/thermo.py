@@ -3,6 +3,7 @@
 
 import torch
 
+from .._device import to_device
 from ..ops.box import box_size
 
 __all__ = ["kinetic_energy", "temperature", "potential_energy", "pressure",
@@ -49,20 +50,34 @@ def thermo(state):
     }
 
 
-def log_row(state, valid=None):
-    """The :data:`LOG_KEYS` quantities of ``state`` as one ``[4]`` device
-    tensor of the state's dtype (nothing is read back); ``valid``
-    (``[n_slots]``, slot order) leaves the ghost rows out of every sum."""
+def _sums(state, valid):
+    """``[3]``: the kinetic energy, the potential energy and the virial's
+    trace of ``state``'s rows (``valid`` > 0 only, when given)."""
     v, f, w = state.velocities, state.forces, state.virial
     if valid is not None:
         v, f = v * valid[:, None], f * valid[:, None]
         w = w * valid[:, None, None]
-    ke = 0.5 * torch.sum(state.masses[:, None] * v ** 2)
+    return torch.stack([0.5 * torch.sum(state.masses[:, None] * v ** 2),
+                        torch.sum(f[:, 3]),
+                        torch.sum(torch.diagonal(w, dim1=-2, dim2=-1))])
+
+
+def log_row(state, valid=None):
+    """The :data:`LOG_KEYS` quantities of ``state`` as one ``[4]`` device
+    tensor of the state's dtype (nothing is read back); ``valid``
+    (``[n_slots]``, slot order) leaves the ghost rows out of every sum.
+    Of a :class:`.state.SlabState` (``valid`` its shards') each shard's
+    partial sums, added on the first shard's device."""
+    shards = getattr(state, "shards", None)
+    if shards is None:
+        ke, pe, w = _sums(state, valid)
+    else:
+        parts = [_sums(p, v) for p, v in zip(shards, valid)]
+        dev = parts[0].device
+        ke, pe, w = torch.stack([to_device(t, dev) for t in parts]).sum(0)
     dof = (state.thermostat or {}).get("dof")
     if dof is None:
         dof = 3 * state.n_particles - 3
     vol = torch.prod(box_size(state.box))
-    w = torch.sum(torch.diagonal(w, dim1=-2, dim2=-1))
-    return torch.stack([ke, torch.sum(f[:, 3]), 2.0 * ke / dof,
-                        (2.0 * ke + w) / (3.0 * vol)]).to(
-                            state.positions.dtype)
+    return torch.stack([ke, pe, 2.0 * ke / dof,
+                        (2.0 * ke + w) / (3.0 * vol)]).to(ke.dtype)

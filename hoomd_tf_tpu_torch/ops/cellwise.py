@@ -344,24 +344,19 @@ class SlotGeometry:
         if base is not None:
             self.device = base.device
             self.dims, self.dims_i = base.dims, base.dims_i
-            self.rank, self._cells = base.rank, base._cells
-            self._ioffs = base._ioffs
+            self._consts = base._consts
         else:
             self.device = resolve_device(device, "SlotGeometry")
             kw = dict(dtype=dtype, device=self.device)
             self.dims = torch.as_tensor(plan.grid, **kw)
             self.dims_i = torch.as_tensor(plan.grid, dtype=torch.int32,
                                           device=self.device)
-            nx, ny, _ = plan.grid
-            cell = (torch.arange(plan.n_slots, device=self.device) //
-                    plan.capacity)
-            self._cells = torch.stack([cell % nx, (cell // nx) % ny,
-                                       cell // (nx * ny)], dim=-1).to(dtype)
-            self.rank = (torch.arange(plan.n_slots, device=self.device) %
-                         plan.capacity).to(dtype)
-            # integer stencil offsets on the device, shared by the
-            # geometries of every box (made at the first offsets() call)
-            self._ioffs = {}
+            # integer stencil offsets and the box-free per-slot constants
+            # (whole grid: '_cells', 'rank'; a z-slab's: '_slab_cells')
+            # on the device, shared by the geometries of every box, each
+            # made at its first use (a mesh shard's copy never makes the
+            # whole grid's)
+            self._consts = {}
         if box is None:
             L = np.asarray(plan.lengths, np.float64)
             lo = -L / 2.0 if lo is None else np.asarray(lo, np.float64)
@@ -374,10 +369,59 @@ class SlotGeometry:
             self.box, self.dims)
         self._centers = None
         self._offs = {}
+        self._slab_centers = {}
         # the geometry this one was made from by at() (a dynamic box's)
         self._base = base
         # copies on a mesh's other devices (on())
         self._on = {}
+
+    def _const(self, key, make):
+        """A box-free device constant, made once and shared with the
+        geometries of every box (:meth:`at`)."""
+        if key not in self._consts:
+            self._consts[key] = make()
+        return self._consts[key]
+
+    @property
+    def _cells(self):
+        """``[n_slots, 3]`` grid coordinates of every slot's cell."""
+        def make():
+            nx, ny, _ = self.plan.grid
+            cell = (torch.arange(self.plan.n_slots, device=self.device) //
+                    self.plan.capacity)
+            return torch.stack([cell % nx, (cell // nx) % ny,
+                                cell // (nx * ny)], dim=-1).to(self.dtype)
+        return self._const("cells", make)
+
+    @property
+    def rank(self):
+        """``[n_slots]`` in-cell rank of every slot."""
+        return self._const("rank", lambda: (
+            torch.arange(self.plan.n_slots, device=self.device) %
+            self.plan.capacity).to(self.dtype))
+
+    def _slab_cells(self, z0, nzl):
+        """``[(nzl + 1) nx ny cap, 3]`` global grid coordinates of the
+        cells of a z-slab buffer's rows (:func:`slab_rows`)."""
+        def make():
+            nx, ny, nz = self.plan.grid
+            cell = torch.arange((nzl + 1) * nx * ny, device=self.device)
+            ijk = torch.stack([cell % nx, (cell // nx) % ny,
+                               (z0 + cell // (nx * ny)) % nz], dim=-1)
+            return torch.repeat_interleave(
+                ijk, self.plan.capacity, dim=0).to(self.dtype)
+        return self._const(("slab", z0, nzl), make)
+
+    def slab_centers(self, z0, nzl):
+        """``[(nzl + 1) nx ny cap, 3]`` cell centers of a z-slab buffer's
+        rows (home layers, then the forward halo layer): the ghost parking
+        spots of a shard's resident rows, at their global cells."""
+        key = (z0, nzl)
+        if key not in self._slab_centers:
+            self._slab_centers[key] = _cell_centers(
+                self._slab_cells(z0, nzl), self.lo, self.edges, self.tilt,
+                self.tilted)
+        return self._slab_centers[key]
 
     def at(self, box):
         """This plan's geometry at another box (same grid and capacity)."""
@@ -419,11 +463,10 @@ class SlotGeometry:
         """``[3, n_offs * cap]`` per-lane Cartesian stencil offsets."""
         key = tuple(offs_list)
         if key not in self._offs:
-            if key not in self._ioffs:
-                self._ioffs[key] = torch.as_tensor(
-                    np.asarray(offs_list, np.float64), dtype=self.dtype,
-                    device=self.device)
-            o = _stencil_offsets(self._ioffs[key], self.edges, self.tilt,
+            ioffs = self._const(key, lambda: torch.as_tensor(
+                np.asarray(offs_list, np.float64), dtype=self.dtype,
+                device=self.device))
+            o = _stencil_offsets(ioffs, self.edges, self.tilt,
                                  self.tilted)
             self._offs[key] = torch.repeat_interleave(
                 o.T.contiguous(), self.plan.capacity, dim=1)
@@ -824,11 +867,7 @@ def _slab_relative_coords(positions, valid, plan, lo, z0, nzl,
     g = _as_geometry(plan, lo, positions, geometry)
     dtype, dev = positions.dtype, positions.device
     # the buffer's cells at their global grid coordinates
-    cell = torch.arange(bp.n_cells, device=dev)
-    ijk = torch.stack([cell % nx, (cell // nx) % ny,
-                       (z0 + cell // (nx * ny)) % nz], dim=-1)
-    centers = _cell_centers(torch.repeat_interleave(ijk, cap, dim=0)
-                            .to(dtype), g.lo, g.edges, g.tilt, g.tilted)
+    centers = g.slab_centers(z0, nzl)
     rank = (torch.arange(bp.n_slots, device=dev) % cap).to(dtype)
     FAR = 4.0 * float(max(plan.lengths))
     q = g.wrap(positions - centers)
@@ -924,39 +963,125 @@ def _sharded_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
     generic_pair_forces` with ``slab=``; their slab plain versions on the
     CPU), the home forces gathered on the state's device and each shard's
     reverse halo added to the next shard's first layer."""
-    from . import cellwise_cuda as cc
     primary = positions.device
     geometry = _as_geometry(plan, lo, positions, geometry)
-    generic = form is None and stencil in ("auto", "kernel")
-    if generic and pair_fn is None:
-        raise ValueError("stencil='kernel' needs a kernel form or a pair "
-                         "function (K1's generic form)")
+    _check_pair_fn(form, stencil, pair_fn)
     outs = []
     for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
-        p, ty, v = (slab_buffer(t, plan, z0, nzl, dev)
-                    for t in (positions, types, valid))
-        g = geometry.on(dev)
-        rc = (None if rcut_matrix is None else
-              to_device(rcut_matrix, dev))
-        fn = pair_fn if shard_fn is None else shard_fn(dev)
-        if stencil in ("half", "full") or (form is None and not p.is_cuda):
-            out = half_stencil_slab_plain(
-                p, ty, v, plan, lo, fn, z0, nzl, needs_virial, min_r2,
-                with_types, rc, needs_energy, g)
-        elif form is not None:
-            out = cc.half_stencil_pair_forces(
-                p, ty, v, plan, lo, cc.form_on(form, dev), needs_virial,
-                min_r2, rc, needs_energy, g, slab=(z0, nzl))
-        else:
-            own = None if lanes is None else \
-                cc.LaneBudget(lanes.budget, dev)
-            out = cc.generic_pair_forces(
-                p, ty, v, plan, lo, fn, with_types, needs_virial, min_r2,
-                rc, needs_energy, g, own, slab=(z0, nzl))
-            if lanes is not None:
-                lanes.record(to_device(own.needed, primary))
-        outs.append(out)
+        buf = [slab_buffer(t, plan, z0, nzl, dev)
+               for t in (positions, types, valid)]
+        outs.append(_slab_forces(
+            buf, plan, lo, pair_fn if shard_fn is None else shard_fn(dev),
+            (z0, nzl), needs_virial, min_r2, with_types, rcut_matrix,
+            stencil, needs_energy, form, geometry.on(dev), lanes, primary))
     return gather_slabs(outs, plan, primary)
+
+
+def _check_pair_fn(form, stencil, pair_fn):
+    if form is None and stencil in ("auto", "kernel") and pair_fn is None:
+        raise ValueError("stencil='kernel' needs a kernel form or a pair "
+                         "function (K1's generic form)")
+
+
+def _slab_forces(buf, plan, lo, fn, slab, needs_virial, min_r2, with_types,
+                 rcut_matrix, stencil, needs_energy, form, g, lanes,
+                 primary):
+    """One z-slab shard's call on its buffer ``buf = (positions, types,
+    valid)`` on its device, with ``g`` the global plan's geometry there:
+    K1's slab mode in a pair form, or in the generic form with a list of
+    ``lanes.budget`` lanes whose need is recorded in ``lanes`` on
+    ``primary``; the slab plain version for a ``'half'`` / ``'full'``
+    stencil and for a CPU shard without a form."""
+    from . import cellwise_cuda as cc
+    p, ty, v = buf
+    dev = p.device
+    rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)
+    if stencil in ("half", "full") or (form is None and not p.is_cuda):
+        return half_stencil_slab_plain(
+            p, ty, v, plan, lo, fn, *slab, needs_virial, min_r2, with_types,
+            rc, needs_energy, g)
+    if form is not None:
+        return cc.half_stencil_pair_forces(
+            p, ty, v, plan, lo, cc.form_on(form, dev), needs_virial, min_r2,
+            rc, needs_energy, g, slab=slab)
+    own = None if lanes is None else cc.LaneBudget(lanes.budget, dev)
+    out = cc.generic_pair_forces(
+        p, ty, v, plan, lo, fn, with_types, needs_virial, min_r2, rc,
+        needs_energy, g, own, slab=slab)
+    if lanes is not None:
+        lanes.record(to_device(own.needed, primary))
+    return out
+
+
+def halo_layer(plan):
+    """Slot rows of one z-layer of ``plan``'s grid: a slab buffer's
+    forward halo, and the migration buffers of a resident repack."""
+    nx, ny, _ = plan.grid
+    return nx * ny * plan.capacity
+
+
+def put_rows(dst, src):
+    """Copy ``src`` into ``dst`` (rows of a shard's buffer) across
+    devices: queued on a card, blocking into the host (which reads it
+    next)."""
+    dst.copy_(src, non_blocking=dst.device.type == "cuda")
+
+
+def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
+                         geometries, shard_axis=None, needs_virial=False,
+                         min_r2=1e-4, with_types=False, rcut_matrix=None,
+                         stencil="auto", needs_energy=True, form=None,
+                         lanes=None, shard_fn=None):
+    """:func:`analytic_pair_forces` on a slot state resident per z-slab
+    shard of ``mesh`` (:class:`..md.slots.SlabSlots`): K1's slab mode reads
+    each shard's buffer in place on its device, and nothing of the whole
+    state is made.
+
+    The halo exchange, written out: before the calls, one copy per shard
+    writes the next shard's first home layer of positions into its halo
+    layer (the types' and ``valid``'s halo rows change at a repack only,
+    which writes them); after the calls, each shard's halo-layer output
+    (the reverse halo, :func:`half_stencil_slab_plain`) is added into the
+    next shard's first home layer on that shard's device, and the halo
+    rows are zeroed. The last shard's next is shard 0.
+
+    :param positions, types, valid: each shard's buffer, in shard order:
+        ``(nzl + 1) nx ny cap`` rows on its device, its home layers then
+        its forward halo layer (:func:`slab_rows`).
+    :param geometries: each shard's :class:`SlotGeometry` of the global
+        plan on its device.
+    :param rcut_matrix: a :func:`rc2_table` tensor, or ``None``.
+    :param lanes, shard_fn: as :func:`analytic_pair_forces`'.
+    :returns: ``(forces4, virial or None)``: lists of each shard's buffer
+        rows, the halo rows zero.
+    """
+    axis = shard_axis or mesh.axis_names[0]
+    slabs = mesh_slabs(plan, mesh, axis)
+    S = len(slabs)
+    _check_pair_fn(form, stencil, pair_fn)
+    if stencil not in ("auto", "kernel", "half", "full"):
+        raise ValueError(f"unknown stencil {stencil!r}")
+    primary = positions[0].device
+    layer = halo_layer(plan)
+    for s in range(S):
+        put_rows(positions[s][-layer:], positions[(s + 1) % S][:layer])
+    outs = [_slab_forces(
+        (positions[s], types[s], valid[s]), plan, lo,
+        pair_fn if shard_fn is None else shard_fn(dev), (z0, nzl),
+        needs_virial, min_r2, with_types, rcut_matrix, stencil,
+        needs_energy, form, geometries[s], lanes, primary)
+        for s, (dev, z0, nzl) in enumerate(slabs)]
+    fs = [f for f, _ in outs]
+    ws = [w for _, w in outs] if needs_virial else None
+    for t in (fs, ws):
+        if t is None:
+            continue
+        for s in range(S):
+            nxt = t[(s + 1) % S]
+            nxt[:layer] += to_device(t[s][-layer:], nxt.device)
+        for x in t:
+            x[-layer:] = 0
+    return fs, ws
 
 
 def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
@@ -970,12 +1095,15 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     :class:`..models.pair.PairModel`. Same contract as the JAX function.
 
     With a ``mesh`` of ``S > 1`` shards (:func:`..parallel.make_mesh`)
-    the work is split into ``S`` z-slabs of ``nz / S`` layers, which
-    must divide: each shard runs K1's slab mode on its device over its
+    the work of this whole state is split into ``S`` z-slabs of ``nz /
+    S`` layers, which must divide: each shard's slab buffer is copied out
+    of the whole state to its device, K1's slab mode runs there over its
     slab and a forward halo layer, and the forces are gathered on the
     state's device with the reverse halos added
-    (:func:`half_stencil_slab_plain`). A one-shard mesh takes the
-    unsharded call.
+    (:func:`half_stencil_slab_plain`): the form of the routes that keep
+    the whole slot state (training, the planes route, mapped models); a
+    state resident per shard takes :func:`resident_pair_forces`. A
+    one-shard mesh takes the unsharded call.
 
     :param pair_fn: ``U(r2[, ti, tj]) -> (U, dU/dr2)`` per lane (a torch
         function; used by the tensor forms).

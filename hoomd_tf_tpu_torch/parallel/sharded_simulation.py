@@ -2,13 +2,17 @@
 port of ``hoomd_tf_tpu/parallel/sharded_simulation.py``).
 
 A thin subclass of :class:`..md.simulation.Simulation`: passing a
-``mesh`` to Simulation splits the pair work of the cellwise mode into
-z-slabs, one per shard, each run by kernel K1's slab mode on its shard's
-device with the halo exchange written out (``ops/cellwise.py::
-analytic_pair_forces``), and the dense ``'n2'`` build into contiguous
-particle rows. The state itself stays whole on the first device, so the
-integrators, built-in forces, ``period`` gating and logging run
-unchanged.
+``mesh`` to Simulation decomposes the cellwise mode's slot state into
+z-slabs, one per shard, each resident on its shard's device during a run
+(``md/slots.py::SlabSlots``, the analog of the JAX package's row-sharded
+slot arrays): kernel K1's slab mode runs on each shard's rows in place
+with the halo exchange written out (``ops/cellwise.py::
+resident_pair_forces``), the integrators, built-in forces, ``period``
+gating and logging run per shard with the thermostat's, barostat's and
+log's sums added on the first device (the analog of the reference's MPI
+path), and particles migrate between neighbouring shards at each repack.
+Between runs the particle-order state lies on the first device. The
+dense ``'n2'`` build is split into contiguous particle rows.
 
 The class only adds convenience, as in the JAX package: a default mesh
 over the visible cards, the ``kT``/``tau`` shorthand for NVT, and an
@@ -50,9 +54,11 @@ class ShardedSimulation(Simulation):
         return self.mesh.shape[self.shard_axis]
 
     def _shard_state(self):
-        """Check that the state lies on the mesh's first device, where it
-        stays whole (the JAX package places it row-sharded here; the
-        port's shards copy their slabs from it at each evaluation)."""
+        """Check that the state lies on the mesh's first device, where the
+        particle-order state stands between runs (the JAX package places
+        it row-sharded here; the port's cellwise runs scatter it into
+        each shard's resident slot rows at a run's start and gather it at
+        its end)."""
         if self.state is not None and \
                 self.state.positions.device != self.mesh.devices[0]:
             raise ValueError(

@@ -20,6 +20,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--box ortho|tilted|npt]
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
+    python3 profile_step.py --mode mesh [--tree DIR]
 
 ``--tree DIR`` imports the port's package from another checkout (an
 older commit, say) while this file and ``chip_smoke.py`` stay this
@@ -76,6 +77,20 @@ without the ranking, without the candidate loop, without the queries
 (staging only), and without the minimum image of the chunks that the
 |d| <= t0 vote sends to it. The variants' lists are wrong by design;
 the differences say where the kernel's time goes.
+
+``--mode mesh`` runs chip_smoke.py phase 29's step loop: phase 4's
+fluid (quench, NVT 2000 steps) and LJ PairModel through
+``ShardedSimulation`` on ``'cellwise'`` (4 virtual shards of cuda:0, or
+min(4, cards) cards), ``run(200)`` and ``run(500)`` to warm up, then a
+timed ``run(1000)`` with host syncs forbidden, beside phase 4's own
+timed ``run(1000)`` from the same state. It prints both steps/s, the
+peak device memory of each timed run (and its rise above what stood
+before it), one evaluation of each engine (forces only, the engine's
+own ``_forces`` on the slot state its run kept) by CUDA events, and the
+kernels of a step of ``run(100)`` under torch.profiler (their number,
+their summed time and the device's busy share). With
+``--tree DIR`` the package is an older checkout's, so one call measures
+two trees on one card.
 
 ``--mode genparts`` times K1's generic form (``generic_list``,
 ``generic_reduce`` and the finish, each alone by the profiler) at phase
@@ -388,7 +403,7 @@ def whole_calls(cs, dtype):
                                     need)))
     calls = calls + slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn)
     k3 = k3_call(cs, sim, dtype=dtype)
-    calls = calls + (k3[:5],)
+    calls = calls + (k3[:5], k3_slab_call(cs, k3))
     calls_n = cs.PROFILED_CALLS
     form = ("generic_list", "generic_reduce", "half_stencil_home")
     out = []
@@ -534,6 +549,97 @@ def k3_call(cs, sim, shapes=True, dtype=None):
                            "kernel_ms": dev_ms / cs.PROFILED_CALLS})
     return ("K3, NN 64", plan, args, lambda: nc.nlist_select(*args), cost,
             shapes)
+
+
+def mesh_loop(cs):
+    """``--mode mesh``: phase 29's and phase 4's timed runs and one
+    evaluation of each (see the module's docstring)."""
+    torch, htt = cs.torch, cs.htt
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
+                                          nlist="cellwise")
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    sim.run(1000)
+
+    def timed(s):
+        s.check_syncs = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        s.run(1000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        st, aux = s._packed[2]
+        route = s._route(s._layout, st, aux)
+        ms = cs.cuda_ms(lambda: s._forces(st, aux, s._packed[1], route,
+                                          False, False))
+        # the kernels of a step: run(100) under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.run(100)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = kernel_events(prof)
+        return {"steps_per_s": 1000 / dt, "peak_mib": peak / 2**20,
+                "rise_mib": (peak - m0) / 2**20, "eval_ms": ms,
+                "kernels_per_step": len(ev) / 100,
+                "kernel_ms_per_step": sum(b - a for _, a, b in ev) / 1e5,
+                "busy_share": union_us([(a, b) for _, a, b in ev]) / 1e3 /
+                wall,
+                "plan": [list(s._layout.plan.grid),
+                         s._layout.plan.capacity],
+                "slot_state": type(st).__name__}
+    out = {"phase4": timed(sim)}
+    mesh, kind = cs.shard_mesh()
+    shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    shd.set_state(sim.state)
+    shd.attach(cs.make_model(), r_cut=cs.R_CUT)
+    del sim
+    torch.cuda.empty_cache()
+    shd.run(200)
+    shd.run(500)
+    out["phase29"] = timed(shd)
+    out["mesh"] = kind
+    out["ratio"] = (out["phase29"]["steps_per_s"] /
+                    out["phase4"]["steps_per_s"])
+    return out
+
+
+def k3_slab_call(cs, k3, S=4):
+    """Shard 0's call of K3's slab mode (a mesh of ``S`` shards, the
+    packed grid's ``nz s // S`` layers a shard, as chip_smoke.py phase
+    36 splits it) on :func:`k3_call`'s planes: ``(name, plan, inputs, fn,
+    cost)``, the cost chip_smoke.py's ``k3_slab_cost``."""
+    from hoomd_tf_tpu_torch.ops import cell_stencil as cst
+    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
+    torch = cs.torch
+    name, plan, (slots4, counts, pid, grid, cap, nn, r_cut, host_L, n), \
+        _, _, _ = k3
+    z0, nzl = cst.z_slabs(grid[2], S)[0]
+    buf = cst.halo_slab(slots4, grid, cap, z0, nzl, slots4.device)
+    cnt = cst.halo_slab(counts, grid, 1, z0, nzl, slots4.device)
+    args = (buf, cnt, None, grid, cap, nn, r_cut, host_L, None)
+    home = grid[0] * grid[1] * cap
+
+    def cost():
+        lengths = torch.as_tensor(host_L, dtype=slots4.dtype,
+                                  device=slots4.device)
+        key = cs.k3_slab_keys(buf, grid, cap, nzl, lengths)
+        far = nc.FAR_KEY64 if key.dtype == torch.int64 else nc.FAR_KEY
+        held = pid[z0 * home:(z0 + nzl) * home] >= 0
+        valid = (key != far).sum(1)[held]
+        return cs.k3_slab_cost(buf, cnt, grid, cap, nn, nzl, valid)[:2]
+    return (f"{name}, slab mode, shard 0 of {S} (layers {z0}-"
+            f"{z0 + nzl - 1})", plan, args,
+            lambda: nc.nlist_select(*args, slab=(z0, nzl)), cost)
 
 
 #: part of K3 -> (anchor, replacement) edits of csrc/nlist_select.cu
@@ -744,7 +850,7 @@ def gen_parts(cs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("train", "eval", "calls", "k3parts",
-                                       "genparts", "mapped"),
+                                       "genparts", "mapped", "mesh"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--row", choices=("proxy", "pair", "generic"),
@@ -783,6 +889,12 @@ def main():
         print(json.dumps({"mode": "genparts", "tree": os.path.abspath(
             args.tree), "device": torch.cuda.get_device_name(0),
             "smi": cs.smi_line(), **gen_parts(cs)}, indent=1))
+        return 0
+    if args.mode == "mesh":
+        print(json.dumps({"mode": "mesh", "tree": os.path.abspath(
+            args.tree), "package": os.path.dirname(htt.__file__),
+            "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
+            **mesh_loop(cs)}, indent=1))
         return 0
     if args.mode == "calls":
         print(json.dumps({"mode": "calls", "tree": os.path.abspath(

@@ -1893,7 +1893,12 @@ def test_mixed_mesh_crosses_devices(cuda_device, case):
     the forces (rtol 1e-4, atol 1e-4 of the largest) and the positions
     (5e-4). 'lj': K1's LJ form; 'probe': SimLJ through the probe in K1's
     generic form, its pair function on the CPU shards through
-    functional_call; 'n2': the dense build by shard rows."""
+    functional_call; 'n2': the dense build by shard rows. On 'cellwise'
+    each shard's resident rows sit on its own device, each halo layer
+    (copied from the next shard, on the other device) holds the next
+    shard's first layer, and particles moved across every slab boundary
+    migrate through the cross-device buffers in one repack per shard,
+    equal to ``repack_src`` of the gathered state bit for bit."""
     from hoomd_tf_tpu_torch.parallel import make_mesh
     mesh = make_mesh(4, devices=[cuda_device, "cpu"] * 2)
     pos, vel, lengths = fluid_arrays(2000, 0.4, 0, jitter=0.08)
@@ -1933,6 +1938,63 @@ def test_mixed_mesh_crosses_devices(cuda_device, case):
     L = np.asarray(lengths)
     d -= np.round(d / L) * L
     assert np.abs(d).max() < 5e-4
+    if nlist == "cellwise":
+        resident_rows_cross_devices(shd)
+
+
+def resident_rows_cross_devices(sim):
+    """The resident shards of ``sim``'s last run on their devices, the
+    halo layers the next shard's first layers, and a migrating repack of
+    particles moved across every slab boundary against ``repack_src`` of
+    the gathered state."""
+    from hoomd_tf_tpu_torch.md.integrators import _wrap_positions
+    from hoomd_tf_tpu_torch.md.state import SlabState
+    slots, (st, aux) = sim._packed[1], sim._packed[2]
+    assert isinstance(st, SlabState)
+    L, S = slots.layer, len(slots.slabs)
+    for s, (dev, _, nzl) in enumerate(slots.slabs):
+        assert dev == sim.mesh.devices[s]
+        p = st.shards[s]
+        for t in (p.positions, p.velocities, p.types, p.forces,
+                  aux["valid"][s], aux["orig"][s]):
+            assert t.device == dev and t.shape[0] == (nzl + 1) * L
+        q = st.shards[(s + 1) % S]
+        assert q.positions.device != dev
+        assert torch.equal(p.positions[-L:].cpu(), q.positions[:L].cpu())
+        assert torch.equal(p.types[-L:].cpu(), q.types[:L].cpu())
+        assert torch.equal(aux["valid"][s][-L:].cpu(),
+                           aux["valid"][(s + 1) % S][:L].cpu())
+    # move each shard's first home layer down and its last up, 0.6 of a
+    # cell edge: the particles cross into the neighbour shards, which
+    # live on the other device
+    st = st.copy()
+    edge = slots.plan.lengths[2] / slots.plan.grid[2]
+    for s, p in enumerate(st.shards):
+        H, nzl = slots.home(s), slots.slabs[s][2]
+        rows = torch.arange(p.positions.shape[0], device=p.positions.device)
+        dz = torch.where((rows < L) & (rows % 2 == 0), -0.6 * edge,
+                         torch.where((rows >= (nzl - 1) * L) & (rows < H),
+                                     0.6 * edge, 0.0))
+        shift = torch.zeros_like(p.positions)
+        shift[:, 2] = dz
+        p.positions = _wrap_positions(p.positions + shift, p.box)
+    w = slots.whole
+    pos, valid, orig = w(st.positions), w(aux["valid"]), w(aux["orig"])
+    src, ovf = tcw.repack_src(pos, valid, slots.lo, slots.plan,
+                              geometry=slots.geometry)
+    new, naux = slots.rebuild(st, aux)
+    n_slots = slots.plan.n_slots
+    want = torch.where(src < n_slots, orig[src.clamp_max(
+        n_slots - 1).long()], slots.n).to(torch.int32)
+    assert not bool(ovf) and not bool(naux["overflow"])
+    assert torch.equal(w(naux["orig"]), want)
+    has = src < n_slots
+    assert torch.equal(w(new.positions)[has], pos[src[has].long()])
+    # particles changed shard, between the card's and the CPU's shards
+    bounds = np.cumsum([0] + [slots.home(s) for s in range(S)])
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        s_ = np_(src[a:b])
+        assert ((s_ < n_slots) & ((s_ < a) | (s_ >= b))).any()
 
 
 # ----------------------------------------------------------------------

@@ -312,8 +312,11 @@ def test_sharded_nvt_matches_jax(case):
     if case == "probe":
         assert tsim.tfc._lane_fast_ok
     if case == "prime":
-        # the shards' slabs hold unequal numbers of particles
-        valid = tsim._packed[2][1]["valid"].reshape(4, -1).sum(1)
+        # the shards' slabs hold unequal numbers of particles (each
+        # shard's resident valid column, its home rows)
+        slots, (_, aux) = tsim._packed[1], tsim._packed[2]
+        valid = torch.stack([v[:slots.home(s)].sum()
+                             for s, v in enumerate(aux["valid"])])
         assert len(set(np_(valid).tolist())) > 1
     d = min_image_diff(tsim.state.positions, jsim.state.positions,
                        tsim._lengths)
