@@ -204,21 +204,29 @@ exits non-zero:
 29. sharded eval -- phase 4's NVT fluid and LJ PairModel through
                ShardedSimulation on a mesh of min(4, card count) cards,
                or 4 virtual shards on cuda:0 (printed): the plan's nz
-               divisible by the shards; one sharded evaluation against
-               the unsharded K1 and each shard's slab launch against its
-               slab plain version (rtol = atol = 1e-4); 8 NVT steps with
-               the repack interval pinned to 3 within 5e-4 of the
-               unsharded engine; a timed run(1000) with host syncs
-               forbidden, 1.1 < T < 1.9, slab launches = shards x
-               evaluations; steps/s beside phase 4's;
+               divisible by the shards; one resident evaluation (K1's
+               group launch, one a device) against the unsharded K1
+               (rtol = atol = 1e-4, and bit for bit when one card holds
+               every shard), the group launch against its plain version
+               on the same buffers (1e-4), each shard's slab launch
+               against its slab plain version; the group launch, its
+               plain version and shard 0 alone as a group of one timed;
+               8 NVT steps with the repack interval pinned to 3 within
+               5e-4 of the unsharded engine; a timed run(1000) with host
+               syncs forbidden, 1.1 < T < 1.9, group launches = devices
+               x evaluations and no slab launch; steps/s beside phase
+               4's;
 30. sharded generic and 'n2' -- LJPotential(64) through ShardedSimulation
-               (the probe accepts it: K1's generic form in slab mode)
-               with Langevin(1.5, 1.0) and run(200, log_period=10), host
-               syncs forbidden: finite records, healthy T, slab launches
-               = shards x evaluations; at one state against the
-               unsharded generic form and each shard against its slab
-               plain version (1e-4); then the small-box fallback to the
-               'n2' rows (128 particles, 50 steps);
+               (the probe accepts it: K1's generic form over each
+               device's group, its pair function once a device on the
+               joined list) with Langevin(1.5, 1.0) and run(200,
+               log_period=10), host syncs forbidden: finite records,
+               healthy T, group launches = pair-function calls = devices
+               x evaluations; at one state against the unsharded generic
+               form and each shard's slab launch against its slab plain
+               version (1e-4), the group call and its plain version
+               timed; then the small-box fallback to the 'n2' rows (128
+               particles, 50 steps);
 31. parallel helpers -- halo_force_fn at 16,384 particles (x-slabs, the
                ring exchange) against the model on the whole system
                (rtol 1e-4, atol 1e-5); sharded_train_step over 8 frames
@@ -244,8 +252,8 @@ exits non-zero:
                phase 4's fluid through ShardedSimulation: 8 steps within
                5e-4 of the unsharded engine (volume 1e-5), run(1000) with
                host syncs forbidden, the volume down by 1% or more,
-               repacks, no geometry flag, 1.1 < T < 1.9, slab launches =
-               shards x evaluations;
+               repacks, no geometry flag, 1.1 < T < 1.9, group launches
+               = devices x evaluations and no slab launch;
 35. sharded planes -- a coupled LJ the probe rejects (energy scaled by the
                coordination over all rows' mean) through ShardedSimulation:
                the first evaluation's forces against the unsharded planes
@@ -3968,23 +3976,52 @@ def repack_gate(slots, st, aux):
           "state")
 
 
+#: slab launches of K1 and of its generic form made by the whole-state
+#: mesh routes' own runs, by phase: (K1, generic); the comparisons and
+#: timings around the runs are not counted
+SLAB_RUNS = {}
+
+
+def slab_run(phase, run, *args, **kw):
+    """``run(*args, **kw)``, a main-path run of a whole-state mesh route,
+    with K1's and its generic form's slab counts set to 0 just before it
+    and added to ``SLAB_RUNS[phase]`` just after it."""
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    k1, gen = cc.half_stencil_pair_forces, cc.generic_pair_forces
+    k1.slab_launches = gen.slab_launches = 0
+    out = run(*args, **kw)
+    a, b = SLAB_RUNS.get(phase, (0, 0))
+    SLAB_RUNS[phase] = (a + k1.slab_launches, b + gen.slab_launches)
+    return out
+
+
+def mesh_devices(mesh):
+    """The distinct devices of ``mesh``: the resident evaluation makes one
+    grouped call of K1 on each per evaluation."""
+    return len({str(d) for d in mesh.devices})
+
+
 def phase_sharded(state, main_sps):
     """Phase 29: phase 4's fluid and LJ PairModel through
-    ShardedSimulation on 'cellwise' (K1's slab mode on every shard)."""
+    ShardedSimulation on 'cellwise' (K1's group launch on each device over
+    its shards; K1's slab mode per shard held against its plain version
+    and timed, as the whole-state routes of phases 32-38 run it)."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.md.state import SlabState
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation
     k1 = cc.half_stencil_pair_forces
     mesh, kind = shard_mesh()
-    S = mesh.size
-    print(f"  mesh: {kind}")
+    S, D = mesh.size, mesh_devices(mesh)
+    print(f"  mesh: {kind}; launch gates count one group launch per device "
+          f"({D}) per evaluation, and no slab launch")
     sim = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
     sim.set_state(state)
     tfc = sim.attach(make_model(), r_cut=R_CUT)
     check(tfc.nlist_method == "cellwise",
           f"ShardedSimulation attached {tfc.nlist_method!r}, not cellwise")
-    k1.launches = k1.slab_launches = 0
+    k1.launches = k1.group_launches = 0
+    s0 = k1.slab_launches
     evals0 = sim.force_evals
     sim.run(200)
     for _ in range(3):
@@ -3992,10 +4029,10 @@ def phase_sharded(state, main_sps):
         sim.run(500)
         if sim._layout.plan == plan:
             break
-    launches, evals = k1.slab_launches, sim.force_evals - evals0
-    check(k1.launches == launches == S * evals,
-          f"slab launches {launches} (all K1 {k1.launches}) != {S} x "
-          f"{evals} evaluations")
+    launches, evals = k1.group_launches, sim.force_evals - evals0
+    check(k1.launches == launches == D * evals and k1.slab_launches == s0,
+          f"group launches {launches} (all K1 {k1.launches}, slab "
+          f"{k1.slab_launches - s0}) != {D} x {evals} evaluations")
     layout = sim._ensure_layout()
     plan = layout.plan
     nx, ny, nz = plan.grid
@@ -4026,8 +4063,34 @@ def phase_sharded(state, main_sps):
                       slots.whole(f_s), f_u),
               compare("resident sharded virial vs unsharded K1",
                       slots.whole(w_s), w_u))
+    if D == 1:
+        # the group of every shard adds the back sums across each boundary
+        # in the unsharded order t = 1..13: the same sums, bit for bit
+        same = (torch.equal(slots.whole(f_s), f_u) and
+                torch.equal(slots.whole(w_s), w_u))
+        print(f"  the {S}-virtual-shard group evaluation equals the "
+              f"unsharded K1 bit for bit (forces, energy, virial): {same}")
+        check(same, "the grouped evaluation differs from the unsharded K1")
     shards = cw.slab_layers(plan, S)
     geoms = slots.geoms(st)
+    # the group launch of the first device's shards (every shard when one
+    # card holds them) against its plain version on the same buffers
+    grp = cw.slab_groups(cw.mesh_slabs(plan, mesh))[0]
+    gbuf = [[t[s] for s in grp.members] for t in
+            (st.positions, st.types, aux["valid"])]
+    fg, wg = cc.half_stencil_group_forces(
+        *gbuf, plan, layout.lo, form, grp, needs_virial=True,
+        geometry=geoms[0])
+    fgp, wgp = cw.half_stencil_group_plain(
+        *gbuf, plan, layout.lo, form.evaluate, grp, needs_virial=True,
+        with_types=form.ntypes > 1, geometry=geoms[0])
+    torch.cuda.synchronize()
+    m = len(grp.members)
+    g_err = max(compare(f"group launch of {m} shards vs its plain version, "
+                        "forces+energy", torch.stack(fg), torch.stack(fgp)),
+                compare(f"group launch of {m} shards vs its plain version, "
+                        "virial", torch.stack(wg), torch.stack(wgp)))
+    del fg, wg, fgp, wgp
     for s, (z0, n) in enumerate(shards):
         buf = (st.shards[s].positions, st.shards[s].types, aux["valid"][s])
         g = geoms[s]
@@ -4060,17 +4123,38 @@ def phase_sharded(state, main_sps):
     t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
         *buf, plan, layout.lo, form.evaluate, *shards[0],
         needs_energy=False, geometry=geoms[0]), reps=5)
+    # the group launch of the first device's shards alone, its plain
+    # version, and shard 0 alone as a group of one (a card holding one
+    # shard)
+    t_group = cuda_ms(lambda: cc.half_stencil_group_forces(
+        *gbuf, plan, layout.lo, form, grp, needs_energy=False,
+        geometry=geoms[0]))
+    t_gplain = cuda_ms(lambda: cw.half_stencil_group_plain(
+        *gbuf, plan, layout.lo, form.evaluate, grp, needs_energy=False,
+        with_types=form.ntypes > 1, geometry=geoms[0]), reps=3)
+    one = cw.SlabGroup(torch.device(mesh.devices[0]), (0,), (shards[0],),
+                       (-1,), (-1,))
+    buf0 = ([st.shards[0].positions], [st.shards[0].types],
+            [aux["valid"][0]])
+    t_one_g = cuda_ms(lambda: cc.half_stencil_group_forces(
+        *buf0, plan, layout.lo, form, one, needs_energy=False,
+        geometry=geoms[0]))
     nbytes, ops = k1_cost(whole[0], whole[2], plan, 3, form)
     b_ms, b_by = bound(nbytes, ops)
     tested, inside = slab_pair_counts(whole[0], whole[2], plan, *shards[0])
     s_bytes = (nzl + 1) * layer * esize * (3 + 1 + 4)
     s_ms, s_by = bound(s_bytes, 9 * tested + inside * (14 + 9))
+    g_ms, g_by = (b_ms, b_by) if len(grp.members) == S else (s_ms, s_by)
     print(f"  resident sharded evaluation (forces only, median of CUDA "
-          f"events): {t_all:.4f} ms for {S} halo copies, slab launches and "
-          f"reverse-halo adds; the whole-state form (slab buffers cut from "
-          f"the whole state, the gather) {t_whole:.4f} ms; unsharded K1 "
-          f"{t_one:.4f} ms ({t_all / t_one:.3f}x); bound {b_ms:.4f} ms "
-          f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+          f"events): {t_all:.4f} ms for {D} group call(s) of {S} shards "
+          f"(halo copies and reverse-halo adds between devices only); the "
+          f"group launch alone {t_group:.4f} ms ({len(grp.members)} shards,"
+          f" its plain version {t_gplain:.4f} ms); the whole-state form "
+          f"(slab buffers cut from the whole state, {S} slab calls, the "
+          f"gather) {t_whole:.4f} ms; unsharded K1 {t_one:.4f} ms "
+          f"({t_all / t_one:.3f}x); bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    print(f"  shard 0 alone as a group of one: {t_one_g:.4f} ms")
     print(f"  shard 0's call: {t_shard:.4f} ms, its bound {s_ms:.4f} ms "
           f"({s_by}: {s_bytes / 1e6:.2f} MB, {tested:.4g} pairs tested, "
           f"{inside:.4g} inside the cut); its slab plain version "
@@ -4086,9 +4170,9 @@ def phase_sharded(state, main_sps):
     ref._plan_from_current = lambda: plan
     sim._choose_repack_interval = ref._choose_repack_interval = \
         lambda layout: 3
-    l0, e0 = k1.slab_launches, sim.force_evals
+    l0, e0 = k1.group_launches, sim.force_evals
     sim.run(8)
-    launches += k1.slab_launches - l0
+    launches += k1.group_launches - l0
     evals += sim.force_evals - e0
     ref.run(8)
     del sim._choose_repack_interval
@@ -4103,7 +4187,7 @@ def phase_sharded(state, main_sps):
     # the timed run, host syncs forbidden; the peak device memory of its
     # step loop above what stands before it
     sim.check_syncs = True
-    l0, e0, a0 = k1.slab_launches, sim.force_evals, k1.launches
+    l0, e0, a0 = k1.group_launches, sim.force_evals, k1.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -4114,17 +4198,17 @@ def phase_sharded(state, main_sps):
     peak = torch.cuda.max_memory_allocated()
     check(isinstance(sim._packed[2][0], SlabState),
           "the sharded run did not keep its state resident per shard")
-    timed_l, timed_e = k1.slab_launches - l0, sim.force_evals - e0
+    timed_l, timed_e = k1.group_launches - l0, sim.force_evals - e0
     launches += timed_l
     evals += timed_e
-    check(timed_l == S * timed_e,
-          f"timed run: slab launches {timed_l} != {S} x {timed_e}")
+    check(timed_l == D * timed_e,
+          f"timed run: group launches {timed_l} != {D} x {timed_e}")
     check(k1.launches - a0 == timed_l,
-          "the sharded run launched an unsharded K1")
+          "the sharded run launched an unsharded or a slab K1")
     th = healthy(sim, "sharded eval")
     sps = 1000 / dt
     print(f"  T={th['temperature']:.4f} PE/N={th['potential_energy'] / N:.4f}"
-          f"; slab launches {launches} == {S} x {evals} evaluations (timed "
+          f"; group launches {launches} == {D} x {evals} evaluations (timed "
           f"run: {timed_l}); no host sync in the step loop")
     print(f"  steps/s {sps:.2f} sharded against phase 4's {main_sps:.2f} "
           f"({sps / main_sps:.3f}x), {kind}, on {smi_line()} -- info, not "
@@ -4132,8 +4216,12 @@ def phase_sharded(state, main_sps):
     print(f"  timed run(1000): peak device memory {peak / 2**20:.1f} MiB, "
           f"{(peak - mem0) / 2**20:.1f} MiB above the {mem0 / 2**20:.1f} "
           f"MiB before it")
-    return dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
-                max_abs_err=err, launches=launches, sharded_ms=t_all)
+    slab = dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
+                max_abs_err=err, sharded_ms=t_all)
+    group = dict(ms=t_group, plain_ms=t_gplain, bound_ms=g_ms, bound_by=g_by,
+                 max_abs_err=g_err, launches=launches, sharded_ms=t_all,
+                 shard0_ms=t_one_g)
+    return slab, group
 
 
 def phase_sharded_generic(state):
@@ -4147,37 +4235,55 @@ def phase_sharded_generic(state):
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation
     gen = cc.generic_pair_forces
     mesh, kind = shard_mesh()
-    S = mesh.size
-    print(f"  mesh: {kind}")
+    S, D = mesh.size, mesh_devices(mesh)
+    print(f"  mesh: {kind}; launch gates count one group call of the "
+          f"generic form per device ({D}) per evaluation, its pair function "
+          f"called once on the group's joined list")
     sim = ShardedSimulation(dt=0.005, mesh=mesh, seed=1,
                             integrator=htt.md.Langevin(kT=1.5, gamma=1.0))
     sim.set_state(state)
     model = htt.LJPotential(64)
     tfc = sim.attach(model, r_cut=R_CUT)
-    gen.launches = gen.slab_launches = 0
+    gen.launches = gen.group_launches = 0
+    s0 = gen.slab_launches
+    # the pair function's calls on a group's joined list
+    evaluate, pair_calls = cc.GenericList.evaluate, [0]
+
+    def counted(gl, *a, **kw):
+        pair_calls[0] += gl.group is not None
+        return evaluate(gl, *a, **kw)
+    cc.GenericList.evaluate = counted
     evals0, probe0 = sim.force_evals, sim.probe_evals
     sim.check_syncs = True
-    t0 = time.perf_counter()
-    sim.run(200, log_period=10)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        sim.run(200, log_period=10)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        cc.GenericList.evaluate = evaluate
     check(tfc._lane_fast_ok is True,
           f"the probe did not accept LJPotential: {tfc._lane_fast_report}")
     evals = sim.force_evals - evals0 - (sim.probe_evals - probe0)
-    launches = gen.slab_launches
-    check(launches == S * evals and launches > 0,
-          f"generic slab launches {launches} != {S} x {evals} evaluations")
+    launches = gen.group_launches
+    check(launches == pair_calls[0] == D * evals and launches > 0 and
+          gen.slab_launches == s0,
+          f"generic group launches {launches}, pair-function calls on a "
+          f"joined list {pair_calls[0]}, slab launches "
+          f"{gen.slab_launches - s0}: not {D} x {evals} evaluations")
     log = sim.log
     check(len(log["step"]) == 20, f"{len(log['step'])} log records")
     for k, v in log.items():
         check(bool(np.isfinite(v).all()), f"non-finite logged {k}")
     th = healthy(sim, "sharded generic")
-    print(f"  probe accepted; {launches} generic slab launches == {S} x "
-          f"{evals} evaluations; 20 finite records, mean T "
+    print(f"  probe accepted; {launches} generic group launches and "
+          f"pair-function calls == {D} x {evals} evaluations; 20 finite "
+          f"records, mean T "
           f"{float(log['temperature'].mean()):.4f}; T={th['temperature']:.4f}"
           f"; run(200, log_period=10) {dt:.2f} s ({200 / dt:.2f} steps/s, "
           f"the probe's validation included); list budget "
-          f"{sim._lanes.budget} a shard, need {sim._lanes.committed}")
+          f"{sim._lanes.budget} a shard ({S} x that a group of {S}), need "
+          f"{sim._lanes.committed} a shard")
 
     # one state, the run's resident shards: the sharded generic form on
     # them against the unsharded one on the gathered state, each shard's
@@ -4203,6 +4309,9 @@ def phase_sharded_generic(state):
                       "unsharded", slots.whole(f_s), f_u),
               compare("resident sharded generic virial vs unsharded",
                       slots.whole(w_s), w_u))
+    print(f"  bit for bit (information): "
+          f"{torch.equal(slots.whole(f_s), f_u)} forces+energy, "
+          f"{torch.equal(slots.whole(w_s), w_u)} virial")
     shards = cw.slab_layers(plan, S)
     geoms = slots.geoms(st)
     for s, (z0, n) in enumerate(shards):
@@ -4234,6 +4343,33 @@ def phase_sharded_generic(state):
     t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
         *buf, plan, layout.lo, fn, *shards[0], with_types=True,
         needs_energy=False, geometry=g), reps=3)
+    # the group call of the first device's shards alone (list, the pair
+    # function once, reduction, home pass) and its plain version
+    grp = cw.slab_groups(cw.mesh_slabs(plan, mesh))[0]
+    gbuf = [[t[s] for s in grp.members] for t in
+            (st.positions, st.types, aux["valid"])]
+    glanes = cc.LaneBudget(sim._lanes.budget, "cuda")
+    fg, wg = cc.generic_group_pair_forces(
+        *gbuf, plan, layout.lo, fn, grp, needs_virial=True, geometry=g,
+        lanes=glanes)
+    fgp, wgp, _ = cc.generic_group_plain(*gbuf, plan, layout.lo, fn, grp,
+                                         needs_virial=True, geometry=g)
+    torch.cuda.synchronize()
+    check(not bool(glanes.overflow()), "the group's joined list overflowed")
+    m = len(grp.members)
+    g_err = max(compare(f"generic group call of {m} shards vs its plain "
+                        "version, forces+energy", torch.stack(fg),
+                        torch.stack(fgp)),
+                compare(f"generic group call of {m} shards vs its plain "
+                        "version, virial", torch.stack(wg), torch.stack(wgp)))
+    del fg, wg, fgp, wgp
+    t_group = cuda_ms(lambda: cc.generic_group_pair_forces(
+        *gbuf, plan, layout.lo, fn, grp, geometry=g, lanes=glanes,
+        needs_energy=False), reps=11)
+    t_gplain = cuda_ms(lambda: cc.generic_group_plain(
+        *gbuf, plan, layout.lo, fn, grp, geometry=g, needs_energy=False),
+        reps=3)
+    check(not bool(glanes.overflow()), "the group's joined list overflowed")
     own.reset()
     gen(*buf, plan, layout.lo, fn, geometry=g, lanes=own, needs_energy=False,
         slab=shards[0])
@@ -4247,6 +4383,10 @@ def phase_sharded_generic(state):
     needed = int(whole_lanes.needed)
     nbytes, ops = k1_generic_cost(whole[0], whole[2], plan, 3, needed)
     b_ms, b_by = bound(nbytes, ops)
+    g_ms, g_by = (b_ms, b_by) if len(grp.members) == S else (s_ms, s_by)
+    print(f"  the generic form's group call of {len(grp.members)} shards "
+          f"alone {t_group:.4f} ms (its plain version {t_gplain:.4f} ms, "
+          f"its bound {g_ms:.4f} ms)")
     print(f"  resident sharded generic evaluation (forces only, the pair "
           f"function included): {t_all:.4f} ms for {S} shards; unsharded "
           f"{t_one:.4f} ms ({t_all / t_one:.3f}x); shard 0's call "
@@ -4271,8 +4411,11 @@ def phase_sharded_generic(state):
     check(small.nlist_builds == 50, f"{small.nlist_builds} row builds")
     print(f"  small box (128 particles, a = 1.4): 'n2' rows over {S} shards,"
           f" 50 NVT steps, T={t['temperature']:.4f}, host syncs forbidden")
-    return dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
-                max_abs_err=err, launches=launches_main, sharded_ms=t_all)
+    slab = dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
+                max_abs_err=err, sharded_ms=t_all)
+    group = dict(ms=t_group, plain_ms=t_gplain, bound_ms=g_ms, bound_by=g_by,
+                 max_abs_err=g_err, launches=launches_main, sharded_ms=t_all)
+    return slab, group
 
 
 def phase_parallel_helpers():
@@ -4552,7 +4695,7 @@ def phase_sharded_train(state, train_sps):
     shd.check_syncs = True
     shd._choose_repack_interval = ref._choose_repack_interval = \
         lambda layout: 3
-    shd.run(8)
+    slab_run("32", shd.run, 8)
     ref.run(8)
     a, b = np.asarray(stfc.loss_history), np.asarray(rtfc.loss_history)
     worst = float((np.abs(a - b) / (2e-4 * np.abs(b))).max())
@@ -4571,12 +4714,12 @@ def phase_sharded_train(state, train_sps):
     shd.check_syncs = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    shd.run(100)
+    slab_run("32", shd.run, 100)
     torch.cuda.synchronize()
     dt_first = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    shd.run(300)
+    slab_run("32", shd.run, 300)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     steps = shd.train_steps - steps0 + sgd_steps
@@ -4706,7 +4849,7 @@ def phase_sharded_train_generic(state, rates):
         shd.check_syncs = True
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        shd.run(200)
+        slab_run("33", shd.run, 200)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         steps = shd.train_steps - steps0
@@ -4735,13 +4878,14 @@ def phase_sharded_train_generic(state, rates):
 def phase_sharded_npt(state):
     """Phase 34: phase 14's barostat through ShardedSimulation from phase
     4's NVT fluid: the dynamic-box layout planned with the mesh's divisor,
-    K1's slab mode with each step's box and virial."""
+    K1's group launch with each step's box and virial."""
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation
     k1 = cc.half_stencil_pair_forces
     mesh, kind = shard_mesh()
-    S = mesh.size
-    print(f"  mesh: {kind}")
+    S, D = mesh.size, mesh_devices(mesh)
+    print(f"  mesh: {kind}; launch gates count one group launch per device "
+          f"({D}) per evaluation")
     shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
     ref = htt.Simulation(dt=0.005, seed=0, device="cuda",
                          integrator=htt.md.NVT(kT=1.5, tau=0.5))
@@ -4762,7 +4906,8 @@ def phase_sharded_npt(state):
           f"NPT under the mesh: dynamic {layout.dynamic_box}, grid "
           f"{plan.grid}")
     ref._plan_from_current = lambda: plan
-    k1.launches = k1.slab_launches = 0
+    k1.launches = k1.group_launches = 0
+    s0 = k1.slab_launches
     evals0 = shd.force_evals
     shd.check_syncs = True
     shd.run(8)
@@ -4780,17 +4925,18 @@ def phase_sharded_npt(state):
           "the sharded NPT trajectory left the unsharded one")
     vol0 = float(torch.prod(box_s))
     r0 = shd.repacks
-    l0, e0 = k1.slab_launches, shd.force_evals
+    l0, e0 = k1.group_launches, shd.force_evals
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     shd.run(1000)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = k1.slab_launches
+    launches = k1.group_launches
     evals = shd.force_evals - evals0
-    check(launches == S * evals and k1.slab_launches - l0 ==
-          S * (shd.force_evals - e0),
-          f"slab launches {launches} != {S} x {evals} evaluations")
+    check(launches == D * evals and k1.group_launches - l0 ==
+          D * (shd.force_evals - e0) and k1.slab_launches == s0,
+          f"group launches {launches} != {D} x {evals} evaluations (slab "
+          f"{k1.slab_launches - s0})")
     check(k1.launches - launches == ref.force_evals,
           "the sharded run launched an unsharded K1")
     th = healthy(shd, "sharded npt")
@@ -4805,8 +4951,8 @@ def phase_sharded_npt(state):
     check(repacks > 0, "no repack ran")
     print(f"  NPT(P = 1.2 x {p0:.4f}): volume {vol0:.1f} -> {vol1:.1f} "
           f"({vol1 / vol0 - 1:+.4f}), {repacks} repacks, "
-          f"T={th['temperature']:.4f}, P={th['pressure']:.4f}; slab "
-          f"launches {launches} == {S} x {evals}; no host sync; steps/s "
+          f"T={th['temperature']:.4f}, P={th['pressure']:.4f}; group "
+          f"launches {launches} == {D} x {evals}; no host sync; steps/s "
           f"{1000 / dt:.2f} (run(1000)) -- info, not a claim")
     return launches, 1000 / dt
 
@@ -4869,7 +5015,7 @@ def phase_sharded_planes(state):
     shd.check_syncs = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    shd.run(100)
+    slab_run("35", shd.run, 100)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -4902,7 +5048,7 @@ def phase_sharded_planes(state):
     trn.check_syncs = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trn.run(50)
+    slab_run("35", trn.run, 50)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -4973,7 +5119,7 @@ def sharded_pair(state, mesh, make, nlist, steps=8):
         htt.tfcompute(make()).attach(sim, r_cut=R_CUT, nlist=nlist)
         sims.append(sim)
     shd, ref = sims
-    shd.run(steps)
+    slab_run("36-37", shd.run, steps)
     ref.run(steps)
     d = shd.state.positions - ref.state.positions
     L = torch.as_tensor(shd._lengths, dtype=d.dtype, device=d.device)
@@ -5090,7 +5236,7 @@ def phase_sharded_packed(state, packed_sps):
     steps = 200
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    shd.run(steps)
+    slab_run("36", shd.run, steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     timed_l, timed_b = k3.slab_launches - l0, shd.nlist_builds - b0
@@ -5144,7 +5290,7 @@ def phase_sharded_direct(state):
     shd.check_syncs = True
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    shd.run(50)
+    slab_run("37", shd.run, 50)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     th = healthy(shd, "sharded direct")
@@ -5186,7 +5332,7 @@ def phase_sharded_mapped(state):
         else:
             check(shd._packed_build().method == "sort",
                   f"mapped 'cell' took {shd._packed_build().method!r}")
-        shd.run(1)
+        slab_run("38", shd.run, 1)
         ref.run(1)
         fmax = float((shd.state.forces - ref.state.forces).abs().max())
         print(f"  {nlist!r}: one step against the unsharded engine, max "
@@ -5197,7 +5343,7 @@ def phase_sharded_mapped(state):
         shd.check_syncs = True
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        shd.run(steps, log_period=2)
+        slab_run("38", shd.run, steps, log_period=2)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         mapped_gates(shd, tfc, op, f"sharded {nlist!r}",
@@ -5412,13 +5558,13 @@ def main():
           f"launches {cc.half_stencil_pair_forces.launches}")
     torch.cuda.empty_cache()
     print("[29 sharded eval] phase 4's fluid and LJ PairModel through "
-          "ShardedSimulation on 'cellwise': K1's slab mode")
-    k1_slab = phase_sharded(shard_state, main_sps)
+          "ShardedSimulation on 'cellwise': K1's group launch")
+    k1_slab, k1_group = phase_sharded(shard_state, main_sps)
     torch.cuda.empty_cache()
     print("[30 sharded generic and 'n2'] LJPotential in K1's generic form "
-          "in slab mode, Langevin, run(200, log_period=10); the small-box "
-          "'n2' fallback")
-    gen_slab = phase_sharded_generic(shard_state)
+          "over the group, Langevin, run(200, log_period=10); the "
+          "small-box 'n2' fallback")
+    gen_slab, gen_group = phase_sharded_generic(shard_state)
     torch.cuda.empty_cache()
     print("[31 parallel helpers] halo_force_fn at 16,384 particles and "
           "sharded_train_step over 8 frames of 4,096")
@@ -5436,7 +5582,7 @@ def main():
     torch.cuda.empty_cache()
     print("[34 sharded npt] phase 14's barostat through ShardedSimulation")
     launches, _ = phase_sharded_npt(shard_state)
-    k1_slab["launches"] += launches
+    k1_group["launches"] += launches
     torch.cuda.empty_cache()
     print("[35 sharded planes] a SimModel the probe rejects through "
           "ShardedSimulation: the planes built per shard, run and train")
@@ -5455,6 +5601,13 @@ def main():
           "Simulation(mesh=) on 'cell' and 'cellwise'")
     phase_sharded_mapped(shard_state)
     print(f"  phases 36-38: {time.perf_counter() - t36:.1f} s")
+    k1_slab["launches"] = sum(n for n, _ in SLAB_RUNS.values())
+    gen_slab["launches"] = sum(n for _, n in SLAB_RUNS.values())
+    print(f"  slab launches of the whole-state routes' own runs (K1, its "
+          f"generic form): {SLAB_RUNS}")
+    check(k1_slab["launches"] > 0 and gen_slab["launches"] > 0,
+          "a slab mode of K1 was launched no time in the runs of phases "
+          "32-38")
     del shard_state
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
@@ -5516,23 +5669,43 @@ def main():
                   "library_ms: torch.topk over int64 keys, selection only",
              source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
              replaces="hoomd_tf_tpu/ops/nlist_pallas.py:43", **k3_64),
-        dict(name="K1 LJ form, slab mode (half_stencil_pair_forces(slab=); "
-                  "ms, plain_ms, bound_ms: shard 0's call, its slab plain "
-                  "version and its own bound; sharded_ms: phase 29's whole "
-                  "sharded evaluation, its slab launches, copies, gather "
-                  "and reverse halos; launches: slab launches of phase "
-                  "29's runs and of phase 34's NPT runs)",
+        dict(name="K1 slab mode (half_stencil_pair_forces(slab=); ms, "
+                  "plain_ms, bound_ms: shard 0's call in the LJ form, its "
+                  "slab plain version and its own bound; sharded_ms: phase "
+                  "29's whole resident evaluation; launches: slab launches, "
+                  "any form, of the whole-state routes' own runs in phases "
+                  "32-38)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **k1_slab),
+        dict(name="K1 LJ form, group launch over the shards of one card "
+                  "(half_stencil_group_forces; ms, plain_ms, bound_ms: "
+                  "phase 29's group launch alone, its plain version and "
+                  "its bound; sharded_ms: the whole resident evaluation; "
+                  "shard0_ms: shard 0 alone as a group of one; launches: "
+                  "group launches of phases 29 and 34)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
+             replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
+                      "wrapper of the pallas_call at :629)", **k1_group),
         dict(name="K1 generic form, slab mode (generic_pair_forces(slab=); "
                   "ms, plain_ms, bound_ms: shard 0's call with its pair "
                   "function, its slab plain version and its own bound; "
-                  "sharded_ms: phase 30's whole sharded evaluation; "
-                  "launches: slab launches of phase 30's run)",
+                  "sharded_ms: phase 30's whole resident evaluation; "
+                  "launches: slab launches of the whole-state routes' own "
+                  "runs in phases 32-38)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **gen_slab),
+        dict(name="K1 generic form, group launch over the shards of one "
+                  "card (generic_group_pair_forces: one list launch, the "
+                  "pair function once on the joined list, one reduction; "
+                  "ms, plain_ms, bound_ms: phase 30's group call alone with "
+                  "the pair function, its plain version and its bound; "
+                  "sharded_ms: the whole resident evaluation; launches: "
+                  "group launches of phase 30's run)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
+             replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
+                      "wrapper of the pallas_call at :629)", **gen_group),
         dict(name="K2 Chebyshev-proxy backward moments, slab mode "
                   "(proxy_bwd_moments(slab=); ms, plain_ms, bound_ms: "
                   "shard 0's call with the forces-only cotangent, its slab "
@@ -5577,7 +5750,8 @@ def main():
         # no single PyTorch call computes K1's or K2's function
         r.setdefault("library_ms", None)
         r["route"] = "cuda"
-        kernels.append({k: r[k] for k in keys + ("sharded_ms",) if k in r})
+        kernels.append({k: r[k] for k in keys + (
+            "sharded_ms", "shard0_ms") if k in r})
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

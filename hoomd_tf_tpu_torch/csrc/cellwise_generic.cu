@@ -60,6 +60,13 @@
 // halo row's ct is the next shard's first home layer's, where the reverse
 // halo was added): a lane's candidate slot is its global cell's buffer
 // cell, and the lanes written are the shard's own.
+// Group mode (GroupTab, cellwise_half.cu): generic_group_list lists every
+// home cell of the shards one card holds into one joined list (each cell's
+// segment placed by the one counter), the pair function runs once on it,
+// and generic_reduce over the group's cells with half_stencil_group_home
+// finishes, the back sums across a boundary inside the group added in the
+// whole state's order. The backward has no group mode: training under a
+// mesh lists per shard.
 //
 // The list's placement varies from call to call; the values do not: each
 // lane's (U, s) is a function of the lane, and every sum runs in a fixed
@@ -343,26 +350,24 @@ __device__ void write_record(const Smem<T>& s, int n0, int total,
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
-generic_list(const T* __restrict__ pos, const int* __restrict__ types,
-             const T* __restrict__ valid, const T* __restrict__ box,
-             HalfGeom g, const T* __restrict__ rcm, int rcm_t, T rc2,
-             T min_r2, int budget, int* __restrict__ counter,
-             int* __restrict__ cell_base, T* __restrict__ r2_out,
-             T* __restrict__ ti_out, T* __restrict__ tj_out,
-             int* __restrict__ rec, long rec_stride, T* __restrict__ sums,
-             int nch) {
+// The list kernel's work for block c, the half stencil of global home
+// cell `gc`, its rows read where `src` keeps them (OneBuffer, ShardRows).
+template <class T, class Src>
+__device__ __forceinline__ void list_block(
+    const Src& src, int gc, int c, const T* __restrict__ box,
+    const HalfGeom& g, const T* __restrict__ rcm, int rcm_t, T rc2,
+    T min_r2, int budget, int* __restrict__ counter,
+    int* __restrict__ cell_base, T* __restrict__ r2_out,
+    T* __restrict__ ti_out, T* __restrict__ tj_out, int* __restrict__ rec,
+    long rec_stride, T* __restrict__ sums, int nch) {
   Smem<T> s;
   list_layout(g.cap, htf::dynamic_smem<char>(), &s);
-  const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t n_slots = static_cast<size_t>(gridDim.x) * g.cap;
   const size_t home = static_cast<size_t>(c) * g.cap;
   int n0;
-  const int total = htf::stage_half_stencil<T>(
-      g, g.z0 * g.nx * g.ny + c, rc2, pos, types, valid, box, s.spos,
-      s.stag, s.stage, n0,
+  const int total = htf::stage_rows<T>(
+      g, gc, rc2, src, box, s.spos, s.stag, s.stage, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
         for (int k = 0; k < nch; ++k)
@@ -400,6 +405,47 @@ generic_list(const T* __restrict__ pos, const int* __restrict__ types,
       tj_out[row + e] = static_cast<T>(htf::unpack_type(gj.w));
     }
   }
+}
+
+// One block per home cell of one buffer (a whole state, or a z-slab
+// shard's buffer: block c is the global home cell z0 nx ny + c).
+template <class T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+generic_list(const T* __restrict__ pos, const int* __restrict__ types,
+             const T* __restrict__ valid, const T* __restrict__ box,
+             HalfGeom g, const T* __restrict__ rcm, int rcm_t, T rc2,
+             T min_r2, int budget, int* __restrict__ counter,
+             int* __restrict__ cell_base, T* __restrict__ r2_out,
+             T* __restrict__ ti_out, T* __restrict__ tj_out,
+             int* __restrict__ rec, long rec_stride, T* __restrict__ sums,
+             int nch) {
+  const int c = blockIdx.x;
+  list_block<T>(htf::OneBuffer<T>{pos, types, valid}, g.z0 * g.nx * g.ny + c,
+                c, box, g, rcm, rcm_t, rc2, min_r2, budget, counter,
+                cell_base, r2_out, ti_out, tj_out, rec, rec_stride, sums,
+                nch);
+}
+
+// One block per home cell of a group's shards (GroupTab; block c is home
+// cell c - k H of shard k = c / H), every cell's lanes placed in the one
+// list by the one counter: the group's joined list.
+template <class T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
+generic_group_list(const __grid_constant__ htf::GroupTab<T> tab,
+                   const T* __restrict__ box, HalfGeom g,
+                   const T* __restrict__ rcm, int rcm_t, T rc2, T min_r2,
+                   int budget, int* __restrict__ counter,
+                   int* __restrict__ cell_base, T* __restrict__ r2_out,
+                   T* __restrict__ ti_out, T* __restrict__ tj_out,
+                   int* __restrict__ rec, long rec_stride,
+                   T* __restrict__ sums, int nch) {
+  const int c = blockIdx.x;
+  const int H = g.nzl * g.nx * g.ny;
+  const int k = c / H;
+  list_block<T>(htf::ShardRows<T>(tab, k),
+                tab.z0[k] * g.nx * g.ny + (c - k * H), c, box, g, rcm, rcm_t,
+                rc2, min_r2, budget, counter, cell_base, r2_out, ti_out,
+                tj_out, rec, rec_stride, sums, nch);
 }
 
 // The channel products of the lane (row q, candidate g) with its (U, s).
@@ -750,6 +796,72 @@ int reduce(const HalfGeom* geom, int n_cells, const int* rec,
 #undef HTF_REDUCE
 }
 
+// A group's list: generic_group_list over every home cell of its shards.
+template <class T>
+int group_list(const htf::GroupTab<T>& tab, const HalfGeom* geom,
+               const void* box, const void* rcm, int rcm_t, double rc2,
+               double min_r2, int budget, int* counter, int* cell_base,
+               void* r2, void* ti, void* tj, int* rec, void* sums, int nch,
+               cudaStream_t st) {
+  const HalfGeom g = *geom;
+  const long smem = smem_bytes<T>(g.cap);
+  auto kernel = generic_group_list<T>;
+  int e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != 0) return e;
+  kernel<<<tab.n * g.nzl * g.nx * g.ny, kThreads, smem, st>>>(
+      tab, static_cast<const T*>(box), g, static_cast<const T*>(rcm), rcm_t,
+      static_cast<T>(rc2), static_cast<T>(min_r2), budget, counter,
+      cell_base, static_cast<T*>(r2), static_cast<T*>(ti),
+      static_cast<T*>(tj), rec, rec_words<T>(g.cap), static_cast<T*>(sums),
+      nch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A group's reduction: generic_reduce over every home cell of its shards
+// (the records, bases and raw sums of its joined list), then
+// half_stencil_group_home over every row of their buffers.
+template <class T, bool ENERGY, bool VIRIAL>
+int launch_group_reduce(const htf::GroupTab<T>& tab, const HalfGeom& g,
+                        const int* rec, const int* cell_base, const T* U,
+                        const T* S, T* sums, T* forces4, T* virial,
+                        int* counter, int* needed, cudaStream_t stream) {
+  const long smem = reduce_smem_bytes<T>(g.cap);
+  auto kernel = generic_reduce<T, ENERGY, VIRIAL>;
+  int e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != 0) return e;
+  kernel<<<tab.n * g.nzl * g.nx * g.ny, kThreads, smem, stream>>>(
+      g, rec, rec_words<T>(g.cap), cell_base, U, S, sums, counter, needed);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  const long rows = static_cast<long>(tab.n) * htf::out_slots(g);
+  htf::half_stencil_group_home<T, ENERGY, VIRIAL>
+      <<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+          sums, tab, g, reinterpret_cast<Vec4<T>*>(forces4), virial);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int group_reduce(const htf::GroupTab<T>& tab, const HalfGeom* geom,
+                 const int* rec, const int* cell_base, const void* U_,
+                 const void* S_, int needs_energy, int needs_virial,
+                 void* sums_, void* forces4_, void* virial_, int* counter,
+                 int* needed, cudaStream_t st) {
+  const HalfGeom g = *geom;
+  const T* U = static_cast<const T*>(U_);
+  const T* S = static_cast<const T*>(S_);
+  T* sums = static_cast<T*>(sums_);
+  T* forces4 = static_cast<T*>(forces4_);
+  T* virial = static_cast<T*>(virial_);
+#define HTF_REDUCE(E, V)                                                   \
+  launch_group_reduce<T, E, V>(tab, g, rec, cell_base, U, S, sums,         \
+                               forces4, virial, counter, needed, st)
+  if (needs_energy && needs_virial) return HTF_REDUCE(true, true);
+  if (needs_energy) return HTF_REDUCE(true, false);
+  if (needs_virial) return HTF_REDUCE(false, true);
+  return HTF_REDUCE(false, false);
+#undef HTF_REDUCE
+}
+
 template <class T>
 int reduce_bwd(const HalfGeom* geom, int n_cells, const int* rec,
                const int* cell_base, const void* ct, const void* valid,
@@ -850,6 +962,63 @@ int htf_generic_reduce_bwd(int f64, const HalfGeom* geom, int n_cells,
                                   needs_energy, needed, budget, gU, gS, st)
              : reduce_bwd<float>(geom, n_cells, rec, cell_base, ct, valid,
                                  needs_energy, needed, budget, gU, gS, st);
+}
+
+// The group's list (generic_group_list): `n` shards of one card in ring
+// order, their buffers' arrays in the host arrays `pos`, `types` (or null
+// when untyped) and `valid`, their first home layers `z0` and ring
+// neighbours in the group `prev`, `next` (-1: outside it), as
+// htf_half_stencil_group takes them; `geom` a HalfGeom of their nzl;
+// `cell_base` [n H] and `rec` (n H records) of the group's home cells (H a
+// shard), `sums` [nch][14][n H cap]; the rest as htf_generic_list.
+int htf_generic_group_list(int f64, int n, const void* const* pos,
+                           const void* const* types,
+                           const void* const* valid, const int* z0,
+                           const int* prev, const int* next, const void* box,
+                           const HalfGeom* geom, const void* rcm, int rcm_t,
+                           double rc2, double min_r2, int budget,
+                           int* counter, int* cell_base, void* r2, void* ti,
+                           void* tj, int* rec, void* sums, int nch,
+                           void* stream) {
+  if (n < 1 || n > htf::kMaxGroup) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64)
+    return group_list<double>(
+        htf::group_tab<double>(n, pos, types, valid, z0, prev, next), geom,
+        box, rcm, rcm_t, rc2, min_r2, budget, counter, cell_base, r2, ti, tj,
+        rec, sums, nch, st);
+  return group_list<float>(
+      htf::group_tab<float>(n, pos, types, valid, z0, prev, next), geom,
+      box, rcm, rcm_t, rc2, min_r2, budget, counter, cell_base, r2, ti, tj,
+      rec, sums, nch, st);
+}
+
+// The group's reduction and finish (generic_reduce over the group's home
+// cells, half_stencil_group_home): the group's arguments as
+// htf_generic_group_list; `forces4` [n][(nzl + 1) nx ny cap][4] and
+// `virial` (or null) the shards' outputs joined; the rest as
+// htf_generic_reduce.
+int htf_generic_group_reduce(int f64, int n, const void* const* pos,
+                             const void* const* types,
+                             const void* const* valid, const int* z0,
+                             const int* prev, const int* next,
+                             const HalfGeom* geom, const int* rec,
+                             const int* cell_base, const void* U,
+                             const void* S, int needs_energy,
+                             int needs_virial, void* sums, void* forces4,
+                             void* virial, int* counter, int* needed,
+                             void* stream) {
+  if (n < 1 || n > htf::kMaxGroup) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64)
+    return group_reduce<double>(
+        htf::group_tab<double>(n, pos, types, valid, z0, prev, next), geom,
+        rec, cell_base, U, S, needs_energy, needs_virial, sums, forces4,
+        virial, counter, needed, st);
+  return group_reduce<float>(
+      htf::group_tab<float>(n, pos, types, valid, z0, prev, next), geom,
+      rec, cell_base, U, S, needs_energy, needs_virial, sums, forces4,
+      virial, counter, needed, st);
 }
 
 const char* htf_generic_error_string(int code) {

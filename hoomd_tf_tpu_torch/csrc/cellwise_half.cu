@@ -44,7 +44,20 @@
 // half_stencil_home also writes the back sums pushed into the halo layer,
 // which the caller adds to the next shard's first layer. The masks are the
 // whole state's; only the order in which the boundary layer's back sums
-// are added differs.
+// are added differs. The whole-state mesh routes (training, the planes
+// route, mapped models) launch it per shard.
+//
+// Group mode (half_stencil_group_forces, half_stencil_group_home): the
+// shards one card holds, in ring order, in one launch each (GroupTab, a
+// __grid_constant__ parameter: per shard its buffer, z0 and its ring
+// neighbours in the group). Block b is home cell b - k H of shard k =
+// b / H, so a group of every shard has the unsharded grid and raw-sum
+// layout; a cell of the forward halo layer is read in place from the next
+// shard's first home layer when that shard is in the group (ShardRows),
+// and the home pass takes a first-layer slot's back sums from the previous
+// shard's raw sums in the order t = 1..13: no halo copy, no reverse halo,
+// and a group of every shard gives the unsharded forces bit for bit.
+// Between groups (cards) the halo is still copied and added by the caller.
 //
 // Two launches, no float atomics, deterministic:
 //   half_stencil_forces, one block per home cell. The block stages the
@@ -243,6 +256,97 @@ __device__ __forceinline__ bool lane_products(
   return true;
 }
 
+// One block's work in the group launch: the half stencil of global home
+// cell `gc`, its rows read where `src` keeps them, its raw sums written at
+// `home` (its first slot in the launch's [n_ch][14][n_slots] planes).
+template <class T, bool ENERGY, bool VIRIAL, class Form, class Src>
+__device__ __forceinline__ void forces_block(
+    const Src& src, int gc, size_t home, size_t n_slots,
+    const T* __restrict__ box, const HalfGeom& g, Form& form,
+    const T* __restrict__ rcm, int rcm_t, T rc2, T min_r2,
+    T* __restrict__ sums) {
+  constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
+  const int cap = g.cap;
+  const int C = kHalf * cap;
+  const int tid = threadIdx.x;
+  Vec4<T>* spos = htf::dynamic_smem<Vec4<T>>();            // [C]
+  int* stag = reinterpret_cast<int*>(spos + C);            // [C]
+  unsigned char* scratch = reinterpret_cast<unsigned char*>(stag + C);
+  T* part = reinterpret_cast<T*>(scratch + htf::stage_bytes<T>());
+  //                                                   [kThreads][NCH]
+  form.stage(part + kThreads * NCH, tid);  // the form's own table
+
+  int n0;
+  const int total = htf::stage_rows<T>(
+      g, gc, rc2, src, box, spos, stag, scratch, n0, htf::NoExtra(),
+      [&](int t, int r) {
+        // a slot out of every row's reach: its back sums are zero
+#pragma unroll
+        for (int k = 0; k < NCH; ++k)
+          sums[(k * kHalf + t) * n_slots + home + r] = T(0);
+      });
+
+  // row sweep: the row sums of the home slots over all 14 blocks
+  for (int r0 = 0; r0 < n0; r0 += kThreads) {
+    const htf::RowSplit sp(r0, n0);
+    if (sp.active) {
+      T acc[NCH];
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) acc[k] = T(0);
+      const Vec4<T> q = spos[sp.row];
+      for (int j = sp.seg; j < total; j += sp.nseg) {
+        if (j == sp.row) continue;  // the self pair (block 0)
+        T p[NCH];
+        if (lane_products<ENERGY, VIRIAL>(q, spos[j], form, rcm, rcm_t, rc2,
+                                          min_r2, p)) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) acc[k] += p[k];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) part[tid * NCH + k] = acc[k];
+    }
+    __syncthreads();
+    if (tid < sp.rows) {
+      const size_t out = home + stag[r0 + tid];  // block 0: tag = rank
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        T v = T(0);
+        for (int s = 0; s < sp.nseg; ++s) v += part[(tid * sp.nseg + s) * NCH + k];
+        sums[k * kHalf * n_slots + out] = v;
+      }
+    }
+    __syncthreads();
+  }
+
+  // candidate sweep: the back sums of the directed blocks' slots
+  for (int j = n0 + tid; j < total; j += kThreads) {
+    T acc[NCH];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) acc[k] = T(0);
+    const Vec4<T> gj = spos[j];
+    for (int i = 0; i < n0; ++i) {
+      T p[NCH];
+      if (lane_products<ENERGY, VIRIAL>(spos[i], gj, form, rcm, rcm_t, rc2,
+                                        min_r2, p)) {
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) acc[k] += p[k];
+      }
+    }
+    const int tag = stag[j];
+    const int t = tag / cap;
+    const size_t out = static_cast<size_t>(t) * n_slots + home + (tag - t * cap);
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) sums[k * kHalf * n_slots + out] = acc[k];
+  }
+}
+
+// One block per home cell of one buffer (a whole state, or a z-slab
+// shard's buffer: block c is the global home cell z0 nx ny + c). Its body
+// is forces_block's for one buffer, written out: through forces_block,
+// ptxas -v (sm_90a) gives the double proxy form without energy
+// or virial 64 registers and a 12-byte spill; written out, 64 registers
+// and none, the other 15 instantiations the same registers either way.
 template <class T, bool ENERGY, bool VIRIAL, class Form>
 __global__ void __launch_bounds__(kThreads)
 half_stencil_forces(const T* __restrict__ pos, const int* __restrict__ types,
@@ -329,11 +433,37 @@ half_stencil_forces(const T* __restrict__ pos, const int* __restrict__ types,
   }
 }
 
+// One launch over every home cell of a group's shards (GroupTab): block b
+// is home cell b - k H of shard k = b / H (H home cells a shard), its raw
+// sums at slot b cap of the group's planes.
+template <class T, bool ENERGY, bool VIRIAL, class Form>
+__global__ void __launch_bounds__(kThreads)
+half_stencil_group_forces(const __grid_constant__ htf::GroupTab<T> tab,
+                          const T* __restrict__ box, HalfGeom g, Form form,
+                          const T* __restrict__ rcm, int rcm_t, T rc2,
+                          T min_r2, T* __restrict__ sums) {
+  const int H = g.nzl * g.nx * g.ny;
+  const int b = blockIdx.x;
+  const int k = b / H;
+  forces_block<T, ENERGY, VIRIAL>(
+      htf::ShardRows<T>(tab, k), tab.z0[k] * g.nx * g.ny + (b - k * H),
+      static_cast<size_t>(b) * g.cap,
+      static_cast<size_t>(gridDim.x) * g.cap, box, g, form, rcm, rcm_t, rc2,
+      min_r2, sums);
+}
+
 template <class T>
 long smem_bytes(int cap, int n_ch, int form_words) {
   return static_cast<long>(kHalf) * cap * (sizeof(Vec4<T>) + sizeof(int)) +
          htf::stage_bytes<T>() +
          static_cast<long>(sizeof(T)) * (kThreads * n_ch + form_words);
+}
+
+int allow_smem(const void* kernel, long smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
 }
 
 template <class T, bool ENERGY, bool VIRIAL, class Form>
@@ -344,12 +474,8 @@ int launch(const T* pos, const int* types, const T* valid, const T* box,
   constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
   const long smem = smem_bytes<T>(g.cap, NCH, form_words);
   auto kernel = half_stencil_forces<T, ENERGY, VIRIAL, Form>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const int a = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (a != 0) return a;
   kernel<<<n_cells, kThreads, smem, stream>>>(pos, types, valid, box, g,
                                               form, rcm, rcm_t, rc2, min_r2,
                                               sums);
@@ -363,6 +489,31 @@ int launch(const T* pos, const int* types, const T* valid, const T* box,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A group's launch: half_stencil_group_forces over every home cell of its
+// shards, then half_stencil_group_home
+// over every row of their buffers (the outputs joined, shard after shard).
+template <class T, bool ENERGY, bool VIRIAL, class Form>
+int launch_group(const htf::GroupTab<T>& tab, const T* box,
+                 const HalfGeom& g, Form form, int form_words,
+                 const T* rcm, int rcm_t, T rc2, T min_r2, T* sums,
+                 T* forces4, T* virial, cudaStream_t stream) {
+  constexpr int NCH = Channels<ENERGY, VIRIAL>::kCount;
+  const long smem = smem_bytes<T>(g.cap, NCH, form_words);
+  auto kernel = half_stencil_group_forces<T, ENERGY, VIRIAL, Form>;
+  int e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != 0) return e;
+  const int blocks = tab.n * g.nzl * g.nx * g.ny;
+  kernel<<<blocks, kThreads, smem, stream>>>(tab, box, g, form, rcm, rcm_t,
+                                             rc2, min_r2, sums);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  const long rows = static_cast<long>(tab.n) * htf::out_slots(g);
+  htf::half_stencil_group_home<T, ENERGY, VIRIAL>
+      <<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+          sums, tab, g, reinterpret_cast<Vec4<T>*>(forces4), virial);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The call's pointers, typed: the wrapper hands them over as void *.
 template <class T>
 struct Args {
@@ -371,6 +522,7 @@ struct Args {
   int rcm_t;
   T rc2, min_r2;
   T *sums, *forces4, *virial;
+  const htf::GroupTab<T>* tab;  // a group's launch, else null
 
   Args(const void* p, const int* ty, const void* v, const void* b,
        const void* rm, int rt, double r2, double mr2, void* s, void* f,
@@ -379,7 +531,8 @@ struct Args {
         box(static_cast<const T*>(b)), rcm(static_cast<const T*>(rm)),
         types(ty), rcm_t(rt), rc2(static_cast<T>(r2)),
         min_r2(static_cast<T>(mr2)), sums(static_cast<T*>(s)),
-        forces4(static_cast<T*>(f)), virial(static_cast<T*>(w)) {}
+        forces4(static_cast<T*>(f)), virial(static_cast<T*>(w)),
+        tab(nullptr) {}
 };
 
 template <class T, class Form>
@@ -389,9 +542,12 @@ int dispatch(const Args<T>& a, const HalfGeom* geom, int n_cells, Form form,
   const HalfGeom g = *geom;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HTF_LAUNCH(E, V)                                                    \
-  launch<T, E, V>(a.pos, a.types, a.valid, a.box, g, n_cells, form,        \
-                  form_words, a.rcm, a.rcm_t, a.rc2, a.min_r2, a.sums,     \
-                  a.forces4, a.virial, s)
+  (a.tab ? launch_group<T, E, V>(*a.tab, a.box, g, form, form_words,      \
+                                 a.rcm, a.rcm_t, a.rc2, a.min_r2, a.sums,  \
+                                 a.forces4, a.virial, s)                   \
+         : launch<T, E, V>(a.pos, a.types, a.valid, a.box, g, n_cells,     \
+                           form, form_words, a.rcm, a.rcm_t, a.rc2,        \
+                           a.min_r2, a.sums, a.forces4, a.virial, s))
   if (needs_energy && needs_virial) return HTF_LAUNCH(true, true);
   if (needs_energy) return HTF_LAUNCH(true, false);
   if (needs_virial) return HTF_LAUNCH(false, true);
@@ -503,6 +659,72 @@ int htf_half_stencil_cheb(int f64, const void* pos, const int* types,
   return cheb(Args<float>(pos, types, valid, box, rcm, rcm_t, rc2, min_r2,
                           sums, forces4, virial),
               geom, n_cells, coef, ntypes, K, mid, inv_half, u_hi, dtab,
+              needs_energy, needs_virial, stream);
+}
+
+// The group launches (GroupTab; half_stencil_group_forces and
+// half_stencil_group_home): `n` shards of one card in ring order, their
+// buffers' arrays in the host arrays `pos`, `types` (or null when
+// untyped) and `valid`, their first home layers `z0` and ring neighbours
+// in the group `prev`, `next` (-1: outside it); `geom` a HalfGeom of
+// their nzl; `sums` the [n_ch][14][n H cap] scratch (H home cells a
+// shard), `forces4`
+// [n][(nzl + 1) nx ny cap][4] and `virial` [n][...][9] (or null), the
+// shards' outputs joined. The rest as htf_half_stencil.
+int htf_half_stencil_group(int f64, int n, const void* const* pos,
+                           const void* const* types,
+                           const void* const* valid, const int* z0,
+                           const int* prev, const int* next, const void* box,
+                           const HalfGeom* geom, const void* form,
+                           int form_t, int strict, const void* rcm,
+                           int rcm_t, double rc2, double min_r2,
+                           int needs_energy, int needs_virial, void* sums,
+                           void* forces4, void* virial, void* stream) {
+  if (n < 1 || n > htf::kMaxGroup) return cudaErrorInvalidValue;
+  if (f64) {
+    const htf::GroupTab<double> tab =
+        htf::group_tab<double>(n, pos, types, valid, z0, prev, next);
+    Args<double> a(nullptr, nullptr, nullptr, box, rcm, rcm_t, rc2, min_r2,
+                   sums, forces4, virial);
+    a.tab = &tab;
+    return lj(a, geom, 0, form, form_t, strict, needs_energy, needs_virial,
+              stream);
+  }
+  const htf::GroupTab<float> tab =
+      htf::group_tab<float>(n, pos, types, valid, z0, prev, next);
+  Args<float> a(nullptr, nullptr, nullptr, box, rcm, rcm_t, rc2, min_r2,
+                sums, forces4, virial);
+  a.tab = &tab;
+  return lj(a, geom, 0, form, form_t, strict, needs_energy, needs_virial,
+            stream);
+}
+
+// The Chebyshev-proxy form's group launch: the group's arguments as
+// htf_half_stencil_group, the form's as htf_half_stencil_cheb.
+int htf_half_stencil_group_cheb(
+    int f64, int n, const void* const* pos, const void* const* types,
+    const void* const* valid, const int* z0, const int* prev,
+    const int* next, const void* box, const HalfGeom* geom,
+    const void* coef, int ntypes, int K, double mid, double inv_half,
+    double u_hi, void* dtab, const void* rcm, int rcm_t, double rc2,
+    double min_r2, int needs_energy, int needs_virial, void* sums,
+    void* forces4, void* virial, void* stream) {
+  if (n < 1 || n > htf::kMaxGroup) return cudaErrorInvalidValue;
+  if (f64) {
+    const htf::GroupTab<double> tab =
+        htf::group_tab<double>(n, pos, types, valid, z0, prev, next);
+    Args<double> a(nullptr, nullptr, nullptr, box, rcm, rcm_t, rc2, min_r2,
+                   sums, forces4, virial);
+    a.tab = &tab;
+    return cheb(a, geom, 0, coef, ntypes, K, mid, inv_half, u_hi, dtab,
+                needs_energy, needs_virial, stream);
+  }
+  const htf::GroupTab<float> tab =
+      htf::group_tab<float>(n, pos, types, valid, z0, prev, next);
+  Args<float> a(nullptr, nullptr, nullptr, box, rcm, rcm_t, rc2, min_r2,
+                sums, forces4, virial);
+  a.tab = &tab;
+  return cheb(a, geom, 0, coef, ntypes, K, mid, inv_half, u_hi, dtab,
               needs_energy, needs_virial, stream);
 }
 

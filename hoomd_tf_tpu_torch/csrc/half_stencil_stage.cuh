@@ -88,6 +88,11 @@ __host__ __device__ constexpr int stage_bytes() {
 // sums are indexed by the home slots; half_stencil_home writes the home
 // slots and, for the halo layer, the back sums the last home layer pushed
 // into it (the reverse halo, which the caller adds to the next shard).
+//
+// Group mode (GroupTab below): one launch over the shards of one card, each
+// of nzl layers (HalfGeom's z0 unused); the staging reads a shard's rows
+// through ShardRows, its forward halo layer in place from the next shard
+// of the group where there is one.
 struct HalfGeom {
   int nx, ny, nz, cap, tilted;
   int off[kHalf][3];
@@ -103,14 +108,126 @@ __host__ __device__ __forceinline__ int out_slots(const HalfGeom& g) {
   return (g.nzl + (is_slab(g) ? 1 : 0)) * g.nx * g.ny * g.cap;
 }
 
-// The buffer cell holding global cell `cell` (itself for a whole state).
-__device__ __forceinline__ int buffer_cell(const HalfGeom& g, int cell) {
+// The buffer cell holding global cell `cell` in the buffer of the slab
+// whose first home layer is z0 (itself for a whole state).
+__device__ __forceinline__ int buffer_cell_at(const HalfGeom& g, int z0,
+                                              int cell) {
   const int layer = g.nx * g.ny;
   const int z = cell / layer;
-  int lz = z - g.z0;
+  int lz = z - z0;
   if (lz < 0) lz += g.nz;
   return cell + (lz - z) * layer;
 }
+
+__device__ __forceinline__ int buffer_cell(const HalfGeom& g, int cell) {
+  return buffer_cell_at(g, g.z0, cell);
+}
+
+// Where the staging reads a cell's slot rows. OneBuffer: one buffer, a
+// whole state's or a z-slab shard's (HalfGeom's z0 and nzl). `cell` gives
+// a cell's code (here its buffer cell), `slot` a slot row of the code's
+// buffer, and pos / types / valid that buffer's arrays.
+template <class T>
+struct OneBuffer {
+  const T* pos;
+  const int* types;
+  const T* valid;
+  __device__ __forceinline__ int cell(const HalfGeom& g, int c) const {
+    return buffer_cell(g, c);
+  }
+  __device__ __forceinline__ size_t slot(int code, int cap, int r) const {
+    return static_cast<size_t>(code) * cap + r;
+  }
+  __device__ __forceinline__ const T* p(int) const { return pos; }
+  __device__ __forceinline__ const int* ty(int) const { return types; }
+  __device__ __forceinline__ const T* v(int) const { return valid; }
+};
+
+// A group: the z-slab shards one card holds, in ring order (at most
+// kMaxGroup), passed by value as a __grid_constant__ kernel parameter.
+// Per shard its buffer's arrays (home layers, then the forward halo
+// layer), its first home layer z0 and, as indices into the group, the
+// shard before it and after it on the ring when that shard is in the
+// group, else -1. Every shard has HalfGeom's nzl home layers; its raw sums
+// and outputs lie at its index times its slots in the group's arrays.
+constexpr int kMaxGroup = 16;
+
+template <class T>
+struct GroupTab {
+  const T* pos[kMaxGroup];
+  const int* types[kMaxGroup];
+  const T* valid[kMaxGroup];
+  int z0[kMaxGroup], prev[kMaxGroup], next[kMaxGroup];
+  int n;
+};
+
+// The GroupTab of a group's host arrays (the C entry points' arguments):
+// n shards' buffers, first home layers and ring neighbours in the group.
+template <class T>
+inline GroupTab<T> group_tab(int n, const void* const* pos,
+                             const void* const* types,
+                             const void* const* valid, const int* z0,
+                             const int* prev, const int* next) {
+  GroupTab<T> tab{};
+  tab.n = n;
+  for (int k = 0; k < n; ++k) {
+    tab.pos[k] = static_cast<const T*>(pos[k]);
+    tab.types[k] = types ? static_cast<const int*>(types[k]) : nullptr;
+    tab.valid[k] = static_cast<const T*>(valid[k]);
+    tab.z0[k] = z0[k];
+    tab.prev[k] = prev[k];
+    tab.next[k] = next[k];
+  }
+  return tab;
+}
+
+// The rows of one shard k of a group (GroupTab): its own buffer, and when
+// the next shard on the ring is in the group, that shard's buffer, whose
+// first home layer a cell of k's forward halo layer is read from in place
+// (the code's kNextRows bit); else k's halo rows, which the caller filled.
+constexpr int kNextRows = 1 << 30;
+
+template <class T>
+struct ShardRows {
+  const T *pos, *pos_n;
+  const int *types, *types_n;
+  const T *valid, *valid_n;
+  int z0;
+  bool has_next;
+
+  __device__ __forceinline__ ShardRows(const GroupTab<T>& tab, int k) {
+    const int n = tab.next[k];
+    has_next = n >= 0;
+    const int m = has_next ? n : k;
+    pos = tab.pos[k];
+    types = tab.types[k];
+    valid = tab.valid[k];
+    pos_n = tab.pos[m];
+    types_n = tab.types[m];
+    valid_n = tab.valid[m];
+    z0 = tab.z0[k];
+  }
+  __device__ __forceinline__ int cell(const HalfGeom& g, int c) const {
+    const int layer = g.nx * g.ny;
+    const int z = c / layer;
+    int lz = z - z0;
+    if (lz < 0) lz += g.nz;
+    if (has_next && lz == g.nzl) return kNextRows | (c - z * layer);
+    return c + (lz - z) * layer;
+  }
+  __device__ __forceinline__ size_t slot(int code, int cap, int r) const {
+    return static_cast<size_t>(code & ~kNextRows) * cap + r;
+  }
+  __device__ __forceinline__ const T* p(int code) const {
+    return (code & kNextRows) ? pos_n : pos;
+  }
+  __device__ __forceinline__ const int* ty(int code) const {
+    return (code & kNextRows) ? types_n : types;
+  }
+  __device__ __forceinline__ const T* v(int code) const {
+    return (code & kNextRows) ? valid_n : valid;
+  }
+};
 
 // The cell c + sign * off_t on the periodic grid (x-minor, z-major ids).
 __device__ __forceinline__ int shifted_cell(const HalfGeom& g, int c, int t,
@@ -208,23 +325,19 @@ __device__ __forceinline__ T box_gap(T v, T lo, T hi) {
   return fmax_(fmax_(sub_rn(lo, v), sub_rn(v, hi)), T(0));
 }
 
-// Stage the valid slots of (global) cell c's 14 half-stencil cells, read at
-// their buffer cells, into `spos` and
-// `stag` (each sized for 14 * cap entries), the directed blocks' only
-// within rc2 of the home rows' bounding box; `scratch` is stage_bytes<T>()
-// bytes. `extra(k, slot)` stages what else a kernel needs of entry k;
-// `skipped(t, r)` is called for each valid slot of the directed blocks left
-// out. Returns the number staged and sets `n_home`. Every thread of the
-// block must call it; it ends with a barrier.
-template <class T, class Extra, class Skipped>
-__device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
-                                  const T* __restrict__ pos,
-                                  const int* __restrict__ types,
-                                  const T* __restrict__ valid,
-                                  const T* __restrict__ box, Vec4<T>* spos,
-                                  int* stag, unsigned char* scratch,
-                                  int& n_home, Extra extra,
-                                  Skipped skipped) {
+// Stage the valid slots of (global) cell c's half-stencil cells, read
+// where `src` (OneBuffer, ShardRows) keeps them, into `spos` and `stag`
+// (each sized for 14 * cap entries), the directed blocks' only within rc2
+// of the home rows' bounding box; `scratch` is stage_bytes<T>() bytes.
+// `extra(k, slot)` stages what else a kernel needs of entry k (a slot of a
+// OneBuffer); `skipped(t, r)` is called for each valid slot of the
+// directed blocks left out. Returns the number staged and sets `n_home`.
+// Every thread of the block must call it; it ends with a barrier.
+template <class T, class Src, class Extra, class Skipped>
+__device__ int stage_rows(const HalfGeom& g, int c, T rc2, const Src& src,
+                          const T* __restrict__ box, Vec4<T>* spos,
+                          int* stag, unsigned char* scratch, int& n_home,
+                          Extra extra, Skipped skipped) {
   int* nb = reinterpret_cast<int*>(scratch);       // [14] the blocks' cells
   int* wall = nb + kHalf;                          // [kWarps] staged per warp
   T* wbox = reinterpret_cast<T*>(wall + kWarps);   // [kWarps][6]
@@ -237,7 +350,7 @@ __device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
     // geometry from the global cell; the rows from its buffer cell
     const int cell = shifted_cell(g, c, tid, 1);
     block_geometry(g, box, cell, tid, geo + 6 * tid, len);
-    nb[tid] = buffer_cell(g, cell);
+    nb[tid] = src.cell(g, cell);
   }
   __syncthreads();
 
@@ -251,14 +364,17 @@ __device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
     const int t = s / g.cap;
     const int r = s - t * g.cap;
     size_t slot = 0;
+    int code = 0;
     bool ok = false;
     Vec4<T> q = vec4(T(0), T(0), T(0), T(0));
     if (s < s_end) {
-      slot = static_cast<size_t>(nb[t]) * g.cap + r;
-      ok = valid[slot] != T(0);
+      code = nb[t];
+      slot = src.slot(code, g.cap, r);
+      ok = src.v(code)[slot] != T(0);
     }
     if (ok) {
-      const Vec3<T> r3 = relative(pos + 3 * slot, geo + 6 * t,
+      const int* types = src.ty(code);
+      const Vec3<T> r3 = relative(src.p(code) + 3 * slot, geo + 6 * t,
                                   geo + 6 * t + 3, len, g.tilted != 0);
       q = vec4(r3.x, r3.y, r3.z, pack_type<T>(types ? types[slot] : 0));
       if (t > 0) {
@@ -323,6 +439,20 @@ __device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
   }
   for (int s0 = g.cap; s0 < C; s0 += kThreads) chunk(s0, C);
   return base;
+}
+
+// stage_rows of one buffer (a whole state, or a z-slab shard's buffer).
+template <class T, class Extra, class Skipped>
+__device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
+                                  const T* __restrict__ pos,
+                                  const int* __restrict__ types,
+                                  const T* __restrict__ valid,
+                                  const T* __restrict__ box, Vec4<T>* spos,
+                                  int* stag, unsigned char* scratch,
+                                  int& n_home, Extra extra,
+                                  Skipped skipped) {
+  return stage_rows<T>(g, c, rc2, OneBuffer<T>{pos, types, valid}, box,
+                       spos, stag, scratch, n_home, extra, skipped);
 }
 
 // The row sweep's split of the block over (row, candidate segment) pairs:

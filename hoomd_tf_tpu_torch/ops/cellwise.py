@@ -25,6 +25,7 @@ for a float64 state) from a ``[3, 3]`` box tensor on the device
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -922,6 +923,27 @@ def half_stencil_slab_plain(positions, types, valid, plan, lo, pair_fn, z0,
         home slots finished, then the reverse-halo partial of the halo
         layer's slots (also multiplied by their ``valid``).
     """
+    bp = _slab_plan(plan, nzl)
+    planes = _slab_planes(positions, types, valid, plan, lo, pair_fn, z0,
+                          nzl, needs_virial, min_r2, with_types, rcut_matrix,
+                          needs_energy, geometry)
+    # the halo layer has no home cells: zero planes, so the inverse rolls
+    # push nothing from it (nor, wrapping, into layer 0)
+    planes = torch.cat([planes, planes.new_zeros(
+        (planes.shape[0], bp.n_cells - planes.shape[1], planes.shape[2]))],
+        dim=1)
+    return finish_forces(assemble_half(planes, bp), valid, needs_energy,
+                         needs_virial)
+
+
+def _slab_planes(positions, types, valid, plan, lo, pair_fn, z0, nzl,
+                 needs_virial, min_r2, with_types, rcut_matrix, needs_energy,
+                 geometry):
+    """The weighted half-stencil planes ``[n_ch, nzl nx ny, 14 cap]`` of a
+    z-slab buffer's home cells (:func:`half_stencil_slab_plain`'s
+    arguments): block 0 the row sums times the row-side coefficients,
+    blocks 1..13 the candidate sums times the candidate-side ones, before
+    :func:`assemble_half` pushes them home."""
     nx, ny, _ = plan.grid
     cap = plan.capacity
     n_home = nzl * nx * ny
@@ -940,16 +962,131 @@ def half_stencil_slab_plain(positions, types, valid, plan, lo, pair_fn, z0,
         pair_fn, cap, plan.r_cut ** 2, min_r2, 0, needs_energy,
         needs_virial, rc2_tab=rcut_matrix, typed_fn=with_types)
     coefs = _channel_coefs(needs_energy, needs_virial)
-    nch = len(coefs)
     out = torch.stack([rows[k] * c[0] for k, c in enumerate(coefs)])
     cols = torch.stack([cols[k] * c[1] for k, c in enumerate(coefs)])
-    planes = torch.cat([out, cols[:, :, cap:]], dim=2)
-    # the halo layer has no home cells: zero planes, so the inverse rolls
-    # push nothing from it (nor, wrapping, into layer 0)
-    planes = torch.cat([planes, planes.new_zeros(
-        (nch, bp.n_cells - n_home, planes.shape[2]))], dim=1)
-    return finish_forces(assemble_half(planes, bp), valid, needs_energy,
-                         needs_virial)
+    return torch.cat([out, cols[:, :, cap:]], dim=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabGroup:
+    """The z-slab shards of a mesh that one ``device`` holds, in ring
+    order: ``members`` their shard indices, ``slabs`` their ``(z0, nzl)``, and
+    per member the index in the group of the shard before (``prev``) and
+    after (``next``) it on the ring, ``-1`` when that shard lies on
+    another device. K1's group launch reads a member's forward halo layer
+    in place from its next member's first home layer and adds the back
+    sums across the boundary from its previous member's raw sums
+    (:func:`half_stencil_group_plain`); between devices the halo is
+    exchanged as copies and adds (:func:`resident_pair_forces`)."""
+    device: torch.device
+    members: tuple
+    slabs: tuple
+    prev: tuple
+    next: tuple
+
+
+def slab_groups(slabs, whole=True):
+    """``(SlabGroup, ...)``: the shards of ``slabs`` (:func:`mesh_slabs`'
+    ``(device, z0, nzl)`` in shard order) partitioned by device, each in
+    ring order, the groups in the order their devices first appear; with
+    ``whole=False`` one group per shard, none linked (the per-shard
+    exchange of the tensor forms). Made once per mesh and plan."""
+    return _slab_groups(tuple((str(d), z0, nzl) for d, z0, nzl in slabs),
+                        whole)
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_groups(slabs, whole):
+    S = len(slabs)
+    by_dev = {}
+    for s, (dev, _, _) in enumerate(slabs):
+        by_dev.setdefault(dev if whole else s, []).append(s)
+    groups = []
+    for members in by_dev.values():
+        at = {s: k for k, s in enumerate(members)}
+        groups.append(SlabGroup(
+            torch.device(slabs[members[0]][0]), tuple(members),
+            tuple((slabs[s][1], slabs[s][2]) for s in members),
+            tuple(at.get((s - 1) % S, -1) for s in members),
+            tuple(at.get((s + 1) % S, -1) for s in members)))
+    return tuple(groups)
+
+
+def group_rows(t, group, k, layer):
+    """Member ``k``'s buffer of ``t`` (the members' buffers in group order)
+    as K1's group launch reads it: its own rows, the forward halo layer
+    taken from the next member's first home layer when that is in the
+    group."""
+    n = group.next[k]
+    if n < 0:
+        return t[k]
+    return torch.cat([t[k][:-layer], t[n][:layer]])
+
+
+def assemble_group(planes, valid, plan, group, needs_energy, needs_virial):
+    """The group home pass in tensor ops: each member's weighted planes
+    (:func:`_slab_planes`) pushed home in the order ``t = 1..13`` of
+    :func:`assemble_half`, a first home layer taking the back sums pushed
+    across the boundary from the previous member's last home layer when
+    that is in the group, then finished with the member's ``valid``. A
+    member's halo rows are zero when its next member is in the group, else
+    they hold the reverse-halo partial (slab mode's).
+
+    :returns: ``(forces4, virial or None)``: lists over the members'
+        buffer rows."""
+    nx, ny, _ = plan.grid
+    cells = nx * ny
+    layer = cells * plan.capacity
+    fs, ws = [], []
+    for k, ((z0, nzl), p) in enumerate(zip(group.slabs, planes)):
+        prev = group.prev[k]
+        below = (planes[prev][:, (nzl - 1) * cells:] if prev >= 0 else
+                 p.new_zeros((p.shape[0], cells, p.shape[2])))
+        # layers: the one below, the home layers, the halo layer (no home
+        # cells: zero planes); the z roll of the top into the bottom layer
+        # lands on the layer below, which is dropped
+        ext = torch.cat([below, p, p.new_zeros((p.shape[0], cells,
+                                                p.shape[2]))], dim=1)
+        acc = assemble_half(ext, _slab_plan(plan, nzl + 1))[:, cells *
+                                                            plan.capacity:]
+        if group.next[k] >= 0:
+            acc = torch.cat([acc[:, :-layer], acc.new_zeros(
+                (acc.shape[0], layer))], dim=1)
+        f, w = finish_forces(acc, valid[k], needs_energy, needs_virial)
+        fs.append(f)
+        ws.append(w)
+    return fs, (ws if needs_virial else None)
+
+
+def half_stencil_group_plain(positions, types, valid, plan, lo, pair_fn,
+                             group, needs_virial=False, min_r2=1e-4,
+                             with_types=False, rcut_matrix=None,
+                             needs_energy=True, geometry=None):
+    """Plain PyTorch version of K1's group launch over the members of
+    ``group`` (a :class:`SlabGroup`) on one device: each member's
+    weighted half-stencil planes on its buffer, the forward halo read in
+    place from the next member's first home layer when that is in the
+    group (:func:`group_rows`), then :func:`assemble_group`: the back sums
+    across a boundary inside the group added in the whole state's order
+    ``t = 1..13``, so no reverse halo and no halo copy within the group.
+
+    :param positions, types, valid: the members' buffers in group order
+        (``(nzl + 1) nx ny cap`` rows each, :func:`slab_rows`).
+    :param geometry: the global plan's :class:`SlotGeometry` on their
+        device.
+    :returns: ``(forces4, virial or None)``: lists over the members'
+        buffer rows, as :func:`assemble_group`.
+    """
+    layer = halo_layer(plan)
+    planes = []
+    for k, (z0, nzl) in enumerate(group.slabs):
+        buf = [group_rows(t, group, k, layer)
+               for t in (positions, types, valid)]
+        planes.append(_slab_planes(*buf, plan, lo, pair_fn, z0, nzl,
+                                   needs_virial, min_r2, with_types,
+                                   rcut_matrix, needs_energy, geometry))
+    return assemble_group(planes, valid, plan, group, needs_energy,
+                          needs_virial)
 
 
 def _sharded_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
@@ -1033,17 +1170,25 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
                          stencil="auto", needs_energy=True, form=None,
                          lanes=None, shard_fn=None):
     """:func:`analytic_pair_forces` on a slot state resident per z-slab
-    shard of ``mesh`` (:class:`..md.slots.SlabSlots`): K1's slab mode reads
-    each shard's buffer in place on its device, and nothing of the whole
-    state is made.
+    shard of ``mesh`` (:class:`..md.slots.SlabSlots`): the shards are
+    partitioned by device (:func:`slab_groups`), and each device makes one
+    grouped call of K1 over its shards' buffers in place
+    (:func:`.cellwise_cuda.half_stencil_group_forces`, or the generic
+    form's :func:`.cellwise_cuda.generic_group_pair_forces`, whose pair
+    function runs once on the group's joined list; their plain versions
+    on the CPU). Nothing of the whole state is made.
 
-    The halo exchange, written out: before the calls, one copy per shard
-    writes the next shard's first home layer of positions into its halo
-    layer (the types' and ``valid``'s halo rows change at a repack only,
-    which writes them); after the calls, each shard's halo-layer output
-    (the reverse halo, :func:`half_stencil_slab_plain`) is added into the
-    next shard's first home layer on that shard's device, and the halo
-    rows are zeroed. The last shard's next is shard 0.
+    Within a group nothing is copied: a shard's forward halo is read in
+    place from the next shard's first home layer, and the back sums across
+    the boundary are added in the whole state's order. Between devices the
+    halo is exchanged as copies: before the calls, a shard whose next
+    shard lies on another device gets that shard's first home layer of
+    positions in its halo layer (the types' and ``valid``'s halo rows
+    change at a repack only, which writes them); after them, its halo-layer
+    output (the reverse halo) is added into that shard's first home layer
+    on its device, and its halo rows are zeroed. The last shard's next is
+    shard 0. The ``'half'`` and ``'full'`` stencils run K1's slab plain
+    version per shard, every shard exchanging so.
 
     :param positions, types, valid: each shard's buffer, in shard order:
         ``(nzl + 1) nx ny cap`` rows on its device, its home layers then
@@ -1051,7 +1196,9 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
     :param geometries: each shard's :class:`SlotGeometry` of the global
         plan on its device.
     :param rcut_matrix: a :func:`rc2_table` tensor, or ``None``.
-    :param lanes, shard_fn: as :func:`analytic_pair_forces`'.
+    :param lanes: as :func:`analytic_pair_forces`' (each shard's share of
+        the generic form's list; a group's list holds its shards' shares).
+    :param shard_fn: as :func:`analytic_pair_forces`'.
     :returns: ``(forces4, virial or None)``: lists of each shard's buffer
         rows, the halo rows zero.
     """
@@ -1063,25 +1210,68 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
         raise ValueError(f"unknown stencil {stencil!r}")
     primary = positions[0].device
     layer = halo_layer(plan)
-    for s in range(S):
+    groups = slab_groups(slabs, whole=stencil not in ("half", "full"))
+    sends = [s for g in groups for s, n in zip(g.members, g.next) if n < 0]
+    for s in sends:
         put_rows(positions[s][-layer:], positions[(s + 1) % S][:layer])
-    outs = [_slab_forces(
-        (positions[s], types[s], valid[s]), plan, lo,
-        pair_fn if shard_fn is None else shard_fn(dev), (z0, nzl),
-        needs_virial, min_r2, with_types, rcut_matrix, stencil,
-        needs_energy, form, geometries[s], lanes, primary)
-        for s, (dev, z0, nzl) in enumerate(slabs)]
-    fs = [f for f, _ in outs]
-    ws = [w for _, w in outs] if needs_virial else None
-    for t in (fs, ws):
+    fs, ws = [None] * S, [None] * S
+    for g in groups:
+        m = g.members
+        fn = pair_fn if shard_fn is None else shard_fn(g.device)
+        f, w = _group_forces(
+            [[t[s] for s in m] for t in (positions, types, valid)], plan, lo,
+            fn, g, needs_virial, min_r2, with_types, rcut_matrix, stencil,
+            needs_energy, form, geometries[m[0]], lanes, primary)
+        for k, s in enumerate(m):
+            fs[s] = f[k]
+            ws[s] = None if w is None else w[k]
+    for t in (fs, ws if needs_virial else None):
         if t is None:
             continue
-        for s in range(S):
+        for s in sends:
             nxt = t[(s + 1) % S]
             nxt[:layer] += to_device(t[s][-layer:], nxt.device)
-        for x in t:
-            x[-layer:] = 0
-    return fs, ws
+        for s in sends:
+            t[s][-layer:] = 0
+    return fs, (ws if needs_virial else None)
+
+
+def _group_forces(bufs, plan, lo, fn, group, needs_virial, min_r2,
+                  with_types, rcut_matrix, stencil, needs_energy, form, g,
+                  lanes, primary):
+    """One group's call (:func:`resident_pair_forces`) on its members'
+    buffers ``bufs = (positions, types, valid)`` (lists in group order) on
+    its device, ``g`` the global plan's geometry there: K1's group launch
+    in a pair form, or in the generic form with ``lanes.budget`` lanes a
+    member (its need recorded in ``lanes`` on ``primary``); for a
+    ``'half'`` / ``'full'`` stencil K1's slab plain version on the one
+    member of each group, and for a CPU group without a form and no
+    ``'kernel'`` stencil the group's plain tensor form."""
+    from . import cellwise_cuda as cc
+    p, ty, v = bufs
+    dev = group.device
+    rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)
+    if stencil in ("half", "full"):
+        f, w = _slab_forces((p[0], ty[0], v[0]), plan, lo, fn,
+                            group.slabs[0], needs_virial, min_r2, with_types,
+                            rc, stencil, needs_energy, form, g, lanes,
+                            primary)
+        return [f], [w]
+    if form is not None:
+        return cc.half_stencil_group_forces(
+            p, ty, v, plan, lo, cc.form_on(form, dev), group, needs_virial,
+            min_r2, rc, needs_energy, g)
+    if dev.type != "cuda" and stencil == "auto":
+        return half_stencil_group_plain(p, ty, v, plan, lo, fn, group,
+                                        needs_virial, min_r2, with_types, rc,
+                                        needs_energy, g)
+    own = None if lanes is None else cc.LaneBudget(lanes.budget, dev)
+    out = cc.generic_group_pair_forces(
+        p, ty, v, plan, lo, fn, group, with_types, needs_virial, min_r2, rc,
+        needs_energy, g, own)
+    if lanes is not None:
+        lanes.record(to_device(own.needed, primary))
+    return out
 
 
 def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,

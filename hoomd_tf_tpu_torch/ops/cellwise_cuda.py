@@ -57,12 +57,15 @@ import torch
 
 from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
                        _roll_offs, _slab_plan, analytic_pair_forces,
-                       assemble_half, finish_forces, half_frame,
-                       half_stencil_slab_plain, pair_rc2)
+                       assemble_group, assemble_half, finish_forces,
+                       group_rows, half_frame, half_stencil_group_plain,
+                       half_stencil_slab_plain, halo_layer, pair_rc2)
 from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
-           "half_stencil_pair_forces", "LaneBudget", "lane_budget",
+           "half_stencil_pair_forces", "half_stencil_group_forces",
+           "generic_group_plain", "generic_group_pair_forces",
+           "LaneBudget", "lane_budget",
            "same_cell_share", "generic_list_plain", "generic_plain",
            "generic_pair_forces", "GenericList", "generic_list",
            "generic_reduce", "generic_reduce_plain", "GenericReduce",
@@ -424,9 +427,152 @@ half_stencil_pair_forces.slab_launches = 0
 half_stencil_pair_forces.proxy_launches = 0
 half_stencil_pair_forces.f64_launches = 0
 half_stencil_pair_forces.device_table_launches = 0
+#: calls of the group launch (half_stencil_group_forces; also counted in
+#: .launches and, by form and dtype, in the counters above)
+half_stencil_pair_forces.group_launches = 0
+
+
+def _ptrs(ts):
+    """A ctypes array of the tensors' data pointers (null for ``None``)."""
+    return (ctypes.c_void_p * len(ts))(
+        *(None if t is None else t.data_ptr() for t in ts))
+
+
+@functools.lru_cache(maxsize=None)
+def group_args(plan, group):
+    """The group launch's integers of ``group`` (a
+    :class:`.cellwise.SlabGroup` of ``plan``), made once per plan and
+    group: ``(HalfGeom of its nzl, z0, prev, next)``, the last three
+    ctypes int arrays. The buffers' pointers change from call to call and
+    are passed beside them; nothing goes to the device."""
+    nzl = group.slabs[0][1]
+    if any(n != nzl for _, n in group.slabs):
+        raise ValueError(f"a group of unequal slabs {group.slabs}")
+    if len(group.slabs) > _MAX_GROUP:
+        raise ValueError(f"a group of {len(group.slabs)} shards, above "
+                         f"{_MAX_GROUP}")
+    slab_shape(plan, group.slabs[0])
+    arr = ctypes.c_int * len(group.slabs)
+    return (half_geom(plan, (0, nzl)), arr(*(z0 for z0, _ in group.slabs)),
+            arr(*group.prev), arr(*group.next))
+
+
+def _group_inputs(positions, types, valid, plan, group, geometry, typed):
+    """Check a group call's buffers (one device, each a slab buffer's rows)
+    and return ``(n home cells a member, rows a member, dtype, f64, the
+    pointer arrays of positions, types (or None), valid, the box)``."""
+    n_cells, n = slab_shape(plan, group.slabs[0])
+    G = len(group.slabs)
+    if not (len(positions) == len(types) == len(valid) == G):
+        raise ValueError(f"a group of {G} shards takes {G} buffers each")
+    dev = positions[0].device
+    dtype, f64 = kernel_dtype(positions[0])
+    _check(geometry.box, (3, 3), dtype, dev, "geometry.box")
+    for p, ty, v in zip(positions, types, valid):
+        # one test of the common case; the full checks name what is wrong
+        ok = (p.device == dev and v.device == dev and p.dtype == dtype and
+              v.dtype == dtype and p.shape == (n, 3) and v.shape == (n,) and
+              p.is_contiguous() and v.is_contiguous())
+        if typed:
+            ok = (ok and ty.device == dev and ty.dtype == torch.int32 and
+                  ty.shape == (n,) and ty.is_contiguous())
+        if not ok:
+            if p.device != dev:
+                raise ValueError(
+                    f"a group's buffers lie on {p.device} and {dev}")
+            cuda_slot_args(p, ty, v, plan, geometry, typed, n)
+    return (n_cells, n, dtype, f64, _ptrs(positions),
+            _ptrs(types) if typed else None, _ptrs(valid),
+            _ptr(geometry.box))
+
+
+def half_stencil_group_forces(positions, types, valid, plan, lo, form, group,
+                              needs_virial=False, min_r2=1e-4, rc2_tab=None,
+                              needs_energy=True, geometry=None):
+    """Kernel K1 in one launch over every home cell of the z-slab shards
+    of ``group`` (a :class:`.cellwise.SlabGroup`), whose buffers lie on
+    one device: a member's forward halo layer is read in place from the
+    next member's first home layer when that is in the group, and the
+    back sums across such a boundary are added in the whole state's order
+    ``t = 1..13`` (``csrc/half_stencil_home.cuh``), so a group of every
+    shard gives the unsharded K1's forces bit for bit. On CUDA tensors it
+    launches the kernels (counted in ``half_stencil_pair_forces.launches``
+    and ``.group_launches``, by form and dtype as that wrapper counts);
+    CPU tensors take :func:`.cellwise.half_stencil_group_plain`.
+
+    :param positions, types, valid: lists of the members' buffers in group
+        order (:func:`half_stencil_pair_forces`' slab mode's rows each).
+    :param geometry: the global plan's geometry on their device.
+    :returns: ``(forces4, virial or None)``: lists over the members'
+        buffer rows (views of one joined tensor each); a halo row is zero
+        when the next member is in the group, else it holds the reverse
+        halo the caller adds to the next shard.
+    """
+    if not positions[0].is_cuda:
+        n = slab_shape(plan, group.slabs[0])[1]
+        for p, ty, v in zip(positions, types, valid):
+            check_slot_inputs(p, ty, v, plan, n)
+        return half_stencil_group_plain(
+            positions, types, valid, plan, lo, form.evaluate, group,
+            needs_virial, min_r2, form.ntypes > 1, rc2_tab, needs_energy,
+            geometry)
+    geometry = _as_geometry(plan, lo, positions[0], geometry)
+    dev = positions[0].device
+    typed = form.ntypes > 1 or rc2_tab is not None
+    n_cells, n, dtype, f64, *state = _group_inputs(
+        positions, types, valid, plan, group, geometry, typed)
+    geom, z0, prev, nxt = group_args(plan, group)
+    G = len(group.slabs)
+    tab = form.tensor(dev, dtype)
+    rc_t = 0
+    if rc2_tab is not None:
+        rc_t = rc2_tab.shape[0]
+        _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    lib = _library()
+    cheb = isinstance(form, ChebForm)
+    smem = lib.htf_half_stencil_smem(f64, plan.capacity, n_ch,
+                                     form.smem_floats)
+    dtab = None
+    if smem > _MAX_SMEM and cheb:
+        dtab = torch.empty((form.smem_floats,), dtype=dtype, device=dev)
+        smem = lib.htf_half_stencil_smem(f64, plan.capacity, n_ch, 0)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    sums = torch.empty((n_ch, len(_HALF_OFFS),
+                        G * n_cells * plan.capacity), dtype=dtype, device=dev)
+    forces4 = torch.empty((G, n, 4), dtype=dtype, device=dev)
+    virial = (torch.empty((G, n, 3, 3), dtype=dtype, device=dev)
+              if needs_virial else None)
+    head = (f64, G, *state[:3], z0, prev, nxt, state[3], ctypes.byref(geom))
+    rest = (_ptr(rc2_tab), rc_t, float(plan.r_cut ** 2), float(min_r2),
+            int(needs_energy), int(needs_virial), _ptr(sums), _ptr(forces4),
+            _ptr(virial),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if cheb:
+        err = lib.htf_half_stencil_group_cheb(
+            *head, _ptr(tab), form.ntypes, form.K, form.mid, form.inv_half,
+            form.u_hi, _ptr(dtab), *rest)
+    else:
+        err = lib.htf_half_stencil_group(*head, _ptr(tab), form.ntypes,
+                                         int(form.strict), *rest)
+    if err != 0:
+        raise RuntimeError("half-stencil group launch failed: " +
+                           lib.htf_error_string(err).decode())
+    k1 = half_stencil_pair_forces
+    k1.launches += 1
+    k1.group_launches += 1
+    k1.proxy_launches += cheb
+    k1.f64_launches += f64
+    k1.device_table_launches += dtab is not None
+    return forces4.unbind(0), (None if virial is None else virial.unbind(0))
+
 
 # dynamic shared memory one H100 block may use (227 KB)
 _MAX_SMEM = 232448
+# shards a group launch takes (csrc/half_stencil_stage.cuh: kMaxGroup)
+_MAX_GROUP = 16
 
 _LIB = None
 
@@ -447,6 +593,14 @@ def _library():
             state + [ctypes.c_void_p] + [ctypes.c_int] * 2 +
             [ctypes.c_double] * 3 + [ctypes.c_void_p] + rest)
         lib.htf_half_stencil_cheb.restype = ctypes.c_int
+        group = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+        lib.htf_half_stencil_group.argtypes = (
+            group + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + rest)
+        lib.htf_half_stencil_group.restype = ctypes.c_int
+        lib.htf_half_stencil_group_cheb.argtypes = (
+            group + [ctypes.c_void_p] + [ctypes.c_int] * 2 +
+            [ctypes.c_double] * 3 + [ctypes.c_void_p] + rest)
+        lib.htf_half_stencil_group_cheb.restype = ctypes.c_int
         lib.htf_half_stencil_smem.argtypes = [ctypes.c_int] * 4
         lib.htf_half_stencil_smem.restype = ctypes.c_long
         lib.htf_error_string.argtypes = [ctypes.c_int]
@@ -717,11 +871,26 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
         with ``slab`` (the halo layer's: the reverse-halo partial, as
         :func:`.cellwise.half_stencil_slab_plain` gives it).
     """
-    cap = plan.capacity
     n_cells = slab_shape(plan, slab)[0]
     rp = plan if slab is None else _slab_plan(plan, slab[1])
+    planes = _list_planes(lst, U, S, n_cells, plan.capacity, needs_energy,
+                          needs_virial, valid.dtype)
+    # a slab's halo layer has no home cells: it pushes nothing
+    planes = torch.cat([planes, planes.new_zeros(
+        (planes.shape[0], rp.n_cells - n_cells, planes.shape[2]))], dim=1)
+    out = assemble_half(planes, rp)
+    return finish_forces(out, valid, needs_energy, needs_virial)
+
+
+def _list_planes(lst, U, S, n_cells, cap, needs_energy, needs_virial,
+                 dtype):
+    """The weighted half-stencil planes ``[n_ch, n_cells, 14 cap]`` of a
+    plain list's lanes (its first ``len(lst["r2"])`` values of ``U`` and
+    ``S``): block 0 each lane's channel products added to its row times
+    the row-side coefficients, blocks 1..13 added to its candidate times
+    the candidate-side ones (``index_add``: differentiable in ``U`` and
+    ``S``)."""
     C = len(_HALF_OFFS) * cap
-    dtype = valid.dtype
     n = lst["r2"].shape[0]
     U, S = U[:n].to(dtype), S[:n].to(dtype)
     dx, dy, dz = lst["dx"], lst["dy"], lst["dz"]
@@ -733,8 +902,8 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
     prods = torch.stack(prods)
     coefs = _channel_coefs(needs_energy, needs_virial)
     nch = len(coefs)
-    dev = valid.device
-    rows = torch.zeros((nch, rp.n_slots), dtype=dtype, device=dev)
+    dev = dx.device
+    rows = torch.zeros((nch, n_cells * cap), dtype=dtype, device=dev)
     rows = rows.index_add(1, lst["cell"] * cap + lst["row"], prods)
     back = lst["col"] >= cap
     cols = torch.zeros((nch, n_cells * C), dtype=dtype, device=dev)
@@ -744,13 +913,67 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
                        device=dev)[:, None]
     bwd = torch.tensor([c[1] for c in coefs], dtype=dtype,
                        device=dev)[:, None]
-    out = (rows * fwd).reshape(nch, rp.n_cells, cap)
+    out = (rows * fwd).reshape(nch, n_cells, cap)
     cols = (cols * bwd).reshape(nch, n_cells, C)[:, :, cap:]
-    # a slab's halo layer has no home cells: it pushes nothing
-    cols = torch.cat([cols, cols.new_zeros(
-        (nch, rp.n_cells - n_cells, cols.shape[2]))], dim=1)
-    out = assemble_half(torch.cat([out, cols], dim=2), rp)
-    return finish_forces(out, valid, needs_energy, needs_virial)
+    return torch.cat([out, cols], dim=2)
+
+
+def generic_group_plain(positions, types, valid, plan, lo, pair_fn, group,
+                        typed_fn=True, needs_virial=False, min_r2=1e-4,
+                        rc2_tab=None, needs_energy=True, geometry=None,
+                        lanes=None):
+    """Plain PyTorch version of K1's generic form over a group of z-slab
+    shards on one device (:func:`generic_group_pair_forces`): each
+    member's lanes (:func:`generic_list_plain` with its ``slab``, the
+    forward halo read in place from the next member when that is in the
+    group, :func:`.cellwise.group_rows`) joined member after member, the
+    pair function called once on the joined list, each member's weighted
+    planes from its share of the lanes, then
+    :func:`.cellwise.assemble_group`. ``lanes`` (one member's share)
+    records ``ceil(need / members)``; cells past the group's list of
+    ``members * lanes.budget`` lanes (in joined order) add nothing.
+
+    :returns: ``(forces4, virial or None, joined)``: lists over the
+        members' buffer rows, and the joined list (a dict of per-lane
+        tensors with ``member``, each member's ``cell`` counted from its
+        slab's first home cell).
+    """
+    G = len(group.slabs)
+    layer = halo_layer(plan)
+    typed = typed_fn or rc2_tab is not None
+    lsts = []
+    for k, slab in enumerate(group.slabs):
+        buf = [group_rows(t, group, k, layer)
+               for t in (positions, types, valid)]
+        lst = generic_list_plain(*buf, plan, lo, min_r2, rc2_tab, geometry,
+                                 None, typed, slab)
+        lst["member"] = torch.full_like(lst["cell"], k)
+        lsts.append(lst)
+    joined = {key: torch.cat([x[key] for x in lsts]) for key in lsts[0]
+              if key != "needed"}
+    need = int(joined["r2"].shape[0])
+    if lanes is not None:
+        budget = G * lanes.budget
+        if need > budget:
+            n_cells = slab_shape(plan, group.slabs[0])[0]
+            cell = joined["member"] * n_cells + joined["cell"]
+            counts = torch.bincount(cell, minlength=G * n_cells)
+            keep = (torch.cumsum(counts, 0) <= budget)[cell]
+            joined = {key: v[keep] for key, v in joined.items()}
+        lanes.record(torch.tensor(-(-need // G), device=valid[0].device))
+    U, S = _eval_pair_fn(pair_fn, typed_fn, joined["r2"], joined["ti"],
+                         joined["tj"])
+    n_cells = slab_shape(plan, group.slabs[0])[0]
+    planes = []
+    for k in range(G):
+        mine = joined["member"] == k
+        lst = {key: v[mine] for key, v in joined.items()}
+        planes.append(_list_planes(lst, U[mine], S[mine], n_cells,
+                                   plan.capacity, needs_energy, needs_virial,
+                                   valid[k].dtype))
+    f, w = assemble_group(planes, valid, plan, group, needs_energy,
+                          needs_virial)
+    return f, w, joined
 
 
 class GenericList:
@@ -764,12 +987,18 @@ class GenericList:
 
     def __init__(self, plan, valid, typed_fn, r2, ti, tj, lst=None, *,
                  lanes=None, counter=None, rec=None, cell_base=None,
-                 sums=None, stream=None, generation=None, slab=None):
+                 sums=None, stream=None, generation=None, slab=None,
+                 group=None, tables=None):
         self.plan, self.valid, self.typed_fn = plan, valid, typed_fn
         self.r2, self.ti, self.tj = r2, ti, tj
         self.lst = lst
-        #: the z-slab ``(z0, nzl)`` of a slab-mode list
-        self.slab = slab
+        #: the z-slab ``(z0, nzl)`` of a slab-mode list, or the
+        #: :class:`.cellwise.SlabGroup` of a group's joined list (``valid``
+        #: then the members' buffers)
+        self.slab, self.group = slab, group
+        #: a group list's pointer arrays and links (the reduction's
+        #: GroupTab: the buffers, z0, prev, next)
+        self.tables = tables
         # CUDA only: the LaneBudget, the device's lane counter and records,
         # the cells' bases, the reduction's [n_ch][14][n_slots] scratch, the
         # stream and the generation of the shared buffers at the launch
@@ -778,8 +1007,13 @@ class GenericList:
         self.generation = generation
         if lst is None:
             self.budget, self.sums_ch = r2.shape[0], sums.shape[0]
-            self.geom = ctypes.byref(half_geom(plan, slab))
-            self.n_cells, self.rows = slab_shape(plan, slab)
+            if group is None:
+                self.geom = ctypes.byref(half_geom(plan, slab))
+                self.n_cells, self.rows = slab_shape(plan, slab)
+            else:
+                self.geom = ctypes.byref(group_args(plan, group)[0])
+                n_cells, self.rows = slab_shape(plan, group.slabs[0])
+                self.n_cells = len(group.slabs) * n_cells
         #: the lanes the call needed, a device int32 (CUDA: set by the
         #: reduction)
         self.needed = None
@@ -879,6 +1113,8 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
     if gl.lst is not None:
         return generic_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
                                     needs_energy, needs_virial, gl.slab)
+    if gl.group is not None:
+        return _group_reduce(gl, U, S, needs_energy, needs_virial)
     plan, dev = gl.plan, gl.r2.device
     dtype, f64 = kernel_dtype(gl.r2)
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
@@ -909,6 +1145,132 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
     generic_pair_forces.slab_launches += gl.slab is not None
     gl.lanes.record(gl.needed)
     return forces4, virial
+
+
+def generic_group_list(positions, types, valid, plan, lo, group,
+                       typed_fn=True, min_r2=1e-4, rc2_tab=None,
+                       geometry=None, lanes=None, needs_energy=True,
+                       needs_virial=False):
+    """The generic form's list kernel over the home cells of every member
+    of ``group`` (a :class:`.cellwise.SlabGroup`; the members' buffers on
+    one card, :func:`half_stencil_group_forces`' arguments): one launch
+    writes every member's lanes into one joined list, each cell's segment
+    placed by the one lane counter, of ``members * lanes.budget`` lanes
+    (``lanes``: one member's share). Returns a :class:`GenericList` for
+    :func:`generic_reduce`. The group's list and records are kept per
+    device and group, a generation apart per launch."""
+    geometry = _as_geometry(plan, lo, positions[0], geometry)
+    typed = typed_fn or rc2_tab is not None
+    n_cells, _, dtype, f64, *state = _group_inputs(
+        positions, types, valid, plan, group, geometry, typed)
+    dev = positions[0].device
+    G = len(group.slabs)
+    if lanes is None:
+        lanes = _default_lanes(plan, valid[0], group.slabs[0])
+    rc_t = 0
+    if rc2_tab is not None:
+        rc_t = rc2_tab.shape[0]
+        _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
+    lib = _generic_library()
+    smem = max(lib.htf_generic_smem(f64, plan.capacity),
+               lib.htf_generic_reduce_smem(f64, plan.capacity))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
+                         f"shared memory per block, above {_MAX_SMEM}")
+    geom, z0, prev, nxt = group_args(plan, group)
+    budget = G * lanes.budget
+    key = ("group", group.slabs)
+    counter, lst, rec = _generic_buffers(
+        dev, dtype, budget, plan.r_cut ** 2,
+        G * n_cells * lib.htf_generic_record_words(f64, plan.capacity), key)
+    _GENERATION[(str(dev), key)] = generation = \
+        _GENERATION.get((str(dev), key), 0) + 1
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    gl = GenericList(
+        plan, valid, typed_fn, lst[0], lst[1], lst[2], lanes=lanes,
+        counter=counter, rec=rec,
+        cell_base=torch.empty(G * n_cells, dtype=torch.int32, device=dev),
+        sums=torch.empty((n_ch, len(_HALF_OFFS),
+                          G * n_cells * plan.capacity), dtype=dtype,
+                         device=dev),
+        stream=ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        generation=generation, group=group,
+        tables=(state[:3], z0, prev, nxt))
+    err = lib.htf_generic_group_list(
+        f64, G, *state[:3], z0, prev, nxt, state[3], gl.geom, _ptr(rc2_tab),
+        rc_t, float(plan.r_cut ** 2), float(min_r2), budget, _ptr(counter),
+        _ptr(gl.cell_base), _ptr(gl.r2), _ptr(gl.ti), _ptr(gl.tj),
+        _ptr(rec), _ptr(gl.sums), gl.sums_ch, gl.stream)
+    if err != 0:
+        counter.zero_()
+        raise RuntimeError("generic group list launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    return gl
+
+
+def _group_reduce(gl, U, S, needs_energy, needs_virial):
+    """:func:`generic_reduce` of a group's joined list: the reduction over
+    the group's home cells and the group home pass; ``(forces4, virial or
+    None)`` as lists over the members' buffer rows. Records
+    ``ceil(need / members)`` in ``gl.lanes``."""
+    dev = gl.r2.device
+    dtype, f64 = kernel_dtype(gl.r2)
+    n_ch = len(_channel_coefs(needs_energy, needs_virial))
+    if n_ch > gl.sums_ch:
+        raise ValueError(f"a reduction of {n_ch} channels on a list made "
+                         f"for {gl.sums_ch}")
+    G = len(gl.group.slabs)
+    U, S = U.contiguous(), S.contiguous()
+    _check(U, (gl.budget,), dtype, dev, "U")
+    _check(S, (gl.budget,), dtype, dev, "S")
+    forces4 = torch.empty((G, gl.rows, 4), dtype=dtype, device=dev)
+    virial = (torch.empty((G, gl.rows, 3, 3), dtype=dtype, device=dev)
+              if needs_virial else None)
+    gl.needed = torch.empty((), dtype=torch.int32, device=dev)
+    (pos, types, valid), z0, prev, nxt = gl.tables
+    lib = _generic_library()
+    err = lib.htf_generic_group_reduce(
+        f64, G, pos, types, valid, z0, prev, nxt, gl.geom, _ptr(gl.rec),
+        _ptr(gl.cell_base), _ptr(U), _ptr(S), int(needs_energy),
+        int(needs_virial), _ptr(gl.sums), _ptr(forces4), _ptr(virial),
+        _ptr(gl.counter), _ptr(gl.needed), gl.stream)
+    if err != 0:
+        gl.counter.zero_()
+        raise RuntimeError("generic group reduction launch failed: " +
+                           lib.htf_generic_error_string(err).decode())
+    gen = generic_pair_forces
+    gen.launches += 1
+    gen.group_launches += 1
+    gen.f64_launches += f64
+    gl.lanes.record(torch.div(gl.needed + (G - 1), G,
+                              rounding_mode="floor"))
+    return forces4.unbind(0), (None if virial is None else virial.unbind(0))
+
+
+def generic_group_pair_forces(positions, types, valid, plan, lo, pair_fn,
+                              group, typed_fn=True, needs_virial=False,
+                              min_r2=1e-4, rc2_tab=None, needs_energy=True,
+                              geometry=None, lanes=None):
+    """K1's generic form over a group of z-slab shards on one device
+    (:func:`half_stencil_group_forces`' contract): the list kernel over
+    every member's home cells into one joined list
+    (:func:`generic_group_list`), the pair function called once on it,
+    then one reduction and the group home pass, counted in
+    ``generic_pair_forces.launches`` and ``.group_launches``. CPU tensors
+    take :func:`generic_group_plain`. ``lanes`` is one member's share of
+    the list (the group's holds ``members * lanes.budget`` lanes) and
+    records ``ceil(need / members)``, so it overflows exactly when the
+    joined list does. Returns lists over the members' buffer rows."""
+    if not positions[0].is_cuda:
+        f, w, _ = generic_group_plain(
+            positions, types, valid, plan, lo, pair_fn, group, typed_fn,
+            needs_virial, min_r2, rc2_tab, needs_energy, geometry, lanes)
+        return f, w
+    gl = generic_group_list(positions, types, valid, plan, lo, group,
+                            typed_fn, min_r2, rc2_tab, geometry, lanes,
+                            needs_energy, needs_virial)
+    U, S = gl.evaluate(pair_fn)
+    return generic_reduce(gl, U, S, needs_energy, needs_virial)
 
 
 def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
@@ -960,6 +1322,8 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
 generic_pair_forces.launches = 0
 generic_pair_forces.f64_launches = 0
 generic_pair_forces.slab_launches = 0
+#: those over a group of z-slab shards (generic_group_pair_forces)
+generic_pair_forces.group_launches = 0
 
 
 def _shifted_cells(cell, t, plan):
@@ -1027,6 +1391,9 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
     rewritten those records. On a CPU list it takes
     :func:`generic_reduce_bwd_plain`."""
     plan = gl.plan
+    if gl.group is not None:
+        raise ValueError("generic_reduce_bwd of a group's joined list: "
+                         "training under a mesh lists per shard")
     if gl.lst is not None:
         return generic_reduce_bwd_plain(gl.lst, ct, gl.valid, plan,
                                         needs_energy, gl.r2.shape[0],
@@ -1175,6 +1542,16 @@ def _generic_library():
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
             [ctypes.c_void_p] * 3)
         lib.htf_generic_reduce_bwd.restype = ctypes.c_int
+        group = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        lib.htf_generic_group_list.argtypes = (
+            group + [ctypes.c_void_p] * 2 + geo +
+            [ctypes.c_double, ctypes.c_int] +
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
+        lib.htf_generic_group_list.restype = ctypes.c_int
+        lib.htf_generic_group_reduce.argtypes = (
+            group + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 +
+            [ctypes.c_void_p] * 6)
+        lib.htf_generic_group_reduce.restype = ctypes.c_int
         lib.htf_generic_smem.argtypes = [ctypes.c_int] * 2
         lib.htf_generic_smem.restype = ctypes.c_long
         lib.htf_generic_reduce_smem.argtypes = [ctypes.c_int] * 2

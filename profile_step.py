@@ -20,7 +20,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--box ortho|tilted|npt]
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
-    python3 profile_step.py --mode mesh [--tree DIR]
+    python3 profile_step.py --mode mesh [--row generic] [--tree DIR]
 
 ``--tree DIR`` imports the port's package from another checkout (an
 older commit, say) while this file and ``chip_smoke.py`` stay this
@@ -68,7 +68,11 @@ own three kernels' share of the call. ``--dtype float64`` makes the
 state, the model and the tables float64 and takes the bounds at
 float64's 34 TFLOP/s. Where the package has K3's ``launch_params`` it
 also times K3 at forced launch shapes (strip length, warps per block;
-float32).
+float32). Where it has K1's group launch (``half_stencil_group_forces``)
+it also times, on the same state resident on the 4 shards: the LJ form's
+group launch over the 4 shards (the whole K1's bound), shard 0 alone as a
+group of one (shard 0's bound), and the generic form's group call with
+the LJ pair function.
 
 ``--mode k3parts`` times K3 (kernel alone, profiler) at the packed
 path's plan as it is and with one part of its work taken out, each a
@@ -86,9 +90,14 @@ timed ``run(1000)`` with host syncs forbidden, beside phase 4's own
 timed ``run(1000)`` from the same state. It prints both steps/s, the
 peak device memory of each timed run (and its rise above what stood
 before it), one evaluation of each engine (forces only, the engine's
-own ``_forces`` on the slot state its run kept) by CUDA events, and the
-kernels of a step of ``run(100)`` under torch.profiler (their number,
-their summed time and the device's busy share). With
+own ``_forces`` on the slot state its run kept) by CUDA events, that
+evaluation's kernels and their device time by the profiler (on the
+resident shards: K1's group launch and whatever the halo exchange
+launches), and the kernels of a step of ``run(100)`` under
+torch.profiler (their number, their summed time and the device's busy
+share). ``--row generic`` runs phase 30's configuration instead
+(``LJPotential(64)``, Langevin, K1's generic form) beside the same model
+unsharded (phase 7's route). With
 ``--tree DIR`` the package is an older checkout's, so one call measures
 two trees on one card.
 
@@ -472,7 +481,8 @@ def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
 
     def k1(per):
         return (rows * esize * (3 + 1 + 4), 9 * tested + inside * (per + 9))
-    return (
+    return group_calls(cs, shd.mesh, layout, sim.state, slot, aux, lj,
+                       pair_fn, slab, k1) + (
         ("K1 LJ form, slab mode, shard 0, forces only", plan, common,
          lambda: cc.half_stencil_pair_forces(
              *common, lj, needs_energy=False, geometry=g, slab=slab),
@@ -499,6 +509,58 @@ def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
              geometry=g, lanes=lanes, slab=slab),
          lambda: (rows * esize * (3 + 1 + 4) + need * esize * 5,
                   9 * tested + need * 9)))
+
+
+def group_calls(cs, mesh, layout, state, slot, aux, lj, pair_fn, slab, k1):
+    """K1's group launch (a package that has it) on the same state made
+    (``state``, packed whole in ``slot``, ``aux``) resident on ``mesh``'s
+    shards: the LJ form over every shard (bound: the whole K1's), shard 0
+    alone as a group of one (bound: shard 0's, ``k1``), and the generic
+    form over every shard with the LJ pair function (bound: the whole
+    generic form's at this plan's need)."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    if not hasattr(cc, "half_stencil_group_forces"):
+        return ()
+    plan, lo, g = layout.plan, layout.lo, layout.geometry
+    rs = layout.resident(mesh)
+    rst, raux = rs.pack(state)
+    grp = cw.slab_groups(cw.mesh_slabs(plan, mesh))[0]
+    bufs = [[p.positions for p in rst.shards], [p.types for p in rst.shards],
+            list(raux["valid"])]
+    g0 = rs.geoms(rst)[0]
+    one = cw.SlabGroup(grp.device, (0,), (slab,), (-1,), (-1,))
+    b0 = [[x[0]] for x in bufs]
+    whole = (slot.positions, slot.types, aux["valid"], plan, lo)
+
+    def generic_cost():
+        # the whole state's need at this plan (an unsharded list call: it
+        # rewrites the unsharded buffers, so only after the calls above)
+        wl = cc.LaneBudget(cc.lane_budget(plan, cs.N), "cuda")
+        cc.generic_pair_forces(*whole, pair_fn, typed_fn=False,
+                               needs_energy=False, geometry=g, lanes=wl)
+        return cs.k1_generic_cost(slot.positions, aux["valid"], plan, 3,
+                                  int(wl.needed))
+    glanes = cc.LaneBudget(cc.lane_budget(plan, cs.N, slab), "cuda")
+    n = len(grp.members)
+    calls = [
+        (f"K1 LJ form, group launch over {n} shards, forces only", plan,
+         whole, lambda: cc.half_stencil_group_forces(
+             *bufs, plan, lo, lj, grp, needs_energy=False, geometry=g0),
+         lambda: cs.k1_cost(slot.positions, aux["valid"], plan, 3, lj))]
+    calls.append((
+        "K1 LJ form, shard 0 as a group of one, forces only", plan, whole,
+        lambda: cc.half_stencil_group_forces(
+            *b0, plan, lo, lj, one, needs_energy=False, geometry=g0),
+        lambda: k1(14)))
+    calls.append((
+        f"K1 generic form, group launch over {n} shards, LJ pair function, "
+        f"forces only", plan, whole,
+        lambda: cc.generic_group_pair_forces(
+            *bufs, plan, lo, pair_fn, grp, typed_fn=False,
+            needs_energy=False, geometry=g0, lanes=glanes),
+        generic_cost))
+    return tuple(calls)
 
 
 def k3_call(cs, sim, shapes=True, dtype=None):
@@ -551,9 +613,11 @@ def k3_call(cs, sim, shapes=True, dtype=None):
             shapes)
 
 
-def mesh_loop(cs):
+def mesh_loop(cs, row="proxy"):
     """``--mode mesh``: phase 29's and phase 4's timed runs and one
-    evaluation of each (see the module's docstring)."""
+    evaluation of each (see the module's docstring); ``row='generic'``:
+    phase 30's configuration (LJPotential, Langevin) beside the same model
+    unsharded."""
     torch, htt = cs.torch, cs.htt
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation
     sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
@@ -564,6 +628,15 @@ def mesh_loop(cs):
     sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
     sim.run(1000)
     sim.run(1000)
+    generic = row == "generic"
+    if generic:
+        base = htt.Simulation(dt=0.005, seed=1, device="cuda",
+                              integrator=htt.md.Langevin(kT=1.5, gamma=1.0))
+        base.set_state(sim.state)
+        htt.tfcompute(htt.LJPotential(64)).attach(base, r_cut=cs.R_CUT,
+                                                  nlist="cellwise")
+        base.run(200)
+        sim = base
 
     def timed(s):
         s.check_syncs = True
@@ -577,8 +650,11 @@ def mesh_loop(cs):
         peak = torch.cuda.max_memory_allocated()
         st, aux = s._packed[2]
         route = s._route(s._layout, st, aux)
-        ms = cs.cuda_ms(lambda: s._forces(st, aux, s._packed[1], route,
-                                          False, False))
+        def evaluate():
+            return s._forces(st, aux, s._packed[1], route, False, False)
+        ms = cs.cuda_ms(evaluate)
+        # the kernels of one evaluation and their device time
+        names, dev_ms, _, _ = cs.profiled_calls(evaluate)
         # the kernels of a step: run(100) under the profiler
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -590,6 +666,8 @@ def mesh_loop(cs):
         ev = kernel_events(prof)
         return {"steps_per_s": 1000 / dt, "peak_mib": peak / 2**20,
                 "rise_mib": (peak - m0) / 2**20, "eval_ms": ms,
+                "eval_kernels": len(names) / cs.PROFILED_CALLS,
+                "eval_kernel_ms": dev_ms / cs.PROFILED_CALLS,
                 "kernels_per_step": len(ev) / 100,
                 "kernel_ms_per_step": sum(b - a for _, a, b in ev) / 1e5,
                 "busy_share": union_us([(a, b) for _, a, b in ev]) / 1e3 /
@@ -597,19 +675,26 @@ def mesh_loop(cs):
                 "plan": [list(s._layout.plan.grid),
                          s._layout.plan.capacity],
                 "slot_state": type(st).__name__}
-    out = {"phase4": timed(sim)}
+    one, many = ("phase7", "phase30") if generic else ("phase4", "phase29")
+    out = {one: timed(sim)}
     mesh, kind = cs.shard_mesh()
-    shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
-    shd.set_state(sim.state)
-    shd.attach(cs.make_model(), r_cut=cs.R_CUT)
+    if generic:
+        shd = ShardedSimulation(dt=0.005, mesh=mesh, seed=1,
+                                integrator=htt.md.Langevin(kT=1.5,
+                                                           gamma=1.0))
+        shd.set_state(sim.state)
+        shd.attach(htt.LJPotential(64), r_cut=cs.R_CUT)
+    else:
+        shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+        shd.set_state(sim.state)
+        shd.attach(cs.make_model(), r_cut=cs.R_CUT)
     del sim
     torch.cuda.empty_cache()
     shd.run(200)
     shd.run(500)
-    out["phase29"] = timed(shd)
+    out[many] = timed(shd)
     out["mesh"] = kind
-    out["ratio"] = (out["phase29"]["steps_per_s"] /
-                    out["phase4"]["steps_per_s"])
+    out["ratio"] = out[many]["steps_per_s"] / out[one]["steps_per_s"]
     return out
 
 
@@ -894,7 +979,7 @@ def main():
         print(json.dumps({"mode": "mesh", "tree": os.path.abspath(
             args.tree), "package": os.path.dirname(htt.__file__),
             "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
-            **mesh_loop(cs)}, indent=1))
+            "row": args.row, **mesh_loop(cs, args.row)}, indent=1))
         return 0
     if args.mode == "calls":
         print(json.dumps({"mode": "calls", "tree": os.path.abspath(

@@ -1855,9 +1855,10 @@ def test_generic_slab_mode_matches_plain(cuda_device, S, dtype):
 
 def test_sharded_run_has_no_host_sync(cuda_device):
     """ShardedSimulation on 4 virtual shards of the card: NVT on
-    'cellwise' with host syncs forbidden, four slab launches per force
-    evaluation, and the state after 8 steps within 5e-4 of the unsharded
-    engine's at the same plan and repack interval."""
+    'cellwise' with host syncs forbidden, one group launch of K1 over the
+    four shards per force evaluation (no slab launch), and the state
+    after 8 steps within 5e-4 of the unsharded engine's at the same plan
+    and repack interval."""
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation, make_mesh
     pos, vel, lengths = fluid_arrays(2000, 0.4, 0, jitter=0.08)
     shd = ShardedSimulation(dt=0.005, kT=1.0, seed=0,
@@ -1872,12 +1873,14 @@ def test_sharded_run_has_no_host_sync(cuda_device):
     shd._choose_repack_interval = ref._choose_repack_interval = \
         lambda layout: 3
     shd.check_syncs = True
-    before = tcc.half_stencil_pair_forces.slab_launches
+    k1 = tcc.half_stencil_pair_forces
+    before = (k1.group_launches, k1.slab_launches)
     ev = shd.force_evals
     shd.run(8)
     ref.run(8)
-    assert tcc.half_stencil_pair_forces.slab_launches - before == \
-        4 * (shd.force_evals - ev) > 0
+    assert (k1.group_launches - before[0], k1.slab_launches - before[1]) \
+        == (shd.force_evals - ev, 0)
+    assert shd.force_evals - ev > 0
     d = np_(shd.state.positions) - np_(ref.state.positions)
     L = np.asarray(lengths)
     d -= np.round(d / L) * L
@@ -1898,7 +1901,9 @@ def test_mixed_mesh_crosses_devices(cuda_device, case):
     (copied from the next shard, on the other device) holds the next
     shard's first layer, and particles moved across every slab boundary
     migrate through the cross-device buffers in one repack per shard,
-    equal to ``repack_src`` of the gathered state bit for bit."""
+    equal to ``repack_src`` of the gathered state bit for bit. The card's
+    two shards are one group (neither next to the other on the ring): one
+    group launch per evaluation, every halo exchanged across devices."""
     from hoomd_tf_tpu_torch.parallel import make_mesh
     mesh = make_mesh(4, devices=[cuda_device, "cpu"] * 2)
     pos, vel, lengths = fluid_arrays(2000, 0.4, 0, jitter=0.08)
@@ -1918,15 +1923,15 @@ def test_mixed_mesh_crosses_devices(cuda_device, case):
         plan = shd._ensure_layout().plan
         assert plan.grid[2] % 4 == 0
         ref._plan_from_current = lambda: plan
-    before = (tcc.half_stencil_pair_forces.slab_launches,
-              tcc.generic_pair_forces.slab_launches)
+    before = (tcc.half_stencil_pair_forces.group_launches,
+              tcc.generic_pair_forces.group_launches)
     evals = shd.force_evals - shd.probe_evals
     shd.run(3)
     ref.run(3)
-    slab = (tcc.half_stencil_pair_forces.slab_launches - before[0],
-            tcc.generic_pair_forces.slab_launches - before[1])
-    # two of the four shards are the card's
-    k = 2 * (shd.force_evals - shd.probe_evals - evals)
+    slab = (tcc.half_stencil_pair_forces.group_launches - before[0],
+            tcc.generic_pair_forces.group_launches - before[1])
+    # two of the four shards are the card's: one group
+    k = shd.force_evals - shd.probe_evals - evals
     assert slab == {"lj": (k, 0), "probe": (0, k), "n2": (0, 0)}[case]
     assert k > 0 or case == "n2"
     if case == "probe":
@@ -1995,6 +2000,168 @@ def resident_rows_cross_devices(sim):
     for a, b in zip(bounds[:-1], bounds[1:]):
         s_ = np_(src[a:b])
         assert ((s_ < n_slots) & ((s_ < a) | (s_ >= b))).any()
+
+
+# ----------------------------------------------------------------------
+# K1's group launch (the shards of one card in one launch)
+# ----------------------------------------------------------------------
+def group_packed(device, S, typed=False, dtype=torch.float32, n=1000):
+    """slab_packed's fluid resident on S virtual shards of ``device``:
+    ``(layout, slots, mesh, slot state, aux)``."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    pos, vel, lengths = fluid_arrays(n, 0.35, 7)
+    types = (np.arange(n) % 2) if typed else None
+    st = htt.md.state.init_state(pos, lengths, types=types, velocities=vel,
+                                 dtype=dtype, device=device)
+    lo = -lengths / 2
+    plan = tcw.plan_cellwise(n, lengths, 2.5, positions=pos, lo=lo,
+                             width_blocks=14, z_divisor=4)
+    layout = SlotLayout(plan, n, lo, rc_matrix=RCM if typed else None,
+                        dtype=dtype, device=device, box=st.box)
+    mesh = make_mesh(S, devices=[device] * S)
+    slots = layout.resident(mesh)
+    sst, aux = slots.pack(st)
+    return layout, slots, mesh, sst, aux
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("kind", ["lj", "proxy"])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_group_launch_matches_plain(cuda_device, S, kind, dtype):
+    """K1's group launch over S virtual shards of the card (LJ form,
+    typed with a cut table, and proxy form; float32 and float64) against
+    its plain version on the CPU on the same shards, forces, energy and
+    virial, the halo rows zero; it equals the unsharded K1 on the gathered
+    state bit for bit; the resident evaluation makes one group launch and
+    no slab launch."""
+    typed = kind == "lj"
+    forms = slab_forms(kind, dtype)
+    cases = {d.type: group_packed(d, S, typed, dtype)
+             for d in (cuda_device, torch.device("cpu"))}
+    outs = {}
+    for dev, (layout, slots, mesh, st, aux) in cases.items():
+        group = tcw.slab_groups(tcw.mesh_slabs(layout.plan, mesh))[0]
+        assert group.members == tuple(range(S))
+        k1 = tcc.half_stencil_pair_forces
+        before = k1.group_launches
+        outs[dev] = tcc.half_stencil_group_forces(
+            st.positions, st.types, aux["valid"], layout.plan, layout.lo,
+            forms[dev], group, needs_virial=True, rc2_tab=layout.rc2_tab,
+            geometry=slots.geoms(st)[0])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert k1.group_launches - before == 1
+    layout, slots, mesh, st, aux = cases["cuda"]
+    L = slots.layer
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        for g, w in zip(got, want):
+            slab_compare(g, w, dtype)
+            assert not g[-L:].any()
+    whole = [slots.whole(t) for t in (st.positions, st.types, aux["valid"])]
+    f0, w0 = tcc.half_stencil_pair_forces(
+        *whole, layout.plan, layout.lo, forms["cuda"], needs_virial=True,
+        rc2_tab=layout.rc2_tab, geometry=layout.geometry)
+    f1, w1 = (slots.whole(x) for x in outs["cuda"])
+    assert torch.equal(f1, f0) and torch.equal(w1, w0)
+    k1 = tcc.half_stencil_pair_forces
+    before = (k1.group_launches, k1.slab_launches, k1.launches)
+    f2, _ = tcw.resident_pair_forces(
+        st.positions, st.types, aux["valid"], layout.plan, layout.lo,
+        forms["cuda"].evaluate, mesh, slots.geoms(st), with_types=typed,
+        rcut_matrix=layout.rc2_tab, form=forms["cuda"])
+    torch.cuda.synchronize()
+    assert (k1.group_launches - before[0], k1.slab_launches - before[1],
+            k1.launches - before[2]) == (1, 0, 1)
+    slab_compare(slots.whole(f2), f0, dtype)
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_generic_group_matches_plain(cuda_device, S, dtype):
+    """K1's generic form over S virtual shards of the card (the list
+    kernel over every shard into one joined list, the pair function called
+    once, one reduction and the group home pass) against its plain version
+    on the CPU and the unsharded generic form, energy and virial on; the
+    need recorded per shard is the joined list's over S, rounded up."""
+    outs, calls = {}, []
+
+    def fn(r2, ti, tj):
+        calls.append(r2.shape[0])
+        return morse_yukawa(r2, ti, tj)
+    for dev in (cuda_device, torch.device("cpu")):
+        layout, slots, mesh, st, aux = group_packed(dev, S, True, dtype)
+        plan = layout.plan
+        group = tcw.slab_groups(tcw.mesh_slabs(plan, mesh))[0]
+        lanes = tcc.LaneBudget(tcc.lane_budget(plan, 1000, group.slabs[0]),
+                               dev)
+        gen = tcc.generic_pair_forces
+        before, n0 = gen.group_launches, len(calls)
+        outs[dev.type] = tcc.generic_group_pair_forces(
+            st.positions, st.types, aux["valid"], plan, layout.lo, fn, group,
+            needs_virial=True, rc2_tab=layout.rc2_tab,
+            geometry=slots.geoms(st)[0], lanes=lanes)
+        assert len(calls) - n0 == 1
+        assert not bool(lanes.overflow())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert gen.group_launches - before == 1
+            need = int(lanes.needed)
+            assert calls[-1] == S * lanes.budget
+            whole = [slots.whole(t) for t in
+                     (st.positions, st.types, aux["valid"])]
+            wl = tcc.LaneBudget(tcc.lane_budget(plan, 1000), dev)
+            f0, w0 = tcc.generic_pair_forces(
+                *whole, plan, layout.lo, morse_yukawa, needs_virial=True,
+                rc2_tab=layout.rc2_tab, geometry=layout.geometry, lanes=wl)
+            assert need == -(-int(wl.needed) // S)
+            slab_compare(slots.whole(outs["cuda"][0]), f0, dtype)
+            slab_compare(slots.whole(outs["cuda"][1]), w0, dtype)
+    L = slots.layer
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        for g, w in zip(got, want):
+            slab_compare(g, w, dtype)
+            assert not g[-L:].any()
+
+
+def test_mixed_mesh_groups_by_device(cuda_device):
+    """A mesh of two card shards then two CPU shards: the card's pair is
+    one group whose first shard reads the second's first layer in place,
+    one group launch of K1 per evaluation; only each group's last shard
+    sends its halo across devices (its halo positions the next shard's
+    first layer). 3 NVT steps against the unsharded engine: forces (rtol
+    1e-4, atol 1e-4 of the largest) and positions (5e-4)."""
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(4, devices=[cuda_device] * 2 + ["cpu"] * 2)
+    pos, vel, lengths = fluid_arrays(2000, 0.4, 0, jitter=0.08)
+    sims = []
+    for m in (mesh, None):
+        sim = htt.Simulation(dt=0.005, seed=0, mesh=m,
+                             device=None if m else cuda_device,
+                             integrator=htt.md.NVT(kT=1.0, tau=0.5))
+        sim.init_state(pos, lengths, velocities=vel)
+        htt.tfcompute(LJModel(48)).attach(sim, r_cut=2.5, nlist="cellwise")
+        sim._choose_repack_interval = lambda layout: 3
+        sims.append(sim)
+    shd, ref = sims
+    plan = shd._ensure_layout().plan
+    ref._plan_from_current = lambda: plan
+    k1 = tcc.half_stencil_pair_forces
+    before, ev = (k1.group_launches, k1.slab_launches), shd.force_evals
+    shd.run(3)
+    ref.run(3)
+    assert (k1.group_launches - before[0], k1.slab_launches - before[1]) \
+        == (shd.force_evals - ev, 0)
+    f_s, f_r = np_(shd.state.forces), np_(ref.state.forces)
+    np.testing.assert_allclose(f_s, f_r, rtol=1e-4,
+                               atol=1e-4 * np.abs(f_r).max())
+    d = np_(shd.state.positions) - np_(ref.state.positions)
+    L = np.asarray(lengths)
+    d -= np.round(d / L) * L
+    assert np.abs(d).max() < 5e-4
+    slots, (st, _) = shd._packed[1], shd._packed[2]
+    for s in (1, 3):
+        p, q = st.shards[s].positions, st.shards[(s + 1) % 4].positions
+        assert torch.equal(p[-slots.layer:].cpu(), q[:slots.layer].cpu())
 
 
 # ----------------------------------------------------------------------
