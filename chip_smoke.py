@@ -208,14 +208,14 @@ exits non-zero:
                group launch, one a device) against the unsharded K1
                (rtol = atol = 1e-4, and bit for bit when one card holds
                every shard), the group launch against its plain version
-               on the same buffers (1e-4), each shard's slab launch
-               against its slab plain version; the group launch, its
+               on the same buffers (1e-4), each shard alone as its group
+               of one against its slab plain version; the group launch, its
                plain version and shard 0 alone as a group of one timed;
                8 NVT steps with the repack interval pinned to 3 within
                5e-4 of the unsharded engine; a timed run(1000) with host
                syncs forbidden, 1.1 < T < 1.9, group launches = devices
-               x evaluations and no slab launch; steps/s beside phase
-               4's;
+               x evaluations and no other K1 launch; steps/s beside
+               phase 4's;
 30. sharded generic and 'n2' -- LJPotential(64) through ShardedSimulation
                (the probe accepts it: K1's generic form over each
                device's group, its pair function once a device on the
@@ -223,9 +223,9 @@ exits non-zero:
                log_period=10), host syncs forbidden: finite records,
                healthy T, group launches = pair-function calls = devices
                x evaluations; at one state against the unsharded generic
-               form and each shard's slab launch against its slab plain
-               version (1e-4), the group call and its plain version
-               timed; then the small-box fallback to the 'n2' rows (128
+               form and each shard as its group of one against its slab
+               plain version (1e-4), the group call, its plain version
+               and shard 0 as a group of one timed; then the small-box fallback to the 'n2' rows (128
                particles, 50 steps);
 31. parallel helpers -- halo_force_fn at 16,384 particles (x-slabs, the
                ring exchange) against the model on the whole system
@@ -234,26 +234,34 @@ exits non-zero:
                gradient (1e-4), and 30 Adam steps that halve the loss;
 32. sharded train -- phase 5's row (the proxy NN, Adam lr 1e-2) from phase
                5's NVT state through ShardedSimulation on phase 29's mesh:
-               K2's slab mode on shard 0 against its slab plain version and
-               the shards' moments summed against the unsharded K2 (the JAX
-               bar), the coefficients' gradient through
-               pair_train_forces(mesh=) against the unsharded one; 8 SGD
-               train steps' losses and weights against the unsharded
-               engine at the same plan (rtol 2e-4), then 400 Adam train
-               steps, host syncs forbidden, the last 20 losses' mean below
-               the first 20's, K2 slab launches = shards x train steps;
+               K2's group launch (one a card over its shards) against its
+               plain version (the JAX bar), a group of every shard
+               against the unsharded K2 bit for bit (else the cards' sum
+               at the JAX bar), shard 0 as a group of one timed, the
+               coefficients' gradient through pair_train_forces(mesh=)
+               against the unsharded one; 8 SGD train steps' losses and
+               weights against the unsharded engine at the same plan
+               (rtol 2e-4), then 400 Adam train steps, host syncs
+               forbidden, the last 20 losses' mean below the first 20's,
+               K2 group launches = cards x train steps, K1 only in group
+               launches; K1's proxy form in one group launch on the
+               whole state's rows (the training forward) against its
+               plain version and timed;
 33. sharded train-pair and train-lane -- phases 10-11's rows from phase
                5's state through ShardedSimulation, 200 train steps each,
                host syncs forbidden: the weights' first gradient against
-               the unsharded one (2e-4), each shard's generic_reduce_bwd
-               slab launch against its slab plain version lane by lane
-               (1e-4), slab launches = shards x train steps;
+               the unsharded one (2e-4), each card's generic_reduce_bwd
+               group launch against its plain version lane by lane (1e-4
+               in float32; in float64 1e-10, the pair row), a group of
+               every shard against the unsharded kernel bit for bit,
+               shard 0 as a group of one timed; group launches = cards x
+               train steps, no other launch;
 34. sharded npt -- phase 14's barostat (P = 1.2 x the NVT pressure) from
                phase 4's fluid through ShardedSimulation: 8 steps within
                5e-4 of the unsharded engine (volume 1e-5), run(1000) with
                host syncs forbidden, the volume down by 1% or more,
                repacks, no geometry flag, 1.1 < T < 1.9, group launches
-               = devices x evaluations and no slab launch;
+               = devices x evaluations;
 35. sharded planes -- a coupled LJ the probe rejects (energy scaled by the
                coordination over all rows' mean) through ShardedSimulation:
                the first evaluation's forces against the unsharded planes
@@ -1781,8 +1789,12 @@ def bwd_cost(gl, needed, energy):
     n0, total, nw = hdr[:, 0], hdr[:, 1], hdr[:, 2]
     words = (4 + (esize + 1) * total + n0 + 1 + n0 * nw +
              (n0 * nw + 1) // 2)
+    # ct [rows, 4] and valid [rows] of each member of a group's list (a
+    # member's halo rows are the next member's first home rows)
+    rows = (gl.rows if getattr(gl, "group", None) is None else
+            sum(v.shape[0] for v in gl.valid))
     nbytes = (4 * int(words.sum()) + 4 * gl.n_cells +
-              gl.rows * esize * (4 + 1) +
+              rows * esize * (4 + 1) +
               gl.budget * esize * (1 + energy))
     return nbytes, 20 * needed
 
@@ -3976,23 +3988,40 @@ def repack_gate(slots, st, aux):
           "state")
 
 
-#: slab launches of K1 and of its generic form made by the whole-state
-#: mesh routes' own runs, by phase: (K1, generic); the comparisons and
-#: timings around the runs are not counted
+#: launches of K1 and of its generic form made by the whole-state mesh
+#: routes' own runs, by phase: (K1 group, K1 all, K1 proxy form, generic
+#: group, generic all) launches; the comparisons and timings around the
+#: runs are not counted.
 SLAB_RUNS = {}
 
 
 def slab_run(phase, run, *args, **kw):
     """``run(*args, **kw)``, a main-path run of a whole-state mesh route,
-    with K1's and its generic form's slab counts set to 0 just before it
-    and added to ``SLAB_RUNS[phase]`` just after it."""
+    with K1's and its generic form's counts set to 0 just before it and
+    added to ``SLAB_RUNS[phase]`` just after it (then restored to what
+    they were plus the run's, for the phase's own gates)."""
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     k1, gen = cc.half_stencil_pair_forces, cc.generic_pair_forces
-    k1.slab_launches = gen.slab_launches = 0
+    counts = ((k1, "group_launches"), (k1, "launches"),
+              (k1, "proxy_launches"), (gen, "group_launches"),
+              (gen, "launches"))
+    was = [getattr(fn, name) for fn, name in counts]
+    for fn, name in counts:
+        setattr(fn, name, 0)
     out = run(*args, **kw)
-    a, b = SLAB_RUNS.get(phase, (0, 0))
-    SLAB_RUNS[phase] = (a + k1.slab_launches, b + gen.slab_launches)
+    got = tuple(getattr(fn, name) for fn, name in counts)
+    for (fn, name), w, n in zip(counts, was, got):
+        setattr(fn, name, w + n)
+    SLAB_RUNS[phase] = tuple(a + b for a, b in zip(
+        SLAB_RUNS.get(phase, (0,) * len(counts)), got))
     return out
+
+
+def group_of_one(t, s, z0, nzl):
+    """Shard ``s`` (home layers ``z0 .. z0 + nzl - 1``) alone on the device
+    of ``t``: its group of one, its halo layer its own buffer's."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    return cw.SlabGroup(t.device, (s,), ((z0, nzl),), (-1,), (-1,))
 
 
 def mesh_devices(mesh):
@@ -4004,8 +4033,8 @@ def mesh_devices(mesh):
 def phase_sharded(state, main_sps):
     """Phase 29: phase 4's fluid and LJ PairModel through
     ShardedSimulation on 'cellwise' (K1's group launch on each device over
-    its shards; K1's slab mode per shard held against its plain version
-    and timed, as the whole-state routes of phases 32-38 run it)."""
+    its shards; each shard alone as its group of one held against its
+    slab plain version)."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.md.state import SlabState
@@ -4014,14 +4043,13 @@ def phase_sharded(state, main_sps):
     mesh, kind = shard_mesh()
     S, D = mesh.size, mesh_devices(mesh)
     print(f"  mesh: {kind}; launch gates count one group launch per device "
-          f"({D}) per evaluation, and no slab launch")
+          f"({D}) per evaluation, and no other K1 launch")
     sim = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
     sim.set_state(state)
     tfc = sim.attach(make_model(), r_cut=R_CUT)
     check(tfc.nlist_method == "cellwise",
           f"ShardedSimulation attached {tfc.nlist_method!r}, not cellwise")
     k1.launches = k1.group_launches = 0
-    s0 = k1.slab_launches
     evals0 = sim.force_evals
     sim.run(200)
     for _ in range(3):
@@ -4030,9 +4058,9 @@ def phase_sharded(state, main_sps):
         if sim._layout.plan == plan:
             break
     launches, evals = k1.group_launches, sim.force_evals - evals0
-    check(k1.launches == launches == D * evals and k1.slab_launches == s0,
-          f"group launches {launches} (all K1 {k1.launches}, slab "
-          f"{k1.slab_launches - s0}) != {D} x {evals} evaluations")
+    check(k1.launches == launches == D * evals,
+          f"group launches {launches} (all K1 {k1.launches}) != {D} x "
+          f"{evals} evaluations")
     layout = sim._ensure_layout()
     plan = layout.plan
     nx, ny, nz = plan.grid
@@ -4047,8 +4075,8 @@ def phase_sharded(state, main_sps):
           f"{layer * esize * 4 / 1e6:.3f} MB of forces4")
 
     # one state, the run's resident shards: the sharded evaluation on them
-    # against the unsharded K1 on the gathered state, each shard's slab
-    # launch on its resident buffer against its slab plain version, one
+    # against the unsharded K1 on the gathered state, each shard's resident
+    # buffer as its group of one against its slab plain version, one
     # repack per shard against repack_src of the gathered state
     slots, st, aux = resident_shards(sim)
     repack_gate(slots, st, aux)
@@ -4094,17 +4122,19 @@ def phase_sharded(state, main_sps):
     for s, (z0, n) in enumerate(shards):
         buf = (st.shards[s].positions, st.shards[s].types, aux["valid"][s])
         g = geoms[s]
-        fk, wk = k1(*buf, plan, layout.lo, cc.form_on(form, buf[0].device),
-                    needs_virial=True, geometry=g, slab=(z0, n))
+        (fk,), (wk,) = cc.half_stencil_group_forces(
+            *([t] for t in buf), plan, layout.lo,
+            cc.form_on(form, buf[0].device), group_of_one(buf[0], s, z0, n),
+            needs_virial=True, geometry=g)
         fp, wp = cw.half_stencil_slab_plain(
             *buf, plan, layout.lo, form.evaluate, z0, n, needs_virial=True,
             with_types=form.ntypes > 1, geometry=g)
         torch.cuda.synchronize()
         err = max(err, compare(f"shard {s} (layers {z0}-{z0 + n - 1}) "
-                               "slab launch vs slab plain, forces+energy",
-                               fk, fp),
-                  compare(f"shard {s} slab launch vs slab plain, virial",
-                          wk, wp))
+                               "as a group of one vs slab plain, "
+                               "forces+energy", fk, fp),
+                  compare(f"shard {s} as a group of one vs slab plain, "
+                          "virial", wk, wp))
     # times at the main path's shapes (forces only): the resident
     # evaluation (halo copies, slab launches, reverse-halo adds), the
     # whole-state form training keeps (slab buffers cut from the whole
@@ -4116,13 +4146,6 @@ def phase_sharded(state, main_sps):
         geometry=layout.geometry, mesh=mesh))
     t_one = cuda_ms(lambda: k1(*common, form, needs_energy=False,
                                geometry=layout.geometry))
-    buf = (st.shards[0].positions, st.shards[0].types, aux["valid"][0])
-    t_shard = cuda_ms(lambda: k1(*buf, plan, layout.lo, form,
-                                 needs_energy=False, geometry=geoms[0],
-                                 slab=shards[0]))
-    t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
-        *buf, plan, layout.lo, form.evaluate, *shards[0],
-        needs_energy=False, geometry=geoms[0]), reps=5)
     # the group launch of the first device's shards alone, its plain
     # version, and shard 0 alone as a group of one (a card holding one
     # shard)
@@ -4154,11 +4177,9 @@ def phase_sharded(state, main_sps):
           f"gather) {t_whole:.4f} ms; unsharded K1 {t_one:.4f} ms "
           f"({t_all / t_one:.3f}x); bound {b_ms:.4f} ms ({b_by}: "
           f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
-    print(f"  shard 0 alone as a group of one: {t_one_g:.4f} ms")
-    print(f"  shard 0's call: {t_shard:.4f} ms, its bound {s_ms:.4f} ms "
-          f"({s_by}: {s_bytes / 1e6:.2f} MB, {tested:.4g} pairs tested, "
-          f"{inside:.4g} inside the cut); its slab plain version "
-          f"{t_plain:.4f} ms")
+    print(f"  shard 0 alone as a group of one: {t_one_g:.4f} ms, its bound "
+          f"{s_ms:.4f} ms ({s_by}: {s_bytes / 1e6:.2f} MB, {tested:.4g} "
+          f"pairs tested, {inside:.4g} inside the cut)")
     del whole, common, f_s, w_s, f_u, w_u
 
     # 8 steps with the repack interval pinned to 3 against the unsharded
@@ -4216,18 +4237,16 @@ def phase_sharded(state, main_sps):
     print(f"  timed run(1000): peak device memory {peak / 2**20:.1f} MiB, "
           f"{(peak - mem0) / 2**20:.1f} MiB above the {mem0 / 2**20:.1f} "
           f"MiB before it")
-    slab = dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
-                max_abs_err=err, sharded_ms=t_all)
-    group = dict(ms=t_group, plain_ms=t_gplain, bound_ms=g_ms, bound_by=g_by,
-                 max_abs_err=g_err, launches=launches, sharded_ms=t_all,
-                 shard0_ms=t_one_g)
-    return slab, group
+    return dict(ms=t_group, plain_ms=t_gplain, bound_ms=g_ms, bound_by=g_by,
+                max_abs_err=max(err, g_err), launches=launches,
+                sharded_ms=t_all, shard0_ms=t_one_g)
 
 
 def phase_sharded_generic(state):
     """Phase 30: LJPotential(64) (a SimModel the probe accepts: K1's
-    generic form in slab mode) through ShardedSimulation with Langevin
-    and run(200, log_period=10); then the small-box 'n2' fallback."""
+    generic form in one group call a card) through ShardedSimulation with
+    Langevin and run(200, log_period=10); then the small-box 'n2'
+    fallback."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
@@ -4245,7 +4264,6 @@ def phase_sharded_generic(state):
     model = htt.LJPotential(64)
     tfc = sim.attach(model, r_cut=R_CUT)
     gen.launches = gen.group_launches = 0
-    s0 = gen.slab_launches
     # the pair function's calls on a group's joined list
     evaluate, pair_calls = cc.GenericList.evaluate, [0]
 
@@ -4266,11 +4284,9 @@ def phase_sharded_generic(state):
           f"the probe did not accept LJPotential: {tfc._lane_fast_report}")
     evals = sim.force_evals - evals0 - (sim.probe_evals - probe0)
     launches = gen.group_launches
-    check(launches == pair_calls[0] == D * evals and launches > 0 and
-          gen.slab_launches == s0,
+    check(launches == pair_calls[0] == D * evals and launches > 0,
           f"generic group launches {launches}, pair-function calls on a "
-          f"joined list {pair_calls[0]}, slab launches "
-          f"{gen.slab_launches - s0}: not {D} x {evals} evaluations")
+          f"joined list {pair_calls[0]}: not {D} x {evals} evaluations")
     log = sim.log
     check(len(log["step"]) == 20, f"{len(log['step'])} log records")
     for k, v in log.items():
@@ -4287,7 +4303,7 @@ def phase_sharded_generic(state):
 
     # one state, the run's resident shards: the sharded generic form on
     # them against the unsharded one on the gathered state, each shard's
-    # slab launch on its resident buffer against its slab plain version,
+    # resident buffer as its group of one against its slab plain version,
     # one repack per shard against repack_src
     layout = sim._ensure_layout()
     plan = layout.plan
@@ -4318,16 +4334,18 @@ def phase_sharded_generic(state):
         buf = (st.shards[s].positions, st.shards[s].types, aux["valid"][s])
         g = geoms[s]
         own = cc.LaneBudget(sim._lanes.budget, buf[0].device)
-        fk, wk = gen(*buf, plan, layout.lo, fn, needs_virial=True,
-                     geometry=g, lanes=own, slab=(z0, n))
+        (fk,), (wk,) = cc.generic_group_pair_forces(
+            *([t] for t in buf), plan, layout.lo, fn,
+            group_of_one(buf[0], s, z0, n), needs_virial=True, geometry=g,
+            lanes=own)
         fp, wp = cw.half_stencil_slab_plain(
             *buf, plan, layout.lo, fn, z0, n, needs_virial=True,
             with_types=True, geometry=g)
         torch.cuda.synchronize()
-        err = max(err, compare(f"shard {s} generic slab launch vs slab "
-                               "plain, forces+energy", fk, fp),
-                  compare(f"shard {s} generic slab launch vs slab plain, "
-                          "virial", wk, wp))
+        err = max(err, compare(f"shard {s} as a generic group of one vs "
+                               "slab plain, forces+energy", fk, fp),
+                  compare(f"shard {s} as a generic group of one vs slab "
+                          "plain, virial", wk, wp))
     kw = dict(geometry=layout.geometry, needs_energy=False)
     t_all = cuda_ms(lambda: slots.pair_forces(
         st, aux, fn, with_types=True, lanes=lanes, needs_energy=False),
@@ -4337,12 +4355,13 @@ def phase_sharded_generic(state):
     buf = (st.shards[0].positions, st.shards[0].types, aux["valid"][0])
     g = geoms[0]
     own = cc.LaneBudget(sim._lanes.budget, "cuda")
-    t_shard = cuda_ms(lambda: gen(*buf, plan, layout.lo, fn, geometry=g,
-                                  lanes=own, needs_energy=False,
-                                  slab=shards[0]), reps=11)
-    t_plain = cuda_ms(lambda: cw.half_stencil_slab_plain(
-        *buf, plan, layout.lo, fn, *shards[0], with_types=True,
-        needs_energy=False, geometry=g), reps=3)
+    one = group_of_one(buf[0], 0, *shards[0])
+
+    def shard0():
+        return cc.generic_group_pair_forces(
+            *([t] for t in buf), plan, layout.lo, fn, one, geometry=g,
+            lanes=own, needs_energy=False)
+    t_shard = cuda_ms(shard0, reps=11)
     # the group call of the first device's shards alone (list, the pair
     # function once, reduction, home pass) and its plain version
     grp = cw.slab_groups(cw.mesh_slabs(plan, mesh))[0]
@@ -4371,8 +4390,7 @@ def phase_sharded_generic(state):
         reps=3)
     check(not bool(glanes.overflow()), "the group's joined list overflowed")
     own.reset()
-    gen(*buf, plan, layout.lo, fn, geometry=g, lanes=own, needs_energy=False,
-        slab=shards[0])
+    shard0()
     s_need = int(own.needed)
     tested, _ = slab_pair_counts(whole[0], whole[2], plan, *shards[0])
     esize = whole[0].element_size()
@@ -4389,11 +4407,10 @@ def phase_sharded_generic(state):
           f"its bound {g_ms:.4f} ms)")
     print(f"  resident sharded generic evaluation (forces only, the pair "
           f"function included): {t_all:.4f} ms for {S} shards; unsharded "
-          f"{t_one:.4f} ms ({t_all / t_one:.3f}x); shard 0's call "
-          f"{t_shard:.4f} ms, its bound {s_ms:.4f} ms ({s_by}: "
-          f"{s_bytes / 1e6:.2f} MB, {s_need} lanes), its slab plain version "
-          f"{t_plain:.4f} ms; bound of the whole {b_ms:.4f} ms ({b_by}: "
-          f"{nbytes / 1e6:.2f} MB, {needed} lanes)")
+          f"{t_one:.4f} ms ({t_all / t_one:.3f}x); shard 0 alone as a "
+          f"group of one {t_shard:.4f} ms, its bound {s_ms:.4f} ms ({s_by}: "
+          f"{s_bytes / 1e6:.2f} MB, {s_need} lanes); bound of the whole "
+          f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {needed} lanes)")
     del whole, common, f_s, w_s, f_u, w_u
     launches_main = launches
 
@@ -4411,11 +4428,9 @@ def phase_sharded_generic(state):
     check(small.nlist_builds == 50, f"{small.nlist_builds} row builds")
     print(f"  small box (128 particles, a = 1.4): 'n2' rows over {S} shards,"
           f" 50 NVT steps, T={t['temperature']:.4f}, host syncs forbidden")
-    slab = dict(ms=t_shard, plain_ms=t_plain, bound_ms=s_ms, bound_by=s_by,
-                max_abs_err=err, sharded_ms=t_all)
-    group = dict(ms=t_group, plain_ms=t_gplain, bound_ms=g_ms, bound_by=g_by,
-                 max_abs_err=g_err, launches=launches_main, sharded_ms=t_all)
-    return slab, group
+    return dict(ms=t_group, plain_ms=t_gplain, bound_ms=g_ms, bound_by=g_by,
+                max_abs_err=max(err, g_err), launches=launches_main,
+                sharded_ms=t_all, shard0_ms=t_shard)
 
 
 def phase_parallel_helpers():
@@ -4605,17 +4620,37 @@ def compare_grads(label, got, want, params):
     return err
 
 
+def group_pair_counts(positions, valid, plan, group):
+    """``(tested, inside)`` of a group's work: ``slab_pair_counts`` summed
+    over its members' slabs."""
+    tested = inside = 0.0
+    for z0, nzl in group.slabs:
+        t, i = slab_pair_counts(positions, valid, plan, z0, nzl)
+        tested, inside = tested + t, inside + i
+    return tested, inside
+
+
+def group_inputs(layout, tensors, group):
+    """The members' rows of each whole-state tensor in ``tensors`` for a
+    call over ``group`` (views on the state's card, one copy on another)
+    and the global geometry on the group's device."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    return ([cw.group_buffers(t, layout.plan, group, group.device)
+             for t in tensors], layout.geometry.on(group.device))
+
+
 def phase_sharded_train(state, train_sps):
     """Phase 32: phase 5's row (the proxy NN, Adam lr 1e-2) trained
     through ShardedSimulation from phase 5's NVT state: K1's proxy form
-    and K2 in slab mode."""
+    and K2 in one group launch a card over its shards. Returns K2's group
+    record and K1's proxy-form group record."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
     from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
     k2 = pc.proxy_bwd_moments
     mesh, kind = shard_mesh()
-    S = mesh.size
+    S, D = mesh.size, mesh_devices(mesh)
     print(f"  mesh: {kind}")
     (shd, stfc, sm), (ref, rtfc, rm) = sharded_train_pair(
         state, mesh, make_nn, force_loss, optimizer="sgd")
@@ -4633,41 +4668,62 @@ def phase_sharded_train(state, train_sps):
     whole = torch.cat([g.reshape(-1) for g in k2(
         *common, ct, plan, layout.lo, ev.basis, geometry=layout.geometry,
         **kw)])
-    shards = cw.slab_layers(plan, S)
+    slabs = cw.mesh_slabs(plan, mesh)
+    groups = cw.slab_groups(slabs)
     acc, err, rec = None, 0.0, None
-    for s, (z0, n) in enumerate(shards):
-        buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
-        c = cw.slab_buffer(ct, plan, z0, n, buf[0].device)
-        args = (*buf, c, plan, layout.lo, ev.basis)
+    for gi, grp in enumerate(groups):
+        bufs, g = group_inputs(layout, (*common, ct), grp)
+        args = (*bufs, plan, layout.lo, ev.basis)
         got = torch.cat([x.reshape(-1) for x in k2(
-            *args, geometry=g, slab=(z0, n), **kw)])
-        if s == 0:
-            want = torch.cat([x.reshape(-1) for x in pc.proxy_bwd_plain(
-                *args, geometry=g, slab=(z0, n), **kw)])
-            torch.cuda.synchronize()
-            err = compare(f"K2 slab shard 0 (layers {z0}-{z0 + n - 1}) vs "
-                          "its slab plain version", got, want, rtol=K2_RTOL,
-                          atol=K2_ATOL_REL * float(want.abs().max()))
-            t_k = cuda_ms(lambda: k2(*args, geometry=g, slab=(z0, n), **kw))
+            *args, geometry=g, group=grp, **kw)])
+        want = torch.cat([x.reshape(-1) for x in pc.proxy_bwd_plain(
+            *args, geometry=g, group=grp, **kw)])
+        torch.cuda.synchronize()
+        err = max(err, compare(
+            f"K2 group of shards {grp.members} on {grp.device} vs its plain "
+            "version", got, want, rtol=K2_RTOL,
+            atol=K2_ATOL_REL * float(want.abs().max())))
+        if gi == 0:
+            t_k = cuda_ms(lambda: k2(*args, geometry=g, group=grp, **kw))
             t_p = cuda_ms(lambda: pc.proxy_bwd_plain(
-                *args, geometry=g, slab=(z0, n), **kw), reps=5)
-            tested, inside = slab_pair_counts(st.positions, aux["valid"],
-                                              plan, z0, n)
+                *args, geometry=g, group=grp, **kw), reps=3)
+            tested, inside = group_pair_counts(st.positions, aux["valid"],
+                                               plan, grp)
             esize = st.positions.element_size()
-            nbytes = esize * (buf[0].shape[0] * (3 + 1 + 4) + got.numel())
+            rows = sum(x.shape[0] for x in bufs[0])
+            nbytes = esize * (rows * (3 + 1 + 4) + got.numel())
             b_ms, b_by = bound(nbytes, 9 * tested +
                                inside * (27 + K_PROXY * (2 + 2)))
-            rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
-            print(f"  K2 slab shard 0 (forces-only cotangent): {t_k:.4f} ms,"
-                  f" its slab plain version {t_p:.4f} ms, its bound "
-                  f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
-                  f"{tested:.4g} pairs tested, {inside:.4g} inside)")
+            # shard 0 alone: the group of one with its halo layer (the
+            # slab call this launch replaced)
+            one = cw.slab_groups(slabs, whole=False)[0]
+            obufs, og = group_inputs(layout, (*common, ct), one)
+            oargs = (*obufs, plan, layout.lo, ev.basis)
+            t_one = cuda_ms(lambda: k2(*oargs, geometry=og, group=one, **kw))
+            rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                       shard0_ms=t_one)
+            print(f"  K2 group launch over shards {grp.members} "
+                  f"(forces-only cotangent): {t_k:.4f} ms, its plain "
+                  f"version {t_p:.4f} ms, its bound {b_ms:.4f} ms ({b_by}:"
+                  f" {nbytes / 1e6:.2f} MB, {tested:.4g} pairs tested, "
+                  f"{inside:.4g} inside); shard 0 as a group of one "
+                  f"{t_one:.4f} ms")
         got = got.to("cuda")
         acc = got if acc is None else acc + got
     torch.cuda.synchronize()
-    err = max(err, compare(f"K2 slab moments summed over {S} shards vs the "
-                           "unsharded K2", acc, whole, rtol=K2_RTOL,
-                           atol=K2_ATOL_REL * float(whole.abs().max())))
+    fwd = proxy_group_forward(layout, common, groups[0], ev.kernel_form(
+        coeffs), sm.min_r2, S)
+    if len(groups) == 1 and len(groups[0].members) == S:
+        same = bool(torch.equal(acc, whole))
+        print(f"  K2's group of every shard equals the unsharded K2 bit for "
+              f"bit: {same}")
+        check(same, "K2's group of every shard differs from the unsharded "
+              "K2")
+    else:
+        err = max(err, compare(
+            f"K2 group moments summed over {D} cards vs the unsharded K2",
+            acc, whole, rtol=K2_RTOL,
+            atol=K2_ATOL_REL * float(whole.abs().max())))
     p = {k: v.detach().clone().requires_grad_() for k, v in coeffs.items()}
     targs = (*common, plan, layout.lo)
     tkw = dict(min_r2=sm.min_r2, needs_energy=False,
@@ -4681,16 +4737,16 @@ def phase_sharded_train(state, train_sps):
                   "unsharded", g_s, g_u, params)
     t_s, t_u = sharded_backward_times(f_s, f_u, params, ct)
     rec["sharded_ms"] = t_s
-    print(f"  the whole sharded backward (the cotangent's slab buffers, {S}"
-          f" K2 slab calls, the sum): {t_s:.4f} ms; unsharded (one K2) "
-          f"{t_u:.4f} ms ({t_s / t_u:.3f}x)")
+    print(f"  the whole sharded backward (the members' rows of the "
+          f"cotangent, {D} K2 group calls, the sum): {t_s:.4f} ms; "
+          f"unsharded (one K2) {t_u:.4f} ms ({t_s / t_u:.3f}x)")
     del f_s, f_u
 
     # the main path: 8 steps against the unsharded engine (SGD: Adam's
     # normalized step turns the float32 rounding of a gradient element
     # near zero into steps of up to lr, tests/test_torch_train.py), then
     # phase 5's protocol, Adam, for 400 train steps, host syncs forbidden
-    k2.launches = k2.slab_launches = 0
+    k2.launches = k2.group_launches = 0
     steps0, ref0 = shd.train_steps, ref.train_steps
     shd.check_syncs = True
     shd._choose_repack_interval = ref._choose_repack_interval = \
@@ -4730,9 +4786,10 @@ def phase_sharded_train(state, train_sps):
     check(bool(np.isfinite(hist).all()), "non-finite training loss")
     first, last = float(hist[:20].mean()), float(hist[-20:].mean())
     check(last < first, f"the loss did not fall: {first} -> {last}")
-    launches = k2.slab_launches
-    check(launches == S * steps,
-          f"K2 slab launches {launches} != {S} x {steps} train steps")
+    launches = k2.group_launches
+    check(launches == D * steps,
+          f"K2 group launches {launches} != {D} card(s) x {steps} train "
+          "steps")
     check(k2.launches - launches == ref_steps,
           f"unsharded K2 launches {k2.launches - launches} != the "
           f"reference's {ref_steps} train steps")
@@ -4740,27 +4797,131 @@ def phase_sharded_train(state, train_sps):
     sps = 300 / dt
     print(f"  Adam: 400 train steps ({steps - sgd_steps} attempted, the "
           f"first 100 in {dt_first:.2f} s); loss (20-step windows) "
-          f"{first:.4f} -> {last:.4f}; K2 slab launches {launches} == {S} x "
-          f"{steps} (with the 8 SGD steps); no host sync in the step loops; "
-          f"T={th['temperature']:.4f}")
+          f"{first:.4f} -> {last:.4f}; K2 group launches {launches} == {D} "
+          f"x {steps} (with the 8 SGD steps), K1 launches of the runs "
+          f"(group, all, proxy form) {SLAB_RUNS['32'][:3]}; no host sync "
+          f"in the step loops; T={th['temperature']:.4f}")
     print(f"  train steps/s {sps:.2f} (run(300)) against phase 5's "
           f"{train_sps:.2f} ({sps / train_sps:.3f}x), {kind}, on "
           f"{smi_line()} -- info, not a claim")
     rec.update(max_abs_err=err, launches=launches)
-    return rec
+    return rec, fwd
+
+
+def proxy_group_forward(layout, common, grp, form, min_r2, S):
+    """K1's proxy form in one group launch over ``grp`` on the members'
+    rows of the whole state (``common``: positions, types, valid), as the
+    training forward under a mesh runs it (forces only), against its plain
+    version; its time, its plain version's and its bound (the whole K1's
+    for a group of every shard)."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    plan = layout.plan
+    bufs, g = group_inputs(layout, common, grp)
+    form = cc.form_on(form, grp.device)
+    args = (*bufs, plan, layout.lo)
+    kw = dict(min_r2=min_r2, needs_energy=False, geometry=g)
+
+    def kernel():
+        return cc.half_stencil_group_forces(*args, form, grp, **kw)
+
+    def plain():
+        return cw.half_stencil_group_plain(*args, form.evaluate, grp, **kw)
+    got, want = kernel()[0], plain()[0]
+    torch.cuda.synchronize()
+    err = compare(f"K1 proxy form, group of shards {grp.members} on the "
+                  "whole state's rows vs its plain version, forces",
+                  torch.cat(got), torch.cat(want))
+    t_k, t_p = cuda_ms(kernel), cuda_ms(plain, reps=3)
+    if len(grp.members) == S:
+        nbytes, ops = k1_cost(common[0], common[2], plan, 3, form)
+    else:
+        tested, inside = group_pair_counts(common[0], common[2], plan, grp)
+        esize = common[0].element_size()
+        nbytes = (sum(x.shape[0] for x in bufs[0]) * esize * (3 + 1 + 4) +
+                  form.tensor(grp.device).numel() * esize)
+        ops = 9 * tested + inside * (8 * form.K + 10 + 9)
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  K1 proxy form, group launch over shards {grp.members} on the "
+          f"whole state's rows (the training forward, forces only): "
+          f"{t_k:.4f} ms, its plain version {t_p:.4f} ms, its bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
+
+
+def group_bwd_check(label, shd, tr, layout, st, aux, ct, grp, dtype):
+    """generic_reduce_bwd over ``grp``'s joined list on the card against
+    its plain version lane by lane (1e-4 in float32, 1e-10 in float64;
+    the positions and cotangent cast to ``dtype``, and in float64 an
+    analytic pair function): ``(max error, gS, the list, the lane index of
+    the plain list in the kernel's, the lanes needed, the timing
+    closure)``."""
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    plan = layout.plan
+    dev = grp.device
+    common = (st.positions.to(dtype), st.types, aux["valid"].to(dtype),
+              ct.to(dtype))
+    bufs, g = group_inputs(layout, common, grp)
+    if dtype == torch.float64:
+        g = cw.SlotGeometry(plan, layout.lo, dtype, dev)
+    rc = (None if layout.rc2_tab is None else layout.rc2_tab.to(dev, dtype))
+    own = cc.LaneBudget(shd._lanes.budget, dev)
+    gl = cc.generic_group_list(*bufs[:3], plan, layout.lo, grp,
+                               typed_fn=tr.typed, min_r2=tr.min_r2,
+                               rc2_tab=rc, geometry=g, lanes=own,
+                               needs_energy=False)
+    fn = (shd._on_device(tr.pair_fn, dev) if dtype == torch.float32 else
+          (lambda r2, *t: (smooth_energy(r2), torch.zeros_like(r2))))
+    U, Sv = gl.evaluate(fn)
+    cc.generic_reduce(gl, U, Sv, False)
+    gU, gS = cc.generic_reduce_bwd(gl, bufs[3], False)
+    joined = cc.generic_group_list_plain(*bufs[:3], plan, layout.lo, grp,
+                                         tr.min_r2, rc, g, typed=tr.typed)
+    pU, pS = cc.generic_reduce_bwd_plain(joined, bufs[3], bufs[2], plan,
+                                         False, group=grp)
+    need = int(gl.needed)
+    check(not bool(own.overflow()), "a group list overflowed")
+    H = joined["cell"].new_tensor(slab_home_cells(plan, grp))
+    idx = cc.kernel_lane_index(dict(cell=joined["member"] * H +
+                                    joined["cell"]), gl.cell_base, plan)
+    check(need == joined["needed"] and bool(torch.equal(
+        torch.sort(idx).values.cpu(), torch.arange(need))),
+        "the group kernel's list and its plain list differ")
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    name = (f"{label}: generic_reduce_bwd, {dtype}, group {grp.members} gS "
+            "vs its plain version, lane by lane")
+    err = (compare(name, gS[idx], pS, rtol=tol, atol=tol)
+           if dtype == torch.float32 else
+           f64_compare(name, gS[idx], pS, tol))
+    check(int(torch.count_nonzero(gS[need:])) == 0,
+          "a group list's tail carries a gradient")
+    return err, gS, gl, idx, need, (lambda: cc.generic_reduce_bwd(
+        gl, bufs[3], False)), (lambda: cc.generic_reduce_bwd_plain(
+            joined, bufs[3], bufs[2], plan, False, group=grp))
+
+
+def slab_home_cells(plan, grp):
+    """Home cells of one member of ``grp``."""
+    nx, ny, _ = plan.grid
+    return grp.slabs[0][1] * nx * ny
 
 
 def phase_sharded_train_generic(state, rates):
     """Phase 33: phases 10-11's non-proxy rows (TrainableNNPair(64),
     TrainableNN(64)) trained through ShardedSimulation from phase 5's NVT
-    state: K1's generic form and generic_reduce_bwd in slab mode."""
+    state: K1's generic form over each card's shards in one list, the
+    pair function once on the joined list, and generic_reduce_bwd over
+    the group."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
     bwd = cc.generic_reduce_bwd
     mesh, kind = shard_mesh()
-    S = mesh.size
+    S, D = mesh.size, mesh_devices(mesh)
     print(f"  mesh: {kind}")
     rec, launches, err = None, 0, 0.0
     rows = (("pair", lambda: make_nn(seed=0, proxy_degree=None), force_loss,
@@ -4795,56 +4956,81 @@ def phase_sharded_train_generic(state, rates):
         compare_grads(f"{label} row: weights' gradient, sharded vs "
                       "unsharded", g_s, g_u, tr.params)
         t_s, t_u = sharded_backward_times(f_s, f_u, tr.params, ct)
-        print(f"  {label} row: the whole sharded backward ({S} "
-              f"generic_reduce_bwd slab calls, the pair function's "
-              f"backward on each shard's lanes, the gather's) {t_s:.4f} ms;"
-              f" unsharded {t_u:.4f} ms ({t_s / t_u:.3f}x)")
+        print(f"  {label} row: the whole sharded backward ({D} "
+              f"generic_reduce_bwd group calls, the pair function's "
+              f"backward on each card's joined list, the gather's) "
+              f"{t_s:.4f} ms; unsharded {t_u:.4f} ms ({t_s / t_u:.3f}x)")
         del f_s, f_u
-        # each shard's backward kernel against its slab plain version
-        for s, (z0, n) in enumerate(cw.slab_layers(plan, S)):
-            buf, g = slab_buffers(layout, st, aux, mesh, s, z0, n)
-            dev = buf[0].device
-            c = cw.slab_buffer(ct, plan, z0, n, dev)
-            rc = (None if layout.rc2_tab is None else
-                  layout.rc2_tab.to(dev))
-            own = cc.LaneBudget(shd._lanes.budget, dev)
-            gl = cc.generic_list(*buf, plan, layout.lo, typed_fn=tr.typed,
-                                 min_r2=tr.min_r2, rc2_tab=rc, geometry=g,
-                                 lanes=own, needs_energy=False,
-                                 slab=(z0, n))
-            U, Sv = gl.evaluate(shd._on_device(tr.pair_fn, dev))
-            cc.generic_reduce(gl, U, Sv, False)
-            gU, gS = bwd(gl, c, False)
-            lst = cc.generic_list_plain(*buf, plan, layout.lo, tr.min_r2,
-                                        rc, g, typed=tr.typed, slab=(z0, n))
-            pU, pS = cc.generic_reduce_bwd_plain(lst, c, buf[2], plan,
-                                                 False, slab=(z0, n))
-            need = int(own.needed)
-            check(not bool(own.overflow()), "a slab list overflowed")
-            idx = cc.kernel_lane_index(lst, gl.cell_base, plan)
-            check(need == lst["needed"] and bool(torch.equal(
-                torch.sort(idx).values.cpu(), torch.arange(need))),
-                "the slab kernel's list and the slab plain list differ")
-            torch.cuda.synchronize()
-            err = max(err, compare(
-                f"{label} row: generic_reduce_bwd slab shard {s} gS vs its "
-                "slab plain version, lane by lane", gS[idx], pS))
-            check(int(torch.count_nonzero(gS[need:])) == 0,
-                  "a slab list's tail carries a gradient")
+        # each card's backward kernel against its plain version
+        slabs = cw.mesh_slabs(plan, mesh)
+        groups = cw.slab_groups(slabs)
+        for gi, grp in enumerate(groups):
+            e, gS, gl, idx, need, run_k, run_p = group_bwd_check(
+                label, shd, tr, layout, st, aux, ct, grp, torch.float32)
+            err = max(err, e)
+            if gi == 0 and len(grp.members) == S:
+                # the group of every shard against the unsharded kernel
+                gl0 = cc.generic_list(st.positions, st.types, aux["valid"],
+                                      plan, layout.lo, typed_fn=tr.typed,
+                                      min_r2=tr.min_r2,
+                                      rc2_tab=layout.rc2_tab,
+                                      geometry=layout.geometry,
+                                      lanes=cc.LaneBudget(gl.budget, "cuda"),
+                                      needs_energy=False)
+                U0, S0 = gl0.evaluate(tr.pair_fn)
+                cc.generic_reduce(gl0, U0, S0, False)
+                _, gS0 = bwd(gl0, ct, False)
+                lst0 = cc.generic_list_plain(
+                    st.positions, st.types, aux["valid"], plan, layout.lo,
+                    tr.min_r2, layout.rc2_tab, layout.geometry,
+                    typed=tr.typed)
+                idx0 = cc.kernel_lane_index(lst0, gl0.cell_base, plan)
+                same = bool(torch.equal(gS[idx], gS0[idx0]))
+                print(f"  {label} row: generic_reduce_bwd over the group of "
+                      f"every shard equals the unsharded kernel lane by "
+                      f"lane, bit for bit: {same}")
+                check(same, "generic_reduce_bwd's group of every shard "
+                      "differs from the unsharded kernel")
+                del gl0, U0, S0, gS0, lst0, idx0
             if rec is None:
-                t_k = cuda_ms(lambda: bwd(gl, c, False))
-                t_p = cuda_ms(lambda: cc.generic_reduce_bwd_plain(
-                    lst, c, buf[2], plan, False, slab=(z0, n)), reps=5)
+                t_k = cuda_ms(run_k)
+                t_p = cuda_ms(run_p, reps=3)
                 nbytes, ops = bwd_cost(gl, need, False)
                 b_ms, b_by = bound(nbytes, ops)
+                # shard 0 alone, as a group of one (its slab buffers)
+                z0, n = slabs[0][1:]
+                buf, g = slab_buffers(layout, st, aux, mesh, 0, z0, n)
+                c0 = [cw.slab_buffer(ct, plan, z0, n, buf[0].device)]
+                rc = (None if layout.rc2_tab is None else
+                      layout.rc2_tab.to(buf[0].device))
+                gl1 = cc.generic_group_list(
+                    *([t] for t in buf), plan, layout.lo,
+                    group_of_one(buf[0], 0, z0, n), typed_fn=tr.typed,
+                    min_r2=tr.min_r2, rc2_tab=rc, geometry=g,
+                    lanes=cc.LaneBudget(shd._lanes.budget, buf[0].device),
+                    needs_energy=False)
+                U1, S1 = gl1.evaluate(shd._on_device(tr.pair_fn,
+                                                     buf[0].device))
+                cc.generic_reduce(gl1, U1, S1, False)
+                t_one = cuda_ms(lambda: bwd(gl1, c0, False))
                 rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                           bound_by=b_by, sharded_ms=t_s)
-                print(f"  generic_reduce_bwd slab shard 0: {t_k:.4f} ms, its"
-                      f" slab plain version {t_p:.4f} ms, its bound "
-                      f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
-                      f"{need} lanes of a {gl.budget}-lane list)")
+                           bound_by=b_by, sharded_ms=t_s, shard0_ms=t_one)
+                print(f"  generic_reduce_bwd group launch over shards "
+                      f"{grp.members}: {t_k:.4f} ms, its plain version "
+                      f"{t_p:.4f} ms, its bound {b_ms:.4f} ms ({b_by}: "
+                      f"{nbytes / 1e6:.2f} MB, {need} lanes of a "
+                      f"{gl.budget}-lane list); shard 0 as a group of one "
+                      f"{t_one:.4f} ms")
+                del gl1, U1, S1
+            if gi == 0 and label == "pair":
+                # and in double, on the same group (its own list: after
+                # the timings of the float32 list, which it rewrites)
+                e64 = group_bwd_check(label, shd, tr, layout, st, aux, ct,
+                                      grp, torch.float64)[0]
+                err = max(err, e64)
+            del gl, gS
         # the main path: 200 train steps, host syncs forbidden
-        bwd.launches = bwd.slab_launches = 0
+        bwd.launches = bwd.group_launches = 0
         steps0 = shd.train_steps
         shd.check_syncs = True
         torch.cuda.synchronize()
@@ -4857,15 +5043,15 @@ def phase_sharded_train_generic(state, rates):
         check(len(hist) == 200 <= steps and bool(np.isfinite(hist).all()),
               f"{len(hist)} finite losses of committed steps, {steps} "
               "attempted")
-        check(bwd.slab_launches == S * steps == bwd.launches,
-              f"generic_reduce_bwd slab launches {bwd.slab_launches} (all "
-              f"{bwd.launches}) != {S} x {steps} train steps")
-        launches += bwd.slab_launches
+        check(bwd.group_launches == D * steps == bwd.launches,
+              f"generic_reduce_bwd group launches {bwd.group_launches} "
+              f"(all {bwd.launches}) != {D} x {steps} train steps")
+        launches += bwd.group_launches
         th = healthy(shd, f"sharded train-{label}")
         print(f"  {label} row: 200 train steps ({steps} attempted), loss "
               f"{float(hist[:20].mean()):.4f} -> "
-              f"{float(hist[-20:].mean()):.4f}; slab launches "
-              f"{bwd.slab_launches} == {S} x {steps}; T="
+              f"{float(hist[-20:].mean()):.4f}; group launches "
+              f"{bwd.group_launches} == {D} x {steps} == all launches; T="
               f"{th['temperature']:.4f}; train steps/s {200 / dt:.2f} "
               f"against phase {10 if label == 'pair' else 11}'s {rate:.2f} "
               f"({200 / dt / rate:.3f}x) -- info, not a claim")
@@ -4907,7 +5093,6 @@ def phase_sharded_npt(state):
           f"{plan.grid}")
     ref._plan_from_current = lambda: plan
     k1.launches = k1.group_launches = 0
-    s0 = k1.slab_launches
     evals0 = shd.force_evals
     shd.check_syncs = True
     shd.run(8)
@@ -4934,9 +5119,8 @@ def phase_sharded_npt(state):
     launches = k1.group_launches
     evals = shd.force_evals - evals0
     check(launches == D * evals and k1.group_launches - l0 ==
-          D * (shd.force_evals - e0) and k1.slab_launches == s0,
-          f"group launches {launches} != {D} x {evals} evaluations (slab "
-          f"{k1.slab_launches - s0})")
+          D * (shd.force_evals - e0),
+          f"group launches {launches} != {D} x {evals} evaluations")
     check(k1.launches - launches == ref.force_evals,
           "the sharded run launched an unsharded K1")
     th = healthy(shd, "sharded npt")
@@ -5559,23 +5743,24 @@ def main():
     torch.cuda.empty_cache()
     print("[29 sharded eval] phase 4's fluid and LJ PairModel through "
           "ShardedSimulation on 'cellwise': K1's group launch")
-    k1_slab, k1_group = phase_sharded(shard_state, main_sps)
+    k1_group = phase_sharded(shard_state, main_sps)
     torch.cuda.empty_cache()
     print("[30 sharded generic and 'n2'] LJPotential in K1's generic form "
           "over the group, Langevin, run(200, log_period=10); the "
           "small-box 'n2' fallback")
-    gen_slab, gen_group = phase_sharded_generic(shard_state)
+    gen_group = phase_sharded_generic(shard_state)
     torch.cuda.empty_cache()
     print("[31 parallel helpers] halo_force_fn at 16,384 particles and "
           "sharded_train_step over 8 frames of 4,096")
     phase_parallel_helpers()
     torch.cuda.empty_cache()
     print("[32 sharded train] phase 5's proxy row through ShardedSimulation"
-          ": K1's proxy form and K2 in slab mode")
-    k2_slab = phase_sharded_train(train_state, train_sps)
+          ": K1's proxy form and K2 in one group launch a card")
+    k2_slab, k1_px_group = phase_sharded_train(train_state, train_sps)
     torch.cuda.empty_cache()
     print("[33 sharded train-pair and train-lane] phases 10-11's rows "
-          "through ShardedSimulation: generic_reduce_bwd in slab mode")
+          "through ShardedSimulation: one list, one pair-function call and "
+          "generic_reduce_bwd over the group a card")
     bwd_slab = phase_sharded_train_generic(train_state,
                                            (pl["sps"], gl_["sps"]))
     del train_state
@@ -5601,13 +5786,21 @@ def main():
           "Simulation(mesh=) on 'cell' and 'cellwise'")
     phase_sharded_mapped(shard_state)
     print(f"  phases 36-38: {time.perf_counter() - t36:.1f} s")
-    k1_slab["launches"] = sum(n for n, _ in SLAB_RUNS.values())
-    gen_slab["launches"] = sum(n for _, n in SLAB_RUNS.values())
-    print(f"  slab launches of the whole-state routes' own runs (K1, its "
-          f"generic form): {SLAB_RUNS}")
-    check(k1_slab["launches"] > 0 and gen_slab["launches"] > 0,
-          "a slab mode of K1 was launched no time in the runs of phases "
-          "32-38")
+    print(f"  launches of the mesh routes' own runs in phases 32-38 (K1 "
+          f"group, K1 all, K1 proxy form, generic group, generic all): "
+          f"{SLAB_RUNS}")
+    # phase 32's K1 launches are all group launches, so its proxy-form
+    # count is that of the proxy form's group launches
+    check(SLAB_RUNS["32"][0] == SLAB_RUNS["32"][1],
+          "phase 32's training launched K1 outside a group launch")
+    k1_px_group["launches"] = SLAB_RUNS["32"][2]
+    lj_runs = sum(n[0] for n in SLAB_RUNS.values()) - SLAB_RUNS["32"][2]
+    gen_runs = sum(n[3] for n in SLAB_RUNS.values())
+    check(k1_px_group["launches"] > 0 and lj_runs > 0 and gen_runs > 0,
+          "a K1 group launch (proxy form, LJ form or generic form) was "
+          "made no time in the runs of phases 32-38")
+    k1_group["launches"] += lj_runs
+    gen_group["launches"] += gen_runs
     del shard_state
     torch.cuda.empty_cache()
     check("jax" not in sys.modules, "JAX was imported")
@@ -5669,62 +5862,60 @@ def main():
                   "library_ms: torch.topk over int64 keys, selection only",
              source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
              replaces="hoomd_tf_tpu/ops/nlist_pallas.py:43", **k3_64),
-        dict(name="K1 slab mode (half_stencil_pair_forces(slab=); ms, "
-                  "plain_ms, bound_ms: shard 0's call in the LJ form, its "
-                  "slab plain version and its own bound; sharded_ms: phase "
-                  "29's whole resident evaluation; launches: slab launches, "
-                  "any form, of the whole-state routes' own runs in phases "
-                  "32-38)",
-             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
-             replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
-                      "wrapper of the pallas_call at :629)", **k1_slab),
         dict(name="K1 LJ form, group launch over the shards of one card "
                   "(half_stencil_group_forces; ms, plain_ms, bound_ms: "
                   "phase 29's group launch alone, its plain version and "
                   "its bound; sharded_ms: the whole resident evaluation; "
                   "shard0_ms: shard 0 alone as a group of one; launches: "
-                  "group launches of phases 29 and 34)",
+                  "group launches of phases 29 and 34 and the LJ form's "
+                  "group launches in the mesh routes' runs of phases "
+                  "32-38)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **k1_group),
-        dict(name="K1 generic form, slab mode (generic_pair_forces(slab=); "
-                  "ms, plain_ms, bound_ms: shard 0's call with its pair "
-                  "function, its slab plain version and its own bound; "
-                  "sharded_ms: phase 30's whole resident evaluation; "
-                  "launches: slab launches of the whole-state routes' own "
-                  "runs in phases 32-38)",
-             source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
+        dict(name="K1 Chebyshev-proxy form, group launch over the shards "
+                  "of one card (half_stencil_group_forces; ms, plain_ms, "
+                  "bound_ms: phase 32's training forward on the members' "
+                  "rows of the whole state, its plain version and its "
+                  "bound; launches: the proxy form's group launches in "
+                  "phase 32's training runs)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
-                      "wrapper of the pallas_call at :629)", **gen_slab),
+                      "wrapper of the pallas_call at :629)", **k1_px_group),
         dict(name="K1 generic form, group launch over the shards of one "
                   "card (generic_group_pair_forces: one list launch, the "
                   "pair function once on the joined list, one reduction; "
                   "ms, plain_ms, bound_ms: phase 30's group call alone with "
                   "the pair function, its plain version and its bound; "
-                  "sharded_ms: the whole resident evaluation; launches: "
-                  "group launches of phase 30's run)",
+                  "sharded_ms: the whole resident evaluation; shard0_ms: "
+                  "shard 0 alone as a group of one; launches: group "
+                  "launches of phase 30's run and of the mesh routes' runs "
+                  "in phases 32-38, training's forward included)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **gen_group),
-        dict(name="K2 Chebyshev-proxy backward moments, slab mode "
-                  "(proxy_bwd_moments(slab=); ms, plain_ms, bound_ms: "
-                  "shard 0's call with the forces-only cotangent, its slab "
-                  "plain version and its own bound; sharded_ms: phase 32's "
-                  "whole sharded backward, the cotangent's slab buffers, "
-                  "the slab calls and the sum; launches: slab launches of "
-                  "phase 32's training)",
+        dict(name="K2 Chebyshev-proxy backward moments, group launch over "
+                  "the shards of one card (proxy_bwd_moments(group=); ms, "
+                  "plain_ms, bound_ms: phase 32's group call with the "
+                  "forces-only cotangent, its plain version and its bound; "
+                  "shard0_ms: shard 0 alone as a group of one, the slab "
+                  "call it replaced; sharded_ms: phase 32's whole sharded "
+                  "backward, the members' rows, the group calls and the "
+                  "sum; launches: group launches of phase 32's training)",
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
              replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
                       "contraction the JAX package takes for a proxy under "
                       "a mesh, pair_train_pallas.py:68-72; K2's Pallas "
                       "kernel, pair_train_pallas.py:80, without one)",
              **k2_slab),
-        dict(name="generic_reduce_bwd, slab mode (generic_reduce_bwd on a "
-                  "slab list; ms, plain_ms, bound_ms: shard 0's call at "
-                  "phase 33's pair row, its slab plain version and its own "
-                  "bound; sharded_ms: the pair row's whole sharded "
-                  "backward with the pair function's; launches: slab "
-                  "launches of phase 33's training, both rows)",
+        dict(name="generic_reduce_bwd, group launch over the shards of one "
+                  "card (generic_reduce_bwd on a group's joined list; ms, "
+                  "plain_ms, bound_ms: phase 33's pair row's group call, "
+                  "its plain version and its bound; shard0_ms: shard 0's "
+                  "slab list as a group of one; sharded_ms: the pair row's "
+                  "whole sharded backward with the pair function's; "
+                  "launches: group launches of phase 33's training, both "
+                  "rows)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
              replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
                       "contraction; no Pallas kernel)", **bwd_slab),

@@ -39,7 +39,7 @@ imports ``torch`` and numpy only, never JAX. It carries three paths:
   weights)`` and checkpoints that resume a run exactly;
 - :mod:`.parallel`: a device mesh (``make_mesh``), ``Simulation(mesh=)``
   and :class:`~.parallel.ShardedSimulation`, which split the pair work
-  into z-slabs run by K1's slab mode, frame data-parallel training and
+  into z-slabs run by K1's group launch, frame data-parallel training and
   the explicit ring-halo reference.
 """
 

@@ -47,26 +47,33 @@
 //     with i the lane's home slot and j the candidate's own slot, where
 //     half_stencil_home pushes its back sums (block 0 lists both orders,
 //     so it takes the row term only). One block per home cell reads the
-//     cell's record as the reduction does and writes each lane's pair at
-//     its list index; further blocks write zeros past the lanes needed,
-//     and a cell that did not fit zeroes its share of the list, so every
-//     lane of the budget is written and lanes that hold no listed pair
-//     (whose r2 is left from an earlier call) carry no gradient.
-// Slab mode (a z-slab shard, HalfGeom's z0 and nzl; cellwise_half.cu): the
-// list kernel stages the slab's home cells from its buffer by global cell,
-// the records and bases are the home cells', and half_stencil_home also
-// writes the halo layer's reverse partial. generic_reduce_bwd in slab mode
-// reads that list call's records and the slab buffer of the cotangent (a
-// halo row's ct is the next shard's first home layer's, where the reverse
-// halo was added): a lane's candidate slot is its global cell's buffer
-// cell, and the lanes written are the shard's own.
+//     cell's staged entries, tags, row offsets, masks and running counts
+//     from its record, and stages each entry once in shared memory: its
+//     position and its weight (2 ct valid, 0.5 ct_e valid), the cotangent
+//     read once per entry at its own slot. Then a warp takes a (row,
+//     32-candidate word) pair: lane l holds candidate 32 w + l, tests its
+//     bit, and writes at the row's list index plus the word's running
+//     count plus the bits below l, so there is no per-lane search and
+//     consecutive lanes write consecutive lanes of the list; a warp reads
+//     the words and indices of 32 pairs in one load and hands them round
+//     by shuffles. The blocks
+//     zero the list's tail past the lanes needed together, and a cell
+//     that did not fit zeroes its share of the list, so every lane of the
+//     budget is written and lanes that hold no listed pair (whose r2 is
+//     left from an earlier call) carry no gradient.
 // Group mode (GroupTab, cellwise_half.cu): generic_group_list lists every
 // home cell of the shards one card holds into one joined list (each cell's
 // segment placed by the one counter), the pair function runs once on it,
 // and generic_reduce over the group's cells with half_stencil_group_home
 // finishes, the back sums across a boundary inside the group added in the
-// whole state's order. The backward has no group mode: training under a
-// mesh lists per shard.
+// whole state's order. generic_reduce_bwd always runs over a group: a
+// group's joined list, or a whole state's list as a group of one (z0 = 0,
+// nzl = nz, no neighbours; a z-slab shard alone is a group of one too). A
+// candidate's slot
+// resolves through the group's rows (ShardRows): a halo cell's in place
+// from the next shard's first home layer when that shard is in the group,
+// else from the shard's own halo layer, whose cotangent the caller filled
+// with the next shard's (where the reverse halo was added).
 //
 // The list's placement varies from call to call; the values do not: each
 // lane's (U, s) is a function of the lane, and every sum runs in a fixed
@@ -95,9 +102,10 @@
 // count.
 //
 // The backward is bound by bytes: each cell's record read once (~6 KB a
-// cell at the 64k fluid's shapes), ct read for the rows and candidates,
-// and 8 bytes written per lane of the budget; a warp per row writes its
-// lanes densely, as the row sweep reads them.
+// cell at the 64k fluid's shapes), ct and valid read once per staged
+// entry, and 8 bytes written per lane of the budget. Its shared memory
+// holds 32 bytes per staged entry (64 in double) and nothing of the
+// masks, which a warp reads once per (row, word) from the record.
 //
 // Built with -fmad=false, and the staging uses _rn intrinsics, so the
 // masks and r2 are bit-equal to the PyTorch plain version's.
@@ -407,8 +415,7 @@ __device__ __forceinline__ void list_block(
   }
 }
 
-// One block per home cell of one buffer (a whole state, or a z-slab
-// shard's buffer: block c is the global home cell z0 nx ny + c).
+// One block per home cell of a whole state.
 template <class T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 generic_list(const T* __restrict__ pos, const int* __restrict__ types,
@@ -420,10 +427,10 @@ generic_list(const T* __restrict__ pos, const int* __restrict__ types,
              int* __restrict__ rec, long rec_stride, T* __restrict__ sums,
              int nch) {
   const int c = blockIdx.x;
-  list_block<T>(htf::OneBuffer<T>{pos, types, valid}, g.z0 * g.nx * g.ny + c,
-                c, box, g, rcm, rcm_t, rc2, min_r2, budget, counter,
-                cell_base, r2_out, ti_out, tj_out, rec, rec_stride, sums,
-                nch);
+  list_block<T>(htf::OneBuffer<T>{pos, types, valid, nullptr},
+                c, c, box, g, rcm, rcm_t, rc2, min_r2,
+                budget, counter, cell_base, r2_out, ti_out, tj_out, rec,
+                rec_stride, sums, nch);
 }
 
 // One block per home cell of a group's shards (GroupTab; block c is home
@@ -610,60 +617,50 @@ generic_reduce(HalfGeom g, const int* __restrict__ rec,
   }
 }
 
-// Blocks of generic_reduce_bwd past the cells: they zero the list's tail.
-constexpr int kTailBlocks = 132;
-
-// The record of cell c read into shared memory (every thread; the caller
-// places the barrier): the staged entries, their tags, row offsets, masks
-// and running counts.
+// generic_reduce_bwd's shared memory: per staged entry of the cell its
+// position (the record's) and its cotangent weight, then the 14 blocks'
+// cell codes.
 template <class T>
-__device__ __forceinline__ void read_record(const int* __restrict__ r,
-                                            int n0, int total, int nw,
-                                            const RSmem<T>& s) {
-  const int tid = threadIdx.x;
-  const Rec o = rec_offsets<T>(n0, total, nw);
-  const Vec4<T>* rspos = reinterpret_cast<const Vec4<T>*>(r + 4);
-  for (int e = tid; e < total; e += kThreads) {
-    s.spos[e] = rspos[e];
-    s.stag[e] = static_cast<uint16_t>(r[o.tag + e]);
-  }
-  for (int i = tid; i <= n0; i += kThreads) s.rowoff[i] = r[o.rowoff + i];
-  const uint16_t* rpre = reinterpret_cast<const uint16_t*>(r + o.pre);
-  for (int u = tid; u < n0 * nw; u += kThreads) {
-    s.mask[u] = static_cast<uint32_t>(r[o.mask + u]);
-    s.pre[u] = rpre[u];
-  }
+__host__ __device__ __forceinline__ long bwd_smem_bytes(int cap) {
+  return 2L * kHalf * cap * static_cast<long>(sizeof(Vec4<T>)) + 4L * 16;
 }
 
+// One block per home cell c of a group's joined list (GroupTab: shard
+// k = c / H, H home cells a shard; a whole state's list is the group of
+// one), reading the list kernel's record of c and the
+// cotangent of the forces (tab.aux, [rows][4] per shard) and `valid`
+// (tab.valid) where the shard's rows lie: a halo cell in place from the
+// next shard when that is in the group. Writes every lane of the
+// budget: the cell's lanes, its share of the tail past the lanes needed,
+// or, for a cell that did not fit, zeros over its segment.
 template <class T, bool ENERGY>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
-generic_reduce_bwd(HalfGeom g, int n_cells, const int* __restrict__ rec,
-                   long rec_stride, const int* __restrict__ cell_base,
-                   const Vec4<T>* __restrict__ ct,
-                   const T* __restrict__ valid,
+generic_reduce_bwd(const __grid_constant__ htf::GroupTab<T> tab, HalfGeom g,
+                   const int* __restrict__ rec, long rec_stride,
+                   const int* __restrict__ cell_base,
                    const int* __restrict__ needed, int budget,
                    T* __restrict__ gU, T* __restrict__ gS) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (static_cast<int>(blockIdx.x) >= n_cells) {
-    // the tail past the lanes the list needed holds no pair
-    const int lo = *needed < budget ? *needed : budget;
-    const int blk = static_cast<int>(blockIdx.x) - n_cells;
-    const int stride = (static_cast<int>(gridDim.x) - n_cells) * kThreads;
-    for (int k = lo + blk * kThreads + tid; k < budget; k += stride) {
+  const int c = blockIdx.x;
+  {
+    // the tail past the lanes the list needed holds no pair: the blocks
+    // zero it together, a thread's stride apart
+    const long lo = *needed < budget ? *needed : budget;
+    const long stride = static_cast<long>(gridDim.x) * kThreads;
+    for (long k = lo + static_cast<long>(c) * kThreads + tid; k < budget;
+         k += stride) {
       gS[k] = T(0);
       if (ENERGY) gU[k] = T(0);
     }
-    return;
   }
-  const int c = blockIdx.x;
-  const int cap = g.cap;
   const int* r = rec + c * rec_stride;
   const int n0 = r[0], total = r[1], nw = r[2];
+  const Rec o = rec_offsets<T>(n0, total, nw);
   const int drawn = cell_base[c];
   if (drawn < 0) {
     // a cell that did not fit: zero the part of its segment in the list
     const long b = -1L - drawn;
-    const long end = b + r[rec_offsets<T>(n0, total, nw).rowoff + n0];
+    const long end = b + r[o.rowoff + n0];
     const long hi = end < budget ? end : static_cast<long>(budget);
     for (long k = b + tid; k < hi; k += kThreads) {
       gS[k] = T(0);
@@ -671,48 +668,77 @@ generic_reduce_bwd(HalfGeom g, int n_cells, const int* __restrict__ rec,
     }
     return;
   }
-  RSmem<T> s;
-  reduce_layout(cap, htf::dynamic_smem<char>(), &s);
-  read_record(r, n0, total, nw, s);
+  const int cap = g.cap;
+  Vec4<T>* spos = htf::dynamic_smem<Vec4<T>>();       // [C] positions
+  Vec4<T>* swt = spos + kHalf * cap;                   // [C] weights
+  int* nb = reinterpret_cast<int*>(swt + kHalf * cap);  // [14] cell codes
+  const int H = g.nzl * g.nx * g.ny;
+  const int k = c / H;
+  const htf::ShardRows<T> src(tab, k);
+  if (tid < kHalf) {
+    const int gc = tab.z0[k] * g.nx * g.ny + (c - k * H);
+    nb[tid] = src.cell(g, htf::shifted_cell(g, gc, tid, 1));
+  }
   __syncthreads();
-  const size_t cell0 = static_cast<size_t>(c) * cap;
-  // the global cell of block c (slab mode: the slab's home cell z0 nx ny +
-  // c; its rows are the buffer's cell c)
-  const int gc = g.z0 * g.nx * g.ny + c;
-  // a warp per home row, its lanes written densely (lane e of the row at
-  // list index row + e)
-  for (int i = warp; i < n0; i += kWarps) {
-    const Vec4<T> q = s.spos[i];
-    const size_t si = cell0 + s.stag[i];  // block 0: tag = rank
-    const T vi = valid[si];
-    const Vec4<T> ci = ct[si];
-    const T rx = T(2) * (ci.x * vi), ry = T(2) * (ci.y * vi),
-            rz = T(2) * (ci.z * vi), re = T(0.5) * (ci.w * vi);
-    const int row = drawn + s.rowoff[i];
-    const int cnt = s.rowoff[i + 1] - s.rowoff[i];
-    for (int e = lane; e < cnt; e += 32) {
-      const int j = lane_candidate(s.mask + i * nw, s.pre + i * nw, nw, e);
+  // stage each entry once: its position and its weight (2 ct valid,
+  // 0.5 ct_e valid), the cotangent read at its own slot
+  const Vec4<T>* rspos = reinterpret_cast<const Vec4<T>*>(r + 4);
+  for (int e = tid; e < total; e += kThreads) {
+    const int tag = r[o.tag + e];
+    const int t = tag / cap;
+    const int code = nb[t];
+    const size_t slot = src.slot(code, cap, tag - t * cap);
+    const T v = src.v(code)[slot];
+    const Vec4<T> ce = static_cast<const Vec4<T>*>(src.a(code))[slot];
+    spos[e] = rspos[e];
+    swt[e] = htf::vec4(T(2) * (ce.x * v), T(2) * (ce.y * v),
+                       T(2) * (ce.z * v), T(0.5) * (ce.w * v));
+  }
+  __syncthreads();
+  // a warp per (row i, 32-candidate word w) pair u = i nw + w: lane l
+  // holds candidate j = 32 w + l, and a lane in the cut writes at the
+  // pair's list index (the row's offset plus the word's running count)
+  // plus the bits below l: consecutive lanes, consecutive writes. A warp
+  // takes 32 consecutive pairs at a time: lane t reads pair t's mask word
+  // and list index from the record in one coalesced load, and the warp
+  // walks the 32 pairs with shuffles, with no dependent load of the
+  // record in the walk
+  const int* rowoff = r + o.rowoff;
+  const uint32_t* mask = reinterpret_cast<const uint32_t*>(r + o.mask);
+  const uint16_t* pre = reinterpret_cast<const uint16_t*>(r + o.pre);
+  const unsigned below = (1u << lane) - 1u;
+  const int pairs = n0 * nw;
+  for (int u0 = warp * 32; u0 < pairs; u0 += kWarps * 32) {
+    const int ul = u0 + lane;
+    unsigned ml = 0u;
+    int bl = 0;
+    if (ul < pairs) {
+      ml = mask[ul];
+      bl = drawn + rowoff[ul / nw] + pre[ul];
+    }
+    const int n = min(32, pairs - u0);
+    for (int t = 0; t < n; ++t) {
+      const unsigned m = __shfl_sync(kFull, ml, t);
+      const int base = __shfl_sync(kFull, bl, t);
+      if (!((m >> lane) & 1u)) continue;
+      const int u = u0 + t;
+      const int i = u / nw;
+      const int j = (u - i * nw) * 32 + lane;
+      const int at = base + __popc(m & below);
+      const Vec4<T> wi = swt[i];
       T dx, dy, dz;
-      lane_d(q, s.spos[j], dx, dy, dz);
-      T wx = rx, wy = ry, wz = rz, we = re;
+      lane_d(spos[i], spos[j], dx, dy, dz);
+      T wx = wi.x, wy = wi.y, wz = wi.z, we = wi.w;
       if (j >= n0) {
         // a directed block's candidate: its back sum goes to its own slot
-        const int tag = s.stag[j];
-        const int t = tag / cap;
-        const size_t sj =
-            static_cast<size_t>(
-                htf::buffer_cell(g, htf::shifted_cell(g, gc, t, 1))) *
-                cap +
-            (tag - t * cap);
-        const T vj = valid[sj];
-        const Vec4<T> cj = ct[sj];
-        wx = wx - T(2) * (cj.x * vj);
-        wy = wy - T(2) * (cj.y * vj);
-        wz = wz - T(2) * (cj.z * vj);
-        we = we + T(0.5) * (cj.w * vj);
+        const Vec4<T> wj = swt[j];
+        wx = wx - wj.x;
+        wy = wy - wj.y;
+        wz = wz - wj.z;
+        we = we + wj.w;
       }
-      gS[row + e] = dx * wx + dy * wy + dz * wz;
-      if (ENERGY) gU[row + e] = we;
+      gS[at] = dx * wx + dy * wy + dz * wz;
+      if (ENERGY) gU[at] = we;
     }
   }
 }
@@ -765,7 +791,7 @@ int launch_reduce(const HalfGeom& g, int n_cells, const int* rec,
                                               needed);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_slots = htf::out_slots(g);
+  const int n_slots = n_cells * g.cap;
   half_stencil_home<T, ENERGY, VIRIAL>
       <<<(n_slots + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
           sums, valid, g, n_slots, reinterpret_cast<Vec4<T>*>(forces4),
@@ -863,20 +889,19 @@ int group_reduce(const htf::GroupTab<T>& tab, const HalfGeom* geom,
 }
 
 template <class T>
-int reduce_bwd(const HalfGeom* geom, int n_cells, const int* rec,
-               const int* cell_base, const void* ct, const void* valid,
-               int needs_energy, const int* needed, int budget, void* gU,
-               void* gS, cudaStream_t st) {
+int reduce_bwd(const htf::GroupTab<T>& tab, const HalfGeom* geom,
+               const int* rec, const int* cell_base, int needs_energy,
+               const int* needed, int budget, void* gU, void* gS,
+               cudaStream_t st) {
   const HalfGeom g = *geom;
-  const long smem = reduce_smem_bytes<T>(g.cap);
+  const long smem = bwd_smem_bytes<T>(g.cap);
   auto kernel = needs_energy ? generic_reduce_bwd<T, true>
                              : generic_reduce_bwd<T, false>;
   int e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != 0) return e;
-  kernel<<<n_cells + kTailBlocks, kThreads, smem, st>>>(
-      g, n_cells, rec, rec_words<T>(g.cap), cell_base,
-      static_cast<const Vec4<T>*>(ct), static_cast<const T*>(valid), needed,
-      budget, static_cast<T*>(gU), static_cast<T*>(gS));
+  kernel<<<tab.n * g.nzl * g.nx * g.ny, kThreads, smem, st>>>(
+      tab, g, rec, rec_words<T>(g.cap), cell_base, needed, budget,
+      static_cast<T*>(gU), static_cast<T*>(gS));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -945,23 +970,40 @@ int htf_generic_reduce(int f64, const HalfGeom* geom, int n_cells,
                              forces4, virial, counter, needed, st);
 }
 
-// The reduction's backward: `rec`, `cell_base` and `needed` those of the
-// forward call (the list kernel's records and cell bases, the lanes it
-// needed), `ct` [n_slots][4] the cotangent of forces4, `valid` [n_slots],
-// `gU` (or null when !needs_energy) and `gS` [budget] the cotangents of
-// the pair function's U and s on the list, every lane written; floating
-// arrays of the scalar type `f64` picks. Returns cudaGetLastError() after
-// the launch (0 = ok).
-int htf_generic_reduce_bwd(int f64, const HalfGeom* geom, int n_cells,
-                           const int* rec, const int* cell_base,
-                           const void* ct, const void* valid,
-                           int needs_energy, const int* needed, int budget,
-                           void* gU, void* gS, void* stream) {
+// The reduction's backward over a group of `n` shards (a whole state's
+// list: n = 1, z0 = 0, prev = next = -1): `geom` the list call's HalfGeom
+// (nzl the shards' home layers), `ct` and `valid` per shard its forces' cotangent [rows][4] and valid
+// [rows] (a shard whose next shard is in the group may leave its halo
+// layer out: that layer is read from the next shard's first), `z0`,
+// `prev`, `next` as htf_generic_group_list takes them; `rec`,
+// `cell_base` and `needed` those of the forward call (the list kernel's
+// records and cell bases, the lanes it needed); `gU` (or null when
+// !needs_energy) and `gS` [budget] the cotangents of the pair
+// function's U and s on the list, every lane written; floating arrays of
+// the scalar type `f64` picks. Returns cudaGetLastError() after the
+// launch (0 = ok).
+int htf_generic_reduce_bwd(int f64, int n, const void* const* ct,
+                           const void* const* valid, const int* z0,
+                           const int* prev, const int* next,
+                           const HalfGeom* geom, const int* rec,
+                           const int* cell_base, int needs_energy,
+                           const int* needed, int budget, void* gU, void* gS,
+                           void* stream) {
+  if (n < 1 || n > htf::kMaxGroup) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return f64 ? reduce_bwd<double>(geom, n_cells, rec, cell_base, ct, valid,
-                                  needs_energy, needed, budget, gU, gS, st)
-             : reduce_bwd<float>(geom, n_cells, rec, cell_base, ct, valid,
-                                 needs_energy, needed, budget, gU, gS, st);
+  if (f64)
+    return reduce_bwd<double>(
+        htf::group_tab<double>(n, nullptr, nullptr, valid, z0, prev, next,
+                               ct),
+        geom, rec, cell_base, needs_energy, needed, budget, gU, gS, st);
+  return reduce_bwd<float>(
+      htf::group_tab<float>(n, nullptr, nullptr, valid, z0, prev, next, ct),
+      geom, rec, cell_base, needs_energy, needed, budget, gU, gS, st);
+}
+
+// Shared-memory bytes one block of generic_reduce_bwd needs.
+long htf_generic_reduce_bwd_smem(int f64, int cap) {
+  return f64 ? bwd_smem_bytes<double>(cap) : bwd_smem_bytes<float>(cap);
 }
 
 // The group's list (generic_group_list): `n` shards of one card in ring

@@ -35,20 +35,11 @@
 //               there by a small kernel beside the coefficients with the
 //               same edge sums.
 //
-// Slab mode (a z-slab shard of a mesh, HalfGeom's z0 and nzl: the port of
-// hoomd_tf_tpu/ops/cellwise_pallas.py:640-652, which runs the pallas_call
-// under shard_map on each device's block of z-slab cells, the halo in the
-// XLA rolls around it): the state arrays are the slab's buffer, its home
-// layers then one forward halo layer; block b is the global home cell
-// z0 nx ny + b, staged from the buffer (half_stencil_stage.cuh), and
-// half_stencil_home also writes the back sums pushed into the halo layer,
-// which the caller adds to the next shard's first layer. The masks are the
-// whole state's; only the order in which the boundary layer's back sums
-// are added differs. The whole-state mesh routes (training, the planes
-// route, mapped models) launch it per shard.
-//
-// Group mode (half_stencil_group_forces, half_stencil_group_home): the
-// shards one card holds, in ring order, in one launch each (GroupTab, a
+// Group mode (half_stencil_group_forces, half_stencil_group_home; the port
+// of hoomd_tf_tpu/ops/cellwise_pallas.py:640-652, which runs the
+// pallas_call under shard_map on each device's block of z-slab cells, the
+// halo in the XLA rolls around it): the shards one card holds, in ring
+// order, in one launch (GroupTab, a
 // __grid_constant__ parameter: per shard its buffer, z0 and its ring
 // neighbours in the group). Block b is home cell b - k H of shard k =
 // b / H, so a group of every shard has the unsharded grid and raw-sum
@@ -341,8 +332,7 @@ __device__ __forceinline__ void forces_block(
   }
 }
 
-// One block per home cell of one buffer (a whole state, or a z-slab
-// shard's buffer: block c is the global home cell z0 nx ny + c). Its body
+// One block per home cell of a whole state. Its body
 // is forces_block's for one buffer, written out: through forces_block,
 // ptxas -v (sm_90a) gives the double proxy form without energy
 // or virial 64 registers and a 12-byte spill; written out, 64 registers
@@ -369,7 +359,7 @@ half_stencil_forces(const T* __restrict__ pos, const int* __restrict__ types,
   const size_t home = static_cast<size_t>(c) * cap;
   int n0;
   const int total = htf::stage_half_stencil<T>(
-      g, g.z0 * g.nx * g.ny + c, rc2, pos, types, valid, box, spos, stag,
+      g, c, rc2, pos, types, valid, box, spos, stag,
       scratch, n0,
       htf::NoExtra(), [&](int t, int r) {
         // a slot out of every row's reach: its back sums are zero
@@ -481,7 +471,7 @@ int launch(const T* pos, const int* types, const T* valid, const T* box,
                                               sums);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_slots = htf::out_slots(g);
+  const int n_slots = n_cells * g.cap;
   half_stencil_home<T, ENERGY, VIRIAL>
       <<<(n_slots + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
           sums, valid, g, n_slots, reinterpret_cast<Vec4<T>*>(forces4),

@@ -8,14 +8,11 @@
 // The first launch writes the raw sums [n_ch][14][n_slots] (block 0 the
 // row side of the home slots, block t the candidate side of the slots of
 // cell c + off_t, at the home cell's index); half_stencil_home adds them.
-// In slab mode (half_stencil_stage.cuh, HalfGeom) n_slots counts the home
-// slots of the slab; half_stencil_home then takes back sums from home cells
-// only (slab_source) and writes the halo layer's reverse partial. In group
-// mode (GroupTab) the planes hold the home slots of every shard of the
-// group, shard after shard, and half_stencil_group_home takes a first-layer
-// slot's back sums from the previous shard's planes when it is in the
-// group, in the same order t = 1..13, so no reverse halo is written within
-// a group.
+// In group mode (GroupTab) the planes hold the home slots of every shard
+// of the group, shard after shard, and half_stencil_group_home takes a
+// first-layer slot's back sums from the previous shard's planes when it is
+// in the group, in the same order t = 1..13, so no reverse halo is written
+// within a group.
 
 #pragma once
 
@@ -31,22 +28,8 @@ struct Channels {
   static constexpr int kCount = 3 + (ENERGY ? 1 : 0) + (VIRIAL ? 6 : 0);
 };
 
-// The cell whose back sums of block t land on buffer cell c of a slab:
-// c - off_t, x and y periodic, z within the home layers, else -1 (a cell of
-// another shard, whose sums arrive as its reverse halo).
-__device__ __forceinline__ int slab_source(const HalfGeom& g, int c, int t) {
-  const int x0 = c % g.nx, y0 = (c / g.nx) % g.ny, z0 = c / (g.nx * g.ny);
-  const int z = z0 - g.off[t][2];
-  if (z < 0 || z >= g.nzl) return -1;
-  const int x = (x0 - g.off[t][0] + g.nx) % g.nx;
-  const int y = (y0 - g.off[t][1] + g.ny) % g.ny;
-  return x + g.nx * (y + g.ny * z);
-}
-
-// One thread per slot row of the launch (out_slots): the Newton push-back
-// and the finish, in T. The raw sums are [n_ch][14][home slots]; in slab
-// mode only home cells' sums are added, and the halo layer's rows take no
-// row side (slab_source).
+// One thread per slot row of a whole state: the Newton push-back and the
+// finish, in T. The raw sums are [n_ch][14][n_slots].
 template <class T, bool ENERGY, bool VIRIAL>
 __global__ void __launch_bounds__(kThreads)
 half_stencil_home(const T* __restrict__ sums, const T* __restrict__ valid,
@@ -62,21 +45,16 @@ half_stencil_home(const T* __restrict__ sums, const T* __restrict__ valid,
 #pragma unroll
   for (int k = 0; k < NCH; ++k) acc[k] = T(0);
   if (v != T(0)) {
-    const bool slab = is_slab(g);
-    const size_t plane = static_cast<size_t>(g.nzl) * g.nx * g.ny * g.cap;
+    const size_t plane = static_cast<size_t>(n_slots);
     const int c = i / g.cap, r = i - c * g.cap;
-    if (static_cast<size_t>(i) < plane) {
 #pragma unroll
-      for (int k = 0; k < NCH; ++k) {
-        const bool energy = ENERGY && k == 0;
-        const T cf = energy ? T(0.5) : (k < OF + 3 ? T(2) : T(-1));
-        acc[k] = cf * sums[k * kHalf * plane + i];
-      }
+    for (int k = 0; k < NCH; ++k) {
+      const bool energy = ENERGY && k == 0;
+      const T cf = energy ? T(0.5) : (k < OF + 3 ? T(2) : T(-1));
+      acc[k] = cf * sums[k * kHalf * plane + i];
     }
     for (int t = 1; t < kHalf; ++t) {
-      const int sc = slab ? slab_source(g, c, t)
-                          : htf::shifted_cell(g, c, t, -1);
-      if (sc < 0) continue;
+      const int sc = htf::shifted_cell(g, c, t, -1);
       const size_t src = static_cast<size_t>(sc) * g.cap + r;
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
@@ -139,8 +117,8 @@ __device__ __forceinline__ void write_slot(
 // from the last home layer of the shard before it in the group. A source
 // in a shard outside the group is skipped: its sums arrive as that
 // shard's reverse halo. A halo row is zero when the next shard is in the
-// group (that shard's pass reads the sums pushed into it), else it takes
-// the reverse-halo partial, as in slab mode.
+// group (that shard's pass reads the sums pushed into it; its valid row
+// is not read), else it takes the reverse-halo partial.
 template <class T, bool ENERGY, bool VIRIAL>
 __global__ void __launch_bounds__(kThreads)
 half_stencil_group_home(const T* __restrict__ sums,
@@ -158,11 +136,14 @@ half_stencil_group_home(const T* __restrict__ sums,
   const int k = static_cast<int>(i / rows);
   const int li = static_cast<int>(i - static_cast<size_t>(k) * rows);
   const bool halo = li >= home;
-  const T v = tab.valid[k][li];
+  // a halo row whose next shard is in the group is zero (its buffer may
+  // leave that layer out)
+  const bool linked = halo && tab.next[k] >= 0;
+  const T v = linked ? T(0) : tab.valid[k][li];
   T acc[NCH];
 #pragma unroll
   for (int m = 0; m < NCH; ++m) acc[m] = T(0);
-  if (v != T(0) && !(halo && tab.next[k] >= 0)) {
+  if (v != T(0)) {
     const size_t plane = static_cast<size_t>(tab.n) * home;
     const int c = li / g.cap, r = li - c * g.cap;
     if (!halo) {

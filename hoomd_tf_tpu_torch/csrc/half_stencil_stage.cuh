@@ -73,67 +73,42 @@ __host__ __device__ constexpr int stage_bytes() {
 
 // The plan's integers, passed by value: the grid, the capacity, whether the
 // box is tilted (its tilt row is then read), per half-stencil block t its
-// integer cell offset (ox, oy, oz), and the slab of a z-slab shard: its
-// first home layer z0 and its nzl home layers (z0 = 0, nzl = nz for a whole
-// state). The box itself is a device pointer.
+// integer cell offset (ox, oy, oz), and nzl, the home layers of each shard
+// a launch covers (nz for a whole state). The box itself is a device
+// pointer.
 //
-// Slab mode (nzl < nz; ops/cellwise.py::half_stencil_slab_plain). The state
-// arrays hold the slab's buffer: its home layers z0 .. z0 + nzl - 1, then
-// the forward halo layer (z0 + nzl) mod nz, each a layer of nx * ny * cap
-// slot rows in z-major order. The half stencil reaches z + 1 only, so the
-// staging of the home cells never reads past that layer. Block b of a
-// launch is the home cell z0 * nx * ny + b of the global grid: its staging
-// computes centers and offsets from global cells, so its masks are those
-// of the whole state, and reads each cell's rows at buffer_cell. The raw
-// sums are indexed by the home slots; half_stencil_home writes the home
-// slots and, for the halo layer, the back sums the last home layer pushed
-// into it (the reverse halo, which the caller adds to the next shard).
-//
-// Group mode (GroupTab below): one launch over the shards of one card, each
-// of nzl layers (HalfGeom's z0 unused); the staging reads a shard's rows
-// through ShardRows, its forward halo layer in place from the next shard
-// of the group where there is one.
+// Group mode (GroupTab below): one launch over the z-slab shards of one
+// card, each of nzl home layers; the staging reads a shard's rows through
+// ShardRows, its forward halo layer (the layer z0 + nzl, mod nz: the half
+// stencil reaches z + 1 only) in place from the next shard of the group
+// where there is one, else from the shard's own halo rows. A block's
+// staging computes centers and offsets from global cells, so its masks are
+// those of the whole state.
 struct HalfGeom {
   int nx, ny, nz, cap, tilted;
   int off[kHalf][3];
-  int z0, nzl;
+  int nzl;
 };
 
-__host__ __device__ __forceinline__ bool is_slab(const HalfGeom& g) {
-  return g.nzl < g.nz;
-}
-
-// Slot rows a launch writes: the home layers, and in slab mode the halo.
+// Slot rows of one shard's output: its home layers, and below a whole
+// state its halo layer (the reverse partial).
 __host__ __device__ __forceinline__ int out_slots(const HalfGeom& g) {
-  return (g.nzl + (is_slab(g) ? 1 : 0)) * g.nx * g.ny * g.cap;
+  return (g.nzl + (g.nzl < g.nz ? 1 : 0)) * g.nx * g.ny * g.cap;
 }
 
-// The buffer cell holding global cell `cell` in the buffer of the slab
-// whose first home layer is z0 (itself for a whole state).
-__device__ __forceinline__ int buffer_cell_at(const HalfGeom& g, int z0,
-                                              int cell) {
-  const int layer = g.nx * g.ny;
-  const int z = cell / layer;
-  int lz = z - z0;
-  if (lz < 0) lz += g.nz;
-  return cell + (lz - z) * layer;
-}
-
-__device__ __forceinline__ int buffer_cell(const HalfGeom& g, int cell) {
-  return buffer_cell_at(g, g.z0, cell);
-}
-
-// Where the staging reads a cell's slot rows. OneBuffer: one buffer, a
-// whole state's or a z-slab shard's (HalfGeom's z0 and nzl). `cell` gives
-// a cell's code (here its buffer cell), `slot` a slot row of the code's
-// buffer, and pos / types / valid that buffer's arrays.
+// Where the staging reads a cell's slot rows. OneBuffer: a whole state.
+// `cell` gives a cell's code (here the cell itself), `slot` a slot row of
+// the code's buffer, and pos / types / valid that buffer's arrays; `aux`
+// an array a kernel reads beside them at the same slot rows (K2's
+// cotangent; null where unused).
 template <class T>
 struct OneBuffer {
   const T* pos;
   const int* types;
   const T* valid;
-  __device__ __forceinline__ int cell(const HalfGeom& g, int c) const {
-    return buffer_cell(g, c);
+  const void* aux;
+  __device__ __forceinline__ int cell(const HalfGeom&, int c) const {
+    return c;
   }
   __device__ __forceinline__ size_t slot(int code, int cap, int r) const {
     return static_cast<size_t>(code) * cap + r;
@@ -141,15 +116,20 @@ struct OneBuffer {
   __device__ __forceinline__ const T* p(int) const { return pos; }
   __device__ __forceinline__ const int* ty(int) const { return types; }
   __device__ __forceinline__ const T* v(int) const { return valid; }
+  __device__ __forceinline__ const void* a(int) const { return aux; }
 };
 
 // A group: the z-slab shards one card holds, in ring order (at most
 // kMaxGroup), passed by value as a __grid_constant__ kernel parameter.
 // Per shard its buffer's arrays (home layers, then the forward halo
-// layer), its first home layer z0 and, as indices into the group, the
-// shard before it and after it on the ring when that shard is in the
-// group, else -1. Every shard has HalfGeom's nzl home layers; its raw sums
-// and outputs lie at its index times its slots in the group's arrays.
+// layer, which a shard whose next shard is in the group may leave out:
+// nothing reads it), an auxiliary array read at the same slot rows
+// (OneBuffer's aux; null where unused), its first home layer z0 and, as
+// indices into the group, the shard before it and after it on the ring
+// when that shard is in the group, else -1. Every shard has HalfGeom's nzl
+// home layers; its raw sums and outputs lie at its index times its slots
+// in the group's arrays. A whole state is the group of one with z0 = 0,
+// nzl = nz and no neighbours.
 constexpr int kMaxGroup = 16;
 
 template <class T>
@@ -157,23 +137,27 @@ struct GroupTab {
   const T* pos[kMaxGroup];
   const int* types[kMaxGroup];
   const T* valid[kMaxGroup];
+  const void* aux[kMaxGroup];
   int z0[kMaxGroup], prev[kMaxGroup], next[kMaxGroup];
   int n;
 };
 
 // The GroupTab of a group's host arrays (the C entry points' arguments):
-// n shards' buffers, first home layers and ring neighbours in the group.
+// n shards' buffers (pos, types and aux may be null), first home layers
+// and ring neighbours in the group.
 template <class T>
 inline GroupTab<T> group_tab(int n, const void* const* pos,
                              const void* const* types,
                              const void* const* valid, const int* z0,
-                             const int* prev, const int* next) {
+                             const int* prev, const int* next,
+                             const void* const* aux = nullptr) {
   GroupTab<T> tab{};
   tab.n = n;
   for (int k = 0; k < n; ++k) {
-    tab.pos[k] = static_cast<const T*>(pos[k]);
+    tab.pos[k] = pos ? static_cast<const T*>(pos[k]) : nullptr;
     tab.types[k] = types ? static_cast<const int*>(types[k]) : nullptr;
     tab.valid[k] = static_cast<const T*>(valid[k]);
+    tab.aux[k] = aux ? aux[k] : nullptr;
     tab.z0[k] = z0[k];
     tab.prev[k] = prev[k];
     tab.next[k] = next[k];
@@ -192,6 +176,7 @@ struct ShardRows {
   const T *pos, *pos_n;
   const int *types, *types_n;
   const T *valid, *valid_n;
+  const void *aux, *aux_n;
   int z0;
   bool has_next;
 
@@ -202,9 +187,11 @@ struct ShardRows {
     pos = tab.pos[k];
     types = tab.types[k];
     valid = tab.valid[k];
+    aux = tab.aux[k];
     pos_n = tab.pos[m];
     types_n = tab.types[m];
     valid_n = tab.valid[m];
+    aux_n = tab.aux[m];
     z0 = tab.z0[k];
   }
   __device__ __forceinline__ int cell(const HalfGeom& g, int c) const {
@@ -226,6 +213,9 @@ struct ShardRows {
   }
   __device__ __forceinline__ const T* v(int code) const {
     return (code & kNextRows) ? valid_n : valid;
+  }
+  __device__ __forceinline__ const void* a(int code) const {
+    return (code & kNextRows) ? aux_n : aux;
   }
 };
 
@@ -312,7 +302,7 @@ __device__ __forceinline__ Vec3<T> relative(const T* p, const T* ce,
 }
 
 struct NoExtra {
-  __device__ __forceinline__ void operator()(int, size_t) const {}
+  __device__ __forceinline__ void operator()(int, int, size_t) const {}
 };
 
 struct NoSkip {
@@ -329,8 +319,9 @@ __device__ __forceinline__ T box_gap(T v, T lo, T hi) {
 // where `src` (OneBuffer, ShardRows) keeps them, into `spos` and `stag`
 // (each sized for 14 * cap entries), the directed blocks' only within rc2
 // of the home rows' bounding box; `scratch` is stage_bytes<T>() bytes.
-// `extra(k, slot)` stages what else a kernel needs of entry k (a slot of a
-// OneBuffer); `skipped(t, r)` is called for each valid slot of the
+// `extra(k, code, slot)` stages what else a kernel needs of entry k (slot
+// row `slot` of the buffer of cell code `code`: src.a(code), src.v(code));
+// `skipped(t, r)` is called for each valid slot of the
 // directed blocks left out. Returns the number staged and sets `n_home`.
 // Every thread of the block must call it; it ends with a barrier.
 template <class T, class Src, class Extra, class Skipped>
@@ -399,7 +390,7 @@ __device__ int stage_rows(const HalfGeom& g, int c, T rc2, const Src& src,
       const int k = base + before + __popc(b & ((1u << lane) - 1u));
       spos[k] = q;
       stag[k] = s;
-      extra(k, slot);
+      extra(k, code, slot);
     }
     base += total;
     __syncthreads();  // the per-warp counts are reused
@@ -441,7 +432,7 @@ __device__ int stage_rows(const HalfGeom& g, int c, T rc2, const Src& src,
   return base;
 }
 
-// stage_rows of one buffer (a whole state, or a z-slab shard's buffer).
+// stage_rows of a whole state.
 template <class T, class Extra, class Skipped>
 __device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
                                   const T* __restrict__ pos,
@@ -451,8 +442,8 @@ __device__ int stage_half_stencil(const HalfGeom& g, int c, T rc2,
                                   int* stag, unsigned char* scratch,
                                   int& n_home, Extra extra,
                                   Skipped skipped) {
-  return stage_rows<T>(g, c, rc2, OneBuffer<T>{pos, types, valid}, box,
-                       spos, stag, scratch, n_home, extra, skipped);
+  return stage_rows<T>(g, c, rc2, OneBuffer<T>{pos, types, valid, nullptr},
+                       box, spos, stag, scratch, n_home, extra, skipped);
 }
 
 // The row sweep's split of the block over (row, candidate segment) pairs:

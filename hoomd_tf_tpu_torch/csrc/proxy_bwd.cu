@@ -35,15 +35,19 @@
 // deterministic, and any P * 2K works (the Pallas kernel's one 128-lane
 // output row capped 2K * P at 128).
 //
-// Slab mode (a z-slab shard of a mesh, HalfGeom's z0 and nzl; the
-// training backward under a mesh): the state arrays and the cotangent are
-// the slab's buffer, its home layers then the forward halo layer
-// (half_stencil_stage.cuh), and block c is the global home cell
-// z0 nx ny + c, staged from the buffer, its candidates' cotangents read at
-// their buffer slots. The launch covers the slab's home cells only. Each
-// unordered pair belongs to one home cell's half stencil, so the shards'
-// moments, summed, are the whole state's; a halo row's cotangent is the
-// next shard's first home layer's, which the reverse halo was added to.
+// Group mode (the training backward under a mesh; GroupTab and ShardRows
+// of half_stencil_stage.cuh, as K1's group launch): one launch pair over
+// every home cell of the z-slab shards one card holds. Block c is home
+// cell c - k H of shard k = c / H, staged from the shard's buffer, its
+// candidates' cotangents read at their own slots: a halo cell's in place
+// from the next shard's first home layer when that shard is in the group,
+// else from the shard's halo rows (the next shard's cotangent there,
+// where the reverse halo was added). The blocks run in the group's global
+// cell order, so the summing pass adds the cells in that order: a group
+// of every shard gives the whole state's moments bit for bit, and groups
+// on several cards give parts whose sum is the whole state's (each
+// unordered pair belongs to one home cell's half stencil). A z-slab
+// shard alone is the group of one with its halo layer.
 //
 // Many types: the per-thread sets take T * 2K * kThreads scalars, past
 // the block's shared memory from three types up in double (K = 16, cap
@@ -157,18 +161,16 @@ struct GroupPair {
   }
 };
 
-// KR > 0: untyped with K = KR, moments in registers; KR == 0: per-thread
-// moment sets in shared memory (typed, or another K).
-template <class S, bool ENERGY, int KR>
-__global__ void __launch_bounds__(kThreads)
-proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
-                 const S* __restrict__ valid, const S* __restrict__ box,
-                 const Vec4<S>* __restrict__ ct, HalfGeom g,
-                 const S* __restrict__ rcm, int rcm_t, int K, int T,
-                 int G, S rc2, S min_r2, S mid, S inv_half, S u_hi,
-                 S* __restrict__ partial) {
+// The moments of global home cell `gc`, its rows, valid and cotangent
+// (aux) read where `src` keeps them (OneBuffer, ShardRows), written as row
+// `c` of `partial`. KR > 0: untyped with K = KR, moments in registers;
+// KR == 0: per-thread moment sets in shared memory (typed, or another K).
+template <class S, bool ENERGY, int KR, class Src>
+__device__ __forceinline__ void moments_block(
+    const Src& src, int gc, int c, const S* __restrict__ box, HalfGeom g,
+    const S* __restrict__ rcm, int rcm_t, int K, int T, int G, S rc2,
+    S min_r2, S mid, S inv_half, S u_hi, S* __restrict__ partial) {
   const int C = kHalf * g.cap;
-  const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -190,14 +192,11 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
 
   for (int i = tid; i < M; i += kThreads) acc[i] = S(0);
   int n0;
-  // block c is the home cell z0 nx ny + c of the global grid (slab mode;
-  // c itself for a whole state)
-  const int total = htf::stage_half_stencil<S>(
-      g, g.z0 * g.nx * g.ny + c, rc2, pos, types, valid, box, spos, stag,
-      scratch, n0,
-      [&](int k, size_t slot) {
-        const Vec4<S> v = ct[slot];
-        const S w = valid[slot];
+  const int total = htf::stage_rows<S>(
+      g, gc, rc2, src, box, spos, stag, scratch, n0,
+      [&](int k, int code, size_t slot) {
+        const Vec4<S> v = static_cast<const Vec4<S>*>(src.a(code))[slot];
+        const S w = src.v(code)[slot];
         sct[k] = htf::vec4(v.x * w, v.y * w, v.z * w, v.w * w);
       },
       htf::NoSkip());
@@ -335,6 +334,41 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
     partial[static_cast<size_t>(c) * M_all + gp.column(i, K2)] = acc[i];
 }
 
+// One block per home cell of a whole state.
+template <class S, bool ENERGY, int KR>
+__global__ void __launch_bounds__(kThreads)
+proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
+                 const S* __restrict__ valid, const S* __restrict__ box,
+                 const Vec4<S>* __restrict__ ct, HalfGeom g,
+                 const S* __restrict__ rcm, int rcm_t, int K, int T,
+                 int G, S rc2, S min_r2, S mid, S inv_half, S u_hi,
+                 S* __restrict__ partial) {
+  const int c = blockIdx.x;
+  moments_block<S, ENERGY, KR>(htf::OneBuffer<S>{pos, types, valid, ct}, c,
+                               c, box, g, rcm, rcm_t, K, T, G, rc2, min_r2,
+                               mid, inv_half, u_hi, partial);
+}
+
+// One block per home cell of a group's shards (GroupTab, the cotangent in
+// its aux arrays): block c is home cell c - k H of shard k = c / H, which
+// is the group's global cell order (the shards in ring order, z0
+// ascending), so the summing pass adds the cells in that order.
+template <class S, bool ENERGY, int KR>
+__global__ void __launch_bounds__(kThreads)
+proxy_bwd_group_kernel(const __grid_constant__ htf::GroupTab<S> tab,
+                       const S* __restrict__ box, HalfGeom g,
+                       const S* __restrict__ rcm, int rcm_t, int K, int T,
+                       int G, S rc2, S min_r2, S mid, S inv_half, S u_hi,
+                       S* __restrict__ partial) {
+  const int c = blockIdx.x;
+  const int H = g.nzl * g.nx * g.ny;
+  const int k = c / H;
+  moments_block<S, ENERGY, KR>(htf::ShardRows<S>(tab, k),
+                               tab.z0[k] * g.nx * g.ny + (c - k * H), c, box,
+                               g, rcm, rcm_t, K, T, G, rc2, min_r2, mid,
+                               inv_half, u_hi, partial);
+}
+
 // out[m] = sum over cells of partial[cell][m], in a fixed order: one block
 // per m, a strided per-thread sum, then a shuffle tree and the warps in
 // order.
@@ -397,54 +431,68 @@ struct Args {
   S* partial;
 };
 
+// A launch's shards: null for a whole state (Args' arrays), else the
+// group's table (its cotangent in the aux arrays).
 template <class S, bool ENERGY, int KR>
-int launch_moments(const Args<S>& a, const HalfGeom& g, int n_cells,
-                   cudaStream_t s) {
+int launch_moments(const Args<S>& a, const htf::GroupTab<S>* tab,
+                   const HalfGeom& g, int n_cells, cudaStream_t s) {
   const long smem = smem_bytes<S>(g.cap, a.K, a.T, a.G);
   auto kernel = proxy_bwd_kernel<S, ENERGY, KR>;
+  auto group = proxy_bwd_group_kernel<S, ENERGY, KR>;
+  const void* fn = tab ? reinterpret_cast<const void*>(group)
+                       : reinterpret_cast<const void*>(kernel);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(n_cells, group_rows(a.T, a.G));
-  kernel<<<grid, kThreads, smem, s>>>(
-      a.pos, a.types, a.valid, a.box, a.ct, g, a.rcm, a.rcm_t, a.K, a.T,
-      a.G, a.rc2, a.min_r2, a.mid, a.inv_half, a.u_hi, a.partial);
+  if (tab)
+    group<<<grid, kThreads, smem, s>>>(
+        *tab, a.box, g, a.rcm, a.rcm_t, a.K, a.T, a.G, a.rc2, a.min_r2,
+        a.mid, a.inv_half, a.u_hi, a.partial);
+  else
+    kernel<<<grid, kThreads, smem, s>>>(
+        a.pos, a.types, a.valid, a.box, a.ct, g, a.rcm, a.rcm_t, a.K, a.T,
+        a.G, a.rc2, a.min_r2, a.mid, a.inv_half, a.u_hi, a.partial);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class S, bool ENERGY>
-int dispatch_degree(const Args<S>& a, const HalfGeom& g, int n_cells,
-                    cudaStream_t s) {
+int dispatch_degree(const Args<S>& a, const htf::GroupTab<S>* tab,
+                    const HalfGeom& g, int n_cells, cudaStream_t s) {
   switch (register_degree(a.K, a.T)) {
     case 16:
-      return launch_moments<S, ENERGY, 16>(a, g, n_cells, s);
+      return launch_moments<S, ENERGY, 16>(a, tab, g, n_cells, s);
     case 8:
-      return launch_moments<S, ENERGY, 8>(a, g, n_cells, s);
+      return launch_moments<S, ENERGY, 8>(a, tab, g, n_cells, s);
     default:
-      return launch_moments<S, ENERGY, 0>(a, g, n_cells, s);
+      return launch_moments<S, ENERGY, 0>(a, tab, g, n_cells, s);
   }
 }
 
+// Both passes over n_cells home cells: of a whole state (tab null) or of
+// a group's shards.
 template <class S>
 int moments(const void* pos, const int* types, const void* valid,
-            const void* box, const void* ct, const HalfGeom* geom,
-            int n_cells, const void* rcm, int rcm_t, int K, int ntypes,
-            int group, double rc2, double min_r2, double mid, double inv_half,
-            double u_hi, int needs_energy, void* partial, void* out,
-            cudaStream_t s) {
+            const void* box, const void* ct, const htf::GroupTab<S>* tab,
+            const HalfGeom* geom, int n_cells, const void* rcm, int rcm_t,
+            int K, int ntypes, int group, double rc2, double min_r2,
+            double mid, double inv_half, double u_hi, int needs_energy,
+            void* partial, void* out, cudaStream_t s) {
   const HalfGeom g = *geom;
   const Args<S> a{static_cast<const S*>(pos), static_cast<const S*>(valid),
                   static_cast<const S*>(box), static_cast<const S*>(rcm),
                   types, static_cast<const Vec4<S>*>(ct), rcm_t, K, ntypes,
-                  group < 1 ? ntypes : group, static_cast<S>(rc2), static_cast<S>(min_r2),
-                  static_cast<S>(mid), static_cast<S>(inv_half),
-                  static_cast<S>(u_hi), static_cast<S*>(partial)};
+                  group < 1 ? ntypes : group, static_cast<S>(rc2),
+                  static_cast<S>(min_r2), static_cast<S>(mid),
+                  static_cast<S>(inv_half), static_cast<S>(u_hi),
+                  static_cast<S*>(partial)};
   const int M = ntypes * (ntypes + 1) / 2 * 2 * K;
-  const int e = needs_energy ? dispatch_degree<S, true>(a, g, n_cells, s)
-                             : dispatch_degree<S, false>(a, g, n_cells, s);
+  const int e = needs_energy
+                    ? dispatch_degree<S, true>(a, tab, g, n_cells, s)
+                    : dispatch_degree<S, false>(a, tab, g, n_cells, s);
   if (e != 0) return e;
   reduce_partials<S><<<M, kThreads, 0, s>>>(static_cast<const S*>(partial),
                                             n_cells, M, static_cast<S*>(out));
@@ -480,14 +528,49 @@ int htf_proxy_bwd(int f64, const void* pos, const int* types,
                   double mid, double inv_half, double u_hi, int needs_energy,
                   void* partial, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? moments<double>(pos, types, valid, box, ct, geom, n_cells,
-                               rcm, rcm_t, K, ntypes, group, rc2, min_r2,
-                               mid, inv_half, u_hi, needs_energy, partial,
-                               out, s)
-             : moments<float>(pos, types, valid, box, ct, geom, n_cells,
-                              rcm, rcm_t, K, ntypes, group, rc2, min_r2,
-                              mid, inv_half, u_hi, needs_energy, partial,
-                              out, s);
+  return f64 ? moments<double>(pos, types, valid, box, ct, nullptr, geom,
+                               n_cells, rcm, rcm_t, K, ntypes, group, rc2,
+                               min_r2, mid, inv_half, u_hi, needs_energy,
+                               partial, out, s)
+             : moments<float>(pos, types, valid, box, ct, nullptr, geom,
+                              n_cells, rcm, rcm_t, K, ntypes, group, rc2,
+                              min_r2, mid, inv_half, u_hi, needs_energy,
+                              partial, out, s);
+}
+
+// Both passes over a group of `n` z-slab shards on one card (not to be
+// confused with `group`, the types a type group holds): their buffers'
+// arrays `pos`, `types` (or null when untyped), `valid` and `ct` (the
+// cotangent's buffers) as host arrays of pointers, their first home
+// layers `z0` and ring neighbours in the group `prev`, `next`, as
+// htf_half_stencil_group takes them; `geom` a HalfGeom of their nzl;
+// `partial` [n H][P * 2K] (H home cells a shard), its rows in the group's
+// cell order; the rest as htf_proxy_bwd.
+int htf_proxy_bwd_group(int f64, int n, const void* const* pos,
+                        const void* const* types, const void* const* valid,
+                        const void* const* ct, const int* z0,
+                        const int* prev, const int* next, const void* box,
+                        const HalfGeom* geom, const void* rcm, int rcm_t,
+                        int K, int ntypes, int group, double rc2,
+                        double min_r2, double mid, double inv_half,
+                        double u_hi, int needs_energy, void* partial,
+                        void* out, void* stream) {
+  if (n < 1 || n > htf::kMaxGroup) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_cells = n * geom->nzl * geom->nx * geom->ny;
+  if (f64) {
+    const auto tab =
+        htf::group_tab<double>(n, pos, types, valid, z0, prev, next, ct);
+    return moments<double>(nullptr, nullptr, nullptr, box, nullptr, &tab,
+                           geom, n_cells, rcm, rcm_t, K, ntypes, group, rc2,
+                           min_r2, mid, inv_half, u_hi, needs_energy,
+                           partial, out, s);
+  }
+  const auto tab =
+      htf::group_tab<float>(n, pos, types, valid, z0, prev, next, ct);
+  return moments<float>(nullptr, nullptr, nullptr, box, nullptr, &tab, geom,
+                        n_cells, rcm, rcm_t, K, ntypes, group, rc2, min_r2,
+                        mid, inv_half, u_hi, needs_energy, partial, out, s);
 }
 
 const char* htf_proxy_error_string(int code) {

@@ -68,8 +68,8 @@ never takes K1's fast routes or the probe (the JAX package's rule).
 Under a device mesh (``Simulation(mesh=)``, :mod:`..parallel`) on
 ``'cellwise'`` the slot state of a run lives per z-slab shard, each
 shard's rows on its own device (:class:`.slots.SlabSlots`,
-:class:`.state.SlabState`): K1's slab mode reads each shard's buffer in
-place (:func:`..ops.cellwise.resident_pair_forces`, the halo exchange
+:class:`.state.SlabState`): K1's group launch reads each shard's buffer
+in place (:func:`..ops.cellwise.resident_pair_forces`, the halo exchange
 written out), the integrators run per shard with the thermostat's and
 barostat's sums added over the shards, each shard repacks its own rows
 with the particles of its neighbours' boundary layers (the migrating
@@ -77,8 +77,9 @@ repack), and the particle-order state is gathered on the mesh's first
 device at the run's end only. Online training, a mapped model and a
 SimModel the probe rejects keep the whole slot state on the first device
 and split their pair work instead (:func:`..ops.cellwise.
-analytic_pair_forces` with ``mesh=``, the backward per shard through
-:func:`..ops.pair_train.pair_train_forces`, the planes built per shard).
+analytic_pair_forces` with ``mesh=``, one group call a device; the
+backward one a device through :func:`..ops.pair_train.pair_train_forces`;
+the planes built per shard).
 The packed routes keep the particle-order state whole: on ``'n2'`` the
 dense build is split into contiguous particle rows, on the cell list
 into z-slabs of cells (kernel K3's slab mode on the card), on
@@ -156,9 +157,10 @@ class Simulation:
         ``mesh.devices[0]`` (the simulation's device). On ``'cellwise'``
         the plan keeps ``nz % S == 0`` and, during a run, shard ``s``
         keeps the slot rows of its z-slab and one forward halo layer on
-        ``mesh.devices[s]`` (:class:`.slots.SlabSlots`): K1's slab mode
-        runs on them in place, the forward halo copied from the next shard
-        before each evaluation and the reverse halo added into it after;
+        ``mesh.devices[s]`` (:class:`.slots.SlabSlots`): K1's group launch
+        runs on each device's shards in place, the forward halo copied
+        from a next shard on another device before each evaluation and
+        the reverse halo added into it after;
         the integrators (NPT too), the built-in forces, ``period`` and
         logging act per shard, the sums of the thermostat, the barostat
         and the log added on the first device; each shard repacks its own
@@ -166,10 +168,12 @@ class Simulation:
         particle-order state is gathered at a run's end. Online training,
         a mapped model and the planes route of a SimModel the probe
         rejects keep the whole slot state on the first device instead:
-        the slab buffers are copied from it per evaluation, the training
-        backward runs per shard (K2 or ``generic_reduce_bwd`` in slab
-        mode), the planes are built per shard and the model runs once on
-        all rows. On ``'n2'`` each shard builds the dense list of its
+        each device makes one group call over its shards on its rows of
+        that state (views on the first device, one copy on another), the
+        training backward too (K2's group mode, or one list, one
+        pair-function call and ``generic_reduce_bwd`` over the group),
+        the planes are built per shard and the model runs once on all
+        rows. On ``'n2'`` each shard builds the dense list of its
         contiguous particle rows on its device, on ``'cell'`` /
         ``'pallas'`` each shard selects the rows of its z-slab of cells
         (K3's slab mode on the card, or the sort method; the packed grid

@@ -300,7 +300,7 @@ class SlabSlots:
     :class:`.state.SlabState`, and ``valid``, ``orig`` and ``ref`` in
     ``aux`` as :class:`.state.Shards`. Each holds ``(nzl + 1) * layer``
     rows: the home layers in slot order, then one forward halo layer
-    (:func:`..ops.cellwise.slab_rows`), which K1's slab mode reads in
+    (:func:`..ops.cellwise.slab_rows`), which K1's group launch reads in
     place (:func:`..ops.cellwise.resident_pair_forces` writes its
     positions before each evaluation; the repack writes its types and
     ``valid``). The halo rows are otherwise inert: zero velocity, force

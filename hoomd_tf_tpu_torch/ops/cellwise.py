@@ -826,25 +826,55 @@ def mesh_slabs(plan, mesh, shard_axis=None):
             enumerate(slab_layers(plan, mesh.shape[axis]))]
 
 
-def gather_slabs(outs, plan, primary):
-    """The whole state's ``(forces4, virial or None)`` on ``primary`` from
-    each shard's output over its slab buffer's rows (in shard order): the
-    home rows, with each shard's reverse halo (its buffer's last layer)
-    added to the next shard's first layer. Differentiable: the gradient
-    of a shard's output is its slab buffer of the cotangent
-    (:func:`slab_buffer`)."""
+def group_buffers(t, plan, group, device=None):
+    """Each member's rows of the slot-ordered whole state ``t`` for a call
+    over ``group`` (a :class:`SlabGroup`), in group order: its home layers,
+    then its forward halo layer (:func:`slab_buffer`) only when its next
+    shard lies outside the group (a linked member's halo is read in place
+    from the next member's first home layer). On ``t``'s device the
+    members are views of its rows (a copy only for a halo that wraps to
+    layer 0 and lies outside the group); on another ``device`` one joined
+    buffer of every member's rows is copied there once and the members are
+    views of it."""
     nx, ny, _ = plan.grid
     layer = nx * ny * plan.capacity
-    fs, ws = [], []
-    for s, (f, w) in enumerate(outs):
-        n = f.shape[0] - layer
-        rf, rw = outs[s - 1]
-        rf, f = to_device(rf[-layer:], primary), to_device(f[:n], primary)
-        fs += [f[:layer] + rf, f[layer:]]
-        if w is not None:
-            rw, w = to_device(rw[-layer:], primary), to_device(w[:n], primary)
-            ws += [w[:layer] + rw, w[layer:]]
-    return torch.cat(fs), (torch.cat(ws) if ws else None)
+    parts = [t[z0 * layer:(z0 + nzl) * layer] if n >= 0 else
+             slab_buffer(t, plan, z0, nzl)
+             for (z0, nzl), n in zip(group.slabs, group.next)]
+    if device is None or torch.device(device) == t.device:
+        return parts
+    joined = to_device(parts[0] if len(parts) == 1 else torch.cat(parts),
+                       device)
+    return list(joined.split([x.shape[0] for x in parts]))
+
+
+def gather_groups(outs, groups, plan, primary):
+    """The whole state's ``(forces4, virial or None)`` on ``primary`` from
+    each group's outputs (``outs[i] = (forces4, virial or None)`` of
+    ``groups[i]``, lists over its members' buffer rows): every shard's home
+    rows in shard order, and the reverse halo of a shard whose next shard
+    lies outside its group (its halo rows) added to that shard's first
+    layer. Differentiable: a shard's output gets its home rows' cotangent
+    and, in those halo rows, the next shard's first layer's."""
+    nx, ny, _ = plan.grid
+    layer = nx * ny * plan.capacity
+    S = sum(len(g.members) for g in groups)
+    result = []
+    for c in range(2):
+        if outs[0][c] is None:
+            result.append(None)
+            continue
+        home, halo = [None] * S, {}
+        for g, out in zip(groups, outs):
+            for k, (s, (_, nzl)) in enumerate(zip(g.members, g.slabs)):
+                home[s] = to_device(out[c][k][:nzl * layer], primary)
+                if g.next[k] < 0:
+                    halo[(s + 1) % S] = to_device(out[c][k][nzl * layer:],
+                                                  primary)
+        for s, h in halo.items():
+            home[s] = torch.cat([home[s][:layer] + h, home[s][layer:]])
+        result.append(torch.cat(home))
+    return tuple(result)
 
 
 def _slab_relative_coords(positions, valid, plan, lo, z0, nzl,
@@ -1014,13 +1044,14 @@ def _slab_groups(slabs, whole):
 
 def group_rows(t, group, k, layer):
     """Member ``k``'s buffer of ``t`` (the members' buffers in group order)
-    as K1's group launch reads it: its own rows, the forward halo layer
-    taken from the next member's first home layer when that is in the
-    group."""
+    as K1's group launch reads it: its own home rows, the forward halo
+    layer taken from the next member's first home layer when that is in
+    the group (a linked member's own buffer may hold its home layers
+    only, :func:`group_buffers`)."""
     n = group.next[k]
     if n < 0:
         return t[k]
-    return torch.cat([t[k][:-layer], t[n][:layer]])
+    return torch.cat([t[k][:group.slabs[k][1] * layer], t[n][:layer]])
 
 
 def assemble_group(planes, valid, plan, group, needs_energy, needs_virial):
@@ -1030,7 +1061,7 @@ def assemble_group(planes, valid, plan, group, needs_energy, needs_virial):
     across the boundary from the previous member's last home layer when
     that is in the group, then finished with the member's ``valid``. A
     member's halo rows are zero when its next member is in the group, else
-    they hold the reverse-halo partial (slab mode's).
+    they hold the reverse-halo partial.
 
     :returns: ``(forces4, virial or None)``: lists over the members'
         buffer rows."""
@@ -1052,7 +1083,8 @@ def assemble_group(planes, valid, plan, group, needs_energy, needs_virial):
         if group.next[k] >= 0:
             acc = torch.cat([acc[:, :-layer], acc.new_zeros(
                 (acc.shape[0], layer))], dim=1)
-        f, w = finish_forces(acc, valid[k], needs_energy, needs_virial)
+        f, w = finish_forces(acc, group_rows(valid, group, k, layer),
+                             needs_energy, needs_virial)
         fs.append(f)
         ws.append(w)
     return fs, (ws if needs_virial else None)
@@ -1071,11 +1103,14 @@ def half_stencil_group_plain(positions, types, valid, plan, lo, pair_fn,
     ``t = 1..13``, so no reverse halo and no halo copy within the group.
 
     :param positions, types, valid: the members' buffers in group order
-        (``(nzl + 1) nx ny cap`` rows each, :func:`slab_rows`).
+        (``(nzl + 1) nx ny cap`` rows each, :func:`slab_rows`; a member
+        whose next member is in the group may hold its home layers only,
+        :func:`group_buffers`).
     :param geometry: the global plan's :class:`SlotGeometry` on their
         device.
     :returns: ``(forces4, virial or None)``: lists over the members'
-        buffer rows, as :func:`assemble_group`.
+        buffer rows (``(nzl + 1) nx ny cap`` each), as
+        :func:`assemble_group`.
     """
     layer = halo_layer(plan)
     planes = []
@@ -1093,61 +1128,38 @@ def _sharded_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
                          shard_axis, needs_virial, min_r2, with_types,
                          rcut_matrix, stencil, needs_energy, form, geometry,
                          lanes, shard_fn):
-    """:func:`analytic_pair_forces` over the z-slabs of ``mesh``: each
-    shard's slab buffer (home layers and forward halo layer) copied to its
-    device, K1's slab mode there (:func:`.cellwise_cuda.
-    half_stencil_pair_forces` or :func:`.cellwise_cuda.
-    generic_pair_forces` with ``slab=``; their slab plain versions on the
-    CPU), the home forces gathered on the state's device and each shard's
-    reverse halo added to the next shard's first layer."""
+    """:func:`analytic_pair_forces` over the z-slabs of ``mesh``: the shards
+    partitioned by device (:func:`slab_groups`), each device's members'
+    rows taken from the whole state (:func:`group_buffers`: views on the
+    state's device, one copy on another), one group call a device
+    (:func:`_group_forces`: K1's group launch, or the generic form's with
+    the pair function once on the group's joined list; their plain
+    versions on the CPU), and the home forces gathered on the state's
+    device with the reverse halo of a shard whose next shard lies on
+    another device added to that shard's first layer
+    (:func:`gather_groups`). The ``'half'`` and ``'full'`` stencils run
+    K1's slab plain version per shard."""
     primary = positions.device
     geometry = _as_geometry(plan, lo, positions, geometry)
     _check_pair_fn(form, stencil, pair_fn)
+    groups = slab_groups(mesh_slabs(plan, mesh, shard_axis),
+                         whole=stencil not in ("half", "full"))
     outs = []
-    for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
-        buf = [slab_buffer(t, plan, z0, nzl, dev)
-               for t in (positions, types, valid)]
-        outs.append(_slab_forces(
-            buf, plan, lo, pair_fn if shard_fn is None else shard_fn(dev),
-            (z0, nzl), needs_virial, min_r2, with_types, rcut_matrix,
-            stencil, needs_energy, form, geometry.on(dev), lanes, primary))
-    return gather_slabs(outs, plan, primary)
+    for g in groups:
+        bufs = [group_buffers(t, plan, g, g.device)
+                for t in (positions, types, valid)]
+        outs.append(_group_forces(
+            bufs, plan, lo, pair_fn if shard_fn is None else
+            shard_fn(g.device), g, needs_virial, min_r2, with_types,
+            rcut_matrix, stencil, needs_energy, form, geometry.on(g.device),
+            lanes, primary))
+    return gather_groups(outs, groups, plan, primary)
 
 
 def _check_pair_fn(form, stencil, pair_fn):
     if form is None and stencil in ("auto", "kernel") and pair_fn is None:
         raise ValueError("stencil='kernel' needs a kernel form or a pair "
                          "function (K1's generic form)")
-
-
-def _slab_forces(buf, plan, lo, fn, slab, needs_virial, min_r2, with_types,
-                 rcut_matrix, stencil, needs_energy, form, g, lanes,
-                 primary):
-    """One z-slab shard's call on its buffer ``buf = (positions, types,
-    valid)`` on its device, with ``g`` the global plan's geometry there:
-    K1's slab mode in a pair form, or in the generic form with a list of
-    ``lanes.budget`` lanes whose need is recorded in ``lanes`` on
-    ``primary``; the slab plain version for a ``'half'`` / ``'full'``
-    stencil and for a CPU shard without a form."""
-    from . import cellwise_cuda as cc
-    p, ty, v = buf
-    dev = p.device
-    rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)
-    if stencil in ("half", "full") or (form is None and not p.is_cuda):
-        return half_stencil_slab_plain(
-            p, ty, v, plan, lo, fn, *slab, needs_virial, min_r2, with_types,
-            rc, needs_energy, g)
-    if form is not None:
-        return cc.half_stencil_pair_forces(
-            p, ty, v, plan, lo, cc.form_on(form, dev), needs_virial, min_r2,
-            rc, needs_energy, g, slab=slab)
-    own = None if lanes is None else cc.LaneBudget(lanes.budget, dev)
-    out = cc.generic_pair_forces(
-        p, ty, v, plan, lo, fn, with_types, needs_virial, min_r2, rc,
-        needs_energy, g, own, slab=slab)
-    if lanes is not None:
-        lanes.record(to_device(own.needed, primary))
-    return out
 
 
 def halo_layer(plan):
@@ -1239,23 +1251,23 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
 def _group_forces(bufs, plan, lo, fn, group, needs_virial, min_r2,
                   with_types, rcut_matrix, stencil, needs_energy, form, g,
                   lanes, primary):
-    """One group's call (:func:`resident_pair_forces`) on its members'
-    buffers ``bufs = (positions, types, valid)`` (lists in group order) on
-    its device, ``g`` the global plan's geometry there: K1's group launch
-    in a pair form, or in the generic form with ``lanes.budget`` lanes a
-    member (its need recorded in ``lanes`` on ``primary``); for a
-    ``'half'`` / ``'full'`` stencil K1's slab plain version on the one
-    member of each group, and for a CPU group without a form and no
-    ``'kernel'`` stencil the group's plain tensor form."""
+    """One group's call (:func:`resident_pair_forces`,
+    :func:`_sharded_pair_forces`) on its members' buffers ``bufs =
+    (positions, types, valid)`` (lists in group order) on its device,
+    ``g`` the global plan's geometry there: K1's group launch in a pair
+    form, or in the generic form with ``lanes.budget`` lanes a member (its
+    need recorded in ``lanes`` on ``primary``); for a ``'half'`` /
+    ``'full'`` stencil K1's slab plain version on the one member of each
+    group, and for a CPU group without a form and no ``'kernel'`` stencil
+    the group's plain tensor form."""
     from . import cellwise_cuda as cc
     p, ty, v = bufs
     dev = group.device
     rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)
     if stencil in ("half", "full"):
-        f, w = _slab_forces((p[0], ty[0], v[0]), plan, lo, fn,
-                            group.slabs[0], needs_virial, min_r2, with_types,
-                            rc, stencil, needs_energy, form, g, lanes,
-                            primary)
+        f, w = half_stencil_slab_plain(
+            p[0], ty[0], v[0], plan, lo, fn, *group.slabs[0], needs_virial,
+            min_r2, with_types, rc, needs_energy, g)
         return [f], [w]
     if form is not None:
         return cc.half_stencil_group_forces(
@@ -1286,14 +1298,15 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
 
     With a ``mesh`` of ``S > 1`` shards (:func:`..parallel.make_mesh`)
     the work of this whole state is split into ``S`` z-slabs of ``nz /
-    S`` layers, which must divide: each shard's slab buffer is copied out
-    of the whole state to its device, K1's slab mode runs there over its
-    slab and a forward halo layer, and the forces are gathered on the
-    state's device with the reverse halos added
-    (:func:`half_stencil_slab_plain`): the form of the routes that keep
-    the whole slot state (training, the planes route, mapped models); a
-    state resident per shard takes :func:`resident_pair_forces`. A
-    one-shard mesh takes the unsharded call.
+    S`` layers, which must divide, and the shards are partitioned by
+    device (:func:`slab_groups`): each device takes its members' rows of
+    the whole state (:func:`group_buffers`: views on the state's device,
+    one copy on another) and makes one group call of K1 over them, and
+    the forces are gathered on the state's device with the reverse halos
+    between devices added (:func:`gather_groups`): the form of the routes
+    that keep the whole slot state (training, mapped models); a state
+    resident per shard takes :func:`resident_pair_forces`. A one-shard
+    mesh takes the unsharded call.
 
     :param pair_fn: ``U(r2[, ti, tj]) -> (U, dU/dr2)`` per lane (a torch
         function; used by the tensor forms).

@@ -59,7 +59,7 @@ from .cellwise import (_HALF_OFFS, _as_geometry, _channel_coefs,
                        _roll_offs, _slab_plan, analytic_pair_forces,
                        assemble_group, assemble_half, finish_forces,
                        group_rows, half_frame, half_stencil_group_plain,
-                       half_stencil_slab_plain, halo_layer, pair_rc2)
+                       halo_layer, pair_rc2)
 from .chebyshev import proxy_lanes
 
 __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
@@ -70,7 +70,9 @@ __all__ = ["LJForm", "ChebForm", "half_stencil_plain",
            "generic_pair_forces", "GenericList", "generic_list",
            "generic_reduce", "generic_reduce_plain", "GenericReduce",
            "generic_reduce_bwd", "generic_reduce_bwd_plain",
-           "generic_train_forces", "kernel_lane_index"]
+           "generic_train_forces", "generic_group_train_forces",
+           "generic_group_list_plain", "generic_group_reduce_plain",
+           "kernel_lane_index"]
 
 
 class LJForm:
@@ -220,27 +222,26 @@ def half_stencil_plain(positions, types, valid, plan, lo, form,
 class _HalfGeom(ctypes.Structure):
     """``HalfGeom`` of ``csrc/half_stencil_stage.cuh``: the plan's
     integers -- the grid, the capacity, whether the box is tilted, per
-    half-stencil block its integer cell offset, and the slab of a z-slab
-    shard: its first home layer ``z0`` and its home layers ``nzl``
-    (``0`` and ``nz`` unsharded). The kernels read everything else from
-    the box on the card."""
+    half-stencil block its integer cell offset, and ``nzl``, the home
+    layers of each shard a launch covers (``nz`` for a whole state). The
+    kernels read everything else from the box on the card."""
     _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int),
                 ("nz", ctypes.c_int), ("cap", ctypes.c_int),
                 ("tilted", ctypes.c_int),
                 ("off", (ctypes.c_int * 3) * len(_HALF_OFFS)),
-                ("z0", ctypes.c_int), ("nzl", ctypes.c_int)]
+                ("nzl", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
-def half_geom(plan, slab=None):
-    """The kernels' :class:`_HalfGeom` of ``plan``, or of its z-slab
-    ``slab = (z0, nzl)`` (made once per plan and slab: it holds no box
-    value, so a rescaled box needs no new one)."""
-    z0, nzl = (0, plan.grid[2]) if slab is None else slab
+def half_geom(plan, nzl=None):
+    """The kernels' :class:`_HalfGeom` of ``plan``, for shards of ``nzl``
+    home layers (default: the whole state's ``nz``); made once per plan
+    and ``nzl``: it holds no box value, so a rescaled box needs no new
+    one."""
     g = _HalfGeom(*plan.grid, plan.capacity, int(plan.tilted))
     for t, o in enumerate(_HALF_OFFS):
         g.off[t][:] = o
-    g.z0, g.nzl = z0, nzl
+    g.nzl = plan.grid[2] if nzl is None else nzl
     return g
 
 
@@ -328,7 +329,7 @@ def _ptr(t):
 
 def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
                              needs_virial=False, min_r2=1e-4, rc2_tab=None,
-                             needs_energy=True, geometry=None, slab=None):
+                             needs_energy=True, geometry=None):
     """Kernel K1: :func:`.cellwise.analytic_pair_forces` of the pair form
     ``form`` on slot-resident state. Launches the kernel on CUDA tensors
     (counting each call in ``half_stencil_pair_forces.launches``, a
@@ -344,25 +345,16 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
         within a cell).
     :param form: the :class:`LJForm` or :class:`ChebForm`.
     :param rc2_tab: ``[T, T]`` squared cutoffs, or ``None``.
-    :param slab: ``(z0, nzl)``: the slab mode of a z-slab shard
-        (:func:`.cellwise.half_stencil_slab_plain`'s contract): the inputs
-        are the slab buffer's rows, the home layers then the forward halo
-        layer, and ``geometry`` is the global plan's on their device. The
-        kernel then runs ``nzl * nx * ny`` home cells, staging by global
-        cell from the buffer, and also writes the halo layer's reverse
-        partial; such a call also counts in ``.slab_launches``.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``,
         the energy in column 4 (zero when ``needs_energy`` is False);
-        ghost rows all zero. In slab mode over the buffer's rows.
+        ghost rows all zero.
+
+    A z-slab shard of a mesh is :func:`half_stencil_group_forces`' group
+    of one.
     """
-    n_cells, n = slab_shape(plan, slab)
-    check_slot_inputs(positions, types, valid, plan, n)
+    n_cells, n = plan.n_cells, plan.n_slots
+    check_slot_inputs(positions, types, valid, plan)
     if not positions.is_cuda:
-        if slab is not None:
-            return half_stencil_slab_plain(
-                positions, types, valid, plan, lo, form.evaluate, *slab,
-                needs_virial, min_r2, form.ntypes > 1, rc2_tab,
-                needs_energy, geometry)
         return half_stencil_plain(positions, types, valid, plan, lo, form,
                                   needs_virial, min_r2, rc2_tab,
                                   needs_energy, geometry)
@@ -394,7 +386,7 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
     forces4 = torch.empty((n, 4), dtype=dtype, device=dev)
     virial = (torch.empty((n, 3, 3), dtype=dtype, device=dev)
               if needs_virial else None)
-    geom = ctypes.byref(half_geom(plan, slab))
+    geom = ctypes.byref(half_geom(plan))
     rest = (_ptr(rc2_tab), rc_t, float(plan.r_cut ** 2), float(min_r2),
             int(needs_energy), int(needs_virial), _ptr(sums), _ptr(forces4),
             _ptr(virial),
@@ -410,7 +402,6 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
         raise RuntimeError("half-stencil kernel launch failed: " +
                            lib.htf_error_string(err).decode())
     half_stencil_pair_forces.launches += 1
-    half_stencil_pair_forces.slab_launches += slab is not None
     if isinstance(form, ChebForm):
         half_stencil_pair_forces.proxy_launches += 1
     half_stencil_pair_forces.f64_launches += f64
@@ -421,9 +412,8 @@ def half_stencil_pair_forces(positions, types, valid, plan, lo, form,
 #: calls that launched the kernel (two launches each), all forms and both
 #: scalar types; those of its Chebyshev-proxy form alone; those of the
 #: double instantiation alone (any form); those that read the proxy
-#: table from device memory; and those in slab mode (a z-slab shard's)
+#: table from device memory
 half_stencil_pair_forces.launches = 0
-half_stencil_pair_forces.slab_launches = 0
 half_stencil_pair_forces.proxy_launches = 0
 half_stencil_pair_forces.f64_launches = 0
 half_stencil_pair_forces.device_table_launches = 0
@@ -436,6 +426,11 @@ def _ptrs(ts):
     """A ctypes array of the tensors' data pointers (null for ``None``)."""
     return (ctypes.c_void_p * len(ts))(
         *(None if t is None else t.data_ptr() for t in ts))
+
+
+# the group launch's z0, prev and next of a whole state: its group of one
+_WHOLE = ((ctypes.c_int * 1)(0), (ctypes.c_int * 1)(-1),
+          (ctypes.c_int * 1)(-1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -453,22 +448,50 @@ def group_args(plan, group):
                          f"{_MAX_GROUP}")
     slab_shape(plan, group.slabs[0])
     arr = ctypes.c_int * len(group.slabs)
-    return (half_geom(plan, (0, nzl)), arr(*(z0 for z0, _ in group.slabs)),
+    return (half_geom(plan, nzl), arr(*(z0 for z0, _ in group.slabs)),
             arr(*group.prev), arr(*group.next))
 
 
+def member_rows(plan, group, k, t):
+    """The rows member ``k`` of ``group`` passes in ``t``: its slab
+    buffer's ``(nzl + 1) nx ny cap``, or, when its next member is in the
+    group and ``t`` holds just its home layers
+    (:func:`.cellwise.group_buffers`), ``nzl nx ny cap``."""
+    n = slab_shape(plan, group.slabs[k])[1]
+    if group.next[k] >= 0 and t.shape[0] == n - halo_layer(plan):
+        return n - halo_layer(plan)
+    return n
+
+
+def check_group_inputs(positions, types, valid, plan, group, ct=None):
+    """Raise unless the members' buffers (lists in group order) fit: one a
+    member of the rows :func:`member_rows` allows, on one device, and
+    ``ct`` (when given) ``[rows, 4]`` beside them."""
+    G = len(group.slabs)
+    if not (len(positions) == len(types) == len(valid) == G):
+        raise ValueError(f"a group of {G} shards takes {G} buffers each")
+    for k, (p, ty, v) in enumerate(zip(positions, types, valid)):
+        n = member_rows(plan, group, k, p)
+        check_slot_inputs(p, ty, v, plan, n)
+        if ct is not None and tuple(ct[k].shape) != (n, 4):
+            raise ValueError(f"ct: expected shape {(n, 4)}, got "
+                             f"{tuple(ct[k].shape)}")
+
+
 def _group_inputs(positions, types, valid, plan, group, geometry, typed):
-    """Check a group call's buffers (one device, each a slab buffer's rows)
-    and return ``(n home cells a member, rows a member, dtype, f64, the
-    pointer arrays of positions, types (or None), valid, the box)``."""
-    n_cells, n = slab_shape(plan, group.slabs[0])
+    """Check a group call's buffers (one device, each a slab buffer's rows,
+    a linked member's its home rows only) and return ``(n home cells a
+    member, rows of a member's output, dtype, f64, the pointer arrays of
+    positions, types (or None), valid, the box)``."""
+    n_cells, rows = slab_shape(plan, group.slabs[0])
     G = len(group.slabs)
     if not (len(positions) == len(types) == len(valid) == G):
         raise ValueError(f"a group of {G} shards takes {G} buffers each")
     dev = positions[0].device
     dtype, f64 = kernel_dtype(positions[0])
     _check(geometry.box, (3, 3), dtype, dev, "geometry.box")
-    for p, ty, v in zip(positions, types, valid):
+    for k, (p, ty, v) in enumerate(zip(positions, types, valid)):
+        n = member_rows(plan, group, k, p)
         # one test of the common case; the full checks name what is wrong
         ok = (p.device == dev and v.device == dev and p.dtype == dtype and
               v.dtype == dtype and p.shape == (n, 3) and v.shape == (n,) and
@@ -481,7 +504,7 @@ def _group_inputs(positions, types, valid, plan, group, geometry, typed):
                 raise ValueError(
                     f"a group's buffers lie on {p.device} and {dev}")
             cuda_slot_args(p, ty, v, plan, geometry, typed, n)
-    return (n_cells, n, dtype, f64, _ptrs(positions),
+    return (n_cells, rows, dtype, f64, _ptrs(positions),
             _ptrs(types) if typed else None, _ptrs(valid),
             _ptr(geometry.box))
 
@@ -501,7 +524,10 @@ def half_stencil_group_forces(positions, types, valid, plan, lo, form, group,
     CPU tensors take :func:`.cellwise.half_stencil_group_plain`.
 
     :param positions, types, valid: lists of the members' buffers in group
-        order (:func:`half_stencil_pair_forces`' slab mode's rows each).
+        order (a z-slab buffer's rows each, :func:`.cellwise.slab_rows`:
+        its home layers then its forward halo layer; a member whose next
+        member is in the group may pass its home rows only,
+        :func:`.cellwise.group_buffers`).
     :param geometry: the global plan's geometry on their device.
     :returns: ``(forces4, virial or None)``: lists over the members'
         buffer rows (views of one joined tensor each); a halo row is zero
@@ -509,9 +535,7 @@ def half_stencil_group_forces(positions, types, valid, plan, lo, form, group,
         halo the caller adds to the next shard.
     """
     if not positions[0].is_cuda:
-        n = slab_shape(plan, group.slabs[0])[1]
-        for p, ty, v in zip(positions, types, valid):
-            check_slot_inputs(p, ty, v, plan, n)
+        check_group_inputs(positions, types, valid, plan, group)
         return half_stencil_group_plain(
             positions, types, valid, plan, lo, form.evaluate, group,
             needs_virial, min_r2, form.ntypes > 1, rc2_tab, needs_energy,
@@ -660,11 +684,13 @@ def lane_budget(plan, n_real, slab=None):
 
 def _default_lanes(plan, valid, slab=None):
     """A :class:`LaneBudget` of :func:`lane_budget` for the occupied slots
-    of ``valid`` (one host sync); a slab buffer's ``nzl + 1`` layers stand
-    for that share of a whole state as dense."""
+    of ``valid`` (one host sync); a slab buffer's layers (``nzl + 1``, or
+    a group member's ``nzl`` home layers alone) stand for that share of a
+    whole state as dense."""
     n_real = int((valid > 0).sum())
     if slab is not None:
-        n_real = int(n_real * plan.grid[2] / (slab[1] + 1))
+        layers = valid.shape[0] // halo_layer(plan)
+        n_real = int(n_real * plan.grid[2] / layers)
     return LaneBudget(lane_budget(plan, n_real, slab), valid.device)
 
 
@@ -856,7 +882,7 @@ def generic_plain(positions, types, valid, plan, lo, pair_fn,
 
 
 def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
-                         needs_virial=False, slab=None):
+                         needs_virial=False):
     """Plain PyTorch version of the generic form's reduction and finish:
     each listed lane's channel products (its first ``len(lst["r2"])``
     values of ``U`` and ``S``; later lanes are ignored) added to its row
@@ -865,20 +891,12 @@ def generic_reduce_plain(lst, U, S, valid, plan, needs_energy=True,
     ``S`` (``index_add_``), so autograd through it is the oracle of
     :func:`generic_reduce_bwd_plain`.
 
-    :param lst: :func:`generic_list_plain`'s lanes (of the z-slab ``slab``
-        when given).
-    :returns: ``(forces4, virial or None)``, over a slab buffer's rows
-        with ``slab`` (the halo layer's: the reverse-halo partial, as
-        :func:`.cellwise.half_stencil_slab_plain` gives it).
+    :param lst: :func:`generic_list_plain`'s lanes of a whole state.
+    :returns: ``(forces4, virial or None)``.
     """
-    n_cells = slab_shape(plan, slab)[0]
-    rp = plan if slab is None else _slab_plan(plan, slab[1])
-    planes = _list_planes(lst, U, S, n_cells, plan.capacity, needs_energy,
-                          needs_virial, valid.dtype)
-    # a slab's halo layer has no home cells: it pushes nothing
-    planes = torch.cat([planes, planes.new_zeros(
-        (planes.shape[0], rp.n_cells - n_cells, planes.shape[2]))], dim=1)
-    out = assemble_half(planes, rp)
+    planes = _list_planes(lst, U, S, plan.n_cells, plan.capacity,
+                          needs_energy, needs_virial, valid.dtype)
+    out = assemble_half(planes, plan)
     return finish_forces(out, valid, needs_energy, needs_virial)
 
 
@@ -918,29 +936,23 @@ def _list_planes(lst, U, S, n_cells, cap, needs_energy, needs_virial,
     return torch.cat([out, cols], dim=2)
 
 
-def generic_group_plain(positions, types, valid, plan, lo, pair_fn, group,
-                        typed_fn=True, needs_virial=False, min_r2=1e-4,
-                        rc2_tab=None, needs_energy=True, geometry=None,
-                        lanes=None):
-    """Plain PyTorch version of K1's generic form over a group of z-slab
-    shards on one device (:func:`generic_group_pair_forces`): each
+def generic_group_list_plain(positions, types, valid, plan, lo, group,
+                             min_r2=1e-4, rc2_tab=None, geometry=None,
+                             lanes=None, typed=True):
+    """Plain PyTorch version of the generic form's list kernel over a group
+    of z-slab shards on one device (:func:`generic_group_list`): each
     member's lanes (:func:`generic_list_plain` with its ``slab``, the
     forward halo read in place from the next member when that is in the
-    group, :func:`.cellwise.group_rows`) joined member after member, the
-    pair function called once on the joined list, each member's weighted
-    planes from its share of the lanes, then
-    :func:`.cellwise.assemble_group`. ``lanes`` (one member's share)
-    records ``ceil(need / members)``; cells past the group's list of
-    ``members * lanes.budget`` lanes (in joined order) add nothing.
+    group, :func:`.cellwise.group_rows`) joined member after member.
+    ``lanes`` (one member's share) records ``ceil(need / members)``; cells
+    past the group's list of ``members * lanes.budget`` lanes (in joined
+    order) are left out.
 
-    :returns: ``(forces4, virial or None, joined)``: lists over the
-        members' buffer rows, and the joined list (a dict of per-lane
-        tensors with ``member``, each member's ``cell`` counted from its
-        slab's first home cell).
-    """
+    :returns: the joined list, a dict of per-lane tensors with ``member``
+        (each member's ``cell`` counted from its slab's first home cell,
+        ``row`` and the candidates its buffer's slots) and ``needed``."""
     G = len(group.slabs)
     layer = halo_layer(plan)
-    typed = typed_fn or rc2_tab is not None
     lsts = []
     for k, slab in enumerate(group.slabs):
         buf = [group_rows(t, group, k, layer)
@@ -961,18 +973,53 @@ def generic_group_plain(positions, types, valid, plan, lo, pair_fn, group,
             keep = (torch.cumsum(counts, 0) <= budget)[cell]
             joined = {key: v[keep] for key, v in joined.items()}
         lanes.record(torch.tensor(-(-need // G), device=valid[0].device))
-    U, S = _eval_pair_fn(pair_fn, typed_fn, joined["r2"], joined["ti"],
-                         joined["tj"])
+    joined["needed"] = need
+    return joined
+
+
+def generic_group_reduce_plain(joined, U, S, valid, plan, group,
+                               needs_energy=True, needs_virial=False):
+    """Plain PyTorch version of the generic form's reduction over a group's
+    joined list (:func:`generic_group_list_plain`; its first
+    ``len(joined["r2"])`` values of ``U`` and ``S``): each member's
+    weighted planes from its share of the lanes, then
+    :func:`.cellwise.assemble_group`. Differentiable in ``U`` and ``S``.
+
+    :returns: ``(forces4, virial or None)``: lists over the members'
+        buffer rows."""
     n_cells = slab_shape(plan, group.slabs[0])[0]
+    n = joined["r2"].shape[0]
+    U, S = U[:n], S[:n]
     planes = []
-    for k in range(G):
+    for k in range(len(group.slabs)):
         mine = joined["member"] == k
-        lst = {key: v[mine] for key, v in joined.items()}
+        lst = {key: v[mine] for key, v in joined.items() if key != "needed"}
         planes.append(_list_planes(lst, U[mine], S[mine], n_cells,
                                    plan.capacity, needs_energy, needs_virial,
                                    valid[k].dtype))
-    f, w = assemble_group(planes, valid, plan, group, needs_energy,
+    return assemble_group(planes, valid, plan, group, needs_energy,
                           needs_virial)
+
+
+def generic_group_plain(positions, types, valid, plan, lo, pair_fn, group,
+                        typed_fn=True, needs_virial=False, min_r2=1e-4,
+                        rc2_tab=None, needs_energy=True, geometry=None,
+                        lanes=None):
+    """Plain PyTorch version of K1's generic form over a group of z-slab
+    shards on one device (:func:`generic_group_pair_forces`): the joined
+    list (:func:`generic_group_list_plain`), the pair function called once
+    on it, then :func:`generic_group_reduce_plain`.
+
+    :returns: ``(forces4, virial or None, joined)``: lists over the
+        members' buffer rows, and the joined list.
+    """
+    joined = generic_group_list_plain(positions, types, valid, plan, lo,
+                                      group, min_r2, rc2_tab, geometry,
+                                      lanes, typed_fn or rc2_tab is not None)
+    U, S = _eval_pair_fn(pair_fn, typed_fn, joined["r2"], joined["ti"],
+                         joined["tj"])
+    f, w = generic_group_reduce_plain(joined, U, S, valid, plan, group,
+                                      needs_energy, needs_virial)
     return f, w, joined
 
 
@@ -987,15 +1034,15 @@ class GenericList:
 
     def __init__(self, plan, valid, typed_fn, r2, ti, tj, lst=None, *,
                  lanes=None, counter=None, rec=None, cell_base=None,
-                 sums=None, stream=None, generation=None, slab=None,
-                 group=None, tables=None):
+                 sums=None, stream=None, generation=None, group=None,
+                 tables=None):
         self.plan, self.valid, self.typed_fn = plan, valid, typed_fn
         self.r2, self.ti, self.tj = r2, ti, tj
         self.lst = lst
-        #: the z-slab ``(z0, nzl)`` of a slab-mode list, or the
-        #: :class:`.cellwise.SlabGroup` of a group's joined list (``valid``
-        #: then the members' buffers)
-        self.slab, self.group = slab, group
+        #: the :class:`.cellwise.SlabGroup` of a group's joined list
+        #: (``valid`` then the members' buffers), or None for a whole
+        #: state's
+        self.group = group
         #: a group list's pointer arrays and links (the reduction's
         #: GroupTab: the buffers, z0, prev, next)
         self.tables = tables
@@ -1008,8 +1055,8 @@ class GenericList:
         if lst is None:
             self.budget, self.sums_ch = r2.shape[0], sums.shape[0]
             if group is None:
-                self.geom = ctypes.byref(half_geom(plan, slab))
-                self.n_cells, self.rows = slab_shape(plan, slab)
+                self.geom = ctypes.byref(half_geom(plan))
+                self.n_cells, self.rows = plan.n_cells, plan.n_slots
             else:
                 self.geom = ctypes.byref(group_args(plan, group)[0])
                 n_cells, self.rows = slab_shape(plan, group.slabs[0])
@@ -1017,6 +1064,9 @@ class GenericList:
         #: the lanes the call needed, a device int32 (CUDA: set by the
         #: reduction)
         self.needed = None
+        #: the key of the shared buffers this list lives in (its device, or
+        #: its device and group: ``_GENERATION``)
+        self.key = None
 
     def evaluate(self, pair_fn, grad=False):
         """``(U, dU/dr2)`` of ``pair_fn`` on the list (its dtype); with
@@ -1035,28 +1085,25 @@ class GenericList:
 
 def generic_list(positions, types, valid, plan, lo, typed_fn=True,
                  min_r2=1e-4, rc2_tab=None, geometry=None, lanes=None,
-                 needs_energy=True, needs_virial=False, slab=None):
+                 needs_energy=True, needs_virial=False):
     """The generic form's list kernel on CUDA tensors (its plain version,
     :func:`generic_list_plain`, on CPU tensors, which records the lanes
     needed in ``lanes`` itself): a :class:`GenericList` for a reduction
     of at most the channels ``needs_energy`` and ``needs_virial`` ask
     for. A failed build or launch raises. Each launch rewrites the
-    list and records it shares on its device (one set per slab: a mesh's
-    shards on one card keep their own) and counts a new generation of
-    them. With ``slab = (z0, nzl)`` it lists the home cells of that
-    z-slab from its buffer's rows (:func:`half_stencil_pair_forces`' slab
-    mode; on the CPU :func:`generic_list_plain` with ``slab``)."""
-    n_cells, n = slab_shape(plan, slab)
-    check_slot_inputs(positions, types, valid, plan, n)
+    list and records it shares on its device (a group's are kept apart:
+    :func:`generic_group_list`) and counts a new generation of them. A
+    z-slab shard's list is :func:`generic_group_list`'s group of one."""
+    n_cells, n = plan.n_cells, plan.n_slots
+    check_slot_inputs(positions, types, valid, plan)
     if lanes is None:
-        lanes = _default_lanes(plan, valid, slab)
+        lanes = _default_lanes(plan, valid)
     if not positions.is_cuda:
         lst = generic_list_plain(positions, types, valid, plan, lo, min_r2,
-                                 rc2_tab, geometry, lanes.budget, typed_fn,
-                                 slab)
+                                 rc2_tab, geometry, lanes.budget, typed_fn)
         lanes.record(torch.tensor(lst["needed"], device=positions.device))
         return GenericList(plan, valid, typed_fn, lst["r2"], lst["ti"],
-                           lst["tj"], lst, slab=slab)
+                           lst["tj"], lst)
     geometry = _as_geometry(plan, lo, positions, geometry)
     dev = positions.device
     dtype, f64 = kernel_dtype(positions)
@@ -1068,15 +1115,16 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
         _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     lib = _generic_library()
     smem = max(lib.htf_generic_smem(f64, plan.capacity),
-               lib.htf_generic_reduce_smem(f64, plan.capacity))
+               lib.htf_generic_reduce_smem(f64, plan.capacity),
+               lib.htf_generic_reduce_bwd_smem(f64, plan.capacity))
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
     budget = lanes.budget
     counter, lst, rec = _generic_buffers(
         dev, dtype, budget, plan.r_cut ** 2,
-        n_cells * lib.htf_generic_record_words(f64, plan.capacity), slab)
-    key = (str(dev), slab)
+        n_cells * lib.htf_generic_record_words(f64, plan.capacity))
+    key = (str(dev), None)
     _GENERATION[key] = generation = _GENERATION.get(key, 0) + 1
     # the list kernel writes the zero back sums of the slots the box test
     # left out into the reduction's scratch
@@ -1088,7 +1136,8 @@ def generic_list(positions, types, valid, plan, lo, typed_fn=True,
         sums=torch.empty((n_ch, len(_HALF_OFFS), n_cells * plan.capacity),
                          dtype=dtype, device=dev),
         stream=ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-        generation=generation, slab=slab)
+        generation=generation)
+    gl.key = key
     err = lib.htf_generic_list(f64, *state, gl.geom, n_cells,
                                _ptr(rc2_tab), rc_t, float(plan.r_cut ** 2),
                                float(min_r2), budget, _ptr(counter),
@@ -1107,14 +1156,19 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
     and the pair function's ``(U, S)`` on it (CUDA); the plain version,
     :func:`generic_reduce_plain`, for a CPU list. Records the lanes the
     list needed in ``gl.lanes``; a CUDA launch counts in
-    ``generic_pair_forces.launches`` (and a slab-mode list's in
-    ``.slab_launches``). Returns ``(forces4, virial or None)``, over a
-    slab buffer's rows for a slab-mode list."""
+    ``generic_pair_forces.launches`` (and a group's in
+    ``.group_launches``). Returns ``(forces4, virial or None)``; for a
+    group's list, lists over the members' buffer rows."""
+    if gl.lst is not None and gl.group is not None:
+        return generic_group_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
+                                          gl.group, needs_energy,
+                                          needs_virial)
     if gl.lst is not None:
         return generic_reduce_plain(gl.lst, U, S, gl.valid, gl.plan,
-                                    needs_energy, needs_virial, gl.slab)
+                                    needs_energy, needs_virial)
     if gl.group is not None:
-        return _group_reduce(gl, U, S, needs_energy, needs_virial)
+        f, w = _group_reduce(gl, U, S, needs_energy, needs_virial)
+        return f.unbind(0), (None if w is None else w.unbind(0))
     plan, dev = gl.plan, gl.r2.device
     dtype, f64 = kernel_dtype(gl.r2)
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
@@ -1142,7 +1196,6 @@ def generic_reduce(gl, U, S, needs_energy=True, needs_virial=False):
                            lib.htf_generic_error_string(err).decode())
     generic_pair_forces.launches += 1
     generic_pair_forces.f64_launches += f64
-    generic_pair_forces.slab_launches += gl.slab is not None
     gl.lanes.record(gl.needed)
     return forces4, virial
 
@@ -1157,23 +1210,32 @@ def generic_group_list(positions, types, valid, plan, lo, group,
     writes every member's lanes into one joined list, each cell's segment
     placed by the one lane counter, of ``members * lanes.budget`` lanes
     (``lanes``: one member's share). Returns a :class:`GenericList` for
-    :func:`generic_reduce`. The group's list and records are kept per
-    device and group, a generation apart per launch."""
-    geometry = _as_geometry(plan, lo, positions[0], geometry)
+    :func:`generic_reduce` and :func:`generic_reduce_bwd`. The group's list
+    and records are kept per device and group, a generation apart per
+    launch. CPU tensors take :func:`generic_group_list_plain`."""
     typed = typed_fn or rc2_tab is not None
-    n_cells, _, dtype, f64, *state = _group_inputs(
-        positions, types, valid, plan, group, geometry, typed)
-    dev = positions[0].device
     G = len(group.slabs)
     if lanes is None:
         lanes = _default_lanes(plan, valid[0], group.slabs[0])
+    if not positions[0].is_cuda:
+        check_group_inputs(positions, types, valid, plan, group)
+        joined = generic_group_list_plain(positions, types, valid, plan, lo,
+                                          group, min_r2, rc2_tab, geometry,
+                                          lanes, typed)
+        return GenericList(plan, valid, typed_fn, joined["r2"], joined["ti"],
+                           joined["tj"], joined, group=group)
+    geometry = _as_geometry(plan, lo, positions[0], geometry)
+    n_cells, _, dtype, f64, *state = _group_inputs(
+        positions, types, valid, plan, group, geometry, typed)
+    dev = positions[0].device
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
         _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     lib = _generic_library()
     smem = max(lib.htf_generic_smem(f64, plan.capacity),
-               lib.htf_generic_reduce_smem(f64, plan.capacity))
+               lib.htf_generic_reduce_smem(f64, plan.capacity),
+               lib.htf_generic_reduce_bwd_smem(f64, plan.capacity))
     if smem > _MAX_SMEM:
         raise ValueError(f"capacity {plan.capacity} needs {smem} bytes of "
                          f"shared memory per block, above {_MAX_SMEM}")
@@ -1196,6 +1258,7 @@ def generic_group_list(positions, types, valid, plan, lo, group,
         stream=ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
         generation=generation, group=group,
         tables=(state[:3], z0, prev, nxt))
+    gl.key = (str(dev), key)
     err = lib.htf_generic_group_list(
         f64, G, *state[:3], z0, prev, nxt, state[3], gl.geom, _ptr(rc2_tab),
         rc_t, float(plan.r_cut ** 2), float(min_r2), budget, _ptr(counter),
@@ -1209,10 +1272,11 @@ def generic_group_list(positions, types, valid, plan, lo, group,
 
 
 def _group_reduce(gl, U, S, needs_energy, needs_virial):
-    """:func:`generic_reduce` of a group's joined list: the reduction over
-    the group's home cells and the group home pass; ``(forces4, virial or
-    None)`` as lists over the members' buffer rows. Records
-    ``ceil(need / members)`` in ``gl.lanes``."""
+    """:func:`generic_reduce` of a group's joined list on the card: the
+    reduction over the group's home cells and the group home pass;
+    ``(forces4 [members, rows, 4], virial [members, rows, 3, 3] or
+    None)``, a member's buffer rows each. Records ``ceil(need /
+    members)`` in ``gl.lanes``."""
     dev = gl.r2.device
     dtype, f64 = kernel_dtype(gl.r2)
     n_ch = len(_channel_coefs(needs_energy, needs_virial))
@@ -1244,7 +1308,7 @@ def _group_reduce(gl, U, S, needs_energy, needs_virial):
     gen.f64_launches += f64
     gl.lanes.record(torch.div(gl.needed + (G - 1), G,
                               rounding_mode="floor"))
-    return forces4.unbind(0), (None if virial is None else virial.unbind(0))
+    return forces4, virial
 
 
 def generic_group_pair_forces(positions, types, valid, plan, lo, pair_fn,
@@ -1276,7 +1340,7 @@ def generic_group_pair_forces(positions, types, valid, plan, lo, pair_fn,
 def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
                         typed_fn=True, needs_virial=False, min_r2=1e-4,
                         rc2_tab=None, needs_energy=True, geometry=None,
-                        lanes=None, slab=None):
+                        lanes=None):
     """Kernel K1's generic form: :func:`.cellwise.analytic_pair_forces`
     of any pair function ``pair_fn(r2[, ti, tj]) -> (U, dU/dr2)``. On
     CUDA tensors it launches the list kernel, evaluates ``pair_fn`` on
@@ -1292,36 +1356,29 @@ def generic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     :param lanes: the :class:`LaneBudget` to size the list by and record
         the lanes needed in (default: :func:`lane_budget` of this call's
         occupied slots, counted with one host sync).
-    :param slab: ``(z0, nzl)``: a z-slab shard's call on its buffer's rows
-        (:func:`half_stencil_pair_forces`' slab mode); on CPU tensors the
-        slab plain version, :func:`.cellwise.half_stencil_slab_plain`.
     :returns: ``(forces4 [n_slots, 4], virial [n_slots, 3, 3] or None)``.
+
+    A z-slab shard of a mesh is :func:`generic_group_pair_forces`' group
+    of one.
     """
-    check_slot_inputs(positions, types, valid, plan,
-                      slab_shape(plan, slab)[1])
-    if slab is not None and not positions.is_cuda:
-        return half_stencil_slab_plain(
-            positions, types, valid, plan, lo, pair_fn, *slab, needs_virial,
-            min_r2, typed_fn, rc2_tab, needs_energy, geometry)
+    check_slot_inputs(positions, types, valid, plan)
     if lanes is None:
-        lanes = _default_lanes(plan, valid, slab)
+        lanes = _default_lanes(plan, valid)
     if not positions.is_cuda:
         return generic_plain(positions, types, valid, plan, lo, pair_fn,
                              typed_fn, needs_virial, min_r2, rc2_tab,
                              needs_energy, geometry, lanes)
     gl = generic_list(positions, types, valid, plan, lo, typed_fn, min_r2,
-                      rc2_tab, geometry, lanes, needs_energy, needs_virial,
-                      slab)
+                      rc2_tab, geometry, lanes, needs_energy, needs_virial)
     U, S = gl.evaluate(pair_fn)
     return generic_reduce(gl, U, S, needs_energy, needs_virial)
 
 
 #: calls that launched the generic form's reduction (generic_reduce, after
 #: its list kernel: three launches each), training's forward included;
-#: those of the double instantiation alone; and those in slab mode
+#: and those of the double instantiation alone
 generic_pair_forces.launches = 0
 generic_pair_forces.f64_launches = 0
-generic_pair_forces.slab_launches = 0
 #: those over a group of z-slab shards (generic_group_pair_forces)
 generic_pair_forces.group_launches = 0
 
@@ -1339,7 +1396,7 @@ def _shifted_cells(cell, t, plan):
 
 
 def generic_reduce_bwd_plain(lst, ct, valid, plan, needs_energy=True,
-                             n_lanes=None, slab=None):
+                             n_lanes=None, slab=None, group=None):
     """Plain PyTorch version of ``generic_reduce_bwd``: the transpose of
     :func:`generic_reduce_plain` in ``(U, S)``. Per listed lane, with the
     cotangent folded with ``valid`` (the finish multiplies by it), ``gU =
@@ -1354,15 +1411,33 @@ def generic_reduce_bwd_plain(lst, ct, valid, plan, needs_energy=True,
         ``ct``, ``valid`` its buffers (:func:`.cellwise.slab_buffer`): a
         candidate in the halo layer reads the cotangent of the next
         shard's first home layer there.
+    :param group: a :class:`.cellwise.SlabGroup`: ``lst`` is the group's
+        joined list (:func:`generic_group_list_plain`), ``ct`` and
+        ``valid`` the members' buffers in group order (``ct`` also the
+        joined ``[members, rows, 4]``): a member's candidate in its halo
+        layer reads the next member's first home layer when that is in
+        the group. A z-slab shard's list is its group of one.
     :returns: ``(gU or None when not needs_energy, gS)``.
     """
+    if group is not None:
+        layer = halo_layer(plan)
+        parts = []
+        for k, sl in enumerate(group.slabs):
+            mine = lst["member"] == k
+            sub = {key: v[mine] for key, v in lst.items() if key != "needed"}
+            parts.append(generic_reduce_bwd_plain(
+                sub, group_rows(list(ct), group, k, layer),
+                group_rows(valid, group, k, layer), plan, needs_energy,
+                slab=sl))
+        gS = torch.cat([x[1] for x in parts])
+        gU = torch.cat([x[0] for x in parts]) if needs_energy else None
+        # the joined list is member after member: the parts in its order
+        return _pad_lanes(gU, gS, n_lanes)
     cap = plan.capacity
     if slab is not None:
         # a home cell's half stencil reaches z + 1 only: its candidates'
         # cells are the buffer plan's, with no wrap in z
         plan = _slab_plan(plan, slab[1])
-    n = lst["r2"].shape[0]
-    n_lanes = n if n_lanes is None else int(n_lanes)
     ctv = ct.to(valid.dtype) * valid[:, None]
     row = lst["cell"] * cap + lst["row"]
     t = lst["col"] // cap
@@ -1373,7 +1448,13 @@ def generic_reduce_bwd_plain(lst, ct, valid, plan, needs_energy=True,
           lst["dy"] * (2.0 * ci[:, 1] - 2.0 * cj[:, 1]) +
           lst["dz"] * (2.0 * ci[:, 2] - 2.0 * cj[:, 2]))
     gU = 0.5 * ci[:, 3] + 0.5 * cj[:, 3] if needs_energy else None
-    pad = n_lanes - n
+    return _pad_lanes(gU, gS, n_lanes)
+
+
+def _pad_lanes(gU, gS, n_lanes):
+    """``(gU, gS)`` padded with zeros to ``n_lanes`` (``None``: as they
+    are)."""
+    pad = 0 if n_lanes is None else int(n_lanes) - gS.shape[0]
     if pad > 0:
         gS = torch.nn.functional.pad(gS, (0, pad))
         gU = None if gU is None else torch.nn.functional.pad(gU, (0, pad))
@@ -1384,22 +1465,25 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
     """Kernel ``generic_reduce_bwd``, the backward of the generic form's
     reduction: the cotangents ``(gU or None, gS)`` of the pair function's
     ``(U, S)`` on the list ``gl``, given the cotangent ``ct`` of the
-    forces ``[n_slots, 4]``. On a CUDA list it launches the kernel
-    (counted in ``generic_reduce_bwd.launches``), which reads the list
+    forces: ``[n_slots, 4]`` of a whole state's list, or for a group's
+    joined list (:func:`generic_group_list`) ``[members,
+    rows, 4]`` (or a list of the members' ``[rows, 4]``), a member's halo
+    rows read only when its next member lies outside the group. On a CUDA
+    list it launches the kernel over every home cell of the list (counted
+    in ``generic_reduce_bwd.launches``, and in ``.group_launches`` for a
+    group's list; a whole state's runs as its group of one), which reads
+    the list
     kernel's records of ``gl`` and writes every lane of the budget (zero
     where no pair is listed); it raises when a later list call has
     rewritten those records. On a CPU list it takes
     :func:`generic_reduce_bwd_plain`."""
     plan = gl.plan
-    if gl.group is not None:
-        raise ValueError("generic_reduce_bwd of a group's joined list: "
-                         "training under a mesh lists per shard")
     if gl.lst is not None:
         return generic_reduce_bwd_plain(gl.lst, ct, gl.valid, plan,
                                         needs_energy, gl.r2.shape[0],
-                                        gl.slab)
+                                        group=gl.group)
     dev = gl.r2.device
-    if _GENERATION.get((str(dev), gl.slab)) != gl.generation:
+    if _GENERATION.get(gl.key) != gl.generation:
         raise RuntimeError(
             "the generic form's list and records were rewritten by a later "
             "generic-form call before this call's backward ran")
@@ -1407,30 +1491,42 @@ def generic_reduce_bwd(gl, ct, needs_energy=True):
         raise RuntimeError("the backward of a generic-form list whose "
                            "reduction did not run")
     dtype, f64 = kernel_dtype(gl.r2)
-    ct = ct.contiguous()
-    _check(ct, (gl.rows, 4), dtype, dev, "ct")
+    if gl.group is None:
+        ct = ct.contiguous()
+        _check(ct, (gl.rows, 4), dtype, dev, "ct")
+        tab = (1, _ptrs([ct]), _ptrs([gl.valid]), *_WHOLE)
+    else:
+        G = len(gl.group.slabs)
+        cts = []
+        for k, c in enumerate(ct):
+            c = c.contiguous()
+            _check(c, (member_rows(plan, gl.group, k, c), 4), dtype, dev,
+                   "ct")
+            cts.append(c)
+        _, z0, prev, nxt = gl.tables
+        tab = (G, _ptrs(cts), gl.tables[0][2], z0, prev, nxt)
     gS = torch.empty(gl.budget, dtype=dtype, device=dev)
     gU = torch.empty_like(gS) if needs_energy else None
     lib = _generic_library()
     err = lib.htf_generic_reduce_bwd(
-        f64, gl.geom, gl.n_cells, _ptr(gl.rec), _ptr(gl.cell_base), _ptr(ct),
-        _ptr(gl.valid), int(needs_energy), _ptr(gl.needed), gl.budget,
-        _ptr(gU), _ptr(gS),
+        f64, *tab, gl.geom, _ptr(gl.rec), _ptr(gl.cell_base),
+        int(needs_energy), _ptr(gl.needed), gl.budget, _ptr(gU), _ptr(gS),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError("generic reduction backward launch failed: " +
                            lib.htf_generic_error_string(err).decode())
-    generic_reduce_bwd.launches += 1
-    generic_reduce_bwd.f64_launches += f64
-    generic_reduce_bwd.slab_launches += gl.slab is not None
+    bwd = generic_reduce_bwd
+    bwd.launches += 1
+    bwd.f64_launches += f64
+    bwd.group_launches += gl.group is not None
     return gU, gS
 
 
 #: calls that launched generic_reduce_bwd; those of its double
-#: instantiation alone; those in slab mode (a z-slab shard's)
+#: instantiation alone; those on a group's joined list
 generic_reduce_bwd.launches = 0
 generic_reduce_bwd.f64_launches = 0
-generic_reduce_bwd.slab_launches = 0
+generic_reduce_bwd.group_launches = 0
 
 
 class GenericReduce(torch.autograd.Function):
@@ -1438,13 +1534,17 @@ class GenericReduce(torch.autograd.Function):
     function of the pair function's ``(U, S)`` on a :class:`GenericList`:
     forward :func:`generic_reduce` (forces only, no virial), backward
     :func:`generic_reduce_bwd`. ``apply(U, S, gl, needs_energy) ->
-    forces4``; without the energy, ``U`` gets no gradient."""
+    forces4`` (a group's list: ``[members, rows, 4]``); without the
+    energy, ``U`` gets no gradient."""
 
     @staticmethod
     def forward(ctx, U, S, gl, needs_energy):
         ctx.gl, ctx.needs_energy = gl, needs_energy
-        f4, _ = generic_reduce(gl, U.detach(), S.detach(), needs_energy)
-        return f4
+        U, S = U.detach(), S.detach()
+        if gl.group is not None and gl.lst is None:
+            return _group_reduce(gl, U, S, needs_energy, False)[0]
+        f4, _ = generic_reduce(gl, U, S, needs_energy)
+        return torch.stack(f4) if gl.group is not None else f4
 
     @staticmethod
     def backward(ctx, ct):
@@ -1454,22 +1554,44 @@ class GenericReduce(torch.autograd.Function):
 
 def generic_train_forces(positions, types, valid, plan, lo, pair_fn,
                          typed_fn=True, min_r2=1e-4, rc2_tab=None,
-                         needs_energy=True, geometry=None, lanes=None,
-                         slab=None):
+                         needs_energy=True, geometry=None, lanes=None):
     """K1's generic form for training: ``forces4 [n_slots, 4]``
     differentiable in the weights ``pair_fn`` reads. The list kernel (its
     plain version on CPU tensors), the pair function on the list with
     grad, then :class:`GenericReduce`, whose backward is the kernel
     ``generic_reduce_bwd`` (its plain version on the CPU). A CUDA call
     counts in ``generic_pair_forces.launches`` (at its reduction).
-    Arguments as :func:`generic_pair_forces` (``slab``: a z-slab shard's
-    call on its buffer, the backward in slab mode too); no virial."""
+    Arguments as :func:`generic_pair_forces`; no virial."""
     gl = generic_list(positions, types, valid, plan, lo, typed_fn, min_r2,
-                      rc2_tab, geometry, lanes, needs_energy, slab=slab)
+                      rc2_tab, geometry, lanes, needs_energy)
     U, S = gl.evaluate(pair_fn, grad=True)
     if not needs_energy:
         U = U.detach()
     return GenericReduce.apply(U, S, gl, needs_energy).to(positions.dtype)
+
+
+def generic_group_train_forces(positions, types, valid, plan, lo, pair_fn,
+                               group, typed_fn=True, min_r2=1e-4,
+                               rc2_tab=None, needs_energy=True,
+                               geometry=None, lanes=None):
+    """K1's generic form for training over a group of z-slab shards on one
+    device: one list over every member's home cells
+    (:func:`generic_group_list`, its plain version on the CPU), the pair
+    function run once on the joined list with grad, then
+    :class:`GenericReduce`, whose backward is ``generic_reduce_bwd`` over
+    the group. Arguments as :func:`generic_group_pair_forces`; no virial.
+
+    :returns: ``forces4 [members, (nzl + 1) nx ny cap, 4]``, differentiable
+        in the weights ``pair_fn`` reads (a member's halo rows zero when
+        its next member is in the group, else its reverse halo)."""
+    gl = generic_group_list(positions, types, valid, plan, lo, group,
+                            typed_fn, min_r2, rc2_tab, geometry, lanes,
+                            needs_energy)
+    U, S = gl.evaluate(pair_fn, grad=True)
+    if not needs_energy:
+        U = U.detach()
+    return GenericReduce.apply(U, S, gl, needs_energy).to(
+        positions[0].dtype)
 
 
 def kernel_lane_index(lst, cell_base, plan):
@@ -1486,23 +1608,23 @@ def kernel_lane_index(lst, cell_base, plan):
                        torch.full_like(base, -1))
 
 
-# per device and slab (None: a whole state): the generation of the shared
-# list and records below (one more at each list launch; a backward checks
-# its call's)
+# per device and None (a whole state) or group (("group", its slabs)):
+# the generation of the shared list and records below (one more
+# at each list launch; a backward checks its call's)
 _GENERATION = {}
 
-# per device, scalar type and slab: the lane counter (zero between calls),
-# the list buffer ([3, budget] r2, ti, tj in the state's dtype), first
-# filled with harmless in-cut values, so that later calls leave earlier
-# lanes' finite values in its tail, and the cells' records the list kernel
-# hands the reduction. A mesh's shards on one device each keep their own:
-# a training step lists every shard before the first backward reads its
-# records, and the pair function's graph holds its list's r2.
+# per device, scalar type and None or group: the lane counter (zero between
+# calls), the list buffer ([3, budget] r2, ti, tj in the state's dtype),
+# first filled with harmless in-cut values, so that later calls leave
+# earlier lanes' finite values in its tail, and the cells' records the
+# list kernel hands the reduction. Each device of a mesh keeps its group's
+# own: a training step lists every group before the first backward reads
+# its records, and the pair function's graph holds its list's r2.
 _GENERIC = {}
 
 
-def _generic_buffers(device, dtype, budget, rc2, rec_words, slab=None):
-    key = (str(device), dtype, slab)
+def _generic_buffers(device, dtype, budget, rc2, rec_words, group=None):
+    key = (str(device), dtype, group)
     counter, lst, rec = _GENERIC.get(key, (None, None, None))
     if counter is None:
         counter = torch.zeros(1, dtype=torch.int32, device=device)
@@ -1537,11 +1659,12 @@ def _generic_library():
             [ctypes.c_void_p] * 7)
         lib.htf_generic_reduce.restype = ctypes.c_int
         lib.htf_generic_reduce_bwd.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
-            [ctypes.c_void_p] * 4 +
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 +
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
             [ctypes.c_void_p] * 3)
         lib.htf_generic_reduce_bwd.restype = ctypes.c_int
+        lib.htf_generic_reduce_bwd_smem.argtypes = [ctypes.c_int] * 2
+        lib.htf_generic_reduce_bwd_smem.restype = ctypes.c_long
         group = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
         lib.htf_generic_group_list.argtypes = (
             group + [ctypes.c_void_p] * 2 + geo +

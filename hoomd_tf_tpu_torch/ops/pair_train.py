@@ -25,17 +25,24 @@ the CPU the generic lane contraction, ``torch.autograd.grad`` of the
 weighted sum, is the oracle; ``bwd_impl='list'`` takes the list route's
 plain version there.
 
-Under a device mesh (``mesh=``, the JAX signature) the forward is
-:func:`.cellwise.analytic_pair_forces` over the mesh's z-slabs, and the
-backward runs per shard on its device, over the home cells of its slab,
-with the forces' cotangent cut into its slab buffer
-(:func:`.cellwise.slab_buffer`: a halo row carries the cotangent of the
-next shard's first home layer, the rows its reverse halo was added to);
-the shards' gradients are summed on the state's device. Each unordered
-pair belongs to one home cell's half stencil, so the sum is the whole
-state's gradient. A proxy takes K2's slab mode, the list route K1's
-generic form and ``generic_reduce_bwd`` in slab mode, the CPU contraction
-its slab buffers; no route gathers the state for an unsharded backward.
+Under a device mesh (``mesh=``, the JAX signature) the shards are
+partitioned by device (:func:`.cellwise.slab_groups`) and everything
+runs once per device, over the home cells of its shards: the forward is
+:func:`.cellwise.analytic_pair_forces` over the mesh (one group call of
+K1 a device), and the backward takes the members' rows of the state and
+of the forces' cotangent (:func:`.cellwise.group_buffers`: views on the
+state's device, one copy on another; a member's forward halo is read in
+place from the next member, or, where that shard lies on another device,
+from its halo rows, which carry the next shard's cotangent where its
+reverse halo was added). The devices' gradients are summed on the
+state's device in device order. Each unordered pair belongs to one home
+cell's half stencil, so the sum is the whole state's gradient. A proxy
+takes K2's group mode (one launch pair a device); the list route lists
+once a device, runs the pair function once on the joined list and takes
+``generic_reduce_bwd`` over the group
+(:func:`.cellwise_cuda.generic_group_train_forces`); the CPU contraction
+runs per shard on its slab buffers. No route gathers the state for an
+unsharded backward.
 
 Geometry inputs (positions, types, validity) get no gradient: neighbor
 membership is piecewise constant and training never differentiates the
@@ -132,7 +139,7 @@ class _Run:
 
     def shard_inputs(self, ct, shard):
         """``(positions, types, valid, ct, geometry, rcut_matrix, slab)``
-        of the backward on the whole state (``shard`` ``None``) or on a
+        of the contraction on the whole state (``shard`` ``None``) or on a
         shard ``(device, z0, nzl)``: its slab buffers on its device."""
         if shard is None:
             return (self.positions, self.types, self.valid, ct,
@@ -147,33 +154,49 @@ class _Run:
         return (*bufs, geometry, rc, (z0, nzl))
 
     def backward(self, tensors, ct):
+        params = self.unflatten(tensors)
         if self.shards is None:
-            return self.shard_backward(tensors, ct, None)
+            if self.uses_k2(params):
+                return self._k2(params, self.positions, self.types,
+                                self.valid, ct, self.geometry,
+                                self.rcut_matrix, None)
+            return self._contract(tensors, ct)
         primary = self.positions.device
+        if self.uses_k2(params):
+            # one launch pair a device over its shards
+            parts = []
+            for g in _cw.slab_groups(self.shards):
+                bufs = [_cw.group_buffers(t, self.plan, g, g.device)
+                        for t in (self.positions, self.types, self.valid,
+                                  ct)]
+                geometry = _cw._as_geometry(
+                    self.plan, self.lo, self.positions,
+                    self.geometry).on(g.device)
+                rc = (None if self.rcut_matrix is None else
+                      to_device(self.rcut_matrix, g.device))
+                parts.append(self._k2(params, *bufs, geometry, rc, g))
+        else:
+            parts = [self._contract(tensors, ct, shard=shard)
+                     for shard in self.shards]
         grads = None
-        for shard in self.shards:
-            part = [to_device(g, primary)
-                    for g in self.shard_backward(tensors, ct, shard)]
+        for part in parts:
+            part = [to_device(g, primary) for g in part]
             grads = part if grads is None else [
                 a + b for a, b in zip(grads, part)]
         return grads
 
-    def shard_backward(self, tensors, ct, shard):
-        """The parameters' gradients of the lanes of the whole state or
-        of a shard's home cells (on the shard's device)."""
-        params = self.unflatten(tensors)
-        if self.uses_k2(params):
-            from .pair_train_cuda import proxy_bwd_moments
-            positions, types, valid, ct_s, geometry, rc, slab = \
-                self.shard_inputs(ct, shard)
-            g_c, g_cd = proxy_bwd_moments(
-                positions, types, valid, ct_s, self.plan, self.lo,
-                self.pair_apply.basis, min_r2=self.min_r2, rc2_tab=rc,
-                needs_energy=self.needs_energy, geometry=geometry,
-                slab=slab)
-            grads = {"c": g_c, "cd": g_cd}
-            return [grads[k].to(params[k].dtype) for k in params]
-        return self._contract(tensors, ct, shard=shard)
+    def _k2(self, params, positions, types, valid, ct, geometry, rc,
+            group):
+        """The proxy coefficients' gradients by kernel K2 over the whole
+        state (``group`` ``None``) or over a group's members' buffers
+        (lists, on its device)."""
+        from .pair_train_cuda import proxy_bwd_moments
+        g_c, g_cd = proxy_bwd_moments(
+            positions, types, valid, ct, self.plan, self.lo,
+            self.pair_apply.basis, min_r2=self.min_r2, rc2_tab=rc,
+            needs_energy=self.needs_energy, geometry=geometry, group=group)
+        grads = {"c": g_c, "cd": g_cd}
+        return [grads[k].to(params[k].dtype) for k in params]
 
     def uses_k2(self, params):
         """Does the backward run in kernel K2 (a Chebyshev proxy whose
@@ -333,28 +356,32 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
 
 
 def _sharded_list_forces(run, params, lanes):
-    """The list route under a mesh: per shard, on its device, K1's generic
-    form in slab mode with grad (:func:`.cellwise_cuda.
-    generic_train_forces` with ``slab=``; the pair function under the
-    parameters copied there), its backward ``generic_reduce_bwd`` in slab
-    mode; the shards' forces gathered with :func:`.cellwise.gather_slabs`,
-    whose gradient hands each shard its slab buffer of the cotangent."""
-    from .cellwise_cuda import LaneBudget, generic_train_forces
+    """The list route under a mesh: per device, on the members' rows of its
+    shards (:func:`.cellwise.group_buffers`), one list over their home
+    cells, the pair function (under the parameters copied there) run once
+    on the joined list with grad, and ``generic_reduce_bwd`` over the
+    group as its backward (:func:`.cellwise_cuda.
+    generic_group_train_forces`); the devices' forces gathered with
+    :func:`.cellwise.gather_groups`, whose gradient hands each member its
+    rows of the cotangent."""
+    from .cellwise_cuda import LaneBudget, generic_group_train_forces
     plan, primary = run.plan, run.positions.device
     geometry = _cw._as_geometry(plan, run.lo, run.positions, run.geometry)
+    groups = _cw.slab_groups(run.shards)
     outs = []
-    for dev, z0, nzl in run.shards:
-        p, ty, v = (_cw.slab_buffer(t, plan, z0, nzl, dev)
+    for g in groups:
+        dev = g.device
+        p, ty, v = (_cw.group_buffers(t, plan, g, dev)
                     for t in (run.positions, run.types, run.valid))
         rc = (None if run.rcut_matrix is None else
               to_device(run.rcut_matrix, dev))
         own = None if lanes is None else LaneBudget(lanes.budget, dev)
-        f4 = generic_train_forces(
-            p, ty, v, plan, run.lo, run.bind(run.on_device(params, dev)),
+        f4 = generic_group_train_forces(
+            p, ty, v, plan, run.lo, run.bind(run.on_device(params, dev)), g,
             typed_fn=run.with_types, min_r2=run.min_r2, rc2_tab=rc,
             needs_energy=run.needs_energy, geometry=geometry.on(dev),
-            lanes=own, slab=(z0, nzl))
+            lanes=own)
         if lanes is not None:
             lanes.record(to_device(own.needed, primary))
-        outs.append((f4, None))
-    return _cw.gather_slabs(outs, plan, primary)[0]
+        outs.append((f4.unbind(0), None))
+    return _cw.gather_groups(outs, groups, plan, primary)[0]

@@ -26,11 +26,12 @@ import ctypes
 
 import torch
 
-from .cellwise import (_HALF_OFFS, _as_geometry, _roll_offs, half_frame,
-                       pair_rc2)
-from .cellwise_cuda import (_MAX_SMEM, _check, _ptr, check_slot_inputs,
-                            cuda_slot_args, half_geom, kernel_dtype,
-                            slab_shape)
+from .cellwise import (_HALF_OFFS, _as_geometry, _roll_offs, group_rows,
+                       half_frame, halo_layer, pair_rc2)
+from .cellwise_cuda import (_MAX_SMEM, _check, _group_inputs, _ptr, _ptrs,
+                            check_group_inputs, check_slot_inputs,
+                            cuda_slot_args, group_args, half_geom,
+                            kernel_dtype, member_rows)
 
 __all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference",
            "type_groups", "smem_bytes", "max_capacity"]
@@ -175,15 +176,43 @@ def proxy_bwd_reference(gx, gy, gz, gt, cgx, cgy, cgz, cge, basis, cap, rc2,
 
 def proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis, *,
                     min_r2=1e-4, rc2_tab=None, needs_energy=True,
-                    geometry=None, slab=None):
+                    geometry=None, group=None):
     """Plain PyTorch version of kernel K2, with the wrapper's contract: the
     candidate and cotangent planes of the half stencil
     (:func:`.cellwise.half_frame`, ``_roll_offs``) through
-    :func:`proxy_bwd_reference`'s lane math. With ``slab = (z0, nzl)`` the
-    inputs and ``ct`` are a z-slab shard's buffer
-    (:func:`.cellwise.slab_buffer`) and the moments those of its home
-    cells' lanes: each unordered pair belongs to one home cell's half
-    stencil, so the shards' moments sum to the whole state's."""
+    :func:`proxy_bwd_reference`'s lane math. With ``group`` (a
+    :class:`.cellwise.SlabGroup`) the inputs and ``ct`` are the members'
+    buffers in group order (:func:`proxy_bwd_moments`' group mode) and the
+    moments those of the members' home cells' lanes: each member's planes
+    from its buffer, the forward halo read from the next member's first
+    home layer when that is in the group (:func:`.cellwise.group_rows`),
+    joined member after member (the group's global cell order) into one
+    pass of the lane math. A group of every shard gives the whole state's
+    planes, chunks and sums, so its moments equal the unsharded ones bit
+    for bit."""
+    if group is None:
+        frames = [_planes(positions, types, valid, ct, plan, lo, basis,
+                          rc2_tab, needs_energy, geometry, None)]
+    else:
+        layer = halo_layer(plan)
+        frames = [_planes(*(group_rows(list(t), group, k, layer)
+                            for t in (positions, types, valid, ct)),
+                          plan, lo, basis, rc2_tab, needs_energy, geometry,
+                          slab)
+                  for k, slab in enumerate(group.slabs)]
+    planes = [None if f[0] is None else torch.cat(f)
+              for f in zip(*frames)]
+    out = proxy_bwd_reference(*planes, basis, plan.capacity,
+                              plan.r_cut ** 2, min_r2, rc2_tab)
+    return _split(out, basis)
+
+
+def _planes(positions, types, valid, ct, plan, lo, basis, rc2_tab,
+            needs_energy, geometry, slab):
+    """``(gx, gy, gz, gt or None, cgx, cgy, cgz, cge or None)``: the
+    half-stencil candidate, type and cotangent planes (``valid`` folded
+    into the cotangent) of the home cells of a whole state or of a z-slab
+    buffer (``slab = (z0, nzl)``)."""
     geometry = _as_geometry(plan, lo, positions, geometry)
     rp, n_home, _, _, _, gx, gy, gz = half_frame(positions, valid, plan, lo,
                                                  geometry, slab)
@@ -197,16 +226,12 @@ def proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis, *,
         gt = roll(types.to(torch.int32))
     cg = [roll(ctv[:, k].contiguous())
           for k in range(4 if needs_energy else 3)]
-    out = proxy_bwd_reference(gx, gy, gz, gt, cg[0], cg[1], cg[2],
-                              cg[3] if needs_energy else None, basis,
-                              plan.capacity, plan.r_cut ** 2, min_r2,
-                              rc2_tab)
-    return _split(out, basis)
+    return (gx, gy, gz, gt, *cg, *([] if needs_energy else [None]))
 
 
 def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
                       min_r2=1e-4, rc2_tab=None, needs_energy=True,
-                      geometry=None, slab=None):
+                      geometry=None, group=None):
     """Kernel K2: the proxy backward's moment sums over the half-stencil
     lanes (the counterpart of the JAX ``proxy_bwd_moments``). Launches the
     kernel on CUDA tensors (counting each call in
@@ -221,34 +246,51 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
         dtype (this function folds ``valid`` in).
     :param rc2_tab: ``[T, T]`` squared-cutoff table (``cellwise.rc2_table``)
         or ``None``.
-    :param slab: ``(z0, nzl)``: the slab mode of a z-slab shard
-        (:func:`.cellwise_cuda.half_stencil_pair_forces`' slab mode): the
-        inputs and ``ct`` are its buffer's rows
-        (:func:`.cellwise.slab_buffer`), the home layers then the forward
-        halo layer, and the moments are those of its home cells' lanes
-        (counted also in ``.slab_launches``); on CPU tensors
-        :func:`proxy_bwd_plain` with ``slab``.
+    :param group: a :class:`.cellwise.SlabGroup` of z-slab shards on one
+        card (the training backward under a mesh): ``positions``,
+        ``types``, ``valid`` and ``ct`` are lists of the members' buffers
+        in group order (:func:`.cellwise.group_buffers`: a member's home
+        layers, then its forward halo layer unless its next member is in
+        the group, whose first home layer is then read in place; a halo
+        row of ``ct`` carries the next shard's first home layer's
+        cotangent), one launch pair covers every member's home cells, and
+        the moments are those of their lanes, summed over the cells in
+        the group's global cell order (counted also in
+        ``.group_launches``). A group of every shard gives the unsharded
+        moments bit for bit; a z-slab shard alone is its group of one. On
+        CPU tensors :func:`proxy_bwd_plain` with ``group``.
     :returns: ``(g_c, g_cd)``: ``[K]`` tensors (untyped) or ``[P, K]``
         (typed, :func:`.chebyshev.type_pairs` order).
     """
-    n_cells, n = slab_shape(plan, slab)
-    check_slot_inputs(positions, types, valid, plan, n)
-    if not positions.is_cuda:
+    kw = dict(min_r2=min_r2, rc2_tab=rc2_tab, needs_energy=needs_energy,
+              geometry=geometry)
+    first = positions if group is None else positions[0]
+    if group is None:
+        check_slot_inputs(positions, types, valid, plan)
+    elif not first.is_cuda:
+        check_group_inputs(positions, types, valid, plan, group, ct)
+    if not first.is_cuda:
         return proxy_bwd_plain(positions, types, valid, ct, plan, lo, basis,
-                               min_r2=min_r2, rc2_tab=rc2_tab,
-                               needs_energy=needs_energy, geometry=geometry,
-                               slab=slab)
-    geometry = _as_geometry(plan, lo, positions, geometry)
-    dev = positions.device
-    dtype, f64 = kernel_dtype(positions)
+                               group=group, **kw)
+    geometry = _as_geometry(plan, lo, first, geometry)
+    dev = first.device
+    dtype, f64 = kernel_dtype(first)
     T = _n_types(basis)
     K = int(basis["K"])
     typed = T > 1 or rc2_tab is not None
-    state = cuda_slot_args(positions, types, valid, plan, geometry, typed, n)
-    ct = ct.contiguous()
-    if ct.data_ptr() % 16:
-        ct = ct.clone()  # the kernel reads a row as one float4
-    _check(ct, (n, 4), dtype, dev, "ct")
+    if group is None:
+        n_cells = plan.n_cells
+        state = cuda_slot_args(positions, types, valid, plan, geometry,
+                               typed)
+        ct = _aligned(ct)
+        _check(ct, (plan.n_slots, 4), dtype, dev, "ct")
+    else:
+        n_cells, _, _, _, *state = _group_inputs(
+            positions, types, valid, plan, group, geometry, typed)
+        n_cells *= len(group.slabs)
+        ct = [_aligned(c) for c in ct]
+        for k, c in enumerate(ct):
+            _check(c, (member_rows(plan, group, k, c), 4), dtype, dev, "ct")
     rc_t = 0
     if rc2_tab is not None:
         rc_t = rc2_tab.shape[0]
@@ -264,29 +306,42 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
     M = T * (T + 1) // 2 * 2 * K
     partial = torch.empty((n_cells, M), dtype=dtype, device=dev)
     out = torch.empty((M,), dtype=dtype, device=dev)
-    err = lib.htf_proxy_bwd(
-        f64, *state, _ptr(ct), ctypes.byref(half_geom(plan, slab)), n_cells,
-        _ptr(rc2_tab), rc_t, K, T, G, float(plan.r_cut ** 2), float(min_r2),
-        float(basis["mid"]), float(basis["inv_half"]),
-        float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    rest = (_ptr(rc2_tab), rc_t, K, T, G, float(plan.r_cut ** 2),
+            float(min_r2), float(basis["mid"]), float(basis["inv_half"]),
+            float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if group is None:
+        err = lib.htf_proxy_bwd(f64, *state, _ptr(ct),
+                                ctypes.byref(half_geom(plan)), n_cells, *rest)
+    else:
+        geom, z0, prev, nxt = group_args(plan, group)
+        err = lib.htf_proxy_bwd_group(f64, len(group.slabs), *state[:3],
+                                      _ptrs(ct), z0, prev, nxt, state[3],
+                                      ctypes.byref(geom), *rest)
     if err != 0:
         raise RuntimeError("proxy backward kernel launch failed: " +
                            lib.htf_proxy_error_string(err).decode())
     proxy_bwd_moments.launches += 1
     proxy_bwd_moments.f64_launches += f64
     proxy_bwd_moments.grouped_launches += len(groups) > 1
-    proxy_bwd_moments.slab_launches += slab is not None
+    proxy_bwd_moments.group_launches += group is not None
     return _split(out, basis)
+
+
+def _aligned(ct):
+    """``ct`` contiguous and 16-byte aligned (the kernel reads a row as one
+    vector)."""
+    ct = ct.contiguous()
+    return ct.clone() if ct.data_ptr() % 16 else ct
 
 
 #: calls that launched the kernel (the moment pass and the cross-cell sum);
 #: those of its double instantiation alone; those split into type groups;
-#: those in slab mode (a z-slab shard's)
+#: those over a group of z-slab shards (``group=``)
 proxy_bwd_moments.launches = 0
 proxy_bwd_moments.f64_launches = 0
 proxy_bwd_moments.grouped_launches = 0
-proxy_bwd_moments.slab_launches = 0
+proxy_bwd_moments.group_launches = 0
 
 _LIB = None
 
@@ -303,6 +358,11 @@ def _library():
             [ctypes.c_int] * 4 + [ctypes.c_double] * 5 + [ctypes.c_int] +
             [ctypes.c_void_p] * 3)
         lib.htf_proxy_bwd.restype = ctypes.c_int
+        lib.htf_proxy_bwd_group.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 +
+            [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_int] * 3 +
+            [ctypes.c_double] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+        lib.htf_proxy_bwd_group.restype = ctypes.c_int
         lib.htf_proxy_bwd_smem.argtypes = [ctypes.c_int] * 5
         lib.htf_proxy_bwd_smem.restype = ctypes.c_long
         lib.htf_proxy_error_string.argtypes = [ctypes.c_int]

@@ -10,7 +10,7 @@ on them on its device. Traffic per shard is O(halo), not O(N).
 
 As in the JAX package this is a reference implementation, not wired
 into any front end: the engine's sharded path is ``Simulation(mesh=)``
-(K1's slab mode, ``ops/cellwise.py::analytic_pair_forces``). It stays as
+(K1's group launch, ``ops/cellwise.py::analytic_pair_forces``). It stays as
 an independent oracle of a sharded force evaluation.
 
 Fixed shapes: halo buffers have a fixed capacity and particles are

@@ -5,8 +5,8 @@ A thin subclass of :class:`..md.simulation.Simulation`: passing a
 ``mesh`` to Simulation decomposes the cellwise mode's slot state into
 z-slabs, one per shard, each resident on its shard's device during a run
 (``md/slots.py::SlabSlots``, the analog of the JAX package's row-sharded
-slot arrays): kernel K1's slab mode runs on each shard's rows in place
-with the halo exchange written out (``ops/cellwise.py::
+slot arrays): kernel K1's group launch runs on each device's shards'
+rows in place with the halo exchange between devices written out (``ops/cellwise.py::
 resident_pair_forces``), the integrators, built-in forces, ``period``
 gating and logging run per shard with the thermostat's, barostat's and
 log's sums added on the first device (the analog of the reference's MPI

@@ -21,6 +21,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
     python3 profile_step.py --mode mesh [--row generic] [--tree DIR]
+    python3 profile_step.py --mode meshtrain [--tree DIR]
 
 ``--tree DIR`` imports the port's package from another checkout (an
 older commit, say) while this file and ``chip_smoke.py`` stay this
@@ -52,9 +53,13 @@ train=True and trained 600 steps around a replan), profiles ``run(steps)`` with 
 
 ``--mode calls`` quenches the 64k fluid (60 steps, as chip_smoke.py
 phase 3) and times, by CUDA events, the whole call of K1's LJ form at the
-eval plan, shard 0's call of each slab mode (K1's LJ, proxy and generic
-forms, K2, ``generic_reduce_bwd``) of a 4-shard mesh at the plan
-``ShardedSimulation`` takes on this state, of K1's proxy form and K2 (K = 16, forces only) at the train
+eval plan, shard 0 of a 4-shard mesh alone as its group of one (K1's
+LJ, proxy and generic forms, K2 and ``generic_reduce_bwd``; in a tree
+without K2's and ``generic_reduce_bwd``'s group mode, their slab calls)
+at the plan ``ShardedSimulation`` takes on this state, the training
+backward over all 4 shards of one card (K2 and ``generic_reduce_bwd``:
+one group launch each, or in a tree without a group mode its 4 slab
+calls in a row), of K1's proxy form and K2 (K = 16, forces only) at the train
 plan's grid (15^3, capacity 36), and of K3 (NN 64) at the packed path's
 plan (18^3, capacity 29 on this state). For each it profiles R = 10
 back-to-back calls between marker kernels (``chip_smoke.profiled_calls``:
@@ -101,6 +106,15 @@ unsharded (phase 7's route). With
 ``--tree DIR`` the package is an older checkout's, so one call measures
 two trees on one card.
 
+``--mode meshtrain`` runs chip_smoke.py phases 32 and 33's sharded
+training from the same NVT fluid: the proxy row (K1's proxy form, K2)
+and the pair row (the list route: K1's generic form, the pair function
+with grad, ``generic_reduce_bwd``) through ``ShardedSimulation`` on 4
+virtual shards of cuda:0 (or min(4, cards) cards), a warm ``run(50)``,
+then three timed ``run(200)`` with host syncs forbidden: train steps/s
+and the backward kernel's launches per train step. With ``--tree DIR``
+an older checkout's package runs the same script.
+
 ``--mode genparts`` times K1's generic form (``generic_list``,
 ``generic_reduce`` and the finish, each alone by the profiler) at phase
 7's plan, as built and with one part of its work taken out by a text
@@ -124,6 +138,7 @@ are of a profiled run; the per-part times are not.
 import argparse
 import dataclasses
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -135,7 +150,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GROUPS = (("K1 LJ form", ("half_stencil_forces", "LJForm")),
           ("K1 proxy form", ("half_stencil_forces", "ChebForm")),
           ("K1 push-back", ("half_stencil_home",)),
-          ("K2", ("proxy_bwd_kernel",)),
+          ("K2", ("proxy_bwd_",)),
           ("K1 generic list", ("generic_list",)),
           ("generic_reduce_bwd", ("generic_reduce_bwd",)),
           ("K1 generic reduction", ("generic_reduce",)),
@@ -439,12 +454,14 @@ def whole_calls(cs, dtype):
 
 
 def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
-    """Shard 0's calls of the slab modes (a mesh of ``S`` shards) at the
-    plan ShardedSimulation takes on this state (``nz % S == 0``): K1's LJ
-    and proxy forms, its generic form on the LJ pair function, K2 and
+    """Shard 0's calls (a mesh of ``S`` shards) at the plan
+    ShardedSimulation takes on this state (``nz % S == 0``): K1's LJ and
+    proxy forms, its generic form on the LJ pair function, K2 and
     ``generic_reduce_bwd`` (forces only), each on shard 0's slab buffers
-    (home layers and forward halo), with its own bound (chip_smoke.py's
-    phases 29, 30, 32 and 33)."""
+    (home layers and forward halo) as its group of one (in a tree without
+    K2's or ``generic_reduce_bwd``'s group mode, their slab calls), with
+    its own bound (chip_smoke.py's phases 29, 30, 32 and 33); then the
+    group launches over every shard."""
     torch = cs.torch
     from hoomd_tf_tpu_torch.md.slots import SlotLayout
     from hoomd_tf_tpu_torch.ops import cellwise as cw
@@ -461,16 +478,24 @@ def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
     layout = SlotLayout(plan, cs.N, sim._lo, dtype=dtype, device="cuda")
     slot, aux = cs.slot_state(layout, sim.state)
     slab = cw.slab_layers(plan, S)[0]
+    one = cw.slab_groups(cw.mesh_slabs(plan, shd.mesh), whole=False)[0]
     buf = [cw.slab_buffer(t, plan, *slab)
            for t in (slot.positions, slot.types, aux["valid"])]
+    b1 = [[x] for x in buf]
     ct = cw.slab_buffer(torch.randn(
         (plan.n_slots, 4), device="cuda", dtype=dtype,
         generator=torch.Generator("cuda").manual_seed(2)), plan, *slab)
     common = (*buf, plan, layout.lo)
     g = layout.geometry
+    group = "group" in inspect.signature(pc.proxy_bwd_moments).parameters
     lanes = cc.LaneBudget(cc.lane_budget(plan, cs.N, slab), "cuda")
-    gl = cc.generic_list(*common, typed_fn=False, geometry=g, lanes=lanes,
-                         needs_energy=False, slab=slab)
+    if group:
+        gl = cc.generic_group_list(*b1, plan, layout.lo, one,
+                                   typed_fn=False, geometry=g, lanes=lanes,
+                                   needs_energy=False)
+    else:
+        gl = cc.generic_list(*common, typed_fn=False, geometry=g,
+                             lanes=lanes, needs_energy=False, slab=slab)
     cc.generic_reduce(gl, *gl.evaluate(pair_fn), False)
     need = int(lanes.needed)
     tested, inside = cs.slab_pair_counts(slot.positions, aux["valid"], plan,
@@ -481,34 +506,121 @@ def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
 
     def k1(per):
         return (rows * esize * (3 + 1 + 4), 9 * tested + inside * (per + 9))
+    if group:
+        k2_one = (lambda: pc.proxy_bwd_moments(
+            *b1, [ct], plan, layout.lo, proxy.basis, needs_energy=False,
+            geometry=g, group=one))
+    else:
+        k2_one = (lambda: pc.proxy_bwd_moments(
+            *buf, ct, plan, layout.lo, proxy.basis, needs_energy=False,
+            geometry=g, slab=slab))
+    how = "a group of one" if group else "slab mode"
     return group_calls(cs, shd.mesh, layout, sim.state, slot, aux, lj,
                        pair_fn, slab, k1) + (
-        ("K1 LJ form, slab mode, shard 0, forces only", plan, common,
-         lambda: cc.half_stencil_pair_forces(
-             *common, lj, needs_energy=False, geometry=g, slab=slab),
-         lambda: k1(14)),
-        ("K1 proxy form, slab mode, shard 0, forces only", plan, common,
-         lambda: cc.half_stencil_pair_forces(
-             *common, cheb, needs_energy=False, geometry=g, slab=slab),
+        ("K1 proxy form, shard 0 as a group of one, forces only", plan,
+         common,
+         lambda: cc.half_stencil_group_forces(
+             *b1, plan, layout.lo, cheb, one, needs_energy=False,
+             geometry=g),
          lambda: k1(8 * K + 10)),
-        ("K2, slab mode, shard 0, forces-only cotangent", plan, common,
-         lambda: pc.proxy_bwd_moments(
-             *buf, ct, plan, layout.lo, proxy.basis, needs_energy=False,
-             geometry=g, slab=slab),
+        (f"K2, shard 0 alone ({how}), forces-only cotangent", plan, common,
+         k2_one,
          lambda: (esize * (rows * (3 + 1 + 4) + 2 * K),
                   9 * tested + inside * (27 + K * 4))),
-        # the backward before the generic form's slab call rewrites this
-        # slab's records
-        ("generic_reduce_bwd, slab mode, shard 0, forces only", plan,
-         common, lambda: cc.generic_reduce_bwd(gl, ct, False),
+        # the backward before the generic form's call rewrites this
+        # group's records
+        (f"generic_reduce_bwd, shard 0 alone ({how}), forces only", plan,
+         common,
+         lambda: cc.generic_reduce_bwd(gl, [ct] if group else ct, False),
          lambda: cs.bwd_cost(gl, need, False)),
-        ("K1 generic form, slab mode, shard 0, LJ pair function, forces "
-         "only", plan, common,
-         lambda: cc.generic_pair_forces(
-             *common, pair_fn, typed_fn=False, needs_energy=False,
-             geometry=g, lanes=lanes, slab=slab),
+        *bwd_group_calls(cs, shd.mesh, layout, slot, aux, proxy, pair_fn,
+                         dtype),
+        ("K1 generic form, shard 0 as a group of one, LJ pair function, "
+         "forces only", plan, common,
+         lambda: cc.generic_group_pair_forces(
+             *b1, plan, layout.lo, pair_fn, one, typed_fn=False,
+             needs_energy=False, geometry=g, lanes=lanes),
          lambda: (rows * esize * (3 + 1 + 4) + need * esize * 5,
                   9 * tested + need * 9)))
+
+
+def bwd_group_calls(cs, mesh, layout, slot, aux, proxy, pair_fn, dtype):
+    """The training backward's kernels over every shard of ``mesh`` (one
+    card): K2 and ``generic_reduce_bwd`` (forces only) as one group launch
+    each on the members' rows of the whole state (``group_buffers``:
+    views), or, in a tree without a group mode, the same work as its
+    per-shard slab calls in a row (each shard's slab buffers and, for
+    ``generic_reduce_bwd``, its own slab list). The lists are made at the
+    first call (a warm-up), after the calls timed before them, which
+    rewrite the lists of their own keys; bounds: the whole K2's and the
+    backward's of the lists."""
+    torch = cs.torch
+    from hoomd_tf_tpu_torch.ops import cellwise as cw
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    plan, lo, g = layout.plan, layout.lo, layout.geometry
+    S = mesh.size
+    group = "group" in inspect.signature(pc.proxy_bwd_moments).parameters
+    grp = cw.slab_groups(cw.mesh_slabs(plan, mesh))[0]
+    whole = (slot.positions, slot.types, aux["valid"])
+    ct = torch.randn((plan.n_slots, 4), device="cuda", dtype=dtype,
+                     generator=torch.Generator("cuda").manual_seed(3))
+    K = cs.K_PROXY
+    if group:
+        bufs = [cw.group_buffers(t, plan, grp) for t in (*whole, ct)]
+        k2 = (lambda: pc.proxy_bwd_moments(
+            *bufs, plan, lo, proxy.basis, needs_energy=False, geometry=g,
+            group=grp))
+    else:
+        shards = [[cw.slab_buffer(t, plan, z0, nzl) for t in (*whole, ct)]
+                  + [(z0, nzl)] for z0, nzl in cw.slab_layers(plan, S)]
+
+        def k2():
+            for *b, sl in shards:
+                pc.proxy_bwd_moments(*b, plan, lo, proxy.basis,
+                                     needs_energy=False, geometry=g,
+                                     slab=sl)
+    made = {}
+
+    def lists():
+        if made:
+            return made
+        if group:
+            lanes = cc.LaneBudget(cc.lane_budget(plan, cs.N, grp.slabs[0]),
+                                  "cuda")
+            gl = cc.generic_group_list(*bufs[:3], plan, lo, grp,
+                                       typed_fn=False, geometry=g,
+                                       lanes=lanes, needs_energy=False)
+            cc.generic_reduce(gl, *gl.evaluate(pair_fn), False)
+            made["calls"] = [(gl, bufs[3])]
+        else:
+            made["calls"] = []
+            for *b, sl in shards:
+                lanes = cc.LaneBudget(cc.lane_budget(plan, cs.N, sl),
+                                      "cuda")
+                gl = cc.generic_list(*b[:3], plan, lo, typed_fn=False,
+                                     geometry=g, lanes=lanes,
+                                     needs_energy=False, slab=sl)
+                cc.generic_reduce(gl, *gl.evaluate(pair_fn), False)
+                made["calls"].append((gl, b[3]))
+        return made
+
+    def bwd():
+        for gl, c in lists()["calls"]:
+            cc.generic_reduce_bwd(gl, c, False)
+
+    def bwd_cost():
+        parts = [cs.bwd_cost(gl, int(gl.needed), False)
+                 for gl, _ in lists()["calls"]]
+        return tuple(map(sum, zip(*parts)))
+    how = "one group launch" if group else f"{S} slab calls"
+    return (
+        (f"K2 over {S} shards of one card ({how}), forces-only cotangent",
+         plan, whole, k2,
+         lambda: cs.k2_cost(slot.positions, aux["valid"], plan, K, False,
+                            2 * K)),
+        (f"generic_reduce_bwd over {S} shards of one card ({how}), forces "
+         "only", plan, whole, bwd, bwd_cost))
 
 
 def group_calls(cs, mesh, layout, state, slot, aux, lj, pair_fn, slab, k1):
@@ -695,6 +807,54 @@ def mesh_loop(cs, row="proxy"):
     out[many] = timed(shd)
     out["mesh"] = kind
     out["ratio"] = out[many]["steps_per_s"] / out[one]["steps_per_s"]
+    return out
+
+
+def mesh_train(cs, steps=200):
+    """``--mode meshtrain``: chip_smoke.py phases 32 and 33's sharded
+    training (the proxy row, K2; the pair row, the list route) through
+    ShardedSimulation on 4 virtual shards of the card from the NVT fluid
+    of ``--mode mesh``, each the best of three timed ``run(steps)`` after
+    a warm ``run(50)``, host syncs forbidden: train steps/s and the
+    backward kernel's launches per train step."""
+    torch, htt = cs.torch, cs.htt
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
+                                          nlist="cellwise")
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    state = sim.state
+    del sim
+    mesh, kind = cs.shard_mesh()
+    out = {"mesh": kind}
+    rows = (("phase32_proxy", lambda: cs.make_nn(seed=0),
+             pc.proxy_bwd_moments),
+            ("phase33_pair", lambda: cs.make_nn(seed=0, proxy_degree=None),
+             cc.generic_reduce_bwd))
+    for label, make, counter in rows:
+        (shd, tfc, _), = cs.sharded_train_pair(state, mesh, make,
+                                               cs.force_loss,
+                                               sharded_only=True)
+        shd.check_syncs = True
+        shd.run(50)
+        times = []
+        for _ in range(3):
+            n0, s0 = counter.launches, shd.train_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            shd.run(steps)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            per = (counter.launches - n0) / (shd.train_steps - s0)
+        out[label] = {"steps_per_s": [steps / t for t in times],
+                      "best_steps_per_s": steps / min(times),
+                      "backward_launches_per_step": per}
+        del shd, tfc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -935,7 +1095,8 @@ def gen_parts(cs):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("train", "eval", "calls", "k3parts",
-                                       "genparts", "mapped", "mesh"),
+                                       "genparts", "mapped", "mesh",
+                                       "meshtrain"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--row", choices=("proxy", "pair", "generic"),
@@ -980,6 +1141,12 @@ def main():
             args.tree), "package": os.path.dirname(htt.__file__),
             "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
             "row": args.row, **mesh_loop(cs, args.row)}, indent=1))
+        return 0
+    if args.mode == "meshtrain":
+        print(json.dumps({"mode": "meshtrain", "tree": os.path.abspath(
+            args.tree), "package": os.path.dirname(htt.__file__),
+            "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
+            **mesh_train(cs)}, indent=1))
         return 0
     if args.mode == "calls":
         print(json.dumps({"mode": "calls", "tree": os.path.abspath(

@@ -1705,8 +1705,15 @@ def test_trace_of_a_card_run_names_k1(cuda_device, tmp_path):
 
 
 # ----------------------------------------------------------------------
-# K1's slab mode (a z-slab shard of a mesh, the parallel slice)
+# a z-slab shard of a mesh (the parallel slice): alone, its group of one
 # ----------------------------------------------------------------------
+def one_group(device, s, z0, nzl):
+    """Shard ``s`` (home layers ``z0 .. z0 + nzl - 1``) alone on
+    ``device``: its group of one, its halo layer its own buffer's."""
+    return tcw.SlabGroup(torch.device(device), (s,), ((z0, nzl),), (-1,),
+                         (-1,))
+
+
 def slab_packed(device, typed=False, dtype=torch.float32, n=1000):
     """A fluid on a plan whose nz (4) every mesh of 1, 2 or 4 shards
     divides."""
@@ -1750,12 +1757,12 @@ def slab_compare(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 @pytest.mark.parametrize("flags", [(True, True), (False, False)])
 def test_slab_mode_matches_plain(cuda_device, S, kind, dtype, flags):
-    """K1's slab mode (LJ form, typed with a cut table, and proxy form;
-    float32 and float64) on each of S shards' buffers on the card against
-    the slab plain version on the CPU, counted in slab_launches; the whole
-    sharded call (4 virtual shards on the card) against the unsharded
-    kernel. S = 1: the one-shard mesh takes today's launch, bit for
-    bit."""
+    """K1 on each of S shards' buffers as its group of one (LJ form, typed
+    with a cut table, and proxy form; float32 and float64) on the card
+    against the group plain version on the CPU; the whole sharded call (S virtual
+    shards on the card: one group launch over them, no slab launch)
+    equal to the unsharded kernel bit for bit. S = 1: the one-shard mesh
+    takes today's launch."""
     from hoomd_tf_tpu_torch.parallel import make_mesh
     energy, virial = flags
     typed = kind == "lj"
@@ -1771,36 +1778,33 @@ def test_slab_mode_matches_plain(cuda_device, S, kind, dtype, flags):
     f0, w0 = tcc.half_stencil_pair_forces(*common, form,
                                           geometry=layout.geometry, **kw)
     mesh = make_mesh(S, devices=[cuda_device] * S)
-    before = (tcc.half_stencil_pair_forces.launches,
-              tcc.half_stencil_pair_forces.slab_launches)
+    k1 = tcc.half_stencil_pair_forces
+    before = (k1.launches, k1.group_launches)
     f1, w1 = tcw.analytic_pair_forces(
         *common, form.evaluate, needs_virial=virial, needs_energy=energy,
         with_types=typed, rcut_matrix=layout.rc2_tab, form=form,
         geometry=layout.geometry, mesh=mesh)
     torch.cuda.synchronize()
-    slab = 0 if S == 1 else S
-    assert (tcc.half_stencil_pair_forces.launches - before[0],
-            tcc.half_stencil_pair_forces.slab_launches - before[1]) == \
-        (max(slab, 1), slab)
+    assert (k1.launches - before[0],
+            k1.group_launches - before[1]) == (1, int(S > 1))
+    assert torch.equal(f1, f0)
+    assert (w1 is None) or torch.equal(w1, w0)
     if S == 1:
-        assert torch.equal(f1, f0)
-        assert (w1 is None) or torch.equal(w1, w0)
         return
-    slab_compare(f1, f0, dtype)
-    if virial:
-        slab_compare(w1, w0, dtype)
     cl, cs, ca = cases["cpu"]
-    for z0, nzl in tcw.slab_layers(plan, S):
+    for s, (z0, nzl) in enumerate(tcw.slab_layers(plan, S)):
         a, b = tcw.slab_rows(plan, z0, nzl)
         outs = []
         for lay, st, ax, fm in ((layout, slot, aux, form),
                                 (cl, cs, ca, forms["cpu"])):
-            buf = [torch.cat([t[a], t[b]]) for t in
+            buf = [[torch.cat([t[a], t[b]])] for t in
                    (st.positions, st.types, ax["valid"])]
-            outs.append(tcc.half_stencil_pair_forces(
-                *buf, lay.plan, lay.lo, fm, geometry=lay.geometry,
-                slab=(z0, nzl), needs_virial=virial, needs_energy=energy,
-                rc2_tab=lay.rc2_tab))
+            (f,), w = tcc.half_stencil_group_forces(
+                *buf, lay.plan, lay.lo, fm,
+                one_group(st.positions.device, s, z0, nzl),
+                geometry=lay.geometry, needs_virial=virial,
+                needs_energy=energy, rc2_tab=lay.rc2_tab)
+            outs.append((f, w and w[0]))
         slab_compare(outs[0][0], outs[1][0], dtype)
         if virial:
             slab_compare(outs[0][1], outs[1][1], dtype)
@@ -1809,11 +1813,13 @@ def test_slab_mode_matches_plain(cuda_device, S, kind, dtype, flags):
 @pytest.mark.parametrize("S", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 def test_generic_slab_mode_matches_plain(cuda_device, S, dtype):
-    """K1's generic form in slab mode (list and reduction per shard, each
-    shard's own lane budget) on the card against the slab plain version
-    (the tensor form on the pair function), energy and virial on; the
-    whole sharded call against the unsharded generic form; S = 1 takes
-    today's launch, bit for bit."""
+    """K1's generic form on each shard as its group of one (list and
+    reduction per shard, each shard's own lane budget) on the card against
+    the group plain version (the tensor form on the pair function),
+    energy and virial on; the
+    whole sharded call (one group call over the S virtual shards, no
+    slab launch) equal to the unsharded generic form bit for bit; S = 1
+    takes today's launch."""
     from hoomd_tf_tpu_torch.parallel import make_mesh
     layout, slot, aux = slab_packed(cuda_device, True, dtype)
     cl, cs, ca = slab_packed(torch.device("cpu"), True, dtype)
@@ -1825,30 +1831,31 @@ def test_generic_slab_mode_matches_plain(cuda_device, S, dtype):
     f0, w0 = tcc.generic_pair_forces(*common, morse_yukawa, lanes=lanes,
                                      **kw)
     lanes_s = tcc.LaneBudget(tcc.lane_budget(plan, 1000), cuda_device)
-    before = tcc.generic_pair_forces.slab_launches
+    gen = tcc.generic_pair_forces
+    before = (gen.launches, gen.group_launches)
     f1, w1 = tcw.analytic_pair_forces(
         *common, morse_yukawa, needs_virial=True, with_types=True,
         rcut_matrix=layout.rc2_tab, geometry=layout.geometry,
         lanes=lanes_s, mesh=make_mesh(S, devices=[cuda_device] * S))
     torch.cuda.synchronize()
-    assert tcc.generic_pair_forces.slab_launches - before == \
-        (0 if S == 1 else S)
+    assert (gen.launches - before[0],
+            gen.group_launches - before[1]) == (1, int(S > 1))
     assert not bool(lanes_s.overflow())
+    assert torch.equal(f1, f0) and torch.equal(w1, w0)
     if S == 1:
-        assert torch.equal(f1, f0) and torch.equal(w1, w0)
         return
-    slab_compare(f1, f0, dtype)
-    slab_compare(w1, w0, dtype)
-    for z0, nzl in tcw.slab_layers(plan, S):
+    for s, (z0, nzl) in enumerate(tcw.slab_layers(plan, S)):
         a, b = tcw.slab_rows(plan, z0, nzl)
         outs = []
         for lay, st, ax in ((layout, slot, aux), (cl, cs, ca)):
-            buf = [torch.cat([t[a], t[b]]) for t in
+            buf = [[torch.cat([t[a], t[b]])] for t in
                    (st.positions, st.types, ax["valid"])]
-            outs.append(tcc.generic_pair_forces(
-                *buf, lay.plan, lay.lo, morse_yukawa, needs_virial=True,
-                rc2_tab=lay.rc2_tab, geometry=lay.geometry,
-                slab=(z0, nzl)))
+            (f,), (w,) = tcc.generic_group_pair_forces(
+                *buf, lay.plan, lay.lo, morse_yukawa,
+                one_group(st.positions.device, s, z0, nzl),
+                needs_virial=True, rc2_tab=lay.rc2_tab,
+                geometry=lay.geometry)
+            outs.append((f, w))
         slab_compare(outs[0][0], outs[1][0], dtype)
         slab_compare(outs[0][1], outs[1][1], dtype)
 
@@ -1856,7 +1863,7 @@ def test_generic_slab_mode_matches_plain(cuda_device, S, dtype):
 def test_sharded_run_has_no_host_sync(cuda_device):
     """ShardedSimulation on 4 virtual shards of the card: NVT on
     'cellwise' with host syncs forbidden, one group launch of K1 over the
-    four shards per force evaluation (no slab launch), and the state
+    four shards per force evaluation (no other K1 launch), and the state
     after 8 steps within 5e-4 of the unsharded engine's at the same plan
     and repack interval."""
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation, make_mesh
@@ -1874,12 +1881,12 @@ def test_sharded_run_has_no_host_sync(cuda_device):
         lambda layout: 3
     shd.check_syncs = True
     k1 = tcc.half_stencil_pair_forces
-    before = (k1.group_launches, k1.slab_launches)
+    before = (k1.group_launches, k1.launches)
     ev = shd.force_evals
     shd.run(8)
+    assert (k1.group_launches - before[0], k1.launches - before[1]) \
+        == (shd.force_evals - ev,) * 2
     ref.run(8)
-    assert (k1.group_launches - before[0], k1.slab_launches - before[1]) \
-        == (shd.force_evals - ev, 0)
     assert shd.force_evals - ev > 0
     d = np_(shd.state.positions) - np_(ref.state.positions)
     L = np.asarray(lengths)
@@ -2064,14 +2071,14 @@ def test_group_launch_matches_plain(cuda_device, S, kind, dtype):
     f1, w1 = (slots.whole(x) for x in outs["cuda"])
     assert torch.equal(f1, f0) and torch.equal(w1, w0)
     k1 = tcc.half_stencil_pair_forces
-    before = (k1.group_launches, k1.slab_launches, k1.launches)
+    before = (k1.group_launches, k1.launches)
     f2, _ = tcw.resident_pair_forces(
         st.positions, st.types, aux["valid"], layout.plan, layout.lo,
         forms["cuda"].evaluate, mesh, slots.geoms(st), with_types=typed,
         rcut_matrix=layout.rc2_tab, form=forms["cuda"])
     torch.cuda.synchronize()
-    assert (k1.group_launches - before[0], k1.slab_launches - before[1],
-            k1.launches - before[2]) == (1, 0, 1)
+    assert (k1.group_launches - before[0],
+            k1.launches - before[1]) == (1, 1)
     slab_compare(slots.whole(f2), f0, dtype)
 
 
@@ -2146,11 +2153,11 @@ def test_mixed_mesh_groups_by_device(cuda_device):
     plan = shd._ensure_layout().plan
     ref._plan_from_current = lambda: plan
     k1 = tcc.half_stencil_pair_forces
-    before, ev = (k1.group_launches, k1.slab_launches), shd.force_evals
+    before, ev = (k1.group_launches, k1.launches), shd.force_evals
     shd.run(3)
+    assert (k1.group_launches - before[0], k1.launches - before[1]) \
+        == (shd.force_evals - ev,) * 2
     ref.run(3)
-    assert (k1.group_launches - before[0], k1.slab_launches - before[1]) \
-        == (shd.force_evals - ev, 0)
     f_s, f_r = np_(shd.state.forces), np_(ref.state.forces)
     np.testing.assert_allclose(f_s, f_r, rtol=1e-4,
                                atol=1e-4 * np.abs(f_r).max())
@@ -2165,8 +2172,9 @@ def test_mixed_mesh_groups_by_device(cuda_device):
 
 
 # ----------------------------------------------------------------------
-# the training backward under a mesh: K2's and generic_reduce_bwd's slab
-# modes, and the sharded train step
+# the training backward under a mesh: K2's and generic_reduce_bwd's group
+# modes (a z-slab shard alone is its group of one), and the sharded train
+# step
 # ----------------------------------------------------------------------
 def slab_ct(plan, device, dtype, seed=4):
     return torch.as_tensor(np.random.RandomState(seed).randn(
@@ -2177,11 +2185,11 @@ def slab_ct(plan, device, dtype, seed=4):
 @pytest.mark.parametrize("typed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 def test_k2_slab_mode_matches_plain(cuda_device, S, typed, dtype):
-    """K2's slab mode on each of S shards' buffers (the state and the
-    cotangent cut by ``slab_buffer``) on the card against its slab plain
-    version on the CPU, counted in slab_launches; the shards' moments
-    summed against the unsharded K2. float32 at the JAX bar (rtol 2e-4,
-    atol 2e-5 max|g|), float64 at rtol 1e-10 (phase 23's)."""
+    """K2 on each of S shards' buffers (the state and the cotangent cut by
+    ``slab_buffer``), each shard its group of one, on the card against
+    the plain version on the CPU, counted in group_launches; the shards'
+    moments summed against the unsharded K2. float32 at the JAX bar (rtol
+    2e-4, atol 2e-5 max|g|), float64 at rtol 1e-10 (phase 23's)."""
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
     ev, _ = proxy_parts(typed)
     cases = {d.type: slab_packed(d, typed, dtype)
@@ -2206,19 +2214,20 @@ def test_k2_slab_mode_matches_plain(cuda_device, S, typed, dtype):
             np.testing.assert_allclose(got, want, rtol=2e-4,
                                        atol=2e-5 * scale)
 
-    for z0, nzl in tcw.slab_layers(plan, S):
+    ones = tcw.slab_groups([(cuda_device, z0, nzl) for z0, nzl in
+                            tcw.slab_layers(plan, S)], whole=False)
+    for one, (z0, nzl) in zip(ones, tcw.slab_layers(plan, S)):
         outs = []
         for d in ("cuda", "cpu"):
             lay, st, ax = cases[d]
-            buf = [tcw.slab_buffer(t, plan, z0, nzl) for t in
+            buf = [[tcw.slab_buffer(t, plan, z0, nzl)] for t in
                    (st.positions, st.types, ax["valid"],
                     ct.to(st.positions.device))]
-            before = ptc.proxy_bwd_moments.slab_launches
+            before = ptc.proxy_bwd_moments.group_launches
             outs.append(ptc.proxy_bwd_moments(
-                *buf[:3], buf[3], lay.plan, lay.lo, ev.basis,
-                rc2_tab=lay.rc2_tab, geometry=lay.geometry,
-                slab=(z0, nzl)))
-            assert ptc.proxy_bwd_moments.slab_launches - before == \
+                *buf, lay.plan, lay.lo, ev.basis, rc2_tab=lay.rc2_tab,
+                geometry=lay.geometry, group=one))
+            assert ptc.proxy_bwd_moments.group_launches - before == \
                 (d == "cuda")
         close(*outs)
         acc = outs[0] if acc is None else [a + b
@@ -2230,9 +2239,9 @@ def test_k2_slab_mode_matches_plain(cuda_device, S, typed, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 @pytest.mark.parametrize("energy", [True, False])
 def test_reduce_bwd_slab_mode_matches_plain(cuda_device, S, dtype, energy):
-    """``generic_reduce_bwd`` in slab mode on each shard's list on the card
-    against its slab plain version on the CPU, lane by lane (float32 at
-    1e-4, float64 at 1e-11 of the largest), every lane past the need
+    """``generic_reduce_bwd`` on each shard's list as its group of one on
+    the card against its plain version on the CPU, lane by lane (float32
+    at 1e-4, float64 at 1e-11 of the largest), every lane past the need
     zero; all shards listed before the first backward (their records kept
     apart on the one card)."""
     cases = {d.type: slab_packed(d, True, dtype)
@@ -2241,24 +2250,25 @@ def test_reduce_bwd_slab_mode_matches_plain(cuda_device, S, dtype, energy):
     plan = layout.plan
     ct = slab_ct(plan, cuda_device, dtype)
     lists = []
-    for z0, nzl in tcw.slab_layers(plan, S):
+    for k, (z0, nzl) in enumerate(tcw.slab_layers(plan, S)):
         per = []
         for d in ("cuda", "cpu"):
             lay, st, ax = cases[d]
-            buf = [tcw.slab_buffer(t, plan, z0, nzl) for t in
+            buf = [[tcw.slab_buffer(t, plan, z0, nzl)] for t in
                    (st.positions, st.types, ax["valid"])]
             lanes = tcc.LaneBudget(tcc.lane_budget(plan, 1000, (z0, nzl)),
                                    st.positions.device)
-            gl = tcc.generic_list(*buf, lay.plan, lay.lo,
-                                  rc2_tab=lay.rc2_tab, geometry=lay.geometry,
-                                  lanes=lanes, needs_energy=energy,
-                                  slab=(z0, nzl))
+            gl = tcc.generic_group_list(
+                *buf, lay.plan, lay.lo,
+                one_group(st.positions.device, k, z0, nzl),
+                rc2_tab=lay.rc2_tab, geometry=lay.geometry, lanes=lanes,
+                needs_energy=energy)
             U, s = gl.evaluate(morse_yukawa)
             tcc.generic_reduce(gl, U, s, energy)
-            per.append((gl, lanes, tcw.slab_buffer(
-                ct.to(st.positions.device), plan, z0, nzl)))
+            per.append((gl, lanes, [tcw.slab_buffer(
+                ct.to(st.positions.device), plan, z0, nzl)]))
         lists.append(per)
-    before = tcc.generic_reduce_bwd.slab_launches
+    before = tcc.generic_reduce_bwd.group_launches
     for (gl, lanes, c), (pl, _, pc) in lists:
         assert not bool(lanes.overflow())
         gU, gS = tcc.generic_reduce_bwd(gl, c, energy)
@@ -2275,11 +2285,143 @@ def test_reduce_bwd_slab_mode_matches_plain(cuda_device, S, dtype, energy):
             assert not np_(g)[need:].any()
         if not energy:
             assert gU is None
-    assert tcc.generic_reduce_bwd.slab_launches - before == S
+    assert tcc.generic_reduce_bwd.group_launches - before == S
+
+
+def split_groups(plan, S, device, parts):
+    """``S`` shards of ``plan`` in ``parts`` groups of consecutive shards
+    on ``device`` (a group's first and last members linked outside it, as
+    on ``parts`` cards), or one group of every shard for ``parts`` 1."""
+    slabs = [(device, z0, nzl) for z0, nzl in tcw.slab_layers(plan, S)]
+    if parts == 1:
+        return tcw.slab_groups(slabs)
+    k = S // parts
+    out = []
+    for a in range(0, S, k):
+        m = tuple(range(a, a + k))
+        out.append(tcw.SlabGroup(torch.device(device), m,
+                                 tuple(slabs[s][1:] for s in m),
+                                 (-1,) + tuple(range(k - 1)),
+                                 tuple(range(1, k)) + (-1,)))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("S,parts", [(2, 1), (4, 1), (4, 2)])
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+def test_k2_group_launch_matches_plain(cuda_device, S, parts, typed, dtype):
+    """K2's group launch over the shards of one card (the members' rows
+    of the whole state, ``group_buffers``) against its plain version on
+    the CPU (the JAX bar in float32, rtol 1e-10 in float64), one group
+    launch per group; a group of every shard equals the unsharded K2 bit
+    for bit, two groups (linked outside, halo layers filled) sum to it."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    ev, _ = proxy_parts(typed)
+    cases = {d.type: slab_packed(d, typed, dtype)
+             for d in (cuda_device, torch.device("cpu"))}
+    layout, slot, aux = cases["cuda"]
+    plan = layout.plan
+    ct = slab_ct(plan, cuda_device, dtype)
+    whole = ptc.proxy_bwd_moments(slot.positions, slot.types, aux["valid"],
+                                  ct, plan, layout.lo, ev.basis,
+                                  rc2_tab=layout.rc2_tab,
+                                  geometry=layout.geometry)
+    acc = None
+    for grp in split_groups(plan, S, cuda_device, parts):
+        outs = []
+        for d in ("cuda", "cpu"):
+            lay, st, ax = cases[d]
+            bufs = [tcw.group_buffers(t, plan, grp) for t in
+                    (st.positions, st.types, ax["valid"],
+                     ct.to(st.positions.device))]
+            before = ptc.proxy_bwd_moments.group_launches
+            outs.append(np.concatenate([np_(g).ravel() for g in
+                                        ptc.proxy_bwd_moments(
+                *bufs, lay.plan, lay.lo, ev.basis, rc2_tab=lay.rc2_tab,
+                geometry=lay.geometry, group=grp)]))
+            assert ptc.proxy_bwd_moments.group_launches - before == \
+                (d == "cuda")
+        got, want = outs
+        if dtype == F64:
+            assert_rel(got, want, 1e-10)
+        else:
+            np.testing.assert_allclose(got, want, rtol=2e-4,
+                                       atol=2e-5 * np.abs(want).max())
+        acc = got if acc is None else acc + got
+    want = np.concatenate([np_(g).ravel() for g in whole])
+    if parts == 1:
+        np.testing.assert_array_equal(acc, want)
+    elif dtype == F64:
+        assert_rel(acc, want, 1e-10)
+    else:
+        np.testing.assert_allclose(acc, want, rtol=2e-4,
+                                   atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("S,parts", [(2, 1), (4, 1), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, F64])
+@pytest.mark.parametrize("energy", [True, False])
+def test_reduce_bwd_group_matches_plain(cuda_device, S, parts, dtype,
+                                        energy):
+    """``generic_reduce_bwd`` over each group's joined list on the card
+    against its plain version on the CPU, lane by lane (float32 at 1e-4,
+    float64 at 1e-11 of the largest), every lane past the need zero, one
+    group launch per group; a group of every shard gives the unsharded
+    kernel's lanes bit for bit."""
+    cases = {d.type: slab_packed(d, True, dtype)
+             for d in (cuda_device, torch.device("cpu"))}
+    layout, slot, aux = cases["cuda"]
+    plan = layout.plan
+    nx, ny, _ = plan.grid
+    ct = slab_ct(plan, cuda_device, dtype)
+    gl0 = tcc.generic_list(slot.positions, slot.types, aux["valid"], plan,
+                           layout.lo, rc2_tab=layout.rc2_tab,
+                           geometry=layout.geometry, needs_energy=energy)
+    U0, s0 = gl0.evaluate(morse_yukawa)
+    tcc.generic_reduce(gl0, U0, s0, energy)
+    _, gS0 = tcc.generic_reduce_bwd(gl0, ct, energy)
+    lst0 = tcc.generic_list_plain(*[t.cpu() for t in (
+        slot.positions, slot.types, aux["valid"])], plan, layout.lo,
+        rc2_tab=layout.rc2_tab.cpu(), geometry=layout.geometry.on("cpu"))
+    idx0 = np_(tcc.kernel_lane_index(lst0, gl0.cell_base, plan))
+    for grp in split_groups(plan, S, cuda_device, parts):
+        per = []
+        for d in ("cuda", "cpu"):
+            lay, st, ax = cases[d]
+            bufs = [tcw.group_buffers(t, plan, grp) for t in
+                    (st.positions, st.types, ax["valid"],
+                     ct.to(st.positions.device))]
+            lanes = tcc.LaneBudget(tcc.lane_budget(plan, 1000, grp.slabs[0]),
+                                   st.positions.device)
+            gl = tcc.generic_group_list(*bufs[:3], lay.plan, lay.lo, grp,
+                                        rc2_tab=lay.rc2_tab,
+                                        geometry=lay.geometry, lanes=lanes,
+                                        needs_energy=energy)
+            U, s = gl.evaluate(morse_yukawa)
+            tcc.generic_reduce(gl, U, s, energy)
+            before = tcc.generic_reduce_bwd.group_launches
+            per.append((gl, tcc.generic_reduce_bwd(gl, bufs[3], energy)))
+            assert tcc.generic_reduce_bwd.group_launches - before == \
+                (d == "cuda")
+        (gl, (gU, gS)), (pl, (pU, pS)) = per
+        need = int(gl.needed)
+        home = grp.slabs[0][1] * nx * ny
+        cell = pl.lst["member"] * home + pl.lst["cell"]
+        idx = np_(tcc.kernel_lane_index(dict(cell=cell), gl.cell_base, plan))
+        assert sorted(idx.tolist()) == list(range(need))
+        for g, p in [(gS, pS)] + ([(gU, pU)] if energy else []):
+            if dtype == F64:
+                assert_rel(np_(g)[idx], p, 1e-11)
+            else:
+                np.testing.assert_allclose(np_(g)[idx], np_(p), **TOL)
+            assert not np_(g)[need:].any()
+        if parts == 1:
+            np.testing.assert_array_equal(np_(gS)[idx], np_(gS0)[idx0])
 
 
 def test_virtual_shards_keep_their_list_records(cuda_device):
-    """Two slabs listed on one card keep their own list and records: the
+    """Two slabs listed on one card, each its group of one, keep their own
+    list and records: the
     first slab's backward, after the second slab's list call, equals the
     one made right after its own, lane by lane (a list places its cells
     in launch order, so lanes are matched through the plain list); a
@@ -2290,16 +2432,19 @@ def test_virtual_shards_keep_their_list_records(cuda_device):
     ct = slab_ct(plan, cuda_device, torch.float32)
     shards = tcw.slab_layers(plan, 2)
 
-    def listed(z0, nzl):
+    def listed(k):
+        z0, nzl = shards[k]
         buf = [tcw.slab_buffer(t, plan, z0, nzl) for t in
                (slot.positions, slot.types, aux["valid"])]
-        gl = tcc.generic_list(*buf, plan, layout.lo, rc2_tab=layout.rc2_tab,
-                              geometry=layout.geometry, slab=(z0, nzl))
+        gl = tcc.generic_group_list(*([t] for t in buf), plan, layout.lo,
+                                    one_group(cuda_device, k, z0, nzl),
+                                    rc2_tab=layout.rc2_tab,
+                                    geometry=layout.geometry)
         U, s = gl.evaluate(morse_yukawa)
         tcc.generic_reduce(gl, U, s)
-        return gl, tcw.slab_buffer(ct, plan, z0, nzl), buf
+        return gl, [tcw.slab_buffer(ct, plan, z0, nzl)], buf
 
-    gl0, c0, buf = listed(*shards[0])
+    gl0, c0, buf = listed(0)
     plain = tcc.generic_list_plain(*[t.cpu() for t in buf], plan, layout.lo,
                                    rc2_tab=layout.rc2_tab.cpu(),
                                    geometry=layout.geometry.on("cpu"),
@@ -2310,12 +2455,12 @@ def test_virtual_shards_keep_their_list_records(cuda_device):
         return [np_(t)[np_(idx)] for t in out]
 
     alone = by_lane(gl0, tcc.generic_reduce_bwd(gl0, c0))
-    gl0, c0, _ = listed(*shards[0])
-    listed(*shards[1])
+    gl0, c0, _ = listed(0)
+    listed(1)
     after = by_lane(gl0, tcc.generic_reduce_bwd(gl0, c0))
     for a, b in zip(after, alone):
         np.testing.assert_array_equal(a, b)
-    listed(*shards[0])
+    listed(0)
     with pytest.raises(RuntimeError, match="rewritten"):
         tcc.generic_reduce_bwd(gl0, c0)
 
@@ -2324,12 +2469,12 @@ def test_virtual_shards_keep_their_list_records(cuda_device):
 @pytest.mark.parametrize("kind", ["proxy", "pair"])
 def test_sharded_train_step_matches_unsharded(cuda_device, kind, mesh_kind):
     """Online training through ShardedSimulation on 4 shards (K2 or
-    generic_reduce_bwd in slab mode, a slab launch per card shard and
-    train step) against the unsharded engine at the same plan: 3 SGD
-    steps' losses and weights at rtol 2e-4. 'virtual': 4 shards of the
-    card, host syncs forbidden; 'mixed': the card and the CPU in turn, so
-    the weights, the cotangent's slab buffers and the gradients cross
-    devices (the CPU shards take the slab plain versions)."""
+    generic_reduce_bwd in one group launch per card and train step)
+    against the unsharded engine at the same plan: 3 SGD steps' losses
+    and weights at rtol 2e-4. 'virtual': 4 shards of the card, host syncs
+    forbidden; 'mixed': the card and the CPU in turn, so the weights, the
+    members' rows with their halo layers and the gradients cross devices
+    (the CPU's group takes the plain versions)."""
     from hoomd_tf_tpu_torch.interop import build_model
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation, make_mesh
@@ -2362,12 +2507,11 @@ def test_sharded_train_step_matches_unsharded(cuda_device, kind, mesh_kind):
     shd.check_syncs = mesh_kind == "virtual"
     counter = (ptc.proxy_bwd_moments if kind == "proxy" else
                tcc.generic_reduce_bwd)
-    before = counter.slab_launches
+    before = counter.group_launches
     shd.run(3)
     ref.run(3)
-    cards = 4 if mesh_kind == "virtual" else 2
     assert shd.train_steps == 3
-    assert counter.slab_launches - before == cards * shd.train_steps
+    assert counter.group_launches - before == shd.train_steps
     np.testing.assert_allclose(stfc.loss_history, rtfc.loss_history,
                                rtol=2e-4)
     for a, b in zip(sm.get_weights(), rm.get_weights()):

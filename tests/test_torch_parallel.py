@@ -205,9 +205,11 @@ def test_slab_plain_sums_to_unsharded_and_jax(S, kind, ev):
 
 
 def test_slab_shards_and_wrappers():
-    """Each shard's slab plain version: the wrappers' CPU branches with
-    ``slab=`` are it; its home rows plus the previous shard's reverse
-    halo give the unsharded forces of its slab."""
+    """Each shard's slab plain version: K1's group wrapper's CPU branch on
+    the shard as its group of one is it (the generic form's is its list
+    plain version, ``generic_group_plain``); its home rows plus the
+    previous shard's reverse halo give the unsharded forces of its
+    slab."""
     S = 4
     (tl, ts, taux), _ = slab_case(S)
     plan, lo = tl.plan, tl.lo
@@ -216,19 +218,24 @@ def test_slab_shards_and_wrappers():
                                    plan, lo, form, geometry=tl.geometry)
     layer = plan.grid[0] * plan.grid[1] * plan.capacity
     outs = []
-    for z0, nzl in tcw.slab_layers(plan, S):
+    for s, (z0, nzl) in enumerate(tcw.slab_layers(plan, S)):
         a, b = tcw.slab_rows(plan, z0, nzl)
         buf = [torch.cat([t[a], t[b]]) for t in
                (ts.positions, ts.types, taux["valid"])]
-        f_w, _ = tcc.half_stencil_pair_forces(
-            *buf, plan, lo, form, geometry=tl.geometry, slab=(z0, nzl))
-        f_g, _ = tcc.generic_pair_forces(
-            *buf, plan, lo, form.evaluate, typed_fn=False,
-            geometry=tl.geometry, slab=(z0, nzl))
+        one = tcw.SlabGroup(torch.device("cpu"), (s,), ((z0, nzl),), (-1,),
+                            (-1,))
+        (f_w,), _ = tcc.half_stencil_group_forces(
+            *([t] for t in buf), plan, lo, form, one, geometry=tl.geometry)
+        (f_g,), _ = tcc.generic_group_pair_forces(
+            *([t] for t in buf), plan, lo, form.evaluate, one,
+            typed_fn=False, geometry=tl.geometry)
         f_p, _ = tcw.half_stencil_slab_plain(
             *buf, plan, lo, form.evaluate, z0, nzl, geometry=tl.geometry)
+        (f_gp,), _, _ = tcc.generic_group_plain(
+            *([t] for t in buf), plan, lo, form.evaluate, one,
+            typed_fn=False, geometry=tl.geometry)
         torch.testing.assert_close(f_w, f_p, rtol=0, atol=0)
-        torch.testing.assert_close(f_g, f_p, rtol=0, atol=0)
+        torch.testing.assert_close(f_g, f_gp, rtol=0, atol=0)
         assert f_p.shape[0] == (nzl + 1) * layer
         outs.append((z0, nzl, f_p))
     for s, (z0, nzl, f) in enumerate(outs):

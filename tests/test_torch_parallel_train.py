@@ -132,9 +132,10 @@ def jax_proxy_grads(typed, energy, jl, js, jaux, ct):
 @pytest.mark.parametrize("typed", [False, True])
 @pytest.mark.parametrize("energy", [True, False])
 def test_proxy_slab_moments_sum_to_unsharded_and_jax(S, typed, energy):
-    """The shards' ``proxy_bwd_moments(slab=)`` (its slab plain version on
-    the CPU), summed, equal the unsharded plain version and JAX's proxy
-    backward through its XLA contraction."""
+    """The shards' ``proxy_bwd_moments(group=)``, each shard a group of
+    one with its halo layer (the plain version on the CPU), summed, equal
+    the unsharded plain version and JAX's proxy backward through its XLA
+    contraction."""
     (tl, ts, taux), (jl, js, jaux) = slab_case(S, typed=typed, n=2000)
     plan, lo = tl.plan, tl.lo
     ev, _ = proxy_basis(typed)
@@ -145,12 +146,14 @@ def test_proxy_slab_moments_sum_to_unsharded_and_jax(S, typed, energy):
     g0 = tpc.proxy_bwd_plain(*args, ct, plan, lo, ev.basis,
                              geometry=tl.geometry, **kw)
     acc = None
-    for (dev, z0, nzl), buf in shard_bufs(plan, S, *args, ct):
-        part = tpc.proxy_bwd_moments(*buf[:3], buf[3], plan, lo, ev.basis,
-                                     geometry=tl.geometry.on(dev),
-                                     slab=(z0, nzl), **kw)
+    ones = tcw.slab_groups(tcw.mesh_slabs(plan, cpu_mesh(S)), whole=False)
+    for one, ((dev, _, _), buf) in zip(ones, shard_bufs(plan, S, *args,
+                                                         ct)):
+        part = tpc.proxy_bwd_moments(*([b] for b in buf), plan, lo,
+                                     ev.basis, geometry=tl.geometry.on(dev),
+                                     group=one, **kw)
         acc = part if acc is None else [a + b for a, b in zip(acc, part)]
-    assert tpc.proxy_bwd_moments.slab_launches == 0   # plain on the CPU
+    assert tpc.proxy_bwd_moments.launches == 0   # plain on the CPU
     if not energy:
         assert not np_(acc[0]).any()
         acc, g0 = acc[1:], g0[1:]
@@ -163,10 +166,11 @@ def test_proxy_slab_moments_sum_to_unsharded_and_jax(S, typed, energy):
 @pytest.mark.parametrize("S", [2, 4])
 @pytest.mark.parametrize("case", ["pair", "typed"])
 def test_reduce_bwd_slab_lanes_equal_unsharded(S, case):
-    """``generic_reduce_bwd_plain(slab=)`` on each shard's slab list gives
-    every lane the unsharded backward gives the same pair (matched by
-    global cell, row and candidate column), at 1e-4; the shards' lanes
-    together are the whole state's."""
+    """``generic_reduce_bwd`` on each shard's slab list (its plain version
+    on the CPU, the shard its group of one) gives every lane the unsharded
+    backward gives the same pair (matched by global cell, row and
+    candidate column), at 1e-4; the shards' lanes together are the whole
+    state's."""
     typed = case == "typed"
     (tl, ts, taux), _ = slab_case(S, typed=typed, n=2000)
     plan, lo = tl.plan, tl.lo
@@ -185,12 +189,15 @@ def test_reduce_bwd_slab_lanes_equal_unsharded(S, case):
     k0 = key(lst0)
     assert bool((k0[1:] > k0[:-1]).all())
     seen = 0
-    for (dev, z0, nzl), buf in shard_bufs(plan, S, *args, ct):
-        gl = tcc.generic_list(*buf[:3], plan, lo, typed_fn=typed,
-                              rc2_tab=tl.rc2_tab,
-                              geometry=tl.geometry.on(dev), slab=(z0, nzl))
+    for s, ((dev, z0, nzl), buf) in enumerate(shard_bufs(plan, S, *args,
+                                                         ct)):
+        one = tcw.SlabGroup(torch.device(dev), (s,), ((z0, nzl),), (-1,),
+                            (-1,))
+        gl = tcc.generic_group_list(*([t] for t in buf[:3]), plan, lo, one,
+                                    typed_fn=typed, rc2_tab=tl.rc2_tab,
+                                    geometry=tl.geometry.on(dev))
         lst = gl.lst
-        gU, gS = tcc.generic_reduce_bwd(gl, buf[3])
+        gU, gS = tcc.generic_reduce_bwd(gl, [buf[3]])
         k = key(lst, z0)
         idx = torch.searchsorted(k0, k)
         assert bool((k0[idx] == k).all())
@@ -200,23 +207,25 @@ def test_reduce_bwd_slab_lanes_equal_unsharded(S, case):
                                    atol=1e-4)
         seen += k.shape[0]
     assert seen == k0.shape[0]
-    assert tcc.generic_reduce_bwd.slab_launches == 0
+    assert tcc.generic_reduce_bwd.launches == 0
 
 
 def test_slab_list_reduce_equals_slab_plain():
-    """The list route's slab plain reduction (list, pair function,
-    ``generic_reduce_plain(slab=)``) equals K1's slab plain version,
-    reverse halo included."""
+    """The list route's plain reduction on a shard as its group of one
+    (list, pair function, ``generic_group_reduce_plain``) equals K1's slab
+    plain version, reverse halo included."""
     S = 4
     (tl, ts, taux), _ = slab_case(S, n=2000)
     plan, lo = tl.plan, tl.lo
     form = htt.md.LennardJones(r_cut=R_CUT).kernel_form()
-    for (dev, z0, nzl), buf in shard_bufs(
-            plan, S, ts.positions, ts.types, taux["valid"]):
-        gl = tcc.generic_list(*buf, plan, lo, typed_fn=False,
-                              geometry=tl.geometry, slab=(z0, nzl))
+    for k, ((dev, z0, nzl), buf) in enumerate(shard_bufs(
+            plan, S, ts.positions, ts.types, taux["valid"])):
+        one = tcw.SlabGroup(torch.device(dev), (k,), ((z0, nzl),), (-1,),
+                            (-1,))
+        gl = tcc.generic_group_list(*([t] for t in buf), plan, lo, one,
+                                    typed_fn=False, geometry=tl.geometry)
         U, s = gl.evaluate(form.evaluate)
-        f_l, w_l = tcc.generic_reduce(gl, U, s, needs_virial=True)
+        (f_l,), (w_l,) = tcc.generic_reduce(gl, U, s, needs_virial=True)
         f_p, w_p = tcw.half_stencil_slab_plain(
             *buf, plan, lo, form.evaluate, z0, nzl, needs_virial=True,
             geometry=tl.geometry)
