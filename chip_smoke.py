@@ -32,9 +32,10 @@ exits non-zero:
                potential (MLP on 1/r, widths 16 -> 1, K = 16) trained
                with Adam at lr 1e-2 against built-in LJ labels during
                live NVT; then K1's proxy form and K2 against their plain
-               versions at the train plan's shapes (K2 also with eight
-               types, which run in type groups), and a small-N SGD
-               trajectory on the card against the CPU;
+               versions at the train plan's shapes (K2 also with two
+               types and a cutoff matrix, three and eight types: its tile
+               path; two and eight timed), and a small-N SGD trajectory on
+               the card against the CPU;
 6. packed   -- the JAX package's typical use through the public API: a
                generic SimModel (LJ from nlist_rinv, NN = 64) attached
                with attach(sim, r_cut=3.0), which on the card resolves
@@ -168,8 +169,8 @@ exits non-zero:
 23. fp64-train -- phases 5 and 10's rows (the proxy NN, TrainableNNPair)
                in float64 from one float64 fluid, phase 5's protocol and
                loss gate, every launch double: K1's proxy form and K2
-               (rtol 1e-10; K2 also with three and five types, which run
-               in type groups), generic_reduce_bwd lane by lane and K1's
+               (rtol 1e-10; K2 also with two, three and five types, its
+               tile path, timed), generic_reduce_bwd lane by lane and K1's
                generic form (1e-11) against their plain versions, times
                and bounds;
 24. fp64-packed -- phase 6's packed path (LJModel(64), the cell list with
@@ -291,6 +292,21 @@ exits non-zero:
                unsharded engine's (1e-6), then run(20) and run(10)
                logged every 2nd step under phase 19's gates, host syncs
                forbidden.
+39. train-typed -- typed online training: phase 5's fluid made an 80:20
+               Kob-Andersen mixture (types by a seeded permutation; the
+               labels and driving forces its built-in LJ, epsilon [[1,
+               1.5], [1.5, 0.5]], sigma [[1, 0.8], [0.8, 0.88]]), phase
+               5's proxy NN made typed (the pair's one-hot as an extra
+               input, proxy_types=2), Adam 1e-2, phase 5's warm training,
+               the best of two timed run(200), host syncs forbidden: K2
+               and K1's proxy form launched once a train step, the loss
+               below 0.3x its start, 1.1 < T < 1.9, finite positions and
+               forces; train steps/s beside phase 5's; at its state K1's
+               typed proxy form and the typed K2 (the path's call, with
+               energy beside the untyped call, eight types) against their
+               plain versions, each timed; then the mixture in float64,
+               run(100) with every launch double, and the double typed K2
+               against its plain version (rtol 1e-10).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -1355,14 +1371,18 @@ def phase_main():
     return launches, sim, sps
 
 
-def train_sim_attached(model=None, loss=None):
+def train_sim_attached(model=None, loss=None, types=None, lj=None):
     """north_star.py's set-up on the port: the 64k fluid quenched and
-    equilibrated (NVT, 400 steps) under a built-in LJ, which stays as the
-    labels and the driving forces, then the model (default: the flagship
-    row's proxy NN, force-matching loss) compiled (Adam, lr 1e-2) and
-    attached with train=True: ``(sim, model)``."""
+    equilibrated (NVT, 400 steps) under a built-in LJ (default: epsilon =
+    sigma = 1; ``types`` the particles' types, default all 0), which stays
+    as the labels and the driving forces, then the model (default: the
+    flagship row's proxy NN, force-matching loss) compiled (Adam, lr 1e-2)
+    and attached with train=True: ``(sim, model)``."""
     sim = jittered_sim(N, htt.md.Minimize(max_disp=0.05), "cuda")
-    sim.add_force(htt.md.LennardJones(r_cut=R_CUT))
+    if types is not None:
+        sim.state.types = torch.as_tensor(types, dtype=torch.int32,
+                                          device="cuda")
+    sim.add_force(lj or htt.md.LennardJones(r_cut=R_CUT))
     sim.run(60)
     sim.thermalize_velocities(1.5)
     sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
@@ -1538,9 +1558,8 @@ def phase_train_kernels(sim, model):
             ("two types + rcut_matrix", types2, ev2.basis, rcm, True),
             ("three types (2*K*P = 192 > 128)", types3, ev3.basis, None,
              True),
-            ("eight types (type groups of "
-             f"{pc.type_groups(0, p.capacity, K_PROXY, 8)[0][1]}, "
-             f"{len(pc.type_groups(0, p.capacity, K_PROXY, 8))} groups)",
+            ("eight types (type pairs in "
+             f"{len(pc.pair_groups(0, p.capacity, K_PROXY, 8))} pass)",
              types8, ev8.basis, None, True)):
         st = state if types is None else dataclasses.replace(state,
                                                              types=types)
@@ -1550,11 +1569,14 @@ def phase_train_kernels(sim, model):
                 basis)
         kw = dict(min_r2=model.min_r2, rc2_tab=lay.rc2_tab,
                   needs_energy=energy, geometry=lay.geometry)
-        grouped = pc.proxy_bwd_moments.grouped_launches
+        split = pc.proxy_bwd_moments.type_group_launches
+        T = 1 if basis["pairs"] is None else len(
+            {b for _, b in basis["pairs"]})
         got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
             *args, **kw)])
-        check(pc.proxy_bwd_moments.grouped_launches - grouped ==
-              (types is types8), f"K2 {label}: type groups not as planned")
+        check(pc.proxy_bwd_moments.type_group_launches - split ==
+              (len(pc.pair_groups(0, p.capacity, K_PROXY, T)) > 1),
+              f"K2 {label}: type pair passes not as planned")
         want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
             *args, **kw)])
         torch.cuda.synchronize()
@@ -1574,14 +1596,14 @@ def phase_train_kernels(sim, model):
                   f"the train path): kernel {t_k:.4f} ms, plain {t_p:.4f} "
                   f"ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} "
                   f"MB, {ops / 1e9:.3f} G operations)")
-        if types is types8:
+        if types is types8 or types is types2:
             t_k = cuda_ms(lambda: pc.proxy_bwd_moments(*args, **kw))
             t_p = cuda_ms(lambda: pc.proxy_bwd_plain(*args, **kw), reps=1)
             nbytes, ops = k2_cost(slot.positions, aux["valid"], p, K_PROXY,
                                   energy, M)
             nbytes += 4 * p.n_slots  # the types
             b_ms, b_by = bound(nbytes, ops)
-            print(f"  K2 eight types, the whole call (with energy): kernel "
+            print(f"  K2 {T} types, the whole call (with energy): kernel "
                   f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
                   "operations)")
@@ -3262,7 +3284,8 @@ def fp64_train_row(base, row):
 def fp64_proxy_kernels(sim, model):
     """K1's proxy form and K2 in double at the proxy row's state against
     their plain versions (1e-11 max|F|, rtol 1e-10), their whole calls,
-    the plain versions' and the bounds."""
+    the plain versions' and the bounds; K2 also with two, three and five
+    types (slot % T, with energy), whose times it returns by T."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
@@ -3324,10 +3347,10 @@ def fp64_proxy_kernels(sim, model):
                   f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms "
                   f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
                   "float64 operations)")
-    # three and five types: one group of moment sets would pass the
-    # block's shared memory in double, so K2 runs type groups; two types
-    # (one group, the same shared-memory moment sets) for comparison
+    # two, three and five types: the tile path, every type pair in one
+    # pass of a block that stages once
     from hoomd_tf_tpu_torch.ops.chebyshev import make_typed_pair_proxy
+    typed = {}
     for T in (2, 3, 5):
         types = (torch.arange(N, device="cuda") % T).to(torch.int32)
         slot_t, aux_t = slot_state(layout, dataclasses.replace(
@@ -3337,20 +3360,20 @@ def fp64_proxy_kernels(sim, model):
             device="cuda")[1].basis
         args = (slot_t.positions, slot_t.types, aux_t["valid"], ct, p,
                 layout.lo, basis_t)
-        groups = pc.type_groups(1, p.capacity, K_PROXY, T)
-        grouped = pc.proxy_bwd_moments.grouped_launches
+        groups = pc.pair_groups(1, p.capacity, K_PROXY, T)
+        split = pc.proxy_bwd_moments.type_group_launches
         got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
             *args, **kw2)])
-        check(pc.proxy_bwd_moments.grouped_launches - grouped ==
-              (len(groups) > 1) == (T > 2),
-              f"K2 double, {T} types: type groups not as planned")
+        check(pc.proxy_bwd_moments.type_group_launches - split ==
+              (len(groups) > 1) == 0,
+              f"K2 double, {T} types: type pair passes not as planned")
         want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
             *args, **kw2)])
         torch.cuda.synchronize()
         k2_err = max(k2_err, compare(
-            f"K2 double, {T} types in {len(groups)} groups of "
-            f"{groups[0][1]} ({len(groups) * (len(groups) + 1) // 2} grid "
-            f"rows, {got.numel()} moments, kernel vs plain)", got, want,
+            f"K2 double, {T} types ({len(groups)} pass of "
+            f"{groups[0][1]} type pairs, {got.numel()} moments, kernel vs "
+            "plain)", got, want,
             rtol=F64_K2_RTOL, atol=F64_K2_RTOL * float(want.abs().max())))
         t_k = cuda_ms(lambda: pc.proxy_bwd_moments(*args, **kw2))
         t_p = cuda_ms(lambda: pc.proxy_bwd_plain(*args, **kw2), reps=1)
@@ -3362,8 +3385,9 @@ def fp64_proxy_kernels(sim, model):
               f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} "
               f"ms ({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G "
               "float64 operations)")
+        typed[T] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms)
     k2_rec["max_abs_err"] = k2_err
-    return k1_rec, k2_rec
+    return k1_rec, k2_rec, typed
 
 
 def fp64_pair_kernels(sim):
@@ -5540,6 +5564,288 @@ def phase_sharded_mapped(state):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 39: typed proxy training, the Kob-Andersen binary mixture
+# ----------------------------------------------------------------------
+# Kob and Andersen, Phys. Rev. E 51, 4626 (1995): A-A, A-B, B-B
+KA_EPS = [[1.0, 1.5], [1.5, 0.5]]
+KA_SIG = [[1.0, 0.8], [0.8, 0.88]]
+
+
+def mixture_types(n, seed=0):
+    """A:B = 80:20 by a seeded permutation: type 1 on the last fifth."""
+    import numpy as np
+    perm = np.random.RandomState(seed).permutation(n)
+    return (perm >= 0.8 * n).astype(np.int32)
+
+
+def make_typed_nn(seed=0, dtype=None):
+    """Phase 5's proxy NN made typed: the MLP (16 -> 1) on 1/r and the
+    one-hot of the unordered type pair (ti + tj of two types),
+    ``pair_energy(r2, ti, tj)``, K = 16, ``proxy_types=2``; random
+    weights from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    dtype = dtype or torch.float32
+
+    class TypedNNPair(htt.PairModel):
+        def setup(self):
+            self.dense1 = htt.Dense(16, generator=gen, dtype=dtype)
+            self.last = htt.Dense(1, generator=gen, dtype=dtype)
+
+        def pair_energy(self, r2, ti, tj):
+            s = ti + tj
+            x = torch.cat([torch.rsqrt(r2)[..., None]] +
+                          [(s == k).to(r2.dtype)[..., None]
+                           for k in range(3)], -1)
+            return 2.0 * self.last(torch.tanh(self.dense1(x)))[..., 0]
+    return TypedNNPair(64, output_forces=False, proxy_degree=K_PROXY,
+                       proxy_types=2, dtype=dtype)
+
+
+def ka_lj():
+    return htt.md.LennardJones(epsilon=KA_EPS, sigma=KA_SIG, r_cut=R_CUT)
+
+
+def phase_train_typed(train_sps):
+    """Typed online training on the card: the 64k fluid of
+    :func:`train_sim_attached` made an 80:20 Kob-Andersen mixture (its
+    labels and driving forces the mixture's built-in LJ), the typed proxy
+    NN (Adam 1e-2, phase 5's force loss), :func:`warm_train`, then the
+    best of two timed run(200), all under check_syncs; K1's LJ form for
+    the labels, its typed proxy form forward and the typed K2 at every
+    train step."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    k1, k2 = cc.half_stencil_pair_forces, pc.proxy_bwd_moments
+    sim, model = train_sim_attached(make_typed_nn(), types=mixture_types(N),
+                                    lj=ka_lj())
+    tfc = sim.tfc
+    sim.check_syncs = True
+    k1.launches = k1.proxy_launches = k2.launches = 0
+    evals0, steps0 = sim.force_evals, sim.train_steps
+    warm_train(sim)
+    hist = tfc.loss_history
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(200)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    evals = sim.force_evals - evals0
+    steps = sim.train_steps - steps0
+    loss0 = float(np.mean(hist[:50]))
+    loss1 = float(np.mean(hist[-50:]))
+    th = sim.thermo()
+    curve = [round(float(np.mean(hist[a:a + 100])), 4)
+             for a in range(0, len(hist), 100)]
+    print(f"  loss curve (means of 100 steps): {curve}")
+    check(len(hist) == 1000 <= steps,
+          f"{len(hist)} losses of committed steps, {steps} steps attempted")
+    check(bool(np.isfinite(hist).all()), "non-finite training loss")
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(bool(torch.isfinite(sim.state.forces).all()), "non-finite forces")
+    check(1.1 < th["temperature"] < 1.9, f"unhealthy mixture after: {th}")
+    check(k2.launches == steps, f"K2 launches {k2.launches} != train "
+          f"steps {steps}")
+    check(k1.proxy_launches == steps, f"K1 proxy launches "
+          f"{k1.proxy_launches} != train steps {steps}")
+    check(k1.launches == evals, f"K1 launches {k1.launches} != built-in "
+          f"+ model-forward evaluations {evals}")
+    check(loss1 < 0.3 * loss0, f"loss did not fall: {loss0} -> {loss1}")
+    plan = sim._layout.plan
+    sps = 200 / min(times)
+    n_b = int((sim.state.types == 1).sum())
+    print(f"  plan grid {plan.grid} cap {plan.capacity}; {N - n_b} A, {n_b} "
+          f"B; T={th['temperature']:.4f}")
+    print(f"  train steps: 1000 committed, {steps} attempted; launches: K2 "
+          f"{k2.launches} == K1 proxy {k1.proxy_launches} == train steps; "
+          f"K1 {k1.launches} == evaluations {evals}; no host sync")
+    print(f"  loss (50-step windows) {loss0:.4f} -> {loss1:.4f} (ratio "
+          f"{loss1 / loss0:.4f}, limit 0.3)")
+    print(f"  typed train steps/s {sps:.2f} (best of 2 timed run(200), "
+          f"rounds {[round(t, 3) for t in times]} s) against phase 5's "
+          f"untyped {train_sps:.2f} ({sps / train_sps:.3f}x) on "
+          f"{smi_line()} -- info, not a claim")
+    launches = dict(lj=k1.launches - k1.proxy_launches,
+                    proxy=k1.proxy_launches, k2=k2.launches)
+    return sim, model, launches
+
+
+def timed_call(label, fn, plain, cost, peak=PEAK_F32_PER_S, plain_reps=5):
+    """The whole call by CUDA events, the kernels alone by the profiler,
+    the plain version's time and the bound: a kernels-line record."""
+    t_k = cuda_ms(fn)
+    names, dev_ms, _, _ = profiled_calls(fn)
+    t_p = cuda_ms(plain, reps=plain_reps)
+    nbytes, ops = cost
+    b_ms, b_by = bound(nbytes, ops, peak)
+    print(f"  {label}: whole call {t_k:.4f} ms, kernels alone "
+          f"{dev_ms / PROFILED_CALLS:.4f} ms ({len(names) // PROFILED_CALLS} "
+          f"a call), plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
+    return dict(ms=t_k, kernel_ms=dev_ms / PROFILED_CALLS, plain_ms=t_p,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_train_typed_kernels(sim, model):
+    """At phase 39's trained state and plan: K1's typed proxy form (the
+    train forward, forces only) and the typed K2 against their plain
+    versions (rtol = atol = 1e-4; the JAX bar), the path's K2 call
+    (forces-only cotangent) and with energy beside the untyped call with
+    energy at the same plan, and eight types (slot % 8); each timed."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
+                                                  make_typed_pair_proxy)
+    layout = sim._layout
+    p = layout.plan
+    dev = sim.device
+    slot, aux = slot_state(layout, sim.state)
+    common = (slot.positions, slot.types, aux["valid"], p, layout.lo)
+    with torch.no_grad():
+        form = model.pair_kernel_form(R_CUT, dev)
+    kw = dict(min_r2=model.min_r2, geometry=layout.geometry)
+    f_k, _ = cc.half_stencil_pair_forces(*common, form, needs_energy=False,
+                                         **kw)
+    f_p, _ = cc.half_stencil_plain(*common, form, needs_energy=False, **kw)
+    torch.cuda.synchronize()
+    k1 = timed_call(
+        "K1 typed proxy form (two types), the train forward",
+        lambda: cc.half_stencil_pair_forces(*common, form,
+                                            needs_energy=False, **kw),
+        lambda: cc.half_stencil_plain(*common, form, needs_energy=False,
+                                      **kw),
+        k1_cost(slot.positions, aux["valid"], p, 3, form))
+    k1["max_abs_err"] = compare("K1 typed proxy form, forces (kernel vs "
+                                "plain)", f_k[:, :3], f_p[:, :3])
+    basis = model.proxy_parts(R_CUT, dev)[1].basis
+    ct = torch.as_tensor(np.random.RandomState(0).randn(p.n_slots, 4)
+                         .astype(np.float32), device=dev)
+    r2_lo = (0.25 * R_CUT) ** 2
+    types8 = (torch.arange(p.n_slots, device=dev) % 8).to(torch.int32)
+    cases = (
+        ("two types, forces-only cotangent (the path)", slot.types, basis,
+         False),
+        ("two types, with energy", slot.types, basis, True),
+        ("untyped, with energy", slot.types,
+         make_pair_proxy(K_PROXY, r2_lo, R_CUT ** 2, device=dev)[1].basis,
+         True),
+        ("eight types (slot % 8), with energy", types8,
+         make_typed_pair_proxy(K_PROXY, r2_lo, R_CUT ** 2, 8,
+                               device=dev)[1].basis, True))
+    rec, err = {}, 0.0
+    for label, types, bas, energy in cases:
+        args = (slot.positions, types, aux["valid"], ct, p, layout.lo, bas)
+        kw2 = dict(min_r2=model.min_r2, needs_energy=energy,
+                   geometry=layout.geometry)
+        T = 1 if bas["pairs"] is None else 8 if types is types8 else 2
+        split = pc.proxy_bwd_moments.type_group_launches
+        got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(
+            *args, **kw2)])
+        check(pc.proxy_bwd_moments.type_group_launches == split,
+              f"K2 {label}: its type pairs took more than one pass")
+        want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(
+            *args, **kw2)])
+        torch.cuda.synchronize()
+        err = max(err, compare(f"K2 {label}, {got.numel()} moments (kernel "
+                               "vs plain)", got, want, rtol=K2_RTOL,
+                               atol=K2_ATOL_REL * float(want.abs().max())))
+        nbytes, ops = k2_cost(slot.positions, aux["valid"], p, K_PROXY,
+                              energy, got.numel())
+        if T > 1:
+            nbytes += 4 * p.n_slots  # the types
+        rec[label] = timed_call(
+            f"K2 {label}", lambda: pc.proxy_bwd_moments(*args, **kw2),
+            lambda: pc.proxy_bwd_plain(*args, **kw2), (nbytes, ops),
+            plain_reps=1 if T == 8 else 3)
+    k2 = dict(rec["two types, forces-only cotangent (the path)"],
+              max_abs_err=err)
+    k2["two_types_energy_ms"] = rec["two types, with energy"]["ms"]
+    k2["untyped_energy_ms"] = rec["untyped, with energy"]["ms"]
+    eight = rec["eight types (slot % 8), with energy"]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        k2["eight_types_" + key] = eight[key]
+    print(f"  K2 two types with energy / untyped with energy at this plan: "
+          f"{k2['two_types_energy_ms'] / k2['untyped_energy_ms']:.3f}x")
+    return k1, k2
+
+
+def phase_train_typed_f64(sim32):
+    """Phase 39's mixture in float64: its state made double, the typed
+    proxy NN in double (Adam 1e-2), run(100) under check_syncs, every K1
+    and K2 launch double, K2 = K1 proxy = train steps; then the typed K2
+    double (forces-only cotangent, the path) against its plain version
+    (rtol 1e-10), timed."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    k1, k2 = cc.half_stencil_pair_forces, pc.proxy_bwd_moments
+    st = sim32.state
+    fields = {f.name: getattr(st, f.name).double()
+              for f in dataclasses.fields(st)
+              if torch.is_tensor(getattr(st, f.name)) and
+              getattr(st, f.name).is_floating_point()}
+    sim = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                         seed=0, device="cuda")
+    sim.set_state(dataclasses.replace(st, thermostat={}, **fields))
+    sim.add_force(ka_lj())
+    model = make_typed_nn(dtype=F64)
+    model.compile(optimizer="adam", loss=force_loss, learning_rate=1e-2)
+    tfc = htt.tfcompute(model)
+    tfc.attach(sim, r_cut=R_CUT, nlist="cellwise", train=True)
+    sim.check_syncs = True
+    for f in (k1, k2):
+        f.launches = f.f64_launches = 0
+    k1.proxy_launches = 0
+    steps0 = sim.train_steps
+    sim.run(100)
+    steps = sim.train_steps - steps0
+    hist = tfc.loss_history
+    check_f64_state(sim, "float64 typed training")
+    check(len(hist) == 100 <= steps and bool(np.isfinite(hist).all()),
+          f"{len(hist)} finite losses of {steps} train steps")
+    check(bool(torch.isfinite(sim.state.positions).all()),
+          "non-finite positions")
+    check(k2.launches == k2.f64_launches == steps == k1.proxy_launches,
+          f"K2 {k2.launches} ({k2.f64_launches} double), K1 proxy "
+          f"{k1.proxy_launches} launches for {steps} train steps")
+    check(k1.f64_launches == k1.launches, "a K1 launch was not double")
+    print(f"  float64: {steps} train steps, K2 {k2.launches} and K1 proxy "
+          f"{k1.proxy_launches} launches, all double; loss {hist[0]:.6f} "
+          f"-> {hist[-1]:.6f}; no host sync")
+    launches = k2.launches
+    layout = sim._layout
+    p = layout.plan
+    slot, aux = slot_state(layout, sim.state)
+    basis = model.proxy_parts(R_CUT, "cuda")[1].basis
+    ct = torch.as_tensor(np.random.RandomState(0).randn(p.n_slots, 4),
+                         device="cuda")
+    args = (slot.positions, slot.types, aux["valid"], ct, p, layout.lo,
+            basis)
+    kw = dict(min_r2=model.min_r2, needs_energy=False,
+              geometry=layout.geometry)
+    got = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_moments(*args,
+                                                                 **kw)])
+    want = torch.cat([g.reshape(-1) for g in pc.proxy_bwd_plain(*args,
+                                                                **kw)])
+    torch.cuda.synchronize()
+    err = compare("K2 double, two types, forces-only cotangent (kernel vs "
+                  "plain)", got, want, rtol=F64_K2_RTOL,
+                  atol=F64_K2_RTOL * float(want.abs().max()))
+    nbytes, ops = k2_cost(slot.positions, aux["valid"], p, K_PROXY, False,
+                          got.numel())
+    rec = timed_call("K2 double, two types, forces-only cotangent (the "
+                     "path)", lambda: pc.proxy_bwd_moments(*args, **kw),
+                     lambda: pc.proxy_bwd_plain(*args, **kw),
+                     (nbytes + 4 * p.n_slots, ops), PEAK_F64_PER_S)
+    rec.update(max_abs_err=err, launches=launches)
+    return rec
+
+
 def main():
     global torch, htt, np
     if not os.path.isfile(os.path.join(HERE, "hoomd_tf_tpu_torch",
@@ -5698,7 +6004,7 @@ def main():
     sim64, model64, l64, sps64 = fp64_train_row(base64, "proxy")
     print(f"  float64 proxy row {sps64:.2f} train steps/s against phase 5's "
           f"float32 {train_sps:.2f} ({sps64 / train_sps:.3f}x)")
-    k1_px64, k2_64 = fp64_proxy_kernels(sim64, model64)
+    k1_px64, k2_64, k2_typed23 = fp64_proxy_kernels(sim64, model64)
     k1_px64["launches"], k2_64["launches"] = l64["proxy"], l64["k2"]
     k1_lj64["launches"] += l64["lj"]
     del sim64, model64
@@ -5803,6 +6109,21 @@ def main():
     gen_group["launches"] += gen_runs
     del shard_state
     torch.cuda.empty_cache()
+    print("[39 train-typed] 64k online training of a typed proxy NN on the "
+          "80:20 Kob-Andersen mixture: K2's typed path")
+    t39 = time.perf_counter()
+    tsim, tmodel, tl = phase_train_typed(train_sps)
+    k1_lj["launches"] += tl["lj"]
+    k1_typed, k2_typed = phase_train_typed_kernels(tsim, tmodel)
+    k1_typed["launches"], k2_typed["launches"] = tl["proxy"], tl["k2"]
+    k2_typed64 = phase_train_typed_f64(tsim)
+    # three and five types: phase 23's calls (slot % T, with energy)
+    for T, name in ((3, "three"), (5, "five")):
+        for key in ("ms", "plain_ms", "bound_ms"):
+            k2_typed64[f"{name}_types_{key}"] = k2_typed23[T][key]
+    del tsim, tmodel
+    torch.cuda.empty_cache()
+    print(f"  phase 39: {time.perf_counter() - t39:.1f} s")
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -5919,6 +6240,29 @@ def main():
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",
              replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
                       "contraction; no Pallas kernel)", **bwd_slab),
+        dict(name="K1 half-stencil pair forces, Chebyshev-proxy form with "
+                  "a typed table (two types), phase 39's training forward "
+                  "(forces only; kernel_ms: its kernels alone by the "
+                  "profiler; launches: phase 39's train steps)",
+             source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu", **k1_typed),
+        dict(name="K2 Chebyshev-proxy backward moments, typed path (the "
+                  "tile path), float32: phase 39's two types 80:20 with "
+                  "the forces-only cotangent (kernel_ms: its kernels alone "
+                  "by the profiler; two_types_energy_ms, "
+                  "untyped_energy_ms: with energy, typed and untyped, at "
+                  "the same plan; eight_types_*: eight types, slot % 8, "
+                  "with energy; launches: phase 39's train steps)",
+             source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train_pallas.py:80",
+             **k2_typed),
+        dict(name="K2 Chebyshev-proxy backward moments, typed path, "
+                  "float64: phase 39's float64 segment, two types 80:20, "
+                  "forces-only cotangent (three_types_*, five_types_*: "
+                  "phase 23's state, slot % T, with energy; launches: the "
+                  "segment's train steps)",
+             source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
+             replaces="hoomd_tf_tpu/ops/pair_train_pallas.py:80",
+             **k2_typed64),
         dict(name="K3 cell-list neighbor selection, slab mode "
                   "(nlist_select(slab=); ms, plain_ms, bound_ms: shard 0's "
                   "call, its slab plain version and its own bound; "
@@ -5942,7 +6286,10 @@ def main():
         r.setdefault("library_ms", None)
         r["route"] = "cuda"
         kernels.append({k: r[k] for k in keys + (
-            "sharded_ms", "shard0_ms") if k in r})
+            "sharded_ms", "shard0_ms", "kernel_ms", "two_types_energy_ms",
+            "untyped_energy_ms") + tuple(
+                f"{n}_types_{m}" for n in ("eight", "three", "five")
+                for m in ("ms", "plain_ms", "bound_ms")) if k in r})
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

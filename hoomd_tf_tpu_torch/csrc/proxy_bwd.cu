@@ -22,18 +22,42 @@
 // (half_stencil_stage.cuh), each with its cotangent ct * valid, those of
 // the 13 directed blocks only within the cut of the home rows' bounding
 // box: no candidate or cotangent plane exists in device memory, and empty
-// or out-of-reach slots are never walked. The lanes (home row i, staged candidate j) are split
-// over (row, candidate segment) pairs; the self pair is excluded by staged
-// index. Untyped with K = 8 or 16 (the train path: K = 16), each thread
-// keeps its 2K moments in registers; at the end a warp shuffle tree per
-// moment and the warps' partials in a fixed order give the block's sums.
-// Typed proxies and other K keep per-thread accumulators in shared memory,
-// one [2K] set per candidate type (a thread's row type is fixed within a
-// pass), folded into the block's [P][2K] sums at the end of each pass of
-// rows. Each block writes its [P * 2K] partial sums; a second kernel sums
-// them over cells in a fixed order. No float atomics, so the result is
+// or out-of-reach slots are never walked. A lane is a pair (home row i,
+// staged candidate j); the self pair is excluded by staged index. Each
+// block writes its [P * 2K] partial sums; a second kernel sums them over
+// cells in a fixed order. No float atomics, so the result is
 // deterministic, and any P * 2K works (the Pallas kernel's one 128-lane
 // output row capped 2K * P at 128).
+//
+// Untyped with K = 8 or 16 (the untyped train path: K = 16): the lanes
+// are split over (row, candidate segment) pairs, each thread keeps its 2K
+// moments in registers; at the end a warp shuffle tree per moment and the
+// warps' partials in a fixed order give the block's sums.
+//
+// Typed proxies, and other K (the tile path): after the staging, one
+// stable counting sort in shared memory orders the staged entries by type
+// (cord: the entries of type 0, then of type 1, ...; within a type the
+// rows come first, as they are the first n0 entries), so the rows of type
+// a and the candidates of type b are two ranges of cord. A type pair
+// (a, b), a <= b, is the tile of rows of a x candidates of b and, when
+// a != b, the tile of rows of b x candidates of a: its lanes, numbered
+// row-major, padded to whole warp steps of 32. The pairs' steps, in
+// chebyshev.type_pairs order, are split into kWarps contiguous ranges,
+// one a warp, so each step of a warp is one pair and its 32 lanes keep
+// 2 x 16 moments (16 Chebyshev terms; a larger K takes several passes of
+// 16) in registers. Where its pair changes, and at its end, a warp
+// flushes: a reduce-scatter over the warp (31 shuffles) leaves moment m
+// of the pair in lane m, written to the warp's own slot when it is the
+// warp's first pair (which the warp before may share) and otherwise to
+// the pair's row of the block's sums, which no other warp writes (the
+// ranges are contiguous). The block's sum of a pair is its row plus the
+// first-pair slots of the warps whose first pair it is, in warp order.
+// Rows of a type outside the table, or lanes outside rc2_tab's cut, add
+// nothing. The block stages once whatever T is: a T whose per-pair rows
+// do not fit the block's shared memory beside the staging is summed in
+// several passes over consecutive ranges of pairs (pair_train_cuda.
+// pair_groups plans them, mirroring smem_bytes), each re-walking the
+// sorted entries, not re-staging them.
 //
 // Group mode (the training backward under a mesh; GroupTab and ShardRows
 // of half_stencil_stage.cuh, as K1's group launch): one launch pair over
@@ -43,24 +67,12 @@
 // from the next shard's first home layer when that shard is in the group,
 // else from the shard's halo rows (the next shard's cotangent there,
 // where the reverse halo was added). The blocks run in the group's global
-// cell order, so the summing pass adds the cells in that order: a group
-// of every shard gives the whole state's moments bit for bit, and groups
-// on several cards give parts whose sum is the whole state's (each
+// cell order and share the block functions of the whole state's kernel,
+// so the summing pass adds the same cells' sums in that order: a group of
+// every shard gives the whole state's moments bit for bit, and groups on
+// several cards give parts whose sum is the whole state's (each
 // unordered pair belongs to one home cell's half stencil). A z-slab
 // shard alone is the group of one with its halo layer.
-//
-// Many types: the per-thread sets take T * 2K * kThreads scalars, past
-// the block's shared memory from three types up in double (K = 16, cap
-// 48). The types are then split into groups of G (the largest G whose
-// block fits, planned by the wrapper: pair_train_cuda.type_groups, which
-// mirrors smem_bytes) and the grid gets one row per pair of groups
-// (A, B), A <= B: a block of that row walks only the lanes whose row type
-// is in one group and candidate type in the other, keeps G sets per
-// thread (indexed by the candidate type within the other group) and
-// writes the columns of the type pairs {a in A, b in B} of `partial`.
-// Every column is written by exactly one row, so the summing pass is the
-// same. With one group (G = T) the grid has one row and the block is
-// today's.
 //
 // What bounds it on an H100: operations. The function needs the slot state
 // (positions, valid, the [n_slots, 4] cotangent; types when typed) read
@@ -75,7 +87,7 @@
 // Every kernel is a template on the scalar type S (scalar.cuh), built for
 // float and for double: a float64 state and proxy run the double
 // instantiation (staged entries, cotangents, moments and sums in double;
-// the 2K register moments take twice the registers, and the staging's
+// the register moments take twice the registers, and the staging's
 // shared memory doubles), at the card's float64 rate.
 
 #include <cuda_runtime.h>
@@ -93,6 +105,12 @@ using htf::Vec4;
 using htf::fmax_;
 using htf::fmin_;
 
+// The tile path's Chebyshev terms a pass keeps in registers, and its
+// moments a lane holds: a c and a cd moment a term, one a lane at a flush.
+constexpr int kChunk = 16;
+constexpr int kMom = 2 * kChunk;
+static_assert(kMom == 32, "a flush leaves one moment in each lane");
+
 template <class S>
 __device__ __forceinline__ S warp_sum(S v) {
 #pragma unroll
@@ -101,237 +119,443 @@ __device__ __forceinline__ S warp_sum(S v) {
   return v;
 }
 
-// Grid row `row` of a launch over T types in groups of G: the row-major
-// index of the pair of groups (A, B), A <= B, with A = [a0, a1) and
-// B = [b0, b1). One group (G >= T): the row pairs all types with all.
-struct GroupPair {
-  int T, G, a0, a1, b0, b1;
-  bool same;
-  __device__ GroupPair(int row, int T_, int G_) : T(T_), G(G_ < T_ ? G_ : T_) {
-    const int nb = (T + G - 1) / G;
-    int i = 0;
-    while (row >= nb - i) {  // group row i pairs with groups i .. nb - 1
-      row -= nb - i;
-      ++i;
-    }
-    const int j = i + row;
-    a0 = i * G;
-    a1 = min(T, a0 + G);
-    b0 = j * G;
-    b1 = min(T, b0 + G);
-    same = i == j;
+// One halving step of warp_transpose_sum: a lane keeps the half of
+// v[0, 2H) that its bit H selects, adds the partner lane's copy of it and
+// leaves the sums in v[0, H).
+template <int H, class S>
+__device__ __forceinline__ void halve(S (&v)[kMom], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const S keep = up ? v[i + H] : v[i];
+    const S send = up ? v[i] : v[i + H];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
   }
-  __device__ int n_pairs() const {
-    const int na = a1 - a0;
-    return same ? na * (na + 1) / 2 : na * (b1 - b0);
+}
+
+// Reduce-scatter over the warp: returns the sum over the 32 lanes of
+// v[lane], in five halving steps (31 shuffles in all).
+template <class S>
+__device__ __forceinline__ S warp_transpose_sum(S (&v)[kMom], int lane) {
+  halve<16>(v, lane);
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0];
+}
+
+// A warp's flush of its moments: dst[m] = the warp's sum of moment m,
+// then the moments zeroed.
+template <class S>
+__device__ __forceinline__ void flush(S (&mom)[kMom], int lane, S* dst) {
+  dst[lane] = warp_transpose_sum(mom, lane);
+#pragma unroll
+  for (int m = 0; m < kMom; ++m) mom[m] = S(0);
+}
+
+// The lane weights of (row q, candidate g) when d2 = |g - q|^2 is inside
+// every cut: A (the c moments' weight, with energy), B and w of
+// the file's header; false when the lane adds nothing.
+template <class S, bool ENERGY>
+__device__ __forceinline__ bool lane_weights(
+    const Vec4<S>& q, const Vec4<S>& cq, const Vec4<S>& gj,
+    const Vec4<S>* __restrict__ sct, int j, int n0, const S* __restrict__ rcm,
+    int rcm_t, S rc2, S min_r2, S mid, S inv_half, S u_hi, S& A, S& B,
+    S& w) {
+  const S dx = gj.x - q.x;
+  const S dy = gj.y - q.y;
+  const S dz = gj.z - q.z;
+  const S d2 = dx * dx + dy * dy + dz * dz;
+  if (!(d2 <= rc2)) return false;
+  if (rcm != nullptr) {
+    const int ti = htf::unpack_type(q.w);
+    const int tj = htf::unpack_type(gj.w);
+    const bool known = ti >= 0 && ti < rcm_t && tj >= 0 && tj < rcm_t;
+    const S prc2 = known ? rcm[ti * rcm_t + tj] : S(0);
+    if (!(d2 <= prc2)) return false;
   }
-  // The candidate types [o0, o1) a row of type t pairs with in this grid
-  // row; false when t is in neither group.
-  __device__ bool other(int t, int& o0, int& o1) const {
-    if (t >= a0 && t < a1) {
-      o0 = b0;
-      o1 = b1;
-      return true;
-    }
-    if (t >= b0 && t < b1) {
-      o0 = a0;
-      o1 = a1;
-      return true;
-    }
-    return false;
+  const bool directed = j >= n0;
+  const S r2 = fmax_(d2, min_r2);
+  S wF = cq.x * dx + cq.y * dy + cq.z * dz;
+  Vec4<S> cj = htf::vec4(S(0), S(0), S(0), S(0));
+  if (directed) {
+    cj = sct[j];
+    wF = wF - (cj.x * dx + cj.y * dy + cj.z * dz);
   }
-  // The `partial` column of this row's i-th moment (pair-major, 2K terms
-  // a pair, the pairs in the fold's order): the pair's place in
-  // chebyshev.type_pairs order times 2K, plus the term.
-  __device__ int column(int i, int K2) const {
-    int lp = i / K2;
-    const int m = i - lp * K2;
-    int a = a0, b;
-    if (same) {
-      while (lp >= a1 - a) {  // type a pairs with a .. a1 - 1
-        lp -= a1 - a;
-        ++a;
-      }
-      b = a + lp;
-    } else {
-      a = a0 + lp / (b1 - b0);
-      b = b0 + lp % (b1 - b0);
-    }
-    return (a * T - a * (a - 1) / 2 + (b - a)) * K2 + m;
+  wF = S(2) * wF;
+  const S u = S(1) / r2;
+  const S over = fmax_(u - u_hi, S(0));
+  A = S(0);
+  if (ENERGY) {
+    S wE = cq.w;
+    if (directed) wE = wE + cj.w;
+    wE = S(0.5) * wE;
+    A = wE;
+    B = wE * over - wF * (u * u);
+  } else {
+    B = -wF * (u * u);
   }
+  w = fmin_(fmax_((u - mid) * inv_half, S(-1)), S(1));
+  return true;
+}
+
+// The shared arrays of a block: the staging's, then the tile path's.
+template <class S>
+struct Smem {
+  Vec4<S>* spos;  // [C] staged entries
+  Vec4<S>* sct;   // [C] their cotangents times valid
+  int* stag;      // [C]
+  unsigned char* scratch;
+  S* wpart;       // register path: [kWarps][2K], tile path: [kWarps][kMom]
+  S* acc;         // register path: [2K], tile path: [Q][kMom]
 };
 
-// The moments of global home cell `gc`, its rows, valid and cotangent
-// (aux) read where `src` keeps them (OneBuffer, ShardRows), written as row
-// `c` of `partial`. KR > 0: untyped with K = KR, moments in registers;
-// KR == 0: per-thread moment sets in shared memory (typed, or another K).
-template <class S, bool ENERGY, int KR, class Src>
-__device__ __forceinline__ void moments_block(
-    const Src& src, int gc, int c, const S* __restrict__ box, HalfGeom g,
-    const S* __restrict__ rcm, int rcm_t, int K, int T, int G, S rc2,
-    S min_r2, S mid, S inv_half, S u_hi, S* __restrict__ partial) {
-  const int C = kHalf * g.cap;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int K2 = 2 * K;
-  const int M_all = T * (T + 1) / 2 * K2;  // a row of `partial`
-  const bool typed = T > 1;
-  // this grid row's pair of type groups [a0, a1) <= [b0, b1)
-  const GroupPair gp(blockIdx.y, T, G);
-  const int M = gp.n_pairs() * K2;
+template <class S>
+__device__ __forceinline__ Smem<S> smem_layout(int C, int M) {
+  Smem<S> s;
+  s.spos = htf::dynamic_smem<Vec4<S>>();
+  s.sct = s.spos + C;
+  s.stag = reinterpret_cast<int*>(s.sct + C);
+  s.scratch = reinterpret_cast<unsigned char*>(s.stag + C);
+  s.wpart = reinterpret_cast<S*>(s.scratch + htf::stage_bytes<S>());
+  s.acc = s.wpart + kWarps * M;
+  return s;
+}
 
-  Vec4<S>* spos = htf::dynamic_smem<Vec4<S>>();          // [C]
-  Vec4<S>* sct = spos + C;                               // [C] ct * valid
-  int* stag = reinterpret_cast<int*>(sct + C);           // [C]
-  unsigned char* scratch = reinterpret_cast<unsigned char*>(stag + C);
-  S* wpart = reinterpret_cast<S*>(scratch + htf::stage_bytes<S>());
-  //                                                       [kWarps][M]
-  S* acc = wpart + kWarps * M;                           // [M]
-  S* slots = acc + M;  // KR == 0: [G][2K][kThreads]
-
-  for (int i = tid; i < M; i += kThreads) acc[i] = S(0);
-  int n0;
-  const int total = htf::stage_rows<S>(
-      g, gc, rc2, src, box, spos, stag, scratch, n0,
+// Stage cell gc's half stencil and its cotangents; returns the entries.
+template <class S, class Src>
+__device__ __forceinline__ int stage(const Src& src, int gc,
+                                     const S* __restrict__ box,
+                                     const HalfGeom& g,
+                                     S rc2, const Smem<S>& sm, int& n0) {
+  Vec4<S>* sct = sm.sct;
+  return htf::stage_rows<S>(
+      g, gc, rc2, src, box, sm.spos, sm.stag, sm.scratch, n0,
       [&](int k, int code, size_t slot) {
         const Vec4<S> v = static_cast<const Vec4<S>*>(src.a(code))[slot];
         const S w = src.v(code)[slot];
         sct[k] = htf::vec4(v.x * w, v.y * w, v.z * w, v.w * w);
       },
       htf::NoSkip());
+}
 
-  S mom[KR > 0 ? 2 * KR : 1];
+// The register path (untyped, K = KR = 8 or 16): the moments of global
+// home cell `gc`, its rows, valid and cotangent (aux) read where `src`
+// keeps them (OneBuffer, ShardRows), written as row `c` of `partial`.
+template <class S, bool ENERGY, int KR, class Src>
+__device__ __forceinline__ void register_block(
+    const Src& src, int gc, int c, const S* __restrict__ box,
+    const HalfGeom& g,
+    const S* __restrict__ rcm, int rcm_t, S rc2, S min_r2, S mid,
+    S inv_half, S u_hi, S* __restrict__ partial) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int M = 2 * KR;
+  const Smem<S> sm = smem_layout<S>(kHalf * g.cap, M);
+  int n0;
+  const int total = stage(src, gc, box, g, rc2, sm, n0);
+
+  S mom[M];
 #pragma unroll
-  for (int m = 0; m < (KR > 0 ? 2 * KR : 1); ++m) mom[m] = S(0);
+  for (int m = 0; m < M; ++m) mom[m] = S(0);
 
   for (int r0 = 0; r0 < n0; r0 += kThreads) {
     const htf::RowSplit sp(r0, n0);
-    int ti = 0;
-    int o0 = 0, o1 = 1;  // the candidate types this row pairs with
-    bool row_ok = sp.active;
-    if (KR == 0)
-      for (int m = 0; m < gp.G * K2; ++m) slots[m * kThreads + tid] = S(0);
-    if (sp.active) {
-      const Vec4<S> q = spos[sp.row];
-      const Vec4<S> cq = sct[sp.row];
-      ti = htf::unpack_type(q.w);
-      // rows of a type outside the table, or outside both groups, add
-      // nothing
-      if (typed) row_ok = gp.other(ti, o0, o1);
-      for (int j = sp.seg; row_ok && j < total; j += sp.nseg) {
-        if (j == sp.row) continue;  // the self pair (block 0)
-        const Vec4<S> gj = spos[j];
-        const S dx = gj.x - q.x;
-        const S dy = gj.y - q.y;
-        const S dz = gj.z - q.z;
-        const S d2 = dx * dx + dy * dy + dz * dz;
-        if (!(d2 <= rc2)) continue;
-        const int tj = htf::unpack_type(gj.w);
-        if (rcm != nullptr) {
-          const bool known = ti >= 0 && ti < rcm_t && tj >= 0 && tj < rcm_t;
-          const S prc2 = known ? rcm[ti * rcm_t + tj] : S(0);
-          if (!(d2 <= prc2)) continue;
-        }
-        if (typed && (tj < o0 || tj >= o1)) continue;
-        const bool directed = j >= n0;
-        const S r2 = fmax_(d2, min_r2);
-        S wF = cq.x * dx + cq.y * dy + cq.z * dz;
-        Vec4<S> cj = htf::vec4(S(0), S(0), S(0), S(0));
-        if (directed) {
-          cj = sct[j];
-          wF = wF - (cj.x * dx + cj.y * dy + cj.z * dz);
-        }
-        wF = S(2) * wF;
-        const S u = S(1) / r2;
-        const S over = fmax_(u - u_hi, S(0));
-        S A = S(0), B;
-        if (ENERGY) {
-          S wE = cq.w;
-          if (directed) wE = wE + cj.w;
-          wE = S(0.5) * wE;
-          A = wE;
-          B = wE * over - wF * (u * u);
-        } else {
-          B = -wF * (u * u);
-        }
-        const S w = fmin_(fmax_((u - mid) * inv_half, S(-1)), S(1));
-        const S two_w = S(2) * w;
-        S t_prev = S(1), t_cur = w;
-        if (KR > 0) {
+    if (!sp.active) continue;
+    const Vec4<S> q = sm.spos[sp.row];
+    const Vec4<S> cq = sm.sct[sp.row];
+    for (int j = sp.seg; j < total; j += sp.nseg) {
+      if (j == sp.row) continue;  // the self pair (block 0)
+      S A, B, w;
+      if (!lane_weights<S, ENERGY>(q, cq, sm.spos[j], sm.sct, j, n0, rcm,
+                                   rcm_t, rc2, min_r2, mid, inv_half, u_hi,
+                                   A, B, w))
+        continue;
+      const S two_w = S(2) * w;
+      S t_prev = S(1), t_cur = w;
 #pragma unroll
-          for (int k = 0; k < (KR > 0 ? KR : 1); ++k) {
-            const S t_k = k == 0 ? t_prev : t_cur;
-            if (ENERGY) mom[k] += A * t_k;
-            mom[KR + k] += B * t_k;
-            if (k >= 1) {
-              const S t_next = two_w * t_cur - t_prev;
-              t_prev = t_cur;
-              t_cur = t_next;
-            }
-          }
-        } else {
-          S* s = slots + (typed ? tj - o0 : 0) * K2 * kThreads + tid;
-          for (int k = 0; k < K; ++k) {
-            const S t_k = k == 0 ? t_prev : t_cur;
-            if (ENERGY) s[k * kThreads] += A * t_k;
-            s[(K + k) * kThreads] += B * t_k;
-            if (k >= 1) {
-              const S t_next = two_w * t_cur - t_prev;
-              t_prev = t_cur;
-              t_cur = t_next;
-            }
-          }
+      for (int k = 0; k < KR; ++k) {
+        const S t_k = k == 0 ? t_prev : t_cur;
+        if (ENERGY) mom[k] += A * t_k;
+        mom[KR + k] += B * t_k;
+        if (k >= 1) {
+          const S t_next = two_w * t_cur - t_prev;
+          t_prev = t_cur;
+          t_cur = t_next;
         }
       }
-    }
-    if (KR == 0) {
-      // fold this pass's sets into the block sums: the thread's share of
-      // pair (a, b), term m -> warp tree -> warp partial -> fixed-order sum
-      int pidx = 0;
-      for (int a = gp.a0; a < gp.a1; ++a) {
-        for (int b = gp.same ? a : gp.b0; b < gp.b1; ++b, ++pidx) {
-          for (int m = 0; m < K2; ++m) {
-            S v = S(0);
-            if (row_ok) {
-              if (!typed) {
-                v = slots[m * kThreads + tid];
-              } else {
-                if (ti == a) v = slots[((b - o0) * K2 + m) * kThreads + tid];
-                if (a != b && ti == b)
-                  v = v + slots[((a - o0) * K2 + m) * kThreads + tid];
-              }
-            }
-            v = warp_sum(v);
-            if (lane == 0) wpart[warp * M + pidx * K2 + m] = v;
-          }
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < M; i += kThreads) {
-        S v = S(0);
-        for (int w = 0; w < kWarps; ++w) v += wpart[w * M + i];
-        acc[i] += v;
-      }
-      __syncthreads();
     }
   }
 
-  if (KR > 0) {
 #pragma unroll
-    for (int m = 0; m < (KR > 0 ? 2 * KR : 1); ++m) {
-      const S v = warp_sum(mom[m]);
-      if (lane == 0) wpart[warp * M + m] = v;
-    }
-    __syncthreads();
-    for (int i = tid; i < M; i += kThreads) {
-      S v = S(0);
-      for (int w = 0; w < kWarps; ++w) v += wpart[w * M + i];
-      acc[i] = v;
+  for (int m = 0; m < M; ++m) {
+    const S v = warp_sum(mom[m]);
+    if (lane == 0) sm.wpart[warp * M + m] = v;
+  }
+  __syncthreads();
+  for (int i = tid; i < M; i += kThreads) {
+    S v = S(0);
+    for (int w = 0; w < kWarps; ++w) v += sm.wpart[w * M + i];
+    partial[static_cast<size_t>(c) * M + i] = v;
+  }
+}
+
+// The tile path's integer arrays, after its [Q][kMom] sums: the sorted
+// entries, per sort key (a type, or T for a type outside the table) the
+// entries, the rows, a running offset, the offsets (NB + 1) and per warp
+// a chunk's counts; per pair of a pass its first step (Q + 1) and its
+// types; per warp its first pair.
+struct TileInts {
+  int *cord, *cnt, *nrow, *run, *coff, *wcnt, *pstart, *pab, *fq;
+};
+
+__device__ __forceinline__ TileInts tile_ints(int* base, int C, int NB,
+                                              int Q) {
+  TileInts t;
+  t.cord = base;
+  t.cnt = t.cord + C;
+  t.nrow = t.cnt + NB;
+  t.run = t.nrow + NB;
+  t.coff = t.run + NB;
+  t.wcnt = t.coff + NB + 1;
+  t.pstart = t.wcnt + kWarps * NB;
+  t.pab = t.pstart + Q + 1;
+  t.fq = t.pab + Q;
+  return t;
+}
+
+// A staged entry's sort key: its type, T when outside the table (it adds
+// nothing); 0 for every entry when untyped.
+template <class S>
+__device__ __forceinline__ int sort_key(const Vec4<S>& e, int T) {
+  if (T == 1) return 0;
+  const int t = htf::unpack_type(e.w);
+  return (t >= 0 && t < T) ? t : T;
+}
+
+// The lanes of type pair (a, b): rows of a x candidates of b, and rows of
+// b x candidates of a when a != b.
+__device__ __forceinline__ int pair_lanes(const TileInts& ti, int a, int b) {
+  const int n1 = ti.nrow[a] * ti.cnt[b];
+  return a == b ? n1 : n1 + ti.nrow[b] * ti.cnt[a];
+}
+
+// The tile path: as register_block, for T types (T = 1: untyped with
+// another K), the type pairs in passes of Q.
+template <class S, bool ENERGY, class Src>
+__device__ __forceinline__ void tile_block(
+    const Src& src, int gc, int c, const S* __restrict__ box,
+    const HalfGeom& g,
+    const S* __restrict__ rcm, int rcm_t, int K, int T, int Q, S rc2,
+    S min_r2, S mid, S inv_half, S u_hi, S* __restrict__ partial) {
+  const int C = kHalf * g.cap;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int K2 = 2 * K;
+  const int P = T * (T + 1) / 2;
+  const int M_all = P * K2;
+  const int NB = T + 1;
+  const Smem<S> sm = smem_layout<S>(C, kMom);
+  const TileInts ti =
+      tile_ints(reinterpret_cast<int*>(sm.acc + Q * kMom), C, NB, Q);
+
+  for (int i = tid; i < NB; i += kThreads) ti.cnt[i] = ti.nrow[i] = 0;
+  for (int i = tid; i < kWarps * NB; i += kThreads) ti.wcnt[i] = 0;
+  int n0;
+  const int total = stage(src, gc, box, g, rc2, sm, n0);  // ends in a barrier
+
+  // the counting sort: the keys' counts (warp-aggregated integer adds),
+  // their offsets, then the entries placed chunk by chunk in staged order
+  for (int s0 = 0; s0 < total; s0 += kThreads) {
+    const int k = s0 + tid;
+    const int key = k < total ? sort_key(sm.spos[k], T) : NB;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    const unsigned rows = peers & __ballot_sync(0xffffffffu, k < n0);
+    if (key < NB && (peers & ((1u << lane) - 1u)) == 0) {
+      atomicAdd(&ti.cnt[key], __popc(peers));
+      if (rows) atomicAdd(&ti.nrow[key], __popc(rows));
     }
   }
-  for (int i = tid; i < M; i += kThreads)
-    partial[static_cast<size_t>(c) * M_all + gp.column(i, K2)] = acc[i];
+  __syncthreads();
+  if (tid == 0) {
+    int o = 0;
+    for (int t = 0; t < NB; ++t) {
+      ti.coff[t] = ti.run[t] = o;
+      o += ti.cnt[t];
+    }
+    ti.coff[NB] = o;
+  }
+  __syncthreads();
+  for (int s0 = 0; s0 < total; s0 += kThreads) {
+    const int k = s0 + tid;
+    const int key = k < total ? sort_key(sm.spos[k], T) : NB;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    if (key < T && rank == 0) ti.wcnt[warp * NB + key] = __popc(peers);
+    __syncthreads();
+    if (key < T) {
+      int before = 0;
+      for (int w = 0; w < warp; ++w) before += ti.wcnt[w * NB + key];
+      ti.cord[ti.run[key] + before + rank] = k;
+    }
+    __syncthreads();
+    for (int t = tid; t < T; t += kThreads) {
+      int s = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        s += ti.wcnt[w * NB + t];
+        ti.wcnt[w * NB + t] = 0;
+      }
+      ti.run[t] += s;
+    }
+    __syncthreads();
+  }
+
+  for (int p0 = 0; p0 < P; p0 += Q) {
+    const int Qr = min(Q, P - p0);
+    // this pass's pairs: their types and first steps (a warp-wide scan)
+    if (warp == 0) {
+      int carry = 0;
+      for (int q0 = 0; q0 < Qr; q0 += 32) {
+        const int q = q0 + lane;
+        int steps = 0;
+        if (q < Qr) {
+          int a = 0, l = p0 + q;
+          while (l >= T - a) {  // type a pairs with a .. T - 1
+            l -= T - a;
+            ++a;
+          }
+          const int b = a + l;
+          ti.pab[q] = a | (b << 16);
+          steps = (pair_lanes(ti, a, b) + 31) >> 5;
+        }
+        int incl = steps;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int o = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += o;
+        }
+        if (q < Qr) ti.pstart[q] = carry + incl - steps;
+        carry += __shfl_sync(0xffffffffu, incl, 31);
+      }
+      if (lane == 0) ti.pstart[Qr] = carry;
+    }
+    __syncthreads();
+    const int n_steps = ti.pstart[Qr];
+    const int s_begin = static_cast<int>(
+        static_cast<long>(n_steps) * warp / kWarps);
+    const int s_end = static_cast<int>(
+        static_cast<long>(n_steps) * (warp + 1) / kWarps);
+
+    for (int k0 = 0; k0 < K; k0 += kChunk) {
+      for (int i = tid; i < Qr * kMom; i += kThreads) sm.acc[i] = S(0);
+      if (tid < kWarps) ti.fq[tid] = -1;
+      __syncthreads();
+
+      S mom[kMom];
+#pragma unroll
+      for (int m = 0; m < kMom; ++m) mom[m] = S(0);
+      int q = -1;
+      int first = -1;
+      // the current pair: its types' row and candidate ranges in cord
+      int ra = 0, rb = 0, ca = 0, cb = 0, nca = 1, ncb = 1, n1 = 0, nl = 0;
+      for (int s = s_begin; s < s_end; ++s) {
+        if (q < 0 || s >= ti.pstart[q + 1]) {
+          if (q >= 0)
+            flush(mom, lane, q == first ? sm.wpart + warp * kMom
+                                        : sm.acc + q * kMom);
+          if (q < 0) q = 0;
+          while (s >= ti.pstart[q + 1]) ++q;
+          if (first < 0) {
+            first = q;
+            if (lane == 0) ti.fq[warp] = q;
+          }
+          const int a = ti.pab[q] & 0xffff, b = ti.pab[q] >> 16;
+          ra = ti.coff[a];
+          rb = ti.coff[b];
+          ca = ti.coff[a];
+          cb = ti.coff[b];
+          nca = max(ti.cnt[a], 1);
+          ncb = max(ti.cnt[b], 1);
+          n1 = ti.nrow[a] * ti.cnt[b];
+          nl = pair_lanes(ti, a, b);
+        }
+        int l = (s - ti.pstart[q]) * 32 + lane;
+        if (l >= nl) continue;
+        int i, j;
+        if (l < n1) {
+          i = ti.cord[ra + l / ncb];
+          j = ti.cord[cb + l % ncb];
+        } else {
+          l -= n1;
+          i = ti.cord[rb + l / nca];
+          j = ti.cord[ca + l % nca];
+        }
+        if (j == i) continue;  // the self pair
+        S A, B, w;
+        if (!lane_weights<S, ENERGY>(sm.spos[i], sm.sct[i], sm.spos[j],
+                                     sm.sct, j, n0, rcm, rcm_t, rc2, min_r2,
+                                     mid, inv_half, u_hi, A, B, w))
+          continue;
+        const S two_w = S(2) * w;
+        S t_k = S(1), t_next = w;  // T_k and T_{k+1}
+        for (int k = 0; k < k0; ++k) {
+          const S t = two_w * t_next - t_k;
+          t_k = t_next;
+          t_next = t;
+        }
+#pragma unroll
+        for (int m = 0; m < kChunk; ++m) {
+          if (k0 + m < K) {
+            if (ENERGY) mom[m] += A * t_k;
+            mom[kChunk + m] += B * t_k;
+          }
+          if (m + 1 < kChunk) {
+            const S t = two_w * t_next - t_k;
+            t_k = t_next;
+            t_next = t;
+          }
+        }
+      }
+      if (q >= 0)
+        flush(mom, lane,
+              q == first ? sm.wpart + warp * kMom : sm.acc + q * kMom);
+      __syncthreads();
+
+      // the block's sums of this pass's pairs: a pair's row, then the
+      // first-pair slots of the warps that start on it, in warp order
+      for (int i = tid; i < Qr * kMom; i += kThreads) {
+        const int qq = i / kMom;
+        const int m = i - qq * kMom;
+        const int k = k0 + (m < kChunk ? m : m - kChunk);
+        if (k >= K) continue;
+        S v = sm.acc[i];
+        for (int w = 0; w < kWarps; ++w)
+          if (ti.fq[w] == qq) v += sm.wpart[w * kMom + m];
+        const int col = (p0 + qq) * K2 + (m < kChunk ? k : K + k);
+        partial[static_cast<size_t>(c) * M_all + col] = v;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The block of global home cell `gc`, written as row `c` of `partial`:
+// the register path (KR = 8, 16) or the tile path (KR = 0).
+template <class S, bool ENERGY, int KR, class Src>
+__device__ __forceinline__ void moments_block(
+    const Src& src, int gc, int c, const S* __restrict__ box,
+    const HalfGeom& g,
+    const S* __restrict__ rcm, int rcm_t, int K, int T, int Q, S rc2,
+    S min_r2, S mid, S inv_half, S u_hi, S* __restrict__ partial) {
+  if constexpr (KR > 0)
+    register_block<S, ENERGY, KR>(src, gc, c, box, g, rcm, rcm_t, rc2,
+                                  min_r2, mid, inv_half, u_hi, partial);
+  else
+    tile_block<S, ENERGY>(src, gc, c, box, g, rcm, rcm_t, K, T, Q, rc2,
+                          min_r2, mid, inv_half, u_hi, partial);
 }
 
 // One block per home cell of a whole state.
@@ -341,11 +565,11 @@ proxy_bwd_kernel(const S* __restrict__ pos, const int* __restrict__ types,
                  const S* __restrict__ valid, const S* __restrict__ box,
                  const Vec4<S>* __restrict__ ct, HalfGeom g,
                  const S* __restrict__ rcm, int rcm_t, int K, int T,
-                 int G, S rc2, S min_r2, S mid, S inv_half, S u_hi,
+                 int Q, S rc2, S min_r2, S mid, S inv_half, S u_hi,
                  S* __restrict__ partial) {
   const int c = blockIdx.x;
   moments_block<S, ENERGY, KR>(htf::OneBuffer<S>{pos, types, valid, ct}, c,
-                               c, box, g, rcm, rcm_t, K, T, G, rc2, min_r2,
+                               c, box, g, rcm, rcm_t, K, T, Q, rc2, min_r2,
                                mid, inv_half, u_hi, partial);
 }
 
@@ -358,14 +582,14 @@ __global__ void __launch_bounds__(kThreads)
 proxy_bwd_group_kernel(const __grid_constant__ htf::GroupTab<S> tab,
                        const S* __restrict__ box, HalfGeom g,
                        const S* __restrict__ rcm, int rcm_t, int K, int T,
-                       int G, S rc2, S min_r2, S mid, S inv_half, S u_hi,
+                       int Q, S rc2, S min_r2, S mid, S inv_half, S u_hi,
                        S* __restrict__ partial) {
   const int c = blockIdx.x;
   const int H = g.nzl * g.nx * g.ny;
   const int k = c / H;
   moments_block<S, ENERGY, KR>(htf::ShardRows<S>(tab, k),
                                tab.z0[k] * g.nx * g.ny + (c - k * H), c, box,
-                               g, rcm, rcm_t, K, T, G, rc2, min_r2, mid,
+                               g, rcm, rcm_t, K, T, Q, rc2, min_r2, mid,
                                inv_half, u_hi, partial);
 }
 
@@ -392,31 +616,27 @@ reduce_partials(const S* __restrict__ partial, int n_cells, int M,
   }
 }
 
-// The register-moment degree for (K, T), or 0 for the shared-memory path.
+// The register-moment degree for (K, T), or 0 for the tile path.
 int register_degree(int K, int T) {
   if (T != 1) return 0;
   return (K == 8 || K == 16) ? K : 0;
 }
 
-// A block's bytes for T types in groups of G (G >= T: one group, the sums
-// of all T(T+1)/2 pairs; else at most G * G pairs a grid row and G moment
-// sets a thread). pair_train_cuda.py mirrors this formula.
+// A block's bytes for T types, Q type pairs a pass on the tile path.
+// pair_train_cuda.py mirrors this formula.
 template <class S>
-long smem_bytes(int cap, int K, int T, int G) {
-  const long K2 = 2L * K;
-  const long Gs = G < T ? G : T;
-  const long M = (Gs == T ? T * (T + 1) / 2 : Gs * Gs) * K2;
-  const long slots = register_degree(K, T) ? 0 : Gs * K2 * kThreads;
-  return static_cast<long>(kHalf) * cap *
-             (2 * sizeof(Vec4<S>) + sizeof(int)) +
-         htf::stage_bytes<S>() +
-         static_cast<long>(sizeof(S)) * (kWarps * M + M + slots);
-}
-
-// Grid rows of T types in groups of G: one per pair of groups.
-int group_rows(int T, int G) {
-  const int nb = G >= T ? 1 : (T + G - 1) / G;
-  return nb * (nb + 1) / 2;
+long smem_bytes(int cap, int K, int T, int Q) {
+  const long C = static_cast<long>(kHalf) * cap;
+  const long staging = C * (2 * sizeof(Vec4<S>) + sizeof(int)) +
+                       htf::stage_bytes<S>();
+  if (register_degree(K, T)) {
+    const long M = 2L * K;
+    return staging + static_cast<long>(sizeof(S)) * (kWarps * M + M);
+  }
+  const long NB = T + 1;
+  const long ints = C + 4 * NB + 1 + kWarps * NB + 2L * Q + 1 + kWarps;
+  return staging + static_cast<long>(sizeof(S)) * (kWarps + Q) * kMom +
+         4 * ints;
 }
 
 // The call's arguments, typed: the wrapper hands the arrays over as
@@ -426,7 +646,7 @@ struct Args {
   const S *pos, *valid, *box, *rcm;
   const int* types;
   const Vec4<S>* ct;
-  int rcm_t, K, T, G;
+  int rcm_t, K, T, Q;
   S rc2, min_r2, mid, inv_half, u_hi;
   S* partial;
 };
@@ -436,7 +656,7 @@ struct Args {
 template <class S, bool ENERGY, int KR>
 int launch_moments(const Args<S>& a, const htf::GroupTab<S>* tab,
                    const HalfGeom& g, int n_cells, cudaStream_t s) {
-  const long smem = smem_bytes<S>(g.cap, a.K, a.T, a.G);
+  const long smem = smem_bytes<S>(g.cap, a.K, a.T, a.Q);
   auto kernel = proxy_bwd_kernel<S, ENERGY, KR>;
   auto group = proxy_bwd_group_kernel<S, ENERGY, KR>;
   const void* fn = tab ? reinterpret_cast<const void*>(group)
@@ -447,15 +667,14 @@ int launch_moments(const Args<S>& a, const htf::GroupTab<S>* tab,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(n_cells, group_rows(a.T, a.G));
   if (tab)
-    group<<<grid, kThreads, smem, s>>>(
-        *tab, a.box, g, a.rcm, a.rcm_t, a.K, a.T, a.G, a.rc2, a.min_r2,
+    group<<<n_cells, kThreads, smem, s>>>(
+        *tab, a.box, g, a.rcm, a.rcm_t, a.K, a.T, a.Q, a.rc2, a.min_r2,
         a.mid, a.inv_half, a.u_hi, a.partial);
   else
-    kernel<<<grid, kThreads, smem, s>>>(
+    kernel<<<n_cells, kThreads, smem, s>>>(
         a.pos, a.types, a.valid, a.box, a.ct, g, a.rcm, a.rcm_t, a.K, a.T,
-        a.G, a.rc2, a.min_r2, a.mid, a.inv_half, a.u_hi, a.partial);
+        a.Q, a.rc2, a.min_r2, a.mid, a.inv_half, a.u_hi, a.partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -478,18 +697,20 @@ template <class S>
 int moments(const void* pos, const int* types, const void* valid,
             const void* box, const void* ct, const htf::GroupTab<S>* tab,
             const HalfGeom* geom, int n_cells, const void* rcm, int rcm_t,
-            int K, int ntypes, int group, double rc2, double min_r2,
+            int K, int ntypes, int pairs, double rc2, double min_r2,
             double mid, double inv_half, double u_hi, int needs_energy,
             void* partial, void* out, cudaStream_t s) {
   const HalfGeom g = *geom;
+  const int P = ntypes * (ntypes + 1) / 2;
   const Args<S> a{static_cast<const S*>(pos), static_cast<const S*>(valid),
                   static_cast<const S*>(box), static_cast<const S*>(rcm),
                   types, static_cast<const Vec4<S>*>(ct), rcm_t, K, ntypes,
-                  group < 1 ? ntypes : group, static_cast<S>(rc2),
+                  pairs < 1 || pairs > P ? P : pairs, static_cast<S>(rc2),
                   static_cast<S>(min_r2), static_cast<S>(mid),
                   static_cast<S>(inv_half), static_cast<S>(u_hi),
                   static_cast<S*>(partial)};
-  const int M = ntypes * (ntypes + 1) / 2 * 2 * K;
+  if (a.T > 0xffff) return cudaErrorInvalidValue;  // the pairs' packed types
+  const int M = P * 2 * K;
   const int e = needs_energy
                     ? dispatch_degree<S, true>(a, tab, g, n_cells, s)
                     : dispatch_degree<S, false>(a, tab, g, n_cells, s);
@@ -504,10 +725,10 @@ int moments(const void* pos, const int* types, const void* valid,
 extern "C" {
 
 // Shared-memory bytes one block of the moment kernel needs (`f64`: the
-// double instantiation) for `ntypes` types in groups of `group`.
-long htf_proxy_bwd_smem(int f64, int cap, int K, int ntypes, int group) {
-  return f64 ? smem_bytes<double>(cap, K, ntypes, group)
-             : smem_bytes<float>(cap, K, ntypes, group);
+// double instantiation) for `ntypes` types, `pairs` type pairs a pass.
+long htf_proxy_bwd_smem(int f64, int cap, int K, int ntypes, int pairs) {
+  return f64 ? smem_bytes<double>(cap, K, ntypes, pairs)
+             : smem_bytes<float>(cap, K, ntypes, pairs);
 }
 
 // Launch both passes on `stream`: per-cell partial sums into `partial`
@@ -516,32 +737,31 @@ long htf_proxy_bwd_smem(int f64, int cap, int K, int ntypes, int group) {
 // picks the scalar type of every floating array: float32 (0) or float64
 // (1). `pos` [n_slots][3], `types` [n_slots] int32 (or null when untyped),
 // `valid` [n_slots], `box` the [3][3] box (rows low, high, tilt) on the
-// card, `ct` the [n_slots][4] cotangent, `geom` a host HalfGeom, `group`
-// the types a group holds (>= ntypes: one group); the scalars are rounded
-// to the scalar type. Returns cudaGetLastError() after the launches
-// (0 = ok).
+// card, `ct` the [n_slots][4] cotangent, `geom` a host HalfGeom, `pairs`
+// the type pairs a block sums in one pass (>= P: all at once); the scalars
+// are rounded to the scalar type. Returns cudaGetLastError() after the
+// launches (0 = ok).
 int htf_proxy_bwd(int f64, const void* pos, const int* types,
                   const void* valid, const void* box, const void* ct,
                   const HalfGeom* geom, int n_cells, const void* rcm,
-                  int rcm_t, int K, int ntypes, int group, double rc2,
+                  int rcm_t, int K, int ntypes, int pairs, double rc2,
                   double min_r2,
                   double mid, double inv_half, double u_hi, int needs_energy,
                   void* partial, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? moments<double>(pos, types, valid, box, ct, nullptr, geom,
-                               n_cells, rcm, rcm_t, K, ntypes, group, rc2,
+                               n_cells, rcm, rcm_t, K, ntypes, pairs, rc2,
                                min_r2, mid, inv_half, u_hi, needs_energy,
                                partial, out, s)
              : moments<float>(pos, types, valid, box, ct, nullptr, geom,
-                              n_cells, rcm, rcm_t, K, ntypes, group, rc2,
+                              n_cells, rcm, rcm_t, K, ntypes, pairs, rc2,
                               min_r2, mid, inv_half, u_hi, needs_energy,
                               partial, out, s);
 }
 
-// Both passes over a group of `n` z-slab shards on one card (not to be
-// confused with `group`, the types a type group holds): their buffers'
-// arrays `pos`, `types` (or null when untyped), `valid` and `ct` (the
-// cotangent's buffers) as host arrays of pointers, their first home
+// Both passes over a group of `n` z-slab shards on one card: their
+// buffers' arrays `pos`, `types` (or null when untyped), `valid` and `ct`
+// (the cotangent's buffers) as host arrays of pointers, their first home
 // layers `z0` and ring neighbours in the group `prev`, `next`, as
 // htf_half_stencil_group takes them; `geom` a HalfGeom of their nzl;
 // `partial` [n H][P * 2K] (H home cells a shard), its rows in the group's
@@ -551,7 +771,7 @@ int htf_proxy_bwd_group(int f64, int n, const void* const* pos,
                         const void* const* ct, const int* z0,
                         const int* prev, const int* next, const void* box,
                         const HalfGeom* geom, const void* rcm, int rcm_t,
-                        int K, int ntypes, int group, double rc2,
+                        int K, int ntypes, int pairs, double rc2,
                         double min_r2, double mid, double inv_half,
                         double u_hi, int needs_energy, void* partial,
                         void* out, void* stream) {
@@ -562,14 +782,14 @@ int htf_proxy_bwd_group(int f64, int n, const void* const* pos,
     const auto tab =
         htf::group_tab<double>(n, pos, types, valid, z0, prev, next, ct);
     return moments<double>(nullptr, nullptr, nullptr, box, nullptr, &tab,
-                           geom, n_cells, rcm, rcm_t, K, ntypes, group, rc2,
+                           geom, n_cells, rcm, rcm_t, K, ntypes, pairs, rc2,
                            min_r2, mid, inv_half, u_hi, needs_energy,
                            partial, out, s);
   }
   const auto tab =
       htf::group_tab<float>(n, pos, types, valid, z0, prev, next, ct);
   return moments<float>(nullptr, nullptr, nullptr, box, nullptr, &tab, geom,
-                        n_cells, rcm, rcm_t, K, ntypes, group, rc2, min_r2,
+                        n_cells, rcm, rcm_t, K, ntypes, pairs, rc2, min_r2,
                         mid, inv_half, u_hi, needs_energy, partial, out, s);
 }
 

@@ -34,10 +34,11 @@ from .cellwise_cuda import (_MAX_SMEM, _check, _group_inputs, _ptr, _ptrs,
                             kernel_dtype, member_rows)
 
 __all__ = ["proxy_bwd_moments", "proxy_bwd_plain", "proxy_bwd_reference",
-           "type_groups", "smem_bytes", "max_capacity"]
+           "pair_groups", "smem_bytes", "max_capacity"]
 
-# csrc/half_stencil_stage.cuh's block constants
-_K_HALF, _K_THREADS, _K_WARPS = 14, 256, 8
+# csrc/half_stencil_stage.cuh's block constants; the tile path's moments a
+# lane holds (csrc/proxy_bwd.cu::kMom)
+_K_HALF, _K_WARPS, _K_MOM = 14, 8, 32
 
 
 def _stage_bytes(s):
@@ -45,40 +46,112 @@ def _stage_bytes(s):
     return 4 * (_K_HALF + _K_WARPS) + s * (6 * _K_WARPS + 6 + 6 * _K_HALF)
 
 
-def smem_bytes(f64, cap, K, T, G):
-    """Shared-memory bytes of one K2 block for ``T`` types in groups of
-    ``G``: ``csrc/proxy_bwd.cu::smem_bytes``, which the wrapper checks this
-    against at every launch."""
+def _register_degree(K, T):
+    """``csrc/proxy_bwd.cu::register_degree``: K for the register path
+    (untyped, K = 8 or 16), else 0 (the tile path)."""
+    return K if T == 1 and K in (8, 16) else 0
+
+
+def smem_bytes(f64, cap, K, T, Q):
+    """Shared-memory bytes of one K2 block for ``T`` types, ``Q`` type
+    pairs a pass on the tile path: ``csrc/proxy_bwd.cu::smem_bytes``,
+    which the wrapper checks this against at every launch."""
     s = 8 if f64 else 4
-    K2 = 2 * K
-    Gs = min(G, T)
-    M = (T * (T + 1) // 2 if Gs == T else Gs * Gs) * K2
-    registers = T == 1 and K in (8, 16)
-    slots = 0 if registers else Gs * K2 * _K_THREADS
-    return (_K_HALF * cap * (2 * 4 * s + 4) + _stage_bytes(s) +
-            s * (_K_WARPS * M + M + slots))
+    C = _K_HALF * cap
+    staging = C * (2 * 4 * s + 4) + _stage_bytes(s)
+    if _register_degree(K, T):
+        return staging + s * (_K_WARPS + 1) * 2 * K
+    NB = T + 1
+    ints = C + 4 * NB + 1 + _K_WARPS * NB + 2 * Q + 1 + _K_WARPS
+    return staging + s * (_K_WARPS + Q) * _K_MOM + 4 * ints
 
 
-def type_groups(f64, cap, K, T):
-    """K2's plan for ``T`` types: consecutive ranges ``[(lo, hi), ...]``
-    that cover every type once, each of the largest size ``G`` whose
-    block (:func:`smem_bytes`) fits the card's shared memory. One range
-    (``G = T``) is the kernel's one-row launch; more make one grid row per
-    pair of ranges. Raises when even a one-type group does not fit
-    (:func:`max_capacity`)."""
-    for G in range(T, 0, -1):
-        if smem_bytes(f64, cap, K, T, G) <= _MAX_SMEM:
-            return [(lo, min(T, lo + G)) for lo in range(0, T, G)]
-    raise ValueError(f"capacity {cap} and K={K} need "
-                     f"{smem_bytes(f64, cap, K, T, 1)} bytes of shared "
-                     f"memory per block for one type, above {_MAX_SMEM}")
+def pair_groups(f64, cap, K, T):
+    """K2's plan of the ``P = T (T + 1) / 2`` type pairs: consecutive
+    ranges ``[(p0, p1), ...]`` of :func:`.chebyshev.type_pairs` order
+    that cover every pair once, each of the largest size ``Q`` whose
+    block (:func:`smem_bytes`) fits the card's shared memory. Why a plan:
+    on the tile path a block keeps one ``[32]`` row of sums per pair of a
+    pass in shared memory beside its staging, which at the train plans'
+    capacities (48-72) fits every pair up to about 34 types in double and
+    53 in float32, but not any T; past that the block stages once and
+    sums its pairs in several passes of ``Q`` (one range per pass). The
+    register path (untyped, K = 8 or 16) has one range. Raises when not
+    even one pair a pass fits (:func:`max_capacity`)."""
+    P = T * (T + 1) // 2
+    Q = P
+    if not _register_degree(K, T):
+        # the bytes grow by a [32] row of sums and two ints a pair
+        per_pair = smem_bytes(f64, cap, K, T, 1) - smem_bytes(f64, cap, K, T,
+                                                                0)
+        Q = min(P, (_MAX_SMEM - smem_bytes(f64, cap, K, T, 0)) // per_pair)
+    if Q < 1 or smem_bytes(f64, cap, K, T, Q) > _MAX_SMEM:
+        raise ValueError(f"capacity {cap} and K={K} need "
+                         f"{smem_bytes(f64, cap, K, T, 1)} bytes of shared "
+                         f"memory per block for one type pair a pass, "
+                         f"above {_MAX_SMEM}")
+    return [(p0, min(P, p0 + Q)) for p0 in range(0, P, Q)]
 
 
 def max_capacity(f64, K, T):
-    """The largest cell capacity :func:`type_groups` plans for."""
-    s = 8 if f64 else 4
+    """The largest cell capacity :func:`pair_groups` plans for."""
     fixed = smem_bytes(f64, 0, K, T, 1)
-    return (_MAX_SMEM - fixed) // (_K_HALF * (2 * 4 * s + 4))
+    return (_MAX_SMEM - fixed) // (smem_bytes(f64, 1, K, T, 1) - fixed)
+
+
+def tile_walk(keys, n0, T, Q):
+    """A model of the tile path's walk in one block
+    (``csrc/proxy_bwd.cu::tile_block``), for tests: ``keys`` the staged
+    entries' sort keys (their types, ``T`` outside the table; all 0
+    untyped), the first ``n0`` the home rows; ``Q`` the pairs a pass.
+    Returns ``(lanes, flushes)``: ``lanes`` the ``(p, warp, i, j)`` each
+    walked lane (self pairs included; the kernel skips them), ``flushes``
+    the ``(p, warp, dest)`` each warp flush, ``dest`` ``'first'`` (the
+    warp's slot) or ``'row'`` (the pair's row of the block's sums)."""
+    NB = T + 1
+    cord = sorted(range(len(keys)), key=lambda k: (keys[k], k))
+    cnt = [sum(1 for k in keys if k == t) for t in range(NB)]
+    nrow = [sum(1 for k in keys[:n0] if k == t) for t in range(NB)]
+    coff = [sum(cnt[:t]) for t in range(NB + 1)]
+    P = T * (T + 1) // 2
+    pairs = [(a, b) for a in range(T) for b in range(a, T)]
+    lanes, flushes = [], []
+    for p0 in range(0, P, Q):
+        pab = pairs[p0:p0 + Q]
+        n = [nrow[a] * cnt[b] + (nrow[b] * cnt[a] if a != b else 0)
+             for a, b in pab]
+        pstart = [0]
+        for v in n:
+            pstart.append(pstart[-1] + -(-v // 32))
+        steps = pstart[-1]
+        for w in range(_K_WARPS):
+            q = first = None
+            for s in range(steps * w // _K_WARPS, steps * (w + 1) // _K_WARPS):
+                if q is None or s >= pstart[q + 1]:
+                    if q is not None:
+                        flushes.append((p0 + q, w,
+                                        "first" if q == first else "row"))
+                    q = 0 if q is None else q
+                    while s >= pstart[q + 1]:
+                        q += 1
+                    first = q if first is None else first
+                a, b = pab[q]
+                n1 = nrow[a] * cnt[b]
+                for lane in range(32):
+                    l = (s - pstart[q]) * 32 + lane
+                    if l >= n[q]:
+                        continue
+                    if l < n1:
+                        i = cord[coff[a] + l // cnt[b]]
+                        j = cord[coff[b] + l % cnt[b]]
+                    else:
+                        l -= n1
+                        i = cord[coff[b] + l // cnt[a]]
+                        j = cord[coff[a] + l % cnt[a]]
+                    lanes.append((p0 + q, w, i, j))
+            if q is not None:
+                flushes.append((p0 + q, w, "first" if q == first else "row"))
+    return lanes, flushes
 
 
 def _n_types(basis):
@@ -296,17 +369,17 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
         rc_t = rc2_tab.shape[0]
         _check(rc2_tab, (rc_t, rc_t), dtype, dev, "rc2_tab")
     lib = _library()
-    groups = type_groups(f64, plan.capacity, K, T)
-    G = groups[0][1]
-    smem = lib.htf_proxy_bwd_smem(f64, plan.capacity, K, T, G)
-    planned = smem_bytes(f64, plan.capacity, K, T, G)
+    groups = pair_groups(f64, plan.capacity, K, T)
+    Q = groups[0][1]
+    smem = lib.htf_proxy_bwd_smem(f64, plan.capacity, K, T, Q)
+    planned = smem_bytes(f64, plan.capacity, K, T, Q)
     if smem != planned:
         raise RuntimeError(f"K2's shared memory ({smem} bytes) differs from "
                            f"its plan's ({planned})")
     M = T * (T + 1) // 2 * 2 * K
     partial = torch.empty((n_cells, M), dtype=dtype, device=dev)
     out = torch.empty((M,), dtype=dtype, device=dev)
-    rest = (_ptr(rc2_tab), rc_t, K, T, G, float(plan.r_cut ** 2),
+    rest = (_ptr(rc2_tab), rc_t, K, T, Q, float(plan.r_cut ** 2),
             float(min_r2), float(basis["mid"]), float(basis["inv_half"]),
             float(basis["u_hi"]), int(needs_energy), _ptr(partial), _ptr(out),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -323,7 +396,7 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
                            lib.htf_proxy_error_string(err).decode())
     proxy_bwd_moments.launches += 1
     proxy_bwd_moments.f64_launches += f64
-    proxy_bwd_moments.grouped_launches += len(groups) > 1
+    proxy_bwd_moments.type_group_launches += len(groups) > 1
     proxy_bwd_moments.group_launches += group is not None
     return _split(out, basis)
 
@@ -336,11 +409,12 @@ def _aligned(ct):
 
 
 #: calls that launched the kernel (the moment pass and the cross-cell sum);
-#: those of its double instantiation alone; those split into type groups;
-#: those over a group of z-slab shards (``group=``)
+#: those of its double instantiation alone; those whose type pairs the
+#: plan splits into more than one pass (:func:`pair_groups`); those over a
+#: group of z-slab shards (``group=``)
 proxy_bwd_moments.launches = 0
 proxy_bwd_moments.f64_launches = 0
-proxy_bwd_moments.grouped_launches = 0
+proxy_bwd_moments.type_group_launches = 0
 proxy_bwd_moments.group_launches = 0
 
 _LIB = None

@@ -20,6 +20,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--box ortho|tilted|npt]
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
+                            [--only k2]
     python3 profile_step.py --mode mesh [--row generic] [--tree DIR]
     python3 profile_step.py --mode meshtrain [--tree DIR]
 
@@ -60,7 +61,9 @@ at the plan ``ShardedSimulation`` takes on this state, the training
 backward over all 4 shards of one card (K2 and ``generic_reduce_bwd``:
 one group launch each, or in a tree without a group mode its 4 slab
 calls in a row), of K1's proxy form and K2 (K = 16, forces only) at the train
-plan's grid (15^3, capacity 36), and of K3 (NN 64) at the packed path's
+plan's grid (15^3, capacity 36), K2 with energy untyped and typed there
+(float32: two types 80:20, phase 39's mixture, and eight types; float64:
+two, three and five types), and of K3 (NN 64) at the packed path's
 plan (18^3, capacity 29 on this state). For each it profiles R = 10
 back-to-back calls between marker kernels (``chip_smoke.profiled_calls``:
 the profiler can leave the first kernels of a window unrecorded) and
@@ -71,7 +74,8 @@ call. It also times K1's generic form on the LJ pair function and
 ``generic_reduce_bwd`` (forces only) at the eval plan, with the form's
 own three kernels' share of the call. ``--dtype float64`` makes the
 state, the model and the tables float64 and takes the bounds at
-float64's 34 TFLOP/s. Where the package has K3's ``launch_params`` it
+float64's 34 TFLOP/s; ``--only k2`` times the whole state's K2 calls
+alone. Where the package has K3's ``launch_params`` it
 also times K3 at forced launch shapes (strip length, warps per block;
 float32). Where it has K1's group launch (``half_stencil_group_forces``)
 it also times, on the same state resident on the 4 shards: the LJ form's
@@ -338,13 +342,64 @@ def train_parts(sim, model, cs):
     return out
 
 
-def whole_calls(cs, dtype):
+def typed_k2_calls(cs, dtype, tr_st, tr_lay, train_plan, ct):
+    """K2's typed calls with energy at the train plan (float32: two types
+    80:20 by a seeded permutation, phase 39's mixture, and eight types;
+    float64: two, three and five types, the types of the others slot %
+    T as chip_smoke.py's), beside the untyped call with energy: ``(name,
+    plan, state, fn, cost)`` rows of :func:`whole_calls`. The bound adds
+    the types' bytes to chip_smoke.k2_cost's."""
+    torch, np = cs.torch, cs.np
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
+                                                  make_typed_pair_proxy)
+    r2_lo, rc2 = (0.25 * cs.R_CUT) ** 2, cs.R_CUT ** 2
+    n_slots = train_plan.n_slots
+    rows = []
+    basis1 = make_pair_proxy(cs.K_PROXY, r2_lo, rc2, dtype=dtype,
+                             device="cuda")[1].basis
+    rows.append(("K2 untyped, with energy", train_plan, tr_st,
+                 lambda: pc.proxy_bwd_moments(
+                     *tr_st[:3], ct, *tr_st[3:], basis1, needs_energy=True,
+                     geometry=tr_lay.geometry),
+                 lambda: cs.k2_cost(tr_st[0], tr_st[2], train_plan,
+                                    cs.K_PROXY, True, 2 * cs.K_PROXY)))
+    for T in ((2, 8) if dtype == torch.float32 else (2, 3, 5)):
+        if T == 2:
+            perm = np.random.RandomState(0).permutation(n_slots)
+            types = torch.as_tensor((perm >= 0.8 * n_slots).astype(
+                np.int32), device="cuda")
+        else:
+            types = (torch.arange(n_slots, device="cuda") % T).to(
+                torch.int32)
+        basis = make_typed_pair_proxy(cs.K_PROXY, r2_lo, rc2, T,
+                                      dtype=dtype, device="cuda")[1].basis
+        st = (tr_st[0], types, *tr_st[2:])
+        M = T * (T + 1) * cs.K_PROXY
+
+        def fn(st=st, basis=basis):
+            return pc.proxy_bwd_moments(*st[:3], ct, *st[3:], basis,
+                                        needs_energy=True,
+                                        geometry=tr_lay.geometry)
+
+        def cost(M=M):
+            nbytes, ops = cs.k2_cost(tr_st[0], tr_st[2], train_plan,
+                                     cs.K_PROXY, True, M)
+            return nbytes + 4 * n_slots, ops
+        rows.append((f"K2 {T} types, with energy", train_plan, st, fn,
+                     cost))
+    return tuple(rows)
+
+
+def whole_calls(cs, dtype, only=None):
     """K1 (LJ, proxy and generic forms), K2, ``generic_reduce_bwd`` and K3
     whole calls alone, on a ``dtype`` state (float32, or float64 for the
     double instantiations): CUDA-event medians, the kernels one call
     launches and their device time (for the generic form also its own
     three kernels' share), and chip_smoke.py's bound (float64 operations
-    at their own peak), at the eval, train and packed shapes."""
+    at their own peak), at the eval, train and packed shapes; K2 also
+    typed (:func:`typed_k2_calls`). ``only='k2'``: the whole state's K2
+    calls alone."""
     torch, htt = cs.torch, cs.htt
     from hoomd_tf_tpu_torch.md.slots import SlotLayout
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
@@ -425,9 +480,14 @@ def whole_calls(cs, dtype):
          lambda: cc.generic_pair_forces(*ev_st, pair_fn, **gen_kw),
          lambda: cs.k1_generic_cost(ev_st[0], ev_st[2], eval_plan, 3,
                                     need)))
-    calls = calls + slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn)
-    k3 = k3_call(cs, sim, dtype=dtype)
-    calls = calls + (k3[:5], k3_slab_call(cs, k3))
+    calls = calls + typed_k2_calls(cs, dtype, tr_st, tr_lay, train_plan, ct)
+    k3 = (None,) * 6
+    if only == "k2":
+        calls = tuple(c for c in calls if c[0].startswith("K2"))
+    else:
+        calls = calls + slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn)
+        k3 = k3_call(cs, sim, dtype=dtype)
+        calls = calls + (k3[:5], k3_slab_call(cs, k3))
     calls_n = cs.PROFILED_CALLS
     form = ("generic_list", "generic_reduce", "half_stencil_home")
     out = []
@@ -1111,6 +1171,8 @@ def main():
                     default="float32",
                     help="--mode calls: the state's dtype (float64: the "
                     "kernels' double instantiations)")
+    ap.add_argument("--only", choices=("k2",),
+                    help="--mode calls: only the whole state's K2 calls")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -1153,7 +1215,8 @@ def main():
             args.tree), "package": os.path.dirname(htt.__file__),
             "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
             "dtype": args.dtype,
-            "calls": whole_calls(cs, getattr(torch, args.dtype))},
+            "calls": whole_calls(cs, getattr(torch, args.dtype),
+                                 args.only)},
             indent=1))
         return 0
 

@@ -696,20 +696,23 @@ def test_double_generic_reduce_bwd_matches_plain(cuda_device, energy):
 
 @pytest.mark.parametrize("case", ["untyped", "forces_only", "two_types",
                                   "three_types", "five_types",
-                                  "eight_types_f32"])
+                                  "eight_types", "eight_types_f32",
+                                  "two_types_rcut_f32", "two_types_f32",
+                                  "three_types_f32"])
 def test_double_k2_matches_plain(cuda_device, case):
-    """K2's double instantiation (the register moments untyped, the
-    shared-memory moment sets with two types; three and five types at
-    K = 16 pass the block's shared memory in double, so the kernel splits
-    them into type groups, one grid row per pair of groups) against its
-    plain version at rtol 1e-10 (phase 23's bar); eight types in float32
-    (groups of five) at rtol 2e-4."""
+    """K2 on the card against its plain version: the double instantiation
+    (the register moments untyped; the tile path with two, three, five and
+    eight types, every type pair in one pass of a block that stages once)
+    at rtol 1e-10 (phase 23's bar), and float32 with two types (with and
+    without a per-type cutoff matrix), three and eight types at the JAX
+    bar (rtol 2e-4, atol 2e-5 max|g|)."""
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
     from hoomd_tf_tpu_torch.ops.chebyshev import (make_pair_proxy,
                                                   make_typed_pair_proxy)
-    n_types = {"two_types": 2, "three_types": 3, "five_types": 5,
-               "eight_types_f32": 8}.get(case, 1)
+    n_types = {"two": 2, "three": 3, "five": 5, "eight": 8}.get(
+        case.split("_")[0], 1)
     dtype = torch.float32 if case.endswith("f32") else F64
+    rcut = "rcut" in case
     r2_lo = (0.25 * 2.5) ** 2
     if n_types > 1:
         _, ev = make_typed_pair_proxy(16, r2_lo, 6.25, n_types, dtype=dtype,
@@ -727,29 +730,33 @@ def test_double_k2_matches_plain(cuda_device, case):
         lo = -lengths / 2
         plan = tcw.plan_cellwise(500, lengths, 2.5, positions=pos, lo=lo,
                                  width_blocks=14)
-        layout = SlotLayout(plan, 500, lo, dtype=dtype, device=dev)
+        layout = SlotLayout(plan, 500, lo, dtype=dtype, device=dev,
+                            rc_matrix=[[2.5, 1.8], [1.8, 2.2]] if rcut
+                            else None)
         slot, aux = layout.pack(st)
         ct = torch.as_tensor(np.random.RandomState(1).randn(
             plan.n_slots, 4), dtype=dtype, device=dev)
         before = (ptc.proxy_bwd_moments.launches,
                   ptc.proxy_bwd_moments.f64_launches,
-                  ptc.proxy_bwd_moments.grouped_launches)
+                  ptc.proxy_bwd_moments.type_group_launches)
         g_c, g_cd = ptc.proxy_bwd_moments(
             slot.positions, slot.types, aux["valid"], ct, plan, layout.lo,
-            ev.basis, needs_energy=energy, geometry=layout.geometry)
+            ev.basis, needs_energy=energy, rc2_tab=layout.rc2_tab,
+            geometry=layout.geometry)
         card = dev.type == "cuda"
-        groups = ptc.type_groups(f64, plan.capacity, 16, n_types)
+        groups = ptc.pair_groups(f64, plan.capacity, 16, n_types)
         assert ptc.proxy_bwd_moments.launches - before[0] == card
         assert ptc.proxy_bwd_moments.f64_launches - before[1] == card * f64
-        assert ptc.proxy_bwd_moments.grouped_launches - before[2] == \
+        assert ptc.proxy_bwd_moments.type_group_launches - before[2] == \
             card * (len(groups) > 1)
         outs.append(np.concatenate([np_(g_c).ravel(), np_(g_cd).ravel()]))
     assert outs[0].size == 2 * 16 * n_types * (n_types + 1) // 2
-    assert (len(groups) > 1) == (n_types >= 3)
+    assert len(groups) == 1  # every pair in one pass up to eight types
     rtol = 1e-10 if f64 else 2e-4
     assert outs[0].dtype == (np.float64 if f64 else np.float32)
     np.testing.assert_allclose(outs[0], outs[1], rtol=rtol,
-                               atol=rtol * np.abs(outs[1]).max())
+                               atol=rtol * np.abs(outs[1]).max()
+                               if f64 else 2e-5 * np.abs(outs[1]).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
