@@ -273,14 +273,18 @@ exits non-zero:
                cell list with K3) from phase 4's fluid through
                Simulation(mesh=) on phase 29's mesh: the packed grid has
                no divisor, so shard s takes the z-layers nz s // S on;
-               8 steps equal to the unsharded engine's (1e-6; the lists
-               are bit-equal), each shard's K3 slab launch against its
-               slab plain version (bit for bit on the occupied home
-               rows), the gathered list bit-equal to the unsharded K3's,
-               shard 0's call timed beside its slab plain version,
-               torch.topk over its keys and its bound, the whole sharded
-               build beside the unsharded one, then a timed run(200) with
-               host syncs forbidden, slab launches = shards x builds;
+               K3's group mode, one launch a card a build; 8 steps
+               equal to the unsharded engine's (1e-6; the lists are
+               bit-equal), each card's group launch and shard 0 as a
+               group of one (in place and on a joined buffer) against
+               their group plain versions and the unsharded K3 (bit for
+               bit), a group of every shard and the gathered list
+               bit-equal to the unsharded K3's, the binning card's group
+               call timed beside its group plain version, shard 0 as a
+               group of one, torch.topk over its keys and its bound, the
+               whole sharded build beside the unsharded one, then a timed
+               run(200) with host syncs forbidden, group launches = cards
+               x builds;
 37. sharded direct -- phase 9's model (LJPotential(64) on 'direct'): each
                shard's particle rows' planes, gathered bit-equal to the
                whole planes; 8 steps equal to the unsharded engine's, a
@@ -598,16 +602,24 @@ def k3_cost(slots4, counts, grid, cap, nn, n, valid_per_row):
     return nbytes, 24 * pairs + float((v * v).sum()), pairs
 
 
-def k3_keys(slots4, grid, cap, lengths):
+def k3_keys(slots4, grid, cap, lengths, group=None, joined=False):
     """K3's selection keys of every query slot over its 27 cells, in the
     plain version's arithmetic: ``[n_cells * cap, 27 cap]`` int32,
-    ``FAR_KEY`` where invalid."""
+    ``FAR_KEY`` where invalid; with ``group`` (runs of layers) those of
+    the group's home slots, in place on the cell table or (``joined``) on
+    the group's joined buffer ``slots4``."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cell_stencil as cs
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
-    neigh = cs.neighbor_cells(grid, slots4.device)
-    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(slots4, neigh, cap, lengths,
-                                             0, int(np.prod(grid)))
+    if group is None:
+        neigh, qcells = cs.neighbor_cells(grid, slots4.device), None
+        m = int(np.prod(grid))
+    else:
+        qcells, neigh = cs.group_cells(grid, group, joined, slots4.device)
+        m = qcells.shape[0]
+    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(
+        slots4, neigh, cap, lengths, 0, m,
+        *(() if qcells is None else (qcells,)))
     C = 27 * cap
     key, _ = nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
                                ddz.reshape(-1, C), R_CUT, nc.slot_bits(C))
@@ -616,31 +628,34 @@ def k3_keys(slots4, grid, cap, lengths):
 
 #: back-to-back calls in a profiled window, and windows tried at most
 PROFILED_CALLS = 10
-PROFILED_TRIES = 3
+PROFILED_TRIES = 5
 
 
 def profiled_calls(fn):
     """Names of the CUDA kernels of ``PROFILED_CALLS`` back-to-back calls
     of ``fn`` and their summed device time in ms, the windows that were
-    dropped before one was whole, and each kernel's time in ms. torch.profiler can leave the
-    first kernels after it starts unrecorded (a window of 84-kernel calls
-    lost its three opening markers), so each window opens with one
-    uncounted call of ``fn``, then three marker kernels
-    (``torch.cuda._sleep``) and a synchronize, ends
-    with one more, and only the kernels between the last opening marker
-    and the closing one count. A window without an opening and a closing
-    marker, or whose count is no multiple of the calls, is run again, up
-    to ``PROFILED_TRIES`` windows; then it raises."""
+    dropped before one was whole, and each kernel's time in ms.
+    torch.profiler can leave the first kernels after it starts unrecorded
+    (a window of 84-kernel calls lost its three opening markers; one of
+    2-kernel calls lost its first 6 kernels three times in a row), so each
+    window opens with 5 ms of the host's sleep, one uncounted call of
+    ``fn``, then six marker kernels (``torch.cuda._sleep``) and a
+    synchronize, ends with one more, and only the kernels between the last
+    opening marker and the closing one count. A window without an opening and a closing marker, or whose
+    count is no multiple of the calls, is run again, up to
+    ``PROFILED_TRIES`` windows; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for tries in range(PROFILED_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            # a call the profiler may leave half unrecorded, then markers
+            # a pause and a call the profiler may leave unrecorded, then
+            # markers
+            time.sleep(0.005)
             fn()
             torch.cuda.synchronize()
-            for _ in range(3):
+            for _ in range(6):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             for _ in range(PROFILED_CALLS):
@@ -5279,37 +5294,34 @@ def phase_sharded_planes(state):
 # ----------------------------------------------------------------------
 # phases 36-38: the packed routes and mapped models under a mesh
 # ----------------------------------------------------------------------
-def k3_slab_cost(buf, cnt, grid, cap, nn, nzl, valid_per_row):
-    """Bytes and operations of shard 0's K3 slab call: its slab buffer's
-    slots and counts read once, the rows of its occupied home slots
-    written once, and ``k3_cost``'s operations for its home queries
-    against their 27 cells."""
+def k3_group_cost(counts, grid, cap, nn, n, runs, valid_per_row, esize,
+                  joined=False):
+    """Bytes and operations of one K3 group call over the runs of layers
+    ``runs`` of a state of ``n`` particles: the slots and counts of every
+    layer its windows reach (its home layers and the layer on each side of
+    each run) read once; in place the particle ids of its home slots read
+    once and the rows of its held particles and of the particles without a
+    slot written once; joined (``joined``) the rows of its occupied home
+    slots written once; and ``k3_cost``'s operations for its home queries
+    against their 27 cells. A group of every layer in place is
+    ``k3_cost``'s call exactly. Returns ``(bytes, operations, pairs)``."""
     from hoomd_tf_tpu_torch.ops.cell_stencil import neighbor_cells
-    nx, ny, _ = grid
-    neigh = neighbor_cells((nx, ny, nzl + 2), cnt.device)
-    home = slice(nx * ny, (nzl + 1) * nx * ny)
-    c = cnt.long()
+    nx, ny, nz = grid
+    cells = nx * ny
+    neigh = neighbor_cells(grid, counts.device)
+    home = torch.cat([torch.arange(z0 * cells, (z0 + k) * cells,
+                                   device=counts.device) for z0, k in runs])
+    reach = {z % nz for z0, k in runs for z in range(z0 - 1, z0 + k + 1)}
+    c = counts.long()
     pairs = int((c[home] * c[neigh[home]].sum(1)).sum())
-    esize = buf.element_size()
     rows = int(c[home].sum())
-    nbytes = buf.numel() * esize + cnt.numel() * 4 + rows * nn * 4 * esize
+    nbytes = len(reach) * cells * (cap * 4 * esize + 4)
+    if not joined:
+        rows += n - int(c.sum())
+        nbytes += home.numel() * cap * 4
+    nbytes += rows * nn * 4 * esize
     v = valid_per_row.double()
     return nbytes, 24 * pairs + float((v * v).sum()), pairs
-
-
-def k3_slab_keys(buf, grid, cap, nzl, lengths):
-    """K3's selection keys of shard 0's home queries over their 27 cells,
-    from its slab buffer, in the plain version's arithmetic."""
-    from hoomd_tf_tpu_torch.ops import cell_stencil as cs
-    from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
-    nx, ny, _ = grid
-    neigh = cs.neighbor_cells((nx, ny, nzl + 2), buf.device)
-    ddx, ddy, ddz, _, _, _ = cs.chunk_pairs(buf, neigh, cap, lengths,
-                                             nx * ny, (nzl + 1) * nx * ny)
-    C = 27 * cap
-    key, _ = nc.selection_keys(ddx.reshape(-1, C), ddy.reshape(-1, C),
-                               ddz.reshape(-1, C), R_CUT, nc.slot_bits(C))
-    return key
 
 
 def sharded_pair(state, mesh, make, nlist, steps=8):
@@ -5340,11 +5352,22 @@ def sharded_pair(state, mesh, make, nlist, steps=8):
     return shd, ref
 
 
+def same_rows(a, b):
+    """Bit-equal lists on one device, NaN rows (rows a call leaves alone)
+    equal too."""
+    return bool(torch.equal(a.isnan(), b.isnan())) and \
+        bool(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
 def phase_sharded_packed(state, packed_sps):
     """Phase 36: phase 6's configuration (LJModel(64), 'auto' -> the cell
-    list with K3) at 65,536 particles through Simulation(mesh=): K3's slab
-    mode on every shard, the gathered list bit-equal to the unsharded
-    K3's, 8 steps against the unsharded engine, a timed run."""
+    list with K3) at 65,536 particles through Simulation(mesh=): K3's group
+    mode, one launch a card a build (the binning card's group in place on
+    the cell table, writing particle-order rows; any other card's on a
+    joined buffer), each group launch and a group of one against its
+    group plain version, a group of every shard and the gathered list
+    bit-equal to the unsharded K3's, 8 steps against the unsharded engine,
+    a timed run."""
     from hoomd_tf_tpu_torch.ops import cell_list as cl
     from hoomd_tf_tpu_torch.ops import cell_stencil as cst
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
@@ -5355,114 +5378,179 @@ def phase_sharded_packed(state, packed_sps):
     S = mesh.size
     print(f"  mesh: {kind}")
     devices = [mesh.devices[s] for s in range(S)]
+    cards = len(set(str(d) for d in devices))
     # the sharded engine's 8 steps run first in sharded_pair, then the
-    # unsharded engine's, which launch no slab call
-    k3.slab_launches = 0
+    # unsharded engine's, which launch no group call
+    k3.group_launches = 0
     shd, ref = sharded_pair(state, mesh, lambda: make_simmodel(NN), None)
     build = shd._packed_build()
     check(build.method == "pallas",
           f"'auto' under the mesh resolved to {build.method!r}, not K3")
     grid, cap = build.plan
     check(ref._packed_build().plan == build.plan, "the plans differ")
-    launches = k3.slab_launches
-    check(launches == S * 8, f"slab launches {launches} != {S} x 8 builds")
+    launches = k3.group_launches
+    check(launches == cards * 8,
+          f"group launches {launches} != {cards} cards x 8 builds")
     shards = cst.z_slabs(grid[2], S)
     print(f"  plan grid {grid} cap {cap}; z-layers per shard "
-          f"{[n for _, n in shards]} (nz s // S, no divisor); slab "
-          f"launches {launches} == {S} x 8 builds")
+          f"{[n for _, n in shards]} (nz s // S, no divisor); group "
+          f"launches {launches} == {cards} card(s) x 8 builds")
 
-    # one state: each shard's slab launch against its slab plain version,
-    # the gathered list against the unsharded K3
+    # one state: each card's group launch and shard 0 as a group of one
+    # (in place and on its joined buffer) against their group plain
+    # versions, a group of every shard against the unsharded K3
     st = shd.state
     lengths = box_size(st.box)
     host_L = tuple(float(v) for v in lengths.cpu())
-    slots4, counts, pid, ovf = cl.build_planes(st.positions4, grid, cap,
-                                               lengths)
+    pos4 = st.positions4
+    n = pos4.shape[0]
+    slots4, counts, pid, ovf = cl.build_planes(pos4, grid, cap, lengths)
     check(not bool(ovf), "the state overflows its own plan")
-    nx, ny, nz = grid
-    home = nx * ny * cap
+    whole = k3(slots4, counts, pid, grid, cap, NN, R_CUT, host_L, n)
+    every = cst.group_layers([sl for sl in shards])
+    groups = build._groups(devices, pos4.device)
+    args = (grid, cap, NN, R_CUT, host_L)
     err = 0.0
-    for s, (z0, nzl) in enumerate(shards):
-        if not nzl:
-            continue
-        buf = cst.halo_slab(slots4, grid, cap, z0, nzl, devices[s])
-        cnt = cst.halo_slab(counts, grid, 1, z0, nzl, devices[s])
-        got = k3(buf, cnt, None, grid, cap, NN, R_CUT, host_L, None,
-                 slab=(z0, nzl))
-        want = nc.nlist_select_reference(buf, cnt, None, grid, cap, NN,
-                                         R_CUT, host_L, None, slab=(z0, nzl))
-        torch.cuda.synchronize()
-        held = pid[z0 * home:(z0 + nzl) * home] >= 0
-        g, w = got[held.to(got.device)], want[held.to(want.device)]
-        e = float((g - w).abs().max())
-        same = bool(torch.equal(g, w))
+
+    def in_place(runs, fn):
+        nan = torch.full((n, NN, 4), float("nan"), dtype=pos4.dtype,
+                         device=pos4.device)
+        return fn(slots4, counts, pid, *args, n, group=runs, out=nan)
+
+    def joined(runs, dev, fn):
+        buf = cst.joined_slab(slots4, grid, cap, runs, dev)
+        cnt = cst.joined_slab(counts, grid, 1, runs, dev)
+        return fn(buf, cnt, None, *args, None, group=runs)
+    cases = [(f"card {dev}'s group, layers {list(runs)}" +
+              (", joined" if jn else ", in place"), runs, dev, jn)
+             for dev, runs, jn, *_ in groups]
+    cases += [(f"shard 0 as a group of one, layers {shards[0]}, in place",
+               (shards[0],), pos4.device, False),
+              (f"shard 0 as a group of one, layers {shards[0]}, joined",
+               (shards[0],), devices[0], True)]
+    for name, runs, dev, jn in cases:
+        if jn:
+            got = joined(runs, dev, k3)
+            want = joined(runs, dev, nc.nlist_select_reference)
+            layer = grid[0] * grid[1] * cap
+            p = torch.cat([pid[z0 * layer:(z0 + k) * layer]
+                           for z0, k in runs])
+            held = p >= 0
+            torch.cuda.synchronize()
+            g, w = got[held.to(got.device)], want[held.to(want.device)]
+            same = bool(torch.equal(g, w)) and bool(torch.equal(
+                g.to(whole.device), whole[p[held].long()]))
+        else:
+            g = in_place(runs, k3)
+            w = in_place(runs, nc.nlist_select_reference)
+            torch.cuda.synchronize()
+            mine = ~g.isnan().all(2).all(1)
+            same = same_rows(g, w) and bool(torch.equal(g[mine],
+                                                        whole[mine]))
+        e = float((g - w).nan_to_num(0.0).abs().max())
         err = max(err, e)
-        print(f"  shard {s} (layers {z0}-{z0 + nzl - 1}) slab launch vs "
-              f"slab plain version: {int(held.sum())} home rows, "
-              f"max_abs_err={e:.3e}, bit-equal {same}")
-        check(same, f"shard {s}: K3's slab mode disagrees with its slab "
-              "plain version")
-    t_sh = cuda_ms(lambda: build.sharded(st.positions4, lengths, devices))
-    t_un = cuda_ms(lambda: build(st.positions4, lengths))
-    nl_s, ovf_s = build.sharded(st.positions4, lengths, devices)
-    nl_u, _ = build(st.positions4, lengths)
+        print(f"  {name}: against its group plain version and the "
+              f"unsharded K3, max_abs_err={e:.3e}, bit-equal {same}")
+        check(same, f"{name}: K3's group mode disagrees with its plain "
+              "version or with the unsharded K3")
+    g = in_place(every, k3)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(g, whole)),
+          "K3's group of every shard differs from the unsharded K3")
+    print(f"  a group of every shard (layers {list(every)}) in place: "
+          f"bit-equal to the unsharded K3's [{n}, {NN}, 4] list")
+    del g, whole
+
+    t_sh = cuda_ms(lambda: build.sharded(pos4, lengths, devices))
+    t_un = cuda_ms(lambda: build(pos4, lengths))
+    nl_s, ovf_s = build.sharded(pos4, lengths, devices)
+    nl_u, _ = build(pos4, lengths)
     torch.cuda.synchronize()
     check(not bool(ovf_s) and bool(torch.equal(nl_s, nl_u)),
           "the gathered list differs from the unsharded K3's")
     del nl_s, nl_u
     print(f"  gathered list [{N}, {NN}, 4] bit-equal to the unsharded K3's; "
-          f"whole sharded build {t_sh:.4f} ms (binning, {S} slab buffers "
-          f"and calls, gather) against the unsharded build's {t_un:.4f} ms")
+          f"whole sharded build {t_sh:.4f} ms (binning, {cards} group "
+          f"call(s)) against the unsharded build's {t_un:.4f} ms "
+          f"({t_sh / t_un:.3f}x)")
 
-    # shard 0's call: its time, its slab plain version's, its bound and
-    # torch.topk over its keys
-    z0, nzl = shards[0]
-    buf = cst.halo_slab(slots4, grid, cap, z0, nzl, devices[0])
-    cnt = cst.halo_slab(counts, grid, 1, z0, nzl, devices[0])
-    args = (buf, cnt, None, grid, cap, NN, R_CUT, host_L, None)
-    t_k = cuda_ms(lambda: k3(*args, slab=(z0, nzl)))
-    t_p = cuda_ms(lambda: nc.nlist_select_reference(*args, slab=(z0, nzl)),
-                  reps=5)
-    key = k3_slab_keys(buf, grid, cap, nzl, lengths)
-    held = pid[z0 * home:(z0 + nzl) * home] >= 0
-    valid = (key != nc.FAR_KEY).sum(1)[held]
+    # the binning card's group call: its time, its plain version's, its
+    # bound and torch.topk over its keys; shard 0 as a group of one
+    runs = next(g[1] for g in groups if not g[2])
+    out = torch.empty((n + 1, NN, 4), dtype=pos4.dtype, device=pos4.device)
+    t_k = cuda_ms(lambda: k3(slots4, counts, pid, *args, n, group=runs,
+                             out=out))
+    t_p = cuda_ms(lambda: nc.nlist_select_reference(
+        slots4, counts, pid, *args, n, group=runs, out=out), reps=5)
+    t_one = cuda_ms(lambda: k3(slots4, counts, pid, *args, n,
+                               group=(shards[0],), out=out))
+    key = k3_keys(slots4, grid, cap, lengths, group=runs)
+    layer = grid[0] * grid[1] * cap
+    p = torch.cat([pid[z0 * layer:(z0 + k) * layer] for z0, k in runs])
+    valid = (key != nc.FAR_KEY).sum(1)[p >= 0]
     t_lib = cuda_ms(lambda: torch.topk(key, NN, dim=1, largest=False,
                                        sorted=True), reps=5)
-    nbytes, ops, pairs = k3_slab_cost(buf, cnt, grid, cap, NN, nzl, valid)
-    del key
+    nbytes, ops, pairs = k3_group_cost(counts, grid, cap, NN, n, runs,
+                                       valid, slots4.element_size())
+    del key, out
     b_ms, b_by = bound(nbytes, ops)
-    print(f"  shard 0's slab call ({nzl} layers, {int(held.sum())} queries):"
-          f" {t_k:.4f} ms; slab plain {t_p:.4f} ms; topk over its keys "
+    print(f"  the binning card's group call ({len(runs)} run(s), "
+          f"{sum(k for _, k in runs)} layers, {int((p >= 0).sum())} "
+          f"queries): {t_k:.4f} ms; shard 0 as a group of one in place "
+          f"{t_one:.4f} ms; group plain {t_p:.4f} ms; topk over its keys "
           f"{t_lib:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
           f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations over "
           f"{pairs} candidate pairs)")
 
+    # shard 0 as a joined group of one on its joined buffer, the launch of
+    # every card but the binning one on a host of several cards: its time
+    # and its own bound
+    one = (shards[0],)
+    buf = cst.joined_slab(slots4, grid, cap, one, devices[0])
+    cnt = cst.joined_slab(counts, grid, 1, one, devices[0])
+    t_join = cuda_ms(lambda: k3(buf, cnt, None, *args, None, group=one))
+    key = k3_keys(buf, grid, cap, lengths.to(buf.device), group=one,
+                  joined=True)
+    z0, k = shards[0]
+    held = (pid[z0 * layer:(z0 + k) * layer] >= 0).to(key.device)
+    valid = (key != nc.FAR_KEY).sum(1)[held]
+    jbytes, jops, jpairs = k3_group_cost(counts, grid, cap, NN, n, one,
+                                         valid, slots4.element_size(),
+                                         joined=True)
+    del key, buf, cnt
+    jb_ms, jb_by = bound(jbytes, jops)
+    print(f"  shard 0 as a joined group of one ({k} layers, "
+          f"{int(held.sum())} queries, on {devices[0]}): {t_join:.4f} ms; "
+          f"bound {jb_ms:.4f} ms ({jb_by}: {jbytes / 1e6:.2f} MB, "
+          f"{jops / 1e9:.3f} G operations over {jpairs} candidate pairs)")
+
     # the timed run, host syncs forbidden
     del ref
     shd.check_syncs = True
-    l0, a0, b0 = k3.slab_launches, k3.launches, shd.nlist_builds
+    l0, a0, b0 = k3.group_launches, k3.launches, shd.nlist_builds
     steps = 200
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     slab_run("36", shd.run, steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    timed_l, timed_b = k3.slab_launches - l0, shd.nlist_builds - b0
-    check(timed_l == S * timed_b == S * steps,
-          f"timed run: slab launches {timed_l}, builds {timed_b}")
+    timed_l, timed_b = k3.group_launches - l0, shd.nlist_builds - b0
+    check(timed_l == cards * timed_b == cards * steps,
+          f"timed run: group launches {timed_l}, builds {timed_b}")
     check(k3.launches - a0 == timed_l,
           "the sharded run launched an unsharded K3")
     launches += timed_l
     th = healthy(shd, "sharded packed")
     sps = steps / dt
-    print(f"  T={th['temperature']:.4f}; slab launches of the runs "
-          f"{launches} (timed run {timed_l} = {S} x {timed_b} builds); no "
-          f"host sync; steps/s {sps:.2f} against phase 6's {packed_sps:.2f} "
-          f"({sps / packed_sps:.3f}x), {kind}, on {smi_line()} -- info, "
-          f"not a claim")
+    print(f"  T={th['temperature']:.4f}; group launches of the runs "
+          f"{launches} (timed run {timed_l} = {cards} x {timed_b} builds); "
+          f"no host sync; steps/s {sps:.2f} against phase 6's "
+          f"{packed_sps:.2f} ({sps / packed_sps:.3f}x), {kind}, on "
+          f"{smi_line()} -- info, not a claim")
     return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 library_ms=t_lib, max_abs_err=err, launches=launches,
-                sharded_ms=t_sh)
+                sharded_ms=t_sh, unsharded_ms=t_un, shard0_ms=t_one,
+                shard0_joined_ms=t_join, shard0_joined_bound_ms=jb_ms)
 
 
 def phase_sharded_direct(state):
@@ -6081,8 +6169,8 @@ def main():
     torch.cuda.empty_cache()
     t36 = time.perf_counter()
     print("[36 sharded packed] phase 6's configuration through "
-          "Simulation(mesh=): K3's slab mode on every shard")
-    k3_slab = phase_sharded_packed(shard_state, k3["sps"])
+          "Simulation(mesh=): K3's group mode, one launch a card")
+    k3_group = phase_sharded_packed(shard_state, k3["sps"])
     torch.cuda.empty_cache()
     print("[37 sharded direct] phase 9's model on 'direct': the planes by "
           "particle rows per shard")
@@ -6263,18 +6351,23 @@ def main():
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
              replaces="hoomd_tf_tpu/ops/pair_train_pallas.py:80",
              **k2_typed64),
-        dict(name="K3 cell-list neighbor selection, slab mode "
-                  "(nlist_select(slab=); ms, plain_ms, bound_ms: shard 0's "
-                  "call, its slab plain version and its own bound; "
-                  "sharded_ms: phase 36's whole sharded build, the binning, "
-                  "slab buffers, slab calls and gather; library_ms: "
-                  "torch.topk over shard 0's keys, selection only; "
-                  "launches: slab launches of phase 36's runs)",
+        dict(name="K3 cell-list neighbor selection, group mode, one "
+                  "launch a card over its z-slab shards (nlist_select("
+                  "group=); ms, plain_ms, bound_ms: the binning card's "
+                  "group call in place, its group plain version and its "
+                  "own bound; shard0_ms: shard 0 alone as a group of one "
+                  "in place; shard0_joined_ms, shard0_joined_bound_ms: "
+                  "shard 0 as a group of one on its joined buffer (the "
+                  "launch of a card that does not bin) and its own bound; "
+                  "sharded_ms, unsharded_ms: phase 36's whole sharded "
+                  "build and the unsharded build; library_ms: torch.topk "
+                  "over the group's keys, selection only; launches: group "
+                  "launches of phase 36's runs)",
              source="hoomd_tf_tpu_torch/csrc/nlist_select.cu",
              replaces="hoomd_tf_tpu/ops/nlist_pallas.py:163 (the "
                       "pallas_call of _kernel at :43, on the rows GSPMD "
                       "gives each device under the JAX package's mesh)",
-             **k3_slab),
+             **k3_group),
     ]
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6286,7 +6379,9 @@ def main():
         r.setdefault("library_ms", None)
         r["route"] = "cuda"
         kernels.append({k: r[k] for k in keys + (
-            "sharded_ms", "shard0_ms", "kernel_ms", "two_types_energy_ms",
+            "sharded_ms", "unsharded_ms", "shard0_ms", "shard0_joined_ms",
+            "shard0_joined_bound_ms", "kernel_ms",
+            "two_types_energy_ms",
             "untyped_energy_ms") + tuple(
                 f"{n}_types_{m}" for n in ("eight", "three", "five")
                 for m in ("ms", "plain_ms", "bound_ms")) if k in r})

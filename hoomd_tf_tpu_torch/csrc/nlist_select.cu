@@ -61,18 +61,29 @@
 //     when the counts show some (sum of counts < n): it marks the held
 //     particles in shared memory from pid, no atomics.
 //
-// The slab mode (a z-slab shard of a device mesh, params->slab set): the
-// slots and counts are a slab buffer of nz = nzl + 2 layers, the shard's
-// halo layer z0 - 1, its nzl home layers and its halo layer z0 + nzl (the
-// 27-cell window reaches z - 1 and z + 1 only). Blocks take the strips of
-// the home layers (buffer layers 1 .. nzl), the window's z indexes the
-// buffer with no wrap, and a query writes its row at its home slot, (c -
-// nx ny) cap + r for buffer cell c: the output is [nzl nx ny cap, nn, 4]
-// in slot order, and a row of an empty slot is not written. The window's
-// cells, their order and counts are the unsharded window's, so every row
-// equals the unsharded kernel's row of its particle bit for bit; pid is
-// not read, and the zero rows of particles without a slot are the
-// gather's (ops/cell_list.py::CellNlist.sharded).
+// The group mode (the z-slab shards of a device mesh that one card holds,
+// ops/cell_list.py::CellNlist.sharded): the launch covers only the
+// strips of the group's home layers, given as runs of consecutive layers
+// (params->run_z0, run_nzl; a card may hold shards that are not
+// adjacent). Blocks take the strips layer by layer, run after run, so a
+// block's layer is found by walking the few runs. Two tables:
+//   - in place (params->joined = 0), on the card that binned the
+//     particles: slots and counts are the whole cell table, the window
+//     wraps in z, each held query writes its row by pid into the
+//     particle-order list, and block 0 zeroes the rows of particles that
+//     hold no slot, whichever layers the group holds. The unsharded call
+//     is this mode with one run of every layer;
+//   - joined (params->joined = 1), on any other card: slots and counts
+//     are the group's joined buffer, each run's home layers with one halo
+//     layer on each side (the 27-cell window reaches z - 1 and z + 1
+//     only), the runs' layers given in that buffer, the window taken with
+//     no wrap; a query writes its row at its home slot, in the order of
+//     the runs' home layers, [sum nzl nx ny cap, nn, 4], and a row of an
+//     empty slot is not written (the binning card scatters the rows in by
+//     pid). pid is not read and there is no block 0.
+// Either way the window's cells, their order and counts are the unsharded
+// window's, so every row equals the unsharded kernel's row of its
+// particle bit for bit.
 //
 // The kernel is a template on the scalar type T (scalar.cuh), built for
 // float and for double. In double the slots, the list and the arithmetic
@@ -93,9 +104,14 @@
 // thresholds are doubles here, exact for a float32 plan; the launch
 // rounds them to the kernel's scalar type (KParams). Outside the anonymous
 // namespace: the C entry point takes it and must stay external.
+// The runs of home layers a launch covers: at most kMaxRuns, each a layer
+// of the table (z0) and a count (nzl).
+constexpr int kMaxRuns = 16;
+
 struct K3Params {
   int nx, ny, nz, cap, nn;
-  int strip, warps, n_strips, smem, f64, slab;
+  int strip, warps, n_strips, smem, f64, joined, n_runs;
+  int run_z0[kMaxRuns], run_nzl[kMaxRuns];
   unsigned slot_mask;
   double rc2, lo2;
   double L[3], t0[3], t1[3], t2[3];
@@ -108,10 +124,13 @@ using htf::Vec4;
 constexpr int kMaxWarps = 8;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory per block
 
-// The kernel's copy of the parameters, in its scalar type.
+// The kernel's copy of the parameters, in its scalar type (a
+// __grid_constant__ parameter: the run tables are indexed at run time and
+// read in place).
 template <class T>
 struct KParams {
-  int nx, ny, nz, cap, nn, strip, warps, n_strips, smem, slab;
+  int nx, ny, nz, cap, nn, strip, warps, n_strips, smem, joined, n_runs;
+  int run_z0[kMaxRuns], run_nzl[kMaxRuns];
   unsigned slot_mask;
   T rc2, lo2;
   T L[3], t0[3], t1[3], t2[3];
@@ -257,14 +276,15 @@ __device__ __forceinline__ void zero_unheld_rows(const KParams<T>& p,
 
 template <class T>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
-nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
+nlist_select_kernel(const __grid_constant__ KParams<T> p,
+                    const Vec4<T>* __restrict__ slots,
                     const int* __restrict__ counts,
                     const int* __restrict__ pid, int n,
                     Vec4<T>* __restrict__ out) {
   using K = typename KeyOf<T>::type;
   constexpr K kFar = ~K(0);
   unsigned char* smem = htf::dynamic_smem<unsigned char>();
-  if (!p.slab && blockIdx.x == 0) {
+  if (!p.joined && blockIdx.x == 0) {
     zero_unheld_rows(p, counts, pid, n, out, smem);
     return;
   }
@@ -277,11 +297,15 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
   int* cell = start + nwmax + 1;          // [nw]
   int* qstart = cell + nwmax;             // [S + 1]
 
-  // the slab mode has no block 0, and its strips lie in layers 1 .. nz - 2
-  const int b = blockIdx.x - (p.slab ? 0 : 1);
+  // the joined mode has no block 0; block b's home layer is the h-th of
+  // the runs' layers, h counted run after run
+  const int b = blockIdx.x - (p.joined ? 0 : 1);
   const int sx = b % p.n_strips;
   const int y0 = (b / p.n_strips) % p.ny;
-  const int z0 = b / (p.n_strips * p.ny) + p.slab;
+  const int h = b / (p.n_strips * p.ny);
+  int z0 = h, r = 0;
+  while (z0 >= p.run_nzl[r]) z0 -= p.run_nzl[r++];
+  z0 += p.run_z0[r];
   const int x0 = sx * p.strip;
   const int S = min(p.strip, p.nx - x0);  // the last strip may be ragged
   const int nw = (S + 2) * 9;
@@ -296,8 +320,8 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
     const int ry = row / 3, rz = row - 3 * ry;
     const int x = (x0 - 1 + xw + p.nx) % p.nx;
     const int y = (y0 - 1 + ry + p.ny) % p.ny;
-    // a slab buffer's window lies inside it: no wrap in z
-    const int z = p.slab ? z0 - 1 + rz : (z0 - 1 + rz + p.nz) % p.nz;
+    // a joined buffer's window lies inside its run's layers: no wrap in z
+    const int z = p.joined ? z0 - 1 + rz : (z0 - 1 + rz + p.nz) % p.nz;
     const int c = x + p.nx * (y + p.ny * z);
     cell[w] = c;
     start[w + 1] = counts[c];
@@ -363,11 +387,14 @@ nlist_select_kernel(const KParams<T> p, const Vec4<T>* __restrict__ slots,
     const int qr = t - qstart[i];
     const int wq = 9 * (i + 1) + 4;
     const Vec4<T> q = cand[start[wq] + qr];
-    // the row: the query's particle, or in the slab mode its home slot
+    // the row: the query's particle, or in the joined mode its home slot
+    // (its cell moved from layer z0 of the buffer to home layer h)
     const size_t row_id =
-        p.slab ? static_cast<size_t>(cell[wq] - p.nx * p.ny) * p.cap + qr
-               : static_cast<size_t>(
-                     pid[static_cast<size_t>(cell[wq]) * p.cap + qr]);
+        p.joined
+            ? static_cast<size_t>(cell[wq] + (h - z0) * p.nx * p.ny) * p.cap +
+                  qr
+            : static_cast<size_t>(
+                  pid[static_cast<size_t>(cell[wq]) * p.cap + qr]);
     const int lo = start[9 * i];
     const int total = start[9 * i + 27] - lo;
 
@@ -438,10 +465,27 @@ int g_smem_attr[2] = {48 * 1024 - static_cast<int>(sizeof(int)) * kMaxWarps,
 template <class T>
 int launch(const K3Params& p, const void* slots, const int* counts,
            const int* pid, int n, void* out, cudaStream_t stream) {
-  KParams<T> k{p.nx,    p.ny,       p.nz,         p.cap,
-               p.nn,    p.strip,    p.warps,      p.n_strips,
-               p.smem,  p.slab,     p.slot_mask,  static_cast<T>(p.rc2),
-               static_cast<T>(p.lo2)};
+  KParams<T> k{};
+  k.nx = p.nx;
+  k.ny = p.ny;
+  k.nz = p.nz;
+  k.cap = p.cap;
+  k.nn = p.nn;
+  k.strip = p.strip;
+  k.warps = p.warps;
+  k.n_strips = p.n_strips;
+  k.smem = p.smem;
+  k.joined = p.joined;
+  k.n_runs = p.n_runs;
+  int layers = 0;
+  for (int r = 0; r < p.n_runs; ++r) {
+    k.run_z0[r] = p.run_z0[r];
+    k.run_nzl[r] = p.run_nzl[r];
+    layers += p.run_nzl[r];
+  }
+  k.slot_mask = p.slot_mask;
+  k.rc2 = static_cast<T>(p.rc2);
+  k.lo2 = static_cast<T>(p.lo2);
   for (int a = 0; a < 3; ++a) {
     k.L[a] = static_cast<T>(p.L[a]);
     k.t0[a] = static_cast<T>(p.t0[a]);
@@ -456,8 +500,7 @@ int launch(const K3Params& p, const void* slots, const int* counts,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = p.smem;
   }
-  const int blocks = p.slab ? p.n_strips * p.ny * (p.nz - 2)
-                           : 1 + p.n_strips * p.ny * p.nz;
+  const int blocks = (p.joined ? 0 : 1) + p.n_strips * p.ny * layers;
   nlist_select_kernel<T><<<blocks, p.warps * 32, p.smem, stream>>>(
       k, static_cast<const Vec4<T>*>(slots), counts, pid, n,
       static_cast<Vec4<T>*>(out));
@@ -468,21 +511,32 @@ int launch(const K3Params& p, const void* slots, const int* counts,
 
 extern "C" {
 
-// Launch on `stream`; `slots` the [n_cells * cap][4] slot rows and `out`
-// the [n, nn, 4] list (any contents: every row is written), both float32
-// or, when params->f64 is set, float64. In the slab mode (params->slab)
-// `slots` and `counts` are the slab buffer's nz = nzl + 2 layers, `pid`
-// is not read and `out` is [n, nn, 4] with n = nzl nx ny cap, the home
-// slots' rows (those of empty slots are not written). Returns
-// cudaGetLastError() of the launch (0 = ok).
+// Launch on `stream`; `slots` the [n_cells * cap][4] slot rows of the
+// table's nz layers and `out` the [n, nn, 4] list, both float32 or, when
+// params->f64 is set, float64. In place (params->joined = 0) the rows of
+// the particles held in the runs' layers and of the particles that hold no
+// slot are written (with one run of every layer: every row, so `out` may
+// hold anything). Joined (params->joined = 1) `pid` is not read and `out`
+// is [n, nn, 4] with n = (sum of run_nzl) nx ny cap, the home slots' rows
+// (those of empty slots are not written). Returns cudaGetLastError() of
+// the launch (0 = ok).
 int htf_nlist_select(const K3Params* params, const void* slots,
                      const int* counts, const int* pid, int n, void* out,
                      void* stream) {
   const K3Params& p = *params;
   const int slot_bytes = p.f64 ? 32 : 16, key_bytes = p.f64 ? 8 : 4;
-  if (p.warps < 1 || p.warps > kMaxWarps || p.cap < 1 || p.nn < 1 ||
-      p.strip < 1 || p.strip > p.nx || (p.slab != 0 && p.slab != 1) ||
-      (p.slab && (p.nz < 3 || n != (p.nz - 2) * p.nx * p.ny * p.cap)) ||
+  // each run inside the table, its window too when joined (no wrap)
+  bool runs_ok = p.n_runs >= 1 && p.n_runs <= kMaxRuns &&
+                 (p.joined == 0 || p.joined == 1);
+  int layers = 0;
+  for (int r = 0; runs_ok && r < p.n_runs; ++r) {
+    runs_ok = p.run_nzl[r] >= 1 && p.run_z0[r] >= p.joined &&
+              p.run_z0[r] + p.run_nzl[r] + p.joined <= p.nz;
+    layers += p.run_nzl[r];
+  }
+  if (!runs_ok || p.warps < 1 || p.warps > kMaxWarps || p.cap < 1 ||
+      p.nn < 1 || p.strip < 1 || p.strip > p.nx ||
+      (p.joined && n != layers * p.nx * p.ny * p.cap) ||
       p.n_strips != (p.nx + p.strip - 1) / p.strip || n < 0 ||
       p.smem != smem_bytes(p.cap, p.nn, p.strip, p.warps, slot_bytes,
                            key_bytes) ||

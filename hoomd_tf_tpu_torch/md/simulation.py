@@ -82,7 +82,8 @@ backward one a device through :func:`..ops.pair_train.pair_train_forces`;
 the planes built per shard).
 The packed routes keep the particle-order state whole: on ``'n2'`` the
 dense build is split into contiguous particle rows, on the cell list
-into z-slabs of cells (kernel K3's slab mode on the card), on
+into z-slabs of cells (kernel K3's group mode on the card, one launch a
+device), on
 ``'direct'`` the planes into particle rows, the model then called once
 on the whole list. NPT's dynamic-box layout plans with the mesh's
 divisor.
@@ -175,9 +176,10 @@ class Simulation:
         the planes are built per shard and the model runs once on all
         rows. On ``'n2'`` each shard builds the dense list of its
         contiguous particle rows on its device, on ``'cell'`` /
-        ``'pallas'`` each shard selects the rows of its z-slab of cells
-        (K3's slab mode on the card, or the sort method; the packed grid
-        has no divisor, so the slabs are ``nz s // S`` on), on
+        ``'pallas'`` each device selects the rows of its shards' z-slabs
+        of cells in one call (K3's group mode on the card, or the sort
+        method; the packed grid has no divisor, so the slabs are ``nz s //
+        S`` on), on
         ``'direct'`` each shard builds its particle rows' planes; the
         model runs once a step on the gathered list, so a stateful model
         (metrics, EDS) means what it means without a mesh. A tilted box
@@ -1536,7 +1538,8 @@ class Simulation:
         dense list by rows, each shard's rows on its device against every
         particle (the JAX package's row partition of the dense build); a
         cell list by z-slabs of cells, each shard selecting its home
-        cells' rows on its device (K3's slab mode, or the sort method;
+        cells' rows on its device, one call a device (K3's group mode, or
+        the sort method;
         :meth:`..ops.cell_list.CellNlist.sharded`); the direct planes by
         particle rows (:meth:`..ops.direct.DirectPlanes.sharded`). The
         model then runs once on the whole list, as without a mesh."""

@@ -30,8 +30,9 @@ import torch
 
 from .._device import device_for, to_device
 from .box import box_size as _box_size, host_tilt
-from .cell_stencil import (cell_chunks, chunk_pairs, halo_slab,
-                           neighbor_cells, to_particle_order, z_slabs)
+from .cell_stencil import (cell_chunks, chunk_pairs, group_cells,
+                           group_layers, joined_slab, neighbor_cells,
+                           to_particle_order, z_slabs)
 from .nlist_cuda import cut_values, host_length, nlist_select
 
 
@@ -164,14 +165,13 @@ def sort_nlist(slots4, pid, n, grid, cap, NN, r_cut, lengths, rc2_tab=None,
 
 
 def sort_rows(slots4, grid, cap, NN, r_cut, lengths, rc2_tab=None,
-              neigh=None, cells=None):
-    """:func:`sort_nlist`'s rows in slot order, ``[(c1 - c0) cap, NN,
-    4]``, of the query slots of cells ``cells = (c0, c1)`` of ``grid``
-    (all by default; a z-slab shard's home cells of its slab buffer's
-    grid, whose 27-cell windows lie inside the buffer). An empty slot's
-    row is zero."""
+              neigh=None, qcells=None):
+    """:func:`sort_nlist`'s rows in slot order, ``[cells cap, NN, 4]``, of
+    the query slots of every cell of ``grid``, or of the cells
+    ``qcells`` (a group's home cells; ``neigh`` then their neighbour ids,
+    :func:`.cell_stencil.group_cells`). An empty slot's row is zero."""
     from .cellwise import pair_rc2
-    c0, c1 = cells if cells is not None else (0, int(np.prod(grid)))
+    m = int(np.prod(grid)) if qcells is None else qcells.shape[0]
     if neigh is None:
         neigh = neighbor_cells(grid, slots4.device)
     C = 27 * cap
@@ -180,11 +180,11 @@ def sort_rows(slots4, grid, cap, NN, r_cut, lengths, rc2_tab=None,
     # the key: d2's bits as an integer of d2's width (d2 >= 0, so integer
     # order is value order), the integer's max where invalid
     itype = torch.int64 if slots4.dtype == torch.float64 else torch.int32
-    out = torch.zeros(((c1 - c0) * cap, NN, 4), dtype=slots4.dtype,
+    out = torch.zeros((m * cap, NN, 4), dtype=slots4.dtype,
                       device=slots4.device)
-    for a0, a1 in cell_chunks(c1 - c0, cap):
+    for a0, a1 in cell_chunks(m, cap):
         ddx, ddy, ddz, d2, qt, gt = chunk_pairs(slots4, neigh, cap, lengths,
-                                                c0 + a0, c0 + a1)
+                                                a0, a1, qcells)
         valid = (d2 <= rc2) & (d2 >= lo2)
         if rc2_tab is not None:
             valid = valid & (d2 <= pair_rc2(qt, gt, rc2_tab))
@@ -231,7 +231,7 @@ class CellNlist:
                       else None)
         self.rc2_tab = (None if rcut_matrix is None else
                         rc2_table(rcut_matrix, dtype, device))
-        # each mesh shard's device constants (:meth:`prepare`)
+        # each mesh's groups of shards by device (:meth:`_groups`)
         self._shard_consts = {}
 
     @property
@@ -256,66 +256,96 @@ class CellNlist:
                                self.neigh)
         return nlist, overflow
 
-    def _consts(self, device, nzl):
-        """The sort method's neighbour ids of a slab buffer of ``nzl + 2``
-        layers and the typed-cutoff table, on ``device`` (made once per
-        shard)."""
-        key = (str(device), nzl)
-        c = self._shard_consts.get(key)
-        if c is None:
-            nx, ny, _ = self.grid
-            neigh = (None if self.method == "pallas" else
-                     neighbor_cells((nx, ny, nzl + 2), device))
-            rc2 = (None if self.rc2_tab is None else
-                   to_device(self.rc2_tab, device))
-            c = self._shard_consts[key] = (neigh, rc2)
-        return c
+    def _groups(self, devices, home):
+        """The mesh's z-slab shards on ``devices`` (as a :class:`.Mesh`
+        holds them: a card with its index) (:func:`.cell_stencil.
+        z_slabs`: ``nz s // S`` on, uneven where ``S`` does not divide
+        ``nz``) grouped by device (:func:`.cellwise.slab_groups`), one
+        entry a device that holds a layer: ``(device, runs, joined,
+        qcells, neigh, rc2)``, its runs of layers
+        (:func:`.cell_stencil.group_layers`), whether it reads a joined
+        buffer (any device but ``home``, the binning one) or the table in
+        place, and the sort method's cells, neighbour ids and typed-cutoff
+        table on the device (:func:`.cell_stencil.group_cells`). Made once
+        per mesh and binning device."""
+        from .cellwise import slab_groups
+        key = (tuple(devices), home)
+        groups = self._shard_consts.get(key)
+        if groups is None:
+            slabs = [(d, z0, nzl) for d, (z0, nzl) in
+                     zip(devices, z_slabs(self.grid[2], len(devices)))]
+            groups = []
+            for g in slab_groups(slabs):
+                runs = group_layers(g.slabs)
+                if not runs:
+                    continue
+                dev, joined = g.device, g.device != home
+                qcells = neigh = rc2 = None
+                if self.method == "sort":
+                    qcells, neigh = group_cells(self.grid, runs, joined, dev)
+                    rc2 = (None if self.rc2_tab is None else
+                           to_device(self.rc2_tab, dev))
+                groups.append((dev, runs, joined, qcells, neigh, rc2))
+            groups = self._shard_consts[key] = tuple(groups)
+        return groups
 
     def prepare(self, devices):
-        """Make each shard's device constants (:meth:`sharded`'s) now, so
-        a step loop's first sharded call copies nothing from the host."""
-        for dev, (_, nzl) in zip(devices, z_slabs(self.grid[2],
-                                                  len(devices))):
-            if nzl:
-                self._consts(torch.device(dev), nzl)
+        """Make the groups' device constants (:meth:`sharded`'s) now, so a
+        step loop's first sharded call copies nothing from the host; the
+        particles are binned on the first shard's device (a mesh
+        simulation's own)."""
+        self._groups(devices, devices[0])
 
     def sharded(self, pos4, box_lengths, devices):
         """The build under a device mesh of the shards on ``devices``:
-        the particles binned once on ``pos4``'s device, then each shard's
-        z-slab of cells (:func:`.cell_stencil.z_slabs`: ``nz s // S`` on,
-        uneven where ``S`` does not divide ``nz``) selected on its device
-        from a slab buffer of its home layers and one halo layer on each
-        side (:func:`.cell_stencil.halo_slab`) -- K3's slab mode, or the
-        sort method over the buffer's home cells -- and the home slots'
-        rows gathered on ``pos4``'s device in particle order (a particle
-        without a slot gets a zero row). Every row equals the unsharded
-        call's bit for bit. The overflow flag is the binning's over every
-        cell: the OR of the shards' home cells' flags.
+        the particles binned once on ``pos4``'s device, then each device's
+        z-slab shards (:meth:`_groups`) selected in one call over their
+        layers -- K3's group mode, or the sort method over the group's
+        cells. On the binning device the call reads the cell table in
+        place and writes its particles' rows (K3: and zero rows for
+        particles without a slot) straight into the list; any other
+        device selects from one joined buffer of its layers with a halo
+        layer each side, and its home slots' rows are scattered in by
+        ``pid``. Every row equals the unsharded call's bit for bit. The
+        overflow flag is the binning's over every cell.
 
         :returns: ``(nlist [N, NN, 4], overflow)``, as a call."""
         lengths = box_lengths.to(pos4.dtype)
         slots4, counts, pid, overflow = build_planes(pos4, self.grid,
                                                      self.capacity, lengths)
-        nx, ny, nz = self.grid
-        rows = []
-        for dev, (z0, nzl) in zip(devices, z_slabs(nz, len(devices))):
-            if not nzl:
+        n, home = pos4.shape[0], pos4.device
+        nx, ny, _ = self.grid
+        layer = nx * ny * self.capacity
+        groups = self._groups(devices, home)
+        k3 = self.method == "pallas"
+        # one dump row past the particles for the scatters' empty slots; K3
+        # in place writes every row it owns, else the list starts at zero
+        fill = torch.empty if k3 and any(not g[2] for g in groups) \
+            else torch.zeros
+        out = fill((n + 1, self.NN, 4), dtype=pos4.dtype, device=home)
+        for dev, runs, joined, qcells, neigh, rc2 in groups:
+            if k3 and not joined:
+                nlist_select(slots4, counts, pid, self.grid, self.capacity,
+                             self.NN, self.r_cut, self.lengths, n,
+                             group=runs, out=out)
                 continue
-            dev = torch.device(dev)
-            buf = halo_slab(slots4, self.grid, self.capacity, z0, nzl, dev)
-            neigh, rc2 = self._consts(dev, nzl)
-            if self.method == "pallas":
-                r = nlist_select(
-                    buf, halo_slab(counts, self.grid, 1, z0, nzl, dev),
-                    None, self.grid, self.capacity, self.NN, self.r_cut,
-                    self.lengths, None, slab=(z0, nzl))
+            if joined:
+                buf = joined_slab(slots4, self.grid, self.capacity, runs,
+                                  dev)
+            if k3:
+                rows = nlist_select(
+                    buf, joined_slab(counts, self.grid, 1, runs, dev), None,
+                    self.grid, self.capacity, self.NN, self.r_cut,
+                    self.lengths, None, group=runs)
             else:
-                r = sort_rows(buf, (nx, ny, nzl + 2), self.capacity, self.NN,
-                              self.r_cut, to_device(lengths, dev), rc2,
-                              neigh, cells=(nx * ny, (nzl + 1) * nx * ny))
-            rows.append(to_device(r, pos4.device))
-        return to_particle_order(torch.cat(rows), pid, pos4.shape[0]), \
-            overflow
+                rows = sort_rows(buf if joined else slots4, self.grid,
+                                 self.capacity, self.NN, self.r_cut,
+                                 to_device(lengths, dev), rc2, neigh,
+                                 qcells=qcells)
+            p = torch.cat([pid[z0 * layer:(z0 + k) * layer]
+                           for z0, k in runs])
+            out[torch.where(p >= 0, p.long(), n)] = to_device(rows, home)
+        return out[:n], overflow
 
 
 def cell_list_nlist(pos4, r_cut, NN, box, config=None, return_overflow=False,

@@ -33,7 +33,7 @@ import torch
 
 from .._device import resolve_device, to_device
 from .cell_list import CellList
-from .cell_stencil import halo_slab
+from .cell_stencil import joined_slab
 
 __all__ = ["Cellwise", "CellwisePlan", "plan_cellwise",
            "analytic_pair_forces", "cellwise_planes", "repack_order", "repack_src",
@@ -608,7 +608,7 @@ def sharded_planes(positions, types, valid, plan, mesh, shard_axis=None,
     primary = positions.device
     parts = []
     for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
-        buf = [halo_slab(t, plan.grid, plan.capacity, z0, nzl, dev)
+        buf = [joined_slab(t, plan.grid, plan.capacity, ((z0, nzl),), dev)
                for t in (positions, types, valid)]
         bp = dataclasses.replace(plan, grid=(nx, ny, nzl + 2))
         rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)

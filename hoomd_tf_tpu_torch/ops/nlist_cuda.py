@@ -31,17 +31,19 @@ where they cannot decide.
 plain version, :func:`nlist_select_reference`, only for CPU tensors.
 The launch constants of a plan are made once (:func:`launch_params`).
 
-The slab mode (``slab=(z0, nzl)``) is a z-slab shard's call under a
-device mesh: the inputs are a slab buffer (:func:`.cell_stencil.
-halo_slab`) of the
-shard's ``nzl`` home layers of cells with one halo layer on each side
-(the 27-cell window reaches ``z - 1`` and ``z + 1``), and the output is
-the home slots' rows in slot order, ``[nzl nx ny cap, NN, 4]``; the rows
-of occupied slots equal the unsharded call's rows of their particles bit
-for bit, since the window's cells, their order and the arithmetic are
-the same. The gather (:meth:`.cell_list.CellNlist.sharded`) puts the
-shards' rows in particle order and zero-fills the rows of particles
-without a slot.
+The group mode (``group=``, runs of layers) is one launch for the z-slab
+shards of a device mesh that one device holds
+(:meth:`.cell_list.CellNlist.sharded`), over the strips of their home
+layers only. On the device that binned the particles it reads the cell
+table in place and writes each held query's row by ``pid`` into the
+particle-order list (and zeroes the rows of particles without a slot);
+on any other device (``pid=None``) it reads the group's joined buffer
+(:func:`.cell_stencil.joined_slab`: each run's home layers with one halo
+layer on each side, since the 27-cell window reaches ``z - 1`` and ``z +
+1``) and writes the home slots' rows in slot order, which the binning
+device scatters in by ``pid``. Either way a row equals the unsharded
+call's row of its particle bit for bit: the window's cells, their order
+and the arithmetic are the same. A shard alone is a group of one.
 """
 
 import ctypes
@@ -50,8 +52,8 @@ import functools
 import numpy as np
 import torch
 
-from .cell_stencil import (cell_chunks, check_slab, chunk_pairs,
-                           neighbor_cells, to_particle_order)
+from .cell_stencil import (cell_chunks, check_group, chunk_pairs,
+                           group_cells)
 from .nlist import f32
 
 __all__ = ["nlist_select", "nlist_select_reference", "selection_keys",
@@ -119,36 +121,51 @@ def _select(ddx, ddy, ddz, gt, r_cut, NN, bits):
 
 
 def nlist_select_reference(slots4, counts, pid, grid, capacity, NN, r_cut,
-                           lengths, n, slab=None):
+                           lengths, n, group=None, out=None):
     """Plain PyTorch version of K3 with the kernel's interface (see
-    :func:`nlist_select`), chunked over cells to bound its memory. With
-    ``slab = (z0, nzl)`` the slab mode's: the rows of the home slots of a
-    slab buffer in slot order (zero rows for empty slots), from the
-    buffer's own grid of ``nzl + 2`` layers, whose home cells' 27-cell
-    windows lie inside it."""
+    :func:`nlist_select`), chunked over cells to bound its memory; with
+    ``group`` its group mode: in place (``pid`` given) the rows of the
+    particles held in the group's layers and of the particles without a
+    slot written into ``out`` (default a zero list), the other rows left
+    as they are; joined (``pid=None``) the rows of the home slots of the
+    joined buffer in slot order (zero rows for empty slots)."""
     cap = int(capacity)
-    nx, ny, nz = (int(g) for g in grid)
-    cells = (0, nx * ny * nz)
-    if slab is not None:
-        check_slab(grid, slab)
-        nz = slab[1] + 2
-        cells = (nx * ny, (nz - 1) * nx * ny)
+    joined = pid is None
+    if joined and group is None:
+        raise ValueError("a joined buffer needs its group's runs")
+    runs = check_group(grid, group)
     dev = slots4.device
-    neigh = neighbor_cells((nx, ny, nz), dev)
+    qcells, neigh = group_cells(grid, runs, joined, dev)
     L = torch.tensor([host_length(v, slots4.dtype) for v in lengths],
                      dtype=slots4.dtype, device=dev)
     bits = slot_bits(27 * cap)
     rows = []
-    for c0, c1 in cell_chunks(cells[1] - cells[0], cap):
-        ddx, ddy, ddz, _, _, gt = chunk_pairs(slots4, neigh, cap, L,
-                                              cells[0] + c0, cells[0] + c1)
+    for c0, c1 in cell_chunks(qcells.shape[0], cap):
+        ddx, ddy, ddz, _, _, gt = chunk_pairs(slots4, neigh, cap, L, c0, c1,
+                                              qcells)
         C = ddx.shape[-1]
         rows.append(_select(ddx.reshape(-1, C), ddy.reshape(-1, C),
                             ddz.reshape(-1, C),
                             gt.expand_as(ddx).reshape(-1, C), r_cut, NN,
                             bits))
     rows = torch.cat(rows)
-    return rows if slab is not None else to_particle_order(rows, pid, n)
+    if joined:
+        return rows
+    # the group's held rows by pid, and the rows of particles that hold
+    # no slot (zero); ``out`` keeps the rows held outside the group
+    p = pid.long()[(qcells[:, None] * cap +
+                    torch.arange(cap, device=dev)).reshape(-1)]
+    dest = torch.where(p >= 0, p, n)
+    mine = torch.zeros((n + 1,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                       device=dev)
+    mine[dest] = rows
+    if out is None:
+        return mine[:n]
+    keep = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    keep[torch.where(pid >= 0, pid.long(), n)] = True
+    keep[dest] = False
+    out[:n] = torch.where(keep[:n, None, None], out[:n], mine[:n])
+    return out
 
 
 def image_thresholds(length, dtype=torch.float32):
@@ -196,6 +213,9 @@ SMEM_PER_SM = 233472
 SMEM_PER_BLOCK = 232448
 #: the runtime's own shared memory per block, and the kernel's static array
 _SMEM_RESERVED = 1024 + 32
+#: the most runs of layers a group launch takes (``kMaxRuns`` of
+#: csrc/nlist_select.cu)
+MAX_RUNS = 16
 #: the most warps a block runs, and the cells of a strip the launch aims
 #: at (the fastest of strips of 1 to 18 cells at the packed path's plan,
 #: measured on an H100: profile_step.py --mode calls)
@@ -252,11 +272,14 @@ class K3Params(ctypes.Structure):
     """The kernel's launch constants (``K3Params`` of
     csrc/nlist_select.cu, field for field): the lengths, cuts and
     thresholds as doubles (exact for a float32 plan), ``f64`` the scalar
-    type of the slots and the list, ``slab`` the slab mode (``nz`` then the
-    slab buffer's layers)."""
+    type of the slots and the list, ``joined`` the table a joined buffer
+    (``nz`` then its layers), and the runs of home layers the launch
+    covers, as layers of that table."""
     _fields_ = ([(f, ctypes.c_int) for f in
                  ("nx", "ny", "nz", "cap", "nn", "strip", "warps",
-                  "n_strips", "smem", "f64", "slab")] +
+                  "n_strips", "smem", "f64", "joined", "n_runs")] +
+                [(f, ctypes.c_int * MAX_RUNS) for f in
+                 ("run_z0", "run_nzl")] +
                 [("slot_mask", ctypes.c_uint), ("rc2", ctypes.c_double),
                  ("lo2", ctypes.c_double)] +
                 [(f, ctypes.c_double * 3) for f in ("L", "t0", "t1", "t2")])
@@ -264,29 +287,40 @@ class K3Params(ctypes.Structure):
 
 @functools.lru_cache(maxsize=32)
 def launch_params(grid, capacity, NN, r_cut, lengths, strip=None,
-                  warps=None, dtype=torch.float32, nzl=None):
+                  warps=None, dtype=torch.float32, group=None, joined=False):
     """The launch constants of one plan, made once (cached): the launch
     shape, the slot mask, the cuts, lengths and minimum-image thresholds
     in ``dtype`` (float32, or float64 for the double kernel). ``strip`` and
-    ``warps`` force a shape (:func:`launch_shape`). ``nzl``: the slab mode
-    of a shard of ``nzl`` home layers (the kernel's grid is then its slab
-    buffer's ``nzl + 2`` layers)."""
+    ``warps`` force a shape (:func:`launch_shape`). ``group``: the runs of
+    layers of a group launch (default every layer, the unsharded call);
+    ``joined``: on the group's joined buffer (its layers then the
+    kernel's table) instead of the cell table in place."""
     nx, ny, nz = (int(g) for g in grid)
     if min(nx, ny, nz) < 3:
         raise ValueError(f"grid {grid}: the 27-cell stencil needs >= 3 "
                          "cells per axis")
-    slab = nzl is not None
-    if slab:
-        if not 1 <= int(nzl) <= nz:
-            raise ValueError(f"a slab of {nzl} layers in a grid of {nz}")
-        nz = int(nzl) + 2
+    runs = check_group(grid, group)
+    if len(runs) > MAX_RUNS:
+        raise ValueError(f"{len(runs)} runs of layers: a K3 launch takes "
+                         f"at most {MAX_RUNS}")
+    if joined:
+        # run r's home layers start after the runs before it, their halo
+        # layers, and its own lower halo layer
+        starts = np.cumsum([0] + [k + 2 for _, k in runs])
+        table = tuple((int(b) + 1, k) for b, (_, k) in zip(starts, runs))
+        nz = int(starts[-1])
+    else:
+        table = runs
     cap, nn = int(capacity), int(NN)
     f64 = dtype == torch.float64
     s, w, smem = launch_shape(nx, cap, nn, strip, warps, f64)
     L = [host_length(v, dtype) for v in lengths]
     th = [image_thresholds(v, dtype) for v in L]
+    pad = [0] * (MAX_RUNS - len(table))
     return K3Params(
-        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem, int(f64), int(slab),
+        nx, ny, nz, cap, nn, s, w, -(-nx // s), smem, int(f64), int(joined),
+        len(table), (ctypes.c_int * MAX_RUNS)(*[z for z, _ in table], *pad),
+        (ctypes.c_int * MAX_RUNS)(*[k for _, k in table], *pad),
         (1 << slot_bits(27 * cap)) - 1, *cut_values(r_cut, dtype),
         (ctypes.c_double * 3)(*L),
         *((ctypes.c_double * 3)(*(float(t[a]) for t in th))
@@ -294,10 +328,10 @@ def launch_params(grid, capacity, NN, r_cut, lengths, strip=None,
 
 
 def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
-                 n, slab=None):
+                 n, group=None, out=None):
     """Kernel K3. Launches the CUDA kernel on CUDA tensors (and counts the
-    launch in ``nlist_select.launches``, a slab-mode launch also in
-    ``nlist_select.slab_launches``); CPU tensors take
+    launch in ``nlist_select.launches``, a group launch also in
+    ``nlist_select.group_launches``); CPU tensors take
     :func:`nlist_select_reference`. Anything else raises.
 
     :param slots4: ``[n_cells * cap, 4]`` cell slots ``(x, y, z, type)``,
@@ -310,36 +344,45 @@ def nlist_select(slots4, counts, pid, grid, capacity, NN, r_cut, lengths,
     :param grid: ``(nx, ny, nz)``; cell ``x + nx (y + ny z)``.
     :param lengths: host box lengths (taken in the slots' precision).
     :param n: number of particles.
-    :param slab: ``(z0, nzl)``: the slab mode of a z-slab shard.
-        ``slots4`` and ``counts`` are then its slab buffer
-        (:func:`.cell_stencil.halo_slab`, ``nzl + 2`` layers of
-        ``grid``'s cells),
-        ``pid`` and ``n`` are not read.
+    :param group: ``((z0, nzl), ...)``: the group mode over these runs of
+        ``grid``'s layers (:func:`.cell_stencil.group_layers` of a
+        device's z-slab shards). With ``pid`` the cell table is read in
+        place: the rows of the particles held in those layers and of the
+        particles without a slot are written, the others are left as
+        ``out`` holds them. With ``pid=None`` ``slots4`` and ``counts``
+        are the group's joined buffer (:func:`.cell_stencil.joined_slab`)
+        and ``n`` is not read.
+    :param out: in place, the ``[>= n, NN, 4]`` contiguous list to write
+        into (default a new one).
     :returns: ``[n, NN, 4]`` neighbor list of the slots' dtype, particle
-        order; in the slab mode ``[nzl nx ny cap, NN, 4]``, the rows of the
-        home slots (empty slots' rows are zero in the plain version and
-        not written by the kernel).
+        order (``out``'s first ``n`` rows when given); joined, ``[sum nzl
+        nx ny cap, NN, 4]``, the rows of the home slots (empty slots'
+        rows are zero in the plain version and not written by the
+        kernel).
     """
+    joined = pid is None
+    if joined and (group is None or out is not None):
+        raise ValueError("a joined buffer needs its group's runs, and "
+                         "takes no out")
     if not slots4.is_cuda:
         return nlist_select_reference(slots4, counts, pid, grid, capacity,
-                                      NN, r_cut, lengths, n, slab)
-    if slab is None:
-        return launch(launch_params(tuple(grid), capacity, NN, r_cut,
-                                    tuple(lengths), dtype=slots4.dtype),
-                      slots4, counts, pid, n)
-    check_slab(grid, slab)
-    nx, ny, _ = (int(g) for g in grid)
-    return launch(launch_params(tuple(grid), capacity, NN, r_cut,
-                                tuple(lengths), dtype=slots4.dtype,
-                                nzl=int(slab[1])),
-                  slots4, counts, None, int(slab[1]) * nx * ny *
-                  int(capacity))
+                                      NN, r_cut, lengths, n, group, out)
+    runs = None if group is None else tuple(
+        (int(z0), int(k)) for z0, k in group)
+    p = launch_params(tuple(grid), capacity, NN, r_cut, tuple(lengths),
+                      dtype=slots4.dtype, group=runs, joined=joined)
+    if joined:
+        nx, ny, _ = (int(g) for g in grid)
+        n = sum(k for _, k in runs) * nx * ny * int(capacity)
+    return launch(p, slots4, counts, pid, n, out, group=group is not None)
 
 
-def launch(params, slots4, counts, pid, n):
+def launch(params, slots4, counts, pid, n, out=None, group=False):
     """One launch of K3 with the constants ``params``
-    (:func:`launch_params`) on CUDA tensors: the ``[n, NN, 4]`` list (in
-    the slab mode ``n`` is the home slots' count and ``pid`` is None)."""
+    (:func:`launch_params`) on CUDA tensors: the ``[n, NN, 4]`` list (on a
+    joined buffer ``n`` is the home slots' count and ``pid`` is None), in
+    ``out``'s first ``n`` rows when given; ``group``: a group mode's launch
+    (counted in ``nlist_select.group_launches`` too)."""
     p = params
     n_cells = p.nx * p.ny * p.nz
     dev = slots4.device
@@ -348,28 +391,34 @@ def launch(params, slots4, counts, pid, n):
     dtype = torch.float64 if p.f64 else torch.float32
     _check(slots4, (n_cells * p.cap, 4), dtype, dev, "slots4")
     _check(counts, (n_cells,), torch.int32, dev, "counts")
-    if not p.slab:
+    if not p.joined:
         _check(pid, (n_cells * p.cap,), torch.int32, dev, "pid")
+    if out is None:
+        out = torch.empty((n, p.nn, 4), dtype=dtype, device=dev)
+    elif p.joined or out.shape[0] < n:
+        raise ValueError("out: a joined launch takes none, an in-place "
+                         f"one at least {n} rows")
+    else:
+        _check(out, (out.shape[0], p.nn, 4), dtype, dev, "out")
     lib = _library()
-    out = torch.empty((n, p.nn, 4), dtype=dtype, device=dev)
     err = lib.htf_nlist_select(
         ctypes.addressof(p), slots4.data_ptr(), counts.data_ptr(),
-        None if p.slab else pid.data_ptr(), int(n), out.data_ptr(),
+        None if p.joined else pid.data_ptr(), int(n), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("neighbor selection kernel launch failed: " +
                            lib.htf_nlist_error_string(err).decode())
     nlist_select.launches += 1
     nlist_select.f64_launches += int(p.f64)
-    nlist_select.slab_launches += int(p.slab)
-    return out
+    nlist_select.group_launches += int(group)
+    return out[:n]
 
 
 #: launches of the kernel; those of its double instantiation alone; those
-#: in the slab mode (a z-slab shard's)
+#: of the group mode (one a device holding z-slab shards, per build)
 nlist_select.launches = 0
 nlist_select.f64_launches = 0
-nlist_select.slab_launches = 0
+nlist_select.group_launches = 0
 
 
 def _check(t, shape, dtype, device, name):

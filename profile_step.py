@@ -20,7 +20,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--box ortho|tilted|npt]
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
-                            [--only k2]
+                            [--only k2|k3]
     python3 profile_step.py --mode mesh [--row generic] [--tree DIR]
     python3 profile_step.py --mode meshtrain [--tree DIR]
 
@@ -64,7 +64,10 @@ calls in a row), of K1's proxy form and K2 (K = 16, forces only) at the train
 plan's grid (15^3, capacity 36), K2 with energy untyped and typed there
 (float32: two types 80:20, phase 39's mixture, and eight types; float64:
 two, three and five types), and of K3 (NN 64) at the packed path's
-plan (18^3, capacity 29 on this state). For each it profiles R = 10
+plan (18^3, capacity 29 on this state): unsharded, over the 4 shards of
+a mesh of one card (one group launch in place, or in a tree without
+K3's group mode its 4 slab calls in a row) and shard 0 alone (a group
+of one in place and on its joined buffer, or its slab call). For each it profiles R = 10
 back-to-back calls between marker kernels (``chip_smoke.profiled_calls``:
 the profiler can leave the first kernels of a window unrecorded) and
 reports the CUDA kernels per call (total / R; ``torch.roll``'s among
@@ -75,8 +78,8 @@ call. It also times K1's generic form on the LJ pair function and
 own three kernels' share of the call. ``--dtype float64`` makes the
 state, the model and the tables float64 and takes the bounds at
 float64's 34 TFLOP/s; ``--only k2`` times the whole state's K2 calls
-alone. Where the package has K3's ``launch_params`` it
-also times K3 at forced launch shapes (strip length, warps per block;
+alone, ``--only k3`` K3's calls alone. Where the package has K3's
+``launch_params`` it also times K3 at forced launch shapes (strip length, warps per block;
 float32). Where it has K1's group launch (``half_stencil_group_forces``)
 it also times, on the same state resident on the 4 shards: the LJ form's
 group launch over the 4 shards (the whole K1's bound), shard 0 alone as a
@@ -481,13 +484,16 @@ def whole_calls(cs, dtype, only=None):
          lambda: cs.k1_generic_cost(ev_st[0], ev_st[2], eval_plan, 3,
                                     need)))
     calls = calls + typed_k2_calls(cs, dtype, tr_st, tr_lay, train_plan, ct)
-    k3 = (None,) * 6
+    k3 = (None,) * 7
     if only == "k2":
         calls = tuple(c for c in calls if c[0].startswith("K2"))
+    elif only == "k3":
+        k3 = k3_call(cs, sim, shapes=False, dtype=dtype)
+        calls = (k3[:5],) + k3_group_calls(cs, k3)
     else:
         calls = calls + slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn)
         k3 = k3_call(cs, sim, dtype=dtype)
-        calls = calls + (k3[:5], k3_slab_call(cs, k3))
+        calls = calls + (k3[:5],) + k3_group_calls(cs, k3)
     calls_n = cs.PROFILED_CALLS
     form = ("generic_list", "generic_reduce", "half_stencil_home")
     out = []
@@ -510,7 +516,35 @@ def whole_calls(cs, dtype, only=None):
         out.append(rec)
     if k3[5] is not None:
         out.append({"call": "K3 at forced launch shapes", "shapes": k3[5]})
+    if only == "k3":
+        out.append(k3_builds(cs, k3))
     return out
+
+
+def k3_builds(cs, k3, S=4, rounds=2):
+    """The packed build with K3 (``CellNlist``: the binning and the
+    selection) on :func:`k3_call`'s state, whole by CUDA events: on
+    ``S`` virtual shards of one card (``sharded``, as chip_smoke.py phase
+    36 runs it) and unsharded, in turns (sharded, unsharded, unsharded,
+    sharded, ...), so that the host's drift falls on both."""
+    from hoomd_tf_tpu_torch.ops import cell_list as cl
+    torch = cs.torch
+    _, plan, args, _, _, _, pos4 = k3
+    slots4, _, _, grid, cap, nn, r_cut, host_L, _ = args
+    build = cl.CellNlist(grid, cap, host_L, r_cut, nn, "pallas",
+                         slots4.device, dtype=slots4.dtype)
+    lengths = torch.as_tensor(host_L, dtype=pos4.dtype, device=pos4.device)
+    devices = [torch.device("cuda", 0)] * S
+    fns = {"sharded_ms": lambda: build.sharded(pos4, lengths, devices),
+           "unsharded_ms": lambda: build(pos4, lengths)}
+    times = {k: [] for k in fns}
+    for r in range(rounds):
+        order = ("sharded_ms", "unsharded_ms")
+        for k in (order if r % 2 == 0 else order[::-1]) + \
+                (order[::-1] if r % 2 == 0 else order):
+            times[k].append(cs.cuda_ms(fns[k]))
+    return {"call": f"the packed build with K3, {S} virtual shards of one "
+                    "card against unsharded, in turns", **times}
 
 
 def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
@@ -737,9 +771,9 @@ def group_calls(cs, mesh, layout, state, slot, aux, lj, pair_fn, slab, k1):
 
 def k3_call(cs, sim, shapes=True, dtype=None):
     """K3's whole call at the packed path's plan on the quenched state:
-    ``(name, plan, inputs, fn, cost, shapes)``, ``shapes`` the times at
-    forced launch shapes where the package has ``launch_params`` (and
-    ``shapes`` is asked for; float32 only)."""
+    ``(name, plan, inputs, fn, cost, shapes, positions)``, ``shapes`` the
+    times at forced launch shapes where the package has ``launch_params``
+    (and ``shapes`` is asked for; float32 only)."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cell_list as cl
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
@@ -782,7 +816,7 @@ def k3_call(cs, sim, shapes=True, dtype=None):
                            "smem": p.smem, "ms": ms,
                            "kernel_ms": dev_ms / cs.PROFILED_CALLS})
     return ("K3, NN 64", plan, args, lambda: nc.nlist_select(*args), cost,
-            shapes)
+            shapes, st.positions4)
 
 
 def mesh_loop(cs, row="proxy"):
@@ -918,33 +952,73 @@ def mesh_train(cs, steps=200):
     return out
 
 
-def k3_slab_call(cs, k3, S=4):
-    """Shard 0's call of K3's slab mode (a mesh of ``S`` shards, the
-    packed grid's ``nz s // S`` layers a shard, as chip_smoke.py phase
-    36 splits it) on :func:`k3_call`'s planes: ``(name, plan, inputs, fn,
-    cost)``, the cost chip_smoke.py's ``k3_slab_cost``."""
+def k3_group_calls(cs, k3, S=4):
+    """K3 under a mesh of ``S`` virtual shards of one card (the packed
+    grid's ``nz s // S`` layers a shard, as chip_smoke.py phase 36 splits
+    it) on :func:`k3_call`'s planes: every shard as one group launch in
+    place (the whole call's bound, ``k3_cost``'s), shard 0 alone as a
+    group of one in place and on its joined buffer made beforehand (the
+    launch of a card that does not bin; each its own bound,
+    ``k3_group_cost``); in a tree without the group mode, the same work as
+    its slab calls (the 4 in a row, and shard 0's, twice), on slab buffers
+    made beforehand: a group of one's joined buffer is shard 0's slab
+    buffer. ``(name, plan, inputs, fn, cost)`` each."""
     from hoomd_tf_tpu_torch.ops import cell_stencil as cst
     from hoomd_tf_tpu_torch.ops import nlist_cuda as nc
     torch = cs.torch
-    name, plan, (slots4, counts, pid, grid, cap, nn, r_cut, host_L, n), \
-        _, _, _ = k3
-    z0, nzl = cst.z_slabs(grid[2], S)[0]
-    buf = cst.halo_slab(slots4, grid, cap, z0, nzl, slots4.device)
-    cnt = cst.halo_slab(counts, grid, 1, z0, nzl, slots4.device)
-    args = (buf, cnt, None, grid, cap, nn, r_cut, host_L, None)
-    home = grid[0] * grid[1] * cap
+    name, plan, args, _, whole_cost, _, _ = k3
+    slots4, counts, pid, grid, cap, nn, r_cut, host_L, n = args
+    shards = [sl for sl in cst.z_slabs(grid[2], S) if sl[1]]
+    group = "group" in inspect.signature(nc.nlist_select).parameters
+    if group:
+        out = torch.empty((n + 1, nn, 4), dtype=slots4.dtype,
+                          device=slots4.device)
+        every = cst.group_layers(shards)
 
-    def cost():
+        def call(runs):
+            return lambda: nc.nlist_select(*args, group=runs, out=out)
+        one = (shards[0],)
+        buf = (cst.joined_slab(slots4, grid, cap, one, slots4.device),
+               cst.joined_slab(counts, grid, 1, one, slots4.device))
+        fns = call(every), call(one), lambda: nc.nlist_select(
+            *buf, None, grid, cap, nn, r_cut, host_L, None, group=one)
+    else:
+        bufs = [(cst.halo_slab(slots4, grid, cap, z0, k, slots4.device),
+                 cst.halo_slab(counts, grid, 1, z0, k, slots4.device),
+                 (z0, k)) for z0, k in shards]
+
+        def call(parts):
+            def fn():
+                for b, c, sl in parts:
+                    nc.nlist_select(b, c, None, grid, cap, nn, r_cut,
+                                    host_L, None, slab=sl)
+            return fn
+        fns = call(bufs), call(bufs[:1]), call(bufs[:1])
+
+    def shard0_cost(joined=False):
         lengths = torch.as_tensor(host_L, dtype=slots4.dtype,
                                   device=slots4.device)
-        key = cs.k3_slab_keys(buf, grid, cap, nzl, lengths)
+        # the whole table's keys (either tree's package), shard 0's rows
+        key = cs.k3_keys(slots4, grid, cap, lengths)
         far = nc.FAR_KEY64 if key.dtype == torch.int64 else nc.FAR_KEY
-        held = pid[z0 * home:(z0 + nzl) * home] >= 0
-        valid = (key != far).sum(1)[held]
-        return cs.k3_slab_cost(buf, cnt, grid, cap, nn, nzl, valid)[:2]
-    return (f"{name}, slab mode, shard 0 of {S} (layers {z0}-"
-            f"{z0 + nzl - 1})", plan, args,
-            lambda: nc.nlist_select(*args, slab=(z0, nzl)), cost)
+        layer = grid[0] * grid[1] * cap
+        z0, k = shards[0]
+        rows = slice(z0 * layer, (z0 + k) * layer)
+        valid = (key[rows] != far).sum(1)[pid[rows] >= 0]
+        return cs.k3_group_cost(counts, grid, cap, nn, n, (shards[0],),
+                                valid, slots4.element_size(), joined)[:2]
+    how = ("one group launch", "a group of one in place",
+           "a group of one on its joined buffer") if group else \
+        (f"{len(shards)} slab calls", "its slab call",
+         "its slab call on its slab buffer")
+    z0, k = shards[0]
+    return ((f"{name} over {S} shards of one card ({how[0]})", plan, args,
+             fns[0], whole_cost),
+            (f"{name}, shard 0 of {S} alone (layers {z0}-{z0 + k - 1}; "
+             f"{how[1]})", plan, args, fns[1], shard0_cost),
+            (f"{name}, shard 0 of {S} alone, joined (layers {z0}-"
+             f"{z0 + k - 1}; {how[2]})", plan, args, fns[2],
+             lambda: shard0_cost(True)))
 
 
 #: part of K3 -> (anchor, replacement) edits of csrc/nlist_select.cu
@@ -978,7 +1052,7 @@ def k3_parts(cs):
     cs.htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
                                              nlist="cellwise")
     sim.run(60)
-    name, plan, args, _, _, _ = k3_call(cs, sim, shapes=False)
+    name, plan, args, _, _, _, _ = k3_call(cs, sim, shapes=False)
     src = (_build._PKG / "csrc" / "nlist_select.cu").read_text()
     p = nc.launch_params(plan.grid, plan.capacity, 64, cs.R_CUT, args[7])
     out = {}
@@ -1171,8 +1245,9 @@ def main():
                     default="float32",
                     help="--mode calls: the state's dtype (float64: the "
                     "kernels' double instantiations)")
-    ap.add_argument("--only", choices=("k2",),
-                    help="--mode calls: only the whole state's K2 calls")
+    ap.add_argument("--only", choices=("k2", "k3"),
+                    help="--mode calls: only the whole state's K2 calls, "
+                    "or K3's (unsharded, a mesh's 4 shards, shard 0)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch

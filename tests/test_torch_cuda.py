@@ -2562,17 +2562,32 @@ def test_mixed_mesh_npt_matches_unsharded(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# K3's slab mode (a z-slab shard of a mesh on the packed cell list)
+# K3's group mode (the z-slab shards one device holds, one launch, on the
+# packed cell list under a mesh; a shard alone is a group of one)
 # ---------------------------------------------------------------------------
+def same(a, b):
+    """Bit-equal lists, NaN rows (rows a call leaves alone) equal too."""
+    return a.shape == b.shape and torch.equal(a.isnan(), b.isnan()) and \
+        torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 @pytest.mark.parametrize("S", [2, 3, 4])
 def test_k3_slab_mode_matches_plain(cuda_device, S, dtype):
-    """K3's slab mode on each shard's slab buffer (``nz s // S`` on, uneven
-    for S = 3 and 4 at nz 6): the occupied home slots' rows equal the slab
-    plain version's on the CPU and the unsharded kernel's rows of their
-    particles bit for bit; one launch counted in ``slab_launches`` a
-    shard; the gathered list (``CellNlist.sharded`` on virtual shards of
-    the card) equals the unsharded kernel's list bit for bit."""
+    """K3's group mode on the card (``nz s // S`` layers a shard, uneven
+    for S = 3 and 4 at nz 6) for a group of every shard, each shard as a
+    group of one and a partial group of the even shards (two runs of
+    layers for S >= 3): in place on the cell table (rows by pid into a
+    NaN list, the rows outside the group left NaN) and on the group's
+    joined buffer (rows at the home slots). Each launch equals its group
+    plain version on the CPU and the unsharded kernel's rows of its
+    particles bit for bit; one launch a call, counted in
+    ``group_launches``. Then the gathered list (``CellNlist.sharded``) on
+    virtual shards of the card (one group launch, in place), binned on
+    the CPU with the shards on the card (one joined launch), and on a
+    mesh that mixes the card with the CPU (the card's partial group in
+    place, the CPU's joined plain version) equals the unsharded kernel's
+    list bit for bit, with one group launch a build."""
     from hoomd_tf_tpu_torch.ops import cell_list as tcl
     from hoomd_tf_tpu_torch.ops import cell_stencil as tcs
     from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
@@ -2580,31 +2595,54 @@ def test_k3_slab_mode_matches_plain(cuda_device, S, dtype):
     slots4 = slots4.to(dtype)
     whole = tnc.nlist_select(slots4, counts, pid, grid, cap, NN, rc, L, n)
     nx, ny, nz = grid
-    home = nx * ny * cap
-    s0, l0 = tnc.nlist_select.slab_launches, tnc.nlist_select.launches
+    layer = nx * ny * cap
     shards = [sl for sl in tcs.z_slabs(nz, S) if sl[1]]
-    for z0, nzl in shards:
-        buf = tcs.halo_slab(slots4, grid, cap, z0, nzl)
-        cnt = tcs.halo_slab(counts, grid, 1, z0, nzl)
-        got = tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
-                               slab=(z0, nzl))
-        torch.cuda.synchronize()
-        assert got.shape == (nzl * home, NN, 4) and got.dtype == dtype
-        want = tnc.nlist_select(buf.cpu(), cnt.cpu(), None, grid, cap, NN,
-                                rc, L, None, slab=(z0, nzl))
-        p = pid[z0 * home:(z0 + nzl) * home].long()
+    groups = [tcs.group_layers(shards)] + [(sl,) for sl in shards] + \
+        [tcs.group_layers(shards[::2])]
+    cpu = [t.cpu() for t in (slots4, counts, pid)]
+    g0, l0 = tnc.nlist_select.group_launches, tnc.nlist_select.launches
+    for runs in groups:
+        p = torch.cat([pid[z0 * layer:(z0 + k) * layer] for z0, k in runs])
         held = p >= 0
+        nan = torch.full((n, NN, 4), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        got = tnc.nlist_select(slots4, counts, pid, grid, cap, NN, rc, L, n,
+                               group=runs, out=nan.clone())
+        want = tnc.nlist_select(*cpu, grid, cap, NN, rc, L, n, group=runs,
+                                out=nan.cpu())
+        torch.cuda.synchronize()
+        assert same(got.cpu(), want)
+        mine = ~got.isnan().all(2).all(1)
+        assert bool(mine[p[held].long()].all())
+        assert torch.equal(got[mine], whole[mine])
+        buf = tcs.joined_slab(slots4, grid, cap, runs)
+        cnt = tcs.joined_slab(counts, grid, 1, runs)
+        got = tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
+                               group=runs)
+        want = tnc.nlist_select(buf.cpu(), cnt.cpu(), None, grid, cap, NN,
+                                rc, L, None, group=runs)
+        torch.cuda.synchronize()
+        assert got.shape == (len(p), NN, 4) and got.dtype == dtype
         assert torch.equal(got[held].cpu(), want[held.cpu()])
-        assert torch.equal(got[held], whole[p[held]])
-    assert tnc.nlist_select.slab_launches - s0 == len(shards)
-    assert tnc.nlist_select.launches - l0 == len(shards)
+        assert torch.equal(got[held], whole[p[held].long()])
+    assert tnc.nlist_select.group_launches - g0 == 2 * len(groups)
+    assert tnc.nlist_select.launches - l0 == 2 * len(groups)
     build = tcl.CellNlist(grid, cap, L, rc, NN, "pallas", cuda_device,
                           dtype=dtype)
     positions = k3_positions(cuda_device, dtype)
     Lt = torch.as_tensor(L, dtype=dtype, device=cuda_device)
     want, _ = build(positions, Lt)
-    got, ovf = build.sharded(positions, Lt, [cuda_device] * S)
-    assert not bool(ovf) and torch.equal(got, want)
+    # the devices as a Mesh holds them: the card with its index
+    card = positions.device
+    mixed = [card if s % 2 == 0 else torch.device("cpu") for s in range(S)]
+    for pos, devices in ((positions, [card] * S),
+                         (positions.cpu(), [card] * S),
+                         (positions, mixed)):
+        g0, l0 = tnc.nlist_select.group_launches, tnc.nlist_select.launches
+        got, ovf = build.sharded(pos, Lt.to(pos.device), devices)
+        assert not bool(ovf) and torch.equal(got.cpu(), want.cpu())
+        assert tnc.nlist_select.group_launches - g0 == 1
+        assert tnc.nlist_select.launches - l0 == 1
 
 
 def k3_positions(device, dtype, n=3000, density=0.4):
@@ -2616,25 +2654,36 @@ def k3_positions(device, dtype, n=3000, density=0.4):
 
 
 def test_k3_slab_wrapper_checks_inputs(cuda_device):
-    """A slab launch refuses a slab outside the grid and a buffer of the
-    wrong number of layers."""
+    """A group launch refuses runs of layers outside the grid or
+    overlapping, a joined buffer of the wrong number of layers, a joined
+    call without runs or with ``out``, and an ``out`` of too few rows."""
     from hoomd_tf_tpu_torch.ops import cell_stencil as tcs
     from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
     slots4, counts, pid, grid, cap, NN, rc, L, n = k3_args(cuda_device)
-    buf = tcs.halo_slab(slots4, grid, cap, 0, 2)
-    cnt = tcs.halo_slab(counts, grid, 1, 0, 2)
+    buf = tcs.joined_slab(slots4, grid, cap, ((0, 2),))
+    cnt = tcs.joined_slab(counts, grid, 1, ((0, 2),))
+    for runs in (((grid[2] - 1, 2),), ((0, 3),), ((0, 2), (1, 2))):
+        with pytest.raises(ValueError):
+            tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
+                             group=runs)
+    with pytest.raises(ValueError):
+        tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None)
     with pytest.raises(ValueError):
         tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
-                         slab=(grid[2] - 1, 2))
-    with pytest.raises(ValueError):
-        tnc.nlist_select(buf, cnt, None, grid, cap, NN, rc, L, None,
-                         slab=(0, 3))
+                         group=((0, 2),), out=torch.empty_like(buf))
+    with pytest.raises(ValueError, match="rows"):
+        tnc.nlist_select(slots4, counts, pid, grid, cap, NN, rc, L, n,
+                         group=((0, 2),),
+                         out=torch.empty((n - 1, NN, 4), device=cuda_device))
 
 
 def test_sharded_packed_engine_on_the_card(cuda_device):
-    """'auto' (K3) and 'cell' on 4 virtual shards of the card: K3's slab
-    mode launched once a shard and build with no host sync, and 5 steps
-    equal to the unsharded engine's bit for bit."""
+    """'auto' (K3) and 'cell' on 4 virtual shards of the card: K3's group
+    mode launched once a build (one card) with no host sync, and 5 steps
+    equal to the unsharded engine's bit for bit; then 'auto' on a mesh
+    that mixes the card with the CPU (shards 0 and 2 on the card, in
+    place; 1 and 3 on the CPU, joined): one group launch a build and 3
+    steps equal to the unsharded engine's bit for bit."""
     from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
     from hoomd_tf_tpu_torch.parallel import make_mesh
     mesh = make_mesh(4, devices=[cuda_device] * 4)
@@ -2650,12 +2699,30 @@ def test_sharded_packed_engine_on_the_card(cuda_device):
             sims.append(sim)
         shd, ref = sims
         shd.check_syncs = True
-        s0 = tnc.nlist_select.slab_launches
+        s0 = tnc.nlist_select.group_launches
         shd.run(5)
         ref.run(5)
         want = "pallas" if nlist is None else "sort"
         assert shd._packed_build().method == want
-        assert tnc.nlist_select.slab_launches - s0 == \
-            (4 * 5 if nlist is None else 0)
+        assert tnc.nlist_select.group_launches - s0 == \
+            (5 if nlist is None else 0)
         assert torch.equal(shd.state.positions, ref.state.positions)
         assert torch.equal(shd.state.forces, ref.state.forces)
+    mixed = make_mesh(4, devices=[cuda_device, "cpu"] * 2)
+    sims = []
+    for m in (mixed, None):
+        sim = htt.Simulation(dt=0.005, seed=3, mesh=m,
+                             device=None if m else cuda_device,
+                             integrator=htt.md.NVT(kT=1.5, tau=0.5))
+        sim.init_state(pos, lengths, velocities=vel)
+        htt.tfcompute(SimLJ(64)).attach(sim, r_cut=3.0)
+        sims.append(sim)
+    shd, ref = sims
+    g0, l0 = tnc.nlist_select.group_launches, tnc.nlist_select.launches
+    shd.run(3)
+    assert shd._packed_build().method == "pallas"
+    assert tnc.nlist_select.group_launches - g0 == \
+        tnc.nlist_select.launches - l0 == shd.nlist_builds
+    ref.run(3)
+    assert torch.equal(shd.state.positions, ref.state.positions)
+    assert torch.equal(shd.state.forces, ref.state.forces)

@@ -1,9 +1,11 @@
 """Kernel K3's design on the CPU: the float32 thresholds of its minimum
 image against float64 reckoning, its minimum-image rule bit for bit
-against ``d - round(d / L) * L``, its launch shapes, and a numpy model of
-its strip algorithm (window staging, keys on the candidate's index in the
-query's range, ranking, the rows written whole, the rows of particles
-that hold no slot) against the plain version ``nlist_select_reference``.
+against ``d - round(d / L) * L``, its launch shapes and constants (the
+group mode's runs of layers), and a numpy model of its strip algorithm
+(blocks decoded over the runs, window staging, keys on the candidate's
+index in the query's range, ranking, the rows written whole, the rows of
+particles that hold no slot; in place or on a joined buffer) against the
+plain version ``nlist_select_reference``.
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py); the
 model here repeats its indexing and arithmetic so that a fault in them
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from hoomd_tf_tpu_torch.ops import cell_stencil as tcs
 from hoomd_tf_tpu_torch.ops import nlist_cuda as tnc
 from hoomd_tf_tpu_torch.ops.nlist import f32
 
@@ -161,75 +164,125 @@ def test_launch_params():
         tnc.launch_params((18, 2, 18), 29, 64, 3.0, L)
 
 
+def test_group_launch_params():
+    """A group launch's constants: in place, its runs as layers of the
+    grid; joined, as layers of the joined buffer (each run after the runs
+    before it and their halo layers, past its own lower halo layer), the
+    table's layers those of the buffer; runs that overlap, leave the grid
+    or pass the kernel's table raise."""
+    L = (54.7, 54.7, 50.1)
+    grid = (18, 18, 16)
+    whole = tnc.launch_params(grid, 29, 64, 3.0, L)
+    assert (whole.joined, whole.n_runs, whole.run_z0[0],
+            whole.run_nzl[0]) == (0, 1, 0, 16)
+    runs = ((0, 1), (3, 2))
+    p = tnc.launch_params(grid, 29, 64, 3.0, L, group=runs)
+    assert (p.joined, p.nz, p.n_runs) == (0, 16, 2)
+    assert list(p.run_z0[:2]) == [0, 3] and list(p.run_nzl[:2]) == [1, 2]
+    q = tnc.launch_params(grid, 29, 64, 3.0, L, group=runs, joined=True)
+    assert (q.joined, q.nz, q.n_runs) == (1, 7, 2)
+    assert list(q.run_z0[:2]) == [1, 4] and list(q.run_nzl[:2]) == [1, 2]
+    for bad in (((0, 2), (1, 2)), ((15, 2),), ()):
+        with pytest.raises(ValueError):
+            tnc.launch_params(grid, 29, 64, 3.0, L, group=bad)
+    with pytest.raises(ValueError, match="at most"):
+        tnc.launch_params((18, 18, 20), 29, 64, 3.0, L,
+                          group=tuple((z, 1) for z in range(17)))
+    assert tcs.group_layers([(3, 2), (0, 1), (1, 2), (5, 0)]) == ((0, 5),)
+    assert tcs.group_layers([(0, 1), (3, 2)]) == ((0, 1), (3, 2))
+
+
 # ---------------------------------------------------------------------------
 # A numpy model of the kernel's strip algorithm
 # ---------------------------------------------------------------------------
 
 def emulate_k3(slots4, counts, pid, grid, cap, NN, r_cut, lengths, n,
-               strip=None):
+               strip=None, group=None, out=None):
     """K3's algorithm step by step on the CPU (csrc/nlist_select.cu):
-    strips of cells along x, the window staged column by column, keys on
-    the candidate's index in the query's contiguous range, 32-candidate
-    chunks that skip the minimum image when every |d| <= t0, the winners
-    in rank order, rows written whole (NaN first, as torch.empty may
-    leave them), and zero rows for particles that hold no slot."""
-    nx, ny, nz = grid
-    s_len = strip or tnc.launch_shape(nx, cap, NN)[0]
-    slots, cnt, pids = np_(slots4), np_(counts), np_(pid)
+    blocks of strips of cells along x, decoded as the kernel does (layer h
+    of the launch's runs of layers, from :func:`tnc.launch_params`), the
+    window staged column by column, keys on the candidate's index in the
+    query's contiguous range, 32-candidate chunks that skip the minimum
+    image when every |d| <= t0, the winners in rank order, rows written
+    whole (NaN first, as torch.empty may leave them), and zero rows for
+    particles that hold no slot. ``group``: the group mode, in place with
+    ``pid`` (into ``out``, default NaN rows), joined with ``pid=None``
+    (``slots4`` and ``counts`` the joined buffer; rows at the home slots,
+    an empty slot's left NaN)."""
+    p = tnc.launch_params(tuple(grid), cap, NN, r_cut, tuple(lengths),
+                          strip=strip, group=group, joined=pid is None)
+    nx, ny, nz = p.nx, p.ny, p.nz
+    s_len = p.strip
+    runs = [(p.run_z0[r], p.run_nzl[r]) for r in range(p.n_runs)]
+    slots, cnt = np_(slots4), np_(counts)
+    pids = None if p.joined else np_(pid)
     L = [torch.tensor(f32(v), dtype=torch.float32) for v in lengths]
     th = [tnc.image_thresholds(v) for v in lengths]
     t0 = np.asarray([t[0] for t in th], np.float32)
     mask = np.uint32((1 << tnc.slot_bits(27 * cap)) - 1)
     rc2, lo2 = np.float32(f32(r_cut * r_cut)), np.float32(f32(25e-8))
-    out = np.full((n, NN, 4), np.nan, np.float32)
-    held = np.zeros(n, bool)
+    rows_out = (sum(k for _, k in runs) * nx * ny * cap if p.joined else n)
+    out = (np.full((rows_out, NN, 4), np.nan, np.float32) if out is None
+           else out.copy())
 
     def exact(d):
         return np.stack([np_(tnc.threshold_min_image(
             torch.as_tensor(d[:, a]), L[a], th[a])) for a in range(3)], 1)
 
-    for z0 in range(nz):
-        for y0 in range(ny):
-            for x0 in range(0, nx, s_len):
-                S = min(s_len, nx - x0)
-                cells = []
-                for xw in range(S + 2):
-                    for row in range(9):
-                        ry, rz = divmod(row, 3)
-                        cells.append(((x0 - 1 + xw) % nx) + nx * (
-                            ((y0 - 1 + ry) % ny) + ny * ((z0 - 1 + rz) % nz)))
-                start = np.concatenate([[0], np.cumsum(cnt[cells])])
-                cand = np.concatenate(
-                    [slots[c * cap:c * cap + cnt[c]] for c in cells] +
-                    [np.zeros((0, 4), np.float32)])
-                for i in range(S):
-                    wq = 9 * (i + 1) + 4
-                    lo, hi = start[9 * i], start[9 * i + 27]
-                    g = cand[lo:hi]
-                    for qr in range(cnt[cells[wq]]):
-                        q = cand[start[wq] + qr]
-                        d = g[:, :3] - q[:3]
-                        kept = np.zeros(0, np.uint32)
-                        for c0 in range(0, len(d), 32):
-                            ch = d[c0:c0 + 32]
-                            if (np.abs(ch) > t0).any():
-                                ch = exact(ch)
-                            d2 = (ch[:, 0] * ch[:, 0] +
-                                  ch[:, 1] * ch[:, 1]) + ch[:, 2] * ch[:, 2]
-                            ok = (d2 <= rc2) & (d2 >= lo2)
-                            key = (d2.view(np.uint32) & ~mask) | np.arange(
-                                c0, c0 + len(ch), dtype=np.uint32)
-                            kept = np.concatenate([kept, key[ok]])
-                        win = np.sort(kept)[:NN] & mask
-                        row = np.zeros((NN, 4), np.float32)
-                        if len(win):
-                            gw = g[win]
-                            row[:len(win), :3] = exact(gw[:, :3] - q[:3])
-                            row[:len(win), 3] = gw[:, 3]
-                        p = pids[cells[wq] * cap + qr]
-                        out[p] = row
-                        held[p] = True
-    out[~held] = 0.0
+    for b in range(p.n_strips * ny * sum(k for _, k in runs)):
+        x0 = (b % p.n_strips) * s_len
+        y0 = (b // p.n_strips) % ny
+        h = z0 = b // (p.n_strips * ny)
+        r = 0
+        while z0 >= runs[r][1]:
+            z0 -= runs[r][1]
+            r += 1
+        z0 += runs[r][0]
+        S = min(s_len, nx - x0)
+        cells = []
+        for xw in range(S + 2):
+            for row in range(9):
+                ry, rz = divmod(row, 3)
+                z = z0 - 1 + rz if p.joined else (z0 - 1 + rz) % nz
+                cells.append(((x0 - 1 + xw) % nx) + nx * (
+                    ((y0 - 1 + ry) % ny) + ny * z))
+        start = np.concatenate([[0], np.cumsum(cnt[cells])])
+        cand = np.concatenate(
+            [slots[c * cap:c * cap + cnt[c]] for c in cells] +
+            [np.zeros((0, 4), np.float32)])
+        for i in range(S):
+            wq = 9 * (i + 1) + 4
+            lo, hi = start[9 * i], start[9 * i + 27]
+            g = cand[lo:hi]
+            for qr in range(cnt[cells[wq]]):
+                q = cand[start[wq] + qr]
+                d = g[:, :3] - q[:3]
+                kept = np.zeros(0, np.uint32)
+                for c0 in range(0, len(d), 32):
+                    ch = d[c0:c0 + 32]
+                    if (np.abs(ch) > t0).any():
+                        ch = exact(ch)
+                    d2 = (ch[:, 0] * ch[:, 0] +
+                          ch[:, 1] * ch[:, 1]) + ch[:, 2] * ch[:, 2]
+                    ok = (d2 <= rc2) & (d2 >= lo2)
+                    key = (d2.view(np.uint32) & ~mask) | np.arange(
+                        c0, c0 + len(ch), dtype=np.uint32)
+                    kept = np.concatenate([kept, key[ok]])
+                win = np.sort(kept)[:NN] & mask
+                row = np.zeros((NN, 4), np.float32)
+                if len(win):
+                    gw = g[win]
+                    row[:len(win), :3] = exact(gw[:, :3] - q[:3])
+                    row[:len(win), 3] = gw[:, 3]
+                if p.joined:
+                    out[(cells[wq] + (h - z0) * nx * ny) * cap + qr] = row
+                else:
+                    out[pids[cells[wq] * cap + qr]] = row
+    if not p.joined:
+        # block 0: the rows of particles that hold no slot
+        held = np.zeros(n, bool)
+        held[pids[pids >= 0]] = True
+        out[~held] = 0.0
     return out
 
 
@@ -283,3 +336,60 @@ def test_strip_algorithm_matches_plain(case):
     assert filled.max() > 0
     if case == "NN below valid":
         assert (filled == NN).mean() > 0.5
+
+
+@pytest.mark.parametrize("case", [
+    "in place, two runs", "in place, one run", "in place, overflow",
+    "joined, one run", "joined, two runs"])
+def test_group_mode_algorithm_matches_plain(case):
+    """The group mode's blocks (numpy model, the layer of a block found by
+    walking the launch's runs) against the group plain version, over the
+    uneven 3-shard split of a 5-layer grid: in place on the cell table
+    (rows by pid into a list that holds NaN elsewhere, the rows of
+    particles without a slot zeroed, the other rows left alone) for the
+    runs of two non-adjacent shards and of one, and with an overflowed
+    cell; on a joined buffer (rows at the home slots) for one and two
+    runs. Every row written equals the unsharded plain version's row of
+    its particle."""
+    n, L, NN = 500, 15.5, 48
+    cap = 6 if "overflow" in case else None
+    (slots4, counts, pid, grid, cap, lengths), _ = k3_inputs(
+        n, L, seed=4, cap=cap)
+    assert grid[2] == 5 and tcs.z_slabs(5, 3) == [(0, 1), (1, 2), (3, 2)]
+    runs = ((1, 2),) if "one run" in case else ((0, 1), (3, 2))
+    whole = np_(tnc.nlist_select_reference(slots4, counts, pid, grid, cap,
+                                           NN, 3.0, lengths, n))
+    layer = grid[0] * grid[1] * cap
+    p = np.concatenate([np_(pid)[z0 * layer:(z0 + k) * layer]
+                        for z0, k in runs])
+    if case.startswith("joined"):
+        buf = tcs.joined_slab(slots4, grid, cap, runs)
+        cnt = tcs.joined_slab(counts, grid, 1, runs)
+        got = emulate_k3(buf, cnt, None, grid, cap, NN, 3.0, lengths, None,
+                         group=runs)
+        want = np_(tnc.nlist_select_reference(buf, cnt, None, grid, cap, NN,
+                                              3.0, lengths, None, runs))
+        held = p >= 0
+        assert got.shape == want.shape == (len(p), NN, 4)
+        np.testing.assert_array_equal(got[held], want[held])
+        assert np.isnan(got[~held]).all() and not want[~held].any()
+        np.testing.assert_array_equal(want[held], whole[p[held]])
+        return
+    if case.endswith("overflow"):
+        assert int(counts.sum()) < n
+    base = np.full((n, NN, 4), np.nan, np.float32)
+    got = emulate_k3(slots4, counts, pid, grid, cap, NN, 3.0, lengths, n,
+                     group=runs, out=base)
+    want = np_(tnc.nlist_select_reference(
+        slots4, counts, pid, grid, cap, NN, 3.0, lengths, n, runs,
+        torch.as_tensor(base.copy())))
+    np.testing.assert_array_equal(got, want)
+    mine = np.zeros(n, bool)
+    mine[p[p >= 0]] = True
+    held_any = np.zeros(n, bool)
+    held_any[np_(pid)[np_(pid) >= 0]] = True
+    mine |= ~held_any
+    np.testing.assert_array_equal(want[mine], whole[mine])
+    assert np.isnan(want[~mine]).all() and (~mine).any()
+    if case.endswith("overflow"):
+        assert not whole[~held_any].any() and (~held_any).any()

@@ -1,7 +1,9 @@
 """The packed routes and mapped models under a device mesh, the port
 against the JAX package on the CPU, on virtual CPU shards (``make_mesh(S,
-devices=[cpu] * S)``): kernel K3's slab plain version and the sort build
-per z-slab shard, the ``'direct'`` planes per particle rows, the sharded
+devices=[cpu] * S)``): kernel K3's group plain version and the sort
+build per device's group of z-slab shards (whole, groups of one, partial:
+the shards' devices named ``"cpu"`` and ``"cpu:k"``), the ``'direct'``
+planes per particle rows, the sharded
 engine on ``'cell'``, ``'pallas'``, ``'direct'`` and ``'auto'``, packed
 training, reference example 02's mapped model on ``'cell'``,
 ``'cellwise'`` and ``'n2'``, mapped training, and the capacity overflow's
@@ -23,6 +25,7 @@ of packed training, losses and weights at rtol 1e-3, atol 1e-6
 (tests/test_torch_train_packed.py's bar for a trajectory).
 """
 
+import functools
 import warnings
 
 import jax.numpy as jnp
@@ -81,14 +84,40 @@ def test_slab_layers_cover_the_grid():
         assert all(a + k == b for (a, k), (b, _) in zip(layers, layers[1:]))
 
 
+def partitions(S):
+    """Device lists of ``S`` virtual CPU shards, each grouped by device name
+    (``"cpu"`` the binning device, ``"cpu:k"`` another): a group of every
+    shard on the binning device; groups of one, none on it; a partial
+    group on it, non-adjacent shards, beside one elsewhere."""
+    return {"whole": ["cpu"] * S,
+            "ones": [f"cpu:{s + 1}" for s in range(S)],
+            "partial": ["cpu" if s % 2 == 0 else "cpu:1" for s in range(S)]}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pallas_list(NN=40):
+    """The JAX package's ``cell_list_nlist(method='pallas')`` of
+    :func:`binned`'s float32 system on the same plan."""
+    pos4, _, L, grid, cap = binned()
+    return np_(htf.cell_list_nlist(jnp.asarray(np_(pos4)), 2.5, NN,
+                                   jnp.asarray(L), grid=grid, capacity=cap,
+                                   method="pallas"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("S", [2, 3, 4])
 def test_k3_slab_plain_gathers_to_unsharded(S, dtype):
-    """Kernel K3's slab plain version on each shard's slab buffer (its home
-    layers and a halo layer on each side): the occupied home slots' rows
-    equal the unsharded plain version's rows of their particles exactly,
-    the empty slots' rows are zero, and the gathered list
-    (``CellNlist.sharded``) equals the unsharded list exactly."""
+    """Kernel K3's group plain version, one call per device's group of
+    z-slab shards, in three partitions (:func:`partitions`): in place on
+    the cell table, the group's particles' rows and the rows of particles
+    without a slot written into the list and the other rows left alone;
+    on a joined buffer (each run of layers with a halo layer each side),
+    the occupied home slots' rows, the empty slots' rows zero. Every row
+    equals the unsharded plain version's row of its particle exactly, and
+    each gathered list (``CellNlist.sharded``) equals the unsharded list
+    exactly and, in float32, the JAX package's 'pallas' list at
+    tests/test_torch_nlist.py's bar."""
+    from hoomd_tf_tpu_torch.ops.cellwise import slab_groups
     pos4, Lt, L, grid, cap = binned(dtype=dtype)
     n, NN = pos4.shape[0], 40
     slots4, counts, pid, ovf = tcl.build_planes(pos4, grid, cap, Lt)
@@ -96,49 +125,75 @@ def test_k3_slab_plain_gathers_to_unsharded(S, dtype):
     want = tnc.nlist_select_reference(slots4, counts, pid, grid, cap, NN,
                                       2.5, L, n)
     nx, ny, nz = grid
-    home = nx * ny * cap
-    seen = 0
-    for z0, nzl in tcs.z_slabs(nz, S):
-        buf = tcs.halo_slab(slots4, grid, cap, z0, nzl)
-        cnt = tcs.halo_slab(counts, grid, 1, z0, nzl)
-        assert buf.shape[0] == (nzl + 2) * home
-        rows = tnc.nlist_select(buf, cnt, None, grid, cap, NN, 2.5, L, None,
-                                slab=(z0, nzl))
-        assert rows.shape == (nzl * home, NN, 4) and rows.dtype == dtype
-        p = pid[z0 * home:(z0 + nzl) * home].long()
-        assert torch.equal(rows[p >= 0], want[p[p >= 0]])
-        assert not bool(rows[p < 0].any())
-        seen += int((p >= 0).sum())
-    assert seen == n
+    layer = nx * ny * cap
     build = tcl.CellNlist(grid, cap, L, 2.5, NN, "pallas", "cpu",
                           dtype=dtype)
-    got, ovf = build.sharded(pos4, Lt, ["cpu"] * S)
-    assert torch.equal(got, want) and not bool(ovf)
-    assert tnc.nlist_select.launches == tnc.nlist_select.slab_launches == 0
+    for kind, devices in partitions(S).items():
+        slabs = [(d, z0, k) for d, (z0, k) in
+                 zip(devices, tcs.z_slabs(nz, S))]
+        seen = 0
+        for g in slab_groups(slabs):
+            runs = tcs.group_layers(g.slabs)
+            p = torch.cat([pid[z0 * layer:(z0 + k) * layer]
+                           for z0, k in runs]).long()
+            held = p >= 0
+            seen += int(held.sum())
+            if g.device == torch.device("cpu"):
+                nan = torch.full((n, NN, 4), float("nan"), dtype=dtype)
+                rows = tnc.nlist_select(slots4, counts, pid, grid, cap, NN,
+                                        2.5, L, n, group=runs, out=nan)
+                assert rows.data_ptr() == nan.data_ptr()
+                mine = torch.zeros(n, dtype=torch.bool)
+                mine[p[held]] = True
+                assert torch.equal(rows[mine], want[mine])
+                assert bool(rows[~mine].isnan().all())
+                continue
+            buf = tcs.joined_slab(slots4, grid, cap, runs)
+            cnt = tcs.joined_slab(counts, grid, 1, runs)
+            assert buf.shape[0] == sum(k + 2 for _, k in runs) * layer
+            rows = tnc.nlist_select(buf, cnt, None, grid, cap, NN, 2.5, L,
+                                    None, group=runs)
+            assert rows.shape == (len(p), NN, 4) and rows.dtype == dtype
+            assert torch.equal(rows[held], want[p[held]])
+            assert not bool(rows[~held].any())
+        assert seen == n, kind
+        got, ovf = build.sharded(pos4, Lt, devices)
+        assert torch.equal(got, want) and not bool(ovf), kind
+        if dtype == torch.float32:
+            np.testing.assert_allclose(np_(got), jax_pallas_list(), rtol=0,
+                                       atol=1e-6)
+            np.testing.assert_array_equal(np_(got)[..., 3],
+                                          jax_pallas_list()[..., 3])
+    assert tnc.nlist_select.launches == tnc.nlist_select.group_launches == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("S", [2, 3, 4])
 def test_sort_build_per_shard_equals_unsharded(S, dtype):
-    """The sort method per z-slab shard (the buffer's home cells sorted on
-    its device), untyped and with a typed cut (the mapped models' route):
-    the gathered list equals the unsharded one exactly, in particle
-    order; the overflow flag agrees."""
+    """The sort method per device's group of z-slab shards (one sort over
+    the group's home cells: in place on the binning device, else on its
+    joined buffer) in each partition of :func:`partitions`, untyped and
+    with a typed cut (the mapped models' route): the gathered list equals
+    the unsharded one exactly, in particle order; the overflow flag
+    agrees."""
     pos4, Lt, L, grid, cap = binned(dtype=dtype)
     rcm = np.array([[2.5, 1.8], [1.8, 2.2]])
-    for rc in (None, rcm):
-        build = tcl.CellNlist(grid, cap, L, 2.5, 40, "sort", "cpu", rc,
-                              dtype)
-        want, ovf = build(pos4, Lt)
-        got, ovf_s = build.sharded(pos4, Lt, ["cpu"] * S)
-        assert torch.equal(got, want)
-        assert bool(ovf) == bool(ovf_s) is False
-    # an undersized capacity: the flag is set sharded too, and the rows
-    # of particles without a slot are zero in both
-    small = tcl.CellNlist(grid, 4, L, 2.5, 40, "sort", "cpu", None, dtype)
-    want, ovf = small(pos4, Lt)
-    got, ovf_s = small.sharded(pos4, Lt, ["cpu"] * S)
-    assert bool(ovf) and bool(ovf_s) and torch.equal(got, want)
+    for devices in partitions(S).values():
+        for rc in (None, rcm):
+            build = tcl.CellNlist(grid, cap, L, 2.5, 40, "sort", "cpu", rc,
+                                  dtype)
+            want, ovf = build(pos4, Lt)
+            got, ovf_s = build.sharded(pos4, Lt, devices)
+            assert torch.equal(got, want)
+            assert bool(ovf) == bool(ovf_s) is False
+        # an undersized capacity: the flag is set sharded too, and the
+        # rows of particles without a slot are zero in both
+        for method in ("sort", "pallas"):
+            small = tcl.CellNlist(grid, 4, L, 2.5, 40, method, "cpu", None,
+                                  dtype)
+            want, ovf = small(pos4, Lt)
+            got, ovf_s = small.sharded(pos4, Lt, devices)
+            assert bool(ovf) and bool(ovf_s) and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("S", [2, 4])
@@ -220,7 +275,7 @@ def test_sharded_evaluation_matches_jax(nlist, S):
 
 def test_sharded_nn_on_pallas_with_nvt_matches_jax():
     """An NN SimModel (tests/test_torch_packed.py's, JAX's weights) under
-    NVT on ``'pallas'`` (K3's slab plain version) on 2 shards: one step
+    NVT on ``'pallas'`` (K3's group plain version) on 2 shards: one step
     against JAX, then equal to the unsharded port."""
     jm = JNN(48)
     jm.ensure_built([jnp.zeros((1, 48, 4)), jnp.zeros((1, 4)),
