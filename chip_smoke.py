@@ -233,30 +233,43 @@ exits non-zero:
                (rtol 1e-4, atol 1e-5); sharded_train_step over 8 frames
                of 4,096 particles: its SGD(1) update against one device's
                gradient (1e-4), and 30 Adam steps that halve the loss;
-32. sharded train -- phase 5's row (the proxy NN, Adam lr 1e-2) from phase
-               5's NVT state through ShardedSimulation on phase 29's mesh:
-               K2's group launch (one a card over its shards) against its
-               plain version (the JAX bar), a group of every shard
-               against the unsharded K2 bit for bit (else the cards' sum
-               at the JAX bar), shard 0 as a group of one timed, the
-               coefficients' gradient through pair_train_forces(mesh=)
-               against the unsharded one; 8 SGD train steps' losses and
-               weights against the unsharded engine at the same plan
-               (rtol 2e-4), then 400 Adam train steps, host syncs
-               forbidden, the last 20 losses' mean below the first 20's,
-               K2 group launches = cards x train steps, K1 only in group
-               launches; K1's proxy form in one group launch on the
-               whole state's rows (the training forward) against its
-               plain version and timed;
+32. sharded train -- phase 5's row (the proxy NN) from phase 5's NVT
+               state through ShardedSimulation on phase 29's mesh, the
+               slot state resident per z-slab shard: the first train
+               step's loss and every gradient against the unsharded
+               engine's on the same state and plan (bit for bit on one
+               card, else K2's bars); on the shards' resident buffers
+               K2's group launch (one a card) against its plain version
+               (the JAX bar), a group of every shard against the
+               unsharded K2 bit for bit (else the cards' sum at the JAX
+               bar), shard 0 as a group of one timed, K1's proxy form in
+               one group launch (the training forward) against its plain
+               version and timed; the coefficients' gradient through
+               resident_train_forces and pair_train_forces(mesh=) against
+               the unsharded one, the resident backward timed; 8 SGD train
+               steps' losses and weights against the unsharded engine at
+               the same plan (rtol 2e-4), then 300 Adam train steps and
+               a profiled run(10), host syncs forbidden, the last 20
+               losses' mean below the first 20's; K2 and K1's proxy form: group launches = cards x
+               train steps and no other launch, the LJ labels in group
+               launches only, the state a SlabState; train steps/s,
+               kernels a train step and the first card's peak memory;
 33. sharded train-pair and train-lane -- phases 10-11's rows from phase
-               5's state through ShardedSimulation, 200 train steps each,
-               host syncs forbidden: the weights' first gradient against
-               the unsharded one (2e-4), each card's generic_reduce_bwd
-               group launch against its plain version lane by lane (1e-4
-               in float32; in float64 1e-10, the pair row), a group of
-               every shard against the unsharded kernel bit for bit,
-               shard 0 as a group of one timed; group launches = cards x
-               train steps, no other launch;
+               5's state through ShardedSimulation on the resident shards,
+               220 train steps and a profiled run(10) each, host syncs
+               forbidden, the plan held: the first train step against
+               the unsharded engine's (the loss bit for bit on one card,
+               the gradients at K2's bars: the list's order comes from an
+               atomic counter; bit-equality printed), a weight gradient through resident_train_forces
+               against the unsharded one (2e-4), each card's
+               generic_reduce_bwd group launch on the resident buffers
+               against its plain version lane by lane (1e-4 in float32; in
+               float64 1e-10, the pair row), a group of every shard
+               against the unsharded kernel bit for bit, shard 0 as a
+               group of one timed; generic_reduce_bwd and the generic
+               form's group calls = cards x train steps, no other launch,
+               the state a SlabState; steps/s, kernels a train step, peak
+               memory;
 34. sharded npt -- phase 14's barostat (P = 1.2 x the NVT pressure) from
                phase 4's fluid through ShardedSimulation: 8 steps within
                5e-4 of the unsharded engine (volume 1e-5), run(1000) with
@@ -310,7 +323,16 @@ exits non-zero:
                energy beside the untyped call, eight types) against their
                plain versions, each timed; then the mixture in float64,
                run(100) with every launch double, and the double typed K2
-               against its plain version (rtol 1e-10).
+               against its plain version (rtol 1e-10);
+40. sharded train-typed -- phase 39's typed proxy training from phase 39's
+               equilibrated mixture and the same seeded weights through
+               ShardedSimulation on the resident shards: the first train
+               step against the unsharded engine's (bit for bit on one
+               card), then 200 Adam steps and a profiled run(10) with host
+               syncs forbidden, the loss falling, beside phase 39's first 200; the typed K2 and
+               K1's typed proxy form in group launches = cards x train
+               steps and no other launch, the state a SlabState; steps/s
+               beside phase 39's, kernels a train step, peak memory.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after. The last two lines are the kernels' JSON record and
@@ -1812,6 +1834,18 @@ def phase_train_generic(label, model, loss):
     return sim, tr, st, aux, launches, parts
 
 
+def group_rows_read(bufs, grp):
+    """Rows a group launch reads of its members' buffers (``bufs`` in
+    group order, each ``(nzl + 1) * layer`` rows): a member's halo layer
+    only where its next shard lies outside the group; otherwise the kernel
+    reads that halo in place, as the next member's first home layer."""
+    rows = 0
+    for b, nxt, (_, nzl) in zip(bufs, grp.next, grp.slabs):
+        n = b.shape[0]
+        rows += n if nxt < 0 else n - n // (nzl + 1)
+    return rows
+
+
 def bwd_cost(gl, needed, energy):
     """Bytes and operations of the function generic_reduce_bwd computes
     on this list (a slab list's: its home cells and buffer rows): each
@@ -1826,10 +1860,9 @@ def bwd_cost(gl, needed, energy):
     n0, total, nw = hdr[:, 0], hdr[:, 1], hdr[:, 2]
     words = (4 + (esize + 1) * total + n0 + 1 + n0 * nw +
              (n0 * nw + 1) // 2)
-    # ct [rows, 4] and valid [rows] of each member of a group's list (a
-    # member's halo rows are the next member's first home rows)
+    # ct [rows, 4] and valid [rows] of each member of a group's list
     rows = (gl.rows if getattr(gl, "group", None) is None else
-            sum(v.shape[0] for v in gl.valid))
+            group_rows_read(gl.valid, gl.group))
     nbytes = (4 * int(words.sum()) + 4 * gl.n_cells +
               rows * esize * (4 + 1) +
               gl.budget * esize * (1 + energy))
@@ -3947,16 +3980,6 @@ def slab_pair_counts(positions, valid, plan, z0, nzl):
     return tested, (hits - int(mine.sum())) / 2
 
 
-def slab_buffers(layout, st, aux, mesh, s, z0, nzl):
-    """Shard ``s``'s slab buffer (positions, types, valid) on its device
-    and the global geometry there."""
-    from hoomd_tf_tpu_torch.ops import cellwise as cw
-    dev = mesh.devices[s]
-    buf = [cw.slab_buffer(t, layout.plan, z0, nzl, dev) for t in
-           (st.positions, st.types, aux["valid"])]
-    return buf, layout.geometry.on(dev)
-
-
 def resident_shards(sim):
     """The slot state a sharded run keeps resident per shard (its last
     run's, kept between runs): ``(slots, state, aux)``, each shard's
@@ -4638,16 +4661,6 @@ def sharded_train_pair(state, mesh, make, loss, sharded_only=False,
     return out
 
 
-def sharded_backward_times(f_s, f_u, params, ct):
-    """The whole sharded backward and the unsharded one (CUDA events, the
-    port's backward from one forward's graph)."""
-    t_s = cuda_ms(lambda: torch.autograd.grad(
-        f_s, params, ct, retain_graph=True, allow_unused=True), reps=11)
-    t_u = cuda_ms(lambda: torch.autograd.grad(
-        f_u, params, ct, retain_graph=True, allow_unused=True), reps=11)
-    return t_s, t_u
-
-
 def compare_grads(label, got, want, params):
     scale = max(float(w.abs().max()) for w in want if w is not None)
     err = 0.0
@@ -4669,49 +4682,193 @@ def group_pair_counts(positions, valid, plan, group):
     return tested, inside
 
 
-def group_inputs(layout, tensors, group):
-    """The members' rows of each whole-state tensor in ``tensors`` for a
-    call over ``group`` (views on the state's card, one copy on another)
-    and the global geometry on the group's device."""
+def resident_pack(sim):
+    """The sharded engine's state packed resident per z-slab shard now
+    (its layout's ``SlabSlots``; the pack writes every halo layer):
+    ``(slots, state, aux)``."""
+    from hoomd_tf_tpu_torch.md.state import SlabState
+    slots = sim._slots(sim._ensure_layout())
+    st, aux = slots.pack(sim.state)
+    check(isinstance(st, SlabState) and not bool(aux["overflow"]),
+          "the sharded training state is not resident per shard")
+    return slots, st, aux
+
+
+def members(tensors, grp):
+    """``grp``'s members' buffers of each per-shard list in ``tensors``."""
+    return [[t[s] for s in grp.members] for t in tensors]
+
+
+def shard_cts(slots, ct):
+    """The whole-state cotangent ``ct`` cut as each shard's buffer on its
+    device: its home rows, then the next shard's first home layer in its
+    halo rows (what the resident backward reads there)."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
-    return ([cw.group_buffers(t, layout.plan, group, group.device)
-             for t in tensors], layout.geometry.on(group.device))
+    return [cw.slab_buffer(ct, slots.plan, z0, nzl, dev)
+            for dev, z0, nzl in slots.slabs]
+
+
+def train_step_grads(sim, slots, st, aux):
+    """One training step of ``sim``'s trainer at ``(st, aux)`` (``slots``:
+    the resident shards or the whole layout), its own labels, without the
+    optimizer step: ``(loss, each trainable weight's gradient, the
+    trainer)``."""
+    tr = sim._route(sim._ensure_layout(), st, aux).trainer
+    labels, _ = sim._builtins(st, aux, slots, tr.energy, False)
+    loss, _ = tr.loss(st, aux, slots, labels)
+    grads = torch.autograd.grad(loss, tr.params, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for g, p in zip(grads, tr.params)], tr
+
+
+def first_step_gate(label, shd, ref, one_card, list_route=False):
+    """The first train step on the sharded engine's resident shards
+    against the unsharded engine's on the same state and plan. On one
+    card (``one_card``: a group of every shard is the unsharded kernels'
+    launch) the loss bit for bit, and every weight's gradient too but on
+    the list route (``list_route``), whose joined list is ordered by an
+    atomic counter, so that the MLP's backward sums its lanes in another
+    order: there the gradients at K2's bars. On several cards the loss at
+    rtol 1e-5 and the gradients at K2's bars. Bit-equality is printed
+    either way. Returns the resident pack and the sharded engine's
+    trainer."""
+    slots, st, aux = resident_pack(shd)
+    lay = ref._ensure_layout()
+    check(lay.plan == slots.plan, f"{label}: the unsharded plan differs")
+    wst, waux = slot_state(lay, ref.state)
+    l_s, g_s, tr = train_step_grads(shd, slots, st, aux)
+    l_u, g_u, _ = train_step_grads(ref, lay, wst, waux)
+    same_loss = bool(torch.equal(l_s, l_u))
+    same = same_loss and all(bool(torch.equal(a, b))
+                             for a, b in zip(g_s, g_u))
+    print(f"  {label}: the first train step on the resident shards against "
+          f"the unsharded engine: loss {float(l_s):.9g} / {float(l_u):.9g} "
+          f"(bit for bit: {same_loss}); the loss and {len(g_s)} gradients "
+          f"bit for bit: {same}")
+    if one_card:
+        check(same_loss, f"{label}: the first train step's loss on the "
+              "resident shards differs from the unsharded engine's")
+    else:
+        compare(f"{label}: the first train step's loss", l_s.reshape(1),
+                l_u.reshape(1), rtol=1e-5, atol=0.0)
+    if one_card and not list_route:
+        check(same, f"{label}: the first train step's gradients on the "
+              "resident shards differ from the unsharded engine's")
+    else:
+        compare_grads(f"{label}: the first train step's gradient", g_s,
+                      g_u, tr.params)
+    return slots, st, aux, tr
+
+
+def train_kernels(sim, steps=10):
+    """Device kernels per train step of ``sim.run(steps)`` by
+    torch.profiler, counted between marker kernels as
+    :func:`profiled_calls` counts (a window opens with a host sleep, one
+    uncounted ``run(1)`` and six markers; a window that lost its markers
+    is run again, up to ``PROFILED_TRIES``): ``(kernels a train step, the
+    steps all windows ran, the counted kernels' names)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ran = 0
+    for _ in range(PROFILED_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            sim.run(1)
+            torch.cuda.synchronize()
+            for _ in range(6):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            s0 = sim.train_steps
+            sim.run(steps)
+            n = sim.train_steps - s0
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ran += 1 + steps
+        names = [e.name for e in sorted(
+            prof.events(), key=lambda e: e.time_range.start)
+            if e.device_type == DeviceType.CUDA]
+        marks = [k for k, x in enumerate(names) if "spin_kernel" in x]
+        if len(marks) >= 2 and marks[-1] > marks[-2] + 1:
+            inside = names[marks[-2] + 1:marks[-1]]
+            return len(inside) / n, ran, inside
+    raise RuntimeError(f"torch.profiler lost the markers of "
+                       f"{PROFILED_TRIES} windows")
+
+
+def timed_train(phase, sim, steps):
+    """``sim.run(steps)`` as a main-path run of ``phase`` (:func:`slab_run`),
+    timed on the host clock around synchronizes, the first device's peak
+    memory over it: ``(train steps/s, peak GB, its rise in GB above what
+    stood before the run)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(0)
+    before = torch.cuda.memory_allocated(0)
+    t0 = time.perf_counter()
+    slab_run(phase, sim.run, steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(0)
+    return steps / dt, peak / 1e9, (peak - before) / 1e9
+
+
+def k1_gate(phase, D, steps, field=2, probes=0):
+    """Phase ``phase``'s K1 launches in its main-path runs: all group
+    launches, and ``field`` of ``SLAB_RUNS`` (2: the proxy form, 3: the
+    generic form's groups) ``D`` x its train steps; with ``field`` 3 the
+    generic form launched outside a group once per validation of the
+    lane-separability probe (``probes``, at a replan: on a whole pack of
+    its own, an unsharded call) and at no other time."""
+    n = SLAB_RUNS[phase]
+    check(n[0] == n[1], f"phase {phase} launched K1 outside a group "
+          f"launch: {n}")
+    if field == 3:
+        check(n[4] == n[3] + probes, f"phase {phase} launched the generic "
+              f"form outside a group call other than {probes} probe "
+              f"validation(s): {n}")
+    check(n[field] == D * steps, f"phase {phase}: {n[field]} training "
+          f"forward launches != {D} x {steps} train steps")
 
 
 def phase_sharded_train(state, train_sps):
-    """Phase 32: phase 5's row (the proxy NN, Adam lr 1e-2) trained
-    through ShardedSimulation from phase 5's NVT state: K1's proxy form
-    and K2 in one group launch a card over its shards. Returns K2's group
-    record and K1's proxy-form group record."""
+    """Phase 32: phase 5's row (the proxy NN) trained through
+    ShardedSimulation from phase 5's NVT state on the slot state resident
+    per z-slab shard: the labels, K1's proxy form and K2 in one group
+    launch a card on the shards' own buffers. Returns K2's group record
+    and K1's proxy-form group record."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
-    from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
+    from hoomd_tf_tpu_torch.ops.pair_train import (pair_train_forces,
+                                                   resident_train_forces)
     k2 = pc.proxy_bwd_moments
     mesh, kind = shard_mesh()
     S, D = mesh.size, mesh_devices(mesh)
     print(f"  mesh: {kind}")
     (shd, stfc, sm), (ref, rtfc, rm) = sharded_train_pair(
         state, mesh, make_nn, force_loss, optimizer="sgd")
-    layout = shd._layout
-    plan = layout.plan
-    st, aux = slot_state(layout, shd.state)
+    slots, st, aux, _ = first_step_gate("proxy row", shd, ref, D == 1)
+    layout, plan = slots.layout, slots.plan
+    wst, waux = slot_state(layout, shd.state)
+    geoms = slots.geoms(st)
     fit, ev = sm.proxy_parts(plan.r_cut, "cuda")
     with torch.no_grad():
         coeffs = fit(sm.pair_energy)
     ct = torch.as_tensor(np.random.RandomState(0).randn(
         plan.n_slots, 4).astype(np.float32), device="cuda")
     ct[:, 3] = 0.0  # the train path's forces-only cotangent
-    common = (st.positions, st.types, aux["valid"])
+    cts = shard_cts(slots, ct)
+    resident = (st.positions, st.types, aux["valid"], cts)
     kw = dict(min_r2=sm.min_r2, needs_energy=False)
     whole = torch.cat([g.reshape(-1) for g in k2(
-        *common, ct, plan, layout.lo, ev.basis, geometry=layout.geometry,
-        **kw)])
-    slabs = cw.mesh_slabs(plan, mesh)
-    groups = cw.slab_groups(slabs)
+        wst.positions, wst.types, waux["valid"], ct, plan, layout.lo,
+        ev.basis, geometry=layout.geometry, **kw)])
+    groups = cw.slab_groups(slots.slabs)
     acc, err, rec = None, 0.0, None
     for gi, grp in enumerate(groups):
-        bufs, g = group_inputs(layout, (*common, ct), grp)
+        bufs = members(resident, grp)
+        g = geoms[grp.members[0]]
         args = (*bufs, plan, layout.lo, ev.basis)
         got = torch.cat([x.reshape(-1) for x in k2(
             *args, geometry=g, group=grp, **kw)])
@@ -4719,26 +4876,25 @@ def phase_sharded_train(state, train_sps):
             *args, geometry=g, group=grp, **kw)])
         torch.cuda.synchronize()
         err = max(err, compare(
-            f"K2 group of shards {grp.members} on {grp.device} vs its plain "
-            "version", got, want, rtol=K2_RTOL,
-            atol=K2_ATOL_REL * float(want.abs().max())))
+            f"K2 group of shards {grp.members} on {grp.device}, on their "
+            "resident buffers, vs its plain version", got, want,
+            rtol=K2_RTOL, atol=K2_ATOL_REL * float(want.abs().max())))
         if gi == 0:
             t_k = cuda_ms(lambda: k2(*args, geometry=g, group=grp, **kw))
             t_p = cuda_ms(lambda: pc.proxy_bwd_plain(
                 *args, geometry=g, group=grp, **kw), reps=3)
-            tested, inside = group_pair_counts(st.positions, aux["valid"],
+            tested, inside = group_pair_counts(wst.positions, waux["valid"],
                                                plan, grp)
-            esize = st.positions.element_size()
-            rows = sum(x.shape[0] for x in bufs[0])
+            esize = wst.positions.element_size()
+            rows = group_rows_read(bufs[0], grp)
             nbytes = esize * (rows * (3 + 1 + 4) + got.numel())
             b_ms, b_by = bound(nbytes, 9 * tested +
                                inside * (27 + K_PROXY * (2 + 2)))
-            # shard 0 alone: the group of one with its halo layer (the
-            # slab call this launch replaced)
-            one = cw.slab_groups(slabs, whole=False)[0]
-            obufs, og = group_inputs(layout, (*common, ct), one)
-            oargs = (*obufs, plan, layout.lo, ev.basis)
-            t_one = cuda_ms(lambda: k2(*oargs, geometry=og, group=one, **kw))
+            # shard 0 alone: its group of one on its resident buffer
+            one = cw.slab_groups(slots.slabs, whole=False)[0]
+            oargs = (*members(resident, one), plan, layout.lo, ev.basis)
+            t_one = cuda_ms(lambda: k2(*oargs, geometry=geoms[0], group=one,
+                                       **kw))
             rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                        shard0_ms=t_one)
             print(f"  K2 group launch over shards {grp.members} "
@@ -4750,8 +4906,8 @@ def phase_sharded_train(state, train_sps):
         got = got.to("cuda")
         acc = got if acc is None else acc + got
     torch.cuda.synchronize()
-    fwd = proxy_group_forward(layout, common, groups[0], ev.kernel_form(
-        coeffs), sm.min_r2, S)
+    fwd = proxy_group_forward(slots, st, aux, groups[0], ev.kernel_form(
+        coeffs), sm.min_r2, wst, waux)
     if len(groups) == 1 and len(groups[0].members) == S:
         same = bool(torch.equal(acc, whole))
         print(f"  K2's group of every shard equals the unsharded K2 bit for "
@@ -4763,34 +4919,49 @@ def phase_sharded_train(state, train_sps):
             f"K2 group moments summed over {D} cards vs the unsharded K2",
             acc, whole, rtol=K2_RTOL,
             atol=K2_ATOL_REL * float(whole.abs().max())))
+    # the resident backward (the group calls on the shards' buffers and the
+    # sum) against the unsharded one; the public mesh= keyword on a whole
+    # state (split into shard buffers, the resident form, joined)
     p = {k: v.detach().clone().requires_grad_() for k, v in coeffs.items()}
-    targs = (*common, plan, layout.lo)
-    tkw = dict(min_r2=sm.min_r2, needs_energy=False,
-               geometry=layout.geometry)
-    f_s = pair_train_forces(p, ev, *targs, mesh=mesh, **tkw)
-    f_u = pair_train_forces(p, ev, *targs, **tkw)
     params = [p["c"], p["cd"]]
-    g_s = torch.autograd.grad(f_s, params, ct, retain_graph=True)
+    f_s = resident_train_forces(p, ev, st.positions, st.types, aux["valid"],
+                                plan, layout.lo, mesh, geoms, **kw)
+    targs = (wst.positions, wst.types, waux["valid"], plan, layout.lo)
+    f_u = pair_train_forces(p, ev, *targs, geometry=layout.geometry, **kw)
+    f_m = pair_train_forces(p, ev, *targs, geometry=layout.geometry,
+                            mesh=mesh, **kw)
+    g_s = torch.autograd.grad(f_s, params, cts, retain_graph=True)
     g_u = torch.autograd.grad(f_u, params, ct, retain_graph=True)
-    compare_grads("pair_train_forces(mesh=) coefficient gradient vs "
+    g_m = torch.autograd.grad(f_m, params, ct)
+    compare_grads("resident_train_forces' coefficient gradient vs "
                   "unsharded", g_s, g_u, params)
-    t_s, t_u = sharded_backward_times(f_s, f_u, params, ct)
+    compare_grads("pair_train_forces(mesh=) coefficient gradient vs "
+                  "unsharded", g_m, g_u, params)
+    t_s = cuda_ms(lambda: torch.autograd.grad(
+        f_s, params, cts, retain_graph=True), reps=11)
+    t_u = cuda_ms(lambda: torch.autograd.grad(
+        f_u, params, ct, retain_graph=True), reps=11)
     rec["sharded_ms"] = t_s
-    print(f"  the whole sharded backward (the members' rows of the "
-          f"cotangent, {D} K2 group calls, the sum): {t_s:.4f} ms; "
-          f"unsharded (one K2) {t_u:.4f} ms ({t_s / t_u:.3f}x)")
-    del f_s, f_u
+    print(f"  the whole resident backward ({D} K2 group calls on the "
+          f"shards' buffers, the sum): {t_s:.4f} ms; unsharded (one K2) "
+          f"{t_u:.4f} ms ({t_s / t_u:.3f}x)")
+    del f_s, f_u, f_m, st, aux, wst, waux, cts, resident
 
-    # the main path: 8 steps against the unsharded engine (SGD: Adam's
+    # the main path: 8 SGD steps against the unsharded engine (SGD: Adam's
     # normalized step turns the float32 rounding of a gradient element
     # near zero into steps of up to lr, tests/test_torch_train.py), then
     # phase 5's protocol, Adam, for 400 train steps, host syncs forbidden
-    k2.launches = k2.group_launches = 0
-    steps0, ref0 = shd.train_steps, ref.train_steps
     shd.check_syncs = True
     shd._choose_repack_interval = ref._choose_repack_interval = \
         lambda layout: 3
+    k2.launches = k2.group_launches = 0
+    steps0 = shd.train_steps
     slab_run("32", shd.run, 8)
+    sgd_steps = shd.train_steps - steps0
+    check(k2.group_launches == k2.launches == D * sgd_steps,
+          f"K2 launches {k2.launches} (group {k2.group_launches}) != {D} x "
+          f"{sgd_steps} train steps")
+    resident_shards(shd)
     ref.run(8)
     a, b = np.asarray(stfc.loss_history), np.asarray(rtfc.loss_history)
     worst = float((np.abs(a - b) / (2e-4 * np.abs(b))).max())
@@ -4800,65 +4971,61 @@ def phase_sharded_train(state, train_sps):
           f"the sharded losses left the unsharded ones: {a} {b}")
     close_weights("8 SGD train steps' weights against the unsharded "
                   "engine", sm, rm)
-    sgd_steps = shd.train_steps - steps0
-    ref_steps = ref.train_steps - ref0
     del shd, stfc, sm, ref, rtfc, rm
     (shd, stfc, sm), = sharded_train_pair(state, mesh, make_nn, force_loss,
                                           sharded_only=True)
-    steps0 = shd.train_steps
     shd.check_syncs = True
-    torch.cuda.synchronize()
+    k2.launches = k2.group_launches = 0
+    steps0 = shd.train_steps
     t0 = time.perf_counter()
     slab_run("32", shd.run, 100)
     torch.cuda.synchronize()
     dt_first = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    slab_run("32", shd.run, 300)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    steps = shd.train_steps - steps0 + sgd_steps
+    sps, peak, rise = timed_train("32", shd, 300)
+    per, ran, _ = slab_run("32", train_kernels, shd)
+    steps = shd.train_steps - steps0
     hist = np.asarray(stfc.loss_history)
-    check(len(hist) == 400 <= steps - sgd_steps,
-          f"{len(hist)} losses of committed steps, {steps - sgd_steps} "
-          "attempted")
+    check(len(hist) == 400 + ran <= steps,
+          f"{len(hist)} losses of committed steps, {steps} attempted")
     check(bool(np.isfinite(hist).all()), "non-finite training loss")
     first, last = float(hist[:20].mean()), float(hist[-20:].mean())
     check(last < first, f"the loss did not fall: {first} -> {last}")
     launches = k2.group_launches
-    check(launches == D * steps,
-          f"K2 group launches {launches} != {D} card(s) x {steps} train "
-          "steps")
-    check(k2.launches - launches == ref_steps,
-          f"unsharded K2 launches {k2.launches - launches} != the "
-          f"reference's {ref_steps} train steps")
+    check(launches == k2.launches == D * steps,
+          f"K2 launches {k2.launches} (group {launches}) != {D} card(s) x "
+          f"{steps} train steps")
+    k1_gate("32", D, steps + sgd_steps)
+    resident_shards(shd)
     th = healthy(shd, "sharded train")
-    sps = 300 / dt
-    print(f"  Adam: 400 train steps ({steps - sgd_steps} attempted, the "
-          f"first 100 in {dt_first:.2f} s); loss (20-step windows) "
-          f"{first:.4f} -> {last:.4f}; K2 group launches {launches} == {D} "
-          f"x {steps} (with the 8 SGD steps), K1 launches of the runs "
-          f"(group, all, proxy form) {SLAB_RUNS['32'][:3]}; no host sync "
-          f"in the step loops; T={th['temperature']:.4f}")
+    print(f"  Adam: {len(hist)} train steps ({steps} attempted, the first 100 in "
+          f"{dt_first:.2f} s); loss (20-step windows) {first:.4f} -> "
+          f"{last:.4f}; K2 group launches {launches} == {D} x {steps} == "
+          f"all K2 launches, K1 launches of the runs (group, all, proxy "
+          f"form) {SLAB_RUNS['32'][:3]}, the proxy form {D} a train step; "
+          f"the state resident per shard; no host sync in the step loops; "
+          f"T={th['temperature']:.4f}")
     print(f"  train steps/s {sps:.2f} (run(300)) against phase 5's "
-          f"{train_sps:.2f} ({sps / train_sps:.3f}x), {kind}, on "
-          f"{smi_line()} -- info, not a claim")
-    rec.update(max_abs_err=err, launches=launches)
+          f"{train_sps:.2f} ({sps / train_sps:.3f}x); {per:.1f} kernels a "
+          f"train step (profiler, run(10)); the first card's peak memory "
+          f"{peak:.3f} GB ({rise:.3f} GB above what stood before the run); "
+          f"{kind}, on {smi_line()} -- info, not a claim")
+    rec.update(max_abs_err=err, launches=launches + D * sgd_steps)
     return rec, fwd
 
 
-def proxy_group_forward(layout, common, grp, form, min_r2, S):
+def proxy_group_forward(slots, st, aux, grp, form, min_r2, wst, waux):
     """K1's proxy form in one group launch over ``grp`` on the members'
-    rows of the whole state (``common``: positions, types, valid), as the
-    training forward under a mesh runs it (forces only), against its plain
-    version; its time, its plain version's and its bound (the whole K1's
-    for a group of every shard)."""
+    resident buffers (``st``, ``aux``), as the training forward under a
+    mesh runs it (forces only), against its plain version; its time, its
+    plain version's and its bound (the whole K1's, from the whole state
+    ``wst``, for a group of every shard)."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
-    plan = layout.plan
-    bufs, g = group_inputs(layout, common, grp)
+    plan = slots.plan
+    bufs = members((st.positions, st.types, aux["valid"]), grp)
+    g = slots.geoms(st)[grp.members[0]]
     form = cc.form_on(form, grp.device)
-    args = (*bufs, plan, layout.lo)
+    args = (*bufs, plan, slots.lo)
     kw = dict(min_r2=min_r2, needs_energy=False, geometry=g)
 
     def kernel():
@@ -4868,46 +5035,47 @@ def proxy_group_forward(layout, common, grp, form, min_r2, S):
         return cw.half_stencil_group_plain(*args, form.evaluate, grp, **kw)
     got, want = kernel()[0], plain()[0]
     torch.cuda.synchronize()
-    err = compare(f"K1 proxy form, group of shards {grp.members} on the "
-                  "whole state's rows vs its plain version, forces",
+    err = compare(f"K1 proxy form, group of shards {grp.members} on their "
+                  "resident buffers vs its plain version, forces",
                   torch.cat(got), torch.cat(want))
     t_k, t_p = cuda_ms(kernel), cuda_ms(plain, reps=3)
-    if len(grp.members) == S:
-        nbytes, ops = k1_cost(common[0], common[2], plan, 3, form)
+    if len(grp.members) == len(slots.slabs):
+        nbytes, ops = k1_cost(wst.positions, waux["valid"], plan, 3, form)
     else:
-        tested, inside = group_pair_counts(common[0], common[2], plan, grp)
-        esize = common[0].element_size()
-        nbytes = (sum(x.shape[0] for x in bufs[0]) * esize * (3 + 1 + 4) +
+        tested, inside = group_pair_counts(wst.positions, waux["valid"],
+                                           plan, grp)
+        esize = wst.positions.element_size()
+        nbytes = (group_rows_read(bufs[0], grp) * esize * (3 + 1 + 4) +
                   form.tensor(grp.device).numel() * esize)
         ops = 9 * tested + inside * (8 * form.K + 10 + 9)
     b_ms, b_by = bound(nbytes, ops)
-    print(f"  K1 proxy form, group launch over shards {grp.members} on the "
-          f"whole state's rows (the training forward, forces only): "
+    print(f"  K1 proxy form, group launch over shards {grp.members} on their "
+          f"resident buffers (the training forward, forces only): "
           f"{t_k:.4f} ms, its plain version {t_p:.4f} ms, its bound "
           f"{b_ms:.4f} ms ({b_by})")
     return dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err)
 
 
-def group_bwd_check(label, shd, tr, layout, st, aux, ct, grp, dtype):
-    """generic_reduce_bwd over ``grp``'s joined list on the card against
-    its plain version lane by lane (1e-4 in float32, 1e-10 in float64;
-    the positions and cotangent cast to ``dtype``, and in float64 an
-    analytic pair function): ``(max error, gS, the list, the lane index of
-    the plain list in the kernel's, the lanes needed, the timing
-    closure)``."""
+def group_bwd_check(label, shd, tr, slots, st, aux, cts, grp, dtype):
+    """generic_reduce_bwd over ``grp``'s joined list of its members'
+    resident buffers on the card against its plain version lane by lane
+    (1e-4 in float32, 1e-10 in float64; the positions and cotangent cast
+    to ``dtype``, and in float64 an analytic pair function): ``(max error,
+    gS, the list, the lane index of the plain list in the kernel's, the
+    lanes needed, the timing closures)``."""
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
-    plan = layout.plan
+    plan = slots.plan
     dev = grp.device
-    common = (st.positions.to(dtype), st.types, aux["valid"].to(dtype),
-              ct.to(dtype))
-    bufs, g = group_inputs(layout, common, grp)
-    if dtype == torch.float64:
-        g = cw.SlotGeometry(plan, layout.lo, dtype, dev)
-    rc = (None if layout.rc2_tab is None else layout.rc2_tab.to(dev, dtype))
+    bufs = [[x.to(dtype) if x.is_floating_point() else x for x in b]
+            for b in members((st.positions, st.types, aux["valid"], cts),
+                             grp)]
+    g = (slots.geoms(st)[grp.members[0]] if dtype == torch.float32 else
+         cw.SlotGeometry(plan, slots.lo, dtype, dev))
+    rc = (None if slots.rc2_tab is None else slots.rc2_tab.to(dev, dtype))
     own = cc.LaneBudget(shd._lanes.budget, dev)
-    gl = cc.generic_group_list(*bufs[:3], plan, layout.lo, grp,
+    gl = cc.generic_group_list(*bufs[:3], plan, slots.lo, grp,
                                typed_fn=tr.typed, min_r2=tr.min_r2,
                                rc2_tab=rc, geometry=g, lanes=own,
                                needs_energy=False)
@@ -4916,7 +5084,7 @@ def group_bwd_check(label, shd, tr, layout, st, aux, ct, grp, dtype):
     U, Sv = gl.evaluate(fn)
     cc.generic_reduce(gl, U, Sv, False)
     gU, gS = cc.generic_reduce_bwd(gl, bufs[3], False)
-    joined = cc.generic_group_list_plain(*bufs[:3], plan, layout.lo, grp,
+    joined = cc.generic_group_list_plain(*bufs[:3], plan, slots.lo, grp,
                                          tr.min_r2, rc, g, typed=tr.typed)
     pU, pS = cc.generic_reduce_bwd_plain(joined, bufs[3], bufs[2], plan,
                                          False, group=grp)
@@ -4930,8 +5098,8 @@ def group_bwd_check(label, shd, tr, layout, st, aux, ct, grp, dtype):
         "the group kernel's list and its plain list differ")
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 1e-10
-    name = (f"{label}: generic_reduce_bwd, {dtype}, group {grp.members} gS "
-            "vs its plain version, lane by lane")
+    name = (f"{label}: generic_reduce_bwd, {dtype}, group {grp.members} on "
+            "its resident buffers, gS vs its plain version, lane by lane")
     err = (compare(name, gS[idx], pS, rtol=tol, atol=tol)
            if dtype == torch.float32 else
            f64_compare(name, gS[idx], pS, tol))
@@ -4951,14 +5119,16 @@ def slab_home_cells(plan, grp):
 def phase_sharded_train_generic(state, rates):
     """Phase 33: phases 10-11's non-proxy rows (TrainableNNPair(64),
     TrainableNN(64)) trained through ShardedSimulation from phase 5's NVT
-    state: K1's generic form over each card's shards in one list, the
-    pair function once on the joined list, and generic_reduce_bwd over
-    the group."""
+    state on the slot state resident per z-slab shard: K1's generic form
+    over each card's shards in one list on their own buffers, the pair
+    function once on the joined list, and generic_reduce_bwd over the
+    group."""
     import numpy as np
     from hoomd_tf_tpu_torch.ops import cellwise as cw
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
-    from hoomd_tf_tpu_torch.ops.pair_train import pair_train_forces
-    bwd = cc.generic_reduce_bwd
+    from hoomd_tf_tpu_torch.ops.pair_train import (pair_train_forces,
+                                                   resident_train_forces)
+    bwd, gen = cc.generic_reduce_bwd, cc.generic_pair_forces
     mesh, kind = shard_mesh()
     S, D = mesh.size, mesh_devices(mesh)
     print(f"  mesh: {kind}")
@@ -4967,51 +5137,58 @@ def phase_sharded_train_generic(state, rates):
              rates[0]),
             ("lane", lambda: make_nn_generic(seed=0), "mse", rates[1]))
     for label, make, loss, rate in rows:
-        (shd, tfc, model), = sharded_train_pair(state, mesh, make, loss,
-                                                sharded_only=True)
-        layout = shd._layout
-        plan = layout.plan
-        st, aux = slot_state(layout, shd.state)
-        tr = shd._route(layout, st, aux).trainer
+        (shd, tfc, model), (ref, _, _) = sharded_train_pair(state, mesh,
+                                                            make, loss)
+        slots, st, aux, tr = first_step_gate(f"{label} row", shd, ref,
+                                             D == 1, list_route=True)
+        del ref
         check(tr.kind == label, f"{label} row trained on {tr.kind!r}")
+        layout, plan = slots.layout, slots.plan
+        wst, waux = slot_state(layout, shd.state)
+        geoms = slots.geoms(st)
         ct = torch.as_tensor(np.random.RandomState(0).randn(
             plan.n_slots, 4).astype(np.float32), device="cuda")
         ct[:, 3] = 0.0
-        common = (st.positions, st.types, aux["valid"], plan, layout.lo)
+        cts = shard_cts(slots, ct)
         kw = dict(min_r2=tr.min_r2, rcut_matrix=layout.rc2_tab,
-                  needs_energy=False, geometry=layout.geometry,
-                  with_types=tr.typed)
-        # the first step's weight gradient, sharded against unsharded
-        f_s = pair_train_forces(
-            tr.named, tr.pair_apply, *common, mesh=mesh,
+                  needs_energy=False, with_types=tr.typed)
+        # a weight gradient on the resident shards against the unsharded
+        f_s = resident_train_forces(
+            tr.named, tr.pair_apply, st.positions, st.types, aux["valid"],
+            plan, layout.lo, mesh, geoms,
             lanes=cc.LaneBudget(shd._lanes.budget, "cuda"), **kw)
         f_u = pair_train_forces(
-            tr.named, tr.pair_apply, *common,
+            tr.named, tr.pair_apply, wst.positions, wst.types,
+            waux["valid"], plan, layout.lo, geometry=layout.geometry,
             lanes=cc.LaneBudget(cc.lane_budget(plan, N), "cuda"), **kw)
-        g_s = torch.autograd.grad(f_s, tr.params, ct, retain_graph=True,
+        g_s = torch.autograd.grad(f_s, tr.params, cts, retain_graph=True,
                                   allow_unused=True)
         g_u = torch.autograd.grad(f_u, tr.params, ct, retain_graph=True,
                                   allow_unused=True)
-        compare_grads(f"{label} row: weights' gradient, sharded vs "
+        compare_grads(f"{label} row: weights' gradient, resident vs "
                       "unsharded", g_s, g_u, tr.params)
-        t_s, t_u = sharded_backward_times(f_s, f_u, tr.params, ct)
-        print(f"  {label} row: the whole sharded backward ({D} "
+        t_s = cuda_ms(lambda: torch.autograd.grad(
+            f_s, tr.params, cts, retain_graph=True, allow_unused=True),
+            reps=11)
+        t_u = cuda_ms(lambda: torch.autograd.grad(
+            f_u, tr.params, ct, retain_graph=True, allow_unused=True),
+            reps=11)
+        print(f"  {label} row: the whole resident backward ({D} "
               f"generic_reduce_bwd group calls, the pair function's "
-              f"backward on each card's joined list, the gather's) "
-              f"{t_s:.4f} ms; unsharded {t_u:.4f} ms ({t_s / t_u:.3f}x)")
+              f"backward on each card's joined list) {t_s:.4f} ms; "
+              f"unsharded {t_u:.4f} ms ({t_s / t_u:.3f}x)")
         del f_s, f_u
         # each card's backward kernel against its plain version
-        slabs = cw.mesh_slabs(plan, mesh)
-        groups = cw.slab_groups(slabs)
+        groups = cw.slab_groups(slots.slabs)
         for gi, grp in enumerate(groups):
             e, gS, gl, idx, need, run_k, run_p = group_bwd_check(
-                label, shd, tr, layout, st, aux, ct, grp, torch.float32)
+                label, shd, tr, slots, st, aux, cts, grp, torch.float32)
             err = max(err, e)
             if gi == 0 and len(grp.members) == S:
                 # the group of every shard against the unsharded kernel
-                gl0 = cc.generic_list(st.positions, st.types, aux["valid"],
-                                      plan, layout.lo, typed_fn=tr.typed,
-                                      min_r2=tr.min_r2,
+                gl0 = cc.generic_list(wst.positions, wst.types,
+                                      waux["valid"], plan, layout.lo,
+                                      typed_fn=tr.typed, min_r2=tr.min_r2,
                                       rc2_tab=layout.rc2_tab,
                                       geometry=layout.geometry,
                                       lanes=cc.LaneBudget(gl.budget, "cuda"),
@@ -5020,14 +5197,14 @@ def phase_sharded_train_generic(state, rates):
                 cc.generic_reduce(gl0, U0, S0, False)
                 _, gS0 = bwd(gl0, ct, False)
                 lst0 = cc.generic_list_plain(
-                    st.positions, st.types, aux["valid"], plan, layout.lo,
-                    tr.min_r2, layout.rc2_tab, layout.geometry,
+                    wst.positions, wst.types, waux["valid"], plan,
+                    layout.lo, tr.min_r2, layout.rc2_tab, layout.geometry,
                     typed=tr.typed)
                 idx0 = cc.kernel_lane_index(lst0, gl0.cell_base, plan)
                 same = bool(torch.equal(gS[idx], gS0[idx0]))
                 print(f"  {label} row: generic_reduce_bwd over the group of "
-                      f"every shard equals the unsharded kernel lane by "
-                      f"lane, bit for bit: {same}")
+                      f"every shard on their resident buffers equals the "
+                      f"unsharded kernel lane by lane, bit for bit: {same}")
                 check(same, "generic_reduce_bwd's group of every shard "
                       "differs from the unsharded kernel")
                 del gl0, U0, S0, gS0, lst0, idx0
@@ -5036,22 +5213,21 @@ def phase_sharded_train_generic(state, rates):
                 t_p = cuda_ms(run_p, reps=3)
                 nbytes, ops = bwd_cost(gl, need, False)
                 b_ms, b_by = bound(nbytes, ops)
-                # shard 0 alone, as a group of one (its slab buffers)
-                z0, n = slabs[0][1:]
-                buf, g = slab_buffers(layout, st, aux, mesh, 0, z0, n)
-                c0 = [cw.slab_buffer(ct, plan, z0, n, buf[0].device)]
+                # shard 0 alone, as a group of one on its resident buffer
+                one = cw.slab_groups(slots.slabs, whole=False)[0]
+                buf = members((st.positions, st.types, aux["valid"], cts),
+                              one)
+                dev0 = buf[0][0].device
                 rc = (None if layout.rc2_tab is None else
-                      layout.rc2_tab.to(buf[0].device))
+                      layout.rc2_tab.to(dev0))
                 gl1 = cc.generic_group_list(
-                    *([t] for t in buf), plan, layout.lo,
-                    group_of_one(buf[0], 0, z0, n), typed_fn=tr.typed,
-                    min_r2=tr.min_r2, rc2_tab=rc, geometry=g,
-                    lanes=cc.LaneBudget(shd._lanes.budget, buf[0].device),
+                    *buf[:3], plan, layout.lo, one, typed_fn=tr.typed,
+                    min_r2=tr.min_r2, rc2_tab=rc, geometry=geoms[0],
+                    lanes=cc.LaneBudget(shd._lanes.budget, dev0),
                     needs_energy=False)
-                U1, S1 = gl1.evaluate(shd._on_device(tr.pair_fn,
-                                                     buf[0].device))
+                U1, S1 = gl1.evaluate(shd._on_device(tr.pair_fn, dev0))
                 cc.generic_reduce(gl1, U1, S1, False)
-                t_one = cuda_ms(lambda: bwd(gl1, c0, False))
+                t_one = cuda_ms(lambda: bwd(gl1, buf[3], False))
                 rec = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
                            bound_by=b_by, sharded_ms=t_s, shard0_ms=t_one)
                 print(f"  generic_reduce_bwd group launch over shards "
@@ -5064,37 +5240,48 @@ def phase_sharded_train_generic(state, rates):
             if gi == 0 and label == "pair":
                 # and in double, on the same group (its own list: after
                 # the timings of the float32 list, which it rewrites)
-                e64 = group_bwd_check(label, shd, tr, layout, st, aux, ct,
+                e64 = group_bwd_check(label, shd, tr, slots, st, aux, cts,
                                       grp, torch.float64)[0]
                 err = max(err, e64)
             del gl, gS
-        # the main path: 200 train steps, host syncs forbidden
-        bwd.launches = bwd.group_launches = 0
-        steps0 = shd.train_steps
+        del st, aux, wst, waux, cts, tr
+        # the main path: 220 train steps, host syncs forbidden, replans
+        # left on (each validates the probe anew: counted apart)
         shd.check_syncs = True
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        slab_run("33", shd.run, 200)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        bwd.launches = bwd.group_launches = 0
+        key = f"33-{label}"
+        steps0, probe0 = shd.train_steps, shd.probe_evals
+        slab_run(key, shd.run, 20)
+        sps, peak, rise = timed_train(key, shd, 200)
+        per, ran, _ = slab_run(key, train_kernels, shd)
         steps = shd.train_steps - steps0
+        probes = shd.probe_evals - probe0
         hist = np.asarray(tfc.loss_history)
-        check(len(hist) == 200 <= steps and bool(np.isfinite(hist).all()),
+        check(len(hist) == 220 + ran <= steps and
+              bool(np.isfinite(hist).all()),
               f"{len(hist)} finite losses of committed steps, {steps} "
               "attempted")
         check(bwd.group_launches == D * steps == bwd.launches,
               f"generic_reduce_bwd group launches {bwd.group_launches} "
               f"(all {bwd.launches}) != {D} x {steps} train steps")
+        k1_gate(key, D, steps, field=3, probes=probes)
+        resident_shards(shd)
         launches += bwd.group_launches
         th = healthy(shd, f"sharded train-{label}")
-        print(f"  {label} row: 200 train steps ({steps} attempted), loss "
+        print(f"  {label} row: {len(hist)} train steps ({steps} attempted), "
+              f"loss "
               f"{float(hist[:20].mean()):.4f} -> "
               f"{float(hist[-20:].mean()):.4f}; group launches "
-              f"{bwd.group_launches} == {D} x {steps} == all launches; T="
-              f"{th['temperature']:.4f}; train steps/s {200 / dt:.2f} "
-              f"against phase {10 if label == 'pair' else 11}'s {rate:.2f} "
-              f"({200 / dt / rate:.3f}x) -- info, not a claim")
-        del shd, tfc, model, tr, st, aux
+              f"{bwd.group_launches} == {D} x {steps} == all launches, the "
+              f"generic form's (group, all) {SLAB_RUNS[key][3:]}, "
+              f"{probes} probe validation(s) at a replan; the state "
+              f"resident per shard; no host sync; T={th['temperature']:.4f}; "
+              f"train steps/s {sps:.2f} against phase "
+              f"{10 if label == 'pair' else 11}'s {rate:.2f} "
+              f"({sps / rate:.3f}x); {per:.1f} kernels a train step; the "
+              f"first card's peak memory {peak:.3f} GB ({rise:.3f} above "
+              f"what stood before) -- info, not a claim")
+        del shd, tfc, model
         torch.cuda.empty_cache()
     rec.update(max_abs_err=err, launches=launches)
     return rec
@@ -5708,6 +5895,8 @@ def phase_train_typed(train_sps):
     k1, k2 = cc.half_stencil_pair_forces, pc.proxy_bwd_moments
     sim, model = train_sim_attached(make_typed_nn(), types=mixture_types(N),
                                     lj=ka_lj())
+    # the equilibrated mixture phase 40 trains from
+    start = sim.state
     tfc = sim.tfc
     sim.check_syncs = True
     k1.launches = k1.proxy_launches = k2.launches = 0
@@ -5758,8 +5947,86 @@ def phase_train_typed(train_sps):
           f"untyped {train_sps:.2f} ({sps / train_sps:.3f}x) on "
           f"{smi_line()} -- info, not a claim")
     launches = dict(lj=k1.launches - k1.proxy_launches,
-                    proxy=k1.proxy_launches, k2=k2.launches)
+                    proxy=k1.proxy_launches, k2=k2.launches, sps=sps,
+                    start=start, hist=list(hist))
     return sim, model, launches
+
+
+def phase_sharded_train_typed(start, hist39, sps39):
+    """Phase 40: phase 39's typed proxy training (the 64k 80:20
+    Kob-Andersen mixture, the typed proxy NN from its seed, Adam 1e-2,
+    phase 5's force loss) from phase 39's equilibrated mixture through
+    ShardedSimulation on the slot state resident per z-slab shard: the
+    labels (K1's typed LJ form), K1's typed proxy form and the typed K2 in
+    one group launch a card on the shards' own buffers. The first train
+    step against the unsharded engine's, then 200 train steps and a profiled
+    run(10) with host syncs forbidden, beside phase 39's first steps from the same state
+    and weights (its plan differs: the mesh plans with its divisor).
+    Returns the runs' launches."""
+    import numpy as np
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    k2 = pc.proxy_bwd_moments
+    mesh, kind = shard_mesh()
+    D = mesh_devices(mesh)
+    print(f"  mesh: {kind}")
+    sims = []
+    for m in (mesh, None):
+        if m is None:
+            sim = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                                 integrator=htt.md.NVT(kT=1.5, tau=0.5))
+        else:
+            sim = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=m,
+                                    seed=0)
+        sim.set_state(start)
+        sim.add_force(ka_lj())
+        model = make_typed_nn()
+        model.compile(optimizer="adam", loss=force_loss, learning_rate=1e-2)
+        htt.tfcompute(model).attach(sim, r_cut=R_CUT, nlist="cellwise",
+                                    train=True)
+        sims.append(sim)
+    shd, ref = sims
+    plan = shd._ensure_layout().plan
+    ref._plan_from_current = lambda: plan
+    first_step_gate("typed proxy", shd, ref, D == 1)
+    del ref, sims
+    shd.check_syncs = True
+    k2.launches = k2.group_launches = 0
+    steps0 = shd.train_steps
+    sps, peak, rise = timed_train("40", shd, 200)
+    per, ran, _ = slab_run("40", train_kernels, shd)
+    steps = shd.train_steps - steps0
+    hist = np.asarray(shd.tfc.loss_history)
+    check(len(hist) == 200 + ran <= steps,
+          f"{len(hist)} losses of committed steps, {steps} attempted")
+    check(bool(np.isfinite(hist).all()), "non-finite training loss")
+    first, last = float(hist[:20].mean()), float(hist[-20:].mean())
+    check(last < first, f"the loss did not fall: {first} -> {last}")
+    check(k2.group_launches == k2.launches == D * steps,
+          f"K2 launches {k2.launches} (group {k2.group_launches}) != {D} x "
+          f"{steps} train steps")
+    k1_gate("40", D, steps)
+    resident_shards(shd)
+    th = healthy(shd, "sharded train-typed")
+    n_b = int((shd.state.types == 1).sum())
+    curve = [round(float(hist[a:a + 50].mean()), 4) for a in range(0, 200,
+                                                                   50)]
+    curve39 = [round(float(np.mean(hist39[a:a + 50])), 4)
+               for a in range(0, 200, 50)]
+    print(f"  plan grid {plan.grid} cap {plan.capacity}; {N - n_b} A, {n_b} "
+          f"B; loss (means of 50 steps) {curve}, phase 39's first 200 "
+          f"{curve39} (its plan grid differs); 20-step windows {first:.4f} "
+          f"-> {last:.4f}; K2 group launches {k2.group_launches} == {D} x "
+          f"{steps} == all K2 launches; K1 launches of the runs (group, "
+          f"all, proxy form) {SLAB_RUNS['40'][:3]}; the state resident per "
+          f"shard; no host sync; T={th['temperature']:.4f}")
+    print(f"  typed train steps/s {sps:.2f} (run(200)) against phase 39's "
+          f"{sps39:.2f} ({sps / sps39:.3f}x); {per:.1f} kernels a train "
+          f"step; the first card's peak memory {peak:.3f} GB ({rise:.3f} GB "
+          f"above what stood before the run); {kind}, on {smi_line()} -- "
+          f"info, not a claim")
+    n = SLAB_RUNS["40"]
+    return dict(lj=n[0] - n[2], proxy=n[2], k2=k2.group_launches)
 
 
 def timed_call(label, fn, plain, cost, peak=PEAK_F32_PER_S, plain_reps=5):
@@ -6202,6 +6469,8 @@ def main():
     t39 = time.perf_counter()
     tsim, tmodel, tl = phase_train_typed(train_sps)
     k1_lj["launches"] += tl["lj"]
+    print(f"  phase 39: {train_kernels(tsim)[0]:.1f} kernels a train step "
+          f"(profiler, run(10)) -- info")
     k1_typed, k2_typed = phase_train_typed_kernels(tsim, tmodel)
     k1_typed["launches"], k2_typed["launches"] = tl["proxy"], tl["k2"]
     k2_typed64 = phase_train_typed_f64(tsim)
@@ -6212,6 +6481,17 @@ def main():
     del tsim, tmodel
     torch.cuda.empty_cache()
     print(f"  phase 39: {time.perf_counter() - t39:.1f} s")
+    print("[40 sharded train-typed] phase 39's typed proxy training through "
+          "ShardedSimulation on the resident shards: the typed K1 and K2 "
+          "in one group launch a card")
+    t40 = time.perf_counter()
+    l40 = phase_sharded_train_typed(tl["start"], tl["hist"], tl["sps"])
+    k1_group["launches"] += l40["lj"]
+    k1_px_group["launches"] += l40["proxy"]
+    k2_slab["launches"] += l40["k2"]
+    del tl
+    torch.cuda.empty_cache()
+    print(f"  phase 40: {time.perf_counter() - t40:.1f} s")
     check("jax" not in sys.modules, "JAX was imported")
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
@@ -6278,16 +6558,16 @@ def main():
                   "shard0_ms: shard 0 alone as a group of one; launches: "
                   "group launches of phases 29 and 34 and the LJ form's "
                   "group launches in the mesh routes' runs of phases "
-                  "32-38)",
+                  "32-38 and 40)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **k1_group),
         dict(name="K1 Chebyshev-proxy form, group launch over the shards "
                   "of one card (half_stencil_group_forces; ms, plain_ms, "
-                  "bound_ms: phase 32's training forward on the members' "
-                  "rows of the whole state, its plain version and its "
-                  "bound; launches: the proxy form's group launches in "
-                  "phase 32's training runs)",
+                  "bound_ms: phase 32's training forward on the shards' "
+                  "resident buffers, its plain version and its bound; "
+                  "launches: the proxy form's group launches in the "
+                  "training runs of phases 32 and 40, typed in 40)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_half.cu",
              replaces="hoomd_tf_tpu/ops/cellwise_pallas.py:640 (the mesh "
                       "wrapper of the pallas_call at :629)", **k1_px_group),
@@ -6306,11 +6586,12 @@ def main():
         dict(name="K2 Chebyshev-proxy backward moments, group launch over "
                   "the shards of one card (proxy_bwd_moments(group=); ms, "
                   "plain_ms, bound_ms: phase 32's group call with the "
-                  "forces-only cotangent, its plain version and its bound; "
-                  "shard0_ms: shard 0 alone as a group of one, the slab "
-                  "call it replaced; sharded_ms: phase 32's whole sharded "
-                  "backward, the members' rows, the group calls and the "
-                  "sum; launches: group launches of phase 32's training)",
+                  "forces-only cotangent on the shards' resident buffers, "
+                  "its plain version and its bound; shard0_ms: shard 0 "
+                  "alone as a group of one; sharded_ms: phase 32's whole "
+                  "resident backward, the group calls and the sum; "
+                  "launches: group launches of the training of phases 32 "
+                  "and 40, typed in 40)",
              source="hoomd_tf_tpu_torch/csrc/proxy_bwd.cu",
              replaces="hoomd_tf_tpu/ops/pair_train.py:161 (the XLA lane "
                       "contraction the JAX package takes for a proxy under "
@@ -6321,8 +6602,8 @@ def main():
                   "card (generic_reduce_bwd on a group's joined list; ms, "
                   "plain_ms, bound_ms: phase 33's pair row's group call, "
                   "its plain version and its bound; shard0_ms: shard 0's "
-                  "slab list as a group of one; sharded_ms: the pair row's "
-                  "whole sharded backward with the pair function's; "
+                  "list as a group of one; sharded_ms: the pair row's "
+                  "whole resident backward with the pair function's; "
                   "launches: group launches of phase 33's training, both "
                   "rows)",
              source="hoomd_tf_tpu_torch/csrc/cellwise_generic.cu",

@@ -74,12 +74,18 @@ written out), the integrators run per shard with the thermostat's and
 barostat's sums added over the shards, each shard repacks its own rows
 with the particles of its neighbours' boundary layers (the migrating
 repack), and the particle-order state is gathered on the mesh's first
-device at the run's end only. Online training, a mapped model and a
-SimModel the probe rejects keep the whole slot state on the first device
-and split their pair work instead (:func:`..ops.cellwise.
+device at the run's end only. Online training of the ``'proxy'``,
+``'pair'`` and ``'lane'`` branches keeps its state so too: the labels,
+K1's forward and the backward (K2, or ``generic_reduce_bwd``) run one
+group call a device on the shards' own buffers
+(:func:`..ops.pair_train.resident_train_forces`), and the loss reads the
+shards' home rows joined on the first device for the step; the
+optimizer, the loss buffer and the weights stay there. A mapped model
+and a SimModel the probe rejects (outside training, or as training's
+``'planes'`` branch) keep the whole slot state on the first device and
+split their pair work instead (:func:`..ops.cellwise.
 analytic_pair_forces` with ``mesh=``, one group call a device; the
-backward one a device through :func:`..ops.pair_train.pair_train_forces`;
-the planes built per shard).
+planes built per shard).
 The packed routes keep the particle-order state whole: on ``'n2'`` the
 dense build is split into contiguous particle rows, on the cell list
 into z-slabs of cells (kernel K3's group mode on the card, one launch a
@@ -166,15 +172,17 @@ class Simulation:
         logging act per shard, the sums of the thermostat, the barostat
         and the log added on the first device; each shard repacks its own
         rows (the migrating repack); the shards stay between runs and the
-        particle-order state is gathered at a run's end. Online training,
-        a mapped model and the planes route of a SimModel the probe
-        rejects keep the whole slot state on the first device instead:
-        each device makes one group call over its shards on its rows of
-        that state (views on the first device, one copy on another), the
-        training backward too (K2's group mode, or one list, one
-        pair-function call and ``generic_reduce_bwd`` over the group),
-        the planes are built per shard and the model runs once on all
-        rows. On ``'n2'`` each shard builds the dense list of its
+        particle-order state is gathered at a run's end. Online training
+        on its proxy, pair and lane branches keeps the state so too: the
+        labels, the forward and the backward (K2's group mode, or one
+        list, one pair-function call and ``generic_reduce_bwd`` over the
+        group) run on each device's shards, the loss and the optimizer
+        on the first device. A mapped model and the planes route of a
+        SimModel the probe rejects (training's planes branch too) keep
+        the whole slot state on the first device instead: each device
+        makes one group call over its shards on its rows of that state
+        (views on the first device, one copy on another), the planes are
+        built per shard and the model runs once on all rows. On ``'n2'`` each shard builds the dense list of its
         contiguous particle rows on its device, on ``'cell'`` /
         ``'pallas'`` each device selects the rows of its shards' z-slabs
         of cells in one call (K3's group mode on the card, or the sort
@@ -768,20 +776,40 @@ class Simulation:
 
     def _slots(self, layout):
         """What the step loop keeps the slot state in: under a mesh, on
-        every route but online training, a mapped model and the planes
-        route (a SimModel the probe rejects), the layout's shards
-        (:meth:`.slots.SlotLayout.resident`, each shard's rows resident on
-        its device); else ``layout`` itself (the whole state on the
-        simulation's device)."""
+        every route but a mapped model and the planes route (a SimModel
+        the probe rejects, outside training or as training's ``'planes'``
+        branch), the layout's shards (:meth:`.slots.SlotLayout.resident`,
+        each shard's rows resident on its device); else ``layout`` itself
+        (the whole state on the simulation's device)."""
         if not self._sharded():
             return layout
         tfc = self.tfc
-        whole = tfc is not None and (
-            tfc.train or tfc.map_enabled or
-            (not isinstance(tfc.model, PairModel) and
-             tfc.model.output_forces and not self._probe_lane_fast(layout)))
+        if tfc is None:
+            whole = False
+        elif tfc.map_enabled:
+            whole = True
+        elif tfc.train:
+            whole = self._train_kind(layout) == "planes"
+        else:
+            whole = (not isinstance(tfc.model, PairModel) and
+                     tfc.model.output_forces and
+                     not self._probe_lane_fast(layout))
         return layout if whole else layout.resident(self.mesh,
                                                     self.shard_axis)
+
+    def _train_kind(self, layout, st=None, aux=None):
+        """The :class:`_Trainer` branch of the attached training model:
+        ``'proxy'`` or ``'pair'`` for a PairModel, ``'lane'`` for a
+        SimModel the probe validates with one output, else ``'planes'``
+        (the probe validates on ``st`` when given, else on a whole pack of
+        its own, :meth:`_probe_lane_fast`)."""
+        model = self.tfc.model
+        if isinstance(model, PairModel):
+            return "proxy" if model.proxy_degree else "pair"
+        if self._probe_lane_fast(layout, st, aux) and \
+                self.tfc._lane_fast_report.get("n_outputs") == 1:
+            return "lane"
+        return "planes"
 
     # ------------------------------------------------------------------
     # the step
@@ -1950,24 +1978,26 @@ class _Trainer(_TrainState):
     :func:`..ops.pair_train.pair_train_forces`, which runs K1's generic
     form with the backward kernel ``generic_reduce_bwd`` on CUDA; on the
     CPU it takes the lane contraction, the oracle, or with
-    ``stencil='kernel'`` the list route's plain versions. Per training
-    step: the loss against the labels, one optimizer step, the weights'
-    constraints, all on the device."""
+    ``stencil='kernel'`` the list route's plain versions. On a state
+    resident per shard under a mesh the analytic branches take
+    :func:`..ops.pair_train.resident_train_forces` instead, on each
+    shard's buffers. Per training step: the loss against the labels, one
+    optimizer step, the weights' constraints, all on the (first)
+    device."""
 
     def __init__(self, sim, layout, st, aux):
         super().__init__(sim)
         tfc, model = self.tfc, self.model
         self.cols = 4
         self.typed, self.min_r2 = True, 1e-4
+        # a resident state's branch was chosen before the pack (_slots),
+        # on a whole pack of the probe's own
+        self.kind = (sim._train_kind(layout) if isinstance(st, SlabState)
+                     else sim._train_kind(layout, st, aux))
         if isinstance(model, PairModel):
-            self.kind = "proxy" if model.proxy_degree else "pair"
             self.typed, self.min_r2 = model.pair_with_types, model.min_r2
-        elif sim._probe_lane_fast(layout, st, aux) and \
-                tfc._lane_fast_report.get("n_outputs") == 1:
-            self.kind = "lane"
+        elif self.kind == "lane":
             self.cols = min(int(tfc._lane_fast_report["cols"]), 4)
-        else:
-            self.kind = "planes"
         # the energy channel: when the loss reads the prediction's column
         # 3, or a saved output is the prediction itself
         self.energy = self.cols == 4 and (
@@ -1992,45 +2022,64 @@ class _Trainer(_TrainState):
 
     def forces(self, st, aux, layout):
         """The analytic branches' ``forces4``, differentiable in the
-        weights."""
-        from ..ops.pair_train import pair_train_forces
+        weights: of the whole slot state, or on a state resident per shard
+        (:class:`.state.SlabState`) each shard's
+        (:func:`..ops.pair_train.resident_train_forces`)."""
+        from ..ops.pair_train import pair_train_forces, resident_train_forces
         model, sim = self.model, self.sim
         kw = dict(min_r2=self.min_r2, rcut_matrix=layout.rc2_tab,
-                  needs_energy=self.energy, geometry=layout.geom(st),
-                  mesh=sim.mesh, shard_axis=sim.shard_axis)
-        args = (st.positions, st.types, aux["valid"], layout.plan,
+                  needs_energy=self.energy, with_types=self.typed,
+                  fwd_stencil=sim.stencil)
+        if isinstance(st, SlabState):
+            fn, args = resident_train_forces, (
+                st.positions, st.types, aux["valid"], layout.plan,
+                layout.lo, layout.mesh, layout.geoms(st))
+            kw["shard_axis"] = layout.shard_axis
+        else:
+            fn, args = pair_train_forces, (
+                st.positions, st.types, aux["valid"], layout.plan,
                 layout.lo)
+            kw["geometry"] = layout.geom(st)
         if self.kind == "proxy":
-            return pair_train_forces(
-                self.fit(model.pair_energy), self.evaluate, *args,
-                with_types=self.typed, fwd_stencil=sim.stencil, **kw)
-        return pair_train_forces(self.named, self.pair_apply, *args,
-                                 with_types=self.typed,
-                                 fwd_stencil=sim.stencil,
-                                 bwd_impl=self.bwd_impl, lanes=sim._lanes,
-                                 **kw)
+            return fn(self.fit(model.pair_energy), self.evaluate, *args,
+                      **kw)
+        return fn(self.named, self.pair_apply, *args, bwd_impl=self.bwd_impl,
+                  lanes=sim._lanes, **kw)
 
-    def step(self, st, aux, layout, labels, i):
+    def loss(self, st, aux, layout, labels):
+        """One training step's loss against ``labels`` (with grad) and the
+        outputs the driver captures; counts the model's force evaluation.
+        On a resident state the loss reads every shard's home rows of the
+        prediction and the labels, joined in global slot order on the
+        first device for this step (the join's backward hands each shard
+        its rows)."""
         model, sim, tfc = self.model, self.sim, self.tfc
         with torch.enable_grad():
             if self.kind == "planes":
                 out = model([sim._planes(st, aux, layout), st.positions4,
                              st.box], training=True)
-                loss = model.compute_loss(out, labels)
-                extras = out[tfc.output_offset:]
+                return (model.compute_loss(out, labels),
+                        out[tfc.output_offset:])
+            pred = self.forces(st, aux, layout)
+            if isinstance(st, SlabState):
+                pred = layout.whole([f[:, :self.cols] for f in pred])
+                labels = layout.whole(labels)
             else:
-                pred = self.forces(st, aux, layout)[:, :self.cols]
-                loss = model.compute_loss([pred], labels)
-                extras = (pred,) if tfc.output_offset == 0 else ()
-                sim.force_evals += 1
-        sim.train_steps += 1
+                pred = pred[:, :self.cols]
+            sim.force_evals += 1
+            return (model.compute_loss([pred], labels),
+                    (pred,) if tfc.output_offset == 0 else ())
+
+    def step(self, st, aux, layout, labels, i):
+        loss, extras = self.loss(st, aux, layout, labels)
+        self.sim.train_steps += 1
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
-        model.apply_constraints(self.params)
+        self.model.apply_constraints(self.params)
         self.losses[i] = loss.detach()
         self.trained.append(i)
-        tfc.capture(extras)
+        self.tfc.capture(extras)
 
 
 def _loss_consumes_energy(model):

@@ -1180,7 +1180,7 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
                          geometries, shard_axis=None, needs_virial=False,
                          min_r2=1e-4, with_types=False, rcut_matrix=None,
                          stencil="auto", needs_energy=True, form=None,
-                         lanes=None, shard_fn=None):
+                         lanes=None, shard_fn=None, group_call=None):
     """:func:`analytic_pair_forces` on a slot state resident per z-slab
     shard of ``mesh`` (:class:`..md.slots.SlabSlots`): the shards are
     partitioned by device (:func:`slab_groups`), and each device makes one
@@ -1198,7 +1198,9 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
     positions in its halo layer (the types' and ``valid``'s halo rows
     change at a repack only, which writes them); after them, its halo-layer
     output (the reverse halo) is added into that shard's first home layer
-    on its device, and its halo rows are zeroed. The last shard's next is
+    on its device, and its halo rows are zeroed, both out of place (a
+    group's outputs may be views of one tensor, and may carry a graph:
+    training's list route). The last shard's next is
     shard 0. The ``'half'`` and ``'full'`` stencils run K1's slab plain
     version per shard, every shard exchanging so.
 
@@ -1211,13 +1213,18 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
     :param lanes: as :func:`analytic_pair_forces`' (each shard's share of
         the generic form's list; a group's list holds its shards' shares).
     :param shard_fn: as :func:`analytic_pair_forces`'.
+    :param group_call: ``group_call(bufs, group, geometry) -> forces4``, a
+        device's call on its members' buffers ``bufs = (positions, types,
+        valid)`` in place of K1's (training's list route,
+        :func:`.cellwise_cuda.generic_group_train_forces`); no virial.
     :returns: ``(forces4, virial or None)``: lists of each shard's buffer
         rows, the halo rows zero.
     """
     axis = shard_axis or mesh.axis_names[0]
     slabs = mesh_slabs(plan, mesh, axis)
     S = len(slabs)
-    _check_pair_fn(form, stencil, pair_fn)
+    if group_call is None:
+        _check_pair_fn(form, stencil, pair_fn)
     if stencil not in ("auto", "kernel", "half", "full"):
         raise ValueError(f"unknown stencil {stencil!r}")
     primary = positions[0].device
@@ -1229,11 +1236,15 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
     fs, ws = [None] * S, [None] * S
     for g in groups:
         m = g.members
-        fn = pair_fn if shard_fn is None else shard_fn(g.device)
-        f, w = _group_forces(
-            [[t[s] for s in m] for t in (positions, types, valid)], plan, lo,
-            fn, g, needs_virial, min_r2, with_types, rcut_matrix, stencil,
-            needs_energy, form, geometries[m[0]], lanes, primary)
+        bufs = [[t[s] for s in m] for t in (positions, types, valid)]
+        if group_call is not None:
+            f, w = group_call(bufs, g, geometries[m[0]]), None
+        else:
+            fn = pair_fn if shard_fn is None else shard_fn(g.device)
+            f, w = _group_forces(
+                bufs, plan, lo, fn, g, needs_virial, min_r2, with_types,
+                rcut_matrix, stencil, needs_energy, form, geometries[m[0]],
+                lanes, primary)
         for k, s in enumerate(m):
             fs[s] = f[k]
             ws[s] = None if w is None else w[k]
@@ -1241,10 +1252,13 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
         if t is None:
             continue
         for s in sends:
-            nxt = t[(s + 1) % S]
-            nxt[:layer] += to_device(t[s][-layer:], nxt.device)
+            n = (s + 1) % S
+            t[n] = torch.cat([t[n][:layer] + to_device(t[s][-layer:],
+                                                       t[n].device),
+                              t[n][layer:]])
         for s in sends:
-            t[s][-layer:] = 0
+            t[s] = torch.cat([t[s][:-layer],
+                              t[s].new_zeros(t[s][-layer:].shape)])
     return fs, (ws if needs_virial else None)
 
 
@@ -1304,8 +1318,9 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     one copy on another) and makes one group call of K1 over them, and
     the forces are gathered on the state's device with the reverse halos
     between devices added (:func:`gather_groups`): the form of the routes
-    that keep the whole slot state (training, mapped models); a state
-    resident per shard takes :func:`resident_pair_forces`. A one-shard
+    that keep the whole slot state (mapped models, training's planes
+    branch); a state resident per shard takes
+    :func:`resident_pair_forces`. A one-shard
     mesh takes the unsharded call.
 
     :param pair_fn: ``U(r2[, ti, tj]) -> (U, dU/dr2)`` per lane (a torch

@@ -25,24 +25,27 @@ the CPU the generic lane contraction, ``torch.autograd.grad`` of the
 weighted sum, is the oracle; ``bwd_impl='list'`` takes the list route's
 plain version there.
 
-Under a device mesh (``mesh=``, the JAX signature) the shards are
-partitioned by device (:func:`.cellwise.slab_groups`) and everything
-runs once per device, over the home cells of its shards: the forward is
-:func:`.cellwise.analytic_pair_forces` over the mesh (one group call of
-K1 a device), and the backward takes the members' rows of the state and
-of the forces' cotangent (:func:`.cellwise.group_buffers`: views on the
-state's device, one copy on another; a member's forward halo is read in
-place from the next member, or, where that shard lies on another device,
-from its halo rows, which carry the next shard's cotangent where its
-reverse halo was added). The devices' gradients are summed on the
-state's device in device order. Each unordered pair belongs to one home
-cell's half stencil, so the sum is the whole state's gradient. A proxy
-takes K2's group mode (one launch pair a device); the list route lists
-once a device, runs the pair function once on the joined list and takes
+On a slot state resident per z-slab shard of a mesh (the engine's
+training under ``Simulation(mesh=)``, :class:`..md.slots.SlabSlots`),
+:func:`resident_train_forces` takes each shard's own buffers and runs
+once per device over the home cells of its shards (the shards
+partitioned by device, :func:`.cellwise.slab_groups`): the forward is
+:func:`.cellwise.resident_pair_forces` (one group call of K1 a device,
+in the proxy form or the generic form); a proxy's backward is one K2
+group launch pair a device on the members' buffers in place, where a
+shard whose next shard lies on another device reads, in its halo rows,
+that shard's first home layer of the forces' cotangent (the backward of
+the forward's reverse-halo add); the list route lists once a device,
+runs the pair function once on the joined list with grad and takes
 ``generic_reduce_bwd`` over the group
-(:func:`.cellwise_cuda.generic_group_train_forces`); the CPU contraction
-runs per shard on its slab buffers. No route gathers the state for an
-unsharded backward.
+(:func:`.cellwise_cuda.generic_group_train_forces`) as the group call
+of :func:`.cellwise.resident_pair_forces`; the CPU contraction runs per shard on its slab
+buffer. The devices' gradients are summed on the first shard's device
+in device order. Each unordered pair belongs to one home cell's half
+stencil, so the sum is the whole state's gradient, and nothing of the
+whole state is made. :func:`pair_train_forces` with ``mesh=`` (the JAX
+signature) splits a whole state into those buffers and joins the home
+rows of the result.
 
 Geometry inputs (positions, types, validity) get no gradient: neighbor
 membership is piecewise constant and training never differentiates the
@@ -79,9 +82,9 @@ class _PairTrain(torch.autograd.Function):
         return run.forward([t.detach() for t in tensors])
 
     @staticmethod
-    def backward(ctx, ct):
+    def backward(ctx, *cts):
         return (None,) + tuple(ctx.run.backward(list(ctx.saved_tensors),
-                                                ct))
+                                                *cts))
 
 
 @dataclasses.dataclass
@@ -101,10 +104,10 @@ class _Run:
     fwd_stencil: str
     bwd_impl: str
     geometry: object
-    mesh: object = None
-    shard_axis: object = None
-    #: ``[(device, z0, nzl), ...]`` of a mesh of two shards or more
-    shards: list = None
+
+    @property
+    def dtype(self):
+        return self.positions.dtype
 
     def unflatten(self, tensors):
         return dict(zip(self.keys, tensors))
@@ -121,69 +124,29 @@ class _Run:
         return {k: v if v.device == device else to_device(v, device)
                 for k, v in p.items()}
 
-    def forward(self, tensors):
-        p = self.unflatten(tensors)
-        form = None
+    def form(self, p):
+        """The evaluator's kernel form of ``p`` for K1, or ``None``."""
         if self.fwd_stencil in ("auto", "kernel") and \
                 hasattr(self.pair_apply, "kernel_form"):
-            form = self.pair_apply.kernel_form(p)
+            return self.pair_apply.kernel_form(p)
+        return None
+
+    def forward(self, tensors):
+        p = self.unflatten(tensors)
         f4, _ = _cw.analytic_pair_forces(
             self.positions, self.types, self.valid, self.plan, self.lo,
             self.bind(p), needs_virial=False, min_r2=self.min_r2,
             with_types=self.with_types, rcut_matrix=self.rcut_matrix,
             stencil=self.fwd_stencil, needs_energy=self.needs_energy,
-            form=form, geometry=self.geometry, mesh=self.mesh,
-            shard_axis=self.shard_axis,
-            shard_fn=lambda dev: self.bind(self.on_device(p, dev)))
+            form=self.form(p), geometry=self.geometry)
         return f4
-
-    def shard_inputs(self, ct, shard):
-        """``(positions, types, valid, ct, geometry, rcut_matrix, slab)``
-        of the contraction on the whole state (``shard`` ``None``) or on a
-        shard ``(device, z0, nzl)``: its slab buffers on its device."""
-        if shard is None:
-            return (self.positions, self.types, self.valid, ct,
-                    self.geometry, self.rcut_matrix, None)
-        dev, z0, nzl = shard
-        bufs = [_cw.slab_buffer(t, self.plan, z0, nzl, dev)
-                for t in (self.positions, self.types, self.valid, ct)]
-        geometry = _cw._as_geometry(self.plan, self.lo, self.positions,
-                                    self.geometry).on(dev)
-        rc = (None if self.rcut_matrix is None else
-              to_device(self.rcut_matrix, dev))
-        return (*bufs, geometry, rc, (z0, nzl))
 
     def backward(self, tensors, ct):
         params = self.unflatten(tensors)
-        if self.shards is None:
-            if self.uses_k2(params):
-                return self._k2(params, self.positions, self.types,
-                                self.valid, ct, self.geometry,
-                                self.rcut_matrix, None)
-            return self._contract(tensors, ct)
-        primary = self.positions.device
         if self.uses_k2(params):
-            # one launch pair a device over its shards
-            parts = []
-            for g in _cw.slab_groups(self.shards):
-                bufs = [_cw.group_buffers(t, self.plan, g, g.device)
-                        for t in (self.positions, self.types, self.valid,
-                                  ct)]
-                geometry = _cw._as_geometry(
-                    self.plan, self.lo, self.positions,
-                    self.geometry).on(g.device)
-                rc = (None if self.rcut_matrix is None else
-                      to_device(self.rcut_matrix, g.device))
-                parts.append(self._k2(params, *bufs, geometry, rc, g))
-        else:
-            parts = [self._contract(tensors, ct, shard=shard)
-                     for shard in self.shards]
-        grads = None
-        for part in parts:
-            part = [to_device(g, primary) for g in part]
-            grads = part if grads is None else [
-                a + b for a, b in zip(grads, part)]
-        return grads
+            return self._k2(params, self.positions, self.types, self.valid,
+                            ct, self.geometry, self.rcut_matrix, None)
+        return self._contract(tensors, ct)
 
     def _k2(self, params, positions, types, valid, ct, geometry, rc,
             group):
@@ -205,17 +168,22 @@ class _Run:
         basis = getattr(self.pair_apply, "basis", None)
         return (self.bwd_impl == "auto" and basis is not None and
                 _params_match_basis(params, basis) and
-                self.positions.dtype in (torch.float32, torch.float64))
+                self.dtype in (torch.float32, torch.float64))
 
-    def _contract(self, tensors, ct, chunk_lanes=None, shard=None):
+    def _contract(self, tensors, ct, chunk_lanes=None, slab=None):
         """The generic lane contraction over the half lane set
         (``pair_train.py:161-233``), in chunks of cells of about
         ``chunk_lanes`` lanes (default ``_CONTRACT_LANES``), the weights'
-        gradients summed; of a shard's home cells, on its device and from
-        its slab buffers, with ``shard = (device, z0, nzl)``."""
+        gradients summed: over the whole state, or with ``slab = (
+        positions, types, valid, geometry, rc2 table, (z0, nzl))`` over a
+        z-slab shard's home cells from its slab buffers (``ct`` cut so
+        too), on their device."""
         plan = self.plan
-        positions, types, valid, ct, geometry, rcut_matrix, slab = \
-            self.shard_inputs(ct, shard)
+        if slab is None:
+            positions, types, valid = self.positions, self.types, self.valid
+            geometry, rcut_matrix = self.geometry, self.rcut_matrix
+        else:
+            positions, types, valid, geometry, rcut_matrix, slab = slab
         dtype, dev = positions.dtype, positions.device
         cap = plan.capacity
         C = len(_HALF_OFFS) * cap
@@ -290,6 +258,102 @@ class _Run:
 _CONTRACT_LANES = 1 << 24
 
 
+@dataclasses.dataclass
+class _ResidentRun(_Run):
+    """The constants of one :func:`resident_train_forces` call:
+    ``positions``, ``types``, ``valid`` and ``geometry`` are each shard's
+    (lists in shard order), ``slabs`` the mesh's ``(device, z0, nzl)``."""
+    mesh: object = None
+    shard_axis: object = None
+    slabs: list = None
+
+    @property
+    def dtype(self):
+        return self.positions[0].dtype
+
+    @property
+    def layer(self):
+        return _cw.halo_layer(self.plan)
+
+    def forward(self, tensors):
+        p = self.unflatten(tensors)
+        fs, _ = _cw.resident_pair_forces(
+            self.positions, self.types, self.valid, self.plan, self.lo,
+            self.bind(p), self.mesh, self.geometry, self.shard_axis,
+            min_r2=self.min_r2, with_types=self.with_types,
+            rcut_matrix=self.rcut_matrix, stencil=self.fwd_stencil,
+            needs_energy=self.needs_energy, form=self.form(p),
+            shard_fn=lambda dev: self.bind(self.on_device(p, dev)))
+        return tuple(fs)
+
+    def with_halo(self, ts, s):
+        """Shard ``s``'s buffer of the per-shard ``ts`` with the next
+        shard's first home layer in its halo rows (of the forces'
+        cotangent: where the forward's reverse halo was added), a new
+        tensor: the callers' tensors stay as they are."""
+        L, dev = self.layer, ts[s].device
+        return torch.cat([ts[s][:-L], to_device(ts[(s + 1) % len(ts)][:L],
+                                                dev)])
+
+    def backward(self, tensors, *cts):
+        params = self.unflatten(tensors)
+        if self.uses_k2(params):
+            # one launch pair a device over its members' buffers in place;
+            # a member whose next shard is on another device reads that
+            # shard's first layer of the cotangent in its halo rows
+            parts = []
+            for g in _cw.slab_groups(self.slabs):
+                m = g.members
+                ct = [self.with_halo(cts, s) if n < 0 else cts[s]
+                      for s, n in zip(m, g.next)]
+                rc = (None if self.rcut_matrix is None else
+                      to_device(self.rcut_matrix, g.device))
+                parts.append(self._k2(
+                    params, [self.positions[s] for s in m],
+                    [self.types[s] for s in m], [self.valid[s] for s in m],
+                    ct, self.geometry[m[0]], rc, g))
+        else:
+            # the CPU's oracle: the lane contraction per shard on its slab
+            # buffer (the next shard's first layer in its halo rows)
+            parts = []
+            for s, (dev, z0, nzl) in enumerate(self.slabs):
+                rc = (None if self.rcut_matrix is None else
+                      to_device(self.rcut_matrix, dev))
+                parts.append(self._contract(
+                    tensors, self.with_halo(cts, s), slab=(
+                        *(self.with_halo(t, s) for t in (
+                            self.positions, self.types, self.valid)),
+                        self.geometry[s], rc, (z0, nzl))))
+        primary = self.positions[0].device
+        grads = None
+        for part in parts:
+            part = [to_device(g, primary) for g in part]
+            grads = part if grads is None else [
+                a + b for a, b in zip(grads, part)]
+        return grads
+
+
+def _rc2_table(rcut_matrix, dtype, device):
+    if rcut_matrix is None or torch.is_tensor(rcut_matrix):
+        return rcut_matrix
+    return _cw.rc2_table(rcut_matrix, dtype, device)
+
+
+def _uses_list(run, params, bwd_impl):
+    """Does this call take the list route (K1's generic form with
+    ``generic_reduce_bwd``)?"""
+    cuda = (run.positions[0] if isinstance(run, _ResidentRun) else
+            run.positions).is_cuda
+    if bwd_impl == "list" or (cuda and bwd_impl == "auto" and
+                              not run.uses_k2(params)):
+        return True
+    if cuda and bwd_impl == "generic":
+        raise ValueError("the generic lane contraction is the CPU oracle; "
+                         "on a CUDA tensor training takes K2 or the list "
+                         "route")
+    return False
+
+
 def pair_train_forces(params, pair_apply, positions, types, valid, plan,
                       lo, *, min_r2=1e-4, with_types=False,
                       rcut_matrix=None, needs_energy=True,
@@ -317,71 +381,111 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
     :param lanes: the list route's :class:`.cellwise_cuda.LaneBudget`
         (default: sized from this call's occupied slots, one host sync;
         under a mesh each shard's list holds ``lanes.budget`` lanes and
-        the most any shard needed is recorded in it).
+        the most any group needed is recorded in it).
     :param mesh: a :class:`..parallel.mesh.Mesh` (or ``None``): with two
-        shards or more the forward and the backward run per z-slab shard
-        on its device (see the module docstring); ``pair_apply`` is then
+        shards or more the state is split into each z-slab shard's slab
+        buffer on its device (a copy) and the call runs as
+        :func:`resident_train_forces` does; the home rows of the shards'
+        forces are joined on the state's device. ``pair_apply`` is then
         also called with ``params`` copied to a shard's device.
     :param shard_axis: the mesh axis of the shards (default its only one).
     :returns: ``forces4 [n_slots, 4]`` with the energy in column 4.
     """
-    keys = list(params)
-    if rcut_matrix is not None and not torch.is_tensor(rcut_matrix):
-        rcut_matrix = _cw.rc2_table(rcut_matrix, positions.dtype,
-                                    positions.device)
-    shards = None
+    rcut_matrix = _rc2_table(rcut_matrix, positions.dtype, positions.device)
+    kw = dict(min_r2=min_r2, with_types=with_types, rcut_matrix=rcut_matrix,
+              needs_energy=needs_energy, fwd_stencil=fwd_stencil,
+              bwd_impl=bwd_impl, lanes=lanes)
     if mesh is not None and \
             mesh.shape[shard_axis or mesh.axis_names[0]] > 1:
-        shards = _cw.mesh_slabs(plan, mesh, shard_axis)
-    else:
-        mesh = None
+        slabs = _cw.mesh_slabs(plan, mesh, shard_axis)
+        geometry = _cw._as_geometry(plan, lo, positions, geometry)
+
+        def split(t):
+            out = []
+            for dev, z0, nzl in slabs:
+                a, b = _cw.slab_rows(plan, z0, nzl)
+                out.append(to_device(torch.cat([t[a], t[b]]), dev))
+            return out
+        fs = resident_train_forces(
+            params, pair_apply, split(positions), split(types), split(valid),
+            plan, lo, mesh, [geometry.on(dev) for dev, _, _ in slabs],
+            shard_axis=shard_axis, **kw)
+        L = _cw.halo_layer(plan)
+        return torch.cat([to_device(f[:nzl * L], positions.device)
+                          for f, (_, _, nzl) in zip(fs, slabs)])
+    keys = list(params)
     run = _Run(keys, pair_apply, positions, types, valid, plan, lo, min_r2,
                with_types, rcut_matrix, needs_energy, fwd_stencil, bwd_impl,
-               geometry, mesh, shard_axis, shards)
-    cuda = positions.is_cuda
-    if bwd_impl == "list" or (cuda and bwd_impl == "auto" and
-                              not run.uses_k2(params)):
-        if shards is not None:
-            return _sharded_list_forces(run, params, lanes)
+               geometry)
+    if _uses_list(run, params, bwd_impl):
         from .cellwise_cuda import generic_train_forces
         return generic_train_forces(
             positions, types, valid, plan, lo, run.bind(params),
             typed_fn=with_types, min_r2=min_r2, rc2_tab=rcut_matrix,
             needs_energy=needs_energy, geometry=geometry, lanes=lanes)
-    if cuda and bwd_impl == "generic":
-        raise ValueError("the generic lane contraction is the CPU oracle; "
-                         "on a CUDA tensor training takes K2 or the list "
-                         "route")
     return _PairTrain.apply(run, *(params[k] for k in keys))
 
 
-def _sharded_list_forces(run, params, lanes):
-    """The list route under a mesh: per device, on the members' rows of its
-    shards (:func:`.cellwise.group_buffers`), one list over their home
-    cells, the pair function (under the parameters copied there) run once
-    on the joined list with grad, and ``generic_reduce_bwd`` over the
-    group as its backward (:func:`.cellwise_cuda.
-    generic_group_train_forces`); the devices' forces gathered with
-    :func:`.cellwise.gather_groups`, whose gradient hands each member its
-    rows of the cotangent."""
+def resident_train_forces(params, pair_apply, positions, types, valid, plan,
+                          lo, mesh, geometries, *, shard_axis=None,
+                          min_r2=1e-4, with_types=False, rcut_matrix=None,
+                          needs_energy=True, fwd_stencil="auto",
+                          bwd_impl="auto", lanes=None):
+    """:func:`pair_train_forces` on a slot state resident per z-slab shard
+    of ``mesh`` (:class:`..md.slots.SlabSlots`; see the module
+    docstring): each device's group call reads its shards' own buffers,
+    and nothing of the whole state is made.
+
+    :param positions, types, valid: each shard's buffer, in shard order:
+        ``(nzl + 1) nx ny cap`` rows on its device, its home layers then
+        its forward halo layer (:func:`.cellwise.slab_rows`; the forward
+        writes a halo's positions where the next shard lies on another
+        device, as :func:`.cellwise.resident_pair_forces` does).
+    :param geometries: each shard's :class:`.cellwise.SlotGeometry` of
+        the global plan on its device.
+    :param lanes: as :func:`pair_train_forces`' (each group's list holds
+        ``lanes.budget`` lanes a member; the most any group needed is
+        recorded in it, on the first shard's device).
+    :returns: each shard's ``forces4`` (a list in shard order, its
+        buffer's rows, the halo rows zero), differentiable in ``params``.
+    """
+    keys = list(params)
+    rcut_matrix = _rc2_table(rcut_matrix, positions[0].dtype,
+                             positions[0].device)
+    run = _ResidentRun(keys, pair_apply, list(positions), list(types),
+                       list(valid), plan, lo, min_r2, with_types, rcut_matrix,
+                       needs_energy, fwd_stencil, bwd_impl, list(geometries),
+                       mesh, shard_axis,
+                       _cw.mesh_slabs(plan, mesh, shard_axis))
+    if _uses_list(run, params, bwd_impl):
+        return _resident_list_forces(run, params, lanes)
+    return list(_PairTrain.apply(run, *(params[k] for k in keys)))
+
+
+def _resident_list_forces(run, params, lanes):
+    """The list route on the resident shards: per device one list over its
+    shards' home cells on their buffers, the pair function (under the
+    parameters copied there) run once on the joined list with grad, and
+    ``generic_reduce_bwd`` over the group as its backward
+    (:func:`.cellwise_cuda.generic_group_train_forces`), as the group call
+    of :func:`.cellwise.resident_pair_forces`, which exchanges the halo
+    between devices."""
     from .cellwise_cuda import LaneBudget, generic_group_train_forces
-    plan, primary = run.plan, run.positions.device
-    geometry = _cw._as_geometry(plan, run.lo, run.positions, run.geometry)
-    groups = _cw.slab_groups(run.shards)
-    outs = []
-    for g in groups:
+    primary = run.positions[0].device
+
+    def group_call(bufs, g, geometry):
         dev = g.device
-        p, ty, v = (_cw.group_buffers(t, plan, g, dev)
-                    for t in (run.positions, run.types, run.valid))
         rc = (None if run.rcut_matrix is None else
               to_device(run.rcut_matrix, dev))
         own = None if lanes is None else LaneBudget(lanes.budget, dev)
         f4 = generic_group_train_forces(
-            p, ty, v, plan, run.lo, run.bind(run.on_device(params, dev)), g,
+            *bufs, run.plan, run.lo, run.bind(run.on_device(params, dev)), g,
             typed_fn=run.with_types, min_r2=run.min_r2, rc2_tab=rc,
-            needs_energy=run.needs_energy, geometry=geometry.on(dev),
-            lanes=own)
+            needs_energy=run.needs_energy, geometry=geometry, lanes=own)
         if lanes is not None:
             lanes.record(to_device(own.needed, primary))
-        outs.append((f4.unbind(0), None))
-    return _cw.gather_groups(outs, groups, plan, primary)[0]
+        return f4
+    fs, _ = _cw.resident_pair_forces(
+        run.positions, run.types, run.valid, run.plan, run.lo, None,
+        run.mesh, run.geometry, run.shard_axis, group_call=group_call)
+    return fs

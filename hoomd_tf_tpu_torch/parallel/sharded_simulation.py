@@ -11,8 +11,13 @@ resident_pair_forces``), the integrators, built-in forces, ``period``
 gating and logging run per shard with the thermostat's, barostat's and
 log's sums added on the first device (the analog of the reference's MPI
 path), and particles migrate between neighbouring shards at each repack.
-Between runs the particle-order state lies on the first device. The
-dense ``'n2'`` build is split into contiguous particle rows.
+Online training (``attach(..., train=True)``) keeps the state so too on
+its proxy, pair and lane branches: the labels, the model's forward and
+its backward (kernels K2 or ``generic_reduce_bwd``) run on each device's
+shards' buffers (``ops/pair_train.py::resident_train_forces``), the loss,
+the optimizer and the weights on the first device. Between runs the
+particle-order state lies on the first device. The dense ``'n2'`` build
+is split into contiguous particle rows.
 
 The class only adds convenience, as in the JAX package: a default mesh
 over the visible cards, the ``kT``/``tau`` shorthand for NVT, and an

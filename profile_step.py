@@ -113,14 +113,18 @@ unsharded (phase 7's route). With
 ``--tree DIR`` the package is an older checkout's, so one call measures
 two trees on one card.
 
-``--mode meshtrain`` runs chip_smoke.py phases 32 and 33's sharded
-training from the same NVT fluid: the proxy row (K1's proxy form, K2)
-and the pair row (the list route: K1's generic form, the pair function
-with grad, ``generic_reduce_bwd``) through ``ShardedSimulation`` on 4
-virtual shards of cuda:0 (or min(4, cards) cards), a warm ``run(50)``,
-then three timed ``run(200)`` with host syncs forbidden: train steps/s
-and the backward kernel's launches per train step. With ``--tree DIR``
-an older checkout's package runs the same script.
+``--mode meshtrain`` runs chip_smoke.py phases 32, 33 and 40's sharded
+training from the same NVT fluid: the proxy row (K1's proxy form, K2),
+the pair and lane rows (the list route: K1's generic form, the pair
+function with grad, ``generic_reduce_bwd``) and the typed proxy row on
+the 80:20 Kob-Andersen mixture, through ``ShardedSimulation`` on 4
+virtual shards of cuda:0 (or min(4, cards) cards), each beside the same
+row unsharded (phases 5, 10, 11, 39); a warm ``run(50)``, then three
+timed ``run(200)`` with host syncs forbidden: train steps/s, the first
+card's peak memory, the backward kernel's launches and all kernels per
+train step (the 25 most launched by name), and where the state lived
+(``SlabState``: resident per shard). With ``--tree DIR`` an older
+checkout's package runs the same script.
 
 ``--mode genparts`` times K1's generic form (``generic_list``,
 ``generic_reduce`` and the finish, each alone by the profiler) at phase
@@ -905,15 +909,21 @@ def mesh_loop(cs, row="proxy"):
 
 
 def mesh_train(cs, steps=200):
-    """``--mode meshtrain``: chip_smoke.py phases 32 and 33's sharded
-    training (the proxy row, K2; the pair row, the list route) through
-    ShardedSimulation on 4 virtual shards of the card from the NVT fluid
-    of ``--mode mesh``, each the best of three timed ``run(steps)`` after
-    a warm ``run(50)``, host syncs forbidden: train steps/s and the
-    backward kernel's launches per train step."""
+    """``--mode meshtrain``: chip_smoke.py's sharded training rows through
+    ShardedSimulation on 4 virtual shards of the card (or min(4, cards)
+    cards) -- phase 32's proxy row (K2), phase 33's pair row (the list
+    route) and lane row, phase 40's typed proxy row on the 80:20
+    Kob-Andersen mixture -- each beside the same row on the unsharded
+    engine (phases 5, 10, 11 and 39), all from the NVT fluid of ``--mode
+    mesh`` (the typed rows with the mixture's types and its LJ): a warm
+    ``run(50)``, then three timed ``run(steps)`` with host syncs
+    forbidden, each with the first card's peak memory; train steps/s, the
+    backward kernel's launches and all kernels (torch.profiler, between
+    markers) per train step."""
     torch, htt = cs.torch, cs.htt
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as pc
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
     sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
     htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
                                           nlist="cellwise")
@@ -922,33 +932,71 @@ def mesh_train(cs, steps=200):
     sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
     sim.run(1000)
     state = sim.state
+    mixture = dataclasses.replace(state, types=torch.as_tensor(
+        cs.mixture_types(cs.N), dtype=torch.int32, device="cuda"))
     del sim
     mesh, kind = cs.shard_mesh()
     out = {"mesh": kind}
-    rows = (("phase32_proxy", lambda: cs.make_nn(seed=0),
-             pc.proxy_bwd_moments),
-            ("phase33_pair", lambda: cs.make_nn(seed=0, proxy_degree=None),
-             cc.generic_reduce_bwd))
-    for label, make, counter in rows:
-        (shd, tfc, _), = cs.sharded_train_pair(state, mesh, make,
-                                               cs.force_loss,
-                                               sharded_only=True)
-        shd.check_syncs = True
-        shd.run(50)
-        times = []
-        for _ in range(3):
-            n0, s0 = counter.launches, shd.train_steps
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            shd.run(steps)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            per = (counter.launches - n0) / (shd.train_steps - s0)
-        out[label] = {"steps_per_s": [steps / t for t in times],
-                      "best_steps_per_s": steps / min(times),
-                      "backward_launches_per_step": per}
-        del shd, tfc
-        torch.cuda.empty_cache()
+    k2, bwd = pc.proxy_bwd_moments, cc.generic_reduce_bwd
+    rows = (("proxy", ("phase32", "phase5"), lambda: cs.make_nn(seed=0),
+             cs.force_loss, k2, False),
+            ("pair", ("phase33", "phase10"),
+             lambda: cs.make_nn(seed=0, proxy_degree=None), cs.force_loss,
+             bwd, False),
+            ("lane", ("phase33", "phase11"), lambda: cs.make_nn_generic(
+                seed=0), "mse", bwd, False),
+            ("typed", ("phase40", "phase39"), cs.make_typed_nn,
+             cs.force_loss, k2, True))
+    for row, names, make, loss, counter, typed in rows:
+        for name, m in zip(names, (mesh, None)):
+            if m is None:
+                sim = htt.Simulation(dt=0.005, seed=0, device="cuda",
+                                     integrator=htt.md.NVT(kT=1.5, tau=0.5))
+            else:
+                sim = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=m,
+                                        seed=0)
+            sim.set_state(mixture if typed else state)
+            sim.add_force(cs.ka_lj() if typed else
+                          htt.md.LennardJones(r_cut=cs.R_CUT))
+            model = make()
+            model.compile(optimizer="adam", loss=loss, learning_rate=1e-2)
+            htt.tfcompute(model).attach(sim, r_cut=cs.R_CUT,
+                                        nlist="cellwise", train=True)
+            sim.check_syncs = True
+            sim.run(50)
+            times, peaks = [], []
+            n0, s0 = counter.launches, sim.train_steps
+            for _ in range(3):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(0)
+                t0 = time.perf_counter()
+                sim.run(steps)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated(0) / 1e9)
+            per = (counter.launches - n0) / (sim.train_steps - s0)
+            kernels, _, names = cs.train_kernels(sim)
+            counted = len(names) / kernels
+            by_name = {}
+            for k in names:
+                k = re.sub(r"^void |at::native::|\(anonymous namespace\)::",
+                           "", k)[:80]
+                by_name[k] = by_name.get(k, 0) + 1
+            out[f"{name}_{row}"] = {
+                "sharded": m is not None,
+                "steps_per_s": [steps / t for t in times],
+                "best_steps_per_s": steps / min(times),
+                "backward_launches_per_step": per,
+                "kernels_per_step": kernels,
+                "top_kernels_per_step": {
+                    k: v / counted for k, v in sorted(
+                        by_name.items(), key=lambda x: -x[1])[:25]},
+                "peak_memory_gb": peaks,
+                "plan": [list(sim._layout.plan.grid),
+                         sim._layout.plan.capacity],
+                "resident": type(sim._packed[2][0]).__name__}
+            del sim, model
+            torch.cuda.empty_cache()
     return out
 
 

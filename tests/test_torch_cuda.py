@@ -2527,6 +2527,84 @@ def test_sharded_train_step_matches_unsharded(cuda_device, kind, mesh_kind):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("route", ["proxy", "list"])
+def test_resident_training_on_mixed_mesh(cuda_device, route):
+    """``resident_train_forces`` on the slot state resident per shard of a
+    mesh of the card and the CPU in turn (4 shards: the card's two are
+    one group, the CPU's two another, and every shard's halo crosses
+    devices, so the positions' halo copies, the cotangent's halo rows and
+    the reverse-halo adds run across devices): the forces against the
+    unsharded ``pair_train_forces`` on the card at rtol = atol = 1e-4 of
+    max|F|, the weights' gradient of ``<ct, forces4>`` at K2's bars (rtol
+    2e-4, atol 2e-5 max|g|); per call one group launch of the forward
+    (K1's proxy form or the generic form) and one of the backward kernel
+    (K2 or ``generic_reduce_bwd``), on the card; the CPU's group takes
+    the plain versions."""
+    from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
+    from hoomd_tf_tpu_torch.ops.chebyshev import make_pair_proxy
+    from hoomd_tf_tpu_torch.ops.pair_train import (pair_train_forces,
+                                                   resident_train_forces)
+    from hoomd_tf_tpu_torch.parallel import make_mesh
+    n = 2000
+    pos, vel, lengths = fluid_arrays(n, 0.4, 3, jitter=0.08)
+    lo = -np.asarray(lengths, np.float64) / 2
+    plan = tcw.plan_cellwise(n, lengths, 2.5, positions=pos, lo=lo,
+                             z_divisor=4)
+    state = torch_state(pos, vel, lengths, device=cuda_device)
+    layout = SlotLayout(plan, n, lo, device=cuda_device, box=state.box)
+    mesh = make_mesh(4, devices=[cuda_device, "cpu"] * 2)
+    slots = layout.resident(mesh)
+    st, aux = slots.pack(state)
+    wst, waux = layout.pack(state)
+    if route == "proxy":
+        fit, apply = make_pair_proxy(8, (0.25 * 2.5) ** 2, 2.5 ** 2,
+                                     device=cuda_device)
+        params = fit(lambda r2: 4.0 * (r2 ** -6 - r2 ** -3))
+        fwd, bwd = tcc.half_stencil_pair_forces, ptc.proxy_bwd_moments
+    else:
+        params = {"eps": torch.tensor(1.0, device=cuda_device)}
+
+        def apply(p, r2):
+            u = 1.0 / r2
+            sr6 = u * u * u
+            return (4.0 * p["eps"] * (sr6 * sr6 - sr6),
+                    -12.0 * p["eps"] * (2.0 * sr6 - 1.0) * sr6 * u)
+        fwd, bwd = tcc.generic_pair_forces, tcc.generic_reduce_bwd
+    ct = torch.as_tensor(np.random.RandomState(0).randn(
+        plan.n_slots, 4).astype(np.float32), device=cuda_device)
+    cts = [tcw.slab_buffer(ct, plan, z0, nzl, dev)
+           for dev, z0, nzl in slots.slabs]
+    out = []
+    for resident in (True, False):
+        p = {k: v.detach().clone().requires_grad_()
+             for k, v in params.items()}
+        before = (fwd.group_launches, bwd.group_launches)
+        if resident:
+            fs = resident_train_forces(
+                p, apply, st.positions, st.types, aux["valid"], plan, lo,
+                mesh, slots.geoms(st))
+            grads = torch.autograd.grad(fs, list(p.values()), cts)
+            assert (fwd.group_launches - before[0],
+                    bwd.group_launches - before[1]) == (1, 1)
+            for f, (dev, _, _) in zip(fs, slots.slabs):
+                assert f.device == dev
+                assert not f[-slots.layer:].detach().any()
+            f = slots.whole(fs)
+        else:
+            f = pair_train_forces(p, apply, wst.positions, wst.types,
+                                  waux["valid"], plan, lo,
+                                  geometry=layout.geometry)
+            grads = torch.autograd.grad(f, list(p.values()), ct)
+        out.append((np_(f.detach()), [np_(g) for g in grads]))
+    (f_s, g_s), (f_u, g_u) = out
+    np.testing.assert_allclose(f_s, f_u, rtol=1e-4,
+                               atol=1e-4 * np.abs(f_u).max())
+    scale = max(float(np.abs(g).max()) for g in g_u)
+    assert scale > 0
+    for a, b in zip(g_s, g_u):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5 * scale)
+
+
 def test_mixed_mesh_npt_matches_unsharded(cuda_device):
     """NPT under a mesh of the card and the CPU in turn: each step's box
     geometry copied to the CPU shards (``SlotGeometry.on`` of a dynamic
