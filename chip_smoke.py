@@ -277,11 +277,15 @@ exits non-zero:
                repacks, no geometry flag, 1.1 < T < 1.9, group launches
                = devices x evaluations;
 35. sharded planes -- a coupled LJ the probe rejects (energy scaled by the
-               coordination over all rows' mean) through ShardedSimulation:
-               the first evaluation's forces against the unsharded planes
-               route (1e-4), run(100) with host syncs forbidden beside the
-               unsharded route's rate, then 50 steps of the planes
-               training branch; peak memory of both.
+               coordination over all rows' mean) through ShardedSimulation
+               on the slot state resident per shard: the joined planes
+               bit-equal to the unsharded planes, the first evaluation's
+               forces against the unsharded planes route (1e-4), run(100)
+               with host syncs forbidden beside the unsharded route, then
+               50 steps of the planes training branch on the shards; the
+               state resident after each run, K1 group launches = cards x
+               label evaluations and no other K1 launch; steps/s, kernels
+               a step and the first card's peak memory of each.
 36. sharded packed -- phase 6's configuration (LJModel(64), 'auto' -> the
                cell list with K3) from phase 4's fluid through
                Simulation(mesh=) on phase 29's mesh: the packed grid has
@@ -305,10 +309,12 @@ exits non-zero:
 38. sharded mapped -- phase 19's example 02 (65,536 atoms + 16,384 beads)
                through Simulation(mesh=) on 'cell' (the sort method per
                z-slab shard with the synthesized typed cut) and
-               'cellwise' (the planes per shard): one step equal to the
-               unsharded engine's (1e-6), then run(20) and run(10)
+               'cellwise' (the slot state resident per shard: the planes
+               per shard, the beads written per shard): one step equal
+               to the unsharded engine's (1e-6), then run(20) and run(10)
                logged every 2nd step under phase 19's gates, host syncs
-               forbidden.
+               forbidden; on 'cellwise' the state resident, kernels a
+               step and the first card's peak memory.
 39. train-typed -- typed online training: phase 5's fluid made an 80:20
                Kob-Andersen mixture (types by a seeded permutation; the
                labels and driving forces its built-in LJ, epsilon [[1,
@@ -4050,16 +4056,15 @@ def repack_gate(slots, st, aux):
           "state")
 
 
-#: launches of K1 and of its generic form made by the whole-state mesh
-#: routes' own runs, by phase: (K1 group, K1 all, K1 proxy form, generic
+#: launches of K1 and of its generic form made by the mesh routes' own
+#: runs in phases 32-38 and 40, by phase: (K1 group, K1 all, K1 proxy form, generic
 #: group, generic all) launches; the comparisons and timings around the
 #: runs are not counted.
 SLAB_RUNS = {}
 
 
 def slab_run(phase, run, *args, **kw):
-    """``run(*args, **kw)``, a main-path run of a whole-state mesh route,
-    with K1's and its generic form's counts set to 0 just before it and
+    """``run(*args, **kw)``, a main-path run of a mesh route, with K1's and its generic form's counts set to 0 just before it and
     added to ``SLAB_RUNS[phase]`` just after it (then restored to what
     they were plus the run's, for the phase's own gates)."""
     from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
@@ -4198,14 +4203,16 @@ def phase_sharded(state, main_sps):
                   compare(f"shard {s} as a group of one vs slab plain, "
                           "virial", wk, wp))
     # times at the main path's shapes (forces only): the resident
-    # evaluation (halo copies, slab launches, reverse-halo adds), the
-    # whole-state form training keeps (slab buffers cut from the whole
-    # state, the gather), the unsharded K1
+    # evaluation (halo copies, group launches, reverse-halo adds), the
+    # same on the buffers of a fresh SlabSlots.pack of the gathered state,
+    # the unsharded K1
     t_all = cuda_ms(lambda: slots.pair_forces(st, aux, None,
                                               needs_energy=False, form=form))
-    t_whole = cuda_ms(lambda: cw.analytic_pair_forces(
-        *common, None, needs_energy=False, form=form,
-        geometry=layout.geometry, mesh=mesh))
+    pst, paux = slots.pack(sim.state)
+    t_pack = cuda_ms(lambda: slots.pair_forces(pst, paux, None,
+                                               needs_energy=False,
+                                               form=form))
+    del pst, paux
     t_one = cuda_ms(lambda: k1(*common, form, needs_energy=False,
                                geometry=layout.geometry))
     # the group launch of the first device's shards alone, its plain
@@ -4234,9 +4241,9 @@ def phase_sharded(state, main_sps):
           f"events): {t_all:.4f} ms for {D} group call(s) of {S} shards "
           f"(halo copies and reverse-halo adds between devices only); the "
           f"group launch alone {t_group:.4f} ms ({len(grp.members)} shards,"
-          f" its plain version {t_gplain:.4f} ms); the whole-state form "
-          f"(slab buffers cut from the whole state, {S} slab calls, the "
-          f"gather) {t_whole:.4f} ms; unsharded K1 {t_one:.4f} ms "
+          f" its plain version {t_gplain:.4f} ms); on a fresh "
+          f"SlabSlots.pack of the gathered state {t_pack:.4f} ms; "
+          f"unsharded K1 {t_one:.4f} ms "
           f"({t_all / t_one:.3f}x); bound {b_ms:.4f} ms ({b_by}: "
           f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)")
     print(f"  shard 0 alone as a group of one: {t_one_g:.4f} ms, its bound "
@@ -4760,13 +4767,13 @@ def first_step_gate(label, shd, ref, one_card, list_route=False):
     return slots, st, aux, tr
 
 
-def train_kernels(sim, steps=10):
-    """Device kernels per train step of ``sim.run(steps)`` by
-    torch.profiler, counted between marker kernels as
-    :func:`profiled_calls` counts (a window opens with a host sleep, one
-    uncounted ``run(1)`` and six markers; a window that lost its markers
-    is run again, up to ``PROFILED_TRIES``): ``(kernels a train step, the
-    steps all windows ran, the counted kernels' names)``."""
+def train_kernels(sim, steps=10, md=False):
+    """Device kernels per train step (``md``: per MD step) of
+    ``sim.run(steps)`` by torch.profiler, counted between marker kernels
+    as :func:`profiled_calls` counts (a window opens with a host sleep,
+    one uncounted ``run(1)`` and six markers; a window that lost its
+    markers is run again, up to ``PROFILED_TRIES``): ``(kernels a train
+    step, the steps all windows ran, the counted kernels' names)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     ran = 0
@@ -4782,7 +4789,7 @@ def train_kernels(sim, steps=10):
             torch.cuda.synchronize()
             s0 = sim.train_steps
             sim.run(steps)
-            n = sim.train_steps - s0
+            n = steps if md else sim.train_steps - s0
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         ran += 1 + steps
@@ -5391,13 +5398,19 @@ def make_coupled(trainable, epsilon=1.0, sigma=1.0):
 
 
 def phase_sharded_planes(state):
-    """Phase 35: a SimModel the probe rejects through ShardedSimulation:
-    each shard's planes built on its device, the model run once on all
-    rows; run(100), then 50 steps of the planes training branch."""
+    """Phase 35: a SimModel the probe rejects through ShardedSimulation on
+    the slot state resident per z-slab shard: each shard's planes built on
+    its device from its own rows and its neighbours' boundary layers, the
+    model run once on every row joined on the first card and its forces
+    sent back per shard; run(100), then 50 steps of the planes training
+    branch, whose labels take K1's group launch on the shards' buffers."""
     import numpy as np
+    from hoomd_tf_tpu_torch.md.slots import SlabSlots
+    from hoomd_tf_tpu_torch.ops import cellwise_cuda as cc
     from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    k1 = cc.half_stencil_pair_forces
     mesh, kind = shard_mesh()
-    S = mesh.size
+    D = mesh_devices(mesh)
     print(f"  mesh: {kind}")
     shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
     ref = htt.Simulation(dt=0.005, seed=0, device="cuda",
@@ -5411,36 +5424,57 @@ def phase_sharded_planes(state):
     plan = ls.plan
     ref._plan_from_current = lambda: plan
     lr = ref._ensure_layout()
-    st, aux = slot_state(ls, shd.state)
-    r_s, r_r = shd._route(ls, st, aux), ref._route(lr, st, aux)
+    slots = shd._slots(ls)
+    check(isinstance(slots, SlabSlots), "the planes route keeps a whole "
+          "slot state under the mesh")
+    sst, saux = slots.pack(shd.state)
+    st, aux = slot_state(lr, ref.state)
+    r_s, r_r = shd._route(ls, sst, saux), ref._route(lr, st, aux)
     check(r_s.planes and r_r.planes, "the probe accepted the coupled model")
-    f_s, _ = shd._forces(st, aux, ls, r_s, True, False)
+    same = all(torch.equal(a, b) for a, b in
+               zip(slots.planes(sst, saux), lr.planes(st, aux)))
+    check(same, "the resident shards' joined planes differ from the "
+          "unsharded planes")
+    f_s, _ = shd._forces(sst, saux, slots, r_s, True, False)
     f_r, _ = ref._forces(st, aux, lr, r_r, True, False)
     torch.cuda.synchronize()
-    err = compare("the first evaluation's forces+energy, sharded planes vs "
-                  "unsharded", f_s, f_r)
-    del f_s, f_r, r_s, r_r
+    f_s = slots.whole(f_s)
+    err = compare("the first evaluation's forces+energy, resident planes "
+                  "vs unsharded", f_s, f_r)
+    print(f"  the joined planes equal the unsharded planes bit for bit: "
+          f"{same}; the first evaluation bit for bit: "
+          f"{bool(torch.equal(f_s, f_r))}")
+    del f_s, f_r, r_s, r_r, sst, saux, st, aux
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     shd.check_syncs = True
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    slab_run("35", shd.run, 100)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    run_evals = 0
+
+    def timed(sim, steps, phase=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(0)
+        e0, p0 = sim.force_evals, sim.probe_evals
+        t0 = time.perf_counter()
+        if phase is None:
+            sim.run(steps)
+        else:
+            slab_run(phase, sim.run, steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        evals = (sim.force_evals - e0) - (sim.probe_evals - p0)
+        return steps / dt, torch.cuda.max_memory_allocated(0) / 2 ** 30, \
+            evals
+    sps, peak, evals = timed(shd, 100, "35")
+    run_evals += evals
+    resident_shards(shd)
     th = healthy(shd, "sharded planes")
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref.run(50)
-    torch.cuda.synchronize()
-    dt_r = time.perf_counter() - t0
-    peak_r = torch.cuda.max_memory_allocated()
-    print(f"  run(100) on the sharded planes route: {100 / dt:.2f} steps/s "
-          f"against the unsharded planes route's {50 / dt_r:.2f} "
-          f"(run(50)); peak device memory {peak / 2 ** 30:.2f} GiB against "
-          f"{peak_r / 2 ** 30:.2f} GiB unsharded (both simulations held); "
+    kern = train_kernels(shd, 10, md=True)[0]
+    sps_r, peak_r, _ = timed(ref, 50)
+    kern_r = train_kernels(ref, 10, md=True)[0]
+    print(f"  run(100) on the resident planes route: {sps:.2f} steps/s, "
+          f"{kern:.1f} kernels a step (profiler, run(10)), the first "
+          f"card's peak memory {peak:.3f} GiB; the unsharded planes "
+          f"route: {sps_r:.2f} steps/s (run(50)), {kern_r:.1f} kernels a "
+          f"step, {peak_r:.3f} GiB (both simulations held); "
           f"T={th['temperature']:.4f}; no host sync -- info, not a claim")
     del ref
     torch.cuda.empty_cache()
@@ -5454,27 +5488,29 @@ def phase_sharded_planes(state):
     model.compile(optimizer="adam", loss=force_loss, learning_rate=1e-2)
     tfc = htt.tfcompute(model)
     tfc.attach(trn, r_cut=R_CUT, nlist="cellwise", train=True)
-    torch.cuda.reset_peak_memory_stats()
     trn.check_syncs = True
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    slab_run("35", trn.run, 50)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    layout = trn._layout
-    st, aux = slot_state(layout, trn.state)
-    kind_ = trn._route(layout, st, aux).trainer.kind
+    tsps, tpeak, evals = timed(trn, 50, "35")
+    run_evals += evals
+    slots, st, aux = resident_shards(trn)
+    kind_ = trn._route(trn._layout, st, aux).trainer.kind
     hist = np.asarray(tfc.loss_history)
     check(kind_ == "planes", f"the coupled model trained on {kind_!r}")
     check(len(hist) == 50 and bool(np.isfinite(hist).all()),
           f"{len(hist)} losses, finite {np.isfinite(hist).all()}")
     healthy(trn, "sharded planes training")
+    n = SLAB_RUNS["35"]
+    check(n[0] == n[1] == D * run_evals,
+          f"phase 35's runs: K1 launches (group, all) {n[:2]} != {D} x "
+          f"{run_evals} label evaluations")
+    tkern = train_kernels(trn, 5)[0]
     w = model.w.detach().cpu().numpy()
-    print(f"  50 train steps on the sharded planes branch: loss "
+    print(f"  50 train steps on the resident planes branch: loss "
           f"{hist[0]:.4f} -> {hist[-1]:.4f}, weights (0.8, 1.05) -> "
-          f"({w[0]:.4f}, {w[1]:.4f}); {50 / dt:.2f} train steps/s; peak "
-          f"device memory {peak / 2 ** 30:.2f} GiB -- info, not a claim")
+          f"({w[0]:.4f}, {w[1]:.4f}); {tsps:.2f} train steps/s, "
+          f"{tkern:.1f} kernels a train step (profiler, run(5)); the "
+          f"first card's peak memory {tpeak:.3f} GiB; K1 group launches "
+          f"of the runs {n[0]} == {D} x {run_evals} label evaluations, no "
+          f"other K1 launch -- info, not a claim")
     return err
 
 
@@ -5786,8 +5822,11 @@ def phase_sharded_mapped(state):
     """Phase 38: phase 19's example 02 (the mapped LJ, 65,536 atoms +
     16,384 beads) through Simulation(mesh=) on 'cell' (the sort method
     per z-slab shard with the synthesized typed cut) and on 'cellwise'
-    (the planes per shard): one step equal to the unsharded engine's,
-    then a short logged run under phase 19's gates."""
+    (the slot state resident per shard: the planes per shard, the model
+    once on every row joined on the first card, the beads written per
+    shard): one step equal to the unsharded engine's, then a short logged
+    run under phase 19's gates; on 'cellwise' the state resident after
+    each run, its kernels a step and the first card's peak memory."""
     mesh, kind = shard_mesh()
     base = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
                           seed=19, device="cuda")
@@ -5819,22 +5858,33 @@ def phase_sharded_mapped(state):
         ref.run(1)
         fmax = float((shd.state.forces - ref.state.forces).abs().max())
         print(f"  {nlist!r}: one step against the unsharded engine, max "
-              f"force difference {fmax:.3e} (limit 1e-6)")
+              f"force difference {fmax:.3e} (limit 1e-6), bit for bit "
+              f"{bool(torch.equal(shd.state.forces, ref.state.forces))}")
         check(fmax <= 1e-6, f"mapped {nlist!r}: sharded != unsharded")
+        if nlist == "cellwise":
+            resident_shards(shd)
         del ref, sims
         torch.cuda.empty_cache()
         shd.check_syncs = True
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(0)
         t0 = time.perf_counter()
         slab_run("38", shd.run, steps, log_period=2)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(0) / 2 ** 30
         mapped_gates(shd, tfc, op, f"sharded {nlist!r}",
                      shd.log["temperature"])
+        more = ""
+        if nlist == "cellwise":
+            resident_shards(shd)
+            more = (f", {train_kernels(shd, 3, md=True)[0]:.1f} kernels a "
+                    f"step (profiler, run(3)), the first card's peak "
+                    f"memory {peak:.3f} GiB")
         print(f"  sharded {nlist!r}: steps/s {steps / dt:.2f} (run({steps}),"
-              f" logged every 2nd step, host syncs forbidden), {kind}; "
-              f"phase part {time.perf_counter() - t_p:.1f} s -- info, not "
-              f"a claim")
+              f" logged every 2nd step, host syncs forbidden){more}, "
+              f"{kind}; phase part {time.perf_counter() - t_p:.1f} s -- "
+              f"info, not a claim")
         del shd, tfc
         torch.cuda.empty_cache()
 

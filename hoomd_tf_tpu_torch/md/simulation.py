@@ -80,12 +80,15 @@ K1's forward and the backward (K2, or ``generic_reduce_bwd``) run one
 group call a device on the shards' own buffers
 (:func:`..ops.pair_train.resident_train_forces`), and the loss reads the
 shards' home rows joined on the first device for the step; the
-optimizer, the loss buffer and the weights stay there. A mapped model
-and a SimModel the probe rejects (outside training, or as training's
-``'planes'`` branch) keep the whole slot state on the first device and
-split their pair work instead (:func:`..ops.cellwise.
-analytic_pair_forces` with ``mesh=``, one group call a device; the
-planes built per shard).
+optimizer, the loss buffer and the weights stay there. So does every
+other route on ``'cellwise'``: on the planes route (a SimModel the probe
+rejects, outside training or as training's ``'planes'`` branch, and
+every mapped model) each shard builds its home cells' planes on its
+device from its own rows and its neighbours' boundary layers
+(:meth:`.slots.SlabSlots.planes`), the model runs once on the planes
+and positions of every row joined on the first device, and its forces
+go back to each shard; a mapped model's beads are written per shard
+from the atoms joined there.
 The packed routes keep the particle-order state whole: on ``'n2'`` the
 dense build is split into contiguous particle rows, on the cell list
 into z-slabs of cells (kernel K3's group mode on the card, one launch a
@@ -110,7 +113,8 @@ import torch
 from . import integrators as _integrators
 from . import thermo as _thermo
 from .slots import SlotLayout
-from .state import SlabState, init_state, lattice_positions, zeros_like
+from .state import (Shards, SlabState, init_state, lattice_positions,
+                    zeros_like)
 from .._device import resolve_device, to_device
 from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
@@ -177,12 +181,13 @@ class Simulation:
         labels, the forward and the backward (K2's group mode, or one
         list, one pair-function call and ``generic_reduce_bwd`` over the
         group) run on each device's shards, the loss and the optimizer
-        on the first device. A mapped model and the planes route of a
-        SimModel the probe rejects (training's planes branch too) keep
-        the whole slot state on the first device instead: each device
-        makes one group call over its shards on its rows of that state
-        (views on the first device, one copy on another), the planes are
-        built per shard and the model runs once on all rows. On ``'n2'`` each shard builds the dense list of its
+        on the first device. Every ``'cellwise'`` route does: on the
+        planes route of a SimModel the probe rejects (training's planes
+        branch too) and of a mapped model each shard builds its home
+        cells' planes on its device, the model runs once on all rows
+        joined on the first device, its forces go back to each shard,
+        and a mapped model's beads are written per shard. On ``'n2'``
+        each shard builds the dense list of its
         contiguous particle rows on its device, on ``'cell'`` /
         ``'pallas'`` each device selects the rows of its shards' z-slabs
         of cells in one call (K3's group mode on the card, or the sort
@@ -776,33 +781,19 @@ class Simulation:
 
     def _slots(self, layout):
         """What the step loop keeps the slot state in: under a mesh, on
-        every route but a mapped model and the planes route (a SimModel
-        the probe rejects, outside training or as training's ``'planes'``
-        branch), the layout's shards (:meth:`.slots.SlotLayout.resident`,
-        each shard's rows resident on its device); else ``layout`` itself
-        (the whole state on the simulation's device)."""
+        every route, the layout's shards (:meth:`.slots.SlotLayout.
+        resident`, each shard's rows resident on its device); else
+        ``layout`` itself (the whole state on the simulation's device)."""
         if not self._sharded():
             return layout
-        tfc = self.tfc
-        if tfc is None:
-            whole = False
-        elif tfc.map_enabled:
-            whole = True
-        elif tfc.train:
-            whole = self._train_kind(layout) == "planes"
-        else:
-            whole = (not isinstance(tfc.model, PairModel) and
-                     tfc.model.output_forces and
-                     not self._probe_lane_fast(layout))
-        return layout if whole else layout.resident(self.mesh,
-                                                    self.shard_axis)
+        return layout.resident(self.mesh, self.shard_axis)
 
     def _train_kind(self, layout, st=None, aux=None):
         """The :class:`_Trainer` branch of the attached training model:
         ``'proxy'`` or ``'pair'`` for a PairModel, ``'lane'`` for a
         SimModel the probe validates with one output, else ``'planes'``
-        (the probe validates on ``st`` when given, else on a whole pack of
-        its own, :meth:`_probe_lane_fast`)."""
+        (the probe validates on ``st`` when it is a whole state, else on a
+        whole pack of its own, :meth:`_probe_lane_fast`)."""
         model = self.tfc.model
         if isinstance(model, PairModel):
             return "proxy" if model.proxy_degree else "pair"
@@ -819,7 +810,9 @@ class Simulation:
         """One analytic pair-force evaluation on slot state (counted in
         :attr:`force_evals`): on a state resident per shard
         (:class:`.state.SlabState`) through its layout's
-        :meth:`.slots.SlabSlots.pair_forces`."""
+        :meth:`.slots.SlabSlots.pair_forces`; on a whole state under a
+        mesh (the host accessors' pack) split per shard by
+        :func:`..ops.cellwise.analytic_pair_forces`."""
         self.force_evals += 1
         if isinstance(st, SlabState):
             return layout.pair_forces(
@@ -861,48 +854,53 @@ class Simulation:
     def _planes_eval(self, st, aux, layout, want_virial, capture=True):
         """The model on the cellwise planes route: its outputs on the
         masked 27-block planes, forces by autograd (a generic SimModel
-        the lane-separability probe did not validate)."""
+        the lane-separability probe did not validate, or a mapped
+        model). On a state resident per shard the model runs once on the
+        planes and positions of every row, joined on the first device
+        (:meth:`_model_inputs`), and its forces and virial go back to
+        each shard (:meth:`.slots.SlabSlots.split`)."""
         model = self.tfc.model
-        planes, pos4 = self._planes(st, aux, layout), st.positions4
-        mapped = self.tfc.map_enabled
-        if mapped:
-            # the model's rows are particle order (mapped_nlist slices by
-            # row index): gather them, and scatter its outputs back
-            inv = _inv_slots(layout, aux)
-            planes = planes.map(lambda c: c.detach()[inv])
-            pos4 = pos4[inv]
+        planes, pos4 = self._model_inputs(st, aux, layout)
         out = model([planes, pos4, st.box], training=False)
         if capture:
             self.tfc.capture(out[self.tfc.output_offset:])
-        valid = aux["valid"][:, None]
         f = out[0].detach()
         if f.shape[-1] == 3:
             f = torch.cat([f, torch.zeros_like(f[:, :1])], dim=-1)
         w = None
         if want_virial and model.virial and len(out) > 1:
             w = out[1].detach()
-        if mapped:
+        if self.tfc.map_enabled:
             # a mapped model may give the atom rows only: the beads' are 0
-            f = layout.to_slots(_pad_rows(f, layout.n), aux)
-            if w is not None:
-                w = layout.to_slots(_pad_rows(w, layout.n), aux)
-        if w is not None:
-            w = w * valid[:, :, None]
-        return f * valid, w
+            back = (lambda t: layout.to_slots(_pad_rows(t, layout.n), aux))
+        elif isinstance(st, SlabState):
+            back = layout.split
+        else:
+            back = (lambda t: t)
+        return layout.mask_rows(back(f), None if w is None else back(w),
+                                aux)
 
-    def _planes(self, st, aux, layout):
-        """The masked 27-block planes of the slot state
-        (:meth:`..md.slots.SlotLayout.planes`); under a mesh each shard
-        builds its home cells' planes on its device, gathered here
-        (:func:`..ops.cellwise.sharded_planes`), and the model then runs
-        once on all rows, so its cross-row reductions keep their
-        meaning."""
-        if not self._sharded():
-            return layout.planes(st, aux)
-        return _cw.sharded_planes(
-            st.positions, st.types, aux["valid"], layout.plan, self.mesh,
-            self.shard_axis, rcut_matrix=layout.rc2_tab,
-            box=layout.geom(st).box)
+    def _model_inputs(self, st, aux, layout):
+        """The planes route's model inputs ``(planes, positions4)``: the
+        masked 27-block planes of the slot state
+        (:meth:`..md.slots.SlotLayout.planes`) and its positions, in slot
+        order, or for a mapped model in particle order (``mapped_nlist``
+        slices by row index). On a state resident per shard each shard
+        builds its home cells' planes on its device
+        (:meth:`.slots.SlabSlots.planes`), and planes and positions are
+        joined on the first device in global slot order, so that the
+        model runs once on all rows and its cross-row reductions keep
+        their meaning (the JAX package's mesh runs it so too)."""
+        planes = layout.planes(st, aux)
+        if isinstance(st, SlabState):
+            pos4 = layout.whole([p.positions4 for p in st.shards])
+        else:
+            pos4 = st.positions4
+        if self.tfc.map_enabled:
+            inv = _inv_slots(layout, aux)
+            planes = planes.map(lambda c: c.detach()[inv])
+            pos4 = pos4[inv]
+        return planes, pos4
 
     def _builtins(self, st, aux, layout, needs_energy, want_virial,
                   subset=None):
@@ -1055,11 +1053,11 @@ class Simulation:
             tfc._lane_fast_ok = cache[1]
             return cache[1]
         check = layout
-        if st is None:
-            # the validation reads a whole slot state (a mesh's route is
-            # chosen by its verdict): packed here, at a run() boundary,
-            # once per configuration and plan, into a layout of its own,
-            # whose per-slot constants of the whole grid go with it
+        if st is None or isinstance(st, SlabState):
+            # the validation reads a whole slot state (a state resident per
+            # shard is none): packed here, at a run() boundary, once per
+            # configuration and plan, into a layout of its own, whose
+            # per-slot constants of the whole grid go with it
             check = SlotLayout(layout.plan, layout.n, layout.lo,
                                rc_matrix=layout.rc_matrix,
                                dtype=self.state.positions.dtype,
@@ -1147,9 +1145,19 @@ class Simulation:
         """The mapping write-back in slot order: the atom rows gathered
         into particle order, the mapping run on them, the bead positions
         scattered into the beads' slot rows (the JAX package's
-        ``mapped_apply_slots``)."""
-        inv = _inv_slots(layout, aux)
+        ``mapped_apply_slots``); on a state resident per shard the atoms
+        joined on the first device (:meth:`.slots.SlabSlots.to_particles`)
+        and the beads written per shard (:meth:`.slots.SlabSlots.
+        write_particles`)."""
         aan = route.map_i
+        if isinstance(st, SlabState):
+            atoms = layout.to_particles([p.positions4 for p in st.shards],
+                                        aux)[:aan]
+            st.positions = layout.write_particles(
+                st.positions, self.tfc.bead_positions(atoms, st.box), aux,
+                aan)
+            return st
+        inv = _inv_slots(layout, aux)
         cg3 = self.tfc.bead_positions(st.positions4[inv[:aan]], st.box)
         return dataclasses.replace(
             st, positions=st.positions.index_copy(0, inv[aan:], cg3))
@@ -1788,13 +1796,17 @@ def _is_cellwise(method):
 
 
 def _inv_slots(layout, aux):
-    """``[n]``: the slot row of each particle, the inverse of
-    ``aux['orig']``. Kept in ``aux['inv']`` once made, so a step makes it
-    once; a repack permutes the slots and its new ``aux`` has none."""
+    """``[n]``: the (global) slot row of each particle, the inverse of
+    ``aux['orig']``, on the first device. Kept in ``aux['inv']`` once
+    made, so a step makes it once; a repack permutes the slots and its new
+    ``aux`` has none."""
     inv = aux.get("inv")
     if inv is None:
-        slots = torch.arange(layout.plan.n_slots, dtype=torch.long,
-                             device=aux["orig"].device)
+        if isinstance(aux["orig"], Shards):
+            slots = layout.slot_rows
+        else:
+            slots = torch.arange(layout.plan.n_slots, dtype=torch.long,
+                                 device=aux["orig"].device)
         inv = aux["inv"] = layout.to_particles(slots, aux)
     return inv
 
@@ -1808,10 +1820,14 @@ def _pad_rows(t, n):
 def _mask_beads(forces4, orig, map_i):
     """``forces4`` with the rows whose particle index ``orig`` is a CG
     bead's (``>= map_i``) zeroed (``orig``: ``aux['orig']`` in slot
-    order, an ``arange`` on the packed routes); ``forces4`` itself when
-    nothing is mapped (``map_i`` None)."""
+    order, per shard on a resident state, an ``arange`` on the packed
+    routes); ``forces4`` itself when nothing is mapped (``map_i``
+    None)."""
     if map_i is None or forces4 is None:
         return forces4
+    if isinstance(forces4, Shards):
+        return Shards(_mask_beads(f, o, map_i)
+                      for f, o in zip(forces4, orig))
     return forces4 * (orig < map_i).to(forces4.dtype)[:, None]
 
 
@@ -1990,10 +2006,9 @@ class _Trainer(_TrainState):
         tfc, model = self.tfc, self.model
         self.cols = 4
         self.typed, self.min_r2 = True, 1e-4
-        # a resident state's branch was chosen before the pack (_slots),
-        # on a whole pack of the probe's own
-        self.kind = (sim._train_kind(layout) if isinstance(st, SlabState)
-                     else sim._train_kind(layout, st, aux))
+        # on a state resident per shard the probe validates on a whole
+        # pack of its own
+        self.kind = sim._train_kind(layout, st, aux)
         if isinstance(model, PairModel):
             self.typed, self.min_r2 = model.pair_with_types, model.min_r2
         elif self.kind == "lane":
@@ -2056,8 +2071,10 @@ class _Trainer(_TrainState):
         model, sim, tfc = self.model, self.sim, self.tfc
         with torch.enable_grad():
             if self.kind == "planes":
-                out = model([sim._planes(st, aux, layout), st.positions4,
-                             st.box], training=True)
+                planes, pos4 = sim._model_inputs(st, aux, layout)
+                if isinstance(st, SlabState):
+                    labels = layout.whole(labels)
+                out = model([planes, pos4, st.box], training=True)
                 return (model.compute_loss(out, labels),
                         out[tfc.output_offset:])
             pred = self.forces(st, aux, layout)

@@ -309,7 +309,11 @@ class SlabSlots:
     The methods are :class:`SlotLayout`'s, per shard: the integrators run
     on each shard (:mod:`.integrators`), and what the run reads back --
     the overflow bit, the running max occupancy and speed, the Verlet
-    test -- is combined on the first shard's device.
+    test -- is combined on the first shard's device. The planes route's
+    model reads every row joined on the first shard's device
+    (:meth:`planes`, :meth:`whole`) and its forces go back to the shards
+    (:meth:`split`); a mapped model's beads are written per shard
+    (:meth:`write_particles`).
 
     **The migrating repack** (:meth:`rebuild`) is local to each shard: a
     repack comes before any particle drifted ``skin / 2`` (the Verlet
@@ -333,6 +337,11 @@ class SlabSlots:
         self.shard_axis = shard_axis
         self.layer = cw.halo_layer(layout.plan)
         self.device = layout.geometry.device
+        #: each shard's home rows' global slot numbers (int64, on its
+        #: device)
+        self.slot_rows = Shards(
+            torch.arange(z0 * self.layer, (z0 + nzl) * self.layer,
+                         device=dev) for dev, z0, nzl in self.slabs)
 
     def geom(self, state=None):
         return self.layout.geom(state)
@@ -479,9 +488,37 @@ class SlabSlots:
 
     def whole(self, vals):
         """Each shard's home rows joined in global slot order on the first
-        shard's device (a checkpoint's slot order, a test's view)."""
+        shard's device (a checkpoint's slot order, the model's rows on the
+        planes route, a test's view)."""
         return torch.cat([to_device(v[:self.home(s)], self.device)
                           for s, v in enumerate(vals)])
+
+    def split(self, vals):
+        """The inverse of :meth:`whole`: rows of every slot in global slot
+        order (on the first shard's device) -> each shard's buffer rows on
+        its device, its home rows, then zero halo rows."""
+        out = []
+        for dev, z0, nzl in self.slabs:
+            home = to_device(vals[z0 * self.layer:(z0 + nzl) * self.layer],
+                             dev)
+            out.append(torch.cat([home, home.new_zeros(
+                (self.layer,) + tuple(home.shape[1:]))]))
+        return Shards(out)
+
+    def write_particles(self, vals, rows, aux, first):
+        """Each shard's ``vals`` with the rows of the particles ``first ..
+        n - 1`` (the CG beads of a mapped model) taken from ``rows``
+        (their values in particle order, ``[n - first, ...]``); every other
+        row, a halo row too, as it was."""
+        out = []
+        for v, orig in zip(vals, aux["orig"]):
+            o = orig.long()
+            got = to_device(rows, v.device)[
+                torch.clamp(o - first, 0, self.n - first - 1)]
+            sel = ((o >= first) & (o < self.n)).reshape(
+                (-1,) + (1,) * (v.ndim - 1))
+            out.append(torch.where(sel, got, v))
+        return Shards(out)
 
     def to_slots(self, vals, aux):
         """Rows of particle order -> each shard's buffer rows, zero on
@@ -551,6 +588,18 @@ class SlabSlots:
         f = Shards(f * v[:, None] for f, v in zip(forces4, aux["valid"]))
         return f, (None if virial is None else Shards(
             w * v[:, None, None] for w, v in zip(virial, aux["valid"])))
+
+    def planes(self, slot_state, aux):
+        """:meth:`SlotLayout.planes` of every cell, each shard's home cells
+        built on its device from the shards' home rows and joined in
+        global slot order on the first shard's device
+        (:func:`..ops.cellwise.sharded_planes`), bit for bit the whole
+        state's."""
+        st = slot_state
+        return cw.sharded_planes(
+            st.positions, st.types, aux["valid"], self.plan, self.mesh,
+            [g.box for g in self.geoms(st)], self.shard_axis,
+            rcut_matrix=self.rc2_tab)
 
     def pair_forces(self, slot_state, aux, pair_fn, **kw):
         """:func:`..ops.cellwise.resident_pair_forces` on the shards:

@@ -33,7 +33,6 @@ import torch
 
 from .._device import resolve_device, to_device
 from .cell_list import CellList
-from .cell_stencil import joined_slab
 
 __all__ = ["Cellwise", "CellwisePlan", "plan_cellwise",
            "analytic_pair_forces", "cellwise_planes", "repack_order", "repack_src",
@@ -592,29 +591,42 @@ def cellwise_planes(positions, types, valid, plan, rcut_matrix=None,
                          for v in (dd[0], dd[1], dd[2], gt)))
 
 
-def sharded_planes(positions, types, valid, plan, mesh, shard_axis=None,
-                   rcut_matrix=None, box=None):
-    """:func:`cellwise_planes` of every cell, built per z-slab shard of
-    ``mesh`` on its device and gathered on ``positions``' device (equal to
-    the unsharded planes: the same operations on the same values). The
-    full 27-cell stencil reaches ``z - 1`` and ``z + 1``, so a shard's
-    buffer holds its home layers with one halo layer on each side; its
-    planes are its home cells' rows.
+def sharded_planes(positions, types, valid, plan, mesh, boxes,
+                   shard_axis=None, rcut_matrix=None):
+    """:func:`cellwise_planes` of every cell of a slot state resident per
+    z-slab shard of ``mesh`` (:class:`..md.slots.SlabSlots`): each shard
+    builds the planes of its home cells on its device, and they are joined
+    in global slot order on the first shard's device, equal to the
+    unsharded planes bit for bit (the same operations on the same values).
+    The full 27-cell stencil reaches ``z - 1`` as well as ``z + 1``, so a
+    shard's planes read a buffer of the previous shard's last home layer,
+    its own home layers and the next shard's first home layer, each copied
+    only when that shard lies on another device (a shard's own halo rows
+    are not read: between repacks they hold the positions of the last halo
+    exchange).
 
-    :param box: the ``[3, 3]`` box tensor (required: a shard's copy is
-        made from it)."""
+    :param positions, types, valid: each shard's buffer, in shard order
+        (:func:`resident_pair_forces`'); only its home rows are read.
+    :param boxes: each shard's ``[3, 3]`` box tensor on its device.
+    :param rcut_matrix: a :func:`rc2_table` tensor, or ``None``."""
     from .direct import NlistPlanes
     nx, ny, _ = plan.grid
-    primary = positions.device
+    L = halo_layer(plan)
+    slabs = mesh_slabs(plan, mesh, shard_axis)
+    S = len(slabs)
+    primary = positions[0].device
     parts = []
-    for dev, z0, nzl in mesh_slabs(plan, mesh, shard_axis):
-        buf = [joined_slab(t, plan.grid, plan.capacity, ((z0, nzl),), dev)
+    for s, (dev, z0, nzl) in enumerate(slabs):
+        nzp = slabs[(s - 1) % S][2]
+        buf = [torch.cat([to_device(t[(s - 1) % S][(nzp - 1) * L:nzp * L],
+                                    dev), t[s][:nzl * L],
+                          to_device(t[(s + 1) % S][:L], dev)])
                for t in (positions, types, valid)]
         bp = dataclasses.replace(plan, grid=(nx, ny, nzl + 2))
         rc = None if rcut_matrix is None else to_device(rcut_matrix, dev)
         pl = cellwise_planes(*buf, bp, rcut_matrix=rc,
                              cells=(nx * ny, (nzl + 1) * nx * ny),
-                             box=to_device(box, dev))
+                             box=boxes[s])
         parts.append(pl.map(lambda c: to_device(c, primary)))
     return NlistPlanes(*(torch.cat(cs) for cs in zip(*parts)))
 
@@ -817,6 +829,26 @@ def slab_buffer(t, plan, z0, nzl, device=None):
     return t if device is None else to_device(t, device)
 
 
+def slab_split(t, plan, slabs):
+    """The slot-ordered whole ``t`` split into each z-slab shard's buffer
+    (:func:`slab_buffer`: its home layers, then its forward halo layer) on
+    its device, ``slabs`` :func:`mesh_slabs`' ``(device, z0, nzl)``; each
+    buffer a copy, so a halo exchange into it leaves ``t`` as it is."""
+    out = []
+    for dev, z0, nzl in slabs:
+        a, b = slab_rows(plan, z0, nzl)
+        out.append(to_device(torch.cat([t[a], t[b]]), dev))
+    return out
+
+
+def slab_join(ts, plan, slabs, device):
+    """The inverse of :func:`slab_split` for outputs: each shard's home
+    rows of ``ts`` joined in global slot order on ``device``."""
+    L = halo_layer(plan)
+    return torch.cat([to_device(t[:nzl * L], device)
+                      for t, (_, _, nzl) in zip(ts, slabs)])
+
+
 def mesh_slabs(plan, mesh, shard_axis=None):
     """``[(device, z0, nzl), ...]``: each shard of ``mesh``'s axis
     ``shard_axis`` (default its first) with its z-slab of ``plan``
@@ -824,57 +856,6 @@ def mesh_slabs(plan, mesh, shard_axis=None):
     axis = shard_axis or mesh.axis_names[0]
     return [(torch.device(mesh.devices[s]), z0, nzl) for s, (z0, nzl) in
             enumerate(slab_layers(plan, mesh.shape[axis]))]
-
-
-def group_buffers(t, plan, group, device=None):
-    """Each member's rows of the slot-ordered whole state ``t`` for a call
-    over ``group`` (a :class:`SlabGroup`), in group order: its home layers,
-    then its forward halo layer (:func:`slab_buffer`) only when its next
-    shard lies outside the group (a linked member's halo is read in place
-    from the next member's first home layer). On ``t``'s device the
-    members are views of its rows (a copy only for a halo that wraps to
-    layer 0 and lies outside the group); on another ``device`` one joined
-    buffer of every member's rows is copied there once and the members are
-    views of it."""
-    nx, ny, _ = plan.grid
-    layer = nx * ny * plan.capacity
-    parts = [t[z0 * layer:(z0 + nzl) * layer] if n >= 0 else
-             slab_buffer(t, plan, z0, nzl)
-             for (z0, nzl), n in zip(group.slabs, group.next)]
-    if device is None or torch.device(device) == t.device:
-        return parts
-    joined = to_device(parts[0] if len(parts) == 1 else torch.cat(parts),
-                       device)
-    return list(joined.split([x.shape[0] for x in parts]))
-
-
-def gather_groups(outs, groups, plan, primary):
-    """The whole state's ``(forces4, virial or None)`` on ``primary`` from
-    each group's outputs (``outs[i] = (forces4, virial or None)`` of
-    ``groups[i]``, lists over its members' buffer rows): every shard's home
-    rows in shard order, and the reverse halo of a shard whose next shard
-    lies outside its group (its halo rows) added to that shard's first
-    layer. Differentiable: a shard's output gets its home rows' cotangent
-    and, in those halo rows, the next shard's first layer's."""
-    nx, ny, _ = plan.grid
-    layer = nx * ny * plan.capacity
-    S = sum(len(g.members) for g in groups)
-    result = []
-    for c in range(2):
-        if outs[0][c] is None:
-            result.append(None)
-            continue
-        home, halo = [None] * S, {}
-        for g, out in zip(groups, outs):
-            for k, (s, (_, nzl)) in enumerate(zip(g.members, g.slabs)):
-                home[s] = to_device(out[c][k][:nzl * layer], primary)
-                if g.next[k] < 0:
-                    halo[(s + 1) % S] = to_device(out[c][k][nzl * layer:],
-                                                  primary)
-        for s, h in halo.items():
-            home[s] = torch.cat([home[s][:layer] + h, home[s][layer:]])
-        result.append(torch.cat(home))
-    return tuple(result)
 
 
 def _slab_relative_coords(positions, valid, plan, lo, z0, nzl,
@@ -1047,7 +1028,7 @@ def group_rows(t, group, k, layer):
     as K1's group launch reads it: its own home rows, the forward halo
     layer taken from the next member's first home layer when that is in
     the group (a linked member's own buffer may hold its home layers
-    only, :func:`group_buffers`)."""
+    only)."""
     n = group.next[k]
     if n < 0:
         return t[k]
@@ -1104,8 +1085,8 @@ def half_stencil_group_plain(positions, types, valid, plan, lo, pair_fn,
 
     :param positions, types, valid: the members' buffers in group order
         (``(nzl + 1) nx ny cap`` rows each, :func:`slab_rows`; a member
-        whose next member is in the group may hold its home layers only,
-        :func:`group_buffers`).
+        whose next member is in the group may hold its home layers
+        only).
     :param geometry: the global plan's :class:`SlotGeometry` on their
         device.
     :returns: ``(forces4, virial or None)``: lists over the members'
@@ -1122,38 +1103,6 @@ def half_stencil_group_plain(positions, types, valid, plan, lo, pair_fn,
                                    rcut_matrix, needs_energy, geometry))
     return assemble_group(planes, valid, plan, group, needs_energy,
                           needs_virial)
-
-
-def _sharded_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
-                         shard_axis, needs_virial, min_r2, with_types,
-                         rcut_matrix, stencil, needs_energy, form, geometry,
-                         lanes, shard_fn):
-    """:func:`analytic_pair_forces` over the z-slabs of ``mesh``: the shards
-    partitioned by device (:func:`slab_groups`), each device's members'
-    rows taken from the whole state (:func:`group_buffers`: views on the
-    state's device, one copy on another), one group call a device
-    (:func:`_group_forces`: K1's group launch, or the generic form's with
-    the pair function once on the group's joined list; their plain
-    versions on the CPU), and the home forces gathered on the state's
-    device with the reverse halo of a shard whose next shard lies on
-    another device added to that shard's first layer
-    (:func:`gather_groups`). The ``'half'`` and ``'full'`` stencils run
-    K1's slab plain version per shard."""
-    primary = positions.device
-    geometry = _as_geometry(plan, lo, positions, geometry)
-    _check_pair_fn(form, stencil, pair_fn)
-    groups = slab_groups(mesh_slabs(plan, mesh, shard_axis),
-                         whole=stencil not in ("half", "full"))
-    outs = []
-    for g in groups:
-        bufs = [group_buffers(t, plan, g, g.device)
-                for t in (positions, types, valid)]
-        outs.append(_group_forces(
-            bufs, plan, lo, pair_fn if shard_fn is None else
-            shard_fn(g.device), g, needs_virial, min_r2, with_types,
-            rcut_matrix, stencil, needs_energy, form, geometry.on(g.device),
-            lanes, primary))
-    return gather_groups(outs, groups, plan, primary)
 
 
 def _check_pair_fn(form, stencil, pair_fn):
@@ -1265,8 +1214,8 @@ def resident_pair_forces(positions, types, valid, plan, lo, pair_fn, mesh,
 def _group_forces(bufs, plan, lo, fn, group, needs_virial, min_r2,
                   with_types, rcut_matrix, stencil, needs_energy, form, g,
                   lanes, primary):
-    """One group's call (:func:`resident_pair_forces`,
-    :func:`_sharded_pair_forces`) on its members' buffers ``bufs =
+    """One group's call (:func:`resident_pair_forces`) on its members'
+    buffers ``bufs =
     (positions, types, valid)`` (lists in group order) on its device,
     ``g`` the global plan's geometry there: K1's group launch in a pair
     form, or in the generic form with ``lanes.budget`` lanes a member (its
@@ -1311,17 +1260,14 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     :class:`..models.pair.PairModel`. Same contract as the JAX function.
 
     With a ``mesh`` of ``S > 1`` shards (:func:`..parallel.make_mesh`)
-    the work of this whole state is split into ``S`` z-slabs of ``nz /
-    S`` layers, which must divide, and the shards are partitioned by
-    device (:func:`slab_groups`): each device takes its members' rows of
-    the whole state (:func:`group_buffers`: views on the state's device,
-    one copy on another) and makes one group call of K1 over them, and
-    the forces are gathered on the state's device with the reverse halos
-    between devices added (:func:`gather_groups`): the form of the routes
-    that keep the whole slot state (mapped models, training's planes
-    branch); a state resident per shard takes
-    :func:`resident_pair_forces`. A one-shard
-    mesh takes the unsharded call.
+    this whole state is split into ``S`` z-slabs of ``nz / S`` layers,
+    which must divide: each shard's buffer (its home layers and forward
+    halo layer, :func:`slab_split`) is copied to its device, the call runs
+    as :func:`resident_pair_forces` on them (one group call a device), and
+    the shards' home rows are joined on the state's device. The engine's
+    own runs keep their state resident per shard and call
+    :func:`resident_pair_forces` directly. A one-shard mesh takes the
+    unsharded call.
 
     :param pair_fn: ``U(r2[, ti, tj]) -> (U, dU/dr2)`` per lane (a torch
         function; used by the tensor forms).
@@ -1354,12 +1300,19 @@ def analytic_pair_forces(positions, types, valid, plan, lo, pair_fn,
     if mesh is not None:
         axis = shard_axis or mesh.axis_names[0]
         if mesh.shape[axis] > 1:
-            if stencil not in ("auto", "kernel", "half", "full"):
-                raise ValueError(f"unknown stencil {stencil!r}")
-            return _sharded_pair_forces(
-                positions, types, valid, plan, lo, pair_fn, mesh, axis,
-                needs_virial, min_r2, with_types, rcut_matrix, stencil,
-                needs_energy, form, geometry, lanes, shard_fn)
+            slabs = mesh_slabs(plan, mesh, axis)
+            geometry = _as_geometry(plan, lo, positions, geometry)
+            fs, ws = resident_pair_forces(
+                *(slab_split(t, plan, slabs) for t in (positions, types,
+                                                       valid)),
+                plan, lo, pair_fn, mesh, [geometry.on(d) for d, _, _ in
+                                          slabs], axis,
+                needs_virial=needs_virial, min_r2=min_r2,
+                with_types=with_types, rcut_matrix=rcut_matrix,
+                stencil=stencil, needs_energy=needs_energy, form=form,
+                lanes=lanes, shard_fn=shard_fn)
+            return tuple(None if t is None else slab_join(
+                t, plan, slabs, positions.device) for t in (fs, ws))
     if stencil == "auto":
         stencil = "kernel" if positions.is_cuda else "full"
     if stencil == "kernel":

@@ -455,8 +455,7 @@ def group_args(plan, group):
 def member_rows(plan, group, k, t):
     """The rows member ``k`` of ``group`` passes in ``t``: its slab
     buffer's ``(nzl + 1) nx ny cap``, or, when its next member is in the
-    group and ``t`` holds just its home layers
-    (:func:`.cellwise.group_buffers`), ``nzl nx ny cap``."""
+    group and ``t`` holds just its home layers, ``nzl nx ny cap``."""
     n = slab_shape(plan, group.slabs[k])[1]
     if group.next[k] >= 0 and t.shape[0] == n - halo_layer(plan):
         return n - halo_layer(plan)
@@ -526,8 +525,7 @@ def half_stencil_group_forces(positions, types, valid, plan, lo, form, group,
     :param positions, types, valid: lists of the members' buffers in group
         order (a z-slab buffer's rows each, :func:`.cellwise.slab_rows`:
         its home layers then its forward halo layer; a member whose next
-        member is in the group may pass its home rows only,
-        :func:`.cellwise.group_buffers`).
+        member is in the group may pass its home rows only).
     :param geometry: the global plan's geometry on their device.
     :returns: ``(forces4, virial or None)``: lists over the members'
         buffer rows (views of one joined tensor each); a halo row is zero

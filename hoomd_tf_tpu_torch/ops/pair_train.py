@@ -399,20 +399,13 @@ def pair_train_forces(params, pair_apply, positions, types, valid, plan,
             mesh.shape[shard_axis or mesh.axis_names[0]] > 1:
         slabs = _cw.mesh_slabs(plan, mesh, shard_axis)
         geometry = _cw._as_geometry(plan, lo, positions, geometry)
-
-        def split(t):
-            out = []
-            for dev, z0, nzl in slabs:
-                a, b = _cw.slab_rows(plan, z0, nzl)
-                out.append(to_device(torch.cat([t[a], t[b]]), dev))
-            return out
         fs = resident_train_forces(
-            params, pair_apply, split(positions), split(types), split(valid),
+            params, pair_apply,
+            *(_cw.slab_split(t, plan, slabs) for t in (positions, types,
+                                                       valid)),
             plan, lo, mesh, [geometry.on(dev) for dev, _, _ in slabs],
             shard_axis=shard_axis, **kw)
-        L = _cw.halo_layer(plan)
-        return torch.cat([to_device(f[:nzl * L], positions.device)
-                          for f, (_, _, nzl) in zip(fs, slabs)])
+        return _cw.slab_join(fs, plan, slabs, positions.device)
     keys = list(params)
     run = _Run(keys, pair_apply, positions, types, valid, plan, lo, min_r2,
                with_types, rcut_matrix, needs_energy, fwd_stencil, bwd_impl,

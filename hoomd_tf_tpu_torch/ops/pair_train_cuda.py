@@ -322,10 +322,10 @@ def proxy_bwd_moments(positions, types, valid, ct, plan, lo, basis, *,
     :param group: a :class:`.cellwise.SlabGroup` of z-slab shards on one
         card (the training backward under a mesh): ``positions``,
         ``types``, ``valid`` and ``ct`` are lists of the members' buffers
-        in group order (a resident shard's slab buffer, or
-        :func:`.cellwise.group_buffers`: a member's home layers, then its
-        forward halo layer unless its next member is in the group, whose
-        first home layer is then read in place; a halo row of ``ct`` read
+        in group order (a resident shard's slab buffer, or a member's
+        home layers, then its forward halo layer unless its next member
+        is in the group, whose first home layer is then read in place; a
+        halo row of ``ct`` read
         carries the next shard's first home layer's cotangent), one
         launch pair covers every member's home cells, and
         the moments are those of their lanes, summed over the cells in

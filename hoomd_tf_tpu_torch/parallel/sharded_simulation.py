@@ -15,8 +15,12 @@ Online training (``attach(..., train=True)``) keeps the state so too on
 its proxy, pair and lane branches: the labels, the model's forward and
 its backward (kernels K2 or ``generic_reduce_bwd``) run on each device's
 shards' buffers (``ops/pair_train.py::resident_train_forces``), the loss,
-the optimizer and the weights on the first device. Between runs the
-particle-order state lies on the first device. The dense ``'n2'`` build
+the optimizer and the weights on the first device. Every ``'cellwise'``
+route is resident so: the planes route (a SimModel the lane-separability
+probe rejects, training's planes branch, a mapped model) builds each
+shard's planes on its device and runs the model once on every row
+joined on the first device. Between runs the particle-order state lies
+on the first device. The dense ``'n2'`` build
 is split into contiguous particle rows.
 
 The class only adds convenience, as in the JAX package: a default mesh

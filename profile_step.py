@@ -21,7 +21,7 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
                             [--only k2|k3]
-    python3 profile_step.py --mode mesh [--row generic] [--tree DIR]
+    python3 profile_step.py --mode mesh [--row generic|planes] [--tree DIR]
     python3 profile_step.py --mode meshtrain [--tree DIR]
 
 ``--tree DIR`` imports the port's package from another checkout (an
@@ -109,7 +109,8 @@ launches), and the kernels of a step of ``run(100)`` under
 torch.profiler (their number, their summed time and the device's busy
 share). ``--row generic`` runs phase 30's configuration instead
 (``LJPotential(64)``, Langevin, K1's generic form) beside the same model
-unsharded (phase 7's route). With
+unsharded (phase 7's route); ``--row planes`` the planes route of
+phases 35 and 38 (:func:`mesh_planes`). With
 ``--tree DIR`` the package is an older checkout's, so one call measures
 two trees on one card.
 
@@ -631,8 +632,8 @@ def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
          common,
          lambda: cc.generic_reduce_bwd(gl, [ct] if group else ct, False),
          lambda: cs.bwd_cost(gl, need, False)),
-        *bwd_group_calls(cs, shd.mesh, layout, slot, aux, proxy, pair_fn,
-                         dtype),
+        *bwd_group_calls(cs, shd.mesh, layout, sim.state, slot, aux, proxy,
+                         pair_fn, dtype),
         ("K1 generic form, shard 0 as a group of one, LJ pair function, "
          "forces only", plan, common,
          lambda: cc.generic_group_pair_forces(
@@ -642,11 +643,13 @@ def slab_calls(cs, sim, dtype, lj, cheb, proxy, pair_fn, S=4):
                   9 * tested + need * 9)))
 
 
-def bwd_group_calls(cs, mesh, layout, slot, aux, proxy, pair_fn, dtype):
+def bwd_group_calls(cs, mesh, layout, state, slot, aux, proxy, pair_fn,
+                    dtype):
     """The training backward's kernels over every shard of ``mesh`` (one
     card): K2 and ``generic_reduce_bwd`` (forces only) as one group launch
-    each on the members' rows of the whole state (``group_buffers``:
-    views), or, in a tree without a group mode, the same work as its
+    each on the shards' buffers of ``state`` made resident
+    (``SlabSlots.pack``; the cotangent cut as each shard's slab buffer),
+    or, in a tree without a group mode, the same work as its
     per-shard slab calls in a row (each shard's slab buffers and, for
     ``generic_reduce_bwd``, its own slab list). The lists are made at the
     first call (a warm-up), after the calls timed before them, which
@@ -665,7 +668,11 @@ def bwd_group_calls(cs, mesh, layout, slot, aux, proxy, pair_fn, dtype):
                      generator=torch.Generator("cuda").manual_seed(3))
     K = cs.K_PROXY
     if group:
-        bufs = [cw.group_buffers(t, plan, grp) for t in (*whole, ct)]
+        rst, raux = layout.resident(mesh).pack(state)
+        bufs = [[p.positions for p in rst.shards],
+                [p.types for p in rst.shards], list(raux["valid"]),
+                [cw.slab_buffer(ct, plan, z0, nzl) for z0, nzl in
+                 cw.slab_layers(plan, S)]]
         k2 = (lambda: pc.proxy_bwd_moments(
             *bufs, plan, lo, proxy.basis, needs_energy=False, geometry=g,
             group=grp))
@@ -905,6 +912,93 @@ def mesh_loop(cs, row="proxy"):
     out[many] = timed(shd)
     out["mesh"] = kind
     out["ratio"] = out[many]["steps_per_s"] / out[one]["steps_per_s"]
+    return out
+
+
+def mesh_planes(cs):
+    """``--mode mesh --row planes``: the planes route under a mesh, from
+    phase 4's NVT fluid through 4 virtual shards of cuda:0 (or min(4,
+    cards) cards): chip_smoke.py phase 35's coupled LJ that the probe
+    rejects (NVT; warm ``run(20)``, timed ``run(100)``), its planes
+    training branch (Adam 1e-2 against the built-in LJ; warm ``run(10)``,
+    timed ``run(50)``), and phase 38's mapped model on ``'cellwise'``
+    (example 02, 65,536 atoms + 16,384 beads; warm ``run(3)``, timed
+    ``run(10)``). Each timed run forbids host syncs; for each: steps/s,
+    the first card's peak memory over the timed run, and the kernels of a
+    step under torch.profiler (a ``run(5)``, ``run(3)`` for the mapped
+    model): their number, their summed time and the busy share; and the
+    type of the slot state the run kept."""
+    torch, htt = cs.torch, cs.htt
+    from torch.profiler import ProfilerActivity, profile
+    from hoomd_tf_tpu_torch.parallel import ShardedSimulation
+    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
+                                          nlist="cellwise")
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    sim.run(1000)
+    state = sim.state
+    del sim
+    torch.cuda.empty_cache()
+    mesh, kind = cs.shard_mesh()
+    out = {"mesh": kind}
+
+    def measure(s, warm, steps, prof_steps):
+        s.check_syncs = True
+        s.run(warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(0)
+        t0 = time.perf_counter()
+        s.run(steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.run(prof_steps)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = kernel_events(prof)
+        return {"steps_per_s": steps / dt, "peak_gib": peak / 2 ** 30,
+                "kernels_per_step": len(ev) / prof_steps,
+                "kernel_ms_per_step":
+                    sum(b - a for _, a, b in ev) / 1e3 / prof_steps,
+                "busy_share": union_us([(a, b) for _, a, b in ev]) / 1e3 /
+                wall,
+                "plan": [list(s._layout.plan.grid), s._layout.plan.capacity],
+                "slot_state": type(s._packed[2][0]).__name__}
+
+    shd = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    shd.set_state(state)
+    htt.tfcompute(cs.make_coupled(False)).attach(shd, r_cut=cs.R_CUT,
+                                                 nlist="cellwise")
+    out["phase35_planes"] = measure(shd, 20, 100, 5)
+    trn = ShardedSimulation(dt=0.005, kT=1.5, tau=0.5, mesh=mesh, seed=0)
+    trn.set_state(shd.state)
+    del shd
+    trn.add_force(htt.md.LennardJones(r_cut=cs.R_CUT))
+    model = cs.make_coupled(True, epsilon=0.8, sigma=1.05)
+    model.compile(optimizer="adam", loss=cs.force_loss, learning_rate=1e-2)
+    htt.tfcompute(model).attach(trn, r_cut=cs.R_CUT, nlist="cellwise",
+                                train=True)
+    out["phase35_train"] = measure(trn, 10, 50, 5)
+    del trn, model
+    torch.cuda.empty_cache()
+    base = htt.Simulation(dt=0.005, integrator=htt.md.NVT(kT=1.5, tau=0.5),
+                          seed=19, device="cuda")
+    base.set_state(dataclasses.replace(state))
+    base.thermalize_velocities(1.5)
+    mapped = htt.Simulation(dt=0.005, seed=0, mesh=mesh,
+                            integrator=htt.md.NVT(kT=1.5, tau=0.5))
+    mapped.set_state(base.state)
+    del base
+    tfc = htt.tfcompute(cs.make_mapped_lj(64))
+    tfc.enable_mapped_nlist(mapped, cs.com_mapping(cs.N)[0])
+    tfc.attach(mapped, r_cut=cs.R_CUT, nlist="cellwise")
+    out["phase38_mapped_cellwise"] = measure(mapped, 3, 10, 3)
     return out
 
 
@@ -1281,7 +1375,7 @@ def main():
                                        "meshtrain"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--row", choices=("proxy", "pair", "generic"),
+    ap.add_argument("--row", choices=("proxy", "pair", "generic", "planes"),
                     default="proxy")
     ap.add_argument("--box", choices=("ortho", "tilted", "npt"),
                     default="ortho")
@@ -1325,7 +1419,8 @@ def main():
         print(json.dumps({"mode": "mesh", "tree": os.path.abspath(
             args.tree), "package": os.path.dirname(htt.__file__),
             "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
-            "row": args.row, **mesh_loop(cs, args.row)}, indent=1))
+            "row": args.row, **(mesh_planes(cs) if args.row == "planes"
+                                else mesh_loop(cs, args.row))}, indent=1))
         return 0
     if args.mode == "meshtrain":
         print(json.dumps({"mode": "meshtrain", "tree": os.path.abspath(

@@ -27,8 +27,8 @@ from hoomd_tf_tpu_torch.md.slots import SlotLayout
 from hoomd_tf_tpu_torch.ops import cellwise as tcw
 from hoomd_tf_tpu_torch.ops import cellwise_cuda as tcc
 
-from torch_helpers import (cuda_device, fluid_arrays, geometry_case, np_,  # noqa
-                           torch_state)
+from torch_helpers import (cuda_device, fluid_arrays, geometry_case,  # noqa
+                           member_rows, np_, torch_state)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -2318,10 +2318,11 @@ def split_groups(plan, S, device, parts):
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
 def test_k2_group_launch_matches_plain(cuda_device, S, parts, typed, dtype):
     """K2's group launch over the shards of one card (the members' rows
-    of the whole state, ``group_buffers``) against its plain version on
-    the CPU (the JAX bar in float32, rtol 1e-10 in float64), one group
-    launch per group; a group of every shard equals the unsharded K2 bit
-    for bit, two groups (linked outside, halo layers filled) sum to it."""
+    of the whole state, ``torch_helpers.member_rows``) against its plain
+    version on the CPU (the JAX bar in float32, rtol 1e-10 in float64),
+    one group launch per group; a group of every shard equals the
+    unsharded K2 bit for bit, two groups (linked outside, halo layers
+    filled) sum to it."""
     from hoomd_tf_tpu_torch.ops import pair_train_cuda as ptc
     ev, _ = proxy_parts(typed)
     cases = {d.type: slab_packed(d, typed, dtype)
@@ -2338,7 +2339,7 @@ def test_k2_group_launch_matches_plain(cuda_device, S, parts, typed, dtype):
         outs = []
         for d in ("cuda", "cpu"):
             lay, st, ax = cases[d]
-            bufs = [tcw.group_buffers(t, plan, grp) for t in
+            bufs = [member_rows(t, plan, grp) for t in
                     (st.positions, st.types, ax["valid"],
                      ct.to(st.positions.device))]
             before = ptc.proxy_bwd_moments.group_launches
@@ -2395,7 +2396,7 @@ def test_reduce_bwd_group_matches_plain(cuda_device, S, parts, dtype,
         per = []
         for d in ("cuda", "cpu"):
             lay, st, ax = cases[d]
-            bufs = [tcw.group_buffers(t, plan, grp) for t in
+            bufs = [member_rows(t, plan, grp) for t in
                     (st.positions, st.types, ax["valid"],
                      ct.to(st.positions.device))]
             lanes = tcc.LaneBudget(tcc.lane_budget(plan, 1000, grp.slabs[0]),

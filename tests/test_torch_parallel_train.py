@@ -550,10 +550,10 @@ class TPlanesMean(htt.SimModel):
 
 @pytest.mark.parametrize("S", [2, 4])
 def test_sharded_planes_equal_unsharded(S):
-    """The planes built per shard (home layers and a halo layer on each
-    side) equal the unsharded planes exactly, and a model with a cross-row
-    reduction gives the same forces and, after 5 NVT steps, the same state
-    sharded and unsharded (1e-5)."""
+    """The planes built per resident shard (its home layers and its
+    neighbours' boundary layers) equal the unsharded planes exactly, and a
+    model with a cross-row reduction gives the same forces and, after 5
+    NVT steps, the same state sharded and unsharded (1e-5)."""
     pos, vel, lengths = fluid_arrays(2000, 0.4, 3, jitter=0.08)
     sims = []
     for mesh in (cpu_mesh(S), None):
@@ -568,15 +568,17 @@ def test_sharded_planes_equal_unsharded(S):
     ls = shd._ensure_layout()
     lr = ref._ensure_layout(ls.plan)
     st, aux = lr.pack(ref.state)
-    p_s = shd._planes(st, aux, ls)
+    slots = ls.resident(shd.mesh)
+    sst, saux = slots.pack(shd.state)
+    p_s = slots.planes(sst, saux)
     p_r = lr.planes(st, aux)
     for a, b in zip(p_s, p_r):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    r_s = shd._route(ls, st, aux)
+    r_s = shd._route(ls, sst, saux)
     assert r_s.planes
-    f_s, _ = shd._forces(st, aux, ls, r_s, True, False)
+    f_s, _ = shd._forces(sst, saux, slots, r_s, True, False)
     f_r, _ = ref._forces(st, aux, lr, ref._route(lr, st, aux), True, False)
-    torch.testing.assert_close(f_s, f_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(slots.whole(f_s), f_r, rtol=1e-5, atol=1e-5)
     ref._plan_from_current = lambda: ls.plan
     shd._choose_repack_interval = ref._choose_repack_interval = \
         lambda layout: 3

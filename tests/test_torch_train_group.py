@@ -9,7 +9,7 @@ Besides the group of every shard of a one-device mesh, the tests split a
 mesh into two groups of consecutive shards on the CPU (``split``: each
 group's end members linked outside it, as on two cards), so a member's
 halo layer is filled from the whole state and the reverse halo crosses
-between groups (``cellwise.gather_groups``).
+between groups (``cellwise.resident_pair_forces``).
 
 Tolerances: a group of every shard against the unsharded plain versions
 bit for bit (its planes, chunks and sums, or its lanes, are the
@@ -54,7 +54,7 @@ from test_torch_parallel_train import (assert_grads, branch, cotangent,
                                        jax_proxy_grads, proxy_basis,
                                        train_pair_sharded)
 from test_torch_train_generic import trainable
-from torch_helpers import fluid_arrays, np_
+from torch_helpers import fluid_arrays, member_rows, np_
 
 CPU = torch.device("cpu")
 F64 = torch.float64
@@ -101,8 +101,8 @@ def split_groups(monkeypatch, parts):
 
 
 def members(t, plan, group):
-    """The members' rows of ``t`` (``group_buffers``)."""
-    return tcw.group_buffers(t, plan, group)
+    """The members' rows of ``t`` (``torch_helpers.member_rows``)."""
+    return member_rows(t, plan, group)
 
 
 # ----------------------------------------------------------------------

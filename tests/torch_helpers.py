@@ -361,3 +361,17 @@ def geometry_case(kind, device, n=3000, density=0.35, r_cut=2.5,
                             device=device, box=st.box, dynamic_box=True)
     slot, aux = layout.pack(st)
     return layout, slot, aux
+
+
+def member_rows(t, plan, group):
+    """Each member's rows of the slot-ordered whole ``t`` for a call over
+    ``group`` (a ``cellwise.SlabGroup``), in group order, as the group
+    calls accept them: its home layers as a view of ``t`` when its next
+    shard is in the group (whose first home layer the call reads in
+    place), else its slab buffer (home layers, then its forward halo
+    layer, ``cellwise.slab_buffer``)."""
+    from hoomd_tf_tpu_torch.ops import cellwise as tcw
+    layer = tcw.halo_layer(plan)
+    return [t[z0 * layer:(z0 + nzl) * layer] if n >= 0 else
+            tcw.slab_buffer(t, plan, z0, nzl)
+            for (z0, nzl), n in zip(group.slabs, group.next)]
