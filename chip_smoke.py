@@ -4003,6 +4003,80 @@ def resident_shards(sim):
     return slots, st, aux
 
 
+def row_gate(sim, label, states=()):
+    """The particle-order state a mesh simulation holds by rows per shard
+    (``RowState``: shard s the rows ``n s // S`` on, each row field on its
+    mesh device): its state after the run and each of ``states`` (the
+    states its packed loop stepped through, :func:`watch_rows`) checked,
+    the shards' row counts printed."""
+    from hoomd_tf_tpu_torch.md.state import RowState, shard_rows
+    fields = ("positions", "velocities", "types", "masses", "forces",
+              "virial")
+    S = sim.n_shards
+    for st in (sim._state,) + tuple(states):
+        check(isinstance(st, RowState), f"{label}: the state is a "
+              f"{type(st).__name__}, not held by rows per shard")
+        n = st.n_particles
+        check(st.rows == shard_rows(n, S), f"{label}: rows {st.rows}")
+        for s, (p, r) in enumerate(zip(st.shards, st.rows)):
+            dev = torch.device(sim.mesh.devices[s])
+            for f in fields:
+                t = getattr(p, f)
+                check(t.shape[0] == r.stop - r.start and t.device == dev,
+                      f"{label}: shard {s}'s {f} {tuple(t.shape)} on "
+                      f"{t.device}, not rows {r.start}-{r.stop - 1} on "
+                      f"{dev}")
+    st = sim._state
+    print(f"  {label}: the state held by rows per shard after the run"
+          + (f" and at each of its {len(states)} steps" if states else "")
+          + f": {[r.stop - r.start for r in st.rows]} rows on "
+          f"{[str(p.positions.device) for p in st.shards]}")
+
+
+def between_runs_gate(sim, ref):
+    """After a 'cellwise' run on a mesh: the state held by rows per shard
+    (:func:`row_gate`), its read (the rows joined on the first card) equal
+    to the whole-state gather of the slot shards the run kept, field for
+    field, and to the unsharded engine ``ref``'s (printed; the positions
+    gated by the caller)."""
+    from hoomd_tf_tpu_torch.md.state import SimState
+    row_gate(sim, "the state between 'cellwise' runs")
+    slots, (st, aux) = sim._packed[1], sim._packed[2]
+    w = slots.whole
+    whole = slots.layout.unpack(SimState(
+        positions=w(st.positions), velocities=w(st.velocities),
+        types=w(st.types), masses=w(st.masses), box=st.box,
+        forces=w(st.forces), virial=w(st.virial)), {"orig": w(aux["orig"])})
+    got, want = sim.state, ref.state
+    fields = ("positions", "velocities", "types", "masses", "forces",
+              "virial")
+    same = all(torch.equal(getattr(got, f), getattr(whole, f))
+               for f in fields)
+    diff = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+            for f in ("velocities", "forces")}
+    print(f"  the rows read equal to the slot shards' whole-state gather "
+          f"(every field, bit for bit): {same}; against the unsharded "
+          f"engine: max velocity difference {diff['velocities']:.3e}, "
+          f"forces {diff['forces']:.3e}, bit for bit "
+          f"{all(torch.equal(getattr(got, f), getattr(want, f)) for f in fields)}")
+    check(same, "the rows between runs differ from the gather of the slot "
+          "shards")
+
+
+def watch_rows(sim):
+    """The states ``sim``'s packed loop steps through, recorded after each
+    step (a list; nothing is read back)."""
+    seen = []
+    step = sim._packed_step
+
+    def spy(*args, **kw):
+        out = step(*args, **kw)
+        seen.append(out[0])
+        return out
+    sim._packed_step = spy
+    return seen
+
+
 def repack_gate(slots, st, aux):
     """One repack per shard (the migrating repack) of a run's resident
     state against ``repack_src`` and ``SlotLayout.rebuild`` of the
@@ -4273,6 +4347,7 @@ def phase_sharded(state, main_sps):
     print(f"  8 NVT steps (K = 3) against the unsharded engine: max "
           f"position difference {dmax:.3e} (limit 5e-4)")
     check(dmax < 5e-4, "the sharded trajectory left the unsharded one")
+    between_runs_gate(sim, ref)
 
     # the timed run, host syncs forbidden; the peak device memory of its
     # step loop above what stands before it
@@ -4288,6 +4363,7 @@ def phase_sharded(state, main_sps):
     peak = torch.cuda.max_memory_allocated()
     check(isinstance(sim._packed[2][0], SlabState),
           "the sharded run did not keep its state resident per shard")
+    row_gate(sim, "phase 29's timed run")
     timed_l, timed_e = k1.group_launches - l0, sim.force_evals - e0
     launches += timed_l
     evals += timed_e
@@ -5550,9 +5626,10 @@ def k3_group_cost(counts, grid, cap, nn, n, runs, valid_per_row, esize,
 def sharded_pair(state, mesh, make, nlist, steps=8):
     """A simulation on ``mesh`` and an unsharded one from ``state`` (NVT
     at kT 1.5), ``make()`` attached on ``nlist``; ``steps`` steps of each,
-    the largest position difference by minimum image printed and gated at
-    1e-6 (the gathered lists are the unsharded ones bit for bit).
-    Returns ``(sharded, unsharded)``."""
+    the sharded one's state held by rows per shard at each step and after
+    (:func:`row_gate`), the largest position difference by minimum image
+    printed and gated at 1e-6 (the gathered lists are the unsharded ones
+    bit for bit). Returns ``(sharded, unsharded)``."""
     sims = []
     for m in (mesh, None):
         sim = htt.Simulation(dt=0.005, seed=0, mesh=m,
@@ -5562,7 +5639,11 @@ def sharded_pair(state, mesh, make, nlist, steps=8):
         htt.tfcompute(make()).attach(sim, r_cut=R_CUT, nlist=nlist)
         sims.append(sim)
     shd, ref = sims
+    seen = watch_rows(shd)
     slab_run("36-37", shd.run, steps)
+    del shd._packed_step
+    row_gate(shd, f"{nlist!r} under the mesh", seen)
+    del seen
     ref.run(steps)
     d = shd.state.positions - ref.state.positions
     L = torch.as_tensor(shd._lengths, dtype=d.dtype, device=d.device)
@@ -5762,6 +5843,7 @@ def phase_sharded_packed(state, packed_sps):
           f"timed run: group launches {timed_l}, builds {timed_b}")
     check(k3.launches - a0 == timed_l,
           "the sharded run launched an unsharded K3")
+    row_gate(shd, "phase 36's timed run")
     launches += timed_l
     th = healthy(shd, "sharded packed")
     sps = steps / dt
@@ -5812,6 +5894,7 @@ def phase_sharded_direct(state):
     slab_run("37", shd.run, 50)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    row_gate(shd, "phase 37's timed run")
     th = healthy(shd, "sharded direct")
     print(f"  T={th['temperature']:.4f}; no host sync; steps/s "
           f"{50 / dt:.2f} (timed run(50)), {kind}, on {smi_line()} -- "
@@ -5854,7 +5937,11 @@ def phase_sharded_mapped(state):
         else:
             check(shd._packed_build().method == "sort",
                   f"mapped 'cell' took {shd._packed_build().method!r}")
+            seen = watch_rows(shd)
         slab_run("38", shd.run, 1)
+        if nlist == "cell":
+            del shd._packed_step
+            row_gate(shd, "mapped 'cell' under the mesh", seen)
         ref.run(1)
         fmax = float((shd.state.forces - ref.state.forces).abs().max())
         print(f"  {nlist!r}: one step against the unsharded engine, max "
@@ -5875,6 +5962,7 @@ def phase_sharded_mapped(state):
         peak = torch.cuda.max_memory_allocated(0) / 2 ** 30
         mapped_gates(shd, tfc, op, f"sharded {nlist!r}",
                      shd.log["temperature"])
+        row_gate(shd, f"mapped {nlist!r}'s logged run")
         more = ""
         if nlist == "cellwise":
             resident_shards(shd)

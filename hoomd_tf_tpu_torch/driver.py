@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .md.state import first_rows
 from .models.simmodel import MolSimModel
 from .ops.box import box_size, check_tilt
 from .ops.cell_list import CellList
@@ -349,7 +350,8 @@ class tfcompute:
         (zeros at first): with ``period`` > 1 they stand until the model
         runs again, as the reference's force buffer does."""
         n = state.n_particles
-        kw = dict(dtype=state.positions.dtype, device=state.positions.device)
+        like = first_rows(state)
+        kw = dict(dtype=like.dtype, device=like.device)
         mf = self._model_forces
         if mf is not None and mf[0].shape[0] == n:
             return mf

@@ -10,7 +10,8 @@ host syncs. The stochastic ones draw their noise with one
 ``torch.randn`` per step from the state's ``rng``, the simulation's
 ``torch.Generator`` (:func:`_normal`).
 
-A :class:`.state.SlabState` (a slot state resident per mesh shard) is
+A :class:`.state.SlabState` (a slot state resident per mesh shard) or a
+:class:`.state.RowState` (the particle rows resident per shard) is
 integrated shard by shard on each shard's device; the sums a thermostat
 or barostat reads are each shard's partial sum, added on the first
 shard's device (:func:`_total`), and what they give (``xi``, the box
@@ -23,6 +24,7 @@ import torch
 
 from .._device import to_device
 from ..ops.box import box_size
+from .state import first_rows
 
 __all__ = ["NVE", "NVT", "Minimize", "NPT", "Langevin", "Brownian"]
 
@@ -50,7 +52,7 @@ def _wrap_positions(positions, box, tilted=False):
 
 def _parts(state):
     """The states holding ``state``'s rows: itself, or the shards of a
-    :class:`.state.SlabState`."""
+    :class:`.state.SlabState` or a :class:`.state.RowState`."""
     return getattr(state, "shards", (state,))
 
 
@@ -80,17 +82,24 @@ def _normal(state, shape):
 def _noise(state, field):
     """:func:`_normal` noise shaped as ``state``'s ``field``, one tensor
     per part: a :class:`.state.SlabState`'s shards gather their rows
-    (zero on ghost and halo rows) from one draw of one row per particle,
-    so the noise is the unsharded engine's."""
+    (zero on ghost and halo rows), a :class:`.state.RowState`'s take their
+    particle rows, from one draw of one row per particle, so the noise is
+    the unsharded engine's."""
     parts = getattr(state, "shards", None)
     if parts is None:
         return [_normal(state, getattr(state, field).shape)]
     x = parts[0].positions
     z = torch.randn((state.n, 3), generator=state.rng, dtype=x.dtype,
                     device=x.device)
-    z = torch.cat([z, torch.zeros_like(z[:1])])
-    return [to_device(z, p.positions.device)[p.noise_rows[0]]
-            for p in parts]
+    out = []
+    for p in parts:
+        rows = p.noise_rows[0]
+        if isinstance(rows, slice):
+            out.append(to_device(z[rows], p.positions.device))
+            continue
+        zg = torch.cat([z, torch.zeros_like(z[:1])])
+        out.append(to_device(zg, p.positions.device)[rows])
+    return out
 
 
 def _ke2(p):
@@ -148,8 +157,8 @@ class NVT:
         self.tau = tau
 
     def init(self, state):
-        return {"xi": torch.zeros((), dtype=state.positions.dtype,
-                                  device=state.positions.device)}
+        x = first_rows(state)
+        return {"xi": torch.zeros((), dtype=x.dtype, device=x.device)}
 
     def _thermo_half(self, state, dt):
         dof = state.thermostat.get("dof")
@@ -168,9 +177,12 @@ class NVT:
         xi = torch.clamp(xi, -50.0 / dt, 50.0 / dt)
         xi = torch.where((t_inst < 10.0 * self.kT) &
                          (torch.abs(xi) > 10.0 / self.tau), xi * 0.8, xi)
+        # the scale once, on the first device: every shard, whatever its
+        # device, scales by the same value
+        scale = torch.exp(-xi * dt / 2)
         for p in _parts(state):
-            p.velocities = p.velocities * torch.exp(
-                -to_device(xi, p.velocities.device) * dt / 2)
+            p.velocities = p.velocities * to_device(scale,
+                                                    p.velocities.device)
         state.thermostat = {**state.thermostat, "xi": xi}
         return state
 

@@ -89,13 +89,19 @@ device from its own rows and its neighbours' boundary layers
 and positions of every row joined on the first device, and its forces
 go back to each shard; a mapped model's beads are written per shard
 from the atoms joined there.
-The packed routes keep the particle-order state whole: on ``'n2'`` the
-dense build is split into contiguous particle rows, on the cell list
-into z-slabs of cells (kernel K3's group mode on the card, one launch a
-device), on
-``'direct'`` the planes into particle rows, the model then called once
-on the whole list. NPT's dynamic-box layout plans with the mesh's
-divisor.
+The packed routes keep the particle-order state by contiguous particle
+rows per shard (:class:`.state.RowState`, each shard's rows on its
+device): the integrators run per shard, the positions are joined on the
+mesh's first device for the neighbor build -- on ``'n2'`` split into
+particle rows, on the cell list into z-slabs of cells (kernel K3's group
+mode on the card, one launch a device), on ``'direct'`` the planes into
+particle rows -- and the model runs once on the whole list there; its
+forces and the built-in forces' go back to each shard. Between runs the
+engine keeps the particle rows per shard on every route (a
+``'cellwise'`` run ends by writing them from its slot shards,
+:meth:`.slots.SlabSlots.unpack`), and the next run starts from them;
+reading :attr:`Simulation.state` joins them on the first device. NPT's
+dynamic-box layout plans with the mesh's divisor.
 
 PyTorch runs eagerly, so the JAX package's scan machinery (the carry
 wire, ``scan_block``, compile-cache keys, the readback caches for a
@@ -113,8 +119,8 @@ import torch
 from . import integrators as _integrators
 from . import thermo as _thermo
 from .slots import SlotLayout
-from .state import (Shards, SlabState, init_state, lattice_positions,
-                    zeros_like)
+from .state import (RowState, Shards, SimState, SlabState, first_rows,
+                    init_state, lattice_positions, shard_rows, zeros_like)
 from .._device import resolve_device, to_device
 from ..ops import cell_list as _cl
 from ..ops import cellwise as _cw
@@ -164,8 +170,13 @@ class Simulation:
     :param auto_replan: re-plan the cellwise geometry at ``run()``
         boundaries (tighter capacity, overflow self-heal).
     :param mesh: a :class:`..parallel.mesh.Mesh` (``parallel.make_mesh``)
-        of ``S`` shards. Between runs the particle-order state lies on
-        ``mesh.devices[0]`` (the simulation's device). On ``'cellwise'``
+        of ``S`` shards. A state set (``set_state``, ``init_lattice``) lies
+        on ``mesh.devices[0]`` (the simulation's device) until a run
+        starts; from then on, also between runs, shard ``s`` holds the
+        contiguous particle rows ``n s // S`` on (positions, velocities,
+        types, masses, forces, virial) on ``mesh.devices[s]``
+        (:class:`.state.RowState`), and :attr:`state` joins them on the
+        first device when read. On ``'cellwise'``
         the plan keeps ``nz % S == 0`` and, during a run, shard ``s``
         keeps the slot rows of its z-slab and one forward halo layer on
         ``mesh.devices[s]`` (:class:`.slots.SlabSlots`): K1's group launch
@@ -175,8 +186,9 @@ class Simulation:
         the integrators (NPT too), the built-in forces, ``period`` and
         logging act per shard, the sums of the thermostat, the barostat
         and the log added on the first device; each shard repacks its own
-        rows (the migrating repack); the shards stay between runs and the
-        particle-order state is gathered at a run's end. Online training
+        rows (the migrating repack); the slot shards stay between runs
+        and, at a run's end, write each shard's particle rows on its
+        device (no whole-state gather). Online training
         on its proxy, pair and lane branches keeps the state so too: the
         labels, the forward and the backward (K2's group mode, or one
         list, one pair-function call and ``generic_reduce_bwd`` over the
@@ -186,18 +198,24 @@ class Simulation:
         branch too) and of a mapped model each shard builds its home
         cells' planes on its device, the model runs once on all rows
         joined on the first device, its forces go back to each shard,
-        and a mapped model's beads are written per shard. On ``'n2'``
-        each shard builds the dense list of its
-        contiguous particle rows on its device, on ``'cell'`` /
-        ``'pallas'`` each device selects the rows of its shards' z-slabs
-        of cells in one call (K3's group mode on the card, or the sort
-        method; the packed grid has no divisor, so the slabs are ``nz s //
-        S`` on), on
+        and a mapped model's beads are written per shard. The packed
+        routes integrate each shard's particle rows on its device; the
+        positions are joined on the first device for the build: on
+        ``'n2'`` each shard builds the dense list of its contiguous
+        particle rows on its device, on ``'cell'`` / ``'pallas'`` each
+        device selects the rows of its shards' z-slabs of cells in one
+        call (K3's group mode on the card, or the sort method; the packed
+        grid has no divisor, so the slabs are ``nz s // S`` on), on
         ``'direct'`` each shard builds its particle rows' planes; the
-        model runs once a step on the gathered list, so a stateful model
-        (metrics, EDS) means what it means without a mesh. A tilted box
-        raises ``NotImplementedError`` on ``'cellwise'`` under a mesh, as
-        in the JAX package.
+        model runs once a step on the gathered list on the first device,
+        so a stateful model (metrics, EDS) means what it means without a
+        mesh, and its forces (carried per shard for ``period`` > 1) and
+        the built-in forces go back to each shard; training's labels are
+        joined there for the loss; a mapped model's beads are written
+        into the shards that hold their rows. A row count the mesh does
+        not divide is split unevenly, where the JAX package refuses it. A
+        tilted box raises ``NotImplementedError`` on ``'cellwise'`` under
+        a mesh, as in the JAX package.
     :param shard_axis: the mesh axis of the shards.
     """
 
@@ -250,7 +268,7 @@ class Simulation:
         #: slot-layout repacks made so far (cellwise mode; a host count)
         self.repacks = 0
         self._nlist_build = _UNBUILT
-        self.state = None
+        self._state = None
         self.tfc = None
         #: built-in force computes (``add_force``)
         self.forces = []
@@ -289,6 +307,36 @@ class Simulation:
         kwargs.setdefault("generator", self.generator)
         return self.set_state(init_state(positions, box, device=self.device,
                                          **kwargs))
+
+    @property
+    def state(self):
+        """The particle-order :class:`.state.SimState`. Under a mesh the
+        engine keeps it by particle rows per shard once a run has started
+        (:class:`.state.RowState`, also between runs); reading it then
+        joins the rows on the first device, a new ``SimState`` made on
+        each read and not kept. Setting one of that ``SimState``'s fields
+        writes it through to the shards; a write into one of its tensors
+        in place does not reach them."""
+        st = self._state
+        return st.whole() if isinstance(st, RowState) else st
+
+    @state.setter
+    def state(self, state):
+        self._state = state
+
+    @property
+    def _dtype(self):
+        """The state's dtype."""
+        return first_rows(self._state).dtype
+
+    def _positions(self):
+        """The positions in particle order on the simulation's device
+        (under a mesh the shards' rows joined: the planner's and the
+        occupancy's read at a run boundary)."""
+        st = self._state
+        if isinstance(st, RowState):
+            return st.join(st.positions)
+        return st.positions
 
     def set_state(self, state):
         """Adopt ``state`` (its tensors must be on :attr:`device`)."""
@@ -338,23 +386,32 @@ class Simulation:
         # a new integrator gets a freshly sized cell list, as the JAX
         # package's recompiled step does
         self._nlist_build = _UNBUILT
-        if self.state is not None:
-            fresh = integ.init(self.state)
-            current = dict(self.state.thermostat or {})
+        st = self._state
+        if st is not None:
+            fresh = integ.init(st)
+            current = dict(st.thermostat or {})
             if set(current) != set(fresh):
                 fresh.update({k: current[k] for k in current if k in fresh})
-                self.state.thermostat = fresh
+                st.thermostat = fresh
                 self._packed = None
 
     def thermalize_velocities(self, kT):
         """Fresh Maxwell-Boltzmann velocities at ``kT`` with zero net
-        momentum, drawn from the simulation's generator."""
-        st = self.state
-        v = (torch.randn(st.velocities.shape, generator=self.generator,
-                         dtype=st.velocities.dtype, device=self.device)
-             * torch.sqrt(kT / st.masses)[:, None])
+        momentum, drawn from the simulation's generator (under a mesh on
+        the first device, then split into the shards' rows)."""
+        st = self._state
+        rows = isinstance(st, RowState)
+        masses = st.join(st.masses) if rows else st.masses
+        v = (torch.randn((st.n_particles, 3), generator=self.generator,
+                         dtype=self._dtype, device=self.device)
+             * torch.sqrt(kT / masses)[:, None])
         v = v - v.mean(dim=0, keepdim=True)
-        self.state = dataclasses.replace(st, velocities=v)
+        if rows:
+            st = st.copy()
+            st.velocities = st.split(v)
+        else:
+            st = dataclasses.replace(st, velocities=v)
+        self._state = st
         self._vmax_cache = None
         return self.state
 
@@ -401,8 +458,8 @@ class Simulation:
         self._nlist_build = _UNBUILT
         self._static_K_cap = None
         self._static_K_last = None
-        self._replan_check_step = (self.state.step if self.state is not None
-                                   else -1)
+        self._replan_check_step = (self._state.step
+                                   if self._state is not None else -1)
 
     # ------------------------------------------------------------------
     # planning
@@ -431,7 +488,7 @@ class Simulation:
                   if any(self._tilt) else self._lengths)
         if np.all(np.asarray(widths) // r >= 3):
             return r, None, "cellwise", None
-        n = self.state.n_particles
+        n = self._state.n_particles
         mean_nbrs = 4.19 * r ** 3 * (n / float(np.prod(self._lengths)))
         NN = int(min(n - 1, max(8, np.ceil(2.0 * mean_nbrs))))
         return r, None, "auto", NN
@@ -483,13 +540,17 @@ class Simulation:
         return scale * 3.0 if tfc.train else scale
 
     def _vmax_now(self):
-        """Max particle speed (one readback, cached per state object)."""
+        """Max particle speed (one readback, cached per state object; under
+        a mesh each shard's max, the max of them on the first device)."""
+        st = self._state
         c = self._vmax_cache
-        if c is not None and c[0] is self.state:
+        if c is not None and c[0] is st:
             return c[1]
-        v = self.state.velocities
-        vm = float(torch.sqrt(torch.max(torch.sum(v * v, dim=-1))))
-        self._vmax_cache = (self.state, vm)
+        v2 = [torch.max(torch.sum(p.velocities ** 2, dim=-1))
+              for p in _integrators._parts(st)]
+        vm = float(torch.sqrt(torch.stack(
+            [to_device(x, self.device) for x in v2]).max()))
+        self._vmax_cache = (st, vm)
         return vm
 
     def _drift_estimate(self):
@@ -519,13 +580,13 @@ class Simulation:
         if hist and not dynamic:
             okey = hist[-1][0]
             if okey[1] == tuple(float(v) for v in self._lengths) and \
-                    okey[2] == self.state.n_particles and \
+                    okey[2] == self._state.n_particles and \
                     sum(h[2] for h in hist) >= 300:
                 occ_observed = (okey[0], max(h[1] for h in hist))
         plan = _cw.plan_cellwise(
-            self.state.n_particles, self._lengths, r_cut, config=config,
+            self._state.n_particles, self._lengths, r_cut, config=config,
             positions=(None if occ_observed is not None else
-                       self.state.positions.detach().cpu().numpy()),
+                       self._positions().detach().cpu().numpy()),
             lo=self._lo, drift_per_step=self._drift_estimate(),
             z_divisor=self.n_shards,
             width_blocks=14 if self._kernel_eligible() else 27,
@@ -575,17 +636,16 @@ class Simulation:
                 f"Box {self._lengths} too small for the cellwise mode at "
                 f"r_cut={r_cut} (needs >= 3 cells per axis{extra}); use "
                 "nlist='n2' instead")
-        layout = SlotLayout(plan, self.state.n_particles, self._lo,
-                            rc_matrix=rc_matrix,
-                            dtype=self.state.positions.dtype,
-                            device=self.device, box=self.state.box,
+        layout = SlotLayout(plan, self._state.n_particles, self._lo,
+                            rc_matrix=rc_matrix, dtype=self._dtype,
+                            device=self.device, box=self._state.box,
                             dynamic_box=self._changes_box())
         # every device constant the step loop reads is made here, so the
         # loop never copies from the host
         layout.geometry.offsets(_cw._HALF_OFFS)
         layout.geometry.offsets(_cw._OFFS)
         self._builtin_forms = []
-        dtype = self.state.positions.dtype
+        dtype = self._dtype
         for f in self.forces:
             form = f.kernel_form()
             form.tensor(self.device, dtype)
@@ -604,13 +664,13 @@ class Simulation:
         # on their capacity: a plan of the same cells keeps the list
         # (under a mesh each shard's list holds the budget: a shard's share
         # of the whole state's first estimate)
-        key = (plan.grid, plan.lengths, plan.r_cut, self.state.n_particles,
+        key = (plan.grid, plan.lengths, plan.r_cut, self._state.n_particles,
                self.n_shards)
         if getattr(self, "_lanes_key", None) != key:
             slab = (_cw.slab_layers(plan, self.n_shards)[0]
                     if self._sharded() else None)
             self._lanes = LaneBudget(
-                lane_budget(plan, self.state.n_particles, slab), self.device)
+                lane_budget(plan, self._state.n_particles, slab), self.device)
             self._lanes_key = key
         self._layout = layout
         return layout
@@ -636,7 +696,7 @@ class Simulation:
             rec["replan_throttle"] = getattr(layout, "_replan_throttle",
                                              None)
             packed = self._packed
-            if packed is not None and packed[0] is self.state and \
+            if packed is not None and packed[0] is self._state and \
                     getattr(packed[1], "layout", packed[1]) is layout:
                 aux = packed[2][1]
                 orig = aux["orig"]
@@ -668,10 +728,10 @@ class Simulation:
             if "orig" in rec:
                 orig = torch.as_tensor(rec["orig"], device=self.device)
                 slots = self._slots(layout)
-                st, aux = slots.pack(self.state, src=orig)
+                st, aux = slots.pack(self._state, src=orig)
                 aux["occ_max"] = torch.tensor(
                     rec["occ_max"], dtype=torch.int32, device=self.device)
-                self._packed = (self.state, slots, (st, aux))
+                self._packed = (self._state, slots, (st, aux))
         if "lanes" in rec:
             # after the layout, which makes a first estimate of its own
             budget, committed, key = rec["lanes"]
@@ -680,15 +740,15 @@ class Simulation:
             self._lanes_key = key
 
     def _max_occupancy_now(self, layout):
-        cell = _cw.bin_cells(self.state.positions, layout.lo, layout.plan,
-                             layout.geom(self.state))
+        cell = _cw.bin_cells(self._positions(), layout.lo, layout.plan,
+                             layout.geom(self._state))
         return int(torch.bincount(cell.long(),
                                   minlength=layout.plan.n_cells).max())
 
     def _maybe_auto_replan(self, layout):
         """Tighten a stale plan at a run() boundary when a fresh plan
         would run clearly fewer pair lanes (throttled, with backoff)."""
-        step = self.state.step
+        step = self._state.step
         if step < 100:
             return layout
         throttle = getattr(layout, "_replan_throttle", 500)
@@ -1059,9 +1119,8 @@ class Simulation:
             # configuration and plan, into a layout of its own, whose
             # per-slot constants of the whole grid go with it
             check = SlotLayout(layout.plan, layout.n, layout.lo,
-                               rc_matrix=layout.rc_matrix,
-                               dtype=self.state.positions.dtype,
-                               device=self.device, box=self.state.box,
+                               rc_matrix=layout.rc_matrix, dtype=self._dtype,
+                               device=self.device, box=self._state.box,
                                dynamic_box=layout.dynamic_box)
             st, aux = check.pack(self.state)
         stencil = self.stencil
@@ -1202,7 +1261,7 @@ class Simulation:
             reference's hoomd ``analyze.log``). They ride the run's one
             readback.
         """
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("Initialize the simulation state first "
                                "(init_lattice / init_state)")
         if self.tfc is None and not self.forces:
@@ -1213,7 +1272,7 @@ class Simulation:
             return
         if log_period is not None and int(log_period) < 1:
             raise ValueError(f"log_period must be >= 1, got {log_period}")
-        self._adopt(self.state)
+        self._adopt(self._state)
         run_once = self._run_once if self._use_cellwise() \
             else self._run_packed
         model = self.tfc.model if self.tfc is not None else None
@@ -1236,7 +1295,7 @@ class Simulation:
         K = self._choose_repack_interval(layout)
         slots = self._slots(layout)
         packed = self._packed
-        if packed is not None and packed[0] is self.state and \
+        if packed is not None and packed[0] is self._state and \
                 packed[1] is slots:
             st, aux = packed[2]
             # shallow copy: fields are rebound, never written in place, so
@@ -1246,18 +1305,21 @@ class Simulation:
                   dataclasses.replace(st))
             aux = {**aux, "vmax": slots._vmax(st.velocities)}
         else:
-            st, aux = slots.pack(self.state)
+            # under a mesh from the particle rows the engine keeps per
+            # shard (or a state just set, on the first device)
+            st, aux = slots.pack(self._state)
         route = self._route(layout, st, aux)
         route.repack_each_step = K is None
         log = (None if log_period is None else
-               _Log(log_period, self.state.step, n, self.state.positions))
+               _Log(log_period, self._state.step, n,
+                    first_rows(self._state)))
         needs_virial = route.needs_virial or log is not None
         tfc = self.tfc
         if route.model_period > 1:
             # the model's forces and virial of its last evaluation, carried
             # from the last committed run (zeros at first), in slot order
             route.carry_virial = bool(tfc.model.virial and needs_virial)
-            mf, mw = tfc.model_forces(self.state)
+            mf, mw = tfc.model_forces(self._state)
             aux = {**aux, "mf": slots.to_slots(mf, aux),
                    "mw": (slots.to_slots(mw, aux) if route.carry_virial
                           else None)}
@@ -1271,7 +1333,7 @@ class Simulation:
         if tfc is not None:
             tfc.begin_outputs()
         self._lanes.reset()
-        start_step = self.state.step
+        start_step = self._state.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
         with _sync_guard(self.check_syncs):
             done = 0
@@ -1330,7 +1392,7 @@ class Simulation:
                                "too short over the run's retries")
         if overflow and layout.dynamic_box:
             # under a barostat the grid cannot grow with the box: the run
-            # is rolled back (self.state still holds its start) and raises
+            # is rolled back (self._state still holds its start) and raises
             raise ValueError(
                 "Cell capacity exceeded during the run (a cell held more "
                 "particles than planned, or -- under a barostat -- the box "
@@ -1373,7 +1435,7 @@ class Simulation:
             # running max occupancy and speed of committed runs, windowed
             # so transients age out; they calibrate replan() and K
             okey = (layout.plan.grid, layout.plan.lengths,
-                    self.state.n_particles)
+                    self._state.n_particles)
             hist = [h for h in getattr(self, "_occ_hist", [])
                     if h[0] == okey]
             hist.append((okey, occ_now, n))
@@ -1386,12 +1448,14 @@ class Simulation:
                 vhist.pop(0)
             self._vmax_hist = vhist
 
-        self.state = slots.unpack(st, aux)
-        self.state.step = start_step + n
+        # under a mesh each shard's particle rows, written on its device
+        # from the slot shards (no whole-state gather)
+        self._state = slots.unpack(st, aux)
+        self._state.step = start_step + n
         if box_now is not None:
-            self._note_box(self.state.box, box_now)
-        self._vmax_cache = (self.state, vmax_now)
-        self._packed = (self.state, slots, (st, aux))
+            self._note_box(self._state.box, box_now)
+        self._vmax_cache = (self._state, vmax_now)
+        self._packed = (self._state, slots, (st, aux))
         if overflow:
             raise ValueError(
                 "Cell capacity exceeded during the run (a cell held more "
@@ -1403,9 +1467,11 @@ class Simulation:
                 f"integration is likely diverging (dt={self.dt}).")
         if route.model_period > 1:
             mw = aux.get("mw")
+            n_p = self._state.n_particles
             tfc.keep_model_forces(
                 slots.to_particles(aux["mf"], aux),
-                torch.zeros_like(self.state.virial) if mw is None else
+                torch.zeros((n_p, 3, 3), dtype=self._dtype,
+                            device=self.device) if mw is None else
                 slots.to_particles(mw, aux))
         if tr is not None:
             # a failed attempt's losses belong to training it rolled back
@@ -1452,7 +1518,7 @@ class Simulation:
         (nlist [N, NN, 4] or planes, overflow or None)``, with ``plan``
         and ``method``."""
         lengths = np.asarray(self._lengths, dtype=np.float64)
-        n = self.state.n_particles
+        n = self._state.n_particles
         tilted = any(self._tilt)
         if tilted and (method in ("cell", "pallas", "direct") or
                        isinstance(method, _cl.CellList)):
@@ -1477,11 +1543,11 @@ class Simulation:
                 raise ValueError(f"Box {lengths} too small for the direct "
                                  f"mode at r_cut={r_cut}")
             if config.capacity is None:
-                occ = _cl.max_occupancy(self.state.positions, lengths, grid)
+                occ = _cl.max_occupancy(self._positions(), lengths, grid)
                 capacity = max(capacity, int(np.ceil(occ * 1.3)) + 1)
             capacity = max(capacity, getattr(self, "_cl_capacity_floor", 0))
             return DirectPlanes(grid, capacity, r_cut, self.device,
-                                rc_matrix, self.state.positions.dtype)
+                                rc_matrix, self._dtype)
         want_cell = isinstance(method, _cl.CellList) or \
             method in ("cell", "pallas")
         sel = "pallas" if method == "pallas" else "sort"
@@ -1503,15 +1569,13 @@ class Simulation:
                 # statistical headroom can lose to structured starts (an
                 # aligned lattice packs one cell); size from measured
                 # occupancy too
-                occ = _cl.max_occupancy(self.state.positions, lengths, grid)
+                occ = _cl.max_occupancy(self._positions(), lengths, grid)
                 capacity = max(capacity, int(np.ceil(occ * 1.3)) + 1)
             # the overflow self-heal floor beats even an explicit capacity
             capacity = max(capacity, getattr(self, "_cl_capacity_floor", 0))
             return _cl.CellNlist(grid, capacity, lengths, r_cut, NN, sel,
-                                 self.device, rc_matrix,
-                                 self.state.positions.dtype)
-        return DenseNlist(r_cut, NN, self.device, rc_matrix,
-                          self.state.positions.dtype)
+                                 self.device, rc_matrix, self._dtype)
+        return DenseNlist(r_cut, NN, self.device, rc_matrix, self._dtype)
 
     def _build_nlist(self, state):
         """One neighbor build on ``state`` (the host accessors')."""
@@ -1565,8 +1629,7 @@ class Simulation:
 
     def _shard_rows(self, n):
         """The contiguous particle rows of each mesh shard: ``slice``s."""
-        S = self.n_shards
-        return [slice(n * s // S, n * (s + 1) // S) for s in range(S)]
+        return shard_rows(n, self.n_shards)
 
     def _shard_build(self, build, st):
         """The packed build split over the mesh's shards, gathered on the
@@ -1643,47 +1706,96 @@ class Simulation:
         tr.trained.append(i)
         tfc.capture(*extras)
 
+    def _row_state(self):
+        """The engine's state held by particle rows per mesh shard
+        (:class:`.state.RowState`): the rows it keeps, or a state just set
+        split into them (once, at a run's start). A row count that the
+        mesh does not divide is split unevenly (``n s // S`` on), where
+        the JAX package's ``_apply_mesh`` refuses it (ROADMAP Queue 3)."""
+        st = self._state
+        if not isinstance(st, RowState):
+            st = self._state = RowState.of(st, self._shard_devices(),
+                                           self._shard_rows(st.n_particles))
+        return st
+
+    def _joined(self, st, types):
+        """What the build and the model read of a :class:`.state.RowState`
+        ``st``: a ``SimState`` of its positions joined on the first device
+        and ``types`` (joined once a run), its box; no other row field."""
+        return SimState(positions=st.join(st.positions), velocities=None,
+                        types=types, masses=None, box=st.box, forces=None,
+                        virial=None, step=st.step, tilted=st.tilted)
+
+    def _map_rows(self, st, types, map_i):
+        """A mapped run's beads written into the shards that hold their
+        rows, from the mapping of the atom rows joined on the first device
+        (the unsharded :meth:`..driver.tfcompute.apply_mapping`, split by
+        the rows each shard holds: host slices, no mask)."""
+        ws = self._joined(st, types)
+        cg3 = self.tfc.bead_positions(ws.positions4[:map_i], st.box)
+        out = []
+        for r, x in zip(st.rows, st.positions):
+            k = min(max(map_i - r.start, 0), r.stop - r.start)
+            if k == r.stop - r.start:
+                out.append(x)
+                continue
+            beads = to_device(cg3[r.start + k - map_i:r.stop - map_i],
+                              x.device)
+            out.append(torch.cat([x[:k], beads]))
+        st.positions = Shards(out)
+        return st
+
     def _packed_step(self, st, flags, build, needs_virial, i, carry, tr,
-                     log=None, rows=None):
+                     log=None, rows=None, types=None):
+        """One step of the particle-order route. On a state held by rows
+        per shard (:class:`.state.RowState`) the integrator runs per shard;
+        the positions are joined on the first device for the build
+        (:meth:`_shard_build`) and the model, which runs once on every row
+        of the joined list; the model's forces and virial (carried per
+        shard between its evaluations when ``period`` > 1) and the
+        built-in forces' go back to each shard. The built-ins run on the
+        joined list too: one call each, on the list the model reads, then
+        split."""
         integ, dt = self.integrator, self.dt
         st = integ.pre_force(st, dt)
-        n = st.n_particles
         tfc = self.tfc
+        sharded = isinstance(st, RowState)
         map_i = None if rows is None else tfc.model._map_i
         if map_i is not None:
             # the CG beads follow the atoms before the neighbor build
-            st = tfc.apply_mapping(st)
+            st = (self._map_rows(st, types, map_i) if sharded else
+                  tfc.apply_mapping(st))
+        ws = self._joined(st, types) if sharded else st
+        n = ws.n_particles
         if build is not None and self._sharded():
-            nlist, cell_overflow = self._shard_build(build, st)
+            nlist, cell_overflow = self._shard_build(build, ws)
             self.nlist_builds += 1
         elif build is not None:
-            nlist, cell_overflow = build(st.positions4, self._build_box(st))
+            nlist, cell_overflow = build(ws.positions4, self._build_box(ws))
             self.nlist_builds += 1
         else:
-            nlist = torch.zeros((n, 1, 4), dtype=st.positions.dtype,
+            nlist = torch.zeros((n, 1, 4), dtype=ws.positions.dtype,
                                 device=self.device)
             cell_overflow = None
+        split = st.split if sharded else (lambda t: t)
         # the model runs every `period` steps (st.step is a host int);
         # between, its last forces stand, as in the JAX package
         model_now = tfc is not None and st.step % tfc.period == 0
         if tfc is not None and not tfc.train:
             if model_now:
-                carry[:] = self._eval_model(st, nlist)
+                carry[:] = [split(t) for t in self._eval_model(ws, nlist)]
             f, w = carry
         else:
-            f = torch.zeros((n, 4), dtype=st.positions.dtype,
-                            device=self.device)
-            w = torch.zeros((n, 3, 3), dtype=st.positions.dtype,
-                            device=self.device)
+            f, w = self._zero_rows(st)
         for force in self.forces:
-            fi, wi = force(st, nlist)
-            f, w = f + fi, w + wi
+            fi, wi = force(ws, nlist)
+            f, w = f + split(fi), w + split(wi)
         if tr is not None and model_now:
-            labels = f
+            labels = st.join(f) if sharded else f
             subset = tfc.reference_forces
             if subset and len(subset) != len(self.forces):
-                labels = sum(g(st, nlist)[0] for g in subset)
-            self._packed_train(st, nlist, labels, i, tr)
+                labels = sum(g(ws, nlist)[0] for g in subset)
+            self._packed_train(ws, nlist, labels, i, tr)
         # the beads are virtual: no net force (the reference integrates
         # the atom group only)
         st.forces = _mask_beads(f, rows, map_i)
@@ -1697,23 +1809,40 @@ class Simulation:
             flags = flags | cell_overflow.to(torch.int32)
         return st, flags
 
+    def _zero_rows(self, st):
+        """Zero ``(forces4, virial)`` of ``st``'s rows (per shard on a
+        :class:`.state.RowState`)."""
+        kw = dict(dtype=first_rows(st).dtype)
+        parts = _integrators._parts(st)
+        zs = [(torch.zeros((p.n_particles, 4), device=p.positions.device,
+                           **kw),
+               torch.zeros((p.n_particles, 3, 3), device=p.positions.device,
+                           **kw)) for p in parts]
+        if not isinstance(st, RowState):
+            return zs[0]
+        return Shards(z[0] for z in zs), Shards(z[1] for z in zs)
+
     def _run_packed(self, n, allow_retry, log_period=None):
         """One attempt at :meth:`run` on the particle-order route; returns
         False to ask for a retry after a capacity-overflow rollback (which
         also rolls back every model variable and, under training, the
         optimizer's state). Flags: bit 0 cell overflow, bit 2 the model's
-        full-list flag."""
+        full-list flag. Under a mesh the state is held by particle rows per
+        shard (:meth:`_row_state`) through the run and after it."""
         tfc = self.tfc
         model = tfc.model if tfc is not None else None
+        start = self._row_state() if self._sharded() else self._state
+        sharded = isinstance(start, RowState)
         build = self._packed_build()
+        like = first_rows(start)
         log = (None if log_period is None else
-               _Log(log_period, self.state.step, n, self.state.positions))
+               _Log(log_period, start.step, n, like))
         needs_virial = bool(self.forces or log is not None or
                             getattr(self.integrator, "needs_virial", False) or
                             (model is not None and model.virial))
         check = model is not None and model.check_nlist
         for force in self.forces:
-            force.prepare(self.state.positions)
+            force.prepare(like)
         tr = snap = None
         if tfc is not None:
             if tfc.train:
@@ -1728,18 +1857,26 @@ class Simulation:
             # training, the optimizer's state
             snap = StateSnapshot(model, None if tr is None else tr.opt)
             tfc.begin_outputs()
-        carry = list(tfc.model_forces(self.state)) if tfc is not None \
+        carry = list(tfc.model_forces(start)) if tfc is not None \
             else None
+        n_p = start.n_particles
         # a mapped run's particle index of each row, for the bead mask
-        rows = (torch.arange(self.state.n_particles, device=self.device)
+        rows = (torch.arange(n_p, device=self.device)
                 if tfc is not None and tfc.map_enabled else None)
-        st = dataclasses.replace(self.state)
+        types = None
+        if sharded:
+            # the types the build reads, joined once (a run keeps them)
+            types = start.join(start.types)
+            carry = None if carry is None else [start.split(t)
+                                                for t in carry]
+            rows = None if rows is None else start.split(rows)
+        st = start.copy() if sharded else dataclasses.replace(start)
         start_step = st.step
         flags = torch.zeros((), dtype=torch.int32, device=self.device)
         with _sync_guard(self.check_syncs), torch.no_grad():
             for i in range(n):
                 st, flags = self._packed_step(st, flags, build, needs_virial,
-                                              i, carry, tr, log, rows)
+                                              i, carry, tr, log, rows, types)
             if check:
                 flags = flags | (model.nlist_overflow.to(torch.int32) << 2)
         # the one readback: flags, the barostat's final box (known on the
@@ -1755,7 +1892,7 @@ class Simulation:
             snap.restore()
         if overflow and allow_retry and self.auto_replan and \
                 build is not None and build.plan is not None:
-            # roll back (self.state still holds the attempt's start) and
+            # roll back (self._state still holds the attempt's start) and
             # re-plan with a larger capacity floor, as HOOMD's cell list
             # resizes itself
             cap = build.plan[1]
@@ -1769,7 +1906,7 @@ class Simulation:
                 f"re-running these {n} steps from their start")
             return False
         st.step = start_step + n
-        self.state = st
+        self._state = st
         if box_now is not None:
             self._note_box(st.box, box_now.astype(np.float64).reshape(3, 3))
         self._packed = None
@@ -1781,7 +1918,9 @@ class Simulation:
                 "attach with nlist='n2'.")
         if tfc is not None:
             if not tfc.train:
-                tfc.keep_model_forces(*carry)
+                # tfcompute keeps them in particle order
+                tfc.keep_model_forces(*(st.join(t) if sharded else t
+                                        for t in carry))
             if tr is not None:
                 tfc.loss_history.extend(losses[tr.trained].tolist())
             tfc.commit_outputs()
@@ -1970,7 +2109,7 @@ class _TrainState:
         """A device buffer for the run's ``n`` losses, of the state's
         dtype (the JAX package keeps the losses at their own dtype), and
         the list of the steps that trained."""
-        self.losses = torch.zeros((n,), dtype=self.sim.state.positions.dtype,
+        self.losses = torch.zeros((n,), dtype=self.sim._dtype,
                                   device=self.sim.device)
         self.trained = []
 

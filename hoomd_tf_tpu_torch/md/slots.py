@@ -33,7 +33,7 @@ import torch
 
 from .._device import resolve_device, to_device
 from ..ops import cellwise as cw
-from .state import Shards, SimState, SlabState
+from .state import RowState, Shards, SimState, SlabState, shard_rows
 
 __all__ = ["SlotLayout", "SlabSlots"]
 
@@ -218,10 +218,8 @@ class SlotLayout:
         src, overflow, occ = self._repack(st, aux["valid"])
         has = src < n_slots
         carried = [k for k in ("mf", "mw") if aux.get(k) is not None]
-        blk = torch.cat([
-            st.positions, st.velocities, st.masses[:, None],
-            st.forces, st.virial.reshape(-1, 9)] +
-            [aux[k].reshape(n_slots, -1) for k in carried], dim=1)
+        blk = _block(st, extra=[aux[k].reshape(n_slots, -1)
+                                for k in carried])
         ints = torch.stack([aux["orig"], st.types], dim=1)
         at = torch.clamp(src, 0, n_slots - 1).long()
         g, gi = blk[at], ints[at]
@@ -243,7 +241,7 @@ class SlotLayout:
                    "overflow": aux["overflow"] | overflow,
                    "occ_max": torch.maximum(aux["occ_max"], occ),
                    "vmax": torch.maximum(aux["vmax"], vm)}
-        col = 20
+        col = _COLS
         for k in carried:
             w = aux[k][0].numel()
             new_aux[k] = torch.where(h, g[:, col:col + w], 0.0).reshape(
@@ -433,45 +431,55 @@ class SlabSlots:
 
     # ------------------------------------------------------------------
     def pack(self, state, src=None):
-        """Particle-order ``SimState`` -> ``(SlabState, aux)``: the slot
-        assignment of :meth:`SlotLayout.pack` (``src`` as there), each
-        shard's rows gathered on the state's device and copied to its
-        own, where its ghosts are parked."""
+        """Particle-order state -> ``(SlabState, aux)``: the slot
+        assignment of :meth:`SlotLayout.pack` (``src`` as there; binned
+        from the positions joined on the first device), then each shard's
+        slot rows gathered on its own device from the particle rows of
+        every row shard (a :class:`.state.RowState`, the state the engine
+        keeps between runs, or a whole :class:`.state.SimState` as one row
+        shard), its ghosts parked at their cell centers."""
         layout, n, L = self.layout, self.n, self.layer
-        dtype = state.positions.dtype
+        if not isinstance(state, RowState):
+            state = RowState.of(state, [state.positions.device],
+                                [slice(0, n)])
+        dtype = state.dtype
         if src is None:
-            valid_n = torch.ones(n, dtype=dtype,
-                                 device=state.positions.device)
-            src, overflow, occ = layout._repack(state, valid_n)
+            valid_n = torch.ones(n, dtype=dtype, device=self.device)
+            src, overflow, occ = cw.repack_src(
+                state.join(state.positions), valid_n, self.lo, self.plan,
+                with_occ=True, geometry=layout.geom(state))
         else:
             src = src.to(torch.int32)
             overflow = torch.zeros((), dtype=torch.bool, device=src.device)
             occ = torch.zeros((), dtype=torch.int32, device=src.device)
         g = layout.geom(state)
+        blocks = [(r, _block(p), p.types)
+                  for r, p in zip(state.rows, state.shards)]
         bufs = []
         for s, (dev, z0, nzl) in enumerate(self.slabs):
-            rows = src[z0 * L:(z0 + nzl) * L]
+            rows = to_device(src[z0 * L:(z0 + nzl) * L], dev).long()
             has = rows < n
-            idx = torch.clamp_max(rows, n - 1).long()
-
-            def put(vals, default):
-                sel = has.reshape((-1,) + (1,) * (vals.ndim - 1))
-                return torch.where(sel, vals[idx], default)
-            cols = dict(
-                positions=put(state.positions, 0.0),
-                velocities=put(state.velocities, 0.0),
-                types=put(state.types, 0), masses=put(state.masses, 1.0),
-                forces=put(state.forces, 0.0),
-                virial=put(state.virial, 0.0), valid=has.to(dtype),
-                orig=torch.where(has, rows, n).to(torch.int32))
-            cols = {k: to_device(v, dev) for k, v in cols.items()}
+            blk = torch.zeros((nzl * L, _COLS), dtype=dtype, device=dev)
+            types = torch.zeros((nzl * L,), dtype=torch.int32, device=dev)
+            for r, b, t in blocks:
+                loc = rows - r.start
+                sel = (loc >= 0) & (loc < r.stop - r.start)
+                at = torch.clamp(loc, 0, r.stop - r.start - 1)
+                blk = torch.where(sel[:, None], to_device(b, dev)[at], blk)
+                types = torch.where(sel, to_device(t, dev)[at], types)
+            cols = _unblock(blk, has)
+            cols.update(types=types, valid=has.to(dtype),
+                        orig=torch.where(has, rows, n).to(torch.int32))
             gd = g.on(dev)
             cols["positions"] = torch.where(
                 cols["valid"][:, None] > 0, cols["positions"],
                 gd.slab_centers(z0, nzl)[:nzl * L])
             bufs.append(self._buffer(s, gd, cols))
-        like = dataclasses.replace(state, thermostat={
-            **(state.thermostat or {}), "dof": float(3 * n - 3)})
+        like = dataclasses.replace(state.shards[0], box=state.box,
+                                   step=state.step, tilted=state.tilted,
+                                   rng=state.rng, thermostat={
+                                       **(state.thermostat or {}),
+                                       "dof": float(3 * n - 3)})
         return self._assemble(like, bufs, overflow, occ)
 
     def to_particles(self, vals, aux):
@@ -533,20 +541,42 @@ class SlabSlots:
         return Shards(out)
 
     def unpack(self, slot_state, aux):
-        """``SlabState`` -> particle-order ``SimState`` on the first
-        shard's device (the run's one gather of the shards)."""
-        st = slot_state
-
-        def back(vals):
-            return self.to_particles(vals, aux)
-
+        """``SlabState`` -> :class:`.state.RowState`: each mesh shard's
+        contiguous particle rows (:func:`.state.shard_rows`) written on
+        its device from every z-slab shard's home rows, scattered by their
+        particles (the run's one exchange of the shards: no whole-state
+        gather on the first device)."""
+        st, n = slot_state, self.n
+        devices = [dev for dev, _, _ in self.slabs]
+        sent = []
+        for s, p in enumerate(st.shards):
+            H = self.home(s)
+            sent.append((_block(p, H), torch.stack(
+                [aux["orig"][s][:H], p.types[:H]], dim=1)))
+        rows = shard_rows(n, len(devices))
+        shards = []
+        for dev, r in zip(devices, rows):
+            m = r.stop - r.start
+            blk = torch.zeros((m + 1, _COLS), dtype=st.dtype, device=dev)
+            ints = torch.zeros((m + 1, 2), dtype=torch.int32, device=dev)
+            for b, i in sent:
+                i = to_device(i, dev)
+                o = i[:, 0].long()
+                # rows of other shards' particles (and ghosts, halo rows)
+                # land in the dump row past the end
+                at = torch.where((o >= r.start) & (o < r.stop),
+                                 o - r.start, m)
+                blk.index_copy_(0, at, to_device(b, dev))
+                ints.index_copy_(0, at, i)
+            cols = _unblock(blk[:m])
+            shards.append(SimState(
+                **cols, types=ints[:m, 1].contiguous(),
+                box=to_device(st.box, dev), step=st.step, tilted=st.tilted,
+                noise_rows=(r, n)))
         thermostat = dict(st.thermostat or {})
         thermostat.pop("dof", None)
-        return SimState(
-            positions=back(st.positions), velocities=back(st.velocities),
-            types=back(st.types), masses=back(st.masses), box=st.box,
-            forces=back(st.forces), virial=back(st.virial), step=st.step,
-            thermostat=thermostat, tilted=st.tilted, rng=st.rng)
+        return RowState(shards, rows, st.box, n, st.step, thermostat,
+                        st.tilted, st.rng)
 
     # ------------------------------------------------------------------
     def needs_rebuild(self, slot_state, aux):
@@ -626,10 +656,8 @@ class SlabSlots:
         blks, ints = [], []
         for s, p in enumerate(st.shards):
             H = self.home(s)
-            blks.append(torch.cat(
-                [p.positions[:H], p.velocities[:H], p.masses[:H, None],
-                 p.forces[:H], p.virial[:H].reshape(H, 9)] +
-                [aux[k][s][:H].reshape(H, -1) for k in carried], dim=1))
+            blks.append(_block(p, H, [aux[k][s][:H].reshape(H, -1)
+                                      for k in carried]))
             ints.append(torch.stack([aux["orig"][s][:H], p.types[:H]],
                                     dim=1))
         geoms = self.geoms(st)
@@ -700,7 +728,7 @@ class SlabSlots:
                 orig=torch.where(has, gi[:, 0], n),
                 types=torch.where(has, gi[:, 1], 0),
                 valid=has.to(wb.dtype))
-            col = 20
+            col = _COLS
             for k in carried:
                 w = aux[k][s][0].numel()
                 cols[k] = torch.where(h, g[:, col:col + w], 0.0).reshape(
@@ -710,6 +738,32 @@ class SlabSlots:
         overflow = aux["overflow"] | self._first(flags).any()
         occ = torch.maximum(aux["occ_max"], self._first(occs).max())
         return self._assemble(st, bufs, overflow, occ, aux["vmax"])
+
+
+#: the float columns of :func:`_block`
+_COLS = 20
+
+
+def _block(p, rows=None, extra=()):
+    """The float row fields of the :class:`.state.SimState` ``p`` (its
+    first ``rows``) as one ``[rows, 20]`` block: positions, velocities,
+    mass, forces4, virial; then the columns of ``extra``."""
+    r = slice(rows)
+    n = p.positions[r].shape[0]
+    return torch.cat([p.positions[r], p.velocities[r], p.masses[r, None],
+                      p.forces[r], p.virial[r].reshape(n, 9)] + list(extra),
+                     dim=1)
+
+
+def _unblock(blk, has=None):
+    """:func:`_block`'s fields of ``blk`` (contiguous tensors); with
+    ``has`` the mass of every other row 1."""
+    masses = blk[:, 6] if has is None else torch.where(has, blk[:, 6], 1.0)
+    return dict(positions=blk[:, 0:3].contiguous(),
+                velocities=blk[:, 3:6].contiguous(),
+                masses=masses.contiguous(),
+                forces=blk[:, 7:11].contiguous(),
+                virial=blk[:, 11:20].reshape(-1, 3, 3))
 
 
 def _frac(positions, g):

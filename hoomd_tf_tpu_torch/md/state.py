@@ -1,7 +1,8 @@
 """Simulation state (PyTorch port of ``hoomd_tf_tpu/md/state.py``).
 
 One dataclass of device tensors (and, under a mesh, :class:`SlabState`,
-one per shard). Unlike the JAX package, whose pure
+one per z-slab shard of the slot state, or :class:`RowState`, one per
+shard of the particle rows). Unlike the JAX package, whose pure
 functions return replaced copies, the port's integrators and slot layout
 update a ``SimState`` object by rebinding its fields; callers that need
 the old state (``Simulation.run``'s rollback) keep their own reference
@@ -16,8 +17,8 @@ import torch
 from .._device import resolve_device, to_device
 from ..ops.box import box_from_lengths, host_tilt
 
-__all__ = ["SimState", "SlabState", "Shards", "lattice_positions",
-           "init_state"]
+__all__ = ["SimState", "SlabState", "RowState", "Shards",
+           "lattice_positions", "init_state"]
 
 
 @dataclasses.dataclass
@@ -98,20 +99,14 @@ def _rows(name):
     return property(get, put)
 
 
-class SlabState:
-    """A slot state resident per z-slab shard of a mesh.
-
-    ``shards[s]`` is a :class:`SimState` on ``mesh.devices[s]`` over the
-    rows of shard ``s``'s buffer (:class:`.slots.SlabSlots`): its home
-    layers, then one forward halo layer, which holds the next shard's
-    first home layer (positions, types) for the pair kernel and is
-    otherwise inert (zero velocity, force and virial, unit mass, no
-    noise). The run-wide values -- the box, the step, the thermostat,
-    ``tilted``, the generator and the number of particles -- live here,
-    on the first shard's device; setting ``box`` copies it to every
-    shard. The row fields (``positions``, ``velocities``, ``types``,
-    ``masses``, ``forces``, ``virial``) read and write :class:`Shards`.
-    """
+class _Sharded:
+    """What :class:`SlabState` and :class:`RowState` share: ``shards[s]``,
+    a :class:`SimState` on ``mesh.devices[s]``, and the run-wide values --
+    the box, the step, the thermostat, ``tilted``, the generator and the
+    number of particles -- on the first shard's device; setting ``box``
+    copies it to every shard. The row fields (``positions``,
+    ``velocities``, ``types``, ``masses``, ``forces``, ``virial``) read
+    and write :class:`Shards`."""
 
     positions = _rows("positions")
     velocities = _rows("velocities")
@@ -144,12 +139,133 @@ class SlabState:
     def n_particles(self):
         return self.n
 
+    @property
+    def dtype(self):
+        return self.shards[0].positions.dtype
+
+    @property
+    def device(self):
+        """The first shard's device, where the run-wide values live."""
+        return self.shards[0].positions.device
+
+
+class SlabState(_Sharded):
+    """A slot state resident per z-slab shard of a mesh.
+
+    ``shards[s]`` is a :class:`SimState` on ``mesh.devices[s]`` over the
+    rows of shard ``s``'s buffer (:class:`.slots.SlabSlots`): its home
+    layers, then one forward halo layer, which holds the next shard's
+    first home layer (positions, types) for the pair kernel and is
+    otherwise inert (zero velocity, force and virial, unit mass, no
+    noise). The run-wide values are :class:`_Sharded`'s.
+    """
+
     def copy(self):
         """A shallow copy whose shards are shallow copies too: fields are
         rebound, so the copy's steps leave this state as it is."""
         return SlabState([dataclasses.replace(p) for p in self.shards],
                          self._box, self.n, self.step, self.thermostat,
                          self.tilted, self.rng)
+
+
+class RowState(_Sharded):
+    """A particle-order state resident by contiguous particle rows per
+    mesh shard (the JAX package's row-sharded particle arrays).
+
+    ``shards[s]`` is a :class:`SimState` on ``devices[s]`` of the rows
+    ``rows[s]`` (a ``slice``), with no halo; its ``noise_rows`` is
+    ``(rows[s], n)``, so the stochastic integrators take each shard's rows
+    of one ``[n, 3]`` draw on the first device
+    (:func:`.integrators._noise`). The run-wide values are
+    :class:`_Sharded`'s. :meth:`whole` joins the rows on the first device
+    (a reader's :class:`SimState`, made on read); :meth:`split` and
+    :meth:`join` move a tensor of every particle's rows to the shards and
+    back.
+    """
+
+    def __init__(self, shards, rows, box, n, step=0, thermostat=None,
+                 tilted=False, rng=None):
+        self.rows = list(rows)
+        super().__init__(shards, box, n, step, thermostat, tilted, rng)
+
+    @classmethod
+    def of(cls, state, devices, rows):
+        """The particle-order :class:`SimState` ``state`` split into the
+        ``rows`` (``slice``s) of each of ``devices``; a shard on
+        ``state``'s own device holds views of its tensors."""
+        shards = []
+        for dev, r in zip(devices, rows):
+            shards.append(SimState(
+                **{k: to_device(getattr(state, k)[r], dev)
+                   for k in _ROW_FIELDS},
+                box=to_device(state.box, dev), step=state.step,
+                tilted=state.tilted, noise_rows=(r, state.n_particles)))
+        return cls(shards, rows, state.box, state.n_particles, state.step,
+                   state.thermostat, state.tilted, state.rng)
+
+    def copy(self):
+        """A shallow copy whose shards are shallow copies too (see
+        :meth:`SlabState.copy`)."""
+        return RowState([dataclasses.replace(p) for p in self.shards],
+                        self.rows, self._box, self.n, self.step,
+                        self.thermostat, self.tilted, self.rng)
+
+    def split(self, t):
+        """A tensor of every particle's rows (on any device) -> each
+        shard's rows on its device, :class:`Shards`."""
+        return Shards(to_device(t[r], p.positions.device)
+                      for r, p in zip(self.rows, self.shards))
+
+    def join(self, vals):
+        """Each shard's rows (:class:`Shards`) joined in particle order on
+        the first shard's device."""
+        dev = self.device
+        return torch.cat([to_device(v, dev) for v in vals])
+
+    def whole(self):
+        """The particle-order :class:`SimState` on the first shard's
+        device: the row fields joined (new tensors, made on each call),
+        the run-wide values shared. Setting one of its fields writes the
+        value through to this state (a row field split into the shards);
+        a write into one of its tensors stays in that tensor."""
+        st = _Joined(**{k: self.join(getattr(self, k)) for k in _ROW_FIELDS},
+                     box=self.box, step=self.step,
+                     thermostat=dict(self.thermostat), tilted=self.tilted,
+                     rng=self.rng)
+        object.__setattr__(st, "_owner", self)
+        return st
+
+
+class _Joined(SimState):
+    """:meth:`RowState.whole`'s :class:`SimState`, whose field writes go
+    through to the :class:`RowState` it was read from."""
+
+    def __setattr__(self, name, value):
+        object.__setattr__(self, name, value)
+        owner = self.__dict__.get("_owner")
+        if owner is None:
+            return
+        if name in _ROW_FIELDS:
+            setattr(owner, name, owner.split(value))
+        elif name in ("box", "step", "thermostat", "tilted", "rng"):
+            setattr(owner, name, value)
+
+
+_ROW_FIELDS = ("positions", "velocities", "types", "masses", "forces",
+               "virial")
+
+
+def shard_rows(n, S):
+    """The contiguous particle rows of each of ``S`` mesh shards, ``n s //
+    S`` on: ``slice``s."""
+    return [slice(n * s // S, n * (s + 1) // S) for s in range(S)]
+
+
+def first_rows(state):
+    """A row tensor of ``state`` (a :class:`SimState`, or a sharded
+    state's first shard's) for its dtype and device."""
+    shards = getattr(state, "shards", None)
+    return state.positions if shards is None else shards[0].positions
 
 
 def lattice_positions(n, density=None, a=None, kind="sc"):

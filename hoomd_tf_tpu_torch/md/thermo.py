@@ -66,12 +66,14 @@ def log_row(state, valid=None):
     """The :data:`LOG_KEYS` quantities of ``state`` as one ``[4]`` device
     tensor of the state's dtype (nothing is read back); ``valid``
     (``[n_slots]``, slot order) leaves the ghost rows out of every sum.
-    Of a :class:`.state.SlabState` (``valid`` its shards') each shard's
-    partial sums, added on the first shard's device."""
+    Of a :class:`.state.SlabState` (``valid`` its shards') or a
+    :class:`.state.RowState` each shard's partial sums, added on the first
+    shard's device."""
     shards = getattr(state, "shards", None)
     if shards is None:
         ke, pe, w = _sums(state, valid)
     else:
+        valid = [None] * len(shards) if valid is None else valid
         parts = [_sums(p, v) for p, v in zip(shards, valid)]
         dev = parts[0].device
         ke, pe, w = torch.stack([to_device(t, dev) for t in parts]).sum(0)

@@ -19,9 +19,11 @@ the optimizer and the weights on the first device. Every ``'cellwise'``
 route is resident so: the planes route (a SimModel the lane-separability
 probe rejects, training's planes branch, a mapped model) builds each
 shard's planes on its device and runs the model once on every row
-joined on the first device. Between runs the particle-order state lies
-on the first device. The dense ``'n2'`` build
-is split into contiguous particle rows.
+joined on the first device. The packed routes (``'n2'``, ``'cell'``,
+``'pallas'``, ``'direct'``) keep the particle-order state by contiguous
+particle rows per shard, and so does every route between runs
+(``md/state.py::RowState``): reading ``state`` joins the rows on the first
+device.
 
 The class only adds convenience, as in the JAX package: a default mesh
 over the visible cards, the ``kT``/``tau`` shorthand for NVT, and an
@@ -30,8 +32,10 @@ for a z-decomposed cell grid.
 """
 
 import numpy as np
+import torch
 
 from ..md import integrators as _integrators
+from ..md.state import RowState
 from ..md.simulation import Simulation
 from .mesh import make_mesh
 
@@ -63,15 +67,24 @@ class ShardedSimulation(Simulation):
         return self.mesh.shape[self.shard_axis]
 
     def _shard_state(self):
-        """Check that the state lies on the mesh's first device, where the
-        particle-order state stands between runs (the JAX package places
-        it row-sharded here; the port's cellwise runs scatter it into
-        each shard's resident slot rows at a run's start and gather it at
-        its end)."""
-        if self.state is not None and \
-                self.state.positions.device != self.mesh.devices[0]:
+        """Check where the state lies: a state just set on the mesh's
+        first device, or, once a run has started, each shard's particle
+        rows on its own device (:class:`..md.state.RowState`, the JAX
+        package's row-sharded placement, kept between runs)."""
+        st = self._state
+        if st is None:
+            return
+        if isinstance(st, RowState):
+            for s, p in enumerate(st.shards):
+                want = torch.empty(0, device=self.mesh.devices[s]).device
+                if p.positions.device != want:
+                    raise ValueError(
+                        f"shard {s}'s rows are on {p.positions.device}, "
+                        f"its mesh device is {want}")
+            return
+        if st.positions.device != self.mesh.devices[0]:
             raise ValueError(
-                f"the state is on {self.state.positions.device}, the mesh's "
+                f"the state is on {st.positions.device}, the mesh's "
                 f"first device is {self.mesh.devices[0]}")
 
     def cellwise_feasible(self, r_cut):
@@ -79,7 +92,7 @@ class ShardedSimulation(Simulation):
         mesh?"""
         from ..ops.cellwise import plan_cellwise
         lengths = np.asarray(self._lengths, dtype=np.float64)
-        return plan_cellwise(self.state.n_particles, lengths, r_cut,
+        return plan_cellwise(self._state.n_particles, lengths, r_cut,
                              z_divisor=self.n_devices) is not None
 
     def attach(self, model, r_cut, nlist=None, **kwargs):
@@ -94,7 +107,7 @@ class ShardedSimulation(Simulation):
             (``period``, ``save_output_period``, ...).
         """
         from ..driver import tfcompute
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("Initialize the simulation state first")
         if nlist is None:
             nlist = "cellwise" if self.cellwise_feasible(r_cut) else "n2"

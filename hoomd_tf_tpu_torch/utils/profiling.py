@@ -63,7 +63,7 @@ def trace(log_dir, device=None):
 
 
 def _sync(sim):
-    dev = sim.state.positions.device
+    dev = sim.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 

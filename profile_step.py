@@ -21,7 +21,8 @@ Run from the root of a checkout on a machine with one CUDA card:
                             [--route cell|cellwise|molsim]
     python3 profile_step.py --mode calls [--tree DIR] [--dtype float64]
                             [--only k2|k3]
-    python3 profile_step.py --mode mesh [--row generic|planes] [--tree DIR]
+    python3 profile_step.py --mode mesh [--row generic|planes|packed|direct]
+                            [--tree DIR]
     python3 profile_step.py --mode meshtrain [--tree DIR]
 
 ``--tree DIR`` imports the port's package from another checkout (an
@@ -110,7 +111,9 @@ torch.profiler (their number, their summed time and the device's busy
 share). ``--row generic`` runs phase 30's configuration instead
 (``LJPotential(64)``, Langevin, K1's generic form) beside the same model
 unsharded (phase 7's route); ``--row planes`` the planes route of
-phases 35 and 38 (:func:`mesh_planes`). With
+phases 35 and 38 (:func:`mesh_planes`); ``--row packed`` and ``--row
+direct`` the packed routes' step loops of phases 36 and 37
+(:func:`mesh_packed`). With
 ``--tree DIR`` the package is an older checkout's, so one call measures
 two trees on one card.
 
@@ -1002,6 +1005,74 @@ def mesh_planes(cs):
     return out
 
 
+def mesh_packed(cs, row="packed"):
+    """``--mode mesh --row packed|direct``: chip_smoke.py phase 36's step
+    loop (a generic SimModel, ``LJModel(64)``, on ``'auto'``: the cell
+    list with K3's group mode; warm ``run(20)``, timed ``run(200)``,
+    profiled ``run(10)``) or phase 37's (``LJPotential(64)`` on
+    ``'direct'``; ``run(5)``, ``run(50)``, ``run(3)``) through
+    ``Simulation(mesh=)`` on 4 virtual shards of cuda:0 (or min(4, cards)
+    cards), NVT at kT 1.5 from phase 4's fluid. The timed run forbids host
+    syncs. Reports steps/s, the first card's peak memory over the timed
+    run (and what stood before it), the kernels of a step under
+    torch.profiler (their number, summed time, the busy share) and the
+    class of the state the engine holds after the run (``RowState``: by
+    particle rows per shard; ``SimState``: whole on the first card)."""
+    torch, htt = cs.torch, cs.htt
+    from torch.profiler import ProfilerActivity, profile
+    sim = cs.jittered_sim(cs.N, htt.md.Minimize(max_disp=0.05), "cuda")
+    htt.tfcompute(cs.make_model()).attach(sim, r_cut=cs.R_CUT,
+                                          nlist="cellwise")
+    sim.run(60)
+    sim.thermalize_velocities(1.5)
+    sim.integrator = htt.md.NVT(kT=1.5, tau=0.5)
+    sim.run(1000)
+    sim.run(1000)
+    state = sim.state
+    del sim
+    torch.cuda.empty_cache()
+    mesh, kind = cs.shard_mesh()
+    shd = htt.Simulation(dt=0.005, seed=0, mesh=mesh,
+                         integrator=htt.md.NVT(kT=1.5, tau=0.5))
+    shd.set_state(state)
+    del state
+    if row == "direct":
+        model, nlist, (warm, steps, prof_steps) = (
+            htt.LJPotential(64), "direct", (5, 50, 3))
+    else:
+        model, nlist, (warm, steps, prof_steps) = (
+            cs.make_simmodel(64), None, (20, 200, 10))
+    htt.tfcompute(model).attach(shd, r_cut=cs.R_CUT, nlist=nlist)
+    shd.check_syncs = True
+    shd.run(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(0)
+    m0 = torch.cuda.memory_allocated(0)
+    t0 = time.perf_counter()
+    shd.run(steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        shd.run(prof_steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = kernel_events(prof)
+    held = shd.__dict__.get("_state", shd.state)
+    return {"phase": "37" if row == "direct" else "36", "mesh": kind,
+            "method": shd._packed_build().method,
+            "steps_per_s": steps / dt, "timed_steps": steps,
+            "peak_gib": peak / 2 ** 30, "before_gib": m0 / 2 ** 30,
+            "kernels_per_step": len(ev) / prof_steps,
+            "kernel_ms_per_step":
+                sum(b - a for _, a, b in ev) / 1e3 / prof_steps,
+            "busy_share": union_us([(a, b) for _, a, b in ev]) / 1e3 /
+            wall,
+            "state": type(held).__name__}
+
+
 def mesh_train(cs, steps=200):
     """``--mode meshtrain``: chip_smoke.py's sharded training rows through
     ShardedSimulation on 4 virtual shards of the card (or min(4, cards)
@@ -1375,7 +1446,8 @@ def main():
                                        "meshtrain"),
                     default="train")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--row", choices=("proxy", "pair", "generic", "planes"),
+    ap.add_argument("--row", choices=("proxy", "pair", "generic", "planes",
+                                      "packed", "direct"),
                     default="proxy")
     ap.add_argument("--box", choices=("ortho", "tilted", "npt"),
                     default="ortho")
@@ -1419,8 +1491,10 @@ def main():
         print(json.dumps({"mode": "mesh", "tree": os.path.abspath(
             args.tree), "package": os.path.dirname(htt.__file__),
             "device": torch.cuda.get_device_name(0), "smi": cs.smi_line(),
-            "row": args.row, **(mesh_planes(cs) if args.row == "planes"
-                                else mesh_loop(cs, args.row))}, indent=1))
+            "row": args.row, **(
+                mesh_planes(cs) if args.row == "planes" else
+                mesh_packed(cs, args.row) if args.row in ("packed", "direct")
+                else mesh_loop(cs, args.row))}, indent=1))
         return 0
     if args.mode == "meshtrain":
         print(json.dumps({"mode": "meshtrain", "tree": os.path.abspath(

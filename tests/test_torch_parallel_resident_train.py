@@ -427,7 +427,7 @@ def test_rollback_restores_model_and_optimizer(monkeypatch):
     (a, atfc, am), (b, btfc, bm) = proxy_pair("adam")
     a.run(2)
     b.run(2)
-    start = a.state
+    start = a._state
     w0 = [np.asarray(x).copy() for x in am.get_weights()]
     o0 = {k: [t.clone() for t in v.values() if torch.is_tensor(t)]
           for k, v in atfc.opt_state.state.items()}
@@ -438,7 +438,7 @@ def test_rollback_restores_model_and_optimizer(monkeypatch):
         warnings.simplefilter("ignore")
         assert a._run_once(4, allow_retry=True) is False
     monkeypatch.setattr(SlabSlots, "needs_rebuild", real)
-    assert a.state is start and a.train_steps == 6
+    assert a._state is start and a.train_steps == 6
     assert all(np.array_equal(np.asarray(x), y)
                for x, y in zip(am.get_weights(), w0))
     for k, v in atfc.opt_state.state.items():

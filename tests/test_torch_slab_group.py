@@ -18,6 +18,8 @@ group against the unsharded port at atol 5e-4 in positions
 (tests/test_parallel.py's bar).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -113,14 +115,28 @@ def test_group_matches_exchange_and_unsharded(S, dtype, typed):
     assert np_(f_u)[:, 3].any()
 
 
-def jax_k1(pos, vel, lengths, plan_t, lo, typed):
-    """The JAX package's K1 on the same fluid and plan: the Pallas kernel
-    (interpreted) under shard_map on 8 virtual devices, and unsharded;
-    returns ``(sharded, unsharded)`` forces and virials in slot order."""
+@functools.lru_cache(maxsize=None)
+def jax_k1(typed):
+    """The JAX package's K1 on group_case's fluid at its plan for 2
+    shards, the same for S = 2 and 3 (computed once a module): the Pallas
+    kernel (interpreted) under shard_map on 8 virtual devices, and
+    unsharded; returns ``(plan, (sharded, unsharded))``, forces and
+    virials in slot order, as numpy arrays.
+
+    The sharded call runs under ``jax.jit``, as one program: called
+    eagerly, each step of its assembly on the shard_map's sharded outputs
+    (the rolls of ``_roll_back``, collective permutes) is a program of
+    its own on the 8 devices, and XLA:CPU's in-process rendezvous of such
+    a permute can wait with 6 of its 8 participants for the 40 s of
+    ``xla_cpu_collective_call_terminate_timeout_seconds`` and then abort
+    the process (it did so in about one run in six of this call alone,
+    and took a test worker down under the suite's load)."""
+    import jax
+    pos, vel, lengths = fluid_arrays(N, 0.4, 3, jitter=0.08)
+    lo = -np.asarray(lengths, np.float64) / 2
     types = (np.arange(N) % 2) if typed else None
     jplan = jcw.plan_cellwise(N, lengths, 2.5, positions=pos, lo=lo,
                               z_divisor=2)
-    assert (jplan.grid, jplan.capacity) == (plan_t.grid, plan_t.capacity)
     jl = JLayout(jplan, N, lo, rc_matrix=RCM if typed else None)
     js, jaux, _ = jl.pack(jinit(pos, lengths, types=types, velocities=vel))
 
@@ -131,12 +147,19 @@ def jax_k1(pos, vel, lengths, plan_t, lo, typed):
         e = (jnp.where((ti == 0) & (tj == 0), 1.0, 0.5) if typed else 1.0)
         return (4.0 * e * (sr6 * sr6 - sr6),
                 -12.0 * e * (2.0 * sr6 - 1.0) * sr6 * u)
-    args = (js.positions, js.types, jaux["valid"], jplan, jl.lo, lj)
     kw = dict(needs_virial=True, with_types=typed, rcut_matrix=jl.rc_matrix)
-    sharded = jcw.analytic_pair_forces(*args, stencil="pallas",
-                                       mesh=jmesh(8), shard_axis="d", **kw)
-    whole = jcw.analytic_pair_forces(*args, stencil="full", **kw)
-    return sharded, whole
+
+    def k1(stencil, mesh=None):
+        def call(p, t, v):
+            return jcw.analytic_pair_forces(
+                p, t, v, jplan, jl.lo, lj, stencil=stencil, mesh=mesh,
+                shard_axis="d", **kw)
+        return call
+    args = (js.positions, js.types, jaux["valid"])
+    sharded = jax.jit(k1("pallas", jmesh(8)))(*args)
+    whole = k1("full")(*args)
+    return jplan, tuple(tuple(np.asarray(t) for t in out)
+                        for out in (sharded, whole))
 
 
 @pytest.mark.parametrize("S", [2, 3])
@@ -151,8 +174,9 @@ def test_group_matches_jax_sharded_and_unsharded(S):
         st.positions, st.types, aux["valid"], layout.plan, layout.lo,
         form.evaluate, mesh, slots.geoms(st), needs_virial=True,
         with_types=True, rcut_matrix=layout.rc2_tab, form=form)
-    (fs, ws), (fw, ww) = jax_k1(pos, vel, lengths, layout.plan,
-                                np.asarray(layout.lo), True)
+    jplan, ((fs, ws), (fw, ww)) = jax_k1(True)
+    assert (jplan.grid, jplan.capacity) == (layout.plan.grid,
+                                            layout.plan.capacity)
     for got, want in ((slots.whole(f_g), fs), (slots.whole(w_g), ws),
                       (slots.whole(f_g), fw), (slots.whole(w_g), ww)):
         np.testing.assert_allclose(np_(got), np.asarray(want), rtol=1e-4,
